@@ -1,0 +1,184 @@
+"""Transformer text encoder (BERT / RoBERTa family) with a pooled output.
+
+Counterpart of qagnn_tpu/models/text_encoder.py (`TextEncoderConfig`,
+`SelfAttention`, `TransformerBlock`, `TextEncoder`): post-LN blocks, f32
+attention logits and softmax with a -1e9 additive mask, and the reference's
+selectable-layer pooler tanh(W h[layer_id][:, 0]) (reference
+modeling/modeling_encoder.py:126,142). Attention is plain torch ops, as the
+JAX package computes it outside any kernel.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from qagnn_tpu_torch.models.layers import dense
+
+
+@dataclass(frozen=True)
+class TextEncoderConfig:
+    vocab_size: int
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    pad_token_id: int = 0
+    # RoBERTa numbers positions from pad_token_id + 1 over real tokens
+    roberta_style_positions: bool = False
+    hidden_act: str = "gelu"         # "gelu" (exact) | "gelu_new" (tanh)
+    dtype: torch.dtype = torch.float32   # compute dtype
+
+    @classmethod
+    def roberta_base(cls, **kw):
+        return cls(vocab_size=50265, hidden_size=768, num_layers=12,
+                   num_heads=12, intermediate_size=3072,
+                   max_position_embeddings=514, type_vocab_size=1,
+                   layer_norm_eps=1e-5, pad_token_id=1,
+                   roberta_style_positions=True, **kw)
+
+    @classmethod
+    def roberta_large(cls, **kw):
+        return cls(vocab_size=50265, hidden_size=1024, num_layers=24,
+                   num_heads=16, intermediate_size=4096,
+                   max_position_embeddings=514, type_vocab_size=1,
+                   layer_norm_eps=1e-5, pad_token_id=1,
+                   roberta_style_positions=True, **kw)
+
+    @classmethod
+    def bert_base(cls, **kw):
+        """Also SapBERT (PubMedBERT-fulltext architecture)."""
+        return cls(vocab_size=30522, **kw)
+
+    @classmethod
+    def tiny(cls, **kw):
+        """For tests and CPU smoke runs."""
+        kw.setdefault("vocab_size", 128)
+        kw.setdefault("hidden_size", 32)
+        kw.setdefault("num_layers", 2)
+        kw.setdefault("num_heads", 2)
+        kw.setdefault("intermediate_size", 64)
+        kw.setdefault("max_position_embeddings", 64)
+        return cls(**kw)
+
+
+def _layer_norm(x, ln: nn.LayerNorm, dtype):
+    return F.layer_norm(x.to(dtype), ln.normalized_shape, ln.weight.to(dtype),
+                        ln.bias.to(dtype), ln.eps)
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, cfg: TextEncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.hidden_size
+        self.query = nn.Linear(d, d)
+        self.key = nn.Linear(d, d)
+        self.value = nn.Linear(d, d)
+        self.out = nn.Linear(d, d)
+
+    def forward(self, h, attn_bias):
+        cfg = self.cfg
+        d, nh = cfg.hidden_size, cfg.num_heads
+        dh = d // nh
+        B, L, _ = h.shape
+        q = dense(h, self.query, cfg.dtype).reshape(B, L, nh, dh)
+        k = dense(h, self.key, cfg.dtype).reshape(B, L, nh, dh)
+        v = dense(h, self.value, cfg.dtype).reshape(B, L, nh, dh)
+        # f32 logits and softmax whatever the compute dtype
+        scores = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float())
+        scores = scores / np.sqrt(dh) + attn_bias
+        probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
+        probs = F.dropout(probs, cfg.attention_dropout, self.training)
+        ctx = torch.einsum("bhlm,bmhd->blhd", probs, v).reshape(B, L, d)
+        return dense(ctx, self.out, cfg.dtype)
+
+
+class TransformerBlock(nn.Module):
+    """Post-LN block: h = LN(h + Attn(h)); h = LN(h + FFN(h))."""
+
+    def __init__(self, cfg: TextEncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.hidden_size
+        self.attention = SelfAttention(cfg)
+        self.attention_ln = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.intermediate = nn.Linear(d, cfg.intermediate_size)
+        self.output = nn.Linear(cfg.intermediate_size, d)
+        self.output_ln = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+
+    def forward(self, h, attn_bias):
+        cfg = self.cfg
+        a = F.dropout(self.attention(h, attn_bias), cfg.hidden_dropout,
+                      self.training)
+        h = _layer_norm(h + a, self.attention_ln, cfg.dtype)
+        f = dense(h, self.intermediate, cfg.dtype)
+        f = F.gelu(f, approximate="tanh" if cfg.hidden_act == "gelu_new"
+                   else "none")
+        f = F.dropout(dense(f, self.output, cfg.dtype), cfg.hidden_dropout,
+                      self.training)
+        return _layer_norm(h + f, self.output_ln, cfg.dtype)
+
+
+class TextEncoder(nn.Module):
+    """BERT/RoBERTa encoder with the reference's pooled-output contract."""
+
+    def __init__(self, cfg: TextEncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.hidden_size
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, d)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, d)
+        self.token_type_embeddings = nn.Embedding(
+            max(cfg.type_vocab_size, 1), d)
+        self.embeddings_ln = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        for i in range(cfg.num_layers):
+            self.add_module(f"layer_{i}", TransformerBlock(cfg))
+        self.pooler = nn.Linear(d, d)
+
+    def forward(self, input_ids, attention_mask, token_type_ids=None,
+                special_tokens_mask=None, *, layer_id: int = -1):
+        """input_ids/attention_mask: (B, L). Returns pooled (B, hidden) of
+        hidden state `layer_id` (0 = embeddings). `special_tokens_mask` is
+        accepted for interface parity and unused."""
+        del special_tokens_mask
+        cfg = self.cfg
+        B, L = input_ids.shape
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        if cfg.roberta_style_positions:
+            mask = (input_ids != cfg.pad_token_id).long()
+            position_ids = torch.cumsum(mask, dim=1) * mask + cfg.pad_token_id
+        else:
+            position_ids = torch.arange(L, device=input_ids.device)[None, :] \
+                .expand(B, L)
+        n_types = max(cfg.type_vocab_size, 1)
+
+        def embed(ids, table):   # flax Embed(dtype=...): rows in cfg.dtype
+            return F.embedding(ids.long(), table.weight).to(cfg.dtype)
+
+        h = (embed(input_ids, self.word_embeddings)
+             + embed(position_ids, self.position_embeddings)
+             + embed(torch.clamp(token_type_ids.long(), 0, n_types - 1),
+                     self.token_type_embeddings))
+        h = _layer_norm(h, self.embeddings_ln, cfg.dtype)
+        h = F.dropout(h, cfg.hidden_dropout, self.training)
+
+        attn_bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0,
+                                -1e9).float()                   # (B,1,1,L)
+        all_hidden = [h]
+        for i in range(cfg.num_layers):
+            h = getattr(self, f"layer_{i}")(h, attn_bias)
+            all_hidden.append(h)
+
+        return torch.tanh(dense(all_hidden[layer_id][:, 0], self.pooler,
+                                cfg.dtype))

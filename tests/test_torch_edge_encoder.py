@@ -1,0 +1,158 @@
+"""The port's edge encoder against the JAX package (CPU, f32).
+
+`edge_hidden` (the CUDA kernel's plain version on CPU tensors) against the
+Pallas `edge_hidden` in interpret mode, and `EdgeEncoder` in eval mode with
+non-trivial running statistics on both branches. Tolerance rtol/atol 2e-5:
+the same f32 arithmetic summed in another order.
+"""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from qagnn_tpu.models.gnn import EdgeEncoder as JaxEdgeEncoder
+from qagnn_tpu.ops.pallas_edge_encoder import (
+    analytic_edge_moments as jax_moments,
+    edge_hidden as jax_edge_hidden,
+)
+
+from qagnn_tpu_torch.models.gnn import EdgeEncoder
+from qagnn_tpu_torch.ops.edge_encoder_kernels import (
+    analytic_edge_moments,
+    edge_hidden,
+)
+from qagnn_tpu_torch.utils.convert import load_flax_variables
+
+N_REL, N_NTYPE, D = 8, 4, 16
+F = N_REL + 2 * N_NTYPE
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Test workers share the machine's cores: one intra-op thread keeps
+    this file's torch ops from crowding out the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _graph(seed, G=3, N=10, E=24):
+    rng = np.random.default_rng(seed)
+    return dict(
+        etype=rng.integers(0, N_REL - 1, (G, E)).astype(np.int32),
+        src=rng.integers(0, N, (G, E)).astype(np.int32),
+        dst=rng.integers(0, N, (G, E)).astype(np.int32),
+        ntype=rng.integers(0, N_NTYPE, (G, N)).astype(np.int32),
+        mask=rng.random((G, E)) > 0.25)
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+@pytest.mark.parametrize("E", [24, 13])
+def test_edge_hidden_matches_pallas(E):
+    g = _graph(0, E=E)
+    rng = np.random.default_rng(1)
+    w0 = rng.standard_normal((F, D)).astype(np.float32)
+    b0, a, b = (rng.standard_normal(D).astype(np.float32) for _ in range(3))
+    got = edge_hidden(_t(g["etype"]), _t(g["src"]), _t(g["dst"]),
+                      _t(g["ntype"]), _t(w0), _t(b0), _t(a), _t(b),
+                      N_REL, N_NTYPE, torch.float32)
+    want = jax_edge_hidden(
+        jnp.asarray(g["etype"]), jnp.asarray(g["src"]), jnp.asarray(g["dst"]),
+        jnp.asarray(g["ntype"]), jnp.asarray(w0), jnp.asarray(b0),
+        jnp.asarray(a), jnp.asarray(b), N_REL, N_NTYPE, jnp.float32, True)
+    want = np.swapaxes(np.asarray(want), 1, 2)[:, :E]     # (G, E, D)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_analytic_moments_match_jax():
+    rng = np.random.default_rng(2)
+    w0 = rng.standard_normal((F, D)).astype(np.float32)
+    b0 = rng.standard_normal(D).astype(np.float32)
+    hist = rng.integers(0, 9, F).astype(np.float32)
+    M = rng.integers(0, 5, (F, F)).astype(np.float32)
+    n = np.float32(31.0)
+    got = analytic_edge_moments(_t(w0), _t(b0), _t(hist), _t(M), _t(n))
+    want = jax_moments(jnp.asarray(w0), jnp.asarray(b0), jnp.asarray(hist),
+                       jnp.asarray(M), jnp.asarray(n))
+    for x, y in zip(got, want):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=1e-5,
+                                   atol=1e-4)
+
+
+def _features(g):
+    G, E = g["src"].shape
+    N = g["ntype"].shape[1]
+    oh = lambda i, n: np.eye(n, dtype=np.float32)[i]
+    head = np.take_along_axis(g["ntype"], g["src"], 1)
+    tail = np.take_along_axis(g["ntype"], g["dst"], 1)
+    edge_feat = np.concatenate([oh(g["etype"], N_REL), oh(head, N_NTYPE),
+                                oh(tail, N_NTYPE)], -1).reshape(G * E, F)
+    self_feat = np.concatenate(
+        [oh(np.full((G, N), N_REL - 1), N_REL), oh(g["ntype"], N_NTYPE),
+         oh(g["ntype"], N_NTYPE)], -1).reshape(G * N, F)
+    return edge_feat, self_feat
+
+
+@pytest.fixture(scope="module")
+def encoders():
+    g = _graph(3)
+    edge_feat, self_feat = _features(g)
+    w = g["mask"].reshape(-1).astype(np.float32)
+    jenc = JaxEdgeEncoder(hidden_size=D, num_updates=2)
+    v = jenc.init(jax.random.PRNGKey(0), jnp.asarray(edge_feat),
+                  jnp.asarray(w), train=False)
+    params = jax.tree.map(np.asarray, v["params"])
+    rng = np.random.default_rng(4)
+    stats = {"bn": {"mean": rng.standard_normal(D).astype(np.float32) * 0.1,
+                    "var": rng.uniform(0.5, 2.0, D).astype(np.float32)}}
+    params["bn"] = {"scale": rng.uniform(0.5, 1.5, D).astype(np.float32),
+                    "bias": rng.standard_normal(D).astype(np.float32) * 0.1}
+    enc = EdgeEncoder(D, F, num_updates=2).eval()
+    load_flax_variables(enc, params, stats)
+    variables = {"params": params, "batch_stats": stats}
+    return g, edge_feat, self_feat, w, jenc, variables, enc
+
+
+def test_edge_encoder_eval_reference_branch(encoders):
+    g, edge_feat, self_feat, w, jenc, variables, enc = encoders
+    want = jenc.apply(variables, [(jnp.asarray(edge_feat), jnp.asarray(w)),
+                                  (jnp.asarray(self_feat), None)],
+                      train=False)
+    got = enc([(_t(edge_feat), _t(w)), (_t(self_feat), None)])
+    for x, y in zip(got, want):
+        np.testing.assert_allclose(x.detach().numpy(), np.asarray(y), **TOL)
+
+
+def test_edge_encoder_eval_fused_branch(encoders):
+    g, edge_feat, self_feat, w, jenc, variables, enc = encoders
+    (jh_edge, jh_self), (jw1, jb1) = jenc.apply(
+        variables, jnp.asarray(self_feat), train=False, return_hidden=True,
+        edge_ints=tuple(jnp.asarray(g[k]) for k in
+                        ("etype", "src", "dst", "ntype", "mask")),
+        n_rel=N_REL, n_ntype=N_NTYPE)
+    with torch.no_grad():
+        (h_edge, h_self), (w1, b1) = enc(
+            _t(self_feat), edge_ints=tuple(_t(g[k]) for k in
+                                           ("etype", "src", "dst", "ntype")),
+            n_rel=N_REL, n_ntype=N_NTYPE)
+    E = g["src"].shape[1]
+    np.testing.assert_allclose(
+        h_edge.numpy(), np.swapaxes(np.asarray(jh_edge), 1, 2)[:, :E], **TOL)
+    np.testing.assert_allclose(h_self.numpy(), np.asarray(jh_self), **TOL)
+    np.testing.assert_array_equal(w1.detach().numpy(), np.asarray(jw1))
+    np.testing.assert_array_equal(b1.detach().numpy(), np.asarray(jb1))
+    # both branches are one function: the fused hidden rows through
+    # linear_1 are the reference branch's outputs
+    ref_edge, ref_self = enc([(_t(edge_feat), _t(w)), (_t(self_feat), None)])
+    np.testing.assert_allclose((h_edge.reshape(-1, D) @ w1 + b1).detach()
+                               .numpy(), ref_edge.detach().numpy(), **TOL)
+    np.testing.assert_allclose((h_self @ w1 + b1).detach().numpy(),
+                               ref_self.detach().numpy(), **TOL)

@@ -1,0 +1,60 @@
+"""Package rules of qagnn_tpu_torch.
+
+The port and chip_smoke.py import neither JAX, flax nor the JAX package.
+This is a scan of the sources: the interpreter may have imported jax before
+any test runs, so sys.modules would prove nothing. And an entry point run
+with no device named refuses to fall back to the CPU when there is no card.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "qagnn_tpu")
+SOURCES = sorted((ROOT / "qagnn_tpu_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", None)) in (
+                "__import__", "import_module"):
+            for arg in node.args[:1]:
+                if isinstance(arg, ast.Constant) and isinstance(arg.value,
+                                                                str):
+                    yield arg.value.split(".")[0]
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_jax_imports(path):
+    bad = sorted({m for m in _imported_roots(path) if m in FORBIDDEN})
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_sees_the_package():
+    assert ROOT.joinpath("chip_smoke.py").exists()
+    names = {p.name for p in SOURCES}
+    assert {"gat_kernels.py", "edge_encoder_kernels.py", "gnn.py",
+            "qagnn.py", "step.py", "convert.py"} <= names
+    # the scan itself finds a forbidden import
+    probe = ROOT / "qagnn_tpu" / "ops" / "gat_attention.py"
+    assert "jax" in set(_imported_roots(probe))
+
+
+def test_eval_step_refuses_cpu_fallback(monkeypatch):
+    from qagnn_tpu_torch.train.step import make_eval_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_eval_step(torch.nn.Linear(2, 2))

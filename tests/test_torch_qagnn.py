@@ -1,0 +1,136 @@
+"""The port's LMQAGNN eval logits against flax (CPU, f32).
+
+A tiny RoBERTa-style encoder and a k=2 decoder; the flax variables are
+carried across by convert.py (strict) with perturbed BatchNorm running
+statistics, and the port is driven through its serving entry point
+`make_eval_step(device="cpu")`. Tolerance rtol 3e-4 / atol 3e-5, as
+tests/test_torch_oracle.py holds the decoder.
+"""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from qagnn_tpu.graph.container import BatchedGraphs as JaxGraphs
+from qagnn_tpu.models.qagnn import LMQAGNN as JaxLMQAGNN
+from qagnn_tpu.models.text_encoder import (
+    TextEncoder as JaxTextEncoder,
+    TextEncoderConfig as JaxTextEncoderConfig,
+)
+
+from qagnn_tpu_torch.graph.container import BatchedGraphs
+from qagnn_tpu_torch.models.qagnn import LMQAGNN
+from qagnn_tpu_torch.models.text_encoder import TextEncoder, TextEncoderConfig
+from qagnn_tpu_torch.train.step import accuracy, make_eval_step
+from qagnn_tpu_torch.utils.convert import load_flax_variables
+
+B, C, L, N, E = 2, 2, 12, 10, 20
+G = B * C
+K, D, N_NTYPE, N_ETYPE, N_CONCEPT, CIN, FC = 2, 16, 4, 7, 40, 24, 8
+ENC = dict(hidden_size=32, num_layers=2, num_heads=2, intermediate_size=64,
+           max_position_embeddings=L + 4, type_vocab_size=1,
+           layer_norm_eps=1e-5, pad_token_id=1, roberta_style_positions=True)
+TOL = dict(rtol=3e-4, atol=3e-5)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Test workers share the machine's cores: one intra-op thread keeps
+    this file's torch ops from crowding out the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _batch(seed):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(3, 128, (B, C, L)).astype(np.int32)
+    am = np.ones((B, C, L), np.int32)
+    ids[:, :, -3:] = 1                 # padding tokens
+    am[:, :, -3:] = 0
+    num_nodes = rng.integers(4, N + 1, G).astype(np.int32)
+    concept_ids = rng.integers(1, N_CONCEPT, (G, N)).astype(np.int32)
+    concept_ids[:, 0] = 0
+    node_types = rng.integers(0, 3, (G, N)).astype(np.int32)
+    node_types[:, 0] = 3
+    mask = rng.random((G, E)) > 0.3
+    mask[1] = False                    # a graph with every edge masked
+    graph = dict(
+        concept_ids=concept_ids, node_types=node_types,
+        node_scores=rng.standard_normal((G, N)).astype(np.float32),
+        num_nodes=num_nodes,
+        edge_src=np.stack([rng.integers(0, n, E) for n in num_nodes])
+        .astype(np.int32),
+        edge_dst=np.stack([rng.integers(0, n, E) for n in num_nodes])
+        .astype(np.int32),
+        edge_type=rng.integers(0, N_ETYPE, (G, E)).astype(np.int32),
+        edge_mask=mask)
+    return {"input_ids": ids, "attention_mask": am}, graph
+
+
+def _jax_model(backend):
+    return JaxLMQAGNN(
+        encoder=JaxTextEncoder(JaxTextEncoderConfig.tiny(**ENC)),
+        sent_dim=ENC["hidden_size"], k=K, n_ntype=N_NTYPE, n_etype=N_ETYPE,
+        n_concept=N_CONCEPT, concept_dim=D, concept_in_dim=CIN,
+        n_attention_head=2, fc_dim=FC, n_fc_layer=1, p_emb=0.0, p_gnn=0.0,
+        p_fc=0.0, gnn_backend=backend)
+
+
+def _port_model(backend):
+    return LMQAGNN(
+        TextEncoder(TextEncoderConfig.tiny(**ENC)),
+        sent_dim=ENC["hidden_size"], k=K, n_ntype=N_NTYPE, n_etype=N_ETYPE,
+        n_concept=N_CONCEPT, concept_dim=D, concept_in_dim=CIN,
+        n_attention_head=2, fc_dim=FC, n_fc_layer=1, gnn_backend=backend)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    lm, graph = _batch(0)
+    jlm = {k: jnp.asarray(v) for k, v in lm.items()}
+    jgraph = JaxGraphs(**{k: jnp.asarray(v) for k, v in graph.items()})
+    v = _jax_model("scatter").init(jax.random.PRNGKey(0), jlm, jgraph)
+    rng = np.random.default_rng(1)
+    stats = jax.tree.map(
+        lambda x: (rng.uniform(0.5, 2.0, x.shape) if np.all(np.asarray(x) == 1)
+                   else rng.standard_normal(x.shape) * 0.1).astype(np.float32),
+        jax.tree.map(np.asarray, v["batch_stats"]))
+    variables = {"params": jax.tree.map(np.asarray, v["params"]),
+                 "batch_stats": stats}
+    return lm, graph, jlm, jgraph, variables
+
+
+@pytest.mark.parametrize("backends", [("cuda", "pallas"),
+                                      ("scatter", "scatter")])
+def test_lmqagnn_eval_logits_match_flax(setup, backends):
+    lm, graph, jlm, jgraph, variables = setup
+    port_backend, jax_backend = backends
+    want = _jax_model(jax_backend).apply(variables, jlm, jgraph, train=False)
+
+    model = _port_model(port_backend)
+    load_flax_variables(model, variables["params"], variables["batch_stats"])
+    step = make_eval_step(model, device="cpu")
+    got = step({k: torch.from_numpy(v) for k, v in lm.items()},
+               BatchedGraphs(**{k: torch.from_numpy(v)
+                                for k, v in graph.items()}))
+    assert got.shape == (B, C)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    labels = torch.tensor([0, 1])
+    assert float(accuracy(got, labels)) == float(
+        np.mean(np.argmax(np.asarray(want), 1) == labels.numpy()))
+
+
+def test_convert_is_strict(setup):
+    _, _, _, _, variables = setup
+    model = _port_model("scatter")
+    params = dict(variables["params"])
+    params["extra"] = {"kernel": np.zeros((2, 2), np.float32)}
+    with pytest.raises(ValueError, match="not used"):
+        load_flax_variables(model, params, variables["batch_stats"])
+    params = {k: v for k, v in variables["params"].items() if k != "encoder"}
+    with pytest.raises(KeyError):
+        load_flax_variables(model, params, variables["batch_stats"])
