@@ -7,16 +7,28 @@ Run from the repository root on a machine with one CUDA card. It
   1. prints the card's name and power limit and turns TF32 off;
   2. builds the hand-written kernels of qagnn_tpu_torch/csrc with nvcc;
   3. holds each kernel against its plain PyTorch version on the card, at the
-     serving slice's shapes (G=64 graphs, N=200 nodes, E=4096 edge slots,
-     D=HD=200, 4 heads) with about 25% of edge slots masked, one graph with
-     every edge masked, and a ragged-E case, in float32 and bfloat16, and
-     times both with CUDA events;
-  4. serves the OBQA roberta-large LMQAGNN (random weights from a seed,
+     slices' shapes (G=64 graphs, N=200 nodes, E=4096 edge slots, D=HD=200,
+     4 heads) with about 25% of edge slots masked, one graph with every edge
+     masked, and a ragged-E case, in float32 and bfloat16 (backward pass 1
+     with and without a carry), and times both with CUDA events;
+  4. holds the gradients of the two autograd Functions on the kernels
+     against torch.autograd through the plain scatter path, in float32;
+  5. serves the OBQA roberta-large LMQAGNN (random weights from a seed,
      perturbed BatchNorm running statistics) through `make_eval_step` on the
      kernel path, checks that every kernel ran the expected number of times,
      and compares the logits with the same model on the scatter path;
-  5. prints one JSON line of per-kernel numbers, the card's name and power
+  6. trains the same model through `make_train_step` (RAdam, clipping, the
+     entity table frozen): one step on the kernel path against one on the
+     scatter path from the same state, then steps on a fixed batch with the
+     preset's dropout, the same masks at every step (loss finite and
+     falling), steps with the encoder
+     frozen, and a step in two microbatches, counting the launches of every
+     kernel per step;
+  7. prints one JSON line of per-kernel numbers, the card's name and power
      limit, and as its last line {"ok": true, "device": {...}}.
+
+`--only kernels,grads,serve,train` runs a subset of the phases (for work on
+one of them); with no arguments everything runs.
 
 It exits non-zero, printing no result, when there is no CUDA device or any
 check fails. It imports nothing of JAX or of the JAX package.
@@ -24,27 +36,37 @@ check fails. It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
 from qagnn_tpu_torch.graph.container import BatchedGraphs
+from qagnn_tpu_torch.models.gnn import EdgeEncoder
 from qagnn_tpu_torch.models.norm import MaskedBatchNorm
 from qagnn_tpu_torch.models.qagnn import LMQAGNN
 from qagnn_tpu_torch.models.text_encoder import TextEncoder, TextEncoderConfig
 from qagnn_tpu_torch.ops import _build
 from qagnn_tpu_torch.ops import edge_encoder_kernels as ek
 from qagnn_tpu_torch.ops import gat_kernels as gk
-from qagnn_tpu_torch.train.step import make_eval_step
+from qagnn_tpu_torch.ops.gat_attention import relational_gat_attention_nodes
+from qagnn_tpu_torch.train.optim import (
+    build_train_optimizer,
+    entity_table_names,
+)
+from qagnn_tpu_torch.train.step import Batch, make_eval_step, make_train_step
 from qagnn_tpu_torch.utils.config import preset
 from qagnn_tpu_torch.utils.initialization import init_weights
 
 SEED = 0
-# the serving slice: the batch bench.py times end to end (B=16 x C=4)
+DEVICE = "cuda"
+# both slices: the batch bench.py times end to end (B=16 x C=4)
 B, C, L = 16, 4, 100
 G, N, E = B * C, 200, 4096
 HEADS = 4
@@ -58,13 +80,29 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # f32 in another order (and with atomics); edge_hidden's bf16 output may
 # round the other way at one ulp (2^-7 relative).
 TOL = {"edge_hidden": {torch.float32: 1e-5, torch.bfloat16: 2 ** -7},
-       "gat": 1e-4}
+       "gat": 1e-4,
+       # backward: sums over all G*E slots in f32 in another order; in bf16
+       # the stored d_edge_emb and the rounded cotangents may round the other
+       # way at one ulp (2^-8 relative)
+       "bwd": {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}}
+# gradients of the Functions on the kernels vs autograd through the scatter
+# path, f32, same relative form: sums of other orders, exp by another routine
+GRAD_TOL = 2e-4
 # kernel path vs scatter path, logits and GNN output, same relative form: in
 # f32 the paths differ by summation order; in bf16 they round at different
 # places (the kernel path composes linear_1 into key_e / msg_e in f32), which
 # reached 2.2e-4 on the logits and 8.1e-3 on the GNN output on an H100.
 LOGIT_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}
 GNN_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# one train step, kernel path vs scatter path, f32 GNN, dropout 0: the loss
+# and the global gradient norm relative to themselves, named parameter
+# gradients relative to their largest value (the kernel path composes
+# linear_1 into key_e / msg_e and takes the edge rows' BatchNorm moments in
+# closed form)
+STEP_TOL = {"loss": 1e-5, "grad_norm": 1e-3, "grad": 2e-3}
+TRAIN_STEPS = 10                 # timed steps on the fixed batch
+OPT = dict(optim="radam", encoder_lr=1e-5, decoder_lr=1e-3,
+           weight_decay=0.01, max_grad_norm=1.0)
 
 FAILURES: list[str] = []
 
@@ -81,7 +119,9 @@ def card_line() -> str:
     return out[0]
 
 
-def compare(what: str, got, want, tol: float) -> float:
+def compare(what: str, got, want, tol: float, scale=None) -> float:
+    """max|got - want| <= tol * max|want| (or tol * scale, for an array
+    whose true value is zero)."""
     got, want = got.float(), want.float()
     if got.shape != want.shape:
         FAILURES.append(f"{what}: shape {tuple(got.shape)} vs "
@@ -89,6 +129,8 @@ def compare(what: str, got, want, tol: float) -> float:
         return float("inf")
     err = (got - want).abs().max().item() if got.numel() else 0.0
     ref = want.abs().max().item() if want.numel() else 0.0
+    if scale is not None:
+        ref = float(scale)
     rel = err / ref if ref > 0 else err
     ok = bool(torch.isfinite(got).all()) and rel <= tol
     log(f"  {what:<44} max_abs_err {err:.3e}  max_rel_err {rel:.3e} "
@@ -279,6 +321,238 @@ def phase_gat(gen, dev, reports):
                 FAILURES.append(f"non-finite output of empty graph {tag}")
 
 
+def encoder_ints(gen, dev, n_edges, n_rel):
+    src, dst, mask = graph_inputs(gen, dev, n_edges)
+    etype = torch.randint(0, n_rel, (G, n_edges), generator=gen, device=dev,
+                          dtype=torch.int32)
+    ntype = torch.randint(0, N_NTYPE, (G, N), generator=gen, device=dev,
+                          dtype=torch.int32)
+    return etype, src, dst, ntype, mask
+
+
+def phase_edge_moments(gen, dev, reports):
+    n_rel = 39
+    for n_edges in (E, E - 3):
+        args = (*encoder_ints(gen, dev, n_edges, n_rel), n_rel, N_NTYPE)
+        got = ek.edge_feature_moments(*args)
+        want = ek.edge_feature_moments_plain(*args)
+        errs = [compare(f"edge_moments {name} E={n_edges}", g, w, 0.0)
+                for name, g, w in zip(("hist", "M", "n"), got, want)]
+        if n_edges == E:
+            # three increments of hist and nine of M per masked slot
+            live = args[4].float().mean().item()
+            measure(reports, "edge_moments", max(errs),
+                    lambda: ek.edge_feature_moments(*args),
+                    lambda: ek.edge_feature_moments_plain(*args),
+                    nbytes(*args[:5], *got), 13.0 * live * G * n_edges,
+                    torch.float32)
+
+
+def phase_edge_hidden_bwd(gen, dev, reports):
+    n_rel = 39
+    F, D = n_rel + 2 * N_NTYPE, 200
+    w0 = torch.randn((F, D), generator=gen, device=dev) * 0.2
+    b0, a, b = (torch.randn(D, generator=gen, device=dev) * 0.5
+                for _ in range(3))
+    names = ("dW0", "db0", "da", "db")
+    for n_edges in (E, E - 3):
+        etype, src, dst, ntype, _ = encoder_ints(gen, dev, n_edges, n_rel)
+        for dt in (torch.float32, torch.bfloat16):
+            dh = torch.randn((G, n_edges, D), generator=gen, device=dev) \
+                .to(dt)
+            args = (etype, src, dst, ntype, w0, b0, a, b, dh, n_rel, N_NTYPE)
+            got = ek.edge_hidden_backward(*args)
+            want = ek.edge_hidden_backward_plain(*args)
+            errs = [compare(f"edge_hidden_bwd {name} E={n_edges} {dt}", g, w,
+                            TOL["bwd"][dt])
+                    for name, g, w in zip(names, got, want)]
+            if n_edges == E and dt == torch.bfloat16:
+                # per element: three row sums, the affine, the relu mask,
+                # four products and six accumulations
+                measure(reports, "edge_hidden_bwd", max(errs),
+                        lambda: ek.edge_hidden_backward(*args),
+                        lambda: ek.edge_hidden_backward_plain(*args),
+                        nbytes(etype, src, dst, ntype, w0, b0, a, b, dh,
+                               *got), 16.0 * dh.numel(), torch.float32)
+
+
+def phase_gat_bwd(gen, dev, reports):
+    D = HD = 200
+    dph = HD // HEADS
+    for n_edges in (E, E - 3):
+        src, dst, mask = graph_inputs(gen, dev, n_edges)
+        live = mask.float().mean().item()
+        for dt in (torch.float32, torch.bfloat16):
+            r = lambda *s: torch.randn(s, generator=gen, device=dev)
+            nq = (r(G, N, HD) / dph ** 0.5).to(dt)
+            nk, nm, skb, smb = ((r(G, N, HD) * 0.5).to(dt) for _ in range(4))
+            emb = torch.relu(r(G, n_edges, D)).to(dt)
+            w_ke, w_me = r(D, HD) * 0.05, r(D, HD) * 0.05
+            b_ke, b_me = r(HD) * 0.1, r(HD) * 0.1
+            gout = r(G, N, HD).to(dt)
+            main = n_edges == E and dt == torch.bfloat16
+            # the forward's residuals, and the glue of the backward
+            _, scores, gmax, denom_raw, scale, e_self = \
+                gk.gat_projected_forward(nq, nk, nm, emb, w_ke, b_ke, w_me,
+                                         b_me, skb, smb, src, dst, mask,
+                                         HEADS)
+            dnm0 = gk.heads_to_hd(e_self * scale, HD) * gout.float()
+            d_alpha_self = gk.head_sum((nm + smb).float() * gout.float(),
+                                       HEADS)
+            dscale0 = d_alpha_self * e_self
+
+            for carry in (None, (r(G, n_edges, D) * 0.1).to(dt)):
+                tag = f"E={n_edges} {dt} " \
+                    f"{'no carry' if carry is None else 'carry'}"
+                p1 = (gout, nm, emb, w_me, b_me, scores, gmax, scale, src,
+                      dst, mask, carry)
+                got = gk.bwd_pass1(*p1, dnm0.clone(), dscale0.clone(), HEADS)
+                want = gk.bwd_pass1_plain(*p1, dnm0.clone(), dscale0.clone(),
+                                          HEADS)
+                names = ("demb", "d_alpha", "dnm", "dscale", "dW_me", "db_me")
+                errs = [compare(f"gat_bwd_pass1 {name} {tag}", g, w,
+                                TOL["bwd"][dt])
+                        for name, g, w in zip(names, got, want)]
+            if main:
+                # live edges' rows of emb, scores and indices; the carry and
+                # demb whole (a masked slot passes its carry through); the
+                # node accumulators read and written. Three products.
+                scratch = (dnm0.clone(), dscale0.clone())
+                measure(reports, "gat_bwd_pass1", max(errs),
+                        lambda: gk.bwd_pass1(*p1, *scratch, HEADS),
+                        lambda: gk.bwd_pass1_plain(*p1, *scratch, HEADS),
+                        live * nbytes(emb, scores, src, dst)
+                        + nbytes(gout, nm, w_me, b_me, gmax, scale, mask,
+                                 carry, got[0], got[1], got[4], got[5])
+                        + 2 * nbytes(got[2], got[3]),
+                        3 * 2.0 * live * G * n_edges * D * HD, dt)
+
+            demb1, dalpha, _, dscale = want[:4]
+            gate = (denom_raw > gk.DENOM_EPS).float()
+            d_denom = -(scale / torch.clamp_min(denom_raw, gk.DENOM_EPS)) \
+                * dscale * gate
+            ds_self = gk.heads_to_hd(
+                (d_alpha_self * scale + d_denom) * e_self, HD)
+            dnq0 = ds_self * (nk.float() + skb.float())
+            dnk0 = ds_self * nq.float()
+            tag = f"E={n_edges} {dt}"
+            p2 = (nq, nk, emb, w_ke, b_ke, scores, gmax, dalpha, scale,
+                  d_denom, src, dst, mask)
+            got = gk.bwd_pass2(*p2, demb1.clone(), dnq0.clone(), dnk0.clone(),
+                               HEADS)
+            want = gk.bwd_pass2_plain(*p2, demb1.clone(), dnq0.clone(),
+                                      dnk0.clone(), HEADS)
+            names = ("demb", "dnq", "dnk", "dW_ke", "db_ke")
+            errs = [compare(f"gat_bwd_pass2 {name} {tag}", g, w,
+                            TOL["bwd"][dt])
+                    for name, g, w in zip(names, got, want)]
+            if main:
+                scratch = (demb1.clone(), dnq0.clone(), dnk0.clone())
+                measure(reports, "gat_bwd_pass2", max(errs),
+                        lambda: gk.bwd_pass2(*p2, *scratch, HEADS),
+                        lambda: gk.bwd_pass2_plain(*p2, *scratch, HEADS),
+                        live * nbytes(emb, scores, dalpha, src, dst)
+                        + nbytes(nq, nk, w_ke, b_ke, gmax, scale, d_denom,
+                                 mask, got[3], got[4])
+                        + 2 * nbytes(got[0], got[1], got[2]),
+                        3 * 2.0 * live * G * n_edges * D * HD, dt)
+
+
+# ---------------------------------------------------------------------------
+# gradients of the autograd Functions on the kernels, f32
+# ---------------------------------------------------------------------------
+
+def phase_op_gradients(gen, dev):
+    D = HD = 200
+    dph = HD // HEADS
+    src, dst, mask = graph_inputs(gen, dev, E)
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)
+    names = ("nq", "nk", "nm", "edge_emb", "w_ke", "b_ke", "w_me", "b_me",
+             "skb", "smb")
+    vals = [r(G, N, HD) / dph ** 0.5, r(G, N, HD) * 0.5, r(G, N, HD) * 0.5,
+            torch.relu(r(G, E, D)), r(D, HD) * 0.05, r(HD) * 0.1,
+            r(D, HD) * 0.05, r(HD) * 0.1, r(G, N, HD) * 0.5,
+            r(G, N, HD) * 0.5]
+    gout, carry = r(G, N, HD), r(G, E, D) * 0.1
+
+    def grads(fn):
+        ten = [v.clone().requires_grad_() for v in vals]
+        out, emb = fn(*ten)
+        ((out * gout).sum() + (emb * carry).sum()).backward()
+        return out.detach(), [t.grad for t in ten]
+
+    def oracle(nq, nk, nm, emb, w_ke, b_ke, w_me, b_me, skb, smb):
+        heads = lambda t: t.reshape(*t.shape[:-1], HEADS, dph)
+        return relational_gat_attention_nodes(
+            heads(nq), heads(nk), heads(nm), heads(emb @ w_ke + b_ke),
+            heads(emb @ w_me + b_me), heads(skb), heads(smb), src, dst,
+            mask), emb
+
+    before = _build.LAUNCHES["gat_bwd_pass1"]
+    out, got = grads(lambda *t: gk.gat_projected_chained(
+        *t, src, dst, mask, HEADS))
+    if _build.LAUNCHES["gat_bwd_pass1"] != before + 1:
+        FAILURES.append("the op's backward did not launch gat_bwd_pass1")
+    out_w, want = grads(oracle)
+    compare("gat_projected out vs scatter oracle", out, out_w, GRAD_TOL)
+    for name, g, w in zip(names, got, want):
+        compare(f"gat_projected d{name} vs autograd(oracle)", g, w, GRAD_TOL)
+
+    # the edge encoder in train mode: moments kernel -> analytic BatchNorm
+    # statistics -> edge_hidden and its backward kernel, against the one-hot
+    # rows through linear_0 -> BatchNorm -> relu -> linear_1 under autograd
+    n_rel = 39
+    F = n_rel + 2 * N_NTYPE
+    etype, esrc, edst, ntype, emask = encoder_ints(gen, dev, E, n_rel)
+    with torch.device(dev):
+        enc = EdgeEncoder(D, F, num_updates=5).train()
+    init_weights(enc, gen, 0.2)
+    with torch.no_grad():
+        enc.bn.scale.uniform_(0.5, 1.5, generator=gen)
+        enc.bn.bias.copy_(r(D) * 0.1)
+        enc.linear_0.bias.copy_(r(D) * 0.1)
+    oh = torch.nn.functional.one_hot
+    gather = lambda idx: torch.gather(ntype.long(), 1, idx.long())
+    edge_feat = torch.cat([oh(etype.long(), n_rel), oh(gather(esrc), N_NTYPE),
+                           oh(gather(edst), N_NTYPE)], -1).float()
+    self_type = oh(ntype.long(), N_NTYPE)
+    self_rel = torch.zeros((G, N, n_rel), device=dev)
+    self_rel[..., n_rel - 1] = 1.0
+    self_feat = torch.cat([self_rel, self_type, self_type], -1) \
+        .reshape(G * N, F)
+    cot_e, cot_s = r(G * E, D), r(G * N, D)
+    params = {"W0": enc.linear_0.kernel, "b0": enc.linear_0.bias,
+              "bn scale": enc.bn.scale, "bn bias": enc.bn.bias,
+              "W1": enc.linear_1.kernel, "b1": enc.linear_1.bias}
+
+    def enc_grads(fused):
+        enc.zero_grad()
+        if fused:
+            (h_e, h_s), (w1, b1) = enc(
+                self_feat, edge_ints=(etype, esrc, edst, ntype, emask),
+                n_rel=n_rel, n_ntype=N_NTYPE)
+            o_e, o_s = h_e.reshape(-1, D) @ w1 + b1, h_s @ w1 + b1
+        else:
+            o_e, o_s = enc([(edge_feat.reshape(-1, F),
+                             emask.reshape(-1).float()), (self_feat, None)])
+        ((o_e * cot_e).sum() + (o_s * cot_s).sum()).backward()
+        return o_e.detach(), {k: p.grad.clone() for k, p in params.items()}
+
+    before = (_build.LAUNCHES["edge_moments"],
+              _build.LAUNCHES["edge_hidden_bwd"])
+    out, got = enc_grads(True)
+    if (_build.LAUNCHES["edge_moments"], _build.LAUNCHES["edge_hidden_bwd"]) \
+            != (before[0] + 1, before[1] + 1):
+        FAILURES.append("train-mode edge encoder did not launch its kernels")
+    out_w, want = enc_grads(False)
+    compare("edge encoder (train) out vs one-hot rows", out, out_w, GRAD_TOL)
+    for k in params:
+        # b0 sits ahead of the BatchNorm: its gradient is zero, and both
+        # sides hold rounding noise of dW0's size
+        compare(f"edge encoder (train) d{k} vs autograd", got[k], want[k],
+                GRAD_TOL, scale=want["W0"].abs().max() if k == "b0" else None)
+
+
 # ---------------------------------------------------------------------------
 # the serving slice
 # ---------------------------------------------------------------------------
@@ -291,7 +565,8 @@ def build_model(cfg, dev, gen):
             n_ntype=N_NTYPE, n_etype=cfg.num_relation, n_concept=N_CONCEPT,
             concept_dim=cfg.gnn_dim, concept_in_dim=CONCEPT_IN,
             n_attention_head=cfg.att_head_num, fc_dim=cfg.fc_dim,
-            n_fc_layer=cfg.fc_layer_num, gnn_dtype=torch.bfloat16)
+            n_fc_layer=cfg.fc_layer_num, p_emb=cfg.dropouti,
+            p_gnn=cfg.dropoutg, p_fc=cfg.dropoutf, gnn_dtype=torch.bfloat16)
     init_weights(model, gen, cfg.init_range)
     with torch.no_grad():      # eval-mode BatchNorm that is not the identity
         for mod in model.modules():
@@ -339,16 +614,7 @@ def set_gnn_dtype(model, dtype) -> None:
             mod.dtype = dtype
 
 
-def phase_slice(dev, reports, card):
-    cfg = preset("obqa")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    t0 = time.perf_counter()
-    model, enc_cfg = build_model(cfg, dev, gen)
-    torch.cuda.synchronize()
-    log(f"  OBQA preset: roberta-large ({enc_cfg.num_layers} layers, hidden "
-        f"{enc_cfg.hidden_size}), k={cfg.k}, gnn_dim={cfg.gnn_dim}, "
-        f"{cfg.num_relation} relations, entity table {N_CONCEPT}x"
-        f"{CONCEPT_IN}; built in {time.perf_counter() - t0:.1f} s")
+def phase_slice(dev, reports, card, cfg, model, enc_cfg, gen):
     batches = [make_batch(gen, dev, enc_cfg.vocab_size, cfg.num_relation,
                           empty_graph=G - 1 if i == 0 else None)
                for i in range(3)]
@@ -430,12 +696,248 @@ def phase_slice(dev, reports, card):
     log(f"  logits of batch 0, question 0: {logits[0][0].tolist()}")
 
 
+# ---------------------------------------------------------------------------
+# the training slice
+# ---------------------------------------------------------------------------
+
+def set_dropout(model, cfg, enc_cfg, on: bool) -> None:
+    """The preset's dropout rates, or 0 everywhere."""
+    p = (lambda x: x) if on else (lambda x: 0.0)
+    ecfg = dataclasses.replace(
+        enc_cfg, hidden_dropout=p(enc_cfg.hidden_dropout),
+        attention_dropout=p(enc_cfg.attention_dropout))
+    for mod in model.encoder.modules():
+        if hasattr(mod, "cfg"):
+            mod.cfg = ecfg
+    dec = model.decoder
+    dec.p_emb, dec.p_fc = p(cfg.dropouti), p(cfg.dropoutf)
+    dec.gnn.dropout, dec.fc.dropout = p(cfg.dropoutg), p(cfg.dropoutf)
+    dec.pooler.dropout = dec.pooler.attention.attn_dropout = p(0.1)
+
+
+def check_launches(counts, n_steps, microbatches, k, what) -> None:
+    per_pass = {"edge_moments": 1, "edge_hidden": 1, "gat_pass_a_scores": k,
+                "gat_pass_a_denoms": k, "gat_pass_c": k, "gat_bwd_pass1": k,
+                "gat_bwd_pass2": k, "edge_hidden_bwd": 1}
+    bad = {name: counts.get(name, 0) for name, n in per_pass.items()
+           if counts.get(name, 0) != n * n_steps * microbatches}
+    extra = set(counts) - set(per_pass)
+    ok = not bad and not extra
+    log(f"  launches over {n_steps} step(s) x {microbatches} microbatch(es), "
+        f"{what}: " + ", ".join(f"{n} {counts.get(n, 0)}" for n in per_pass)
+        + f"  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"launch counts, {what}: {bad or sorted(extra)}")
+
+
+class StepSpans:
+    """CUDA events at the boundaries of a train step's parts: forward hooks
+    on the encoder and the GNN, backward hooks on both (the encoder's
+    backward ends the backward pass, where the optimizer starts)."""
+
+    def __init__(self, model, optimizer):
+        self.marks: list[dict] = []
+        self.handles = []
+        # the encoder's inputs are integers: its backward hook can only see
+        # the cotangent of its output, which is what is wanted here
+        warnings.filterwarnings("ignore", message="Full backward hook")
+        enc, gnn = model.encoder, model.decoder.gnn
+        for name, mod in (("enc", enc), ("gnn", gnn)):
+            self.handles += [
+                mod.register_forward_pre_hook(
+                    lambda m, a, n=name: self.mark(n + "_fwd0")),
+                mod.register_forward_hook(
+                    lambda m, a, o, n=name: self.mark(n + "_fwd1")),
+                mod.register_full_backward_pre_hook(
+                    lambda m, g, n=name: self.mark(n + "_bwd0"))]
+        self.handles.append(gnn.register_full_backward_hook(
+            lambda m, gi, go: self.mark("gnn_bwd1")))
+        self.optimizer, self.opt_step = optimizer, optimizer.step
+
+        def step(*args):
+            self.mark("opt0")
+            return self.opt_step(*args)
+        optimizer.step = step
+
+    def mark(self, name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks[-1][name] = ev
+
+    def run(self, fn):
+        self.marks.append({})
+        self.mark("start")
+        out = fn()
+        self.mark("end")
+        return out
+
+    def close(self):
+        for h in self.handles:
+            h.remove()
+        self.optimizer.step = self.opt_step
+
+    def medians(self) -> dict:
+        spans = {"step": ("start", "end"), "encoder fwd": ("enc_fwd0", "enc_fwd1"),
+                 "GNN fwd": ("gnn_fwd0", "gnn_fwd1"),
+                 "GNN bwd": ("gnn_bwd0", "gnn_bwd1"),
+                 "encoder bwd": ("enc_bwd0", "opt0"),
+                 "optimizer": ("opt0", "end")}
+        out = {}
+        for name, (a, b) in spans.items():
+            ms = [m[a].elapsed_time(m[b]) for m in self.marks[1:]
+                  if a in m and b in m]
+            out[name] = statistics.median(ms) if ms else None
+        return out
+
+
+def phase_train(dev, reports, card, cfg, model, enc_cfg, gen):
+    batch = Batch(*make_batch(gen, dev, enc_cfg.vocab_size, cfg.num_relation),
+                  torch.randint(0, C, (B,), generator=gen, device=dev))
+    gnn = model.decoder.gnn
+    frozen = entity_table_names(model)
+    probe = ["decoder.gnn.edge_encoder.linear_0.kernel",
+             "decoder.gnn.edge_encoder.bn.bias",
+             "decoder.gnn.edge_encoder.bn.scale",
+             "decoder.gnn.edge_encoder.linear_1.kernel",
+             "decoder.gnn.gnn_layer_0.key_e.kernel",
+             "decoder.gnn.gnn_layer_2.query.kernel",
+             "decoder.gnn.gnn_layer_4.msg_e.bias",
+             "decoder.gnn.emb_score.weight", "decoder.svec2nvec.weight",
+             f"encoder.layer_{enc_cfg.num_layers - 1}.output.weight",
+             "encoder.word_embeddings.weight"]
+    params = dict(model.named_parameters())
+    torch.cuda.reset_peak_memory_stats()
+
+    # one step on each path from the same state: f32 GNN, dropout 0
+    log("  kernel path vs scatter path, one step each from the same state "
+        "(f32 GNN, dropout 0):")
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+    set_dropout(model, cfg, enc_cfg, False)
+    set_gnn_dtype(model, torch.float32)
+    seen = {}
+    for backend in ("cuda", "scatter"):
+        model.load_state_dict(snapshot)
+        gnn.backend = backend
+        opt = build_train_optimizer(model, frozen=frozen, **OPT)
+        step = make_train_step(model, opt)
+        _build.reset_launch_counts()
+        loss = step(batch, generator=torch.Generator(device=dev)
+                    .manual_seed(SEED + 2))["loss"]
+        torch.cuda.synchronize()
+        if backend == "cuda":
+            check_launches(dict(_build.LAUNCHES), 1, 1, cfg.k, "f32 step")
+        elif _build.LAUNCHES:
+            FAILURES.append("the scatter path launched kernels")
+        seen[backend] = (loss, opt.last_grad_norm,
+                         {n: params[n].grad.clone() for n in probe})
+        del opt, step
+    (loss, gnorm, grads), (loss_w, gnorm_w, grads_w) = \
+        seen["cuda"], seen["scatter"]
+    compare("train step loss", loss, loss_w, STEP_TOL["loss"])
+    compare("train step global gradient norm", gnorm, gnorm_w,
+            STEP_TOL["grad_norm"])
+    for n in probe:
+        compare(f"grad {n}", grads[n], grads_w[n], STEP_TOL["grad"])
+    del seen, grads, grads_w
+    model.load_state_dict(snapshot)
+    del snapshot
+    gnn.backend = None
+    set_gnn_dtype(model, torch.bfloat16)
+    set_dropout(model, cfg, enc_cfg, True)
+
+    # steps on a fixed batch: bf16 GNN, the preset's dropout. The generator
+    # is set back to one seed before every step, so every step draws the
+    # same masks: the loss is then one function of the parameters, and its
+    # fall shows the optimisation and not the masks' noise (with new masks
+    # at every step the loss of this random model moves by +-0.05, more
+    # than ten steps at these learning rates gain).
+    opt = build_train_optimizer(model, frozen=frozen, **OPT)
+    step = make_train_step(model, opt)
+    generator = torch.Generator(device=dev)
+    spans = StepSpans(model, opt)
+    _build.reset_launch_counts()
+    losses, times = [], []
+    n_steps = TRAIN_STEPS + 1                  # the first one warms up
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        generator.manual_seed(SEED + 3)
+        out = spans.run(lambda: step(batch, generator=generator))
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t)
+        losses.append(out["loss"].item())
+    spans.close()
+    counts = dict(_build.LAUNCHES)
+    check_launches(counts, n_steps, 1, cfg.k, "bf16 steps")
+    for name in ("edge_moments", "edge_hidden_bwd", "gat_bwd_pass1",
+                 "gat_bwd_pass2"):
+        reports[name]["launches"] = counts.get(name, 0)
+    log("  losses on the fixed batch, fixed dropout masks: "
+        + ", ".join(f"{x:.5f}" for x in losses))
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
+        FAILURES.append("non-finite training loss")
+    if not losses[-1] < losses[0]:
+        FAILURES.append(f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    med = statistics.median(times)
+    log(f"  training: {med * 1e3:.3f} ms per step of {B} questions x {C} "
+        f"choices (median of {len(times)}; min {min(times) * 1e3:.3f}, max "
+        f"{max(times) * 1e3:.3f}); {G * E * cfg.k / med:.4e} edges/s  "
+        f"[{card}]")
+    log("  device time per step (median; CUDA events): " + ", ".join(
+        f"{name} {'not measured' if ms is None else f'{ms:.3f} ms'}"
+        for name, ms in spans.medians().items())
+        + " (GNN bwd: from the GNN output's cotangent to its inputs'; "
+        "encoder bwd: from the encoder output's cotangent to the end of the "
+        "backward pass, the decoder's head before the GNN included)")
+
+    # the encoder frozen: its parameters and moments stay as they are
+    enc_params = {n: p.detach().clone() for n, p in params.items()
+                  if n.startswith("encoder.")}
+    enc_state = {k: v.clone() for k, v in opt.state.items()
+                 if k.startswith("encoder.")}
+    dec_before = params["decoder.svec2nvec.weight"].detach().clone()
+    _build.reset_launch_counts()
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step(batch, encoder_trainable=False, generator=generator)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    check_launches(dict(_build.LAUNCHES), 2, 1, cfg.k, "frozen encoder")
+    same = all(torch.equal(params[n], v) for n, v in enc_params.items()) \
+        and all(torch.equal(opt.state[k], v) for k, v in enc_state.items())
+    moved = not torch.equal(params["decoder.svec2nvec.weight"], dec_before)
+    log(f"  frozen encoder, 2 steps: {min(times) * 1e3:.3f} ms per step "
+        f"(faster of 2), loss {loss['loss'].item():.5f}; encoder parameters "
+        f"and moments unchanged: {same}; decoder moved: {moved}")
+    if not (same and moved and torch.isfinite(loss["loss"])):
+        FAILURES.append("frozen-encoder step")
+    del enc_params, enc_state
+
+    # gradient accumulation over two microbatches
+    step2 = make_train_step(model, opt, num_microbatches=2)
+    _build.reset_launch_counts()
+    loss = step2(batch, generator=generator)["loss"]
+    torch.cuda.synchronize()
+    check_launches(dict(_build.LAUNCHES), 1, 2, cfg.k, "two microbatches")
+    log(f"  two microbatches: loss {loss.item():.5f}")
+    if not torch.isfinite(loss):
+        FAILURES.append("two-microbatch step")
+    log(f"  peak device memory over the training phase "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", default="kernels,grads,serve,train",
+                    help="comma-separated phases to run (default: all)")
+    only = set(ap.parse_args().only.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; it runs only on the card",
               file=sys.stderr)
         return 1
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     card = card_line()
     log(f"device: {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; nvidia-smi: {card}")
@@ -450,31 +952,61 @@ def main() -> int:
     secs = _build.build_all(verbose=True)
     log(f"  built {_build.sources()} in {secs:.1f} s")
 
+    def entry(source, replaces):
+        return dict(route="cuda", source=f"qagnn_tpu_torch/csrc/{source}",
+                    replaces=replaces)
+    gat, enc = "qagnn_tpu/ops/pallas_gat.py", \
+        "qagnn_tpu/ops/pallas_edge_encoder.py"
     reports = {
-        "edge_hidden": dict(
-            route="cuda", source="qagnn_tpu_torch/csrc/edge_hidden.cu",
-            replaces="qagnn_tpu/ops/pallas_edge_encoder.py:164"),
-        "gat_pass_a_scores": dict(
-            route="cuda", source="qagnn_tpu_torch/csrc/gat_fwd.cu",
-            replaces="qagnn_tpu/ops/pallas_gat.py:650"),
-        "gat_pass_a_denoms": dict(
-            route="cuda", source="qagnn_tpu_torch/csrc/gat_fwd.cu",
-            replaces="qagnn_tpu/ops/pallas_gat.py:650"),
-        "gat_pass_c": dict(
-            route="cuda", source="qagnn_tpu_torch/csrc/gat_fwd.cu",
-            replaces="qagnn_tpu/ops/pallas_gat.py:716"),
+        "edge_hidden": entry("edge_hidden.cu", f"{enc}:164"),
+        "gat_pass_a_scores": entry("gat_fwd.cu", f"{gat}:650"),
+        "gat_pass_a_denoms": entry("gat_fwd.cu", f"{gat}:650"),
+        "gat_pass_c": entry("gat_fwd.cu", f"{gat}:716"),
+        "edge_moments": entry("edge_moments.cu", f"{enc}:93"),
+        "edge_hidden_bwd": entry("edge_hidden.cu", f"{enc}:179"),
+        "gat_bwd_pass1": entry("gat_bwd.cu", f"{gat}:765"),
+        "gat_bwd_pass2": entry("gat_bwd.cu", f"{gat}:849"),
     }
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    log("\n[kernel 11: edge_hidden]")
-    phase_edge_hidden(gen, dev, reports)
-    log("\n[kernels 6 and 7: GAT pass A (two launches) and pass C]")
-    phase_gat(gen, dev, reports)
-    log("\n[slice: OBQA LMQAGNN serving forward]")
-    phase_slice(dev, reports, card)
+    if "kernels" in only:
+        log("\n[kernel 11: edge_hidden]")
+        phase_edge_hidden(gen, dev, reports)
+        log("\n[kernels 6 and 7: GAT pass A (two launches) and pass C]")
+        phase_gat(gen, dev, reports)
+        log("\n[kernel 10: edge_moments]")
+        phase_edge_moments(gen, dev, reports)
+        log("\n[kernel 12: edge_hidden_bwd]")
+        phase_edge_hidden_bwd(gen, dev, reports)
+        log("\n[kernels 8 and 9: GAT backward pass 1 and pass 2]")
+        phase_gat_bwd(gen, dev, reports)
+    if "grads" in only:
+        log("\n[op gradients: the Functions on the kernels vs autograd "
+            "through the scatter path, f32]")
+        phase_op_gradients(gen, dev)
+    if only & {"serve", "train"}:
+        cfg = preset("obqa")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        t0 = time.perf_counter()
+        model, enc_cfg = build_model(cfg, dev, gen)
+        torch.cuda.synchronize()
+        log(f"\n[model] OBQA preset: roberta-large ({enc_cfg.num_layers} "
+            f"layers, hidden {enc_cfg.hidden_size}), k={cfg.k}, "
+            f"gnn_dim={cfg.gnn_dim}, {cfg.num_relation} relations, entity "
+            f"table {N_CONCEPT}x{CONCEPT_IN}; built in "
+            f"{time.perf_counter() - t0:.1f} s")
+    if "serve" in only:
+        log("\n[slice 1: OBQA LMQAGNN serving forward]")
+        phase_slice(dev, reports, card, cfg, model, enc_cfg, gen)
+    if "train" in only:
+        log("\n[slice 2: OBQA LMQAGNN training steps]")
+        phase_train(dev, reports, card, cfg, model, enc_cfg, gen)
 
     if FAILURES:
         log("\nFAILED: " + "; ".join(FAILURES))
         return 1
+    if not only >= {"kernels", "grads", "serve", "train"}:
+        log(f"\npartial run ({sorted(only)}) passed; no result line")
+        return 0
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: ({"name": name} | r)[k] for k in keys}

@@ -4,7 +4,9 @@
 // (a, b) is the folded eval-mode BatchNorm affine.
 //
 // Replaces the TPU kernel `_hidden_fwd_kernel`
-// (qagnn_tpu/ops/pallas_edge_encoder.py:164, launched by `_hidden_impl` :234).
+// (qagnn_tpu/ops/pallas_edge_encoder.py:164, launched by `_hidden_impl` :234),
+// and its backward `_hidden_bwd_kernel` (:179, launched by `_hidden_bwd_impl`
+// :291); see edge_hidden_bwd_kernel below.
 //
 // Bound on the H100: bytes. The (G, E, D) output in the compute dtype is the
 // only large array (105 MB in bf16 at G=64, E=4096, D=200); the inputs are
@@ -24,6 +26,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "reduce_partials.cuh"
+
 namespace {
 
 template <typename T> __device__ __forceinline__ float round_to(float x);
@@ -36,6 +40,11 @@ template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
 
 // VEC consecutive f32 values at p, as float4 loads when VEC is a multiple
@@ -127,6 +136,110 @@ int launch(const void* etype, const void* src, const void* dst,
   return (int)cudaSuccess;
 }
 
+// Backward of the hidden pass, over every edge slot (masked ones too: the
+// forward emits h for all of them). With x0 = W0^T feat + b0 and
+// pre = a * x0 + b recomputed from the integers:
+//     d_pre = dh * [pre > 0];  db = sum d_pre;  da = sum d_pre * x0;
+//     d_x0 = d_pre * a;        db0 = sum d_x0;
+//     dW0[f] += d_x0 (rounded to the compute dtype) for the slot's three
+//     feature rows f.
+// On the TPU one resident block accumulates the four sums over a sequential
+// grid. Here a block takes a range of slots and a thread one column d (the
+// slots' feature rows are staged in shared memory a tile at a time): the
+// block's dW0 (F x D f32, 37.6 KB at F=47, D=200) lives in shared memory and
+// the thread alone touches its column of it, so nothing needs an atomic;
+// da, db, db0 stay in registers. Each block writes its partials once and
+// reduce_partials_kernel adds them up, so the result does not depend on the
+// order in which blocks ran. Bound on the H100: bytes, the (G, E, D) dh read
+// once (105 MB in bf16, 32 us).
+constexpr int BWD_TILE = 128;      // slots whose feature rows are staged at once
+
+template <typename T>
+__global__ void edge_hidden_bwd_kernel(
+    const int32_t* __restrict__ etype, const int32_t* __restrict__ src,
+    const int32_t* __restrict__ dst, const int32_t* __restrict__ ntype,
+    const float* __restrict__ w0, const float* __restrict__ b0,
+    const float* __restrict__ a, const float* __restrict__ b,
+    const T* __restrict__ dh, float* __restrict__ part, long long n_edges,
+    long long chunk, int E, int N, int D, int F, int n_rel, int n_ntype) {
+  extern __shared__ float s_dw0[];                 // (F, D)
+  __shared__ int s_rows[3][BWD_TILE];
+  const int row_len = (F + 3) * D;                 // a block's partials
+  for (int i = threadIdx.x; i < F * D; i += blockDim.x) s_dw0[i] = 0.0f;
+  const long long begin = blockIdx.x * chunk;
+  const long long end = begin + chunk < n_edges ? begin + chunk : n_edges;
+  const int c = threadIdx.x;
+  const bool live = c < D;
+  const float b0c = live ? b0[c] : 0.0f, ac = live ? a[c] : 0.0f,
+              bc = live ? b[c] : 0.0f;
+  float da = 0.0f, db = 0.0f, db0 = 0.0f;
+  for (long long t0 = begin; t0 < end; t0 += BWD_TILE) {
+    const int n = end - t0 < BWD_TILE ? (int)(end - t0) : BWD_TILE;
+    __syncthreads();
+    // the tile's feature rows, computed once for all columns
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const long long edge = t0 + i, g = edge / E;
+      s_rows[0][i] = etype[edge];
+      s_rows[1][i] = n_rel + ntype[g * N + src[edge]];
+      s_rows[2][i] = n_rel + n_ntype + ntype[g * N + dst[edge]];
+    }
+    __syncthreads();
+    if (!live) continue;
+    for (int i = 0; i < n; ++i) {
+      const int r0 = s_rows[0][i], r1 = s_rows[1][i], r2 = s_rows[2][i];
+      const float x0 = round_to<T>(w0[(long long)r0 * D + c]) +
+                       round_to<T>(w0[(long long)r1 * D + c]) +
+                       round_to<T>(w0[(long long)r2 * D + c]) + b0c;
+      const float d_pre =
+          ac * x0 + bc > 0.0f ? to_float(dh[(t0 + i) * D + c]) : 0.0f;
+      db += d_pre;
+      da += d_pre * x0;
+      const float d_x0 = d_pre * ac;
+      db0 += d_x0;
+      const float dxc = round_to<T>(d_x0);
+      s_dw0[r0 * D + c] += dxc;
+      s_dw0[r1 * D + c] += dxc;
+      s_dw0[r2 * D + c] += dxc;
+    }
+  }
+  __syncthreads();                 // a block with no slots still zeroed s_dw0
+  if (!live) return;
+  float* row = part + (long long)blockIdx.x * row_len;
+  for (int f = 0; f < F; ++f) row[f * D + c] = s_dw0[f * D + c];
+  row[F * D + c] = db0;
+  row[(F + 1) * D + c] = da;
+  row[(F + 2) * D + c] = db;
+}
+
+template <typename T>
+int launch_bwd(const void* etype, const void* src, const void* dst,
+               const void* ntype, const void* w0, const void* b0,
+               const void* a, const void* b, const void* dh, void* part,
+               void* out, int G, int E, int N, int D, int F, int n_rel,
+               int n_ntype, int n_blocks, cudaStream_t stream) {
+  const long long n_edges = (long long)G * E;
+  const size_t smem = sizeof(float) * F * D;
+  if (n_blocks <= 0 || D > 1024 || smem > 200 * 1024)
+    return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        edge_hidden_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long chunk = (n_edges + n_blocks - 1) / n_blocks;
+  const int threads = (D + 31) / 32 * 32;
+  edge_hidden_bwd_kernel<T><<<n_blocks, threads, smem, stream>>>(
+      (const int32_t*)etype, (const int32_t*)src, (const int32_t*)dst,
+      (const int32_t*)ntype, (const float*)w0, (const float*)b0,
+      (const float*)a, (const float*)b, (const T*)dh, (float*)part, n_edges,
+      chunk, E, N, D, F, n_rel, n_ntype);
+  const int n = (F + 3) * D;
+  reduce_partials_kernel<<<(n + 31) / 32, dim3(32, 8), 0, stream>>>(
+      (const float*)part, (float*)out, n_blocks, n);
+  return (int)cudaSuccess;
+}
+
 }  // namespace
 
 // dtype: 0 = float32 output, 1 = bfloat16 output.
@@ -153,5 +266,29 @@ extern "C" int edge_hidden_launch(const void* etype, const void* src,
                                  E, N, D, n_rel, n_ntype, s)
               : launch<float, 1>(etype, src, dst, ntype, w0, b0, a, b, out, G,
                                  E, N, D, n_rel, n_ntype, s);
+  return err != 0 ? err : (int)cudaGetLastError();
+}
+
+// dh: (G, E, D) in the forward's output dtype (dtype as above). part is
+// scratch, (n_blocks, F + 3, D) f32; out (F + 3, D) f32 receives dW0 (F, D),
+// then db0, da, db.
+extern "C" int edge_hidden_bwd_launch(const void* etype, const void* src,
+                                      const void* dst, const void* ntype,
+                                      const void* w0, const void* b0,
+                                      const void* a, const void* b,
+                                      const void* dh, void* part, void* out,
+                                      int G, int E, int N, int D, int F,
+                                      int n_rel, int n_ntype, int n_blocks,
+                                      int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if ((long long)G * E == 0 || F != n_rel + 2 * n_ntype)
+    return (int)cudaErrorInvalidValue;
+  const int err =
+      dtype == 1
+          ? launch_bwd<__nv_bfloat16>(etype, src, dst, ntype, w0, b0, a, b, dh,
+                                      part, out, G, E, N, D, F, n_rel, n_ntype,
+                                      n_blocks, s)
+          : launch_bwd<float>(etype, src, dst, ntype, w0, b0, a, b, dh, part,
+                              out, G, E, N, D, F, n_rel, n_ntype, n_blocks, s);
   return err != 0 ? err : (int)cudaGetLastError();
 }

@@ -1,13 +1,17 @@
 """Relation-aware GNN: EdgeEncoder, GATConvE and the k-layer message passing.
 
-Counterpart of qagnn_tpu/models/gnn.py, eval forward. Two branches compute
-the same function:
+Counterpart of qagnn_tpu/models/gnn.py, eval and train mode. Two branches
+compute the same function:
 
   * fused (backend "cuda"): the edge rows of the shared edge encoder run in
     the `edge_hidden` kernel, its linear_1 is composed into each layer's
     key_e / msg_e projections, and each layer's attention runs in the
     projected GAT kernels (qagnn_tpu_torch.ops.gat_kernels) with the node
-    projections split over (X, node_extra);
+    projections split over (X, node_extra). In train mode the edge rows'
+    BatchNorm moments come from the feature-moments kernel in closed form,
+    the edge embedding is chained through the layers so that its cotangent
+    accumulates inside the backward kernels, and every backward of a kernel
+    is a kernel;
   * reference (backend "scatter"): one-hot edge features, the full encoder
     and the scatter oracle of qagnn_tpu_torch.ops.gat_attention.
 
@@ -24,11 +28,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from qagnn_tpu_torch.models.layers import ProjParams, dense, gelu
-from qagnn_tpu_torch.models.norm import MaskedBatchNorm
-from qagnn_tpu_torch.ops.edge_encoder_kernels import edge_hidden
+from qagnn_tpu_torch.models.layers import ProjParams, dense, dropout, gelu
+from qagnn_tpu_torch.models.norm import MaskedBatchNorm, MomentPart
+from qagnn_tpu_torch.ops.edge_encoder_kernels import (
+    analytic_edge_moments,
+    edge_feature_moments,
+    edge_hidden,
+)
 from qagnn_tpu_torch.ops.gat_attention import relational_gat_attention_nodes
-from qagnn_tpu_torch.ops.gat_kernels import gat_projected_forward
+from qagnn_tpu_torch.ops.gat_kernels import gat_projected_chained
 
 BACKENDS = ("scatter", "cuda")
 
@@ -60,21 +68,26 @@ class EdgeEncoder(nn.Module):
         (rows_i, F), weight_i parts sharing one statistic. Returns the
         linear_1 outputs (one per part).
 
-        edge_ints = (edge_type, edge_src, edge_dst, node_type): the fused
-        edge side. edge_feat is then only the self-loop rows; the edge rows'
-        linear_0 + BN + ReLU run in the `edge_hidden` kernel and linear_1 is
-        left to the caller. Returns ((h_edge (G, E, D), h_self), (W1, b1))."""
+        edge_ints = (edge_type, edge_src, edge_dst, node_type, edge_mask):
+        the fused edge side. edge_feat is then only the self-loop rows; the
+        edge rows' linear_0 + BN + ReLU run in the `edge_hidden` kernel and
+        linear_1 is left to the caller. In train mode the masked edge rows
+        enter the batch statistic through their closed-form moments (the
+        feature-moments kernel; differentiable in W0, b0 by autograd).
+        Returns ((h_edge (G, E, D), h_self), (W1, b1))."""
         cdt = self.dtype
         if edge_ints is not None:
-            if self.training:
-                raise NotImplementedError(
-                    "train-mode fused edge encoder needs the feature-moments "
-                    "kernel, which is not ported yet")
-            etype, esrc, edst, ntype = edge_ints
+            etype, esrc, edst, ntype, emask = edge_ints
             w0, b0 = self.linear_0.kernel, self.linear_0.bias
             x0_self = self.linear_0.apply_to(edge_feat, cdt)
-            res, (a, b) = self.bn([(x0_self, None)], return_affine=True)
-            h_self = torch.relu(res[0])
+            parts = [(x0_self, None)]
+            if self.training:
+                hist, M, n_e = edge_feature_moments(
+                    etype, esrc, edst, ntype, emask, n_rel, n_ntype)
+                s1, s2 = analytic_edge_moments(w0, b0, hist, M, n_e)
+                parts.insert(0, MomentPart(s1, s2, n_e))
+            res, (a, b) = self.bn(parts, return_affine=True)
+            h_self = torch.relu(res[-1])
             h_edge = edge_hidden(etype, esrc, edst, ntype, w0, b0, a, b,
                                  n_rel, n_ntype, cdt)
             return (h_edge, h_self), (self.linear_1.kernel,
@@ -128,7 +141,9 @@ class GATConvE(nn.Module):
         """x: (G, N, 2D) or the pair (X, node_extra); edge_emb: (G, E, D);
         self_emb: (G, N, D). fused: run the GAT kernels, with emb_proj =
         (W1, b1) of the edge encoder's linear_1 when edge_emb/self_emb are
-        its PRE-linear_1 hidden states."""
+        its PRE-linear_1 hidden states; the result is then the pair
+        (out, edge_emb passed through the op) and the caller hands that
+        embedding to the next layer."""
         d, h, cdt = self.emb_dim, self.head_count, self.dtype
         dph = d // h
         G, N = (x[0] if isinstance(x, tuple) else x).shape[:2]
@@ -147,13 +162,10 @@ class GATConvE(nn.Module):
             def proj(t, w, b):
                 return t.to(cdt) @ w.to(cdt) + b.to(cdt)
 
-            aggr = gat_projected_forward(
-                (query_x / math.sqrt(dph)).contiguous(), key_x.contiguous(),
-                msg_x.contiguous(), edge_emb.to(cdt).contiguous(),
-                wke.contiguous(), bke.contiguous(), wme.contiguous(),
-                bme.contiguous(), proj(self_emb, wke, bke),
-                proj(self_emb, wme, bme), edge_src, edge_dst, edge_mask,
-                h)[0]
+            aggr, emb_next = gat_projected_chained(
+                query_x / math.sqrt(dph), key_x, msg_x, edge_emb.to(cdt),
+                wke, bke, wme, bme, proj(self_emb, wke, bke),
+                proj(self_emb, wme, bme), edge_src, edge_dst, edge_mask, h)
         else:
             def heads(t):
                 return t.reshape(*t.shape[:-1], h, dph)
@@ -171,21 +183,25 @@ class GATConvE(nn.Module):
         out = dense(aggr, self.out_linear_0, cdt)
         out = self.out_bn(out.reshape(G * N, d)).reshape(G, N, d)
         out = dense(torch.relu(out), self.out_linear_1, cdt)
+        if fused:
+            return out, emb_next
         return (out, alphas) if return_alpha else out
 
 
 class QAGNNMessagePassing(nn.Module):
     """k-layer message passing with node-type/score feature injection
     (reference modeling/modeling_qagnn.py:7-95): node-type embedding,
-    sinusoidal score embedding (basis 1.1^j), k GATConvE layers with GELU,
-    residual GELU(Vh(H) + Vx(X))."""
+    sinusoidal score embedding (basis 1.1^j), k GATConvE layers with GELU
+    and dropout, residual GELU(Vh(H) + Vx(X)) with dropout."""
 
     def __init__(self, k: int, n_ntype: int, n_etype: int, hidden_size: int,
-                 head_count: int = 4, backend: str | None = None,
+                 dropout: float = 0.1, head_count: int = 4,
+                 backend: str | None = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         D, half = hidden_size, hidden_size // 2
         self.k, self.n_ntype, self.n_etype = k, n_ntype, n_etype
+        self.dropout = dropout
         self.hidden_size, self.backend, self.dtype = D, backend, dtype
         self.emb_node_type = nn.Linear(n_ntype, half)
         self.emb_score = nn.Linear(half, half)
@@ -202,9 +218,6 @@ class QAGNNMessagePassing(nn.Module):
         """H: (G, N, D) initial node features; node_type (G, N) int;
         node_score (G, N); edges (G, E) with a bool mask. Returns (G, N, D)
         [and ((k, G, E, H) edge alphas, (k, G, N, H) self alphas)]."""
-        if self.training:
-            raise NotImplementedError("train mode is not ported yet; "
-                                      "call .eval()")
         G, N, D = H.shape
         E = edge_src.shape[1]
         half, cdt = D // 2, self.dtype
@@ -235,7 +248,7 @@ class QAGNNMessagePassing(nn.Module):
             (edge_emb, self_emb), emb_proj = self.edge_encoder(
                 self_feat.reshape(G * N, nfeat),
                 edge_ints=(edge_type.to(torch.int32).contiguous(), src, dst,
-                           node_type.to(torch.int32).contiguous()),
+                           node_type.to(torch.int32).contiguous(), mask),
                 n_rel=n_etype + 1, n_ntype=n_ntype)
         else:
             e_rel = F.one_hot(edge_type.long(), n_etype + 1).to(cdt)
@@ -265,9 +278,14 @@ class QAGNNMessagePassing(nn.Module):
             if return_alpha:
                 X, layer_alphas = X
                 alphas.append(layer_alphas)
-            X = gelu(X)
+            elif fused:
+                # the embedding passed through the op: the next layer's
+                # backward hands its d_edge_emb to this layer's as the carry
+                X, edge_emb = X
+            X = dropout(gelu(X), self.dropout, self.training)
 
         out = gelu(dense(H, self.Vh, cdt) + dense(X, self.Vx, cdt))
+        out = dropout(out, self.dropout, self.training)
         if return_alpha:
             return out, (torch.stack([a[0] for a in alphas]),
                          torch.stack([a[1] for a in alphas]))

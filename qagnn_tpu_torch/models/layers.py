@@ -7,6 +7,7 @@ parameter tree maps onto them path by path (qagnn_tpu_torch.utils.convert).
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -30,6 +31,34 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype=None) -> torch.Tensor:
     return F.linear(x.to(dt), layer.weight.to(dt), bias)
 
 
+_DROPOUT_GENERATOR: torch.Generator | None = None
+
+
+@contextlib.contextmanager
+def dropout_generator(generator: torch.Generator | None):
+    """Within the block every `dropout` draws its mask from `generator`
+    (which lives on the tensors' device), so that a train step is a function
+    of its seed. None: torch's global generator."""
+    global _DROPOUT_GENERATOR
+    previous, _DROPOUT_GENERATOR = _DROPOUT_GENERATOR, generator
+    try:
+        yield
+    finally:
+        _DROPOUT_GENERATOR = previous
+
+
+def dropout(x: torch.Tensor, p: float, training: bool) -> torch.Tensor:
+    """Inverted dropout: in training, zero each element with probability p
+    and scale the rest by 1 / (1 - p); else the identity."""
+    if not training or p <= 0.0:
+        return x
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.empty_like(x).bernoulli_(1.0 - p,
+                                          generator=_DROPOUT_GENERATOR)
+    return x * keep / (1.0 - p)
+
+
 class ProjParams(nn.Module):
     """Bare projection parameters kept as in the flax tree: `kernel`
     (in, out) and optional `bias` (out,). For projections that run inside a
@@ -49,13 +78,14 @@ class ProjParams(nn.Module):
 
 class MLP(nn.Module):
     """num_layers + 1 Linear layers; hidden ones followed by
-    [LayerNorm] -> activation (reference utils/layers.py:47-87). Eval only:
-    dropout is the identity."""
+    Dropout -> [LayerNorm] -> activation (reference utils/layers.py:47-87)."""
 
     def __init__(self, input_size: int, hidden_size: int, output_size: int,
-                 num_layers: int, layer_norm: bool = False):
+                 num_layers: int, layer_norm: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_layers = num_layers
+        self.dropout = dropout
         self.layer_norm = layer_norm
         for i in range(num_layers + 1):
             n_in = input_size if i == 0 else hidden_size
@@ -69,6 +99,7 @@ class MLP(nn.Module):
         for i in range(self.num_layers + 1):
             x = dense(x, getattr(self, f"linear_{i}"))
             if i < self.num_layers:
+                x = dropout(x, self.dropout, self.training)
                 if self.layer_norm:
                     ln = getattr(self, f"layernorm_{i}")
                     x = F.layer_norm(x, ln.normalized_shape, ln.weight,
@@ -91,14 +122,16 @@ class MatrixVectorScaledDotProductAttention(nn.Module):
     """One query vector attending over a sequence (reference
     utils/layers.py:276-299)."""
 
-    def __init__(self, temperature: float):
+    def __init__(self, temperature: float, attn_dropout: float = 0.1):
         super().__init__()
         self.temperature = temperature
+        self.attn_dropout = attn_dropout
 
     def forward(self, q, k, v, mask=None):
         """q: (B, Dk); k: (B, L, Dk); v: (B, L, Dv); mask: (B, L) True==drop."""
         attn = torch.sum(q[:, None, :] * k, dim=2) / self.temperature
         attn = masked_softmax(attn, mask)
+        attn = dropout(attn, self.attn_dropout, self.training)
         return torch.sum(attn[:, :, None] * v, dim=1), attn
 
 
@@ -106,10 +139,12 @@ class MultiheadAttPoolLayer(nn.Module):
     """Multi-head attention pooling of node features by the sentence vector
     (reference utils/layers.py:324-371)."""
 
-    def __init__(self, n_head: int, d_q_original: int, d_k_original: int):
+    def __init__(self, n_head: int, d_q_original: int, d_k_original: int,
+                 dropout: float = 0.1):
         super().__init__()
         assert d_k_original % n_head == 0
         self.n_head = n_head
+        self.dropout = dropout
         self.d_k = d_k_original // n_head
         self.w_qs = nn.Linear(d_q_original, n_head * self.d_k)
         self.w_ks = nn.Linear(d_k_original, n_head * self.d_k)
@@ -131,7 +166,9 @@ class MultiheadAttPoolLayer(nn.Module):
             mask = mask.repeat(nh, 1)
         output, attn = self.attention(qs, ks, vs, mask)
         output = output.reshape(nh, bs, d_k).permute(1, 0, 2)
-        return output.reshape(bs, nh * d_k), attn
+        output = dropout(output.reshape(bs, nh * d_k), self.dropout,
+                         self.training)
+        return output, attn
 
 
 class CustomizedEmbedding(nn.Module):

@@ -1,4 +1,4 @@
-"""QAGNN decoder and the LM + GNN model, eval forward.
+"""QAGNN decoder and the LM + GNN model, eval and train mode.
 
 Counterpart of qagnn_tpu/models/qagnn.py (`normalize_node_scores`, `QAGNN`,
 `LMQAGNN`; reference modeling/modeling_qagnn.py:99-251). LM inputs arrive as
@@ -17,6 +17,7 @@ from qagnn_tpu_torch.models.layers import (
     CustomizedEmbedding,
     MultiheadAttPoolLayer,
     dense,
+    dropout,
     gelu,
 )
 
@@ -38,28 +39,29 @@ class QAGNN(nn.Module):
     def __init__(self, k: int, n_ntype: int, n_etype: int, sent_dim: int,
                  n_concept: int, concept_dim: int, concept_in_dim: int,
                  n_attention_head: int, fc_dim: int, n_fc_layer: int,
+                 p_emb: float = 0.2, p_gnn: float = 0.2, p_fc: float = 0.2,
                  gnn_backend: str | None = None,
                  gnn_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.p_emb, self.p_fc = p_emb, p_fc
         self.svec2nvec = nn.Linear(sent_dim, concept_dim)
         self.concept_emb = CustomizedEmbedding(n_concept, concept_in_dim,
                                                concept_dim)
         self.gnn = QAGNNMessagePassing(k, n_ntype, n_etype, concept_dim,
-                                       backend=gnn_backend, dtype=gnn_dtype)
+                                       dropout=p_gnn, backend=gnn_backend,
+                                       dtype=gnn_dtype)
         self.pooler = MultiheadAttPoolLayer(n_attention_head, sent_dim,
                                             concept_dim)
         self.fc = MLP(concept_dim + sent_dim + concept_dim, fc_dim, 1,
-                      n_fc_layer, layer_norm=True)
+                      n_fc_layer, layer_norm=True, dropout=p_fc)
 
     def forward(self, sent_vecs, graph: BatchedGraphs):
         """sent_vecs: (G, sent_dim). Returns logits (G, 1)."""
-        if self.training:
-            raise NotImplementedError("train mode is not ported yet; "
-                                      "call .eval()")
         gnn_input0 = gelu(dense(sent_vecs, self.svec2nvec))[:, None, :]
         # padding slots carry concept_id 1 -> table row 0
         gnn_input1 = self.concept_emb(graph.concept_ids[:, 1:] - 1)
         gnn_input = torch.cat([gnn_input0, gnn_input1], dim=1)
+        gnn_input = dropout(gnn_input, self.p_emb, self.training)
 
         node_mask = graph.node_mask
         node_scores = normalize_node_scores(graph.node_scores, node_mask,
@@ -79,7 +81,7 @@ class QAGNN(nn.Module):
         dt = torch.promote_types(z_vecs.dtype, sent_vecs.dtype)
         concat = torch.cat([graph_vecs.to(dt), sent_vecs.to(dt),
                             z_vecs.to(dt)], dim=1)
-        return self.fc(concat)
+        return self.fc(dropout(concat, self.p_fc, self.training))
 
 
 class LMQAGNN(nn.Module):
@@ -89,13 +91,15 @@ class LMQAGNN(nn.Module):
                  n_ntype: int, n_etype: int, n_concept: int,
                  concept_dim: int, concept_in_dim: int,
                  n_attention_head: int, fc_dim: int, n_fc_layer: int,
+                 p_emb: float = 0.2, p_gnn: float = 0.2, p_fc: float = 0.2,
                  gnn_backend: str | None = None,
                  gnn_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.encoder = encoder
         self.decoder = QAGNN(k, n_ntype, n_etype, sent_dim, n_concept,
                              concept_dim, concept_in_dim, n_attention_head,
-                             fc_dim, n_fc_layer, gnn_backend=gnn_backend,
+                             fc_dim, n_fc_layer, p_emb=p_emb, p_gnn=p_gnn,
+                             p_fc=p_fc, gnn_backend=gnn_backend,
                              gnn_dtype=gnn_dtype)
 
     def forward(self, lm_inputs: dict, graph: BatchedGraphs, *,

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from qagnn_tpu_torch.models.layers import dense
+from qagnn_tpu_torch.models.layers import dense, dropout
 
 
 @dataclass(frozen=True)
@@ -98,7 +98,7 @@ class SelfAttention(nn.Module):
         scores = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float())
         scores = scores / np.sqrt(dh) + attn_bias
         probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
-        probs = F.dropout(probs, cfg.attention_dropout, self.training)
+        probs = dropout(probs, cfg.attention_dropout, self.training)
         ctx = torch.einsum("bhlm,bmhd->blhd", probs, v).reshape(B, L, d)
         return dense(ctx, self.out, cfg.dtype)
 
@@ -118,13 +118,13 @@ class TransformerBlock(nn.Module):
 
     def forward(self, h, attn_bias):
         cfg = self.cfg
-        a = F.dropout(self.attention(h, attn_bias), cfg.hidden_dropout,
+        a = dropout(self.attention(h, attn_bias), cfg.hidden_dropout,
                       self.training)
         h = _layer_norm(h + a, self.attention_ln, cfg.dtype)
         f = dense(h, self.intermediate, cfg.dtype)
         f = F.gelu(f, approximate="tanh" if cfg.hidden_act == "gelu_new"
                    else "none")
-        f = F.dropout(dense(f, self.output, cfg.dtype), cfg.hidden_dropout,
+        f = dropout(dense(f, self.output, cfg.dtype), cfg.hidden_dropout,
                       self.training)
         return _layer_norm(h + f, self.output_ln, cfg.dtype)
 
@@ -171,7 +171,7 @@ class TextEncoder(nn.Module):
              + embed(torch.clamp(token_type_ids.long(), 0, n_types - 1),
                      self.token_type_embeddings))
         h = _layer_norm(h, self.embeddings_ln, cfg.dtype)
-        h = F.dropout(h, cfg.hidden_dropout, self.training)
+        h = dropout(h, cfg.hidden_dropout, self.training)
 
         attn_bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0,
                                 -1e9).float()                   # (B,1,1,L)

@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled on first use
 with nvcc for sm_90a into its own shared library under `build/kernels/` at
 the repository root (listed in .gitignore), then loaded with ctypes. The
-library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and an unchanged one is reused.
+library's file name carries a hash of its source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source is rebuilt and an unchanged
+one is reused.
 
 Every C entry point takes its pointers and the CUDA stream as `void*` and
 returns `cudaGetLastError()` after its launches; `check` raises when that is
@@ -51,8 +52,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
+    parts = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha1(b"".join(p.read_bytes() for p in parts)
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}.{digest}.so"
 
@@ -105,6 +106,17 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def require(t, name: str, dtype, shape) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of this dtype and shape:
+    what every kernel takes."""
+    if not t.is_cuda or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: need a contiguous CUDA {dtype} tensor of shape "
+            f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+            f"{'' if t.is_contiguous() else ' (not contiguous)'}")
 
 
 def check(err: int, kernel: str) -> None:

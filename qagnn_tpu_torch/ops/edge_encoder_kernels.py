@@ -1,13 +1,24 @@
-"""The shared edge encoder's edge side on a hand-written CUDA kernel.
+"""The shared edge encoder's edge side on hand-written CUDA kernels.
 
-Counterpart of qagnn_tpu/ops/pallas_edge_encoder.py (forward). The encoder
-is Linear(F -> D) -> BatchNorm -> ReLU -> Linear(D -> D) over one-hot feature
+Counterpart of qagnn_tpu/ops/pallas_edge_encoder.py. The encoder is
+Linear(F -> D) -> BatchNorm -> ReLU -> Linear(D -> D) over one-hot feature
 rows [onehot(rel) | onehot(type[src]) | onehot(type[dst])], F = n_rel +
 2 * n_ntype. On the fused path linear_1 never runs (the GAT kernels compose
-it into their edge projections) and `edge_hidden` emits
-h = relu(a * (W0^T feat + b0) + b) for every edge slot, (a, b) being the
-folded BatchNorm affine. `analytic_edge_moments` gives the closed-form
-masked row sums of x0 = feat W0 + b0 that train-mode BatchNorm needs.
+it into their edge projections) and
+
+  * `edge_feature_moments` (csrc/edge_moments.cu) counts the masked slots'
+    feature histogram, second moment and rows: data only, no gradient;
+  * `analytic_edge_moments` turns them into the closed-form masked row sums
+    of x0 = feat W0 + b0 that train-mode BatchNorm needs, in plain torch ops
+    so that autograd carries the gradient through mean and variance;
+  * `edge_hidden` (csrc/edge_hidden.cu) emits
+    h = relu(a * (W0^T feat + b0) + b) for every edge slot, (a, b) being the
+    folded BatchNorm affine, and is differentiable in W0, b0, a, b: its
+    backward is the second kernel of csrc/edge_hidden.cu.
+
+Every kernel has a plain torch version here with the same arithmetic. A
+wrapper takes the plain version for CPU tensors only; for CUDA tensors it
+launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -20,26 +31,106 @@ from qagnn_tpu_torch.ops import _build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"edge_hidden_launch": [_P] * 9 + [_I] * 7 + [_P]}
+_SIGNATURES = {"edge_hidden_launch": [_P] * 9 + [_I] * 7 + [_P],
+               "edge_hidden_bwd_launch": [_P] * 11 + [_I] * 9 + [_P]}
+_MOMENTS_SIGNATURES = {"edge_moments_launch": [_P] * 6 + [_I] * 5 + [_P]}
+BWD_BLOCKS = 512     # blocks (and rows of partials) of the hidden backward
+
+
+_require = _build.require
+
+
+def _feature_rows(edge_type, src, dst, node_type, n_rel, n_ntype):
+    """The three W0 rows (G, E) int64 that an edge slot's feature row sets."""
+    head = torch.gather(node_type.long(), 1, src.long())
+    tail = torch.gather(node_type.long(), 1, dst.long())
+    return edge_type.long(), n_rel + head, n_rel + n_ntype + tail
+
+
+# --------------------------------------------------------------------------
+# feature moments of the masked slots
+# --------------------------------------------------------------------------
+
+def edge_feature_moments_plain(edge_type, src, dst, node_type, mask, n_rel,
+                               n_ntype):
+    F = n_rel + 2 * n_ntype
+    m = mask.reshape(-1).bool()
+    feats = torch.stack([r.reshape(-1)[m] for r in _feature_rows(
+        edge_type, src, dst, node_type, n_rel, n_ntype)], dim=1)   # (n, 3)
+    hist = torch.bincount(feats.reshape(-1), minlength=F)
+    pairs = feats[:, :, None] * F + feats[:, None, :]
+    M = torch.bincount(pairs.reshape(-1), minlength=F * F).reshape(F, F)
+    return hist.float(), M.float(), m.sum().float()
+
+
+def edge_feature_moments(edge_type, src, dst, node_type, mask, n_rel,
+                         n_ntype):
+    """Masked feature histogram (F,), second moment feat^T feat (F, F) and
+    row count () over all graphs' edge slots, f32 (exact integer counts).
+    edge_type/src/dst: (G, E) int32; node_type: (G, N) int32; mask: (G, E)
+    bool. No gradient flows through these."""
+    if not edge_type.is_cuda:
+        return edge_feature_moments_plain(edge_type, src, dst, node_type,
+                                          mask, n_rel, n_ntype)
+    G, E = edge_type.shape
+    N = node_type.shape[1]
+    F = n_rel + 2 * n_ntype
+    for t, name in ((edge_type, "edge_type"), (src, "src"), (dst, "dst")):
+        _require(t, name, torch.int32, (G, E))
+    _require(node_type, "node_type", torch.int32, (G, N))
+    _require(mask, "mask", torch.bool, (G, E))
+    counts = torch.zeros(F + F * F + 1, device=edge_type.device,
+                         dtype=torch.int32)
+    err = _build.load("edge_moments", _MOMENTS_SIGNATURES).edge_moments_launch(
+        edge_type.data_ptr(), src.data_ptr(), dst.data_ptr(),
+        node_type.data_ptr(), mask.data_ptr(), counts.data_ptr(), G, E, N,
+        n_rel, n_ntype, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "edge_moments")
+    _build.count_launch("edge_moments")
+    counts = counts.float()
+    return counts[:F], counts[F:F + F * F].reshape(F, F), counts[-1]
+
+
+# --------------------------------------------------------------------------
+# the hidden pass and its backward
+# --------------------------------------------------------------------------
+
+def _x0(rows, w0, b0, out_dtype):
+    """W0^T feat + b0 (G, E, D) f32: the three W0 rows are rounded to
+    out_dtype and summed in f32, as the TPU kernel's one-hot contraction
+    does."""
+    w0c = w0.to(out_dtype).float()
+    return w0c[rows[0]] + w0c[rows[1]] + w0c[rows[2]] + b0.float()
 
 
 def edge_hidden_plain(edge_type, src, dst, node_type, w0, b0, a, b, n_rel,
                       n_ntype, out_dtype):
-    """(G, E, D) h in out_dtype; the three W0 rows are rounded to out_dtype
-    and summed in f32, as the TPU kernel's one-hot contraction does."""
-    w0c = w0.to(out_dtype).float()
-    head = torch.gather(node_type.long(), 1, src.long())
-    tail = torch.gather(node_type.long(), 1, dst.long())
-    x0 = w0c[edge_type.long()] + w0c[n_rel + head] \
-        + w0c[n_rel + n_ntype + tail] + b0.float()
+    rows = _feature_rows(edge_type, src, dst, node_type, n_rel, n_ntype)
+    x0 = _x0(rows, w0, b0, out_dtype)
     return torch.relu(a.float() * x0 + b.float()).to(out_dtype)
 
 
-def edge_hidden(edge_type, src, dst, node_type, w0, b0, a, b, n_rel, n_ntype,
-                out_dtype):
-    """h = relu(a * (W0^T feat + b0) + b) for every edge slot, (G, E, D) in
-    out_dtype. edge_type/src/dst: (G, E) int32; node_type: (G, N) int32;
-    w0: (F, D) f32; b0/a/b: (D,) f32."""
+def edge_hidden_backward_plain(edge_type, src, dst, node_type, w0, b0, a, b,
+                               dh, n_rel, n_ntype):
+    """(dW0 (F, D), db0, da, db (D,)) f32 from dh (G, E, D), summed over
+    every slot; d_x0 is rounded to dh's dtype before it is scattered into
+    dW0, while the three vector sums take the f32 values."""
+    rows = _feature_rows(edge_type, src, dst, node_type, n_rel, n_ntype)
+    x0 = _x0(rows, w0, b0, dh.dtype)
+    D = w0.shape[1]
+    d_pre = torch.where(a.float() * x0 + b.float() > 0, dh.float(), 0.0)
+    d_x0 = d_pre * a.float()
+    dxc = d_x0.to(dh.dtype).float().reshape(-1, D)
+    dw0 = torch.zeros_like(w0, dtype=torch.float32)
+    for r in rows:
+        dw0.index_add_(0, r.reshape(-1), dxc)
+    return (dw0, d_x0.sum((0, 1)), (d_pre * x0).sum((0, 1)),
+            d_pre.sum((0, 1)))
+
+
+def edge_hidden_forward(edge_type, src, dst, node_type, w0, b0, a, b, n_rel,
+                        n_ntype, out_dtype):
+    """`edge_hidden` without the autograd graph."""
     if not edge_type.is_cuda:
         return edge_hidden_plain(edge_type, src, dst, node_type, w0, b0, a, b,
                                  n_rel, n_ntype, out_dtype)
@@ -51,19 +142,12 @@ def edge_hidden(edge_type, src, dst, node_type, w0, b0, a, b, n_rel, n_ntype,
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"edge_hidden emits float32 or bfloat16, "
                         f"not {out_dtype}")
-    checks = [(edge_type, "edge_type", torch.int32, (G, E)),
-              (src, "src", torch.int32, (G, E)),
-              (dst, "dst", torch.int32, (G, E)),
-              (node_type, "node_type", torch.int32, (G, N)),
-              (w0, "w0", torch.float32, (F, D))]
-    checks += [(t, n, torch.float32, (D,)) for t, n in
-               ((b0, "b0"), (a, "a"), (b, "b"))]
-    for t, name, dtype, shape in checks:
-        if not t.is_cuda or t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"{name}: need a contiguous CUDA {dtype} tensor of shape "
-                f"{shape}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    for t, name in ((edge_type, "edge_type"), (src, "src"), (dst, "dst")):
+        _require(t, name, torch.int32, (G, E))
+    _require(node_type, "node_type", torch.int32, (G, N))
+    _require(w0, "w0", torch.float32, (F, D))
+    for t, name in ((b0, "b0"), (a, "a"), (b, "b")):
+        _require(t, name, torch.float32, (D,))
     out = torch.empty((G, E, D), device=edge_type.device, dtype=out_dtype)
     err = _build.load("edge_hidden", _SIGNATURES).edge_hidden_launch(
         edge_type.data_ptr(), src.data_ptr(), dst.data_ptr(),
@@ -74,6 +158,74 @@ def edge_hidden(edge_type, src, dst, node_type, w0, b0, a, b, n_rel, n_ntype,
     _build.check(err, "edge_hidden")
     _build.count_launch("edge_hidden")
     return out
+
+
+def edge_hidden_backward(edge_type, src, dst, node_type, w0, b0, a, b, dh,
+                         n_rel, n_ntype):
+    """Gradients of `edge_hidden` in (w0, b0, a, b), f32, from the output
+    cotangent dh (G, E, D) in the forward's output dtype."""
+    if not dh.is_cuda:
+        return edge_hidden_backward_plain(edge_type, src, dst, node_type, w0,
+                                          b0, a, b, dh, n_rel, n_ntype)
+    G, E = edge_type.shape
+    N = node_type.shape[1]
+    F, D = w0.shape
+    if F != n_rel + 2 * n_ntype:
+        raise ValueError(f"w0 has {F} rows, expected {n_rel + 2 * n_ntype}")
+    if dh.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"edge_hidden takes a float32 or bfloat16 cotangent, "
+                        f"not {dh.dtype}")
+    if D > 1024 or F * D * 4 > 200 * 1024:
+        raise ValueError(f"the edge_hidden backward kernel takes D <= 1024 "
+                         f"and F * D <= 51200; got F={F}, D={D}")
+    for t, name in ((edge_type, "edge_type"), (src, "src"), (dst, "dst")):
+        _require(t, name, torch.int32, (G, E))
+    _require(node_type, "node_type", torch.int32, (G, N))
+    _require(w0, "w0", torch.float32, (F, D))
+    for t, name in ((b0, "b0"), (a, "a"), (b, "b")):
+        _require(t, name, torch.float32, (D,))
+    _require(dh, "dh", dh.dtype, (G, E, D))
+    n_blocks = max(1, min(BWD_BLOCKS, -(-G * E // 64)))
+    part = torch.empty((n_blocks, F + 3, D), device=dh.device,
+                       dtype=torch.float32)
+    out = torch.empty((F + 3, D), device=dh.device, dtype=torch.float32)
+    err = _build.load("edge_hidden", _SIGNATURES).edge_hidden_bwd_launch(
+        edge_type.data_ptr(), src.data_ptr(), dst.data_ptr(),
+        node_type.data_ptr(), w0.data_ptr(), b0.data_ptr(), a.data_ptr(),
+        b.data_ptr(), dh.data_ptr(), part.data_ptr(), out.data_ptr(), G, E,
+        N, D, F, n_rel, n_ntype, n_blocks,
+        1 if dh.dtype == torch.bfloat16 else 0,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "edge_hidden_bwd")
+    _build.count_launch("edge_hidden_bwd")
+    return out[:F], out[F], out[F + 1], out[F + 2]
+
+
+class _EdgeHidden(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, edge_type, src, dst, node_type, w0, b0, a, b, n_rel,
+                n_ntype, out_dtype):
+        ctx.save_for_backward(edge_type, src, dst, node_type, w0, b0, a, b)
+        ctx.consts = (n_rel, n_ntype, out_dtype)
+        return edge_hidden_forward(edge_type, src, dst, node_type, w0, b0, a,
+                                   b, n_rel, n_ntype, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dh):
+        n_rel, n_ntype, out_dtype = ctx.consts
+        dw0, db0, da, db = edge_hidden_backward(
+            *ctx.saved_tensors, dh.to(out_dtype).contiguous(), n_rel,
+            n_ntype)
+        return (None,) * 4 + (dw0, db0, da, db) + (None,) * 3
+
+
+def edge_hidden(edge_type, src, dst, node_type, w0, b0, a, b, n_rel, n_ntype,
+                out_dtype):
+    """h = relu(a * (W0^T feat + b0) + b) for every edge slot, (G, E, D) in
+    out_dtype, differentiable in w0, b0, a, b. edge_type/src/dst: (G, E)
+    int32; node_type: (G, N) int32; w0: (F, D) f32; b0/a/b: (D,) f32."""
+    return _EdgeHidden.apply(edge_type, src, dst, node_type, w0, b0, a, b,
+                             n_rel, n_ntype, out_dtype)
 
 
 def analytic_edge_moments(w0, b0, hist, M, n):

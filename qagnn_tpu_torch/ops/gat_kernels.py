@@ -1,7 +1,8 @@
-"""Forward of the projected relational GAT op on hand-written CUDA kernels.
+"""The projected relational GAT op on hand-written CUDA kernels.
 
-Counterpart of the forward of `pallas_relational_gat_projected[_chained]`
-(qagnn_tpu/ops/pallas_gat.py:1019-1050 `_proj_fwd_impl`). The op runs
+Counterpart of `pallas_relational_gat_projected[_chained]`
+(qagnn_tpu/ops/pallas_gat.py: forward `_proj_fwd_impl` :1019-1050, backward
+`_proj_bwd_impl` :1172-1199). The forward runs
 
   * pass A, scores (csrc/gat_fwd.cu `gat_pass_a_scores`): per edge the key
     bias ekb = emb W_ke + b_ke, the per-head logit
@@ -16,14 +17,34 @@ Counterpart of the forward of `pallas_relational_gat_projected[_chained]`
   * pass C (`gat_pass_c`): out[dst] += exp(min(s - gmax, 0)) * scale[src]
     * (nm[src] + emb W_me + b_me) over masked edges.
 
+The backward (`gat_projected`, `gat_projected_chained`: autograd Functions)
+recomputes e = exp(min(s - gmax, 0)) from the saved scores and runs
+
+  * torch glue: the self-loop cotangents d_msg_self, d_alpha_self;
+  * pass 1 (csrc/gat_bwd.cu `gat_bwd_pass1`): d_msg = alpha * g[dst] ->
+    demb = d_msg W_me^T (+ the downstream layers' carry), dW_me, db_me,
+    d_alpha per head, dnm[src] += d_msg, dscale[src] += d_alpha * e;
+  * torch glue: d_denom from dscale, the self-loop score cotangents;
+  * pass 2 (`gat_bwd_pass2`): d_s = (d_alpha * scale[src] + d_denom[src]) * e
+    -> dekb = d_s * nq[src], demb += dekb W_ke^T, dW_ke, db_ke,
+    dnq[src] += d_s * key, dnk[dst] += dekb.
+
+No gradient flows through gmax. The chained form also returns the edge
+embedding: threaded through the k layers, each layer's backward receives the
+later layers' accumulated d_edge_emb as its carry and adds it inside pass 1,
+so the sum over layers is never a separate (G, E, D) add.
+
 Every kernel has a plain torch version here with the same arithmetic: node
 and edge inputs in the compute dtype, the projection weights rounded to it,
-everything after in f32. A wrapper takes the plain version for CPU tensors
-only; for CUDA tensors it launches its kernel or raises.
+everything after in f32 except where the TPU kernels round to the compute
+dtype too (d_msg, dekb and the dnq term before products and scatters; demb
+when stored). A wrapper takes the plain version for CPU tensors only; for
+CUDA tensors it launches its kernel or raises.
 
 Unlike the TPU op the edge embedding is (G, E, D), not transposed, and no
 edge padding is needed: any E works. The kernels take D and HD that are
-multiples of 8, HD <= 256 and at most 8 heads; the plain versions take any.
+multiples of 8, HD <= 256 (the backward also D <= 256 and heads of at least
+4 features) and at most 8 heads; the plain versions take any.
 """
 
 from __future__ import annotations
@@ -48,8 +69,19 @@ _SIGNATURES = {
 }
 
 
+_BWD_SIGNATURES = {
+    "gat_bwd_pass1": [_P] * 22 + [_I] * 8 + [_P],
+    "gat_bwd_pass2": [_P] * 22 + [_I] * 8 + [_P],
+}
+DW_SPLITS = 128      # edge ranges (rows of partials) of the dW products
+
+
 def _lib():
     return _build.load("gat_fwd", _SIGNATURES)
+
+
+def _bwd_lib():
+    return _build.load("gat_bwd", _BWD_SIGNATURES)
 
 
 def _dtype_code(t: torch.Tensor) -> int:
@@ -60,19 +92,21 @@ def _dtype_code(t: torch.Tensor) -> int:
     raise TypeError(f"GAT kernels take float32 or bfloat16, got {t.dtype}")
 
 
-def _require(t: torch.Tensor, name: str, dtype, shape) -> None:
-    if not t.is_cuda or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: need a contiguous CUDA {dtype} tensor of shape "
-            f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} on {t.device}"
-            f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+_require = _build.require
 
 
 def _check_widths(D: int, HD: int, heads: int) -> None:
     if D % 8 or HD % 8 or HD > 256 or heads > 8 or HD % heads:
         raise ValueError(f"GAT kernels take D, HD multiples of 8, HD <= 256 "
                          f"and <= 8 heads dividing HD; got D={D}, HD={HD}, "
+                         f"heads={heads}")
+
+
+def _check_bwd_widths(D: int, HD: int, heads: int) -> None:
+    _check_widths(D, HD, heads)
+    if D > 256 or HD // heads < 4:
+        raise ValueError(f"GAT backward kernels take D <= 256 and heads of "
+                         f"at least 4 features; got D={D}, HD={HD}, "
                          f"heads={heads}")
 
 
@@ -234,7 +268,7 @@ def pass_c(nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst, mask,
 
 
 # --------------------------------------------------------------------------
-# the op
+# the op, forward
 # --------------------------------------------------------------------------
 
 def gat_projected_forward(nq, nk, nm, edge_emb, w_ke, b_ke, w_me, b_me,
@@ -248,7 +282,8 @@ def gat_projected_forward(nq, nk, nm, edge_emb, w_ke, b_ke, w_me, b_me,
     local indices; mask: (G, E) bool.
 
     Returns (out (G, N, HD) f32, scores (G, H, E) f32, gmax (G, H) f32,
-    scale (G, N, H) f32).
+    denom_raw (G, N, H) f32, scale (G, N, H) f32, e_self (G, N, H) f32):
+    the output and what the backward keeps.
     """
     G, N, HD = nq.shape
     scores, m_edge = pass_a_scores(nq, nk, edge_emb, w_ke, b_ke, src, dst,
@@ -257,9 +292,278 @@ def gat_projected_forward(nq, nk, nm, edge_emb, w_ke, b_ke, w_me, b_me,
     gmax = torch.maximum(m_edge, self_scores.amax(1))                 # (G,H)
     e_self = torch.exp(self_scores - gmax[:, None, :])
     denom_edges, deg = pass_a_denoms(scores, gmax, src, mask, N)
-    scale = (deg[..., None] + 1.0) \
-        / torch.clamp_min(denom_edges + e_self, DENOM_EPS)
+    denom_raw = denom_edges + e_self
+    scale = (deg[..., None] + 1.0) / torch.clamp_min(denom_raw, DENOM_EPS)
     out = (nm.float() + smb.float()) * heads_to_hd(e_self * scale, HD)
     out = pass_c(nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
                  mask, out, heads)
-    return out, scores, gmax, scale
+    return out, scores, gmax, denom_raw, scale, e_self
+
+
+# --------------------------------------------------------------------------
+# backward pass 1 (message side)
+# --------------------------------------------------------------------------
+
+def _edge_exp(scores, gmax, mask):
+    """e = exp(min(s - gmax, 0)) over masked edges, 0 elsewhere: (G, E, H)."""
+    e = torch.exp(torch.clamp_max(scores - gmax[:, :, None], 0.0))
+    return torch.where(mask[:, None, :], e, 0.0).transpose(1, 2)
+
+
+def _scatter_nodes(acc, idx, vals):
+    """acc (G, N, F) += vals (G, E, F) at (G, E) local indices, in place."""
+    G, E = idx.shape
+    return acc.scatter_add_(
+        1, idx.long()[..., None].expand(G, E, vals.shape[-1]), vals)
+
+
+def _weight_grads(edge_emb, cot_c, cot):
+    """(emb^T cot_c over all edges (D, HD), column sums of cot (HD,))."""
+    D, HD = edge_emb.shape[-1], cot.shape[-1]
+    dw = edge_emb.float().reshape(-1, D).t() @ cot_c.float().reshape(-1, HD)
+    return dw, cot.sum((0, 1))
+
+
+def bwd_pass1_plain(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src,
+                    dst, mask, carry, dnm, dscale, heads):
+    cdt = nm.dtype
+    HD = nm.shape[-1]
+    msg = _gather_nodes(nm, src).float() \
+        + _edge_projection_plain(edge_emb, w_me, b_me, cdt)
+    g_dst = _gather_nodes(gout, dst).float()
+    e = _edge_exp(scores, gmax, mask)                               # (G,E,H)
+    alpha = e * _gather_nodes(scale, src)
+    d_msg = heads_to_hd(alpha, HD) * g_dst
+    d_msg_c = d_msg.to(cdt)
+    demb = d_msg_c.float() @ w_me.to(cdt).float().t()
+    if carry is not None:
+        demb = demb + carry.float()
+    dalpha = torch.where(mask[..., None], head_sum(msg * g_dst, heads), 0.0)
+    dw, db = _weight_grads(edge_emb, d_msg_c, d_msg)
+    _scatter_nodes(dnm, src, d_msg_c.float())
+    _scatter_nodes(dscale, src, dalpha * e)
+    return (demb.to(edge_emb.dtype), dalpha.transpose(1, 2).contiguous(),
+            dnm, dscale, dw, db)
+
+
+def _split_scratch(G, E, D, HD, device):
+    n_split = max(1, min(DW_SPLITS, -(-G * E // 32)))
+    return (n_split,
+            torch.empty((n_split, D, HD), device=device, dtype=torch.float32),
+            torch.empty((G * -(-E // 64), HD), device=device,
+                        dtype=torch.float32))
+
+
+def bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
+              mask, carry, dnm, dscale, heads):
+    """Backward pass 1. gout: (G, N, HD) output cotangent in the compute
+    dtype; carry: (G, E, D) in the embedding's dtype or None; dnm (G, N, HD)
+    and dscale (G, N, H) f32 arrive seeded with the self-loop cotangents and
+    are added to IN PLACE.
+
+    Returns (demb (G, E, D) in the embedding's dtype, d_alpha (G, H, E) f32
+    (0 at masked slots), dnm, dscale, dW_me (D, HD) f32, db_me (HD,) f32).
+    """
+    if not nm.is_cuda:
+        return bwd_pass1_plain(gout, nm, edge_emb, w_me, b_me, scores, gmax,
+                               scale, src, dst, mask, carry, dnm, dscale,
+                               heads)
+    G, N, HD = nm.shape
+    E, D = edge_emb.shape[1], edge_emb.shape[2]
+    cdt = nm.dtype
+    _check_bwd_widths(D, HD, heads)
+    _require(gout, "gout", cdt, (G, N, HD))
+    _require(nm, "nm", cdt, (G, N, HD))
+    _require(edge_emb, "edge_emb", cdt, (G, E, D))
+    _require(w_me, "w_me", torch.float32, (D, HD))
+    _require(b_me, "b_me", torch.float32, (HD,))
+    _require(scores, "scores", torch.float32, (G, heads, E))
+    _require(gmax, "gmax", torch.float32, (G, heads))
+    _require(scale, "scale", torch.float32, (G, N, heads))
+    _require(src, "src", torch.int32, (G, E))
+    _require(dst, "dst", torch.int32, (G, E))
+    _require(mask, "mask", torch.bool, (G, E))
+    if carry is not None:
+        _require(carry, "carry", cdt, (G, E, D))
+    _require(dnm, "dnm", torch.float32, (G, N, HD))
+    _require(dscale, "dscale", torch.float32, (G, N, heads))
+    dev = nm.device
+    w_t = w_me.t().contiguous()
+    dmsg = torch.empty((G, E, HD), device=dev, dtype=cdt)
+    demb = torch.empty((G, E, D), device=dev, dtype=cdt)
+    dalpha = torch.empty((G, heads, E), device=dev, dtype=torch.float32)
+    dw = torch.empty((D, HD), device=dev, dtype=torch.float32)
+    db = torch.empty((HD,), device=dev, dtype=torch.float32)
+    n_split, dw_part, db_part = _split_scratch(G, E, D, HD, dev)
+    err = _bwd_lib().gat_bwd_pass1(
+        gout.data_ptr(), nm.data_ptr(), edge_emb.data_ptr(), w_me.data_ptr(),
+        w_t.data_ptr(), b_me.data_ptr(), scores.data_ptr(), gmax.data_ptr(),
+        scale.data_ptr(), src.data_ptr(), dst.data_ptr(), mask.data_ptr(),
+        None if carry is None else carry.data_ptr(), dmsg.data_ptr(),
+        demb.data_ptr(), dalpha.data_ptr(), dnm.data_ptr(),
+        dscale.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
+        dw.data_ptr(), db.data_ptr(), G, N, E, D, HD, heads, n_split,
+        _dtype_code(nm), _stream())
+    _build.check(err, "gat_bwd_pass1")
+    _build.count_launch("gat_bwd_pass1")
+    return demb, dalpha, dnm, dscale, dw, db
+
+
+# --------------------------------------------------------------------------
+# backward pass 2 (score side)
+# --------------------------------------------------------------------------
+
+def bwd_pass2_plain(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
+                    d_denom, src, dst, mask, demb, dnq, dnk, heads):
+    cdt = nq.dtype
+    HD = nq.shape[-1]
+    key = _gather_nodes(nk, dst).float() \
+        + _edge_projection_plain(edge_emb, w_ke, b_ke, cdt)
+    q_src = _gather_nodes(nq, src).float()
+    d_s = (dalpha.transpose(1, 2) * _gather_nodes(scale, src)
+           + _gather_nodes(d_denom, src)) * _edge_exp(scores, gmax, mask)
+    ds_hd = heads_to_hd(d_s, HD)
+    dekb = ds_hd * q_src
+    dekb_c = dekb.to(cdt)
+    demb = (demb.float() + dekb_c.float() @ w_ke.to(cdt).float().t()) \
+        .to(demb.dtype)
+    dw, db = _weight_grads(edge_emb, dekb_c, dekb)
+    _scatter_nodes(dnq, src, (ds_hd * key).to(cdt).float())
+    _scatter_nodes(dnk, dst, dekb_c.float())
+    return demb, dnq, dnk, dw, db
+
+
+def bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
+              d_denom, src, dst, mask, demb, dnq, dnk, heads):
+    """Backward pass 2. demb (G, E, D) is pass 1's result and is added to IN
+    PLACE on the kernel path, as are dnq and dnk (G, N, HD) f32, which
+    arrive seeded with the self-loop cotangents.
+
+    Returns (demb, dnq, dnk, dW_ke (D, HD) f32, db_ke (HD,) f32)."""
+    if not nq.is_cuda:
+        return bwd_pass2_plain(nq, nk, edge_emb, w_ke, b_ke, scores, gmax,
+                               dalpha, scale, d_denom, src, dst, mask, demb,
+                               dnq, dnk, heads)
+    G, N, HD = nq.shape
+    E, D = edge_emb.shape[1], edge_emb.shape[2]
+    cdt = nq.dtype
+    _check_bwd_widths(D, HD, heads)
+    _require(nq, "nq", cdt, (G, N, HD))
+    _require(nk, "nk", cdt, (G, N, HD))
+    _require(edge_emb, "edge_emb", cdt, (G, E, D))
+    _require(w_ke, "w_ke", torch.float32, (D, HD))
+    _require(b_ke, "b_ke", torch.float32, (HD,))
+    _require(scores, "scores", torch.float32, (G, heads, E))
+    _require(gmax, "gmax", torch.float32, (G, heads))
+    _require(dalpha, "dalpha", torch.float32, (G, heads, E))
+    _require(scale, "scale", torch.float32, (G, N, heads))
+    _require(d_denom, "d_denom", torch.float32, (G, N, heads))
+    _require(src, "src", torch.int32, (G, E))
+    _require(dst, "dst", torch.int32, (G, E))
+    _require(mask, "mask", torch.bool, (G, E))
+    _require(demb, "demb", cdt, (G, E, D))
+    _require(dnq, "dnq", torch.float32, (G, N, HD))
+    _require(dnk, "dnk", torch.float32, (G, N, HD))
+    dev = nq.device
+    w_t = w_ke.t().contiguous()
+    dekb = torch.empty((G, E, HD), device=dev, dtype=cdt)
+    dw = torch.empty((D, HD), device=dev, dtype=torch.float32)
+    db = torch.empty((HD,), device=dev, dtype=torch.float32)
+    n_split, dw_part, db_part = _split_scratch(G, E, D, HD, dev)
+    err = _bwd_lib().gat_bwd_pass2(
+        nq.data_ptr(), nk.data_ptr(), edge_emb.data_ptr(), w_ke.data_ptr(),
+        w_t.data_ptr(), b_ke.data_ptr(), scores.data_ptr(), gmax.data_ptr(),
+        dalpha.data_ptr(), scale.data_ptr(), d_denom.data_ptr(),
+        src.data_ptr(), dst.data_ptr(), mask.data_ptr(), dekb.data_ptr(),
+        demb.data_ptr(), dnq.data_ptr(), dnk.data_ptr(), dw_part.data_ptr(),
+        db_part.data_ptr(), dw.data_ptr(), db.data_ptr(), G, N, E, D, HD,
+        heads, n_split, _dtype_code(nq), _stream())
+    _build.check(err, "gat_bwd_pass2")
+    _build.count_launch("gat_bwd_pass2")
+    return demb, dnq, dnk, dw, db
+
+
+# --------------------------------------------------------------------------
+# the op, differentiable
+# --------------------------------------------------------------------------
+
+def gat_projected_backward(nq, nk, nm, edge_emb, w_ke, b_ke, w_me, b_me, skb,
+                           smb, src, dst, mask, scores, gmax, denom_raw,
+                           scale, e_self, g, carry, heads):
+    """The ten gradients (dnq, dnk, dnm, d_edge_emb, dW_ke, db_ke, dW_me,
+    db_me, dskb, dsmb) from the output cotangent g (G, N, HD) and the
+    later layers' d_edge_emb `carry` (or None)."""
+    HD = nq.shape[-1]
+    g = g.float().contiguous()
+    # self-loop cotangents; they seed pass 1's node accumulators
+    d_msg_self = heads_to_hd(e_self * scale, HD) * g
+    d_alpha_self = head_sum((nm + smb).float() * g, heads)
+    demb, dalpha, dnm, dscale, dw_me, db_me = bwd_pass1(
+        g.to(nq.dtype), nm, edge_emb, w_me, b_me, scores, gmax, scale, src,
+        dst, mask,
+        None if carry is None else carry.to(edge_emb.dtype).contiguous(),
+        d_msg_self.clone(), d_alpha_self * e_self, heads)
+    # close the softmax chain: d_denom and the self-loop score cotangents
+    gate = (denom_raw > DENOM_EPS).float()
+    d_denom = -(scale / torch.clamp_min(denom_raw, DENOM_EPS)) * dscale * gate
+    ds_self = heads_to_hd((d_alpha_self * scale + d_denom) * e_self, HD)
+    nqf = nq.float()
+    dnq_self = ds_self * (nk.float() + skb.float())
+    dnk_self = ds_self * nqf
+    demb, dnq, dnk, dw_ke, db_ke = bwd_pass2(
+        nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
+        d_denom.contiguous(), src, dst, mask, demb, dnq_self, dnk_self.clone(),
+        heads)
+    return (dnq.to(nq.dtype), dnk.to(nk.dtype), dnm.to(nm.dtype), demb,
+            dw_ke.to(w_ke.dtype), db_ke.to(b_ke.dtype), dw_me.to(w_me.dtype),
+            db_me.to(b_me.dtype), dnk_self.to(skb.dtype),
+            d_msg_self.to(smb.dtype))
+
+
+class _GatProjected(torch.autograd.Function):
+    """(out, edge_emb passthrough); the passthrough's cotangent is the
+    carry. With materialize_grads off a passthrough that nothing consumed
+    arrives as None, not as a (G, E, D) array of zeros."""
+
+    @staticmethod
+    def forward(ctx, nq, nk, nm, edge_emb, w_ke, b_ke, w_me, b_me, skb, smb,
+                src, dst, mask, heads):
+        out, scores, gmax, denom_raw, scale, e_self = gat_projected_forward(
+            nq, nk, nm, edge_emb, w_ke, b_ke, w_me, b_me, skb, smb, src, dst,
+            mask, heads)
+        ctx.save_for_backward(nq, nk, nm, edge_emb, w_ke, b_ke, w_me, b_me,
+                              skb, smb, src, dst, mask, scores, gmax,
+                              denom_raw, scale, e_self)
+        ctx.heads = heads
+        ctx.set_materialize_grads(False)
+        return out, edge_emb
+
+    @staticmethod
+    def backward(ctx, g, carry):
+        saved = ctx.saved_tensors
+        if g is None:
+            g = torch.zeros_like(saved[0], dtype=torch.float32)
+        grads = gat_projected_backward(*saved, g, carry, ctx.heads)
+        return grads + (None, None, None, None)
+
+
+def _contiguous(*ts):
+    return tuple(t.contiguous() for t in ts)
+
+
+def gat_projected_chained(nq, nk, nm, edge_emb, w_ke, b_ke, w_me, b_me, skb,
+                          smb, src, dst, mask, heads):
+    """The op, differentiable in its first ten arguments (arguments as
+    `gat_projected_forward`). Returns (out (G, N, HD) f32, edge_emb): hand
+    the returned embedding to the next layer, so that the edge embedding's
+    cotangent accumulates through the layers' backward kernels."""
+    return _GatProjected.apply(
+        *_contiguous(nq, nk, nm, edge_emb, w_ke, b_ke, w_me, b_me, skb, smb),
+        src, dst, mask, heads)
+
+
+def gat_projected(nq, nk, nm, edge_emb, w_ke, b_ke, w_me, b_me, skb, smb,
+                  src, dst, mask, heads):
+    """The op without the passthrough: (G, N, HD) f32."""
+    return gat_projected_chained(nq, nk, nm, edge_emb, w_ke, b_ke, w_me,
+                                 b_me, skb, smb, src, dst, mask, heads)[0]

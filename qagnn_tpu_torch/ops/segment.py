@@ -44,8 +44,11 @@ def segment_softmax_with_self_loops(edge_scores, segment_ids, edge_mask,
     """
     num_segments = self_scores.shape[0]
     ids = segment_ids.long()
+    # the shift is a constant to autograd (softmax does not depend on it),
+    # as the fused op treats its per-graph max
     m = torch.maximum(
-        segment_max(edge_scores, ids, num_segments, edge_mask), self_scores)
+        segment_max(edge_scores, ids, num_segments, edge_mask),
+        self_scores).detach()
     e_edges = torch.exp(edge_scores - m[ids])
     if edge_mask is not None:
         e_edges = torch.where(_expand(edge_mask, e_edges.ndim), e_edges, 0)

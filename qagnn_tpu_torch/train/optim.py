@@ -1,0 +1,200 @@
+"""Optimizers and LR schedules with the reference's exact semantics.
+
+Counterpart of qagnn_tpu/train/optim.py: the reference's RAdam (reference
+utils/optimization_utils.py:8-97), the training script's parameter grouping
+(encoder / decoder x decay / no decay, reference qagnn.py:172-180), the LR
+schedules (reference qagnn.py:182-197), global-norm clipping (reference
+qagnn.py:267-273) and the encoder freeze (reference qagnn.py:240-247).
+
+A frozen group is skipped: its gradients take no part in the global norm and
+its moments and step count do not advance, as torch skips parameters whose
+gradient is None.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Iterable
+
+import torch
+from torch import nn
+
+OPTIMIZERS = ("radam", "adamw", "adam", "sgd")
+B1, B2 = 0.9, 0.999
+
+
+def make_lr_schedule(kind: str, warmup_steps: int = 0,
+                     total_steps: int | None = None) -> Callable[[int], float]:
+    """Multiplier in [0, 1] of the group lr at scheduler step `step`. The
+    reference steps the scheduler BEFORE the optimizer each batch (reference
+    qagnn.py:274-278), so the update that follows c earlier ones applies
+    multiplier(c + 1); `TrainOptimizer` makes that shift."""
+    if kind == "fixed":
+        return lambda step: 1.0
+    if kind == "warmup_constant":
+        return lambda step: min(step / max(1.0, float(warmup_steps)), 1.0)
+    if kind == "warmup_linear":
+        assert total_steps is not None
+
+        def sched(step):
+            if step < warmup_steps:
+                return step / max(1.0, float(warmup_steps))
+            return max(0.0, (total_steps - step)
+                       / max(1.0, float(total_steps - warmup_steps)))
+        return sched
+    raise ValueError(f"unknown lr schedule {kind!r}")
+
+
+def no_decay_mask(names: Iterable[str]) -> dict[str, bool]:
+    """name -> True where weight decay APPLIES, as
+    qagnn_tpu/train/optim.py `no_decay_mask` decides it: not to biases, not to
+    the weight of a LayerNorm under a module named `layernorm*` (the
+    scorer's); BatchNorm scales do decay, and so do the encoder's LayerNorm
+    weights (`*_ln`), whose names that rule does not match."""
+    def decays(name: str) -> bool:
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "bias":
+            return False
+        return not (leaf == "weight" and "layernorm" in name.lower())
+    return {n: decays(n) for n in names}
+
+
+def encoder_mask(names: Iterable[str],
+                 encoder_key: str = "encoder") -> dict[str, bool]:
+    """name -> True for parameters under the encoder submodule."""
+    return {n: n.split(".")[0] == encoder_key for n in names}
+
+
+def _radam_scalars(t: int):
+    """(use_rect, rect_step, sgd_step) after t steps (reference
+    utils/optimization_utils.py:60-97): the variance rectification applies
+    once N_sma >= 5, else the step degenerates to bias-corrected momentum
+    SGD."""
+    one_minus_b2t = -math.expm1(t * math.log(B2))
+    b2t = 1.0 - one_minus_b2t
+    n_sma_max = 2.0 / (1.0 - B2) - 1.0
+    n_sma = n_sma_max - 2.0 * t * b2t / one_minus_b2t
+    bias_corr1 = -math.expm1(t * math.log(B1))
+    if n_sma < 5.0:
+        return False, 0.0, 1.0 / bias_corr1
+    rect = math.sqrt(one_minus_b2t * (n_sma - 4.0) / (n_sma_max - 4.0)
+                     * (n_sma - 2.0) / n_sma * n_sma_max / (n_sma_max - 2.0))
+    return True, rect / bias_corr1, 1.0 / bias_corr1
+
+
+class TrainOptimizer:
+    """Two-group optimizer (encoder lr / decoder lr) over a model's
+    parameters with freeze gating, global-norm clipping and decoupled weight
+    decay. `state` is a flat dict of tensors: `step`, `<group>.count`, and
+    `<group>.mu.<name>` / `<group>.nu.<name>` per parameter (none for sgd)."""
+
+    def __init__(self, model: nn.Module, *, optim: str = "radam",
+                 encoder_lr: float = 1e-5, decoder_lr: float = 1e-3,
+                 weight_decay: float = 0.01, max_grad_norm: float = 1.0,
+                 lr_schedule: str = "fixed", warmup_steps: int = 0,
+                 total_steps: int | None = None,
+                 frozen: Iterable[str] = (), eps: float = 1e-8):
+        if optim not in OPTIMIZERS:
+            raise ValueError(f"unknown optimizer {optim!r}")
+        self.optim, self.eps = optim, eps
+        self.lr = {"encoder": encoder_lr, "decoder": decoder_lr}
+        self.weight_decay, self.max_grad_norm = weight_decay, max_grad_norm
+        self.sched = make_lr_schedule(lr_schedule, warmup_steps, total_steps)
+        frozen = set(frozen)
+        params = dict(model.named_parameters())
+        unknown = frozen - set(params)
+        if unknown:
+            raise KeyError(f"frozen names not in the model: {sorted(unknown)}")
+        for name in frozen:           # never updated: autograd skips them too
+            params[name].requires_grad_(False)
+        self.params = {n: p for n, p in params.items() if n not in frozen}
+        self.decays = no_decay_mask(self.params)
+        is_enc = encoder_mask(self.params)
+        self.groups = {g: [n for n in self.params if is_enc[n] == (g == "encoder")]
+                       for g in ("encoder", "decoder")}
+        self.state: dict[str, torch.Tensor] = {
+            "step": torch.zeros((), dtype=torch.int64)}
+        for g, names in self.groups.items():
+            self.state[f"{g}.count"] = torch.zeros((), dtype=torch.int64)
+            if optim != "sgd":
+                for n in names:
+                    for m in ("mu", "nu"):
+                        self.state[f"{g}.{m}.{n}"] = torch.zeros_like(
+                            self.params[n], dtype=torch.float32)
+        self.last_grad_norm: torch.Tensor | None = None
+
+    def to(self, device) -> "TrainOptimizer":
+        """Move the moments to `device` (the counts stay on the host, where
+        the schedule and the RAdam scalars are computed)."""
+        for key, t in self.state.items():
+            if ".mu." in key or ".nu." in key:
+                self.state[key] = t.to(device)
+        return self
+
+    def zero_grad(self) -> None:
+        for p in self.params.values():
+            p.grad = None
+
+    def _direction(self, group: str, name: str, grad, t: int):
+        """The step direction before weight decay and lr."""
+        if self.optim == "sgd":
+            return grad
+        mu, nu = (self.state[f"{group}.{m}.{name}"] for m in ("mu", "nu"))
+        mu.mul_(B1).add_(grad, alpha=1.0 - B1)
+        nu.mul_(B2).addcmul_(grad, grad, value=1.0 - B2)
+        if self.optim == "radam":
+            use_rect, rect_step, sgd_step = _radam_scalars(t)
+            if not use_rect:
+                return mu * sgd_step
+            return mu / (nu.sqrt() + self.eps) * rect_step   # eps outside
+        # adam / adamw: bias-corrected moments, eps outside the sqrt
+        mu_hat = mu / (1.0 - B1 ** t)
+        nu_hat = nu / (1.0 - B2 ** t)
+        return mu_hat / (nu_hat.sqrt() + self.eps)
+
+    @torch.no_grad()
+    def step(self, encoder_trainable: bool = True) -> None:
+        """Apply the accumulated `.grad`s. With encoder_trainable False the
+        encoder group is skipped whole, whatever its gradients hold."""
+        active = [g for g in ("encoder", "decoder")
+                  if g == "decoder" or encoder_trainable]
+        grads = {}
+        for g in active:
+            for n in self.groups[g]:
+                p = self.params[n]
+                grads[n] = torch.zeros_like(p) if p.grad is None \
+                    else p.grad.float()
+        # one global norm over everything that is trained
+        if self.max_grad_norm and self.max_grad_norm > 0 and grads:
+            gnorm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g) for g in grads.values()]))
+            self.last_grad_norm = gnorm
+            scale = torch.clamp_max(self.max_grad_norm / (gnorm + 1e-6), 1.0)
+            grads = {n: g * scale for n, g in grads.items()}
+        for g in active:
+            count = self.state[f"{g}.count"]
+            count += 1
+            t = int(count)
+            lr = self.lr[g] * self.sched(t)
+            for n in self.groups[g]:
+                p = self.params[n]
+                d = self._direction(g, n, grads[n], t)
+                if self.weight_decay and self.decays[n]:
+                    d = d + self.weight_decay * p
+                p.add_(d.to(p.dtype), alpha=-lr)
+        self.state["step"] += 1
+
+
+def build_train_optimizer(model: nn.Module, **kwargs) -> TrainOptimizer:
+    """The reference training optimizer (qagnn.py:168-197) for a model whose
+    top level splits into `encoder` and `decoder`. Keyword arguments as
+    `TrainOptimizer`; `frozen` names parameters that are never updated (the
+    entity table, see `entity_table_names`)."""
+    return TrainOptimizer(model, **kwargs)
+
+
+def entity_table_names(model: nn.Module) -> list[str]:
+    """The pretrained entity table's parameter names (reference
+    --freeze_ent_emb, qagnn.py:63)."""
+    return [n for n, _ in model.named_parameters()
+            if "concept_emb.emb." in n]

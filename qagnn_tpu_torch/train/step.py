@@ -1,17 +1,97 @@
-"""The serving entry point: an eval step that maps a batch to logits.
+"""The entry points: a train step and an eval step over batches.
 
-Counterpart of `make_eval_step` and `accuracy` in qagnn_tpu/train/step.py
-(the path `bench.py --mode driver --infer` times on the JAX side).
+Counterpart of `make_train_step`, `make_eval_step`, `Batch` and `accuracy`
+in qagnn_tpu/train/step.py (reference hot loop qagnn.py:243-278): LM forward,
+GNN forward, loss, backward, global-norm clipping and the two-group optimizer
+update, with gradient accumulation over microbatches and the encoder freeze.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
+from typing import Callable, NamedTuple
 
 import torch
 
 from qagnn_tpu_torch.graph.container import BatchedGraphs
+from qagnn_tpu_torch.models.layers import dropout_generator
+from qagnn_tpu_torch.train.losses import LOSSES
+from qagnn_tpu_torch.train.optim import TrainOptimizer
 from qagnn_tpu_torch.utils.config import resolve_device
+
+
+class Batch(NamedTuple):
+    """One training batch: LM inputs (B, C, L), graphs (G = B * C), labels
+    (B,)."""
+    lm_inputs: dict
+    graph: BatchedGraphs
+    labels: torch.Tensor
+
+
+def _microbatch(batch: Batch, i: int, n: int) -> Batch:
+    def cut(x):
+        return x.reshape((n, -1) + tuple(x.shape[1:]))[i]
+    return Batch({k: cut(v) for k, v in batch.lm_inputs.items()},
+                 BatchedGraphs(**{f.name: cut(getattr(batch.graph, f.name))
+                                  for f in dataclasses.fields(batch.graph)}),
+                 cut(batch.labels))
+
+
+def make_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
+                    device=None, *, loss_name: str = "cross_entropy",
+                    num_microbatches: int = 1,
+                    encoder_layer_id: int = -1) -> Callable:
+    """Train step on `device` (the card unless the caller names another;
+    raises when there is none): moves the model and the optimizer's moments
+    there and puts the model in train mode (batch statistics, dropout).
+
+    train_step(batch, encoder_trainable=True, generator=None) runs forward,
+    loss, backward, clipping and the update, and returns {"loss": ...}.
+    `num_microbatches` splits the leading batch axis (B must divide evenly):
+    the microbatches run in sequence, each updating the BatchNorm running
+    statistics, each loss scaled by 1 / num_microbatches, their gradients
+    accumulated (reference qagnn.py:252-266). With encoder_trainable False
+    the encoder runs without a graph, so no encoder backward is paid, and
+    the optimizer skips the encoder group (reference freeze_net,
+    qagnn.py:240). Dropout masks come from `generator`, which lives on the
+    device: the step is a function of the generator's state."""
+    dev = resolve_device(device)
+    model.to(dev).train()
+    optimizer.to(dev)
+    loss_fn = LOSSES[loss_name]
+    encoder_params = [p for n, p in model.named_parameters()
+                      if n.split(".")[0] == "encoder"]
+
+    def train_step(batch: Batch, encoder_trainable: bool = True,
+                   generator: torch.Generator | None = None) -> dict:
+        batch = Batch({k: v.to(dev, non_blocking=True)
+                       for k, v in batch.lm_inputs.items()},
+                      batch.graph.to(dev), batch.labels.to(dev))
+        model.train()
+        optimizer.zero_grad()
+        was = [p.requires_grad for p in encoder_params]
+        if not encoder_trainable:
+            for p in encoder_params:
+                p.requires_grad_(False)
+        try:
+            total = torch.zeros((), device=dev)
+            with dropout_generator(generator):
+                for i in range(num_microbatches):
+                    mb = batch if num_microbatches == 1 else _microbatch(
+                        batch, i, num_microbatches)
+                    logits = model(mb.lm_inputs, mb.graph,
+                                   layer_id=encoder_layer_id)
+                    loss = loss_fn(logits.float(), mb.labels) \
+                        / num_microbatches
+                    loss.backward()
+                    total += loss.detach()
+        finally:
+            for p, r in zip(encoder_params, was):
+                p.requires_grad_(r)
+        optimizer.step(encoder_trainable)
+        return {"loss": total}
+
+    return train_step
 
 
 def make_eval_step(model: torch.nn.Module, device=None, *,

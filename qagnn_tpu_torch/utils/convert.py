@@ -1,4 +1,4 @@
-"""Carry a flax parameter tree across into the port's modules.
+"""Carry a flax parameter tree across into the port's modules, and back.
 
 Module paths of the port follow the flax module names, so a torch submodule
 at `decoder.gnn.gnn_layer_0.key_x` reads `params["decoder"]["gnn"]
@@ -11,7 +11,9 @@ at `decoder.gnn.gnn_layer_0.key_x` reads `params["decoder"]["gnn"]
   * MaskedBatchNorm <- {scale, bias} and batch_stats {mean, var}.
 
 The load is strict: a leaf of either tree that no module reads, or a port
-parameter or buffer that no leaf sets, raises.
+parameter or buffer that no leaf sets, raises. `to_flax_variables` and
+`grads_to_flax` go the other way by the same table (Linear weights
+transposed back), and raise on a port tensor that the table does not place.
 """
 
 from __future__ import annotations
@@ -93,3 +95,65 @@ def load_flax_variables(model: nn.Module, params: Mapping,
     if unset:
         raise ValueError("port tensors not set from the flax tree: "
                          + ", ".join(unset[:10]))
+
+
+def _export(model: nn.Module, pick) -> tuple[dict, dict]:
+    """(params, batch_stats) nested dicts under the flax names; pick(tensor)
+    -> numpy array chooses what is exported of each parameter."""
+    params: dict = {}
+    stats: dict = {}
+    placed: set[str] = set()
+
+    def put(tree, path, module_name, attr, transpose=False):
+        t = getattr(dict(model.named_modules())[module_name], attr)
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        value = pick(t)
+        node[path[-1]] = value.T.copy() if transpose else value
+        placed.add(f"{module_name}.{attr}" if module_name else attr)
+
+    for name, mod in model.named_modules():
+        path = tuple(name.split(".")) if name else ()
+        if isinstance(mod, nn.Linear):
+            put(params, path + ("kernel",), name, "weight", transpose=True)
+            if mod.bias is not None:
+                put(params, path + ("bias",), name, "bias")
+        elif isinstance(mod, ProjParams):
+            put(params, path + ("kernel",), name, "kernel")
+            if mod.bias is not None:
+                put(params, path + ("bias",), name, "bias")
+        elif isinstance(mod, nn.Embedding):
+            put(params, path + ("embedding",), name, "weight")
+        elif isinstance(mod, nn.LayerNorm):
+            put(params, path + ("scale",), name, "weight")
+            put(params, path + ("bias",), name, "bias")
+        elif isinstance(mod, MaskedBatchNorm):
+            put(params, path + ("scale",), name, "scale")
+            put(params, path + ("bias",), name, "bias")
+            put(stats, path + ("mean",), name, "mean")
+            put(stats, path + ("var",), name, "var")
+
+    names = [n for n, _ in model.named_parameters()] \
+        + [n for n, _ in model.named_buffers()]
+    missing = [n for n in names if n not in placed]
+    if missing:
+        raise ValueError("port tensors with no place in the flax tree: "
+                         + ", ".join(missing[:10]))
+    return params, stats
+
+
+def to_flax_variables(model: nn.Module) -> tuple[dict, dict]:
+    """(params, batch_stats) of `model` as nested dicts of numpy arrays under
+    the flax names."""
+    return _export(model, lambda t: t.detach().cpu().float().numpy().copy())
+
+
+def grads_to_flax(model: nn.Module) -> dict:
+    """The parameters' `.grad`s in the tree of `to_flax_variables`'s params
+    (zeros where a parameter has no gradient)."""
+    def grad(t):
+        g = getattr(t, "grad", None)
+        src = torch.zeros_like(t) if g is None else g
+        return src.detach().cpu().float().numpy().copy()
+    return _export(model, grad)[0]

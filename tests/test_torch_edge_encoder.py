@@ -3,7 +3,11 @@
 `edge_hidden` (the CUDA kernel's plain version on CPU tensors) against the
 Pallas `edge_hidden` in interpret mode, and `EdgeEncoder` in eval mode with
 non-trivial running statistics on both branches. Tolerance rtol/atol 2e-5:
-the same f32 arithmetic summed in another order.
+the same f32 arithmetic summed in another order. `edge_feature_moments`
+against the Pallas moments kernel exactly (integer counts), and
+`edge_hidden`'s gradients in W0, b0, a, b against `jax.grad` over every slot,
+masked ones included, at rtol 2e-5 with an absolute floor of 2e-5 of the
+gradient's largest value.
 """
 
 import numpy as np
@@ -15,12 +19,14 @@ import torch
 from qagnn_tpu.models.gnn import EdgeEncoder as JaxEdgeEncoder
 from qagnn_tpu.ops.pallas_edge_encoder import (
     analytic_edge_moments as jax_moments,
+    edge_feature_moments as jax_feature_moments,
     edge_hidden as jax_edge_hidden,
 )
 
 from qagnn_tpu_torch.models.gnn import EdgeEncoder
 from qagnn_tpu_torch.ops.edge_encoder_kernels import (
     analytic_edge_moments,
+    edge_feature_moments,
     edge_hidden,
 )
 from qagnn_tpu_torch.utils.convert import load_flax_variables
@@ -70,6 +76,48 @@ def test_edge_hidden_matches_pallas(E):
     want = np.swapaxes(np.asarray(want), 1, 2)[:, :E]     # (G, E, D)
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("E", [24, 13])
+def test_edge_feature_moments_match_pallas(E):
+    g = _graph(5, E=E)
+    g["mask"][1] = False                       # a graph with no masked slot
+    keys = ("etype", "src", "dst", "ntype", "mask")
+    got = edge_feature_moments(*[_t(g[k]) for k in keys], N_REL, N_NTYPE)
+    want = jax_feature_moments(*[jnp.asarray(g[k]) for k in keys], N_REL,
+                               N_NTYPE, True)
+    for x, y in zip(got, want):
+        assert x.dtype == torch.float32
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    assert float(got[2]) == g["mask"].sum()
+    assert float(got[0].sum()) == 3 * g["mask"].sum()
+    assert float(got[1].sum()) == 9 * g["mask"].sum()
+
+
+@pytest.mark.parametrize("E", [24, 13])
+def test_edge_hidden_gradients_match_pallas(E):
+    g = _graph(6, E=E)
+    rng = np.random.default_rng(7)
+    w0 = rng.standard_normal((F, D)).astype(np.float32)
+    b0, a, b = (rng.standard_normal(D).astype(np.float32) for _ in range(3))
+    cot = rng.standard_normal(g["src"].shape + (D,)).astype(np.float32)
+    ints = ("etype", "src", "dst", "ntype")
+
+    def jax_loss(w0, b0, a, b):
+        h = jax_edge_hidden(*[jnp.asarray(g[k]) for k in ints], w0, b0, a, b,
+                            N_REL, N_NTYPE, jnp.float32, True)   # (G, D, E')
+        return jnp.sum(h[:, :, :E] * jnp.swapaxes(jnp.asarray(cot), 1, 2))
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2, 3))(
+        *[jnp.asarray(x) for x in (w0, b0, a, b)])
+    params = [_t(x).requires_grad_() for x in (w0, b0, a, b)]
+    h = edge_hidden(*[_t(g[k]) for k in ints], *params, N_REL, N_NTYPE,
+                    torch.float32)
+    (h * _t(cot)).sum().backward()
+    for p, y in zip(params, want):
+        y = np.asarray(y)
+        np.testing.assert_allclose(p.grad.numpy(), y, rtol=2e-5,
+                                   atol=2e-5 * np.abs(y).max())
 
 
 def test_analytic_moments_match_jax():
@@ -140,8 +188,9 @@ def test_edge_encoder_eval_fused_branch(encoders):
         n_rel=N_REL, n_ntype=N_NTYPE)
     with torch.no_grad():
         (h_edge, h_self), (w1, b1) = enc(
-            _t(self_feat), edge_ints=tuple(_t(g[k]) for k in
-                                           ("etype", "src", "dst", "ntype")),
+            _t(self_feat),
+            edge_ints=tuple(_t(g[k]) for k in
+                            ("etype", "src", "dst", "ntype", "mask")),
             n_rel=N_REL, n_ntype=N_NTYPE)
     E = g["src"].shape[1]
     np.testing.assert_allclose(

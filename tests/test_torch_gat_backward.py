@@ -1,0 +1,197 @@
+"""Gradients of the port's projected GAT op against the JAX package (CPU).
+
+`gat_projected` / `gat_projected_chained` (autograd Functions whose backward
+runs the plain versions of the CUDA backward passes on CPU tensors) against
+`jax.vjp` of `pallas_relational_gat_projected[_chained]` with the Pallas
+kernels in interpret mode: the output and all ten gradients, with a graph
+whose every edge is masked, a ragged E, and a non-zero carry on the chained
+form.
+
+Tolerances, each as max|got - want| <= tol * max|want| per array: f32 2e-4
+(the tolerance tests/test_pallas_gat.py uses: f32 sums in another order);
+bf16 6e-2: the TPU kernels round alpha, the scale, d_denom and d_alpha * e
+to bf16 where the port keeps f32, so the two differ by a few bf16 roundings
+(2^-8 each) of terms that are then summed over few edges.
+"""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from qagnn_tpu.ops.pallas_gat import (
+    pallas_relational_gat_projected,
+    pallas_relational_gat_projected_chained,
+)
+
+from qagnn_tpu_torch.ops import gat_kernels
+
+HEADS = 2
+NAMES = ("nq", "nk", "nm", "edge_emb", "w_ke", "b_ke", "w_me", "b_me", "skb",
+         "smb")
+CDT_NAMES = ("nq", "nk", "nm", "edge_emb", "skb", "smb")
+TOL = {"float32": 2e-4, "bfloat16": 6e-2}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Test workers share the machine's cores: one intra-op thread keeps
+    this file's torch ops from crowding out the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(seed, G, N, E, HD, D, mask_kind):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    a = dict(
+        nq=f(G, N, HD) * 0.5, nk=f(G, N, HD) * 0.5, nm=f(G, N, HD),
+        edge_emb=f(G, E, D), w_ke=f(D, HD) * 0.3, b_ke=f(HD) * 0.3,
+        w_me=f(D, HD) * 0.3, b_me=f(HD) * 0.3, skb=f(G, N, HD) * 0.5,
+        smb=f(G, N, HD),
+        src=rng.integers(0, N, (G, E)).astype(np.int32),
+        dst=rng.integers(0, N, (G, E)).astype(np.int32),
+        g=f(G, N, HD), carry=f(G, E, D))
+    mask = rng.random((G, E)) > 0.25
+    if mask_kind == "one_graph_empty":
+        mask[1] = False
+    a["mask"] = mask
+    return a
+
+
+CASES = {
+    "masked25": (0, 3, 8, 16, 8, 8, "masked25"),
+    "one_graph_all_masked": (1, 3, 8, 16, 8, 8, "one_graph_empty"),
+    "ragged_e": (3, 2, 8, 13, 8, 16, "masked25"),
+}
+
+
+def _jax_grads(a, dtype, chained, carry):
+    cdt = jnp.dtype(dtype)
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    for k in CDT_NAMES:
+        j[k] = j[k].astype(cdt)
+    j["edge_emb"] = jnp.swapaxes(j["edge_emb"], 1, 2)       # (G, D, E)
+    mask = j["mask"].astype(cdt)
+    op = pallas_relational_gat_projected_chained if chained \
+        else pallas_relational_gat_projected
+    out, vjp = jax.vjp(
+        lambda *ten: op(*ten, j["src"], j["dst"], mask, HEADS, True),
+        *[j[k] for k in NAMES])
+    if chained:
+        cot = (j["g"], jnp.swapaxes(j["carry"], 1, 2).astype(cdt) if carry
+               else jnp.zeros_like(j["edge_emb"]))
+        out = out[0]
+    else:
+        cot = j["g"]
+    grads = dict(zip(NAMES, vjp(cot)))
+    grads["edge_emb"] = jnp.swapaxes(grads["edge_emb"], 1, 2)
+    return out, grads
+
+
+def _torch_grads(a, dtype, chained, carry):
+    cdt = getattr(torch, dtype)
+    t = {k: torch.from_numpy(np.asarray(v)) for k, v in a.items()}
+    ten = [(t[k].to(cdt) if k in CDT_NAMES else t[k]).requires_grad_()
+           for k in NAMES]
+    tail = (t["src"], t["dst"], t["mask"], HEADS)
+    if chained:
+        out, emb = gat_kernels.gat_projected_chained(*ten, *tail)
+        loss = (out * t["g"]).sum()
+        if carry:
+            loss = loss + (emb.float() * t["carry"].to(cdt).float()).sum()
+    else:
+        out = gat_kernels.gat_projected(*ten, *tail)
+        loss = (out * t["g"]).sum()
+    loss.backward()
+    return out.detach(), dict(zip(NAMES, (x.grad for x in ten)))
+
+
+def _close(got, want, tol, what):
+    got = got.float().numpy()
+    want = np.asarray(want.astype(jnp.float32))
+    assert got.shape == want.shape, what
+    err = float(np.abs(got - want).max())
+    ref = float(np.abs(want).max())
+    assert np.isfinite(got).all(), what
+    assert err <= tol * max(ref, 1e-6), f"{what}: err {err:.3e} of {ref:.3e}"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", ["plain", "chained", "chained_carry"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_gat_projected_gradients_match_pallas(case, form, dtype):
+    a = _inputs(*CASES[case])
+    chained, carry = form != "plain", form == "chained_carry"
+    j_out, j_grads = _jax_grads(a, dtype, chained, carry)
+    out, grads = _torch_grads(a, dtype, chained, carry)
+    _close(out, j_out, TOL[dtype], "out")
+    for name in NAMES:
+        assert grads[name] is not None, name
+        assert grads[name].dtype == (
+            torch.float32 if name[0] in "wb" else getattr(torch, dtype))
+        _close(grads[name], j_grads[name], TOL[dtype], f"d{name}")
+
+
+def test_carry_is_added_once_and_masked_slots_pass_it_through():
+    """d_edge_emb of a masked slot is the carry alone, and the carry enters
+    the sum exactly once."""
+    a = _inputs(*CASES["one_graph_all_masked"])
+    _, with_carry = _torch_grads(a, "float32", True, True)
+    _, without = _torch_grads(a, "float32", True, False)
+    carry = torch.from_numpy(a["carry"])
+    torch.testing.assert_close(with_carry["edge_emb"],
+                               without["edge_emb"] + carry, rtol=1e-6,
+                               atol=1e-6)
+    dead = ~torch.from_numpy(a["mask"])
+    assert torch.equal(without["edge_emb"][dead],
+                       torch.zeros_like(without["edge_emb"][dead]))
+    for name in NAMES:
+        if name != "edge_emb":
+            torch.testing.assert_close(with_carry[name], without[name])
+
+
+def test_unused_passthrough_gives_no_carry():
+    """A passthrough that nothing consumes reaches the backward as None,
+    not as an array of zeros."""
+    seen = []
+    real = gat_kernels.gat_projected_backward
+
+    def spy(*args):
+        seen.append(args[-2])
+        return real(*args)
+
+    a = _inputs(*CASES["masked25"])
+    gat_kernels.gat_projected_backward = spy
+    try:
+        _torch_grads(a, "float32", True, False)
+        _torch_grads(a, "float32", True, True)
+    finally:
+        gat_kernels.gat_projected_backward = real
+    assert seen[0] is None and seen[1] is not None
+
+
+def test_no_gradient_flows_through_the_max():
+    """The fused op's gradients equal autograd's through the scatter oracle,
+    whose shift is detached too."""
+    from qagnn_tpu_torch.ops.gat_attention import (
+        relational_gat_attention_nodes,
+    )
+
+    a = _inputs(*CASES["masked25"])
+    _, got = _torch_grads(a, "float32", False, False)
+    t = {k: torch.from_numpy(np.asarray(v)) for k, v in a.items()}
+    ten = {k: t[k].clone().requires_grad_() for k in NAMES}
+    heads = lambda x: x.reshape(*x.shape[:-1], HEADS, -1)
+    out = relational_gat_attention_nodes(
+        heads(ten["nq"]), heads(ten["nk"]), heads(ten["nm"]),
+        heads(ten["edge_emb"] @ ten["w_ke"] + ten["b_ke"]),
+        heads(ten["edge_emb"] @ ten["w_me"] + ten["b_me"]),
+        heads(ten["skb"]), heads(ten["smb"]), t["src"], t["dst"], t["mask"])
+    (out * t["g"]).sum().backward()
+    for name in NAMES:
+        _close(got[name], jnp.asarray(ten[name].grad.numpy()), 2e-4,
+               f"d{name}")

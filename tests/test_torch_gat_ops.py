@@ -71,18 +71,18 @@ def _torch_forward(a):
 
 def _jax_forward(a):
     j = {k: jnp.asarray(v) for k, v in a.items()}
-    out, scores, gmax, _, scale, _, _ = _proj_fwd_impl(
+    out, scores, gmax, denom_raw, scale, e_self, _ = _proj_fwd_impl(
         j["nq"], j["nk"], j["nm"], jnp.swapaxes(j["edge_emb"], 1, 2),
         j["w_ke"], j["b_ke"], j["w_me"], j["b_me"], j["skb"], j["smb"],
         j["src"], j["dst"], j["mask"].astype(jnp.float32), HEADS, True)
-    return out, scores, gmax, scale
+    return out, scores, gmax, denom_raw, scale, e_self
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_gat_projected_forward_matches_pallas(case):
     a = _inputs(*CASES[case])
-    out, scores, gmax, scale = _torch_forward(a)
-    j_out, j_scores, j_gmax, j_scale = _jax_forward(a)
+    out, scores, gmax, denom_raw, scale, e_self = _torch_forward(a)
+    j_out, j_scores, j_gmax, j_denom_raw, j_scale, j_e_self = _jax_forward(a)
     mask = a["mask"]
     np.testing.assert_allclose(out.numpy(), np.asarray(j_out), **TOL)
     # scores of masked slots are never read; compare the live ones
@@ -91,6 +91,10 @@ def test_gat_projected_forward_matches_pallas(case):
                                np.asarray(j_scores)[live], **TOL)
     np.testing.assert_allclose(gmax.numpy(), np.asarray(j_gmax)[:, :], **TOL)
     np.testing.assert_allclose(scale.numpy(), np.asarray(j_scale), **TOL)
+    # the residuals that only the backward reads
+    np.testing.assert_allclose(denom_raw.numpy(), np.asarray(j_denom_raw),
+                               **TOL)
+    np.testing.assert_allclose(e_self.numpy(), np.asarray(j_e_self), **TOL)
     assert np.isfinite(out.numpy()).all()
 
 

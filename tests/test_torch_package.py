@@ -2,11 +2,15 @@
 
 The port and chip_smoke.py import neither JAX, flax nor the JAX package.
 This is a scan of the sources: the interpreter may have imported jax before
-any test runs, so sys.modules would prove nothing. And an entry point run
-with no device named refuses to fall back to the CPU when there is no card.
+any test runs, so sys.modules would prove nothing. The CUDA sources include
+only the CUDA toolkit's and the C library's headers and the package's own
+(a plain C interface: nothing of PyTorch, pybind or JAX's FFI). And an entry
+point run with no device named refuses to fall back to the CPU when there is
+no card.
 """
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -16,6 +20,10 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "qagnn_tpu")
 SOURCES = sorted((ROOT / "qagnn_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
+
+
+CSRC = sorted((ROOT / "qagnn_tpu_torch" / "csrc").glob("*.cu*"))
+ALLOWED_INCLUDES = {"cuda_runtime.h", "cuda_bf16.h", "stdint.h"}
 
 
 def _imported_roots(path: Path):
@@ -42,11 +50,26 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", CSRC,
+                         ids=[str(p.relative_to(ROOT)) for p in CSRC])
+def test_cuda_sources_include_only_toolkit_headers(path):
+    text = path.read_text()
+    own = {p.name for p in CSRC}
+    includes = set(re.findall(r'#include\s*[<"]([^>"]+)[>"]', text))
+    assert includes, path
+    assert includes <= ALLOWED_INCLUDES | own, includes
+    assert not re.search(r"\b(jax|flax|optax|qagnn_tpu(?!_torch|/))\b", re.sub(
+        r"//.*", "", text))
+
+
 def test_scan_sees_the_package():
     assert ROOT.joinpath("chip_smoke.py").exists()
     names = {p.name for p in SOURCES}
     assert {"gat_kernels.py", "edge_encoder_kernels.py", "gnn.py",
-            "qagnn.py", "step.py", "convert.py"} <= names
+            "qagnn.py", "step.py", "convert.py", "optim.py", "losses.py",
+            "chip_smoke.py"} <= names
+    assert {"gat_fwd.cu", "gat_bwd.cu", "gat_common.cuh", "edge_hidden.cu",
+            "edge_moments.cu"} <= {p.name for p in CSRC}
     # the scan itself finds a forbidden import
     probe = ROOT / "qagnn_tpu" / "ops" / "gat_attention.py"
     assert "jax" in set(_imported_roots(probe))

@@ -1,12 +1,20 @@
-"""The port's LMQAGNN eval logits against flax (CPU, f32).
+"""The port's LMQAGNN against flax, eval logits and train mode (CPU, f32).
 
 A tiny RoBERTa-style encoder and a k=2 decoder; the flax variables are
 carried across by convert.py (strict) with perturbed BatchNorm running
 statistics, and the port is driven through its serving entry point
 `make_eval_step(device="cpu")`. Tolerance rtol 3e-4 / atol 3e-5, as
 tests/test_torch_oracle.py holds the decoder.
+
+Train mode, dropout 0 on both sides: the logits, the updated running
+statistics and every parameter gradient of the cross-entropy loss, at rtol
+1e-3 with an absolute floor of 1e-4 of the leaf's largest value or 1e-6 of
+the tree's. The flax pooler's dropout rate (0.1) is not a constructor
+argument of the flax model, so flax's Dropout is patched to the identity
+for that test.
 """
 
+import flax.linen as fnn
 import numpy as np
 import pytest
 import jax
@@ -24,12 +32,17 @@ from qagnn_tpu_torch.graph.container import BatchedGraphs
 from qagnn_tpu_torch.models.qagnn import LMQAGNN
 from qagnn_tpu_torch.models.text_encoder import TextEncoder, TextEncoderConfig
 from qagnn_tpu_torch.train.step import accuracy, make_eval_step
-from qagnn_tpu_torch.utils.convert import load_flax_variables
+from qagnn_tpu_torch.train.losses import cross_entropy_loss
+from qagnn_tpu_torch.utils.convert import (
+    grads_to_flax,
+    load_flax_variables,
+    to_flax_variables,
+)
 
 B, C, L, N, E = 2, 2, 12, 10, 20
 G = B * C
 K, D, N_NTYPE, N_ETYPE, N_CONCEPT, CIN, FC = 2, 16, 4, 7, 40, 24, 8
-ENC = dict(hidden_size=32, num_layers=2, num_heads=2, intermediate_size=64,
+ENC = dict(hidden_dropout=0.0, attention_dropout=0.0, hidden_size=32, num_layers=2, num_heads=2, intermediate_size=64,
            max_position_embeddings=L + 4, type_vocab_size=1,
            layer_norm_eps=1e-5, pad_token_id=1, roberta_style_positions=True)
 TOL = dict(rtol=3e-4, atol=3e-5)
@@ -85,7 +98,8 @@ def _port_model(backend):
         TextEncoder(TextEncoderConfig.tiny(**ENC)),
         sent_dim=ENC["hidden_size"], k=K, n_ntype=N_NTYPE, n_etype=N_ETYPE,
         n_concept=N_CONCEPT, concept_dim=D, concept_in_dim=CIN,
-        n_attention_head=2, fc_dim=FC, n_fc_layer=1, gnn_backend=backend)
+        n_attention_head=2, fc_dim=FC, n_fc_layer=1, p_emb=0.0, p_gnn=0.0,
+        p_fc=0.0, gnn_backend=backend)
 
 
 @pytest.fixture(scope="module")
@@ -134,3 +148,55 @@ def test_convert_is_strict(setup):
     params = {k: v for k, v in variables["params"].items() if k != "encoder"}
     with pytest.raises(KeyError):
         load_flax_variables(model, params, variables["batch_stats"])
+
+
+def _flat(tree):
+    return {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _assert_trees_close(got, want, what):
+    got, want = _flat(got), _flat(want)
+    assert sorted(got) == sorted(want), what
+    top = max(float(np.abs(w).max()) for w in want.values())
+    for name, w in want.items():
+        np.testing.assert_allclose(
+            got[name], w, rtol=1e-3,
+            atol=max(1e-4 * float(np.abs(w).max()), 1e-6 * top),
+            err_msg=f"{what}: {name}")
+
+
+@pytest.mark.parametrize("backends", [("cuda", "pallas"),
+                                      ("scatter", "scatter")])
+def test_lmqagnn_train_gradients_match_flax(setup, backends, monkeypatch):
+    from qagnn_tpu.train.losses import cross_entropy_loss as jax_ce
+
+    lm, graph, jlm, jgraph, variables = setup
+    port_backend, jax_backend = backends
+    labels = np.array([1, 0], np.int32)
+    monkeypatch.setattr(fnn.Dropout, "__call__",
+                        lambda self, inputs, *a, **k: inputs)
+    jmodel = _jax_model(jax_backend)
+
+    def loss(params):
+        logits, new = jmodel.apply(
+            {"params": params, "batch_stats": variables["batch_stats"]},
+            jlm, jgraph, train=True, mutable=["batch_stats"])
+        return jax_ce(logits, jnp.asarray(labels)), (logits,
+                                                     new["batch_stats"])
+
+    (_, (want, want_stats)), want_grads = jax.jit(jax.value_and_grad(
+        loss, has_aux=True))(variables["params"])
+
+    model = _port_model(port_backend).train()
+    model.decoder.pooler.dropout = 0.0
+    model.decoder.pooler.attention.attn_dropout = 0.0
+    load_flax_variables(model, variables["params"], variables["batch_stats"])
+    got = model({k: torch.from_numpy(v) for k, v in lm.items()},
+                BatchedGraphs(**{k: torch.from_numpy(v)
+                                 for k, v in graph.items()}))
+    cross_entropy_loss(got, torch.from_numpy(labels)).backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    _assert_trees_close(to_flax_variables(model)[1], want_stats,
+                        "running statistics")
+    _assert_trees_close(grads_to_flax(model), want_grads, "gradients")
