@@ -11,24 +11,33 @@ Run from the repository root on a machine with one CUDA card. It
      4 heads) with about 25% of edge slots masked, one graph with every edge
      masked, and a ragged-E case, in float32 and bfloat16 (backward pass 1
      with and without a carry), and times both with CUDA events;
-  4. holds the gradients of the two autograd Functions on the kernels
-     against torch.autograd through the plain scatter path, in float32;
-  5. serves the OBQA roberta-large LMQAGNN (random weights from a seed,
+  4. holds the gradients of the autograd Functions on the kernels (the
+     projected op, the train-mode edge encoder, the unprojected op) against
+     torch.autograd through the plain scatter path, in float32;
+  5. drives the op-level entry point `relational_gat_attention_nodes` on
+     CUDA tensors with no backend named, forward and backward, checks that
+     each of the unprojected op's five kernels ran exactly once and that
+     the scatter backend launched none, compares both backends, and times
+     them beside the projected op at the same shapes;
+  6. serves the OBQA roberta-large LMQAGNN (random weights from a seed,
      perturbed BatchNorm running statistics) through `make_eval_step` on the
      kernel path, checks that every kernel ran the expected number of times,
      and compares the logits with the same model on the scatter path;
-  6. trains the same model through `make_train_step` (RAdam, clipping, the
+  7. runs the same model through `make_detail_step` (logits, pooler
+     attention, per-layer attention weights; by design no GAT kernel) and
+     checks shapes, the logits and that every softmax sums to 1;
+  8. trains the same model through `make_train_step` (RAdam, clipping, the
      entity table frozen): one step on the kernel path against one on the
      scatter path from the same state, then steps on a fixed batch with the
      preset's dropout, the same masks at every step (loss finite and
      falling), steps with the encoder
      frozen, and a step in two microbatches, counting the launches of every
      kernel per step;
-  7. prints one JSON line of per-kernel numbers, the card's name and power
+  9. prints one JSON line of per-kernel numbers, the card's name and power
      limit, and as its last line {"ok": true, "device": {...}}.
 
-`--only kernels,grads,serve,train` runs a subset of the phases (for work on
-one of them); with no arguments everything runs.
+`--only kernels,grads,op,serve,detail,train` runs a subset of the phases
+(for work on one of them); with no arguments everything runs.
 
 It exits non-zero, printing no result, when there is no CUDA device or any
 check fails. It imports nothing of JAX or of the JAX package.
@@ -55,12 +64,18 @@ from qagnn_tpu_torch.models.text_encoder import TextEncoder, TextEncoderConfig
 from qagnn_tpu_torch.ops import _build
 from qagnn_tpu_torch.ops import edge_encoder_kernels as ek
 from qagnn_tpu_torch.ops import gat_kernels as gk
+from qagnn_tpu_torch.ops import gat_unproj_kernels as uk
 from qagnn_tpu_torch.ops.gat_attention import relational_gat_attention_nodes
 from qagnn_tpu_torch.train.optim import (
     build_train_optimizer,
     entity_table_names,
 )
-from qagnn_tpu_torch.train.step import Batch, make_eval_step, make_train_step
+from qagnn_tpu_torch.train.step import (
+    Batch,
+    make_detail_step,
+    make_eval_step,
+    make_train_step,
+)
 from qagnn_tpu_torch.utils.config import preset
 from qagnn_tpu_torch.utils.initialization import init_weights
 
@@ -84,7 +99,12 @@ TOL = {"edge_hidden": {torch.float32: 1e-5, torch.bfloat16: 2 ** -7},
        # backward: sums over all G*E slots in f32 in another order; in bf16
        # the stored d_edge_emb and the rounded cotangents may round the other
        # way at one ulp (2^-8 relative)
-       "bwd": {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}}
+       "bwd": {torch.float32: 1e-4, torch.bfloat16: 2 ** -7},
+       # the unprojected op's kernels: f32 sums in another order (warp
+       # shuffles, atomics); in bf16 the weighted message, d_msg, dekb and
+       # the dnq term are rounded to bf16 before they are stored or summed
+       # and may round the other way at one ulp (2^-8 relative)
+       "unproj": {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}}
 # gradients of the Functions on the kernels vs autograd through the scatter
 # path, f32, same relative form: sums of other orders, exp by another routine
 GRAD_TOL = 2e-4
@@ -92,6 +112,17 @@ GRAD_TOL = 2e-4
 # f32 the paths differ by summation order; in bf16 they round at different
 # places (the kernel path composes linear_1 into key_e / msg_e in f32), which
 # reached 2.2e-4 on the logits and 8.1e-3 on the GNN output on an H100.
+# the op-level entry point, "cuda" against "scatter" run in f32 on the same
+# inputs, same relative form. f32: summation order. bf16 inputs: the kernels
+# keep f32 between their rounding points (weighted message, cotangents), a
+# few bf16 ulps of the largest value after the sums; the gradients come back
+# in bf16, one more rounding.
+OP_TOL = {torch.float32: {"out": 1e-4, "grad": 2e-4},
+          torch.bfloat16: {"out": 2 ** -7, "grad": 2e-2}}
+# every softmax of the detail step sums to 1: the pooler's in f32; the GNN's
+# attention weights in the GNN's compute dtype, where in bf16 each weight is
+# rounded (2^-9 relative) and the denominators are summed in bf16
+ALPHA_SUM_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 LOGIT_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}
 GNN_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # one train step, kernel path vs scatter path, f32 GNN, dropout 0: the loss
@@ -458,6 +489,153 @@ def phase_gat_bwd(gen, dev, reports):
                         3 * 2.0 * live * G * n_edges * D * HD, dt)
 
 
+def unproj_inputs(gen, dev, n_edges, dt):
+    """Node projections, precomputed edge biases and an output cotangent of
+    the unprojected op, rounded to dt."""
+    HD = 200
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)
+    nq = (r(G, N, HD) / (HD // HEADS) ** 0.5).to(dt)
+    nk, nm, skb, smb = ((r(G, N, HD) * 0.5).to(dt) for _ in range(4))
+    ekb, emb = ((r(G, n_edges, HD) * 0.5).to(dt) for _ in range(2))
+    return (nq, nk, nm, ekb, emb, skb, smb), r(G, N, HD).to(dt)
+
+
+def phase_gat_unproj(gen, dev, reports):
+    HD = 200
+    f32 = torch.float32
+    for n_edges in (E, E - 3):
+        src, dst, mask = graph_inputs(gen, dev, n_edges)
+        live = mask.float().mean().item()
+        has_edge = mask.any(1)
+        for dt in (torch.float32, torch.bfloat16):
+            (nq, nk, nm, ekb, emb, skb, smb), gout = unproj_inputs(
+                gen, dev, n_edges, dt)
+            tag = f"E={n_edges} {dt}"
+            tol = TOL["unproj"][dt]
+            main = n_edges == E and dt == torch.bfloat16
+            per_elem = live * G * n_edges * HD      # live (edge, column)s
+
+            a = (nq, nk, ekb, src, dst, mask, HEADS)
+            scores, m_edge = uk.edge_scores(*a)
+            scores_p, m_edge_p = uk.edge_scores_plain(*a)
+            err = compare(f"gat_unproj_scores scores {tag}", scores,
+                          scores_p, tol)
+            compare(f"gat_unproj_scores max {tag}", m_edge[has_edge],
+                    m_edge_p[has_edge], tol)
+            if not bool((m_edge[~has_edge] == gk.NEG).all()):
+                FAILURES.append(f"gat_unproj_scores max of empty graph {tag}")
+            if main:
+                # live slots' rows of ekb and indices; the scores whole
+                # (a masked slot is written as 0); add, multiply, sum
+                measure(reports, "gat_unproj_scores", err,
+                        lambda: uk.edge_scores(*a),
+                        lambda: uk.edge_scores_plain(*a),
+                        live * nbytes(ekb, src, dst)
+                        + nbytes(nq, nk, mask, scores, m_edge),
+                        3.0 * per_elem, f32)
+
+            # the op's glue, as gat_unprojected_forward runs it
+            self_scores = gk.head_sum(nq.float() * (nk + skb).float(), HEADS)
+            gmax = torch.maximum(m_edge_p, self_scores.amax(1))
+            e_self = torch.exp(self_scores - gmax[:, None, :])
+            d = (scores_p, gmax, src, mask, N)
+            e_edge, denom, deg = uk.edge_denoms(*d)
+            e_edge_p, denom_p, deg_p = uk.edge_denoms_plain(*d)
+            err = compare(f"gat_unproj_denoms e_edge {tag}", e_edge,
+                          e_edge_p, tol)
+            err = max(err, compare(f"gat_unproj_denoms denom {tag}", denom,
+                                   denom_p, tol))
+            compare(f"gat_unproj_denoms deg {tag}", deg, deg_p, 0.0)
+            if bool((e_edge[~mask[:, None, :].expand_as(e_edge)] != 0).any()):
+                FAILURES.append(f"gat_unproj_denoms e_edge of masked slots "
+                                f"{tag}")
+            if main:
+                # live slots' scores and sources; e_edge written whole
+                measure(reports, "gat_unproj_denoms", err,
+                        lambda: uk.edge_denoms(*d),
+                        lambda: uk.edge_denoms_plain(*d),
+                        live * nbytes(scores_p, src)
+                        + nbytes(gmax, mask, e_edge, denom, deg),
+                        2.0 * live * G * n_edges * HEADS, f32)
+
+            scale = (deg_p[..., None] + 1.0) \
+                / torch.clamp_min(denom_p + e_self, gk.DENOM_EPS)
+            seed = (nm + smb).float() * gk.heads_to_hd(e_self * scale, HD)
+            c = (nm, emb, e_edge_p, scale, src, dst, mask)
+            out = uk.aggregate(*c, seed.clone(), HEADS)
+            out_p = uk.aggregate_plain(*c, seed.clone(), HEADS)
+            err = compare(f"gat_unproj_aggr out {tag}", out, out_p, tol)
+            if main:
+                # live slots only; the accumulator is read and written
+                scratch = seed.clone()
+                measure(reports, "gat_unproj_aggr", err,
+                        lambda: uk.aggregate(*c, scratch, HEADS),
+                        lambda: uk.aggregate_plain(*c, scratch, HEADS),
+                        live * nbytes(emb, e_edge_p, src, dst)
+                        + nbytes(nm, scale, mask) + 2 * nbytes(out),
+                        4.0 * per_elem, f32)
+
+            # the backward's glue, as gat_unprojected_backward runs it
+            g = gout.float()
+            dnm0 = gk.heads_to_hd(e_self * scale, HD) * g
+            d_alpha_self = gk.head_sum((nm + smb).float() * g, HEADS)
+            dscale0 = d_alpha_self * e_self
+            p1 = (gout, nm, emb, e_edge_p, scale, src, dst, mask)
+            got = uk.bwd1(*p1, dnm0.clone(), dscale0.clone(), HEADS)
+            want = uk.bwd1_plain(*p1, dnm0.clone(), dscale0.clone(), HEADS)
+            names = ("demb", "d_alpha", "dnm", "dscale")
+            errs = [compare(f"gat_unproj_bwd1 {name} {tag}", g_, w, tol)
+                    for name, g_, w in zip(names, got, want)]
+            if bool((got[0][~mask] != 0).any()) \
+                    or bool((got[1].transpose(1, 2)[~mask] != 0).any()):
+                FAILURES.append(f"gat_unproj_bwd1 masked slots {tag}")
+            if main:
+                # live slots' rows of emb, e_edge and indices; demb and
+                # d_alpha whole; the node accumulators read and written
+                scratch = (dnm0.clone(), dscale0.clone())
+                measure(reports, "gat_unproj_bwd1", max(errs),
+                        lambda: uk.bwd1(*p1, *scratch, HEADS),
+                        lambda: uk.bwd1_plain(*p1, *scratch, HEADS),
+                        live * nbytes(emb, e_edge_p, src, dst)
+                        + nbytes(gout, nm, scale, mask, got[0], got[1])
+                        + 2 * nbytes(got[2], got[3]),
+                        6.0 * per_elem, f32)
+
+            _, dalpha, _, dscale = want
+            gate = (denom_p + e_self > gk.DENOM_EPS).float()
+            d_denom = -(scale / torch.clamp_min(denom_p + e_self,
+                                                gk.DENOM_EPS)) * dscale * gate
+            ds_self = gk.heads_to_hd(
+                (d_alpha_self * scale + d_denom) * e_self, HD)
+            dnq0 = ds_self * (nk.float() + skb.float())
+            dnk0 = ds_self * nq.float()
+            p2 = (nq, nk, ekb, e_edge_p, dalpha, scale, d_denom, src, dst,
+                  mask)
+            got = uk.bwd2(*p2, dnq0.clone(), dnk0.clone(), HEADS)
+            want = uk.bwd2_plain(*p2, dnq0.clone(), dnk0.clone(), HEADS)
+            names = ("dekb", "dnq", "dnk")
+            errs = [compare(f"gat_unproj_bwd2 {name} {tag}", g_, w, tol)
+                    for name, g_, w in zip(names, got, want)]
+            if bool((got[0][~mask] != 0).any()):
+                FAILURES.append(f"gat_unproj_bwd2 masked slots {tag}")
+            if main:
+                scratch = (dnq0.clone(), dnk0.clone())
+                measure(reports, "gat_unproj_bwd2", max(errs),
+                        lambda: uk.bwd2(*p2, *scratch, HEADS),
+                        lambda: uk.bwd2_plain(*p2, *scratch, HEADS),
+                        live * nbytes(ekb, e_edge_p, dalpha, src, dst)
+                        + nbytes(nq, nk, scale, d_denom, mask, got[0])
+                        + 2 * nbytes(got[1], got[2]),
+                        7.0 * per_elem, f32)
+
+            # the whole forward on the kernel path against the plain chain
+            op = uk.gat_unprojected_forward(nq, nk, nm, ekb, emb, skb, smb,
+                                            src, dst, mask, HEADS)
+            compare(f"gat_unprojected_forward out {tag}", op[0], out_p, tol)
+            if not bool(torch.isfinite(op[0][~has_edge]).all()):
+                FAILURES.append(f"non-finite output of empty graph {tag}")
+
+
 # ---------------------------------------------------------------------------
 # gradients of the autograd Functions on the kernels, f32
 # ---------------------------------------------------------------------------
@@ -486,7 +664,7 @@ def phase_op_gradients(gen, dev):
         return relational_gat_attention_nodes(
             heads(nq), heads(nk), heads(nm), heads(emb @ w_ke + b_ke),
             heads(emb @ w_me + b_me), heads(skb), heads(smb), src, dst,
-            mask), emb
+            mask, backend="scatter"), emb
 
     before = _build.LAUNCHES["gat_bwd_pass1"]
     out, got = grads(lambda *t: gk.gat_projected_chained(
@@ -551,6 +729,115 @@ def phase_op_gradients(gen, dev):
         # sides hold rounding noise of dW0's size
         compare(f"edge encoder (train) d{k} vs autograd", got[k], want[k],
                 GRAD_TOL, scale=want["W0"].abs().max() if k == "b0" else None)
+
+
+def scatter_oracle(nq, nk, nm, ekb, emb, skb, smb, src, dst, mask):
+    """The scatter backend on (G, ., HD) arrays, as the op-level entry point
+    takes them after the head split."""
+    heads = lambda t: t.reshape(*t.shape[:-1], HEADS, t.shape[-1] // HEADS)
+    return relational_gat_attention_nodes(
+        *(heads(t) for t in (nq, nk, nm, ekb, emb, skb, smb)), src, dst,
+        mask, backend="scatter")
+
+
+def forward_backward(fn, leaves, gout):
+    out = fn(*leaves)
+    return out.detach(), torch.autograd.grad(out, leaves,
+                                             gout.to(out.dtype))
+
+
+def value_and_grads(fn, vals, gout):
+    return forward_backward(
+        fn, [v.detach().clone().requires_grad_() for v in vals], gout)
+
+
+UNPROJ_KERNELS = ("gat_unproj_scores", "gat_unproj_denoms", "gat_unproj_aggr",
+                  "gat_unproj_bwd1", "gat_unproj_bwd2")
+UNPROJ_INPUTS = ("nq", "nk", "nm", "ekb", "emb", "skb", "smb")
+
+
+def phase_unproj_gradients(gen, dev):
+    src, dst, mask = graph_inputs(gen, dev, E)
+    vals, gout = unproj_inputs(gen, dev, E, torch.float32)
+    out, got = value_and_grads(
+        lambda *t: uk.gat_unprojected(*t, src, dst, mask, HEADS), vals, gout)
+    out_w, want = value_and_grads(
+        lambda *t: scatter_oracle(*t, src, dst, mask), vals, gout)
+    compare("gat_unprojected out vs scatter oracle", out, out_w, GRAD_TOL)
+    for name, g, w in zip(UNPROJ_INPUTS, got, want):
+        compare(f"gat_unprojected d{name} vs autograd(oracle)", g, w,
+                GRAD_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the op-level entry point
+# ---------------------------------------------------------------------------
+
+def phase_op(gen, dev, reports, card):
+    D = HD = 200
+    dph = HD // HEADS
+    src, dst, mask = graph_inputs(gen, dev, E)
+    heads = lambda t: t.reshape(*t.shape[:-1], HEADS, dph)
+
+    def op(backend):
+        return lambda *t: relational_gat_attention_nodes(
+            *(heads(x) for x in t), src, dst, mask, backend=backend)
+
+    for dt in (torch.bfloat16, torch.float32):
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        vals, gout = unproj_inputs(gen, dev, E, dt)
+        # the main path: no backend named, CUDA tensors, forward + backward
+        _build.reset_launch_counts()
+        out, got = value_and_grads(op(None), vals, gout)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        ok = counts == {k: 1 for k in UNPROJ_KERNELS}
+        log(f"  launches, one forward + backward, {name}, no backend named: "
+            f"{counts}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            FAILURES.append(f"launch counts of the op, {name}")
+        if dt == torch.bfloat16:
+            for k in UNPROJ_KERNELS:
+                reports[k]["launches"] = counts.get(k, 0)
+        if out.shape != (G, N, HD) or out.dtype != torch.float32 \
+                or not bool(torch.isfinite(out).all()):
+            FAILURES.append(f"output of the op, {name}")
+        # the scatter backend in f32 on the same (rounded) inputs
+        _build.reset_launch_counts()
+        out_w, want = value_and_grads(op("scatter"),
+                                      [v.float() for v in vals], gout)
+        if _build.LAUNCHES:
+            FAILURES.append("the scatter backend launched kernels")
+        log(f"  launches, scatter backend: {dict(_build.LAUNCHES)}")
+        compare(f"op out cuda vs scatter(f32), {name}", out, out_w,
+                OP_TOL[dt]["out"])
+        for k, g, w in zip(UNPROJ_INPUTS, got, want):
+            if g.dtype != dt:
+                FAILURES.append(f"dtype of d{k}, {name}")
+            compare(f"op d{k} cuda vs scatter(f32), {name}", g, w,
+                    OP_TOL[dt]["grad"])
+
+        # times: forward and forward + backward on both backends, and the
+        # projected op at the same shapes, which projects a (G, E, D) edge
+        # embedding inside its kernels instead of reading ekb and emb
+        r = lambda *s: torch.randn(s, generator=gen, device=dev)
+        nq, nk, nm, _, _, skb, smb = vals
+        edge_emb = torch.relu(r(G, E, D)).to(dt)
+        w_ke, w_me, b_ke, b_me = r(D, HD) * .05, r(D, HD) * .05, r(HD) * .1, \
+            r(HD) * .1
+        proj_vals = [nq, nk, nm, edge_emb, w_ke, b_ke, w_me, b_me, skb, smb]
+        runs = {"cuda": (op("cuda"), vals), "scatter": (op("scatter"), vals),
+                "projected op": (lambda *t: gk.gat_projected(
+                    *t, src, dst, mask, HEADS), proj_vals)}
+        for what, (fn, v) in runs.items():
+            with torch.no_grad():
+                fwd = device_ms(lambda: fn(*v), iters=10, warmup=2)
+            leaves = [x.detach().clone().requires_grad_() for x in v]
+            both = device_ms(lambda: forward_backward(fn, leaves, gout),
+                             iters=10, warmup=2)
+            log(f"  time {name} {what:<13} forward {fwd:.4f} ms  forward + "
+                f"backward {both:.4f} ms  [{card}]")
+            del leaves
 
 
 # ---------------------------------------------------------------------------
@@ -694,6 +981,62 @@ def phase_slice(dev, reports, card, cfg, model, enc_cfg, gen):
     set_gnn_dtype(model, torch.bfloat16)
     gnn.backend = None
     log(f"  logits of batch 0, question 0: {logits[0][0].tolist()}")
+
+
+# ---------------------------------------------------------------------------
+# the detail step
+# ---------------------------------------------------------------------------
+
+def phase_detail(dev, card, cfg, model, enc_cfg, gen):
+    lm, graph = make_batch(gen, dev, enc_cfg.vocab_size, cfg.num_relation,
+                           empty_graph=G - 1)
+    gnn = model.decoder.gnn
+    assert gnn.backend is None and gnn.dtype == torch.bfloat16
+    detail_step, eval_step = make_detail_step(model), make_eval_step(model)
+    n_head, H = cfg.att_head_num, HEADS
+    src = graph.edge_src.long()[None, ..., None].expand(cfg.k, G, E, H)
+    for dt in (torch.bfloat16, torch.float32):
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        set_gnn_dtype(model, dt)
+        _build.reset_launch_counts()
+        times = []
+        for _ in range(3 if dt == torch.bfloat16 else 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, pool, (edge, self_) = detail_step(lm, graph)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        counts = dict(_build.LAUNCHES)
+        log(f"  kernels launched by the detail step, {name}: {counts} (none "
+            "by design: the attention weights exist only on the scatter arm)")
+        if counts:
+            FAILURES.append(f"the detail step launched kernels: {counts}")
+        shapes = {"logits": (logits, (B, C)), "pool": (pool, (n_head * G, N)),
+                  "edge": (edge, (cfg.k, G, E, H)),
+                  "self": (self_, (cfg.k, G, N, H))}
+        for what, (t, shape) in shapes.items():
+            if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+                FAILURES.append(f"detail {what} {name}: {tuple(t.shape)}")
+        gnn.backend = "scatter"
+        compare(f"detail logits vs served scatter path, {name}", logits,
+                eval_step(lm, graph), LOGIT_TOL[dt])
+        gnn.backend = None
+        compare(f"detail logits vs served kernel path, {name}", logits,
+                eval_step(lm, graph), LOGIT_TOL[dt])
+        compare(f"pooler attention rows sum to 1, {name}",
+                pool.float().sum(1), torch.ones(n_head * G, device=dev),
+                ALPHA_SUM_TOL[torch.float32])
+        total = self_.float().scatter_add(2, src, edge.float())
+        compare(f"self alpha + live edge alphas per source = 1, {name}",
+                total, torch.ones_like(total), ALPHA_SUM_TOL[dt])
+        if bool((edge[:, ~graph.edge_mask] != 0).any()):
+            FAILURES.append(f"detail: alphas of masked slots, {name}")
+        if dt == torch.bfloat16:
+            med = statistics.median(times[1:])
+            log(f"  detail step: {med * 1e3:.3f} ms per request of {B} "
+                f"questions x {C} choices (median of {len(times) - 1}, after "
+                f"one warm-up of {times[0] * 1e3:.3f} ms)  [{card}]")
+    set_gnn_dtype(model, torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -928,11 +1271,16 @@ def phase_train(dev, reports, card, cfg, model, enc_cfg, gen):
     log(f"  peak device memory over the training phase "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+PHASES = ("kernels", "grads", "op", "serve", "detail", "train")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", default="kernels,grads,serve,train",
+    ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated phases to run (default: all)")
     only = set(ap.parse_args().only.split(","))
+    if not only <= set(PHASES):
+        ap.error(f"unknown phase in {sorted(only)}; the phases are {PHASES}")
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; it runs only on the card",
               file=sys.stderr)
@@ -966,8 +1314,16 @@ def main() -> int:
         "edge_hidden_bwd": entry("edge_hidden.cu", f"{enc}:179"),
         "gat_bwd_pass1": entry("gat_bwd.cu", f"{gat}:765"),
         "gat_bwd_pass2": entry("gat_bwd.cu", f"{gat}:849"),
+        "gat_unproj_scores": entry("gat_unproj.cu", f"{gat}:331"),
+        "gat_unproj_denoms": entry("gat_unproj.cu", f"{gat}:346"),
+        "gat_unproj_aggr": entry("gat_unproj.cu", f"{gat}:373"),
+        "gat_unproj_bwd1": entry("gat_unproj.cu", f"{gat}:481"),
+        "gat_unproj_bwd2": entry("gat_unproj.cu", f"{gat}:517"),
     }
-    gen = torch.Generator(device=dev).manual_seed(SEED)
+    # one generator per new phase, so that a phase added later leaves the
+    # earlier phases' inputs as they were
+    new_gen = lambda i: torch.Generator(device=dev).manual_seed(SEED + i)
+    gen = new_gen(0)
     if "kernels" in only:
         log("\n[kernel 11: edge_hidden]")
         phase_edge_hidden(gen, dev, reports)
@@ -979,13 +1335,20 @@ def main() -> int:
         phase_edge_hidden_bwd(gen, dev, reports)
         log("\n[kernels 8 and 9: GAT backward pass 1 and pass 2]")
         phase_gat_bwd(gen, dev, reports)
+        log("\n[kernels 1 to 5: the unprojected GAT op, forward and backward]")
+        phase_gat_unproj(new_gen(12), dev, reports)
     if "grads" in only:
         log("\n[op gradients: the Functions on the kernels vs autograd "
             "through the scatter path, f32]")
         phase_op_gradients(gen, dev)
-    if only & {"serve", "train"}:
+        phase_unproj_gradients(new_gen(13), dev)
+    if "op" in only:
+        log("\n[slice 3: relational_gat_attention_nodes on CUDA tensors, "
+            "forward and backward]")
+        phase_op(new_gen(14), dev, reports, card)
+    if only & {"serve", "detail", "train"}:
         cfg = preset("obqa")
-        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        gen = new_gen(1)
         t0 = time.perf_counter()
         model, enc_cfg = build_model(cfg, dev, gen)
         torch.cuda.synchronize()
@@ -997,6 +1360,9 @@ def main() -> int:
     if "serve" in only:
         log("\n[slice 1: OBQA LMQAGNN serving forward]")
         phase_slice(dev, reports, card, cfg, model, enc_cfg, gen)
+    if "detail" in only:
+        log("\n[slice 3: OBQA LMQAGNN detail step]")
+        phase_detail(dev, card, cfg, model, enc_cfg, new_gen(15))
     if "train" in only:
         log("\n[slice 2: OBQA LMQAGNN training steps]")
         phase_train(dev, reports, card, cfg, model, enc_cfg, gen)
@@ -1004,7 +1370,7 @@ def main() -> int:
     if FAILURES:
         log("\nFAILED: " + "; ".join(FAILURES))
         return 1
-    if not only >= {"kernels", "grads", "serve", "train"}:
+    if only != set(PHASES):
         log(f"\npartial run ({sorted(only)}) passed; no result line")
         return 0
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,6 +1,6 @@
-// Device helpers shared by the GAT kernels (gat_fwd.cu, gat_bwd.cu): typed
-// row loads and stores, the float atomic max, and the register-tiled
-// per-edge product that every pass runs.
+// Device helpers shared by the GAT kernels (gat_fwd.cu, gat_bwd.cu,
+// gat_unproj.cu): typed row loads and stores, the float atomic max, and the
+// register-tiled per-edge product that every pass of the projected op runs.
 //
 // The product: a block takes TE = 64 rows (edges of one graph) and every
 // output column; the depth is staged in slices of KC = 32, the row operand

@@ -35,18 +35,11 @@ from qagnn_tpu_torch.ops.edge_encoder_kernels import (
     edge_feature_moments,
     edge_hidden,
 )
-from qagnn_tpu_torch.ops.gat_attention import relational_gat_attention_nodes
+from qagnn_tpu_torch.ops.gat_attention import (
+    relational_gat_attention_nodes,
+    resolve_backend,
+)
 from qagnn_tpu_torch.ops.gat_kernels import gat_projected_chained
-
-BACKENDS = ("scatter", "cuda")
-
-
-def resolve_backend(backend: str | None, t: torch.Tensor) -> str:
-    if backend is None:
-        return "cuda" if t.is_cuda else "scatter"
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown GNN backend {backend!r}; one of {BACKENDS}")
-    return backend
 
 
 class EdgeEncoder(nn.Module):
@@ -176,7 +169,8 @@ class GATConvE(nn.Module):
                 heads(self.msg_e.apply_to(edge_emb, cdt)),
                 heads(self.key_e.apply_to(self_emb, cdt)),
                 heads(self.msg_e.apply_to(self_emb, cdt)),
-                edge_src, edge_dst, edge_mask, return_alpha=return_alpha)
+                edge_src, edge_dst, edge_mask, backend="scatter",
+                return_alpha=return_alpha)
             if return_alpha:
                 aggr, alphas = aggr
 

@@ -55,8 +55,13 @@ class QAGNN(nn.Module):
         self.fc = MLP(concept_dim + sent_dim + concept_dim, fc_dim, 1,
                       n_fc_layer, layer_norm=True, dropout=p_fc)
 
-    def forward(self, sent_vecs, graph: BatchedGraphs):
-        """sent_vecs: (G, sent_dim). Returns logits (G, 1)."""
+    def forward(self, sent_vecs, graph: BatchedGraphs, *,
+                return_pool_attn: bool = False,
+                return_gnn_attn: bool = False):
+        """sent_vecs: (G, sent_dim). Returns logits (G, 1) [, pooler
+        attention (n_head*G, N)] [, GNN attention ((k, G, E, H) edge alphas,
+        (k, G, N, H) self alphas)]. The GNN attention comes from the scatter
+        arm of the attention op, the only one that materialises it."""
         gnn_input0 = gelu(dense(sent_vecs, self.svec2nvec))[:, None, :]
         # padding slots carry concept_id 1 -> table row 0
         gnn_input1 = self.concept_emb(graph.concept_ids[:, 1:] - 1)
@@ -68,7 +73,10 @@ class QAGNN(nn.Module):
                                             graph.num_nodes)
         gnn_output = self.gnn(gnn_input, graph.node_types, node_scores,
                               graph.edge_src, graph.edge_dst,
-                              graph.edge_type, graph.edge_mask)
+                              graph.edge_type, graph.edge_mask,
+                              return_alpha=return_gnn_attn)
+        if return_gnn_attn:
+            gnn_output, gnn_attn = gnn_output
         z_vecs = gnn_output[:, 0]
 
         # pool over KG nodes only: padding and the context node masked out
@@ -76,12 +84,18 @@ class QAGNN(nn.Module):
         all_masked = pool_mask.all(dim=1)
         pool_mask = pool_mask.clone()
         pool_mask[:, 0] = torch.where(all_masked, False, pool_mask[:, 0])
-        graph_vecs, _ = self.pooler(sent_vecs, gnn_output, pool_mask)
+        graph_vecs, pool_attn = self.pooler(sent_vecs, gnn_output, pool_mask)
 
         dt = torch.promote_types(z_vecs.dtype, sent_vecs.dtype)
         concat = torch.cat([graph_vecs.to(dt), sent_vecs.to(dt),
                             z_vecs.to(dt)], dim=1)
-        return self.fc(dropout(concat, self.p_fc, self.training))
+        logits = self.fc(dropout(concat, self.p_fc, self.training))
+        out = (logits,)
+        if return_pool_attn:
+            out += (pool_attn,)
+        if return_gnn_attn:
+            out += (gnn_attn,)
+        return out if len(out) > 1 else logits
 
 
 class LMQAGNN(nn.Module):
@@ -103,12 +117,21 @@ class LMQAGNN(nn.Module):
                              gnn_dtype=gnn_dtype)
 
     def forward(self, lm_inputs: dict, graph: BatchedGraphs, *,
-                layer_id: int = -1):
+                layer_id: int = -1, return_pool_attn: bool = False,
+                detail: bool = False):
         """lm_inputs: dict of (B, C, L) tensors (input_ids, attention_mask,
-        ...). Returns logits (B, C)."""
+        ...). Returns logits (B, C) [and the pooler attention]. With detail
+        (reference modeling/modeling_qagnn.py:236-241): (logits, pool_attn,
+        gnn_attn), gnn_attn = ((k, G, E, H) edge alphas, (k, G, N, H)
+        self-loop alphas)."""
         first = next(iter(lm_inputs.values()))
         bs, nc = first.shape[0], first.shape[1]
         flat_lm = {k: v.reshape((bs * nc,) + tuple(v.shape[2:]))
                    for k, v in lm_inputs.items()}
         sent_vecs = self.encoder(**flat_lm, layer_id=layer_id)
-        return self.decoder(sent_vecs, graph).reshape(bs, nc)
+        out = self.decoder(sent_vecs, graph,
+                           return_pool_attn=return_pool_attn or detail,
+                           return_gnn_attn=detail)
+        if detail or return_pool_attn:
+            return (out[0].reshape(bs, nc),) + out[1:]
+        return out.reshape(bs, nc)

@@ -1,8 +1,8 @@
-"""Relation-aware graph attention, scatter backend: the port's plain oracle.
+"""Relation-aware graph attention: the op-level entry point and its backends.
 
-Counterpart of qagnn_tpu/ops/gat_attention.py (`relational_gat_attention_nodes`
-and `relational_gat_attention` with backend "scatter"). Per edge e = (src, dst)
-and head h:
+Counterpart of qagnn_tpu/ops/gat_attention.py
+(`relational_gat_attention_nodes`, `relational_gat_attention`,
+`default_backend`). Per edge e = (src, dst) and head h:
 
     score[e, h] = <query[e, h], key[e, h]>
     alpha       = softmax over each SOURCE node's edges jointly with its
@@ -11,19 +11,50 @@ and head h:
     out[n, h]   = sum over edges with dst == n of alpha * msg
                   + alpha_self[n, h] * msg_self[n, h]
 
-The fused kernels of qagnn_tpu_torch.ops.gat_kernels compute the same function
-and are held against this one.
+Two backends, one function up to float reassociation:
+
+  * "scatter": gathers, a segment softmax and scatter-adds over the flattened
+    union of the graphs, in torch ops under autograd. The plain oracle that
+    every kernel path is held against, the default for CPU tensors, and the
+    only arm that materialises the attention weights: `return_alpha=True`
+    takes it whatever backend was asked for, as the JAX op leaves its
+    kernels there.
+  * "cuda" (the default for CUDA tensors): the five hand-written kernels of
+    qagnn_tpu_torch.ops.gat_unproj_kernels (`gat_unprojected`, an autograd
+    Function whose backward is kernels too). On CPU tensors it runs their
+    plain versions.
+
+The JAX package's third backend, "onehot", has no counterpart: it is the
+TPU's formulation of the same function as one-hot matrix products, for a
+machine on which a scatter serialises.
 """
 
 from __future__ import annotations
 
 import torch
 
+from qagnn_tpu_torch.ops.gat_unproj_kernels import gat_unprojected
 from qagnn_tpu_torch.ops.segment import (
     out_degree,
     segment_softmax_with_self_loops,
     segment_sum,
 )
+
+BACKENDS = ("scatter", "cuda")
+
+
+def default_backend(t: torch.Tensor) -> str:
+    """The backend that follows the tensors' device: the kernels on the
+    card, the scatter oracle elsewhere."""
+    return "cuda" if t.is_cuda else "scatter"
+
+
+def resolve_backend(backend: str | None, t: torch.Tensor) -> str:
+    if backend is None:
+        return default_backend(t)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    return backend
 
 
 def _take(nodes, idx):
@@ -45,10 +76,30 @@ def relational_gat_attention_nodes(
     edge_dst,       # (G, E) int
     edge_mask,      # (G, E) bool
     *,
+    backend: str | None = None,
     return_alpha: bool = False,
 ):
     """Decomposed form: key(e) = (A_k x)[dst] + B_k emb_e,
-    msg(e) = (A_m x)[src] + B_m emb_e, query(e) = (W_q x)[src]."""
+    msg(e) = (A_m x)[src] + B_m emb_e, query(e) = (W_q x)[src].
+
+    Returns the aggregated node features (G, N, H*D): float32 from the
+    "cuda" backend, the inputs' dtype from "scatter". With return_alpha
+    also (edge_alpha (G, E, H), self_alpha (G, N, H)), always from the
+    scatter arm. backend None follows the tensors' device."""
+    backend = resolve_backend(backend, node_query)
+    if backend == "cuda" and not return_alpha:
+        G, N, H, D = node_query.shape
+
+        def flat(t):
+            return t.reshape(t.shape[0], t.shape[1], H * D)
+
+        return gat_unprojected(
+            flat(node_query), flat(node_key), flat(node_msg),
+            flat(edge_key_bias), flat(edge_msg_bias), flat(self_key_bias),
+            flat(self_msg_bias), edge_src.to(torch.int32).contiguous(),
+            edge_dst.to(torch.int32).contiguous(),
+            edge_mask.to(torch.bool).contiguous(), H)
+
     edge_query = _take(node_query, edge_src)
     edge_key = _take(node_key, edge_dst) + edge_key_bias
     edge_msg = _take(node_msg, edge_src) + edge_msg_bias

@@ -45,6 +45,11 @@ Unlike the TPU op the edge embedding is (G, E, D), not transposed, and no
 edge padding is needed: any E works. The kernels take D and HD that are
 multiples of 8, HD <= 256 (the backward also D <= 256 and heads of at least
 4 features) and at most 8 heads; the plain versions take any.
+
+The unprojected op (`pallas_relational_gat`: precomputed per-edge biases, no
+projection in the kernels) is the sibling module `gat_unproj_kernels`, which
+shares this module's helpers (`head_sum`, `heads_to_hd`, the node gathers
+and scatters, the width and dtype checks).
 """
 
 from __future__ import annotations

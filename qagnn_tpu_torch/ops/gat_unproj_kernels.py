@@ -1,0 +1,390 @@
+"""The unprojected relational GAT op on hand-written CUDA kernels.
+
+Counterpart of `pallas_relational_gat` (qagnn_tpu/ops/pallas_gat.py
+:1301-1335; forward `_fwd_impl` :394-474, backward `_bwd_impl` :546-632): the
+op that takes node projections and PRECOMPUTED per-edge key and message
+biases ekb, emb (G, E, HD), where `gat_kernels` projects the edge embedding
+inside its kernels. Five kernels (csrc/gat_unproj.cu), none with a matrix
+product. The forward runs
+
+  * `edge_scores` (`gat_unproj_scores`): s = <nq[src], nk[dst] + ekb> per
+    head, (G, H, E) f32, 0 at masked slots, and the max over masked edges
+    per (graph, head), folded into the kernel by an atomic max (-1e30 for
+    a graph with no masked edge);
+  * torch glue: self-loop scores, gmax over masked edges AND all N self
+    scores, e_self;
+  * `edge_denoms` (`gat_unproj_denoms`): e_edge = exp(min(s - gmax, 0))
+    over masked edges, 0 elsewhere, written (G, H, E); per-source sums of
+    it and out-degrees;
+  * torch glue: scale = (deg + 1) / max(denom_edges + e_self, 1e-16) and the
+    self-loop term (nm + smb) * e_self * scale that seeds the output;
+  * `aggregate` (`gat_unproj_aggr`): out[dst] += round(e_edge * scale[src]
+    * (nm[src] + emb)) over masked edges, rounded to the compute dtype
+    before the f32 sum.
+
+The backward keeps e_edge as a residual (the projected op recomputes it from
+its scores) and runs
+
+  * torch glue: the self-loop cotangents d_msg_self, d_alpha_self;
+  * `bwd1` (`gat_unproj_bwd1`): d_msg = alpha * g[dst] -> demb (every slot,
+    zeros where masked), dnm[src] += round(d_msg), d_alpha per head,
+    dscale[src] += d_alpha * e_edge; one launch, no scratch;
+  * torch glue: d_denom from dscale under the denom_raw > 1e-16 gate, the
+    self-loop score cotangents;
+  * `bwd2` (`gat_unproj_bwd2`): d_s = (d_alpha * scale[src] + d_denom[src])
+    * e_edge -> dekb = d_s * nq[src] (every slot), dnq[src] += round(d_s *
+    key), dnk[dst] += round(dekb); one launch.
+
+No gradient flows through gmax. Every kernel has a plain torch version here
+with the same arithmetic and the same rounding points. A wrapper takes the
+plain version for CPU tensors only; for CUDA tensors it launches its kernel
+or raises. Any E works (the TPU op's edge padding is a tile matter of that
+machine). The kernels take HD a multiple of 8 up to 256 and at most 8 heads
+dividing HD; the plain versions take any.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from qagnn_tpu_torch.ops import _build
+from qagnn_tpu_torch.ops.gat_kernels import (
+    _I,
+    _P,
+    DENOM_EPS,
+    NEG,
+    _check_widths,
+    _contiguous,
+    _dtype_code,
+    _gather_nodes,
+    _require,
+    _scatter_nodes,
+    _stream,
+    head_sum,
+    heads_to_hd,
+)
+
+_SIGNATURES = {
+    "gat_unproj_scores": [_P] * 8 + [_I] * 6 + [_P],
+    "gat_unproj_denoms": [_P] * 7 + [_I] * 4 + [_P],
+    "gat_unproj_aggr": [_P] * 8 + [_I] * 6 + [_P],
+    "gat_unproj_bwd1": [_P] * 12 + [_I] * 6 + [_P],
+    "gat_unproj_bwd2": [_P] * 13 + [_I] * 6 + [_P],
+}
+
+
+def _lib():
+    return _build.load("gat_unproj", _SIGNATURES)
+
+
+def _require_graph(src, dst, mask, G, E) -> None:
+    _require(src, "src", torch.int32, (G, E))
+    _require(dst, "dst", torch.int32, (G, E))
+    _require(mask, "mask", torch.bool, (G, E))
+
+
+# --------------------------------------------------------------------------
+# scores
+# --------------------------------------------------------------------------
+
+def edge_scores_plain(nq, nk, ekb, src, dst, mask, heads):
+    eq = _gather_nodes(nq, src).float()
+    ek = _gather_nodes(nk, dst).float() + ekb.float()
+    s = head_sum(eq * ek, heads).transpose(1, 2)                    # (G,H,E)
+    live = mask[:, None, :]
+    m_edge = torch.where(live, s, NEG).amax(-1)
+    return torch.where(live, s, 0.0).contiguous(), m_edge
+
+
+def edge_scores(nq, nk, ekb, src, dst, mask, heads):
+    """Scores (G, H, E) f32, 0 at masked slots, and the max over masked
+    edges (G, H) f32 (NEG for a graph with no masked edge)."""
+    if not nq.is_cuda:
+        return edge_scores_plain(nq, nk, ekb, src, dst, mask, heads)
+    G, N, HD = nq.shape
+    E = ekb.shape[1]
+    cdt = nq.dtype
+    _check_widths(HD, HD, heads)
+    _require(nq, "nq", cdt, (G, N, HD))
+    _require(nk, "nk", cdt, (G, N, HD))
+    _require(ekb, "ekb", cdt, (G, E, HD))
+    _require_graph(src, dst, mask, G, E)
+    out = torch.empty((G, heads, E), device=nq.device, dtype=torch.float32)
+    m_edge = torch.full((G, heads), NEG, device=nq.device,
+                        dtype=torch.float32)
+    err = _lib().gat_unproj_scores(
+        nq.data_ptr(), nk.data_ptr(), ekb.data_ptr(), src.data_ptr(),
+        dst.data_ptr(), mask.data_ptr(), out.data_ptr(), m_edge.data_ptr(),
+        G, N, E, HD, heads, _dtype_code(nq), _stream())
+    _build.check(err, "gat_unproj_scores")
+    _build.count_launch("gat_unproj_scores")
+    return out, m_edge
+
+
+# --------------------------------------------------------------------------
+# exponentials, denominators and degrees
+# --------------------------------------------------------------------------
+
+def edge_denoms_plain(scores, gmax, src, mask, n_nodes):
+    G, H, E = scores.shape
+    e = torch.exp(torch.clamp_max(scores - gmax[:, :, None], 0.0))
+    e = torch.where(mask[:, None, :], e, 0.0)
+    denom = _scatter_nodes(scores.new_zeros((G, n_nodes, H)), src,
+                           e.transpose(1, 2))
+    deg = scores.new_zeros((G, n_nodes)).scatter_add_(1, src.long(),
+                                                      mask.float())
+    return e, denom, deg
+
+
+def edge_denoms(scores, gmax, src, mask, n_nodes):
+    """e_edge = exp(min(s - gmax, 0)) over masked edges and 0 elsewhere
+    (G, H, E), its per-source sums (G, N, H) and the out-degree (G, N), all
+    f32."""
+    if not scores.is_cuda:
+        return edge_denoms_plain(scores, gmax, src, mask, n_nodes)
+    G, H, E = scores.shape
+    _require(scores, "scores", torch.float32, (G, H, E))
+    _require(gmax, "gmax", torch.float32, (G, H))
+    _require(src, "src", torch.int32, (G, E))
+    _require(mask, "mask", torch.bool, (G, E))
+    dev = scores.device
+    e_edge = torch.empty_like(scores)
+    denom = torch.zeros((G, n_nodes, H), device=dev, dtype=torch.float32)
+    deg = torch.zeros((G, n_nodes), device=dev, dtype=torch.float32)
+    err = _lib().gat_unproj_denoms(
+        scores.data_ptr(), gmax.data_ptr(), src.data_ptr(), mask.data_ptr(),
+        e_edge.data_ptr(), denom.data_ptr(), deg.data_ptr(), G, n_nodes, E,
+        H, _stream())
+    _build.check(err, "gat_unproj_denoms")
+    _build.count_launch("gat_unproj_denoms")
+    return e_edge, denom, deg
+
+
+# --------------------------------------------------------------------------
+# aggregation
+# --------------------------------------------------------------------------
+
+def aggregate_plain(nm, emb, e_edge, scale, src, dst, mask, out, heads):
+    HD = nm.shape[-1]
+    msg = _gather_nodes(nm, src).float() + emb.float()
+    alpha = e_edge.transpose(1, 2) * _gather_nodes(scale, src)      # (G,E,H)
+    w = (msg * heads_to_hd(alpha, HD)).to(nm.dtype).float()
+    return _scatter_nodes(out, dst, torch.where(mask[..., None], w, 0.0))
+
+
+def aggregate(nm, emb, e_edge, scale, src, dst, mask, out, heads):
+    """Adds alpha * msg of every masked edge, rounded to the compute dtype,
+    at its dst into `out` (G, N, HD) f32, IN PLACE (the caller seeds it with
+    the self-loop term), and returns it."""
+    if not nm.is_cuda:
+        return aggregate_plain(nm, emb, e_edge, scale, src, dst, mask, out,
+                               heads)
+    G, N, HD = nm.shape
+    E = emb.shape[1]
+    cdt = nm.dtype
+    _check_widths(HD, HD, heads)
+    _require(nm, "nm", cdt, (G, N, HD))
+    _require(emb, "emb", cdt, (G, E, HD))
+    _require(e_edge, "e_edge", torch.float32, (G, heads, E))
+    _require(scale, "scale", torch.float32, (G, N, heads))
+    _require_graph(src, dst, mask, G, E)
+    _require(out, "out", torch.float32, (G, N, HD))
+    err = _lib().gat_unproj_aggr(
+        nm.data_ptr(), emb.data_ptr(), e_edge.data_ptr(), scale.data_ptr(),
+        src.data_ptr(), dst.data_ptr(), mask.data_ptr(), out.data_ptr(), G,
+        N, E, HD, heads, _dtype_code(nm), _stream())
+    _build.check(err, "gat_unproj_aggr")
+    _build.count_launch("gat_unproj_aggr")
+    return out
+
+
+# --------------------------------------------------------------------------
+# the op, forward
+# --------------------------------------------------------------------------
+
+def gat_unprojected_forward(nq, nk, nm, ekb, emb, skb, smb, src, dst, mask,
+                            heads):
+    """Fused sparse attention core over precomputed edge biases.
+
+    nq/nk/nm: (G, N, HD) node projections in the compute dtype (query
+    pre-scaled by 1/sqrt(dph)); ekb/emb: (G, E, HD) edge key and message
+    biases; skb/smb: (G, N, HD) self-loop biases; src/dst: (G, E) int32
+    local indices; mask: (G, E) bool.
+
+    Returns (out (G, N, HD) f32, e_edge (G, H, E) f32, denom_raw (G, N, H)
+    f32, scale (G, N, H) f32, e_self (G, N, H) f32): the output and what the
+    backward keeps.
+    """
+    G, N, HD = nq.shape
+    s, m_edge = edge_scores(nq, nk, ekb, src, dst, mask, heads)
+    self_scores = head_sum(nq.float() * (nk + skb).float(), heads)  # (G,N,H)
+    gmax = torch.maximum(m_edge, self_scores.amax(1))                 # (G,H)
+    e_self = torch.exp(self_scores - gmax[:, None, :])
+    e_edge, denom_edges, deg = edge_denoms(s, gmax, src, mask, N)
+    denom_raw = denom_edges + e_self
+    scale = (deg[..., None] + 1.0) / torch.clamp_min(denom_raw, DENOM_EPS)
+    out = (nm + smb).float() * heads_to_hd(e_self * scale, HD)
+    out = aggregate(nm, emb, e_edge, scale, src, dst, mask, out, heads)
+    return out, e_edge, denom_raw, scale, e_self
+
+
+# --------------------------------------------------------------------------
+# backward pass 1 (message side)
+# --------------------------------------------------------------------------
+
+def bwd1_plain(gout, nm, emb, e_edge, scale, src, dst, mask, dnm, dscale,
+               heads):
+    cdt, HD = nm.dtype, nm.shape[-1]
+    live = mask[..., None]
+    msg = _gather_nodes(nm, src).float() + emb.float()
+    g_dst = _gather_nodes(gout, dst).float()
+    e = torch.where(live, e_edge.transpose(1, 2), 0.0)              # (G,E,H)
+    alpha = e * _gather_nodes(scale, src)
+    d_msg = torch.where(live, heads_to_hd(alpha, HD) * g_dst, 0.0).to(cdt)
+    dalpha = torch.where(live, head_sum(msg * g_dst, heads), 0.0)
+    _scatter_nodes(dnm, src, d_msg.float())
+    _scatter_nodes(dscale, src, dalpha * e)
+    return (d_msg.to(emb.dtype), dalpha.transpose(1, 2).contiguous(), dnm,
+            dscale)
+
+
+def bwd1(gout, nm, emb, e_edge, scale, src, dst, mask, dnm, dscale, heads):
+    """Backward pass 1. gout: (G, N, HD) output cotangent in the compute
+    dtype; dnm (G, N, HD) and dscale (G, N, H) f32 arrive seeded with the
+    self-loop cotangents and are added to IN PLACE.
+
+    Returns (demb (G, E, HD) in emb's dtype, zeros at masked slots, d_alpha
+    (G, H, E) f32, 0 at masked slots, dnm, dscale)."""
+    if not nm.is_cuda:
+        return bwd1_plain(gout, nm, emb, e_edge, scale, src, dst, mask, dnm,
+                          dscale, heads)
+    G, N, HD = nm.shape
+    E = emb.shape[1]
+    cdt = nm.dtype
+    _check_widths(HD, HD, heads)
+    _require(gout, "gout", cdt, (G, N, HD))
+    _require(nm, "nm", cdt, (G, N, HD))
+    _require(emb, "emb", cdt, (G, E, HD))
+    _require(e_edge, "e_edge", torch.float32, (G, heads, E))
+    _require(scale, "scale", torch.float32, (G, N, heads))
+    _require_graph(src, dst, mask, G, E)
+    _require(dnm, "dnm", torch.float32, (G, N, HD))
+    _require(dscale, "dscale", torch.float32, (G, N, heads))
+    demb = torch.empty_like(emb)
+    dalpha = torch.empty_like(e_edge)
+    err = _lib().gat_unproj_bwd1(
+        gout.data_ptr(), nm.data_ptr(), emb.data_ptr(), e_edge.data_ptr(),
+        scale.data_ptr(), src.data_ptr(), dst.data_ptr(), mask.data_ptr(),
+        demb.data_ptr(), dalpha.data_ptr(), dscale.data_ptr(),
+        dnm.data_ptr(), G, N, E, HD, heads, _dtype_code(nm), _stream())
+    _build.check(err, "gat_unproj_bwd1")
+    _build.count_launch("gat_unproj_bwd1")
+    return demb, dalpha, dnm, dscale
+
+
+# --------------------------------------------------------------------------
+# backward pass 2 (score side)
+# --------------------------------------------------------------------------
+
+def bwd2_plain(nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst, mask,
+               dnq, dnk, heads):
+    cdt, HD = nq.dtype, nq.shape[-1]
+    live = mask[..., None]
+    q_src = _gather_nodes(nq, src).float()
+    key = _gather_nodes(nk, dst).float() + ekb.float()
+    d_s = (dalpha.transpose(1, 2) * _gather_nodes(scale, src)
+           + _gather_nodes(d_denom, src)) * e_edge.transpose(1, 2)
+    ds_hd = heads_to_hd(torch.where(live, d_s, 0.0), HD)
+    dekb = (ds_hd * q_src).to(cdt)
+    _scatter_nodes(dnq, src, (ds_hd * key).to(cdt).float())
+    _scatter_nodes(dnk, dst, dekb.float())
+    return dekb.to(ekb.dtype), dnq, dnk
+
+
+def bwd2(nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst, mask, dnq,
+         dnk, heads):
+    """Backward pass 2. dnq and dnk (G, N, HD) f32 arrive seeded with the
+    self-loop cotangents and are added to IN PLACE.
+
+    Returns (dekb (G, E, HD) in ekb's dtype, zeros at masked slots, dnq,
+    dnk)."""
+    if not nq.is_cuda:
+        return bwd2_plain(nq, nk, ekb, e_edge, dalpha, scale, d_denom, src,
+                          dst, mask, dnq, dnk, heads)
+    G, N, HD = nq.shape
+    E = ekb.shape[1]
+    cdt = nq.dtype
+    _check_widths(HD, HD, heads)
+    _require(nq, "nq", cdt, (G, N, HD))
+    _require(nk, "nk", cdt, (G, N, HD))
+    _require(ekb, "ekb", cdt, (G, E, HD))
+    _require(e_edge, "e_edge", torch.float32, (G, heads, E))
+    _require(dalpha, "dalpha", torch.float32, (G, heads, E))
+    _require(scale, "scale", torch.float32, (G, N, heads))
+    _require(d_denom, "d_denom", torch.float32, (G, N, heads))
+    _require_graph(src, dst, mask, G, E)
+    _require(dnq, "dnq", torch.float32, (G, N, HD))
+    _require(dnk, "dnk", torch.float32, (G, N, HD))
+    dekb = torch.empty_like(ekb)
+    err = _lib().gat_unproj_bwd2(
+        nq.data_ptr(), nk.data_ptr(), ekb.data_ptr(), e_edge.data_ptr(),
+        dalpha.data_ptr(), scale.data_ptr(), d_denom.data_ptr(),
+        src.data_ptr(), dst.data_ptr(), mask.data_ptr(), dekb.data_ptr(),
+        dnq.data_ptr(), dnk.data_ptr(), G, N, E, HD, heads, _dtype_code(nq),
+        _stream())
+    _build.check(err, "gat_unproj_bwd2")
+    _build.count_launch("gat_unproj_bwd2")
+    return dekb, dnq, dnk
+
+
+# --------------------------------------------------------------------------
+# the op, differentiable
+# --------------------------------------------------------------------------
+
+def gat_unprojected_backward(nq, nk, nm, ekb, emb, skb, smb, src, dst, mask,
+                             e_edge, denom_raw, scale, e_self, g, heads):
+    """The seven gradients (dnq, dnk, dnm, dekb, demb, dskb, dsmb) from the
+    output cotangent g (G, N, HD)."""
+    HD = nq.shape[-1]
+    g = g.float().contiguous()
+    # self-loop cotangents; they seed pass 1's node accumulators
+    d_msg_self = heads_to_hd(e_self * scale, HD) * g
+    d_alpha_self = head_sum((nm + smb).float() * g, heads)
+    demb, dalpha, dnm, dscale = bwd1(
+        g.to(nq.dtype), nm, emb, e_edge, scale, src, dst, mask,
+        d_msg_self.clone(), d_alpha_self * e_self, heads)
+    # close the softmax chain: d_denom and the self-loop score cotangents
+    gate = (denom_raw > DENOM_EPS).float()
+    d_denom = -(scale / torch.clamp_min(denom_raw, DENOM_EPS)) * dscale * gate
+    ds_self = heads_to_hd((d_alpha_self * scale + d_denom) * e_self, HD)
+    dnk_self = ds_self * nq.float()          # also the gradient of skb
+    dnq_self = ds_self * (nk.float() + skb.float())
+    dekb, dnq, dnk = bwd2(nq, nk, ekb, e_edge, dalpha, scale,
+                          d_denom.contiguous(), src, dst, mask, dnq_self,
+                          dnk_self.clone(), heads)
+    return (dnq.to(nq.dtype), dnk.to(nk.dtype), dnm.to(nm.dtype), dekb, demb,
+            dnk_self.to(skb.dtype), d_msg_self.to(smb.dtype))
+
+
+class _GatUnprojected(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, nq, nk, nm, ekb, emb, skb, smb, src, dst, mask, heads):
+        out, e_edge, denom_raw, scale, e_self = gat_unprojected_forward(
+            nq, nk, nm, ekb, emb, skb, smb, src, dst, mask, heads)
+        ctx.save_for_backward(nq, nk, nm, ekb, emb, skb, smb, src, dst, mask,
+                              e_edge, denom_raw, scale, e_self)
+        ctx.heads = heads
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = gat_unprojected_backward(*ctx.saved_tensors, g, ctx.heads)
+        return grads + (None, None, None, None)
+
+
+def gat_unprojected(nq, nk, nm, ekb, emb, skb, smb, src, dst, mask, heads):
+    """The op, differentiable in its first seven arguments (arguments as
+    `gat_unprojected_forward`): (G, N, HD) f32."""
+    return _GatUnprojected.apply(
+        *_contiguous(nq, nk, nm, ekb, emb, skb, smb), src, dst, mask, heads)

@@ -1,7 +1,8 @@
-"""The entry points: a train step and an eval step over batches.
+"""The entry points: a train step, an eval step and a detail step over
+batches.
 
-Counterpart of `make_train_step`, `make_eval_step`, `Batch` and `accuracy`
-in qagnn_tpu/train/step.py (reference hot loop qagnn.py:243-278): LM forward,
+Counterpart of `make_train_step`, `make_eval_step`, `make_detail_step`,
+`Batch` and `accuracy` in qagnn_tpu/train/step.py (reference hot loop qagnn.py:243-278): LM forward,
 GNN forward, loss, backward, global-norm clipping and the two-group optimizer
 update, with gradient accumulation over microbatches and the encoder freeze.
 """
@@ -94,6 +95,18 @@ def make_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
     return train_step
 
 
+def _make_forward_step(model, device, **forward_args) -> Callable:
+    dev = resolve_device(device)
+    model.to(dev).eval()
+
+    @torch.inference_mode()
+    def step(lm_inputs: dict, graph: BatchedGraphs):
+        lm = {k: v.to(dev, non_blocking=True) for k, v in lm_inputs.items()}
+        return model(lm, graph.to(dev), **forward_args)
+
+    return step
+
+
 def make_eval_step(model: torch.nn.Module, device=None, *,
                    encoder_layer_id: int = -1) -> Callable:
     """Eval step on `device` (the card unless the caller names another;
@@ -101,15 +114,19 @@ def make_eval_step(model: torch.nn.Module, device=None, *,
     mode (BatchNorm running statistics, no dropout), then maps
     (lm_inputs (B, C, L) dict, graph) to logits (B, C) under
     torch.inference_mode()."""
-    dev = resolve_device(device)
-    model.to(dev).eval()
+    return _make_forward_step(model, device, layer_id=encoder_layer_id)
 
-    @torch.inference_mode()
-    def eval_step(lm_inputs: dict, graph: BatchedGraphs) -> torch.Tensor:
-        lm = {k: v.to(dev, non_blocking=True) for k, v in lm_inputs.items()}
-        return model(lm, graph.to(dev), layer_id=encoder_layer_id)
 
-    return eval_step
+def make_detail_step(model: torch.nn.Module, device=None, *,
+                     encoder_layer_id: int = -1) -> Callable:
+    """Detail eval step (reference modeling/modeling_qagnn.py:236-241),
+    built as `make_eval_step`: maps (lm_inputs, graph) to (logits (B, C),
+    pooler attention (n_head*G, N), (edge alphas (k, G, E, H), self alphas
+    (k, G, N, H))). The graph tensors that the reference echoes back are in
+    the caller's BatchedGraphs. The attention weights exist only on the
+    scatter arm of the attention op, so this step launches no GAT kernel."""
+    return _make_forward_step(model, device, layer_id=encoder_layer_id,
+                              detail=True)
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -65,11 +65,12 @@ def test_cuda_sources_include_only_toolkit_headers(path):
 def test_scan_sees_the_package():
     assert ROOT.joinpath("chip_smoke.py").exists()
     names = {p.name for p in SOURCES}
-    assert {"gat_kernels.py", "edge_encoder_kernels.py", "gnn.py",
+    assert {"gat_kernels.py", "gat_unproj_kernels.py", "gat_attention.py",
+            "edge_encoder_kernels.py", "gnn.py",
             "qagnn.py", "step.py", "convert.py", "optim.py", "losses.py",
             "chip_smoke.py"} <= names
-    assert {"gat_fwd.cu", "gat_bwd.cu", "gat_common.cuh", "edge_hidden.cu",
-            "edge_moments.cu"} <= {p.name for p in CSRC}
+    assert {"gat_fwd.cu", "gat_bwd.cu", "gat_unproj.cu", "gat_common.cuh",
+            "edge_hidden.cu", "edge_moments.cu"} <= {p.name for p in CSRC}
     # the scan itself finds a forbidden import
     probe = ROOT / "qagnn_tpu" / "ops" / "gat_attention.py"
     assert "jax" in set(_imported_roots(probe))
@@ -81,3 +82,11 @@ def test_eval_step_refuses_cpu_fallback(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_eval_step(torch.nn.Linear(2, 2))
+
+
+def test_detail_step_refuses_cpu_fallback(monkeypatch):
+    from qagnn_tpu_torch.train.step import make_detail_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_detail_step(torch.nn.Linear(2, 2))

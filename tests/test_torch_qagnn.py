@@ -2,9 +2,11 @@
 
 A tiny RoBERTa-style encoder and a k=2 decoder; the flax variables are
 carried across by convert.py (strict) with perturbed BatchNorm running
-statistics, and the port is driven through its serving entry point
-`make_eval_step(device="cpu")`. Tolerance rtol 3e-4 / atol 3e-5, as
-tests/test_torch_oracle.py holds the decoder.
+statistics, and the port is driven through its serving entry points
+`make_eval_step(device="cpu")` and `make_detail_step(device="cpu")` (logits,
+pooler attention, per-layer edge and self-loop attention weights).
+Tolerance rtol 3e-4 / atol 3e-5, as tests/test_torch_oracle.py holds the
+decoder.
 
 Train mode, dropout 0 on both sides: the logits, the updated running
 statistics and every parameter gradient of the cross-entropy loss, at rtol
@@ -31,7 +33,11 @@ from qagnn_tpu.models.text_encoder import (
 from qagnn_tpu_torch.graph.container import BatchedGraphs
 from qagnn_tpu_torch.models.qagnn import LMQAGNN
 from qagnn_tpu_torch.models.text_encoder import TextEncoder, TextEncoderConfig
-from qagnn_tpu_torch.train.step import accuracy, make_eval_step
+from qagnn_tpu_torch.train.step import (
+    accuracy,
+    make_detail_step,
+    make_eval_step,
+)
 from qagnn_tpu_torch.train.losses import cross_entropy_loss
 from qagnn_tpu_torch.utils.convert import (
     grads_to_flax,
@@ -136,6 +142,52 @@ def test_lmqagnn_eval_logits_match_flax(setup, backends):
     labels = torch.tensor([0, 1])
     assert float(accuracy(got, labels)) == float(
         np.mean(np.argmax(np.asarray(want), 1) == labels.numpy()))
+
+
+def _port_inputs(lm, graph):
+    return ({k: torch.from_numpy(v) for k, v in lm.items()},
+            BatchedGraphs(**{k: torch.from_numpy(v)
+                             for k, v in graph.items()}))
+
+
+@pytest.mark.parametrize("backends", [("cuda", "pallas"), (None, "scatter"),
+                                      ("scatter", "scatter")])
+def test_detail_step_matches_flax(setup, backends):
+    """Logits, pooler attention and the GNN's attention weights. Whatever
+    backend the model names, the weights come from the scatter arm (the JAX
+    model leaves its kernels for the one-hot backend there)."""
+    lm, graph, jlm, jgraph, variables = setup
+    port_backend, jax_backend = backends
+    want, want_pool, (want_edge, want_self) = _jax_model(jax_backend).apply(
+        variables, jlm, jgraph, train=False, detail=True)
+
+    model = _port_model(port_backend)
+    load_flax_variables(model, variables["params"], variables["batch_stats"])
+    logits, pool, (edge, self_) = make_detail_step(model, device="cpu")(
+        *_port_inputs(lm, graph))
+    assert logits.shape == (B, C) and pool.shape == (2 * G, N)
+    assert edge.shape == (K, G, E, 4) and self_.shape == (K, G, N, 4)
+    for got, ref in ((logits, want), (pool, want_pool), (edge, want_edge),
+                     (self_, want_self)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    # the detail step's logits are the eval step's
+    served = make_eval_step(model, device="cpu")(*_port_inputs(lm, graph))
+    np.testing.assert_allclose(logits.numpy(), served.numpy(), **TOL)
+    np.testing.assert_allclose(pool.sum(1).numpy(), 1.0, rtol=1e-5)
+    assert (edge[:, ~torch.from_numpy(graph["edge_mask"])] == 0).all()
+
+
+def test_return_pool_attn_alone(setup):
+    lm, graph, jlm, jgraph, variables = setup
+    want, want_pool = _jax_model("scatter").apply(
+        variables, jlm, jgraph, train=False, return_pool_attn=True)
+    model = _port_model("scatter").eval()
+    load_flax_variables(model, variables["params"], variables["batch_stats"])
+    with torch.no_grad():
+        out = model(*_port_inputs(lm, graph), return_pool_attn=True)
+    assert len(out) == 2
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(out[1].numpy(), np.asarray(want_pool), **TOL)
 
 
 def test_convert_is_strict(setup):
