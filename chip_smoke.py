@@ -10,7 +10,11 @@ Run from the repository root on a machine with one CUDA card. It
      slices' shapes (G=64 graphs, N=200 nodes, E=4096 edge slots, D=HD=200,
      4 heads) with about 25% of edge slots masked, one graph with every edge
      masked, and a ragged-E case, in float32 and bfloat16 (backward pass 1
-     with and without a carry), and times both with CUDA events;
+     with and without a carry), and times both with CUDA events; the two
+     GAT backward passes also at other widths (D=24, HD=40, which need
+     padding; 96 x 128; 256 x 256), with their masked slots held exactly, their tensor-core kernels (bf16)
+     timed in turns with the CUDA-core ones on the same inputs, and
+     torch.profiler's device time by kernel name;
   4. holds the gradients of the autograd Functions on the kernels (the
      projected op, the train-mode edge encoder, the unprojected op) against
      torch.autograd through the plain scatter path, in float32;
@@ -37,7 +41,9 @@ Run from the repository root on a machine with one CUDA card. It
      limit, and as its last line {"ok": true, "device": {...}}.
 
 `--only kernels,grads,op,serve,detail,train` runs a subset of the phases
-(for work on one of them); with no arguments everything runs.
+(for work on one of them; `bwd` is the kernel phase's part for the two GAT
+backward passes alone); with no arguments everything runs. `--csrc DIR`
+builds the kernels from a copy of the sources in DIR.
 
 It exits non-zero, printing no result, when there is no CUDA device or any
 check fails. It imports nothing of JAX or of the JAX package.
@@ -48,6 +54,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -217,11 +224,27 @@ def bound(n_bytes: float, flops: float, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def measure(reports, name, err, kernel, plain, n_bytes, flops, dtype):
+def measure(reports, name, err, kernel, plain, n_bytes, flops, dtype,
+            previous=None):
     """Time a kernel and its plain version at the main path's inputs and
     file them, with the bound, under `name`. No PyTorch call computes any
-    of these functions whole, so library_ms is None."""
-    ms, plain_ms = device_ms(kernel), device_ms(plain)
+    of these functions whole, so library_ms is None. `previous`: the
+    kernel's earlier version on the same inputs, timed in turns with it
+    (kernel, previous, previous, kernel) and printed as previous_ms."""
+    ms = device_ms(kernel)
+    if previous is not None:
+        prev = (device_ms(previous), device_ms(previous))
+        again = device_ms(kernel)
+        previous_ms = sum(prev) / 2
+        log(f"  time {name:<18} kernel {ms:.4f} and {again:.4f} ms  "
+            f"previous_ms {previous_ms:.4f} ({prev[0]:.4f} and {prev[1]:.4f}:"
+            f" the CUDA-core kernels on the same bf16 inputs)  "
+            f"{'faster' if max(ms, again) < min(prev) else 'NOT FASTER'}")
+        if not max(ms, again) < min(prev):
+            FAILURES.append(f"{name}: the kernel on the main path is not "
+                            "faster than its previous version")
+        ms = (ms + again) / 2
+    plain_ms = device_ms(plain)
     bound_ms, by = bound(n_bytes, flops, dtype)
     log(f"  time {name:<18} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
         f"bound {bound_ms:.4f} ms ({by})")
@@ -407,86 +430,158 @@ def phase_edge_hidden_bwd(gen, dev, reports):
                                *got), 16.0 * dh.numel(), torch.float32)
 
 
-def phase_gat_bwd(gen, dev, reports):
+def profile_kernels(what, fn, iters=20):
+    """Device time by kernel name over `iters` calls of fn, from
+    torch.profiler's CUDA activity; says so if it records none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    except Exception as exc:      # a diagnostic: the checks do not need it
+        log(f"  torch.profiler, {what}: failed on this machine: {exc!r}")
+        return
+    device_us = lambda e: getattr(e, "device_time_total", None) \
+        or getattr(e, "cuda_time_total", 0)
+    rows = sorted(((device_us(e), e.count, e.key) for e in events
+                   if device_us(e) > 0), reverse=True)
+    if not rows:
+        log(f"  torch.profiler, {what}: key_averages() shows no device time "
+            "on this machine; times come from CUDA events")
+        return
+    log(f"  torch.profiler, {what}: device time per call by kernel, "
+        f"{iters} calls")
+    for us, count, key in rows[:8]:
+        log(f"    {us / iters:10.1f} us  {count / iters:4.1f} launches  "
+            f"{key[:100]}")
+
+
+def gat_bwd_inputs(gen, dev, D, HD, heads, src, dst, mask, dt):
+    """Inputs of the two backward passes at one width, with the forward's
+    residuals and the backward's glue as gat_projected_backward runs them."""
+    n_edges = src.shape[1]
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)
+    nq = (r(G, N, HD) / (HD // heads) ** 0.5).to(dt)
+    nk, nm, skb, smb = ((r(G, N, HD) * 0.5).to(dt) for _ in range(4))
+    emb = torch.relu(r(G, n_edges, D)).to(dt)
+    w_ke, w_me = r(D, HD) * 0.05, r(D, HD) * 0.05
+    b_ke, b_me = r(HD) * 0.1, r(HD) * 0.1
+    gout = r(G, N, HD).to(dt)
+    _, scores, gmax, denom_raw, scale, e_self = gk.gat_projected_forward(
+        nq, nk, nm, emb, w_ke, b_ke, w_me, b_me, skb, smb, src, dst, mask,
+        heads)
+    dnm0 = gk.heads_to_hd(e_self * scale, HD) * gout.float()
+    d_alpha_self = gk.head_sum((nm + smb).float() * gout.float(), heads)
+    carry = (r(G, n_edges, D) * 0.1).to(dt)
+    return dict(nq=nq, nk=nk, nm=nm, skb=skb, emb=emb, w_ke=w_ke, w_me=w_me,
+                b_ke=b_ke, b_me=b_me, gout=gout, scores=scores, gmax=gmax,
+                denom_raw=denom_raw, scale=scale, e_self=e_self, dnm0=dnm0,
+                d_alpha_self=d_alpha_self, dscale0=d_alpha_self * e_self,
+                carry=carry)
+
+
+def gat_bwd_case(reports, t, src, dst, mask, heads, dt, tag, main):
+    """Both backward passes against their plain versions on the inputs t;
+    at the main shapes also their times, beside the CUDA-core kernels'."""
+    HD, D = t["nm"].shape[-1], t["emb"].shape[-1]
+    n_edges = src.shape[1]
+    live = mask.float().mean().item()
+    dead = ~mask
+    for carry in (None, t["carry"]):
+        ctag = f"{tag} {'no carry' if carry is None else 'carry'}"
+        p1 = (t["gout"], t["nm"], t["emb"], t["w_me"], t["b_me"], t["scores"],
+              t["gmax"], t["scale"], src, dst, mask, carry)
+        got = gk.bwd_pass1(*p1, t["dnm0"].clone(), t["dscale0"].clone(),
+                           heads)
+        want = gk.bwd_pass1_plain(*p1, t["dnm0"].clone(),
+                                  t["dscale0"].clone(), heads)
+        names = ("demb", "d_alpha", "dnm", "dscale", "dW_me", "db_me")
+        errs = [compare(f"gat_bwd_pass1 {name} {ctag}", g, w, TOL["bwd"][dt])
+                for name, g, w in zip(names, got, want)]
+        # masked slots (one graph has nothing else): demb is the carry or 0
+        # and d_alpha 0, exactly
+        passed = 0.0 if carry is None else carry[dead]
+        if bool((got[0][dead] != passed).any()) \
+                or bool((got[1].transpose(1, 2)[dead] != 0).any()):
+            FAILURES.append(f"gat_bwd_pass1 masked slots {ctag}")
+    if main:
+        # live edges' rows of emb, scores and indices; the carry and
+        # demb whole (a masked slot passes its carry through); the
+        # node accumulators read and written. Three products.
+        scratch = (t["dnm0"].clone(), t["dscale0"].clone())
+        measure(reports, "gat_bwd_pass1", max(errs),
+                lambda: gk.bwd_pass1(*p1, *scratch, heads),
+                lambda: gk.bwd_pass1_plain(*p1, *scratch, heads),
+                live * nbytes(t["emb"], t["scores"], src, dst)
+                + nbytes(t["gout"], t["nm"], t["w_me"], t["b_me"], t["gmax"],
+                         t["scale"], mask, carry, got[0], got[1], got[4],
+                         got[5])
+                + 2 * nbytes(got[2], got[3]),
+                3 * 2.0 * live * G * n_edges * D * HD, dt,
+                previous=lambda: gk.bwd_pass1(*p1, *scratch, heads, _route=0))
+        profile_kernels("gat_bwd_pass1",
+                        lambda: gk.bwd_pass1(*p1, *scratch, heads))
+
+    demb1, dalpha, _, dscale = want[:4]
+    scale, denom_raw = t["scale"], t["denom_raw"]
+    gate = (denom_raw > gk.DENOM_EPS).float()
+    d_denom = -(scale / torch.clamp_min(denom_raw, gk.DENOM_EPS)) \
+        * dscale * gate
+    ds_self = gk.heads_to_hd(
+        (t["d_alpha_self"] * scale + d_denom) * t["e_self"], HD)
+    dnq0 = ds_self * (t["nk"].float() + t["skb"].float())
+    dnk0 = ds_self * t["nq"].float()
+    p2 = (t["nq"], t["nk"], t["emb"], t["w_ke"], t["b_ke"], t["scores"],
+          t["gmax"], dalpha, scale, d_denom, src, dst, mask)
+    got = gk.bwd_pass2(*p2, demb1.clone(), dnq0.clone(), dnk0.clone(), heads)
+    want = gk.bwd_pass2_plain(*p2, demb1.clone(), dnq0.clone(), dnk0.clone(),
+                              heads)
+    names = ("demb", "dnq", "dnk", "dW_ke", "db_ke")
+    errs = [compare(f"gat_bwd_pass2 {name} {tag}", g, w, TOL["bwd"][dt])
+            for name, g, w in zip(names, got, want)]
+    # a masked slot's demb is pass 1's, exactly
+    if bool((got[0][dead] != demb1[dead]).any()):
+        FAILURES.append(f"gat_bwd_pass2 masked slots {tag}")
+    if main:
+        scratch = (demb1.clone(), dnq0.clone(), dnk0.clone())
+        measure(reports, "gat_bwd_pass2", max(errs),
+                lambda: gk.bwd_pass2(*p2, *scratch, heads),
+                lambda: gk.bwd_pass2_plain(*p2, *scratch, heads),
+                live * nbytes(t["emb"], t["scores"], dalpha, src, dst)
+                + nbytes(t["nq"], t["nk"], t["w_ke"], t["b_ke"], t["gmax"],
+                         scale, d_denom, mask, got[3], got[4])
+                + 2 * nbytes(got[0], got[1], got[2]),
+                3 * 2.0 * live * G * n_edges * D * HD, dt,
+                previous=lambda: gk.bwd_pass2(*p2, *scratch, heads, _route=0))
+        profile_kernels("gat_bwd_pass2",
+                        lambda: gk.bwd_pass2(*p2, *scratch, heads))
+
+
+def phase_gat_bwd(gen, odd_gen, dev, reports):
+    """float32 runs the CUDA-core kernels, bfloat16 the tensor-core ones."""
     D = HD = 200
-    dph = HD // HEADS
     for n_edges in (E, E - 3):
         src, dst, mask = graph_inputs(gen, dev, n_edges)
-        live = mask.float().mean().item()
         for dt in (torch.float32, torch.bfloat16):
-            r = lambda *s: torch.randn(s, generator=gen, device=dev)
-            nq = (r(G, N, HD) / dph ** 0.5).to(dt)
-            nk, nm, skb, smb = ((r(G, N, HD) * 0.5).to(dt) for _ in range(4))
-            emb = torch.relu(r(G, n_edges, D)).to(dt)
-            w_ke, w_me = r(D, HD) * 0.05, r(D, HD) * 0.05
-            b_ke, b_me = r(HD) * 0.1, r(HD) * 0.1
-            gout = r(G, N, HD).to(dt)
-            main = n_edges == E and dt == torch.bfloat16
-            # the forward's residuals, and the glue of the backward
-            _, scores, gmax, denom_raw, scale, e_self = \
-                gk.gat_projected_forward(nq, nk, nm, emb, w_ke, b_ke, w_me,
-                                         b_me, skb, smb, src, dst, mask,
-                                         HEADS)
-            dnm0 = gk.heads_to_hd(e_self * scale, HD) * gout.float()
-            d_alpha_self = gk.head_sum((nm + smb).float() * gout.float(),
-                                       HEADS)
-            dscale0 = d_alpha_self * e_self
-
-            for carry in (None, (r(G, n_edges, D) * 0.1).to(dt)):
-                tag = f"E={n_edges} {dt} " \
-                    f"{'no carry' if carry is None else 'carry'}"
-                p1 = (gout, nm, emb, w_me, b_me, scores, gmax, scale, src,
-                      dst, mask, carry)
-                got = gk.bwd_pass1(*p1, dnm0.clone(), dscale0.clone(), HEADS)
-                want = gk.bwd_pass1_plain(*p1, dnm0.clone(), dscale0.clone(),
-                                          HEADS)
-                names = ("demb", "d_alpha", "dnm", "dscale", "dW_me", "db_me")
-                errs = [compare(f"gat_bwd_pass1 {name} {tag}", g, w,
-                                TOL["bwd"][dt])
-                        for name, g, w in zip(names, got, want)]
-            if main:
-                # live edges' rows of emb, scores and indices; the carry and
-                # demb whole (a masked slot passes its carry through); the
-                # node accumulators read and written. Three products.
-                scratch = (dnm0.clone(), dscale0.clone())
-                measure(reports, "gat_bwd_pass1", max(errs),
-                        lambda: gk.bwd_pass1(*p1, *scratch, HEADS),
-                        lambda: gk.bwd_pass1_plain(*p1, *scratch, HEADS),
-                        live * nbytes(emb, scores, src, dst)
-                        + nbytes(gout, nm, w_me, b_me, gmax, scale, mask,
-                                 carry, got[0], got[1], got[4], got[5])
-                        + 2 * nbytes(got[2], got[3]),
-                        3 * 2.0 * live * G * n_edges * D * HD, dt)
-
-            demb1, dalpha, _, dscale = want[:4]
-            gate = (denom_raw > gk.DENOM_EPS).float()
-            d_denom = -(scale / torch.clamp_min(denom_raw, gk.DENOM_EPS)) \
-                * dscale * gate
-            ds_self = gk.heads_to_hd(
-                (d_alpha_self * scale + d_denom) * e_self, HD)
-            dnq0 = ds_self * (nk.float() + skb.float())
-            dnk0 = ds_self * nq.float()
-            tag = f"E={n_edges} {dt}"
-            p2 = (nq, nk, emb, w_ke, b_ke, scores, gmax, dalpha, scale,
-                  d_denom, src, dst, mask)
-            got = gk.bwd_pass2(*p2, demb1.clone(), dnq0.clone(), dnk0.clone(),
-                               HEADS)
-            want = gk.bwd_pass2_plain(*p2, demb1.clone(), dnq0.clone(),
-                                      dnk0.clone(), HEADS)
-            names = ("demb", "dnq", "dnk", "dW_ke", "db_ke")
-            errs = [compare(f"gat_bwd_pass2 {name} {tag}", g, w,
-                            TOL["bwd"][dt])
-                    for name, g, w in zip(names, got, want)]
-            if main:
-                scratch = (demb1.clone(), dnq0.clone(), dnk0.clone())
-                measure(reports, "gat_bwd_pass2", max(errs),
-                        lambda: gk.bwd_pass2(*p2, *scratch, HEADS),
-                        lambda: gk.bwd_pass2_plain(*p2, *scratch, HEADS),
-                        live * nbytes(emb, scores, dalpha, src, dst)
-                        + nbytes(nq, nk, w_ke, b_ke, gmax, scale, d_denom,
-                                 mask, got[3], got[4])
-                        + 2 * nbytes(got[0], got[1], got[2]),
-                        3 * 2.0 * live * G * n_edges * D * HD, dt)
+            t = gat_bwd_inputs(gen, dev, D, HD, HEADS, src, dst, mask, dt)
+            gat_bwd_case(reports, t, src, dst, mask, HEADS, dt,
+                         f"E={n_edges} {dt}",
+                         main=n_edges == E and dt == torch.bfloat16)
+    # widths off the main shape. 24 x 40, 4 heads: both depths need padding
+    # to 16 (to 32 and 48) and heads of 10 split the 8-column groups; 96 x
+    # 128 and 256 x 256, 8 heads: the other widths the tensor-core kernels
+    # are compiled for, the last with fewer warps a block
+    src, dst, mask = graph_inputs(odd_gen, dev, E - 3)
+    for D, HD, heads in ((24, 40, 4), (96, 128, 8), (256, 256, 8)):
+        for dt in (torch.float32, torch.bfloat16):
+            t = gat_bwd_inputs(odd_gen, dev, D, HD, heads, src, dst, mask, dt)
+            gat_bwd_case(reports, t, src, dst, mask, heads, dt,
+                         f"D={D} HD={HD} E={E - 3} {dt}", main=False)
 
 
 def unproj_inputs(gen, dev, n_edges, dt):
@@ -1272,15 +1367,25 @@ def phase_train(dev, reports, card, cfg, model, enc_cfg, gen):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 PHASES = ("kernels", "grads", "op", "serve", "detail", "train")
+# parts of the kernel phase that can be asked for alone
+KERNEL_PARTS = ("bwd",)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated phases to run (default: all)")
-    only = set(ap.parse_args().only.split(","))
-    if not only <= set(PHASES):
-        ap.error(f"unknown phase in {sorted(only)}; the phases are {PHASES}")
+    ap.add_argument("--csrc", default=None,
+                    help="build the kernels from this directory instead of "
+                         "qagnn_tpu_torch/csrc (to time a variant of the "
+                         "sources beside the committed ones)")
+    args = ap.parse_args()
+    only = set(args.only.split(","))
+    if not only <= set(PHASES) | set(KERNEL_PARTS):
+        ap.error(f"unknown phase in {sorted(only)}; the phases are {PHASES} "
+                 f"and, of the kernel phase alone, {KERNEL_PARTS}")
+    if args.csrc is not None:
+        _build.CSRC = pathlib.Path(args.csrc).resolve()
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; it runs only on the card",
               file=sys.stderr)
@@ -1333,8 +1438,10 @@ def main() -> int:
         phase_edge_moments(gen, dev, reports)
         log("\n[kernel 12: edge_hidden_bwd]")
         phase_edge_hidden_bwd(gen, dev, reports)
+    if only & {"kernels", "bwd"}:
         log("\n[kernels 8 and 9: GAT backward pass 1 and pass 2]")
-        phase_gat_bwd(gen, dev, reports)
+        phase_gat_bwd(gen, new_gen(16), dev, reports)
+    if "kernels" in only:
         log("\n[kernels 1 to 5: the unprojected GAT op, forward and backward]")
         phase_gat_unproj(new_gen(12), dev, reports)
     if "grads" in only:

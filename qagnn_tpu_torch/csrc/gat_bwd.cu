@@ -27,25 +27,54 @@
 // sum.
 //
 // On the TPU one resident block accumulates dW and db over a sequential
-// grid. Blocks run in parallel here, so each pass is four launches:
+// grid and the three products of a pass (emb W, cot W^T, emb^T cot, 2 G E D
+// HD operations each: 21 GFLOP at G=64, E=4096, D=HD=200) run on the MXU.
+// Blocks run in parallel here, and there are two routes behind each entry
+// point, chosen by the dtype alone.
+//
+// bfloat16, the main path: tensor cores (gat_bwd_tc.cuh, mma_tile.cuh). Every
+// operand is a bf16 value already (emb, W rounded to the compute dtype, the
+// rounded cotangent), so `mma.sync` with f32 accumulators computes the same
+// sums. Four launches: persistent blocks with W resident in shared memory
+// whose warps each take 16 edges at a time through product 1, the row-wise
+// epilogue (gathers, cotangent, scatters, head sums) and product 2 from the
+// cotangent tile still in shared memory; the cotangent goes to device memory
+// once, for a tensor-core dW launch split over edge ranges; two reductions of
+// the dW and db partials. No transposed copy of W, no atomics on dW or db.
+//
+// float32: the CUDA-core kernels of this file, in full f32 (TF32 would not
+// hold the 1e-4 the f32 path is kept to). Four launches as well:
 //   1. the edge kernel: the per-edge projection (register-tiled, as the
 //      forward), the per-edge cotangents, the node scatters by 16-byte
 //      atomicAdd, d_msg / dekb written once to a scratch array in the compute
 //      dtype, and each block's partial bias gradient;
 //   2. demb = scratch W^T (+ carry / + pass 1's demb), the same tiled product
 //      with the transposed weight;
-//   3. dW partials: the 2 G E x D x HD product emb^T scratch split over the
-//      edges, each block a range of edges and 40 output columns, every
-//      partial written once (no atomics on the 40,000 dW addresses);
+//   3. dW partials: emb^T scratch split over the edges, each block a range of
+//      edges and 40 output columns, every partial written once;
 //   4. one reduction of the dW and db partials.
-// All products run in the kernels' bodies on CUDA cores in f32.
+// They also run bfloat16 when asked to (route 0), which is how the two routes
+// are timed side by side.
 //
-// Bound on the H100 (G=64, N=200, E=4096, D=HD=200, bf16): about 330 MB of
-// traffic per pass (emb, carry or demb in, demb out, scores, d_alpha, nodes)
-// against three 21 GFLOP products: bytes (0.10 ms) at tensor-core rates,
-// operations (0.94 ms) on the f32 CUDA cores that this version uses. The
-// scratch array adds a write and two reads of (G, E, HD).
+// On the H100 (NVIDIA H100 80GB HBM3, 700 W limit; G=64, N=200, E=4096,
+// D=HD=200, 4 heads, bf16, 25% of slots masked; medians of 20 launches by
+// CUDA events): the bound is bytes, about 330 MB per pass (emb, carry or demb
+// in, demb out, scores, d_alpha, nodes), 0.10 ms, against 64 us of operations
+// at the bf16 tensor-core peak. The CUDA-core route takes 3.37 ms (pass 1)
+// and 3.38 ms (pass 2), about 3 ms of it f32 FMAs at 19-20 TFLOP/s. The
+// tensor-core route takes 0.57 ms and 0.56 ms: edge kernel 0.42 / 0.40 ms,
+// dW 0.14 ms, reductions 11 us. Switched off one at a time, the products
+// account for about 0.12 ms of the edge kernel, the epilogue's arithmetic
+// and shared-memory staging for 0.10-0.16 ms, the gathers, scatters and
+// streams for 0.19 ms: the last is the per-edge traffic through L2 that the
+// unprojected op's backward kernels (gat_unproj.cu) take 0.18 and 0.26 ms
+// for by themselves, and the three overlap only in part, since registers
+// (104 f32 accumulators a lane) hold a block to 8 warps that each run their
+// stages in turn. Two warps on each unit (16 warps a block, the column
+// tiles split between them) gained 7% on pass 1 and 1% on pass 2 and were
+// not kept.
 #include "gat_common.cuh"
+#include "gat_bwd_tc.cuh"
 #include "reduce_partials.cuh"
 
 namespace {
@@ -430,8 +459,12 @@ void finish_pass(const T* emb, const T* cot, const float* wt, const T* add,
 
 // dtype: 0 = float32 node/edge arrays, 1 = bfloat16. Takes D, HD multiples
 // of 8 up to 256, H <= 8 heads of at least 4 features, 16-byte aligned
-// arrays. w_t is w transposed, (HD, D). carry may be null. dmsg (G, E, HD),
-// dw_part (n_split, D, HD) and db_part (G * ceil(E / 64), HD) are scratch.
+// arrays. carry may be null. dmsg (G, E, HD) and dw_part (n_split, D, HD) are
+// scratch. route 0, the CUDA-core kernels (either dtype): w_t is w
+// transposed, (HD, D); db_part (G * ceil(E / 64), HD) is scratch; warps and
+// n_blocks are not read. route 1, the tensor-core kernels (bfloat16 only):
+// w_t is not read; the edge kernel runs n_blocks blocks of `warps` warps and
+// db_part is (n_blocks, HD).
 extern "C" int gat_bwd_pass1(
     const void* gout, const void* nm, const void* emb, const void* w_me,
     const void* w_me_t, const void* b_me, const void* scores,
@@ -439,13 +472,38 @@ extern "C" int gat_bwd_pass1(
     const void* mask, const void* carry, void* dmsg, void* demb, void* dalpha,
     void* dnm, void* dscale, void* dw_part, void* db_part, void* dw, void* db,
     int G, int N, int E, int D, int HD, int H, int n_split, int dtype,
-    void* stream) {
+    int route, int warps, int n_blocks, void* stream) {
   if (!shapes_ok(D, HD, H) || n_split <= 0 || !aligned16(gout) ||
       !aligned16(nm) || !aligned16(emb) || !aligned16(w_me) ||
       !aligned16(w_me_t) || !aligned16(carry) || !aligned16(dmsg) ||
-      !aligned16(demb) || !aligned16(dnm) || !aligned16(dw_part))
+      !aligned16(demb) || !aligned16(dnm) || !aligned16(dw_part) ||
+      (route != 0 && (route != 1 || dtype != 1)))
     return (int)cudaErrorInvalidValue;
   if ((long long)G * E == 0) return (int)cudaGetLastError();
+  if (route == 1) {
+    TcArgs a = {};
+    a.rows_src = (const bf16*)nm;
+    a.rows_dst = (const bf16*)gout;
+    a.emb = (const bf16*)emb;
+    a.w = (const float*)w_me;
+    a.bias = (const float*)b_me;
+    a.scores = (const float*)scores;
+    a.gmax = (const float*)gmax;
+    a.scale = (const float*)scale;
+    a.src = (const int32_t*)src;
+    a.dst = (const int32_t*)dst;
+    a.mask = (const uint8_t*)mask;
+    a.add = (const bf16*)carry;
+    a.cot = (bf16*)dmsg;
+    a.demb = (bf16*)demb;
+    a.dalpha_out = (float*)dalpha;
+    a.acc_src = (float*)dnm;
+    a.dscale = (float*)dscale;
+    a.db_part = (float*)db_part;
+    a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H;
+    return launch_pass_tc<1>(a, (float*)dw_part, (float*)dw, (float*)db,
+                             n_split, warps, n_blocks, (cudaStream_t)stream);
+  }
   const dim3 grid((E + TE - 1) / TE, G);
   const int threads = HD / 8 * TY;
   cudaStream_t s = (cudaStream_t)stream;
@@ -478,7 +536,8 @@ extern "C" int gat_bwd_pass1(
 }
 
 // demb holds pass 1's result and is updated in place. dekb, dw_part and
-// db_part are scratch as in pass 1.
+// db_part are scratch, and route, warps and n_blocks mean what they do in
+// pass 1.
 extern "C" int gat_bwd_pass2(
     const void* nq, const void* nk, const void* emb, const void* w_ke,
     const void* w_ke_t, const void* b_ke, const void* scores,
@@ -486,13 +545,40 @@ extern "C" int gat_bwd_pass2(
     const void* d_denom, const void* src, const void* dst, const void* mask,
     void* dekb, void* demb, void* dnq, void* dnk, void* dw_part,
     void* db_part, void* dw, void* db, int G, int N, int E, int D, int HD,
-    int H, int n_split, int dtype, void* stream) {
+    int H, int n_split, int dtype, int route, int warps, int n_blocks,
+    void* stream) {
   if (!shapes_ok(D, HD, H) || n_split <= 0 || !aligned16(nq) ||
       !aligned16(nk) || !aligned16(emb) || !aligned16(w_ke) ||
       !aligned16(w_ke_t) || !aligned16(dekb) || !aligned16(demb) ||
-      !aligned16(dnq) || !aligned16(dnk) || !aligned16(dw_part))
+      !aligned16(dnq) || !aligned16(dnk) || !aligned16(dw_part) ||
+      (route != 0 && (route != 1 || dtype != 1)))
     return (int)cudaErrorInvalidValue;
   if ((long long)G * E == 0) return (int)cudaGetLastError();
+  if (route == 1) {
+    TcArgs a = {};
+    a.rows_src = (const bf16*)nq;
+    a.rows_dst = (const bf16*)nk;
+    a.emb = (const bf16*)emb;
+    a.w = (const float*)w_ke;
+    a.bias = (const float*)b_ke;
+    a.scores = (const float*)scores;
+    a.gmax = (const float*)gmax;
+    a.scale = (const float*)scale;
+    a.dalpha_in = (const float*)dalpha;
+    a.d_denom = (const float*)d_denom;
+    a.src = (const int32_t*)src;
+    a.dst = (const int32_t*)dst;
+    a.mask = (const uint8_t*)mask;
+    a.add = (const bf16*)demb;
+    a.cot = (bf16*)dekb;
+    a.demb = (bf16*)demb;
+    a.acc_src = (float*)dnq;
+    a.acc_dst = (float*)dnk;
+    a.db_part = (float*)db_part;
+    a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H;
+    return launch_pass_tc<2>(a, (float*)dw_part, (float*)dw, (float*)db,
+                             n_split, warps, n_blocks, (cudaStream_t)stream);
+  }
   const dim3 grid((E + TE - 1) / TE, G);
   const int threads = HD / 8 * TY;
   const size_t smem = sizeof(float) * KC * HD;

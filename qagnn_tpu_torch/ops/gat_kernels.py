@@ -29,6 +29,11 @@ recomputes e = exp(min(s - gmax, 0)) from the saved scores and runs
     -> dekb = d_s * nq[src], demb += dekb W_ke^T, dW_ke, db_ke,
     dnq[src] += d_s * key, dnk[dst] += dekb.
 
+Both backward passes have two routes behind one entry point, chosen by the
+dtype alone: bfloat16 runs the three products of a pass on tensor cores
+(csrc/gat_bwd_tc.cuh: persistent blocks with W resident in shared memory),
+float32 stays on CUDA cores in full f32.
+
 No gradient flows through gmax. The chained form also returns the edge
 embedding: threaded through the k layers, each layer's backward receives the
 later layers' accumulated d_edge_emb as its carry and adds it inside pass 1,
@@ -75,10 +80,14 @@ _SIGNATURES = {
 
 
 _BWD_SIGNATURES = {
-    "gat_bwd_pass1": [_P] * 22 + [_I] * 8 + [_P],
-    "gat_bwd_pass2": [_P] * 22 + [_I] * 8 + [_P],
+    "gat_bwd_pass1": [_P] * 22 + [_I] * 11 + [_P],
+    "gat_bwd_pass2": [_P] * 22 + [_I] * 11 + [_P],
 }
 DW_SPLITS = 128      # edge ranges (rows of partials) of the dW products
+# the tensor-core route (csrc/gat_bwd_tc.cuh)
+TC_UNIT = 16                 # edges a warp works on at a time
+TC_MAX_WARPS = 8
+TC_SMEM_LIMIT = 232_448      # dynamic shared memory a block may ask for
 
 
 def _lib():
@@ -351,16 +360,65 @@ def bwd_pass1_plain(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src,
             dnm, dscale, dw, db)
 
 
-def _split_scratch(G, E, D, HD, device):
-    n_split = max(1, min(DW_SPLITS, -(-G * E // 32)))
-    return (n_split,
+def _bwd_route(cdt, route):
+    """0: CUDA cores, 1: tensor cores. The dtype alone decides; `route`
+    names the CUDA-core kernels for bfloat16 (to time them beside the
+    tensor-core ones)."""
+    if route is None:
+        return 1 if cdt == torch.bfloat16 else 0
+    if route not in (0, 1) or (route == 1 and cdt != torch.bfloat16):
+        raise ValueError(f"no route {route} of the GAT backward kernels for "
+                         f"{cdt}")
+    return route
+
+
+def _tc_smem_bytes(D, HD, warps):
+    """Dynamic shared memory of the tensor-core edge kernel (`TcShape` in
+    csrc/gat_bwd_tc.cuh), which is compiled for widths of 64, 128, 208 and
+    256 columns: W in bf16 at the first of these that holds D and HD, then
+    per warp a stage (16 f32 rows of that width) and its small tables."""
+    width = next(w for w in (64, 128, 208, 256) if max(D, HD) <= w)
+    w_tile = width * (width + 8) * 2
+    stage = TC_UNIT * (width + 4) * 4
+    return w_tile + warps * (stage + (3 * TC_UNIT * 8 + 2 * TC_UNIT) * 4)
+
+
+def _tc_plan(G, E, D, HD, n_sm):
+    """(warps per block, blocks) of the tensor-core edge kernel: as many
+    warps as shared memory holds beside W, one persistent block per SM."""
+    warps = max((w for w in range(1, TC_MAX_WARPS + 1)
+                 if _tc_smem_bytes(D, HD, w) <= TC_SMEM_LIMIT), default=0)
+    if warps == 0:
+        raise ValueError(f"GAT backward: D={D}, HD={HD} leave no shared "
+                         "memory for a warp beside W")
+    units = G * -(-E // TC_UNIT)
+    return warps, max(1, min(n_sm, -(-units // warps)))
+
+
+def _split_scratch(G, E, D, HD, device, route=0, n_sm=1):
+    """(n_split, warps, n_blocks, dw_part (n_split, D, HD), db_part): the
+    partial sums of dW over n_split edge ranges and of db, one row per block
+    of the edge kernel: (64-edge tile, graph) blocks on CUDA cores (warps
+    and n_blocks are 0: that grid follows from the shapes), n_blocks
+    persistent blocks on tensor cores, where dW is split once per SM."""
+    if route == 1:
+        warps, n_blocks = _tc_plan(G, E, D, HD, n_sm)
+        n_split, db_rows = max(1, min(n_sm, -(-G * E // 32))), n_blocks
+    else:
+        warps = n_blocks = 0
+        n_split = max(1, min(DW_SPLITS, -(-G * E // 32)))
+        db_rows = G * -(-E // 64)
+    return (n_split, warps, n_blocks,
             torch.empty((n_split, D, HD), device=device, dtype=torch.float32),
-            torch.empty((G * -(-E // 64), HD), device=device,
-                        dtype=torch.float32))
+            torch.empty((db_rows, HD), device=device, dtype=torch.float32))
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
-              mask, carry, dnm, dscale, heads):
+              mask, carry, dnm, dscale, heads, _route=None):
     """Backward pass 1. gout: (G, N, HD) output cotangent in the compute
     dtype; carry: (G, E, D) in the embedding's dtype or None; dnm (G, N, HD)
     and dscale (G, N, H) f32 arrive seeded with the self-loop cotangents and
@@ -393,22 +451,26 @@ def bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
     _require(dnm, "dnm", torch.float32, (G, N, HD))
     _require(dscale, "dscale", torch.float32, (G, N, heads))
     dev = nm.device
-    w_t = w_me.t().contiguous()
+    route = _bwd_route(cdt, _route)
+    # the tensor-core kernels read W_me both ways from one shared tile
+    w_t = None if route == 1 else w_me.t().contiguous()
     dmsg = torch.empty((G, E, HD), device=dev, dtype=cdt)
     demb = torch.empty((G, E, D), device=dev, dtype=cdt)
     dalpha = torch.empty((G, heads, E), device=dev, dtype=torch.float32)
     dw = torch.empty((D, HD), device=dev, dtype=torch.float32)
     db = torch.empty((HD,), device=dev, dtype=torch.float32)
-    n_split, dw_part, db_part = _split_scratch(G, E, D, HD, dev)
+    n_split, warps, n_blocks, dw_part, db_part = _split_scratch(
+        G, E, D, HD, dev, route, _sm_count(dev))
     err = _bwd_lib().gat_bwd_pass1(
         gout.data_ptr(), nm.data_ptr(), edge_emb.data_ptr(), w_me.data_ptr(),
-        w_t.data_ptr(), b_me.data_ptr(), scores.data_ptr(), gmax.data_ptr(),
+        None if w_t is None else w_t.data_ptr(), b_me.data_ptr(),
+        scores.data_ptr(), gmax.data_ptr(),
         scale.data_ptr(), src.data_ptr(), dst.data_ptr(), mask.data_ptr(),
         None if carry is None else carry.data_ptr(), dmsg.data_ptr(),
         demb.data_ptr(), dalpha.data_ptr(), dnm.data_ptr(),
         dscale.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
         dw.data_ptr(), db.data_ptr(), G, N, E, D, HD, heads, n_split,
-        _dtype_code(nm), _stream())
+        _dtype_code(nm), route, warps, n_blocks, _stream())
     _build.check(err, "gat_bwd_pass1")
     _build.count_launch("gat_bwd_pass1")
     return demb, dalpha, dnm, dscale, dw, db
@@ -439,7 +501,7 @@ def bwd_pass2_plain(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
 
 
 def bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
-              d_denom, src, dst, mask, demb, dnq, dnk, heads):
+              d_denom, src, dst, mask, demb, dnq, dnk, heads, _route=None):
     """Backward pass 2. demb (G, E, D) is pass 1's result and is added to IN
     PLACE on the kernel path, as are dnq and dnk (G, N, HD) f32, which
     arrive seeded with the self-loop cotangents.
@@ -470,19 +532,22 @@ def bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
     _require(dnq, "dnq", torch.float32, (G, N, HD))
     _require(dnk, "dnk", torch.float32, (G, N, HD))
     dev = nq.device
-    w_t = w_ke.t().contiguous()
+    route = _bwd_route(cdt, _route)
+    w_t = None if route == 1 else w_ke.t().contiguous()
     dekb = torch.empty((G, E, HD), device=dev, dtype=cdt)
     dw = torch.empty((D, HD), device=dev, dtype=torch.float32)
     db = torch.empty((HD,), device=dev, dtype=torch.float32)
-    n_split, dw_part, db_part = _split_scratch(G, E, D, HD, dev)
+    n_split, warps, n_blocks, dw_part, db_part = _split_scratch(
+        G, E, D, HD, dev, route, _sm_count(dev))
     err = _bwd_lib().gat_bwd_pass2(
         nq.data_ptr(), nk.data_ptr(), edge_emb.data_ptr(), w_ke.data_ptr(),
-        w_t.data_ptr(), b_ke.data_ptr(), scores.data_ptr(), gmax.data_ptr(),
+        None if w_t is None else w_t.data_ptr(), b_ke.data_ptr(),
+        scores.data_ptr(), gmax.data_ptr(),
         dalpha.data_ptr(), scale.data_ptr(), d_denom.data_ptr(),
         src.data_ptr(), dst.data_ptr(), mask.data_ptr(), dekb.data_ptr(),
         demb.data_ptr(), dnq.data_ptr(), dnk.data_ptr(), dw_part.data_ptr(),
         db_part.data_ptr(), dw.data_ptr(), db.data_ptr(), G, N, E, D, HD,
-        heads, n_split, _dtype_code(nq), _stream())
+        heads, n_split, _dtype_code(nq), route, warps, n_blocks, _stream())
     _build.check(err, "gat_bwd_pass2")
     _build.count_launch("gat_bwd_pass2")
     return demb, dnq, dnk, dw, db

@@ -4,8 +4,12 @@
 runs the plain versions of the CUDA backward passes on CPU tensors) against
 `jax.vjp` of `pallas_relational_gat_projected[_chained]` with the Pallas
 kernels in interpret mode: the output and all ten gradients, with a graph
-whose every edge is masked, a ragged E, and a non-zero carry on the chained
-form.
+whose every edge is masked, a ragged E, widths that the tensor-core kernels
+must pad (D = 24, HD = 40: neither a multiple of 16, and heads of 10 features
+split their 8-column groups), and a non-zero carry on the chained form. Then
+the width contract of the backward kernels and the sizes of their partial-sum
+scratch on both routes (CUDA cores, tensor cores), which are Python that a CPU
+run reaches.
 
 Tolerances, each as max|got - want| <= tol * max|want| per array: f32 2e-4
 (the tolerance tests/test_pallas_gat.py uses: f32 sums in another order);
@@ -27,7 +31,6 @@ from qagnn_tpu.ops.pallas_gat import (
 
 from qagnn_tpu_torch.ops import gat_kernels
 
-HEADS = 2
 NAMES = ("nq", "nk", "nm", "edge_emb", "w_ke", "b_ke", "w_me", "b_me", "skb",
          "smb")
 CDT_NAMES = ("nq", "nk", "nm", "edge_emb", "skb", "smb")
@@ -62,14 +65,17 @@ def _inputs(seed, G, N, E, HD, D, mask_kind):
     return a
 
 
+# (seed, G, N, E, HD, D, mask kind), heads
 CASES = {
-    "masked25": (0, 3, 8, 16, 8, 8, "masked25"),
-    "one_graph_all_masked": (1, 3, 8, 16, 8, 8, "one_graph_empty"),
-    "ragged_e": (3, 2, 8, 13, 8, 16, "masked25"),
+    "masked25": ((0, 3, 8, 16, 8, 8, "masked25"), 2),
+    "one_graph_all_masked": ((1, 3, 8, 16, 8, 8, "one_graph_empty"), 2),
+    "ragged_e": ((3, 2, 8, 13, 8, 16, "masked25"), 2),
+    "odd_widths": ((4, 2, 8, 16, 40, 24, "masked25"), 4),
 }
+HEADS = CASES["masked25"][1]
 
 
-def _jax_grads(a, dtype, chained, carry):
+def _jax_grads(a, dtype, chained, carry, heads=HEADS):
     cdt = jnp.dtype(dtype)
     j = {k: jnp.asarray(v) for k, v in a.items()}
     for k in CDT_NAMES:
@@ -79,7 +85,7 @@ def _jax_grads(a, dtype, chained, carry):
     op = pallas_relational_gat_projected_chained if chained \
         else pallas_relational_gat_projected
     out, vjp = jax.vjp(
-        lambda *ten: op(*ten, j["src"], j["dst"], mask, HEADS, True),
+        lambda *ten: op(*ten, j["src"], j["dst"], mask, heads, True),
         *[j[k] for k in NAMES])
     if chained:
         cot = (j["g"], jnp.swapaxes(j["carry"], 1, 2).astype(cdt) if carry
@@ -92,12 +98,12 @@ def _jax_grads(a, dtype, chained, carry):
     return out, grads
 
 
-def _torch_grads(a, dtype, chained, carry):
+def _torch_grads(a, dtype, chained, carry, heads=HEADS):
     cdt = getattr(torch, dtype)
     t = {k: torch.from_numpy(np.asarray(v)) for k, v in a.items()}
     ten = [(t[k].to(cdt) if k in CDT_NAMES else t[k]).requires_grad_()
            for k in NAMES]
-    tail = (t["src"], t["dst"], t["mask"], HEADS)
+    tail = (t["src"], t["dst"], t["mask"], heads)
     if chained:
         out, emb = gat_kernels.gat_projected_chained(*ten, *tail)
         loss = (out * t["g"]).sum()
@@ -124,10 +130,11 @@ def _close(got, want, tol, what):
 @pytest.mark.parametrize("form", ["plain", "chained", "chained_carry"])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_gat_projected_gradients_match_pallas(case, form, dtype):
-    a = _inputs(*CASES[case])
+    shape, heads = CASES[case]
+    a = _inputs(*shape)
     chained, carry = form != "plain", form == "chained_carry"
-    j_out, j_grads = _jax_grads(a, dtype, chained, carry)
-    out, grads = _torch_grads(a, dtype, chained, carry)
+    j_out, j_grads = _jax_grads(a, dtype, chained, carry, heads)
+    out, grads = _torch_grads(a, dtype, chained, carry, heads)
     _close(out, j_out, TOL[dtype], "out")
     for name in NAMES:
         assert grads[name] is not None, name
@@ -139,7 +146,7 @@ def test_gat_projected_gradients_match_pallas(case, form, dtype):
 def test_carry_is_added_once_and_masked_slots_pass_it_through():
     """d_edge_emb of a masked slot is the carry alone, and the carry enters
     the sum exactly once."""
-    a = _inputs(*CASES["one_graph_all_masked"])
+    a = _inputs(*CASES["one_graph_all_masked"][0])
     _, with_carry = _torch_grads(a, "float32", True, True)
     _, without = _torch_grads(a, "float32", True, False)
     carry = torch.from_numpy(a["carry"])
@@ -164,7 +171,7 @@ def test_unused_passthrough_gives_no_carry():
         seen.append(args[-2])
         return real(*args)
 
-    a = _inputs(*CASES["masked25"])
+    a = _inputs(*CASES["masked25"][0])
     gat_kernels.gat_projected_backward = spy
     try:
         _torch_grads(a, "float32", True, False)
@@ -181,7 +188,7 @@ def test_no_gradient_flows_through_the_max():
         relational_gat_attention_nodes,
     )
 
-    a = _inputs(*CASES["masked25"])
+    a = _inputs(*CASES["masked25"][0])
     _, got = _torch_grads(a, "float32", False, False)
     t = {k: torch.from_numpy(np.asarray(v)) for k, v in a.items()}
     ten = {k: t[k].clone().requires_grad_() for k in NAMES}
@@ -195,3 +202,77 @@ def test_no_gradient_flows_through_the_max():
     for name in NAMES:
         _close(got[name], jnp.asarray(ten[name].grad.numpy()), 2e-4,
                f"d{name}")
+
+
+@pytest.mark.parametrize("D,HD,heads", [(200, 200, 4), (24, 40, 4),
+                                         (256, 256, 8), (8, 8, 2)])
+def test_backward_kernels_accept_widths(D, HD, heads):
+    gat_kernels._check_bwd_widths(D, HD, heads)
+
+
+@pytest.mark.parametrize("D,HD,heads,why", [
+    (200, 264, 4, "HD over 256"),
+    (12, 40, 4, "D not a multiple of 8"),
+    (264, 200, 4, "D over 256"),
+    (72, 72, 9, "nine heads"),
+    (16, 16, 8, "heads of two features"),
+    (24, 40, 3, "heads that do not divide HD"),
+])
+def test_backward_kernels_refuse_widths(D, HD, heads, why):
+    with pytest.raises(ValueError):
+        gat_kernels._check_bwd_widths(D, HD, heads)
+
+
+@pytest.mark.parametrize("dtype,route,want", [
+    (torch.float32, None, 0), (torch.bfloat16, None, 1),
+    (torch.bfloat16, 0, 0), (torch.bfloat16, 1, 1), (torch.float32, 0, 0)])
+def test_backward_route_follows_the_dtype(dtype, route, want):
+    assert gat_kernels._bwd_route(dtype, route) == want
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.float32, 1),
+                                         (torch.bfloat16, 2)])
+def test_backward_route_refuses(dtype, route):
+    """No tensor-core kernels for float32 (TF32 would not be exact), and no
+    third route."""
+    with pytest.raises(ValueError):
+        gat_kernels._bwd_route(dtype, route)
+
+
+# G, E, D, HD, SMs -> warps per block, blocks, dW splits on tensor cores
+TC_PLANS = {
+    "main": ((64, 4096, 200, 200, 132), (8, 132, 132)),
+    "widest": ((64, 4096, 256, 256, 132), (5, 132, 132)),
+    "ragged_e": ((64, 4093, 200, 200, 132), (8, 132, 132)),
+    "odd_widths": ((2, 16, 24, 40, 132), (8, 1, 1)),
+    "few_edges": ((3, 100, 200, 200, 132), (8, 3, 10)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TC_PLANS))
+def test_split_scratch_sizes_on_tensor_cores(case):
+    """One db partial per persistent block, one dW partial per split, and a
+    block's shared memory within what the card grants."""
+    (G, E, D, HD, n_sm), (warps, n_blocks, n_split) = TC_PLANS[case]
+    got = gat_kernels._split_scratch(G, E, D, HD, "cpu", route=1, n_sm=n_sm)
+    assert got[:3] == (n_split, warps, n_blocks)
+    assert got[3].shape == (n_split, D, HD) and got[3].dtype == torch.float32
+    assert got[4].shape == (n_blocks, HD) and got[4].dtype == torch.float32
+    assert gat_kernels._tc_smem_bytes(D, HD, warps) \
+        <= gat_kernels.TC_SMEM_LIMIT
+    if warps < gat_kernels.TC_MAX_WARPS:
+        assert gat_kernels._tc_smem_bytes(D, HD, warps + 1) \
+            > gat_kernels.TC_SMEM_LIMIT
+    # every 16-edge unit has a warp to take it
+    assert n_blocks * warps >= min(n_sm * warps, G * -(-E // 16))
+
+
+@pytest.mark.parametrize("G,E,D,HD,n_split,db_rows", [
+    (64, 4096, 200, 200, 128, 64 * 64), (64, 4093, 200, 200, 128, 64 * 64),
+    (2, 16, 24, 40, 1, 2), (3, 100, 8, 8, 10, 6)])
+def test_split_scratch_sizes_on_cuda_cores(G, E, D, HD, n_split, db_rows):
+    """One db partial per (64-edge tile, graph) block; no block plan."""
+    got = gat_kernels._split_scratch(G, E, D, HD, "cpu")
+    assert got[:3] == (n_split, 0, 0)
+    assert got[3].shape == (n_split, D, HD)
+    assert got[4].shape == (db_rows, HD)
