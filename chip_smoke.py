@@ -10,11 +10,12 @@ Run from the repository root on a machine with one CUDA card. It
      slices' shapes (G=64 graphs, N=200 nodes, E=4096 edge slots, D=HD=200,
      4 heads) with about 25% of edge slots masked, one graph with every edge
      masked, and a ragged-E case, in float32 and bfloat16 (backward pass 1
-     with and without a carry), and times both with CUDA events; the two
-     GAT backward passes also at other widths (D=24, HD=40, which need
-     padding; 96 x 128; 256 x 256), with their masked slots held exactly, their tensor-core kernels (bf16)
-     timed in turns with the CUDA-core ones on the same inputs, and
-     torch.profiler's device time by kernel name;
+     with and without a carry), and times both with CUDA events; the GAT
+     forward passes A and C and the two backward passes also at other widths
+     (D=24, HD=40, which need padding; 96 x 128; 256 x 256), on both of
+     their routes in bf16, with their masked slots held exactly, their
+     tensor-core kernels (bf16) timed in turns with the CUDA-core ones on the
+     same inputs, and torch.profiler's device time by kernel name;
   4. holds the gradients of the autograd Functions on the kernels (the
      projected op, the train-mode edge encoder, the unprojected op) against
      torch.autograd through the plain scatter path, in float32;
@@ -25,8 +26,9 @@ Run from the repository root on a machine with one CUDA card. It
      them beside the projected op at the same shapes;
   6. serves the OBQA roberta-large LMQAGNN (random weights from a seed,
      perturbed BatchNorm running statistics) through `make_eval_step` on the
-     kernel path, checks that every kernel ran the expected number of times,
-     and compares the logits with the same model on the scatter path;
+     kernel path, checks that every kernel ran the expected number of times
+     (the GAT forward passes on their tensor-core route), and compares the
+     logits with the same model on the scatter path;
   7. runs the same model through `make_detail_step` (logits, pooler
      attention, per-layer attention weights; by design no GAT kernel) and
      checks shapes, the logits and that every softmax sums to 1;
@@ -36,14 +38,15 @@ Run from the repository root on a machine with one CUDA card. It
      preset's dropout, the same masks at every step (loss finite and
      falling), steps with the encoder
      frozen, and a step in two microbatches, counting the launches of every
-     kernel per step;
+     kernel per step and the route of the four GAT passes that have two;
   9. prints one JSON line of per-kernel numbers, the card's name and power
      limit, and as its last line {"ok": true, "device": {...}}.
 
 `--only kernels,grads,op,serve,detail,train` runs a subset of the phases
-(for work on one of them; `bwd` is the kernel phase's part for the two GAT
-backward passes alone); with no arguments everything runs. `--csrc DIR`
-builds the kernels from a copy of the sources in DIR.
+(for work on one of them; `fwd` and `bwd` are the kernel phase's parts for
+the GAT forward passes A and C and for the two GAT backward passes alone);
+with no arguments everything runs. `--csrc DIR` builds the kernels from a
+copy of the sources in DIR.
 
 It exits non-zero, printing no result, when there is no CUDA device or any
 check fails. It imports nothing of JAX or of the JAX package.
@@ -103,6 +106,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # round the other way at one ulp (2^-7 relative).
 TOL = {"edge_hidden": {torch.float32: 1e-5, torch.bfloat16: 2 ** -7},
        "gat": 1e-4,
+       # pass C and the forward's output: in bf16 alpha and each weighted
+       # message are rounded to bf16 before the sum and may round the other
+       # way at one ulp (2^-8 relative)
+       "gat_c": {torch.float32: 1e-4, torch.bfloat16: 2 ** -7},
        # backward: sums over all G*E slots in f32 in another order; in bf16
        # the stored d_edge_emb and the rounded cotangents may round the other
        # way at one ulp (2^-8 relative)
@@ -292,87 +299,113 @@ def phase_edge_hidden(gen, dev, reports):
                         6.0 * got.numel(), torch.float32)
 
 
+def gat_fwd_case(reports, gen, dev, D, HD, heads, src, dst, mask, dt, tag,
+                 main):
+    """Passes A and C on every route their widths take in this dtype
+    against their plain versions, masked slots' scores and the empty
+    graph's max exactly, and the whole forward; at the main shapes also
+    their times, the tensor-core route's beside the CUDA-core kernels' on
+    the same inputs."""
+    n_edges = src.shape[1]
+    live = mask.float().mean().item()
+    has_edge = mask.any(1)
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)
+    nq = (r(G, N, HD) / (HD // heads) ** 0.5).to(dt)
+    nk, nm, skb, smb = ((r(G, N, HD) * 0.5).to(dt) for _ in range(4))
+    emb = torch.relu(r(G, n_edges, D)).to(dt)
+    w_ke, w_me = r(D, HD) * 0.05, r(D, HD) * 0.05
+    b_ke, b_me = r(HD) * 0.1, r(HD) * 0.1
+    routes = (0, 1) if gk._fwd_route(dt, D, HD, heads, None) else (0,)
+
+    a_args = (nq, nk, emb, w_ke, b_ke, src, dst, mask, heads)
+    scores_p, m_edge_p = gk.pass_a_scores_plain(*a_args)
+    for route in routes:
+        rtag = f"{tag} route {route}"
+        scores, m_edge = gk.pass_a_scores(*a_args, _route=route)
+        err = compare(f"gat_pass_a_scores scores {rtag}", scores, scores_p,
+                      TOL["gat"])
+        compare(f"gat_pass_a_scores max {rtag}", m_edge[has_edge],
+                m_edge_p[has_edge], TOL["gat"])
+        if not bool((m_edge[~has_edge] == gk.NEG).all()):
+            FAILURES.append(f"gat_pass_a_scores max of empty graph {rtag}")
+        if bool((scores.transpose(1, 2)[~mask] != 0).any()):
+            FAILURES.append(f"gat_pass_a_scores masked slots {rtag}")
+    if main:
+        # live slots' emb rows and indices (a masked slot scores 0 and
+        # needs nothing); the scores whole; projection and logits
+        measure(reports, "gat_pass_a_scores", err,
+                lambda: gk.pass_a_scores(*a_args),
+                lambda: gk.pass_a_scores_plain(*a_args),
+                live * nbytes(emb, src, dst)
+                + nbytes(nq, nk, w_ke, b_ke, mask, scores, m_edge),
+                2.0 * live * G * n_edges * (D * HD + HD), dt,
+                previous=lambda: gk.pass_a_scores(*a_args, _route=0))
+        profile_kernels("gat_pass_a_scores",
+                        lambda: gk.pass_a_scores(*a_args))
+
+    # the op's glue, as gat_projected_forward runs it
+    self_scores = gk.head_sum(nq.float() * (nk + skb).float(), heads)
+    gmax = torch.maximum(m_edge_p, self_scores.amax(1))
+    e_self = torch.exp(self_scores - gmax[:, None, :])
+    d_args = (scores_p, gmax, src, mask, N)
+    denom, deg = gk.pass_a_denoms(*d_args)
+    denom_p, deg_p = gk.pass_a_denoms_plain(*d_args)
+    err = compare(f"gat_pass_a_denoms denom {tag}", denom, denom_p,
+                  TOL["gat"])
+    compare(f"gat_pass_a_denoms deg {tag}", deg, deg_p, 0.0)
+    if main:
+        # data-dependent: only the live edges' slots are read
+        measure(reports, "gat_pass_a_denoms", err,
+                lambda: gk.pass_a_denoms(*d_args),
+                lambda: gk.pass_a_denoms_plain(*d_args),
+                live * nbytes(scores_p, src)
+                + nbytes(gmax, mask, denom, deg),
+                2.0 * live * G * n_edges * heads, torch.float32)
+
+    scale = (deg_p[..., None] + 1.0) \
+        / torch.clamp_min(denom_p + e_self, gk.DENOM_EPS)
+    seed = (nm.float() + smb.float()) * gk.heads_to_hd(e_self * scale, HD)
+    c_args = (nm, emb, w_me, b_me, scores_p, gmax, scale, src, dst, mask)
+    out_p = gk.pass_c_plain(*c_args, seed.clone(), heads)
+    for route in routes:
+        out = gk.pass_c(*c_args, seed.clone(), heads, _route=route)
+        err = compare(f"gat_pass_c out {tag} route {route}", out, out_p,
+                      TOL["gat_c"][dt])
+    if main:
+        # live edges only; the accumulator is read and written
+        scratch = seed.clone()
+        measure(reports, "gat_pass_c", err,
+                lambda: gk.pass_c(*c_args, scratch, heads),
+                lambda: gk.pass_c_plain(*c_args, scratch, heads),
+                live * nbytes(emb, scores_p, src, dst)
+                + nbytes(nm, w_me, b_me, gmax, scale, mask)
+                + 2 * nbytes(out),
+                2.0 * live * G * n_edges * (D * HD + 2 * HD), dt,
+                previous=lambda: gk.pass_c(*c_args, scratch, heads,
+                                           _route=0))
+        profile_kernels("gat_pass_c",
+                        lambda: gk.pass_c(*c_args, scratch, heads))
+
+    # the whole op on the kernel path against the plain chain above
+    op = gk.gat_projected_forward(nq, nk, nm, emb, w_ke, b_ke, w_me, b_me,
+                                  skb, smb, src, dst, mask, heads)
+    compare(f"gat_projected_forward out {tag}", op[0], out_p,
+            TOL["gat_c"][dt])
+    if not bool(torch.isfinite(op[0][~has_edge]).all()):
+        FAILURES.append(f"non-finite output of empty graph {tag}")
+
+
 def phase_gat(gen, dev, reports):
-    D = HD = 200
-    dph = HD // HEADS
-    for n_edges in (E, E - 3):
-        src, dst, mask = graph_inputs(gen, dev, n_edges)
-        live = mask.float().mean().item()
-        for dt in (torch.float32, torch.bfloat16):
-            r = lambda *s: torch.randn(s, generator=gen, device=dev)
-            nq = (r(G, N, HD) / dph ** 0.5).to(dt)
-            nk, nm, skb, smb = ((r(G, N, HD) * 0.5).to(dt) for _ in range(4))
-            emb = torch.relu(r(G, n_edges, D)).to(dt)
-            w_ke, w_me = r(D, HD) * 0.05, r(D, HD) * 0.05
-            b_ke, b_me = r(HD) * 0.1, r(HD) * 0.1
-            tag = f"E={n_edges} {dt}"
-            main = n_edges == E and dt == torch.bfloat16
-
-            a_args = (nq, nk, emb, w_ke, b_ke, src, dst, mask, HEADS)
-            scores, m_edge = gk.pass_a_scores(*a_args)
-            scores_p, m_edge_p = gk.pass_a_scores_plain(*a_args)
-            err = compare(f"gat_pass_a_scores scores {tag}", scores,
-                          scores_p, TOL["gat"])
-            has_edge = mask.any(1)
-            compare(f"gat_pass_a_scores max {tag}", m_edge[has_edge],
-                    m_edge_p[has_edge], TOL["gat"])
-            if not bool((m_edge[~has_edge] == gk.NEG).all()):
-                FAILURES.append(f"gat_pass_a_scores max of empty graph {tag}")
-            if main:
-                measure(reports, "gat_pass_a_scores", err,
-                        lambda: gk.pass_a_scores(*a_args),
-                        lambda: gk.pass_a_scores_plain(*a_args),
-                        nbytes(nq, nk, emb, w_ke, b_ke, src, dst, mask,
-                               scores, m_edge),
-                        2.0 * G * n_edges * (D * HD + HD), dt)
-
-            # the op's glue, as gat_projected_forward runs it
-            self_scores = gk.head_sum(nq.float() * (nk + skb).float(), HEADS)
-            gmax = torch.maximum(m_edge_p, self_scores.amax(1))
-            e_self = torch.exp(self_scores - gmax[:, None, :])
-            d_args = (scores_p, gmax, src, mask, N)
-            denom, deg = gk.pass_a_denoms(*d_args)
-            denom_p, deg_p = gk.pass_a_denoms_plain(*d_args)
-            err = compare(f"gat_pass_a_denoms denom {tag}", denom, denom_p,
-                          TOL["gat"])
-            compare(f"gat_pass_a_denoms deg {tag}", deg, deg_p, 0.0)
-            if main:
-                # data-dependent: only the live edges' slots are read
-                measure(reports, "gat_pass_a_denoms", err,
-                        lambda: gk.pass_a_denoms(*d_args),
-                        lambda: gk.pass_a_denoms_plain(*d_args),
-                        live * nbytes(scores_p, src)
-                        + nbytes(gmax, mask, denom, deg),
-                        2.0 * live * G * n_edges * HEADS, torch.float32)
-
-            scale = (deg_p[..., None] + 1.0) \
-                / torch.clamp_min(denom_p + e_self, gk.DENOM_EPS)
-            seed = (nm.float() + smb.float()) \
-                * gk.heads_to_hd(e_self * scale, HD)
-            c_args = (nm, emb, w_me, b_me, scores_p, gmax, scale, src, dst,
-                      mask)
-            out = gk.pass_c(*c_args, seed.clone(), HEADS)
-            out_p = gk.pass_c_plain(*c_args, seed.clone(), HEADS)
-            err = compare(f"gat_pass_c out {tag}", out, out_p, TOL["gat"])
-            if main:
-                # live edges only; the accumulator is read and written
-                scratch = seed.clone()
-                measure(reports, "gat_pass_c", err,
-                        lambda: gk.pass_c(*c_args, scratch, HEADS),
-                        lambda: gk.pass_c_plain(*c_args, scratch, HEADS),
-                        live * nbytes(emb, scores_p, src, dst)
-                        + nbytes(nm, w_me, b_me, gmax, scale, mask)
-                        + 2 * nbytes(out),
-                        2.0 * live * G * n_edges * (D * HD + 2 * HD), dt)
-
-            # the whole op on the kernel path against the plain chain above
-            op = gk.gat_projected_forward(nq, nk, nm, emb, w_ke, b_ke, w_me,
-                                          b_me, skb, smb, src, dst, mask,
-                                          HEADS)
-            compare(f"gat_projected_forward out {tag}", op[0], out_p,
-                    TOL["gat"])
-            if not bool(torch.isfinite(op[0][~has_edge]).all()):
-                FAILURES.append(f"non-finite output of empty graph {tag}")
+    """float32 runs the CUDA-core kernels; bfloat16 both routes, the
+    tensor-core one on the main path. Widths as the backward phase's."""
+    for D, HD, heads in ((200, 200, HEADS), (24, 40, 4), (96, 128, 8),
+                         (256, 256, 8)):
+        for n_edges in (E, E - 3):
+            src, dst, mask = graph_inputs(gen, dev, n_edges)
+            for dt in (torch.float32, torch.bfloat16):
+                main = D == 200 and n_edges == E and dt == torch.bfloat16
+                gat_fwd_case(reports, gen, dev, D, HD, heads, src, dst, mask,
+                             dt, f"D={D} HD={HD} E={n_edges} {dt}", main)
 
 
 def encoder_ints(gen, dev, n_edges, n_rel):
@@ -1034,6 +1067,7 @@ def phase_slice(dev, reports, card, cfg, model, enc_cfg, gen):
     extra = set(counts) - set(per_forward)
     if extra:
         FAILURES.append(f"unexpected kernels launched: {sorted(extra)}")
+    check_routes(1, f"{len(order)} served forwards, bf16 GNN")
 
     for b, out in logits.items():
         if out.shape != (B, C) or not bool(torch.isfinite(out).all()):
@@ -1153,6 +1187,21 @@ def set_dropout(model, cfg, enc_cfg, on: bool) -> None:
     dec.pooler.dropout = dec.pooler.attention.attn_dropout = p(0.1)
 
 
+ROUTED = ("gat_pass_a_scores", "gat_pass_c", "gat_bwd_pass1", "gat_bwd_pass2")
+
+
+def check_routes(route: int, what: str) -> None:
+    """Every launch counted since the last reset of the entry points that
+    have two routes took `route` (1, tensor cores, for bf16; 0 for f32)."""
+    launched = [n for n in ROUTED if _build.LAUNCHES[n]]
+    ok = all(_build.ROUTES[n, route] == _build.LAUNCHES[n] for n in launched)
+    log(f"  routes, {what}: " + ", ".join(
+        f"{n} {_build.ROUTES[n, route]} of {_build.LAUNCHES[n]}"
+        for n in launched) + f" on route {route}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"routes, {what}: {dict(_build.ROUTES)}")
+
+
 def check_launches(counts, n_steps, microbatches, k, what) -> None:
     per_pass = {"edge_moments": 1, "edge_hidden": 1, "gat_pass_a_scores": k,
                 "gat_pass_a_denoms": k, "gat_pass_c": k, "gat_bwd_pass1": k,
@@ -1264,6 +1313,7 @@ def phase_train(dev, reports, card, cfg, model, enc_cfg, gen):
         torch.cuda.synchronize()
         if backend == "cuda":
             check_launches(dict(_build.LAUNCHES), 1, 1, cfg.k, "f32 step")
+            check_routes(0, "f32 step")
         elif _build.LAUNCHES:
             FAILURES.append("the scatter path launched kernels")
         seen[backend] = (loss, opt.last_grad_norm,
@@ -1308,6 +1358,7 @@ def phase_train(dev, reports, card, cfg, model, enc_cfg, gen):
     spans.close()
     counts = dict(_build.LAUNCHES)
     check_launches(counts, n_steps, 1, cfg.k, "bf16 steps")
+    check_routes(1, "bf16 steps")
     for name in ("edge_moments", "edge_hidden_bwd", "gat_bwd_pass1",
                  "gat_bwd_pass2"):
         reports[name]["launches"] = counts.get(name, 0)
@@ -1344,6 +1395,7 @@ def phase_train(dev, reports, card, cfg, model, enc_cfg, gen):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
     check_launches(dict(_build.LAUNCHES), 2, 1, cfg.k, "frozen encoder")
+    check_routes(1, "frozen encoder")
     same = all(torch.equal(params[n], v) for n, v in enc_params.items()) \
         and all(torch.equal(opt.state[k], v) for k, v in enc_state.items())
     moved = not torch.equal(params["decoder.svec2nvec.weight"], dec_before)
@@ -1360,6 +1412,7 @@ def phase_train(dev, reports, card, cfg, model, enc_cfg, gen):
     loss = step2(batch, generator=generator)["loss"]
     torch.cuda.synchronize()
     check_launches(dict(_build.LAUNCHES), 1, 2, cfg.k, "two microbatches")
+    check_routes(1, "two microbatches")
     log(f"  two microbatches: loss {loss.item():.5f}")
     if not torch.isfinite(loss):
         FAILURES.append("two-microbatch step")
@@ -1368,7 +1421,7 @@ def phase_train(dev, reports, card, cfg, model, enc_cfg, gen):
 
 PHASES = ("kernels", "grads", "op", "serve", "detail", "train")
 # parts of the kernel phase that can be asked for alone
-KERNEL_PARTS = ("bwd",)
+KERNEL_PARTS = ("fwd", "bwd")
 
 
 def main() -> int:
@@ -1432,8 +1485,10 @@ def main() -> int:
     if "kernels" in only:
         log("\n[kernel 11: edge_hidden]")
         phase_edge_hidden(gen, dev, reports)
+    if only & {"kernels", "fwd"}:
         log("\n[kernels 6 and 7: GAT pass A (two launches) and pass C]")
-        phase_gat(gen, dev, reports)
+        phase_gat(new_gen(17), dev, reports)
+    if "kernels" in only:
         log("\n[kernel 10: edge_moments]")
         phase_edge_moments(gen, dev, reports)
         log("\n[kernel 12: edge_hidden_bwd]")

@@ -39,45 +39,22 @@
 // slots of both operands through a four-deep cp.async ring, and writes its
 // f32 partial once. Launches 3 and 4 add up the dW and db partials
 // (reduce_partials.cuh): no atomics on dW or db.
+//
+// The parts that the forward's tensor-core route shares (the W loader, the
+// unit's nodes, the accumulator stage, the head sums) are in
+// gat_tc_common.cuh.
 #pragma once
-#include "gat_common.cuh"
-#include "mma_tile.cuh"
+#include "gat_tc_common.cuh"
 #include "reduce_partials.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int TC_ROWS = 16;              // edges of a warp's unit
-constexpr int TC_MAX_WARPS = 8;
-constexpr int TC_GROUP = 4;              // rows the epilogue takes at a time
+// The per-warp tables of the edge kernel beside its stage (floats). The
+// stage holds in turn the emb rows (bf16, pitch TcShape::ld16), the f32
+// projection rows (pitch TcShape::ld32 floats), the bf16 cotangent rows in
+// place (pitch 2 * ld32 elements: 64 PAIRS + 16 bytes, an odd multiple of 16)
+// and the f32 rows of cot W^T.
 constexpr int TC_SMALL_FLOATS = 3 * TC_ROWS * MAX_H + 2 * TC_ROWS;
-constexpr unsigned FULL = 0xffffffffu;
-
-// The edge kernel is compiled for a few widths: PAIRS pairs of 8-column
-// tiles cover the wider of D and HD, and both products run over all of them
-// (for D = HD = 200: 13 pairs, 208 columns, one tile of zeros).
-inline int tc_pairs(int D, int HD) {
-  const int width = D > HD ? D : HD;
-  return width <= 64 ? 4 : width <= 128 ? 8 : width <= 208 ? 13 : 16;
-}
-
-// Shared memory of the edge kernel: W, 16 PAIRS squared, then per warp a
-// stage and the small per-(edge, head) tables. The stage holds in turn the
-// emb rows (bf16, pitch TcShape::ld16), the f32 projection rows (pitch
-// TcShape::ld32 floats), the bf16 cotangent rows in place (pitch 2 * ld32
-// elements: 64 PAIRS + 16 bytes, an odd multiple of 16) and the f32 rows of
-// cot W^T.
-template <int PAIRS>
-struct TcShape {
-  static constexpr int NT = 2 * PAIRS;          // 8-column tiles
-  static constexpr int WIDTH = 16 * PAIRS;
-  static constexpr int ld16 = WIDTH + 8;        // pitch of W and of emb rows
-  static constexpr int ld32 = WIDTH + 4;        // pitch of the f32 rows
-  static constexpr int w_bytes = WIDTH * ld16 * 2;
-  static constexpr int stage_bytes = TC_ROWS * ld32 * 4;
-  static constexpr int warp_bytes = stage_bytes + TC_SMALL_FLOATS * 4;
-};
 
 struct TcArgs {
   // pass 1: rows_src = nm, rows_dst = gout; pass 2: rows_src = nq,
@@ -112,97 +89,11 @@ __device__ __forceinline__ float tc_edge_exp(const TcArgs& a, long long g,
                     0.0f));
 }
 
-// The unit's source and destination nodes, one edge per lane < TC_ROWS;
-// -1 where the slot is masked or past E (or the unit past the last one).
-__device__ __forceinline__ void tc_unit_nodes(const TcArgs& a, long long u,
-                                              long long n_units,
-                                              int units_per_graph, int lane,
-                                              int& s_node, int& d_node) {
-  s_node = d_node = -1;
-  if (lane < TC_ROWS && u < n_units) {
-    const long long g = u / units_per_graph;
-    const int e = (int)(u % units_per_graph) * TC_ROWS + lane;
-    if (e < a.E) {
-      // three independent loads, then the choice
-      const bool live = a.mask[g * a.E + e];
-      const int s = a.src[g * a.E + e], d = a.dst[g * a.E + e];
-      s_node = live ? s : -1;
-      d_node = live ? d : -1;
-    }
-  }
-}
-
-// the warp's accumulators -> f32 rows at `rows` (pitch ld floats)
-template <int NT>
-__device__ __forceinline__ void tc_stage_acc(const float (&acc)[NT][4],
-                                             float* rows, int ld, int lane) {
-  float* p = rows + (lane >> 2) * ld + 2 * (lane & 3);
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    *reinterpret_cast<float2*>(p + 8 * j) = make_float2(acc[j][0], acc[j][1]);
-    *reinterpret_cast<float2*>(p + 8 * j + 8 * ld) =
-        make_float2(acc[j][2], acc[j][3]);
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero_acc(float (&acc)[NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
-}
-
-// Sums over the warp of V values at once (V a power of two up to 32): each
-// step hands one half of a lane's values to the lane `off` away and adds
-// what comes back to the other half, so V - 1 shuffles (+ log2(32 / V)) do
-// what 5 V would. Lane l ends with the total of value l / (32 / V) in v[0].
-template <int V>
-__device__ __forceinline__ void warp_sums(float (&v)[V], int lane) {
-  int off = 16;
-#pragma unroll
-  for (int n = V; n > 1; n >>= 1, off >>= 1) {
-    const bool upper = lane & off;
-#pragma unroll
-    for (int i = 0; i < n / 2; ++i) {
-      const float send = upper ? v[i] : v[i + n / 2];
-      const float keep = upper ? v[i + n / 2] : v[i];
-      v[i] = keep + __shfl_xor_sync(FULL, send, off);
-    }
-  }
-#pragma unroll
-  for (int o = (32 / V) >> 1; o > 0; o >>= 1)
-    v[0] += __shfl_xor_sync(FULL, v[0], o);
-}
-
-// The per-head sums of a group of rows: p[i][j] is row i's product at the
-// lane's column j, of head head[j]. Files the total of (row r0 + i, head h)
-// at out[h][r0 + i]. HP: the heads rounded up to 4 or 8.
-template <int HP>
-__device__ __forceinline__ void tc_group_head_sums(
-    const float (&p)[TC_GROUP][8], const int (&head)[8], int H, int r0,
-    int lane, float (*out)[TC_ROWS]) {
-  float v[TC_GROUP * HP];
-#pragma unroll
-  for (int i = 0; i < TC_GROUP; ++i)
-#pragma unroll
-    for (int h = 0; h < HP; ++h) {
-      float t = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) t += head[j] == h ? p[i][j] : 0.0f;
-      v[i * HP + h] = t;
-    }
-  warp_sums(v, lane);
-  constexpr int share = 32 / (TC_GROUP * HP);     // lanes holding one value
-  const int value = lane / share, h = value % HP;
-  if (lane % share == 0 && h < H) out[h][r0 + value / HP] = v[0];
-}
-
 template <int PASS, int PAIRS>
 __global__ void __launch_bounds__(32 * TC_MAX_WARPS, 1)
 edge_pass_tc_kernel(const TcArgs a) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  typedef TcShape<PAIRS> S;
+  typedef TcShape<PAIRS, TC_SMALL_FLOATS> S;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
   const int E = a.E, N = a.N, D = a.D, HD = a.HD, H = a.H;
@@ -224,21 +115,7 @@ edge_pass_tc_kernel(const TcArgs a) {
   int* s_dst = s_src + TC_ROWS;
 
   // W, rounded to bf16; zeros wherever either product reaches past D or HD
-  {
-    constexpr int quads = S::ld16 / 4;
-    for (int idx = tid; idx < S::WIDTH * quads; idx += blockDim.x) {
-      const int d = idx / quads, c = (idx % quads) * 4;
-      float4 q = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (d < D && c < HD)
-        q = *reinterpret_cast<const float4*>(a.w + (long long)d * HD + c);
-      __nv_bfloat162 lo = __floats2bfloat162_rn(q.x, q.y);
-      __nv_bfloat162 hi = __floats2bfloat162_rn(q.z, q.w);
-      uint2 v;
-      v.x = *reinterpret_cast<uint32_t*>(&lo);
-      v.y = *reinterpret_cast<uint32_t*>(&hi);
-      *reinterpret_cast<uint2*>(sW + d * S::ld16 + c) = v;
-    }
-  }
+  tc_load_w<S>(sW, a.w, D, HD);
   __syncthreads();
 
   const int c0 = 8 * lane, dph = HD / H;
@@ -258,7 +135,8 @@ edge_pass_tc_kernel(const TcArgs a) {
   const long long stride = (long long)gridDim.x * nwarps;
   long long u = (long long)blockIdx.x * nwarps + warp;
   int next_src, next_dst;         // the nodes of the unit after this one
-  tc_unit_nodes(a, u, n_units, units_per_graph, lane, next_src, next_dst);
+  tc_unit_nodes(a.mask, a.src, a.dst, E, u, n_units, units_per_graph, lane,
+                next_src, next_dst);
   for (; u < n_units; u += stride) {
     const long long g = u / units_per_graph;
     const int e0 = (int)(u % units_per_graph) * TC_ROWS;
@@ -281,8 +159,8 @@ edge_pass_tc_kernel(const TcArgs a) {
       s_src[lane] = next_src;
       s_dst[lane] = next_dst;
     }
-    tc_unit_nodes(a, u + stride, n_units, units_per_graph, lane, next_src,
-                  next_dst);
+    tc_unit_nodes(a.mask, a.src, a.dst, E, u + stride, n_units,
+                  units_per_graph, lane, next_src, next_dst);
     __syncwarp();
     // per-(edge, head) weights, 0 for dead slots
     for (int idx = lane; idx < TC_ROWS * H; idx += 32) {
@@ -610,7 +488,7 @@ dw_tc_kernel(const bf16* __restrict__ emb, const bf16* __restrict__ cot,
 template <int PASS, int PAIRS>
 cudaError_t launch_edge_tc(const TcArgs& a, int warps, int n_blocks,
                            cudaStream_t s) {
-  typedef TcShape<PAIRS> S;
+  typedef TcShape<PAIRS, TC_SMALL_FLOATS> S;
   const size_t smem = (size_t)S::w_bytes + (size_t)warps * S::warp_bytes;
   cudaError_t err = cudaFuncSetAttribute(
       edge_pass_tc_kernel<PASS, PAIRS>,

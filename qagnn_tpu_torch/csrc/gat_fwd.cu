@@ -9,36 +9,64 @@
 //   `_proj_pass_c` :988)  -> gat_pass_c
 //
 // Pass A (scores): per edge, ekb = emb[e] W_ke + b_ke, then per head
-//   s = <nq[src], nk[dst] + ekb>, stored as scores (G, H, E) f32, and the
-//   max over masked edges per (graph, head) by an atomic max on the float.
+//   s = <nq[src], nk[dst] + ekb>, stored as scores (G, H, E) f32 (0 at a
+//   masked slot, which nothing reads), and the max over masked edges per
+//   (graph, head) by an atomic max on the float.
 // Pass A (denominators), once the torch glue has folded the self-loop scores
 //   into gmax: denom[g, src, h] += exp(min(s - gmax, 0)) and
 //   deg[g, src] += 1 over masked edges, by atomicAdd. The TPU kernel keeps a
 //   running max and rescales its denominators online only because its grid
 //   runs in order; blocks here run in parallel, so the max comes first.
 // Pass C: per edge, msg = nm[src] + emb[e] W_me + b_me and
-//   alpha = exp(min(s - gmax, 0)) * scale[src, h]; out[g, dst] += alpha * msg
-//   by 16-byte atomicAdd into an f32 accumulator that the caller seeded with
-//   the self-loop term. Masked edges are skipped, so their values never
-//   enter.
+//   alpha = round(exp(min(s - gmax, 0)) * round(scale[src, h]));
+//   out[g, dst] += round(alpha * msg) by 16-byte atomicAdd into an f32
+//   accumulator that the caller seeded with the self-loop term. round() is
+//   to the compute dtype (the identity in f32), at the three places where
+//   the TPU kernel rounds: it packs the scale into its compute-dtype node
+//   plane, rounds alpha before the per-head broadcast and the weighted
+//   message before the scatter. Masked edges are skipped, so their values
+//   never enter.
 //
 // Bound on the H100 (G=64, N=200, E=4096, D=HD=200, bf16): the per-edge
-// projection is 2*G*E*D*HD = 21 GFLOP per pass, against roughly 120-140 MB
-// of traffic, so with tensor cores the passes are bound by bytes. This
-// version runs the projection on CUDA cores in f32 (67 TFLOP/s peak, 0.31 ms
-// for 21 GFLOP), which makes it bound by operations. It is a register-tiled
-// product: a block takes 64 edges and every output column; K is staged in
-// slices of 32, the edge embedding k-major and the weight (rounded to the
-// compute dtype, as on the TPU) row-major in shared memory; each thread keeps
-// 8 edges x 8 columns in registers and reads them with four 16-byte shared
-// loads per 64 FMAs. Its columns are two runs of four, 4*tx and HD/2 + 4*tx,
+// projection is 2*G*E*D*HD = 21 GFLOP per pass, against roughly 100-130 MB
+// of traffic, so with tensor cores the passes are bound by bytes. Two routes
+// behind each entry point, chosen in Python by dtype and widths alone:
+//
+// bfloat16, the main path: tensor cores (gat_fwd_tc.cuh, on the pieces it
+// shares with the backward in gat_tc_common.cuh and mma_tile.cuh). Every
+// operand of the projection is a bf16 value already (emb, W rounded to the
+// compute dtype as on the TPU), so `mma.sync` with f32 accumulators computes
+// the TPU kernel's sums. One launch a pass: persistent blocks with W resident
+// in shared memory, each warp on 16 edge slots at a time, the row-wise
+// epilogue after an f32 stage.
+//
+// On the H100 (NVIDIA H100 80GB HBM3, 700 W limit; the shapes above, 25% of
+// slots masked; medians of 20 launches by CUDA events): the tensor-core
+// route takes 0.235 ms for pass A's scores and 0.214 ms for pass C, against
+// 1.10 and 1.05 ms for the CUDA-core kernels on the same bf16 inputs and
+// bytes bounds of 28 and 32 us. As in the backward, the product (about 60 us
+// of shared-memory-bound `mma.sync`), the node gathers through L2 and the
+// epilogue's arithmetic run in turn within each warp, and registers (about
+// 200 a lane) hold a block to 8 warps. Issuing the first group's gathers
+// before the product gained 3.5% on pass A; gathering 8 rows at a time in
+// pass C lost 1%. Pass A keeps its head sums' values in local memory (a
+// 64-128 byte stack frame, as backward pass 1 does); a `selp` select in
+// `warp_sums` did not remove it and gained nothing.
+//
+// float32 (and bfloat16 when asked for, to time the two side by side): the
+// CUDA-core kernels below, in full f32 (TF32 would change the values). The
+// projection is a register-tiled product: a block takes 64 edges and every
+// output column; K is staged in slices of 32, the edge embedding k-major and
+// the weight (rounded to the compute dtype) row-major in shared memory; each
+// thread keeps 8 edges x 8 columns in registers and reads them with four
+// 16-byte shared loads per 64 FMAs (19-20 TFLOP/s, about 1.05 ms a pass at
+// the shapes above). Its columns are two runs of four, 4*tx and HD/2 + 4*tx,
 // so a quarter-warp's 16-byte loads hit distinct banks. The per-head sums
 // of the scores are partials per run, added up per (edge, head) from shared
 // memory without atomics (shared float atomics on one address from many
-// lanes serialise). (A first version kept a 4 x 16 tile read by scalar
-// shared loads, five loads per 16 FMAs, and ran pass A in 3.3 ms and pass C
-// in 2.2 ms.) Tensor cores are later work.
+// lanes serialise).
 #include "gat_common.cuh"
+#include "gat_fwd_tc.cuh"
 
 namespace {
 
@@ -82,7 +110,7 @@ pass_a_scores_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
   for (int i = 0; i < EPT; ++i) {
     const int el = ty * EPT + i, e = e0 + el;
     float first[2] = {0.0f, 0.0f}, next[2] = {0.0f, 0.0f};
-    if (e < E) {
+    if (e < E && mask[g * E + e]) {       // a masked slot scores 0
       const long long s_row = (g * N + src[g * E + e]) * HD;
       const long long d_row = (g * N + dst[g * E + e]) * HD;
       float q[8], k[8];
@@ -92,7 +120,7 @@ pass_a_scores_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
       load_row<T, 4>(nk + d_row + HD / 2 + 4 * tx, k + 4);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float p = q[j] * (k[j] + acc[i][j] + bias[j]);
+        const float p = q[j] * (k[j] + (acc[i][j] + bias[j]));
         if (head[j] == head[j & 4]) first[j / 4] += p;
         else next[j / 4] += p;
       }
@@ -161,13 +189,15 @@ pass_c_kernel(const T* __restrict__ nm, const T* __restrict__ emb,
   const int tx = tid % (HD / 8), ty = tid / (HD / 8);
   const int dph = HD / H;
 
-  // alpha per (edge, head); 0 for masked and padded slots
+  // alpha per (edge, head), rounded to T with the scale it is made from;
+  // 0 for masked and padded slots
   for (int idx = tid; idx < TE * H; idx += nthreads) {
     const int el = idx / H, h = idx % H, e = e0 + el;
     float a = 0.0f;
     if (e < E && mask[g * E + e]) {
       const float x = scores[(g * H + h) * E + e] - gmax[g * H + h];
-      a = expf(fminf(x, 0.0f)) * scale[(g * N + src[g * E + e]) * H + h];
+      a = round_to<T>(expf(fminf(x, 0.0f)) *
+                      round_to<T>(scale[(g * N + src[g * E + e]) * H + h]));
     }
     s_alpha[el][h] = a;
   }
@@ -193,7 +223,8 @@ pass_c_kernel(const T* __restrict__ nm, const T* __restrict__ emb,
     load_row<T, 4>(nm + s_row + HD / 2 + 4 * tx, m + 4);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      v[j] = s_alpha[el][head[j]] * (m[j] + acc[i][j] + bias[j]);
+      v[j] = round_to<T>(s_alpha[el][head[j]] *
+                         (m[j] + (acc[i][j] + bias[j])));
     atomicAdd(reinterpret_cast<float4*>(out + d_row + 4 * tx),
               make_float4(v[0], v[1], v[2], v[3]));
     atomicAdd(reinterpret_cast<float4*>(out + d_row + HD / 2 + 4 * tx),
@@ -206,26 +237,53 @@ bool shapes_ok(int D, int HD, int H) {
          H > 0 && H <= MAX_H && HD % H == 0;
 }
 
+// route 0: the CUDA-core kernels, either dtype; route 1: tensor cores,
+// bfloat16 with D <= 256 and heads of at least 4 features
+bool route_ok(int route, int dtype, int D, int HD, int H) {
+  return route == 0 ||
+         (route == 1 && dtype == 1 && D <= MAX_HD && HD / H >= 4);
+}
+
 }  // namespace
 
 // dtype: 0 = float32 node/edge inputs, 1 = bfloat16. Takes D % 8 == 0,
-// HD % 8 == 0, HD <= 256, H <= 8 and 16-byte aligned arrays.
+// HD % 8 == 0, HD <= 256, H <= 8 and 16-byte aligned arrays. route 0 runs a
+// (64-edge tile, graph) grid and reads neither warps nor n_blocks; route 1
+// runs n_blocks persistent blocks of `warps` warps (see route_ok). Every
+// slot's score is written, 0 where the slot is masked.
 extern "C" int gat_pass_a_scores(const void* nq, const void* nk,
                                  const void* emb, const void* w_ke,
                                  const void* b_ke, const void* src,
                                  const void* dst, const void* mask,
                                  void* scores, void* m_edge, int G, int N,
                                  int E, int D, int HD, int H, int dtype,
+                                 int route, int warps, int n_blocks,
                                  void* stream) {
-  if (!shapes_ok(D, HD, H) || !aligned16(nq) || !aligned16(nk) ||
-      !aligned16(emb) || !aligned16(w_ke))
+  if (!shapes_ok(D, HD, H) || !route_ok(route, dtype, D, HD, H) ||
+      !aligned16(nq) || !aligned16(nk) || !aligned16(emb) ||
+      !aligned16(w_ke))
     return (int)cudaErrorInvalidValue;
   if ((long long)G * E == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (route == 1) {
+    TcFwdArgs a = {};
+    a.rows_src = (const bf16*)nq;
+    a.rows_dst = (const bf16*)nk;
+    a.emb = (const bf16*)emb;
+    a.w = (const float*)w_ke;
+    a.bias = (const float*)b_ke;
+    a.src = (const int32_t*)src;
+    a.dst = (const int32_t*)dst;
+    a.mask = (const uint8_t*)mask;
+    a.scores_out = (float*)scores;
+    a.m_edge = (float*)m_edge;
+    a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H;
+    return launch_fwd_tc<1>(a, warps, n_blocks, s);
+  }
   const dim3 grid((E + TE - 1) / TE, G);
   const int threads = HD / 8 * TY;
   const size_t smem = sizeof(float) * (KC * HD > red_floats(HD)
                                            ? KC * HD : red_floats(HD));
-  cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1)
     pass_a_scores_kernel<__nv_bfloat16><<<grid, threads, smem, s>>>(
         (const __nv_bfloat16*)nq, (const __nv_bfloat16*)nk,
@@ -255,20 +313,40 @@ extern "C" int gat_pass_a_denoms(const void* scores, const void* gmax,
   return (int)cudaGetLastError();
 }
 
+// route, warps and n_blocks as in gat_pass_a_scores. out is the f32
+// accumulator, added to in place.
 extern "C" int gat_pass_c(const void* nm, const void* emb, const void* w_me,
                           const void* b_me, const void* scores,
                           const void* gmax, const void* scale,
                           const void* src, const void* dst, const void* mask,
                           void* out, int G, int N, int E, int D, int HD,
-                          int H, int dtype, void* stream) {
-  if (!shapes_ok(D, HD, H) || !aligned16(nm) || !aligned16(emb) ||
-      !aligned16(w_me) || !aligned16(out))
+                          int H, int dtype, int route, int warps,
+                          int n_blocks, void* stream) {
+  if (!shapes_ok(D, HD, H) || !route_ok(route, dtype, D, HD, H) ||
+      !aligned16(nm) || !aligned16(emb) || !aligned16(w_me) ||
+      !aligned16(out))
     return (int)cudaErrorInvalidValue;
   if ((long long)G * E == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (route == 1) {
+    TcFwdArgs a = {};
+    a.rows_src = (const bf16*)nm;
+    a.emb = (const bf16*)emb;
+    a.w = (const float*)w_me;
+    a.bias = (const float*)b_me;
+    a.scores = (const float*)scores;
+    a.gmax = (const float*)gmax;
+    a.scale = (const float*)scale;
+    a.src = (const int32_t*)src;
+    a.dst = (const int32_t*)dst;
+    a.mask = (const uint8_t*)mask;
+    a.out = (float*)out;
+    a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H;
+    return launch_fwd_tc<3>(a, warps, n_blocks, s);
+  }
   const dim3 grid((E + TE - 1) / TE, G);
   const int threads = HD / 8 * TY;
   const size_t smem = sizeof(float) * KC * HD;
-  cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1)
     pass_c_kernel<__nv_bfloat16><<<grid, threads, smem, s>>>(
         (const __nv_bfloat16*)nm, (const __nv_bfloat16*)emb,

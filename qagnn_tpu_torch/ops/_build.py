@@ -10,7 +10,8 @@ one is reused.
 Every C entry point takes its pointers and the CUDA stream as `void*` and
 returns `cudaGetLastError()` after its launches; `check` raises when that is
 not 0. Launches are counted per kernel in `LAUNCHES` (only where a kernel
-is launched, never on the plain path).
+is launched, never on the plain path), and for an entry point with more than
+one route also per (kernel, route) in `ROUTES`.
 """
 
 from __future__ import annotations
@@ -30,15 +31,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 LAUNCHES: collections.Counter = collections.Counter()
+ROUTES: collections.Counter = collections.Counter()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
+    ROUTES.clear()
 
 
-def count_launch(kernel: str) -> None:
+def count_launch(kernel: str, route: int | None = None) -> None:
     LAUNCHES[kernel] += 1
+    if route is not None:
+        ROUTES[kernel, route] += 1
 
 
 def _nvcc() -> str:

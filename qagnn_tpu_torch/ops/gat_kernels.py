@@ -6,16 +6,22 @@ Counterpart of `pallas_relational_gat_projected[_chained]`
 
   * pass A, scores (csrc/gat_fwd.cu `gat_pass_a_scores`): per edge the key
     bias ekb = emb W_ke + b_ke, the per-head logit
-    s = <nq[src], nk[dst] + ekb> and the max over masked edges per
-    (graph, head);
+    s = <nq[src], nk[dst] + ekb> (0 at masked slots, which nothing reads)
+    and the max over masked edges per (graph, head);
   * torch glue: the self-loop scores, gmax over masked edges AND all N
     self scores, e_self;
   * pass A, denominators (`gat_pass_a_denoms`): per-source sums of
     exp(min(s - gmax, 0)) and out-degrees over masked edges;
   * torch glue: scale = (deg + 1) / max(denom_edges + e_self, 1e-16) and the
     self-loop term (nm + smb) * e_self * scale that seeds the output;
-  * pass C (`gat_pass_c`): out[dst] += exp(min(s - gmax, 0)) * scale[src]
-    * (nm[src] + emb W_me + b_me) over masked edges.
+  * pass C (`gat_pass_c`): out[dst] += alpha * (nm[src] + emb W_me + b_me)
+    over masked edges, alpha = exp(min(s - gmax, 0)) * scale[src].
+
+Pass A's scores and pass C have two routes behind one entry point each,
+chosen by dtype and widths alone (`_fwd_route`): bfloat16 at D, HD <= 256
+with heads of at least 4 features runs the projection on tensor cores
+(csrc/gat_fwd_tc.cuh: persistent blocks with W resident in shared memory),
+anything else stays on CUDA cores, float32 in full f32.
 
 The backward (`gat_projected`, `gat_projected_chained`: autograd Functions)
 recomputes e = exp(min(s - gmax, 0)) from the saved scores and runs
@@ -42,9 +48,10 @@ so the sum over layers is never a separate (G, E, D) add.
 Every kernel has a plain torch version here with the same arithmetic: node
 and edge inputs in the compute dtype, the projection weights rounded to it,
 everything after in f32 except where the TPU kernels round to the compute
-dtype too (d_msg, dekb and the dnq term before products and scatters; demb
-when stored). A wrapper takes the plain version for CPU tensors only; for
-CUDA tensors it launches its kernel or raises.
+dtype too (pass C's scale, alpha and weighted message; d_msg, dekb and the
+dnq term before products and scatters; demb when stored). A wrapper takes
+the plain version for CPU tensors only; for CUDA tensors it launches its
+kernel or raises.
 
 Unlike the TPU op the edge embedding is (G, E, D), not transposed, and no
 edge padding is needed: any E works. The kernels take D and HD that are
@@ -73,9 +80,9 @@ _I = ctypes.c_int
 
 
 _SIGNATURES = {
-    "gat_pass_a_scores": [_P] * 10 + [_I] * 7 + [_P],
+    "gat_pass_a_scores": [_P] * 10 + [_I] * 10 + [_P],
     "gat_pass_a_denoms": [_P] * 6 + [_I] * 4 + [_P],
-    "gat_pass_c": [_P] * 11 + [_I] * 7 + [_P],
+    "gat_pass_c": [_P] * 11 + [_I] * 10 + [_P],
 }
 
 
@@ -84,7 +91,7 @@ _BWD_SIGNATURES = {
     "gat_bwd_pass2": [_P] * 22 + [_I] * 11 + [_P],
 }
 DW_SPLITS = 128      # edge ranges (rows of partials) of the dW products
-# the tensor-core route (csrc/gat_bwd_tc.cuh)
+# the tensor-core routes (csrc/gat_fwd_tc.cuh, csrc/gat_bwd_tc.cuh)
 TC_UNIT = 16                 # edges a warp works on at a time
 TC_MAX_WARPS = 8
 TC_SMEM_LIMIT = 232_448      # dynamic shared memory a block may ask for
@@ -159,14 +166,18 @@ def pass_a_scores_plain(nq, nk, edge_emb, w_ke, b_ke, src, dst, mask, heads):
     ekb = _edge_projection_plain(edge_emb, w_ke, b_ke, nq.dtype)
     eq = _gather_nodes(nq, src).float()
     ek = _gather_nodes(nk, dst).float() + ekb
-    scores = head_sum(eq * ek, heads).transpose(1, 2).contiguous()  # (G,H,E)
-    m_edge = torch.where(mask[:, None, :], scores, NEG).amax(-1)      # (G,H)
+    live = mask[:, None, :]
+    scores = torch.where(live, head_sum(eq * ek, heads).transpose(1, 2),
+                         0.0).contiguous()                           # (G,H,E)
+    m_edge = torch.where(live, scores, NEG).amax(-1)                  # (G,H)
     return scores, torch.clamp_min(m_edge, NEG)
 
 
-def pass_a_scores(nq, nk, edge_emb, w_ke, b_ke, src, dst, mask, heads):
-    """Scores (G, H, E) f32 and the max over masked edges (G, H) f32
-    (NEG for a graph with no masked edge)."""
+def pass_a_scores(nq, nk, edge_emb, w_ke, b_ke, src, dst, mask, heads,
+                  _route=None):
+    """Scores (G, H, E) f32, 0 at masked slots, and the max over masked
+    edges (G, H) f32 (NEG for a graph with no masked edge). `_route` names
+    a route (`_fwd_route`) to time it beside the other."""
     if not nq.is_cuda:
         return pass_a_scores_plain(nq, nk, edge_emb, w_ke, b_ke, src, dst,
                                    mask, heads)
@@ -182,6 +193,8 @@ def pass_a_scores(nq, nk, edge_emb, w_ke, b_ke, src, dst, mask, heads):
     _require(src, "src", torch.int32, (G, E))
     _require(dst, "dst", torch.int32, (G, E))
     _require(mask, "mask", torch.bool, (G, E))
+    route = _fwd_route(cdt, D, HD, heads, _route)
+    warps, n_blocks = _fwd_launch_plan(route, G, E, D, HD, nq.device)
     scores = torch.empty((G, heads, E), device=nq.device, dtype=torch.float32)
     m_edge = torch.full((G, heads), NEG, device=nq.device,
                         dtype=torch.float32)
@@ -189,9 +202,9 @@ def pass_a_scores(nq, nk, edge_emb, w_ke, b_ke, src, dst, mask, heads):
         nq.data_ptr(), nk.data_ptr(), edge_emb.data_ptr(), w_ke.data_ptr(),
         b_ke.data_ptr(), src.data_ptr(), dst.data_ptr(), mask.data_ptr(),
         scores.data_ptr(), m_edge.data_ptr(), G, N, E, D, HD, heads,
-        _dtype_code(nq), _stream())
+        _dtype_code(nq), route, warps, n_blocks, _stream())
     _build.check(err, "gat_pass_a_scores")
-    _build.count_launch("gat_pass_a_scores")
+    _build.count_launch("gat_pass_a_scores", route)
     return scores, m_edge
 
 
@@ -235,24 +248,35 @@ def pass_a_denoms(scores, gmax, src, mask, n_nodes):
 # pass C, aggregation
 # --------------------------------------------------------------------------
 
+def _round(x, cdt):
+    """x rounded to the compute dtype, kept in f32 (the identity in f32)."""
+    return x.to(cdt).float()
+
+
 def pass_c_plain(nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
                  mask, out, heads):
+    """Rounds where `_aggr_proj_kernel` rounds: the scale (packed into its
+    compute-dtype node plane), alpha (before its per-head broadcast) and the
+    weighted message (before its scatter)."""
     G, N, HD = nm.shape
     E = src.shape[1]
+    cdt = nm.dtype
     msg = _gather_nodes(nm, src).float() \
-        + _edge_projection_plain(edge_emb, w_me, b_me, nm.dtype)
+        + _edge_projection_plain(edge_emb, w_me, b_me, cdt)
     e = torch.exp(torch.clamp_max(scores - gmax[:, :, None], 0.0)) \
         * mask[:, None, :]
-    alpha = e.transpose(1, 2) * _gather_nodes(scale, src)           # (G,E,H)
-    w = msg * heads_to_hd(alpha, HD)
+    alpha = _round(e.transpose(1, 2)
+                   * _gather_nodes(_round(scale, cdt), src), cdt)   # (G,E,H)
+    w = _round(msg * heads_to_hd(alpha, HD), cdt)
     return out.scatter_add_(1, dst.long()[..., None].expand(G, E, HD), w)
 
 
 def pass_c(nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst, mask,
-           out, heads):
+           out, heads, _route=None):
     """Adds alpha * msg of every masked edge at its dst into `out`
     (G, N, HD) f32, IN PLACE (the caller seeds it with the self-loop term;
-    no second (G, N, HD) buffer), and returns it."""
+    no second (G, N, HD) buffer), and returns it. `_route` as in
+    `pass_a_scores`."""
     if not nm.is_cuda:
         return pass_c_plain(nm, edge_emb, w_me, b_me, scores, gmax, scale,
                             src, dst, mask, out, heads)
@@ -271,13 +295,15 @@ def pass_c(nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst, mask,
     _require(dst, "dst", torch.int32, (G, E))
     _require(mask, "mask", torch.bool, (G, E))
     _require(out, "out", torch.float32, (G, N, HD))
+    route = _fwd_route(cdt, D, HD, heads, _route)
+    warps, n_blocks = _fwd_launch_plan(route, G, E, D, HD, nm.device)
     err = _lib().gat_pass_c(
         nm.data_ptr(), edge_emb.data_ptr(), w_me.data_ptr(), b_me.data_ptr(),
         scores.data_ptr(), gmax.data_ptr(), scale.data_ptr(), src.data_ptr(),
         dst.data_ptr(), mask.data_ptr(), out.data_ptr(), G, N, E, D, HD,
-        heads, _dtype_code(nm), _stream())
+        heads, _dtype_code(nm), route, warps, n_blocks, _stream())
     _build.check(err, "gat_pass_c")
-    _build.count_launch("gat_pass_c")
+    _build.count_launch("gat_pass_c", route)
     return out
 
 
@@ -372,27 +398,76 @@ def _bwd_route(cdt, route):
     return route
 
 
-def _tc_smem_bytes(D, HD, warps):
-    """Dynamic shared memory of the tensor-core edge kernel (`TcShape` in
-    csrc/gat_bwd_tc.cuh), which is compiled for widths of 64, 128, 208 and
-    256 columns: W in bf16 at the first of these that holds D and HD, then
-    per warp a stage (16 f32 rows of that width) and its small tables."""
+def _fwd_route(cdt, D, HD, heads, route):
+    """Route of the forward passes A (scores) and C: 0 CUDA cores, 1 tensor
+    cores, for bfloat16 where their widths hold (D and HD <= 256, heads of at
+    least 4 features). Dtype and widths alone decide; `route` names one, 0
+    for bfloat16 to time the CUDA-core kernels beside the tensor-core ones."""
+    fits = cdt == torch.bfloat16 and D <= 256 and HD <= 256 \
+        and HD // heads >= 4
+    if route is None:
+        return 1 if fits else 0
+    if route not in (0, 1) or (route == 1 and not fits):
+        raise ValueError(f"no route {route} of the GAT forward kernels for "
+                         f"{cdt}, D={D}, HD={HD}, heads={heads}")
+    return route
+
+
+def _tc_smem(D, HD, warps, small_floats):
+    """Dynamic shared memory of a tensor-core edge kernel (`TcShape` in
+    csrc/gat_tc_common.cuh), which is compiled for widths of 64, 128, 208
+    and 256 columns: W in bf16 at the first of these that holds D and HD,
+    then per warp a stage (16 f32 rows of that width) and its small tables
+    of `small_floats` floats."""
     width = next(w for w in (64, 128, 208, 256) if max(D, HD) <= w)
     w_tile = width * (width + 8) * 2
     stage = TC_UNIT * (width + 4) * 4
-    return w_tile + warps * (stage + (3 * TC_UNIT * 8 + 2 * TC_UNIT) * 4)
+    return w_tile + warps * (stage + small_floats * 4)
+
+
+def _tc_smem_bytes(D, HD, warps):
+    """The backward edge kernel's (alpha or d_s, e, d_alpha and the nodes
+    beside each stage)."""
+    return _tc_smem(D, HD, warps, 3 * TC_UNIT * 8 + 2 * TC_UNIT)
+
+
+def _fwd_smem_bytes(D, HD, warps):
+    """The forward kernel's (scores or alpha and the nodes beside each
+    stage; no cotangent tile)."""
+    return _tc_smem(D, HD, warps, TC_UNIT * 8 + 2 * TC_UNIT)
+
+
+def _persistent_plan(smem_bytes, G, E, D, HD, n_sm, what):
+    """(warps per block, blocks): as many warps as shared memory holds
+    beside W, one persistent block per SM, no more blocks than units
+    of work for their warps."""
+    warps = max((w for w in range(1, TC_MAX_WARPS + 1)
+                 if smem_bytes(D, HD, w) <= TC_SMEM_LIMIT), default=0)
+    if warps == 0:
+        raise ValueError(f"{what}: D={D}, HD={HD} leave no shared memory for "
+                         "a warp beside W")
+    units = G * -(-E // TC_UNIT)
+    return warps, max(1, min(n_sm, -(-units // warps)))
 
 
 def _tc_plan(G, E, D, HD, n_sm):
-    """(warps per block, blocks) of the tensor-core edge kernel: as many
-    warps as shared memory holds beside W, one persistent block per SM."""
-    warps = max((w for w in range(1, TC_MAX_WARPS + 1)
-                 if _tc_smem_bytes(D, HD, w) <= TC_SMEM_LIMIT), default=0)
-    if warps == 0:
-        raise ValueError(f"GAT backward: D={D}, HD={HD} leave no shared "
-                         "memory for a warp beside W")
-    units = G * -(-E // TC_UNIT)
-    return warps, max(1, min(n_sm, -(-units // warps)))
+    """The backward tensor-core edge kernel's plan."""
+    return _persistent_plan(_tc_smem_bytes, G, E, D, HD, n_sm,
+                            "GAT backward")
+
+
+def _fwd_tc_plan(G, E, D, HD, n_sm):
+    """The forward tensor-core kernel's plan (passes A and C alike)."""
+    return _persistent_plan(_fwd_smem_bytes, G, E, D, HD, n_sm,
+                            "GAT forward")
+
+
+def _fwd_launch_plan(route, G, E, D, HD, device):
+    """(warps, n_blocks) for the forward kernels' C entry points: the
+    tensor-core plan on route 1; route 0's grid follows from the shapes."""
+    if route == 0:
+        return 0, 0
+    return _fwd_tc_plan(G, E, D, HD, _sm_count(device))
 
 
 def _split_scratch(G, E, D, HD, device, route=0, n_sm=1):
@@ -472,7 +547,7 @@ def bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
         dw.data_ptr(), db.data_ptr(), G, N, E, D, HD, heads, n_split,
         _dtype_code(nm), route, warps, n_blocks, _stream())
     _build.check(err, "gat_bwd_pass1")
-    _build.count_launch("gat_bwd_pass1")
+    _build.count_launch("gat_bwd_pass1", route)
     return demb, dalpha, dnm, dscale, dw, db
 
 
@@ -549,7 +624,7 @@ def bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
         db_part.data_ptr(), dw.data_ptr(), db.data_ptr(), G, N, E, D, HD,
         heads, n_split, _dtype_code(nq), route, warps, n_blocks, _stream())
     _build.check(err, "gat_bwd_pass2")
-    _build.count_launch("gat_bwd_pass2")
+    _build.count_launch("gat_bwd_pass2", route)
     return demb, dnq, dnk, dw, db
 
 

@@ -70,7 +70,9 @@ def test_scan_sees_the_package():
             "qagnn.py", "step.py", "convert.py", "optim.py", "losses.py",
             "chip_smoke.py"} <= names
     assert {"gat_fwd.cu", "gat_bwd.cu", "gat_unproj.cu", "gat_common.cuh",
-            "edge_hidden.cu", "edge_moments.cu"} <= {p.name for p in CSRC}
+            "gat_tc_common.cuh", "gat_fwd_tc.cuh", "gat_bwd_tc.cuh",
+            "mma_tile.cuh", "edge_hidden.cu", "edge_moments.cu"} \
+        <= {p.name for p in CSRC}
     # the scan itself finds a forbidden import
     probe = ROOT / "qagnn_tpu" / "ops" / "gat_attention.py"
     assert "jax" in set(_imported_roots(probe))
