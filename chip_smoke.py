@@ -15,7 +15,10 @@ Run from the repository root on a machine with one CUDA card. It
      (D=24, HD=40, which need padding; 96 x 128; 256 x 256), on both of
      their routes in bf16, with their masked slots held exactly, their
      tensor-core kernels (bf16) timed in turns with the CUDA-core ones on the
-     same inputs, and torch.profiler's device time by kernel name;
+     same inputs, and torch.profiler's device time by kernel name; the
+     edge encoder's hidden pass and its backward on both of their routes in
+     bf16 (also at D=24 x F=16 and D=256 x F=64, and at D=100 where only
+     the CUDA-core route runs), route 1 timed in turns with route 0;
   4. holds the gradients of the autograd Functions on the kernels (the
      projected op, the train-mode edge encoder, the unprojected op) against
      torch.autograd through the plain scatter path, in float32;
@@ -38,13 +41,14 @@ Run from the repository root on a machine with one CUDA card. It
      preset's dropout, the same masks at every step (loss finite and
      falling), steps with the encoder
      frozen, and a step in two microbatches, counting the launches of every
-     kernel per step and the route of the four GAT passes that have two;
+     kernel per step and the route of the six entry points that have two;
   9. prints one JSON line of per-kernel numbers, the card's name and power
      limit, and as its last line {"ok": true, "device": {...}}.
 
 `--only kernels,grads,op,serve,detail,train` runs a subset of the phases
-(for work on one of them; `fwd` and `bwd` are the kernel phase's parts for
-the GAT forward passes A and C and for the two GAT backward passes alone);
+(for work on one of them; `fwd`, `bwd` and `enc` are the kernel phase's
+parts for the GAT forward passes A and C, for the two GAT backward passes
+and for the edge encoder's three kernels (rows 10-12) alone);
 with no arguments everything runs. `--csrc DIR` builds the kernels from a
 copy of the sources in DIR.
 
@@ -271,6 +275,33 @@ def graph_inputs(gen, dev, n_edges):
     return idx(N), idx(N), mask
 
 
+def hidden_routes(dt, D, n_rel, n_ntype):
+    """The routes of edge_hidden and its backward at this dtype and width:
+    both in bf16 where route 1 takes the width, else route 0."""
+    return (0, 1) if ek._hidden_route(dt, D, n_rel, n_ntype) else (0,)
+
+
+def edge_hidden_case(reports, args, dt, tag, main):
+    """edge_hidden on each route against its plain version; at the main
+    shapes also its time, route 1's beside route 0's on the same inputs."""
+    want = ek.edge_hidden_plain(*args, dt)
+    for route in hidden_routes(dt, args[4].shape[1], *args[8:10]):
+        got = ek.edge_hidden_forward(*args, dt, _route=route)
+        err = compare(f"edge_hidden {tag} route {route}", got, want,
+                      TOL["edge_hidden"][dt])
+    if main:
+        # three row sums, bias, affine, relu per output element
+        etype, src, dst, ntype, w0, b0, a, b = args[:8]
+        measure(reports, "edge_hidden", err,
+                lambda: ek.edge_hidden_forward(*args, dt),
+                lambda: ek.edge_hidden_plain(*args, dt),
+                nbytes(etype, src, dst, ntype, w0, b0, a, b, got),
+                6.0 * got.numel(), torch.float32,
+                previous=lambda: ek.edge_hidden_forward(*args, dt, _route=0))
+        profile_kernels("edge_hidden",
+                        lambda: ek.edge_hidden_forward(*args, dt))
+
+
 def phase_edge_hidden(gen, dev, reports):
     n_rel = 39                             # 38 relations + the self loop
     F = n_rel + 2 * N_NTYPE
@@ -286,17 +317,8 @@ def phase_edge_hidden(gen, dev, reports):
                               device=dev, dtype=torch.int32)
         args = (etype, src, dst, ntype, w0, b0, a, b, n_rel, N_NTYPE)
         for dt in (torch.float32, torch.bfloat16):
-            got = ek.edge_hidden(*args, dt)
-            want = ek.edge_hidden_plain(*args, dt)
-            err = compare(f"edge_hidden E={n_edges} {dt}", got, want,
-                          TOL["edge_hidden"][dt])
-            if n_edges == E and dt == torch.bfloat16:
-                # three row sums, bias, affine, relu per output element
-                measure(reports, "edge_hidden", err,
-                        lambda: ek.edge_hidden(*args, dt),
-                        lambda: ek.edge_hidden_plain(*args, dt),
-                        nbytes(etype, src, dst, ntype, w0, b0, a, b, got),
-                        6.0 * got.numel(), torch.float32)
+            edge_hidden_case(reports, args, dt, f"E={n_edges} {dt}",
+                             n_edges == E and dt == torch.bfloat16)
 
 
 def gat_fwd_case(reports, gen, dev, D, HD, heads, src, dst, mask, dt, tag,
@@ -435,32 +457,65 @@ def phase_edge_moments(gen, dev, reports):
                     torch.float32)
 
 
+def edge_hidden_bwd_case(reports, args, dt, tag, main):
+    """The backward on each route against its plain version; at the main
+    shapes also its time, route 1's beside route 0's on the same inputs."""
+    names = ("dW0", "db0", "da", "db")
+    want = ek.edge_hidden_backward_plain(*args)
+    for route in hidden_routes(dt, args[4].shape[1], *args[9:11]):
+        got = ek.edge_hidden_backward(*args, _route=route)
+        errs = [compare(f"edge_hidden_bwd {name} {tag} route {route}", g, w,
+                        TOL["bwd"][dt])
+                for name, g, w in zip(names, got, want)]
+    if main:
+        # per element: three row sums, the affine, the relu mask, four
+        # products and six accumulations
+        etype, src, dst, ntype, w0, b0, a, b, dh = args[:9]
+        measure(reports, "edge_hidden_bwd", max(errs),
+                lambda: ek.edge_hidden_backward(*args),
+                lambda: ek.edge_hidden_backward_plain(*args),
+                nbytes(etype, src, dst, ntype, w0, b0, a, b, dh, *got),
+                16.0 * dh.numel(), torch.float32,
+                previous=lambda: ek.edge_hidden_backward(*args, _route=0))
+        profile_kernels("edge_hidden_bwd",
+                        lambda: ek.edge_hidden_backward(*args))
+
+
 def phase_edge_hidden_bwd(gen, dev, reports):
     n_rel = 39
     F, D = n_rel + 2 * N_NTYPE, 200
     w0 = torch.randn((F, D), generator=gen, device=dev) * 0.2
     b0, a, b = (torch.randn(D, generator=gen, device=dev) * 0.5
                 for _ in range(3))
-    names = ("dW0", "db0", "da", "db")
     for n_edges in (E, E - 3):
         etype, src, dst, ntype, _ = encoder_ints(gen, dev, n_edges, n_rel)
         for dt in (torch.float32, torch.bfloat16):
             dh = torch.randn((G, n_edges, D), generator=gen, device=dev) \
                 .to(dt)
             args = (etype, src, dst, ntype, w0, b0, a, b, dh, n_rel, N_NTYPE)
-            got = ek.edge_hidden_backward(*args)
-            want = ek.edge_hidden_backward_plain(*args)
-            errs = [compare(f"edge_hidden_bwd {name} E={n_edges} {dt}", g, w,
-                            TOL["bwd"][dt])
-                    for name, g, w in zip(names, got, want)]
-            if n_edges == E and dt == torch.bfloat16:
-                # per element: three row sums, the affine, the relu mask,
-                # four products and six accumulations
-                measure(reports, "edge_hidden_bwd", max(errs),
-                        lambda: ek.edge_hidden_backward(*args),
-                        lambda: ek.edge_hidden_backward_plain(*args),
-                        nbytes(etype, src, dst, ntype, w0, b0, a, b, dh,
-                               *got), 16.0 * dh.numel(), torch.float32)
+            edge_hidden_bwd_case(reports, args, dt, f"E={n_edges} {dt}",
+                                 n_edges == E and dt == torch.bfloat16)
+
+
+def phase_edge_hidden_widths(gen, dev, reports):
+    """Both edge-encoder hidden kernels off the main width: D=24 x F=16
+    (route 1's product pads D to 32), D=256 x F=64 (the widest route 1
+    takes) and D=100 x F=47 (the default gnn_dim: route 0 alone)."""
+    for D, n_rel in ((24, 8), (256, 56), (100, 39)):
+        F = n_rel + 2 * N_NTYPE
+        w0 = torch.randn((F, D), generator=gen, device=dev) * 0.2
+        b0, a, b = (torch.randn(D, generator=gen, device=dev) * 0.5
+                    for _ in range(3))
+        for n_edges in (E, E - 3):
+            etype, src, dst, ntype, _ = encoder_ints(gen, dev, n_edges, n_rel)
+            for dt in (torch.float32, torch.bfloat16):
+                tag = f"D={D} F={F} E={n_edges} {dt}"
+                args = (etype, src, dst, ntype, w0, b0, a, b, n_rel, N_NTYPE)
+                edge_hidden_case(reports, args, dt, tag, False)
+                dh = torch.randn((G, n_edges, D), generator=gen,
+                                 device=dev).to(dt)
+                edge_hidden_bwd_case(reports, args[:8] + (dh,) + args[8:],
+                                     dt, tag, False)
 
 
 def profile_kernels(what, fn, iters=20):
@@ -1187,7 +1242,8 @@ def set_dropout(model, cfg, enc_cfg, on: bool) -> None:
     dec.pooler.dropout = dec.pooler.attention.attn_dropout = p(0.1)
 
 
-ROUTED = ("gat_pass_a_scores", "gat_pass_c", "gat_bwd_pass1", "gat_bwd_pass2")
+ROUTED = ("gat_pass_a_scores", "gat_pass_c", "gat_bwd_pass1", "gat_bwd_pass2",
+          "edge_hidden", "edge_hidden_bwd")
 
 
 def check_routes(route: int, what: str) -> None:
@@ -1421,7 +1477,7 @@ def phase_train(dev, reports, card, cfg, model, enc_cfg, gen):
 
 PHASES = ("kernels", "grads", "op", "serve", "detail", "train")
 # parts of the kernel phase that can be asked for alone
-KERNEL_PARTS = ("fwd", "bwd")
+KERNEL_PARTS = ("fwd", "bwd", "enc")
 
 
 def main() -> int:
@@ -1482,17 +1538,19 @@ def main() -> int:
     # earlier phases' inputs as they were
     new_gen = lambda i: torch.Generator(device=dev).manual_seed(SEED + i)
     gen = new_gen(0)
-    if "kernels" in only:
+    if only & {"kernels", "enc"}:
         log("\n[kernel 11: edge_hidden]")
         phase_edge_hidden(gen, dev, reports)
     if only & {"kernels", "fwd"}:
         log("\n[kernels 6 and 7: GAT pass A (two launches) and pass C]")
         phase_gat(new_gen(17), dev, reports)
-    if "kernels" in only:
+    if only & {"kernels", "enc"}:
         log("\n[kernel 10: edge_moments]")
         phase_edge_moments(gen, dev, reports)
         log("\n[kernel 12: edge_hidden_bwd]")
         phase_edge_hidden_bwd(gen, dev, reports)
+        log("\n[kernels 11 and 12 at other widths]")
+        phase_edge_hidden_widths(new_gen(18), dev, reports)
     if only & {"kernels", "bwd"}:
         log("\n[kernels 8 and 9: GAT backward pass 1 and pass 2]")
         phase_gat_bwd(gen, new_gen(16), dev, reports)

@@ -22,10 +22,16 @@
 // coalesce. (A first version loaded every value with its own 4-byte load at
 // a 32-byte lane stride, eight L1 wavefronts each, and ran at a tenth of the
 // bytes bound.) The layout is the port's (G, E, D), not the TPU's (G, D, E).
+//
+// Two routes behind each entry point: route 1, bf16 at the widths tc_fits
+// names (every preset), runs the kernels of edge_hidden_tc.cuh; route 0 the
+// kernels below, for f32 (the TPU contracts f32 d_x0 there, which bf16 tensor
+// cores would round) and any other width.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "edge_hidden_tc.cuh"
 #include "reduce_partials.cuh"
 
 namespace {
@@ -240,19 +246,98 @@ int launch_bwd(const void* etype, const void* src, const void* dst,
   return (int)cudaSuccess;
 }
 
+// route 1, forward: one wave of resident blocks, a warp for every tile at
+// most
+int launch_tc(const void* etype, const void* src, const void* dst,
+              const void* ntype, const void* w0, const void* b0, const void* a,
+              const void* b, void* out, int G, int E, int N, int D, int F,
+              int n_rel, int n_ntype, cudaStream_t stream) {
+  const long long n_edges = (long long)G * E;
+  if (n_edges == 0) return (int)cudaSuccess;
+  const int smem = eh_w0_bytes(F, D) + eh_u_bytes(D, n_ntype);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, edge_hidden_tc_kernel,
+                                                EHF_THREADS, smem);
+  const long long wave =
+      (long long)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  const int warps = EHF_THREADS / 32;
+  const long long want = ((n_edges + EH_TILE - 1) / EH_TILE + warps - 1) / warps;
+  const unsigned blocks = (unsigned)(want < wave ? want : wave);
+  edge_hidden_tc_kernel<<<blocks, EHF_THREADS, smem, stream>>>(
+      (const int32_t*)etype, (const int32_t*)src, (const int32_t*)dst,
+      (const int32_t*)ntype, (const float*)w0, (const float*)b0,
+      (const float*)a, (const float*)b, (bf16*)out, n_edges, E, N, D, F, n_rel,
+      n_ntype);
+  return (int)cudaSuccess;
+}
+
+// route 1, backward: the packed rows and masks, n_blocks persistent blocks,
+// then the partials' sum
+template <int NT>
+int launch_bwd_tc(const void* etype, const void* src, const void* dst,
+                  const void* ntype, const void* w0, const void* b0,
+                  const void* a, const void* b, const void* dh, void* part,
+                  void* rows, void* out, int G, int E, int N, int D, int F,
+                  int n_rel, int n_ntype, int n_blocks, cudaStream_t stream) {
+  const int smem = ehb_smem_bytes(F, D, n_ntype);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        edge_hidden_bwd_tc_kernel<NT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long n_edges = (long long)G * E;
+  const long long n_pad = (n_edges + EH_TILE - 1) / EH_TILE * EH_TILE;
+  uint2* masks = (uint2*)((int*)rows + n_pad);
+  edge_rows_kernel<<<(unsigned)((n_pad + 255) / 256), 256, 0, stream>>>(
+      (const int32_t*)etype, (const int32_t*)src, (const int32_t*)dst,
+      (const int32_t*)ntype, (int*)rows, masks, n_edges, n_pad, E, N, n_rel,
+      n_ntype);
+  edge_hidden_bwd_tc_kernel<NT><<<n_blocks, (D + 15) / 16 * 32, smem,
+                                  stream>>>(
+      (const int*)rows, masks, (const float*)w0, (const float*)b0,
+      (const float*)a, (const float*)b, (const bf16*)dh, (float*)part,
+      n_edges, D, F, n_rel, n_ntype);
+  const int n = (F + 3) * D;
+  reduce_partials_kernel<<<(n + 31) / 32, dim3(32, 8), 0, stream>>>(
+      (const float*)part, (float*)out, n_blocks, n);
+  return (int)cudaSuccess;
+}
+
+// what route 1 takes: bf16, D % 8 == 0, D <= 256, F <= 64, a type table of
+// at most EH_MAX_U floats, 16-byte rows
+bool tc_fits(int dtype, int D, int n_rel, int n_ntype, uintptr_t ptrs) {
+  return dtype == 1 && D % 8 == 0 && D > 0 && D <= EH_MAX_D &&
+         n_rel + 2 * n_ntype <= EH_MAX_F && n_ntype * n_ntype * D <= EH_MAX_U &&
+         ptrs % 16 == 0;
+}
+
 }  // namespace
 
-// dtype: 0 = float32 output, 1 = bfloat16 output.
+// dtype: 0 = float32 output, 1 = bfloat16 output. route: 0 = the CUDA-core
+// kernel, 1 = edge_hidden_tc_kernel (see tc_fits).
 extern "C" int edge_hidden_launch(const void* etype, const void* src,
                                   const void* dst, const void* ntype,
                                   const void* w0, const void* b0,
                                   const void* a, const void* b, void* out,
                                   int G, int E, int N, int D, int n_rel,
-                                  int n_ntype, int dtype, void* stream) {
+                                  int n_ntype, int dtype, int route,
+                                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const uintptr_t ptrs = (uintptr_t)w0 | (uintptr_t)b0 | (uintptr_t)a |
+                         (uintptr_t)b | (uintptr_t)out;
+  if (route == 1) {
+    if (!tc_fits(dtype, D, n_rel, n_ntype, ptrs))
+      return (int)cudaErrorInvalidValue;
+    const int err = launch_tc(etype, src, dst, ntype, w0, b0, a, b, out, G, E,
+                              N, D, n_rel + 2 * n_ntype, n_rel, n_ntype, s);
+    return err != 0 ? err : (int)cudaGetLastError();
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   // the vector paths need 16-byte aligned rows
-  const bool aligned = ((uintptr_t)w0 | (uintptr_t)b0 | (uintptr_t)a |
-                        (uintptr_t)b | (uintptr_t)out) % 16 == 0;
+  const bool aligned = ptrs % 16 == 0;
   int err;
   if (dtype == 1)
     err = aligned && D % 8 == 0
@@ -271,24 +356,46 @@ extern "C" int edge_hidden_launch(const void* etype, const void* src,
 
 // dh: (G, E, D) in the forward's output dtype (dtype as above). part is
 // scratch, (n_blocks, F + 3, D) f32; out (F + 3, D) f32 receives dW0 (F, D),
-// then db0, da, db.
+// then db0, da, db. route as above; on route 1 n_blocks is the number of
+// persistent blocks (one an SM at most) and rows scratch of 3 int32 for each
+// of G * E slots rounded up to a multiple of 16 (unused on route 0).
 extern "C" int edge_hidden_bwd_launch(const void* etype, const void* src,
                                       const void* dst, const void* ntype,
                                       const void* w0, const void* b0,
                                       const void* a, const void* b,
-                                      const void* dh, void* part, void* out,
+                                      const void* dh, void* part, void* rows,
+                                      void* out,
                                       int G, int E, int N, int D, int F,
                                       int n_rel, int n_ntype, int n_blocks,
-                                      int dtype, void* stream) {
+                                      int dtype, int route, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if ((long long)G * E == 0 || F != n_rel + 2 * n_ntype)
+  if ((long long)G * E == 0 || F != n_rel + 2 * n_ntype || n_blocks <= 0)
     return (int)cudaErrorInvalidValue;
-  const int err =
-      dtype == 1
-          ? launch_bwd<__nv_bfloat16>(etype, src, dst, ntype, w0, b0, a, b, dh,
-                                      part, out, G, E, N, D, F, n_rel, n_ntype,
-                                      n_blocks, s)
-          : launch_bwd<float>(etype, src, dst, ntype, w0, b0, a, b, dh, part,
-                              out, G, E, N, D, F, n_rel, n_ntype, n_blocks, s);
+  int err;
+  if (route == 1) {
+    const uintptr_t ptrs = (uintptr_t)w0 | (uintptr_t)b0 | (uintptr_t)a |
+                           (uintptr_t)b | (uintptr_t)dh | (uintptr_t)rows;
+    if (!tc_fits(dtype, D, n_rel, n_ntype, ptrs))
+      return (int)cudaErrorInvalidValue;
+    const int nt = (F + 15) / 16 * 2;          // 8-column tiles, even
+    auto go = [&](auto launcher) {
+      return launcher(etype, src, dst, ntype, w0, b0, a, b, dh, part, rows,
+                      out, G, E, N, D, F, n_rel, n_ntype, n_blocks, s);
+    };
+    err = nt <= 2   ? go(launch_bwd_tc<2>)
+          : nt <= 4 ? go(launch_bwd_tc<4>)
+          : nt <= 6 ? go(launch_bwd_tc<6>)
+                    : go(launch_bwd_tc<8>);
+  } else if (route == 0) {
+    err = dtype == 1
+              ? launch_bwd<__nv_bfloat16>(etype, src, dst, ntype, w0, b0, a,
+                                          b, dh, part, out, G, E, N, D, F,
+                                          n_rel, n_ntype, n_blocks, s)
+              : launch_bwd<float>(etype, src, dst, ntype, w0, b0, a, b, dh,
+                                  part, out, G, E, N, D, F, n_rel, n_ntype,
+                                  n_blocks, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return err != 0 ? err : (int)cudaGetLastError();
 }

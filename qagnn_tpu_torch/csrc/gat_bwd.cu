@@ -20,7 +20,11 @@
 //   db_ke = sum dekb.
 // d_msg, dekb and the dnq term are rounded to the compute dtype before the
 // products and scatters, the bias gradients sum the f32 values, and demb is
-// stored in the embedding's dtype after each pass, as on the TPU. The node
+// stored in the embedding's dtype after each pass, as on the TPU. So are the
+// per-source scale and d_denom as gathered, alpha, d_s and the dscale term
+// d_alpha * e: the TPU packs scale and d_denom into compute-dtype node planes,
+// broadcasts alpha and d_s by compute-dtype products and scatters the dscale
+// term in the compute dtype (pallas_gat.py:825, :845, :902, :1081, :1146). The node
 // accumulators dnm, dscale, dnq, dnk arrive seeded with the self-loop
 // cotangents. Masked edges are skipped: their d_msg / dekb rows are written
 // as zeros, so demb there is the carry (or 0) and nothing of them enters a
@@ -142,7 +146,8 @@ bwd1_edge_kernel(const T* __restrict__ gout, const T* __restrict__ nm,
     float ee = 0.0f, a = 0.0f;
     if (e < E && mask[g * E + e]) {
       ee = edge_exp(scores, gmax, g, h, e, E, H);
-      a = ee * scale[(g * N + src[g * E + e]) * H + h];
+      a = round_to<T>(
+          ee * round_to<T>(scale[(g * N + src[g * E + e]) * H + h]));
     }
     s_e[el][h] = ee;
     s_alpha[el][h] = a;
@@ -214,7 +219,8 @@ bwd1_edge_kernel(const T* __restrict__ gout, const T* __restrict__ nm,
           else if (h0 + 1 == h)
             v += s_red[((run * ntx + t) * 2 + 1) * RED_ROW + el];
         }
-      atomicAdd(&dscale[(g * N + src[g * E + e]) * H + h], v * s_e[el][h]);
+      atomicAdd(&dscale[(g * N + src[g * E + e]) * H + h],
+                round_to<T>(v * s_e[el][h]));
     }
     dalpha[(g * H + h) * E + e] = v;
   }
@@ -254,8 +260,10 @@ bwd2_edge_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
     float ds = 0.0f;
     if (e < E && mask[g * E + e]) {
       const long long node = (g * N + src[g * E + e]) * H + h;
-      ds = (dalpha[(g * H + h) * E + e] * scale[node] + d_denom[node]) *
-           edge_exp(scores, gmax, g, h, e, E, H);
+      ds = round_to<T>(
+          (dalpha[(g * H + h) * E + e] * round_to<T>(scale[node]) +
+           round_to<T>(d_denom[node])) *
+          edge_exp(scores, gmax, g, h, e, E, H));
     }
     s_ds[el][h] = ds;
   }

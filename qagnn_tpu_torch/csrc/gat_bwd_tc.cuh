@@ -170,11 +170,13 @@ edge_pass_tc_kernel(const TcArgs a) {
       if (s_node >= 0) {
         const long long node = (g * N + s_node) * H + h;
         ee = tc_edge_exp(a, g, h, e);
+        // rounded where the TPU rounds (gat_bwd.cu's head note)
         if (PASS == 1)
-          wt = ee * a.scale[node];
+          wt = round_to<bf16>(ee * round_to<bf16>(a.scale[node]));
         else
-          wt = (a.dalpha_in[(g * H + h) * E + e] * a.scale[node] +
-                a.d_denom[node]) * ee;
+          wt = round_to<bf16>((a.dalpha_in[(g * H + h) * E + e] *
+                                   round_to<bf16>(a.scale[node]) +
+                               round_to<bf16>(a.d_denom[node])) * ee);
       }
       s_wt[el][h] = wt;
       if (PASS == 1) s_e[el][h] = ee;
@@ -307,7 +309,8 @@ edge_pass_tc_kernel(const TcArgs a) {
         const float v = s_da[h][el];
         a.dalpha_out[(g * H + h) * E + e] = v;
         if (s_src[el] >= 0)
-          atomicAdd(&a.dscale[(g * N + s_src[el]) * H + h], v * s_e[el][h]);
+          atomicAdd(&a.dscale[(g * N + s_src[el]) * H + h],
+                    round_to<bf16>(v * s_e[el][h]));
       }
     }
 

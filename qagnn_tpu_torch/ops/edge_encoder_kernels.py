@@ -16,6 +16,13 @@ it into their edge projections) and
     folded BatchNorm affine, and is differentiable in W0, b0, a, b: its
     backward is the second kernel of csrc/edge_hidden.cu.
 
+`edge_hidden` and its backward have two routes behind one entry point each
+(`_hidden_route`). Route 1, bfloat16 at the widths every preset has
+(csrc/edge_hidden_tc.cuh): persistent blocks hold W0 and a table of the
+type rows' sums in shared memory; the backward streams dh through them and
+forms dW0 as a one-hot product on tensor cores. Route 0, float32 and other
+widths: the CUDA-core kernels of csrc/edge_hidden.cu.
+
 Every kernel has a plain torch version here with the same arithmetic. A
 wrapper takes the plain version for CPU tensors only; for CUDA tensors it
 launches its kernel or raises.
@@ -31,10 +38,14 @@ from qagnn_tpu_torch.ops import _build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"edge_hidden_launch": [_P] * 9 + [_I] * 7 + [_P],
-               "edge_hidden_bwd_launch": [_P] * 11 + [_I] * 9 + [_P]}
+_SIGNATURES = {"edge_hidden_launch": [_P] * 9 + [_I] * 8 + [_P],
+               "edge_hidden_bwd_launch": [_P] * 12 + [_I] * 10 + [_P]}
 _MOMENTS_SIGNATURES = {"edge_moments_launch": [_P] * 6 + [_I] * 5 + [_P]}
 BWD_BLOCKS = 512     # blocks (and rows of partials) of the hidden backward
+# what route 1 takes (csrc/edge_hidden_tc.cuh: EH_MAX_D, EH_MAX_F, EH_MAX_U)
+# and the slots of its tiles (EH_TILE)
+TC_MAX_D, TC_MAX_F, TC_MAX_U = 256, 64, 8192
+TC_TILE = 16
 
 
 _require = _build.require
@@ -95,6 +106,45 @@ def edge_feature_moments(edge_type, src, dst, node_type, mask, n_rel,
 # the hidden pass and its backward
 # --------------------------------------------------------------------------
 
+def _hidden_route(dtype, D, n_rel, n_ntype, route=None):
+    """Route of `edge_hidden` and its backward: 1 (csrc/edge_hidden_tc.cuh)
+    for bfloat16 at D % 8 == 0, D <= 256, F = n_rel + 2 n_ntype <= 64 and
+    n_ntype^2 * D <= 8192 (the type table in shared memory); else 0, the
+    CUDA-core kernels. Dtype and widths alone decide; `route` names one, 0 for
+    bfloat16 to time the CUDA-core kernels beside route 1."""
+    fits = dtype == torch.bfloat16 and D % 8 == 0 and 0 < D <= TC_MAX_D \
+        and n_rel + 2 * n_ntype <= TC_MAX_F and n_ntype ** 2 * D <= TC_MAX_U
+    if route is None:
+        return 1 if fits else 0
+    if route not in (0, 1) or (route == 1 and not fits):
+        raise ValueError(f"no route {route} of the edge_hidden kernels for "
+                         f"{dtype}, D={D}, n_rel={n_rel}, n_ntype={n_ntype}")
+    return route
+
+
+def _bwd_rows_scratch(route, n_edges):
+    """int32 scratch of the backward's route 1: every slot's packed feature
+    rows and 64-bit one-hot mask, 3 int32 a slot, over whole tiles."""
+    return 3 * -(-n_edges // TC_TILE) * TC_TILE if route == 1 else 0
+
+
+def _bwd_blocks(route, n_edges, n_sm):
+    """Blocks of the backward kernel, each of which writes one (F + 3, D)
+    row of partial sums: on route 0 up to BWD_BLOCKS blocks of at least 64
+    slots; on route 1 one persistent block an SM at most, with a tile of
+    16 slots at least."""
+    if route == 1:
+        return max(1, min(n_sm, -(-n_edges // TC_TILE)))
+    return max(1, min(BWD_BLOCKS, -(-n_edges // 64)))
+
+
+def _check_aligned(route, *ts):
+    """Route 1 reads and writes rows in 16-byte pieces."""
+    if route == 1 and any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("route 1 of the edge_hidden kernels needs 16-byte "
+                         "aligned w0, b0, a, b and h / dh")
+
+
 def _x0(rows, w0, b0, out_dtype):
     """W0^T feat + b0 (G, E, D) f32: the three W0 rows are rounded to
     out_dtype and summed in f32, as the TPU kernel's one-hot contraction
@@ -129,8 +179,9 @@ def edge_hidden_backward_plain(edge_type, src, dst, node_type, w0, b0, a, b,
 
 
 def edge_hidden_forward(edge_type, src, dst, node_type, w0, b0, a, b, n_rel,
-                        n_ntype, out_dtype):
-    """`edge_hidden` without the autograd graph."""
+                        n_ntype, out_dtype, _route=None):
+    """`edge_hidden` without the autograd graph. `_route` names a route
+    (`_hidden_route`) to time it beside the other."""
     if not edge_type.is_cuda:
         return edge_hidden_plain(edge_type, src, dst, node_type, w0, b0, a, b,
                                  n_rel, n_ntype, out_dtype)
@@ -148,22 +199,25 @@ def edge_hidden_forward(edge_type, src, dst, node_type, w0, b0, a, b, n_rel,
     _require(w0, "w0", torch.float32, (F, D))
     for t, name in ((b0, "b0"), (a, "a"), (b, "b")):
         _require(t, name, torch.float32, (D,))
+    route = _hidden_route(out_dtype, D, n_rel, n_ntype, _route)
     out = torch.empty((G, E, D), device=edge_type.device, dtype=out_dtype)
+    _check_aligned(route, w0, b0, a, b, out)
     err = _build.load("edge_hidden", _SIGNATURES).edge_hidden_launch(
         edge_type.data_ptr(), src.data_ptr(), dst.data_ptr(),
         node_type.data_ptr(), w0.data_ptr(), b0.data_ptr(), a.data_ptr(),
         b.data_ptr(), out.data_ptr(), G, E, N, D, n_rel, n_ntype,
-        1 if out_dtype == torch.bfloat16 else 0,
+        1 if out_dtype == torch.bfloat16 else 0, route,
         torch.cuda.current_stream().cuda_stream)
     _build.check(err, "edge_hidden")
-    _build.count_launch("edge_hidden")
+    _build.count_launch("edge_hidden", route)
     return out
 
 
 def edge_hidden_backward(edge_type, src, dst, node_type, w0, b0, a, b, dh,
-                         n_rel, n_ntype):
+                         n_rel, n_ntype, _route=None):
     """Gradients of `edge_hidden` in (w0, b0, a, b), f32, from the output
-    cotangent dh (G, E, D) in the forward's output dtype."""
+    cotangent dh (G, E, D) in the forward's output dtype. `_route` as in
+    `edge_hidden_forward`."""
     if not dh.is_cuda:
         return edge_hidden_backward_plain(edge_type, src, dst, node_type, w0,
                                           b0, a, b, dh, n_rel, n_ntype)
@@ -175,7 +229,8 @@ def edge_hidden_backward(edge_type, src, dst, node_type, w0, b0, a, b, dh,
     if dh.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"edge_hidden takes a float32 or bfloat16 cotangent, "
                         f"not {dh.dtype}")
-    if D > 1024 or F * D * 4 > 200 * 1024:
+    route = _hidden_route(dh.dtype, D, n_rel, n_ntype, _route)
+    if route == 0 and (D > 1024 or F * D * 4 > 200 * 1024):
         raise ValueError(f"the edge_hidden backward kernel takes D <= 1024 "
                          f"and F * D <= 51200; got F={F}, D={D}")
     for t, name in ((edge_type, "edge_type"), (src, "src"), (dst, "dst")):
@@ -185,19 +240,24 @@ def edge_hidden_backward(edge_type, src, dst, node_type, w0, b0, a, b, dh,
     for t, name in ((b0, "b0"), (a, "a"), (b, "b")):
         _require(t, name, torch.float32, (D,))
     _require(dh, "dh", dh.dtype, (G, E, D))
-    n_blocks = max(1, min(BWD_BLOCKS, -(-G * E // 64)))
+    _check_aligned(route, w0, b0, a, b, dh)
+    n_blocks = _bwd_blocks(route, G * E, torch.cuda.get_device_properties(
+        dh.device).multi_processor_count)
     part = torch.empty((n_blocks, F + 3, D), device=dh.device,
                        dtype=torch.float32)
+    rows = torch.empty(_bwd_rows_scratch(route, G * E), device=dh.device,
+                       dtype=torch.int32)
     out = torch.empty((F + 3, D), device=dh.device, dtype=torch.float32)
     err = _build.load("edge_hidden", _SIGNATURES).edge_hidden_bwd_launch(
         edge_type.data_ptr(), src.data_ptr(), dst.data_ptr(),
         node_type.data_ptr(), w0.data_ptr(), b0.data_ptr(), a.data_ptr(),
-        b.data_ptr(), dh.data_ptr(), part.data_ptr(), out.data_ptr(), G, E,
+        b.data_ptr(), dh.data_ptr(), part.data_ptr(),
+        rows.data_ptr() if route == 1 else None, out.data_ptr(), G, E,
         N, D, F, n_rel, n_ntype, n_blocks,
-        1 if dh.dtype == torch.bfloat16 else 0,
+        1 if dh.dtype == torch.bfloat16 else 0, route,
         torch.cuda.current_stream().cuda_stream)
     _build.check(err, "edge_hidden_bwd")
-    _build.count_launch("edge_hidden_bwd")
+    _build.count_launch("edge_hidden_bwd", route)
     return out[:F], out[F], out[F + 1], out[F + 2]
 
 

@@ -48,8 +48,10 @@ so the sum over layers is never a separate (G, E, D) add.
 Every kernel has a plain torch version here with the same arithmetic: node
 and edge inputs in the compute dtype, the projection weights rounded to it,
 everything after in f32 except where the TPU kernels round to the compute
-dtype too (pass C's scale, alpha and weighted message; d_msg, dekb and the
-dnq term before products and scatters; demb when stored). A wrapper takes
+dtype too (pass C's scale, alpha and weighted message; backward pass 1's
+scale, alpha and d_alpha * e term, pass 2's scale, d_denom and d_s, each
+before its broadcast or scatter; d_msg, dekb and the dnq term before products
+and scatters; demb when stored). A wrapper takes
 the plain version for CPU tensors only; for CUDA tensors it launches its
 kernel or raises.
 
@@ -372,7 +374,7 @@ def bwd_pass1_plain(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src,
         + _edge_projection_plain(edge_emb, w_me, b_me, cdt)
     g_dst = _gather_nodes(gout, dst).float()
     e = _edge_exp(scores, gmax, mask)                               # (G,E,H)
-    alpha = e * _gather_nodes(scale, src)
+    alpha = _round(e * _gather_nodes(_round(scale, cdt), src), cdt)
     d_msg = heads_to_hd(alpha, HD) * g_dst
     d_msg_c = d_msg.to(cdt)
     demb = d_msg_c.float() @ w_me.to(cdt).float().t()
@@ -381,7 +383,7 @@ def bwd_pass1_plain(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src,
     dalpha = torch.where(mask[..., None], head_sum(msg * g_dst, heads), 0.0)
     dw, db = _weight_grads(edge_emb, d_msg_c, d_msg)
     _scatter_nodes(dnm, src, d_msg_c.float())
-    _scatter_nodes(dscale, src, dalpha * e)
+    _scatter_nodes(dscale, src, _round(dalpha * e, cdt))
     return (demb.to(edge_emb.dtype), dalpha.transpose(1, 2).contiguous(),
             dnm, dscale, dw, db)
 
@@ -562,8 +564,10 @@ def bwd_pass2_plain(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
     key = _gather_nodes(nk, dst).float() \
         + _edge_projection_plain(edge_emb, w_ke, b_ke, cdt)
     q_src = _gather_nodes(nq, src).float()
-    d_s = (dalpha.transpose(1, 2) * _gather_nodes(scale, src)
-           + _gather_nodes(d_denom, src)) * _edge_exp(scores, gmax, mask)
+    scale_src = _gather_nodes(_round(scale, cdt), src)
+    d_s = _round((dalpha.transpose(1, 2) * scale_src
+                  + _gather_nodes(_round(d_denom, cdt), src))
+                 * _edge_exp(scores, gmax, mask), cdt)
     ds_hd = heads_to_hd(d_s, HD)
     dekb = ds_hd * q_src
     dekb_c = dekb.to(cdt)

@@ -8,6 +8,15 @@ against the Pallas moments kernel exactly (integer counts), and
 `edge_hidden`'s gradients in W0, b0, a, b against `jax.grad` over every slot,
 masked ones included, at rtol 2e-5 with an absolute floor of 2e-5 of the
 gradient's largest value.
+
+The same two comparisons in bfloat16, where the plain version rounds where
+`_hidden_fwd_kernel` / `_hidden_bwd_kernel` round (the W0 rows, h, d_x0
+before it enters dW0): h within one bf16 ulp (2^-7 relative; the f32 sums
+before the rounding agree to a few f32 ulps), the gradients within 1e-6 of
+their largest value (f32 sums of the same terms in another order). Then the
+Python the card's two routes share with the CPU: which route a dtype and
+width take, what is refused, and how many rows of partial sums the
+backward's scratch holds.
 """
 
 import numpy as np
@@ -24,6 +33,7 @@ from qagnn_tpu.ops.pallas_edge_encoder import (
 )
 
 from qagnn_tpu_torch.models.gnn import EdgeEncoder
+from qagnn_tpu_torch.ops import edge_encoder_kernels as ek
 from qagnn_tpu_torch.ops.edge_encoder_kernels import (
     analytic_edge_moments,
     edge_feature_moments,
@@ -118,6 +128,114 @@ def test_edge_hidden_gradients_match_pallas(E):
         y = np.asarray(y)
         np.testing.assert_allclose(p.grad.numpy(), y, rtol=2e-5,
                                    atol=2e-5 * np.abs(y).max())
+
+
+def _bf16(x):
+    """x rounded to bfloat16, as f32 numpy."""
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("E", [24, 13])
+def test_edge_hidden_bf16_matches_pallas(E):
+    g = _graph(8, E=E)
+    rng = np.random.default_rng(9)
+    w0 = rng.standard_normal((F, D)).astype(np.float32)
+    b0, a, b = (rng.standard_normal(D).astype(np.float32) for _ in range(3))
+    ints = ("etype", "src", "dst", "ntype")
+    got = edge_hidden(*[_t(g[k]) for k in ints], _t(w0), _t(b0), _t(a),
+                      _t(b), N_REL, N_NTYPE, torch.bfloat16)
+    want = jax_edge_hidden(*[jnp.asarray(g[k]) for k in ints],
+                           *[jnp.asarray(x) for x in (w0, b0, a, b)], N_REL,
+                           N_NTYPE, jnp.bfloat16, True)
+    want = np.swapaxes(np.asarray(want.astype(jnp.float32)), 1, 2)[:, :E]
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
+                               atol=0)
+
+
+@pytest.mark.parametrize("E", [24, 13])
+def test_edge_hidden_bf16_gradients_match_pallas(E):
+    g = _graph(10, E=E)
+    rng = np.random.default_rng(11)
+    w0 = rng.standard_normal((F, D)).astype(np.float32)
+    b0, a, b = (rng.standard_normal(D).astype(np.float32) for _ in range(3))
+    cot = _bf16(rng.standard_normal(g["src"].shape + (D,)).astype(np.float32))
+    ints = ("etype", "src", "dst", "ntype")
+
+    def jax_loss(w0, b0, a, b):
+        h = jax_edge_hidden(*[jnp.asarray(g[k]) for k in ints], w0, b0, a, b,
+                            N_REL, N_NTYPE, jnp.bfloat16, True)  # (G, D, E')
+        return jnp.sum(h[:, :, :E].astype(jnp.float32)
+                       * jnp.swapaxes(jnp.asarray(cot), 1, 2))
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2, 3))(
+        *[jnp.asarray(x) for x in (w0, b0, a, b)])
+    params = [_t(x).requires_grad_() for x in (w0, b0, a, b)]
+    h = edge_hidden(*[_t(g[k]) for k in ints], *params, N_REL, N_NTYPE,
+                    torch.bfloat16)
+    (h.float() * _t(cot)).sum().backward()
+    for name, p, y in zip(("dW0", "db0", "da", "db"), params, want):
+        y = np.asarray(y)
+        err = np.abs(p.grad.numpy() - y).max()
+        assert err <= 1e-6 * np.abs(y).max(), (name, err, np.abs(y).max())
+
+
+@pytest.mark.parametrize("dtype, D, n_rel, n_ntype, route", [
+    (torch.bfloat16, 200, 39, 4, 1),      # CSQA / OBQA: F = 47
+    (torch.bfloat16, 200, 35, 4, 1),      # MedQA: F = 43
+    (torch.bfloat16, 256, 56, 4, 1),      # the widest route 1 takes
+    (torch.bfloat16, 24, 8, 4, 1),        # padded to 32 columns
+    (torch.float32, 200, 39, 4, 0),       # f32: the CUDA-core kernels
+    (torch.bfloat16, 100, 39, 4, 0),      # the default gnn_dim: D % 8 != 0
+    (torch.bfloat16, 264, 39, 4, 0),
+    (torch.bfloat16, 200, 57, 4, 0),      # F = 65
+    (torch.bfloat16, 200, 33, 7, 0),      # a type table of 9800 floats
+])
+def test_hidden_route_by_dtype_and_width(dtype, D, n_rel, n_ntype, route):
+    assert ek._hidden_route(dtype, D, n_rel, n_ntype) == route
+    assert ek._hidden_route(dtype, D, n_rel, n_ntype, 0) == 0
+
+
+@pytest.mark.parametrize("dtype, D, n_rel, n_ntype, route", [
+    (torch.float32, 200, 39, 4, 1),
+    (torch.bfloat16, 100, 39, 4, 1),
+    (torch.bfloat16, 200, 57, 4, 1),
+    (torch.bfloat16, 200, 39, 4, 2),
+])
+def test_hidden_route_refuses(dtype, D, n_rel, n_ntype, route):
+    with pytest.raises(ValueError, match="no route"):
+        ek._hidden_route(dtype, D, n_rel, n_ntype, route)
+
+
+@pytest.mark.parametrize("route, n_edges, scratch", [
+    (1, 64 * 4096, 3 * 64 * 4096),
+    (1, 64 * 4093, 3 * 16 * 16372),       # whole tiles
+    (0, 64 * 4096, 0),
+])
+def test_hidden_backward_rows_scratch(route, n_edges, scratch):
+    """The backward's packed rows and one-hot masks: 3 int32 a slot."""
+    assert ek._bwd_rows_scratch(route, n_edges) == scratch
+
+
+def test_hidden_route_1_refuses_unaligned_rows():
+    t = torch.zeros(12)
+    ek._check_aligned(1, t, t[4:])
+    ek._check_aligned(0, t[1:])
+    with pytest.raises(ValueError, match="16-byte"):
+        ek._check_aligned(1, t, t[1:])
+
+
+@pytest.mark.parametrize("route, n_edges, n_sm, rows", [
+    (1, 64 * 4096, 132, 132),     # the main path: one block an SM
+    (1, 64 * 4093, 132, 132),
+    (1, 40, 132, 3),              # 3 tiles, one a block
+    (1, 16, 132, 1),
+    (0, 64 * 4096, 132, ek.BWD_BLOCKS),
+    (0, 100, 132, 2),
+])
+def test_hidden_backward_partial_rows(route, n_edges, n_sm, rows):
+    """One (F + 3, D) row of partial sums for every block."""
+    assert ek._bwd_blocks(route, n_edges, n_sm) == rows
 
 
 def test_analytic_moments_match_jax():

@@ -13,9 +13,18 @@ run reaches.
 
 Tolerances, each as max|got - want| <= tol * max|want| per array: f32 2e-4
 (the tolerance tests/test_pallas_gat.py uses: f32 sums in another order);
-bf16 6e-2: the TPU kernels round alpha, the scale, d_denom and d_alpha * e
-to bf16 where the port keeps f32, so the two differ by a few bf16 roundings
-(2^-8 each) of terms that are then summed over few edges.
+bf16 6e-2: the backward passes round where the TPU kernels round, but the
+forward's pass A sums its bf16-rounded exponentials against a running
+per-tile max and rescales them online, where the port takes the max first
+(a known difference), so the scale and every gradient downstream of it
+differ by a few bf16 roundings (2^-8 each) of terms summed over few edges.
+
+Each backward pass alone (`bwd_pass1`, `bwd_pass2` on CPU tensors) against
+`_proj_bwd_pass1` / `_proj_bwd_pass2` in interpret mode, given the same
+scores, gmax, scale and d_denom from `_proj_fwd_impl`: within 1e-6 of
+max|want| for every array in both dtypes, since both round to the compute
+dtype at the same points (the scale and d_denom as gathered, alpha, d_s,
+the d_alpha * e term, the cotangents before products and scatters).
 """
 
 import numpy as np
@@ -25,6 +34,10 @@ import jax.numpy as jnp
 import torch
 
 from qagnn_tpu.ops.pallas_gat import (
+    _proj_bwd_glue,
+    _proj_bwd_pass1,
+    _proj_bwd_pass2,
+    _proj_fwd_impl,
     pallas_relational_gat_projected,
     pallas_relational_gat_projected_chained,
 )
@@ -141,6 +154,77 @@ def test_gat_projected_gradients_match_pallas(case, form, dtype):
         assert grads[name].dtype == (
             torch.float32 if name[0] in "wb" else getattr(torch, dtype))
         _close(grads[name], j_grads[name], TOL[dtype], f"d{name}")
+
+
+PASS_TOL = 1e-6
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def _torch(x, dtype=None):
+    t = torch.from_numpy(np.array(x))
+    return t if dtype is None else t.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_backward_passes_alone_match_pallas(case, dtype):
+    """Each pass on the same inputs as the JAX pass, carry included."""
+    shape, heads = CASES[case]
+    a = _inputs(*shape)
+    cdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    for k in CDT_NAMES:
+        j[k] = j[k].astype(cdt)
+    emb_t = jnp.swapaxes(j["edge_emb"], 1, 2)                # (G, D, E)
+    jmask = j["mask"].astype(cdt)
+    nodes = (j["nq"], j["nk"], j["nm"], emb_t, j["w_ke"], j["b_ke"],
+             j["w_me"], j["b_me"], j["skb"], j["smb"], j["src"], j["dst"],
+             jmask)
+    _, scores, gmax, denom_raw, scale, e_self, nms = _proj_fwd_impl(
+        *nodes, heads, True)
+    carry_t = jnp.swapaxes(j["carry"], 1, 2).astype(cdt)
+    (d_alpha_self, d_msg_self, _), b1 = _proj_bwd_pass1(
+        *nodes, scores, gmax, scale, e_self, j["g"], heads, True,
+        carry=carry_t, fold_self=True, packed=nms)
+    demb_m, dalpha, dscale, dnm, dw_me, db_me = b1
+    HD = a["nq"].shape[-1]
+    d_denom, _, dnq_self, dnk_self = _proj_bwd_glue(
+        j["nq"], j["nk"], j["skb"], denom_raw, scale, e_self, d_alpha_self,
+        dscale, HD)
+    want2 = _proj_bwd_pass2(
+        j["nq"], j["nk"], emb_t, j["w_ke"], j["b_ke"], scores, gmax, dalpha,
+        scale, d_denom, j["src"], j["dst"], jmask, demb_m, heads, True,
+        self_terms=(dnq_self, dnk_self))
+
+    t = {k: _torch(v, tdt if k in CDT_NAMES else None) for k, v in a.items()}
+    f = {k: _torch(_np(v)) for k, v in dict(
+        scores=scores, gmax=gmax, scale=scale, d_denom=d_denom,
+        dalpha=dalpha, dnm=d_msg_self,
+        dscale=d_alpha_self * e_self, dnq=dnq_self, dnk=dnk_self).items()}
+    got1 = gat_kernels.bwd_pass1(
+        _torch(a["g"], tdt), t["nm"], t["edge_emb"], t["w_me"], t["b_me"],
+        f["scores"], f["gmax"], f["scale"], t["src"], t["dst"], t["mask"],
+        _torch(a["carry"], tdt), f["dnm"], f["dscale"], heads)
+    # the TPU kernel leaves d_alpha of a masked slot as computed (nothing
+    # reads it: e is 0 there); the port writes 0
+    want1 = (jnp.swapaxes(demb_m, 1, 2), dalpha * jmask[:, None, :], dnm,
+             dscale, dw_me, db_me.reshape(-1))
+    for name, x, y in zip(("demb", "dalpha", "dnm", "dscale", "dW_me",
+                           "db_me"), got1, want1):
+        _close(x, y, PASS_TOL, f"pass 1 {name}")
+    got2 = gat_kernels.bwd_pass2(
+        t["nq"], t["nk"], t["edge_emb"], t["w_ke"], t["b_ke"], f["scores"],
+        f["gmax"], f["dalpha"], f["scale"], f["d_denom"], t["src"],
+        t["dst"], t["mask"], _torch(_np(jnp.swapaxes(demb_m, 1, 2)), tdt),
+        f["dnq"], f["dnk"], heads)
+    demb2, dnq, dnk, dw_ke, db_ke = want2
+    want2 = (jnp.swapaxes(demb2, 1, 2), dnq, dnk, dw_ke, db_ke.reshape(-1))
+    for name, x, y in zip(("demb", "dnq", "dnk", "dW_ke", "db_ke"), got2,
+                          want2):
+        _close(x, y, PASS_TOL, f"pass 2 {name}")
 
 
 def test_carry_is_added_once_and_masked_slots_pass_it_through():
