@@ -18,14 +18,21 @@ Run from the repository root on a machine with one CUDA card. It
      same inputs, and torch.profiler's device time by kernel name; the
      edge encoder's hidden pass and its backward on both of their routes in
      bf16 (also at D=24 x F=16 and D=256 x F=64, and at D=100 where only
-     the CUDA-core route runs), route 1 timed in turns with route 0;
+     the CUDA-core route runs), route 1 timed in turns with route 0; the
+     feature moments exactly, also for the MedQA relations, 7 node types and
+     unaligned arrays, beside an empty kernel's time, with the CUDA kernels
+     of one call listed (one launch); the unprojected op's backward pass 2
+     on both of its routes in f32 and bf16 (also at HD=96 and HD=256 with 8
+     heads, and at N=4000 where only route 0 runs), route 1 timed in turns
+     with route 0 in both dtypes;
   4. holds the gradients of the autograd Functions on the kernels (the
      projected op, the train-mode edge encoder, the unprojected op) against
      torch.autograd through the plain scatter path, in float32;
   5. drives the op-level entry point `relational_gat_attention_nodes` on
      CUDA tensors with no backend named, forward and backward, checks that
-     each of the unprojected op's five kernels ran exactly once and that
-     the scatter backend launched none, compares both backends, and times
+     each of the unprojected op's five kernels ran exactly once (backward
+     pass 2 on its route 1) and that the scatter backend launched none,
+     compares both backends, and times
      them beside the projected op at the same shapes;
   6. serves the OBQA roberta-large LMQAGNN (random weights from a seed,
      perturbed BatchNorm running statistics) through `make_eval_step` on the
@@ -46,9 +53,11 @@ Run from the repository root on a machine with one CUDA card. It
      limit, and as its last line {"ok": true, "device": {...}}.
 
 `--only kernels,grads,op,serve,detail,train` runs a subset of the phases
-(for work on one of them; `fwd`, `bwd` and `enc` are the kernel phase's
-parts for the GAT forward passes A and C, for the two GAT backward passes
-and for the edge encoder's three kernels (rows 10-12) alone);
+(for work on one of them; `fwd`, `bwd`, `enc`, `moments` and `unproj` are
+the kernel phase's parts for the GAT forward passes A and C, for the two GAT
+backward passes, for the edge encoder's three kernels (rows 10-12), for its
+feature moments (row 10) and for the unprojected op's five kernels (rows
+1-5) alone);
 with no arguments everything runs. `--csrc DIR` builds the kernels from a
 copy of the sources in DIR.
 
@@ -236,31 +245,42 @@ def bound(n_bytes: float, flops: float, dtype) -> tuple[float, str]:
 
 
 def measure(reports, name, err, kernel, plain, n_bytes, flops, dtype,
-            previous=None):
+            previous=None,
+            previous_is="the CUDA-core kernels on the same bf16 inputs"):
     """Time a kernel and its plain version at the main path's inputs and
     file them, with the bound, under `name`. No PyTorch call computes any
     of these functions whole, so library_ms is None. `previous`: the
-    kernel's earlier version on the same inputs, timed in turns with it
-    (kernel, previous, previous, kernel) and printed as previous_ms."""
-    ms = device_ms(kernel)
-    if previous is not None:
-        prev = (device_ms(previous), device_ms(previous))
-        again = device_ms(kernel)
-        previous_ms = sum(prev) / 2
-        log(f"  time {name:<18} kernel {ms:.4f} and {again:.4f} ms  "
-            f"previous_ms {previous_ms:.4f} ({prev[0]:.4f} and {prev[1]:.4f}:"
-            f" the CUDA-core kernels on the same bf16 inputs)  "
-            f"{'faster' if max(ms, again) < min(prev) else 'NOT FASTER'}")
-        if not max(ms, again) < min(prev):
-            FAILURES.append(f"{name}: the kernel on the main path is not "
-                            "faster than its previous version")
-        ms = (ms + again) / 2
+    kernel's earlier version on the same inputs (`previous_is` says which),
+    timed in turns with it (kernel, previous, previous, kernel) and printed
+    as previous_ms."""
+    if previous is None:
+        ms = device_ms(kernel)
+    else:
+        ms = faster_than_previous(name, kernel, previous, previous_is)
     plain_ms = device_ms(plain)
     bound_ms, by = bound(n_bytes, flops, dtype)
     log(f"  time {name:<18} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
         f"bound {bound_ms:.4f} ms ({by})")
     reports[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=by, library_ms=None)
+
+
+def faster_than_previous(name, kernel, previous, previous_is):
+    """Time a kernel in turns with its earlier version on the same inputs
+    (kernel, previous, previous, kernel); a failure unless both of the
+    kernel's times lie below both of the earlier version's. Returns the
+    kernel's mean time."""
+    ms = device_ms(kernel)
+    prev = (device_ms(previous), device_ms(previous))
+    again = device_ms(kernel)
+    faster = max(ms, again) < min(prev)
+    log(f"  time {name:<18} kernel {ms:.4f} and {again:.4f} ms  "
+        f"previous_ms {sum(prev) / 2:.4f} ({prev[0]:.4f} and {prev[1]:.4f}:"
+        f" {previous_is})  {'faster' if faster else 'NOT FASTER'}")
+    if not faster:
+        FAILURES.append(f"{name}: the kernel on the main path is not "
+                        "faster than its previous version")
+    return (ms + again) / 2
 
 
 # ---------------------------------------------------------------------------
@@ -439,22 +459,66 @@ def encoder_ints(gen, dev, n_edges, n_rel):
     return etype, src, dst, ntype, mask
 
 
-def phase_edge_moments(gen, dev, reports):
-    n_rel = 39
-    for n_edges in (E, E - 3):
-        args = (*encoder_ints(gen, dev, n_edges, n_rel), n_rel, N_NTYPE)
+def unaligned(t):
+    """A contiguous copy of t whose data starts 4 bytes past a 16-byte
+    boundary (the moments kernel then reads one slot a thread)."""
+    buf = torch.empty(t.numel() + 16 // t.element_size(), device=t.device,
+                      dtype=t.dtype)
+    out = buf[4 // t.element_size():][:t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def phase_edge_moments(gen, more_gen, dev, reports):
+    """The moments kernel against its plain version exactly: the OBQA /
+    CSQA relations (39 with the self loop) at E and ragged E from `gen`;
+    from `more_gen` the MedQA preset's (35), one relation and 7 node types,
+    and arrays that start off a 16-byte boundary. Graph 1 has no masked
+    slot in every case. At the main shapes also its time, the launch floor
+    beside it, and the CUDA kernels of one call."""
+    cases = [(gen, 39, N_NTYPE, E, False), (gen, 39, N_NTYPE, E - 3, False),
+             (more_gen, 35, N_NTYPE, E, False),
+             (more_gen, 1, 7, E - 3, False),
+             (more_gen, 39, N_NTYPE, E - 3, True)]
+    for g_, n_rel, n_ntype, n_edges, odd in cases:
+        etype, src, dst, ntype, mask = encoder_ints(g_, dev, n_edges, n_rel)
+        if n_ntype != N_NTYPE:
+            ntype = torch.randint(0, n_ntype, ntype.shape, generator=g_,
+                                  device=dev, dtype=torch.int32)
+        ints = (etype, src, dst, ntype, mask)
+        if odd:
+            ints = tuple(unaligned(t) for t in ints)
+        args = (*ints, n_rel, n_ntype)
+        tag = f"n_rel={n_rel} n_ntype={n_ntype} E={n_edges}" \
+            + (" unaligned" if odd else "")
         got = ek.edge_feature_moments(*args)
         want = ek.edge_feature_moments_plain(*args)
-        errs = [compare(f"edge_moments {name} E={n_edges}", g, w, 0.0)
+        errs = [compare(f"edge_moments {name} {tag}", g, w, 0.0)
                 for name, g, w in zip(("hist", "M", "n"), got, want)]
-        if n_edges == E:
+        if n_rel == 39 and n_edges == E:
             # three increments of hist and nine of M per masked slot
-            live = args[4].float().mean().item()
+            live = mask.float().mean().item()
             measure(reports, "edge_moments", max(errs),
                     lambda: ek.edge_feature_moments(*args),
                     lambda: ek.edge_feature_moments_plain(*args),
-                    nbytes(*args[:5], *got), 13.0 * live * G * n_edges,
+                    nbytes(*ints, *got), 13.0 * live * G * n_edges,
                     torch.float32)
+            floor = device_ms(lambda: torch.cuda._sleep(0))
+            log(f"  launch floor: an empty kernel (torch.cuda._sleep(0)) "
+                f"{floor:.4f} ms by the same device_ms")
+            rows = profile_kernels("edge_moments",
+                                   lambda: ek.edge_feature_moments(*args))
+            if rows is None:
+                FAILURES.append("edge_moments: the profiler listed no "
+                                "kernel of one call, so its one launch "
+                                "is not shown")
+            elif len(rows) != 1 or "edge_moments_kernel" not in rows[0][2] \
+                    or rows[0][1] != 20:
+                FAILURES.append("edge_moments: one call runs other kernels "
+                                f"than its one launch: {rows}")
+            else:
+                log("  kernels of one edge_moments call: edge_moments_kernel"
+                    " alone, one launch (no memset, no conversion)  ok")
 
 
 def edge_hidden_bwd_case(reports, args, dt, tag, main):
@@ -520,7 +584,8 @@ def phase_edge_hidden_widths(gen, dev, reports):
 
 def profile_kernels(what, fn, iters=20):
     """Device time by kernel name over `iters` calls of fn, from
-    torch.profiler's CUDA activity; says so if it records none."""
+    torch.profiler's CUDA activity: rows of (device us, launches, name), or
+    None (and says so) where it records none."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -533,7 +598,7 @@ def profile_kernels(what, fn, iters=20):
         events = prof.key_averages()
     except Exception as exc:      # a diagnostic: the checks do not need it
         log(f"  torch.profiler, {what}: failed on this machine: {exc!r}")
-        return
+        return None
     device_us = lambda e: getattr(e, "device_time_total", None) \
         or getattr(e, "cuda_time_total", 0)
     rows = sorted(((device_us(e), e.count, e.key) for e in events
@@ -541,12 +606,13 @@ def profile_kernels(what, fn, iters=20):
     if not rows:
         log(f"  torch.profiler, {what}: key_averages() shows no device time "
             "on this machine; times come from CUDA events")
-        return
+        return None
     log(f"  torch.profiler, {what}: device time per call by kernel, "
         f"{iters} calls")
     for us, count, key in rows[:8]:
         log(f"    {us / iters:10.1f} us  {count / iters:4.1f} launches  "
             f"{key[:100]}")
+    return rows
 
 
 def gat_bwd_inputs(gen, dev, D, HD, heads, src, dst, mask, dt):
@@ -794,22 +860,16 @@ def phase_gat_unproj(gen, dev, reports):
             dnk0 = ds_self * nq.float()
             p2 = (nq, nk, ekb, e_edge_p, dalpha, scale, d_denom, src, dst,
                   mask)
-            got = uk.bwd2(*p2, dnq0.clone(), dnk0.clone(), HEADS)
-            want = uk.bwd2_plain(*p2, dnq0.clone(), dnk0.clone(), HEADS)
-            names = ("dekb", "dnq", "dnk")
-            errs = [compare(f"gat_unproj_bwd2 {name} {tag}", g_, w, tol)
-                    for name, g_, w in zip(names, got, want)]
-            if bool((got[0][~mask] != 0).any()):
-                FAILURES.append(f"gat_unproj_bwd2 masked slots {tag}")
-            if main:
+            bwd2_case(reports, p2, dnq0, dnk0, HEADS, dt, tag, main)
+            if n_edges == E and dt == f32:
+                # f32 at the main shapes takes route 1 too: it must beat
+                # route 0 there as well
                 scratch = (dnq0.clone(), dnk0.clone())
-                measure(reports, "gat_unproj_bwd2", max(errs),
-                        lambda: uk.bwd2(*p2, *scratch, HEADS),
-                        lambda: uk.bwd2_plain(*p2, *scratch, HEADS),
-                        live * nbytes(ekb, e_edge_p, dalpha, src, dst)
-                        + nbytes(nq, nk, scale, d_denom, mask, got[0])
-                        + 2 * nbytes(got[1], got[2]),
-                        7.0 * per_elem, f32)
+                faster_than_previous(
+                    "gat_unproj_bwd2 f32",
+                    lambda: uk.bwd2(*p2, *scratch, HEADS),
+                    lambda: uk.bwd2(*p2, *scratch, HEADS, _route=0),
+                    "route 0, a warp an edge, on the same inputs")
 
             # the whole forward on the kernel path against the plain chain
             op = uk.gat_unprojected_forward(nq, nk, nm, ekb, emb, skb, smb,
@@ -817,6 +877,78 @@ def phase_gat_unproj(gen, dev, reports):
             compare(f"gat_unprojected_forward out {tag}", op[0], out_p, tol)
             if not bool(torch.isfinite(op[0][~has_edge]).all()):
                 FAILURES.append(f"non-finite output of empty graph {tag}")
+
+
+def bwd2_routes(dt, N_, E_, HD, heads):
+    """The routes of bwd2 at this dtype and width: both where route 1
+    takes it, else route 0."""
+    return (0, 1) if uk._bwd2_route(dt, N_, E_, HD, heads) else (0,)
+
+
+def bwd2_case(reports, p2, dnq0, dnk0, heads, dt, tag, main):
+    """bwd2 on each route its shapes take against its plain version, masked
+    slots' dekb exactly; at the main shapes also its time, route 1's beside
+    route 0's on the same inputs."""
+    nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst, mask = p2
+    G_, N_, HD = nq.shape
+    tol = TOL["unproj"][dt]
+    want = uk.bwd2_plain(*p2, dnq0.clone(), dnk0.clone(), heads)
+    n_edges = src.shape[1]
+    for route in bwd2_routes(dt, N_, n_edges, HD, heads):
+        got = uk.bwd2(*p2, dnq0.clone(), dnk0.clone(), heads, _route=route)
+        errs = [compare(f"gat_unproj_bwd2 {name} {tag} route {route}", g_, w,
+                        tol)
+                for name, g_, w in zip(("dekb", "dnq", "dnk"), got, want)]
+        if bool((got[0][~mask] != 0).any()):
+            FAILURES.append(f"gat_unproj_bwd2 masked slots {tag} route "
+                            f"{route}")
+    if main:
+        # live slots' rows of ekb, e_edge, d_alpha and indices; dekb whole
+        # (a masked slot is written as 0); the node accumulators read and
+        # written
+        live = mask.float().mean().item()
+        scratch = (dnq0.clone(), dnk0.clone())
+        measure(reports, "gat_unproj_bwd2", max(errs),
+                lambda: uk.bwd2(*p2, *scratch, heads),
+                lambda: uk.bwd2_plain(*p2, *scratch, heads),
+                live * nbytes(ekb, e_edge, dalpha, src, dst)
+                + nbytes(nq, nk, scale, d_denom, mask, got[0])
+                + 2 * nbytes(got[1], got[2]),
+                7.0 * live * G_ * n_edges * HD, torch.float32,
+                previous=lambda: uk.bwd2(*p2, *scratch, heads, _route=0),
+                previous_is="route 0, a warp an edge, on the same inputs")
+
+
+def phase_bwd2_widths(gen, dev):
+    """bwd2 off the main width, with random per-slot and per-node terms:
+    HD=96 and HD=256 with 8 heads (heads straddle route 1's slices) at
+    ragged E on both routes, and N=4000 nodes, whose block route 1 cannot
+    fit, on route 0 alone."""
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)
+    for G_, N_, HD, heads in ((G, N, 96, 8), (G, N, 256, 8), (4, 4000, 200, 4)):
+        n_edges = E - 3
+        mask = torch.rand((G_, n_edges), generator=gen, device=dev) > 0.25
+        mask[1] = False
+        idx = lambda: torch.randint(0, N_, (G_, n_edges), generator=gen,
+                                    device=dev, dtype=torch.int32)
+        src, dst = idx(), idx()
+        e_edge = torch.where(mask[:, None, :],
+                             torch.rand((G_, heads, n_edges), generator=gen,
+                                        device=dev), 0.0)
+        dalpha = torch.where(mask[:, None, :], r(G_, heads, n_edges), 0.0)
+        scale, d_denom = r(G_, N_, heads).abs() + 0.5, r(G_, N_, heads) * 0.1
+        for dt in (torch.float32, torch.bfloat16):
+            nq = (r(G_, N_, HD) / (HD // heads) ** 0.5).to(dt)
+            nk, ekb = (r(G_, N_, HD) * 0.5).to(dt), \
+                (r(G_, n_edges, HD) * 0.5).to(dt)
+            p2 = (nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst, mask)
+            dnq0, dnk0 = r(G_, N_, HD) * 0.1, r(G_, N_, HD) * 0.1
+            routes = bwd2_routes(dt, N_, n_edges, HD, heads)
+            if N_ == 4000 and routes != (0,):
+                FAILURES.append("bwd2: route 1 takes N=4000")
+            bwd2_case(None, p2, dnq0, dnk0, heads, dt,
+                      f"G={G_} N={N_} HD={HD} heads={heads} E={n_edges} {dt}",
+                      False)
 
 
 # ---------------------------------------------------------------------------
@@ -979,6 +1111,12 @@ def phase_op(gen, dev, reports, card):
             f"{counts}  {'ok' if ok else 'FAIL'}")
         if not ok:
             FAILURES.append(f"launch counts of the op, {name}")
+        on_1 = _build.ROUTES["gat_unproj_bwd2", 1]
+        log(f"  routes, {name}: gat_unproj_bwd2 {on_1} of "
+            f"{counts.get('gat_unproj_bwd2', 0)} on route 1  "
+            f"{'ok' if on_1 == counts.get('gat_unproj_bwd2', 0) else 'FAIL'}")
+        if on_1 != counts.get("gat_unproj_bwd2", 0):
+            FAILURES.append(f"gat_unproj_bwd2 off route 1 in the op, {name}")
         if dt == torch.bfloat16:
             for k in UNPROJ_KERNELS:
                 reports[k]["launches"] = counts.get(k, 0)
@@ -1477,7 +1615,7 @@ def phase_train(dev, reports, card, cfg, model, enc_cfg, gen):
 
 PHASES = ("kernels", "grads", "op", "serve", "detail", "train")
 # parts of the kernel phase that can be asked for alone
-KERNEL_PARTS = ("fwd", "bwd", "enc")
+KERNEL_PARTS = ("fwd", "bwd", "enc", "moments", "unproj")
 
 
 def main() -> int:
@@ -1544,9 +1682,10 @@ def main() -> int:
     if only & {"kernels", "fwd"}:
         log("\n[kernels 6 and 7: GAT pass A (two launches) and pass C]")
         phase_gat(new_gen(17), dev, reports)
-    if only & {"kernels", "enc"}:
+    if only & {"kernels", "enc", "moments"}:
         log("\n[kernel 10: edge_moments]")
-        phase_edge_moments(gen, dev, reports)
+        phase_edge_moments(gen, new_gen(19), dev, reports)
+    if only & {"kernels", "enc"}:
         log("\n[kernel 12: edge_hidden_bwd]")
         phase_edge_hidden_bwd(gen, dev, reports)
         log("\n[kernels 11 and 12 at other widths]")
@@ -1554,9 +1693,11 @@ def main() -> int:
     if only & {"kernels", "bwd"}:
         log("\n[kernels 8 and 9: GAT backward pass 1 and pass 2]")
         phase_gat_bwd(gen, new_gen(16), dev, reports)
-    if "kernels" in only:
+    if only & {"kernels", "unproj"}:
         log("\n[kernels 1 to 5: the unprojected GAT op, forward and backward]")
         phase_gat_unproj(new_gen(12), dev, reports)
+        log("\n[kernel 5 at other widths and at an N route 1 cannot hold]")
+        phase_bwd2_widths(new_gen(20), dev)
     if "grads" in only:
         log("\n[op gradients: the Functions on the kernels vs autograd "
             "through the scatter path, f32]")

@@ -9,6 +9,7 @@
 //   `_aggr_kernel`   (:373, via `_fwd_impl` :460) -> gat_unproj_aggr
 //   `_bwd1_kernel`   (:481, via `_bwd_impl` :589) -> gat_unproj_bwd1
 //   `_bwd2_kernel`   (:517, via `_bwd_impl` :617) -> gat_unproj_bwd2
+//     (route 0, bwd2_kernel; route 1, bwd2_graph_kernel, further down)
 //
 // scores: s[g, h, e] = sum over head h of nq[src] * (nk[dst] + ekb[e]) and
 //   the max over masked edges per (graph, head) by an atomic max on the
@@ -49,6 +50,7 @@
 // (scores, e_edge, d_alpha) are staged through shared memory so that a block
 // reads and writes them as runs of 32 consecutive floats per head.
 #include "gat_common.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -352,6 +354,418 @@ bwd2_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bwd2, route 1: a graph's slots grouped by node, its node rows owned.
+//
+// Route 0 (bwd2_kernel above) scatters every live edge's dnq and dnk rows
+// with 16-byte global atomics and gathers its nq and nk rows through L2: at
+// G=64 x E=4096, HD=200, 75% live that is about 315 MB of L2 atomic traffic
+// and 157 MB of gathers beside the 210 MB of ekb and dekb that device memory
+// has to move, and the atomics set its time. Here one block owns graph g and
+// a slice of CW columns (a multiple of 8; the last slice may be narrower).
+// It stages the slice of nq and nk (by cp.async, behind the sort) and the
+// slice's heads' scale and d_denom in shared memory, computes every slot's
+// d_s for those heads into a table, and sorts the live slots by source and
+// by destination (a counting sort in shared memory, on native integer
+// atomics). Then three passes, no atomics on floats anywhere (a shared f32
+// atomicAdd compiles to a compare-and-swap loop on this card, and a first
+// version that accumulated with it ran 2.4x slower than route 0):
+//   1. each group of threads takes a run of whole source nodes and sums
+//      their slots' dnq terms, round(d_s * (nk[dst] + ekb)), in registers,
+//      with the next slots' ekb slices in flight; it adds each node's sum
+//      onto the node's seeded row, read ahead, which no other thread
+//      touches;
+//   2. the same over destination nodes for dnk, round(d_s * nq[src]), from
+//      shared memory alone;
+//   3. dekb = round(d_s * nq[src]) for every slot in slot order (zeros where
+//      masked), so that the stores run along the block's slice of
+//      consecutive rows: written per slot in source order, as a first
+//      version did, they cost more than the whole ekb read.
+// A third of the warps start with each pass, so that an SM reads, writes
+// and computes at the same time. What is left to move is ekb in (by row
+// slices in source order) and dekb out, the node rows, and the indices,
+// mask, e_edge and d_alpha that every slice reads again.
+//
+// Bound on the H100: bytes, ekb read and dekb written once (210 MB in bf16
+// at the shapes above) beside the node arrays and the per-slot terms. This
+// version runs at about 2.8x that (PERF.md): the sort and the d_s table are
+// a serial prologue of every block, and the source-ordered ekb reads touch
+// a few 32-byte sectors of a row at a time.
+//
+// Threads: nch = CW / 8 threads a slot, 8 consecutive columns a thread (one
+// 16-byte load in bf16, two in f32), BU slots of a node in flight. A
+// thread's 8 columns span at most two heads (heads of at least 8 features),
+// so it reads d_s for one or two heads a slot.
+constexpr int BT = 256;                 // threads of a route-1 block
+constexpr int BU = 4;                   // slots a thread has in flight
+constexpr int PB = 8;                   // loads a thread has in flight while
+                                        // it counts the slots
+
+// n = 8 values as T at p (16-byte aligned)
+template <typename T>
+__device__ __forceinline__ void store_row8(T* __restrict__ p, const float* v) {
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+    alignas(16) __nv_bfloat16 h[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) h[j] = __float2bfloat16(v[j]);
+    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(h);
+  }
+}
+
+// a node's 8 seeded f32 values at p (16-byte aligned), read ahead of its
+// sum, and the sum written back
+__device__ __forceinline__ void load_seed8(const float* __restrict__ p,
+                                           float4 (&seed)[2]) {
+  seed[0] = reinterpret_cast<const float4*>(p)[0];
+  seed[1] = reinterpret_cast<const float4*>(p)[1];
+}
+__device__ __forceinline__ void store_sum8(float* __restrict__ p,
+                                           const float4 (&a)[2],
+                                           const float* v) {
+  float4* q = reinterpret_cast<float4*>(p);
+  q[0] = make_float4(a[0].x + v[0], a[0].y + v[1], a[0].z + v[2],
+                     a[0].w + v[3]);
+  q[1] = make_float4(a[1].x + v[4], a[1].y + v[5], a[1].z + v[6],
+                     a[1].w + v[7]);
+}
+
+// heads that the slice [c0, c0 + cw) touches
+__host__ __device__ inline int slice_heads(int c0, int cw, int dph) {
+  return (c0 + cw - 1) / dph - c0 / dph + 1;
+}
+
+// dynamic shared memory of a route-1 block of width cw with hs heads: the
+// nq and nk slices; (scale, d_denom) per node and head, whose room the two
+// sorts' uint16 permutations take over once d_s is made; d_s per slot and
+// head; each slot's (src, dst); the sorts' offsets and cursors
+__host__ __device__ inline size_t bwd2_shared_room(int N, int E, int hs) {
+  const size_t a = (size_t)N * hs * sizeof(float2), b = (size_t)E * 4;
+  return ((a > b ? a : b) + 15) / 16 * 16;
+}
+__host__ __device__ inline size_t bwd2_smem(int N, int E, int cw, int hs,
+                                            int elem) {
+  return (size_t)N * cw * 2 * elem + bwd2_shared_room(N, E, hs) +
+         (size_t)E * hs * sizeof(float) + (size_t)E * sizeof(uint32_t) +
+         (size_t)(4 * N + 2) * sizeof(int);
+}
+
+// exclusive scan of cnt[0, n) into off[0, n] and cur[0, n), by one warp
+__device__ __forceinline__ void warp_offsets(const int* cnt, int* off,
+                                             int* cur, int n, int lane) {
+  const int per = (n + 31) / 32, i0 = lane * per;
+  int sum = 0;
+  for (int i = i0; i < i0 + per && i < n; ++i) sum += cnt[i];
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += t;
+  }
+  int run = incl - sum;
+  for (int i = i0; i < i0 + per && i < n; ++i) {
+    const int c = cnt[i];               // cur may be cnt itself
+    off[i] = cur[i] = run;
+    run += c;
+  }
+  if (lane == 31) off[n] = incl;
+}
+
+// the first node whose run starts at or after virtual slot v
+__device__ __forceinline__ int first_node(const int* off, int n, int v) {
+  int lo = 0, hi = n;                   // off[n] >= v always
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (off[mid] >= v) hi = mid; else lo = mid + 1;
+  }
+  return lo;
+}
+
+// the slots v .. v + BU - 1 of a permutation (e = -1 past vend) and their
+// ekb pieces of 8 columns, as raw 16-byte words
+template <typename T, int NV>
+__device__ __forceinline__ void fetch_slots(const uint16_t* perm, int v,
+                                            int vend,
+                                            const T* __restrict__ ekb_g,
+                                            int HD, int col, int (&ev)[BU],
+                                            uint4 (&raw)[BU][NV]) {
+#pragma unroll
+  for (int u = 0; u < BU; ++u) {
+    ev[u] = v + u < vend ? perm[v + u] : -1;
+    if (ev[u] >= 0) {
+      const uint4* p =
+          reinterpret_cast<const uint4*>(ekb_g + (long long)ev[u] * HD + col);
+#pragma unroll
+      for (int j = 0; j < NV; ++j) raw[u][j] = p[j];
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BT)
+bwd2_graph_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
+                  const T* __restrict__ ekb, const float* __restrict__ e_edge,
+                  const float* __restrict__ dalpha,
+                  const float* __restrict__ scale,
+                  const float* __restrict__ d_denom,
+                  const int32_t* __restrict__ src,
+                  const int32_t* __restrict__ dst,
+                  const uint8_t* __restrict__ mask, T* __restrict__ dekb,
+                  float* __restrict__ dnq, float* __restrict__ dnk, int E,
+                  int N, int HD, int H, int CW) {
+  constexpr int NV = 8 * sizeof(T) / 16;  // 16-byte words of 8 values
+  constexpr uint32_t DEAD = 0xffffffffu;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long g = blockIdx.y;
+  const int c0 = blockIdx.x * CW;
+  const int cw = min(CW, HD - c0), nch = cw / 8;
+  const int dph = HD / H, h_lo = c0 / dph, hs = slice_heads(c0, cw, dph);
+  T* s_nq = reinterpret_cast<T*>(smem);
+  T* s_nk = s_nq + N * cw;
+  unsigned char* room = reinterpret_cast<unsigned char*>(s_nk + N * cw);
+  float2* s_term = reinterpret_cast<float2*>(room);         // scale, d_denom
+  uint16_t* perm_s = reinterpret_cast<uint16_t*>(room);     // E, later
+  uint16_t* perm_d = perm_s + E;                            // E, later
+  float* s_ds = reinterpret_cast<float*>(room + bwd2_shared_room(N, E, hs));
+  uint32_t* s_sd = reinterpret_cast<uint32_t*>(s_ds + E * hs);  // src, dst
+  int* off_s = reinterpret_cast<int*>(s_sd + E);             // N + 1
+  int* off_d = off_s + N + 1;                                // N + 1
+  int* cur_s = off_d + N + 1;                                // N
+  int* cur_d = cur_s + N;                                    // N
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int32_t* g_src = src + g * E;
+  const int32_t* g_dst = dst + g * E;
+  const uint8_t* g_mask = mask + g * E;
+  T* dekb_g = dekb + g * E * HD;
+
+  // stage the slice by cp.async, which lands while the slots are counted
+  // and sorted below; the heads' terms by plain loads; zero the counts
+  constexpr int EW = 16 / sizeof(T);     // values of a 16-byte word
+  for (int i = tid; i < N * nch; i += BT) {
+    const int r = i / nch, c = 8 * (i % nch);
+    const long long o = (g * N + r) * HD + c0 + c;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      cp_async16(s_nq + r * cw + c + j * EW, nq + o + j * EW);
+      cp_async16(s_nk + r * cw + c + j * EW, nk + o + j * EW);
+    }
+  }
+  cp_async_commit();
+#pragma unroll 4
+  for (int i = tid; i < N * hs; i += BT) {
+    const long long node = (g * N + i / hs) * H + h_lo + i % hs;
+    s_term[i] = make_float2(scale[node], d_denom[node]);
+  }
+  for (int i = tid; i < N; i += BT) cur_s[i] = cur_d[i] = 0;
+  __syncthreads();
+
+  // every slot, PB a thread at once: its (src, dst) or DEAD, and the live
+  // slots' counts per node
+  for (int e0 = tid; e0 < E; e0 += PB * BT) {
+    bool lv[PB];
+    int sv[PB], dv[PB];
+#pragma unroll
+    for (int k = 0; k < PB; ++k) {
+      const int e = e0 + k * BT;
+      lv[k] = e < E && g_mask[e];
+      sv[k] = e < E ? g_src[e] : 0;
+      dv[k] = e < E ? g_dst[e] : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < PB; ++k) {
+      const int e = e0 + k * BT;
+      if (e >= E) break;
+      if (lv[k]) {
+        atomicAdd(&cur_s[sv[k]], 1);
+        atomicAdd(&cur_d[dv[k]], 1);
+      }
+      s_sd[e] = lv[k] ? (uint32_t)sv[k] | (uint32_t)dv[k] << 16 : DEAD;
+    }
+  }
+  __syncthreads();
+  // d_s per slot and slice head (0 where masked), PB a thread at once
+  for (int i0 = tid; i0 < E * hs; i0 += PB * BT) {
+    float da[PB], ee[PB];
+#pragma unroll
+    for (int k = 0; k < PB; ++k) {
+      const int i = i0 + k * BT;
+      if (i < E * hs) {
+        const long long ghe = (g * H + h_lo + i / E) * E + i % E;
+        da[k] = dalpha[ghe];
+        ee[k] = e_edge[ghe];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < PB; ++k) {
+      const int i = i0 + k * BT;
+      if (i >= E * hs) break;
+      const int hh = i / E, e = i % E;
+      const uint32_t sd = s_sd[e];
+      float ds = 0.0f;
+      if (sd != DEAD) {
+        const float2 t = s_term[(sd & 0xffff) * hs + hh];
+        ds = (da[k] * t.x + t.y) * ee[k];
+      }
+      s_ds[e * hs + hh] = ds;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) warp_offsets(cur_s, off_s, cur_s, N, lane);
+  if (warp == 1) warp_offsets(cur_d, off_d, cur_d, N, lane);
+  __syncthreads();
+  for (int e = tid; e < E; e += BT) {   // s_term's room becomes the perms
+    const uint32_t sd = s_sd[e];
+    if (sd == DEAD) continue;
+    perm_s[atomicAdd(&cur_s[sd & 0xffff], 1)] = (uint16_t)e;
+    perm_d[atomicAdd(&cur_d[sd >> 16], 1)] = (uint16_t)e;
+  }
+  cp_async_wait<0>();                    // this thread's staged words
+  __syncthreads();
+
+  const int groups = BT / nch;           // groups of nch threads
+  const int grp = tid / nch, ch = tid % nch;
+  if (grp >= groups) return;
+  const int col = c0 + 8 * ch;           // the thread's first column
+  const int hA = col / dph, hB = (col + 7) / dph;
+  const int kb = (hA + 1) * dph - col;   // columns k < kb lie in head hA
+  const int lA = hA - h_lo, lB = hB - h_lo;
+  const int n_live = off_s[N];
+  const int per = (n_live + groups - 1) / groups;
+  const int v0 = min(n_live, grp * per), v1 = min(n_live, v0 + per);
+
+  // pass 1, slots by source, a group's whole nodes as one run with the
+  // next BU slots' ekb in flight: dnq rows summed in registers
+  auto pass1 = [&]() {
+    int n = first_node(off_s, N, v0);
+    const int a = off_s[n], b = off_s[first_node(off_s, N, v1)];
+    int end = a;                         // forces the first node's set-up
+    bool held = false;                   // acc holds node n's sum
+    float q[8], acc[8];
+    float4 seed[2];                      // node n's dnq row, read ahead
+    int ev[BU];
+    uint4 raw[BU][NV];
+    if (a < b) fetch_slots<T, NV>(perm_s, a, b, ekb + g * E * HD, HD, col, ev,
+                                  raw);
+    for (int v = a; v < b; v += BU) {
+      int ev_n[BU];
+      uint4 raw_n[BU][NV];
+      fetch_slots<T, NV>(perm_s, v + BU, b, ekb + g * E * HD, HD, col, ev_n,
+                         raw_n);
+#pragma unroll
+      for (int u = 0; u < BU; ++u) {
+        if (ev[u] < 0) break;
+        const int vv = v + u;
+        if (vv >= end) {
+          if (held) store_sum8(dnq + (g * N + n) * HD + col, seed, acc);
+          while (off_s[n + 1] <= vv) ++n;  // the node that holds vv
+          end = off_s[n + 1];
+          load_row<T, 8>(s_nq + n * cw + 8 * ch, q);
+          load_seed8(dnq + (g * N + n) * HD + col, seed);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) acc[k] = 0.0f;
+          held = true;
+        }
+        const int e = ev[u];
+        const float dsA = s_ds[e * hs + lA], dsB = s_ds[e * hs + lB];
+        float kk[8], bb[8];
+        load_row<T, 8>(s_nk + (s_sd[e] >> 16) * cw + 8 * ch, kk);
+        load_row<T, 8>(reinterpret_cast<const T*>(raw[u]), bb);
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          acc[k] += round_to<T>((k < kb ? dsA : dsB) * (kk[k] + bb[k]));
+      }
+#pragma unroll
+      for (int u = 0; u < BU; ++u) {
+        ev[u] = ev_n[u];
+#pragma unroll
+        for (int j = 0; j < NV; ++j) raw[u][j] = raw_n[u][j];
+      }
+    }
+    if (held) store_sum8(dnq + (g * N + n) * HD + col, seed, acc);
+  };
+
+  // pass 2, slots by destination, a group's whole nodes as one run: dnk
+  // rows summed in registers
+  auto pass2 = [&]() {
+    int n = first_node(off_d, N, v0);
+    const int a = off_d[n], b = off_d[first_node(off_d, N, v1)];
+    int end = a;
+    bool held = false;
+    float acc[8];
+    float4 seed[2];                      // node n's dnk row, read ahead
+    for (int v = a; v < b; ++v) {
+      if (v >= end) {
+        if (held) store_sum8(dnk + (g * N + n) * HD + col, seed, acc);
+        while (off_d[n + 1] <= v) ++n;
+        end = off_d[n + 1];
+        load_seed8(dnk + (g * N + n) * HD + col, seed);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc[k] = 0.0f;
+        held = true;
+      }
+      const int e = perm_d[v];
+      const float dsA = s_ds[e * hs + lA], dsB = s_ds[e * hs + lB];
+      float q[8];
+      load_row<T, 8>(s_nq + (s_sd[e] & 0xffff) * cw + 8 * ch, q);
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        acc[k] += round_to<T>((k < kb ? dsA : dsB) * q[k]);
+    }
+    if (held) store_sum8(dnk + (g * N + n) * HD + col, seed, acc);
+  };
+
+  // pass 3, slots in order: dekb = round(d_s * nq[src]), zeros where
+  // masked, so that a block's stores run along its slice of each row
+  auto pass3 = [&]() {
+    for (int e0 = grp; e0 < E; e0 += BU * groups) {
+#pragma unroll
+      for (int u = 0; u < BU; ++u) {
+        const int e = e0 + u * groups;
+        if (e >= E) break;
+        const uint32_t sd = s_sd[e];
+        float dk[8];
+        if (sd == DEAD) {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) dk[k] = 0.0f;
+        } else {
+          const float dsA = s_ds[e * hs + lA], dsB = s_ds[e * hs + lB];
+          float q[8];
+          load_row<T, 8>(s_nq + (sd & 0xffff) * cw + 8 * ch, q);
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            dk[k] = round_to<T>((k < kb ? dsA : dsB) * q[k]);
+        }
+        store_row8<T>(dekb_g + (long long)e * HD + col, dk);
+      }
+    }
+  };
+
+  // a third of the warps start with each pass, so that an SM reads ekb,
+  // writes dekb and works from shared memory at the same time (by warp,
+  // not by group: the lanes of a warp take one pass at a time)
+  for (int step = 0; step < 3; ++step) {
+    const int pass = (step + warp) % 3;
+    if (pass == 0) pass1();
+    else if (pass == 1) pass2();
+    else pass3();
+  }
+}
+
+// opt a route-1 kernel into its dynamic shared memory, and ask for the
+// largest shared-memory carveout, so that two blocks share an SM where their
+// tables fit (CUDA may otherwise pick a carveout that holds one)
+template <typename K>
+cudaError_t set_smem(K kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
 bool shapes_ok(int HD, int H) {
   return HD > 0 && HD % 8 == 0 && HD <= MAX_HD && H > 0 && H <= MAX_H &&
          HD % H == 0;
@@ -470,20 +884,54 @@ extern "C" int gat_unproj_bwd1(const void* gout, const void* nm,
 }
 
 // dekb (G, E, HD) is written whole; dnq and dnk (G, N, HD) f32 arrive seeded
-// and are added to in place.
+// and are added to in place. route 0: the warp-per-edge kernel; route 1: a
+// block per (graph, slice of cw columns), which takes heads of at least 8
+// features, E <= 65536 and the shared memory of bwd2_smem.
 extern "C" int gat_unproj_bwd2(const void* nq, const void* nk,
                                const void* ekb, const void* e_edge,
                                const void* dalpha, const void* scale,
                                const void* d_denom, const void* src,
                                const void* dst, const void* mask, void* dekb,
                                void* dnq, void* dnk, int G, int N, int E,
-                               int HD, int H, int dtype, void* stream) {
+                               int HD, int H, int dtype, int route, int cw,
+                               void* stream) {
   if (!shapes_ok(HD, H) || !aligned16(nq) || !aligned16(nk) ||
       !aligned16(ekb) || !aligned16(dekb) || !aligned16(dnq) ||
-      !aligned16(dnk))
+      !aligned16(dnk) || (route != 0 && route != 1))
     return (int)cudaErrorInvalidValue;
   if ((long long)G * E == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == 1) {
+    const int dph = HD / H;
+    if (N <= 0 || N > 65536 || E > 65536 || cw <= 0 || cw % 8 || dph < 8)
+      return (int)cudaErrorInvalidValue;
+    int hs = 1;
+    for (int c0 = 0; c0 < HD; c0 += cw)
+      hs = max(hs, slice_heads(c0, min(cw, HD - c0), dph));
+    const size_t smem = bwd2_smem(N, E, cw, hs, dtype == 1 ? 2 : 4);
+    if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+    const dim3 grid((HD + cw - 1) / cw, G);
+    if (dtype == 1) {
+      typedef __nv_bfloat16 T;
+      const cudaError_t err = set_smem(bwd2_graph_kernel<T>, smem);
+      if (err != cudaSuccess) return (int)err;
+      bwd2_graph_kernel<T><<<grid, BT, smem, s>>>(
+          (const T*)nq, (const T*)nk, (const T*)ekb, (const float*)e_edge,
+          (const float*)dalpha, (const float*)scale, (const float*)d_denom,
+          (const int32_t*)src, (const int32_t*)dst, (const uint8_t*)mask,
+          (T*)dekb, (float*)dnq, (float*)dnk, E, N, HD, H, cw);
+    } else {
+      typedef float T;
+      const cudaError_t err = set_smem(bwd2_graph_kernel<T>, smem);
+      if (err != cudaSuccess) return (int)err;
+      bwd2_graph_kernel<T><<<grid, BT, smem, s>>>(
+          (const T*)nq, (const T*)nk, (const T*)ekb, (const float*)e_edge,
+          (const float*)dalpha, (const float*)scale, (const float*)d_denom,
+          (const int32_t*)src, (const int32_t*)dst, (const uint8_t*)mask,
+          (T*)dekb, (float*)dnq, (float*)dnk, E, N, HD, H, cw);
+    }
+    return (int)cudaGetLastError();
+  }
   if (dtype == 1) {
     typedef __nv_bfloat16 T;
     bwd2_kernel<T><<<edge_grid(G, E), UTHREADS, 0, s>>>(

@@ -7,7 +7,9 @@ rows [onehot(rel) | onehot(type[src]) | onehot(type[dst])], F = n_rel +
 it into their edge projections) and
 
   * `edge_feature_moments` (csrc/edge_moments.cu) counts the masked slots'
-    feature histogram, second moment and rows: data only, no gradient;
+    feature histogram, second moment and rows: data only, no gradient; one
+    launch counts the (relation, head type, tail type) triples and expands
+    them;
   * `analytic_edge_moments` turns them into the closed-form masked row sums
     of x0 = feat W0 + b0 that train-mode BatchNorm needs, in plain torch ops
     so that autograd carries the gradient through mean and variance;
@@ -40,7 +42,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"edge_hidden_launch": [_P] * 9 + [_I] * 8 + [_P],
                "edge_hidden_bwd_launch": [_P] * 12 + [_I] * 10 + [_P]}
-_MOMENTS_SIGNATURES = {"edge_moments_launch": [_P] * 6 + [_I] * 5 + [_P]}
+_MOMENTS_SIGNATURES = {"edge_moments_launch": [_P] * 7 + [_I] * 5 + [_P]}
+# the dynamic shared memory a block of csrc/edge_moments.cu may opt into
+# (less room for its static flag)
+MOMENTS_MAX_SMEM = 227 * 1024 - 64
 BWD_BLOCKS = 512     # blocks (and rows of partials) of the hidden backward
 # what route 1 takes (csrc/edge_hidden_tc.cuh: EH_MAX_D, EH_MAX_F, EH_MAX_U)
 # and the slots of its tiles (EH_TILE)
@@ -74,12 +79,34 @@ def edge_feature_moments_plain(edge_type, src, dst, node_type, mask, n_rel,
     return hist.float(), M.float(), m.sum().float()
 
 
+def _moments_smem(n_rel, n_ntype):
+    """Shared memory of the moments kernel's block: the T = n_rel *
+    n_ntype^2 triple counts and the last block's tables (relation x type
+    twice, type x type), int32."""
+    return 4 * (n_rel * n_ntype ** 2 + 2 * n_rel * n_ntype + n_ntype ** 2)
+
+
+_TABLES: dict = {}
+
+
+def _moments_table(device, stream, T):
+    """The moments kernel's ticket and table of T triple counts for
+    launches on this device and stream: 1 + T int32, allocated zeroed once;
+    the kernel leaves them at 0 after every launch. Launches on one stream
+    run one after another, so no two use a table at once."""
+    key = (torch.device(device).index, stream, T)
+    if key not in _TABLES:
+        _TABLES[key] = torch.zeros(1 + T, device=device, dtype=torch.int32)
+    return _TABLES[key]
+
+
 def edge_feature_moments(edge_type, src, dst, node_type, mask, n_rel,
                          n_ntype):
     """Masked feature histogram (F,), second moment feat^T feat (F, F) and
     row count () over all graphs' edge slots, f32 (exact integer counts).
     edge_type/src/dst: (G, E) int32; node_type: (G, N) int32; mask: (G, E)
-    bool. No gradient flows through these."""
+    bool. No gradient flows through these. On CUDA tensors: one launch
+    (csrc/edge_moments.cu), which writes the three outputs whole."""
     if not edge_type.is_cuda:
         return edge_feature_moments_plain(edge_type, src, dst, node_type,
                                           mask, n_rel, n_ntype)
@@ -90,16 +117,21 @@ def edge_feature_moments(edge_type, src, dst, node_type, mask, n_rel,
         _require(t, name, torch.int32, (G, E))
     _require(node_type, "node_type", torch.int32, (G, N))
     _require(mask, "mask", torch.bool, (G, E))
-    counts = torch.zeros(F + F * F + 1, device=edge_type.device,
-                         dtype=torch.int32)
+    if _moments_smem(n_rel, n_ntype) > MOMENTS_MAX_SMEM:
+        raise ValueError(f"the moments kernel counts n_rel * n_ntype^2 "
+                         f"triples in shared memory; n_rel={n_rel}, "
+                         f"n_ntype={n_ntype} do not fit")
+    dev = edge_type.device
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty(F + F * F + 1, device=dev, dtype=torch.float32)
     err = _build.load("edge_moments", _MOMENTS_SIGNATURES).edge_moments_launch(
         edge_type.data_ptr(), src.data_ptr(), dst.data_ptr(),
-        node_type.data_ptr(), mask.data_ptr(), counts.data_ptr(), G, E, N,
-        n_rel, n_ntype, torch.cuda.current_stream().cuda_stream)
+        node_type.data_ptr(), mask.data_ptr(),
+        _moments_table(dev, stream, n_rel * n_ntype ** 2).data_ptr(),
+        out.data_ptr(), G, E, N, n_rel, n_ntype, stream)
     _build.check(err, "edge_moments")
     _build.count_launch("edge_moments")
-    counts = counts.float()
-    return counts[:F], counts[F:F + F * F].reshape(F, F), counts[-1]
+    return out[:F], out[F:F + F * F].reshape(F, F), out[-1]
 
 
 # --------------------------------------------------------------------------

@@ -33,7 +33,13 @@ its scores) and runs
     self-loop score cotangents;
   * `bwd2` (`gat_unproj_bwd2`): d_s = (d_alpha * scale[src] + d_denom[src])
     * e_edge -> dekb = d_s * nq[src] (every slot), dnq[src] += round(d_s *
-    key), dnk[dst] += round(dekb); one launch.
+    key), dnk[dst] += round(dekb); one launch. Two routes (`_bwd2_route`):
+    route 1, where heads have at least 8 features and the block fits, runs
+    a block per (graph, column slice) that sorts the graph's live slots by
+    source and by destination in shared memory, sums each node's terms in
+    registers before adding them onto its seeded row, and writes dekb in
+    slot order, with no atomics on floats; route 0 a warp per edge with
+    global atomics.
 
 No gradient flows through gmax. Every kernel has a plain torch version here
 with the same arithmetic and the same rounding points. A wrapper takes the
@@ -69,8 +75,13 @@ _SIGNATURES = {
     "gat_unproj_denoms": [_P] * 7 + [_I] * 4 + [_P],
     "gat_unproj_aggr": [_P] * 8 + [_I] * 6 + [_P],
     "gat_unproj_bwd1": [_P] * 12 + [_I] * 6 + [_P],
-    "gat_unproj_bwd2": [_P] * 13 + [_I] * 6 + [_P],
+    "gat_unproj_bwd2": [_P] * 13 + [_I] * 8 + [_P],
 }
+# route 1 of bwd2 (csrc/gat_unproj.cu, bwd2_graph_kernel): the shared memory
+# a block may have so that two fit on an SM, and the most it may opt into
+# (at least 8 bytes a slot and 32 a node, so E and N stay below the limit of
+# its uint16 indices)
+BWD2_PAIR_SMEM, BWD2_MAX_SMEM = 113 * 1024, 227 * 1024
 
 
 def _lib():
@@ -301,13 +312,60 @@ def bwd2_plain(nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst, mask,
     return dekb.to(ekb.dtype), dnq, dnk
 
 
+def _bwd2_smem(N, E, HD, heads, cw, elem):
+    """Dynamic shared memory of a route-1 block (`bwd2_smem` in
+    csrc/gat_unproj.cu) for N nodes, E slots and cw columns: the nq and nk
+    slices (elem bytes a value); room for (scale, d_denom) per node, which
+    the sorts' two uint16 permutations take over later; d_s per slot for
+    the most heads a slice touches; each slot's packed (src, dst); the
+    sorts' offsets and cursors (int32)."""
+    dph = HD // heads
+    hs = max((c0 + min(cw, HD - c0) - 1) // dph - c0 // dph + 1
+             for c0 in range(0, HD, cw))
+    room = -(-max(8 * N * hs, 4 * E) // 16) * 16
+    return 2 * N * cw * elem + room + 4 * E * hs + 4 * E + 4 * (4 * N + 2)
+
+
+def _bwd2_width(dtype, N, E, HD, heads):
+    """Columns of a route-1 slice: the widest (the fewest slices, each a
+    multiple of 8 columns) whose block leaves room for two an SM; else the
+    widest that fits at all; None where 8 columns do not fit."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    n8 = HD // 8
+    widths = sorted({8 * -(-n8 // n) for n in range(1, n8 + 1)},
+                    reverse=True)
+    for limit in (BWD2_PAIR_SMEM, BWD2_MAX_SMEM):
+        for cw in widths:
+            if _bwd2_smem(N, E, HD, heads, cw, elem) <= limit:
+                return cw
+    return None
+
+
+def _bwd2_route(dtype, N, E, HD, heads, route=None):
+    """Route of `bwd2`: 1 (a block per graph and column slice over the
+    graph's slots sorted by node) for float32 and bfloat16 with heads of at
+    least 8 features and a slice's block that fits (`_bwd2_width`); else
+    0, the warp-per-edge kernel. `route` names one, 0 to time the
+    warp-per-edge kernel beside route 1."""
+    fits = dtype in (torch.float32, torch.bfloat16) and HD % 8 == 0 \
+        and HD // heads >= 8 \
+        and _bwd2_width(dtype, N, E, HD, heads) is not None
+    if route is None:
+        return 1 if fits else 0
+    if route not in (0, 1) or (route == 1 and not fits):
+        raise ValueError(f"no route {route} of gat_unproj_bwd2 for {dtype}, "
+                         f"N={N}, E={E}, HD={HD}, heads={heads}")
+    return route
+
+
 def bwd2(nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst, mask, dnq,
-         dnk, heads):
+         dnk, heads, _route=None):
     """Backward pass 2. dnq and dnk (G, N, HD) f32 arrive seeded with the
     self-loop cotangents and are added to IN PLACE.
 
     Returns (dekb (G, E, HD) in ekb's dtype, zeros at masked slots, dnq,
-    dnk)."""
+    dnk). `_route` names a route (`_bwd2_route`), to time it beside the
+    other."""
     if not nq.is_cuda:
         return bwd2_plain(nq, nk, ekb, e_edge, dalpha, scale, d_denom, src,
                           dst, mask, dnq, dnk, heads)
@@ -325,15 +383,17 @@ def bwd2(nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst, mask, dnq,
     _require_graph(src, dst, mask, G, E)
     _require(dnq, "dnq", torch.float32, (G, N, HD))
     _require(dnk, "dnk", torch.float32, (G, N, HD))
+    route = _bwd2_route(cdt, N, E, HD, heads, _route)
+    cw = _bwd2_width(cdt, N, E, HD, heads) if route == 1 else 0
     dekb = torch.empty_like(ekb)
     err = _lib().gat_unproj_bwd2(
         nq.data_ptr(), nk.data_ptr(), ekb.data_ptr(), e_edge.data_ptr(),
         dalpha.data_ptr(), scale.data_ptr(), d_denom.data_ptr(),
         src.data_ptr(), dst.data_ptr(), mask.data_ptr(), dekb.data_ptr(),
         dnq.data_ptr(), dnk.data_ptr(), G, N, E, HD, heads, _dtype_code(nq),
-        _stream())
+        route, cw, _stream())
     _build.check(err, "gat_unproj_bwd2")
-    _build.count_launch("gat_unproj_bwd2")
+    _build.count_launch("gat_unproj_bwd2", route)
     return dekb, dnq, dnk
 
 

@@ -17,6 +17,12 @@ their largest value (f32 sums of the same terms in another order). Then the
 Python the card's two routes share with the CPU: which route a dtype and
 width take, what is refused, and how many rows of partial sums the
 backward's scratch holds.
+
+The moments kernel counts (relation, head type, tail type) triples and
+expands the counts into (hist, M, n): a numpy mirror of that arithmetic is
+held against the Pallas moments kernel exactly, for the CSQA / OBQA and
+MedQA relations and for 7 node types, with the kernel's block count and
+shared memory beside it.
 """
 
 import numpy as np
@@ -102,6 +108,77 @@ def test_edge_feature_moments_match_pallas(E):
     assert float(got[2]) == g["mask"].sum()
     assert float(got[0].sum()) == 3 * g["mask"].sum()
     assert float(got[1].sum()) == 9 * g["mask"].sum()
+
+
+def _triple_counts(g, n_rel, n_ntype):
+    """C[r, a, b]: the masked slots of each (relation, head type, tail
+    type) triple, what the moments kernel's blocks count."""
+    head = np.take_along_axis(g["ntype"], g["src"], 1)
+    tail = np.take_along_axis(g["ntype"], g["dst"], 1)
+    key = (g["etype"] * n_ntype + head) * n_ntype + tail
+    return np.bincount(key[g["mask"]], minlength=n_rel * n_ntype ** 2) \
+        .reshape(n_rel, n_ntype, n_ntype)
+
+
+def _expand_triple_counts(C, n_rel, n_ntype):
+    """hist, M, n from the triple counts as the moments kernel's last block
+    expands them (csrc/edge_moments.cu): the three two-way tables RA = sum
+    over tail types, RB = sum over head types, AB = sum over relations; the
+    histogram from them; M's diagonal blocks diag(hist), its off-diagonal
+    blocks the tables; n the sum over relations of the histogram."""
+    nt, F = n_ntype, n_rel + 2 * n_ntype
+    RA, RB, AB = C.sum(2), C.sum(1), C.sum(0)
+    hist = np.concatenate([RA.sum(1), AB.sum(1), AB.sum(0)])
+    M = np.diag(hist)
+    rel, head, tail = slice(0, n_rel), slice(n_rel, n_rel + nt), \
+        slice(n_rel + nt, F)
+    M[rel, head], M[rel, tail], M[head, tail] = RA, RB, AB
+    M[head, rel], M[tail, rel], M[tail, head] = RA.T, RB.T, AB.T
+    return hist, M, hist[:n_rel].sum()
+
+
+@pytest.mark.parametrize("n_rel, n_ntype, E", [
+    (39, 4, 24),          # CSQA / OBQA: 38 relations and the self loop
+    (35, 4, 13),          # MedQA: 34 relations and the self loop, ragged E
+    (1, 7, 13),
+    (38, 4, 24),          # the relations without the self loop
+    (39, 4, 1),           # one slot a graph
+    (2, 1, 9),            # one node type: head and tail features coincide
+    (12, 5, 7),
+    (4, 9, 31),           # more node types than relations
+])
+def test_triple_count_expansion_matches_pallas(n_rel, n_ntype, E):
+    """The moments kernel's arithmetic, counting triples and expanding
+    them, equals the Pallas moments kernel exactly."""
+    rng = np.random.default_rng(n_rel * 100 + E)
+    G, N = 3, 10
+    g = dict(etype=rng.integers(0, n_rel, (G, E)).astype(np.int32),
+             src=rng.integers(0, N, (G, E)).astype(np.int32),
+             dst=rng.integers(0, N, (G, E)).astype(np.int32),
+             ntype=rng.integers(0, n_ntype, (G, N)).astype(np.int32),
+             mask=rng.random((G, E)) > 0.25)
+    g["mask"][1] = False                       # a graph with no masked slot
+    keys = ("etype", "src", "dst", "ntype", "mask")
+    want = jax_feature_moments(*[jnp.asarray(g[k]) for k in keys], n_rel,
+                               n_ntype, True)
+    got = _expand_triple_counts(_triple_counts(g, n_rel, n_ntype), n_rel,
+                                n_ntype)
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(x, np.float32),
+                                      np.asarray(y))
+    plain = edge_feature_moments(*[_t(g[k]) for k in keys], n_rel, n_ntype)
+    for x, y in zip(plain, want):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+
+
+def test_moments_shared_memory_takes_every_width_the_old_kernel_took():
+    """The counting kernel that the triple counts replaced took F + F^2 + 1
+    int32 counters in 48 KB of shared memory (F <= 110); every (n_rel,
+    n_ntype) with such an F fits the triple counts and tables in a block."""
+    assert ek._moments_smem(39, 4) == 4 * (624 + 2 * 156 + 16)
+    for n_ntype in range(1, 55):
+        for n_rel in range(1, 111 - 2 * n_ntype):
+            assert ek._moments_smem(n_rel, n_ntype) <= ek.MOMENTS_MAX_SMEM
 
 
 @pytest.mark.parametrize("E", [24, 13])

@@ -264,11 +264,16 @@ WRAPPERS = {
         a["nq"], a["nk"], a["ekb"], r["e_edge"], r["e_edge"] * 0.5,
         r["scale"], r["scale"] * 0.1, a["src"], a["dst"], a["mask"],
         torch.zeros_like(a["nq"]), torch.zeros_like(a["nq"]), HEADS),
+    "bwd2 route 1": lambda a, r: uk.bwd2(
+        a["nq"], a["nk"], a["ekb"], r["e_edge"], r["e_edge"] * 0.5,
+        r["scale"], r["scale"] * 0.1, a["src"], a["dst"], a["mask"],
+        torch.zeros_like(a["nq"]), torch.zeros_like(a["nq"]), HEADS,
+        _route=1),
 }
 PLAIN = {"edge_scores": uk.edge_scores_plain,
          "edge_denoms": uk.edge_denoms_plain,
          "aggregate": uk.aggregate_plain, "bwd1": uk.bwd1_plain,
-         "bwd2": uk.bwd2_plain}
+         "bwd2": uk.bwd2_plain, "bwd2 route 1": uk.bwd2_plain}
 
 
 @pytest.mark.parametrize("name", sorted(WRAPPERS))
@@ -293,3 +298,55 @@ def test_wrapper_takes_plain_version_only_on_cpu(name, monkeypatch):
     assert sum(_build.LAUNCHES.values()) == 0
     assert all(torch.isfinite(o).all() for o in out) \
         if isinstance(out, tuple) else torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("dtype, N, E, HD, heads, route, cw", [
+    (torch.bfloat16, 200, 4096, 200, 4, 1, 56),   # the op's main shapes
+    (torch.float32, 200, 4096, 200, 4, 1, 24),
+    (torch.bfloat16, 200, 4093, 96, 8, 1, 24),    # heads of 12 straddle
+    (torch.bfloat16, 200, 4093, 256, 8, 1, 48),
+    (torch.float32, 200, 4096, 256, 8, 1, 32),
+    (torch.bfloat16, 1500, 4096, 200, 4, 1, 16),  # one block an SM
+    (torch.bfloat16, 200, 4096, 32, 8, 0, 16),    # heads of 4 features
+    (torch.bfloat16, 4000, 4093, 200, 4, 0, None),  # no slice fits
+    (torch.bfloat16, 200, 20000, 200, 4, 0, None),
+    (torch.bfloat16, 8, 70000, 16, 2, 0, None),   # the slots' tables
+])
+def test_bwd2_route_by_dtype_and_shape(dtype, N, E, HD, heads, route, cw):
+    """Route 1 takes f32 and bf16 where heads have at least 8 features and
+    a block of the widest slice that fits two an SM (else one) holds the
+    graph's tables; route 0, the warp-per-edge kernel, the rest."""
+    assert uk._bwd2_route(dtype, N, E, HD, heads) == route
+    assert uk._bwd2_route(dtype, N, E, HD, heads, 0) == 0
+    assert uk._bwd2_width(dtype, N, E, HD, heads) == cw
+    if cw is not None:
+        assert uk._bwd2_smem(N, E, HD, heads, cw, dtype.itemsize) \
+            <= uk.BWD2_MAX_SMEM
+
+
+@pytest.mark.parametrize("dtype, N, E, HD, heads, route", [
+    (torch.bfloat16, 200, 4096, 32, 8, 1),
+    (torch.bfloat16, 4000, 4096, 200, 4, 1),
+    (torch.bfloat16, 8, 70000, 16, 2, 1),
+    (torch.float16, 200, 4096, 200, 4, 1),
+    (torch.bfloat16, 200, 4096, 200, 4, 2),
+])
+def test_bwd2_route_refuses(dtype, N, E, HD, heads, route):
+    with pytest.raises(ValueError, match="no route"):
+        uk._bwd2_route(dtype, N, E, HD, heads, route)
+
+
+def test_bwd2_smem_counts_the_most_heads_a_slice_touches():
+    """At HD=200 with heads of 50, one slice of all columns touches four
+    heads, 72-column slices two each (72 to 144 straddles 100), and so do
+    some 8-column ones (48 to 56 straddles 50). The block holds nq and nk
+    (bf16 here); room for (scale, d_denom) per node and head that the sorts'
+    two uint16 permutations reuse, the larger of the two; d_s per slot and
+    head; each slot's packed (src, dst); the sorts' offsets and cursors."""
+    for cw, hs in ((200, 4), (72, 2), (8, 2)):
+        room = max(200 * hs * 8, 4096 * 4)
+        assert uk._bwd2_smem(200, 4096, 200, 4, cw, 2) \
+            == 200 * cw * 4 + room + 4096 * hs * 4 + 4096 * 4 + 802 * 4
+    # few slots: the per-node terms set the shared room, rounded to 16
+    assert uk._bwd2_smem(200, 100, 200, 4, 200, 2) \
+        == 200 * 200 * 4 + 6400 + 100 * 4 * 4 + 100 * 4 + 802 * 4
