@@ -21,17 +21,19 @@ Run from the repository root on a machine with one CUDA card. It
      the CUDA-core route runs), route 1 timed in turns with route 0; the
      feature moments exactly, also for the MedQA relations, 7 node types and
      unaligned arrays, beside an empty kernel's time, with the CUDA kernels
-     of one call listed (one launch); the unprojected op's backward pass 2
-     on both of its routes in f32 and bf16 (also at HD=96 and HD=256 with 8
-     heads, and at N=4000 where only route 0 runs), route 1 timed in turns
-     with route 0 in both dtypes;
+     of one call listed (one launch); the unprojected op's aggregation and
+     backward passes 1 and 2 on both of their routes in f32 and bf16, their
+     masked slots held exactly (also at HD=96 and HD=256 with 8 heads, and
+     at N=4000, where backward pass 2 runs route 0 alone), route 1 timed in
+     turns with route 0 in both dtypes and listed by torch.profiler;
   4. holds the gradients of the autograd Functions on the kernels (the
      projected op, the train-mode edge encoder, the unprojected op) against
      torch.autograd through the plain scatter path, in float32;
   5. drives the op-level entry point `relational_gat_attention_nodes` on
      CUDA tensors with no backend named, forward and backward, checks that
-     each of the unprojected op's five kernels ran exactly once (backward
-     pass 2 on its route 1) and that the scatter backend launched none,
+     each of the unprojected op's five kernels ran exactly once (the
+     aggregation and backward passes 1 and 2 on their route 1 in bf16) and
+     that the scatter backend launched none,
      compares both backends, and times
      them beside the projected op at the same shapes;
   6. serves the OBQA roberta-large LMQAGNN (random weights from a seed,
@@ -811,18 +813,8 @@ def phase_gat_unproj(gen, dev, reports):
                 / torch.clamp_min(denom_p + e_self, gk.DENOM_EPS)
             seed = (nm + smb).float() * gk.heads_to_hd(e_self * scale, HD)
             c = (nm, emb, e_edge_p, scale, src, dst, mask)
-            out = uk.aggregate(*c, seed.clone(), HEADS)
-            out_p = uk.aggregate_plain(*c, seed.clone(), HEADS)
-            err = compare(f"gat_unproj_aggr out {tag}", out, out_p, tol)
-            if main:
-                # live slots only; the accumulator is read and written
-                scratch = seed.clone()
-                measure(reports, "gat_unproj_aggr", err,
-                        lambda: uk.aggregate(*c, scratch, HEADS),
-                        lambda: uk.aggregate_plain(*c, scratch, HEADS),
-                        live * nbytes(emb, e_edge_p, src, dst)
-                        + nbytes(nm, scale, mask) + 2 * nbytes(out),
-                        4.0 * per_elem, f32)
+            timing = timing_at(dt, n_edges == E)
+            out_p = aggr_case(reports, c, seed, HEADS, dt, tag, timing)
 
             # the backward's glue, as gat_unprojected_backward runs it
             g = gout.float()
@@ -830,25 +822,8 @@ def phase_gat_unproj(gen, dev, reports):
             d_alpha_self = gk.head_sum((nm + smb).float() * g, HEADS)
             dscale0 = d_alpha_self * e_self
             p1 = (gout, nm, emb, e_edge_p, scale, src, dst, mask)
-            got = uk.bwd1(*p1, dnm0.clone(), dscale0.clone(), HEADS)
-            want = uk.bwd1_plain(*p1, dnm0.clone(), dscale0.clone(), HEADS)
-            names = ("demb", "d_alpha", "dnm", "dscale")
-            errs = [compare(f"gat_unproj_bwd1 {name} {tag}", g_, w, tol)
-                    for name, g_, w in zip(names, got, want)]
-            if bool((got[0][~mask] != 0).any()) \
-                    or bool((got[1].transpose(1, 2)[~mask] != 0).any()):
-                FAILURES.append(f"gat_unproj_bwd1 masked slots {tag}")
-            if main:
-                # live slots' rows of emb, e_edge and indices; demb and
-                # d_alpha whole; the node accumulators read and written
-                scratch = (dnm0.clone(), dscale0.clone())
-                measure(reports, "gat_unproj_bwd1", max(errs),
-                        lambda: uk.bwd1(*p1, *scratch, HEADS),
-                        lambda: uk.bwd1_plain(*p1, *scratch, HEADS),
-                        live * nbytes(emb, e_edge_p, src, dst)
-                        + nbytes(gout, nm, scale, mask, got[0], got[1])
-                        + 2 * nbytes(got[2], got[3]),
-                        6.0 * per_elem, f32)
+            want = bwd1_case(reports, p1, dnm0, dscale0, HEADS, dt, tag,
+                             timing)
 
             _, dalpha, _, dscale = want
             gate = (denom_p + e_self > gk.DENOM_EPS).float()
@@ -860,16 +835,7 @@ def phase_gat_unproj(gen, dev, reports):
             dnk0 = ds_self * nq.float()
             p2 = (nq, nk, ekb, e_edge_p, dalpha, scale, d_denom, src, dst,
                   mask)
-            bwd2_case(reports, p2, dnq0, dnk0, HEADS, dt, tag, main)
-            if n_edges == E and dt == f32:
-                # f32 at the main shapes takes route 1 too: it must beat
-                # route 0 there as well
-                scratch = (dnq0.clone(), dnk0.clone())
-                faster_than_previous(
-                    "gat_unproj_bwd2 f32",
-                    lambda: uk.bwd2(*p2, *scratch, HEADS),
-                    lambda: uk.bwd2(*p2, *scratch, HEADS, _route=0),
-                    "route 0, a warp an edge, on the same inputs")
+            bwd2_case(reports, p2, dnq0, dnk0, HEADS, dt, tag, timing)
 
             # the whole forward on the kernel path against the plain chain
             op = uk.gat_unprojected_forward(nq, nk, nm, ekb, emb, skb, smb,
@@ -879,51 +845,156 @@ def phase_gat_unproj(gen, dev, reports):
                 FAILURES.append(f"non-finite output of empty graph {tag}")
 
 
-def bwd2_routes(dt, N_, E_, HD, heads):
-    """The routes of bwd2 at this dtype and width: both where route 1
-    takes it, else route 0."""
-    return (0, 1) if uk._bwd2_route(dt, N_, E_, HD, heads) else (0,)
+ROUTE0_IS = "route 0, a warp an edge, on the same inputs"
 
 
-def bwd2_case(reports, p2, dnq0, dnk0, heads, dt, tag, main):
+def timing_at(dt, at_main_shapes):
+    """What a routed unprojected kernel's case times: at the main shapes
+    its report in bf16 ("report", route 1 beside route 0 on the same
+    inputs) and route 1 in turns with route 0 in f32 ("turns"), where the
+    route rule sends f32 to route 1; elsewhere nothing."""
+    if not at_main_shapes:
+        return None
+    return "report" if dt == torch.bfloat16 else "turns"
+
+
+def unproj_routes(route_of, dt, N_, E_, HD, heads):
+    """The routes of a routed unprojected kernel (route_of: its rule) at
+    this dtype and width: both where route 1 takes it, whether the rule
+    picks it or a caller names it, else route 0."""
+    try:
+        route_of(dt, N_, E_, HD, heads, 1)
+    except ValueError:
+        return (0,)
+    return (0, 1)
+
+
+def time_routes(reports, name, timing, errs, route_of, shape, kernel, plain,
+                n_bytes, flops):
+    """A routed kernel's time at the main shapes: "report" files route 1's
+    time, bound and plain time under `name`, route 1 timed in turns with
+    route 0 (the run fails unless it is faster), and lists the kernels of
+    one call by torch.profiler; "turns" (f32) times route 1 in turns with
+    route 0 where the rule sends the dtype to route 1. kernel(route) runs
+    the kernel on the rule's route (None) or a named one; where the rule
+    sends f32 to route 0, both routes' f32 times are printed."""
+    if timing is None:
+        return
+    dt = shape[0]
+    if timing == "report":
+        measure(reports, name, errs[route_of(*shape)], lambda: kernel(None),
+                plain, n_bytes, flops, torch.float32,
+                previous=lambda: kernel(0), previous_is=ROUTE0_IS)
+        profile_kernels(name, lambda: kernel(None))
+    elif route_of(*shape) == 1:
+        faster_than_previous(f"{name} {dt}", lambda: kernel(None),
+                             lambda: kernel(0), ROUTE0_IS)
+    else:                                # the rule takes route 0 here
+        on_1, on_0 = device_ms(lambda: kernel(1)), device_ms(lambda: kernel(0))
+        log(f"  time {name:<18} {dt} route 1 {on_1:.4f} ms, route 0 "
+            f"{on_0:.4f} ms: the rule takes route 0")
+
+
+def aggr_case(reports, c, seed, heads, dt, tag, timing):
+    """aggregate on each route its shapes take against its plain version;
+    at the main shapes also its time (`time_routes`). Returns the plain
+    version's output."""
+    nm, emb, e_edge, scale, src, dst, mask = c
+    G_, N_, HD = nm.shape
+    n_edges = src.shape[1]
+    want = uk.aggregate_plain(*c, seed.clone(), heads)
+    errs = {}
+    for route in unproj_routes(uk._aggr_route, dt, N_, n_edges, HD, heads):
+        got = uk.aggregate(*c, seed.clone(), heads, _route=route)
+        errs[route] = compare(f"gat_unproj_aggr out {tag} route {route}",
+                              got, want, TOL["unproj"][dt])
+    # live slots only; the accumulator is read and written
+    live = mask.float().mean().item()
+    scratch = seed.clone()
+    time_routes(reports, "gat_unproj_aggr", timing, errs, uk._aggr_route,
+                (dt, N_, n_edges, HD, heads),
+                lambda r: uk.aggregate(*c, scratch, heads, _route=r),
+                lambda: uk.aggregate_plain(*c, scratch, heads),
+                live * nbytes(emb, e_edge, src, dst)
+                + nbytes(nm, scale, mask) + 2 * nbytes(want),
+                4.0 * live * G_ * n_edges * HD)
+    return want
+
+
+def bwd1_case(reports, p1, dnm0, dscale0, heads, dt, tag, timing):
+    """bwd1 on each route its shapes take against its plain version,
+    masked slots' demb and d_alpha exactly 0; at the main shapes also its
+    time (`time_routes`). Returns the plain version's outputs."""
+    gout, nm, emb, e_edge, scale, src, dst, mask = p1
+    G_, N_, HD = nm.shape
+    n_edges = src.shape[1]
+    want = uk.bwd1_plain(*p1, dnm0.clone(), dscale0.clone(), heads)
+    errs = {}
+    for route in unproj_routes(uk._bwd1_route, dt, N_, n_edges, HD, heads):
+        got = uk.bwd1(*p1, dnm0.clone(), dscale0.clone(), heads, _route=route)
+        names = ("demb", "d_alpha", "dnm", "dscale")
+        errs[route] = max(
+            compare(f"gat_unproj_bwd1 {name} {tag} route {route}", g_, w,
+                    TOL["unproj"][dt])
+            for name, g_, w in zip(names, got, want))
+        if bool((got[0][~mask] != 0).any()) \
+                or bool((got[1].transpose(1, 2)[~mask] != 0).any()):
+            FAILURES.append(f"gat_unproj_bwd1 masked slots {tag} route "
+                            f"{route}")
+    # live slots' rows of emb, e_edge and indices; demb and d_alpha whole;
+    # the node accumulators read and written
+    live = mask.float().mean().item()
+    scratch = (dnm0.clone(), dscale0.clone())
+    time_routes(reports, "gat_unproj_bwd1", timing, errs, uk._bwd1_route,
+                (dt, N_, n_edges, HD, heads),
+                lambda r: uk.bwd1(*p1, *scratch, heads, _route=r),
+                lambda: uk.bwd1_plain(*p1, *scratch, heads),
+                live * nbytes(emb, e_edge, src, dst)
+                + nbytes(gout, nm, scale, mask, want[0], want[1])
+                + 2 * nbytes(want[2], want[3]),
+                6.0 * live * G_ * n_edges * HD)
+    return want
+
+
+def bwd2_case(reports, p2, dnq0, dnk0, heads, dt, tag, timing):
     """bwd2 on each route its shapes take against its plain version, masked
-    slots' dekb exactly; at the main shapes also its time, route 1's beside
-    route 0's on the same inputs."""
+    slots' dekb exactly 0; at the main shapes also its time
+    (`time_routes`)."""
     nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst, mask = p2
     G_, N_, HD = nq.shape
-    tol = TOL["unproj"][dt]
     want = uk.bwd2_plain(*p2, dnq0.clone(), dnk0.clone(), heads)
     n_edges = src.shape[1]
-    for route in bwd2_routes(dt, N_, n_edges, HD, heads):
+    errs = {}
+    for route in unproj_routes(uk._bwd2_route, dt, N_, n_edges, HD, heads):
         got = uk.bwd2(*p2, dnq0.clone(), dnk0.clone(), heads, _route=route)
-        errs = [compare(f"gat_unproj_bwd2 {name} {tag} route {route}", g_, w,
-                        tol)
-                for name, g_, w in zip(("dekb", "dnq", "dnk"), got, want)]
+        errs[route] = max(
+            compare(f"gat_unproj_bwd2 {name} {tag} route {route}", g_, w,
+                    TOL["unproj"][dt])
+            for name, g_, w in zip(("dekb", "dnq", "dnk"), got, want))
         if bool((got[0][~mask] != 0).any()):
             FAILURES.append(f"gat_unproj_bwd2 masked slots {tag} route "
                             f"{route}")
-    if main:
-        # live slots' rows of ekb, e_edge, d_alpha and indices; dekb whole
-        # (a masked slot is written as 0); the node accumulators read and
-        # written
-        live = mask.float().mean().item()
-        scratch = (dnq0.clone(), dnk0.clone())
-        measure(reports, "gat_unproj_bwd2", max(errs),
-                lambda: uk.bwd2(*p2, *scratch, heads),
+    # live slots' rows of ekb, e_edge, d_alpha and indices; dekb whole (a
+    # masked slot is written as 0); the node accumulators read and written
+    live = mask.float().mean().item()
+    scratch = (dnq0.clone(), dnk0.clone())
+    time_routes(reports, "gat_unproj_bwd2", timing, errs, uk._bwd2_route,
+                (dt, N_, n_edges, HD, heads),
+                lambda r: uk.bwd2(*p2, *scratch, heads, _route=r),
                 lambda: uk.bwd2_plain(*p2, *scratch, heads),
                 live * nbytes(ekb, e_edge, dalpha, src, dst)
-                + nbytes(nq, nk, scale, d_denom, mask, got[0])
-                + 2 * nbytes(got[1], got[2]),
-                7.0 * live * G_ * n_edges * HD, torch.float32,
-                previous=lambda: uk.bwd2(*p2, *scratch, heads, _route=0),
-                previous_is="route 0, a warp an edge, on the same inputs")
+                + nbytes(nq, nk, scale, d_denom, mask, want[0])
+                + 2 * nbytes(want[1], want[2]),
+                7.0 * live * G_ * n_edges * HD)
 
 
-def phase_bwd2_widths(gen, dev):
-    """bwd2 off the main width, with random per-slot and per-node terms:
-    HD=96 and HD=256 with 8 heads (heads straddle route 1's slices) at
-    ragged E on both routes, and N=4000 nodes, whose block route 1 cannot
-    fit, on route 0 alone."""
+def phase_unproj_widths(gen, dev):
+    """The three routed unprojected kernels (aggregate, bwd1, bwd2) off the
+    main width, with random per-slot and per-node terms: HD=96 and HD=256
+    with 8 heads (heads straddle bwd2's route-1 slices and the lanes'
+    8-column groups) at ragged E on both routes, and N=4000 nodes, whose
+    block bwd2's route 1 cannot fit, on route 0 (aggregate and bwd1 also on
+    their route 1, which takes it)."""
     r = lambda *s: torch.randn(s, generator=gen, device=dev)
     for G_, N_, HD, heads in ((G, N, 96, 8), (G, N, 256, 8), (4, 4000, 200, 4)):
         n_edges = E - 3
@@ -938,17 +1009,24 @@ def phase_bwd2_widths(gen, dev):
         dalpha = torch.where(mask[:, None, :], r(G_, heads, n_edges), 0.0)
         scale, d_denom = r(G_, N_, heads).abs() + 0.5, r(G_, N_, heads) * 0.1
         for dt in (torch.float32, torch.bfloat16):
+            tag = f"G={G_} N={N_} HD={HD} heads={heads} E={n_edges} {dt}"
             nq = (r(G_, N_, HD) / (HD // heads) ** 0.5).to(dt)
             nk, ekb = (r(G_, N_, HD) * 0.5).to(dt), \
                 (r(G_, n_edges, HD) * 0.5).to(dt)
             p2 = (nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst, mask)
             dnq0, dnk0 = r(G_, N_, HD) * 0.1, r(G_, N_, HD) * 0.1
-            routes = bwd2_routes(dt, N_, n_edges, HD, heads)
+            routes = unproj_routes(uk._bwd2_route, dt, N_, n_edges, HD, heads)
             if N_ == 4000 and routes != (0,):
                 FAILURES.append("bwd2: route 1 takes N=4000")
-            bwd2_case(None, p2, dnq0, dnk0, heads, dt,
-                      f"G={G_} N={N_} HD={HD} heads={heads} E={n_edges} {dt}",
-                      False)
+            bwd2_case(None, p2, dnq0, dnk0, heads, dt, tag, None)
+            nm, emb = (r(G_, N_, HD) * 0.5).to(dt), \
+                (r(G_, n_edges, HD) * 0.5).to(dt)
+            c = (nm, emb, e_edge, scale, src, dst, mask)
+            aggr_case(None, c, r(G_, N_, HD), heads, dt, tag, None)
+            p1 = (r(G_, N_, HD).to(dt), nm, emb, e_edge, scale, src, dst,
+                  mask)
+            bwd1_case(None, p1, r(G_, N_, HD) * 0.1,
+                      r(G_, N_, heads) * 0.1, heads, dt, tag, None)
 
 
 # ---------------------------------------------------------------------------
@@ -1069,6 +1147,9 @@ def value_and_grads(fn, vals, gout):
 UNPROJ_KERNELS = ("gat_unproj_scores", "gat_unproj_denoms", "gat_unproj_aggr",
                   "gat_unproj_bwd1", "gat_unproj_bwd2")
 UNPROJ_INPUTS = ("nq", "nk", "nm", "ekb", "emb", "skb", "smb")
+UNPROJ_ROUTED = {"gat_unproj_aggr": uk._aggr_route,
+                 "gat_unproj_bwd1": uk._bwd1_route,
+                 "gat_unproj_bwd2": uk._bwd2_route}
 
 
 def phase_unproj_gradients(gen, dev):
@@ -1111,12 +1192,17 @@ def phase_op(gen, dev, reports, card):
             f"{counts}  {'ok' if ok else 'FAIL'}")
         if not ok:
             FAILURES.append(f"launch counts of the op, {name}")
-        on_1 = _build.ROUTES["gat_unproj_bwd2", 1]
-        log(f"  routes, {name}: gat_unproj_bwd2 {on_1} of "
-            f"{counts.get('gat_unproj_bwd2', 0)} on route 1  "
-            f"{'ok' if on_1 == counts.get('gat_unproj_bwd2', 0) else 'FAIL'}")
-        if on_1 != counts.get("gat_unproj_bwd2", 0):
-            FAILURES.append(f"gat_unproj_bwd2 off route 1 in the op, {name}")
+        # every launch of the three routed kernels on the route its rule
+        # names at these shapes, and that route 1 for bf16
+        for k, route_of in UNPROJ_ROUTED.items():
+            want = route_of(dt, N, E, HD, HEADS)
+            ok = _build.ROUTES[k, want] == counts.get(k, 0) \
+                and (want == 1 or dt != torch.bfloat16)
+            log(f"  routes, {name}: {k} {_build.ROUTES[k, want]} of "
+                f"{counts.get(k, 0)} on route {want}  "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                FAILURES.append(f"{k} off route {want} in the op, {name}")
         if dt == torch.bfloat16:
             for k in UNPROJ_KERNELS:
                 reports[k]["launches"] = counts.get(k, 0)
@@ -1696,8 +1782,8 @@ def main() -> int:
     if only & {"kernels", "unproj"}:
         log("\n[kernels 1 to 5: the unprojected GAT op, forward and backward]")
         phase_gat_unproj(new_gen(12), dev, reports)
-        log("\n[kernel 5 at other widths and at an N route 1 cannot hold]")
-        phase_bwd2_widths(new_gen(20), dev)
+        log("\n[kernels 3 to 5 at other widths, and at N=4000 nodes]")
+        phase_unproj_widths(new_gen(20), dev)
     if "grads" in only:
         log("\n[op gradients: the Functions on the kernels vs autograd "
             "through the scatter path, f32]")

@@ -9,7 +9,10 @@
 //   `_aggr_kernel`   (:373, via `_fwd_impl` :460) -> gat_unproj_aggr
 //   `_bwd1_kernel`   (:481, via `_bwd_impl` :589) -> gat_unproj_bwd1
 //   `_bwd2_kernel`   (:517, via `_bwd_impl` :617) -> gat_unproj_bwd2
-//     (route 0, bwd2_kernel; route 1, bwd2_graph_kernel, further down)
+// aggr, bwd1 and bwd2 have two routes each: route 0 the warp-per-edge
+// kernels just below, route 1 kernels over each graph's slots sorted by
+// node (aggr_graph_kernel, bwd1_graph_kernel, bwd2_graph_kernel, further
+// down, on node_sort.cuh).
 //
 // scores: s[g, h, e] = sum over head h of nq[src] * (nk[dst] + ekb[e]) and
 //   the max over masked edges per (graph, head) by an atomic max on the
@@ -19,9 +22,9 @@
 //   e_edge (G, H, E) (the backward reads it; the projected op recomputes it
 //   from the scores instead); denom[src] += e and deg[src] += 1 by atomicAdd.
 // aggr: out[dst] += round(e * scale[src] * (nm[src] + emb[e])) over masked
-//   edges by 16-byte atomicAdd into the f32 accumulator that the caller
-//   seeded with the self-loop term; the weighted message is rounded to the
-//   compute dtype first, as on the TPU.
+//   edges into the f32 accumulator that the caller seeded with the
+//   self-loop term; the weighted message is rounded to the compute dtype
+//   first, as on the TPU.
 // bwd1, g being the output cotangent in the compute dtype:
 //   d_msg = e * scale[src] * g[dst], written as demb for EVERY slot (zeros
 //   where masked); dnm[src] += round(d_msg); d_alpha = sum over the head of
@@ -41,7 +44,7 @@
 // arrays that stay in L2, and does a few operations per element. The node
 // rows are gathered and the f32 rows scattered per edge, though, so the
 // traffic on the L2 side is several times the bytes from device memory, and
-// that is what the passes' times follow in this version. Design: a
+// that is what route 0's times follow. Route 0's design: a
 // block takes UE = 32 consecutive edges of one graph, a warp one edge at a
 // time, a lane 8 consecutive columns (one 16-byte load in bf16, two in f32;
 // 25 lanes carry HD = 200). The per-head sums are warp shuffles over
@@ -49,15 +52,13 @@
 // straddle heads and any head width works. The head-major (G, H, E) arrays
 // (scores, e_edge, d_alpha) are staged through shared memory so that a block
 // reads and writes them as runs of 32 consecutive floats per head.
-#include "gat_common.cuh"
-#include "mma_tile.cuh"
+#include "node_sort.cuh"
 
 namespace {
 
 constexpr int UE = 32;                  // edges per block
 constexpr int UWARPS = 8;               // warps per block
 constexpr int UTHREADS = 32 * UWARPS;
-constexpr unsigned FULL = 0xffffffffu;
 
 // sums[h] = the warp's total of the products p[j] whose column lies in head
 // h, at every lane. Lanes past HD hand in zeros.
@@ -398,20 +399,29 @@ bwd2_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
 // so it reads d_s for one or two heads a slot.
 constexpr int BT = 256;                 // threads of a route-1 block
 constexpr int BU = 4;                   // slots a thread has in flight
-constexpr int PB = 8;                   // loads a thread has in flight while
-                                        // it counts the slots
 
-// n = 8 values as T at p (16-byte aligned)
-template <typename T>
+// n = 8 values as T at p (16-byte aligned); STREAM: by st.global.cs, for
+// rows that are written once and not read again here
+template <typename T, bool STREAM = false>
 __device__ __forceinline__ void store_row8(T* __restrict__ p, const float* v) {
   if constexpr (sizeof(T) == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+    const float4 a = make_float4(v[0], v[1], v[2], v[3]);
+    const float4 b = make_float4(v[4], v[5], v[6], v[7]);
+    float4* q = reinterpret_cast<float4*>(p);
+    if (STREAM) {
+      __stcs(q, a);
+      __stcs(q + 1, b);
+    } else {
+      q[0] = a;
+      q[1] = b;
+    }
   } else {
     alignas(16) __nv_bfloat16 h[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) h[j] = __float2bfloat16(v[j]);
-    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(h);
+    const uint4 w = *reinterpret_cast<const uint4*>(h);
+    if (STREAM) __stcs(reinterpret_cast<uint4*>(p), w);
+    else *reinterpret_cast<uint4*>(p) = w;
   }
 }
 
@@ -452,37 +462,6 @@ __host__ __device__ inline size_t bwd2_smem(int N, int E, int cw, int hs,
          (size_t)(4 * N + 2) * sizeof(int);
 }
 
-// exclusive scan of cnt[0, n) into off[0, n] and cur[0, n), by one warp
-__device__ __forceinline__ void warp_offsets(const int* cnt, int* off,
-                                             int* cur, int n, int lane) {
-  const int per = (n + 31) / 32, i0 = lane * per;
-  int sum = 0;
-  for (int i = i0; i < i0 + per && i < n; ++i) sum += cnt[i];
-  int incl = sum;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int t = __shfl_up_sync(FULL, incl, o);
-    if (lane >= o) incl += t;
-  }
-  int run = incl - sum;
-  for (int i = i0; i < i0 + per && i < n; ++i) {
-    const int c = cnt[i];               // cur may be cnt itself
-    off[i] = cur[i] = run;
-    run += c;
-  }
-  if (lane == 31) off[n] = incl;
-}
-
-// the first node whose run starts at or after virtual slot v
-__device__ __forceinline__ int first_node(const int* off, int n, int v) {
-  int lo = 0, hi = n;                   // off[n] >= v always
-  while (lo < hi) {
-    const int mid = (lo + hi) / 2;
-    if (off[mid] >= v) hi = mid; else lo = mid + 1;
-  }
-  return lo;
-}
-
 // the slots v .. v + BU - 1 of a permutation (e = -1 past vend) and their
 // ekb pieces of 8 columns, as raw 16-byte words
 template <typename T, int NV>
@@ -516,7 +495,6 @@ bwd2_graph_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
                   float* __restrict__ dnq, float* __restrict__ dnk, int E,
                   int N, int HD, int H, int CW) {
   constexpr int NV = 8 * sizeof(T) / 16;  // 16-byte words of 8 values
-  constexpr uint32_t DEAD = 0xffffffffu;
   extern __shared__ __align__(16) unsigned char smem[];
   const long long g = blockIdx.y;
   const int c0 = blockIdx.x * CW;
@@ -542,16 +520,8 @@ bwd2_graph_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
 
   // stage the slice by cp.async, which lands while the slots are counted
   // and sorted below; the heads' terms by plain loads; zero the counts
-  constexpr int EW = 16 / sizeof(T);     // values of a 16-byte word
-  for (int i = tid; i < N * nch; i += BT) {
-    const int r = i / nch, c = 8 * (i % nch);
-    const long long o = (g * N + r) * HD + c0 + c;
-#pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      cp_async16(s_nq + r * cw + c + j * EW, nq + o + j * EW);
-      cp_async16(s_nk + r * cw + c + j * EW, nk + o + j * EW);
-    }
-  }
+  stage_slice<T, BT>(s_nq, nq + g * N * HD, N, HD, c0, cw);
+  stage_slice<T, BT>(s_nk, nk + g * N * HD, N, HD, c0, cw);
   cp_async_commit();
 #pragma unroll 4
   for (int i = tid; i < N * hs; i += BT) {
@@ -560,30 +530,7 @@ bwd2_graph_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
   }
   for (int i = tid; i < N; i += BT) cur_s[i] = cur_d[i] = 0;
   __syncthreads();
-
-  // every slot, PB a thread at once: its (src, dst) or DEAD, and the live
-  // slots' counts per node
-  for (int e0 = tid; e0 < E; e0 += PB * BT) {
-    bool lv[PB];
-    int sv[PB], dv[PB];
-#pragma unroll
-    for (int k = 0; k < PB; ++k) {
-      const int e = e0 + k * BT;
-      lv[k] = e < E && g_mask[e];
-      sv[k] = e < E ? g_src[e] : 0;
-      dv[k] = e < E ? g_dst[e] : 0;
-    }
-#pragma unroll
-    for (int k = 0; k < PB; ++k) {
-      const int e = e0 + k * BT;
-      if (e >= E) break;
-      if (lv[k]) {
-        atomicAdd(&cur_s[sv[k]], 1);
-        atomicAdd(&cur_d[dv[k]], 1);
-      }
-      s_sd[e] = lv[k] ? (uint32_t)sv[k] | (uint32_t)dv[k] << 16 : DEAD;
-    }
-  }
+  pack_slots<BT, true, true>(g_src, g_dst, g_mask, E, s_sd, cur_s, cur_d);
   __syncthreads();
   // d_s per slot and slice head (0 where masked), PB a thread at once
   for (int i0 = tid; i0 < E * hs; i0 += PB * BT) {
@@ -615,12 +562,9 @@ bwd2_graph_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
   if (warp == 0) warp_offsets(cur_s, off_s, cur_s, N, lane);
   if (warp == 1) warp_offsets(cur_d, off_d, cur_d, N, lane);
   __syncthreads();
-  for (int e = tid; e < E; e += BT) {   // s_term's room becomes the perms
-    const uint32_t sd = s_sd[e];
-    if (sd == DEAD) continue;
-    perm_s[atomicAdd(&cur_s[sd & 0xffff], 1)] = (uint16_t)e;
-    perm_d[atomicAdd(&cur_d[sd >> 16], 1)] = (uint16_t)e;
-  }
+  // s_term's room becomes the permutations
+  place_slots<0, BT>(s_sd, E, 0, N, cur_s, perm_s);
+  place_slots<1, BT>(s_sd, E, 0, N, cur_d, perm_d);
   cp_async_wait<0>();                    // this thread's staged words
   __syncthreads();
 
@@ -632,14 +576,13 @@ bwd2_graph_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
   const int kb = (hA + 1) * dph - col;   // columns k < kb lie in head hA
   const int lA = hA - h_lo, lB = hB - h_lo;
   const int n_live = off_s[N];
-  const int per = (n_live + groups - 1) / groups;
-  const int v0 = min(n_live, grp * per), v1 = min(n_live, v0 + per);
 
   // pass 1, slots by source, a group's whole nodes as one run with the
   // next BU slots' ekb in flight: dnq rows summed in registers
   auto pass1 = [&]() {
-    int n = first_node(off_s, N, v0);
-    const int a = off_s[n], b = off_s[first_node(off_s, N, v1)];
+    int n = part_start(off_s, N, 0, n_live, grp, groups);
+    const int a = off_s[n],
+              b = off_s[part_start(off_s, N, 0, n_live, grp + 1, groups)];
     int end = a;                         // forces the first node's set-up
     bool held = false;                   // acc holds node n's sum
     float q[8], acc[8];
@@ -689,8 +632,9 @@ bwd2_graph_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
   // pass 2, slots by destination, a group's whole nodes as one run: dnk
   // rows summed in registers
   auto pass2 = [&]() {
-    int n = first_node(off_d, N, v0);
-    const int a = off_d[n], b = off_d[first_node(off_d, N, v1)];
+    int n = part_start(off_d, N, 0, n_live, grp, groups);
+    const int a = off_d[n],
+              b = off_d[part_start(off_d, N, 0, n_live, grp + 1, groups)];
     int end = a;
     bool held = false;
     float acc[8];
@@ -751,6 +695,418 @@ bwd2_graph_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
     else if (pass == 1) pass2();
     else pass3();
   }
+}
+
+// ---------------------------------------------------------------------------
+// aggr and bwd1, route 1: a graph's live slots sorted by the node they sum
+// into, whole node runs a warp.
+//
+// Route 0 (aggr_kernel, bwd1_kernel above) adds every live slot's 8 columns
+// a lane into the f32 node rows with 16-byte global atomics (aggr into
+// out[dst], bwd1 into dnm[src] and dscale[src]), and those atomics, with the
+// per-edge node gathers, set its time. Here a block owns graph g and part k
+// of the graph's live slots sorted by that node (aggr: destination; bwd1:
+// source; node_sort.cuh), the parts cut at node boundaries so that each
+// holds about as many slots; a warp takes a run of whole nodes of its
+// block's part, cut the same way, and a lane 8 consecutive columns of every
+// row, as in route 0 (25 lanes at HD = 200). The warp sums a node's terms in
+// registers and adds them onto the node's seeded row, read ahead, once: no
+// atomics on floats, and no other thread touches the row. Every row is read
+// or written whole (400 bytes in bf16 at HD = 200), bwd1's demb rows too,
+// where column slices (bwd2's route 1, or a cluster of slice blocks that
+// trade their partial head sums through distributed shared memory, which
+// ran 2.3x slower here) would move pieces of rows; a head's sums are then
+// whole within the warp.
+//
+// A warp keeps RD slots in flight (8 in bf16, 4 in f32: the same bytes) by
+// cp.async into its own ring in shared memory: each slot's rows (aggr:
+// nm[src], emb; bwd1: g[dst], emb, and nm[src] with a node's first slot)
+// and its heads' terms, each lane its own 16-byte pieces, so no lane waits
+// for another (a first version that held 4 slots in registers and waited
+// for them in turn ran aggr at 1.5x the time). Lane 4h holds head h's
+// per-slot terms (e_edge, scale, alpha, d_alpha) and shares alpha by
+// shuffles; bwd1's head sums are one prefix scan over the lanes, read at
+// the heads' boundaries.
+//
+// What bwd1 stores per slot costs more than what it reads: its demb rows
+// and d_alpha values land in source order, scattered over the graph's
+// rows, and the masked slots' zero rows are scattered too (PERF.md, PR 8:
+// without those stores the kernel takes 0.6x the time). A pass that wrote
+// demb in slot order, gathering g[dst] again, cost more than it saved. The
+// zero rows are written once a warp's run is done, so that they overlap
+// the other warps' reads, and the rows by st.global.cs.
+//
+// The grid is G x parts with about two blocks an SM (the prologue, each
+// block reading and sorting the graph's indices anew, takes about 7 us).
+// Bound on the H100: bytes, emb read for the live slots beside demb
+// written for every slot (bwd1), with the node rows gathered through L2.
+constexpr int RT = 256;                 // threads of a node-run block
+constexpr int RW = RT / 32;             // its warps
+
+// slots a warp has in flight: the same bytes in bf16 and f32
+__host__ __device__ constexpr int ring_depth(int elem) {
+  return elem == 2 ? 8 : 4;
+}
+
+// a ring stage: `rows` rows of HD values of elem bytes, then two floats a
+// head (e_edge, scale); a multiple of 16 bytes for HD % 8 == 0
+__host__ __device__ inline size_t stage_bytes(int HD, int elem, int rows) {
+  return (size_t)rows * HD * elem + 2 * MAX_H * sizeof(float);
+}
+
+// dynamic shared memory of a node-run block: its warps' rings; each slot's
+// packed (src, dst); the node offsets and cursors (int32); the permutation
+// (uint16)
+__host__ __device__ inline size_t sorted_smem(int N, int E, int HD, int elem,
+                                              int rows) {
+  return (size_t)RW * ring_depth(elem) * stage_bytes(HD, elem, rows) +
+         (size_t)E * sizeof(uint32_t) + (size_t)(2 * N + 1) * sizeof(int) +
+         (size_t)E * sizeof(uint16_t);
+}
+
+// 4-byte asynchronous copy, global to shared
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :
+               : "r"(shared_addr(smem)), "l"(gmem)
+               : "memory");
+}
+
+// a node-run block's shared memory, and the prologue that fills its
+// tables: the graph's live slots sorted by node (KEY, node_sort.cuh) as
+// far as this block's part of the nodes needs; the first node wn of this
+// warp's run of slots [va, vb)
+struct NodeRun {
+  unsigned char* ring;                   // this warp's
+  size_t stage;                          // bytes of a ring stage
+  uint32_t* s_sd;                        // E
+  int* off;                              // N + 1
+  int* cur;                              // N
+  uint16_t* perm;                        // E
+  int wn, va, vb;
+
+  template <int KEY, int RD>
+  static __device__ __forceinline__ NodeRun make(
+      unsigned char* smem, const int32_t* __restrict__ g_src,
+      const int32_t* __restrict__ g_dst, const uint8_t* __restrict__ g_mask,
+      int E, int N, int parts, size_t stage) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    NodeRun r;
+    r.stage = stage;
+    r.ring = smem + warp * RD * stage;
+    r.s_sd = reinterpret_cast<uint32_t*>(smem + RW * RD * stage);
+    r.off = reinterpret_cast<int*>(r.s_sd + E);
+    r.cur = r.off + N + 1;
+    r.perm = reinterpret_cast<uint16_t*>(r.cur + N);
+    for (int i = tid; i < N; i += RT) r.cur[i] = 0;
+    __syncthreads();
+    pack_slots<RT, KEY == 0, KEY == 1>(g_src, g_dst, g_mask, E, r.s_sd,
+                                       r.cur, r.cur);
+    __syncthreads();
+    if (warp == 0) warp_offsets(r.cur, r.off, r.cur, N, lane);
+    __syncthreads();
+    const int n_live = r.off[N], k = blockIdx.x;
+    const int n0 = part_start(r.off, N, 0, n_live, k, parts);
+    const int n1 = part_start(r.off, N, 0, n_live, k + 1, parts);
+    place_slots<KEY, RT>(r.s_sd, E, n0, n1, r.cur, r.perm);
+    __syncthreads();
+    const int a = r.off[n0], b = r.off[n1];
+    r.wn = part_start(r.off, N, a, b, warp, RW);
+    r.va = r.off[r.wn];
+    r.vb = r.off[part_start(r.off, N, a, b, warp + 1, RW)];
+    return r;
+  }
+};
+
+// per-head totals over the warp of a slot's products, from each lane's
+// partials pA (its columns below kb, head hA) and pB (the rest, head hB):
+// one inclusive scan of pA + pB over the lanes; the prefix at a head
+// boundary is read at the lane that holds it (the lane's exclusive prefix,
+// plus pA where the boundary falls inside the lane), and lane 4h takes
+// head h's total as the prefix at its end less the prefix at its start.
+// 8 shuffles for any number of heads. A lane holds at most one boundary
+// (heads of at least 8 features); the end of the row, column HD, lies on
+// the first lane past it, or past the warp at HD = 256 (the warp's total).
+struct HeadScan {
+  bool starts;                           // a head starts at the lane's c0
+  int la, lb;                            // lanes of head my_h's boundaries
+  __device__ __forceinline__ HeadScan(int c0, int dph, int my_h, int HD)
+      : starts(c0 % dph == 0),
+        la(min(my_h * dph, HD) / 8),
+        lb(min((my_h + 1) * dph, HD) / 8) {}
+  __device__ __forceinline__ float total(float pA, float pB, int lane) const {
+    const float q = pA + pB;
+    float s = q;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float t = __shfl_up_sync(FULL, s, o);
+      if (lane >= o) s += t;
+    }
+    const float at = starts ? s - q : s - q + pA;
+    const float start = __shfl_sync(FULL, at, la & 31);
+    const float end = __shfl_sync(FULL, at, lb & 31);
+    const float all = __shfl_sync(FULL, s, 31);
+    return (lb == 32 ? all : end) - start;
+  }
+};
+
+// a lane's 8 columns from c0 (heads of at least 8 features): the head of
+// the first kb of them and of the rest; lanes past HD name head H - 1
+struct LaneHeads {
+  int hA, hB, kb;
+  __device__ __forceinline__ LaneHeads(int c0, int dph, int H)
+      : hA(min(c0 / dph, H - 1)),
+        hB(min((c0 + 7) / dph, H - 1)),
+        kb(min((c0 / dph + 1) * dph - c0, 8)) {}
+};
+
+// a lane's 8 values of a row (elem bytes each) into shared memory
+template <typename T>
+__device__ __forceinline__ void cp_async_row8(T* s, const T* __restrict__ p) {
+#pragma unroll
+  for (int j = 0; j < 8 * (int)sizeof(T) / 16; ++j)
+    cp_async16(s + j * (16 / sizeof(T)), p + j * (16 / sizeof(T)));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(RT, 2)
+aggr_graph_kernel(const T* __restrict__ nm, const T* __restrict__ emb,
+                  const float* __restrict__ e_edge,
+                  const float* __restrict__ scale,
+                  const int32_t* __restrict__ src,
+                  const int32_t* __restrict__ dst,
+                  const uint8_t* __restrict__ mask, float* __restrict__ out,
+                  int E, int N, int HD, int H, int parts) {
+  constexpr int RD = ring_depth(sizeof(T));
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long g = blockIdx.y;
+  const NodeRun r = NodeRun::template make<1, RD>(
+      smem, src + g * E, dst + g * E, mask + g * E, E, N, parts,
+      stage_bytes(HD, sizeof(T), 2));
+  const int lane = threadIdx.x & 31;
+  const int c0 = 8 * lane, my_h = lane / 4;
+  const bool on = c0 < HD, head_lane = (lane & 3) == 0 && my_h < H;
+  const LaneHeads lh(c0, HD / H, H);
+  const T* nm_g = nm + g * N * HD + c0;
+  const T* emb_g = emb + g * E * HD + c0;
+  const float* e_g = e_edge + (g * H + my_h) * E;
+  const float* sc_g = scale + g * N * H + my_h;
+  float* out_g = out + g * N * HD + c0;
+
+  // slot v's nm[src] and emb rows and its head's (e_edge, scale) into
+  // stage v % RD; one commit group a slot for every lane
+  auto issue = [&](int v) {
+    if (v < r.vb) {
+      const int e = r.perm[v];
+      const int s = slot_node<0>(r.s_sd[e]);
+      T* rows = reinterpret_cast<T*>(r.ring + (v % RD) * r.stage);
+      if (on) {
+        cp_async_row8<T>(rows + c0, nm_g + s * HD);
+        cp_async_row8<T>(rows + HD + c0, emb_g + (long long)e * HD);
+      }
+      if (head_lane) {
+        float* vals = reinterpret_cast<float*>(rows + 2 * HD);
+        cp_async4(vals + my_h, e_g + e);
+        cp_async4(vals + MAX_H + my_h, sc_g + s * H);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int i = 0; i < RD; ++i) issue(r.va + i);
+
+  int n = r.wn, end = r.va;              // end: forces the first set-up
+  bool held = false;                     // acc holds node n's sum
+  float acc[8];
+  float4 seed[2];                        // node n's out row, read ahead
+  for (int v = r.va; v < r.vb; ++v) {
+    if (v >= end) {
+      if (held && on) store_sum8(out_g + n * HD, seed, acc);
+      while (r.off[n + 1] <= v) ++n;     // the node that holds v
+      end = r.off[n + 1];
+      if (on) load_seed8(out_g + n * HD, seed);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc[k] = 0.0f;
+      held = true;
+    }
+    cp_async_wait<RD - 1>();             // this lane's pieces of slot v
+    const T* rows = reinterpret_cast<const T*>(r.ring + (v % RD) * r.stage);
+    const float* vals = reinterpret_cast<const float*>(rows + 2 * HD);
+    const float al = head_lane ? vals[my_h] * vals[MAX_H + my_h] : 0.0f;
+    const float aA = __shfl_sync(FULL, al, 4 * lh.hA);
+    const float aB = __shfl_sync(FULL, al, 4 * lh.hB);
+    if (on) {
+      float m[8], b[8];
+      load_row<T, 8>(rows + c0, m);
+      load_row<T, 8>(rows + HD + c0, b);
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        acc[k] += round_to<T>((k < lh.kb ? aA : aB) * (m[k] + b[k]));
+    }
+    issue(v + RD);                       // into the stage just read
+  }
+  cp_async_wait<0>();
+  if (held && on) store_sum8(out_g + n * HD, seed, acc);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(RT, 2)
+bwd1_graph_kernel(const T* __restrict__ gout, const T* __restrict__ nm,
+                  const T* __restrict__ emb, const float* __restrict__ e_edge,
+                  const float* __restrict__ scale,
+                  const int32_t* __restrict__ src,
+                  const int32_t* __restrict__ dst,
+                  const uint8_t* __restrict__ mask, T* __restrict__ demb,
+                  float* __restrict__ dalpha, float* __restrict__ dscale,
+                  float* __restrict__ dnm, int E, int N, int HD, int H,
+                  int parts) {
+  constexpr int RD = ring_depth(sizeof(T));
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long g = blockIdx.y;
+  const NodeRun r = NodeRun::template make<0, RD>(
+      smem, src + g * E, dst + g * E, mask + g * E, E, N, parts,
+      stage_bytes(HD, sizeof(T), 3));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c0 = 8 * lane, my_h = lane / 4;
+  const bool on = c0 < HD, head_lane = (lane & 3) == 0 && my_h < H;
+  const LaneHeads lh(c0, HD / H, H);
+  const HeadScan hs(c0, HD / H, my_h, HD);
+  const T* gout_g = gout + g * N * HD + c0;
+  const T* nm_g = nm + g * N * HD + c0;
+  const T* emb_g = emb + g * E * HD + c0;
+  T* demb_g = demb + g * E * HD + c0;
+  const float* e_g = e_edge + (g * H + my_h) * E;
+  const float* sc_g = scale + g * N * H + my_h;
+  float* da_g = dalpha + (g * H + my_h) * E;
+  float* ds_g = dscale + g * N * H + my_h;
+  float* dnm_g = dnm + g * N * HD + c0;
+
+  // slot v's g[dst] and emb rows, with a node's first slot also the
+  // node's nm row and its head's scale, and its head's e_edge into stage
+  // v % RD; one commit group a slot for every lane
+  auto issue = [&](int v) {
+    if (v < r.vb) {
+      const int e = r.perm[v];
+      const uint32_t sd = r.s_sd[e];
+      const int s = slot_node<0>(sd);
+      const bool first = r.off[s] == v;
+      T* rows = reinterpret_cast<T*>(r.ring + (v % RD) * r.stage);
+      if (on) {
+        cp_async_row8<T>(rows + c0, gout_g + slot_node<1>(sd) * HD);
+        cp_async_row8<T>(rows + HD + c0, emb_g + (long long)e * HD);
+        if (first) cp_async_row8<T>(rows + 2 * HD + c0, nm_g + s * HD);
+      }
+      if (head_lane) {
+        float* vals = reinterpret_cast<float*>(rows + 3 * HD);
+        cp_async4(vals + my_h, e_g + e);
+        if (first) cp_async4(vals + MAX_H + my_h, sc_g + s * H);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int i = 0; i < RD; ++i) issue(r.va + i);
+
+  int n = r.wn, end = r.va;              // end: forces the first set-up
+  bool held = false;                     // the sums hold node n's
+  float m[8], acc[8], sc = 0.0f, acc_ds = 0.0f, seed_ds = 0.0f;
+  float4 seed[2];                        // node n's dnm row, read ahead
+  for (int v = r.va; v < r.vb; ++v) {
+    cp_async_wait<RD - 1>();             // this lane's pieces of slot v
+    const T* rows = reinterpret_cast<const T*>(r.ring + (v % RD) * r.stage);
+    const float* vals = reinterpret_cast<const float*>(rows + 3 * HD);
+    if (v >= end) {
+      if (held) {
+        if (on) store_sum8(dnm_g + n * HD, seed, acc);
+        if (head_lane) ds_g[n * H] = seed_ds + acc_ds;
+      }
+      while (r.off[n + 1] <= v) ++n;     // the node that holds v
+      end = r.off[n + 1];
+      if (on) {
+        load_row<T, 8>(rows + 2 * HD + c0, m);
+        load_seed8(dnm_g + n * HD, seed);
+      }
+      if (head_lane) {
+        sc = vals[MAX_H + my_h];
+        seed_ds = ds_g[n * H];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
+      acc_ds = 0.0f;
+      held = true;
+    }
+    const int e = r.perm[v];
+    const float ee = head_lane ? vals[my_h] : 0.0f;
+    const float al = ee * sc;            // alpha of head lane / 4
+    const float aA = __shfl_sync(FULL, al, 4 * lh.hA);
+    const float aB = __shfl_sync(FULL, al, 4 * lh.hB);
+    float pA = 0.0f, pB = 0.0f;
+    if (on) {
+      float gd[8], b[8], dm[8];
+      load_row<T, 8>(rows + c0, gd);
+      load_row<T, 8>(rows + HD + c0, b);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        dm[j] = round_to<T>((j < lh.kb ? aA : aB) * gd[j]);
+        acc[j] += dm[j];
+        const float p = (m[j] + b[j]) * gd[j];
+        if (j < lh.kb) pA += p; else pB += p;
+      }
+      store_row8<T, true>(demb_g + (long long)e * HD, dm);
+    }
+    issue(v + RD);                       // into the stage just read
+    const float da = hs.total(pA, pB, lane);  // head lane / 4's
+    if (head_lane) {
+      da_g[e] = da;
+      acc_ds += da * ee;
+    }
+  }
+  cp_async_wait<0>();
+  if (held) {
+    if (on) store_sum8(dnm_g + n * HD, seed, acc);
+    if (head_lane) ds_g[n * H] = seed_ds + acc_ds;
+  }
+
+  // the masked slots of this block's share of the slot indices, a warp
+  // every RW-th slot once its run is done (so that these scattered stores
+  // overlap the other warps' reads): demb and d_alpha 0
+  const float zero[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  const int z1 = (int)((long long)E * (blockIdx.x + 1) / parts);
+  for (int e = (int)((long long)E * blockIdx.x / parts) + warp; e < z1;
+       e += RW) {
+    if (r.s_sd[e] != DEAD) continue;     // uniform over the warp
+    if (on) store_row8<T, true>(demb_g + (long long)e * HD, zero);
+    if (head_lane) da_g[e] = 0.0f;
+  }
+}
+
+// the parts of each graph's live slots a node-run grid takes: about two
+// blocks an SM over the G graphs, and at least 16 slots a warp
+int graph_parts(int G, int E) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return max(1, min(2 * sms / G, E / (16 * RW)));
+}
+
+// what a node-run kernel with `rows` rows a ring stage takes: heads of at
+// least 8 features, N and E within its uint16 indices, its shared memory
+// within a block's
+bool sorted_ok(int N, int E, int HD, int H, int elem, int rows) {
+  return N > 0 && N <= 65536 && E <= 65536 && HD / H >= 8 &&
+         sorted_smem(N, E, HD, elem, rows) <= 227 * 1024;
+}
+
+// a node-run kernel's launch: (parts, G) blocks of RT threads
+template <typename K, typename... Args>
+cudaError_t launch_sorted(K kernel, int G, size_t smem, int E, cudaStream_t s,
+                          Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int parts = graph_parts(G, E);
+  kernel<<<dim3(parts, G), RT, smem, s>>>(args..., parts);
+  return cudaGetLastError();
 }
 
 // opt a route-1 kernel into its dynamic shared memory, and ask for the
@@ -823,18 +1179,39 @@ extern "C" int gat_unproj_denoms(const void* scores, const void* gmax,
   return (int)cudaGetLastError();
 }
 
-// out (G, N, HD) f32 arrives seeded and is added to in place.
+// out (G, N, HD) f32 arrives seeded and is added to in place. route 0: the
+// warp-per-edge kernel; route 1: a block per (graph, part of its slots
+// sorted by destination), which takes heads of at least 8 features, N and E
+// up to 65536 and the shared memory of sorted_smem (rows = 2).
 extern "C" int gat_unproj_aggr(const void* nm, const void* emb,
                                const void* e_edge, const void* scale,
                                const void* src, const void* dst,
                                const void* mask, void* out, int G, int N,
-                               int E, int HD, int H, int dtype,
+                               int E, int HD, int H, int dtype, int route,
                                void* stream) {
   if (!shapes_ok(HD, H) || !aligned16(nm) || !aligned16(emb) ||
-      !aligned16(out))
+      !aligned16(out) || (route != 0 && route != 1) ||
+      (route == 1 && !sorted_ok(N, E, HD, H, dtype == 1 ? 2 : 4, 2)))
     return (int)cudaErrorInvalidValue;
   if ((long long)G * E == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == 1) {
+    if (dtype == 1) {
+      typedef __nv_bfloat16 T;
+      return (int)launch_sorted(
+          aggr_graph_kernel<T>, G, sorted_smem(N, E, HD, 2, 2), E, s,
+          (const T*)nm, (const T*)emb,
+          (const float*)e_edge, (const float*)scale, (const int32_t*)src,
+          (const int32_t*)dst, (const uint8_t*)mask, (float*)out, E, N, HD,
+          H);
+    }
+    typedef float T;
+    return (int)launch_sorted(
+        aggr_graph_kernel<T>, G, sorted_smem(N, E, HD, 4, 2), E, s,
+        (const T*)nm, (const T*)emb,
+        (const float*)e_edge, (const float*)scale, (const int32_t*)src,
+        (const int32_t*)dst, (const uint8_t*)mask, (float*)out, E, N, HD, H);
+  }
   if (dtype == 1) {
     typedef __nv_bfloat16 T;
     aggr_kernel<T><<<edge_grid(G, E), UTHREADS, 0, s>>>(
@@ -852,19 +1229,43 @@ extern "C" int gat_unproj_aggr(const void* nm, const void* emb,
 }
 
 // demb (G, E, HD) and dalpha (G, H, E) are written whole; dscale (G, N, H)
-// and dnm (G, N, HD) f32 arrive seeded and are added to in place.
+// and dnm (G, N, HD) f32 arrive seeded and are added to in place. route 0:
+// the warp-per-edge kernel; route 1: a block per (graph, part of its slots
+// sorted by source), which takes what route 1 of gat_unproj_aggr takes,
+// with sorted_smem's rows = 3.
 extern "C" int gat_unproj_bwd1(const void* gout, const void* nm,
                                const void* emb, const void* e_edge,
                                const void* scale, const void* src,
                                const void* dst, const void* mask, void* demb,
                                void* dalpha, void* dscale, void* dnm, int G,
                                int N, int E, int HD, int H, int dtype,
-                               void* stream) {
+                               int route, void* stream) {
   if (!shapes_ok(HD, H) || !aligned16(gout) || !aligned16(nm) ||
-      !aligned16(emb) || !aligned16(demb) || !aligned16(dnm))
+      !aligned16(emb) || !aligned16(demb) || !aligned16(dnm) ||
+      (route != 0 && route != 1) ||
+      (route == 1 && !sorted_ok(N, E, HD, H, dtype == 1 ? 2 : 4, 3)))
     return (int)cudaErrorInvalidValue;
   if ((long long)G * E == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == 1) {
+    if (dtype == 1) {
+      typedef __nv_bfloat16 T;
+      return (int)launch_sorted(
+          bwd1_graph_kernel<T>, G, sorted_smem(N, E, HD, 2, 3), E, s,
+          (const T*)gout, (const T*)nm,
+          (const T*)emb, (const float*)e_edge, (const float*)scale,
+          (const int32_t*)src, (const int32_t*)dst, (const uint8_t*)mask,
+          (T*)demb, (float*)dalpha, (float*)dscale, (float*)dnm, E, N, HD,
+          H);
+    }
+    typedef float T;
+    return (int)launch_sorted(
+        bwd1_graph_kernel<T>, G, sorted_smem(N, E, HD, 4, 3), E, s,
+        (const T*)gout, (const T*)nm,
+        (const T*)emb, (const float*)e_edge, (const float*)scale,
+        (const int32_t*)src, (const int32_t*)dst, (const uint8_t*)mask,
+        (T*)demb, (float*)dalpha, (float*)dscale, (float*)dnm, E, N, HD, H);
+  }
   if (dtype == 1) {
     typedef __nv_bfloat16 T;
     bwd1_kernel<T><<<edge_grid(G, E), UTHREADS, 0, s>>>(

@@ -20,7 +20,11 @@ product. The forward runs
     self-loop term (nm + smb) * e_self * scale that seeds the output;
   * `aggregate` (`gat_unproj_aggr`): out[dst] += round(e_edge * scale[src]
     * (nm[src] + emb)) over masked edges, rounded to the compute dtype
-    before the f32 sum.
+    before the f32 sum. Two routes (`_aggr_route`): route 1, where heads
+    have at least 8 features and the graph's slot tables fit a block,
+    runs blocks over each graph's live slots sorted by destination, a warp
+    a run of whole nodes, each node's sum in registers added once onto its
+    seeded row; route 0 a warp per edge with global atomics.
 
 The backward keeps e_edge as a residual (the projected op recomputes it from
 its scores) and runs
@@ -28,7 +32,12 @@ its scores) and runs
   * torch glue: the self-loop cotangents d_msg_self, d_alpha_self;
   * `bwd1` (`gat_unproj_bwd1`): d_msg = alpha * g[dst] -> demb (every slot,
     zeros where masked), dnm[src] += round(d_msg), d_alpha per head,
-    dscale[src] += d_alpha * e_edge; one launch, no scratch;
+    dscale[src] += d_alpha * e_edge; one launch, no scratch. Two routes
+    (`_bwd1_route`: the rule of `_aggr_route`, for bfloat16 only): route 1
+    sorts each graph's live slots by source and sums dnm and dscale per
+    node as aggregate's route 1 sums out, writing demb and d_alpha a whole
+    row or a head's value at a time; route 0 a warp per edge with global
+    atomics;
   * torch glue: d_denom from dscale under the denom_raw > 1e-16 gate, the
     self-loop score cotangents;
   * `bwd2` (`gat_unproj_bwd2`): d_s = (d_alpha * scale[src] + d_denom[src])
@@ -73,8 +82,8 @@ from qagnn_tpu_torch.ops.gat_kernels import (
 _SIGNATURES = {
     "gat_unproj_scores": [_P] * 8 + [_I] * 6 + [_P],
     "gat_unproj_denoms": [_P] * 7 + [_I] * 4 + [_P],
-    "gat_unproj_aggr": [_P] * 8 + [_I] * 6 + [_P],
-    "gat_unproj_bwd1": [_P] * 12 + [_I] * 6 + [_P],
+    "gat_unproj_aggr": [_P] * 8 + [_I] * 7 + [_P],
+    "gat_unproj_bwd1": [_P] * 12 + [_I] * 7 + [_P],
     "gat_unproj_bwd2": [_P] * 13 + [_I] * 8 + [_P],
 }
 # route 1 of bwd2 (csrc/gat_unproj.cu, bwd2_graph_kernel): the shared memory
@@ -82,6 +91,11 @@ _SIGNATURES = {
 # (at least 8 bytes a slot and 32 a node, so E and N stay below the limit of
 # its uint16 indices)
 BWD2_PAIR_SMEM, BWD2_MAX_SMEM = 113 * 1024, 227 * 1024
+# route 1 of aggregate and bwd1 (aggr_graph_kernel, bwd1_graph_kernel): the
+# most shared memory a block may opt into, and the most nodes and slots its
+# uint16 indices hold; its warps, and the rows a slot stages in a warp's ring
+SORTED_MAX_SMEM, SORTED_MAX_INDEX = 227 * 1024, 65536
+SORTED_WARPS, AGGR_ROWS, BWD1_ROWS = 8, 2, 3
 
 
 def _lib():
@@ -92,6 +106,62 @@ def _require_graph(src, dst, mask, G, E) -> None:
     _require(src, "src", torch.int32, (G, E))
     _require(dst, "dst", torch.int32, (G, E))
     _require(mask, "mask", torch.bool, (G, E))
+
+
+def _pick_route(kernel, fits, route, dtype, N, E, HD, heads, prefer=True):
+    """1 where route 1 takes the shapes (`fits`) and is the one to prefer,
+    else 0; or `route`, where the caller names one that takes them."""
+    if route is None:
+        return 1 if fits and prefer else 0
+    if route not in (0, 1) or (route == 1 and not fits):
+        raise ValueError(f"no route {route} of {kernel} for {dtype}, N={N}, "
+                         f"E={E}, HD={HD}, heads={heads}")
+    return route
+
+
+def _sorted_smem(N, E, HD, elem, rows):
+    """Dynamic shared memory of a route-1 block of aggregate (rows = 2) or
+    bwd1 (rows = 3) (`sorted_smem` in csrc/gat_unproj.cu) for N nodes, E
+    slots and HD columns of elem bytes: each warp's ring of slots in flight
+    (8 in bf16, 4 in f32), a stage holding `rows` rows and two floats for
+    each of up to 8 heads; each slot's packed (src, dst) (uint32); the node
+    offsets and cursors (int32); the permutation (uint16)."""
+    depth = 8 if elem == 2 else 4
+    ring = SORTED_WARPS * depth * (rows * HD * elem + 2 * 8 * 4)
+    return ring + 4 * E + 4 * (2 * N + 1) + 2 * E
+
+
+def _sorted_fits(dtype, N, E, HD, heads, rows):
+    """Whether route 1 of aggregate (rows = 2) or bwd1 (rows = 3) takes
+    these shapes: float32 or bfloat16, heads of at least 8 features, N and
+    E within its uint16 indices and its block within a block's shared
+    memory."""
+    return dtype in (torch.float32, torch.bfloat16) and HD % 8 == 0 \
+        and HD // heads >= 8 and 0 < N <= SORTED_MAX_INDEX \
+        and E <= SORTED_MAX_INDEX \
+        and _sorted_smem(N, E, HD, dtype.itemsize, rows) <= SORTED_MAX_SMEM
+
+
+def _aggr_route(dtype, N, E, HD, heads, route=None):
+    """Route of `aggregate`: 1 (blocks over each graph's slots sorted by
+    destination, a warp a run of whole nodes) where `_sorted_fits`; else
+    0, the warp-per-edge kernel. `route` names one, 0 to time the
+    warp-per-edge kernel beside route 1."""
+    fits = _sorted_fits(dtype, N, E, HD, heads, AGGR_ROWS)
+    return _pick_route("gat_unproj_aggr", fits, route, dtype, N, E, HD,
+                       heads)
+
+
+def _bwd1_route(dtype, N, E, HD, heads, route=None):
+    """Route of `bwd1`: 1 (blocks over each graph's slots sorted by source,
+    a warp a run of whole nodes) for bfloat16 where `_sorted_fits`; else 0,
+    the warp-per-edge kernel. Route 1 takes float32 as well, but is slower
+    than route 0 there (its f32 demb rows, stored in source order, cost
+    more than route 0's atomics; PERF.md), so float32 goes to route 0
+    unless `route` names 1. `route` names one, as for `_aggr_route`."""
+    fits = _sorted_fits(dtype, N, E, HD, heads, BWD1_ROWS)
+    return _pick_route("gat_unproj_bwd1", fits, route, dtype, N, E, HD,
+                       heads, prefer=dtype == torch.bfloat16)
 
 
 # --------------------------------------------------------------------------
@@ -183,10 +253,12 @@ def aggregate_plain(nm, emb, e_edge, scale, src, dst, mask, out, heads):
     return _scatter_nodes(out, dst, torch.where(mask[..., None], w, 0.0))
 
 
-def aggregate(nm, emb, e_edge, scale, src, dst, mask, out, heads):
+def aggregate(nm, emb, e_edge, scale, src, dst, mask, out, heads,
+              _route=None):
     """Adds alpha * msg of every masked edge, rounded to the compute dtype,
     at its dst into `out` (G, N, HD) f32, IN PLACE (the caller seeds it with
-    the self-loop term), and returns it."""
+    the self-loop term), and returns it. `_route` names a route
+    (`_aggr_route`), to time it beside the other."""
     if not nm.is_cuda:
         return aggregate_plain(nm, emb, e_edge, scale, src, dst, mask, out,
                                heads)
@@ -200,12 +272,13 @@ def aggregate(nm, emb, e_edge, scale, src, dst, mask, out, heads):
     _require(scale, "scale", torch.float32, (G, N, heads))
     _require_graph(src, dst, mask, G, E)
     _require(out, "out", torch.float32, (G, N, HD))
+    route = _aggr_route(cdt, N, E, HD, heads, _route)
     err = _lib().gat_unproj_aggr(
         nm.data_ptr(), emb.data_ptr(), e_edge.data_ptr(), scale.data_ptr(),
         src.data_ptr(), dst.data_ptr(), mask.data_ptr(), out.data_ptr(), G,
-        N, E, HD, heads, _dtype_code(nm), _stream())
+        N, E, HD, heads, _dtype_code(nm), route, _stream())
     _build.check(err, "gat_unproj_aggr")
-    _build.count_launch("gat_unproj_aggr")
+    _build.count_launch("gat_unproj_aggr", route)
     return out
 
 
@@ -259,13 +332,15 @@ def bwd1_plain(gout, nm, emb, e_edge, scale, src, dst, mask, dnm, dscale,
             dscale)
 
 
-def bwd1(gout, nm, emb, e_edge, scale, src, dst, mask, dnm, dscale, heads):
+def bwd1(gout, nm, emb, e_edge, scale, src, dst, mask, dnm, dscale, heads,
+         _route=None):
     """Backward pass 1. gout: (G, N, HD) output cotangent in the compute
     dtype; dnm (G, N, HD) and dscale (G, N, H) f32 arrive seeded with the
     self-loop cotangents and are added to IN PLACE.
 
     Returns (demb (G, E, HD) in emb's dtype, zeros at masked slots, d_alpha
-    (G, H, E) f32, 0 at masked slots, dnm, dscale)."""
+    (G, H, E) f32, 0 at masked slots, dnm, dscale). `_route` names a route
+    (`_bwd1_route`), to time it beside the other."""
     if not nm.is_cuda:
         return bwd1_plain(gout, nm, emb, e_edge, scale, src, dst, mask, dnm,
                           dscale, heads)
@@ -281,15 +356,17 @@ def bwd1(gout, nm, emb, e_edge, scale, src, dst, mask, dnm, dscale, heads):
     _require_graph(src, dst, mask, G, E)
     _require(dnm, "dnm", torch.float32, (G, N, HD))
     _require(dscale, "dscale", torch.float32, (G, N, heads))
+    route = _bwd1_route(cdt, N, E, HD, heads, _route)
     demb = torch.empty_like(emb)
     dalpha = torch.empty_like(e_edge)
     err = _lib().gat_unproj_bwd1(
         gout.data_ptr(), nm.data_ptr(), emb.data_ptr(), e_edge.data_ptr(),
         scale.data_ptr(), src.data_ptr(), dst.data_ptr(), mask.data_ptr(),
         demb.data_ptr(), dalpha.data_ptr(), dscale.data_ptr(),
-        dnm.data_ptr(), G, N, E, HD, heads, _dtype_code(nm), _stream())
+        dnm.data_ptr(), G, N, E, HD, heads, _dtype_code(nm), route,
+        _stream())
     _build.check(err, "gat_unproj_bwd1")
-    _build.count_launch("gat_unproj_bwd1")
+    _build.count_launch("gat_unproj_bwd1", route)
     return demb, dalpha, dnm, dscale
 
 
@@ -350,12 +427,8 @@ def _bwd2_route(dtype, N, E, HD, heads, route=None):
     fits = dtype in (torch.float32, torch.bfloat16) and HD % 8 == 0 \
         and HD // heads >= 8 \
         and _bwd2_width(dtype, N, E, HD, heads) is not None
-    if route is None:
-        return 1 if fits else 0
-    if route not in (0, 1) or (route == 1 and not fits):
-        raise ValueError(f"no route {route} of gat_unproj_bwd2 for {dtype}, "
-                         f"N={N}, E={E}, HD={HD}, heads={heads}")
-    return route
+    return _pick_route("gat_unproj_bwd2", fits, route, dtype, N, E, HD,
+                       heads)
 
 
 def bwd2(nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst, mask, dnq,

@@ -256,10 +256,17 @@ WRAPPERS = {
     "aggregate": lambda a, r: uk.aggregate(
         a["nm"], a["emb"], r["e_edge"], r["scale"], a["src"], a["dst"],
         a["mask"], torch.zeros_like(a["nm"]), HEADS),
+    "aggregate route 1": lambda a, r: uk.aggregate(
+        a["nm"], a["emb"], r["e_edge"], r["scale"], a["src"], a["dst"],
+        a["mask"], torch.zeros_like(a["nm"]), HEADS, _route=1),
     "bwd1": lambda a, r: uk.bwd1(
         a["g"], a["nm"], a["emb"], r["e_edge"], r["scale"], a["src"],
         a["dst"], a["mask"], torch.zeros_like(a["nm"]),
         torch.zeros_like(r["scale"]), HEADS),
+    "bwd1 route 1": lambda a, r: uk.bwd1(
+        a["g"], a["nm"], a["emb"], r["e_edge"], r["scale"], a["src"],
+        a["dst"], a["mask"], torch.zeros_like(a["nm"]),
+        torch.zeros_like(r["scale"]), HEADS, _route=1),
     "bwd2": lambda a, r: uk.bwd2(
         a["nq"], a["nk"], a["ekb"], r["e_edge"], r["e_edge"] * 0.5,
         r["scale"], r["scale"] * 0.1, a["src"], a["dst"], a["mask"],
@@ -272,8 +279,10 @@ WRAPPERS = {
 }
 PLAIN = {"edge_scores": uk.edge_scores_plain,
          "edge_denoms": uk.edge_denoms_plain,
-         "aggregate": uk.aggregate_plain, "bwd1": uk.bwd1_plain,
-         "bwd2": uk.bwd2_plain, "bwd2 route 1": uk.bwd2_plain}
+         "aggregate": uk.aggregate_plain,
+         "aggregate route 1": uk.aggregate_plain, "bwd1": uk.bwd1_plain,
+         "bwd1 route 1": uk.bwd1_plain, "bwd2": uk.bwd2_plain,
+         "bwd2 route 1": uk.bwd2_plain}
 
 
 @pytest.mark.parametrize("name", sorted(WRAPPERS))
@@ -350,3 +359,84 @@ def test_bwd2_smem_counts_the_most_heads_a_slice_touches():
     # few slots: the per-node terms set the shared room, rounded to 16
     assert uk._bwd2_smem(200, 100, 200, 4, 200, 2) \
         == 200 * 200 * 4 + 6400 + 100 * 4 * 4 + 100 * 4 + 802 * 4
+
+
+ROUTES_OF_SORTED = (uk._aggr_route, uk._bwd1_route)
+
+
+@pytest.mark.parametrize("dtype, N, E, HD, heads, routes", [
+    (torch.bfloat16, 200, 4096, 200, 4, (1, 1)),   # the op's main shapes
+    (torch.float32, 200, 4096, 200, 4, (1, 0)),    # bwd1: f32 on route 0
+    (torch.bfloat16, 200, 4093, 96, 8, (1, 1)),    # heads of 12 straddle
+    (torch.float32, 200, 4093, 256, 8, (1, 0)),
+    (torch.bfloat16, 4000, 4093, 200, 4, (1, 1)),  # many nodes, few slots
+    (torch.bfloat16, 200, 24000, 200, 4, (1, 1)),
+    (torch.bfloat16, 200, 27000, 200, 4, (1, 0)),  # bwd1's ring holds more
+    (torch.bfloat16, 200, 30000, 200, 4, (0, 0)),
+    (torch.bfloat16, 200, 4096, 32, 8, (0, 0)),    # heads of 4 features
+    (torch.bfloat16, 8, 70000, 16, 2, (0, 0)),     # beyond the uint16 slots
+    (torch.float16, 200, 4096, 200, 4, (0, 0)),
+])
+def test_aggr_and_bwd1_route_by_dtype_and_shape(dtype, N, E, HD, heads,
+                                                routes):
+    """Route 1 of aggregate and bwd1 takes f32 and bf16 where heads have
+    at least 8 features and the block (the warps' rings and the graph's
+    slot tables) fits a block's shared memory, with N and E within its
+    uint16 indices; route 0, the warp-per-edge kernel, the rest. bwd1's
+    rule sends f32 to route 0, which is faster there; route 1 still takes
+    f32 where the caller names it."""
+    for route_of, route in zip(ROUTES_OF_SORTED, routes):
+        assert route_of(dtype, N, E, HD, heads) == route
+        assert route_of(dtype, N, E, HD, heads, 0) == 0
+        if route:
+            assert route_of(dtype, N, E, HD, heads, 1) == 1
+
+
+@pytest.mark.parametrize("HD, heads", [(200, 4), (256, 8)])
+def test_bwd1_route_1_takes_f32_where_named(HD, heads):
+    assert uk._bwd1_route(torch.float32, 200, 4096, HD, heads) == 0
+    assert uk._bwd1_route(torch.float32, 200, 4096, HD, heads, 1) == 1
+
+
+@pytest.mark.parametrize("dtype, N, E, HD, heads, route", [
+    (torch.bfloat16, 200, 4096, 32, 8, 1),
+    (torch.bfloat16, 200, 30000, 200, 4, 1),
+    (torch.bfloat16, 70000, 100, 200, 4, 1),
+    (torch.float16, 200, 4096, 200, 4, 1),
+    (torch.bfloat16, 200, 4096, 200, 4, 2),
+    (torch.float32, 200, 4096, 200, 4, -1),
+])
+def test_aggr_and_bwd1_route_refuses(dtype, N, E, HD, heads, route):
+    for route_of in ROUTES_OF_SORTED:
+        with pytest.raises(ValueError, match="no route"):
+            route_of(dtype, N, E, HD, heads, route)
+
+
+@pytest.mark.parametrize("N, E, HD, elem, rows", [
+    (200, 4096, 200, 2, 2), (200, 4096, 200, 2, 3), (200, 4096, 200, 4, 2),
+    (200, 4096, 200, 4, 3), (200, 4093, 96, 2, 3), (4000, 4093, 256, 4, 3),
+    (1, 1, 8, 2, 2),
+])
+def test_sorted_smem_holds_the_rings_and_the_slot_tables(N, E, HD, elem,
+                                                         rows):
+    """A route-1 block of aggregate (2 rows a slot) or bwd1 (3) holds, for
+    each of its 8 warps, a ring of 8 slots in bf16 or 4 in f32 (the same
+    bytes), a slot's rows and two floats for each of up to 8 heads; then
+    each slot's packed (src, dst) as a uint32, the node offsets (N + 1)
+    and cursors (N) as int32, and the permutation of the slots as
+    uint16."""
+    depth = {2: 8, 4: 4}[elem]
+    stage = rows * HD * elem + 64
+    assert stage % 16 == 0                 # 16-byte cp.async targets
+    assert uk._sorted_smem(N, E, HD, elem, rows) \
+        == 8 * depth * stage + E * 4 + (N + 1) * 4 + N * 4 + E * 2
+
+
+def test_sorted_blocks_pair_on_an_sm_at_the_main_shapes():
+    """At the op's main shapes two route-1 blocks of either kernel share
+    an SM, in bf16 and f32, so that one's prologue overlaps the other's
+    stream of rows."""
+    for elem in (2, 4):
+        for rows in (uk.AGGR_ROWS, uk.BWD1_ROWS):
+            assert uk._sorted_smem(200, 4096, 200, elem, rows) \
+                <= uk.BWD2_PAIR_SMEM
