@@ -21,18 +21,20 @@ Run from the repository root on a machine with one CUDA card. It
      the CUDA-core route runs), route 1 timed in turns with route 0; the
      feature moments exactly, also for the MedQA relations, 7 node types and
      unaligned arrays, beside an empty kernel's time, with the CUDA kernels
-     of one call listed (one launch); the unprojected op's aggregation and
-     backward passes 1 and 2 on both of their routes in f32 and bf16, their
-     masked slots held exactly (also at HD=96 and HD=256 with 8 heads, and
-     at N=4000, where backward pass 2 runs route 0 alone), route 1 timed in
-     turns with route 0 in both dtypes and listed by torch.profiler;
+     of one call listed (one launch); the unprojected op's five kernels
+     (scores, denominators, aggregation, backward passes 1 and 2) on both
+     of their routes in f32 and bf16, their masked slots held exactly, the
+     degrees exactly and an all-masked graph's max at -1e30 (also at HD=96
+     and HD=256 with 8 heads, and at N=4000, where backward pass 2 runs
+     route 0 alone), route 1 timed in turns with route 0 in both dtypes and
+     listed by torch.profiler;
   4. holds the gradients of the autograd Functions on the kernels (the
      projected op, the train-mode edge encoder, the unprojected op) against
      torch.autograd through the plain scatter path, in float32;
   5. drives the op-level entry point `relational_gat_attention_nodes` on
      CUDA tensors with no backend named, forward and backward, checks that
-     each of the unprojected op's five kernels ran exactly once (the
-     aggregation and backward passes 1 and 2 on their route 1 in bf16) and
+     each of the unprojected op's five kernels ran exactly once (each on
+     its route 1 in bf16) and
      that the scatter backend launched none,
      compares both backends, and times
      them beside the projected op at the same shapes;
@@ -59,7 +61,8 @@ Run from the repository root on a machine with one CUDA card. It
 the kernel phase's parts for the GAT forward passes A and C, for the two GAT
 backward passes, for the edge encoder's three kernels (rows 10-12), for its
 feature moments (row 10) and for the unprojected op's five kernels (rows
-1-5) alone);
+1-5) alone; `scores` runs rows 1 and 2 alone at the main shapes, which no
+other phase repeats);
 with no arguments everything runs. `--csrc DIR` builds the kernels from a
 copy of the sources in DIR.
 
@@ -584,27 +587,33 @@ def phase_edge_hidden_widths(gen, dev, reports):
                                      dt, tag, False)
 
 
-def profile_kernels(what, fn, iters=20):
+def profile_kernels(what, fn, iters=20, attempts=2):
     """Device time by kernel name over `iters` calls of fn, from
     torch.profiler's CUDA activity: rows of (device us, launches, name), or
-    None (and says so) where it records none."""
+    None (and says so) where it records none. A window of short kernels
+    at times comes back with no device activity, so an empty one is taken
+    again, `attempts` times in all."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-    except Exception as exc:      # a diagnostic: the checks do not need it
-        log(f"  torch.profiler, {what}: failed on this machine: {exc!r}")
-        return None
     device_us = lambda e: getattr(e, "device_time_total", None) \
         or getattr(e, "cuda_time_total", 0)
-    rows = sorted(((device_us(e), e.count, e.key) for e in events
-                   if device_us(e) > 0), reverse=True)
+    rows = []
+    for _ in range(attempts):
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            events = prof.key_averages()
+        except Exception as exc:  # a diagnostic: the checks do not need it
+            log(f"  torch.profiler, {what}: failed on this machine: {exc!r}")
+            return None
+        rows = sorted(((device_us(e), e.count, e.key) for e in events
+                       if device_us(e) > 0), reverse=True)
+        if rows:
+            break
     if not rows:
         log(f"  torch.profiler, {what}: key_averages() shows no device time "
             "on this machine; times come from CUDA events")
@@ -753,67 +762,30 @@ def unproj_inputs(gen, dev, n_edges, dt):
 
 def phase_gat_unproj(gen, dev, reports):
     HD = 200
-    f32 = torch.float32
     for n_edges in (E, E - 3):
         src, dst, mask = graph_inputs(gen, dev, n_edges)
-        live = mask.float().mean().item()
         has_edge = mask.any(1)
         for dt in (torch.float32, torch.bfloat16):
             (nq, nk, nm, ekb, emb, skb, smb), gout = unproj_inputs(
                 gen, dev, n_edges, dt)
             tag = f"E={n_edges} {dt}"
             tol = TOL["unproj"][dt]
-            main = n_edges == E and dt == torch.bfloat16
-            per_elem = live * G * n_edges * HD      # live (edge, column)s
-
+            timing = timing_at(dt, n_edges == E)
             a = (nq, nk, ekb, src, dst, mask, HEADS)
-            scores, m_edge = uk.edge_scores(*a)
-            scores_p, m_edge_p = uk.edge_scores_plain(*a)
-            err = compare(f"gat_unproj_scores scores {tag}", scores,
-                          scores_p, tol)
-            compare(f"gat_unproj_scores max {tag}", m_edge[has_edge],
-                    m_edge_p[has_edge], tol)
-            if not bool((m_edge[~has_edge] == gk.NEG).all()):
-                FAILURES.append(f"gat_unproj_scores max of empty graph {tag}")
-            if main:
-                # live slots' rows of ekb and indices; the scores whole
-                # (a masked slot is written as 0); add, multiply, sum
-                measure(reports, "gat_unproj_scores", err,
-                        lambda: uk.edge_scores(*a),
-                        lambda: uk.edge_scores_plain(*a),
-                        live * nbytes(ekb, src, dst)
-                        + nbytes(nq, nk, mask, scores, m_edge),
-                        3.0 * per_elem, f32)
+            scores_p, m_edge_p = scores_case(reports, a, dt, tag, timing)
 
             # the op's glue, as gat_unprojected_forward runs it
             self_scores = gk.head_sum(nq.float() * (nk + skb).float(), HEADS)
             gmax = torch.maximum(m_edge_p, self_scores.amax(1))
             e_self = torch.exp(self_scores - gmax[:, None, :])
             d = (scores_p, gmax, src, mask, N)
-            e_edge, denom, deg = uk.edge_denoms(*d)
-            e_edge_p, denom_p, deg_p = uk.edge_denoms_plain(*d)
-            err = compare(f"gat_unproj_denoms e_edge {tag}", e_edge,
-                          e_edge_p, tol)
-            err = max(err, compare(f"gat_unproj_denoms denom {tag}", denom,
-                                   denom_p, tol))
-            compare(f"gat_unproj_denoms deg {tag}", deg, deg_p, 0.0)
-            if bool((e_edge[~mask[:, None, :].expand_as(e_edge)] != 0).any()):
-                FAILURES.append(f"gat_unproj_denoms e_edge of masked slots "
-                                f"{tag}")
-            if main:
-                # live slots' scores and sources; e_edge written whole
-                measure(reports, "gat_unproj_denoms", err,
-                        lambda: uk.edge_denoms(*d),
-                        lambda: uk.edge_denoms_plain(*d),
-                        live * nbytes(scores_p, src)
-                        + nbytes(gmax, mask, e_edge, denom, deg),
-                        2.0 * live * G * n_edges * HEADS, f32)
+            e_edge_p, denom_p, deg_p = denoms_case(reports, d, dt, tag,
+                                                   timing)
 
             scale = (deg_p[..., None] + 1.0) \
                 / torch.clamp_min(denom_p + e_self, gk.DENOM_EPS)
             seed = (nm + smb).float() * gk.heads_to_hd(e_self * scale, HD)
             c = (nm, emb, e_edge_p, scale, src, dst, mask)
-            timing = timing_at(dt, n_edges == E)
             out_p = aggr_case(reports, c, seed, HEADS, dt, tag, timing)
 
             # the backward's glue, as gat_unprojected_backward runs it
@@ -893,6 +865,79 @@ def time_routes(reports, name, timing, errs, route_of, shape, kernel, plain,
         on_1, on_0 = device_ms(lambda: kernel(1)), device_ms(lambda: kernel(0))
         log(f"  time {name:<18} {dt} route 1 {on_1:.4f} ms, route 0 "
             f"{on_0:.4f} ms: the rule takes route 0")
+
+
+def denoms_route(dt, N_, E_, HD, heads, route=None):
+    """`uk._denoms_route` in the form of the other route rules: the kernel
+    reads f32 scores, so neither the op's dtype nor HD enters."""
+    return uk._denoms_route(N_, E_, heads, route)
+
+
+def scores_case(reports, a, dt, tag, timing):
+    """edge_scores on each route its shapes take against its plain version:
+    the scores, masked slots' exactly 0, and the max of each graph with a
+    live slot, -1e30 for one without; at the main shapes also its time
+    (`time_routes`). Returns the plain version's outputs."""
+    nq, nk, ekb, src, dst, mask, heads = a
+    G_, N_, HD = nq.shape
+    n_edges = src.shape[1]
+    want = uk.edge_scores_plain(*a)
+    has_edge = mask.any(1)
+    errs = {}
+    for route in unproj_routes(uk._scores_route, dt, N_, n_edges, HD, heads):
+        scores, m_edge = uk.edge_scores(*a, _route=route)
+        t = f"{tag} route {route}"
+        errs[route] = compare(f"gat_unproj_scores scores {t}", scores,
+                              want[0], TOL["unproj"][dt])
+        compare(f"gat_unproj_scores max {t}", m_edge[has_edge],
+                want[1][has_edge], TOL["unproj"][dt])
+        if not bool((m_edge[~has_edge] == gk.NEG).all()):
+            FAILURES.append(f"gat_unproj_scores max of empty graph {t}")
+        if bool((scores.transpose(1, 2)[~mask] != 0).any()):
+            FAILURES.append(f"gat_unproj_scores masked slots {t}")
+    # live slots' rows of ekb and indices; the scores whole (a masked slot
+    # is written as 0); add, multiply, sum
+    live = mask.float().mean().item()
+    time_routes(reports, "gat_unproj_scores", timing, errs, uk._scores_route,
+                (dt, N_, n_edges, HD, heads),
+                lambda r: uk.edge_scores(*a, _route=r),
+                lambda: uk.edge_scores_plain(*a),
+                live * nbytes(ekb, src, dst) + nbytes(nq, nk, mask, *want),
+                3.0 * live * G_ * n_edges * HD)
+    return want
+
+
+def denoms_case(reports, d, dt, tag, timing):
+    """edge_denoms on each route its shapes take against its plain version
+    (dt: the op's dtype, which set the scores), the degrees exactly and
+    masked slots' e_edge exactly 0; at the main shapes also its time
+    (`time_routes`), the wrapper's (route 0's includes its two zero
+    fills). Returns the plain version's outputs."""
+    scores, gmax, src, mask, n_nodes = d
+    G_, heads, n_edges = scores.shape
+    want = uk.edge_denoms_plain(*d)
+    tol = TOL["unproj"][dt]
+    errs = {}
+    for route in unproj_routes(denoms_route, dt, n_nodes, n_edges, None,
+                               heads):
+        e_edge, denom, deg = uk.edge_denoms(*d, _route=route)
+        t = f"{tag} route {route}"
+        errs[route] = max(
+            compare(f"gat_unproj_denoms e_edge {t}", e_edge, want[0], tol),
+            compare(f"gat_unproj_denoms denom {t}", denom, want[1], tol))
+        compare(f"gat_unproj_denoms deg {t}", deg, want[2], 0.0)
+        if bool((e_edge.transpose(1, 2)[~mask] != 0).any()):
+            FAILURES.append(f"gat_unproj_denoms e_edge of masked slots {t}")
+    # live slots' scores and sources; e_edge written whole; the sums and
+    # degrees written once
+    live = mask.float().mean().item()
+    time_routes(reports, "gat_unproj_denoms", timing, errs, denoms_route,
+                (dt, n_nodes, n_edges, None, heads),
+                lambda r: uk.edge_denoms(*d, _route=r),
+                lambda: uk.edge_denoms_plain(*d),
+                live * nbytes(scores, src) + nbytes(gmax, mask, *want),
+                2.0 * live * G_ * n_edges * heads)
+    return want
 
 
 def aggr_case(reports, c, seed, heads, dt, tag, timing):
@@ -988,13 +1033,28 @@ def bwd2_case(reports, p2, dnq0, dnk0, heads, dt, tag, timing):
                 7.0 * live * G_ * n_edges * HD)
 
 
+def phase_unproj_rows12(gen, dev, reports):
+    """Rows 1 and 2 alone at the main shapes, bf16 then f32: each route
+    against its plain version, route 1 timed in turns with route 0 (for
+    work on these two kernels, with `--csrc`)."""
+    src, dst, mask = graph_inputs(gen, dev, E)
+    for dt in (torch.bfloat16, torch.float32):
+        (nq, nk, _, ekb, _, skb, _), _ = unproj_inputs(gen, dev, E, dt)
+        tag, timing = f"E={E} {dt}", timing_at(dt, True)
+        s_p, m_p = scores_case(reports, (nq, nk, ekb, src, dst, mask, HEADS),
+                               dt, tag, timing)
+        self_scores = gk.head_sum(nq.float() * (nk + skb).float(), HEADS)
+        gmax = torch.maximum(m_p, self_scores.amax(1))
+        denoms_case(reports, (s_p, gmax, src, mask, N), dt, tag, timing)
+
+
 def phase_unproj_widths(gen, dev):
-    """The three routed unprojected kernels (aggregate, bwd1, bwd2) off the
-    main width, with random per-slot and per-node terms: HD=96 and HD=256
-    with 8 heads (heads straddle bwd2's route-1 slices and the lanes'
-    8-column groups) at ragged E on both routes, and N=4000 nodes, whose
-    block bwd2's route 1 cannot fit, on route 0 (aggregate and bwd1 also on
-    their route 1, which takes it)."""
+    """The five unprojected kernels off the main width, each with an
+    all-masked graph, the backward's with random per-slot and per-node
+    terms: HD=96 and HD=256 with 8 heads (heads straddle bwd2's route-1
+    slices and the lanes' 8-column groups) at ragged E on both routes, and
+    N=4000 nodes, whose block bwd2's route 1 cannot fit, on route 0 (the
+    other four also on their route 1, which takes it)."""
     r = lambda *s: torch.randn(s, generator=gen, device=dev)
     for G_, N_, HD, heads in ((G, N, 96, 8), (G, N, 256, 8), (4, 4000, 200, 4)):
         n_edges = E - 3
@@ -1013,6 +1073,11 @@ def phase_unproj_widths(gen, dev):
             nq = (r(G_, N_, HD) / (HD // heads) ** 0.5).to(dt)
             nk, ekb = (r(G_, N_, HD) * 0.5).to(dt), \
                 (r(G_, n_edges, HD) * 0.5).to(dt)
+            s_p, m_p = scores_case(None, (nq, nk, ekb, src, dst, mask, heads),
+                                   dt, tag, None)
+            # a stand-in for the self-loop scores' max, which gmax also takes
+            gmax = torch.maximum(m_p, r(G_, heads))
+            denoms_case(None, (s_p, gmax, src, mask, N_), dt, tag, None)
             p2 = (nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst, mask)
             dnq0, dnk0 = r(G_, N_, HD) * 0.1, r(G_, N_, HD) * 0.1
             routes = unproj_routes(uk._bwd2_route, dt, N_, n_edges, HD, heads)
@@ -1147,7 +1212,9 @@ def value_and_grads(fn, vals, gout):
 UNPROJ_KERNELS = ("gat_unproj_scores", "gat_unproj_denoms", "gat_unproj_aggr",
                   "gat_unproj_bwd1", "gat_unproj_bwd2")
 UNPROJ_INPUTS = ("nq", "nk", "nm", "ekb", "emb", "skb", "smb")
-UNPROJ_ROUTED = {"gat_unproj_aggr": uk._aggr_route,
+UNPROJ_ROUTED = {"gat_unproj_scores": uk._scores_route,
+                 "gat_unproj_denoms": denoms_route,
+                 "gat_unproj_aggr": uk._aggr_route,
                  "gat_unproj_bwd1": uk._bwd1_route,
                  "gat_unproj_bwd2": uk._bwd2_route}
 
@@ -1192,7 +1259,7 @@ def phase_op(gen, dev, reports, card):
             f"{counts}  {'ok' if ok else 'FAIL'}")
         if not ok:
             FAILURES.append(f"launch counts of the op, {name}")
-        # every launch of the three routed kernels on the route its rule
+        # every launch of the five routed kernels on the route its rule
         # names at these shapes, and that route 1 for bf16
         for k, route_of in UNPROJ_ROUTED.items():
             want = route_of(dt, N, E, HD, HEADS)
@@ -1701,7 +1768,7 @@ def phase_train(dev, reports, card, cfg, model, enc_cfg, gen):
 
 PHASES = ("kernels", "grads", "op", "serve", "detail", "train")
 # parts of the kernel phase that can be asked for alone
-KERNEL_PARTS = ("fwd", "bwd", "enc", "moments", "unproj")
+KERNEL_PARTS = ("fwd", "bwd", "enc", "moments", "unproj", "scores")
 
 
 def main() -> int:
@@ -1782,8 +1849,12 @@ def main() -> int:
     if only & {"kernels", "unproj"}:
         log("\n[kernels 1 to 5: the unprojected GAT op, forward and backward]")
         phase_gat_unproj(new_gen(12), dev, reports)
-        log("\n[kernels 3 to 5 at other widths, and at N=4000 nodes]")
+        log("\n[kernels 1 to 5 at other widths, and at N=4000 nodes]")
         phase_unproj_widths(new_gen(20), dev)
+    if "scores" in only:
+        log("\n[kernels 1 and 2 alone: the unprojected op's scores and "
+            "denominators]")
+        phase_unproj_rows12(new_gen(12), dev, reports)
     if "grads" in only:
         log("\n[op gradients: the Functions on the kernels vs autograd "
             "through the scatter path, f32]")

@@ -9,10 +9,12 @@
 //   `_aggr_kernel`   (:373, via `_fwd_impl` :460) -> gat_unproj_aggr
 //   `_bwd1_kernel`   (:481, via `_bwd_impl` :589) -> gat_unproj_bwd1
 //   `_bwd2_kernel`   (:517, via `_bwd_impl` :617) -> gat_unproj_bwd2
-// aggr, bwd1 and bwd2 have two routes each: route 0 the warp-per-edge
-// kernels just below, route 1 kernels over each graph's slots sorted by
-// node (aggr_graph_kernel, bwd1_graph_kernel, bwd2_graph_kernel, further
-// down, on node_sort.cuh).
+// Each has two routes: route 0 the kernels just below (a block per 32 slots
+// and a warp per edge; denoms a thread per slot), route 1 the kernels further
+// down: aggr, bwd1 and bwd2 over each graph's slots sorted by node
+// (aggr_graph_kernel, bwd1_graph_kernel, bwd2_graph_kernel, on
+// node_sort.cuh), scores a block per range of a graph's live slots
+// (scores_range_kernel), denoms a block per graph (denoms_graph_kernel).
 //
 // scores: s[g, h, e] = sum over head h of nq[src] * (nk[dst] + ekb[e]) and
 //   the max over masked edges per (graph, head) by an atomic max on the
@@ -20,7 +22,8 @@
 // denoms, once the torch glue has folded the self-loop scores into gmax:
 //   e = exp(min(s - gmax, 0)) over masked edges, 0 elsewhere, WRITTEN as
 //   e_edge (G, H, E) (the backward reads it; the projected op recomputes it
-//   from the scores instead); denom[src] += e and deg[src] += 1 by atomicAdd.
+//   from the scores instead); denom[src] += e and deg[src] += 1 (route 0 by
+//   global atomicAdd, route 1 in a graph's shared memory).
 // aggr: out[dst] += round(e * scale[src] * (nm[src] + emb[e])) over masked
 //   edges into the f32 accumulator that the caller seeded with the
 //   self-loop term; the weighted message is rounded to the compute dtype
@@ -1078,6 +1081,343 @@ bwd1_graph_kernel(const T* __restrict__ gout, const T* __restrict__ nm,
   }
 }
 
+// ---------------------------------------------------------------------------
+// scores, route 1: a block per range of SR slots of one graph, its live
+// slots listed and their rows loaded into registers ahead of their use.
+//
+// Route 0 (scores_kernel above) gives a block 32 slots and a warp one slot
+// at a time, each a chain of dependent loads (the mask, then src and dst,
+// then three rows) that the warp waits on in turn, four times before the
+// block ends (111 us at G=64 x E=4096, HD=200 in bf16, against a bound of
+// 28). Here a block stages its range's src, dst and mask in one coalesced
+// pass, writes the masked slots' scores as 0 without touching their rows,
+// and lists the live slots (a warp ballot and one shared atomic a warp);
+// each warp takes an even share of the list and loads a slot's nq[src],
+// nk[dst] and ekb rows, each lane its own 16-byte pieces, AHEAD slots
+// before it uses them (2 in bf16, 1 in f32: the same bytes). The head sums
+// are one prefix scan over the lanes (HeadScan). Scores are staged
+// head-major in shared memory and written as runs; each head lane keeps its
+// head's max in a register, and a block does one global atomic max a head.
+// The slots need no sort: scores are written in slot order and the max does
+// not depend on order.
+//
+// What holds it back is the work a warp does per slot, not bytes: with no
+// row loaded at all, the slots' loop took two thirds of the time, while
+// halving a slot's rows saved a tenth (PERF.md, PR 9). A cp.async ring of
+// 8 slots a warp, as aggr_graph_kernel has, took 1.15x the time in bf16
+// and 1.4x in f32 (each slot's rows cross shared memory twice, and each
+// copy waits on its index load); more, smaller blocks (four an SM, which
+// the registers allow) are what moved it most.
+//
+// Bound on the H100: bytes, ekb's live rows (79 MB of the 95 MB the bound
+// counts at the shapes above) beside the node rows, which L2 holds.
+constexpr int SR = 512;                 // slots of a scores block's range
+
+// slots whose rows a warp holds ahead of their use: the same bytes in bf16
+// and f32
+__host__ __device__ constexpr int scores_ahead(int elem) {
+  return elem == 2 ? 2 : 1;
+}
+
+// dynamic shared memory of a scores block: the range's scores, head-major;
+// the live list's src and dst (int32) and slot offset in the range (uint16)
+__host__ __device__ inline size_t scores_smem(int H) {
+  return (size_t)H * SR * sizeof(float) +
+         (size_t)SR * (2 * sizeof(int) + sizeof(uint16_t));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(RT, 4)
+scores_range_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
+                    const T* __restrict__ ekb,
+                    const int32_t* __restrict__ src,
+                    const int32_t* __restrict__ dst,
+                    const uint8_t* __restrict__ mask,
+                    float* __restrict__ scores, float* __restrict__ m_edge,
+                    int E, int N, int HD, int H) {
+  constexpr int AHEAD = scores_ahead(sizeof(T));
+  constexpr int NV = 8 * sizeof(T) / 16;  // 16-byte words of 8 values
+  constexpr int K = SR / RT;             // slots a thread stages
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float s_max[MAX_H];
+  __shared__ int s_n;                    // live slots listed
+  const long long g = blockIdx.y;
+  const int e0 = blockIdx.x * SR, ne = min(SR, E - e0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* s_sc = reinterpret_cast<float*>(smem);            // H x SR
+  int* s_src = reinterpret_cast<int*>(s_sc + H * SR);
+  int* s_dst = s_src + SR;
+  uint16_t* s_el = reinterpret_cast<uint16_t*>(s_dst + SR);
+  if (tid < MAX_H) s_max[tid] = NEG;
+  if (tid == 0) s_n = 0;
+
+  // the range's slots, K a thread, their loads all issued before any is
+  // used; slot el = tid + k * RT, so a warp's lanes hold 32 consecutive
+  const int32_t* g_src = src + g * E + e0;
+  const int32_t* g_dst = dst + g * E + e0;
+  const uint8_t* g_mask = mask + g * E + e0;
+  bool lv[K];
+  int sv[K], dv[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int el = tid + k * RT;
+    lv[k] = el < ne && g_mask[el];
+    sv[k] = el < ne ? g_src[el] : 0;
+    dv[k] = el < ne ? g_dst[el] : 0;
+  }
+  __syncthreads();                       // s_n is zeroed
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int el = tid + k * RT;
+    const unsigned live = __ballot_sync(FULL, lv[k]);
+    int base = 0;
+    if (lane == 0 && live) base = atomicAdd(&s_n, __popc(live));
+    base = __shfl_sync(FULL, base, 0);
+    if (lv[k]) {
+      const int i = base + __popc(live & ((1u << lane) - 1));
+      s_src[i] = sv[k];
+      s_dst[i] = dv[k];
+      s_el[i] = (uint16_t)el;
+    } else if (el < ne) {
+      for (int h = 0; h < H; ++h) s_sc[h * SR + el] = 0.0f;
+    }
+  }
+  __syncthreads();
+
+  const int n_live = s_n;
+  const int va = (int)((long long)n_live * warp / RW);
+  const int vb = (int)((long long)n_live * (warp + 1) / RW);
+  const int c0 = 8 * lane, my_h = lane / 4;
+  const bool on = c0 < HD, head_lane = (lane & 3) == 0 && my_h < H;
+  const LaneHeads lh(c0, HD / H, H);
+  const HeadScan hs(c0, HD / H, my_h, HD);
+  const T* nq_g = nq + g * N * HD + c0;
+  const T* nk_g = nk + g * N * HD + c0;
+  const T* ekb_g = ekb + (g * E + e0) * HD + c0;
+
+  // listed slot v's three rows, the lane's 16-byte words of each
+  uint4 rows[AHEAD][3][NV];
+  auto fetch = [&](int v, uint4 (&r)[3][NV]) {
+    if (v < vb && on) {
+      const uint4* q = reinterpret_cast<const uint4*>(
+          nq_g + (long long)s_src[v] * HD);
+      const uint4* k = reinterpret_cast<const uint4*>(
+          nk_g + (long long)s_dst[v] * HD);
+      const uint4* b = reinterpret_cast<const uint4*>(
+          ekb_g + (long long)s_el[v] * HD);
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        r[0][j] = __ldg(q + j);
+        r[1][j] = __ldg(k + j);
+        r[2][j] = __ldg(b + j);
+      }
+    }
+  };
+#pragma unroll
+  for (int u = 0; u < AHEAD; ++u) fetch(va + u, rows[u]);
+
+  float mx = NEG;                        // head lane / 4's max
+  for (int v0 = va; v0 < vb; v0 += AHEAD) {
+#pragma unroll
+    for (int u = 0; u < AHEAD; ++u) {
+      const int v = v0 + u;
+      if (v >= vb) break;                // uniform over the warp
+      float pA = 0.0f, pB = 0.0f;
+      if (on) {
+        float q[8], k[8], b[8];
+        load_row<T, 8>(reinterpret_cast<const T*>(rows[u][0]), q);
+        load_row<T, 8>(reinterpret_cast<const T*>(rows[u][1]), k);
+        load_row<T, 8>(reinterpret_cast<const T*>(rows[u][2]), b);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float p = q[j] * (k[j] + b[j]);
+          if (j < lh.kb) pA += p; else pB += p;
+        }
+      }
+      fetch(v + AHEAD, rows[u]);         // into the registers just read
+      const float s = hs.total(pA, pB, lane);
+      if (head_lane) {
+        s_sc[my_h * SR + s_el[v]] = s;
+        mx = fmaxf(mx, s);
+      }
+    }
+  }
+  if (head_lane && va < vb) atomic_max_float(&s_max[my_h], mx);
+  __syncthreads();
+
+  // the range's scores as runs of consecutive slots, head by head
+  for (int i = tid; i < H * ne; i += RT) {
+    const int h = i / ne, el = i % ne;
+    scores[(g * H + h) * E + e0 + el] = s_sc[h * SR + el];
+  }
+  if (tid < H && s_max[tid] > NEG)
+    atomic_max_float(&m_edge[g * H + tid], s_max[tid]);
+}
+
+// ---------------------------------------------------------------------------
+// denoms, route 1: a block per graph, each source's exponentials gathered
+// into a run in shared memory and summed there.
+//
+// Route 0 (denoms_kernel above) runs a thread per slot and adds each live
+// slot's H exponentials and its degree into global floats by atomicAdd
+// (about 0.97 million atomics at G=64 x E=4096, H=4), into arrays that two
+// zero-fill launches have cleared first. Here block g owns graph g and does
+// a counting sort of its live slots by source (node_sort.cuh's way, on
+// native shared integer atomics): it counts them (the counts are the
+// out-degrees), turns the counts into offsets, then writes each slot's H
+// exponentials at its source's next place in a (H, E) table, and e_edge in
+// slot order. Each (source, head) then sums its run of the table in
+// registers, and denom and deg are written whole, once: no zero fills, no
+// float atomics (a shared f32 atomicAdd is a compare-and-swap loop on
+// sm_90a; summing with it, the first version of this kernel, took 1.5x the
+// time). A thread holds a quad of slots in registers, with their scores
+// loaded while the slots are counted; graphs with more than 4 x DT slots
+// read the rest again after the count. The graph's sources, masks and scores
+// are read as 16-byte vectors where E % 4 == 0.
+//
+// Bound on the H100: bytes, the scores read and e_edge written (4.2 MB each
+// at the shapes above); a launch's fixed cost is most of the time.
+constexpr int DT = 1024;                // threads of a denoms block
+
+// dynamic shared memory of a denoms block: the exponentials grouped by
+// source (f32, H x E), the offsets (N + 1) and the counts, later the next
+// places (N), int32
+__host__ __device__ inline size_t denoms_smem(int N, int E, int H) {
+  return (size_t)H * E * sizeof(float) + (size_t)(2 * N + 1) * sizeof(int);
+}
+
+// four consecutive values at p, of which the first n < 4 lie in the array:
+// one 16-byte load where VEC (n == 4 and p aligned), else one a value
+template <bool VEC, typename V>
+__device__ __forceinline__ void load4(const V* __restrict__ p, int n,
+                                      V (&v)[4]) {
+  if constexpr (VEC) {
+    static_assert(sizeof(V) == 4, "16-byte words of four 4-byte values");
+    const uint4 w = *reinterpret_cast<const uint4*>(p);
+    const V* a = reinterpret_cast<const V*>(&w);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = a[j];
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = j < n ? p[j] : V(0);
+  }
+}
+
+// a thread's quad of slots in chunk c: sources, masks (0 past E) and,
+// where `scores`, the H rows' scores
+template <bool VEC>
+struct SlotQuad {
+  int src[4];
+  uint8_t live[4];
+  float s[MAX_H][4];
+
+  __device__ __forceinline__ static int first(int c) {
+    return 4 * (c * DT + (int)threadIdx.x);
+  }
+  __device__ __forceinline__ void load(int c, bool scores,
+                                       const int32_t* __restrict__ g_src,
+                                       const uint8_t* __restrict__ g_mask,
+                                       const float* __restrict__ g_s, int E,
+                                       int H) {
+    const int e0 = first(c), n = max(0, min(4, E - e0));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) live[j] = 0;
+    if (n == 0) return;
+    load4<VEC>(g_src + e0, n, src);
+    if constexpr (VEC) {
+      const uchar4 w = *reinterpret_cast<const uchar4*>(g_mask + e0);
+      live[0] = w.x; live[1] = w.y; live[2] = w.z; live[3] = w.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) live[j] = j < n ? g_mask[e0 + j] : 0;
+    }
+    if (scores) {
+#pragma unroll
+      for (int h = 0; h < MAX_H; ++h)
+        if (h < H) load4<VEC>(g_s + h * E + e0, n, s[h]);
+    }
+  }
+};
+
+template <bool VEC>
+__global__ void __launch_bounds__(DT)
+denoms_graph_kernel(const float* __restrict__ scores,
+                    const float* __restrict__ gmax,
+                    const int32_t* __restrict__ src,
+                    const uint8_t* __restrict__ mask,
+                    float* __restrict__ e_edge, float* __restrict__ denom,
+                    float* __restrict__ deg, int E, int N, int H) {
+  extern __shared__ __align__(16) float s_e[];             // H x E
+  int* off = reinterpret_cast<int*>(s_e + H * E);          // N + 1
+  int* cur = off + N + 1;                                  // N
+  const long long g = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int32_t* g_src = src + g * E;
+  const uint8_t* g_mask = mask + g * E;
+  const float* g_s = scores + g * H * E;
+  float* e_g = e_edge + g * H * E;
+  const int chunks = (E + 4 * DT - 1) / (4 * DT);
+  for (int i = tid; i < N; i += DT) cur[i] = 0;
+  __syncthreads();
+
+  // count the live slots by source; chunk 0's scores load meanwhile
+  SlotQuad<VEC> sq;
+  for (int c = 0; c < chunks; ++c) {
+    sq.load(c, c == 0, g_src, g_mask, g_s, E, H);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (sq.live[j]) atomicAdd(&cur[sq.src[j]], 1);
+  }
+  float gm[MAX_H];
+#pragma unroll
+  for (int h = 0; h < MAX_H; ++h) gm[h] = h < H ? gmax[g * H + h] : 0.0f;
+  __syncthreads();
+  if (tid < 32) warp_offsets(cur, off, cur, N, tid);
+  __syncthreads();
+
+  // each live slot's exponentials at its source's next place; e_edge whole
+  for (int c = 0; c < chunks; ++c) {
+    // chunk 0's scores are still held; its slots too where it is the only
+    if (c > 0 || chunks > 1) sq.load(c, c > 0, g_src, g_mask, g_s, E, H);
+    const int e0 = SlotQuad<VEC>::first(c);
+    if (e0 >= E) continue;
+    int at[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      at[j] = sq.live[j] ? atomicAdd(&cur[sq.src[j]], 1) : 0;
+#pragma unroll
+    for (int h = 0; h < MAX_H; ++h) {
+      if (h >= H) break;
+      float x[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        x[j] = sq.live[j] ? expf(fminf(sq.s[h][j] - gm[h], 0.0f)) : 0.0f;
+        if (sq.live[j]) s_e[h * E + at[j]] = x[j];
+      }
+      float* p = e_g + h * E + e0;
+      if constexpr (VEC) {
+        *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (e0 + j < E) p[j] = x[j];
+      }
+    }
+  }
+  __syncthreads();
+
+  // each (source, head) sums its run; the runs' lengths are the degrees
+  for (int i = tid; i < N * H; i += DT) {
+    const int n = i / H;
+    const float* run = s_e + (i % H) * E;
+    float sum = 0.0f;
+#pragma unroll 4
+    for (int v = off[n]; v < off[n + 1]; ++v) sum += run[v];
+    denom[g * N * H + i] = sum;
+  }
+  for (int i = tid; i < N; i += DT) deg[g * N + i] = (float)(off[i + 1] - off[i]);
+}
+
 // the parts of each graph's live slots a node-run grid takes: about two
 // blocks an SM over the G graphs, and at least 16 slots a warp
 int graph_parts(int G, int E) {
@@ -1134,18 +1474,38 @@ dim3 edge_grid(int G, int E) { return dim3((E + UE - 1) / UE, G); }
 // dtype: 0 = float32 node and edge arrays, 1 = bfloat16. All take
 // HD % 8 == 0, HD <= 256, H <= 8 dividing HD, and 16-byte aligned arrays.
 
-// m_edge (G, H) arrives filled with -1e30.
+// m_edge (G, H) arrives filled with -1e30. route 0: a block per 32 slots, a
+// warp per edge; route 1: a block per range of SR slots of a graph, which
+// takes heads of at least 8 features.
 extern "C" int gat_unproj_scores(const void* nq, const void* nk,
                                  const void* ekb, const void* src,
                                  const void* dst, const void* mask,
                                  void* scores, void* m_edge, int G, int N,
-                                 int E, int HD, int H, int dtype,
+                                 int E, int HD, int H, int dtype, int route,
                                  void* stream) {
   if (!shapes_ok(HD, H) || !aligned16(nq) || !aligned16(nk) ||
-      !aligned16(ekb))
+      !aligned16(ekb) || (route != 0 && route != 1) ||
+      (route == 1 && HD / H < 8))
     return (int)cudaErrorInvalidValue;
   if ((long long)G * E == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == 1) {
+    const dim3 grid((E + SR - 1) / SR, G);
+    if (dtype == 1) {
+      typedef __nv_bfloat16 T;
+      scores_range_kernel<T><<<grid, RT, scores_smem(H), s>>>(
+          (const T*)nq, (const T*)nk, (const T*)ekb, (const int32_t*)src,
+          (const int32_t*)dst, (const uint8_t*)mask, (float*)scores,
+          (float*)m_edge, E, N, HD, H);
+    } else {
+      typedef float T;
+      scores_range_kernel<T><<<grid, RT, scores_smem(H), s>>>(
+          (const T*)nq, (const T*)nk, (const T*)ekb, (const int32_t*)src,
+          (const int32_t*)dst, (const uint8_t*)mask, (float*)scores,
+          (float*)m_edge, E, N, HD, H);
+    }
+    return (int)cudaGetLastError();
+  }
   if (dtype == 1) {
     typedef __nv_bfloat16 T;
     scores_kernel<T><<<edge_grid(G, E), UTHREADS, 0, s>>>(
@@ -1162,12 +1522,33 @@ extern "C" int gat_unproj_scores(const void* nq, const void* nk,
   return (int)cudaGetLastError();
 }
 
-// denom (G, N, H) and deg (G, N) arrive zeroed; e_edge (G, H, E) is written
-// whole.
+// e_edge (G, H, E) is written whole. route 0: a thread per slot, global
+// atomics into denom (G, N, H) and deg (G, N), which arrive zeroed; route
+// 1: a block per graph, which writes denom and deg whole and takes the
+// shared memory of denoms_smem.
 extern "C" int gat_unproj_denoms(const void* scores, const void* gmax,
                                  const void* src, const void* mask,
                                  void* e_edge, void* denom, void* deg, int G,
-                                 int N, int E, int H, void* stream) {
+                                 int N, int E, int H, int route,
+                                 void* stream) {
+  if (H <= 0 || H > MAX_H || N < 0 || (route != 0 && route != 1) ||
+      (route == 1 && denoms_smem(N, E, H) > 227 * 1024))
+    return (int)cudaErrorInvalidValue;
+  if (route == 1) {
+    if (G == 0) return (int)cudaGetLastError();
+    const size_t smem = denoms_smem(N, E, H);
+    const bool vec = E % 4 == 0 && aligned16(scores) && aligned16(src) &&
+                     aligned16(e_edge) && (uintptr_t)mask % 4 == 0;
+    const auto kernel =
+        vec ? denoms_graph_kernel<true> : denoms_graph_kernel<false>;
+    const cudaError_t err = set_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<G, DT, smem, (cudaStream_t)stream>>>(
+        (const float*)scores, (const float*)gmax, (const int32_t*)src,
+        (const uint8_t*)mask, (float*)e_edge, (float*)denom, (float*)deg, E,
+        N, H);
+    return (int)cudaGetLastError();
+  }
   const long long n_edges = (long long)G * E;
   if (n_edges == 0) return (int)cudaGetLastError();
   const int threads = 256;

@@ -1,7 +1,8 @@
 // A graph's live edge slots sorted by node in shared memory: the prologue
 // that the unprojected op's route-1 kernels share (gat_unproj.cu:
 // aggr_graph_kernel and bwd1_graph_kernel, which sort by the node they sum
-// into, and bwd2_graph_kernel, which sorts by both endpoints).
+// into, and bwd2_graph_kernel, which sorts by both endpoints;
+// denoms_graph_kernel takes the offset scan alone).
 //
 // A block reads the graph's (src, dst, mask) once, packs each slot's local
 // endpoints into one word (DEAD where masked) and counts the live slots per

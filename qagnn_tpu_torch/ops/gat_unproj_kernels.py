@@ -10,12 +10,20 @@ product. The forward runs
   * `edge_scores` (`gat_unproj_scores`): s = <nq[src], nk[dst] + ekb> per
     head, (G, H, E) f32, 0 at masked slots, and the max over masked edges
     per (graph, head), folded into the kernel by an atomic max (-1e30 for
-    a graph with no masked edge);
+    a graph with no masked edge). Two routes (`_scores_route`): route 1,
+    where heads have at least 8 features, runs a block per range of a
+    graph's slots that lists the live ones and loads their rows into
+    registers ahead of their use; route 0 a block per 32 slots and a warp
+    per edge;
   * torch glue: self-loop scores, gmax over masked edges AND all N self
     scores, e_self;
   * `edge_denoms` (`gat_unproj_denoms`): e_edge = exp(min(s - gmax, 0))
     over masked edges, 0 elsewhere, written (G, H, E); per-source sums of
-    it and out-degrees;
+    it and out-degrees. Two routes (`_denoms_route`): route 1, where a
+    graph's exponentials fit a block's shared memory, runs a block per
+    graph that sorts them by source there, sums each source's run in
+    registers and writes the sums and degrees whole; route 0 a thread per
+    slot with global atomics into zero-filled arrays;
   * torch glue: scale = (deg + 1) / max(denom_edges + e_self, 1e-16) and the
     self-loop term (nm + smb) * e_self * scale that seeds the output;
   * `aggregate` (`gat_unproj_aggr`): out[dst] += round(e_edge * scale[src]
@@ -80,8 +88,8 @@ from qagnn_tpu_torch.ops.gat_kernels import (
 )
 
 _SIGNATURES = {
-    "gat_unproj_scores": [_P] * 8 + [_I] * 6 + [_P],
-    "gat_unproj_denoms": [_P] * 7 + [_I] * 4 + [_P],
+    "gat_unproj_scores": [_P] * 8 + [_I] * 7 + [_P],
+    "gat_unproj_denoms": [_P] * 7 + [_I] * 5 + [_P],
     "gat_unproj_aggr": [_P] * 8 + [_I] * 7 + [_P],
     "gat_unproj_bwd1": [_P] * 12 + [_I] * 7 + [_P],
     "gat_unproj_bwd2": [_P] * 13 + [_I] * 8 + [_P],
@@ -108,14 +116,14 @@ def _require_graph(src, dst, mask, G, E) -> None:
     _require(mask, "mask", torch.bool, (G, E))
 
 
-def _pick_route(kernel, fits, route, dtype, N, E, HD, heads, prefer=True):
+def _pick_route(kernel, fits, route, prefer=True, **shapes):
     """1 where route 1 takes the shapes (`fits`) and is the one to prefer,
     else 0; or `route`, where the caller names one that takes them."""
     if route is None:
         return 1 if fits and prefer else 0
     if route not in (0, 1) or (route == 1 and not fits):
-        raise ValueError(f"no route {route} of {kernel} for {dtype}, N={N}, "
-                         f"E={E}, HD={HD}, heads={heads}")
+        said = ", ".join(f"{k}={v}" for k, v in shapes.items())
+        raise ValueError(f"no route {route} of {kernel} for {said}")
     return route
 
 
@@ -148,8 +156,8 @@ def _aggr_route(dtype, N, E, HD, heads, route=None):
     0, the warp-per-edge kernel. `route` names one, 0 to time the
     warp-per-edge kernel beside route 1."""
     fits = _sorted_fits(dtype, N, E, HD, heads, AGGR_ROWS)
-    return _pick_route("gat_unproj_aggr", fits, route, dtype, N, E, HD,
-                       heads)
+    return _pick_route("gat_unproj_aggr", fits, route, dtype=dtype, N=N, E=E,
+                       HD=HD, heads=heads)
 
 
 def _bwd1_route(dtype, N, E, HD, heads, route=None):
@@ -160,13 +168,27 @@ def _bwd1_route(dtype, N, E, HD, heads, route=None):
     more than route 0's atomics; PERF.md), so float32 goes to route 0
     unless `route` names 1. `route` names one, as for `_aggr_route`."""
     fits = _sorted_fits(dtype, N, E, HD, heads, BWD1_ROWS)
-    return _pick_route("gat_unproj_bwd1", fits, route, dtype, N, E, HD,
-                       heads, prefer=dtype == torch.bfloat16)
+    return _pick_route("gat_unproj_bwd1", fits, route,
+                       prefer=dtype == torch.bfloat16, dtype=dtype, N=N, E=E,
+                       HD=HD, heads=heads)
 
 
 # --------------------------------------------------------------------------
 # scores
 # --------------------------------------------------------------------------
+
+def _scores_route(dtype, N, E, HD, heads, route=None):
+    """Route of `edge_scores`: 1 (a block per range of 512 slots of a
+    graph, its live slots listed and their rows loaded into registers ahead
+    of their use; 21 KB of shared memory at most) for float32 and bfloat16
+    with heads of at least 8 features; else 0, a block per 32 slots and a
+    warp per edge. `route` names one, 0 to time route 0 beside route 1."""
+    fits = dtype in (torch.float32, torch.bfloat16) and HD % 8 == 0 \
+        and HD <= 256 and 0 < heads <= 8 and HD % heads == 0 \
+        and HD // heads >= 8
+    return _pick_route("gat_unproj_scores", fits, route, dtype=dtype, N=N,
+                       E=E, HD=HD, heads=heads)
+
 
 def edge_scores_plain(nq, nk, ekb, src, dst, mask, heads):
     eq = _gather_nodes(nq, src).float()
@@ -177,9 +199,10 @@ def edge_scores_plain(nq, nk, ekb, src, dst, mask, heads):
     return torch.where(live, s, 0.0).contiguous(), m_edge
 
 
-def edge_scores(nq, nk, ekb, src, dst, mask, heads):
+def edge_scores(nq, nk, ekb, src, dst, mask, heads, _route=None):
     """Scores (G, H, E) f32, 0 at masked slots, and the max over masked
-    edges (G, H) f32 (NEG for a graph with no masked edge)."""
+    edges (G, H) f32 (NEG for a graph with no masked edge). `_route` names a
+    route (`_scores_route`), to time it beside the other."""
     if not nq.is_cuda:
         return edge_scores_plain(nq, nk, ekb, src, dst, mask, heads)
     G, N, HD = nq.shape
@@ -190,21 +213,42 @@ def edge_scores(nq, nk, ekb, src, dst, mask, heads):
     _require(nk, "nk", cdt, (G, N, HD))
     _require(ekb, "ekb", cdt, (G, E, HD))
     _require_graph(src, dst, mask, G, E)
+    route = _scores_route(cdt, N, E, HD, heads, _route)
     out = torch.empty((G, heads, E), device=nq.device, dtype=torch.float32)
     m_edge = torch.full((G, heads), NEG, device=nq.device,
                         dtype=torch.float32)
     err = _lib().gat_unproj_scores(
         nq.data_ptr(), nk.data_ptr(), ekb.data_ptr(), src.data_ptr(),
         dst.data_ptr(), mask.data_ptr(), out.data_ptr(), m_edge.data_ptr(),
-        G, N, E, HD, heads, _dtype_code(nq), _stream())
+        G, N, E, HD, heads, _dtype_code(nq), route, _stream())
     _build.check(err, "gat_unproj_scores")
-    _build.count_launch("gat_unproj_scores")
+    _build.count_launch("gat_unproj_scores", route)
     return out, m_edge
 
 
 # --------------------------------------------------------------------------
 # exponentials, denominators and degrees
 # --------------------------------------------------------------------------
+
+def _denoms_smem(N, E, heads):
+    """Dynamic shared memory of a route-1 denoms block (`denoms_smem` in
+    csrc/gat_unproj.cu): the graph's exponentials grouped by source (f32,
+    heads x E); the offsets (N + 1) and the counts, later the next places
+    (N), int32."""
+    return 4 * heads * E + 4 * (2 * N + 1)
+
+
+def _denoms_route(N, E, heads, route=None):
+    """Route of `edge_denoms`: 1 (a block per graph that sorts its slots by
+    source in shared memory, sums each source's run and writes the sums and
+    degrees whole) where that fits a block's shared memory
+    (`_denoms_smem`); else 0, a thread per slot with global atomics into
+    zero-filled arrays. The scores are f32 whatever the op's dtype, so no
+    dtype enters. `route` names one, 0 to time route 0 beside route 1."""
+    fits = 0 < heads <= 8 and _denoms_smem(N, E, heads) <= SORTED_MAX_SMEM
+    return _pick_route("gat_unproj_denoms", fits, route, N=N, E=E,
+                       heads=heads)
+
 
 def edge_denoms_plain(scores, gmax, src, mask, n_nodes):
     G, H, E = scores.shape
@@ -217,10 +261,11 @@ def edge_denoms_plain(scores, gmax, src, mask, n_nodes):
     return e, denom, deg
 
 
-def edge_denoms(scores, gmax, src, mask, n_nodes):
+def edge_denoms(scores, gmax, src, mask, n_nodes, _route=None):
     """e_edge = exp(min(s - gmax, 0)) over masked edges and 0 elsewhere
     (G, H, E), its per-source sums (G, N, H) and the out-degree (G, N), all
-    f32."""
+    f32. `_route` names a route (`_denoms_route`), to time it beside the
+    other."""
     if not scores.is_cuda:
         return edge_denoms_plain(scores, gmax, src, mask, n_nodes)
     G, H, E = scores.shape
@@ -228,16 +273,18 @@ def edge_denoms(scores, gmax, src, mask, n_nodes):
     _require(gmax, "gmax", torch.float32, (G, H))
     _require(src, "src", torch.int32, (G, E))
     _require(mask, "mask", torch.bool, (G, E))
-    dev = scores.device
+    route = _denoms_route(n_nodes, E, H, _route)
+    # route 1 writes denom and deg whole; route 0 adds into them
+    new = torch.empty if route == 1 else torch.zeros
     e_edge = torch.empty_like(scores)
-    denom = torch.zeros((G, n_nodes, H), device=dev, dtype=torch.float32)
-    deg = torch.zeros((G, n_nodes), device=dev, dtype=torch.float32)
+    denom = new((G, n_nodes, H), device=scores.device, dtype=torch.float32)
+    deg = new((G, n_nodes), device=scores.device, dtype=torch.float32)
     err = _lib().gat_unproj_denoms(
         scores.data_ptr(), gmax.data_ptr(), src.data_ptr(), mask.data_ptr(),
         e_edge.data_ptr(), denom.data_ptr(), deg.data_ptr(), G, n_nodes, E,
-        H, _stream())
+        H, route, _stream())
     _build.check(err, "gat_unproj_denoms")
-    _build.count_launch("gat_unproj_denoms")
+    _build.count_launch("gat_unproj_denoms", route)
     return e_edge, denom, deg
 
 
@@ -427,8 +474,8 @@ def _bwd2_route(dtype, N, E, HD, heads, route=None):
     fits = dtype in (torch.float32, torch.bfloat16) and HD % 8 == 0 \
         and HD // heads >= 8 \
         and _bwd2_width(dtype, N, E, HD, heads) is not None
-    return _pick_route("gat_unproj_bwd2", fits, route, dtype, N, E, HD,
-                       heads)
+    return _pick_route("gat_unproj_bwd2", fits, route, dtype=dtype, N=N, E=E,
+                       HD=HD, heads=heads)
 
 
 def bwd2(nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst, mask, dnq,

@@ -251,8 +251,13 @@ def test_default_backend_on_cpu_is_scatter():
 WRAPPERS = {
     "edge_scores": lambda a, r: uk.edge_scores(
         a["nq"], a["nk"], a["ekb"], a["src"], a["dst"], a["mask"], HEADS),
+    "edge_scores route 1": lambda a, r: uk.edge_scores(
+        a["nq"], a["nk"], a["ekb"], a["src"], a["dst"], a["mask"], HEADS,
+        _route=1),
     "edge_denoms": lambda a, r: uk.edge_denoms(
         r["scores"], r["gmax"], a["src"], a["mask"], 8),
+    "edge_denoms route 1": lambda a, r: uk.edge_denoms(
+        r["scores"], r["gmax"], a["src"], a["mask"], 8, _route=1),
     "aggregate": lambda a, r: uk.aggregate(
         a["nm"], a["emb"], r["e_edge"], r["scale"], a["src"], a["dst"],
         a["mask"], torch.zeros_like(a["nm"]), HEADS),
@@ -278,7 +283,9 @@ WRAPPERS = {
         _route=1),
 }
 PLAIN = {"edge_scores": uk.edge_scores_plain,
+         "edge_scores route 1": uk.edge_scores_plain,
          "edge_denoms": uk.edge_denoms_plain,
+         "edge_denoms route 1": uk.edge_denoms_plain,
          "aggregate": uk.aggregate_plain,
          "aggregate route 1": uk.aggregate_plain, "bwd1": uk.bwd1_plain,
          "bwd1 route 1": uk.bwd1_plain, "bwd2": uk.bwd2_plain,
@@ -440,3 +447,72 @@ def test_sorted_blocks_pair_on_an_sm_at_the_main_shapes():
         for rows in (uk.AGGR_ROWS, uk.BWD1_ROWS):
             assert uk._sorted_smem(200, 4096, 200, elem, rows) \
                 <= uk.BWD2_PAIR_SMEM
+
+
+@pytest.mark.parametrize("dtype, N, E, HD, heads, routes", [
+    (torch.bfloat16, 200, 4096, 200, 4, (1, 1)),   # the op's main shapes
+    (torch.float32, 200, 4096, 200, 4, (1, 1)),
+    (torch.bfloat16, 200, 4093, 96, 8, (1, 1)),    # heads of 12 straddle
+    (torch.float32, 200, 4093, 256, 8, (1, 1)),
+    (torch.bfloat16, 4000, 4093, 200, 4, (1, 1)),  # many nodes, few slots
+    (torch.bfloat16, 20000, 4096, 200, 4, (1, 1)),
+    (torch.bfloat16, 21000, 4096, 200, 4, (1, 0)),  # denoms' table too large
+    (torch.float32, 12000, 4096, 256, 8, (1, 1)),
+    (torch.float32, 13000, 4096, 256, 8, (1, 0)),
+    (torch.bfloat16, 200, 14000, 200, 4, (1, 1)),
+    (torch.bfloat16, 200, 14600, 200, 4, (1, 0)),
+    (torch.bfloat16, 200, 70000, 200, 4, (1, 0)),  # beyond uint16 slots
+    (torch.bfloat16, 200, 4096, 32, 8, (0, 1)),    # heads of 4 features
+    (torch.float16, 200, 4096, 200, 4, (0, 1)),    # denoms read f32 scores
+])
+def test_scores_and_denoms_route_by_dtype_and_shape(dtype, N, E, HD, heads,
+                                                    routes):
+    """Route 1 of the scores takes f32 and bf16 where heads have at least 8
+    features, at any N and E (a block takes a fixed range of slots and
+    holds int32 node indices); route 1 of the denominators takes any dtype
+    where a graph's exponentials, grouped by source, and its node offsets
+    fit a block's shared memory. Route 0 takes the rest."""
+    scores_route = uk._scores_route(dtype, N, E, HD, heads)
+    denoms_route = uk._denoms_route(N, E, heads)
+    assert (scores_route, denoms_route) == routes
+    assert uk._scores_route(dtype, N, E, HD, heads, 0) == 0
+    assert uk._denoms_route(N, E, heads, 0) == 0
+    if routes[0]:
+        assert uk._scores_route(dtype, N, E, HD, heads, 1) == 1
+    if routes[1]:
+        assert uk._denoms_route(N, E, heads, 1) == 1
+
+
+@pytest.mark.parametrize("dtype, N, E, HD, heads, route", [
+    (torch.bfloat16, 200, 4096, 32, 8, 1),
+    (torch.float16, 200, 4096, 200, 4, 1),
+    (torch.bfloat16, 200, 4096, 200, 4, 2),
+    (torch.float32, 200, 4096, 200, 4, -1),
+])
+def test_scores_route_refuses(dtype, N, E, HD, heads, route):
+    with pytest.raises(ValueError, match="no route"):
+        uk._scores_route(dtype, N, E, HD, heads, route)
+
+
+@pytest.mark.parametrize("N, E, heads, route", [
+    (30000, 4096, 4, 1), (200, 70000, 4, 1), (13000, 4096, 8, 1),
+    (200, 4096, 9, 1), (200, 4096, 4, 2),
+])
+def test_denoms_route_refuses(N, E, heads, route):
+    with pytest.raises(ValueError, match="no route"):
+        uk._denoms_route(N, E, heads, route)
+
+
+@pytest.mark.parametrize("N, E, heads", [
+    (200, 4096, 4), (4000, 4093, 4), (1, 1, 1), (200, 4093, 8),
+    (12000, 4096, 8),
+])
+def test_denoms_smem_holds_a_graphs_runs_and_offsets(N, E, heads):
+    """A route-1 denominators block holds the graph's exponentials grouped
+    by source (f32, heads x E), then the node offsets (N + 1) and the
+    counts, later the next places (N), as int32: 65,536 + 1,604 bytes at
+    the main shapes."""
+    assert uk._denoms_smem(N, E, heads) \
+        == heads * E * 4 + (N + 1) * 4 + N * 4
+    assert uk._denoms_smem(N, E, heads) <= uk.SORTED_MAX_SMEM
+    assert uk._denoms_smem(200, 4096, 4) == 65_536 + 1_604
