@@ -53,10 +53,24 @@ Run from the repository root on a machine with one CUDA card. It
      falling), steps with the encoder
      frozen, and a step in two microbatches, counting the launches of every
      kernel per step and the route of the six entry points that have two;
-  9. prints one JSON line of per-kernel numbers, the card's name and power
+  9. drives the CLI, qagnn_tpu_torch.cli, at the same widths from a
+     dataset it writes to a temporary directory (reference-format
+     statements and ConceptNet-like graphs of 100-199 concepts in the
+     4096-edge bucket, 48 / 16 / 16 questions x 4 choices, the 799,273 x 1024
+     entity table as .npy) and a random roberta-large it writes as an
+     HF-format directory (`--encoder_load`), tokenized by a word-level
+     tokenizer: `train` (one frozen epoch, one trained, checkpointed),
+     `eval_detail` from the checkpoint and a resumed epoch. It checks the
+     losses, the encoder as loaded, the restored optimizer state and step,
+     eval_detail's logits against the trained model's, the loader's pinned
+     batches, and the launches and routes of rows 6-12 per train step and
+     of rows 6, 7 and 11 per eval batch; and prints the CLI's per-step
+     log lines, the host gather and H2D copy of a batch, the device span of
+     a step, checkpoint bytes and seconds, and eval_detail's batch times;
+ 10. prints one JSON line of per-kernel numbers, the card's name and power
      limit, and as its last line {"ok": true, "device": {...}}.
 
-`--only kernels,grads,op,serve,detail,train` runs a subset of the phases
+`--only kernels,grads,op,serve,detail,train,cli` runs a subset of the phases
 (for work on one of them; `fwd`, `bwd`, `enc`, `moments` and `unproj` are
 the kernel phase's parts for the GAT forward passes A and C, for the two GAT
 backward passes, for the edge encoder's three kernels (rows 10-12), for its
@@ -73,15 +87,22 @@ check fails. It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import dataclasses
+import gc
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
+from unittest import mock
 
+import numpy as np
 import torch
 
 from qagnn_tpu_torch.graph.container import BatchedGraphs
@@ -180,6 +201,28 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0]
+
+
+class WordTokenizer:
+    """A word-level tokenizer over a fixed vocabulary, for the cli phase (the
+    card's machine has no `transformers`): lower-cases, splits on whitespace
+    and punctuation as BERT's basic tokenizer does, maps unknown words to
+    `unk_token`. Not a fast HF tokenizer, so the loader assembles the pairs
+    itself (data/statements.py `load_pair_statements`)."""
+
+    is_fast = False
+
+    def __init__(self, vocab, cls_token="<s>", sep_token="</s>",
+                 unk_token="<unk>"):
+        self.ids = {w: i for i, w in enumerate(vocab)}
+        self.cls_token, self.sep_token = cls_token, sep_token
+        self.unk_id = self.ids[unk_token]
+
+    def tokenize(self, text: str) -> list[str]:
+        return re.findall(r"\w+|[^\w\s]", text.lower())
+
+    def convert_tokens_to_ids(self, tokens) -> list[int]:
+        return [self.ids.get(t, self.unk_id) for t in tokens]
 
 
 def compare(what: str, got, want, tol: float, scale=None) -> float:
@@ -1549,10 +1592,16 @@ def check_routes(route: int, what: str) -> None:
         FAILURES.append(f"routes, {what}: {dict(_build.ROUTES)}")
 
 
+def step_launches(k) -> dict:
+    """Launches of each kernel in one forward + backward of the model on
+    the kernel path (k GAT layers)."""
+    return {"edge_moments": 1, "edge_hidden": 1, "gat_pass_a_scores": k,
+            "gat_pass_a_denoms": k, "gat_pass_c": k, "gat_bwd_pass1": k,
+            "gat_bwd_pass2": k, "edge_hidden_bwd": 1}
+
+
 def check_launches(counts, n_steps, microbatches, k, what) -> None:
-    per_pass = {"edge_moments": 1, "edge_hidden": 1, "gat_pass_a_scores": k,
-                "gat_pass_a_denoms": k, "gat_pass_c": k, "gat_bwd_pass1": k,
-                "gat_bwd_pass2": k, "edge_hidden_bwd": 1}
+    per_pass = step_launches(k)
     bad = {name: counts.get(name, 0) for name, n in per_pass.items()
            if counts.get(name, 0) != n * n_steps * microbatches}
     extra = set(counts) - set(per_pass)
@@ -1766,7 +1815,625 @@ def phase_train(dev, reports, card, cfg, model, enc_cfg, gen):
     log(f"  peak device memory over the training phase "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-PHASES = ("kernels", "grads", "op", "serve", "detail", "train")
+# ---------------------------------------------------------------------------
+# the CLI: qagnn_tpu_torch.cli on a dataset written to disk
+# ---------------------------------------------------------------------------
+
+# questions per split (4 choices each), and the graphs' sizes: 100-199
+# concepts, ConceptNet's 17 relations in the (17 n, n) adjacency layout with
+# 700-1900 stored entries, so that after the context edges and the inverses
+# every split's largest graph lands in the 4096-edge bucket, the train
+# phase's E
+CLI_QUESTIONS = {"train": 48, "dev": 16, "test": 16}
+CLI_CONCEPTS = (100, 200)
+CLI_ADJ_ENTRIES = (700, 1900)
+CLI_RELATIONS = 17
+CLI_WORDS = 400
+# the entity table's rows (ConceptNet's); cut here, never a width, should
+# the phase outgrow its time
+CLI_ENTITY_ROWS = N_CONCEPT
+CLI_EPOCHS, CLI_UNFREEZE = 2, 1
+
+
+def write_cli_dataset(root: pathlib.Path, rng) -> tuple[str, list[str]]:
+    """Statements, graphs and an entity table in the reference's formats
+    (reference utils/data_utils.py:79, utils/graph.py:114-129), from `rng`.
+    Returns the table's path and the statements' words."""
+    import pickle
+
+    import scipy.sparse
+
+    words = [f"w{i}" for i in range(CLI_WORDS)]
+    (root / "statement").mkdir(parents=True)
+    (root / "graph").mkdir()
+    for split, n in CLI_QUESTIONS.items():
+        with open(root / "statement" / f"{split}.statement.jsonl", "w") as f:
+            for i in range(n):
+                stem = " ".join(rng.choice(words, int(rng.integers(8, 70))))
+                choices = [{"label": "ABCD"[j], "text": " ".join(
+                    rng.choice(words, int(rng.integers(1, 6))))}
+                    for j in range(C)]
+                f.write(json.dumps({
+                    "id": f"{split}-{i}",
+                    "answerKey": "ABCD"[int(rng.integers(C))],
+                    "question": {"stem": stem + " ?",
+                                 "choices": choices}}) + "\n")
+        rows = []
+        for g in range(n * C):
+            nn_ = int(rng.integers(*CLI_CONCEPTS))
+            concepts = np.unique(rng.integers(0, CLI_ENTITY_ROWS - 1,
+                                              2 * nn_))[:nn_]
+            rng.shuffle(concepts)
+            nn_ = len(concepts)
+            n_q, n_a = int(rng.integers(1, 6)), int(rng.integers(1, 4))
+            qm, am = np.zeros(nn_, bool), np.zeros(nn_, bool)
+            qm[:n_q] = True
+            am[n_q:n_q + n_a] = True
+            # the split's first graph is its largest
+            nnz = CLI_ADJ_ENTRIES[1] if g == 0 \
+                else int(rng.integers(*CLI_ADJ_ENTRIES))
+            flat = rng.choice(CLI_RELATIONS * nn_ * nn_, nnz, replace=False)
+            adj = scipy.sparse.coo_matrix(
+                (np.ones(nnz, bool), (flat // nn_, flat % nn_)),
+                shape=(CLI_RELATIONS * nn_, nn_))
+            cid2score = dict(zip(concepts.tolist(),
+                                 rng.standard_normal(nn_).tolist()))
+            cid2score[-1] = 0.0
+            rows.append({"adj": adj, "concepts": concepts, "qmask": qm,
+                         "amask": am, "cid2score": cid2score})
+        with open(root / "graph" / f"{split}.graph.adj.pk", "wb") as f:
+            pickle.dump(rows, f)
+    emb_path = str(root / "ent_emb.npy")
+    table = rng.random((CLI_ENTITY_ROWS, CONCEPT_IN), dtype=np.float32)
+    table -= 0.5
+    np.save(emb_path, table)
+    return emb_path, words
+
+
+def hf_roberta_names(n_layers: int) -> dict[str, str]:
+    """TextEncoder parameter name -> RobertaModel state-dict key: the inverse
+    of models/text_encoder.py `convert_hf_encoder_params`, kept here so that
+    the checkpoint this phase writes does not come from the code it tests."""
+    names = {f"{t}.weight": f"embeddings.{t}.weight"
+             for t in ("word_embeddings", "position_embeddings",
+                       "token_type_embeddings")}
+    pairs = [("embeddings_ln", "embeddings.LayerNorm"),
+             ("pooler", "pooler.dense")]
+    for i in range(n_layers):
+        p, h = f"layer_{i}", f"encoder.layer.{i}"
+        pairs += [(f"{p}.attention.{n}", f"{h}.attention.self.{n}")
+                  for n in ("query", "key", "value")]
+        pairs += [(f"{p}.attention.out", f"{h}.attention.output.dense"),
+                  (f"{p}.attention_ln", f"{h}.attention.output.LayerNorm"),
+                  (f"{p}.intermediate", f"{h}.intermediate.dense"),
+                  (f"{p}.output", f"{h}.output.dense"),
+                  (f"{p}.output_ln", f"{h}.output.LayerNorm")]
+    for p, h in pairs:
+        names[f"{p}.weight"], names[f"{p}.bias"] = f"{h}.weight", f"{h}.bias"
+    return names
+
+
+def write_hf_roberta(out: pathlib.Path, params: dict, enc_cfg) -> None:
+    """An HF save_pretrained-style directory of a RobertaModel: config.json
+    and pytorch_model.bin under RobertaModel's key names."""
+    names = hf_roberta_names(enc_cfg.num_layers)
+    if set(names) != set(params):
+        FAILURES.append("the HF name map does not cover the encoder: "
+                        f"{sorted(set(names) ^ set(params))[:5]}")
+    out.mkdir(parents=True)
+    torch.save({names[n]: t for n, t in params.items()},
+               out / "pytorch_model.bin")
+    with open(out / "config.json", "w") as f:
+        json.dump({
+            "model_type": "roberta", "architectures": ["RobertaModel"],
+            "vocab_size": enc_cfg.vocab_size,
+            "hidden_size": enc_cfg.hidden_size,
+            "num_hidden_layers": enc_cfg.num_layers,
+            "num_attention_heads": enc_cfg.num_heads,
+            "intermediate_size": enc_cfg.intermediate_size,
+            "max_position_embeddings": enc_cfg.max_position_embeddings,
+            "type_vocab_size": enc_cfg.type_vocab_size,
+            "layer_norm_eps": enc_cfg.layer_norm_eps,
+            "hidden_dropout_prob": enc_cfg.hidden_dropout,
+            "attention_probs_dropout_prob": enc_cfg.attention_dropout,
+            "pad_token_id": enc_cfg.pad_token_id, "bos_token_id": 0,
+            "eos_token_id": 2, "hidden_act": enc_cfg.hidden_act}, f)
+
+
+EVAL_LAUNCHES = ("edge_hidden", "gat_pass_a_scores", "gat_pass_a_denoms",
+                 "gat_pass_c")
+
+
+class Tee:
+    """A stdout that also keeps what was written."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+class CliProbe:
+    """Watches qagnn_tpu_torch.cli run: wraps the names the CLI calls
+    (the loader, the encoder checkpoint reader, the step factories, the
+    checkpoint functions) without changing what they return, and records
+    per call its host time, its device span (CUDA events), the kernels it
+    launched and the eval logits; checks that the loader's batches are
+    pinned, that the loaded encoder is the written one bit for bit, and
+    that a restored optimizer state is the saved one bit for bit."""
+
+    def __init__(self, tokenizer, written: dict):
+        self.tokenizer, self.written = tokenizer, written
+        self.run = None
+        self.calls: list[dict] = []
+        self.times: dict[str, list[float]] = collections.defaultdict(list)
+        self.dataset = None
+        self.saved = None
+        self.restored = (False, -1)     # (equal to the saved state, step)
+        self.ckpt_bytes = 0
+        self.unpinned = 0
+        self.check_model = False
+
+    def patches(self):
+        from qagnn_tpu_torch import cli
+        wrap = {"QAGNNDataLoader": self.loader,
+                "build_model_and_data": self.build,
+                "load_encoder_checkpoint": self.load_encoder,
+                "make_train_step": self.step_wrapper("train"),
+                "make_eval_step": self.step_wrapper("eval"),
+                "make_detail_step": self.step_wrapper("detail"),
+                "save_checkpoint": self.save, "load_checkpoint": self.load,
+                "restore_into": self.restore}
+        stack = contextlib.ExitStack()
+        for name, make in wrap.items():
+            stack.enter_context(mock.patch.object(
+                cli, name, make(getattr(cli, name))))
+        return stack
+
+    def timed(self, what, fn, *args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        self.times[what].append(time.perf_counter() - t)
+        return out
+
+    def loader(self, orig):
+        def make(*args, **kw):
+            self.dataset = self.timed("dataset load", orig, *args, **kw)
+            for split in (self.dataset.train_split, self.dataset.dev_split,
+                          self.dataset.test_split):
+                split.gather = self.gather_timer(split.gather)
+            return self.dataset
+        return make
+
+    def gather_timer(self, gather):
+        """Host time of each batch the CLI gathers, in its loop."""
+        def timed_gather(idx):
+            t = time.perf_counter()
+            out = gather(idx)
+            self.times[f"gather, {self.run}"].append(time.perf_counter() - t)
+            return out
+        return timed_gather
+
+    def build(self, orig):
+        def build(cfg, device, tokenizer=None):
+            return self.timed("model and data build", orig, cfg, device,
+                              tokenizer=self.tokenizer)
+        return build
+
+    def load_encoder(self, orig):
+        def load(*args, **kw):
+            cfg, params = self.timed("encoder checkpoint read", orig, *args,
+                                     **kw)
+            same = sorted(params) == sorted(self.written) and all(
+                torch.equal(params[n], t) for n, t in self.written.items())
+            if not same:
+                FAILURES.append("the loaded encoder is not the written one")
+            return cfg, params
+        return load
+
+    def step_wrapper(self, kind):
+        def wrap(orig):
+            def make(model, *args, **kw):
+                if kind == "train" and self.check_model:
+                    # after the pretrained merge: the model's encoder is the
+                    # written checkpoint, bit for bit
+                    enc = dict(model.encoder.named_parameters())
+                    if not all(torch.equal(enc[n].cpu(), t)
+                               for n, t in self.written.items()):
+                        FAILURES.append("the model's encoder after the "
+                                        "merge is not the written one")
+                step = orig(model, *args, **kw)
+
+                def run(*a, **k):
+                    self.unpinned += sum(not t.is_pinned() for t in flatten(
+                        a[0] if kind == "train" else a[:2]))
+                    before = (collections.Counter(_build.LAUNCHES),
+                              collections.Counter(_build.ROUTES))
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    s = torch.cuda.Event(enable_timing=True)
+                    e = torch.cuda.Event(enable_timing=True)
+                    s.record()
+                    out = step(*a, **k)
+                    e.record()
+                    torch.cuda.synchronize()
+                    host = time.perf_counter() - t
+                    call = dict(
+                        kind=kind, run=self.run, host=host,
+                        device=s.elapsed_time(e),
+                        launches=collections.Counter(_build.LAUNCHES)
+                        - before[0],
+                        routes=collections.Counter(_build.ROUTES) - before[1])
+                    if kind == "train":
+                        call["trainable"] = a[1] if len(a) > 1 else \
+                            k.get("encoder_trainable", True)
+                        call["loss"] = out["loss"].item()
+                    else:
+                        call["logits"] = (out[0] if kind == "detail"
+                                          else out).float().cpu()
+                    self.calls.append(call)
+                    return out
+                return run
+            return make
+        return wrap
+
+    def evals(self, run):
+        return [c for c in self.calls if c["run"] == run
+                and c["kind"] in ("eval", "detail")]
+
+    def save(self, orig):
+        def save(path, model, optimizer, generator=None, cfg=None):
+            self.timed("checkpoint save", orig, path, model, optimizer,
+                       generator, cfg)
+            self.ckpt_bytes = sum(p.stat().st_size
+                                  for p in pathlib.Path(path).rglob("*"))
+            # the dev logits of the epoch saved (dev, then test, before a
+            # save), and the optimizer state as saved
+            self.saved = dict(
+                dev_logits=self.evals(self.run)[-2]["logits"],
+                step=int(optimizer.state["step"]),
+                opt={k: v.detach().to("cpu", copy=True)
+                     for k, v in optimizer.state.items()})
+        return save
+
+    def load(self, orig):
+        def load(path):
+            return self.timed("checkpoint load", orig, path)
+        return load
+
+    def restore(self, orig):
+        def restore(state, model, optimizer=None, generator=None):
+            orig(state, model, optimizer, generator)
+            if optimizer is not None:
+                same = sorted(optimizer.state) == sorted(self.saved["opt"]) \
+                    and all(torch.equal(v.cpu(), self.saved["opt"][k])
+                            for k, v in optimizer.state.items())
+                self.restored = (same, int(optimizer.state["step"]))
+        return restore
+
+
+def flatten(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in flatten(v)]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in flatten(v)]
+    return [getattr(x, f.name) for f in dataclasses.fields(x)]
+
+
+def gather_parts(split, idx) -> dict:
+    """Host seconds of each part of `split.gather(idx)`, done as it does
+    them: the statements' rows, the graphs' rows, batch_edge_lists (and
+    within it the stable argsort of each graph's sources and the packing of
+    the edge arrays, redone here alone), and the copy of the batch's twelve
+    tensors into pinned memory; beside them the whole gather."""
+    from qagnn_tpu_torch.graph.batching import batch_edge_lists
+    st, gr, nc, E = (split.statements, split.graphs, split.n_choices,
+                     split.edge_bucket)
+    out = {}
+    t = time.perf_counter()
+    split.gather(idx)
+    out["whole gather"] = time.perf_counter() - t
+    t = time.perf_counter()
+    lm = {k: torch.from_numpy(v[idx]) for k, v in st.inputs.items()}
+    labels = torch.from_numpy(st.labels[idx].astype(np.int32))
+    out["statement rows"] = time.perf_counter() - t
+    t = time.perf_counter()
+    flat = (idx[:, None] * nc + np.arange(nc)[None, :]).reshape(-1)
+    eis = [gr.edge_indices[i] for i in flat]
+    ets = [gr.edge_types[i] for i in flat]
+    nodes = (gr.concept_ids[flat], gr.node_types[flat],
+             gr.node_scores[flat], gr.num_nodes[flat])
+    out["graph rows"] = time.perf_counter() - t
+    t = time.perf_counter()
+    graph = batch_edge_lists(eis, ets, *nodes, edges_per_graph=E)
+    out["batch_edge_lists"] = time.perf_counter() - t
+    t = time.perf_counter()
+    orders = [np.argsort(ei[0, :E], kind="stable") for ei in eis]
+    out["  of which argsort"] = time.perf_counter() - t
+    t = time.perf_counter()
+    packed = [np.zeros((len(eis), E), dt)
+              for dt in (np.int32, np.int32, np.int32, bool)]
+    for g, (ei, et, o) in enumerate(zip(eis, ets, orders)):
+        e = len(o)
+        packed[0][g, :e] = ei[0, :e][o]
+        packed[1][g, :e] = ei[1, :e][o]
+        packed[2][g, :e] = et[:e][o]
+        packed[3][g, :e] = True
+    out["  of which packing"] = time.perf_counter() - t
+    tensors = flatten([lm, graph, labels])
+    t = time.perf_counter()
+    pinned = [x.pin_memory() for x in tensors]
+    out[f"pin {len(pinned)} tensors"] = time.perf_counter() - t
+    return out
+
+
+def check_cli_launches(probe, run, k) -> None:
+    """Each call of a step launched its kernels the expected number of
+    times (rows 6-12 per train step; rows 6, 7 and 11 per eval batch; none
+    per detail batch), every routed entry point on route 1 (bf16)."""
+    per_step = step_launches(k)
+    want = {"train": per_step,
+            "eval": {n: per_step[n] for n in EVAL_LAUNCHES}, "detail": {}}
+    for kind, expected in want.items():
+        calls = [c for c in probe.calls if c["run"] == run
+                 and c["kind"] == kind]
+        if not calls:
+            continue
+        bad = [dict(c["launches"]) for c in calls
+               if dict(c["launches"]) != expected]
+        off = [dict(c["routes"]) for c in calls
+               if any(r != 1 for _, r in c["routes"])]
+        ok = not bad and not off
+        log(f"  launches per {kind} call, {run}: {len(calls)} calls, each "
+            + (", ".join(f"{n} {v}" for n, v in expected.items()) or "none")
+            + f", routed entry points on route 1  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            FAILURES.append(f"cli launches, {run} {kind}: {bad[:1]} {off[:1]}")
+
+
+def phase_cli(dev, card):
+    from qagnn_tpu_torch import cli
+
+    rng = np.random.default_rng(SEED + 21)
+    with tempfile.TemporaryDirectory(prefix="qagnn_cli_") as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        emb_path, words = write_cli_dataset(tmp / "data", rng)
+        sizes = ", ".join(f"{s} {n}" for s, n in CLI_QUESTIONS.items())
+        log(f"  wrote the dataset ({sizes} questions x {C} choices; "
+            f"entity table {CLI_ENTITY_ROWS} x "
+            f"{CONCEPT_IN} f32) in {time.perf_counter() - t0:.1f} s")
+        enc_cfg = TextEncoderConfig.roberta_large()
+        with torch.device(dev):
+            enc = TextEncoder(enc_cfg)
+        init_weights(enc, torch.Generator(device=dev).manual_seed(SEED + 22))
+        written = {n: p.detach().cpu() for n, p in enc.named_parameters()}
+        del enc
+        t0 = time.perf_counter()
+        write_hf_roberta(tmp / "roberta-large", written, enc_cfg)
+        log(f"  wrote the HF-format roberta-large directory in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        tokenizer = WordTokenizer(["<s>", "<pad>", "</s>", "<unk>"] + words)
+        cfg = preset("obqa", encoder_load=str(tmp / "roberta-large"),
+                     batch_size=B, mini_batch_size=B, eval_batch_size=B,
+                     n_epochs=CLI_EPOCHS, unfreeze_epoch=CLI_UNFREEZE,
+                     gnn_dtype="bfloat16", encoder_dtype="float32",
+                     save_model=True, save_dir=str(tmp / "out"), seed=SEED,
+                     log_interval=1,
+                     max_seq_len=L, max_node_num=N)
+        for split in CLI_QUESTIONS:
+            data = tmp / "data"
+            setattr(cfg, f"{split}_statements",
+                    str(data / "statement" / f"{split}.statement.jsonl"))
+            setattr(cfg, f"{split}_adj",
+                    str(data / "graph" / f"{split}.graph.adj.pk"))
+        cfg.ent_emb_paths = (emb_path,)
+
+        probe = CliProbe(tokenizer, written)
+        printed = {run: Tee(sys.stdout)
+                   for run in ("train", "eval_detail", "resume")}
+        with probe.patches():
+            # the CLI's main path: counts from 0, read just after
+            probe.run, probe.check_model = "train", True
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed["train"]):
+                result = cli.train(cfg, dev)
+            secs = {"train": time.perf_counter() - t0}
+            counts, routes = dict(_build.LAUNCHES), dict(_build.ROUTES)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            probe.check_model = False
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            probe.run = "eval_detail"
+            cfg_eval = dataclasses.replace(
+                cfg, mode="eval_detail", detail_batches=1,
+                load_model_path=str(tmp / "out" / "checkpoint"),
+                save_dir=str(tmp / "eval"))
+            (tmp / "eval").mkdir()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed["eval_detail"]):
+                detail = cli.eval_detail(cfg_eval, dev)
+            secs["eval_detail"] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # one more epoch from the checkpoint (its epoch counter starts
+            # at 0 again, so the encoder is frozen, as in the JAX CLI)
+            probe.run = "resume"
+            cfg_resume = dataclasses.replace(
+                cfg, n_epochs=1, save_model=False,
+                load_model_path=str(tmp / "out" / "checkpoint"),
+                save_dir=str(tmp / "resume"))
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed["resume"]):
+                resumed = cli.train(cfg_resume, dev)
+            secs["resume"] = time.perf_counter() - t0
+            probe.run = "report"
+            gc.collect()
+            torch.cuda.empty_cache()
+        log("  wall time of the CLI's calls: " + ", ".join(
+            f"{run} {x:.1f} s" for run, x in secs.items()))
+        report_cli(probe, printed, cfg, result, detail, resumed, counts,
+                   routes, peak, card)
+        t0 = time.perf_counter()
+    log(f"  removed the temporary directory in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def report_cli(probe, printed, cfg, result, detail, resumed, counts, routes,
+               peak, card):
+    k = cfg.k
+    steps = [c for c in probe.calls if c["kind"] == "train"]
+    train_steps = [c for c in steps if c["run"] == "train"]
+    n_steps = CLI_EPOCHS * (CLI_QUESTIONS["train"] // B)
+    n_evals = len([c for c in probe.calls if c["run"] == "train"
+                   and c["kind"] == "eval"])
+    # the whole train run: every kernel of the path, on route 1
+    per_step = step_launches(k)
+    want = {n: v * n_steps + (v * n_evals if n in EVAL_LAUNCHES else 0)
+            for n, v in per_step.items()}
+    ok = counts == want and len(train_steps) == n_steps and all(
+        routes.get((n, 1), 0) == counts[n] for n in ROUTED if n in counts)
+    log(f"  launches over cli.train ({n_steps} steps, {n_evals} eval "
+        f"batches): " + ", ".join(f"{n} {counts.get(n, 0)}" for n in want)
+        + f"  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"cli launches: {counts} {routes}")
+    for run in ("train", "eval_detail", "resume"):
+        check_cli_launches(probe, run, k)
+
+    losses = result["train_losses"] + resumed["train_losses"]
+    log("  losses: " + ", ".join(f"{x:.5f}" for x in result["train_losses"])
+        + " | resumed: " + ", ".join(f"{x:.5f}" for x in
+                                     resumed["train_losses"]))
+    if not all(np.isfinite(losses)) or len(resumed["train_losses"]) != \
+            CLI_QUESTIONS["train"] // B:
+        FAILURES.append("cli losses")
+    log(f"  dev/test accuracy: train {result['best_dev_acc']:.4f} / "
+        f"{result['final_test_acc']:.4f} (best epoch "
+        f"{result['best_dev_epoch']}), eval_detail {detail['dev_acc']:.4f} "
+        f"/ {detail['test_acc']:.4f}")
+
+    same, step = probe.restored
+    ok = same and step == probe.saved["step"] > 0
+    log(f"  resume: optimizer state restored bit for bit: {same}; step "
+        f"{step} (saved {probe.saved['step']})  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append("cli resume")
+    ok = probe.unpinned == 0
+    log(f"  the loader's batches pinned: {ok}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"cli: {probe.unpinned} unpinned batch tensors")
+
+    # eval_detail's dev logits against those of the epoch it restored
+    got = probe.evals("eval_detail")[0]["logits"]
+    want_l = probe.saved["dev_logits"]
+    tol = LOGIT_TOL[torch.bfloat16]
+    compare("eval_detail dev logits vs the trained model's", got, want_l,
+            tol)
+    top2 = want_l.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > tol * want_l.abs().max()
+    agree = (got.argmax(1) == want_l.argmax(1))[clear]
+    log(f"  eval_detail argmax agrees on {int(agree.sum())} of "
+        f"{int(clear.sum())} questions whose top two logits differ by more "
+        f"than the tolerance ({len(want_l)} in all)")
+    if not bool(agree.all()):
+        FAILURES.append("eval_detail predictions")
+
+    # the CLI's own log line, one a step (log_interval 1): the wall time
+    # since the previous line, so the first step of an epoch also holds the
+    # previous epoch's evaluation and checkpoint save
+    per_epoch = CLI_QUESTIONS["train"] // B
+    for run in ("train", "resume"):
+        lines = [x for x in "".join(printed[run].text).splitlines()
+                 if "ms/batch" in x]
+        for i, x in enumerate(lines):
+            epoch = i // per_epoch
+            state = "frozen" if epoch < CLI_UNFREEZE else "trained"
+            log(f"  cli {run}, epoch {epoch} (encoder {state}): "
+                f"{x.strip()}  [{card}]")
+
+    def med(xs):
+        return statistics.median(xs) if xs else float("nan")
+    for trainable in (False, True):
+        sel = [c for c in train_steps if c["trainable"] == trainable][1:]
+        log(f"  cli train step, encoder "
+            f"{'trained' if trainable else 'frozen'} (median of "
+            f"{len(sel)}, first of each kind left out): host "
+            f"{med([c['host'] * 1e3 for c in sel]):.3f} ms, device span "
+            f"{med([c['device'] for c in sel]):.3f} ms  [{card}]")
+
+    for run in ("train", "resume"):
+        xs = probe.times[f"gather, {run}"]
+        log(f"  gathers in the CLI's loop, {run}: " + ", ".join(
+            f"{x * 1e3:.1f}" for x in xs) + " ms (each epoch's train "
+            f"batches, then its dev and test batches)  [{card}]")
+    ds = probe.dataset
+    idx = np.arange(B)
+    gathers, copies = [], []
+    for _ in range(6):
+        t = time.perf_counter()
+        batch = ds.train_split.gather(idx)
+        gathers.append(time.perf_counter() - t)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        s.record()
+        moved = [t.to(DEVICE, non_blocking=True)
+                 for t in flatten([batch.lm_inputs, batch.graph,
+                                   batch.labels])]
+        e.record()
+        torch.cuda.synchronize()
+        copies.append(s.elapsed_time(e))
+        del moved
+    h2d_bytes = sum(t.numel() * t.element_size() for t in flatten(
+        [batch.lm_inputs, batch.graph, batch.labels]))
+    log(f"  host gather of a batch ({G} graphs, "
+        f"E={ds.train_split.edge_bucket}): {med(gathers[1:]) * 1e3:.3f} ms "
+        f"(median of 5); H2D copy of its {h2d_bytes / 1e6:.3f} MB, pinned: "
+        f"{med(copies[1:]):.4f} ms (CUDA events, median of 5)  [{card}]")
+    parts = collections.defaultdict(list)
+    for i in range(6):
+        for part, x in gather_parts(ds.train_split, idx).items():
+            if i:
+                parts[part].append(x)
+    log(f"  parts of the host gather of that batch (median of 5): " + "; ".join(
+        f"{part.strip()} {med(xs) * 1e3:.3f} ms"
+        for part, xs in parts.items()) + f"  [{card}]")
+
+    def secs(what):
+        return ", ".join(f"{x:.3f}" for x in probe.times[what]) + " s"
+    log(f"  dataset load {secs('dataset load')}; model and data build "
+        f"{secs('model and data build')}; encoder checkpoint read "
+        f"{secs('encoder checkpoint read')}  [{card}]")
+    log(f"  checkpoint {probe.ckpt_bytes / 2**30:.3f} GiB: save "
+        f"{secs('checkpoint save')}, load {secs('checkpoint load')}  "
+        f"[{card}]")
+    for run in ("train", "eval_detail"):
+        for kind in ("eval", "detail"):
+            sel = [c for c in probe.calls if c["run"] == run
+                   and c["kind"] == kind]
+            if sel:
+                log(f"  {run} {kind} batches: " + ", ".join(
+                    f"{c['host'] * 1e3:.3f}" for c in sel) + " ms each "
+                    f"(host, synchronised)  [{card}]")
+    log(f"  peak device memory over cli.train {peak:.2f} GiB")
+
+
+PHASES = ("kernels", "grads", "op", "serve", "detail", "train", "cli")
 # parts of the kernel phase that can be asked for alone
 KERNEL_PARTS = ("fwd", "bwd", "enc", "moments", "unproj", "scores")
 
@@ -1884,6 +2551,15 @@ def main() -> int:
     if "train" in only:
         log("\n[slice 2: OBQA LMQAGNN training steps]")
         phase_train(dev, reports, card, cfg, model, enc_cfg, gen)
+    if "cli" in only:
+        # the earlier phases' model goes first: the train phase peaks at
+        # 28.8 GiB, and the CLI builds its own
+        model = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("\n[the CLI: qagnn_tpu_torch.cli train, eval_detail and "
+            "resume on a dataset on disk]")
+        phase_cli(dev, card)
 
     if FAILURES:
         log("\nFAILED: " + "; ".join(FAILURES))

@@ -34,7 +34,7 @@ class BatchedGraphs:
         ar = torch.arange(self.nodes_per_graph, device=self.num_nodes.device)
         return ar[None, :] < self.num_nodes[:, None]
 
-    def to(self, device) -> "BatchedGraphs":
+    def to(self, device, non_blocking: bool = False) -> "BatchedGraphs":
         return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
+            f.name: getattr(self, f.name).to(device, non_blocking=non_blocking)
             for f in dataclasses.fields(self)})

@@ -5,7 +5,8 @@ Counterpart of qagnn_tpu/models/text_encoder.py (`TextEncoderConfig`,
 attention logits and softmax with a -1e9 additive mask, and the reference's
 selectable-layer pooler tanh(W h[layer_id][:, 0]) (reference
 modeling/modeling_encoder.py:126,142). Attention is plain torch ops, as the
-JAX package computes it outside any kernel.
+JAX package computes it outside any kernel. `convert_hf_encoder_params` and
+`config_from_hf` read HF Bert/RoBERTa checkpoints (models/hf_loading.py).
 """
 
 from __future__ import annotations
@@ -182,3 +183,84 @@ class TextEncoder(nn.Module):
 
         return torch.tanh(dense(all_hidden[layer_id][:, 0], self.pooler,
                                 cfg.dtype))
+
+
+# --------------------------------------------------------------------------
+# HF torch checkpoint conversion
+# --------------------------------------------------------------------------
+
+def convert_hf_encoder_params(state_dict: dict) -> dict[str, torch.Tensor]:
+    """Map an HF BertModel/RobertaModel state dict (bare-encoder key names)
+    onto `TextEncoder`'s parameter names. Linear weights keep torch's (out,
+    in) layout, which both sides share. Keys the encoder does not read (the
+    `embeddings.position_ids` buffer, heads) are left out; so is the pooler
+    when the checkpoint has none (MLM checkpoints such as hub roberta-large):
+    the model's initialised pooler is then kept, as HF's
+    AutoModel.from_pretrained keeps a random one (reference
+    modeling/modeling_encoder.py:102-108). Older files' LayerNorm
+    `gamma` / `beta` spellings are read as `weight` / `bias`."""
+    if any(".albert_layer_groups." in k for k in state_dict):
+        raise NotImplementedError(
+            "ALBERT checkpoints are not ported: the ALBERT encoder waits in "
+            "ROADMAP A5")
+
+    def find(*names):
+        for n in names:
+            if n in state_dict:
+                return torch.as_tensor(state_dict[n])
+        raise KeyError(f"none of {names} in checkpoint")
+
+    out: dict[str, torch.Tensor] = {}
+
+    def dense(port, hf):
+        out[port + ".weight"] = find(hf + ".weight")
+        out[port + ".bias"] = find(hf + ".bias")
+
+    def ln(port, hf):
+        out[port + ".weight"] = find(hf + ".weight", hf + ".gamma")
+        out[port + ".bias"] = find(hf + ".bias", hf + ".beta")
+
+    for port, hf in (("word_embeddings", "word_embeddings"),
+                     ("position_embeddings", "position_embeddings"),
+                     ("token_type_embeddings", "token_type_embeddings")):
+        out[port + ".weight"] = find(f"embeddings.{hf}.weight")
+    ln("embeddings_ln", "embeddings.LayerNorm")
+    if "pooler.dense.weight" in state_dict:
+        dense("pooler", "pooler.dense")
+    i = 0
+    while f"encoder.layer.{i}.attention.self.query.weight" in state_dict:
+        hf, port = f"encoder.layer.{i}", f"layer_{i}"
+        for name in ("query", "key", "value"):
+            dense(f"{port}.attention.{name}", f"{hf}.attention.self.{name}")
+        dense(f"{port}.attention.out", f"{hf}.attention.output.dense")
+        ln(f"{port}.attention_ln", f"{hf}.attention.output.LayerNorm")
+        dense(f"{port}.intermediate", f"{hf}.intermediate.dense")
+        dense(f"{port}.output", f"{hf}.output.dense")
+        ln(f"{port}.output_ln", f"{hf}.output.LayerNorm")
+        i += 1
+    return out
+
+
+def config_from_hf(hf_config) -> TextEncoderConfig:
+    """A TextEncoderConfig from an HF Bert/RobertaConfig (or a plain view of
+    its config.json)."""
+    if hf_config.model_type == "albert":
+        raise NotImplementedError(
+            "ALBERT configs are not ported: the ALBERT encoder waits in "
+            "ROADMAP A5")
+    is_roberta = hf_config.model_type in ("roberta", "camembert",
+                                          "xlm-roberta")
+    return TextEncoderConfig(
+        vocab_size=hf_config.vocab_size,
+        hidden_size=hf_config.hidden_size,
+        num_layers=hf_config.num_hidden_layers,
+        num_heads=hf_config.num_attention_heads,
+        intermediate_size=hf_config.intermediate_size,
+        max_position_embeddings=hf_config.max_position_embeddings,
+        type_vocab_size=hf_config.type_vocab_size,
+        layer_norm_eps=hf_config.layer_norm_eps,
+        hidden_dropout=hf_config.hidden_dropout_prob,
+        attention_dropout=hf_config.attention_probs_dropout_prob,
+        pad_token_id=hf_config.pad_token_id or 0,
+        roberta_style_positions=is_roberta,
+    )

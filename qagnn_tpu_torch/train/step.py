@@ -2,9 +2,10 @@
 batches.
 
 Counterpart of `make_train_step`, `make_eval_step`, `make_detail_step`,
-`Batch` and `accuracy` in qagnn_tpu/train/step.py (reference hot loop qagnn.py:243-278): LM forward,
-GNN forward, loss, backward, global-norm clipping and the two-group optimizer
-update, with gradient accumulation over microbatches and the encoder freeze.
+`Batch`, `_merge_pretrained` and `accuracy` in qagnn_tpu/train/step.py
+(reference hot loop qagnn.py:243-278): LM forward, GNN forward, loss,
+backward, global-norm clipping and the two-group optimizer update, with
+gradient accumulation over microbatches and the encoder freeze.
 """
 
 from __future__ import annotations
@@ -38,6 +39,23 @@ def _microbatch(batch: Batch, i: int, n: int) -> Batch:
                  cut(batch.labels))
 
 
+@torch.no_grad()
+def _merge_pretrained(model: torch.nn.Module,
+                      pretrained: dict[str, torch.Tensor]) -> None:
+    """Copy pretrained tensors (the entity table, the LM's weights), keyed by
+    parameter name, into `model`'s parameters, each cast to the parameter's
+    dtype and device."""
+    params = dict(model.named_parameters())
+    for name, value in pretrained.items():
+        if name not in params:
+            raise KeyError(f"pretrained key {name!r} not in the model")
+        p = params[name]
+        if tuple(p.shape) != tuple(value.shape):
+            raise ValueError(f"shape mismatch for {name!r}: "
+                             f"{tuple(p.shape)} vs {tuple(value.shape)}")
+        p.copy_(torch.as_tensor(value))
+
+
 def make_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
                     device=None, *, loss_name: str = "cross_entropy",
                     num_microbatches: int = 1,
@@ -67,7 +85,8 @@ def make_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
                    generator: torch.Generator | None = None) -> dict:
         batch = Batch({k: v.to(dev, non_blocking=True)
                        for k, v in batch.lm_inputs.items()},
-                      batch.graph.to(dev), batch.labels.to(dev))
+                      batch.graph.to(dev, non_blocking=True),
+                      batch.labels.to(dev, non_blocking=True))
         model.train()
         optimizer.zero_grad()
         was = [p.requires_grad for p in encoder_params]
@@ -101,8 +120,9 @@ def _make_forward_step(model, device, **forward_args) -> Callable:
 
     @torch.inference_mode()
     def step(lm_inputs: dict, graph: BatchedGraphs):
+        model.eval()
         lm = {k: v.to(dev, non_blocking=True) for k, v in lm_inputs.items()}
-        return model(lm, graph.to(dev), **forward_args)
+        return model(lm, graph.to(dev, non_blocking=True), **forward_args)
 
     return step
 
@@ -110,8 +130,8 @@ def _make_forward_step(model, device, **forward_args) -> Callable:
 def make_eval_step(model: torch.nn.Module, device=None, *,
                    encoder_layer_id: int = -1) -> Callable:
     """Eval step on `device` (the card unless the caller names another;
-    raises when there is none): moves the model there and puts it in eval
-    mode (BatchNorm running statistics, no dropout), then maps
+    raises when there is none): moves the model there; each call puts it in
+    eval mode (BatchNorm running statistics, no dropout) and maps
     (lm_inputs (B, C, L) dict, graph) to logits (B, C) under
     torch.inference_mode()."""
     return _make_forward_step(model, device, layer_id=encoder_layer_id)

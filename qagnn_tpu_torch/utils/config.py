@@ -1,14 +1,18 @@
-"""Run configuration: the TrainConfig dataclass and per-dataset presets.
+"""Run configuration: the TrainConfig dataclass, per-dataset presets and
+CLI parsing.
 
-A copy of qagnn_tpu/utils/config.py (same fields, defaults and presets) plus
-the device and dtype resolution the port's entry points share.
+A copy of qagnn_tpu/utils/config.py (same fields, defaults, presets and
+flags) plus the device and dtype resolution the port's entry points share.
+The parser adds one flag of its own, `--device`, which is not a TrainConfig
+field, so a run's config.json keeps the JAX package's fields.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import torch
 
@@ -176,6 +180,50 @@ def preset(dataset: str, **overrides) -> TrainConfig:
                     num_relation=34, unfreeze_epoch=0, ent_emb=("ddb",))
     base.update(overrides)
     return TrainConfig(**base).resolved()
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    """CLI exposing every TrainConfig field as --flag, and --device (the
+    card unless a device is named, see `resolve_device`)."""
+    p = argparse.ArgumentParser("qagnn_tpu_torch")
+    for f in fields(TrainConfig):
+        name = "--" + f.name
+        default = f.default
+        if f.type in ("bool", bool) or isinstance(default, bool):
+            p.add_argument(name, type=_bool_flag, default=None)
+        elif isinstance(default, int) and not isinstance(default, bool):
+            p.add_argument(name, type=int, default=None)
+        elif isinstance(default, float):
+            p.add_argument(name, type=float, default=None)
+        elif isinstance(default, tuple):
+            p.add_argument(name, nargs="+", default=None)
+        else:
+            p.add_argument(name, type=str, default=None)
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device to run on (e.g. cpu); default: the "
+                        "CUDA card, and an error when there is none")
+    return p
+
+
+def _bool_flag(s: str) -> bool:
+    if s.lower() in ("true", "1", "yes"):
+        return True
+    if s.lower() in ("false", "0", "no"):
+        return False
+    raise argparse.ArgumentTypeError(f"invalid bool {s!r}")
+
+
+def config_from_namespace(ns: argparse.Namespace) -> TrainConfig:
+    """The resolved TrainConfig of parsed flags (`--device` left out)."""
+    overrides = {k: v for k, v in vars(ns).items()
+                 if v is not None and k != "device"}
+    if isinstance(overrides.get("ent_emb"), list):
+        overrides["ent_emb"] = tuple(overrides["ent_emb"])
+    return TrainConfig(**overrides).resolved()
+
+
+def config_from_argv(argv=None) -> TrainConfig:
+    return config_from_namespace(build_arg_parser().parse_args(argv))
 
 
 def resolve_device(device=None) -> torch.device:

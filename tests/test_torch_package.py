@@ -68,6 +68,8 @@ def test_scan_sees_the_package():
     assert {"gat_kernels.py", "gat_unproj_kernels.py", "gat_attention.py",
             "edge_encoder_kernels.py", "gnn.py",
             "qagnn.py", "step.py", "convert.py", "optim.py", "losses.py",
+            "cli.py", "loader.py", "graphs.py", "statements.py",
+            "synthetic.py", "batching.py", "hf_loading.py", "checkpoint.py",
             "chip_smoke.py"} <= names
     assert {"gat_fwd.cu", "gat_bwd.cu", "gat_unproj.cu", "gat_common.cuh",
             "gat_tc_common.cuh", "gat_fwd_tc.cuh", "gat_bwd_tc.cuh",
@@ -92,3 +94,20 @@ def test_detail_step_refuses_cpu_fallback(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_detail_step(torch.nn.Linear(2, 2))
+
+
+def test_cli_module_refuses_cpu_fallback(tmp_path):
+    """`python -m qagnn_tpu_torch.cli` with no --device on a host without a
+    card exits with an error instead of training on the CPU."""
+    import subprocess
+    import sys
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    out = subprocess.run(
+        [sys.executable, "-m", "qagnn_tpu_torch.cli", "--save_dir",
+         str(tmp_path / "out")], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA device is available" in out.stderr
+    assert not (tmp_path / "out").exists()
