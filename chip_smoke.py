@@ -5,7 +5,8 @@
 Run from the repository root on a machine with one CUDA card. It
 
   1. prints the card's name and power limit and turns TF32 off;
-  2. builds the hand-written kernels of qagnn_tpu_torch/csrc with nvcc;
+  2. builds the hand-written kernels of qagnn_tpu_torch/csrc with nvcc, and
+     the loader's C++ edge packer (qagnn_tpu_torch/native) with g++;
   3. holds each kernel against its plain PyTorch version on the card, at the
      slices' shapes (G=64 graphs, N=200 nodes, E=4096 edge slots, D=HD=200,
      4 heads) with about 25% of edge slots masked, one graph with every edge
@@ -42,7 +43,9 @@ Run from the repository root on a machine with one CUDA card. It
      perturbed BatchNorm running statistics) through `make_eval_step` on the
      kernel path, checks that every kernel ran the expected number of times
      (the GAT forward passes on their tensor-core route), and compares the
-     logits with the same model on the scatter path;
+     logits with the same model on the scatter path; and measures the
+     encoder computing in bf16 against f32 (logits and times; the default
+     stays f32);
   7. runs the same model through `make_detail_step` (logits, pooler
      attention, per-layer attention weights; by design no GAT kernel) and
      checks shapes, the logits and that every softmax sums to 1;
@@ -53,6 +56,10 @@ Run from the repository root on a machine with one CUDA card. It
      falling), steps with the encoder
      frozen, and a step in two microbatches, counting the launches of every
      kernel per step and the route of the six entry points that have two;
+     then the optimizer alone, trained and frozen, under torch.profiler
+     (the kernels its multi-tensor passes launch, which must be fewer than
+     two a tensor), and one optimizer step on the card against the same
+     step on CPU copies of the same state (max|dp| / max|p| within 1e-6);
   9. drives the CLI, qagnn_tpu_torch.cli, at the same widths from a
      dataset it writes to a temporary directory (reference-format
      statements and ConceptNet-like graphs of 100-199 concepts in the
@@ -65,18 +72,26 @@ Run from the repository root on a machine with one CUDA card. It
      eval_detail's logits against the trained model's, the loader's pinned
      batches, and the launches and routes of rows 6-12 per train step and
      of rows 6, 7 and 11 per eval batch; and prints the CLI's per-step
-     log lines, the host gather and H2D copy of a batch, the device span of
-     a step, checkpoint bytes and seconds, and eval_detail's batch times;
- 10. prints one JSON line of per-kernel numbers, the card's name and power
+     log lines, the host gather (by parts: the C++ pack and its rows'
+     setup, numpy's argsort beside them) and H2D copy of a batch, the
+     device span of a step, checkpoint bytes and seconds, and eval_detail's
+     batch times;
+ 10. trains through the CLI at the production GNN widths (k=5, gnn_dim
+     200, 200-node graphs, 38 relations, bf16) with a 4-layer BERT read
+     through --encoder_load on the 4-question synthetic set whose dev split
+     is its train split: the best dev accuracy must reach 1.0, the last
+     loss fall under half the first, and eval_detail from the checkpoint
+     score dev 1.0 (the `overfit` phase);
+ 11. prints one JSON line of per-kernel numbers, the card's name and power
      limit, and as its last line {"ok": true, "device": {...}}.
 
-`--only kernels,grads,op,serve,detail,train,cli` runs a subset of the phases
-(for work on one of them; `fwd`, `bwd`, `enc`, `moments` and `unproj` are
-the kernel phase's parts for the GAT forward passes A and C, for the two GAT
-backward passes, for the edge encoder's three kernels (rows 10-12), for its
-feature moments (row 10) and for the unprojected op's five kernels (rows
-1-5) alone; `scores` runs rows 1 and 2 alone at the main shapes, which no
-other phase repeats);
+`--only kernels,grads,op,serve,detail,train,cli,overfit` runs a subset of
+the phases (for work on one of them; `fwd`, `bwd`, `enc`, `moments` and
+`unproj` are the kernel phase's parts for the GAT forward passes A and C,
+for the two GAT backward passes, for the edge encoder's three kernels (rows
+10-12), for its feature moments (row 10) and for the unprojected op's five
+kernels (rows 1-5) alone; `scores` runs rows 1 and 2 alone at the main
+shapes, which no other phase repeats);
 with no arguments everything runs. `--csrc DIR` builds the kernels from a
 copy of the sources in DIR.
 
@@ -89,9 +104,12 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import copy
 import dataclasses
 import gc
+import io
 import json
+import math
 import pathlib
 import re
 import statistics
@@ -110,6 +128,7 @@ from qagnn_tpu_torch.models.gnn import EdgeEncoder
 from qagnn_tpu_torch.models.norm import MaskedBatchNorm
 from qagnn_tpu_torch.models.qagnn import LMQAGNN
 from qagnn_tpu_torch.models.text_encoder import TextEncoder, TextEncoderConfig
+from qagnn_tpu_torch.native import build as native_build
 from qagnn_tpu_torch.ops import _build
 from qagnn_tpu_torch.ops import edge_encoder_kernels as ek
 from qagnn_tpu_torch.ops import gat_kernels as gk
@@ -1499,6 +1518,49 @@ def phase_slice(dev, reports, card, cfg, model, enc_cfg, gen):
     set_gnn_dtype(model, torch.bfloat16)
     gnn.backend = None
     log(f"  logits of batch 0, question 0: {logits[0][0].tolist()}")
+    encoder_in_bf16(model, enc_cfg, step, batches[0], card)
+
+
+def set_encoder_dtype(model, enc_cfg, dtype) -> None:
+    """The encoder's compute dtype, as `--encoder_dtype` sets it."""
+    ecfg = dataclasses.replace(enc_cfg, dtype=dtype)
+    for mod in model.encoder.modules():
+        if hasattr(mod, "cfg"):
+            mod.cfg = ecfg
+
+
+def encoder_in_bf16(model, enc_cfg, step, batch, card) -> None:
+    """A measurement, no default changed: the served forward with the
+    encoder computing in bf16 against f32 (TF32 off) on the same batch,
+    the logits' max|d| over max|logit| and the times."""
+    logits, host, span = {}, {}, {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        set_encoder_dtype(model, enc_cfg, dt)
+        spans, handles = device_spans({"encoder": model.encoder})
+        times = []
+        for _ in range(4):                    # the first warms up
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(*batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        for h in handles:
+            h.remove()
+        logits[name] = out.float()
+        host[name] = statistics.median(times[1:]) * 1e3
+        span[name] = statistics.median(s.elapsed_time(e)
+                                       for s, e in spans["encoder"][1:])
+    set_encoder_dtype(model, enc_cfg, torch.float32)
+    err = (logits["bf16"] - logits["f32"]).abs().max().item()
+    ref = logits["f32"].abs().max().item()
+    same = int((logits["bf16"].argmax(1) == logits["f32"].argmax(1)).sum())
+    log(f"  encoder in bf16 vs f32 (a measurement; the default stays f32): "
+        f"logits max|d| {err:.3e} of max|logit| {ref:.3e}, {err / ref:.3e}; "
+        f"argmax agrees on {same} of {B}; request {host['f32']:.3f} -> "
+        f"{host['bf16']:.3f} ms, encoder device span {span['f32']:.3f} -> "
+        f"{span['bf16']:.3f} ms (medians of 3)  [{card}]")
+    if not bool(torch.isfinite(logits["bf16"]).all()):
+        FAILURES.append("bf16 encoder logits")
 
 
 # ---------------------------------------------------------------------------
@@ -1673,6 +1735,121 @@ class StepSpans:
         return out
 
 
+def profile_optimizer(opt, trainable: bool, card: str) -> None:
+    """The optimizer step alone, on the gradients the last train step left:
+    its host time and its span by CUDA events (median of 3, with nothing
+    queued ahead of it, so a host-bound step shows), then one step under
+    torch.profiler: the CUDA kernels launched inside it (its multi-tensor
+    passes take some tens of tensors or 320 chunks of 65,536 elements a
+    launch; a per-tensor loop launches about 13 a tensor) and their device
+    time. A failure if it launched 2 or more kernels a tensor."""
+    from torch.profiler import ProfilerActivity, profile
+    what = "trained" if trainable else "frozen"
+    n_tensors = sum(len(opt.groups[g]) for g in ("encoder", "decoder")
+                    if g == "decoder" or trainable)
+    host, spans = [], []
+    for _ in range(3):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s.record()
+        opt.step(trainable)
+        e.record()
+        host.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        spans.append(s.elapsed_time(e))
+    kernels = []
+    for _ in range(3):            # a window at times records no device work
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            opt.step(trainable)
+            torch.cuda.synchronize()
+        kernels = [ev for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    timing = (f"host {statistics.median(host):.3f} ms to launch, span "
+              f"{statistics.median(spans):.3f} ms (CUDA events, medians of "
+              "3)")
+    if not kernels:
+        log(f"  optimizer step alone, encoder {what}: {timing}; "
+            "torch.profiler recorded no device work (kernels not counted)"
+            f"  [{card}]")
+        return
+    busy = sum(ev.time_range.elapsed_us() for ev in kernels) / 1e3
+    names = collections.Counter(re.sub(r"<.*", "", ev.name)[:60]
+                                for ev in kernels)
+    ok = len(kernels) < 2 * n_tensors
+    log(f"  optimizer step alone, encoder {what}: {timing}; "
+        f"{len(kernels)} CUDA kernels for {n_tensors} tensors, {busy:.3f} ms "
+        f"of device time in them (torch.profiler)  [{card}]  "
+        f"{'ok' if ok else 'FAIL: a per-tensor loop'}")
+    log("    by name: " + "; ".join(f"{n} x{c}"
+                                   for n, c in names.most_common(6)))
+    if not ok:
+        FAILURES.append(f"optimizer, encoder {what}: {len(kernels)} kernels "
+                        f"for {n_tensors} tensors")
+
+
+def optimizer_on_cpu(model, opt, frozen) -> None:
+    """One optimizer step on the card against the same step on CPU copies
+    of the same parameters, gradients and state, in f32: max|dp| over
+    max|p| within 1e-6 over every trained tensor; beside it the moments'
+    error and the global gradient norm of each against one summed in f64.
+    The step leaves `.grad` as it was."""
+    params = dict(model.named_parameters())
+    cpu_model = copy.deepcopy(model).to("cpu")
+    cpu_opt = build_train_optimizer(cpu_model, frozen=frozen, **OPT)
+    for key, v in opt.state.items():
+        cpu_opt.state[key] = v.detach().to("cpu", copy=True)
+    for n, q in cpu_model.named_parameters():
+        g = params[n].grad
+        q.grad = None if g is None else g.detach().to("cpu", copy=True)
+    norm64 = math.sqrt(sum(
+        float(q.grad.double().square().sum()) for q in cpu_opt.params.values()
+        if q.grad is not None))
+    grad = {n: params[n].grad.clone() for n in opt.params
+            if params[n].grad is not None}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    opt.step(True)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t
+    t = time.perf_counter()
+    cpu_opt.step(True)
+    t_cpu = time.perf_counter() - t
+    err = {"p": 0.0, "moments": 0.0}
+    ref = {"p": 0.0, "moments": 0.0}
+    for n, q in cpu_opt.params.items():
+        err["p"] = max(err["p"], (params[n].detach().cpu() - q).abs().max()
+                       .item())
+        ref["p"] = max(ref["p"], q.abs().max().item())
+    for key, q in cpu_opt.state.items():
+        if ".mu." in key or ".nu." in key:
+            err["moments"] = max(err["moments"], (opt.state[key].cpu() - q)
+                                 .abs().max().item())
+            ref["moments"] = max(ref["moments"], q.abs().max().item())
+    rel = {k: err[k] / ref[k] if ref[k] else err[k] for k in err}
+    same_grad = bool(grad) and all(torch.equal(params[n].grad, g)
+                                   for n, g in grad.items())
+    ok = rel["p"] <= 1e-6 and same_grad
+    norms = (opt.last_grad_norm.item(), cpu_opt.last_grad_norm.item())
+    log(f"  optimizer step, card vs CPU copies of the same state (f32, "
+        f"{sum(q.numel() for q in cpu_opt.params.values())} parameters): "
+        f"max|dp| {err['p']:.3e} of max|p| {ref['p']:.3e}, "
+        f"{rel['p']:.3e} (tol 1.0e-06); the moments' {rel['moments']:.3e}; "
+        f"global gradient norm {norms[0]:.7f} on the card, {norms[1]:.7f} "
+        f"on the CPU, {norm64:.7f} summed in f64 (off by "
+        f"{abs(norms[0] / norm64 - 1):.2e}, {abs(norms[1] / norm64 - 1):.2e})"
+        f"; .grad left as it was: {same_grad}; host {t_card * 1e3:.1f} ms "
+        f"on the card, {t_cpu * 1e3:.1f} ms on the CPU  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append("optimizer step card vs CPU")
+
+
 def phase_train(dev, reports, card, cfg, model, enc_cfg, gen):
     batch = Batch(*make_batch(gen, dev, enc_cfg.vocab_size, cfg.num_relation),
                   torch.randint(0, C, (B,), generator=gen, device=dev))
@@ -1782,22 +1959,30 @@ def phase_train(dev, reports, card, cfg, model, enc_cfg, gen):
     enc_state = {k: v.clone() for k, v in opt.state.items()
                  if k.startswith("encoder.")}
     dec_before = params["decoder.svec2nvec.weight"].detach().clone()
+    spans = StepSpans(model, opt)
     _build.reset_launch_counts()
     times = []
-    for _ in range(2):
+    for _ in range(3):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        loss = step(batch, encoder_trainable=False, generator=generator)
+        loss = spans.run(lambda: step(batch, encoder_trainable=False,
+                                      generator=generator))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
-    check_launches(dict(_build.LAUNCHES), 2, 1, cfg.k, "frozen encoder")
+    spans.close()
+    check_launches(dict(_build.LAUNCHES), 3, 1, cfg.k, "frozen encoder")
     check_routes(1, "frozen encoder")
     same = all(torch.equal(params[n], v) for n, v in enc_params.items()) \
         and all(torch.equal(opt.state[k], v) for k, v in enc_state.items())
     moved = not torch.equal(params["decoder.svec2nvec.weight"], dec_before)
-    log(f"  frozen encoder, 2 steps: {min(times) * 1e3:.3f} ms per step "
-        f"(faster of 2), loss {loss['loss'].item():.5f}; encoder parameters "
-        f"and moments unchanged: {same}; decoder moved: {moved}")
+    log(f"  frozen encoder, 3 steps: {min(times[1:]) * 1e3:.3f} ms per step "
+        f"(faster of the last 2; {', '.join(f'{x * 1e3:.3f}' for x in times)})"
+        f", loss {loss['loss'].item():.5f}; encoder parameters "
+        f"and moments unchanged: {same}; decoder moved: {moved}  [{card}]")
+    log("  device time per frozen step (median of the last 2; CUDA events): "
+        + ", ".join(f"{name} "
+                    + ("not measured" if ms is None else f"{ms:.3f} ms")
+                    for name, ms in spans.medians().items()))
     if not (same and moved and torch.isfinite(loss["loss"])):
         FAILURES.append("frozen-encoder step")
     del enc_params, enc_state
@@ -1812,6 +1997,11 @@ def phase_train(dev, reports, card, cfg, model, enc_cfg, gen):
     log(f"  two microbatches: loss {loss.item():.5f}")
     if not torch.isfinite(loss):
         FAILURES.append("two-microbatch step")
+
+    # the optimizer alone, on the gradients that step left
+    for trainable in (True, False):
+        profile_optimizer(opt, trainable, card)
+    optimizer_on_cpu(model, opt, frozen)
     log(f"  peak device memory over the training phase "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -2132,10 +2322,13 @@ def flatten(x):
 def gather_parts(split, idx) -> dict:
     """Host seconds of each part of `split.gather(idx)`, done as it does
     them: the statements' rows, the graphs' rows, batch_edge_lists (and
-    within it the stable argsort of each graph's sources and the packing of
-    the edge arrays, redone here alone), and the copy of the batch's twelve
-    tensors into pinned memory; beside them the whole gather."""
-    from qagnn_tpu_torch.graph.batching import batch_edge_lists
+    within it, redone here alone, the per-graph int32 rows and their
+    addresses, and the C++ packer's call with its outputs allocated), and
+    the copy of the batch's tensors into pinned memory; beside them the
+    whole gather, and two things the gather does not do: numpy's stable
+    argsort of each graph's sources, and the copy of each graph's (2, E)
+    block that the JAX package's packer interface would need."""
+    from qagnn_tpu_torch.graph import batching
     st, gr, nc, E = (split.statements, split.graphs, split.n_choices,
                      split.edge_bucket)
     out = {}
@@ -2154,21 +2347,27 @@ def gather_parts(split, idx) -> dict:
              gr.node_scores[flat], gr.num_nodes[flat])
     out["graph rows"] = time.perf_counter() - t
     t = time.perf_counter()
-    graph = batch_edge_lists(eis, ets, *nodes, edges_per_graph=E)
+    graph = batching.batch_edge_lists(eis, ets, *nodes, edges_per_graph=E)
     out["batch_edge_lists"] = time.perf_counter() - t
     t = time.perf_counter()
-    orders = [np.argsort(ei[0, :E], kind="stable") for ei in eis]
-    out["  of which argsort"] = time.perf_counter() - t
+    rows, ptrs = batching.edge_rows(eis, ets)
+    out["  of which the rows and their addresses"] = time.perf_counter() - t
+    lib = native_build.load_packer()
+    lengths = np.array([ei.shape[1] for ei in eis], np.int64)
     t = time.perf_counter()
-    packed = [np.zeros((len(eis), E), dt)
-              for dt in (np.int32, np.int32, np.int32, bool)]
-    for g, (ei, et, o) in enumerate(zip(eis, ets, orders)):
-        e = len(o)
-        packed[0][g, :e] = ei[0, :e][o]
-        packed[1][g, :e] = ei[1, :e][o]
-        packed[2][g, :e] = et[:e][o]
-        packed[3][g, :e] = True
-    out["  of which packing"] = time.perf_counter() - t
+    packed = [np.empty((len(eis), E), dt)
+              for dt in (np.int32, np.int32, np.int32, np.uint8)]
+    lib.pack_edges_rows(*(p.ctypes.data for p in ptrs), lengths.ctypes.data,
+                        len(eis), E, *(a.ctypes.data for a in packed))
+    out["  of which the C++ pack"] = time.perf_counter() - t
+    del rows
+    t = time.perf_counter()
+    [np.argsort(ei[0, :E], kind="stable") for ei in eis]
+    out["numpy stable argsort (not on the path)"] = time.perf_counter() - t
+    t = time.perf_counter()
+    [np.ascontiguousarray(ei, np.int32) for ei in eis]
+    out["per-graph (2, E) copies, as the JAX packer's interface needs (not "
+        "on the path)"] = time.perf_counter() - t
     tensors = flatten([lm, graph, labels])
     t = time.perf_counter()
     pinned = [x.pin_memory() for x in tensors]
@@ -2433,7 +2632,103 @@ def report_cli(probe, printed, cfg, result, detail, resumed, counts, routes,
     log(f"  peak device memory over cli.train {peak:.2f} GiB")
 
 
-PHASES = ("kernels", "grads", "op", "serve", "detail", "train", "cli")
+# ---------------------------------------------------------------------------
+# the on-card training check: cli.train overfits 4 questions
+# ---------------------------------------------------------------------------
+
+OVERFIT_EPOCHS = 150
+
+
+def phase_overfit(dev, card) -> None:
+    """cli.train at the production GNN widths (k=5, gnn_dim 200, 200-node
+    graphs, 38 relations, bf16 GNN; RAdam, the encoder trained from epoch
+    0, dropout 0) on the 4-question synthetic set whose dev split is its
+    train split, with a 4-layer, 256-wide BERT read through
+    --encoder_load: the best dev accuracy must reach 1.0, the last loss
+    fall under half the first, and eval_detail from the saved checkpoint
+    score dev 1.0. The counterpart of the JAX package's on-chip check,
+    tests_tpu/test_production_train.py."""
+    from qagnn_tpu_torch import cli
+    from qagnn_tpu_torch.data.synthetic import (
+        write_synthetic_dataset,
+        write_tiny_bert_checkpoint,
+    )
+    from qagnn_tpu_torch.utils.config import TrainConfig
+
+    with tempfile.TemporaryDirectory(prefix="qagnn_overfit_") as tmp:
+        t0 = time.perf_counter()
+        emb_path = write_synthetic_dataset(f"{tmp}/data", n_questions=4,
+                                           dev_equals_train=True)
+        enc_dir = write_tiny_bert_checkpoint(
+            f"{tmp}/bert", hidden_size=256, num_layers=4, num_heads=4)
+        log(f"  wrote the synthetic set and the BERT checkpoint in "
+            f"{time.perf_counter() - t0:.1f} s")
+        cfg = TrainConfig(
+            dataset="csqa", encoder="bert-base-uncased", encoder_load=enc_dir,
+            encoder_dtype="bfloat16", inhouse=False,
+            save_dir=f"{tmp}/out", save_model=True, detail_batches=0,
+            batch_size=4, mini_batch_size=4, eval_batch_size=4,
+            n_epochs=OVERFIT_EPOCHS, max_epochs_before_stop=1000,
+            max_seq_len=24, max_node_num=200, num_relation=38, k=5,
+            gnn_dim=200, fc_dim=200, att_head_num=2, gnn_dtype="bfloat16",
+            dropouti=0.0, dropoutg=0.0, dropoutf=0.0, unfreeze_epoch=0,
+            log_interval=50, decoder_lr=3e-3, encoder_lr=1e-4).resolved()
+        for split in ("train", "dev", "test"):
+            setattr(cfg, f"{split}_statements",
+                    f"{tmp}/data/statement/{split}.statement.jsonl")
+            setattr(cfg, f"{split}_adj",
+                    f"{tmp}/data/graph/{split}.graph.adj.pk")
+        cfg.ent_emb_paths = (emb_path,)
+
+        printed = io.StringIO()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            result = cli.train(cfg, dev)
+        secs = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+        cfg_eval = dataclasses.replace(
+            cfg, mode="eval_detail", save_dir=f"{tmp}/eval",
+            load_model_path=f"{tmp}/out/checkpoint")
+        pathlib.Path(cfg_eval.save_dir).mkdir()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            detail = cli.eval_detail(cfg_eval, dev)
+        secs_eval = time.perf_counter() - t0
+
+    losses = result["train_losses"]
+    accs = [float(m) for m in re.findall(
+        r"\| epoch\s+\d+ \| dev_acc\s+([0-9.]+)", printed.getvalue())]
+    first = next((i for i, a in enumerate(accs) if a == 1.0), None)
+    log(f"  cli.train: {len(accs)} epochs of one step each in {secs:.1f} s "
+        f"({secs / max(len(accs), 1) * 1e3:.1f} ms an epoch with its dev and "
+        f"test evaluation and checkpoint)  [{card}]")
+    log(f"  dev accuracy by epoch: first 1.0 at epoch {first}; "
+        + " ".join(f"{a:.2f}" for a in accs[::10]) + " (every 10th)")
+    log("  losses: " + " ".join(f"{x:.3g}" for x in losses[::10])
+        + f" (every 10th), last {losses[-1]:.3g}")
+    log(f"  launches over cli.train: " + ", ".join(
+        f"{n} {counts.get(n, 0)}" for n in step_launches(cfg.k)))
+    checks = {
+        "best_dev_acc == 1.0": result["best_dev_acc"] == 1.0,
+        "last loss < half the first": losses[-1] < 0.5 * losses[0],
+        "eval_detail dev_acc == 1.0": detail["dev_acc"] == 1.0,
+        "every kernel of the train step launched": all(
+            counts.get(n, 0) > 0 for n in step_launches(cfg.k)),
+    }
+    log(f"  best_dev_acc {result['best_dev_acc']:.4f} (epoch "
+        f"{result['best_dev_epoch']}); loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}; eval_detail from the checkpoint: dev_acc "
+        f"{detail['dev_acc']:.4f}, test_acc {detail['test_acc']:.4f} in "
+        f"{secs_eval:.1f} s  " + ", ".join(
+            f"{what} {'ok' if ok else 'FAIL'}" for what, ok in checks.items()))
+    for what, ok in checks.items():
+        if not ok:
+            FAILURES.append(f"overfit: {what}")
+
+
+PHASES = ("kernels", "grads", "op", "serve", "detail", "train", "cli",
+          "overfit")
 # parts of the kernel phase that can be asked for alone
 KERNEL_PARTS = ("fwd", "bwd", "enc", "moments", "unproj", "scores")
 
@@ -2471,6 +2766,10 @@ def main() -> int:
     log("\n[build]")
     secs = _build.build_all(verbose=True)
     log(f"  built {_build.sources()} in {secs:.1f} s")
+    t0 = time.perf_counter()
+    lib = native_build.build_library()
+    log(f"  built the edge packer {lib.relative_to(lib.parents[2])} with g++ "
+        f"in {time.perf_counter() - t0:.1f} s")
 
     def entry(source, replaces):
         return dict(route="cuda", source=f"qagnn_tpu_torch/csrc/{source}",
@@ -2560,6 +2859,10 @@ def main() -> int:
         log("\n[the CLI: qagnn_tpu_torch.cli train, eval_detail and "
             "resume on a dataset on disk]")
         phase_cli(dev, card)
+    if "overfit" in only:
+        log("\n[the training check: cli.train overfits 4 questions at the "
+            "production GNN widths]")
+        phase_overfit(dev, card)
 
     if FAILURES:
         log("\nFAILED: " + "; ".join(FAILURES))

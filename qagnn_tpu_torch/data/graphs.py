@@ -15,7 +15,8 @@ load_sparse_adj_data_with_contextnode):
 
 and caches the result beside the pickle as `<path>.tpu_cache.npz`, in the
 JAX package's file name and format, so a cache written by either package
-reads in the other.
+reads in the other. The file name does not hold max_node_num, so a cache
+written at another max_node_num raises instead of being read.
 """
 
 from __future__ import annotations
@@ -52,7 +53,13 @@ def load_graph_pk(path: str, max_node_num: int = 200,
                   use_cache: bool = True) -> GraphData:
     cache_path = path + ".tpu_cache.npz"
     if use_cache and os.path.exists(cache_path):
-        return _load_cache(cache_path)
+        data = _load_cache(cache_path)
+        if data.concept_ids.shape[1] != max_node_num:
+            raise ValueError(
+                f"the graph cache {cache_path} holds graphs of "
+                f"{data.concept_ids.shape[1]} nodes, not max_node_num="
+                f"{max_node_num}; delete it or pass use_cache=False")
+        return data
 
     with open(path, "rb") as f:
         rows = pickle.load(f)

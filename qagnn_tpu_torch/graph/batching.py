@@ -4,8 +4,11 @@ Counterpart of qagnn_tpu/graph/batching.py (reference
 modeling/modeling_qagnn.py:244-251 batch_graph): each graph's edges are
 padded or truncated into a fixed per-graph budget chosen from a small set of
 buckets, sorted by source node within each graph (stable), so that a split's
-batches share one shape. Numpy does the packing; the result is a
-BatchedGraphs of CPU tensors that the step functions copy to the device.
+batches share one shape. The packing runs in C++ (native/packer.cc, the
+counterpart of the JAX package's `_pack_native`); the result is a
+BatchedGraphs of CPU tensors over the packer's arrays, which the step
+functions copy to the device. `_pack_plain` is the same packing in numpy,
+the plain version the tests hold the packer against.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from qagnn_tpu_torch.graph.container import BatchedGraphs
+from qagnn_tpu_torch.native.build import load_packer
 
 # the largest covers CSQA's ~6k directed edges per subgraph after the inverse
 # and context edges (reference utils/data_utils.py:103)
@@ -67,6 +71,60 @@ def batch_edge_lists(
             f"diverge from the reference, which never drops edges",
             stacklevel=2)
 
+    src, dst, typ, mask = _pack_native(edge_indices, edge_types,
+                                       edges_per_graph)
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype))
+
+    return BatchedGraphs(
+        concept_ids=t(concept_ids, np.int32),
+        node_types=t(node_types, np.int32),
+        node_scores=t(node_scores, np.float32),
+        num_nodes=t(num_nodes, np.int32),
+        edge_src=torch.from_numpy(src), edge_dst=torch.from_numpy(dst),
+        edge_type=torch.from_numpy(typ),
+        edge_mask=torch.from_numpy(mask.view(np.bool_)))
+
+
+def edge_rows(edge_indices, edge_types):
+    """Per graph, its source, destination and relation rows as contiguous
+    int32 arrays (the rows themselves where they are already that, as the
+    graph cache's per-graph views are), and a (3, G) array of their
+    addresses for the packer. Raises when a graph's arrays disagree."""
+    rows = []
+    for g, (ei, et) in enumerate(zip(edge_indices, edge_types)):
+        if ei.ndim != 2 or ei.shape[0] != 2 or et.shape != (ei.shape[1],):
+            raise ValueError(f"graph {g}: edge_index {ei.shape}, edge_type "
+                             f"{et.shape}; need (2, E) and (E,)")
+        rows.append([np.ascontiguousarray(a, np.int32)
+                     for a in (ei[0], ei[1], et)])
+    ptrs = np.array([[a.ctypes.data for a in r] for r in rows],
+                    np.uintp).reshape(len(rows), 3).T.copy()
+    return rows, ptrs
+
+
+def _pack_native(edge_indices, edge_types, edges_per_graph):
+    """(src, dst, type, mask) numpy arrays of shape (G, edges_per_graph),
+    packed by native/packer.cc `pack_edges_rows`; the mask is uint8."""
+    lib = load_packer()
+    n_graphs = len(edge_indices)
+    rows, ptrs = edge_rows(edge_indices, edge_types)   # alive for the call
+    lengths = np.array([ei.shape[1] for ei in edge_indices], np.int64)
+    out = [np.empty((n_graphs, edges_per_graph), dt)
+           for dt in (np.int32, np.int32, np.int32, np.uint8)]
+    bad = lib.pack_edges_rows(*(p.ctypes.data for p in ptrs),
+                              lengths.ctypes.data, n_graphs, edges_per_graph,
+                              *(a.ctypes.data for a in out))
+    if bad:
+        raise ValueError(f"graph {bad - 1} has a negative source node")
+    return tuple(out)
+
+
+def _pack_plain(edge_indices, edge_types, edges_per_graph):
+    """The packing in numpy, a stable argsort per graph: the plain version
+    of `_pack_native` (its mask is bool)."""
+    n_graphs = len(edge_indices)
     src = np.zeros((n_graphs, edges_per_graph), dtype=np.int32)
     dst = np.zeros((n_graphs, edges_per_graph), dtype=np.int32)
     typ = np.zeros((n_graphs, edges_per_graph), dtype=np.int32)
@@ -78,14 +136,4 @@ def batch_edge_lists(
         dst[g, :e] = ei[1, :e][order]
         typ[g, :e] = et[:e][order]
         mask[g, :e] = True
-
-    def t(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype))
-
-    return BatchedGraphs(
-        concept_ids=t(concept_ids, np.int32),
-        node_types=t(node_types, np.int32),
-        node_scores=t(node_scores, np.float32),
-        num_nodes=t(num_nodes, np.int32),
-        edge_src=torch.from_numpy(src), edge_dst=torch.from_numpy(dst),
-        edge_type=torch.from_numpy(typ), edge_mask=torch.from_numpy(mask))
+    return src, dst, typ, mask

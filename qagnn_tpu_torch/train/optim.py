@@ -135,53 +135,79 @@ class TrainOptimizer:
         for p in self.params.values():
             p.grad = None
 
-    def _direction(self, group: str, name: str, grad, t: int):
-        """The step direction before weight decay and lr."""
+    def _directions(self, group: str, grads: list, t: int) -> list:
+        """The step directions of a group's parameters before weight decay
+        and lr, as per-tensor code would compute them, op for op."""
         if self.optim == "sgd":
-            return grad
-        mu, nu = (self.state[f"{group}.{m}.{name}"] for m in ("mu", "nu"))
-        mu.mul_(B1).add_(grad, alpha=1.0 - B1)
-        nu.mul_(B2).addcmul_(grad, grad, value=1.0 - B2)
+            return grads
+        names = self.groups[group]
+        mu = [self.state[f"{group}.mu.{n}"] for n in names]
+        nu = [self.state[f"{group}.nu.{n}"] for n in names]
+        torch._foreach_mul_(mu, B1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - B1)
+        torch._foreach_mul_(nu, B2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - B2)
         if self.optim == "radam":
             use_rect, rect_step, sgd_step = _radam_scalars(t)
             if not use_rect:
-                return mu * sgd_step
-            return mu / (nu.sqrt() + self.eps) * rect_step   # eps outside
+                return torch._foreach_mul(mu, sgd_step)
+            denom = torch._foreach_sqrt(nu)
+            torch._foreach_add_(denom, self.eps)          # eps outside
+            d = torch._foreach_div(mu, denom)
+            torch._foreach_mul_(d, rect_step)
+            return d
         # adam / adamw: bias-corrected moments, eps outside the sqrt
-        mu_hat = mu / (1.0 - B1 ** t)
-        nu_hat = nu / (1.0 - B2 ** t)
-        return mu_hat / (nu_hat.sqrt() + self.eps)
+        d = torch._foreach_div(mu, 1.0 - B1 ** t)
+        denom = torch._foreach_div(nu, 1.0 - B2 ** t)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_div_(d, denom)
+        return d
 
     @torch.no_grad()
     def step(self, encoder_trainable: bool = True) -> None:
-        """Apply the accumulated `.grad`s. With encoder_trainable False the
-        encoder group is skipped whole, whatever its gradients hold."""
+        """Apply the accumulated `.grad`s (which it leaves as they are),
+        one multi-tensor pass (`torch._foreach_*`) per operation and group.
+        With encoder_trainable False the encoder group is skipped whole,
+        whatever its gradients hold."""
         active = [g for g in ("encoder", "decoder")
                   if g == "decoder" or encoder_trainable]
-        grads = {}
-        for g in active:
-            for n in self.groups[g]:
-                p = self.params[n]
-                grads[n] = torch.zeros_like(p) if p.grad is None \
-                    else p.grad.float()
-        # one global norm over everything that is trained
-        if self.max_grad_norm and self.max_grad_norm > 0 and grads:
+        params = {g: [self.params[n] for n in self.groups[g]] for g in active}
+        grads = {g: [torch.zeros_like(p, dtype=torch.float32)
+                     if p.grad is None else p.grad.float() for p in ps]
+                 for g, ps in params.items()}
+        trained = [x for g in active for x in grads[g]]
+        # one global norm over everything that is trained; the clip scale
+        # stays on the device
+        if self.max_grad_norm and self.max_grad_norm > 0 and trained:
             gnorm = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(g) for g in grads.values()]))
+                torch._foreach_norm(trained)))
             self.last_grad_norm = gnorm
             scale = torch.clamp_max(self.max_grad_norm / (gnorm + 1e-6), 1.0)
-            grads = {n: g * scale for n, g in grads.items()}
+            grads = {g: torch._foreach_mul(gs, scale)
+                     for g, gs in grads.items()}
         for g in active:
             count = self.state[f"{g}.count"]
             count += 1
             t = int(count)
             lr = self.lr[g] * self.sched(t)
-            for n in self.groups[g]:
-                p = self.params[n]
-                d = self._direction(g, n, grads[n], t)
-                if self.weight_decay and self.decays[n]:
-                    d = d + self.weight_decay * p
-                p.add_(d.to(p.dtype), alpha=-lr)
+            d = self._directions(g, grads[g], t)
+            if self.weight_decay:
+                idx = [i for i, n in enumerate(self.groups[g])
+                       if self.decays[n]]
+                if idx:
+                    # d + wd * p, out of place: sgd's directions are the
+                    # gradients themselves
+                    decayed = torch._foreach_add(
+                        [d[i] for i in idx], torch._foreach_mul(
+                            [params[g][i] for i in idx], self.weight_decay))
+                    d = list(d)
+                    for i, x in zip(idx, decayed):
+                        d[i] = x
+            # the port's parameters are all f32; a list that mixed dtypes
+            # would still be right, one tensor at a time
+            torch._foreach_add_(params[g], [x.to(p.dtype) for p, x in
+                                            zip(params[g], d)], alpha=-lr)
         self.state["step"] += 1
 
 

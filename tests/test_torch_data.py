@@ -1,9 +1,10 @@
 """The port's data layer against the JAX package's (CPU, exact).
 
-Graph loading (`load_graph_pk`, its .npz cache read across packages), edge
-packing (`batch_edge_lists`, `pick_edge_bucket`; the JAX side runs its C++
-packer where `_qagnn_native.so` is built, so equality also holds the port's
-numpy path against it), statement tokenization (the fast-tokenizer path and
+Graph loading (`load_graph_pk`, its .npz cache read across packages and
+refused at another max_node_num), edge
+packing (`batch_edge_lists`, `pick_edge_bucket`; both sides run their C++
+packers here, tests/test_torch_native.py holds them against the numpy
+versions), statement tokenization (the fast-tokenizer path and
 the manual pair assembly for the bert, roberta and xlnet layouts) and whole
 loader batches (train with the last batch filled, dev and test padded, the
 in-house split, subsampling): every array, dtype, qid and the shuffle order
@@ -138,6 +139,21 @@ def test_graph_cache_reads_across_packages(datasets, tmp_path, writer):
     assert os.path.exists(path + ".tpu_cache.npz")
     os.remove(path)                    # only the cache is left to read
     _assert_graph_data_equal(read.load_graph_pk(path, 200), fresh)
+
+
+def test_graph_cache_of_another_max_node_num_raises(datasets, tmp_path):
+    """The cache's file name does not hold max_node_num: a cache written at
+    N = 200 and read at N = 8 raises, naming the file, instead of handing
+    back 200-node graphs; without the cache N = 8 reads as it should."""
+    path = str(tmp_path / "train.graph.adj.pk")
+    shutil.copy(f"{datasets['big']}/graph/train.graph.adj.pk", path)
+    assert graphs.load_graph_pk(path, 200).concept_ids.shape[1] == 200
+    with pytest.raises(ValueError, match=r"train\.graph\.adj\.pk\.tpu_cache"
+                       r"\.npz holds graphs of 200 nodes, not max_node_num=8"):
+        graphs.load_graph_pk(path, 8)
+    small = graphs.load_graph_pk(path, 8, use_cache=False)
+    assert small.concept_ids.shape[1] == 8
+    assert graphs.load_graph_pk(path, 200).concept_ids.shape[1] == 200
 
 
 @pytest.mark.parametrize("n", [0, 1, 255, 256, 257, 4096, 4097, 16384, 20000])

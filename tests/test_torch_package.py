@@ -4,7 +4,8 @@ The port and chip_smoke.py import neither JAX, flax nor the JAX package.
 This is a scan of the sources: the interpreter may have imported jax before
 any test runs, so sys.modules would prove nothing. The CUDA sources include
 only the CUDA toolkit's and the C library's headers and the package's own
-(a plain C interface: nothing of PyTorch, pybind or JAX's FFI). And an entry
+(a plain C interface: nothing of PyTorch, pybind or JAX's FFI); the C++
+host code of `native/` only the C++ standard library's. And an entry
 point run with no device named refuses to fall back to the CPU when there is
 no card.
 """
@@ -24,6 +25,11 @@ SOURCES = sorted((ROOT / "qagnn_tpu_torch").rglob("*.py")) \
 
 CSRC = sorted((ROOT / "qagnn_tpu_torch" / "csrc").glob("*.cu*"))
 ALLOWED_INCLUDES = {"cuda_runtime.h", "cuda_bf16.h", "stdint.h"}
+
+
+NATIVE = sorted((ROOT / "qagnn_tpu_torch" / "native").glob("*.cc"))
+STANDARD_HEADERS = {"algorithm", "cstddef", "cstdint", "cstring", "numeric",
+                    "vector"}
 
 
 def _imported_roots(path: Path):
@@ -62,6 +68,16 @@ def test_cuda_sources_include_only_toolkit_headers(path):
         r"//.*", "", text))
 
 
+@pytest.mark.parametrize("path", NATIVE,
+                         ids=[str(p.relative_to(ROOT)) for p in NATIVE])
+def test_native_sources_include_only_standard_headers(path):
+    text = path.read_text()
+    includes = set(re.findall(r'#include\s*[<"]([^>"]+)[>"]', text))
+    assert includes and includes <= STANDARD_HEADERS, includes
+    assert not re.search(r"\b(jax|flax|optax|qagnn_tpu(?!_torch|/))\b",
+                         re.sub(r"//.*", "", text))
+
+
 def test_scan_sees_the_package():
     assert ROOT.joinpath("chip_smoke.py").exists()
     names = {p.name for p in SOURCES}
@@ -70,7 +86,8 @@ def test_scan_sees_the_package():
             "qagnn.py", "step.py", "convert.py", "optim.py", "losses.py",
             "cli.py", "loader.py", "graphs.py", "statements.py",
             "synthetic.py", "batching.py", "hf_loading.py", "checkpoint.py",
-            "chip_smoke.py"} <= names
+            "build.py", "chip_smoke.py"} <= names
+    assert [p.name for p in NATIVE] == ["packer.cc"]
     assert {"gat_fwd.cu", "gat_bwd.cu", "gat_unproj.cu", "gat_common.cuh",
             "gat_tc_common.cuh", "gat_fwd_tc.cuh", "gat_bwd_tc.cuh",
             "mma_tile.cuh", "edge_hidden.cu", "edge_moments.cu"} \
