@@ -82,12 +82,29 @@ Run from the repository root on a machine with one CUDA card. It
      is its train split: the best dev accuracy must reach 1.0, the last
      loss fall under half the first, and eval_detail from the checkpoint
      score dev 1.0 (the `overfit` phase);
- 11. prints one JSON line of per-kernel numbers, the card's name and power
+ 11. serves, trains and drives the CLI with each of the other encoder
+     families at its published width under the same OBQA decoder (the
+     `encoders` phase): albert-xxlarge-v2, openai-gpt (its table grown by
+     the GPT layout's three special tokens) and xlnet-large-cased from
+     random weights written as HF-format directories and read back through
+     `load_encoder_checkpoint`, and the LSTM (300 wide, 2 bidirectional
+     layers) over a word vocabulary written by `make_word_vocab`. For each:
+     the encoder on the card against the same module on the CPU (f32, TF32
+     off); requests through `make_eval_step` (rows 6, 7 and 11 counted per
+     forward, the logits against the scatter path, the request time and
+     the encoder's and decoder's device spans); steps through
+     `make_train_step`, trained then frozen (rows 6-12 per step, the loss
+     falling, the step time and peak memory); and `cli.train` (one frozen
+     epoch, one trained, checkpointed) and `eval_detail` on a dataset it
+     writes (16 questions x 4 choices a split, an entity table of 100,000
+     rows x 1024), the launches per call counted;
+ 12. prints one JSON line of per-kernel numbers, the card's name and power
      limit, and as its last line {"ok": true, "device": {...}}.
 
-`--only kernels,grads,op,serve,detail,train,cli,overfit` runs a subset of
-the phases (for work on one of them; `fwd`, `bwd`, `enc`, `moments` and
-`unproj` are the kernel phase's parts for the GAT forward passes A and C,
+`--only kernels,grads,op,serve,detail,train,cli,overfit,encoders` runs a
+subset of the phases (for work on one of them; `fwd`, `bwd`, `enc`,
+`moments` and `unproj` are the kernel phase's parts for the GAT forward
+passes A and C,
 for the two GAT backward passes, for the edge encoder's three kernels (rows
 10-12), for its feature moments (row 10) and for the unprojected op's five
 kernels (rows 1-5) alone; `scores` runs rows 1 and 2 alone at the main
@@ -123,6 +140,7 @@ from unittest import mock
 import numpy as np
 import torch
 
+from qagnn_tpu_torch.cli import make_encoder
 from qagnn_tpu_torch.graph.container import BatchedGraphs
 from qagnn_tpu_torch.models.gnn import EdgeEncoder
 from qagnn_tpu_torch.models.norm import MaskedBatchNorm
@@ -223,11 +241,13 @@ def card_line() -> str:
 
 
 class WordTokenizer:
-    """A word-level tokenizer over a fixed vocabulary, for the cli phase (the
-    card's machine has no `transformers`): lower-cases, splits on whitespace
-    and punctuation as BERT's basic tokenizer does, maps unknown words to
-    `unk_token`. Not a fast HF tokenizer, so the loader assembles the pairs
-    itself (data/statements.py `load_pair_statements`)."""
+    """A word-level tokenizer over a fixed vocabulary, for the cli and
+    encoders phases (tokenizers are built here, not read from a hub):
+    lower-cases, splits on whitespace and punctuation as BERT's basic
+    tokenizer does, maps unknown words to `unk_token`. Not a fast HF
+    tokenizer, so the loader assembles the pairs itself (data/statements.py
+    `load_pair_statements`); `get_vocab` and `add_tokens` serve the GPT
+    layout (`load_gpt_statements`), whose special tokens are added whole."""
 
     is_fast = False
 
@@ -242,6 +262,15 @@ class WordTokenizer:
 
     def convert_tokens_to_ids(self, tokens) -> list[int]:
         return [self.ids.get(t, self.unk_id) for t in tokens]
+
+    def get_vocab(self) -> dict[str, int]:
+        return dict(self.ids)
+
+    def add_tokens(self, tokens) -> int:
+        new = [t for t in tokens if t not in self.ids]
+        for t in new:
+            self.ids[t] = len(self.ids)
+        return len(new)
 
 
 def compare(what: str, got, want, tol: float, scale=None) -> float:
@@ -1380,11 +1409,13 @@ def phase_op(gen, dev, reports, card):
 # the serving slice
 # ---------------------------------------------------------------------------
 
-def build_model(cfg, dev, gen):
-    enc_cfg = TextEncoderConfig.roberta_large()
+def build_model(cfg, dev, gen, enc_cfg=None):
+    """The OBQA LMQAGNN (roberta-large unless `enc_cfg` names another
+    encoder) with random weights from `gen`."""
+    enc_cfg = enc_cfg or TextEncoderConfig.roberta_large()
     with torch.device(dev):
         model = LMQAGNN(
-            TextEncoder(enc_cfg), sent_dim=enc_cfg.hidden_size, k=cfg.k,
+            make_encoder(enc_cfg), sent_dim=enc_cfg.hidden_size, k=cfg.k,
             n_ntype=N_NTYPE, n_etype=cfg.num_relation, n_concept=N_CONCEPT,
             concept_dim=cfg.gnn_dim, concept_in_dim=CONCEPT_IN,
             n_attention_head=cfg.att_head_num, fc_dim=cfg.fc_dim,
@@ -2025,10 +2056,12 @@ CLI_ENTITY_ROWS = N_CONCEPT
 CLI_EPOCHS, CLI_UNFREEZE = 2, 1
 
 
-def write_cli_dataset(root: pathlib.Path, rng) -> tuple[str, list[str]]:
+def write_cli_dataset(root: pathlib.Path, rng, questions=CLI_QUESTIONS,
+                      entity_rows=CLI_ENTITY_ROWS) -> tuple[str, list[str]]:
     """Statements, graphs and an entity table in the reference's formats
-    (reference utils/data_utils.py:79, utils/graph.py:114-129), from `rng`.
-    Returns the table's path and the statements' words."""
+    (reference utils/data_utils.py:79, utils/graph.py:114-129), from `rng`:
+    `questions` per split, `entity_rows` rows of the table. Returns the
+    table's path and the statements' words."""
     import pickle
 
     import scipy.sparse
@@ -2036,7 +2069,7 @@ def write_cli_dataset(root: pathlib.Path, rng) -> tuple[str, list[str]]:
     words = [f"w{i}" for i in range(CLI_WORDS)]
     (root / "statement").mkdir(parents=True)
     (root / "graph").mkdir()
-    for split, n in CLI_QUESTIONS.items():
+    for split, n in questions.items():
         with open(root / "statement" / f"{split}.statement.jsonl", "w") as f:
             for i in range(n):
                 stem = " ".join(rng.choice(words, int(rng.integers(8, 70))))
@@ -2051,7 +2084,7 @@ def write_cli_dataset(root: pathlib.Path, rng) -> tuple[str, list[str]]:
         rows = []
         for g in range(n * C):
             nn_ = int(rng.integers(*CLI_CONCEPTS))
-            concepts = np.unique(rng.integers(0, CLI_ENTITY_ROWS - 1,
+            concepts = np.unique(rng.integers(0, entity_rows - 1,
                                               2 * nn_))[:nn_]
             rng.shuffle(concepts)
             nn_ = len(concepts)
@@ -2074,7 +2107,7 @@ def write_cli_dataset(root: pathlib.Path, rng) -> tuple[str, list[str]]:
         with open(root / "graph" / f"{split}.graph.adj.pk", "wb") as f:
             pickle.dump(rows, f)
     emb_path = str(root / "ent_emb.npy")
-    table = rng.random((CLI_ENTITY_ROWS, CONCEPT_IN), dtype=np.float32)
+    table = rng.random((entity_rows, CONCEPT_IN), dtype=np.float32)
     table -= 0.5
     np.save(emb_path, table)
     return emb_path, words
@@ -2727,8 +2760,470 @@ def phase_overfit(dev, card) -> None:
             FAILURES.append(f"overfit: {what}")
 
 
+# ---------------------------------------------------------------------------
+# the encoder families: ALBERT, GPT, XLNet and the LSTM under the OBQA
+# decoder, served, trained and driven through the CLI
+# ---------------------------------------------------------------------------
+
+# (family, name the CLI takes): each at its published width
+ENCODER_FAMILIES = (("albert", "albert-xxlarge-v2"), ("gpt", "openai-gpt"),
+                    ("xlnet", "xlnet-large-cased"), ("lstm", "lstm"))
+# forwards served (the first warms up), trained steps and frozen steps on
+# a fixed batch (the first of each warms up): albert-xxlarge's step takes
+# seconds, so it runs the fewest
+ENCODER_DEPTH = {"albert": (3, 3, 2), "gpt": (5, 4, 2), "xlnet": (4, 4, 2),
+                 "lstm": (5, 4, 2)}
+# encoder on the card vs the same module on the CPU, f32 with TF32 off:
+# max|d| <= 1e-4 * max|want| on the rows the CPU computes (the CPU pass of
+# albert-xxlarge is about 0.5 TFLOP a row)
+ENCODER_CPU_TOL = 1e-4
+ENCODER_CPU_ROWS = (0, G - 1)
+# the CLI runs of this phase: one batch a split, and an entity table of
+# 100,000 of ConceptNet's 799,273 rows at its width of 1024 (the rows are
+# cut to keep 8 model builds and checkpoints within the phase's time; the
+# cli phase drives the whole table through the CLI)
+ENC_CLI_QUESTIONS = {"train": B, "dev": B, "test": B}
+ENC_CLI_ENTITY_ROWS = 100_000
+GPT_BPE_VOCAB = 40478       # openai-gpt's table before the 3 special tokens
+
+
+def encoder_preset(family, vocab_path):
+    """The encoder config of `family` as the CLI resolves its name."""
+    from qagnn_tpu_torch import cli
+    name = dict(ENCODER_FAMILIES)[family]
+    cfg = preset("obqa", encoder=name, lstm_vocab=vocab_path)
+    enc_cfg = cli.encoder_config_for(cfg)
+    if family == "gpt":       # the stock table, grown again when it loads
+        enc_cfg = dataclasses.replace(enc_cfg, vocab_size=GPT_BPE_VOCAB)
+    return enc_cfg
+
+
+def hf_names(family, n_layers) -> dict[str, tuple[str, bool]]:
+    """Encoder parameter name -> (HF state-dict key, stored transposed):
+    the inverse of the port's `convert_hf_*_params`, kept here so that the
+    checkpoints this phase writes do not come from the code it tests. GPT's
+    Conv1D keeps its weights as (in, out)."""
+    names = {}
+    if family == "albert":
+        for t in ("word_embeddings", "position_embeddings",
+                  "token_type_embeddings"):
+            names[f"{t}.weight"] = (f"embeddings.{t}.weight", False)
+        g = "encoder.albert_layer_groups.0.albert_layers.0"
+        pairs = [("embeddings_ln", "embeddings.LayerNorm"),
+                 ("embedding_projection",
+                  "encoder.embedding_hidden_mapping_in"),
+                 ("layer_shared.attention.out", f"{g}.attention.dense"),
+                 ("layer_shared.attention_ln", f"{g}.attention.LayerNorm"),
+                 ("layer_shared.intermediate", f"{g}.ffn"),
+                 ("layer_shared.output", f"{g}.ffn_output"),
+                 ("layer_shared.output_ln", f"{g}.full_layer_layer_norm")]
+        pairs += [(f"layer_shared.attention.{n}", f"{g}.attention.{n}")
+                  for n in ("query", "key", "value")]
+        for p, h in pairs:
+            for a in ("weight", "bias"):
+                names[f"{p}.{a}"] = (f"{h}.{a}", False)
+    elif family == "gpt":
+        for t in ("tokens_embed", "positions_embed"):
+            names[f"{t}.weight"] = (f"{t}.weight", False)
+        for i in range(n_layers):
+            for p, h, conv in (("c_attn", "attn.c_attn", True),
+                               ("c_proj", "attn.c_proj", True),
+                               ("ln_1", "ln_1", False),
+                               ("mlp_fc", "mlp.c_fc", True),
+                               ("mlp_proj", "mlp.c_proj", True),
+                               ("ln_2", "ln_2", False)):
+                names[f"block_{i}.{p}.weight"] = (f"h.{i}.{h}.weight", conv)
+                names[f"block_{i}.{p}.bias"] = (f"h.{i}.{h}.bias", False)
+    else:
+        names["word_embedding.weight"] = ("word_embedding.weight", False)
+        for i in range(n_layers):
+            for n in ("q", "k", "v", "o", "r", "r_r_bias", "r_s_bias",
+                      "r_w_bias", "seg_embed"):
+                names[f"layer_{i}.rel_attn.{n}"] = (
+                    f"layer.{i}.rel_attn.{n}", False)
+            for p, h in (("rel_attn.layer_norm", "rel_attn.layer_norm"),
+                         ("ff_layer_1", "ff.layer_1"),
+                         ("ff_layer_2", "ff.layer_2"),
+                         ("ff_layer_norm", "ff.layer_norm")):
+                for a in ("weight", "bias"):
+                    names[f"layer_{i}.{p}.{a}"] = (f"layer.{i}.{h}.{a}",
+                                                   False)
+    return names
+
+
+def hf_config(family, c) -> dict:
+    """config.json of the published checkpoint the family stands for
+    (albert-xxlarge-v2, openai-gpt, xlnet-large-cased), at `c`'s shapes."""
+    if family == "albert":
+        return {"model_type": "albert", "architectures": ["AlbertModel"],
+                "vocab_size": c.vocab_size, "embedding_size": c.embedding_size,
+                "hidden_size": c.hidden_size,
+                "num_hidden_layers": c.num_layers, "num_hidden_groups": 1,
+                "num_attention_heads": c.num_heads,
+                "intermediate_size": c.intermediate_size,
+                "inner_group_num": 1, "hidden_act": "gelu_new",
+                "hidden_dropout_prob": 0.0,
+                "attention_probs_dropout_prob": 0.0,
+                "max_position_embeddings": c.max_position_embeddings,
+                "type_vocab_size": c.type_vocab_size,
+                "initializer_range": 0.02, "layer_norm_eps": 1e-12,
+                "pad_token_id": 0, "bos_token_id": 2, "eos_token_id": 3}
+    if family == "gpt":
+        return {"model_type": "openai-gpt",
+                "architectures": ["OpenAIGPTModel"],
+                "vocab_size": c.vocab_size, "n_positions": c.n_positions,
+                "n_embd": c.hidden_size, "n_layer": c.num_layers,
+                "n_head": c.num_heads, "afn": "gelu",
+                "resid_pdrop": c.resid_dropout, "embd_pdrop": c.embd_dropout,
+                "attn_pdrop": c.attn_dropout, "layer_norm_epsilon": 1e-5,
+                "initializer_range": 0.02}
+    return {"model_type": "xlnet", "architectures": ["XLNetLMHeadModel"],
+            "vocab_size": c.vocab_size, "d_model": c.hidden_size,
+            "n_layer": c.num_layers, "n_head": c.num_heads,
+            "d_head": c.d_head, "d_inner": c.d_inner,
+            "ff_activation": "gelu", "untie_r": True, "attn_type": "bi",
+            "initializer_range": 0.02, "layer_norm_eps": 1e-12,
+            "dropout": c.dropout, "mem_len": None, "reuse_len": None,
+            "bi_data": False, "clamp_len": -1, "same_length": False,
+            "pad_token_id": 5, "bos_token_id": 1, "eos_token_id": 2}
+
+
+def write_hf_encoder(out: pathlib.Path, family, params, enc_cfg) -> None:
+    """An HF save_pretrained-style directory: config.json and
+    pytorch_model.bin under the HF model's key names, with the weights HF
+    keeps that the encoder does not read (ALBERT's pooler, XLNet's
+    mask_emb)."""
+    names = hf_names(family, enc_cfg.num_layers)
+    if set(names) != set(params):
+        FAILURES.append(f"{family}: the HF name map does not cover the "
+                        f"encoder: {sorted(set(names) ^ set(params))[:5]}")
+    sd = {names[n][0]: (t.T.contiguous() if names[n][1] else t)
+          for n, t in params.items()}
+    if family == "albert":
+        d = enc_cfg.hidden_size
+        sd["pooler.weight"], sd["pooler.bias"] = torch.zeros(d, d), \
+            torch.zeros(d)
+    if family == "xlnet":
+        sd["mask_emb"] = torch.zeros(1, 1, enc_cfg.hidden_size)
+    out.mkdir(parents=True)
+    torch.save(sd, out / "pytorch_model.bin")
+    with open(out / "config.json", "w") as f:
+        json.dump(hf_config(family, enc_cfg), f)
+
+
+def family_lm_inputs(family, dev, lm):
+    """`family`'s statement-layout inputs from make_batch's roberta-style
+    ones (right-padded ids, lengths from L/3 to L): ALBERT's pairs padded
+    with id 0; GPT's ids with the classification token's position and the
+    lm labels; XLNet's left-padded pairs with the CLS at the end, segment
+    ids 0, 1, 2 and 4 at the padding; the LSTM's ids and lengths."""
+    ids, attn = lm["input_ids"], lm["attention_mask"]
+    lengths = attn.sum(-1, dtype=torch.int32)
+    if family == "lstm":
+        return {"input_ids": torch.where(attn > 0, ids, 0),
+                "lengths": lengths}
+    if family == "gpt":
+        return {"input_ids": torch.where(attn > 0, ids, 0),
+                "cls_token_ids": lengths - 1,
+                "lm_labels": torch.where(attn > 0, ids, -1)}
+    pos = torch.arange(L, device=dev)
+    if family == "xlnet":
+        real = pos >= (L - lengths)[..., None]
+        types = torch.where(pos < L - lengths[..., None] // 2, 0, 1)
+        types[..., -1] = 2
+        return {"input_ids": torch.where(real, ids.flip(-1), 0),
+                "attention_mask": real.to(torch.int32),
+                "token_type_ids": torch.where(real, types, 4)
+                .to(torch.int32),
+                "special_tokens_mask": (~real).to(torch.int32)}
+    return {"input_ids": torch.where(attn > 0, ids, 0),
+            "attention_mask": attn,
+            "token_type_ids": torch.zeros_like(ids)}
+
+
+def encoder_card_vs_cpu(family, model, lm) -> None:
+    """The encoder on the card (f32, TF32 off) against the same module on
+    CPU copies of the same weights, on ENCODER_CPU_ROWS of one batch."""
+    flat = {k: v.reshape((G,) + tuple(v.shape[2:])) for k, v in lm.items()}
+    rows = list(ENCODER_CPU_ROWS)
+    enc = model.encoder.eval()
+    with torch.inference_mode():
+        got = enc(**flat)
+    cpu = copy.deepcopy(enc).to("cpu")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = cpu(**{k: v[rows].cpu() for k, v in flat.items()})
+    secs = time.perf_counter() - t0
+    del cpu
+    compare(f"{family} encoder, card vs CPU (f32, rows {rows}; CPU "
+            f"{secs:.1f} s)", got[rows].cpu(), want, ENCODER_CPU_TOL)
+
+
+def serve_family(family, dev, card, cfg, model, batches, n_forwards) -> None:
+    """Requests through make_eval_step: kernel launches per forward (rows
+    6, 7 and 11, bf16 route), logits against the scatter path, the request
+    time and the encoder's and decoder's device spans."""
+    step = make_eval_step(model)
+    gnn = model.decoder.gnn
+    spans, handles = device_spans({"encoder": model.encoder,
+                                   "decoder": model.decoder})
+    _build.reset_launch_counts()
+    times, logits = [], None
+    for i in range(n_forwards):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(*batches[i % len(batches)])
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t)
+        if logits is None:
+            logits = out.clone()
+    counts = dict(_build.LAUNCHES)
+    for h in handles:
+        h.remove()
+    per_forward = {"edge_hidden": 1, "gat_pass_a_scores": cfg.k,
+                   "gat_pass_a_denoms": cfg.k, "gat_pass_c": cfg.k}
+    ok = counts == {n: v * n_forwards for n, v in per_forward.items()}
+    log(f"  {family} launches over {n_forwards} served forwards: "
+        + ", ".join(f"{n} {counts.get(n, 0)}" for n in per_forward)
+        + f" (per forward: 1, k, k, k)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"{family} serve launches: {counts}")
+    check_routes(1, f"{family} served forwards, bf16 GNN")
+    if logits.shape != (B, C) or not bool(torch.isfinite(logits).all()):
+        FAILURES.append(f"{family} logits: {tuple(logits.shape)}")
+    gnn.backend = "scatter"
+    want = step(*batches[0])
+    gnn.backend = None
+    compare(f"{family} logits cuda vs scatter, bf16 GNN", logits, want,
+            LOGIT_TOL[torch.bfloat16])
+    span_ms = {name: statistics.median(s.elapsed_time(e) for s, e in evs[1:])
+               for name, evs in spans.items()}
+    med = statistics.median(times)
+    log(f"  {family} serving: {med * 1e3:.3f} ms per request of {B} "
+        f"questions x {C} choices (median of {len(times)}; min "
+        f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}); device spans "
+        f"(median): encoder {span_ms['encoder']:.3f} ms, decoder "
+        f"{span_ms['decoder']:.3f} ms  [{card}]")
+
+
+def train_family(family, dev, card, cfg, model, batch, n_trained,
+                 n_frozen) -> None:
+    """Steps through make_train_step on a fixed batch with the preset's
+    dropout, the masks drawn from one seed at every step: trained (loss
+    finite and falling), then frozen (the encoder left as it is); the
+    kernels' launches per step (rows 6-12, bf16 route), the step time and
+    the peak memory."""
+    opt = build_train_optimizer(model, frozen=entity_table_names(model),
+                                **OPT)
+    step = make_train_step(model, opt)
+    generator = torch.Generator(device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    enc_param = next(model.encoder.parameters())
+    for trainable, n in ((True, n_trained), (False, n_frozen)):
+        what = "trained" if trainable else "frozen"
+        before = enc_param.detach().clone()
+        _build.reset_launch_counts()
+        losses, times = [], []
+        for i in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            generator.manual_seed(SEED + 3)
+            out = step(batch, encoder_trainable=trainable,
+                       generator=generator)
+            losses.append(out["loss"].item())
+            if i:
+                times.append(time.perf_counter() - t)
+        check_launches(dict(_build.LAUNCHES), n, 1, cfg.k,
+                       f"{family}, encoder {what}")
+        check_routes(1, f"{family} steps, encoder {what}")
+        moved = not torch.equal(enc_param, before)
+        ok = all(math.isfinite(x) for x in losses) and moved == trainable \
+            and (not trainable or losses[-1] < losses[0])
+        log(f"  {family} steps, encoder {what}: losses "
+            + ", ".join(f"{x:.5f}" for x in losses)
+            + f"; {statistics.median(times) * 1e3:.3f} ms per step (median "
+            f"of {len(times)}; min {min(times) * 1e3:.3f}); encoder moved: "
+            f"{moved}  [{card}]  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            FAILURES.append(f"{family} training, encoder {what}: {losses}")
+    log(f"  {family} peak device memory over the steps "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    del opt, step
+
+
+def cli_family(family, dev, card, tmp, data, emb_path, enc_dir, vocab_path,
+               tokenizer, expected) -> None:
+    """cli.train (one frozen epoch, one trained, checkpointed) and
+    eval_detail from its checkpoint on the dataset at `data`: launches per
+    call (rows 6-12 a train step, 6, 7 and 11 an eval batch, none a detail
+    batch), the encoder as loaded, finite losses, eval_detail's dev logits
+    against the trained model's, and the per-step times."""
+    from qagnn_tpu_torch import cli
+    name = dict(ENCODER_FAMILIES)[family]
+    out = tmp / f"out-{family}"
+    cfg = preset("obqa", encoder=name, encoder_load=enc_dir,
+                 lstm_vocab=vocab_path, batch_size=B, mini_batch_size=B,
+                 eval_batch_size=B, n_epochs=CLI_EPOCHS,
+                 unfreeze_epoch=CLI_UNFREEZE, gnn_dtype="bfloat16",
+                 encoder_dtype="float32", save_model=True,
+                 save_dir=str(out), seed=SEED, log_interval=1,
+                 max_seq_len=L, max_node_num=N)
+    for split in ENC_CLI_QUESTIONS:
+        setattr(cfg, f"{split}_statements",
+                str(data / "statement" / f"{split}.statement.jsonl"))
+        setattr(cfg, f"{split}_adj", str(data / "graph" /
+                                         f"{split}.graph.adj.pk"))
+    cfg.ent_emb_paths = (emb_path,)
+    probe = CliProbe(tokenizer, expected)
+    printed = io.StringIO()
+    with probe.patches():
+        probe.run, probe.check_model = "train", True
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            result = cli.train(cfg, dev)
+        secs = {"train": time.perf_counter() - t0}
+        probe.check_model = False
+        gc.collect()
+        torch.cuda.empty_cache()
+        probe.run = "eval_detail"
+        cfg_eval = dataclasses.replace(
+            cfg, mode="eval_detail", detail_batches=1,
+            load_model_path=str(out / "checkpoint"),
+            save_dir=str(tmp / f"eval-{family}"))
+        pathlib.Path(cfg_eval.save_dir).mkdir()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            detail = cli.eval_detail(cfg_eval, dev)
+        secs["eval_detail"] = time.perf_counter() - t0
+        probe.run = "report"
+    gc.collect()
+    torch.cuda.empty_cache()
+    for run in ("train", "eval_detail"):
+        check_cli_launches(probe, run, cfg.k)
+    losses = result["train_losses"]
+    n_steps = CLI_EPOCHS * (ENC_CLI_QUESTIONS["train"] // B)
+    if len(losses) != n_steps or not all(map(math.isfinite, losses)):
+        FAILURES.append(f"{family} cli losses: {losses}")
+    compare(f"{family} eval_detail dev logits vs the trained model's",
+            probe.evals("eval_detail")[0]["logits"],
+            probe.saved["dev_logits"], LOGIT_TOL[torch.bfloat16])
+    steps = [c for c in probe.calls if c["kind"] == "train"]
+    log(f"  {family} cli.train: losses "
+        + ", ".join(f"{x:.5f}" for x in losses) + "; steps (host, device "
+        "span): " + ", ".join(
+            f"{'trained' if c['trainable'] else 'frozen'} "
+            f"{c['host'] * 1e3:.1f} / {c['device']:.1f} ms" for c in steps)
+        + f"; dev/test {result['best_dev_acc']:.4f} / "
+        f"{result['final_test_acc']:.4f}; eval_detail {detail['dev_acc']:.4f}"
+        f" / {detail['test_acc']:.4f}; checkpoint "
+        f"{probe.ckpt_bytes / 2**30:.3f} GiB; wall "
+        + ", ".join(f"{r} {x:.1f} s" for r, x in secs.items()) + f"  [{card}]")
+
+
+def phase_encoders(dev, card) -> None:
+    """For each of ALBERT (albert-xxlarge-v2), GPT (openai-gpt), XLNet
+    (xlnet-large-cased) and the LSTM (300 wide, 2 bidirectional layers) at
+    its published width, under the OBQA GNN preset (k=5, gnn_dim 200, bf16
+    GNN, G=64, N=200, E=4096, L=100, the 799,273 x 1024 entity table):
+    random weights from a seed written as an HF-format directory and read
+    back through load_encoder_checkpoint (the LSTM's vocabulary written by
+    make_word_vocab); the encoder on the card against the CPU; requests
+    through make_eval_step; steps through make_train_step, trained then
+    frozen; and the CLI, train and eval_detail."""
+    from qagnn_tpu_torch.data.word_tokenizer import make_word_vocab
+    from qagnn_tpu_torch.models.hf_loading import load_encoder_checkpoint
+    from qagnn_tpu_torch.train.step import _merge_pretrained
+
+    cfg = preset("obqa")
+    with tempfile.TemporaryDirectory(prefix="qagnn_encoders_") as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        data = tmp / "data"
+        emb_path, words = write_cli_dataset(
+            data, np.random.default_rng(SEED + 41), ENC_CLI_QUESTIONS,
+            ENC_CLI_ENTITY_ROWS)
+        vocab_path = str(tmp / "words.json")
+        make_word_vocab([str(data / "statement" / f"{s}.statement.jsonl")
+                         for s in ENC_CLI_QUESTIONS], vocab_path,
+                        freq_cutoff=1)
+        log(f"  wrote the CLI dataset ({B} questions x {C} choices a split, "
+            f"entity table {ENC_CLI_ENTITY_ROWS} x {CONCEPT_IN}) and the "
+            f"LSTM's vocabulary in {time.perf_counter() - t0:.1f} s")
+        for i, (family, name) in enumerate(ENCODER_FAMILIES):
+            gen = torch.Generator(device=dev).manual_seed(SEED + 42 + i)
+            enc_cfg = encoder_preset(family, vocab_path)
+            log(f"\n  [{family}: {name}, hidden {enc_cfg.hidden_size}, "
+                f"{enc_cfg.num_layers} layers]")
+            with torch.device(dev):
+                enc = make_encoder(enc_cfg)
+            init_weights(enc, gen)
+            written = {n: p.detach().cpu() for n, p in enc.named_parameters()}
+            del enc
+            enc_dir, expected, secs = None, {}, {}
+            if family != "lstm":
+                enc_dir = str(tmp / name)
+                t0 = time.perf_counter()
+                write_hf_encoder(tmp / name, family, written, enc_cfg)
+                secs["written"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                enc_cfg, expected = load_encoder_checkpoint(enc_dir)
+                secs["read back"] = time.perf_counter() - t0
+                check_loaded(family, written, expected, enc_cfg)
+            log(f"  {family}: {sum(t.numel() for t in written.values()):,} "
+                "encoder parameters" + "".join(
+                    f", {what} in {x:.1f} s" for what, x in secs.items()))
+            del written
+            model, _ = build_model(cfg, dev, gen, enc_cfg)
+            _merge_pretrained(model, {"encoder." + n: t
+                                      for n, t in expected.items()})
+            batches = [make_batch(gen, dev, enc_cfg.vocab_size,
+                                  cfg.num_relation,
+                                  empty_graph=G - 1 if j == 0 else None)
+                       for j in range(2)]
+            batches = [(family_lm_inputs(family, dev, lm), graph)
+                       for lm, graph in batches]
+            n_fwd, n_trained, n_frozen = ENCODER_DEPTH[family]
+            encoder_card_vs_cpu(family, model, batches[0][0])
+            serve_family(family, dev, card, cfg, model, batches, n_fwd)
+            train_family(family, dev, card, cfg, model,
+                         Batch(*batches[1], torch.randint(
+                             0, C, (B,), generator=gen, device=dev)),
+                         n_trained, n_frozen)
+            del model, batches
+            gc.collect()
+            torch.cuda.empty_cache()
+            tokenizer = None if family == "lstm" else WordTokenizer(
+                ["<pad>", "<s>", "</s>", "<unk>"] + words)
+            cli_family(family, dev, card, tmp, data, emb_path, enc_dir,
+                       vocab_path, tokenizer, expected)
+
+
+def check_loaded(family, written, loaded, enc_cfg) -> None:
+    """The encoder load_encoder_checkpoint read is the one written, bit for
+    bit; openai-gpt's table has grown by the three rows of the special
+    tokens, normal(0, 0.02) from np.random.default_rng(0)."""
+    want = dict(written)
+    if family == "gpt":
+        table = written["tokens_embed.weight"]
+        extra = np.random.default_rng(0).normal(0.0, 0.02,
+                                                (3, table.shape[1]))
+        want["tokens_embed.weight"] = torch.cat(
+            [table, torch.from_numpy(extra).to(table.dtype)])
+    same = sorted(loaded) == sorted(want) and all(
+        torch.equal(loaded[n], t) for n, t in want.items())
+    vocab_ok = family != "gpt" or enc_cfg.vocab_size == GPT_BPE_VOCAB + 3
+    log(f"  {family}: the encoder read back is the one written"
+        + (", its table grown by 3 rows" if family == "gpt" else "")
+        + f": {same and vocab_ok}  {'ok' if same and vocab_ok else 'FAIL'}")
+    if not (same and vocab_ok):
+        FAILURES.append(f"{family}: the loaded encoder")
+
+
 PHASES = ("kernels", "grads", "op", "serve", "detail", "train", "cli",
-          "overfit")
+          "overfit", "encoders")
 # parts of the kernel phase that can be asked for alone
 KERNEL_PARTS = ("fwd", "bwd", "enc", "moments", "unproj", "scores")
 
@@ -2863,6 +3358,13 @@ def main() -> int:
         log("\n[the training check: cli.train overfits 4 questions at the "
             "production GNN widths]")
         phase_overfit(dev, card)
+    if "encoders" in only:
+        log("\n[the encoder families: albert-xxlarge-v2, openai-gpt, "
+            "xlnet-large-cased and the LSTM served, trained and driven "
+            "through the CLI under the OBQA decoder]")
+        t0 = time.perf_counter()
+        phase_encoders(dev, card)
+        log(f"  the encoders phase took {time.perf_counter() - t0:.1f} s")
 
     if FAILURES:
         log("\nFAILED: " + "; ".join(FAILURES))

@@ -25,9 +25,16 @@ import numpy as np
 import torch
 
 from qagnn_tpu_torch.data.loader import QAGNNDataLoader
+from qagnn_tpu_torch.data.word_tokenizer import WordTokenizer
+from qagnn_tpu_torch.models.gpt_encoder import GPTConfig, GPTTextEncoder
 from qagnn_tpu_torch.models.hf_loading import load_encoder_checkpoint
+from qagnn_tpu_torch.models.lstm_encoder import LSTMConfig, LSTMTextEncoder
 from qagnn_tpu_torch.models.qagnn import LMQAGNN
 from qagnn_tpu_torch.models.text_encoder import TextEncoder, TextEncoderConfig
+from qagnn_tpu_torch.models.xlnet_encoder import (
+    XLNetConfig,
+    XLNetTextEncoder,
+)
 from qagnn_tpu_torch.train.optim import (
     build_train_optimizer,
     entity_table_names,
@@ -60,6 +67,8 @@ def build_model_and_data(cfg: TrainConfig, device, tokenizer=None):
     initialised), from a resolved TrainConfig. Returns (dataset, model,
     entity table (numpy), pretrained encoder parameters or None)."""
     dev = torch.device(device)
+    if tokenizer is None and cfg.lstm_vocab and "lstm" in cfg.encoder:
+        tokenizer = WordTokenizer(cfg.lstm_vocab)
     if tokenizer is None and cfg.encoder_load \
             and os.path.isdir(cfg.encoder_load):
         # offline hosts: an HF save_pretrained checkpoint dir ships its
@@ -117,29 +126,49 @@ def load_pretrained_encoder(cfg: TrainConfig):
         return encoder_config_for(cfg), None
     try:
         fallback = encoder_config_for(cfg)
-    except (ValueError, NotImplementedError):
+    except ValueError:
         fallback = None
     return load_encoder_checkpoint(cfg.encoder_load,
                                    dtype=_encoder_dtype(cfg),
                                    fallback_config=fallback)
 
 
-def make_encoder(enc_cfg: TextEncoderConfig) -> torch.nn.Module:
+def make_encoder(enc_cfg) -> torch.nn.Module:
     """The encoder module for a resolved config (reference
-    modeling/modeling_encoder.py:16-32 MODEL_NAME_TO_CLASS; the BERT/RoBERTa
-    family is the one ported)."""
+    modeling/modeling_encoder.py:16-32 MODEL_NAME_TO_CLASS)."""
+    if isinstance(enc_cfg, GPTConfig):
+        return GPTTextEncoder(enc_cfg)
+    if isinstance(enc_cfg, XLNetConfig):
+        return XLNetTextEncoder(enc_cfg)
+    if isinstance(enc_cfg, LSTMConfig):
+        return LSTMTextEncoder.from_config(enc_cfg)
     return TextEncoder(enc_cfg)
 
 
-def encoder_config_for(cfg: TrainConfig) -> TextEncoderConfig:
-    """The preset encoder config of `cfg.encoder` in `cfg.encoder_dtype`."""
+def encoder_config_for(cfg: TrainConfig):
+    """The preset encoder config of `cfg.encoder` in `cfg.encoder_dtype`
+    (the LSTM computes in f32 whatever it says)."""
     dtype = _encoder_dtype(cfg)
     name = cfg.encoder
-    if name in ("lstm", "tiny-lstm", "tiny-gpt", "tiny-xlnet") \
-            or "gpt" in name or name.startswith(("xlnet", "albert")):
-        raise NotImplementedError(
-            f"encoder {name!r} is not ported (ROADMAP A5: the GPT, XLNet, "
-            "LSTM and ALBERT encoders)")
+    if name == "lstm":
+        if not cfg.lstm_vocab:
+            raise ValueError("--encoder lstm requires --lstm_vocab (build "
+                             "one with word_tokenizer.make_word_vocab)")
+        return LSTMConfig(vocab_size=WordTokenizer(cfg.lstm_vocab).vocab_size)
+    if name == "tiny-lstm":
+        vocab_size = WordTokenizer(cfg.lstm_vocab).vocab_size \
+            if cfg.lstm_vocab else 256
+        return LSTMConfig.tiny(vocab_size=vocab_size)
+    if name == "tiny-gpt":
+        return GPTConfig.tiny(dtype=dtype)
+    if name == "tiny-xlnet":
+        return XLNetConfig.tiny(dtype=dtype)
+    if "gpt" in name:
+        return GPTConfig.openai_gpt(dtype=dtype)
+    if name.startswith("xlnet-large"):
+        return XLNetConfig.xlnet_large(dtype=dtype)
+    if name.startswith("xlnet"):
+        return XLNetConfig(dtype=dtype)
     if name == "roberta-large":
         return TextEncoderConfig.roberta_large(dtype=dtype)
     if name == "roberta-base":
@@ -151,10 +180,15 @@ def encoder_config_for(cfg: TrainConfig) -> TextEncoderConfig:
                                            num_heads=16,
                                            intermediate_size=4096,
                                            dtype=dtype)
+    if name.startswith("albert-xxlarge"):
+        return TextEncoderConfig.albert_xxlarge(dtype=dtype)
+    if name.startswith("albert"):
+        return TextEncoderConfig.albert_base(dtype=dtype)
     if name == "tiny":  # tests / smoke runs
         return TextEncoderConfig.tiny(dtype=dtype)
-    raise ValueError(f"unsupported encoder {name!r} (the roberta/bert/SapBERT "
-                     "family is ported)")
+    raise ValueError(
+        f"unsupported encoder {name!r} (roberta/bert/SapBERT/albert/gpt/"
+        "xlnet families; lstm via --encoder lstm)")
 
 
 def _logits(out: torch.Tensor) -> np.ndarray:

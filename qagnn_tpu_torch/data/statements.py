@@ -5,9 +5,10 @@ utils/data_utils.py:283-478): the same on-disk format (statement .jsonl, one
 question per line with question.stem, question.choices, answerKey, optional
 para/fact1 prefixes), the same pair layouts ([CLS] context [SEP] (x2 for
 roberta/albert) question+choice [SEP], xlnet's CLS at the end and left pad,
-longest-first truncation), emitted as fixed-shape (n_questions, n_choices,
-max_seq_len) int32 numpy arrays. The GPT and LSTM layouts are not ported
-(their encoders are ROADMAP A5).
+longest-first truncation; the GPT layout with its special tokens and the
+LSTM's word ids with lengths), emitted as fixed-shape int32 numpy arrays:
+(n_questions, n_choices, max_seq_len), and (n_questions, n_choices) for
+GPT's `cls_token_ids` and the LSTM's `lengths`.
 """
 
 from __future__ import annotations
@@ -56,6 +57,95 @@ def _truncate_seq_pair(tokens_a: list, tokens_b: list, max_length: int):
             tokens_a.pop()
         else:
             tokens_b.pop()
+
+
+GPT_SPECIAL_TOKENS = ["_start_", "_delimiter_", "_classify_"]
+
+
+def load_gpt_statements(path: str, max_seq_len: int,
+                        tokenizer=None) -> StatementData:
+    """The GPT layout (reference utils/data_utils.py:203-281):
+
+        input_ids[i, j] = [_start_] q [_delimiter_] choice_j [_classify_] 0..
+        cls_token_ids[i, j] = position of _classify_
+        lm_labels[i, j, :len-1] = qa[1:], the rest -1
+
+    The tokenizer needs `get_vocab`, `add_tokens`, `tokenize` and
+    `convert_tokens_to_ids`; with none given, `transformers` loads
+    openai-gpt's. Two quirks of the reference are kept: the question's
+    tokens are truncated IN PLACE by `_truncate_seq_pair`, so a cut forced
+    by choice j stays for choices j+1.. (reference :204-212, 240 mutate
+    `q`); and the stem gets no para/fact1 prefix (reference load_qa_dataset
+    :214-222 reads only question.stem)."""
+    if tokenizer is None:
+        from transformers import OpenAIGPTTokenizer
+        tokenizer = OpenAIGPTTokenizer.from_pretrained("openai-gpt")
+    if not set(GPT_SPECIAL_TOKENS) <= set(tokenizer.get_vocab()):
+        tokenizer.add_tokens(GPT_SPECIAL_TOKENS)
+    start, delim, clf = tokenizer.convert_tokens_to_ids(GPT_SPECIAL_TOKENS)
+
+    def enc(text):
+        return tokenizer.convert_tokens_to_ids(tokenizer.tokenize(text))
+
+    qids, labels, rows = [], [], []
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            d = json.loads(line)
+            qids.append(d["id"])
+            labels.append(ord(d.get("answerKey", "A")) - ord("A"))
+            rows.append((enc(d["question"]["stem"]),
+                         [enc(c["text"]) for c in d["question"]["choices"]]))
+
+    n = len(rows)
+    n_choices = max(len(r[1]) for r in rows)
+    input_ids = np.zeros((n, n_choices, max_seq_len), np.int32)
+    cls_token_ids = np.zeros((n, n_choices), np.int32)
+    lm_labels = np.full((n, n_choices, max_seq_len), -1, np.int32)
+    for i, (q, choices) in enumerate(rows):
+        for j in range(n_choices):
+            choice = list(choices[min(j, len(choices) - 1)])
+            _truncate_seq_pair(q, choice, max_seq_len - 3)   # q mutated
+            qa = [start] + q + [delim] + choice + [clf]
+            input_ids[i, j, :len(qa)] = qa
+            cls_token_ids[i, j] = len(qa) - 1
+            lm_labels[i, j, :len(qa) - 1] = qa[1:]
+
+    return StatementData(
+        qids=qids, labels=np.asarray(labels, np.int64),
+        inputs={"input_ids": input_ids, "cls_token_ids": cls_token_ids,
+                "lm_labels": lm_labels},
+        n_choices=n_choices)
+
+
+def load_lstm_statements(path: str, max_seq_len: int,
+                         tokenizer) -> StatementData:
+    """The LSTM layout: ids = q <SEP> choice (longest-first truncation),
+    filled with the tokenizer's pad id, and each pair's real length (at
+    least 1): the (input_ids, lengths) inputs of LSTMTextEncoder (reference
+    modeling/modeling_encoder.py:63-67; the reference's own loader is
+    unimplemented, utils/data_utils.py:478-480). `tokenizer` is a
+    data/word_tokenizer.py WordTokenizer."""
+    examples = read_statement_jsonl(path)
+    n = len(examples)
+    n_choices = max(len(e[3]) for e in examples)
+    input_ids = np.full((n, n_choices, max_seq_len),
+                        tokenizer.pad_token_id, np.int32)
+    lengths = np.ones((n, n_choices), np.int32)
+    for i, (_, _, context, endings) in enumerate(examples):
+        q = tokenizer.encode(context)
+        for j in range(n_choices):
+            a = list(q)
+            b = tokenizer.encode(endings[min(j, len(endings) - 1)])
+            _truncate_seq_pair(a, b, max_seq_len - 1)
+            ids = a + [tokenizer.sep_token_id] + b
+            input_ids[i, j, :len(ids)] = ids
+            lengths[i, j] = max(len(ids), 1)
+
+    return StatementData(
+        qids=[e[0] for e in examples],
+        labels=np.asarray([e[1] for e in examples], np.int64),
+        inputs={"input_ids": input_ids, "lengths": lengths},
+        n_choices=n_choices)
 
 
 def model_type_for(model_name: str) -> str:
@@ -154,14 +244,20 @@ def load_statements(path: str, model_name: str, max_seq_len: int,
     A fast HF tokenizer (`is_fast`) encodes the pairs itself, which
     reproduces the reference's manual token assembly (CLS/SEP placement incl.
     RoBERTa's double SEP, longest-first truncation); xlnet, and any other
-    tokenizer, goes through `load_pair_statements`. With no tokenizer given,
-    `transformers` loads the one named `model_name`.
+    tokenizer, goes through `load_pair_statements`; gpt and lstm take their
+    own layouts. With no tokenizer given, `transformers` loads the one named
+    `model_name` (openai-gpt's for gpt); lstm needs a WordTokenizer.
     """
     mtype = model_type_for(model_name)
-    if mtype in ("gpt", "lstm"):
-        raise NotImplementedError(
-            f"the {mtype} statement layout is not ported: its encoder "
-            "waits in ROADMAP A5")
+    if mtype == "lstm":
+        if tokenizer is None:
+            raise ValueError(
+                "encoder 'lstm' needs a WordTokenizer: pass tokenizer= or "
+                "set --lstm_vocab to a vocabulary file (build one with "
+                "qagnn_tpu_torch.data.word_tokenizer.make_word_vocab)")
+        return load_lstm_statements(path, max_seq_len, tokenizer)
+    if mtype == "gpt":
+        return load_gpt_statements(path, max_seq_len, tokenizer)
     if tokenizer is None:
         from transformers import AutoTokenizer
         tokenizer = AutoTokenizer.from_pretrained(model_name)

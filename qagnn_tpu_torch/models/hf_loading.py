@@ -1,12 +1,14 @@
-"""Load pretrained HF encoder checkpoints into the port's TextEncoder.
+"""Load pretrained HF encoder checkpoints into the port's encoders.
 
 Counterpart of qagnn_tpu/models/hf_loading.py. The reference starts every
 training run from pretrained HF weights (reference
 modeling/modeling_encoder.py:102-108, qagnn.py:124-125 for the entity
-table); this reads a torch checkpoint from disk and maps it onto
-`TextEncoder`'s parameter names (models/text_encoder.py
-`convert_hf_encoder_params`). The BERT/RoBERTa family is ported; ALBERT,
-GPT and XLNet checkpoints raise (their encoders are ROADMAP A5).
+table); this reads a torch checkpoint from disk, tells its family by its
+keys (BERT/RoBERTa/SapBERT, ALBERT, GPT, XLNet) and maps it onto that
+encoder's parameter names (the `convert_hf_*_params` of
+models/text_encoder.py, models/gpt_encoder.py, models/xlnet_encoder.py).
+A stock openai-gpt table grows by the three rows of the GPT statement
+layout's special tokens (`_resize_gpt_vocab`).
 
 Accepted sources for `load_encoder_checkpoint(src)`:
   * directory: config.json + (model.safetensors | pytorch_model.bin); the
@@ -24,12 +26,21 @@ import os
 import types
 from typing import Any
 
+import numpy as np
 import torch
 
+from qagnn_tpu_torch.models.gpt_encoder import (
+    convert_hf_gpt_params,
+    gpt_config_from_hf,
+)
 from qagnn_tpu_torch.models.text_encoder import (
-    TextEncoderConfig,
     config_from_hf,
+    convert_hf_albert_params,
     convert_hf_encoder_params,
+)
+from qagnn_tpu_torch.models.xlnet_encoder import (
+    convert_hf_xlnet_params,
+    xlnet_config_from_hf,
 )
 
 # base-model prefixes used by HF task heads (e.g. ...ForMaskedLM checkpoints)
@@ -103,35 +114,67 @@ def _read_checkpoint(src: str):
 def load_encoder_checkpoint(
     src: str,
     dtype: torch.dtype = torch.float32,
-    fallback_config: TextEncoderConfig | None = None,
-) -> tuple[TextEncoderConfig, dict[str, torch.Tensor]]:
+    fallback_config=None,
+) -> tuple[Any, dict[str, torch.Tensor]]:
     """Load a pretrained encoder checkpoint onto the CPU.
 
-    Returns (config, params): `params` maps `TextEncoder` parameter names to
+    Returns (config, params): `params` maps the encoder's parameter names to
     CPU tensors, to be copied into the model's `encoder` once it is on its
     device (cli.train, train.step._merge_pretrained). When the source
-    carries an HF config, the returned config is derived from it (its shapes
-    match the weights); otherwise `fallback_config` is used. `dtype` is the
-    encoder's compute dtype.
+    carries an HF config, the returned config (a TextEncoderConfig,
+    GPTConfig or XLNetConfig) is derived from it (its shapes match the
+    weights); otherwise `fallback_config` is used. `dtype` is the encoder's
+    compute dtype.
     """
     state_dict, hf_cfg = _read_checkpoint(src)
     state_dict = strip_hf_prefixes(state_dict)
 
-    family = ("GPT" if "tokens_embed.weight" in state_dict else
-              "XLNet" if "word_embedding.weight" in state_dict else
-              "ALBERT" if any(".albert_layer_groups." in k
-                              for k in state_dict) else None)
-    if family is not None:
-        raise NotImplementedError(
-            f"{src!r} is a {family} checkpoint; the {family} encoder is not "
-            "ported (ROADMAP A5)")
+    is_gpt = "tokens_embed.weight" in state_dict
+    is_xlnet = "word_embedding.weight" in state_dict
+    is_albert = any(".albert_layer_groups." in k for k in state_dict)
 
     if hf_cfg is not None:
-        cfg = config_from_hf(hf_cfg)
+        cfg = (gpt_config_from_hf(hf_cfg) if is_gpt else
+               xlnet_config_from_hf(hf_cfg) if is_xlnet else
+               config_from_hf(hf_cfg))
     elif fallback_config is not None:
         cfg = fallback_config
     else:
         raise ValueError(
             f"{src!r} carries no config.json; pass fallback_config")
     cfg = dataclasses.replace(cfg, dtype=dtype)
-    return cfg, convert_hf_encoder_params(state_dict)
+
+    if is_gpt:
+        cfg, params = _resize_gpt_vocab(cfg, convert_hf_gpt_params(state_dict))
+    elif is_xlnet:
+        params = convert_hf_xlnet_params(state_dict)
+    elif is_albert:
+        params = convert_hf_albert_params(state_dict)
+    else:
+        params = convert_hf_encoder_params(state_dict)
+    return cfg, params
+
+
+GPT_BPE_VOCAB = 40478     # the stock openai-gpt table, before the resize
+
+
+def _resize_gpt_vocab(cfg, params, n_special: int = 3):
+    """Grow a stock openai-gpt token table by the rows of the GPT statement
+    layout's 3 special tokens (_start_ / _delimiter_ / _classify_), as the
+    reference's resize_token_embeddings(get_gpt_token_num) does (reference
+    modeling/modeling_encoder.py:105-106, utils/data_utils.py:284-287). The
+    new rows are normal(0, 0.02) like HF's resize init, drawn from
+    np.random.default_rng(0) as the JAX package draws them, so both hold
+    the same rows bit for bit. Other tables (already resized, or a test
+    model's) are left as they are."""
+    table = params["tokens_embed.weight"]
+    if table.shape[0] != GPT_BPE_VOCAB:
+        return cfg, params
+    target = table.shape[0] + n_special
+    if cfg.vocab_size < target:
+        extra = np.random.default_rng(0).normal(
+            0.0, 0.02, (target - table.shape[0], table.shape[1]))
+        params["tokens_embed.weight"] = torch.cat(
+            [table, torch.from_numpy(extra).to(table.dtype)])
+        cfg = dataclasses.replace(cfg, vocab_size=target)
+    return cfg, params

@@ -47,15 +47,19 @@ def dropout_generator(generator: torch.Generator | None):
         _DROPOUT_GENERATOR = previous
 
 
-def dropout(x: torch.Tensor, p: float, training: bool) -> torch.Tensor:
+def dropout(x: torch.Tensor, p: float, training: bool,
+            mask_shape: tuple[int, ...] | None = None) -> torch.Tensor:
     """Inverted dropout: in training, zero each element with probability p
-    and scale the rest by 1 / (1 - p); else the identity."""
+    and scale the rest by 1 / (1 - p); else the identity. `mask_shape`
+    draws a mask of that shape, broadcast over x (flax Dropout's
+    `broadcast_dims`: one mask per row and feature, shared over time)."""
     if not training or p <= 0.0:
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.empty_like(x).bernoulli_(1.0 - p,
-                                          generator=_DROPOUT_GENERATOR)
+    keep = torch.empty_like(x) if mask_shape is None \
+        else x.new_empty(mask_shape)
+    keep.bernoulli_(1.0 - p, generator=_DROPOUT_GENERATOR)
     return x * keep / (1.0 - p)
 
 

@@ -129,6 +129,8 @@ class LMQAGNN(nn.Module):
         flat_lm = {k: v.reshape((bs * nc,) + tuple(v.shape[2:]))
                    for k, v in lm_inputs.items()}
         sent_vecs = self.encoder(**flat_lm, layer_id=layer_id)
+        if isinstance(sent_vecs, tuple):   # (pooled, hidden states)
+            sent_vecs = sent_vecs[0]
         out = self.decoder(sent_vecs, graph,
                            return_pool_attn=return_pool_attn or detail,
                            return_gnn_attn=detail)

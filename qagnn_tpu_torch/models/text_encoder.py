@@ -1,12 +1,18 @@
-"""Transformer text encoder (BERT / RoBERTa family) with a pooled output.
+"""Transformer text encoder (BERT / RoBERTa / SapBERT / ALBERT family) with
+a pooled output.
 
 Counterpart of qagnn_tpu/models/text_encoder.py (`TextEncoderConfig`,
 `SelfAttention`, `TransformerBlock`, `TextEncoder`): post-LN blocks, f32
 attention logits and softmax with a -1e9 additive mask, and the reference's
 selectable-layer pooler tanh(W h[layer_id][:, 0]) (reference
-modeling/modeling_encoder.py:126,142). Attention is plain torch ops, as the
-JAX package computes it outside any kernel. `convert_hf_encoder_params` and
-`config_from_hf` read HF Bert/RoBERTa checkpoints (models/hf_loading.py).
+modeling/modeling_encoder.py:126,142). ALBERT embeds at `embedding_size`,
+projects to the hidden width, applies ONE block (`layer_shared`)
+`num_layers` times (autograd sums its gradients over the uses) and pools the
+raw h[layer_id][:, 0] (reference modeling/modeling_encoder.py:138-140).
+Attention is plain torch ops, as the JAX package computes it outside any
+kernel. `convert_hf_encoder_params`, `convert_hf_albert_params` and
+`config_from_hf` read HF Bert/RoBERTa/ALBERT checkpoints
+(models/hf_loading.py).
 """
 
 from __future__ import annotations
@@ -36,7 +42,13 @@ class TextEncoderConfig:
     pad_token_id: int = 0
     # RoBERTa numbers positions from pad_token_id + 1 over real tokens
     roberta_style_positions: bool = False
+    # ALBERT: factorized embedding (embed at embedding_size, project to
+    # hidden), one block shared by all layers, and the raw h[:, 0] pooled
+    # with no pooler dense
+    embedding_size: int | None = None
+    share_layers: bool = False
     hidden_act: str = "gelu"         # "gelu" (exact) | "gelu_new" (tanh)
+    raw_cls_pool: bool = False
     dtype: torch.dtype = torch.float32   # compute dtype
 
     @classmethod
@@ -59,6 +71,26 @@ class TextEncoderConfig:
     def bert_base(cls, **kw):
         """Also SapBERT (PubMedBERT-fulltext architecture)."""
         return cls(vocab_size=30522, **kw)
+
+    @classmethod
+    def albert_base(cls, **kw):
+        # ALBERT v2 checkpoints (vocab 30000, gelu_new) fine-tune with zero
+        # dropout, not the class default 0.1
+        kw.setdefault("hidden_dropout", 0.0)
+        kw.setdefault("attention_dropout", 0.0)
+        return cls(vocab_size=30000, hidden_size=768, num_layers=12,
+                   num_heads=12, intermediate_size=3072,
+                   embedding_size=128, share_layers=True,
+                   hidden_act="gelu_new", raw_cls_pool=True, **kw)
+
+    @classmethod
+    def albert_xxlarge(cls, **kw):
+        kw.setdefault("hidden_dropout", 0.0)
+        kw.setdefault("attention_dropout", 0.0)
+        return cls(vocab_size=30000, hidden_size=4096, num_layers=12,
+                   num_heads=64, intermediate_size=16384,
+                   embedding_size=128, share_layers=True,
+                   hidden_act="gelu_new", raw_cls_pool=True, **kw)
 
     @classmethod
     def tiny(cls, **kw):
@@ -131,26 +163,35 @@ class TransformerBlock(nn.Module):
 
 
 class TextEncoder(nn.Module):
-    """BERT/RoBERTa encoder with the reference's pooled-output contract."""
+    """BERT/RoBERTa/ALBERT encoder with the reference's pooled-output
+    contract."""
 
     def __init__(self, cfg: TextEncoderConfig):
         super().__init__()
         self.cfg = cfg
         d = cfg.hidden_size
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, d)
-        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, d)
+        emb = cfg.embedding_size or d
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, emb)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings,
+                                                emb)
         self.token_type_embeddings = nn.Embedding(
-            max(cfg.type_vocab_size, 1), d)
-        self.embeddings_ln = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
-        for i in range(cfg.num_layers):
-            self.add_module(f"layer_{i}", TransformerBlock(cfg))
-        self.pooler = nn.Linear(d, d)
+            max(cfg.type_vocab_size, 1), emb)
+        self.embeddings_ln = nn.LayerNorm(emb, eps=cfg.layer_norm_eps)
+        self.embedding_projection = nn.Linear(emb, d) if emb != d else None
+        if cfg.share_layers:
+            self.layer_shared = TransformerBlock(cfg)
+        else:
+            for i in range(cfg.num_layers):
+                self.add_module(f"layer_{i}", TransformerBlock(cfg))
+        self.pooler = None if cfg.raw_cls_pool else nn.Linear(d, d)
 
     def forward(self, input_ids, attention_mask, token_type_ids=None,
-                special_tokens_mask=None, *, layer_id: int = -1):
+                special_tokens_mask=None, *, layer_id: int = -1,
+                return_all_hidden: bool = False):
         """input_ids/attention_mask: (B, L). Returns pooled (B, hidden) of
-        hidden state `layer_id` (0 = embeddings). `special_tokens_mask` is
-        accepted for interface parity and unused."""
+        hidden state `layer_id` (0 = embeddings) [, tuple of all hidden
+        states]. `special_tokens_mask` is accepted for interface parity and
+        unused."""
         del special_tokens_mask
         cfg = self.cfg
         B, L = input_ids.shape
@@ -173,37 +214,34 @@ class TextEncoder(nn.Module):
                      self.token_type_embeddings))
         h = _layer_norm(h, self.embeddings_ln, cfg.dtype)
         h = dropout(h, cfg.hidden_dropout, self.training)
+        if self.embedding_projection is not None:
+            h = dense(h, self.embedding_projection, cfg.dtype)
 
         attn_bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0,
                                 -1e9).float()                   # (B,1,1,L)
         all_hidden = [h]
         for i in range(cfg.num_layers):
-            h = getattr(self, f"layer_{i}")(h, attn_bias)
+            block = self.layer_shared if cfg.share_layers \
+                else getattr(self, f"layer_{i}")
+            h = block(h, attn_bias)
             all_hidden.append(h)
 
-        return torch.tanh(dense(all_hidden[layer_id][:, 0], self.pooler,
-                                cfg.dtype))
+        chosen = all_hidden[layer_id][:, 0]
+        pooled = chosen if self.pooler is None \
+            else torch.tanh(dense(chosen, self.pooler, cfg.dtype))
+        if return_all_hidden:
+            return pooled, tuple(all_hidden)
+        return pooled
 
 
 # --------------------------------------------------------------------------
 # HF torch checkpoint conversion
 # --------------------------------------------------------------------------
 
-def convert_hf_encoder_params(state_dict: dict) -> dict[str, torch.Tensor]:
-    """Map an HF BertModel/RobertaModel state dict (bare-encoder key names)
-    onto `TextEncoder`'s parameter names. Linear weights keep torch's (out,
-    in) layout, which both sides share. Keys the encoder does not read (the
-    `embeddings.position_ids` buffer, heads) are left out; so is the pooler
-    when the checkpoint has none (MLM checkpoints such as hub roberta-large):
-    the model's initialised pooler is then kept, as HF's
-    AutoModel.from_pretrained keeps a random one (reference
-    modeling/modeling_encoder.py:102-108). Older files' LayerNorm
-    `gamma` / `beta` spellings are read as `weight` / `bias`."""
-    if any(".albert_layer_groups." in k for k in state_dict):
-        raise NotImplementedError(
-            "ALBERT checkpoints are not ported: the ALBERT encoder waits in "
-            "ROADMAP A5")
-
+def _hf_reader(state_dict: dict):
+    """(out, dense, ln): `out` collects port-named tensors; dense(port, hf)
+    and ln(port, hf) copy an HF Linear / LayerNorm (old files' LayerNorm
+    `gamma` / `beta` spellings read as `weight` / `bias`)."""
     def find(*names):
         for n in names:
             if n in state_dict:
@@ -219,11 +257,24 @@ def convert_hf_encoder_params(state_dict: dict) -> dict[str, torch.Tensor]:
     def ln(port, hf):
         out[port + ".weight"] = find(hf + ".weight", hf + ".gamma")
         out[port + ".bias"] = find(hf + ".bias", hf + ".beta")
+    return out, dense, ln
 
-    for port, hf in (("word_embeddings", "word_embeddings"),
-                     ("position_embeddings", "position_embeddings"),
-                     ("token_type_embeddings", "token_type_embeddings")):
-        out[port + ".weight"] = find(f"embeddings.{hf}.weight")
+
+def convert_hf_encoder_params(state_dict: dict) -> dict[str, torch.Tensor]:
+    """Map an HF BertModel/RobertaModel state dict (bare-encoder key names)
+    onto `TextEncoder`'s parameter names. Linear weights keep torch's (out,
+    in) layout, which both sides share. Keys the encoder does not read (the
+    `embeddings.position_ids` buffer, heads) are left out; so is the pooler
+    when the checkpoint has none (MLM checkpoints such as hub roberta-large):
+    the model's initialised pooler is then kept, as HF's
+    AutoModel.from_pretrained keeps a random one (reference
+    modeling/modeling_encoder.py:102-108). Older files' LayerNorm
+    `gamma` / `beta` spellings are read as `weight` / `bias`."""
+    out, dense, ln = _hf_reader(state_dict)
+    for name in ("word_embeddings", "position_embeddings",
+                 "token_type_embeddings"):
+        out[name + ".weight"] = torch.as_tensor(
+            state_dict[f"embeddings.{name}.weight"])
     ln("embeddings_ln", "embeddings.LayerNorm")
     if "pooler.dense.weight" in state_dict:
         dense("pooler", "pooler.dense")
@@ -241,13 +292,62 @@ def convert_hf_encoder_params(state_dict: dict) -> dict[str, torch.Tensor]:
     return out
 
 
+def convert_hf_albert_params(state_dict: dict) -> dict[str, torch.Tensor]:
+    """Map an HF AlbertModel state dict onto `TextEncoder`'s parameter names
+    (the shared block under `layer_shared`, the factorized embedding's
+    `embedding_projection`). HF's pooler is not read: ALBERT pools the raw
+    h[:, 0]. Multi-group checkpoints hold more than one distinct block, and
+    mapping group 0 alone would be silently wrong: they raise."""
+    layer = "encoder.albert_layer_groups.0.albert_layers.0"
+    extra = [k for k in state_dict if ".albert_layer_groups." in k
+             and not k.startswith(layer + ".")]
+    if extra:
+        raise ValueError("multi-group ALBERT checkpoints are not supported "
+                         f"(found {extra[:3]})")
+    out, dense, ln = _hf_reader(state_dict)
+    for name in ("word_embeddings", "position_embeddings",
+                 "token_type_embeddings"):
+        out[name + ".weight"] = torch.as_tensor(
+            state_dict[f"embeddings.{name}.weight"])
+    ln("embeddings_ln", "embeddings.LayerNorm")
+    dense("embedding_projection", "encoder.embedding_hidden_mapping_in")
+    for name in ("query", "key", "value"):
+        dense(f"layer_shared.attention.{name}", f"{layer}.attention.{name}")
+    dense("layer_shared.attention.out", f"{layer}.attention.dense")
+    ln("layer_shared.attention_ln", f"{layer}.attention.LayerNorm")
+    dense("layer_shared.intermediate", f"{layer}.ffn")
+    dense("layer_shared.output", f"{layer}.ffn_output")
+    ln("layer_shared.output_ln", f"{layer}.full_layer_layer_norm")
+    return out
+
+
 def config_from_hf(hf_config) -> TextEncoderConfig:
-    """A TextEncoderConfig from an HF Bert/RobertaConfig (or a plain view of
-    its config.json)."""
+    """A TextEncoderConfig from an HF Bert/Roberta/AlbertConfig (or a plain
+    view of its config.json, where a field HF's config class defaults may
+    be absent)."""
     if hf_config.model_type == "albert":
-        raise NotImplementedError(
-            "ALBERT configs are not ported: the ALBERT encoder waits in "
-            "ROADMAP A5")
+        # one shared block: multi-group ALBERT has several distinct blocks
+        for field in ("num_hidden_groups", "inner_group_num"):
+            if getattr(hf_config, field, 1) != 1:
+                raise ValueError(f"only {field}=1 ALBERT is supported")
+        return TextEncoderConfig(
+            vocab_size=hf_config.vocab_size,
+            hidden_size=hf_config.hidden_size,
+            num_layers=hf_config.num_hidden_layers,
+            num_heads=hf_config.num_attention_heads,
+            intermediate_size=hf_config.intermediate_size,
+            max_position_embeddings=hf_config.max_position_embeddings,
+            type_vocab_size=hf_config.type_vocab_size,
+            layer_norm_eps=hf_config.layer_norm_eps,
+            hidden_dropout=hf_config.hidden_dropout_prob,
+            attention_dropout=hf_config.attention_probs_dropout_prob,
+            pad_token_id=hf_config.pad_token_id or 0,
+            embedding_size=getattr(hf_config, "embedding_size", 128),
+            share_layers=True,
+            # v2 checkpoints say "gelu_new"; v1 says "gelu" (exact)
+            hidden_act=getattr(hf_config, "hidden_act", "gelu_new"),
+            raw_cls_pool=True,
+        )
     is_roberta = hf_config.model_type in ("roberta", "camembert",
                                           "xlm-roberta")
     return TextEncoderConfig(

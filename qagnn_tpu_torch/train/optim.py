@@ -47,15 +47,19 @@ def make_lr_schedule(kind: str, warmup_steps: int = 0,
 
 def no_decay_mask(names: Iterable[str]) -> dict[str, bool]:
     """name -> True where weight decay APPLIES, as
-    qagnn_tpu/train/optim.py `no_decay_mask` decides it: not to biases, not to
-    the weight of a LayerNorm under a module named `layernorm*` (the
-    scorer's); BatchNorm scales do decay, and so do the encoder's LayerNorm
-    weights (`*_ln`), whose names that rule does not match."""
+    qagnn_tpu/train/optim.py `no_decay_mask` decides it over the flax paths:
+    not to a parameter whose name ends in `bias` (so neither to XLNet's
+    r_w_bias / r_r_bias / r_s_bias nor to an LSTM cell's bias), not to the
+    weight (flax's scale) of a LayerNorm under a module named `layernorm*`
+    (the scorer's); BatchNorm scales do decay, and so do the encoders'
+    LayerNorm weights (`*_ln`, `ln_*`, `layer_norm`), whose names that rule
+    does not match."""
     def decays(name: str) -> bool:
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf == "bias":
+        name = name.lower()
+        if name.endswith("bias"):
             return False
-        return not (leaf == "weight" and "layernorm" in name.lower())
+        return not (name.rsplit(".", 1)[-1] == "weight"
+                    and "layernorm" in name)
     return {n: decays(n) for n in names}
 
 

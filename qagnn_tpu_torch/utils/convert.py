@@ -8,24 +8,37 @@ at `decoder.gnn.gnn_layer_0.key_x` reads `params["decoder"]["gnn"]
   * ProjParams     <- {kernel, bias} as they are (qagnn_tpu/models/gnn.py:46);
   * nn.Embedding   <- Embed {embedding};
   * nn.LayerNorm   <- LayerNorm {scale, bias};
-  * MaskedBatchNorm <- {scale, bias} and batch_stats {mean, var}.
+  * MaskedBatchNorm <- {scale, bias} and batch_stats {mean, var};
+  * XLNetRelativeAttention <- its raw leaves q, k, v, o, r, r_r_bias,
+    r_s_bias, r_w_bias, seg_embed as they are;
+  * LSTMCellParams <- an OptimizedLSTMCell: weight_ih stacks the input
+    kernels ii, if, ig, io (each (in, H), transposed), weight_hh the hidden
+    kernels hi, hf, hg, ho, bias their biases, in torch's gate order.
 
-The load is strict: a leaf of either tree that no module reads, or a port
-parameter or buffer that no leaf sets, raises. `to_flax_variables` and
-`grads_to_flax` go the other way by the same table (Linear weights
-transposed back), and raise on a port tensor that the table does not place.
+A module used several times (ALBERT's `layer_shared`) is one entry, as it
+is one subtree in flax. The load is strict: a leaf of either tree that no
+module reads, or a port parameter or buffer that no leaf sets, raises.
+`to_flax_variables` and `grads_to_flax` go the other way by the same table,
+and raise on a port tensor that the table does not place.
 """
 
 from __future__ import annotations
 
-from collections.abc import Mapping
+from collections.abc import Iterator, Mapping
 
 import numpy as np
 import torch
 from torch import nn
 
 from qagnn_tpu_torch.models.layers import ProjParams
+from qagnn_tpu_torch.models.lstm_encoder import LSTMCellParams
 from qagnn_tpu_torch.models.norm import MaskedBatchNorm
+from qagnn_tpu_torch.models.xlnet_encoder import (
+    RAW_PARAMS,
+    XLNetRelativeAttention,
+)
+
+_GATES = "ifgo"     # torch's gate order; flax names a cell's gates so
 
 
 def _leaf_paths(tree, prefix=()):
@@ -36,6 +49,51 @@ def _leaf_paths(tree, prefix=()):
             yield prefix + (k,)
 
 
+def _table(model: nn.Module) -> Iterator[tuple]:
+    """(module name, attribute, tree, flax paths, transpose) for every
+    tensor of `model`. Several paths: the tensor is their leaves (each
+    transposed when `transpose`) stacked along dim 0."""
+    for name, mod in model.named_modules():
+        path = tuple(name.split(".")) if name else ()
+
+        def leaf(attr, *leaf_path, tree="params", transpose=False):
+            return (name, attr, tree, [path + leaf_path], transpose)
+        if isinstance(mod, nn.Linear):
+            yield leaf("weight", "kernel", transpose=True)
+            if mod.bias is not None:
+                yield leaf("bias", "bias")
+        elif isinstance(mod, ProjParams):
+            yield leaf("kernel", "kernel")
+            if mod.bias is not None:
+                yield leaf("bias", "bias")
+        elif isinstance(mod, nn.Embedding):
+            yield leaf("weight", "embedding")
+        elif isinstance(mod, nn.LayerNorm):
+            yield leaf("weight", "scale")
+            yield leaf("bias", "bias")
+        elif isinstance(mod, MaskedBatchNorm):
+            yield leaf("scale", "scale")
+            yield leaf("bias", "bias")
+            yield leaf("mean", "mean", tree="batch_stats")
+            yield leaf("var", "var", tree="batch_stats")
+        elif isinstance(mod, XLNetRelativeAttention):
+            for attr in RAW_PARAMS:
+                yield leaf(attr, attr)
+        elif isinstance(mod, LSTMCellParams):
+            for attr, kind, what in (("weight_ih", "i", "kernel"),
+                                     ("weight_hh", "h", "kernel"),
+                                     ("bias", "h", "bias")):
+                yield (name, attr, "params",
+                       [path + (kind + g, what) for g in _GATES],
+                       what == "kernel")
+
+
+def flax_paths(model: nn.Module) -> dict[str, list[tuple]]:
+    """Port parameter or buffer name -> the flax leaf paths it holds."""
+    return {f"{name}.{attr}" if name else attr: paths
+            for name, attr, _, paths, _ in _table(model)}
+
+
 def load_flax_variables(model: nn.Module, params: Mapping,
                         batch_stats: Mapping | None = None) -> None:
     """Fill `model` from flax `params` / `batch_stats` trees (nested dicts
@@ -43,6 +101,7 @@ def load_flax_variables(model: nn.Module, params: Mapping,
     trees = {"params": params, "batch_stats": batch_stats or {}}
     used: set[tuple] = set()
     assigned: set[str] = set()
+    modules = dict(model.named_modules())
 
     def read(tree_name, path):
         node = trees[tree_name]
@@ -53,36 +112,17 @@ def load_flax_variables(model: nn.Module, params: Mapping,
         used.add((tree_name,) + path)
         return np.asarray(node)
 
-    def put(module_name, module, attr, value):
-        t = getattr(module, attr)
-        src = torch.tensor(np.asarray(value), dtype=t.dtype)
+    for name, attr, tree, paths, transpose in _table(model):
+        leaves = [read(tree, p) for p in paths]
+        value = np.concatenate([x.T if transpose else x for x in leaves])
+        t = getattr(modules[name], attr)
+        src = torch.tensor(value, dtype=t.dtype)
         if tuple(src.shape) != tuple(t.shape):
-            raise ValueError(f"{module_name}.{attr}: shape {tuple(t.shape)} "
-                             f"but the flax leaf is {tuple(src.shape)}")
+            raise ValueError(f"{name}.{attr}: shape {tuple(t.shape)} "
+                             f"but the flax leaves give {tuple(src.shape)}")
         with torch.no_grad():
             t.copy_(src)
-        assigned.add(f"{module_name}.{attr}" if module_name else attr)
-
-    for name, mod in model.named_modules():
-        path = tuple(name.split(".")) if name else ()
-        if isinstance(mod, nn.Linear):
-            put(name, mod, "weight", read("params", path + ("kernel",)).T)
-            if mod.bias is not None:
-                put(name, mod, "bias", read("params", path + ("bias",)))
-        elif isinstance(mod, ProjParams):
-            put(name, mod, "kernel", read("params", path + ("kernel",)))
-            if mod.bias is not None:
-                put(name, mod, "bias", read("params", path + ("bias",)))
-        elif isinstance(mod, nn.Embedding):
-            put(name, mod, "weight", read("params", path + ("embedding",)))
-        elif isinstance(mod, nn.LayerNorm):
-            put(name, mod, "weight", read("params", path + ("scale",)))
-            put(name, mod, "bias", read("params", path + ("bias",)))
-        elif isinstance(mod, MaskedBatchNorm):
-            put(name, mod, "scale", read("params", path + ("scale",)))
-            put(name, mod, "bias", read("params", path + ("bias",)))
-            put(name, mod, "mean", read("batch_stats", path + ("mean",)))
-            put(name, mod, "var", read("batch_stats", path + ("var",)))
+        assigned.add(f"{name}.{attr}" if name else attr)
 
     unused = [(t,) + p for t in trees for p in _leaf_paths(trees[t])
               if (t,) + p not in used]
@@ -100,39 +140,18 @@ def load_flax_variables(model: nn.Module, params: Mapping,
 def _export(model: nn.Module, pick) -> tuple[dict, dict]:
     """(params, batch_stats) nested dicts under the flax names; pick(tensor)
     -> numpy array chooses what is exported of each parameter."""
-    params: dict = {}
-    stats: dict = {}
+    trees: dict = {"params": {}, "batch_stats": {}}
     placed: set[str] = set()
+    modules = dict(model.named_modules())
 
-    def put(tree, path, module_name, attr, transpose=False):
-        t = getattr(dict(model.named_modules())[module_name], attr)
-        node = tree
-        for p in path[:-1]:
-            node = node.setdefault(p, {})
-        value = pick(t)
-        node[path[-1]] = value.T.copy() if transpose else value
-        placed.add(f"{module_name}.{attr}" if module_name else attr)
-
-    for name, mod in model.named_modules():
-        path = tuple(name.split(".")) if name else ()
-        if isinstance(mod, nn.Linear):
-            put(params, path + ("kernel",), name, "weight", transpose=True)
-            if mod.bias is not None:
-                put(params, path + ("bias",), name, "bias")
-        elif isinstance(mod, ProjParams):
-            put(params, path + ("kernel",), name, "kernel")
-            if mod.bias is not None:
-                put(params, path + ("bias",), name, "bias")
-        elif isinstance(mod, nn.Embedding):
-            put(params, path + ("embedding",), name, "weight")
-        elif isinstance(mod, nn.LayerNorm):
-            put(params, path + ("scale",), name, "weight")
-            put(params, path + ("bias",), name, "bias")
-        elif isinstance(mod, MaskedBatchNorm):
-            put(params, path + ("scale",), name, "scale")
-            put(params, path + ("bias",), name, "bias")
-            put(stats, path + ("mean",), name, "mean")
-            put(stats, path + ("var",), name, "var")
+    for name, attr, tree, paths, transpose in _table(model):
+        value = pick(getattr(modules[name], attr))
+        for part, path in zip(np.split(value, len(paths)), paths):
+            node = trees[tree]
+            for p in path[:-1]:
+                node = node.setdefault(p, {})
+            node[path[-1]] = part.T.copy() if transpose else part.copy()
+        placed.add(f"{name}.{attr}" if name else attr)
 
     names = [n for n, _ in model.named_parameters()] \
         + [n for n, _ in model.named_buffers()]
@@ -140,7 +159,7 @@ def _export(model: nn.Module, pick) -> tuple[dict, dict]:
     if missing:
         raise ValueError("port tensors with no place in the flax tree: "
                          + ", ".join(missing[:10]))
-    return params, stats
+    return trees["params"], trees["batch_stats"]
 
 
 def to_flax_variables(model: nn.Module) -> tuple[dict, dict]:

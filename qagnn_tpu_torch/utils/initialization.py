@@ -1,8 +1,11 @@
 """Seeded random initialisation of the port's modules.
 
 Weights and embeddings are drawn from normal(0, init_std), as the JAX
-package's `normal_init` draws them; biases are zero, norm scales one and
-BatchNorm running statistics (0, 1). The draws come from the given
+package's `normal_init` draws them, and so are XLNet's attention tensors
+(flax and HF draw them from normal(0, 0.02)); biases are zero, norm scales
+one and BatchNorm running statistics (0, 1). An LSTM cell follows flax's
+OptimizedLSTMCell: input kernels LeCun-normal (std 1/sqrt(fan_in)), each
+gate's hidden kernel orthogonal, biases zero. The draws come from the given
 torch.Generator, which must live on the modules' device.
 """
 
@@ -12,7 +15,12 @@ import torch
 from torch import nn
 
 from qagnn_tpu_torch.models.layers import ProjParams
+from qagnn_tpu_torch.models.lstm_encoder import LSTMCellParams
 from qagnn_tpu_torch.models.norm import MaskedBatchNorm
+from qagnn_tpu_torch.models.xlnet_encoder import (
+    RAW_PARAMS,
+    XLNetRelativeAttention,
+)
 
 
 @torch.no_grad()
@@ -34,4 +42,13 @@ def init_weights(model: nn.Module, generator: torch.Generator,
             mod.bias.zero_()
             mod.mean.zero_()
             mod.var.fill_(1.0)
+        elif isinstance(mod, XLNetRelativeAttention):
+            for name in RAW_PARAMS:
+                getattr(mod, name).normal_(0.0, init_std, generator=generator)
+        elif isinstance(mod, LSTMCellParams):
+            w_ih, w_hh = mod.weight_ih, mod.weight_hh
+            w_ih.normal_(0.0, w_ih.shape[1] ** -0.5, generator=generator)
+            for gate in w_hh.chunk(4):
+                nn.init.orthogonal_(gate, generator=generator)
+            mod.bias.zero_()
     return model

@@ -16,8 +16,10 @@
     that file's rtol 1e-3 / atol 2e-5.
 (c) The parser reads every TrainConfig field as the JAX package's does;
     main() hands --device to the entry points; without a card and without
-    --device the CLI raises; unported options raise naming their ROADMAP
-    item.
+    --device the CLI raises; a device mesh, not ported, raises naming its
+    ROADMAP item; every encoder name resolves to the JAX package's config
+    (tests/test_torch_encoders_cli.py holds cli.train against the JAX CLI
+    for the GPT, XLNet, LSTM and ALBERT encoders).
 """
 
 import dataclasses
@@ -153,7 +155,7 @@ def _no_dropout(monkeypatch):
     port's `dropout` (the pooler's rate and the tiny encoder's are fixed)."""
     monkeypatch.setattr(fnn.Dropout, "__call__",
                         lambda self, inputs, *a, **k: inputs)
-    identity = lambda x, p, training: x   # noqa: E731
+    identity = lambda x, p, training, mask_shape=None: x   # noqa: E731
     dropout = layers.dropout
     for name, mod in list(sys.modules.items()):
         if name.startswith("qagnn_tpu_torch.") and \
@@ -290,31 +292,49 @@ def test_no_card_and_no_device_raises(monkeypatch, tmp_path, mode):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(mesh_data=2), "A7"), (dict(mesh_model=2), "A7"),
-    (dict(encoder="albert-base-v2"), "A5"), (dict(encoder="tiny-gpt"), "A5"),
-    (dict(encoder="xlnet-large-cased"), "A5"), (dict(encoder="lstm"), "A5"),
 ])
 def test_unported_options_raise(tmp_path, kw, match):
     cfg = config.TrainConfig(save_dir=str(tmp_path), **kw).resolved()
     with pytest.raises(NotImplementedError, match=match):
-        if "encoder" in kw:
-            cli.encoder_config_for(cfg)
-        else:
-            cli.train(cfg, device="cpu")
+        cli.train(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("name,hidden,layers_", [
     ("roberta-large", 1024, 24), ("roberta-base", 768, 12),
     ("bert-base-uncased", 768, 12), ("bert-large-cased", 1024, 24),
     ("cambridgeltl/SapBERT-from-PubMedBERT-fulltext", 768, 12),
-    ("tiny", 32, 2)])
-def test_encoder_config_for_matches_jax(name, hidden, layers_):
+    ("tiny", 32, 2), ("albert-base-v2", 768, 12),
+    ("albert-xxlarge-v2", 4096, 12), ("openai-gpt", 768, 12),
+    ("tiny-gpt", 32, 2), ("xlnet-large-cased", 1024, 24),
+    ("xlnet-base-cased", 768, 12), ("tiny-xlnet", 32, 2), ("lstm", 300, 2),
+    ("tiny-lstm", 16, 2)])
+def test_encoder_config_for_matches_jax(name, hidden, layers_, tmp_path):
+    """Field by field, in both dtypes (the LSTM computes in f32 whatever
+    --encoder_dtype says); the LSTMs' vocabulary is that of --lstm_vocab."""
+    vocab = tmp_path / "vocab.txt"
+    vocab.write_text("\n".join(f"w{i}" for i in range(40)))
+    lstm_vocab = str(vocab) if "lstm" in name else None
     for dtype in ("float32", "bfloat16"):
         got = cli.encoder_config_for(config.TrainConfig(
-            encoder=name, encoder_dtype=dtype))
+            encoder=name, encoder_dtype=dtype, lstm_vocab=lstm_vocab))
         want = jax_cli.encoder_config_for(jax_config.TrainConfig(
-            encoder=name, encoder_dtype=dtype))
+            encoder=name, encoder_dtype=dtype, lstm_vocab=lstm_vocab))
+        assert type(got).__name__ == type(want).__name__
         assert (got.hidden_size, got.num_layers) == (hidden, layers_)
-        assert got.dtype == getattr(torch, dtype)
+        assert got.dtype == (torch.float32 if "lstm" in name
+                             else getattr(torch, dtype))
         for f in dataclasses.fields(got):
             if f.name != "dtype":
                 assert getattr(got, f.name) == getattr(want, f.name), f.name
+    if "lstm" in name:
+        assert got.vocab_size == 44          # 40 words and 4 extra tokens
+
+
+@pytest.mark.parametrize("name", ["lstm", "unknown"])
+def test_encoder_config_for_refuses_as_jax(name):
+    """--encoder lstm without --lstm_vocab, and a name no family takes,
+    raise ValueError in both packages."""
+    with pytest.raises(ValueError):
+        cli.encoder_config_for(config.TrainConfig(encoder=name))
+    with pytest.raises(ValueError):
+        jax_cli.encoder_config_for(jax_config.TrainConfig(encoder=name))

@@ -4,8 +4,9 @@ Graph loading (`load_graph_pk`, its .npz cache read across packages and
 refused at another max_node_num), edge
 packing (`batch_edge_lists`, `pick_edge_bucket`; both sides run their C++
 packers here, tests/test_torch_native.py holds them against the numpy
-versions), statement tokenization (the fast-tokenizer path and
-the manual pair assembly for the bert, roberta and xlnet layouts) and whole
+versions), statement tokenization (the fast-tokenizer path, the manual
+pair assembly for the bert, roberta and xlnet layouts, and the GPT and LSTM
+layouts) and whole
 loader batches (train with the last batch filled, dev and test padded, the
 in-house split, subsampling): every array, dtype, qid and the shuffle order
 must be equal. Two datasets: `write_synthetic_dataset`'s, and one written
@@ -303,11 +304,62 @@ def test_slow_tokenizer_takes_the_manual_path(datasets, tmp_path):
         _assert_same(got.inputs[k], want.inputs[k], k)
 
 
+def _layout_tokenizers(model_name, datasets, tmp_path):
+    """(port's, JAX package's) tokenizers of a layout: fresh fast BERT
+    tokenizers over the synthetic vocabulary for openai-gpt (the GPT layout
+    adds its special tokens to each), each package's WordTokenizer over a
+    vocabulary `make_word_vocab` wrote from both datasets for lstm."""
+    if model_name == "openai-gpt":
+        from transformers import BertTokenizerFast
+        path = tmp_path / "vocab.txt"
+        path.write_text("\n".join(VOCAB))
+        return tuple(BertTokenizerFast(vocab_file=str(path),
+                                       do_lower_case=True) for _ in "pj")
+    from qagnn_tpu.data.word_tokenizer import WordTokenizer as JaxWords
+
+    from qagnn_tpu_torch.data.word_tokenizer import (
+        WordTokenizer,
+        make_word_vocab,
+    )
+    path = str(tmp_path / "words.json")
+    make_word_vocab([f"{datasets[n]}/statement/{s}.statement.jsonl"
+                     for n in ("small", "big") for s in ("train", "dev")],
+                    path, freq_cutoff=2)
+    return WordTokenizer(path), JaxWords(path)
+
+
 @pytest.mark.parametrize("model_name", ["openai-gpt", "lstm"])
-def test_unported_layouts_raise(datasets, model_name):
-    path = f"{datasets['small']}/statement/train.statement.jsonl"
-    with pytest.raises(NotImplementedError, match="A5"):
-        statements.load_statements(path, model_name, 16, object())
+def test_gpt_and_lstm_layouts_match_jax(datasets, tmp_path, model_name):
+    """load_statements in the GPT layout (special tokens, cls positions,
+    lm labels, the question cut in place across choices) and in the LSTM's
+    (word ids, lengths) equals the JAX package's arrays exactly, also cut
+    short; so do whole loader batches."""
+    port_tok, jax_tok = _layout_tokenizers(model_name, datasets, tmp_path)
+    for name in ("small", "big"):
+        path = f"{datasets[name]}/statement/train.statement.jsonl"
+        for max_len in (9, 32):
+            got = statements.load_statements(path, model_name, max_len,
+                                             port_tok)
+            want = jax_statements.load_statements(path, model_name, max_len,
+                                                  jax_tok)
+            assert got.qids == want.qids and got.n_choices == want.n_choices
+            _assert_same(got.labels, want.labels, "labels")
+            assert sorted(got.inputs) == sorted(want.inputs)
+            for k in want.inputs:
+                _assert_same(got.inputs[k], want.inputs[k],
+                             f"{name} {max_len} {k}")
+    root = datasets["big"]
+    paths = {f"{s}_{kind}": f"{root}/{d}/{s}.{ext}"
+             for s in ("train", "dev", "test")
+             for kind, d, ext in (("statements", "statement",
+                                   "statement.jsonl"),
+                                  ("adj", "graph", "graph.adj.pk"))}
+    kw = dict(paths, model_name=model_name, max_seq_len=20, batch_size=3,
+              eval_batch_size=2, seed=4)
+    port = QAGNNDataLoader(**kw, tokenizer=port_tok)
+    jax_ = JaxLoader(**kw, tokenizer=jax_tok)
+    _assert_batches_equal(port.train(), jax_.train(), "train")
+    _assert_batches_equal(port.dev(), jax_.dev(), "dev")
 
 
 @pytest.mark.parametrize("layout", ["bert", "roberta"])

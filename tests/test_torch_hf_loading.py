@@ -8,9 +8,15 @@ the three sum the same products in other orders). Checkpoints: the tiny
 BERT directory of `write_tiny_bert_checkpoint` (a .bin), a tiny RoBERTa
 directory (safetensors), and raw state-dict files. Also: task-head
 prefixes, a missing pooler, old LayerNorm spellings, config.json read as
-JSON without `transformers`, and the families that are not ported.
+JSON without `transformers`; and the ALBERT, GPT and XLNet families: their
+checkpoints against the JAX conversion (exactly) and HF's models (1e-5),
+their configs read without `transformers`, the settings both packages
+refuse, and the GPT vocabulary resize.
 """
 
+import dataclasses
+import json
+import os
 import sys
 
 import jax.numpy as jnp
@@ -167,35 +173,183 @@ def test_config_json_read_without_transformers(bert_dir, roberta_dir,
 
 
 def _tiny_family(name, tmp_path):
+    """An HF directory of a tiny AlbertModel / OpenAIGPTModel / XLNetModel,
+    random weights from a seed; the fields a config.json may lack keep HF's
+    defaults (n_positions 512, embedding_size 128, one ALBERT group, ...)."""
     import transformers as tf
     torch.manual_seed(0)
     if name == "albert":
         model = tf.AlbertModel(tf.AlbertConfig(
-            vocab_size=30, embedding_size=8, hidden_size=16,
-            num_hidden_layers=1, num_attention_heads=2,
+            vocab_size=30, embedding_size=128, hidden_size=16,
+            num_hidden_layers=2, num_attention_heads=2,
             intermediate_size=32, max_position_embeddings=20))
     elif name == "gpt":
         model = tf.OpenAIGPTModel(tf.OpenAIGPTConfig(
-            vocab_size=30, n_positions=20, n_embd=16, n_layer=1, n_head=2))
+            vocab_size=30, n_embd=16, n_layer=2, n_head=2))
     else:
         model = tf.XLNetModel(tf.XLNetConfig(
-            vocab_size=30, d_model=16, n_layer=1, n_head=2, d_inner=32))
+            vocab_size=30, d_model=16, n_layer=2, n_head=2, d_inner=32))
     out = tmp_path / name
     model.save_pretrained(str(out))
     return str(out), model.config
 
 
+def _family_inputs(family):
+    """(kwargs of the HF model, of the port's encoder): 3 rows of 11
+    tokens, padded on the right (on the left for XLNet), token types where
+    the family reads them."""
+    ids, mask = _inputs(30, 0)
+    types = np.where(np.arange(11) < 6, 0, 1) * mask
+    if family == "xlnet":
+        ids, mask, types = (np.ascontiguousarray(x[:, ::-1])
+                            for x in (ids, mask, types))
+        ids[mask == 0] = 0
+        types[mask == 0] = 4
+    ids, mask, types = (torch.tensor(x) for x in (ids, mask, types))
+    if family == "gpt":
+        cls = mask.sum(1) - 1
+        return {"input_ids": ids}, {"input_ids": ids, "cls_token_ids": cls}
+    both = {"input_ids": ids, "attention_mask": mask,
+            "token_type_ids": types}
+    return both, both
+
+
 @pytest.mark.parametrize("family", ["albert", "gpt", "xlnet"])
-def test_unported_families_raise(family, tmp_path):
-    src, hf_cfg = _tiny_family(family, tmp_path)
-    with pytest.raises(NotImplementedError, match="A5"):
-        hf_loading.load_encoder_checkpoint(src)
-    if family == "albert":
-        with pytest.raises(NotImplementedError, match="A5"):
-            config_from_hf(hf_cfg)
-        with pytest.raises(NotImplementedError, match="A5"):
-            convert_hf_encoder_params(
-                hf_loading._read_checkpoint(src)[0])
+def test_family_checkpoints_match_hf_and_jax(family, tmp_path):
+    """load_encoder_checkpoint on each family's HF directory: the port's
+    parameters equal the JAX conversion leaf by leaf (through
+    utils/convert.py's table), and the port's encoder equals HF's model:
+    every hidden state, and the pooled vector (ALBERT's raw h[:, 0], GPT's
+    h at the classification token, XLNet's h at the last position)."""
+    from transformers import AutoModel
+
+    from qagnn_tpu_torch.cli import make_encoder
+    from qagnn_tpu_torch.utils.convert import to_flax_variables
+    src, _ = _tiny_family(family, tmp_path)
+    cfg, params = hf_loading.load_encoder_checkpoint(src)
+    enc = make_encoder(cfg)
+    missing, unexpected = enc.load_state_dict(params, strict=False)
+    assert not missing and not unexpected, (missing, unexpected)
+    jcfg, jparams = jax_hf.load_encoder_checkpoint(src)
+    assert type(cfg).__name__ == type(jcfg).__name__
+    for f in dataclasses.fields(cfg):
+        if f.name != "dtype":
+            assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+
+    got = _flat(to_flax_variables(enc)[0])
+    want = _flat(jparams)
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        np.testing.assert_array_equal(got[k], np.asarray(w), err_msg=k)
+
+    hf = AutoModel.from_pretrained(src).eval()
+    hf_in, port_in = _family_inputs(family)
+    with torch.no_grad():
+        hidden = hf(**hf_in, output_hidden_states=True).hidden_states
+        for layer in (-1, 1):
+            pooled, mine = enc.eval()(**port_in, layer_id=layer,
+                                      return_all_hidden=True)
+            h = hidden[layer]
+            want_pooled = (h[:, 0] if family == "albert" else h[:, -1]
+                           if family == "xlnet" else
+                           h[torch.arange(3), port_in["cls_token_ids"]])
+            np.testing.assert_allclose(pooled.numpy(), want_pooled.numpy(),
+                                       rtol=0, atol=TOL, err_msg=str(layer))
+    assert len(mine) == len(hidden)
+    for i, (g, w) in enumerate(zip(mine, hidden)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=TOL,
+                                   err_msg=f"hidden state {i}")
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+# fields a *_config_from_hf reads that a hand-written config.json may lack
+DEFAULTED = ("attn_type", "bi_data", "n_positions", "embedding_size",
+             "num_hidden_groups", "inner_group_num", "hidden_act")
+
+
+def test_family_configs_read_without_transformers(tmp_path, monkeypatch):
+    """The card's machine reads config.json as plain JSON: with the
+    defaulted fields left out of the file, the configs are those
+    `transformers` gives."""
+    srcs = [_tiny_family(f, tmp_path)[0] for f in ("albert", "gpt", "xlnet")]
+    want = [hf_loading.load_encoder_checkpoint(s)[0] for s in srcs]
+    for s in srcs:
+        path = os.path.join(s, "config.json")
+        with open(path) as f:
+            d = json.load(f)
+        with open(path, "w") as f:
+            json.dump({k: v for k, v in d.items() if k not in DEFAULTED}, f)
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    assert [hf_loading.load_encoder_checkpoint(s)[0] for s in srcs] == want
+
+
+@pytest.mark.parametrize("family,field,value", [
+    ("albert", "num_hidden_groups", 2), ("albert", "inner_group_num", 2),
+    ("xlnet", "attn_type", "uni"), ("xlnet", "bi_data", True)])
+def test_refused_configs_raise_as_in_jax(tmp_path, family, field, value):
+    """The port refuses what the JAX package refuses (it asserts; the port
+    raises ValueError): multi-group ALBERT, XLNet not bidirectional or with
+    bi_data."""
+    from qagnn_tpu.models.xlnet_encoder import xlnet_config_from_hf as jax_x
+
+    from qagnn_tpu.models.text_encoder import config_from_hf as jax_cfg
+    from qagnn_tpu_torch.models.xlnet_encoder import xlnet_config_from_hf
+    _, hf_cfg = _tiny_family(family, tmp_path)
+    setattr(hf_cfg, field, value)
+    port, jax_ = (config_from_hf, jax_cfg) if family == "albert" \
+        else (xlnet_config_from_hf, jax_x)
+    with pytest.raises(ValueError, match=field.split("_")[0]):
+        port(hf_cfg)
+    with pytest.raises(AssertionError):
+        jax_(hf_cfg)
+
+
+def test_multi_group_albert_weights_raise(tmp_path):
+    from qagnn_tpu.models.text_encoder import (
+        convert_hf_albert_params as jax_convert,
+    )
+
+    from qagnn_tpu_torch.models.text_encoder import convert_hf_albert_params
+    src, _ = _tiny_family("albert", tmp_path)
+    sd = hf_loading._read_checkpoint(src)[0]
+    sd["encoder.albert_layer_groups.1.albert_layers.0.ffn.bias"] = \
+        torch.zeros(32)
+    with pytest.raises(ValueError, match="multi-group"):
+        convert_hf_albert_params(sd)
+    with pytest.raises(AssertionError):
+        jax_convert(sd)
+
+
+def test_gpt_vocab_resize_matches_jax():
+    """A stock openai-gpt table (40478 rows) grows by the GPT layout's 3
+    special tokens' rows, the same rows bit for bit as the JAX package's;
+    a table of another size is left as it is."""
+    from qagnn_tpu.models.gpt_encoder import GPTConfig as JaxGPTConfig
+
+    from qagnn_tpu_torch.models.gpt_encoder import GPTConfig
+    table = torch.randn(40478, 8, generator=torch.Generator().manual_seed(0))
+    cfg, params = hf_loading._resize_gpt_vocab(
+        GPTConfig(vocab_size=40478, hidden_size=8),
+        {"tokens_embed.weight": table})
+    jcfg, jparams = jax_hf._resize_gpt_vocab(
+        JaxGPTConfig(vocab_size=40478, hidden_size=8),
+        {"tokens_embed": {"embedding": jnp.asarray(table.numpy())}})
+    assert cfg.vocab_size == jcfg.vocab_size == 40481
+    np.testing.assert_array_equal(
+        params["tokens_embed.weight"].numpy(),
+        np.asarray(jparams["tokens_embed"]["embedding"]))
+    small = {"tokens_embed.weight": table[:30]}
+    assert hf_loading._resize_gpt_vocab(GPTConfig(vocab_size=30), small) \
+        == (GPTConfig(vocab_size=30), small)
 
 
 def test_config_from_hf_matches_jax(bert_dir, roberta_dir):
