@@ -98,11 +98,25 @@ Run from the repository root on a machine with one CUDA card. It
      epoch, one trained, checkpointed) and `eval_detail` on a dataset it
      writes (16 questions x 4 choices a split, an entity table of 100,000
      rows x 1024), the launches per call counted;
- 12. prints one JSON line of per-kernel numbers, the card's name and power
+ 12. runs the grid of ranks (qagnn_tpu_torch/parallel; the `mesh` phase),
+     every rank a process on this one card over gloo: first a probe that
+     the port's collectives (all_reduce SUM and MAX, all_gather, broadcast)
+     take CUDA tensors there; then rows 1-12 on E/2 and E/4 edge slices
+     (1 x 2 and 1 x 4 grids): each rank's sharded forward and backward of
+     the projected op, the unprojected op and the train-mode edge encoder
+     against the unsharded kernels on rank 0, in f32 and bf16, one launch
+     of each entry point a rank on E/P slots, each entry point timed alone
+     on its slice beside its whole-E time, and each collective's time; then
+     cli.train on a 2 x 2 grid (OBQA's GNN widths, the whole entity table
+     split over 2, the overfit phase's BERT, dropout on) against the same
+     command at 1 x 1: the per-step losses, each rank's launches and peak
+     memory, and rank 0's checkpoint in a one-card eval_detail whose dev
+     logits must be the grid's;
+ 13. prints one JSON line of per-kernel numbers, the card's name and power
      limit, and as its last line {"ok": true, "device": {...}}.
 
-`--only kernels,grads,op,serve,detail,train,cli,overfit,encoders` runs a
-subset of the phases (for work on one of them; `fwd`, `bwd`, `enc`,
+`--only kernels,grads,op,serve,detail,train,cli,overfit,encoders,mesh` runs
+a subset of the phases (for work on one of them; `fwd`, `bwd`, `enc`,
 `moments` and `unproj` are the kernel phase's parts for the GAT forward
 passes A and C,
 for the two GAT backward passes, for the edge encoder's three kernels (rows
@@ -124,6 +138,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import hashlib
 import io
 import json
 import math
@@ -2245,9 +2260,9 @@ class CliProbe:
         return timed_gather
 
     def build(self, orig):
-        def build(cfg, device, tokenizer=None):
+        def build(cfg, device, tokenizer=None, gnn_mesh=None):
             return self.timed("model and data build", orig, cfg, device,
-                              tokenizer=self.tokenizer)
+                              tokenizer=self.tokenizer, gnn_mesh=gnn_mesh)
         return build
 
     def load_encoder(self, orig):
@@ -3222,8 +3237,664 @@ def check_loaded(family, written, loaded, enc_cfg) -> None:
         FAILURES.append(f"{family}: the loaded encoder")
 
 
+# ---------------------------------------------------------------------------
+# the grid of ranks (qagnn_tpu_torch/parallel): the sharded ops on E/P edge
+# slices, and cli.train on a 2 x 2 grid, every rank on this one card
+# ---------------------------------------------------------------------------
+
+MESH_P = (2, 4)            # ranks of the op-level grids (1 x P)
+# the sharded ops against the unsharded ones on the card, max|got - want| <=
+# tol * max|want|: the slices' partial sums meet in the collectives in
+# another order than one kernel sums them; in bf16 the values stored after
+# the sums (node cotangents, d_edge_emb, h) may round the other way at one
+# ulp (2^-8 relative)
+MESH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
+MESH_CLI_QUESTIONS = {"train": 32, "dev": 16, "test": 16}
+MESH_CLI_GRID = (2, 2)
+# the 2 x 2 run against the same command at 1 x 1 (the GNN computes in
+# bf16, and the slices' partial sums are rounded at other points than the
+# one-card run's), each limit about 10x the largest of three readings
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md): the per-step losses, relative,
+# at the CPU test's rtol (readings at most 1.89e-5); the grid's dev logits
+# against a one-card eval_detail of its checkpoint, relative to the
+# largest (readings at most 3.27e-4)
+MESH_CLI_TOL = 2e-4
+MESH_EVAL_TOL = 3e-3
+# the change of the trained parameters over the run, the grid's against
+# the one-card run's, |d_grid - d_one| / |d_one| over each part of the
+# model (`update_gaps`; the entity table is frozen): about 3x the reading
+# (the GNN's 8.62e-3; the encoder 1.38e-4, the rest 1.25e-3). The bf16
+# GNN's rounding sets that floor: a fault that moves a part's change by
+# less, as BatchNorm's sum_over backward done as the identity can, is held
+# by tests/test_torch_parallel.py in f32.
+MESH_UPDATE_TOL = 3e-2
+# the sharded path's entry points: the wrapper each kernel row launches
+# through, and the module it is called from
+MESH_OPS = {
+    "projected": [(gk, n) for n in ("pass_a_scores", "pass_a_denoms",
+                                    "pass_c", "bwd_pass1", "bwd_pass2")],
+    "unprojected": [(uk, n) for n in ("edge_scores", "edge_denoms",
+                                      "aggregate", "bwd1", "bwd2")],
+    "encoder": [(ek, n) for n in ("edge_feature_moments",
+                                  "edge_hidden_forward",
+                                  "edge_hidden_backward")]}
+KERNEL_OF = {"pass_a_scores": "gat_pass_a_scores",
+             "pass_a_denoms": "gat_pass_a_denoms", "pass_c": "gat_pass_c",
+             "bwd_pass1": "gat_bwd_pass1", "bwd_pass2": "gat_bwd_pass2",
+             "edge_scores": "gat_unproj_scores",
+             "edge_denoms": "gat_unproj_denoms",
+             "aggregate": "gat_unproj_aggr", "bwd1": "gat_unproj_bwd1",
+             "bwd2": "gat_unproj_bwd2",
+             "edge_feature_moments": "edge_moments",
+             "edge_hidden_forward": "edge_hidden",
+             "edge_hidden_backward": "edge_hidden_bwd"}
+
+
+class Spy:
+    """Wraps the sharded path's entry points: records the edge slots each
+    call saw (its first (G, E) int32 or bool argument) and its arguments,
+    so that each can be timed alone afterwards."""
+
+    def __init__(self, n_graphs):
+        self.n_graphs, self.slots, self.calls = n_graphs, {}, {}
+        self.stack = contextlib.ExitStack()
+
+    def __enter__(self):
+        for group in MESH_OPS.values():
+            for mod, name in group:
+                self.stack.enter_context(mock.patch.object(
+                    mod, name, self.wrap(name, getattr(mod, name))))
+        return self
+
+    def __exit__(self, *exc):
+        self.stack.close()
+
+    def wrap(self, name, fn):
+        def call(*a, **k):
+            e = next(t.shape[1] for t in a if isinstance(t, torch.Tensor)
+                     and t.dtype in (torch.int32, torch.bool)
+                     and t.ndim == 2 and t.shape[0] == self.n_graphs)
+            self.slots.setdefault(name, set()).add(e)
+            self.calls[name] = (fn, a, k)
+            return fn(*a, **k)
+        return call
+
+    def times(self, iters=10):
+        """Device ms of each recorded call alone (in-place outputs are added
+        to again: the values do not matter here)."""
+        return {name: device_ms(lambda f=f, a=a, k=k: f(*a, **k), iters=iters,
+                                warmup=2)
+                for name, (f, a, k) in self.calls.items()}
+
+
+def rel_err(got, want) -> tuple[float, float]:
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    if not bool(torch.isfinite(got).all()):
+        err = float("inf")
+    return err, err / max(want.abs().max().item(), 1e-30)
+
+
+def mesh_inputs(dev, dt, seed):
+    """The projected op's, the unprojected op's and the encoder's inputs at
+    the main path's shapes, the same on every rank (one seed)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    D = HD = 200
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)
+    src, dst, mask = graph_inputs(gen, dev, E)
+    proj = [(r(G, N, HD) / (HD // HEADS) ** 0.5).to(dt),
+            (r(G, N, HD) * 0.5).to(dt), (r(G, N, HD) * 0.5).to(dt),
+            torch.relu(r(G, E, D)).to(dt), r(D, HD) * 0.05, r(HD) * 0.1,
+            r(D, HD) * 0.05, r(HD) * 0.1, (r(G, N, HD) * 0.5).to(dt),
+            (r(G, N, HD) * 0.5).to(dt)]
+    unproj, unproj_gout = unproj_inputs(gen, dev, E, dt)
+    n_rel = 39
+    enc = encoder_ints(gen, dev, E, n_rel)
+    return dict(src=src, dst=dst, mask=mask, proj=proj, gout=r(G, N, HD),
+                unproj=list(unproj), unproj_gout=unproj_gout, enc=enc,
+                n_rel=n_rel, cot_e=r(G, E, D), cot_s=r(G * N, D))
+
+
+def mesh_cases(mesh, dt, inp, spy):
+    """One rank's sharded forward and backward of the three parts on its
+    E/P slots, then, on rank 0, the unsharded ones on all E slots
+    (`spy` None: their entry points not recorded). Returns {name: (got,
+    want)} on rank 0, {} elsewhere, and the launches of each part."""
+    from qagnn_tpu_torch.parallel.edge_shard_kernels import (
+        gat_projected_sharded)
+    from qagnn_tpu_torch.parallel.edge_shard_map import edge_sharded_gat_nodes
+    from qagnn_tpu_torch.parallel.mesh import all_gather
+
+    P, m = mesh.n_model, mesh.model_index
+    sl = slice(m * E // P, (m + 1) * E // P)
+    cut = lambda t: t[:, sl].contiguous()
+    whole = lambda t: torch.cat(all_gather(t.contiguous(), mesh.model_group),
+                                dim=1)
+    edge = (cut(inp["src"]), cut(inp["dst"]), cut(inp["mask"]))
+    heads = lambda t: t.reshape(*t.shape[:-1], HEADS, t.shape[-1] // HEADS)
+    got, want, launches = {}, {}, {}
+
+    def grads(fn, vals, gout):
+        leaves = [v.detach().clone().requires_grad_() for v in vals]
+        out = fn(*leaves)
+        torch.autograd.backward(out, gout.to(out.dtype))
+        return out.detach(), [t.grad for t in leaves]
+
+    # rows 6-9: the projected op
+    vals = list(inp["proj"])
+    _build.reset_launch_counts()
+    with spy:
+        out, g = grads(lambda *t: gat_projected_sharded(
+            *t, *edge, HEADS, mesh), vals[:3] + [cut(vals[3])] + vals[4:],
+            inp["gout"])
+    torch.cuda.synchronize()
+    launches["projected"] = dict(_build.LAUNCHES)
+    got["projected out"] = out
+    for name, t in zip(("nq", "nk", "nm", "edge_emb", "w_ke", "b_ke", "w_me",
+                        "b_me", "skb", "smb"), g):
+        got[f"projected d{name}"] = whole(t) if name == "edge_emb" else t
+
+    # rows 1-5: the unprojected op (edge arrays ekb, emb cut)
+    vals = [heads(t) for t in inp["unproj"]]
+    _build.reset_launch_counts()
+    with spy:
+        out, g = grads(lambda *t: edge_sharded_gat_nodes(
+            *t, *edge, mesh=mesh), vals[:3] + [cut(vals[3]), cut(vals[4])]
+            + vals[5:], inp["unproj_gout"])
+    torch.cuda.synchronize()
+    launches["unprojected"] = dict(_build.LAUNCHES)
+    got["unprojected out"] = out
+    for name, t in zip(("nq", "nk", "nm", "ekb", "emb", "skb", "smb"), g):
+        got[f"unprojected d{name}"] = whole(t) if name in ("ekb", "emb") \
+            else t
+
+    # rows 10-12: the edge encoder in train mode
+    etype, esrc, edst, ntype, emask = inp["enc"]
+    n_rel = inp["n_rel"]
+
+    def encoder(m_):
+        with torch.device(mesh.device):
+            enc = EdgeEncoder(200, n_rel + 2 * N_NTYPE, num_updates=5,
+                              dtype=dt, mesh=m_).train()
+        g_ = torch.Generator(device=mesh.device).manual_seed(SEED + 31)
+        init_weights(enc, g_, 0.2)
+        return enc
+
+    def run_encoder(enc, ints, cot_e):
+        oh = torch.nn.functional.one_hot
+        self_type = oh(ntype.long(), N_NTYPE)
+        self_rel = torch.zeros((G, N, n_rel), device=mesh.device)
+        self_rel[..., n_rel - 1] = 1.0
+        self_feat = torch.cat([self_rel, self_type, self_type], -1) \
+            .reshape(G * N, -1)
+        (h_e, h_s), _ = enc(self_feat, edge_ints=ints, n_rel=n_rel,
+                            n_ntype=N_NTYPE)
+        ((h_e.float() * cot_e).sum()
+         + (h_s.float() * inp["cot_s"]).sum()).backward()
+        params = {"W0": enc.linear_0.kernel, "b0": enc.linear_0.bias,
+                  "bn scale": enc.bn.scale, "bn bias": enc.bn.bias}
+        return h_e.detach(), h_s.detach(), {
+            k: p.grad for k, p in params.items()}, (enc.bn.mean, enc.bn.var)
+
+    _build.reset_launch_counts()
+    with spy:
+        h_e, h_s, g, stats = run_encoder(
+            encoder(mesh), (cut(etype), cut(esrc), cut(edst), ntype,
+                            cut(emask)), cut(inp["cot_e"]))
+    torch.cuda.synchronize()
+    launches["encoder"] = dict(_build.LAUNCHES)
+    got.update({"encoder h_edge": whole(h_e), "encoder h_self": h_s,
+                "encoder bn mean": stats[0], "encoder bn var": stats[1]})
+    got.update({f"encoder d{k}": t for k, t in g.items()})
+    if mesh.rank != 0:
+        return {}, launches
+
+    # the unsharded ops on all E slots, rank 0 alone
+    out, g = grads(lambda *t: gk.gat_projected(
+        *t, inp["src"], inp["dst"], inp["mask"], HEADS), inp["proj"],
+        inp["gout"])
+    want["projected out"] = out
+    for name, t in zip(("nq", "nk", "nm", "edge_emb", "w_ke", "b_ke", "w_me",
+                        "b_me", "skb", "smb"), g):
+        want[f"projected d{name}"] = t
+    out, g = grads(lambda *t: relational_gat_attention_nodes(
+        *t, inp["src"], inp["dst"], inp["mask"], backend="cuda"),
+        [heads(t) for t in inp["unproj"]], inp["unproj_gout"])
+    want["unprojected out"] = out
+    for name, t in zip(("nq", "nk", "nm", "ekb", "emb", "skb", "smb"), g):
+        want[f"unprojected d{name}"] = t
+    h_e, h_s, g, stats = run_encoder(encoder(None), inp["enc"], inp["cot_e"])
+    want.update({"encoder h_edge": h_e, "encoder h_self": h_s,
+                 "encoder bn mean": stats[0], "encoder bn var": stats[1]})
+    want.update({f"encoder d{k}": t for k, t in g.items()})
+    return {k: (got[k], want[k]) for k in want}, launches
+
+
+def collective_times(mesh, iters=10) -> dict:
+    """Host ms (median, all ranks together) of each collective of the
+    sharded ops at the main path's shapes, on CUDA tensors."""
+    import torch.distributed as dist
+
+    from qagnn_tpu_torch.parallel.mesh import all_reduce
+    HD = D = 200
+    shapes = {"c1_max (G, H)": ((G, HEADS), "max"),
+              "c2_denoms (G, N, H+1)": ((G, N, HEADS + 1), "sum"),
+              "c3_aggr (G, N, HD)": ((G, N, HD), "sum"),
+              "c4_dscale (G, N, H)": ((G, N, HEADS), "sum"),
+              "c5_grads 3GNHD+2D HD+2HD": (
+                  (3 * G * N * HD + 2 * D * HD + 2 * HD,), "sum"),
+              "moments (world)": ((47 + 47 * 47 + 1,), "sum"),
+              "hidden_grads (F+3)D": (((47 + 3) * D,), "sum")}
+    out = {}
+    for name, (shape, op) in shapes.items():
+        t = torch.ones(shape, device=mesh.device)
+        times = []
+        for _ in range(iters + 2):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce(t, mesh.model_group, op)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(times[2:])
+    return out
+
+
+def gloo_probe(mesh) -> dict:
+    """Each collective the port uses, on CUDA tensors over gloo: its result
+    on this rank (device, values), or the error it raised."""
+    from qagnn_tpu_torch.parallel.mesh import all_gather, all_reduce, \
+        broadcast
+    r, dev = mesh.rank, mesh.device
+    full = lambda v, dt=torch.float32: torch.full((4,), float(v), device=dev,
+                                                  dtype=dt)
+    cases = {"all_reduce SUM": lambda: all_reduce(full(r + 1), mesh.world_group),
+             "all_reduce MAX": lambda: all_reduce(full(r + 1),
+                                                  mesh.world_group, "max"),
+             "all_reduce SUM bf16": lambda: all_reduce(
+                 full(r + 1, torch.bfloat16), mesh.world_group),
+             "all_gather": lambda: torch.cat(all_gather(full(r),
+                                                        mesh.world_group)),
+             "broadcast": lambda: broadcast(full(r + 5), mesh.world_group)}
+    out = {}
+    for name, fn in cases.items():
+        try:
+            t = fn()
+            torch.cuda.synchronize()
+            out[name] = (str(t.device), t.float().cpu().tolist())
+        except Exception as exc:  # reported, and the phase fails on it
+            out[name] = f"refused: {exc!r}"[:200]
+    return out
+
+
+def mesh_ops_rank(P):
+    """One rank of the 1 x P op-level grid on this card."""
+    from qagnn_tpu_torch.parallel.mesh import make_mesh
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(1, P, "cuda")
+    res = {"rank": mesh.rank, "probe": gloo_probe(mesh), "dtypes": {}}
+    for dt in (torch.float32, torch.bfloat16):
+        inp = mesh_inputs(mesh.device, dt, SEED + 30)
+        spy = Spy(G)
+        pairs, launches = mesh_cases(mesh, dt, inp, spy)
+        errs = {k: rel_err(g, w) for k, (g, w) in pairs.items()}
+        if pairs:
+            # b0 sits ahead of the BatchNorm: its gradient is zero, and both
+            # sides hold rounding noise of dW0's size
+            err = errs["encoder db0"][0]
+            errs["encoder db0"] = (err, err / pairs["encoder dW0"][1].abs()
+                                   .max().item())
+        # each rank times its entry points alone, in turns; rank 0 also the
+        # unsharded ones on all E slots
+        times, whole = {}, {}
+        for r in range(P):
+            dist.barrier()
+            if r == mesh.rank:
+                times = spy.times()
+                if r == 0:
+                    spy_all = Spy(G)
+                    with spy_all:
+                        mesh_cases_whole(inp, dt)
+                    whole = spy_all.times()
+            torch.cuda.synchronize()
+        dist.barrier()
+        res["dtypes"][str(dt)] = dict(
+            errs=errs, launches=launches,
+            slots={k: sorted(v) for k, v in spy.slots.items()},
+            ms=times, whole_ms=whole,
+            collectives=collective_times(mesh) if dt == torch.bfloat16
+            else {})
+    return res
+
+
+def mesh_cases_whole(inp, dt):
+    """The unsharded ops' forward and backward on all E slots, once, for
+    their entry points' times."""
+    heads = lambda t: t.reshape(*t.shape[:-1], HEADS, t.shape[-1] // HEADS)
+    leaves = [v.detach().clone().requires_grad_() for v in inp["proj"]]
+    gk.gat_projected(*leaves, inp["src"], inp["dst"], inp["mask"],
+                     HEADS).backward(inp["gout"])
+    leaves = [heads(v).detach().clone().requires_grad_()
+              for v in inp["unproj"]]
+    relational_gat_attention_nodes(
+        *leaves, inp["src"], inp["dst"], inp["mask"], backend="cuda"
+    ).backward(inp["unproj_gout"].float())
+    etype, esrc, edst, ntype, emask = inp["enc"]
+    w0 = torch.randn(inp["n_rel"] + 2 * N_NTYPE, 200, device=etype.device,
+                     requires_grad=True)
+    z = torch.zeros(200, device=etype.device, requires_grad=True)
+    ek.edge_feature_moments(etype, esrc, edst, ntype, emask, inp["n_rel"],
+                            N_NTYPE)
+    ek.edge_hidden(etype, esrc, edst, ntype, w0, z, z + 1, z, inp["n_rel"],
+                   N_NTYPE, dt).float().sum().backward()
+
+
+def phase_mesh_ops(card) -> dict:
+    """Rows 1-12 on E/2 and E/4 edge slices: 1 x P grids of ranks on this
+    card over gloo (CUDA tensors; the collectives staged through the
+    host), each rank's sharded forward and backward against the unsharded
+    kernels' on rank 0, in f32 and bf16."""
+    from qagnn_tpu_torch.parallel.launch import run_ranks
+
+    out = {}
+    for P in MESH_P:
+        t0 = time.perf_counter()
+        results = run_ranks(mesh_ops_rank, P, "gloo", "cuda", 600, P)
+        log(f"  1 x {P}: {P} ranks on the card, spawned and run in "
+            f"{time.perf_counter() - t0:.1f} s")
+        probe = results[0]["probe"]
+        want = {"all_reduce SUM": [P * (P + 1) / 2] * 4,
+                "all_reduce MAX": [float(P)] * 4,
+                "all_reduce SUM bf16": [P * (P + 1) / 2] * 4,
+                "all_gather": [float(r) for r in range(P) for _ in range(4)],
+                "broadcast": [5.0] * 4}
+        for name, w in want.items():
+            ok = all(isinstance(r["probe"][name], tuple)
+                     and r["probe"][name][0].startswith("cuda")
+                     and r["probe"][name][1] == w for r in results)
+            log(f"  gloo {name} on CUDA tensors: {probe[name]} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                FAILURES.append(f"mesh: gloo {name} on CUDA tensors")
+        for dt_name, res0 in results[0]["dtypes"].items():
+            dt = getattr(torch, dt_name.split(".")[-1])
+            for what, (err, rel) in res0["errs"].items():
+                ok = rel <= MESH_TOL[dt]
+                log(f"  1x{P} {dt_name[6:]:<8} {what:<28} max_abs_err "
+                    f"{err:.3e} max_rel_err {rel:.3e} tol {MESH_TOL[dt]:.1e}"
+                    f"  {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    FAILURES.append(f"mesh 1x{P} {dt_name} {what}")
+            for r in results:
+                res = r["dtypes"][dt_name]
+                for part, group in MESH_OPS.items():
+                    names = [n for _, n in group]
+                    seen = {n: res["slots"].get(n) for n in names}
+                    counts = {KERNEL_OF[n]: res["launches"][part].get(
+                        KERNEL_OF[n], 0) for n in names}
+                    ok = all(v == [E // P] for v in seen.values()) and all(
+                        c == 1 for c in counts.values())
+                    if not ok or r["rank"] == 0:
+                        log(f"  rank {r['rank']} {dt_name[6:]} {part}: "
+                            f"slots {seen}, launches {counts}  "
+                            f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        FAILURES.append(f"mesh 1x{P} rank {r['rank']} "
+                                        f"{part}: not one launch a kernel "
+                                        f"on E/P slots")
+        for r in results:
+            res = r["dtypes"]["torch.bfloat16"]
+            log(f"  1x{P} rank {r['rank']} bf16, each entry point alone on "
+                f"its {E // P} slots (whole-E time beside it, rank 0's): "
+                + ", ".join(f"{KERNEL_OF[n]} {ms:.4f}"
+                            + (f" (E {results[0]['dtypes']['torch.bfloat16']['whole_ms'].get(n, float('nan')):.4f})")
+                            for n, ms in res["ms"].items())
+                + f" ms  [{card}]")
+            log(f"  1x{P} rank {r['rank']} collectives, host ms, gloo on one "
+                "card (staged through the host; not a scaling result): "
+                + ", ".join(f"{k} {v:.3f}"
+                            for k, v in res["collectives"].items())
+                + f"  [{card}]")
+        out[P] = results
+    return out
+
+
+class ParamWatch:
+    """The trainable parameters of a cli.train run (its optimizer's; the
+    frozen entity table is not among them): as the optimizer first sees
+    them, and at the end of the run."""
+
+    def __init__(self):
+        self.optimizer = self.first = self.last = None
+
+    def patch(self):
+        from qagnn_tpu_torch import cli
+        build = cli.build_train_optimizer
+
+        def watched(model, **kw):
+            self.optimizer = build(model, **kw)
+            self.first = self.values()
+            return self.optimizer
+        return mock.patch.object(cli, "build_train_optimizer", watched)
+
+    def values(self) -> dict:
+        return {n: p.detach().float().cpu().numpy().copy()
+                for n, p in sorted(self.optimizer.params.items())}
+
+    def finish(self) -> str:
+        """Keep the last values, let the model go; their digest."""
+        self.last, self.optimizer = self.values(), None
+        h = hashlib.sha256()
+        for n, a in self.last.items():
+            h.update(n.encode())
+            h.update(a.tobytes())
+        return h.hexdigest()
+
+
+def update_gaps(grid: dict, one: dict) -> tuple[dict, dict]:
+    """|d_grid - d_one| / |d_one| over the tensors of each part of the
+    model (the encoder, the GNN, the rest of the decoder), where d is a
+    run's last values less its first (each run's {"first": ..., "last":
+    ...}): a fault in a gradient rule shows in the part it feeds, which
+    the others' larger changes would hide in one norm over all. Also each
+    tensor's (|d_grid - d_one|, |d_one|)."""
+    sums = collections.defaultdict(lambda: [0.0, 0.0])
+    tensors = {}
+    for n, last in one["last"].items():
+        part = "decoder.gnn" if n.startswith("decoder.gnn.") \
+            else n.split(".")[0]
+        d_one = last.astype(np.float64) - one["first"][n]
+        d_grid = grid["last"][n].astype(np.float64) - grid["first"][n]
+        tensors[n] = (float(np.linalg.norm(d_grid - d_one)),
+                      float(np.linalg.norm(d_one)))
+        sums[part][0] += tensors[n][0] ** 2
+        sums[part][1] += tensors[n][1] ** 2
+    return {part: math.sqrt(a / max(b, 1e-300))
+            for part, (a, b) in sorted(sums.items())}, tensors
+
+
+def mesh_cli_rank(cfg):
+    """One rank of cli.train on the grid: its launches, peak memory, time,
+    the logits of its evaluations (whole batches, gathered), the digest of
+    its trained parameters and, on rank 0, their values before and
+    after."""
+    import torch.distributed as dist
+
+    from qagnn_tpu_torch import cli
+
+    logits = []
+    to_numpy = cli._logits
+    watch = ParamWatch()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(cli, "_logits", lambda out: logits.append(
+            to_numpy(out)) or logits[-1]), watch.patch(), \
+            contextlib.redirect_stdout(io.StringIO()) as printed:
+        result = cli.train(cfg, "cuda")
+    out = dict(result=result, logits=logits, printed=printed.getvalue(),
+               launches=dict(_build.LAUNCHES),
+               secs=time.perf_counter() - t0,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               digest=watch.finish())
+    if dist.get_rank() == 0:
+        out.update(first=watch.first, last=watch.last)
+    return out
+
+
+def phase_mesh_cli(dev, card) -> None:
+    """cli.train at 2 x 2 (4 ranks on this card, gloo) and at 1 x 1 on the
+    same files: OBQA's GNN widths (k=5, gnn_dim 200, 200-node graphs in the
+    4096-edge bucket, bf16 GNN, dropout on), the whole 799,273 x 1024 entity
+    table (row-sharded over 2 on the grid), the overfit phase's 4-layer
+    256-wide BERT, 16 x 4 a batch in 2 microbatches, 2 steps an epoch, 2
+    epochs. The losses and the parameters' change over the run must agree,
+    the data ranks of a model slice must end with the same parameters, and
+    rank 0's checkpoint must load into a one-card eval_detail whose dev
+    logits are the grid's own."""
+    from qagnn_tpu_torch import cli
+    from qagnn_tpu_torch.data.synthetic import write_tiny_bert_checkpoint
+    from qagnn_tpu_torch.parallel.launch import run_ranks
+
+    rng = np.random.default_rng(SEED + 32)
+    with tempfile.TemporaryDirectory(prefix="qagnn_mesh_") as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        emb_path, _ = write_cli_dataset(tmp / "data", rng,
+                                        questions=MESH_CLI_QUESTIONS)
+        enc_dir = write_tiny_bert_checkpoint(
+            str(tmp / "bert"), hidden_size=256, num_layers=4, num_heads=4)
+        log(f"  wrote the dataset ({MESH_CLI_QUESTIONS} questions x {C} "
+            f"choices, entity table {N_CONCEPT} x {CONCEPT_IN} f32) and the "
+            f"BERT in {time.perf_counter() - t0:.1f} s")
+
+        def config(save_dir, n_data, n_model):
+            cfg = preset("obqa", encoder="bert-base-uncased",
+                         encoder_load=enc_dir, batch_size=B,
+                         mini_batch_size=B // 2, eval_batch_size=B,
+                         n_epochs=2, unfreeze_epoch=0, gnn_dtype="bfloat16",
+                         encoder_dtype="float32", save_model=True,
+                         save_dir=str(save_dir), seed=SEED, log_interval=1,
+                         max_seq_len=64, max_node_num=N, mesh_data=n_data,
+                         mesh_model=n_model)
+            for split in MESH_CLI_QUESTIONS:
+                setattr(cfg, f"{split}_statements", str(
+                    tmp / "data" / "statement" / f"{split}.statement.jsonl"))
+                setattr(cfg, f"{split}_adj", str(
+                    tmp / "data" / "graph" / f"{split}.graph.adj.pk"))
+            cfg.ent_emb_paths = (emb_path,)
+            return cfg
+
+        # one card: the same command at 1 x 1
+        torch.cuda.reset_peak_memory_stats()
+        one_watch = ParamWatch()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as one_printed, \
+                one_watch.patch():
+            one = cli.train(config(tmp / "one", 1, 1), dev)
+        one_secs = time.perf_counter() - t0
+        one_watch.finish()
+        one_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the grid: cli.train as every rank runs it (run_ranks joins the
+        # ranks, as torchrun would)
+        n_data, n_model = MESH_CLI_GRID
+        cfg = config(tmp / "grid", n_data, n_model)
+        t0 = time.perf_counter()
+        ranks = run_ranks(mesh_cli_rank, n_data * n_model, "gloo", "cuda",
+                          900, cfg)
+        grid_secs = time.perf_counter() - t0
+
+        # rank 0's checkpoint on one card
+        logits = []
+        to_numpy = cli._logits
+        cfg_eval = dataclasses.replace(
+            cfg, mode="eval_detail", detail_batches=0,
+            load_model_path=str(tmp / "grid" / "checkpoint"),
+            save_dir=str(tmp / "eval"))
+        (tmp / "eval").mkdir()
+        t0 = time.perf_counter()
+        with mock.patch.object(cli, "_logits", lambda out: logits.append(
+                to_numpy(out)) or logits[-1]), \
+                contextlib.redirect_stdout(io.StringIO()):
+            detail = cli.eval_detail(cfg_eval, dev)
+        eval_secs = time.perf_counter() - t0
+        ckpt_gib = sum(f.stat().st_size for f in
+                       (tmp / "grid" / "checkpoint").iterdir()) / 2 ** 30
+
+    got = ranks[0]["result"]
+    log(f"  1 x 1: cli.train {one_secs:.1f} s, peak {one_peak:.2f} GiB  "
+        f"[{card}]")
+    log(f"  2 x 2: cli.train over run_ranks {grid_secs:.1f} s (spawn "
+        "included); per rank: " + ", ".join(
+            f"rank {i} {r['secs']:.1f} s peak {r['peak_gib']:.2f} GiB"
+            for i, r in enumerate(ranks)) + f"  [{card}]")
+    step_ms = lambda text: " ".join(re.findall(  # noqa: E731
+        r"\| ms/batch\s+([0-9.]+) \|", text))
+    log(f"  ms a step by the CLI's log line (the first of each epoch holds "
+        f"its start or the last evaluation and checkpoint): 1 x 1 "
+        f"{step_ms(one_printed.getvalue())}; 2 x 2 "
+        f"{step_ms(ranks[0]['printed'])}  [{card}]")
+    log(f"  losses 1 x 1: {' '.join(f'{x:.6f}' for x in one['train_losses'])}")
+    log(f"  losses 2 x 2: {' '.join(f'{x:.6f}' for x in got['train_losses'])}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got["train_losses"],
+                                                   one["train_losses"]))
+    one_run = dict(first=one_watch.first, last=one_watch.last)
+    same_start = sorted(ranks[0]["first"]) == sorted(one_run["first"]) \
+        and all(np.array_equal(ranks[0]["first"][n], a)
+                for n, a in one_run["first"].items())
+    gaps, tensors = update_gaps(ranks[0], one_run) if same_start \
+        else ({}, {})
+    gap = max(gaps.values(), default=float("inf"))
+    log(f"  trained parameters: {len(one_run['first'])} tensors; the grid's "
+        "change over the run against the one-card run's: " + ", ".join(
+            f"{part} {g:.3e}" for part, g in gaps.items())
+        + "; the largest |d_grid - d_one| (|d_one|): " + ", ".join(
+            f"{n} {a:.3e} ({b:.3e})" for n, (a, b) in sorted(
+                tensors.items(), key=lambda t: -t[1][0])[:4]))
+    log("  digests of the trained parameters, by rank: " + ", ".join(
+        r["digest"][:12] for r in ranks))
+    checks = {
+        f"losses agree (max rel {rel:.2e} <= {MESH_CLI_TOL:.1e})":
+            len(got["train_losses"]) == len(one["train_losses"]) == 4
+            and rel <= MESH_CLI_TOL,
+        "the grid starts from the one-card run's parameters": same_start,
+        f"the parameters change as on one card ({gap:.2e} <= "
+        f"{MESH_UPDATE_TOL:.1e})": gap <= MESH_UPDATE_TOL,
+        "the data ranks of each model slice end with the same parameters":
+            all(ranks[r]["digest"] == ranks[r % n_model]["digest"]
+                for r in range(len(ranks))),
+        "every kernel of the train step launched on every rank": all(
+            r["launches"].get(n, 0) > 0 for r in ranks
+            for n in step_launches(cfg.k)),
+    }
+    epoch = got["best_dev_epoch"]
+    n_eval = 2                       # one dev and one test batch an epoch
+    grid_dev = torch.from_numpy(ranks[0]["logits"][epoch * n_eval])
+    one_dev = torch.from_numpy(logits[0])
+    err, rel_l = rel_err(one_dev, grid_dev)
+    checks[f"one-card dev logits of the grid's checkpoint (max rel "
+           f"{rel_l:.2e} <= {MESH_EVAL_TOL:.1e})"] = \
+        tuple(one_dev.shape) == (B, C) and rel_l <= MESH_EVAL_TOL
+    log(f"  launches per rank over cli.train: " + "; ".join(
+        f"rank {i}: " + ", ".join(f"{n} {r['launches'].get(n, 0)}"
+                                  for n in step_launches(cfg.k))
+        for i, r in enumerate(ranks)))
+    log(f"  checkpoint {ckpt_gib:.2f} GiB (the table gathered by rank 0); "
+        f"eval_detail from it on one card {eval_secs:.1f} s: dev_acc "
+        f"{detail['dev_acc']:.4f} (grid's best {got['best_dev_acc']:.4f})")
+    for what, ok in checks.items():
+        log(f"  {what}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            FAILURES.append(f"mesh cli: {what}")
+
+
 PHASES = ("kernels", "grads", "op", "serve", "detail", "train", "cli",
-          "overfit", "encoders")
+          "overfit", "encoders", "mesh")
 # parts of the kernel phase that can be asked for alone
 KERNEL_PARTS = ("fwd", "bwd", "enc", "moments", "unproj", "scores")
 
@@ -3365,6 +4036,15 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_encoders(dev, card)
         log(f"  the encoders phase took {time.perf_counter() - t0:.1f} s")
+    if "mesh" in only:
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("\n[the grid of ranks: rows 1-12 on E/2 and E/4 edge slices, "
+            "and cli.train on 2 x 2 ranks, all on this card over gloo]")
+        t0 = time.perf_counter()
+        phase_mesh_ops(card)
+        phase_mesh_cli(dev, card)
+        log(f"  the mesh phase took {time.perf_counter() - t0:.1f} s")
 
     if FAILURES:
         log("\nFAILED: " + "; ".join(FAILURES))

@@ -13,6 +13,16 @@ Run:  python -m qagnn_tpu_torch.cli --dataset obqa --encoder roberta-large \
 
 It runs on the CUDA card, and raises when there is none, unless `--device`
 names another device (`--device cpu`).
+
+With --mesh_data x --mesh_model > 1 it trains on a grid of ranks
+(qagnn_tpu_torch.parallel; the JAX CLI's mesh, qagnn_tpu/cli.py:214-246,
+312-326): each rank takes a data slice of every batch and an edge slice of
+its graphs, the entity table's rows are split over `model`, and evaluation
+gathers the logits over `data`. Outside torchrun the CLI starts the ranks
+itself (`run_ranks`, backend --dist_backend: nccl, one rank a card, or
+gloo); under torchrun each process is one rank. Rank 0 alone writes
+config.json, log.csv, predictions and checkpoints, and prints. eval_detail
+runs on one rank.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from qagnn_tpu_torch.data.loader import QAGNNDataLoader
 from qagnn_tpu_torch.data.word_tokenizer import WordTokenizer
@@ -35,6 +46,8 @@ from qagnn_tpu_torch.models.xlnet_encoder import (
     XLNetConfig,
     XLNetTextEncoder,
 )
+from qagnn_tpu_torch.parallel.launch import run_ranks
+from qagnn_tpu_torch.parallel.mesh import make_mesh, shard_params
 from qagnn_tpu_torch.train.optim import (
     build_train_optimizer,
     entity_table_names,
@@ -62,10 +75,12 @@ from qagnn_tpu_torch.utils.initialization import init_weights
 ENTITY_TABLE = "decoder.concept_emb.emb.weight"
 
 
-def build_model_and_data(cfg: TrainConfig, device, tokenizer=None):
+def build_model_and_data(cfg: TrainConfig, device, tokenizer=None,
+                         gnn_mesh=None):
     """The dataloader and the model, built on `device` (weights not yet
-    initialised), from a resolved TrainConfig. Returns (dataset, model,
-    entity table (numpy), pretrained encoder parameters or None)."""
+    initialised), from a resolved TrainConfig; `gnn_mesh` puts the GNN on a
+    grid of ranks. Returns (dataset, model, entity table (numpy),
+    pretrained encoder parameters or None)."""
     dev = torch.device(device)
     if tokenizer is None and cfg.lstm_vocab and "lstm" in cfg.encoder:
         tokenizer = WordTokenizer(cfg.lstm_vocab)
@@ -105,7 +120,8 @@ def build_model_and_data(cfg: TrainConfig, device, tokenizer=None):
             fc_dim=cfg.fc_dim, n_fc_layer=cfg.fc_layer_num,
             p_emb=cfg.dropouti, p_gnn=cfg.dropoutg, p_fc=cfg.dropoutf,
             gnn_backend=cfg.gnn_backend,
-            gnn_dtype=resolve_gnn_dtype(cfg.gnn_dtype, dev))
+            gnn_dtype=resolve_gnn_dtype(cfg.gnn_dtype, dev),
+            gnn_mesh=gnn_mesh)
     return dataset, model, cp_emb, pretrained_encoder
 
 
@@ -195,26 +211,79 @@ def _logits(out: torch.Tensor) -> np.ndarray:
     return out.float().cpu().numpy()
 
 
-def train(cfg: TrainConfig, device=None) -> dict:
+def mesh_shape(cfg: TrainConfig, device=None) -> tuple[int, int]:
+    """(n_data, n_model) of the grid: --mesh_model, and --mesh_data or, at
+    0, as many data ranks as the cards (the torchrun world) hold and both
+    batch sizes divide over (qagnn_tpu/cli.py:214-246)."""
+    n_model = max(1, cfg.mesh_model)
+    if cfg.mesh_data:
+        n_data = cfg.mesh_data
+        for what in ("batch_size", "eval_batch_size"):
+            if getattr(cfg, what) % n_data:
+                raise ValueError(f"{what} {getattr(cfg, what)} must divide "
+                                 f"over {n_data} data ranks")
+    else:
+        world = int(os.environ.get("WORLD_SIZE", 0))
+        if not world:
+            on_card = device is None or torch.device(device).type == "cuda"
+            world = torch.cuda.device_count() \
+                if on_card and torch.cuda.is_available() else 1
+        n_data = max(1, world // n_model)
+        while cfg.batch_size % n_data or cfg.eval_batch_size % n_data:
+            n_data -= 1
+    num_mb = _microbatches(cfg)
+    if (cfg.batch_size // num_mb) % n_data:
+        raise ValueError(f"a microbatch of {cfg.batch_size // num_mb} "
+                         f"questions must divide over {n_data} data ranks")
+    return n_data, n_model
+
+
+def _microbatches(cfg: TrainConfig) -> int:
+    return max(1, cfg.batch_size // cfg.mini_batch_size) \
+        if cfg.mini_batch_size > 0 else 1
+
+
+def train(cfg: TrainConfig, device=None, dist_backend: str = "nccl") -> dict:
     """Train from the dataset files of `cfg` on `device` (the card unless
-    the caller names another; raises when there is none)."""
+    the caller names another; raises when there is none). On a grid of
+    more than one rank this process starts them (`run_ranks`, over
+    `dist_backend`), or, inside a rank or under torchrun, is one of them;
+    the result is rank 0's."""
     dev = resolve_device(device)
-    if max(1, cfg.mesh_data) * max(1, cfg.mesh_model) > 1:
-        raise NotImplementedError(
-            f"a {cfg.mesh_data} x {cfg.mesh_model} device mesh is not ported "
-            "(ROADMAP A7); the port trains on one card")
+    n_data, n_model = mesh_shape(cfg, dev)
+    if n_data * n_model == 1:
+        return _train(cfg, dev, None)
+    if dist.is_initialized():
+        return _train_rank(cfg, dev, n_data, n_model)
+    return run_ranks(_train_rank, n_data * n_model, dist_backend, dev,
+                     None, cfg, dev, n_data, n_model)[0]
 
-    os.makedirs(cfg.save_dir, exist_ok=True)
-    cfg.export(os.path.join(cfg.save_dir, "config.json"))
+
+def _train_rank(cfg: TrainConfig, device, n_data: int, n_model: int):
+    mesh = make_mesh(n_data, n_model, device)
+    return _train(cfg, mesh.device, mesh)
+
+
+def _train(cfg: TrainConfig, dev: torch.device, mesh) -> dict:
+    main = mesh is None or mesh.rank == 0
+    say = print if main else (lambda *a, **k: None)
+    if main:
+        os.makedirs(cfg.save_dir, exist_ok=True)
+        cfg.export(os.path.join(cfg.save_dir, "config.json"))
     log_path = os.path.join(cfg.save_dir, "log.csv")
-    with open(log_path, "w") as f:
-        f.write("step,dev_acc,test_acc\n")
+    if main:
+        with open(log_path, "w") as f:
+            f.write("step,dev_acc,test_acc\n")
+    if mesh is not None:
+        say(f"| mesh data={mesh.n_data} model={mesh.n_model}: "
+            f"{mesh.size} ranks on {dev.type} |", flush=True)
 
-    dataset, model, cp_emb, pretrained_encoder = build_model_and_data(cfg, dev)
+    dataset, model, cp_emb, pretrained_encoder = build_model_and_data(
+        cfg, dev, gnn_mesh=mesh)
     if pretrained_encoder is None and cfg.encoder != "tiny":
-        print(f"WARNING: encoder {cfg.encoder!r} starts from RANDOM weights "
-              "— pass --encoder_load for the reference's pretrained-LM "
-              "behavior", flush=True)
+        say(f"WARNING: encoder {cfg.encoder!r} starts from RANDOM weights "
+            "— pass --encoder_load for the reference's pretrained-LM "
+            "behavior", flush=True)
 
     # one generator, seeded from --seed on the device: the initial weights,
     # then every dropout mask; its state is part of the checkpoint
@@ -224,6 +293,18 @@ def train(cfg: TrainConfig, device=None) -> dict:
     # it too keeps both packages' epochs on one shuffle
     dataset.rng.permutation(dataset.inhouse_train_idx)
     steps_per_epoch = max(1, dataset.train_size() // cfg.batch_size)
+
+    pretrained = {ENTITY_TABLE: cp_emb}
+    if pretrained_encoder is not None:
+        pretrained.update({"encoder." + k: v
+                           for k, v in pretrained_encoder.items()})
+    _merge_pretrained(model, pretrained)
+    del pretrained, cp_emb, pretrained_encoder
+    if mesh is not None:
+        # parameters from rank 0, this rank's rows of the entity table
+        # (qagnn_tpu/cli.py:312-326); before the optimizer sees them
+        shard_params(model, mesh)
+
     optimizer = build_train_optimizer(
         model, optim=cfg.optim, encoder_lr=cfg.encoder_lr,
         decoder_lr=cfg.decoder_lr, weight_decay=cfg.weight_decay,
@@ -233,13 +314,6 @@ def train(cfg: TrainConfig, device=None) -> dict:
         # the frozen entity table (reference --freeze_ent_emb, qagnn.py:63)
         frozen=entity_table_names(model) if cfg.freeze_ent_emb else ())
 
-    pretrained = {ENTITY_TABLE: cp_emb}
-    if pretrained_encoder is not None:
-        pretrained.update({"encoder." + k: v
-                           for k, v in pretrained_encoder.items()})
-    _merge_pretrained(model, pretrained)
-    del pretrained, cp_emb, pretrained_encoder
-
     # warm start / resume (reference qagnn.py:163-166 --load_model_path, but
     # restoring the full state: parameters, BN statistics, optimizer, step,
     # generator)
@@ -247,23 +321,23 @@ def train(cfg: TrainConfig, device=None) -> dict:
         state, _ = load_checkpoint(cfg.load_model_path)
         restore_into(state, model, optimizer, generator)
         del state
-        print(f"resumed from {cfg.load_model_path} at step "
-              f"{int(optimizer.state['step'])}", flush=True)
+        say(f"resumed from {cfg.load_model_path} at step "
+            f"{int(optimizer.state['step'])}", flush=True)
 
     # parameter inventory (reference qagnn.py:199-206)
     def count(prefix):
         return sum(p.numel() for n, p in model.named_parameters()
                    if n.startswith(prefix))
     enc_params, dec_params = count("encoder."), count("decoder.")
-    print(f"| encoder params {enc_params:,} | decoder params {dec_params:,} "
-          f"| total {enc_params + dec_params:,} |", flush=True)
+    say(f"| encoder params {enc_params:,} | decoder params {dec_params:,} "
+        f"| total {enc_params + dec_params:,} |", flush=True)
 
-    num_mb = max(1, cfg.batch_size // cfg.mini_batch_size) \
-        if cfg.mini_batch_size > 0 else 1
     train_step = make_train_step(model, optimizer, dev, loss_name=cfg.loss,
-                                 num_microbatches=num_mb,
-                                 encoder_layer_id=cfg.encoder_layer)
-    eval_step = make_eval_step(model, dev, encoder_layer_id=cfg.encoder_layer)
+                                 num_microbatches=_microbatches(cfg),
+                                 encoder_layer_id=cfg.encoder_layer,
+                                 mesh=mesh)
+    eval_step = make_eval_step(model, dev, encoder_layer_id=cfg.encoder_layer,
+                               mesh=mesh)
 
     def evaluate(split_iter):
         correct, total = 0, 0
@@ -291,7 +365,8 @@ def train(cfg: TrainConfig, device=None) -> dict:
         encoder_trainable = (epoch >= cfg.unfreeze_epoch
                              and epoch < cfg.refreeze_epoch)
         for qids, batch in dataset.train():
-            if cfg.profile_dir and global_step == cfg.profile_start_step:
+            if cfg.profile_dir and main and \
+                    global_step == cfg.profile_start_step:
                 profiler = _start_profiler(dev)
             interval_edges += int(batch.graph.edge_mask.sum()) * cfg.k
             metrics = train_step(batch, encoder_trainable, generator)
@@ -304,11 +379,11 @@ def train(cfg: TrainConfig, device=None) -> dict:
                 profiler = None
             if (global_step + 1) % cfg.log_interval == 0:
                 dt = (time.time() - start) / cfg.log_interval
-                print(f"| step {global_step:5} | loss "
-                      f"{total_loss / cfg.log_interval:7.4f} | ms/batch "
-                      f"{1000 * dt:7.2f} | edges/s "
-                      f"{interval_edges / (dt * cfg.log_interval):10.3g} |",
-                      flush=True)
+                say(f"| step {global_step:5} | loss "
+                    f"{total_loss / cfg.log_interval:7.4f} | ms/batch "
+                    f"{1000 * dt:7.2f} | edges/s "
+                    f"{interval_edges / (dt * cfg.log_interval):10.3g} |",
+                    flush=True)
                 total_loss, interval_edges, start = 0.0, 0, time.time()
             global_step += 1
 
@@ -316,12 +391,13 @@ def train(cfg: TrainConfig, device=None) -> dict:
         test_acc, test_preds = (0.0, [])
         if dataset.test_size() > 0:
             test_acc, test_preds = evaluate(dataset.test())
-        print(f"| epoch {epoch:3} | dev_acc {dev_acc:7.4f} | test_acc "
-              f"{test_acc:7.4f} |", flush=True)
-        with open(log_path, "a") as f:
-            f.write(f"{global_step},{dev_acc},{test_acc}\n")
+        say(f"| epoch {epoch:3} | dev_acc {dev_acc:7.4f} | test_acc "
+            f"{test_acc:7.4f} |", flush=True)
+        if main:
+            with open(log_path, "a") as f:
+                f.write(f"{global_step},{dev_acc},{test_acc}\n")
 
-        if cfg.save_model and test_preds:
+        if cfg.save_model and test_preds and main:
             ppath = os.path.join(cfg.save_dir,
                                  f"predictions_test_e{epoch}.csv")
             with open(ppath, "w") as f:
@@ -340,8 +416,8 @@ def train(cfg: TrainConfig, device=None) -> dict:
     if profiler is not None:     # the run ended inside the traced window
         _stop_profiler(profiler, cfg.profile_dir)
 
-    print(f"| best dev_acc {best_dev_acc:.4f} (epoch {best_dev_epoch}) | "
-          f"final test_acc {final_test_acc:.4f} |")
+    say(f"| best dev_acc {best_dev_acc:.4f} (epoch {best_dev_epoch}) | "
+        f"final test_acc {final_test_acc:.4f} |")
     return {"best_dev_acc": best_dev_acc, "final_test_acc": final_test_acc,
             "best_dev_epoch": best_dev_epoch, "train_losses": loss_history}
 
@@ -442,7 +518,7 @@ def main(argv=None):
     ns = build_arg_parser().parse_args(argv)
     cfg = config_from_namespace(ns)
     if cfg.mode == "train":
-        return train(cfg, ns.device)
+        return train(cfg, ns.device, dist_backend=ns.dist_backend)
     if cfg.mode == "eval_detail":
         return eval_detail(cfg, ns.device)
     raise ValueError(f"invalid mode {cfg.mode!r}")

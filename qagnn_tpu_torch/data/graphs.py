@@ -16,7 +16,10 @@ load_sparse_adj_data_with_contextnode):
 and caches the result beside the pickle as `<path>.tpu_cache.npz`, in the
 JAX package's file name and format, so a cache written by either package
 reads in the other. The file name does not hold max_node_num, so a cache
-written at another max_node_num raises instead of being read.
+written at another max_node_num raises instead of being read. The cache is
+written to a temporary file beside it and renamed into place, so that a
+process reading it while another writes it (the ranks of a grid each load
+the dataset) finds the whole cache or none.
 """
 
 from __future__ import annotations
@@ -154,17 +157,20 @@ def load_graph_pk(path: str, max_node_num: int = 200,
 
 def _save_cache(path: str, data: GraphData) -> None:
     lengths = np.asarray([e.shape[1] for e in data.edge_indices], np.int64)
-    np.savez_compressed(
-        path,
-        concept_ids=data.concept_ids, node_types=data.node_types,
-        node_scores=data.node_scores, num_nodes=data.num_nodes,
-        edge_lengths=lengths,
-        edge_index_flat=np.concatenate(data.edge_indices, axis=1)
-        if data.edge_indices else np.zeros((2, 0), np.int32),
-        edge_type_flat=np.concatenate(data.edge_types)
-        if data.edge_types else np.zeros((0,), np.int32),
-        n_relations=np.asarray(data.n_relations),
-    )
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        np.savez_compressed(
+            f,
+            concept_ids=data.concept_ids, node_types=data.node_types,
+            node_scores=data.node_scores, num_nodes=data.num_nodes,
+            edge_lengths=lengths,
+            edge_index_flat=np.concatenate(data.edge_indices, axis=1)
+            if data.edge_indices else np.zeros((2, 0), np.int32),
+            edge_type_flat=np.concatenate(data.edge_types)
+            if data.edge_types else np.zeros((0,), np.int32),
+            n_relations=np.asarray(data.n_relations),
+        )
+    os.replace(tmp, path)
 
 
 def _load_cache(path: str) -> GraphData:

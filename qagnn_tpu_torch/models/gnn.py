@@ -18,6 +18,16 @@ compute the same function:
 The default backend follows the device: "cuda" for CUDA tensors, "scatter"
 otherwise. On CPU tensors the fused branch runs the kernels' plain versions.
 Parameters and BatchNorm statistics stay f32; `dtype` is the compute dtype.
+
+With a `mesh` (qagnn_tpu_torch.parallel.mesh; qagnn_tpu/models/gnn.py
+:140-151, 292-296, 353-364, 501-521) the edge arrays are this rank's edge
+slice (parallel/graph_sharding.py pads E once for the split before the
+encoder, so the encoder and the layers agree on it) and the fused branch
+runs the kernels' edge-partitioned forms (parallel/edge_shard_kernels.py),
+whatever the backend default: the feature moments summed over every rank,
+the hidden pass on the slice, the attention joined by its five
+collectives, with no chaining of the edge embedding; BatchNorm takes the
+statistics of the whole batch. The detail path (return_alpha) is single-rank.
 """
 
 from __future__ import annotations
@@ -40,6 +50,11 @@ from qagnn_tpu_torch.ops.gat_attention import (
     resolve_backend,
 )
 from qagnn_tpu_torch.ops.gat_kernels import gat_projected_chained
+from qagnn_tpu_torch.parallel.edge_shard_kernels import (
+    edge_feature_moments_sharded,
+    edge_hidden_sharded,
+    gat_projected_sharded,
+)
 
 
 class EdgeEncoder(nn.Module):
@@ -48,12 +63,13 @@ class EdgeEncoder(nn.Module):
     those of the union of masked edge rows and all self-loop rows."""
 
     def __init__(self, hidden_size: int, n_feat: int, num_updates: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mesh=None):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.mesh = dtype, mesh
         self.linear_0 = ProjParams(n_feat, hidden_size)
         self.linear_1 = ProjParams(hidden_size, hidden_size)
-        self.bn = MaskedBatchNorm(hidden_size, num_updates=num_updates)
+        self.bn = MaskedBatchNorm(hidden_size, num_updates=num_updates,
+                                  mesh=mesh)
 
     def forward(self, edge_feat, weight=None, *, edge_ints=None,
                 n_rel: int | None = None, n_ntype: int | None = None):
@@ -68,21 +84,24 @@ class EdgeEncoder(nn.Module):
         enter the batch statistic through their closed-form moments (the
         feature-moments kernel; differentiable in W0, b0 by autograd).
         Returns ((h_edge (G, E, D), h_self), (W1, b1))."""
-        cdt = self.dtype
+        cdt, mesh = self.dtype, self.mesh
         if edge_ints is not None:
             etype, esrc, edst, ntype, emask = edge_ints
             w0, b0 = self.linear_0.kernel, self.linear_0.bias
             x0_self = self.linear_0.apply_to(edge_feat, cdt)
             parts = [(x0_self, None)]
             if self.training:
-                hist, M, n_e = edge_feature_moments(
-                    etype, esrc, edst, ntype, emask, n_rel, n_ntype)
+                args = (etype, esrc, edst, ntype, emask, n_rel, n_ntype)
+                hist, M, n_e = edge_feature_moments(*args) if mesh is None \
+                    else edge_feature_moments_sharded(*args, mesh)
                 s1, s2 = analytic_edge_moments(w0, b0, hist, M, n_e)
                 parts.insert(0, MomentPart(s1, s2, n_e))
             res, (a, b) = self.bn(parts, return_affine=True)
             h_self = torch.relu(res[-1])
-            h_edge = edge_hidden(etype, esrc, edst, ntype, w0, b0, a, b,
-                                 n_rel, n_ntype, cdt)
+            args = (etype, esrc, edst, ntype, w0, b0, a, b, n_rel, n_ntype,
+                    cdt)
+            h_edge = edge_hidden(*args) if mesh is None \
+                else edge_hidden_sharded(*args, mesh)
             return (h_edge, h_self), (self.linear_1.kernel,
                                       self.linear_1.bias)
 
@@ -99,18 +118,19 @@ class GATConvE(nn.Module):
     Linear -> BN -> ReLU -> Linear."""
 
     def __init__(self, emb_dim: int, head_count: int = 4,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mesh=None):
         super().__init__()
         assert emb_dim % head_count == 0
         d = emb_dim
         self.emb_dim, self.head_count, self.dtype = d, head_count, dtype
+        self.mesh = mesh
         self.query = ProjParams(2 * d, d)
         self.key_x = ProjParams(2 * d, d, use_bias=False)
         self.msg_x = ProjParams(2 * d, d, use_bias=False)
         self.key_e = ProjParams(d, d)
         self.msg_e = ProjParams(d, d)
         self.out_linear_0 = nn.Linear(d, d)
-        self.out_bn = MaskedBatchNorm(d)
+        self.out_bn = MaskedBatchNorm(d, mesh=mesh)
         self.out_linear_1 = nn.Linear(d, d)
 
     def _node_projections(self, x):
@@ -136,7 +156,9 @@ class GATConvE(nn.Module):
         (W1, b1) of the edge encoder's linear_1 when edge_emb/self_emb are
         its PRE-linear_1 hidden states; the result is then the pair
         (out, edge_emb passed through the op) and the caller hands that
-        embedding to the next layer."""
+        embedding to the next layer. With a mesh the fused op is the
+        edge-partitioned one, and the pair's embedding is edge_emb itself
+        (no chaining)."""
         d, h, cdt = self.emb_dim, self.head_count, self.dtype
         dph = d // h
         G, N = (x[0] if isinstance(x, tuple) else x).shape[:2]
@@ -155,10 +177,15 @@ class GATConvE(nn.Module):
             def proj(t, w, b):
                 return t.to(cdt) @ w.to(cdt) + b.to(cdt)
 
-            aggr, emb_next = gat_projected_chained(
-                query_x / math.sqrt(dph), key_x, msg_x, edge_emb.to(cdt),
-                wke, bke, wme, bme, proj(self_emb, wke, bke),
-                proj(self_emb, wme, bme), edge_src, edge_dst, edge_mask, h)
+            args = (query_x / math.sqrt(dph), key_x, msg_x,
+                    edge_emb.to(cdt), wke, bke, wme, bme,
+                    proj(self_emb, wke, bke), proj(self_emb, wme, bme),
+                    edge_src, edge_dst, edge_mask, h)
+            if self.mesh is None:
+                aggr, emb_next = gat_projected_chained(*args)
+            else:
+                aggr = gat_projected_sharded(*args, self.mesh)
+                emb_next = edge_emb
         else:
             def heads(t):
                 return t.reshape(*t.shape[:-1], h, dph)
@@ -191,27 +218,33 @@ class QAGNNMessagePassing(nn.Module):
     def __init__(self, k: int, n_ntype: int, n_etype: int, hidden_size: int,
                  dropout: float = 0.1, head_count: int = 4,
                  backend: str | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mesh=None):
         super().__init__()
         D, half = hidden_size, hidden_size // 2
         self.k, self.n_ntype, self.n_etype = k, n_ntype, n_etype
         self.dropout = dropout
         self.hidden_size, self.backend, self.dtype = D, backend, dtype
+        if mesh is not None and backend == "scatter":
+            raise ValueError("the scatter backend is single-rank; on a "
+                             "grid the GNN runs the fused kernels")
+        self.mesh = mesh
         self.emb_node_type = nn.Linear(n_ntype, half)
         self.emb_score = nn.Linear(half, half)
         self.edge_encoder = EdgeEncoder(D, n_etype + 1 + 2 * n_ntype,
-                                        num_updates=k, dtype=dtype)
+                                        num_updates=k, dtype=dtype,
+                                        mesh=mesh)
         for i in range(k):
             self.add_module(f"gnn_layer_{i}",
-                            GATConvE(D, head_count, dtype=dtype))
+                            GATConvE(D, head_count, dtype=dtype, mesh=mesh))
         self.Vh = nn.Linear(D, D)
         self.Vx = nn.Linear(D, D)
 
     def forward(self, H, node_type, node_score, edge_src, edge_dst, edge_type,
                 edge_mask, *, return_alpha: bool = False):
         """H: (G, N, D) initial node features; node_type (G, N) int;
-        node_score (G, N); edges (G, E) with a bool mask. Returns (G, N, D)
-        [and ((k, G, E, H) edge alphas, (k, G, N, H) self alphas)]."""
+        node_score (G, N); edges (G, E) with a bool mask (with a mesh: this
+        rank's E / n_model slots). Returns (G, N, D) [and ((k, G, E, H)
+        edge alphas, (k, G, N, H) self alphas)]."""
         G, N, D = H.shape
         E = edge_src.shape[1]
         half, cdt = D // 2, self.dtype
@@ -233,7 +266,10 @@ class QAGNNMessagePassing(nn.Module):
         self_feat = torch.cat([s_rel, s_type, s_type], dim=-1)
         nfeat = self_feat.shape[-1]
 
-        fused = resolve_backend(self.backend, H) == "cuda" and not return_alpha
+        if self.mesh is not None and return_alpha:
+            raise ValueError("the detail path (return_alpha) is single-rank")
+        fused = self.mesh is not None or (
+            resolve_backend(self.backend, H) == "cuda" and not return_alpha)
         src = edge_src.to(torch.int32).contiguous()
         dst = edge_dst.to(torch.int32).contiguous()
         mask = edge_mask.to(torch.bool).contiguous()

@@ -142,7 +142,7 @@ class LSTMTextEncoder(nn.Module):
             # EmbeddingDropout: whole vocabulary rows (reference
             # utils/layers.py:150-172)
             rows = dropout(h.new_ones(self.emb.num_embeddings), self.emb_p,
-                           True)
+                           True, replicated=True)
             h = h * rows[ids][..., None]
         h = dropout(h, self.input_p, self.training)
 

@@ -9,6 +9,13 @@ batch statistics by weight, not by shape:
     folded `num_updates` times (the shared edge encoder is one call for k
     identical reference calls),
   * eval mode normalizes with the running statistics.
+
+With a `mesh` the rows are data slice d of a batch split over its data
+ranks (parallel/mesh.py), and the batch statistics are those of the whole
+batch, as GSPMD takes them: the row sums of the array parts are summed
+over the data group by a differentiable all_reduce (`sum_over`), and
+pre-reduced MomentParts come in already global. Every rank then updates
+its running statistics alike.
 """
 
 from __future__ import annotations
@@ -30,8 +37,9 @@ class MomentPart(NamedTuple):
 
 class MaskedBatchNorm(nn.Module):
     def __init__(self, features: int, momentum: float = 0.1,
-                 eps: float = 1e-5, num_updates: int = 1):
+                 eps: float = 1e-5, num_updates: int = 1, mesh=None):
         super().__init__()
+        self.group = None if mesh is None else mesh.data_group
         self.features = features
         self.momentum = momentum
         self.eps = eps
@@ -42,6 +50,7 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def _batch_stats(self, array_parts, moment_parts):
+        from qagnn_tpu_torch.parallel.mesh import sum_over
         f32 = torch.float32
         dev = self.mean.device
         n = torch.zeros((), dtype=f32, device=dev)
@@ -55,6 +64,9 @@ class MaskedBatchNorm(nn.Module):
                 w = wi.float()
                 n = n + w.sum()
                 s1 = s1 + (x32 * w[:, None]).sum(0)
+        if self.group is not None:
+            ns1 = sum_over(torch.cat([n.reshape(1), s1]), self.group)
+            n, s1 = ns1[0], ns1[1:]
         for mp in moment_parts:
             n = n + mp.n
             s1 = s1 + mp.s1
@@ -68,6 +80,7 @@ class MaskedBatchNorm(nn.Module):
                 else torch.square(xi.float() - mean)
             s2 = s2 + (d2.sum(0) if wi is None
                        else (d2 * wi.float()[:, None]).sum(0))
+        s2 = sum_over(s2, self.group)
         if moment_parts:
             for mp in moment_parts:
                 s2 = s2 + mp.s2

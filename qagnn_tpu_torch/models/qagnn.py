@@ -3,6 +3,11 @@
 Counterpart of qagnn_tpu/models/qagnn.py (`normalize_node_scores`, `QAGNN`,
 `LMQAGNN`; reference modeling/modeling_qagnn.py:99-251). LM inputs arrive as
 (B, C, L) tensors and graphs as one BatchedGraphs with G == B * C.
+
+`gnn_mesh` (a qagnn_tpu_torch.parallel.mesh.Mesh) puts the GNN on a grid of
+ranks (qagnn_tpu/models/qagnn.py:66, 100, 166, 197): the batch is then this
+rank's data slice, its graphs' edge arrays its edge slice
+(parallel.mesh.shard_batch).
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ class QAGNN(nn.Module):
                  n_attention_head: int, fc_dim: int, n_fc_layer: int,
                  p_emb: float = 0.2, p_gnn: float = 0.2, p_fc: float = 0.2,
                  gnn_backend: str | None = None,
-                 gnn_dtype: torch.dtype = torch.float32):
+                 gnn_dtype: torch.dtype = torch.float32, gnn_mesh=None):
         super().__init__()
         self.p_emb, self.p_fc = p_emb, p_fc
         self.svec2nvec = nn.Linear(sent_dim, concept_dim)
@@ -49,7 +54,7 @@ class QAGNN(nn.Module):
                                                concept_dim)
         self.gnn = QAGNNMessagePassing(k, n_ntype, n_etype, concept_dim,
                                        dropout=p_gnn, backend=gnn_backend,
-                                       dtype=gnn_dtype)
+                                       dtype=gnn_dtype, mesh=gnn_mesh)
         self.pooler = MultiheadAttPoolLayer(n_attention_head, sent_dim,
                                             concept_dim)
         self.fc = MLP(concept_dim + sent_dim + concept_dim, fc_dim, 1,
@@ -107,14 +112,14 @@ class LMQAGNN(nn.Module):
                  n_attention_head: int, fc_dim: int, n_fc_layer: int,
                  p_emb: float = 0.2, p_gnn: float = 0.2, p_fc: float = 0.2,
                  gnn_backend: str | None = None,
-                 gnn_dtype: torch.dtype = torch.float32):
+                 gnn_dtype: torch.dtype = torch.float32, gnn_mesh=None):
         super().__init__()
         self.encoder = encoder
         self.decoder = QAGNN(k, n_ntype, n_etype, sent_dim, n_concept,
                              concept_dim, concept_in_dim, n_attention_head,
                              fc_dim, n_fc_layer, p_emb=p_emb, p_gnn=p_gnn,
                              p_fc=p_fc, gnn_backend=gnn_backend,
-                             gnn_dtype=gnn_dtype)
+                             gnn_dtype=gnn_dtype, gnn_mesh=gnn_mesh)
 
     def forward(self, lm_inputs: dict, graph: BatchedGraphs, *,
                 layer_id: int = -1, return_pool_attn: bool = False,

@@ -179,7 +179,8 @@ class XLNetTextEncoder(nn.Module):
         pos_seq = torch.arange(L, -L, -1, dtype=torch.float32, device=dev)
         sin_inp = pos_seq[:, None] * inv_freq[None, :]
         pos_emb = torch.cat([torch.sin(sin_inp), torch.cos(sin_inp)], dim=-1)
-        pos_emb = dropout(pos_emb, cfg.dropout, self.training)
+        pos_emb = dropout(pos_emb, cfg.dropout, self.training,
+                          replicated=True)
 
         h = F.embedding(input_ids.long(), self.word_embedding.weight) \
             .to(cfg.dtype)

@@ -34,6 +34,19 @@ def segment_max(data, segment_ids, num_segments: int, mask=None):
     return out.scatter_reduce(0, idx, data, "amax", include_self=True)
 
 
+def segment_softmax(scores, segment_ids, num_segments: int, mask=None):
+    """Numerically stable masked softmax within each segment: (E, H) ->
+    (E, H), padded rows exactly 0 (torch_geometric.utils.softmax on the
+    real rows)."""
+    ids = segment_ids.long()
+    m = segment_max(scores, ids, num_segments, mask)
+    e = torch.exp(scores - m[ids])
+    if mask is not None:
+        e = torch.where(_expand(mask, e.ndim), e, 0)
+    denom = torch.clamp_min(segment_sum(e, ids, num_segments), 1e-16)
+    return e / denom[ids]
+
+
 def segment_softmax_with_self_loops(edge_scores, segment_ids, edge_mask,
                                     self_scores):
     """Joint softmax over {edges grouped by segment} and one self-loop per

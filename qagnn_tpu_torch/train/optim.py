@@ -9,6 +9,10 @@ qagnn.py:267-273) and the encoder freeze (reference qagnn.py:240-247).
 A frozen group is skipped: its gradients take no part in the global norm and
 its moments and step count do not advance, as torch skips parameters whose
 gradient is None.
+
+A row-sharded table (parallel.mesh.shard_params) holds one shard a model
+rank: its squared norm is summed over the model group into the global norm,
+so that each row counts once.
 """
 
 from __future__ import annotations
@@ -112,6 +116,10 @@ class TrainOptimizer:
         for name in frozen:           # never updated: autograd skips them too
             params[name].requires_grad_(False)
         self.params = {n: p for n, p in params.items() if n not in frozen}
+        from qagnn_tpu_torch.parallel.mesh import sharded_tables
+        self.row_groups = {n: rs.group for n, rs in
+                           sharded_tables(model).items()
+                           if n in self.params and rs.group is not None}
         self.decays = no_decay_mask(self.params)
         is_enc = encoder_mask(self.params)
         self.groups = {g: [n for n in self.params if is_enc[n] == (g == "encoder")]
@@ -138,6 +146,20 @@ class TrainOptimizer:
     def zero_grad(self) -> None:
         for p in self.params.values():
             p.grad = None
+
+    def _sharded_norm(self, active: list, norms: torch.Tensor):
+        """The global norm from per-tensor norms (in the order of the active
+        groups' names), each row-sharded table's square summed over its
+        group."""
+        from qagnn_tpu_torch.parallel.mesh import all_reduce
+        names = [n for g in active for n in self.groups[g]]
+        sq = norms.square()
+        total = sq.sum()
+        for i, n in enumerate(names):
+            if n in self.row_groups:
+                total = total - sq[i] + all_reduce(sq[i].clone(),
+                                                   self.row_groups[n])
+        return torch.sqrt(total)
 
     def _directions(self, group: str, grads: list, t: int) -> list:
         """The step directions of a group's parameters before weight decay
@@ -184,8 +206,9 @@ class TrainOptimizer:
         # one global norm over everything that is trained; the clip scale
         # stays on the device
         if self.max_grad_norm and self.max_grad_norm > 0 and trained:
-            gnorm = torch.linalg.vector_norm(torch.stack(
-                torch._foreach_norm(trained)))
+            norms = torch.stack(torch._foreach_norm(trained))
+            gnorm = torch.linalg.vector_norm(norms) if not self.row_groups \
+                else self._sharded_norm(active, norms)
             self.last_grad_norm = gnorm
             scale = torch.clamp_max(self.max_grad_norm / (gnorm + 1e-6), 1.0)
             grads = {g: torch._foreach_mul(gs, scale)

@@ -9,6 +9,12 @@ as `<path>.config.json`. The reference saves weights only and cannot truly
 resume (reference qagnn.py:317-333, 163-166). The JAX package's orbax
 checkpoints are not read; utils/convert.py carries weights between the two
 packages.
+
+On a grid of ranks (qagnn_tpu_torch.parallel) every rank calls
+`save_checkpoint`: a row-sharded entity table (and its optimizer moments)
+is gathered from the model group, and rank 0 alone writes. `restore_into`
+keeps a sharded table's rows of this rank. The file is the same whatever
+the grid, so a grid's checkpoint loads on one card and the other way round.
 """
 
 from __future__ import annotations
@@ -19,8 +25,10 @@ import os
 import shutil
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from qagnn_tpu_torch.parallel.mesh import gather_rows, sharded_tables
 from qagnn_tpu_torch.train.optim import TrainOptimizer
 from qagnn_tpu_torch.utils.config import TrainConfig
 
@@ -32,13 +40,20 @@ def save_checkpoint(path: str, model: nn.Module, optimizer: TrainOptimizer,
                     cfg: TrainConfig | None = None) -> None:
     """Write the model, the optimizer's state and step and the generator's
     state to the directory `path` (replacing a checkpoint there), and `cfg`
-    beside it."""
+    beside it. On a grid every rank calls it and rank 0 writes."""
+    weights, moments = model.state_dict(), dict(optimizer.state)
+    for name, rs in sharded_tables(model).items():
+        weights[name] = gather_rows(weights[name], rs)
+        for key in moments:
+            if key.endswith("." + name):
+                moments[key] = gather_rows(moments[key], rs)
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return
     path = os.path.abspath(path)
     if os.path.exists(path):
         shutil.rmtree(path)
     os.makedirs(path)
-    torch.save({"model": model.state_dict(),
-                "optimizer": dict(optimizer.state),
+    torch.save({"model": weights, "optimizer": moments,
                 "generator": None if generator is None
                 else generator.get_state()},
                os.path.join(path, STATE_FILE))
@@ -75,10 +90,16 @@ def restore_into(state: dict, model: nn.Module,
     statistics), `optimizer` (moments, counts and step) and `generator`,
     each tensor into the existing one on its device. Keys and shapes must
     match (reference qagnn.py:163-166 --load_model_path, but with the full
-    state)."""
-    model.load_state_dict(state["model"], strict=True)
+    state); of a row-sharded table (and its moments) this rank's rows are
+    kept."""
+    weights, saved = dict(state["model"]), dict(state["optimizer"])
+    for name, rs in sharded_tables(model).items():
+        weights[name] = weights[name][rs.start:rs.stop]
+        for key in saved:
+            if key.endswith("." + name):
+                saved[key] = saved[key][rs.start:rs.stop]
+    model.load_state_dict(weights, strict=True)
     if optimizer is not None:
-        saved = state["optimizer"]
         if set(saved) != set(optimizer.state):
             diff = sorted(set(saved) ^ set(optimizer.state))
             raise KeyError(f"optimizer state keys differ: {diff[:10]}")

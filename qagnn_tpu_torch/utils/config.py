@@ -3,8 +3,10 @@ CLI parsing.
 
 A copy of qagnn_tpu/utils/config.py (same fields, defaults, presets and
 flags) plus the device and dtype resolution the port's entry points share.
-The parser adds one flag of its own, `--device`, which is not a TrainConfig
-field, so a run's config.json keeps the JAX package's fields.
+The parser adds two flags of its own, `--device` and `--dist_backend` (the
+torch.distributed backend of a grid of ranks: nccl, one rank a card, or
+gloo, which lets ranks share a card or run on the CPU), which are not
+TrainConfig fields, so a run's config.json keeps the JAX package's fields.
 """
 
 from __future__ import annotations
@@ -183,8 +185,8 @@ def preset(dataset: str, **overrides) -> TrainConfig:
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
-    """CLI exposing every TrainConfig field as --flag, and --device (the
-    card unless a device is named, see `resolve_device`)."""
+    """CLI exposing every TrainConfig field as --flag, --device (the card
+    unless a device is named, see `resolve_device`) and --dist_backend."""
     p = argparse.ArgumentParser("qagnn_tpu_torch")
     for f in fields(TrainConfig):
         name = "--" + f.name
@@ -202,6 +204,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default=None,
                    help="torch device to run on (e.g. cpu); default: the "
                         "CUDA card, and an error when there is none")
+    p.add_argument("--dist_backend", choices=("nccl", "gloo"),
+                   default="nccl",
+                   help="collective backend of a --mesh_data x --mesh_model "
+                        "grid of ranks: nccl (one rank a card) or gloo "
+                        "(ranks may share a card, or run on the CPU)")
     return p
 
 
@@ -214,9 +221,10 @@ def _bool_flag(s: str) -> bool:
 
 
 def config_from_namespace(ns: argparse.Namespace) -> TrainConfig:
-    """The resolved TrainConfig of parsed flags (`--device` left out)."""
+    """The resolved TrainConfig of parsed flags (`--device` and
+    `--dist_backend` left out)."""
     overrides = {k: v for k, v in vars(ns).items()
-                 if v is not None and k != "device"}
+                 if v is not None and k not in ("device", "dist_backend")}
     if isinstance(overrides.get("ent_emb"), list):
         overrides["ent_emb"] = tuple(overrides["ent_emb"])
     return TrainConfig(**overrides).resolved()

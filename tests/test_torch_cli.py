@@ -15,9 +15,9 @@
     the best-dev checkpoints' parameters and BatchNorm statistics within
     that file's rtol 1e-3 / atol 2e-5.
 (c) The parser reads every TrainConfig field as the JAX package's does;
-    main() hands --device to the entry points; without a card and without
-    --device the CLI raises; a device mesh, not ported, raises naming its
-    ROADMAP item; every encoder name resolves to the JAX package's config
+    main() hands --device (and train --dist_backend) to the entry points;
+    without a card and without --device the CLI raises; a grid of ranks on
+    the CPU under NCCL is refused, naming --dist_backend gloo; every encoder name resolves to the JAX package's config
     (tests/test_torch_encoders_cli.py holds cli.train against the JAX CLI
     for the GPT, XLNet, LSTM and ALBERT encoders).
 """
@@ -85,8 +85,8 @@ def _cfg(module, root, emb_path, **kw):
 def _with_tokenizer(monkeypatch, tok):
     orig = cli.build_model_and_data
     monkeypatch.setattr(cli, "build_model_and_data",
-                        lambda cfg, device, tokenizer=None:
-                        orig(cfg, device, tokenizer=tok))
+                        lambda cfg, device, tokenizer=None, gnn_mesh=None:
+                        orig(cfg, device, tokenizer=tok, gnn_mesh=gnn_mesh))
 
 
 def test_overfit_checkpoint_eval_detail_resume(tmp_path, tokenizer,
@@ -155,7 +155,7 @@ def _no_dropout(monkeypatch):
     port's `dropout` (the pooler's rate and the tiny encoder's are fixed)."""
     monkeypatch.setattr(fnn.Dropout, "__call__",
                         lambda self, inputs, *a, **k: inputs)
-    identity = lambda x, p, training, mask_shape=None: x   # noqa: E731
+    identity = lambda x, p, training, *a, **k: x   # noqa: E731
     dropout = layers.dropout
     for name, mod in list(sys.modules.items()):
         if name.startswith("qagnn_tpu_torch.") and \
@@ -271,14 +271,18 @@ def test_parser_matches_jax(argv):
 
 @pytest.mark.parametrize("mode", ["train", "eval_detail"])
 def test_main_hands_the_device_to_the_entry_point(monkeypatch, mode):
+    """--device to both entry points; train also gets --dist_backend."""
     called = []
-    monkeypatch.setattr(cli, mode, lambda cfg, device: called.append(
-        (cfg, device)) or "ran")
+    monkeypatch.setattr(cli, mode, lambda cfg, device, **kw: called.append(
+        (cfg, device, kw)) or "ran")
     argv = ["--mode", mode, "--dataset", "obqa", "--k", "2"]
     assert cli.main(argv + ["--device", "cpu"]) == "ran"
-    assert called[0] == (config.config_from_argv(argv), "cpu")
-    cli.main(argv)
+    backend = {"dist_backend": "nccl"} if mode == "train" else {}
+    assert called[0] == (config.config_from_argv(argv), "cpu", backend)
+    cli.main(argv + ["--dist_backend", "gloo"] * (mode == "train"))
     assert called[1][1] is None
+    if mode == "train":
+        assert called[1][2] == {"dist_backend": "gloo"}
 
 
 @pytest.mark.parametrize("mode", ["train", "eval_detail"])
@@ -291,12 +295,18 @@ def test_no_card_and_no_device_raises(monkeypatch, tmp_path, mode):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mesh_data=2), "A7"), (dict(mesh_model=2), "A7"),
+    (dict(mesh_data=2), "--dist_backend gloo"),
+    (dict(mesh_model=2), "--dist_backend gloo"),
 ])
 def test_unported_options_raise(tmp_path, kw, match):
-    cfg = config.TrainConfig(save_dir=str(tmp_path), **kw).resolved()
-    with pytest.raises(NotImplementedError, match=match):
+    """A grid of ranks on the CPU under the default backend, NCCL, which
+    takes CUDA tensors only, is refused before any rank starts, naming the
+    backend that runs it (tests/test_torch_parallel_cli.py trains on one)."""
+    cfg = config.TrainConfig(save_dir=str(tmp_path), mini_batch_size=2,
+                             **kw).resolved()
+    with pytest.raises(ValueError, match=match):
         cli.train(cfg, device="cpu")
+    assert not (tmp_path / "config.json").exists()
 
 
 @pytest.mark.parametrize("name,hidden,layers_", [

@@ -142,6 +142,28 @@ def test_graph_cache_reads_across_packages(datasets, tmp_path, writer):
     _assert_graph_data_equal(read.load_graph_pk(path, 200), fresh)
 
 
+def test_graph_cache_is_renamed_into_place(datasets, tmp_path, monkeypatch):
+    """The cache is written whole under another name and renamed: while it
+    is written, a reader (another rank of a grid) finds no cache at its
+    path, never part of one."""
+    path = str(tmp_path / "train.graph.adj.pk")
+    shutil.copy(f"{datasets['small']}/graph/train.graph.adj.pk", path)
+    cache = path + ".tpu_cache.npz"
+    seen = []
+    save = np.savez_compressed
+
+    def spy(f, **arrays):
+        seen.append((getattr(f, "name", f), os.path.exists(cache)))
+        return save(f, **arrays)
+    monkeypatch.setattr(graphs.np, "savez_compressed", spy)
+    want = graphs.load_graph_pk(path, 200)
+    assert len(seen) == 1 and seen[0][0] != cache and not seen[0][1]
+    assert sorted(os.listdir(tmp_path)) == ["train.graph.adj.pk",
+                                            "train.graph.adj.pk.tpu_cache.npz"]
+    got = graphs.load_graph_pk(path, 200)
+    np.testing.assert_array_equal(got.concept_ids, want.concept_ids)
+
+
 def test_graph_cache_of_another_max_node_num_raises(datasets, tmp_path):
     """The cache's file name does not hold max_node_num: a cache written at
     N = 200 and read at N = 8 raises, naming the file, instead of handing

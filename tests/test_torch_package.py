@@ -128,3 +128,11 @@ def test_cli_module_refuses_cpu_fallback(tmp_path):
     assert out.returncode != 0
     assert "no CUDA device is available" in out.stderr
     assert not (tmp_path / "out").exists()
+
+
+def test_the_scan_covers_the_grid_modules():
+    """The scan reaches parallel/, whose ranks must import no JAX either."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+    for name in ("__init__", "launch", "mesh", "graph_sharding",
+                 "edge_shard_kernels", "edge_shard_map", "dryrun"):
+        assert f"qagnn_tpu_torch/parallel/{name}.py" in scanned, name
