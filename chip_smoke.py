@@ -112,10 +112,26 @@ Run from the repository root on a machine with one CUDA card. It
      command at 1 x 1: the per-step losses, each rank's launches and peak
      memory, and rank 0's checkpoint in a one-card eval_detail whose dev
      logits must be the grid's;
- 13. prints one JSON line of per-kernel numbers, the card's name and power
+ 13. runs the preprocessing vertical (qagnn_tpu_torch/preprocess; the
+     `preprocess` phase, no kernel of rows 1-12) on inputs it writes:
+     extract_english on a small raw ConceptNet file (merges, swaps, a
+     dropped relation, a non-English tail); run_common's construct_graph
+     and KG.build_indices on an English CSV at ConceptNet's scale (799,273
+     concepts, 2.5 M triples, heavy-tailed degrees); run_dataset("obqa")
+     with 4 worker processes on 32 questions x 4 choices (the train split
+     alone), scored by
+     make_torch_mlm_scorer's random roberta-large MLM (decoder tied) on the
+     card, the first statements' scores held against the same model on
+     the CPU; run_medqa on a DDB-sized graph (10,000 entities) with the
+     SapBERT table of a random BERT-base on the card, its first 256 names
+     held against the CPU. It prints host seconds by stage, Part 2's
+     sentences/s, device ms a chunk and idle share, SapBERT's names/s and
+     the peak memory;
+ 14. prints one JSON line of per-kernel numbers, the card's name and power
      limit, and as its last line {"ok": true, "device": {...}}.
 
-`--only kernels,grads,op,serve,detail,train,cli,overfit,encoders,mesh` runs
+`--only kernels,grads,op,serve,detail,train,cli,overfit,encoders,mesh,
+preprocess` runs
 a subset of the phases (for work on one of them; `fwd`, `bwd`, `enc`,
 `moments` and `unproj` are the kernel phase's parts for the GAT forward
 passes A and C,
@@ -142,7 +158,9 @@ import hashlib
 import io
 import json
 import math
+import multiprocessing
 import pathlib
+import pickle
 import re
 import statistics
 import subprocess
@@ -256,20 +274,23 @@ def card_line() -> str:
 
 
 class WordTokenizer:
-    """A word-level tokenizer over a fixed vocabulary, for the cli and
-    encoders phases (tokenizers are built here, not read from a hub):
-    lower-cases, splits on whitespace and punctuation as BERT's basic
-    tokenizer does, maps unknown words to `unk_token`. Not a fast HF
+    """A word-level tokenizer over a fixed vocabulary, for the cli,
+    encoders and preprocess phases (tokenizers are built here, not read
+    from a hub): lower-cases, splits on whitespace and punctuation as BERT's
+    basic tokenizer does, maps unknown words to `unk_token`. Not a fast HF
     tokenizer, so the loader assembles the pairs itself (data/statements.py
     `load_pair_statements`); `get_vocab` and `add_tokens` serve the GPT
-    layout (`load_gpt_statements`), whose special tokens are added whole."""
+    layout (`load_gpt_statements`), whose special tokens are added whole;
+    the batch call serves the MLM scorer and the SapBERT table."""
 
     is_fast = False
 
     def __init__(self, vocab, cls_token="<s>", sep_token="</s>",
-                 unk_token="<unk>"):
+                 unk_token="<unk>", pad_token="<pad>",
+                 model_max_length=512):
         self.ids = {w: i for i, w in enumerate(vocab)}
         self.cls_token, self.sep_token = cls_token, sep_token
+        self.pad_token, self.model_max_length = pad_token, model_max_length
         self.unk_id = self.ids[unk_token]
 
     def tokenize(self, text: str) -> list[str]:
@@ -286,6 +307,28 @@ class WordTokenizer:
         for t in new:
             self.ids[t] = len(self.ids)
         return len(new)
+
+    def __call__(self, texts, padding=True, truncation=False,
+                 return_tensors="pt"):
+        """The HF batch call of the preprocess phase's model steps
+        (qagnn_tpu_torch.preprocess: tok(list, padding=True[,
+        truncation=True], return_tensors="pt")): `cls_token` words
+        `sep_token` per text, cut to `model_max_length` when truncating,
+        padded on the right with `pad_token`'s id; torch tensors."""
+        cls_id, sep_id = self.ids[self.cls_token], self.ids[self.sep_token]
+        rows = []
+        for text in texts:
+            ids = self.convert_tokens_to_ids(self.tokenize(text))
+            if truncation:
+                ids = ids[:self.model_max_length - 2]
+            rows.append([cls_id] + ids + [sep_id])
+        width = max(map(len, rows))
+        input_ids = np.full((len(rows), width), self.ids[self.pad_token])
+        mask = np.zeros((len(rows), width), np.int64)
+        for i, r in enumerate(rows):
+            input_ids[i, :len(r)], mask[i, :len(r)] = r, 1
+        return {"input_ids": torch.from_numpy(input_ids),
+                "attention_mask": torch.from_numpy(mask)}
 
 
 def compare(what: str, got, want, tol: float, scale=None) -> float:
@@ -2151,19 +2194,35 @@ def hf_roberta_names(n_layers: int) -> dict[str, str]:
     return names
 
 
-def write_hf_roberta(out: pathlib.Path, params: dict, enc_cfg) -> None:
+def write_hf_roberta(out: pathlib.Path, params: dict, enc_cfg, head=None,
+                     model_type="roberta") -> None:
     """An HF save_pretrained-style directory of a RobertaModel: config.json
-    and pytorch_model.bin under RobertaModel's key names."""
+    and pytorch_model.bin under RobertaModel's key names. With `head` (an
+    MLMHead's parameters, its decoder tied to the word embeddings), of a
+    RobertaForMaskedLM as HF saves one: the encoder under `roberta.` with
+    no pooler, `lm_head.dense.*`, `lm_head.layer_norm.*` and `lm_head.bias`,
+    and no `lm_head.decoder.weight`. `model_type="bert"` writes a BertModel,
+    whose keys are the same."""
     names = hf_roberta_names(enc_cfg.num_layers)
+    if head is not None:
+        names = {n: "roberta." + h for n, h in names.items()
+                 if not n.startswith("pooler.")}
     if set(names) != set(params):
         FAILURES.append("the HF name map does not cover the encoder: "
                         f"{sorted(set(names) ^ set(params))[:5]}")
+    sd = {names[n]: t for n, t in params.items()}
+    if head is not None:
+        sd |= {f"lm_head.{n}": head[n] for n in (
+            "dense.weight", "dense.bias", "layer_norm.weight",
+            "layer_norm.bias")}
+        sd["lm_head.bias"] = head["decoder.bias"]
     out.mkdir(parents=True)
-    torch.save({names[n]: t for n, t in params.items()},
-               out / "pytorch_model.bin")
+    torch.save(sd, out / "pytorch_model.bin")
+    arch = {"roberta": "RobertaModel", "bert": "BertModel"}[model_type]
     with open(out / "config.json", "w") as f:
         json.dump({
-            "model_type": "roberta", "architectures": ["RobertaModel"],
+            "model_type": model_type, "architectures": [
+                "RobertaForMaskedLM" if head is not None else arch],
             "vocab_size": enc_cfg.vocab_size,
             "hidden_size": enc_cfg.hidden_size,
             "num_hidden_layers": enc_cfg.num_layers,
@@ -3893,8 +3952,479 @@ def phase_mesh_cli(dev, card) -> None:
             FAILURES.append(f"mesh cli: {what}")
 
 
+# ---- the preprocessing vertical (qagnn_tpu_torch/preprocess) ---------------
+
+# ConceptNet 5.6's English graph at its scale: N_CONCEPT concepts (the
+# entity table's rows) and about 2.5 M merged triples. A triple's endpoints
+# are drawn as floor(n * u**PREP_DEGREE_EXPONENT), u uniform, so low ids are
+# heavy-tailed hubs; the first PREP_WORDS concepts are single words, the
+# rest two-word compounds `w1_w2` of them.
+PREP_CONCEPTS = N_CONCEPT
+PREP_TRIPLES = 2_500_000
+PREP_WORDS = 60_000
+PREP_DEGREE_EXPONENT = 3.0
+# merged relations of the English triples, relatedto first (hascontext is
+# pruned by construct_graph)
+PREP_RELATIONS = {
+    "relatedto": 0.52, "isa": 0.09, "hascontext": 0.08, "atlocation": 0.05,
+    "antonym": 0.04, "partof": 0.04, "usedfor": 0.03, "capableof": 0.02,
+    "hasproperty": 0.02, "hassubevent": 0.02, "causes": 0.02, "desires": 0.02,
+    "madeof": 0.01, "receivesaction": 0.01, "createdby": 0.01,
+    "notdesires": 0.01, "notcapableof": 0.01}
+PREP_FILLERS = ("the", "a", "of", "is", "which", "in", "to", "can", "be",
+                "an", "when", "for", "what", "with", "on", "as", "by", "most")
+# OBQA's train split alone, x 4 choices (each split present pays the
+# grounding pool's 800k-concept matchers and 8 KG loads in Parts 1 and 3
+# again: about 35 s a split on the card). Questions name common words, the
+# hubs: their concepts are single words among the PREP_QUESTION_IDS most
+# connected (and one compound), which gives 2-hop schema graphs of 43-1,319
+# nodes (median 114), ~23k sentences for Part 2 to score
+PREP_QUESTIONS = {"train": 32}
+PREP_QUESTION_IDS = (0, 150)
+PREP_NPROCS = 4
+PREP_CHECKED = 2            # statements scored again on the CPU
+# card vs CPU, f32 with TF32 off: |score| <= PREP_TOL * max|score| (24
+# layers and a 50,265-way log-softmax summed over ~25 tokens in another
+# order)
+PREP_TOL = 1e-4
+# the DDB graph the reference builds for MedQA-USMLE (9,958 nodes, 44,561
+# edges), its names 1-3 words; MedQA questions of ~100 words
+DDB_ENTITIES = 10_000
+DDB_RELATIONS = 44_561
+MEDQA_QUESTIONS = {"train": 32}
+SAPBERT_CHECKED = 256       # names embedded again on the CPU
+SAPBERT_TOL = 1e-4          # x max|emb|, card vs CPU, f32 with TF32 off
+
+
+def prep_words(rng, n: int) -> list[str]:
+    """`n` distinct three-syllable letter words (consonant + a/i/o/u, so
+    the rule lemmatizer leaves them as they are)."""
+    syll = np.array([c + v for c in "bcdfghjklmnprstvz" for v in "aiou"])
+    draw = syll[rng.integers(0, len(syll), (2 * n, 3))]
+    words = np.unique(np.char.add(np.char.add(draw[:, 0], draw[:, 1]),
+                                  draw[:, 2]))
+    return rng.permutation(words)[:n].tolist()
+
+
+def write_conceptnet_en(cpnet: pathlib.Path, rng) -> tuple[list, list]:
+    """The English triples (`rel \\t head \\t tail \\t weight`, as
+    extract_english writes them) and the vocabulary of PREP_CONCEPTS
+    concepts, the first PREP_WORDS single words. Returns (words,
+    concepts)."""
+    words = prep_words(rng, PREP_WORDS)
+    k, n = len(words), PREP_CONCEPTS
+    pairs = np.unique(rng.integers(0, k * k, int((n - k) * 1.05)))
+    pairs = rng.permutation(pairs[pairs // k != pairs % k])[:n - k]
+    w = np.array(words)
+    concepts = words + np.char.add(np.char.add(w[pairs // k], "_"),
+                                   w[pairs % k]).tolist()
+    ends = (n * rng.random((2, PREP_TRIPLES)) ** PREP_DEGREE_EXPONENT
+            ).astype(np.int64)
+    rel_names = list(PREP_RELATIONS)
+    p = np.array(list(PREP_RELATIONS.values()))
+    rels = rng.choice(len(rel_names), PREP_TRIPLES, p=p / p.sum())
+    cpnet.mkdir(parents=True)
+    with open(cpnet / "conceptnet.en.csv", "w") as f:
+        f.write("".join(f"{rel_names[r]}\t{concepts[h]}\t{concepts[t]}\t1.0\n"
+                        for r, h, t in zip(rels.tolist(), ends[0].tolist(),
+                                           ends[1].tolist())))
+    with open(cpnet / "concept.txt", "w") as f:
+        f.write("\n".join(concepts) + "\n")
+    return words, concepts
+
+
+def write_obqa(obqa: pathlib.Path, rng, concepts) -> None:
+    """OBQA-format raw splits (question.stem, 4 choices, answerKey): stems
+    name 3 single-word concepts and one compound among filler words, each
+    choice one concept."""
+    def surface(i):
+        return concepts[int(i)].replace("_", " ")
+
+    def word():
+        return surface(rng.integers(*PREP_QUESTION_IDS))
+
+    obqa.mkdir(parents=True)
+    for split, n in PREP_QUESTIONS.items():
+        with open(obqa / f"{split}.jsonl", "w") as f:
+            for q in range(n):
+                named = [word(), word(), word(),
+                         surface(rng.integers(PREP_WORDS, len(concepts)))]
+                stem = " ".join(f"{rng.choice(PREP_FILLERS)} {c}"
+                                for c in named)
+                choices = [{"label": "ABCD"[j], "text": word()}
+                           for j in range(C)]
+                f.write(json.dumps({
+                    "id": f"{split}-{q}", "answerKey": "ABCD"[
+                        int(rng.integers(C))],
+                    "question": {"stem": stem.capitalize(),
+                                 "choices": choices}}) + "\n")
+
+
+def write_ddb(ddb: pathlib.Path, rng, words) -> list[str]:
+    """ddb_names.json ({name: [ptr, preferred]}, a third of the entities
+    with an alias) and ddb_relas.json ({key: [subj, obj, code]}) over
+    DDB_ENTITIES entities, the reference's fallback pointers among them,
+    relation codes from the 15 merged DDB relations plus a few unknown
+    codes and dangling pointers. Returns the preferred names."""
+    from qagnn_tpu_torch.preprocess.biomed import (
+        DDB_RELATION_CODE_MAP,
+        FALLBACK_A_PTR,
+        FALLBACK_Q_PTR,
+    )
+    ptrs = [str(p) for p in rng.choice(np.arange(1, 60_000), DDB_ENTITIES,
+                                       replace=False)
+            if str(p) not in (FALLBACK_Q_PTR, FALLBACK_A_PTR)]
+    ptrs = (ptrs + [FALLBACK_Q_PTR, FALLBACK_A_PTR])[-DDB_ENTITIES:]
+    words, names, taken = np.asarray(words), {}, set()
+    for ptr in ptrs:
+        for preferred in ("1", "0") if rng.random() < 1 / 3 else ("1",):
+            name = ""
+            while not name or name in taken:
+                name = " ".join(rng.choice(words, int(rng.integers(1, 4))))
+            taken.add(name)
+            names[name.capitalize() if preferred == "1" else name] = \
+                [ptr, preferred]
+    codes = list(DDB_RELATION_CODE_MAP) + ["999"]
+    ends = (DDB_ENTITIES * rng.random((2, DDB_RELATIONS)) ** 2).astype(int)
+    relas = {f"r{i}": [ptrs[s], ptrs[o], codes[int(rng.integers(
+        len(codes)))]] for i, (s, o) in enumerate(zip(*ends.tolist()))}
+    relas["dangling"] = [ptrs[0], "999999", "2"]
+    ddb.mkdir(parents=True)
+    (ddb / "ddb_names.json").write_text(json.dumps(names))
+    (ddb / "ddb_relas.json").write_text(json.dumps(relas))
+    return [n for n, (_, pref) in names.items() if pref == "1"]
+
+
+def write_medqa(medqa: pathlib.Path, rng, entity_names) -> None:
+    """MedQA-USMLE 4-option raw splits: ~100-word questions naming 6
+    entities among filler words, options entity names."""
+    raw = medqa / "raw" / "questions" / "US" / "4_options"
+    raw.mkdir(parents=True)
+    entity_names = np.asarray(entity_names)
+    for split, n in MEDQA_QUESTIONS.items():
+        with open(raw / f"phrases_no_exclude_{split}.jsonl", "w") as f:
+            for _ in range(n):
+                parts = [" ".join(rng.choice(PREP_FILLERS, 14))
+                         + " " + str(rng.choice(entity_names))
+                         for _ in range(6)]
+                options = {k: str(rng.choice(entity_names)) for k in "ABCD"}
+                f.write(json.dumps({
+                    "question": ". ".join(parts) + "?", "options": options,
+                    "answer_idx": "ABCD"[int(rng.integers(4))]}) + "\n")
+
+
+def hf_init_(module, gen) -> None:
+    """HF's BERT / RoBERTa initialisation: normal(0, 0.02) matrices and
+    tables, zero biases, unit LayerNorm scales."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (torch.nn.Linear, torch.nn.Embedding)):
+                m.weight.normal_(0.0, 0.02, generator=gen)
+            if isinstance(m, torch.nn.LayerNorm):
+                m.weight.fill_(1.0)
+            if getattr(m, "bias", None) is not None:
+                m.bias.zero_()
+
+
+class ScorerProbe:
+    """Stands in for the MLMScorer that run_dataset builds: counts the
+    sentences scored, keeps the first PREP_CHECKED calls, and puts CUDA
+    events around each chunk's device work (`sentence_scores`, before its
+    .cpu())."""
+
+    def __init__(self, scorer):
+        self.scorer, self.calls, self.sentences, self.events = \
+            scorer, [], 0, []
+        chunk = scorer.sentence_scores
+
+        def timed(enc):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = chunk(enc)
+            ev[1].record()
+            self.events.append(ev)
+            return out
+        scorer.sentence_scores = timed
+
+    def __call__(self, question, names):
+        scores = self.scorer(question, names)
+        self.sentences += len(names)
+        if len(self.calls) < PREP_CHECKED:
+            self.calls.append((question, list(names), list(scores)))
+        return scores
+
+    def device_ms(self) -> list[float]:
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def order_agrees(got: list, want: dict, tol: float) -> bool:
+    """Every two keys whose `want` values differ by more than `tol` come in
+    `got` in the order of their values, descending."""
+    pos = {k: i for i, k in enumerate(got)}
+    keys = list(want)
+    vals = np.array([want[k] for k in keys])
+    at = np.array([pos[k] for k in keys])
+    return not ((vals[:, None] - vals[None, :] > tol)
+                & (at[:, None] > at[None, :])).any()
+
+
+def prep_extract_check(tmp: pathlib.Path) -> float:
+    """extract_english on a raw assertions file with merges, `*`-swaps, a
+    non-English tail and a dropped relation. Returns its seconds."""
+    from qagnn_tpu_torch.preprocess.conceptnet import extract_english
+    raw = [("/r/AtLocation", "/c/en/lantern", "/c/en/antique_shop"),
+           ("/r/UsedFor", "/c/en/lantern/n", "/c/en/light"),
+           ("/r/HasA", "/c/en/house", "/c/en/roof"),
+           ("/r/MotivatedByGoal", "/c/en/run", "/c/en/health"),
+           ("/r/NotARelation", "/c/en/cat", "/c/en/dog"),
+           ("/r/IsA", "/c/en/voiture", "/c/fr/vehicule")]
+    with open(tmp / "assertions.csv", "w") as f:
+        for rel, h, t in raw:
+            f.write("\t".join(["/a/x", rel, h, t,
+                               json.dumps({"weight": 1.0})]) + "\n")
+    t0 = time.perf_counter()
+    extract_english(str(tmp / "assertions.csv"), str(tmp / "en.csv"),
+                    str(tmp / "vocab.txt"))
+    secs = time.perf_counter() - t0
+    rows = [r.split("\t") for r in (tmp / "en.csv").read_text().splitlines()]
+    ok = rows == [["atlocation", "lantern", "antique_shop", "1.0"],
+                  ["usedfor", "lantern", "light", "1.0"],
+                  ["partof", "roof", "house", "1.0"],
+                  ["causes", "health", "run", "1.0"]]
+    log(f"  extract_english: merged, swapped and dropped rows "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"preprocess: extract_english wrote {rows}")
+    return secs
+
+
+def prep_card_vs_cpu(probe, rows, kg, lm_dir, tok) -> None:
+    """The first PREP_CHECKED statements' scores on the card against the
+    same model's on the CPU: the node sets exactly, the values within
+    PREP_TOL x max|score|, the order of cid2score and of the row's extra
+    nodes wherever two CPU scores differ by more than that."""
+    from qagnn_tpu_torch.preprocess import graph_extraction as graphs
+    cpu = graphs.make_torch_mlm_scorer(lm_dir, device="cpu", tokenizer=tok)
+    for j, (question, names, card_scores) in enumerate(probe.calls):
+        t0 = time.perf_counter()
+        want = cpu(question, names)
+        secs = time.perf_counter() - t0
+        row = rows[j]
+        ids = [-1] + [kg.concept2id[n] for n in names[1:]]
+        cpu_c2s = dict(sorted(zip(ids, want), key=lambda x: -x[1]))
+        tol = PREP_TOL * max(abs(v) for v in want)
+        n_q = int(row["qmask"].sum() + row["amask"].sum())
+        extra = row["concepts"][n_q:].tolist()
+        checks = {
+            "node set": set(row["cid2score"]) == set(cpu_c2s)
+            == set(row["concepts"].tolist()) | {-1},
+            "scores the row holds are the probe's":
+                [row["cid2score"][i] for i in ids] == card_scores,
+            "cid2score order": order_agrees(list(row["cid2score"]), cpu_c2s,
+                                            tol),
+            "extra nodes' order": order_agrees(
+                extra, {k: v for k, v in cpu_c2s.items() if k in
+                        set(extra)}, tol)}
+        compare(f"statement {j}: {len(names)} scores, card vs CPU",
+                torch.tensor(card_scores), torch.tensor(want), PREP_TOL)
+        log(f"    ({len(names)} sentences on the CPU in {secs:.1f} s; "
+            + "; ".join(f"{k} {'ok' if v else 'FAIL'}"
+                        for k, v in checks.items()) + ")")
+        FAILURES.extend(f"preprocess statement {j}: {k}"
+                        for k, v in checks.items() if not v)
+
+
+def phase_preprocess(dev, card) -> None:
+    """The port's preprocessing vertical (qagnn_tpu_torch/preprocess) on
+    inputs written from a seed: extract_english on a small raw file;
+    run_common's construct_graph at ConceptNet's scale; run_dataset("obqa")
+    with 4 worker processes and make_torch_mlm_scorer's random roberta-large
+    MLM on the card (its first statements held against the CPU); run_medqa
+    over a DDB-sized graph with the SapBERT table of a random BERT-base on
+    the card (its first names held against the CPU). Prints host seconds
+    per stage, Part 2's sentences/s, device ms a chunk and the card's idle
+    share over it, SapBERT's names/s and the peak memory."""
+    from qagnn_tpu_torch.data.graphs import load_graph_pk
+    from qagnn_tpu_torch.models.mlm_head import MaskedLM
+    from qagnn_tpu_torch.preprocess import biomed, driver
+    from qagnn_tpu_torch.preprocess.grounding import create_matcher
+    from qagnn_tpu_torch.preprocess.kg import KG
+
+    rng = np.random.default_rng(SEED + 30)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    # the pools' workers import this script again (as `__mp_main__`): the
+    # forkserver they fork from imports its modules once beforehand
+    multiprocessing.get_context("forkserver").set_forkserver_preload(
+        [pathlib.Path(__file__).stem])
+    torch.cuda.reset_peak_memory_stats()
+    stages = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        (root / "extract").mkdir()
+        stages["extract"] = prep_extract_check(root / "extract")
+
+        t0 = time.perf_counter()
+        words, concepts = write_conceptnet_en(root / "cpnet", rng)
+        write_obqa(root / "obqa", rng, concepts)
+        log(f"  wrote {PREP_TRIPLES:,} English triples over "
+            f"{len(concepts):,} concepts and {sum(PREP_QUESTIONS.values())} "
+            f"OBQA questions x {C} in {time.perf_counter() - t0:.1f} s")
+        stages |= driver.run_common(str(root), PREP_NPROCS)
+        t0 = time.perf_counter()
+        kg = KG.load(str(root / "cpnet" / "conceptnet.en.kg.npz"))
+        t1 = time.perf_counter()
+        kg.build_indices()
+        stages["build_indices"] = time.perf_counter() - t1
+        degree = np.diff(kg._nbr_offsets)
+        log(f"  KG: {kg.n_nodes:,} nodes, {len(kg.edge_src):,} directed "
+            f"edges (inverses included); load {t1 - t0:.1f} s; neighbors "
+            f"a node: median {np.median(degree):.0f}, max {degree.max():,}")
+        t0 = time.perf_counter()
+        create_matcher(str(root / "cpnet" / "concept.txt"))
+        stages["matcher"] = time.perf_counter() - t0
+
+        lm_cfg = TextEncoderConfig.roberta_large()
+        with torch.device(dev):
+            lm = MaskedLM(lm_cfg)
+        hf_init_(lm, gen)
+        lm_dir = str(root / "roberta-large-mlm")
+        t0 = time.perf_counter()
+        write_hf_roberta(pathlib.Path(lm_dir), {
+            k: v.cpu() for k, v in lm.encoder.state_dict().items()
+            if not k.startswith("pooler.")}, lm_cfg,
+            head={k: v.cpu() for k, v in lm.head.state_dict().items()})
+        del lm
+        log(f"  wrote a random roberta-large MLM ({lm_cfg.num_layers} "
+            f"layers, hidden {lm_cfg.hidden_size}, vocab "
+            f"{lm_cfg.vocab_size:,}, decoder tied) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        tok = WordTokenizer(
+            (["<s>", "<pad>", "</s>", "<unk>", ".", "?"] + list(PREP_FILLERS)
+             + words)[:lm_cfg.vocab_size])
+
+        probes = []
+        real = driver.make_torch_mlm_scorer
+        with mock.patch.object(driver, "make_torch_mlm_scorer",
+                               lambda *a, **k: probes.append(ScorerProbe(
+                                   real(*a, **k))) or probes[-1]):
+            t0 = time.perf_counter()
+            split_secs = driver.run_dataset("obqa", str(root), PREP_NPROCS,
+                                            lm_scorer_path=lm_dir,
+                                            tokenizer=tok)
+            dataset_secs = time.perf_counter() - t0
+        probe = probes[0]
+        for stage in ("ground", "part1", "part2", "part3"):
+            stages[stage] = sum(s[stage] for s in split_secs.values())
+        chunk_ms = probe.device_ms()
+        busy = sum(chunk_ms) / 1e3
+        on_card = probe.scorer.device.type == "cuda" and next(
+            probe.scorer.model.parameters()).is_cuda
+        log(f"  run_dataset(obqa, {PREP_NPROCS} processes) "
+            f"{dataset_secs:.1f} s; the scorer "
+            f"{'on the card' if on_card else 'NOT on the card'}; Part 2: "
+            f"{probe.sentences:,} sentences in {stages['part2']:.1f} s = "
+            f"{probe.sentences / stages['part2']:.0f} sentences/s, "
+            f"{len(chunk_ms)} chunks, device ms a chunk median "
+            f"{statistics.median(chunk_ms):.2f} (min {min(chunk_ms):.2f}, "
+            f"max {max(chunk_ms):.2f}), device busy {busy:.2f} s: idle "
+            f"share {1 - busy / stages['part2']:.3f}")
+        if not on_card:
+            FAILURES.append("preprocess: the MLM scorer is not on the card")
+
+        rows_of, n_nodes = {}, []
+        for split in PREP_QUESTIONS:
+            pk = str(root / "obqa" / "graph" / f"{split}.graph.adj.pk")
+            with open(pk, "rb") as f:
+                rows_of[split] = pickle.load(f)
+            bad = [i for i, r in enumerate(rows_of[split])
+                   if set(r["cid2score"]) != set(r["concepts"].tolist())
+                   | {-1}]
+            data = load_graph_pk(pk, max_node_num=200, use_cache=False)
+            n_nodes += [len(r["concepts"]) for r in rows_of[split]]
+            ok = not bad and len(data) == len(rows_of[split]) == \
+                C * PREP_QUESTIONS[split]
+            log(f"  {split}: {len(rows_of[split])} rows, cid2score keys = "
+                f"schema nodes + -1 {'ok' if not bad else f'FAIL {bad[:5]}'}"
+                f"; load_graph_pk(200) {len(data)} graphs, "
+                f"{data.n_relations} relations {'ok' if ok else 'FAIL'}")
+            if not ok:
+                FAILURES.append(f"preprocess: obqa {split} rows")
+        log(f"  schema nodes a statement: median "
+            f"{np.median(n_nodes):.0f}, min {min(n_nodes)}, max "
+            f"{max(n_nodes)}")
+        prep_card_vs_cpu(probe, rows_of["train"], kg, lm_dir, tok)
+        del probe, probes, kg
+        gc.collect()
+
+        t0 = time.perf_counter()
+        names = write_ddb(root / "ddb", rng, words)
+        write_medqa(root / "medqa_usmle", rng, names)
+        sap_cfg = TextEncoderConfig.bert_base()
+        with torch.device(dev):
+            sap = TextEncoder(sap_cfg)
+        hf_init_(sap, gen)
+        sap_dir = root / "sapbert"
+        write_hf_roberta(sap_dir, {k: v.cpu() for k, v in
+                                   sap.state_dict().items()}, sap_cfg,
+                         model_type="bert")
+        del sap
+        sap_tok = WordTokenizer(
+            (["[PAD]", "[UNK]", "[CLS]", "[SEP]"] + [w.lower() for w in
+                                                     words])[
+                :sap_cfg.vocab_size], cls_token="[CLS]", sep_token="[SEP]",
+            unk_token="[UNK]", pad_token="[PAD]")
+        log(f"  wrote a DDB of {DDB_ENTITIES:,} entities / "
+            f"{DDB_RELATIONS:,} relations, MedQA "
+            f"{sum(MEDQA_QUESTIONS.values())} questions x 4 and a random "
+            f"BERT-base ({sap_cfg.num_layers} layers, hidden "
+            f"{sap_cfg.hidden_size}) in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        med_secs = biomed.run_medqa(str(root), PREP_NPROCS,
+                                    sapbert_path=str(sap_dir),
+                                    tokenizer=sap_tok)
+        stages["medqa"] = time.perf_counter() - t0 - med_secs["sapbert"]
+        table = np.load(root / "ddb" / "ent_emb.npy")
+        vocab = (root / "ddb" / "vocab.txt").read_text().splitlines()
+        log(f"  run_medqa {time.perf_counter() - t0:.1f} s: KG "
+            f"{med_secs['kg']:.1f} s, splits "
+            + ", ".join(f"{s} {med_secs[s]:.1f} s" for s in MEDQA_QUESTIONS)
+            + f"; SapBERT table {table.shape} in {med_secs['sapbert']:.1f} s"
+            f" (checkpoint load included) = "
+            f"{len(vocab) / med_secs['sapbert']:.0f} names/s")
+        for split in MEDQA_QUESTIONS:
+            data = load_graph_pk(str(root / "medqa_usmle" / "graph" /
+                                     f"{split}.graph.adj.pk"),
+                                 max_node_num=200, use_cache=False)
+            if len(data) != 4 * MEDQA_QUESTIONS[split] or \
+                    data.n_relations != 34:
+                FAILURES.append(f"preprocess: medqa {split} graphs")
+        if table.shape != (len(vocab), sap_cfg.hidden_size) or \
+                not np.isfinite(table).all():
+            FAILURES.append(f"preprocess: SapBERT table {table.shape}")
+        (root / "check.txt").write_text(
+            "\n".join(vocab[:SAPBERT_CHECKED]) + "\n")
+        t0 = time.perf_counter()
+        want = biomed.sapbert_entity_embeddings(
+            str(root / "check.txt"), str(root / "check.npy"), str(sap_dir),
+            device="cpu", tokenizer=sap_tok)
+        compare(f"SapBERT: first {SAPBERT_CHECKED} names, card vs CPU",
+                torch.from_numpy(table[:SAPBERT_CHECKED]),
+                torch.from_numpy(want), SAPBERT_TOL)
+        log(f"    (the CPU's {SAPBERT_CHECKED} names in "
+            f"{time.perf_counter() - t0:.1f} s)")
+
+    log("  host seconds by stage: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in stages.items()))
+    log(f"  peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on "
+        f"the card; the preprocess phase took "
+        f"{time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 PHASES = ("kernels", "grads", "op", "serve", "detail", "train", "cli",
-          "overfit", "encoders", "mesh")
+          "overfit", "encoders", "mesh", "preprocess")
 # parts of the kernel phase that can be asked for alone
 KERNEL_PARTS = ("fwd", "bwd", "enc", "moments", "unproj", "scores")
 
@@ -4045,6 +4575,13 @@ def main() -> int:
         phase_mesh_ops(card)
         phase_mesh_cli(dev, card)
         log(f"  the mesh phase took {time.perf_counter() - t0:.1f} s")
+    if "preprocess" in only:
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("\n[the preprocessing vertical: ConceptNet at its scale to OBQA "
+            "graphs with the roberta-large MLM scorer on the card, and "
+            "MedQA with the SapBERT table]")
+        phase_preprocess(dev, card)
 
     if FAILURES:
         log("\nFAILED: " + "; ".join(FAILURES))

@@ -6,7 +6,9 @@ reference's preprocessing produces (`statement/*.statement.jsonl` +
 reference utils/data_utils.py:79, utils/graph.py:114-129) and a tiny
 HF-format BERT checkpoint directory, so the CLI (tokenization, graph
 loading, pretrained-encoder loading, training) runs on small local files.
-The checkpoint writer needs `transformers`.
+The checkpoint writer draws the weights with torch as HF's BertModel
+initialises them and writes config.json itself (no `transformers` model
+class); its tokenizer files need `transformers`' BertTokenizerFast.
 """
 
 from __future__ import annotations
@@ -89,21 +91,57 @@ def write_synthetic_dataset(root, n_questions=4, n_choices=2, n_concept=50,
 
 def write_tiny_bert_checkpoint(out_dir, hidden_size=32, num_layers=2,
                                num_heads=2, seed=0):
-    """A real HF save_pretrained directory (config.json + weights + vocab)
-    for a tiny randomly-initialized BertModel — a stand-in for the blocked
-    roberta-large download so --encoder_load paths execute in CI."""
+    """A real HF save_pretrained-style directory (config.json +
+    pytorch_model.bin under BertModel's key names + vocab) for a tiny
+    randomly-initialized BERT — a stand-in for the blocked roberta-large
+    download so --encoder_load paths execute in CI. The weights follow HF's
+    BertModel init (normal(0, 0.02) matrices and tables with the pad row
+    zeroed, zero biases, unit LayerNorm scales), drawn from `seed`."""
     import torch
-    from transformers import BertConfig, BertModel, BertTokenizerFast
+    from transformers import BertTokenizerFast
 
     os.makedirs(out_dir, exist_ok=True)
-    torch.manual_seed(seed)
-    cfg = BertConfig(
-        vocab_size=len(VOCAB), hidden_size=hidden_size,
-        num_hidden_layers=num_layers, num_attention_heads=num_heads,
-        intermediate_size=hidden_size * 4, max_position_embeddings=64)
-    model = BertModel(cfg)
-    model.eval()
-    model.save_pretrained(out_dir, safe_serialization=False)
+    gen = torch.Generator().manual_seed(seed)
+    d, ffn, n_pos = hidden_size, hidden_size * 4, 64
+    sd = {}
+
+    def normal(key, *shape):
+        sd[key] = torch.randn(*shape, generator=gen) * 0.02
+
+    def linear(key, n_out, n_in):
+        normal(key + ".weight", n_out, n_in)
+        sd[key + ".bias"] = torch.zeros(n_out)
+
+    def layer_norm(key):
+        sd[key + ".weight"], sd[key + ".bias"] = torch.ones(d), torch.zeros(d)
+
+    normal("embeddings.word_embeddings.weight", len(VOCAB), d)
+    sd["embeddings.word_embeddings.weight"][0] = 0.0     # [PAD]
+    normal("embeddings.position_embeddings.weight", n_pos, d)
+    normal("embeddings.token_type_embeddings.weight", 2, d)
+    layer_norm("embeddings.LayerNorm")
+    for i in range(num_layers):
+        h = f"encoder.layer.{i}"
+        for name in ("query", "key", "value"):
+            linear(f"{h}.attention.self.{name}", d, d)
+        linear(f"{h}.attention.output.dense", d, d)
+        layer_norm(f"{h}.attention.output.LayerNorm")
+        linear(f"{h}.intermediate.dense", ffn, d)
+        linear(f"{h}.output.dense", d, ffn)
+        layer_norm(f"{h}.output.LayerNorm")
+    linear("pooler.dense", d, d)
+    torch.save(sd, os.path.join(out_dir, "pytorch_model.bin"))
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump({
+            "model_type": "bert", "architectures": ["BertModel"],
+            "vocab_size": len(VOCAB), "hidden_size": d,
+            "num_hidden_layers": num_layers,
+            "num_attention_heads": num_heads, "intermediate_size": ffn,
+            "hidden_act": "gelu", "hidden_dropout_prob": 0.1,
+            "attention_probs_dropout_prob": 0.1,
+            "max_position_embeddings": n_pos, "type_vocab_size": 2,
+            "initializer_range": 0.02, "layer_norm_eps": 1e-12,
+            "pad_token_id": 0}, f)
     vpath = os.path.join(out_dir, "vocab.txt")
     with open(vpath, "w") as f:
         f.write("\n".join(VOCAB))

@@ -14,8 +14,11 @@ Accepted sources for `load_encoder_checkpoint(src)`:
   * directory: config.json + (model.safetensors | pytorch_model.bin); the
     config is read by `transformers` where it is installed, else as JSON;
   * file: a torch.save'd state dict (pass `fallback_config`);
-  * hub name: resolved through transformers' local cache (needs
+  * hub name: its snapshot directory in transformers' local cache (needs
     `transformers`; no download is attempted with HF_HUB_OFFLINE).
+
+`load_mlm_checkpoint` reads the same sources for a RobertaForMaskedLM and
+returns its `lm_head.*` weights beside the encoder's (models/mlm_head.py).
 """
 
 from __future__ import annotations
@@ -102,13 +105,13 @@ def _read_checkpoint(src: str):
     if os.path.isfile(src):
         return _read_weights_file(src), None
     try:
-        from transformers import AutoConfig, AutoModel
+        from transformers import utils as hf_utils
     except ImportError as e:
         raise FileNotFoundError(
             f"{src!r} is neither a directory nor a file, and reading it as a "
             "hub name needs `transformers`, which is not installed") from e
-    model = AutoModel.from_pretrained(src)
-    return dict(model.state_dict()), AutoConfig.from_pretrained(src)
+    return _read_checkpoint(os.path.dirname(
+        hf_utils.cached_file(src, "config.json")))
 
 
 def load_encoder_checkpoint(
@@ -126,7 +129,11 @@ def load_encoder_checkpoint(
     weights); otherwise `fallback_config` is used. `dtype` is the encoder's
     compute dtype.
     """
-    state_dict, hf_cfg = _read_checkpoint(src)
+    return _encoder_params(*_read_checkpoint(src), src, dtype,
+                           fallback_config)
+
+
+def _encoder_params(state_dict, hf_cfg, src, dtype, fallback_config):
     state_dict = strip_hf_prefixes(state_dict)
 
     is_gpt = "tokens_embed.weight" in state_dict
@@ -153,6 +160,36 @@ def load_encoder_checkpoint(
     else:
         params = convert_hf_encoder_params(state_dict)
     return cfg, params
+
+
+def load_mlm_checkpoint(
+    src: str,
+    fallback_config=None,
+) -> tuple[Any, dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """Load an HF RobertaForMaskedLM checkpoint onto the CPU from the
+    sources `load_encoder_checkpoint` accepts, for f32 compute. Returns
+    (config, encoder params, head params): the head's under
+    models/mlm_head.py `MLMHead`'s names (`dense`, `layer_norm`,
+    `decoder`). The vocabulary bias is read from `lm_head.bias` or
+    `lm_head.decoder.bias`, whichever is stored (HF ties the two);
+    `decoder.weight` is present only when the checkpoint stores
+    `lm_head.decoder.weight`, i.e. when it is not tied to the word
+    embeddings."""
+    state_dict, hf_cfg = _read_checkpoint(src)
+    lm = {k[len("lm_head."):]: torch.as_tensor(v)
+          for k, v in state_dict.items() if k.startswith("lm_head.")}
+    if not lm:
+        raise ValueError(f"{src!r} holds no lm_head.* weights: not a "
+                         "RobertaForMaskedLM checkpoint")
+    head = {name: lm[name] for name in ("dense.weight", "dense.bias",
+                                        "layer_norm.weight",
+                                        "layer_norm.bias")}
+    head["decoder.bias"] = lm["bias"] if "bias" in lm else lm["decoder.bias"]
+    if "decoder.weight" in lm:
+        head["decoder.weight"] = lm["decoder.weight"]
+    cfg, params = _encoder_params(state_dict, hf_cfg, src, torch.float32,
+                                  fallback_config)
+    return cfg, params, head
 
 
 GPT_BPE_VOCAB = 40478     # the stock openai-gpt table, before the resize

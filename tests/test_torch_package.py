@@ -5,9 +5,11 @@ This is a scan of the sources: the interpreter may have imported jax before
 any test runs, so sys.modules would prove nothing. The CUDA sources include
 only the CUDA toolkit's and the C library's headers and the package's own
 (a plain C interface: nothing of PyTorch, pybind or JAX's FFI); the C++
-host code of `native/` only the C++ standard library's. And an entry
-point run with no device named refuses to fall back to the CPU when there is
-no card.
+host code of `native/` only the C++ standard library's. No module imports
+`transformers` at its top or any of its model classes (the port runs every
+model on its own modules; tokenizers and configs stay lazy imports). And an
+entry point run with no device named refuses to fall back to the CPU when
+there is no card.
 """
 
 import ast
@@ -54,6 +56,46 @@ def _imported_roots(path: Path):
 def test_no_jax_imports(path):
     bad = sorted({m for m in _imported_roots(path) if m in FORBIDDEN})
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+# the only names of `transformers` the port may import, inside a function:
+# tokenizers, configs, and `utils` (the hub cache's file lookup)
+TRANSFORMERS_ALLOWED = ("Tokenizer", "TokenizerFast", "Config", "utils")
+
+
+def _transformers_imports(path: Path):
+    """(imported at the module's top, name) of every import of
+    transformers in the file."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    top = {id(node) for node in tree.body}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                if alias.name.split(".")[0] == "transformers":
+                    yield id(node) in top, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and \
+                node.module.split(".")[0] == "transformers":
+            for alias in node.names:
+                yield id(node) in top, alias.name
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_transformers_models(path):
+    found = list(_transformers_imports(path))
+    assert not [n for top, n in found if top], \
+        f"{path.relative_to(ROOT)} imports transformers at its top"
+    bad = sorted(n for _, n in found if not n.endswith(TRANSFORMERS_ALLOWED))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_transformers_scan_finds_model_classes():
+    """The scan sees a model class imported inside a function, and the
+    port's lazy tokenizer imports."""
+    probe = ROOT / "qagnn_tpu" / "preprocess" / "graph_extraction.py"
+    assert (False, "RobertaForMaskedLM") in set(_transformers_imports(probe))
+    port = ROOT / "qagnn_tpu_torch" / "preprocess" / "graph_extraction.py"
+    assert set(_transformers_imports(port)) == {(False, "AutoTokenizer")}
 
 
 @pytest.mark.parametrize("path", CSRC,
@@ -128,6 +170,14 @@ def test_cli_module_refuses_cpu_fallback(tmp_path):
     assert out.returncode != 0
     assert "no CUDA device is available" in out.stderr
     assert not (tmp_path / "out").exists()
+
+
+def test_the_scan_covers_the_preprocess_modules():
+    scanned = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+    for name in ("__init__", "kg", "conceptnet", "convert", "lemma",
+                 "grounding", "graph_extraction", "biomed", "driver"):
+        assert f"qagnn_tpu_torch/preprocess/{name}.py" in scanned, name
+    assert "qagnn_tpu_torch/models/mlm_head.py" in scanned
 
 
 def test_the_scan_covers_the_grid_modules():
