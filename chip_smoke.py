@@ -138,11 +138,29 @@ Run from the repository root on a machine with one CUDA card. It
      the step-0 encoder on the card within 2e-3 of the CPU's, rows 6-12
      launched); and `python -m qagnn_tpu_torch.cli` on a synthetic set with
      --profile_dir over two train steps, its trace.json read the same way;
- 15. prints one JSON line of per-kernel numbers, the card's name and power
+ 15. runs the port at widths one kernel launch does not take and at
+     relation ids past the relation features (the `widths` phase): rows
+     10-12 at the OBQA preset's F = 47 with ids n_rel and n_rel + 1 on a
+     tenth of the live slots, both routes, against their plain versions
+     (which give such a slot no relation feature, as the JAX package's
+     one-hot does); rows 1-5 through `relational_gat_attention_nodes` at
+     (HD 100, 4 heads: heads padded) and (HD 320, 10 heads: two head
+     groups), forward and backward against the scatter backend, each row
+     launched once a head group; rows 6-12 through QAGNNMessagePassing in
+     train mode at gnn_dim 512 (two head groups a pass, two slices of W's
+     rows in the backward passes) against the scatter path, output and
+     every parameter gradient, with the launches and routes; backward
+     passes 1 and 2 alone at D = HD = 512 on both routes against their
+     plain versions, and the times of rows 6-9 and 11-12 there beside
+     their bounds; and `python -m qagnn_tpu_torch.cli --gnn_dim 512` for
+     two train steps. The `overfit` phase also logs, per GAT layer of the
+     trained model, the largest gap between a graph's max score and a
+     source's, and the denominators under DENOM_EPS (ROADMAP C7);
+ 16. prints one JSON line of per-kernel numbers, the card's name and power
      limit, and as its last line {"ok": true, "device": {...}}.
 
 `--only kernels,grads,op,serve,detail,train,cli,overfit,encoders,mesh,
-preprocess,tools` runs
+preprocess,tools,widths` runs
 a subset of the phases (for work on one of them; `fwd`, `bwd`, `enc`,
 `moments` and `unproj` are the kernel phase's parts for the GAT forward
 passes A and C,
@@ -186,7 +204,7 @@ import torch
 
 from qagnn_tpu_torch.cli import make_encoder
 from qagnn_tpu_torch.graph.container import BatchedGraphs
-from qagnn_tpu_torch.models.gnn import EdgeEncoder
+from qagnn_tpu_torch.models.gnn import EdgeEncoder, QAGNNMessagePassing
 from qagnn_tpu_torch.models.norm import MaskedBatchNorm
 from qagnn_tpu_torch.models.qagnn import LMQAGNN
 from qagnn_tpu_torch.models.text_encoder import TextEncoder, TextEncoderConfig
@@ -2757,6 +2775,27 @@ def report_cli(probe, printed, cfg, result, detail, resumed, counts, routes,
 OVERFIT_EPOCHS = 150
 
 
+def softmax_shift_record(kept) -> list[tuple[float, int, int]]:
+    """ROADMAP C7's measurement: for each of the GAT layers' forwards in
+    `kept` (gat_projected_forward's inputs and results), the largest gap
+    between a graph's max score and a source's own max (its self loop's
+    and its live edges' scores), per head, and how many (source, head)
+    denominators lie under DENOM_EPS, which the kernels then leave
+    unnormalised, out of how many."""
+    rows = []
+    for (nq, nk, skb, src, mask), (_, scores, gmax, denom_raw, _, _) in kept:
+        G_, H_, E_ = scores.shape
+        edge = torch.where(mask[..., None], scores.transpose(1, 2),
+                           -math.inf)
+        m_src = gk.head_sum(nq.float() * (nk + skb).float(), H_)
+        m_src = m_src.scatter_reduce(
+            1, src.long()[..., None].expand(G_, E_, H_), edge, "amax")
+        rows.append(((gmax[:, None, :] - m_src).max().item(),
+                     int((denom_raw < gk.DENOM_EPS).sum()),
+                     denom_raw.numel()))
+    return rows
+
+
 def phase_overfit(dev, card) -> None:
     """cli.train at the production GNN widths (k=5, gnn_dim 200, 200-node
     graphs, 38 relations, bf16 GNN; RAdam, the encoder trained from epoch
@@ -2800,8 +2839,21 @@ def phase_overfit(dev, card) -> None:
 
         printed = io.StringIO()
         _build.reset_launch_counts()
+        # the last k forwards of the GAT layers (the final test evaluation,
+        # on the trained weights) kept for the softmax shift's record
+        kept = collections.deque(maxlen=cfg.k)
+        forward = gk.gat_projected_forward
+
+        def keep(nq, nk, nm, edge_emb, w_ke, b_ke, w_me, b_me, skb, smb, src,
+                 dst, mask, heads):
+            res = forward(nq, nk, nm, edge_emb, w_ke, b_ke, w_me, b_me, skb,
+                          smb, src, dst, mask, heads)
+            kept.append(((nq.detach(), nk.detach(), skb.detach(), src,
+                          mask), tuple(x.detach() for x in res)))
+            return res
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(printed):
+        with contextlib.redirect_stdout(printed), \
+                mock.patch.object(gk, "gat_projected_forward", keep):
             result = cli.train(cfg, dev)
         secs = time.perf_counter() - t0
         counts = dict(_build.LAUNCHES)
@@ -2827,6 +2879,10 @@ def phase_overfit(dev, card) -> None:
         + f" (every 10th), last {losses[-1]:.3g}")
     log(f"  launches over cli.train: " + ", ".join(
         f"{n} {counts.get(n, 0)}" for n in step_launches(cfg.k)))
+    for i, (gap, under, total) in enumerate(softmax_shift_record(kept)):
+        log(f"  softmax shift after training, layer {i}: largest graph max "
+            f"- source max {gap:.4g}; {under} of {total} (source, head) "
+            f"denominators under DENOM_EPS = {gk.DENOM_EPS:g}")
     checks = {
         "best_dev_acc == 1.0": result["best_dev_acc"] == 1.0,
         "last loss < half the first": losses[-1] < 0.5 * losses[0],
@@ -4697,8 +4753,380 @@ def phase_tools(dev, card) -> None:
     log(f"  the tools phase took {time.perf_counter() - t0:.1f} s ({card})")
 
 
+# ---------------------------------------------------------------------------
+# the widths phase: relation ids past n_rel, the unprojected op at widths
+# one launch does not take, and the GNN at gnn_dim 512
+# ---------------------------------------------------------------------------
+
+WIDE_D, WIDE_K = 512, 5        # gnn_dim 512: 4 heads of 128, k = 5
+WIDE_UNPROJ = ((100, 4), (320, 10))     # (HD, heads) of the unprojected op
+OUT_OF_RANGE = 0.1             # live slots given relation ids n_rel, n_rel+1
+# the GNN at gnn_dim 512 on the kernel path against the scatter path, same
+# weights and inputs, train mode, dropout 0, each in its dtype: the output
+# as GNN_TOL holds it; in f32 every parameter gradient within STEP_TOL's
+# named-gradient tolerance of the model's largest (sums of other orders,
+# the edge rows' closed-form moments, k layers and two BatchNorms). In bf16
+# both paths' gradients drift from the f32 oracle by several percent of the
+# largest (the edge encoder's W0 collects every layer's edge cotangent: 4-14%
+# on the CPU with the kernels' plain versions, at gnn_dim 200 and 512, the
+# kernel path's drift 0.5-1.3 times the scatter path's), so the kernel
+# path's bf16 drift is held to twice the scatter path's in the same run
+WIDE_GRAD_TOL = STEP_TOL["grad"]
+WIDE_BF16_DRIFT = 2.0
+WIDE_CLI_QUESTIONS = 8         # two train steps of 4 questions
+
+
+def widths_relation_ids(gen, dev):
+    """Rows 10-12 at the OBQA preset's F = 47 (39 relations with the self
+    loop, 4 node types) and D = 200, a tenth of the live slots given ids
+    n_rel and n_rel + 1: the moments exactly, the hidden pass and its
+    backward on both routes in bf16 (route 0 in f32) at the tolerances
+    of their own phases, against their plain versions, which give such a
+    slot no relation feature."""
+    n_rel, D = 39, 200
+    F = n_rel + 2 * N_NTYPE
+    w0 = torch.randn((F, D), generator=gen, device=dev) * 0.2
+    b0, a, b = (torch.randn(D, generator=gen, device=dev) * 0.5
+                for _ in range(3))
+    for n_edges in (E, E - 3):
+        etype, src, dst, ntype, mask = encoder_ints(gen, dev, n_edges, n_rel)
+        wild = mask & (torch.rand(mask.shape, generator=gen, device=dev)
+                       < OUT_OF_RANGE)
+        etype = torch.where(wild, n_rel + (torch.rand(
+            mask.shape, generator=gen, device=dev) < 0.5).int(), etype)
+        log(f"  E={n_edges}: {int(wild.sum())} of {int(mask.sum())} live "
+            f"slots with ids {n_rel} or {n_rel + 1}")
+        ints = (etype, src, dst, ntype, mask, n_rel, N_NTYPE)
+        got = ek.edge_feature_moments(*ints)
+        want = ek.edge_feature_moments_plain(*ints)
+        for name, g, w in zip(("hist", "M", "n"), got, want):
+            compare(f"edge_moments {name} ids past n_rel E={n_edges}", g, w,
+                    0.0)
+        args = (etype, src, dst, ntype, w0, b0, a, b, n_rel, N_NTYPE)
+        for dt in (torch.float32, torch.bfloat16):
+            tag = f"ids past n_rel E={n_edges} {dt}"
+            edge_hidden_case(None, args, dt, tag, False)
+            dh = torch.randn((G, n_edges, D), generator=gen, device=dev) \
+                .to(dt)
+            edge_hidden_bwd_case(None, args[:8] + (dh,) + args[8:], dt, tag,
+                                 False)
+
+
+def widths_unprojected(gen, dev, card):
+    """Rows 1-5 through `relational_gat_attention_nodes` (no backend
+    named), forward and backward, at widths one launch does not take, in
+    both dtypes, against the scatter backend in f32 as the op phase holds
+    them; each row launched once a head group."""
+    for HD, heads in WIDE_UNPROJ:
+        dph = HD // heads
+        src, dst, mask = graph_inputs(gen, dev, E)
+        split = lambda t: t.reshape(*t.shape[:-1], heads, dph)  # noqa: E731
+        groups = len(gk.head_groups(uk._padded(HD, heads), heads))
+
+        def op(backend):
+            return lambda *t: relational_gat_attention_nodes(
+                *(split(x) for x in t), src, dst, mask, backend=backend)
+
+        r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa
+        for dt in (torch.bfloat16, torch.float32):
+            tag = f"HD={HD} heads={heads} {dt}"
+            nq = (r(G, N, HD) / dph ** 0.5).to(dt)
+            rest = [(r(G, n, HD) * 0.5).to(dt) for n in (N, N, E, E, N, N)]
+            vals, gout = [nq, *rest], r(G, N, HD).to(dt)
+            _build.reset_launch_counts()
+            out, got = value_and_grads(op(None), vals, gout)
+            torch.cuda.synchronize()
+            counts = dict(_build.LAUNCHES)
+            ok = counts == {k: groups for k in UNPROJ_KERNELS}
+            log(f"  launches, {tag}: {counts} ({groups} head groups a "
+                f"row)  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                FAILURES.append(f"widths: launches of the op, {tag}")
+            out_w, want = value_and_grads(op("scatter"),
+                                          [v.float() for v in vals], gout)
+            compare(f"op out cuda vs scatter(f32), {tag}", out, out_w,
+                    OP_TOL[dt]["out"])
+            for k, g, w in zip(UNPROJ_INPUTS, got, want):
+                compare(f"op d{k} cuda vs scatter(f32), {tag}", g, w,
+                        OP_TOL[dt]["grad"])
+            leaves = [v.detach().clone().requires_grad_() for v in vals]
+            ms = device_ms(lambda: forward_backward(op(None), leaves, gout),
+                           iters=5, warmup=1)
+            log(f"  time {tag}: forward + backward {ms:.4f} ms  [{card}]")
+
+
+def gnn_run(dev, backend, dt, cot):
+    """One train-mode forward + backward of QAGNNMessagePassing at gnn_dim
+    512 (k = 5, 4 heads, 38 relations, dropout 0) on one path in one
+    dtype, weights and inputs from fixed seeds: (output in f32, parameter
+    gradients in f32, launches)."""
+    n_etype = 38
+    with torch.device(dev):
+        mp = QAGNNMessagePassing(WIDE_K, N_NTYPE, n_etype, WIDE_D,
+                                 dropout=0.0, head_count=HEADS,
+                                 backend=backend, dtype=dt)
+    init_weights(mp, torch.Generator(device=dev).manual_seed(SEED), 0.02)
+    g_in = torch.Generator(device=dev).manual_seed(SEED + 1)
+    src, dst, mask = graph_inputs(g_in, dev, E)
+    H = torch.randn((G, N, WIDE_D), generator=g_in, device=dev) \
+        .requires_grad_()
+    args = (torch.randint(0, N_NTYPE, (G, N), generator=g_in, device=dev),
+            torch.rand((G, N), generator=g_in, device=dev), src, dst,
+            torch.randint(0, n_etype + 1, (G, E), generator=g_in,
+                          device=dev, dtype=torch.int32), mask)
+    _build.reset_launch_counts()
+    out = mp.train()(H, *args)
+    (out.float() * cot).sum().backward()
+    torch.cuda.synchronize()
+    grads = {n: p.grad.float() for n, p in mp.named_parameters()
+             if p.grad is not None}
+    if not bool(torch.isfinite(out).all()) or not all(
+            bool(torch.isfinite(g).all()) for g in grads.values()):
+        FAILURES.append(f"widths: non-finite values at gnn_dim {WIDE_D}, "
+                        f"{backend} {dt}")
+    return out.detach().float(), grads, dict(_build.LAUNCHES)
+
+
+def grad_gap(got, want) -> tuple[float, str]:
+    """The largest max|got - want| of a parameter over the largest
+    max|want| of the model, and that parameter's name."""
+    if sorted(got) != sorted(want):
+        FAILURES.append("widths: the two paths' gradients name other "
+                        "parameters")
+    top = max(float(w.abs().max()) for w in want.values())
+    return max(((g - want[n]).abs().max().item() / top, n)
+               for n, g in got.items())
+
+
+def widths_gnn(gen, dev, card):
+    """Rows 6-12 in a train-mode forward + backward of QAGNNMessagePassing
+    at gnn_dim 512 (k = 5, 4 heads of 128 features, two head groups of 256
+    columns a pass; D = 512, two slices of W's rows in backward passes 1
+    and 2), on the kernel path against the scatter path, in both dtypes:
+    the output, every parameter gradient (bf16: its drift from the f32
+    oracle beside the scatter path's), each entry point's launches and
+    routes."""
+    groups = len(gk.head_groups(WIDE_D, HEADS))
+    grouped = ("gat_pass_a_scores", "gat_pass_c", "gat_bwd_pass1",
+               "gat_bwd_pass2")
+    launches = {n: c * (groups if n in grouped else 1)
+                for n, c in step_launches(WIDE_K).items()}
+    cot = torch.randn((G, N, WIDE_D), generator=gen, device=dev)
+    _, oracle, _ = gnn_run(dev, "scatter", torch.float32, cot)
+    for dt in (torch.bfloat16, torch.float32):
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        out, grads, counts = gnn_run(dev, "cuda", dt, cot)
+        routes = dict(_build.ROUTES)
+        want, want_grads, none = gnn_run(dev, "scatter", dt, cot)
+        ok = counts == launches and not none
+        log(f"  launches, one train forward + backward at gnn_dim {WIDE_D}, "
+            f"{name}: {counts} (want {launches}; scatter {none})  "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            FAILURES.append(f"widths: launches at gnn_dim {WIDE_D}, {name}")
+        off = [k for k, want_r in (
+            ("gat_pass_a_scores", 0), ("gat_pass_c", 0),
+            ("gat_bwd_pass1", int(dt == torch.bfloat16)),
+            ("gat_bwd_pass2", int(dt == torch.bfloat16)),
+            ("edge_hidden", 0), ("edge_hidden_bwd", 0))
+            if routes.get((k, 1 - want_r))]
+        log("  routes, " + ", ".join(f"{k} {r}: {c}" for (k, r), c in
+                                     sorted(routes.items()))
+            + f"  {'ok' if not off else 'FAIL'}")
+        if off:
+            FAILURES.append(f"widths: routes at gnn_dim {WIDE_D}, {name}")
+        compare(f"GNN out at gnn_dim {WIDE_D}, kernel vs scatter, {name}",
+                out, want, GNN_TOL[dt])
+        gap, worst = grad_gap(grads, want_grads if dt == torch.float32
+                              else oracle)
+        if dt == torch.float32:
+            tol, what = WIDE_GRAD_TOL, f"vs scatter, tol {WIDE_GRAD_TOL:.1e}"
+        else:
+            base, base_worst = grad_gap(want_grads, oracle)
+            tol = WIDE_BF16_DRIFT * base
+            what = (f"vs the f32 scatter oracle, tol {tol:.3e} = "
+                    f"{WIDE_BF16_DRIFT:g} x the bf16 scatter path's "
+                    f"{base:.3e} ({base_worst})")
+        ok = gap <= tol
+        log(f"  GNN parameter gradients at gnn_dim {WIDE_D}, kernel path "
+            f"{name}: largest max|d| / max|grad| {gap:.3e} ({worst}) "
+            f"{what}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            FAILURES.append(f"widths: gradients at gnn_dim {WIDE_D}, {name}")
+
+
+def widths_passes(gen, dev, card):
+    """Rows 6-9 alone at D = HD = 512, 4 heads: passes A and C (route 0,
+    W too wide for route 1's tile) and backward passes 1 and 2 on both
+    routes in bf16 (route 0 in f32) against their plain versions, masked
+    slots exactly; then each call's device time with its bound, and the
+    device time of each kernel launch it makes (torch.profiler)."""
+    src, dst, mask = graph_inputs(gen, dev, E)
+    live = mask.float().mean().item()
+    D = HD = WIDE_D
+    for dt in (torch.float32, torch.bfloat16):
+        gat_fwd_case(None, gen, dev, D, HD, HEADS, src, dst, mask, dt,
+                     f"D={D} HD={HD} {dt}", False)
+        t = gat_bwd_inputs(gen, dev, D, HD, HEADS, src, dst, mask, dt)
+        dead = ~mask
+        p1 = (t["gout"], t["nm"], t["emb"], t["w_me"], t["b_me"],
+              t["scores"], t["gmax"], t["scale"], src, dst, mask,
+              t["carry"])
+        want1 = gk.bwd_pass1_plain(*p1, t["dnm0"].clone(),
+                                   t["dscale0"].clone(), HEADS)
+        scale, denom_raw = t["scale"], t["denom_raw"]
+        d_denom = (-(scale / torch.clamp_min(denom_raw, gk.DENOM_EPS))
+                   * want1[3] * (denom_raw > gk.DENOM_EPS).float())
+        p2 = (t["nq"], t["nk"], t["emb"], t["w_ke"], t["b_ke"], t["scores"],
+              t["gmax"], want1[1], scale, d_denom.contiguous(), src, dst,
+              mask)
+        acc2 = (torch.randn((G, N, HD), generator=gen, device=dev),
+                torch.randn((G, N, HD), generator=gen, device=dev))
+        want2 = gk.bwd_pass2_plain(*p2, want1[0].clone(),
+                                   *(x.clone() for x in acc2), HEADS)
+        for route in ((0, 1) if dt == torch.bfloat16 else (0,)):
+            tag = f"D={D} HD={HD} {dt} route {route}"
+            _build.reset_launch_counts()
+            got = gk.bwd_pass1(*p1, t["dnm0"].clone(), t["dscale0"].clone(),
+                               HEADS, _route=route)
+            for name, g, w in zip(("demb", "d_alpha", "dnm", "dscale",
+                                   "dW_me", "db_me"), got, want1):
+                compare(f"gat_bwd_pass1 {name} {tag}", g, w, TOL["bwd"][dt])
+            if bool((got[0][dead] != t["carry"][dead]).any()):
+                FAILURES.append(f"gat_bwd_pass1 masked slots {tag}")
+            got = gk.bwd_pass2(*p2, want1[0].clone(),
+                               *(x.clone() for x in acc2), HEADS,
+                               _route=route)
+            for name, g, w in zip(("demb", "dnq", "dnk", "dW_ke", "db_ke"),
+                                  got, want2):
+                compare(f"gat_bwd_pass2 {name} {tag}", g, w, TOL["bwd"][dt])
+            if bool((got[0][dead] != want1[0][dead]).any()):
+                FAILURES.append(f"gat_bwd_pass2 masked slots {tag}")
+            counts = {k: (_build.LAUNCHES[k], _build.ROUTES[k, route])
+                      for k in ("gat_bwd_pass1", "gat_bwd_pass2")}
+            if any(c != (2, 2) for c in counts.values()):
+                FAILURES.append(f"widths: launches of the passes, {tag}: "
+                                f"{counts}")
+            log(f"  launches and routes, {tag}: {counts} (two head groups)")
+        # times of a call (two head groups) beside the bound of its work,
+        # counted as the main path's measures count it
+        s1 = (t["dnm0"].clone(), t["dscale0"].clone())
+        s2 = (want1[0].clone(), *(x.clone() for x in acc2))
+        flops = 3 * 2.0 * live * G * E * D * HD
+        for name, fn, plain, n_bytes in (
+                ("gat_bwd_pass1", lambda: gk.bwd_pass1(*p1, *s1, HEADS),
+                 lambda: gk.bwd_pass1_plain(*p1, *s1, HEADS),
+                 live * nbytes(t["emb"], t["scores"], src, dst)
+                 + nbytes(t["gout"], t["nm"], t["w_me"], t["b_me"],
+                          t["gmax"], scale, mask, t["carry"], want1[0],
+                          want1[1], want1[4], want1[5])
+                 + 2 * nbytes(want1[2], want1[3])),
+                ("gat_bwd_pass2", lambda: gk.bwd_pass2(*p2, *s2, HEADS),
+                 lambda: gk.bwd_pass2_plain(*p2, *s2, HEADS),
+                 live * nbytes(t["emb"], t["scores"], want1[1], src, dst)
+                 + nbytes(t["nq"], t["nk"], t["w_ke"], t["b_ke"], t["gmax"],
+                          scale, d_denom, mask, want2[3], want2[4])
+                 + 2 * nbytes(want2[0], want2[1], want2[2]))):
+            ms, plain_ms = device_ms(fn, iters=5, warmup=1), \
+                device_ms(plain, iters=5, warmup=1)
+            bound_ms, by = bound(n_bytes, flops, dt)
+            log(f"  time {name} D={D} HD={HD} {dt}: kernels {ms:.4f} ms a "
+                f"call (two head groups)  plain {plain_ms:.4f} ms  bound "
+                f"{bound_ms:.4f} ms ({by})  [{card}]")
+            profile_kernels(f"{name} D={D} HD={HD} {dt}", fn, iters=5)
+    # the forward passes and rows 11-12 at D = 512 on the bf16 main path
+    dt = torch.bfloat16
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    nq = (r(G, N, HD) / (HD // HEADS) ** 0.5).to(dt)
+    nk, nm = (r(G, N, HD) * 0.5).to(dt), (r(G, N, HD) * 0.5).to(dt)
+    emb = torch.relu(r(G, E, D)).to(dt)
+    w, b_ = r(D, HD) * 0.05, r(HD) * 0.1
+    a_args = (nq, nk, emb, w, b_, src, dst, mask, HEADS)
+    scores, gmax = gk.pass_a_scores(*a_args)
+    scale = torch.rand((G, N, HEADS), generator=gen, device=dev)
+    c_args = (nm, emb, w, b_, scores, gmax, scale, src, dst, mask)
+    out = torch.zeros((G, N, HD), device=dev)
+    n_rel = 39
+    etype, esrc, edst, ntype, _ = encoder_ints(gen, dev, E, n_rel)
+    F = n_rel + 2 * N_NTYPE
+    w0, b0, ea, eb = r(F, D) * 0.2, r(D) * 0.5, r(D) * 0.5, r(D) * 0.5
+    h_args = (etype, esrc, edst, ntype, w0, b0, ea, eb, n_rel, N_NTYPE)
+    dh = r(G, E, D).to(dt)
+    for name, fn, plain, n_bytes, flops in (
+            ("gat_pass_a_scores", lambda: gk.pass_a_scores(*a_args),
+             lambda: gk.pass_a_scores_plain(*a_args),
+             live * nbytes(emb, src, dst)
+             + nbytes(nq, nk, w, b_, mask, scores, gmax),
+             2.0 * live * G * E * (D * HD + HD)),
+            ("gat_pass_c", lambda: gk.pass_c(*c_args, out, HEADS),
+             lambda: gk.pass_c_plain(*c_args, out, HEADS),
+             live * nbytes(emb, scores, src, dst)
+             + nbytes(nm, w, b_, gmax, scale, mask) + 2 * nbytes(out),
+             2.0 * live * G * E * (D * HD + 2 * HD)),
+            ("edge_hidden", lambda: ek.edge_hidden_forward(*h_args, dt),
+             lambda: ek.edge_hidden_plain(*h_args, dt),
+             nbytes(etype, esrc, edst, ntype, w0, b0, ea, eb) + G * E * D * 2,
+             6.0 * G * E * D),
+            ("edge_hidden_bwd",
+             lambda: ek.edge_hidden_backward(*h_args[:8], dh, n_rel, N_NTYPE),
+             lambda: ek.edge_hidden_backward_plain(*h_args[:8], dh, n_rel,
+                                                   N_NTYPE),
+             nbytes(etype, esrc, edst, ntype, w0, b0, ea, eb, dh)
+             + (F + 3) * D * 4, 16.0 * dh.numel())):
+        ms = device_ms(fn, iters=5, warmup=1)
+        plain_ms = device_ms(plain, iters=5, warmup=1)
+        bound_ms, by = bound(n_bytes, flops, dt if "gat" in name
+                             else torch.float32)
+        log(f"  time {name} D={D} {dt}: kernels {ms:.4f} ms a call  plain "
+            f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({by})  [{card}]")
+
+
+def widths_cli(card):
+    """`python -m qagnn_tpu_torch.cli` training two steps of a synthetic
+    set at --gnn_dim 512 on the card: exit 0."""
+    from qagnn_tpu_torch.data.synthetic import (
+        write_synthetic_dataset,
+        write_tiny_bert_checkpoint,
+    )
+    with tempfile.TemporaryDirectory(prefix="qagnn_wide_cli_") as tmp:
+        emb_path = write_synthetic_dataset(f"{tmp}/data",
+                                           n_questions=WIDE_CLI_QUESTIONS)
+        enc_dir = write_tiny_bert_checkpoint(f"{tmp}/bert")
+        splits = [f"--{split}_{kind}={tmp}/data/{sub}/{split}.{ext}"
+                  for split in ("train", "dev", "test")
+                  for kind, sub, ext in (
+                      ("statements", "statement", "statement.jsonl"),
+                      ("adj", "graph", "graph.adj.pk"))]
+        out = run_tool(
+            ["qagnn_tpu_torch.cli", "--mode", "train", "--dataset", "csqa",
+             "--encoder", "bert-base-uncased", "--encoder_load", enc_dir,
+             "--inhouse", "false", "--batch_size", "4",
+             "--mini_batch_size", "4", "--eval_batch_size", "4",
+             "--n_epochs", "1", "--max_seq_len", "24", "--max_node_num",
+             "8", "--num_relation", "7", "--gnn_dim", str(WIDE_D),
+             "--ent_emb_paths", emb_path, "--save_dir", f"{tmp}/out",
+             *splits], f"python -m qagnn_tpu_torch.cli --gnn_dim {WIDE_D}")
+        if out is not None:
+            for line in out.splitlines():
+                if line.startswith("|"):
+                    log("    " + line)
+
+
+def phase_widths(gen, dev, card) -> None:
+    """C9-C11 on the card: relation ids past n_rel through rows 10-12, the
+    unprojected op at widths one launch does not take, the GNN and its
+    backward passes at gnn_dim 512, and the CLI there."""
+    t0 = time.perf_counter()
+    widths_relation_ids(gen, dev)
+    widths_unprojected(gen, dev, card)
+    widths_gnn(gen, dev, card)
+    widths_passes(gen, dev, card)
+    widths_cli(card)
+    log(f"  the widths phase took {time.perf_counter() - t0:.1f} s ({card})")
+
+
 PHASES = ("kernels", "grads", "op", "serve", "detail", "train", "cli",
-          "overfit", "encoders", "mesh", "preprocess", "tools")
+          "overfit", "encoders", "mesh", "preprocess", "tools", "widths")
 # parts of the kernel phase that can be asked for alone
 KERNEL_PARTS = ("fwd", "bwd", "enc", "moments", "unproj", "scores")
 
@@ -4865,6 +5293,13 @@ def main() -> int:
             "trace_summary, the dress rehearsal and the CLI's profiler "
             "path, on the card]")
         phase_tools(dev, card)
+    if "widths" in only:
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("\n[the widths: relation ids past n_rel through rows 10-12, rows "
+            "1-5 at HD 100 and 320, rows 6-12 at gnn_dim 512 and the CLI "
+            "there]")
+        phase_widths(new_gen(21), dev, card)
 
     if FAILURES:
         log("\nFAILED: " + "; ".join(FAILURES))

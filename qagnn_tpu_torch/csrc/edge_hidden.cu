@@ -13,7 +13,10 @@
 // three int32 per edge and a (F, D) f32 weight that stays in L1/L2.
 //
 // Design: the feature row is three one-hots, so W0^T feat is the sum of three
-// rows of W0 -- three indexed loads, no matmul and no one-hot. As on the TPU
+// rows of W0 -- three indexed loads, no matmul and no one-hot. A relation id
+// outside [0, n_rel) sets no relation feature (the TPU kernel's one-hot is a
+// comparison with the feature ids, `_feat_onehot` :72-78): its relation row
+// is zeros and no load reads past W0's relation rows. As on the TPU
 // the rows are rounded to the compute dtype before an f32 sum. A thread owns
 // VEC consecutive columns (VEC = 8 in bf16, 4 in f32) and walks edges with a
 // grid stride: b0, a and b sit in its registers, each W0 row slice is read
@@ -92,7 +95,13 @@ __global__ void edge_hidden_kernel(const int32_t* __restrict__ etype,
        edge < n_edges; edge += (long long)gridDim.x * blockDim.y) {
     const long long g = edge / E;
     float r0[VEC], r1[VEC], r2[VEC];
-    load_vec<VEC>(w0 + (long long)etype[edge] * D + c0, r0);
+    const int rel = etype[edge];
+    if ((unsigned)rel < (unsigned)n_rel) {
+      load_vec<VEC>(w0 + (long long)rel * D + c0, r0);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) r0[j] = 0.0f;
+    }
     load_vec<VEC>(w0 + (long long)(n_rel + ntype[g * N + src[edge]]) * D + c0,
                   r1);
     load_vec<VEC>(
@@ -148,7 +157,7 @@ int launch(const void* etype, const void* src, const void* dst,
 //     d_pre = dh * [pre > 0];  db = sum d_pre;  da = sum d_pre * x0;
 //     d_x0 = d_pre * a;        db0 = sum d_x0;
 //     dW0[f] += d_x0 (rounded to the compute dtype) for the slot's three
-//     feature rows f.
+//     feature rows f (two where its relation id is out of range).
 // On the TPU one resident block accumulates the four sums over a sequential
 // grid. Here a block takes a range of slots and a thread one column d (the
 // slots' feature rows are staged in shared memory a tile at a time): the
@@ -182,10 +191,12 @@ __global__ void edge_hidden_bwd_kernel(
   for (long long t0 = begin; t0 < end; t0 += BWD_TILE) {
     const int n = end - t0 < BWD_TILE ? (int)(end - t0) : BWD_TILE;
     __syncthreads();
-    // the tile's feature rows, computed once for all columns
+    // the tile's feature rows, computed once for all columns; -1 for a
+    // relation id out of range
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
       const long long edge = t0 + i, g = edge / E;
-      s_rows[0][i] = etype[edge];
+      const int rel = etype[edge];
+      s_rows[0][i] = (unsigned)rel < (unsigned)n_rel ? rel : -1;
       s_rows[1][i] = n_rel + ntype[g * N + src[edge]];
       s_rows[2][i] = n_rel + n_ntype + ntype[g * N + dst[edge]];
     }
@@ -193,7 +204,8 @@ __global__ void edge_hidden_bwd_kernel(
     if (!live) continue;
     for (int i = 0; i < n; ++i) {
       const int r0 = s_rows[0][i], r1 = s_rows[1][i], r2 = s_rows[2][i];
-      const float x0 = round_to<T>(w0[(long long)r0 * D + c]) +
+      const float x0 = (r0 >= 0 ? round_to<T>(w0[(long long)r0 * D + c])
+                                : 0.0f) +
                        round_to<T>(w0[(long long)r1 * D + c]) +
                        round_to<T>(w0[(long long)r2 * D + c]) + b0c;
       const float d_pre =
@@ -203,7 +215,7 @@ __global__ void edge_hidden_bwd_kernel(
       const float d_x0 = d_pre * ac;
       db0 += d_x0;
       const float dxc = round_to<T>(d_x0);
-      s_dw0[r0 * D + c] += dxc;
+      if (r0 >= 0) s_dw0[r0 * D + c] += dxc;
       s_dw0[r1 * D + c] += dxc;
       s_dw0[r2 * D + c] += dxc;
     }
@@ -255,6 +267,12 @@ int launch_tc(const void* etype, const void* src, const void* dst,
   const long long n_edges = (long long)G * E;
   if (n_edges == 0) return (int)cudaSuccess;
   const int smem = eh_w0_bytes(F, D) + eh_u_bytes(D, n_ntype);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        edge_hidden_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);

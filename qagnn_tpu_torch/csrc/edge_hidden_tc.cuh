@@ -16,7 +16,11 @@
 // W0[n_rel + ts] + W0[n_rel + n_ntype + td] + b0, so a slot's x0 is its
 // relation's W0 row plus one U row (two 16-byte loads where three W0 rows
 // and b0 were four; the sum in another order than the plain version's, f32
-// rounding apart). They walk tiles of 16 consecutive slots of the flattened
+// rounding apart). A relation id outside [0, n_rel) sets no relation
+// feature, as in the TPU kernel's one-hot: it is packed as row F, a row of
+// zeros after W0's F rows in shared memory, and its one-hot mask has no
+// relation bit, so no read falls outside W0 and dW0 gets nothing for it.
+// They walk tiles of 16 consecutive slots of the flattened
 // (G * E) slot axis: a tile's rows of h or dh are 16 x D x 2 contiguous
 // bytes. A slot's relation r and type pair t are packed into one int; they
 // come from a chain of dependent loads (the slot's ints, then the two node
@@ -100,23 +104,29 @@ __device__ __forceinline__ void eh_gather(const int32_t* __restrict__ ntype,
   td = di >= 0 ? ntype[di] : 0;
 }
 
-// shared memory of both kernels: W0 (bf16), then the type table U (f32)
+// shared memory of both kernels: W0 (bf16) and a zero row after it, then
+// the type table U (f32)
 __host__ __device__ constexpr int eh_w0_bytes(int F, int D) {
-  return (F * D * 2 + 15) / 16 * 16;
+  return ((F + 1) * D * 2 + 15) / 16 * 16;
 }
 __host__ __device__ constexpr int eh_u_bytes(int D, int n_ntype) {
   return n_ntype * n_ntype * D * 4;
 }
 
-// W0 (F, D) f32 -> sW (F, D) bf16, the whole block; the caller synchronises
+// W0 (F, D) f32 -> sW (F + 1, D) bf16, row F zeros (the relation row of an
+// id out of range), the whole block; the caller synchronises
 __device__ __forceinline__ void eh_load_w0(bf16* sW,
                                            const float* __restrict__ w0,
                                            int F, int D) {
   const float4* w = reinterpret_cast<const float4*>(w0);
-  for (int i = threadIdx.x; i < F * D / 8; i += blockDim.x) {
-    const float4 lo = w[2 * i], hi = w[2 * i + 1];
-    const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-    reinterpret_cast<uint4*>(sW)[i] = pack_bf16x8(v);
+  for (int i = threadIdx.x; i < (F + 1) * D / 8; i += blockDim.x) {
+    if (i < F * D / 8) {
+      const float4 lo = w[2 * i], hi = w[2 * i + 1];
+      const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      reinterpret_cast<uint4*>(sW)[i] = pack_bf16x8(v);
+    } else {
+      reinterpret_cast<uint4*>(sW)[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
   }
 }
 
@@ -179,10 +189,13 @@ __device__ __forceinline__ void eh_x0(const bf16* sW, const float* sU, int D,
   x0[6] = w[6] + u1.z; x0[7] = w[7] + u1.w;
 }
 
-// a slot's relation r and type pair t = ts * n_ntype + td as r | t << 8 (0
-// for a slot that does not exist: nothing reads it)
-__device__ __forceinline__ int eh_pack(int et, int ts, int td, int n_ntype) {
-  return ts < 0 ? 0 : et | (ts * n_ntype + td) << 8;
+// a slot's relation row r (its id, or F, the zero row, for an id outside
+// [0, n_rel)) and type pair t = ts * n_ntype + td as r | t << 8 (0 for a
+// slot that does not exist: nothing reads it)
+__device__ __forceinline__ int eh_pack(int et, int ts, int td, int n_rel,
+                                       int n_ntype) {
+  const int r = (unsigned)et < (unsigned)n_rel ? et : n_rel + 2 * n_ntype;
+  return ts < 0 ? 0 : r | (ts * n_ntype + td) << 8;
 }
 
 // persistent blocks; warp w of the grid's n walks tiles w, w + n, ..., so
@@ -235,7 +248,7 @@ edge_hidden_tc_kernel(const int32_t* __restrict__ etype,
   };
   load_c(warp);
   gather_b();
-  int packed = eh_pack(etB, tsB, tdB, n_ntype);
+  int packed = eh_pack(etB, tsB, tdB, n_rel, n_ntype);
   load_c(warp + n_warps);
   gather_b();
   load_c(warp + 2 * n_warps);
@@ -254,7 +267,7 @@ edge_hidden_tc_kernel(const int32_t* __restrict__ etype,
         *reinterpret_cast<uint4*>(out + (base + s) * D + c8) = pack_bf16x8(h);
       }
     }
-    packed = eh_pack(etB, tsB, tdB, n_ntype);
+    packed = eh_pack(etB, tsB, tdB, n_rel, n_ntype);
     gather_b();
     load_c(t + 3 * n_warps);
   }
@@ -278,7 +291,7 @@ __host__ __device__ constexpr int ehb_smem_bytes(int F, int D, int n_ntype) {
 }
 
 // Every slot's relation and type pair, packed by eh_pack, and its one-hot
-// feature row as a 64-bit mask (bits r,
+// feature row as a 64-bit mask (bits r where 0 <= r < n_rel,
 // n_rel + ts, n_rel + n_ntype + td); both 0 from n_edges to n_pad. The
 // backward's chain of dependent loads, run once before it (one thread a
 // slot) so that a tile's rows arrive by cp.async beside its dh.
@@ -296,11 +309,13 @@ __global__ void edge_rows_kernel(const int32_t* __restrict__ etype,
   long long si, di;
   eh_load_ints(etype, src, dst, true, s, n_edges, E, N, et, si, di);
   eh_gather(ntype, si, di, ts, td);
+  const unsigned long long rel_bit =
+      (unsigned)et < (unsigned)n_rel ? 1ull << et : 0ull;
   const unsigned long long m =
       ts < 0 ? 0ull
-             : 1ull << et | 1ull << (n_rel + ts) |
+             : rel_bit | 1ull << (n_rel + ts) |
                    1ull << (n_rel + n_ntype + td);
-  rows[s] = eh_pack(et, ts, td, n_ntype);
+  rows[s] = eh_pack(et, ts, td, n_rel, n_ntype);
   masks[s] = make_uint2((unsigned)m, (unsigned)(m >> 32));
 }
 

@@ -4,7 +4,10 @@
 //     M[f, f']  = number of masked slots whose row sets both f and f'
 //     n         = number of masked slots
 // where a slot's row is [onehot(rel) | onehot(type[src]) | onehot(type[dst])],
-// so it sets exactly three features.
+// so it sets exactly three features. A relation id outside [0, n_rel)
+// matches no relation column of the TPU kernel's one-hot (`_feat_onehot`
+// :72-78, a comparison with the feature ids): its relation part is zero,
+// while its head and tail types and its count stand.
 //
 // Replaces the TPU kernel `_moments_kernel`
 // (qagnn_tpu/ops/pallas_edge_encoder.py:93, launched by
@@ -12,13 +15,14 @@
 // feat feat^T on the matrix unit, accumulating over a sequential grid.
 //
 // A slot's row is fixed by its triple (rel, type[src], type[dst]), so the
-// kernel counts the T = n_rel * n_ntype^2 triples (624 at n_rel = 39,
-// n_ntype = 4) and expands the counts C into hist, M and n, all exact integer
-// sums of C:
+// kernel counts the T = (n_rel + 1) * n_ntype^2 triples (640 at n_rel = 39,
+// n_ntype = 4; relation n_rel is the bucket of slots with no relation) and
+// expands the counts C into hist, M and n, all exact integer sums of C:
 //     hist[rel r] = sum_ab C[r,a,b], hist[head a] = sum_rb C, hist[tail b] =
 //     sum_ra C; M's diagonal blocks are diag(hist) (a row sets one feature of
 //     each part); M[r, head a] = sum_b C[r,a,b], M[r, tail b] = sum_a C,
-//     M[head a, tail b] = sum_r C, and their transposes; n = sum C.
+//     M[head a, tail b] = sum_r C, and their transposes; n = sum C. The sums
+//     over r take the bucket; no r index of hist or M names it.
 //
 // One launch. About one block an SM reads a contiguous slab of the (G, E)
 // arrays, four slots a thread in 16-byte loads (the mask in 4-byte ones),
@@ -58,24 +62,31 @@ constexpr unsigned FULL = 0xffffffffu;
 // dynamic shared memory a block may opt into, less room for s_last
 constexpr size_t MAX_SMEM = 227 * 1024 - 64;
 
-// ints of a block's counts and of the last block's tables
-__host__ __device__ inline int table_ints(int n_rel, int n_ntype) {
-  return n_rel * n_ntype * n_ntype + 2 * n_rel * n_ntype + n_ntype * n_ntype;
+// the triple counts: n_rel relations and the no-relation bucket
+__host__ __device__ inline int triples(int n_rel, int n_ntype) {
+  return (n_rel + 1) * n_ntype * n_ntype;
 }
 
-// the triple of a slot of graph g, or -1 where it is not masked (or out of
-// range)
+// ints of a block's counts and of the last block's tables (RA and RB for
+// the n_rel relations, AB)
+__host__ __device__ inline int table_ints(int n_rel, int n_ntype) {
+  return triples(n_rel, n_ntype) + 2 * n_rel * n_ntype + n_ntype * n_ntype;
+}
+
+// the triple of a slot of graph g, or -1 where it is not masked (or its
+// endpoints or their types are out of range); a relation id outside
+// [0, n_rel) counts in the no-relation bucket n_rel
 __device__ __forceinline__ int slot_key(bool live, int rel, int s, int d,
                                         long long g, int N,
                                         const int32_t* __restrict__ ntype,
                                         int n_rel, int n_ntype) {
-  if (!live || (unsigned)rel >= (unsigned)n_rel || (unsigned)s >= (unsigned)N ||
-      (unsigned)d >= (unsigned)N)
+  if (!live || (unsigned)s >= (unsigned)N || (unsigned)d >= (unsigned)N)
     return -1;
   const int a = ntype[g * N + s], b = ntype[g * N + d];
   if ((unsigned)a >= (unsigned)n_ntype || (unsigned)b >= (unsigned)n_ntype)
     return -1;
-  return (rel * n_ntype + a) * n_ntype + b;
+  const int r = (unsigned)rel < (unsigned)n_rel ? rel : n_rel;
+  return (r * n_ntype + a) * n_ntype + b;
 }
 
 // V = 4: four consecutive slots a thread by 16-byte loads (the caller
@@ -92,7 +103,7 @@ edge_moments_kernel(const int32_t* __restrict__ etype,
                     int n_rel, int n_ntype) {
   extern __shared__ int s_c[];           // counts (T), then the tables
   __shared__ bool s_last;
-  const int T = n_rel * n_ntype * n_ntype;
+  const int T = triples(n_rel, n_ntype);
   const int tid = threadIdx.x, lane = tid & 31;
   for (int i = tid; i < T; i += MT) s_c[i] = 0;
   __syncthreads();
@@ -151,7 +162,8 @@ edge_moments_kernel(const int32_t* __restrict__ etype,
   }
   __syncthreads();
 
-  // RA[r][a] = sum_b C, RB[r][b] = sum_a C, AB[a][b] = sum_r C
+  // RA[r][a] = sum_b C, RB[r][b] = sum_a C (r < n_rel), AB[a][b] = sum_r C
+  // (the no-relation bucket included)
   const int nt = n_ntype, F = n_rel + 2 * nt;
   int* RA = s_c + T;
   int* RB = RA + n_rel * nt;
@@ -169,7 +181,7 @@ edge_moments_kernel(const int32_t* __restrict__ etype,
   // AB by warps: lanes stride over the relations, then a warp sum
   for (int i = tid >> 5; i < nt * nt; i += MT / 32) {
     int v = 0;
-    for (int r = lane; r < n_rel; r += 32) v += s_c[r * nt * nt + i];
+    for (int r = lane; r <= n_rel; r += 32) v += s_c[r * nt * nt + i];
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
     if (lane == 0) AB[i] = v;
@@ -211,17 +223,18 @@ edge_moments_kernel(const int32_t* __restrict__ etype,
 }  // namespace
 
 // out: F + F*F + 1 f32, written whole: hist, then M row-major, then n.
-// ticket: 1 + n_rel * n_ntype^2 int32, the ticket and the table of triple
-// counts, zero on entry (and left zero); launches that share one must run
-// one after another. Slots whose relation, endpoints or types lie out of
-// range are not counted. The grid is one block an SM at most, fewer where
-// the slots would not give each thread its four.
+// ticket: 1 + (n_rel + 1) * n_ntype^2 int32, the ticket and the table of
+// triple counts, zero on entry (and left zero); launches that share one must
+// run one after another. A slot whose relation id lies out of range counts
+// with no relation feature; slots whose endpoints or types lie out of range
+// are not counted. The grid is one block an SM at most, fewer where the
+// slots would not give each thread its four.
 extern "C" int edge_moments_launch(const void* etype, const void* src,
                                    const void* dst, const void* ntype,
                                    const void* mask, void* ticket, void* out,
                                    int G, int E, int N, int n_rel, int n_ntype,
                                    void* stream) {
-  const long long T = (long long)n_rel * n_ntype * n_ntype;
+  const long long T = (long long)(n_rel + 1) * n_ntype * n_ntype;
   if (n_rel <= 0 || n_ntype <= 0 || T > (1 << 20))
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(int) * (size_t)table_ints(n_rel, n_ntype);

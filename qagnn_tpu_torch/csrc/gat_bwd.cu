@@ -320,15 +320,20 @@ bwd2_edge_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
                      g * gridDim.x + blockIdx.x);
 }
 
-// out[g, e, :] = a[g, e, :] wt (+ add[g, e, :]), a (G, E, K) and wt (K, C)
-// the transposed weight; `add` may be null or `out` itself (every thread
-// reads its own elements before it writes them).
+// out[g, e, z C : z C + C] = a[g, e, :] wt_z (+ the same columns of add),
+// z = blockIdx.z the slice of out's columns: a (G, E, K), wt the transposed
+// weight in slices, (slices, K, C) slice-major, out and add rows of ldo
+// columns. `add` may be null or `out` itself (every thread reads its own
+// elements before it writes them).
 template <typename T>
 __global__ void __launch_bounds__(MAX_HD)
 demb_kernel(const T* __restrict__ a, const float* __restrict__ wt,
-            const T* add, T* out, int E, int K, int C) {
+            const T* add, T* out, int E, int K, int C, int ldo) {
   __shared__ __align__(16) float s_a[KC][TEP];
   extern __shared__ __align__(16) float s_w[];
+  wt += (long long)blockIdx.z * K * C;
+  out += (long long)blockIdx.z * C;
+  if (add != nullptr) add += (long long)blockIdx.z * C;
   const long long g = blockIdx.y;
   const int e0 = blockIdx.x * TE;
   const int tx = threadIdx.x % (C / 8), ty = threadIdx.x / (C / 8);
@@ -338,7 +343,7 @@ demb_kernel(const T* __restrict__ a, const float* __restrict__ wt,
   for (int i = 0; i < EPT; ++i) {
     const int e = e0 + ty * EPT + i;
     if (e >= E) continue;
-    const long long row = (g * E + e) * C;
+    const long long row = (g * E + e) * ldo;
     if (add != nullptr) {
       float c[8];
       load_row<T, 4>(add + row + 4 * tx, c);
@@ -353,22 +358,24 @@ demb_kernel(const T* __restrict__ a, const float* __restrict__ wt,
 
 // part[s, d, c] = sum over the rows r of range s of a[r, d] * b[r, c]:
 // a (R, D) the edge embedding, b (R, HD) the scratch cotangent, both over
-// all graphs' edges. A block takes every d, DW_COLS columns and one range
-// of rows; a thread keeps 8 x 8 of the output in registers. The rows are
-// the depth of this product, so both operands are staged as they lie.
+// all graphs' edges. A block takes the DS rows d of slice blockIdx.z,
+// DW_COLS columns and one range of rows; a thread keeps 8 x 8 of the output
+// in registers. The rows are the depth of this product, so both operands
+// are staged as they lie.
 template <typename T>
 __global__ void __launch_bounds__(MAX_HD / 8 * DW_TX)
 dw_partial_kernel(const T* __restrict__ a, const T* __restrict__ b,
                   float* __restrict__ part, long long R, long long chunk,
-                  int D, int HD) {
+                  int D, int DS, int HD) {
   __shared__ __align__(16) float s_a[KC][MAX_HD];
   __shared__ __align__(16) float s_b[KC][DW_COLS];
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int tx = tid % DW_TX, ty = tid / DW_TX;
   const int c0 = blockIdx.x * DW_COLS;
+  const int d0 = blockIdx.z * DS;
   const long long r_begin = blockIdx.y * chunk;
   const long long r_end = r_begin + chunk < R ? r_begin + chunk : R;
-  const int d8 = D / 8;
+  const int d8 = DS / 8;
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -379,7 +386,7 @@ dw_partial_kernel(const T* __restrict__ a, const T* __restrict__ b,
       const int r = idx / d8, dc = (idx % d8) * 8;
       float v[8];
       if (r0 + r < r_end) {
-        load_row<T, 8>(a + (r0 + r) * D + dc, v);
+        load_row<T, 8>(a + (r0 + r) * D + d0 + dc, v);
       } else {
 #pragma unroll
         for (int j = 0; j < 8; ++j) v[j] = 0.0f;
@@ -422,8 +429,8 @@ dw_partial_kernel(const T* __restrict__ a, const T* __restrict__ b,
   if (c0 + tx * 8 >= HD) return;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    float* row = part + ((long long)blockIdx.y * D + ty * 8 + i) * HD + c0 +
-                 tx * 8;
+    float* row = part + ((long long)blockIdx.y * D + d0 + ty * 8 + i) * HD +
+                 c0 + tx * 8;
     *reinterpret_cast<float4*>(row) =
         make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     *reinterpret_cast<float4*>(row + 4) =
@@ -431,9 +438,11 @@ dw_partial_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
-bool shapes_ok(int D, int HD, int H) {
-  return D > 0 && D % 8 == 0 && D <= MAX_HD && HD > 0 && HD % 8 == 0 &&
-         HD <= MAX_HD && H > 0 && H <= MAX_H && HD % H == 0 && HD / H >= 4;
+// DS: the rows of W's slices, which divide D (gat_kernels.d_slices)
+bool shapes_ok(int D, int DS, int HD, int H) {
+  return D > 0 && D % 8 == 0 && DS > 0 && DS % 8 == 0 && DS <= MAX_HD &&
+         D % DS == 0 && HD > 0 && HD % 8 == 0 && HD <= MAX_HD && H > 0 &&
+         H <= MAX_H && HD % H == 0 && HD / H >= 4;
 }
 
 size_t edge_smem(int HD) {
@@ -442,21 +451,25 @@ size_t edge_smem(int HD) {
   return sizeof(float) * n;
 }
 
-// launches 2-4 of a pass: demb, the dW partials and the two reductions
+// launches 2-4 of a pass: demb and the dW partials, each with a grid
+// dimension over the D / DS slices of W's rows (slice z writes columns
+// [z DS, z DS + DS) of demb and those rows of the partials), then the two
+// reductions. wt: W^T in slices, (D / DS, HD, DS).
 template <typename T>
 void finish_pass(const T* emb, const T* cot, const float* wt, const T* add,
                  T* demb, float* dw_part, float* db_part, float* dw,
-                 float* db, int G, int E, int D, int HD, int n_split,
+                 float* db, int G, int E, int D, int DS, int HD, int n_split,
                  cudaStream_t s) {
   const dim3 grid((E + TE - 1) / TE, G);
-  demb_kernel<T><<<grid, D / 8 * TY, sizeof(float) * KC * D, s>>>(
-      cot, wt, add, demb, E, HD, D);
+  demb_kernel<T><<<dim3(grid.x, grid.y, D / DS), DS / 8 * TY,
+                   sizeof(float) * KC * DS, s>>>(cot, wt, add, demb, E, HD,
+                                                 DS, D);
   const long long R = (long long)G * E;
   long long chunk = (R + n_split - 1) / n_split;
   chunk = (chunk + KC - 1) / KC * KC;
   dw_partial_kernel<T>
-      <<<dim3((HD + DW_COLS - 1) / DW_COLS, n_split), D / 8 * DW_TX, 0, s>>>(
-          emb, cot, dw_part, R, chunk, D, HD);
+      <<<dim3((HD + DW_COLS - 1) / DW_COLS, n_split, D / DS), DS / 8 * DW_TX,
+         0, s>>>(emb, cot, dw_part, R, chunk, D, DS, HD);
   reduce_partials_kernel<<<(D * HD + 31) / 32, dim3(32, 8), 0, s>>>(
       dw_part, dw, n_split, D * HD);
   reduce_partials_kernel<<<(HD + 31) / 32, dim3(32, 8), 0, s>>>(
@@ -465,26 +478,36 @@ void finish_pass(const T* emb, const T* cot, const float* wt, const T* add,
 
 }  // namespace
 
-// dtype: 0 = float32 node/edge arrays, 1 = bfloat16. Takes D, HD multiples
-// of 8 up to 256, H <= 8 heads of at least 4 features, 16-byte aligned
-// arrays. carry may be null. dmsg (G, E, HD) and dw_part (n_split, D, HD) are
-// scratch. route 0, the CUDA-core kernels (either dtype): w_t is w
-// transposed, (HD, D); db_part (G * ceil(E / 64), HD) is scratch; warps and
-// n_blocks are not read. route 1, the tensor-core kernels (bfloat16 only):
-// w_t is not read; the edge kernel runs n_blocks blocks of `warps` warps and
-// db_part is (n_blocks, HD).
+// dtype: 0 = float32 node/edge arrays, 1 = bfloat16. Takes D a multiple of
+// 8, in slices of d_slice rows (a multiple of 8 up to 256 that divides D),
+// HD a multiple of 8 up to 256, H <= 8 heads of at least 4 features, 16-byte
+// aligned arrays. carry may be null. dmsg (G, E, HD) and dw_part (n_split,
+// D, HD) are scratch. route 0, the CUDA-core kernels (either dtype): the
+// edge kernel takes any D, the demb and dW launches a slice of W's rows a
+// block (a grid dimension); w_t is w transposed in slices, (D / d_slice,
+// HD, d_slice); db_part (G * ceil(E / 64), HD) is scratch; warps, n_blocks
+// and proj are not read. route 1, the tensor-core kernels (bfloat16 only):
+// w_t is not read; the edge kernel runs n_blocks blocks of `warps` warps
+// once a slice of W's rows, the slice resident in shared memory, and
+// db_part is (n_blocks, HD); with more than one slice proj (G, E, HD) f32
+// is scratch (null otherwise). Either way the node-side outputs (dalpha,
+// dnm, dscale; dnq, dnk in pass 2) and db are written by one pass over the
+// edges only, and demb a slice of columns at a time, with no atomics.
 extern "C" int gat_bwd_pass1(
     const void* gout, const void* nm, const void* emb, const void* w_me,
     const void* w_me_t, const void* b_me, const void* scores,
     const void* gmax, const void* scale, const void* src, const void* dst,
     const void* mask, const void* carry, void* dmsg, void* demb, void* dalpha,
     void* dnm, void* dscale, void* dw_part, void* db_part, void* dw, void* db,
-    int G, int N, int E, int D, int HD, int H, int n_split, int dtype,
-    int route, int warps, int n_blocks, void* stream) {
-  if (!shapes_ok(D, HD, H) || n_split <= 0 || !aligned16(gout) ||
+    void* proj, int G, int N, int E, int D, int HD, int H, int n_split,
+    int d_slice, int dtype, int route, int warps, int n_blocks,
+    void* stream) {
+  if (!shapes_ok(D, d_slice, HD, H) || n_split <= 0 || !aligned16(gout) ||
       !aligned16(nm) || !aligned16(emb) || !aligned16(w_me) ||
       !aligned16(w_me_t) || !aligned16(carry) || !aligned16(dmsg) ||
       !aligned16(demb) || !aligned16(dnm) || !aligned16(dw_part) ||
+      !aligned16(proj) ||
+      (route == 1 && d_slice < D && proj == nullptr) ||
       (route != 0 && (route != 1 || dtype != 1)))
     return (int)cudaErrorInvalidValue;
   if ((long long)G * E == 0) return (int)cudaGetLastError();
@@ -508,7 +531,8 @@ extern "C" int gat_bwd_pass1(
     a.acc_src = (float*)dnm;
     a.dscale = (float*)dscale;
     a.db_part = (float*)db_part;
-    a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H;
+    a.proj = (float*)proj;
+    a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H; a.DS = d_slice;
     return launch_pass_tc<1>(a, (float*)dw_part, (float*)dw, (float*)db,
                              n_split, warps, n_blocks, (cudaStream_t)stream);
   }
@@ -525,8 +549,8 @@ extern "C" int gat_bwd_pass1(
         (float*)dscale, (float*)db_part, E, N, D, HD, H);
     finish_pass<T>((const T*)emb, (const T*)dmsg, (const float*)w_me_t,
                    (const T*)carry, (T*)demb, (float*)dw_part,
-                   (float*)db_part, (float*)dw, (float*)db, G, E, D, HD,
-                   n_split, s);
+                   (float*)db_part, (float*)dw, (float*)db, G, E, D, d_slice,
+                   HD, n_split, s);
   } else {
     typedef float T;
     bwd1_edge_kernel<T><<<grid, threads, edge_smem(HD), s>>>(
@@ -537,8 +561,8 @@ extern "C" int gat_bwd_pass1(
         (float*)dscale, (float*)db_part, E, N, D, HD, H);
     finish_pass<T>((const T*)emb, (const T*)dmsg, (const float*)w_me_t,
                    (const T*)carry, (T*)demb, (float*)dw_part,
-                   (float*)db_part, (float*)dw, (float*)db, G, E, D, HD,
-                   n_split, s);
+                   (float*)db_part, (float*)dw, (float*)db, G, E, D, d_slice,
+                   HD, n_split, s);
   }
   return (int)cudaGetLastError();
 }
@@ -552,13 +576,15 @@ extern "C" int gat_bwd_pass2(
     const void* gmax, const void* dalpha, const void* scale,
     const void* d_denom, const void* src, const void* dst, const void* mask,
     void* dekb, void* demb, void* dnq, void* dnk, void* dw_part,
-    void* db_part, void* dw, void* db, int G, int N, int E, int D, int HD,
-    int H, int n_split, int dtype, int route, int warps, int n_blocks,
-    void* stream) {
-  if (!shapes_ok(D, HD, H) || n_split <= 0 || !aligned16(nq) ||
+    void* db_part, void* dw, void* db, void* proj, int G, int N, int E, int D,
+    int HD, int H, int n_split, int d_slice, int dtype, int route, int warps,
+    int n_blocks, void* stream) {
+  if (!shapes_ok(D, d_slice, HD, H) || n_split <= 0 || !aligned16(nq) ||
       !aligned16(nk) || !aligned16(emb) || !aligned16(w_ke) ||
       !aligned16(w_ke_t) || !aligned16(dekb) || !aligned16(demb) ||
       !aligned16(dnq) || !aligned16(dnk) || !aligned16(dw_part) ||
+      !aligned16(proj) ||
+      (route == 1 && d_slice < D && proj == nullptr) ||
       (route != 0 && (route != 1 || dtype != 1)))
     return (int)cudaErrorInvalidValue;
   if ((long long)G * E == 0) return (int)cudaGetLastError();
@@ -583,7 +609,8 @@ extern "C" int gat_bwd_pass2(
     a.acc_src = (float*)dnq;
     a.acc_dst = (float*)dnk;
     a.db_part = (float*)db_part;
-    a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H;
+    a.proj = (float*)proj;
+    a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H; a.DS = d_slice;
     return launch_pass_tc<2>(a, (float*)dw_part, (float*)dw, (float*)db,
                              n_split, warps, n_blocks, (cudaStream_t)stream);
   }
@@ -601,8 +628,8 @@ extern "C" int gat_bwd_pass2(
         (T*)dekb, (float*)dnq, (float*)dnk, (float*)db_part, E, N, D, HD, H);
     finish_pass<T>((const T*)emb, (const T*)dekb, (const float*)w_ke_t,
                    (const T*)demb, (T*)demb, (float*)dw_part,
-                   (float*)db_part, (float*)dw, (float*)db, G, E, D, HD,
-                   n_split, s);
+                   (float*)db_part, (float*)dw, (float*)db, G, E, D, d_slice,
+                   HD, n_split, s);
   } else {
     typedef float T;
     bwd2_edge_kernel<T><<<grid, threads, smem, s>>>(
@@ -613,8 +640,8 @@ extern "C" int gat_bwd_pass2(
         (T*)dekb, (float*)dnq, (float*)dnk, (float*)db_part, E, N, D, HD, H);
     finish_pass<T>((const T*)emb, (const T*)dekb, (const float*)w_ke_t,
                    (const T*)demb, (T*)demb, (float*)dw_part,
-                   (float*)db_part, (float*)dw, (float*)db, G, E, D, HD,
-                   n_split, s);
+                   (float*)db_part, (float*)dw, (float*)db, G, E, D, d_slice,
+                   HD, n_split, s);
   }
   return (int)cudaGetLastError();
 }

@@ -26,7 +26,19 @@
 //      (+ carry, or + pass 1's demb in place), 16 bytes a lane, all of a
 //      lane's loads before its stores.
 // Each lane keeps the bias gradient of its 8 columns over all its units (f32
-// values before rounding); a block writes one partial row at its end. The
+// values before rounding); a block writes one partial row at its end.
+//
+// Past D = 256 rows W no longer fits (a 512 x 256 tile is 264 KB): the
+// edge kernel runs once for each slice of DS <= 256 of W's rows, in order,
+// with that slice resident. Product 1's depth is then the slice: a launch
+// adds the projection summed over the slices before it (f32, `proj`, (G, E,
+// HD)) into its stage and hands the sum on to the next, and only the last
+// launch, which holds the whole projection, runs the epilogue's node-side
+// work (the scatters, d_alpha, dscale, the cotangent's copy for dW and the
+// bias partials). Every launch forms the cotangent rows, which do not
+// depend on the projection, for product 2 against its slice: demb's
+// columns of that slice, written once, with no atomics between slices. The
+// dW launch takes the slices as a grid dimension. The
 // tile counts of both products are compile-time (PAIRS): with a run-time
 // count every pair of tiles sat behind a branch, the loads of a pair's B
 // fragments could not move ahead of the pair before it, and the products
@@ -80,7 +92,11 @@ struct TcArgs {
   float* acc_dst;             // pass 2: dnk
   float* dscale;              // pass 1
   float* db_part;             // (gridDim.x, HD)
+  float* proj;                // (G, E, HD) f32 scratch, with slices of W
   int G, N, E, D, HD, H;
+  int DS;                     // rows of a slice of W, dividing D
+  int d0, first, last;        // this launch's slice: its first row, and
+                              // whether it is the first / last slice
 };
 
 __device__ __forceinline__ float tc_edge_exp(const TcArgs& a, long long g,
@@ -96,14 +112,16 @@ edge_pass_tc_kernel(const TcArgs a) {
   typedef TcShape<PAIRS, TC_SMALL_FLOATS> S;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
-  const int E = a.E, N = a.N, D = a.D, HD = a.HD, H = a.H;
+  const int E = a.E, N = a.N, D = a.D, HD = a.HD, H = a.H, DS = a.DS;
+  const int d0 = a.d0;
+  const bool last = a.last;
   bf16* sW = reinterpret_cast<bf16*>(tc_smem);
   unsigned char* mine = tc_smem + S::w_bytes + warp * S::warp_bytes;
   bf16* s_emb = reinterpret_cast<bf16*>(mine);
   float* s_rows = reinterpret_cast<float*>(mine);
   bf16* s_cot = reinterpret_cast<bf16*>(mine);
   constexpr int ldc = 2 * S::ld32;
-  const int Dp = round_up16(D), HDp = round_up16(HD);
+  const int Dp = round_up16(DS), HDp = round_up16(HD);
   float* s_small = reinterpret_cast<float*>(mine + S::stage_bytes);
   // pass 1: alpha, pass 2: d_s, per (edge, head)
   float (*s_wt)[MAX_H] = reinterpret_cast<float (*)[MAX_H]>(s_small);
@@ -114,8 +132,9 @@ edge_pass_tc_kernel(const TcArgs a) {
   int* s_src = reinterpret_cast<int*>(s_small + 3 * TC_ROWS * MAX_H);
   int* s_dst = s_src + TC_ROWS;
 
-  // W, rounded to bf16; zeros wherever either product reaches past D or HD
-  tc_load_w<S>(sW, a.w, D, HD);
+  // the slice's rows of W, rounded to bf16; zeros wherever either product
+  // reaches past DS or HD
+  tc_load_w<S>(sW, a.w + (long long)d0 * HD, DS, HD);
   __syncthreads();
 
   const int c0 = 8 * lane, dph = HD / H;
@@ -147,8 +166,8 @@ edge_pass_tc_kernel(const TcArgs a) {
 #pragma unroll 4
       for (int r = 0; r < TC_ROWS; ++r) {
         bf16* to = s_emb + r * S::ld16 + c0;
-        if (e0 + r < E && c0 < D)
-          cp_async16(to, a.emb + ((g * E + e0 + r) * D + c0));
+        if (e0 + r < E && c0 < DS)
+          cp_async16(to, a.emb + ((g * E + e0 + r) * D + d0 + c0));
         else
           *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
       }
@@ -184,18 +203,42 @@ edge_pass_tc_kernel(const TcArgs a) {
     cp_async_wait<0>();
     __syncwarp();
 
-    // b. product 1: the projection emb W
+    // b. product 1: the projection emb W over the slice
     zero_acc(acc);
     warp_rows_product<true>(s_emb, S::ld16, sW, S::ld16, Dp / 16, acc);
     __syncwarp();
-    // c. accumulators -> f32 rows over the consumed emb rows
+    // c. accumulators -> f32 rows over the consumed emb rows; with slices
+    // of W, plus the earlier slices' sum, and on to the next slice
     tc_stage_acc(acc, s_rows, S::ld32, lane);
+    __syncwarp();
+    if (!(a.first && last) && active) {
+#pragma unroll 4
+      for (int r = 0; r < TC_ROWS; ++r) {
+        if (e0 + r >= E) break;
+        float4* row = reinterpret_cast<float4*>(s_rows + r * S::ld32 + c0);
+        float4* keep = reinterpret_cast<float4*>(a.proj +
+                                                 (g * E + e0 + r) * HD + c0);
+        float4 v0 = row[0], v1 = row[1];
+        if (!a.first) {
+          const float4 k0 = keep[0], k1 = keep[1];
+          v0.x += k0.x; v0.y += k0.y; v0.z += k0.z; v0.w += k0.w;
+          v1.x += k1.x; v1.y += k1.y; v1.z += k1.z; v1.w += k1.w;
+          row[0] = v0;
+          row[1] = v1;
+        }
+        if (!last) {
+          keep[0] = v0;
+          keep[1] = v1;
+        }
+      }
+    }
     __syncwarp();
 
     // d. the row-wise epilogue, TC_GROUP rows at a time: the next group's
     // node rows are in flight while a group is worked on, and a group's
     // bf16 cotangent rows go over its f32 rows once every lane has read
     // its floats of them (zeros in the depth padding and in dead rows).
+    // Before the last slice of W only the cotangent rows are formed.
     uint4 cur_s[TC_GROUP], cur_d[TC_GROUP], next_s[TC_GROUP],
         next_d[TC_GROUP];
     auto gather = [&](int r0, uint4 (&to_s)[TC_GROUP],
@@ -256,10 +299,12 @@ edge_pass_tc_kernel(const TcArgs a) {
                 dbsum[j] += d;
                 cot[j] = round_to<bf16>(d);
               }
-              atomicAdd(reinterpret_cast<float4*>(a.acc_src + s_row),
-                        make_float4(cot[0], cot[1], cot[2], cot[3]));
-              atomicAdd(reinterpret_cast<float4*>(a.acc_src + s_row + 4),
-                        make_float4(cot[4], cot[5], cot[6], cot[7]));
+              if (last) {
+                atomicAdd(reinterpret_cast<float4*>(a.acc_src + s_row),
+                          make_float4(cot[0], cot[1], cot[2], cot[3]));
+                atomicAdd(reinterpret_cast<float4*>(a.acc_src + s_row + 4),
+                          make_float4(cot[4], cot[5], cot[6], cot[7]));
+              }
             } else {
               // vs = nq[src], vd = nk[dst]
               float dq[8];
@@ -271,24 +316,26 @@ edge_pass_tc_kernel(const TcArgs a) {
                 cot[j] = round_to<bf16>(d);
                 dq[j] = round_to<bf16>(ds * (vd[j] + proj[j] + bias[j]));
               }
-              atomicAdd(reinterpret_cast<float4*>(a.acc_src + s_row),
-                        make_float4(dq[0], dq[1], dq[2], dq[3]));
-              atomicAdd(reinterpret_cast<float4*>(a.acc_src + s_row + 4),
-                        make_float4(dq[4], dq[5], dq[6], dq[7]));
-              atomicAdd(reinterpret_cast<float4*>(a.acc_dst + d_row),
-                        make_float4(cot[0], cot[1], cot[2], cot[3]));
-              atomicAdd(reinterpret_cast<float4*>(a.acc_dst + d_row + 4),
-                        make_float4(cot[4], cot[5], cot[6], cot[7]));
+              if (last) {
+                atomicAdd(reinterpret_cast<float4*>(a.acc_src + s_row),
+                          make_float4(dq[0], dq[1], dq[2], dq[3]));
+                atomicAdd(reinterpret_cast<float4*>(a.acc_src + s_row + 4),
+                          make_float4(dq[4], dq[5], dq[6], dq[7]));
+                atomicAdd(reinterpret_cast<float4*>(a.acc_dst + d_row),
+                          make_float4(cot[0], cot[1], cot[2], cot[3]));
+                atomicAdd(reinterpret_cast<float4*>(a.acc_dst + d_row + 4),
+                          make_float4(cot[4], cot[5], cot[6], cot[7]));
+              }
             }
           }
         }
         packed[i] = pack_bf16x8(cot);
         // the cotangent's one trip to device memory, for the dW launch
-        if (active && e0 + r < E)
+        if (last && active && e0 + r < E)
           *reinterpret_cast<uint4*>(a.cot + (g * E + e0 + r) * HD + c0) =
               packed[i];
       }
-      if (PASS == 1) {
+      if (PASS == 1 && last) {
         if (H <= 4)
           tc_group_head_sums<4>(p, head, H, r0, lane, s_da);
         else
@@ -302,7 +349,7 @@ edge_pass_tc_kernel(const TcArgs a) {
       }
     }
     __syncwarp();
-    if (PASS == 1) {
+    if (PASS == 1 && last) {
       for (int idx = lane; idx < TC_ROWS * H; idx += 32) {
         const int h = idx / TC_ROWS, el = idx % TC_ROWS, e = e0 + el;
         if (e >= E) continue;
@@ -315,17 +362,18 @@ edge_pass_tc_kernel(const TcArgs a) {
     }
 
     // e. product 2: cot W^T -> f32 rows over the consumed cotangent rows,
-    // then demb = product (+ add) row by row, 16 bytes a lane. All of a
-    // lane's loads of `add` come before its stores: `add` may be demb.
+    // then demb = product (+ add) row by row, 16 bytes a lane, in the
+    // slice's columns. All of a lane's loads of `add` come before its
+    // stores: `add` may be demb.
     zero_acc(acc);
     warp_rows_product<false>(s_cot, ldc, sW, S::ld16, HDp / 16, acc);
     __syncwarp();
     tc_stage_acc(acc, s_rows, S::ld32, lane);
     __syncwarp();
-    if (c0 < D) {
-      bf16* out = a.demb + (g * E + e0) * D + c0;
+    if (c0 < DS) {
+      bf16* out = a.demb + (g * E + e0) * D + d0 + c0;
       const bf16* add = a.add == nullptr ? nullptr
-                                         : a.add + (g * E + e0) * D + c0;
+                                         : a.add + (g * E + e0) * D + d0 + c0;
       uint4 carried[TC_ROWS];
       if (add != nullptr) {
 #pragma unroll
@@ -354,7 +402,9 @@ edge_pass_tc_kernel(const TcArgs a) {
     __syncwarp();     // the stage is free for the next unit's emb rows
   }
 
-  // the block's partial bias gradient, through the warps' stages
+  // the block's partial bias gradient, through the warps' stages (the last
+  // slice's launch; the flag is the same for the whole grid)
+  if (!last) return;
   if (active) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) s_rows[c0 + j] = dbsum[j];
@@ -386,20 +436,22 @@ inline int dw_pairs(int ntb) {
 }
 
 // part[s, d, c] = sum over the slots r of range s of emb[r, d] * cot[r, c]:
-// emb (R, D), cot (R, HD) over all graphs' slots. Warp w takes the 16-row
-// tile w of dW (WARPS = 8 for D <= 128, else 16: sixteen warps on one tile
-// each hide more latency than eight on two, 139 against 168 us at D = HD =
-// 200) times all 2 NP column tiles of its block, of which the last ones may
-// lie past the block's columns and are not stored.
+// emb (R, D), cot (R, HD) over all graphs' slots, a block on the DS rows d
+// of slice blockIdx.z of W's rows. Warp w takes the 16-row tile w of the
+// slice (WARPS = 8 for DS <= 128, else 16: sixteen warps on one tile each
+// hide more latency than eight on two, 139 against 168 us at D = HD = 200)
+// times all 2 NP column tiles of its block, of which the last ones may lie
+// past the block's columns and are not stored.
 template <int NP, int WARPS>
 __global__ void __launch_bounds__(32 * WARPS, 1)
 dw_tc_kernel(const bf16* __restrict__ emb, const bf16* __restrict__ cot,
              float* __restrict__ part, long long R, long long chunk, int D,
-             int HD, int ntb) {
+             int DS, int HD, int ntb) {
   extern __shared__ __align__(16) unsigned char dw_smem[];
   constexpr int NT = 2 * NP, ldb = 16 * NP + 8;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int lda = tile_pitch(D);
+  const int d0 = blockIdx.z * DS;
+  const int lda = tile_pitch(DS);
   const int a_bytes = DWT_K * lda * 2, stage_bytes = a_bytes + DWT_K * ldb * 2;
   const int col0 = blockIdx.x * ntb * 8;
   const int nt = min(ntb, (HD - col0) / 8);
@@ -407,7 +459,7 @@ dw_tc_kernel(const bf16* __restrict__ emb, const bf16* __restrict__ cot,
   const long long r_end = r_begin + chunk < R ? r_begin + chunk : R;
   const int n_slices =
       r_begin < r_end ? (int)((r_end - r_begin + DWT_K - 1) / DWT_K) : 0;
-  const bool has_tile = warp < (D + 15) / 16;     // the warp's row tile of dW
+  const bool has_tile = warp < (DS + 15) / 16;    // the warp's row tile of dW
 
   auto load_slice = [&](int slice) {
     unsigned char* stage = dw_smem + (slice % DWT_STAGES) * stage_bytes;
@@ -415,14 +467,14 @@ dw_tc_kernel(const bf16* __restrict__ emb, const bf16* __restrict__ cot,
     bf16* sB = reinterpret_cast<bf16*>(stage + a_bytes);
     const long long r0 = r_begin + (long long)slice * DWT_K;
     // a warp on every WARPS-th slot, a lane on one 16-byte chunk of its row
-    // (D / 8 <= 32 chunks of emb, nt <= 16 of cot)
+    // (DS / 8 <= 32 chunks of emb, nt <= 16 of cot)
 #pragma unroll
     for (int r = warp; r < DWT_K; r += WARPS) {
       const bool in = r0 + r < r_end;
-      if (8 * lane < D) {
+      if (8 * lane < DS) {
         bf16* to = sA + r * lda + 8 * lane;
         if (in)
-          cp_async16(to, emb + (r0 + r) * D + 8 * lane);
+          cp_async16(to, emb + (r0 + r) * D + d0 + 8 * lane);
         else
           *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
       }
@@ -472,16 +524,16 @@ dw_tc_kernel(const bf16* __restrict__ emb, const bf16* __restrict__ cot,
   cp_async_wait<0>();
 
   if (!has_tile) return;
-  const int row = warp * 16 + (lane >> 2);
-  float* p = part + ((long long)blockIdx.y * D + row) * HD + col0 +
+  const int row = warp * 16 + (lane >> 2);       // of the slice
+  float* p = part + ((long long)blockIdx.y * D + d0 + row) * HD + col0 +
              2 * (lane & 3);
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     if (j < nt) {
-      if (row < D)
+      if (row < DS)
         *reinterpret_cast<float2*>(p + 8 * j) =
             make_float2(acc[j][0], acc[j][1]);
-      if (row + 8 < D)
+      if (row + 8 < DS)
         *reinterpret_cast<float2*>(p + 8 * j + 8LL * HD) =
             make_float2(acc[j][2], acc[j][3]);
     }
@@ -505,7 +557,7 @@ template <int NP, int WARPS>
 cudaError_t launch_dw_tc(const TcArgs& a, float* dw_part, int n_split,
                          int ntb, cudaStream_t s) {
   const size_t smem = (size_t)DWT_STAGES * DWT_K *
-                      (tile_pitch(a.D) + 16 * NP + 8) * 2;
+                      (tile_pitch(a.DS) + 16 * NP + 8) * 2;
   cudaError_t err = cudaFuncSetAttribute(
       dw_tc_kernel<NP, WARPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -514,31 +566,39 @@ cudaError_t launch_dw_tc(const TcArgs& a, float* dw_part, int n_split,
   long long chunk = (R + n_split - 1) / n_split;
   chunk = (chunk + DWT_K - 1) / DWT_K * DWT_K;
   dw_tc_kernel<NP, WARPS>
-      <<<dim3((a.HD / 8 + ntb - 1) / ntb, n_split), 32 * WARPS, smem, s>>>(
-          a.emb, a.cot, dw_part, R, chunk, a.D, a.HD, ntb);
+      <<<dim3((a.HD / 8 + ntb - 1) / ntb, n_split, a.D / a.DS), 32 * WARPS,
+         smem, s>>>(a.emb, a.cot, dw_part, R, chunk, a.D, a.DS, a.HD, ntb);
   return cudaSuccess;
 }
 
 template <int NP>
 cudaError_t launch_dw_rows(const TcArgs& a, float* dw_part, int n_split,
                            int ntb, cudaStream_t s) {
-  return a.D > 128 ? launch_dw_tc<NP, 16>(a, dw_part, n_split, ntb, s)
-                   : launch_dw_tc<NP, 8>(a, dw_part, n_split, ntb, s);
+  return a.DS > 128 ? launch_dw_tc<NP, 16>(a, dw_part, n_split, ntb, s)
+                    : launch_dw_tc<NP, 8>(a, dw_part, n_split, ntb, s);
 }
 
-// The four launches of a pass on the tensor-core route. `warps` and
-// `n_blocks` are the caller's (the partial arrays are sized from them).
+// The launches of a pass on the tensor-core route: the edge kernel once a
+// slice of W's rows (D / DS of them, in order), dW and the two reductions.
+// `warps` and `n_blocks` are the caller's (the partial arrays are sized
+// from them).
 template <int PASS>
-int launch_pass_tc(const TcArgs& a, float* dw_part, float* dw, float* db,
+int launch_pass_tc(TcArgs a, float* dw_part, float* dw, float* db,
                    int n_split, int warps, int n_blocks, cudaStream_t s) {
   if (warps < 1 || warps > TC_MAX_WARPS || n_blocks < 1)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  switch (tc_pairs(a.D, a.HD)) {
-    case 4: err = launch_edge_tc<PASS, 4>(a, warps, n_blocks, s); break;
-    case 8: err = launch_edge_tc<PASS, 8>(a, warps, n_blocks, s); break;
-    case 13: err = launch_edge_tc<PASS, 13>(a, warps, n_blocks, s); break;
-    default: err = launch_edge_tc<PASS, 16>(a, warps, n_blocks, s); break;
+  cudaError_t err = cudaSuccess;
+  const int n_slices = a.D / a.DS;
+  for (int z = 0; z < n_slices && err == cudaSuccess; ++z) {
+    a.d0 = z * a.DS;
+    a.first = z == 0;
+    a.last = z == n_slices - 1;
+    switch (tc_pairs(a.DS, a.HD)) {
+      case 4: err = launch_edge_tc<PASS, 4>(a, warps, n_blocks, s); break;
+      case 8: err = launch_edge_tc<PASS, 8>(a, warps, n_blocks, s); break;
+      case 13: err = launch_edge_tc<PASS, 13>(a, warps, n_blocks, s); break;
+      default: err = launch_edge_tc<PASS, 16>(a, warps, n_blocks, s); break;
+    }
   }
   if (err != cudaSuccess) return (int)err;
   const int D = a.D, HD = a.HD, ntb = dw_block_tiles(HD);

@@ -281,7 +281,10 @@ class QAGNNMessagePassing(nn.Module):
                            node_type.to(torch.int32).contiguous(), mask),
                 n_rel=n_etype + 1, n_ntype=n_ntype)
         else:
-            e_rel = F.one_hot(edge_type.long(), n_etype + 1).to(cdt)
+            # jax.nn.one_hot's: an id outside [0, n_etype] is a zero row,
+            # as the fused branch's kernels give it no relation feature
+            e_rel = (edge_type.long()[..., None] == torch.arange(
+                n_etype + 1, device=H.device)).to(cdt)
             e_head = F.one_hot(torch.gather(ntype, 1, src.long()),
                                n_ntype).to(cdt)
             e_tail = F.one_hot(torch.gather(ntype, 1, dst.long()),

@@ -57,10 +57,16 @@ _require = _build.require
 
 
 def _feature_rows(edge_type, src, dst, node_type, n_rel, n_ntype):
-    """The three W0 rows (G, E) int64 that an edge slot's feature row sets."""
+    """The three W0 rows (G, E) int64 that an edge slot's feature row sets.
+    A relation id outside [0, n_rel) matches no relation column of the JAX
+    package's one-hot (`_feat_onehot`, jax.nn.one_hot): its relation row is
+    F = n_rel + 2 n_ntype, one past W0, which the plain versions read as a
+    zero row and whose counts they drop; its type rows count as usual."""
     head = torch.gather(node_type.long(), 1, src.long())
     tail = torch.gather(node_type.long(), 1, dst.long())
-    return edge_type.long(), n_rel + head, n_rel + n_ntype + tail
+    rel = edge_type.long()
+    rel = torch.where((rel >= 0) & (rel < n_rel), rel, n_rel + 2 * n_ntype)
+    return rel, n_rel + head, n_rel + n_ntype + tail
 
 
 # --------------------------------------------------------------------------
@@ -73,17 +79,26 @@ def edge_feature_moments_plain(edge_type, src, dst, node_type, mask, n_rel,
     m = mask.reshape(-1).bool()
     feats = torch.stack([r.reshape(-1)[m] for r in _feature_rows(
         edge_type, src, dst, node_type, n_rel, n_ntype)], dim=1)   # (n, 3)
-    hist = torch.bincount(feats.reshape(-1), minlength=F)
-    pairs = feats[:, :, None] * F + feats[:, None, :]
-    M = torch.bincount(pairs.reshape(-1), minlength=F * F).reshape(F, F)
+    # row F (no relation) counted, then dropped
+    hist = torch.bincount(feats.reshape(-1), minlength=F + 1)[:F]
+    pairs = feats[:, :, None] * (F + 1) + feats[:, None, :]
+    M = torch.bincount(pairs.reshape(-1), minlength=(F + 1) ** 2) \
+        .reshape(F + 1, F + 1)[:F, :F]
     return hist.float(), M.float(), m.sum().float()
 
 
+def _triples(n_rel, n_ntype):
+    """The moments kernel's triple counts: (relation, head type, tail type)
+    for the n_rel relations and one bucket of slots with no relation (an id
+    outside [0, n_rel)), n_ntype^2 each."""
+    return (n_rel + 1) * n_ntype ** 2
+
+
 def _moments_smem(n_rel, n_ntype):
-    """Shared memory of the moments kernel's block: the T = n_rel *
-    n_ntype^2 triple counts and the last block's tables (relation x type
-    twice, type x type), int32."""
-    return 4 * (n_rel * n_ntype ** 2 + 2 * n_rel * n_ntype + n_ntype ** 2)
+    """Shared memory of the moments kernel's block: the `_triples` counts
+    and the last block's tables (relation x type twice, for the n_rel
+    relations only; type x type), int32."""
+    return 4 * (_triples(n_rel, n_ntype) + 2 * n_rel * n_ntype + n_ntype ** 2)
 
 
 _TABLES: dict = {}
@@ -118,7 +133,7 @@ def edge_feature_moments(edge_type, src, dst, node_type, mask, n_rel,
     _require(node_type, "node_type", torch.int32, (G, N))
     _require(mask, "mask", torch.bool, (G, E))
     if _moments_smem(n_rel, n_ntype) > MOMENTS_MAX_SMEM:
-        raise ValueError(f"the moments kernel counts n_rel * n_ntype^2 "
+        raise ValueError(f"the moments kernel counts (n_rel + 1) * n_ntype^2 "
                          f"triples in shared memory; n_rel={n_rel}, "
                          f"n_ntype={n_ntype} do not fit")
     dev = edge_type.device
@@ -127,7 +142,7 @@ def edge_feature_moments(edge_type, src, dst, node_type, mask, n_rel,
     err = _build.load("edge_moments", _MOMENTS_SIGNATURES).edge_moments_launch(
         edge_type.data_ptr(), src.data_ptr(), dst.data_ptr(),
         node_type.data_ptr(), mask.data_ptr(),
-        _moments_table(dev, stream, n_rel * n_ntype ** 2).data_ptr(),
+        _moments_table(dev, stream, _triples(n_rel, n_ntype)).data_ptr(),
         out.data_ptr(), G, E, N, n_rel, n_ntype, stream)
     _build.check(err, "edge_moments")
     _build.count_launch("edge_moments")
@@ -180,8 +195,9 @@ def _check_aligned(route, *ts):
 def _x0(rows, w0, b0, out_dtype):
     """W0^T feat + b0 (G, E, D) f32: the three W0 rows are rounded to
     out_dtype and summed in f32, as the TPU kernel's one-hot contraction
-    does."""
+    does; relation row F (no relation) is a zero row."""
     w0c = w0.to(out_dtype).float()
+    w0c = torch.cat([w0c, w0c.new_zeros((1, w0c.shape[1]))])
     return w0c[rows[0]] + w0c[rows[1]] + w0c[rows[2]] + b0.float()
 
 
@@ -203,10 +219,10 @@ def edge_hidden_backward_plain(edge_type, src, dst, node_type, w0, b0, a, b,
     d_pre = torch.where(a.float() * x0 + b.float() > 0, dh.float(), 0.0)
     d_x0 = d_pre * a.float()
     dxc = d_x0.to(dh.dtype).float().reshape(-1, D)
-    dw0 = torch.zeros_like(w0, dtype=torch.float32)
+    dw0 = w0.new_zeros((w0.shape[0] + 1, D), dtype=torch.float32)
     for r in rows:
         dw0.index_add_(0, r.reshape(-1), dxc)
-    return (dw0, d_x0.sum((0, 1)), (d_pre * x0).sum((0, 1)),
+    return (dw0[:-1], d_x0.sum((0, 1)), (d_pre * x0).sum((0, 1)),
             d_pre.sum((0, 1)))
 
 

@@ -56,14 +56,23 @@ the plain version for CPU tensors only; for CUDA tensors it launches its
 kernel or raises.
 
 Unlike the TPU op the edge embedding is (G, E, D), not transposed, and no
-edge padding is needed: any E works. The kernels take D and HD that are
-multiples of 8, HD <= 256 (the backward also D <= 256 and heads of at least
-4 features) and at most 8 heads; the plain versions take any. The op
-(`gat_projected`, `gat_projected_chained`) pads other widths with zeros to
-ones the kernels take (`kernel_widths`: D to a multiple of 8, each head's
-features to at least 4 and to a multiple of 8 over the heads), on every
-device, and cuts the results back; a zero feature adds nothing to a score,
-a message or a product, so the padding changes no value.
+edge padding is needed: any E works. A launch takes D and HD that are
+multiples of 8, HD <= 256 and at most 8 heads (the backward also heads of at
+least 4 features); the plain versions take any. The backward kernels take
+any such D: beyond 256 they run W's rows in slices (`d_slices`), each slice
+writing its own columns of d_edge_emb and its own rows of dW, the node-side
+outputs written by one slice alone. The op (`gat_projected`,
+`gat_projected_chained`) pads other widths with zeros to ones the kernels
+take (`kernel_widths`: D to a multiple of 8, each head's features to at
+least 4 and to a multiple of 8 over the heads; to a multiple of 8 a head
+where the heads take more than one launch), on every device, and cuts the
+results back; a zero feature adds nothing to a score, a message or a
+product, so the padding changes no value. Each pass wrapper runs more than 8
+heads, or more than 256 columns, as groups of whole heads (`head_groups`),
+one launch a group, on every device: every quantity of the op is per head,
+and the backward's d_edge_emb sums over the groups inside the kernels (pass
+1's carry, pass 2's in-place add). The one width left is a single head of
+more than 256 features, which `kernel_widths` refuses.
 
 The unprojected op (`pallas_relational_gat`: precomputed per-edge biases, no
 projection in the kernels) is the sibling module `gat_unproj_kernels`, which
@@ -96,8 +105,8 @@ _SIGNATURES = {
 
 
 _BWD_SIGNATURES = {
-    "gat_bwd_pass1": [_P] * 22 + [_I] * 11 + [_P],
-    "gat_bwd_pass2": [_P] * 22 + [_I] * 11 + [_P],
+    "gat_bwd_pass1": [_P] * 23 + [_I] * 12 + [_P],
+    "gat_bwd_pass2": [_P] * 23 + [_I] * 12 + [_P],
 }
 DW_SPLITS = 128      # edge ranges (rows of partials) of the dW products
 # the tensor-core routes (csrc/gat_fwd_tc.cuh, csrc/gat_bwd_tc.cuh)
@@ -125,8 +134,11 @@ def _dtype_code(t: torch.Tensor) -> int:
 _require = _build.require
 
 
+MAX_COLS, MAX_HEADS = 256, 8     # the columns and heads of one launch
+
+
 def _check_widths(D: int, HD: int, heads: int) -> None:
-    if D % 8 or HD % 8 or HD > 256 or heads > 8 or HD % heads:
+    if D % 8 or HD % 8 or HD > MAX_COLS or heads > MAX_HEADS or HD % heads:
         raise ValueError(f"GAT kernels take D, HD multiples of 8, HD <= 256 "
                          f"and <= 8 heads dividing HD; got D={D}, HD={HD}, "
                          f"heads={heads}")
@@ -134,10 +146,42 @@ def _check_widths(D: int, HD: int, heads: int) -> None:
 
 def _check_bwd_widths(D: int, HD: int, heads: int) -> None:
     _check_widths(D, HD, heads)
-    if D > 256 or HD // heads < 4:
-        raise ValueError(f"GAT backward kernels take D <= 256 and heads of "
-                         f"at least 4 features; got D={D}, HD={HD}, "
-                         f"heads={heads}")
+    if HD // heads < 4:
+        raise ValueError(f"GAT backward kernels take heads of at least 4 "
+                         f"features; got D={D}, HD={HD}, heads={heads}")
+
+
+def d_slices(D: int) -> tuple[int, int]:
+    """(slices, width) of W's rows in the backward kernels: D in equal
+    slices of at most 256 rows, each a multiple of 8 (the fewest such; one
+    slice up to D = 256). D must be a multiple of 8."""
+    n = next(n for n in range(-(-D // MAX_COLS), D // 8 + 1)
+             if D % n == 0 and (D // n) % 8 == 0)
+    return n, D // n
+
+
+def head_groups(HD: int, heads: int) -> list[tuple[int, int]]:
+    """[(first head, end head)] of the launches that run `heads` heads of
+    HD / heads features: one group where a launch takes them all, else as
+    few groups of whole heads as hold at most 8 heads and 256 columns each,
+    their sizes differing by one at most. Every quantity of the op is per
+    head, so running the groups apart changes no value."""
+    dph = HD // heads
+    if heads <= MAX_HEADS and HD <= MAX_COLS:
+        return [(0, heads)]
+    per = min(MAX_HEADS, MAX_COLS // dph)
+    if per == 0:
+        raise ValueError(f"a head of {dph} features is wider than the "
+                         f"{MAX_COLS} columns a GAT kernel takes")
+    n = -(-heads // per)
+    bounds = [heads * i // n for i in range(n + 1)]
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def head_cols(t: torch.Tensor, h0: int, h1: int, heads: int) -> torch.Tensor:
+    """The columns of heads [h0, h1) of a (..., HD) head-major tensor."""
+    dph = t.shape[-1] // heads
+    return t[..., h0 * dph:h1 * dph].contiguous()
 
 
 def _stream() -> int:
@@ -182,11 +226,32 @@ def pass_a_scores_plain(nq, nk, edge_emb, w_ke, b_ke, src, dst, mask, heads):
     return scores, torch.clamp_min(m_edge, NEG)
 
 
+def by_head_groups(HD, heads, run, cat_dims):
+    """run(h0, h1) for each of `head_groups(HD, heads)`; with more than one
+    group, the results' parts concatenated along `cat_dims` (None: the last
+    group's part, for a result every group gives alike)."""
+    outs = [run(h0, h1) for h0, h1 in head_groups(HD, heads)]
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(parts[-1] if d is None else torch.cat(parts, d)
+                 for parts, d in zip(zip(*outs), cat_dims))
+
+
 def pass_a_scores(nq, nk, edge_emb, w_ke, b_ke, src, dst, mask, heads,
                   _route=None):
     """Scores (G, H, E) f32, 0 at masked slots, and the max over masked
-    edges (G, H) f32 (NEG for a graph with no masked edge). `_route` names
-    a route (`_fwd_route`) to time it beside the other."""
+    edges (G, H) f32 (NEG for a graph with no masked edge); a launch a head
+    group. `_route` names a route (`_fwd_route`) to time it beside the
+    other."""
+    def run(h0, h1):
+        cols = lambda t: head_cols(t, h0, h1, heads)  # noqa: E731
+        return _pass_a_scores(cols(nq), cols(nk), edge_emb, cols(w_ke),
+                              cols(b_ke), src, dst, mask, h1 - h0, _route)
+    return by_head_groups(nq.shape[-1], heads, run, (1, 1))
+
+
+def _pass_a_scores(nq, nk, edge_emb, w_ke, b_ke, src, dst, mask, heads,
+                   _route):
     if not nq.is_cuda:
         return pass_a_scores_plain(nq, nk, edge_emb, w_ke, b_ke, src, dst,
                                    mask, heads)
@@ -284,8 +349,26 @@ def pass_c(nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst, mask,
            out, heads, _route=None):
     """Adds alpha * msg of every masked edge at its dst into `out`
     (G, N, HD) f32, IN PLACE (the caller seeds it with the self-loop term;
-    no second (G, N, HD) buffer), and returns it. `_route` as in
-    `pass_a_scores`."""
+    no second (G, N, HD) buffer), and returns it; a launch a head group,
+    each on its own columns of `out`. `_route` as in `pass_a_scores`."""
+    HD = nm.shape[-1]
+    groups = head_groups(HD, heads)
+    if len(groups) == 1:
+        return _pass_c(nm, edge_emb, w_me, b_me, scores, gmax, scale, src,
+                       dst, mask, out, heads, _route)
+    dph = HD // heads
+    for h0, h1 in groups:
+        cols = lambda t: head_cols(t, h0, h1, heads)  # noqa: E731
+        hs = lambda t: t[..., h0:h1].contiguous()     # noqa: E731
+        out[..., h0 * dph:h1 * dph] = _pass_c(
+            cols(nm), edge_emb, cols(w_me), cols(b_me),
+            scores[:, h0:h1].contiguous(), hs(gmax), hs(scale), src, dst,
+            mask, cols(out), h1 - h0, _route)
+    return out
+
+
+def _pass_c(nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst, mask,
+            out, heads, _route):
     if not nm.is_cuda:
         return pass_c_plain(nm, edge_emb, w_me, b_me, scores, gmax, scale,
                             src, dst, mask, out, heads)
@@ -425,9 +508,9 @@ def _fwd_route(cdt, D, HD, heads, route):
 def _tc_smem(D, HD, warps, small_floats):
     """Dynamic shared memory of a tensor-core edge kernel (`TcShape` in
     csrc/gat_tc_common.cuh), which is compiled for widths of 64, 128, 208
-    and 256 columns: W in bf16 at the first of these that holds D and HD,
-    then per warp a stage (16 f32 rows of that width) and its small tables
-    of `small_floats` floats."""
+    and 256 columns: W in bf16 at the first of these that holds D (the
+    backward's slice of W's rows) and HD, then per warp a stage (16 f32
+    rows of that width) and its small tables of `small_floats` floats."""
     width = next(w for w in (64, 128, 208, 256) if max(D, HD) <= w)
     w_tile = width * (width + 8) * 2
     stage = TC_UNIT * (width + 4) * 4
@@ -484,9 +567,10 @@ def _split_scratch(G, E, D, HD, device, route=0, n_sm=1):
     partial sums of dW over n_split edge ranges and of db, one row per block
     of the edge kernel: (64-edge tile, graph) blocks on CUDA cores (warps
     and n_blocks are 0: that grid follows from the shapes), n_blocks
-    persistent blocks on tensor cores, where dW is split once per SM."""
+    persistent blocks on tensor cores, where dW is split once per SM and a
+    block holds one slice of W's rows (`d_slices`)."""
     if route == 1:
-        warps, n_blocks = _tc_plan(G, E, D, HD, n_sm)
+        warps, n_blocks = _tc_plan(G, E, d_slices(D)[1], HD, n_sm)
         n_split, db_rows = max(1, min(n_sm, -(-G * E // 32))), n_blocks
     else:
         warps = n_blocks = 0
@@ -501,6 +585,23 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _sliced_transpose(w, width):
+    """W (D, HD) as its transpose in slices of `width` of W's rows, slice
+    major: (D / width, HD, width), what route 0's demb launch reads a
+    slice at a time (W^T itself where one slice holds D)."""
+    D, HD = w.shape
+    return w.t().reshape(HD, D // width, width).transpose(0, 1).contiguous()
+
+
+def _proj_scratch(route, n_slices, G, E, HD, device):
+    """Route 1 at more than one slice of W's rows: the edge projection
+    summed over the slices so far, (G, E, HD) f32, handed from each slice's
+    launch to the next; None otherwise."""
+    if route == 1 and n_slices > 1:
+        return torch.empty((G, E, HD), device=device, dtype=torch.float32)
+    return None
+
+
 def bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
               mask, carry, dnm, dscale, heads, _route=None):
     """Backward pass 1. gout: (G, N, HD) output cotangent in the compute
@@ -510,7 +611,31 @@ def bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
 
     Returns (demb (G, E, D) in the embedding's dtype, d_alpha (G, H, E) f32
     (0 at masked slots), dnm, dscale, dW_me (D, HD) f32, db_me (HD,) f32).
+    A launch a head group: each group's demb is the next group's carry, so
+    the groups' edge cotangents are summed inside the kernels.
     """
+    HD = nm.shape[-1]
+    groups = head_groups(HD, heads)
+    if len(groups) == 1:
+        return _bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax,
+                          scale, src, dst, mask, carry, dnm, dscale, heads,
+                          _route)
+    dph, demb, parts = HD // heads, carry, []
+    for h0, h1 in groups:
+        cols = lambda t: head_cols(t, h0, h1, heads)  # noqa: E731
+        hs = lambda t: t[..., h0:h1].contiguous()     # noqa: E731
+        c = slice(h0 * dph, h1 * dph)
+        demb, dalpha, dnm[..., c], dscale[..., h0:h1], dw, db = _bwd_pass1(
+            cols(gout), cols(nm), edge_emb, cols(w_me), cols(b_me),
+            scores[:, h0:h1].contiguous(), hs(gmax), hs(scale), src, dst,
+            mask, demb, cols(dnm), hs(dscale), h1 - h0, _route)
+        parts.append((dalpha, dw, db))
+    dalpha, dw, db = (torch.cat(p, d) for p, d in zip(zip(*parts), (1, 1, 0)))
+    return demb, dalpha, dnm, dscale, dw, db
+
+
+def _bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
+               mask, carry, dnm, dscale, heads, _route):
     if not nm.is_cuda:
         return bwd_pass1_plain(gout, nm, edge_emb, w_me, b_me, scores, gmax,
                                scale, src, dst, mask, carry, dnm, dscale,
@@ -536,8 +661,10 @@ def bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
     _require(dscale, "dscale", torch.float32, (G, N, heads))
     dev = nm.device
     route = _bwd_route(cdt, _route)
+    n_slices, width = d_slices(D)
     # the tensor-core kernels read W_me both ways from one shared tile
-    w_t = None if route == 1 else w_me.t().contiguous()
+    w_t = None if route == 1 else _sliced_transpose(w_me, width)
+    proj = _proj_scratch(route, n_slices, G, E, HD, dev)
     dmsg = torch.empty((G, E, HD), device=dev, dtype=cdt)
     demb = torch.empty((G, E, D), device=dev, dtype=cdt)
     dalpha = torch.empty((G, heads, E), device=dev, dtype=torch.float32)
@@ -553,8 +680,9 @@ def bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
         None if carry is None else carry.data_ptr(), dmsg.data_ptr(),
         demb.data_ptr(), dalpha.data_ptr(), dnm.data_ptr(),
         dscale.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), G, N, E, D, HD, heads, n_split,
-        _dtype_code(nm), route, warps, n_blocks, _stream())
+        dw.data_ptr(), db.data_ptr(),
+        None if proj is None else proj.data_ptr(), G, N, E, D, HD, heads,
+        n_split, width, _dtype_code(nm), route, warps, n_blocks, _stream())
     _build.check(err, "gat_bwd_pass1")
     _build.count_launch("gat_bwd_pass1", route)
     return demb, dalpha, dnm, dscale, dw, db
@@ -592,7 +720,31 @@ def bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
     PLACE on the kernel path, as are dnq and dnk (G, N, HD) f32, which
     arrive seeded with the self-loop cotangents.
 
-    Returns (demb, dnq, dnk, dW_ke (D, HD) f32, db_ke (HD,) f32)."""
+    Returns (demb, dnq, dnk, dW_ke (D, HD) f32, db_ke (HD,) f32). A launch
+    a head group, each adding its edge cotangent into demb."""
+    HD = nq.shape[-1]
+    groups = head_groups(HD, heads)
+    if len(groups) == 1:
+        return _bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha,
+                          scale, d_denom, src, dst, mask, demb, dnq, dnk,
+                          heads, _route)
+    dph, parts = HD // heads, []
+    for h0, h1 in groups:
+        cols = lambda t: head_cols(t, h0, h1, heads)  # noqa: E731
+        hs = lambda t: t[..., h0:h1].contiguous()     # noqa: E731
+        c = slice(h0 * dph, h1 * dph)
+        demb, dnq[..., c], dnk[..., c], dw, db = _bwd_pass2(
+            cols(nq), cols(nk), edge_emb, cols(w_ke), cols(b_ke),
+            scores[:, h0:h1].contiguous(), hs(gmax),
+            dalpha[:, h0:h1].contiguous(), hs(scale), hs(d_denom), src, dst,
+            mask, demb, cols(dnq), cols(dnk), h1 - h0, _route)
+        parts.append((dw, db))
+    dw, db = (torch.cat(p, d) for p, d in zip(zip(*parts), (1, 0)))
+    return demb, dnq, dnk, dw, db
+
+
+def _bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
+               d_denom, src, dst, mask, demb, dnq, dnk, heads, _route):
     if not nq.is_cuda:
         return bwd_pass2_plain(nq, nk, edge_emb, w_ke, b_ke, scores, gmax,
                                dalpha, scale, d_denom, src, dst, mask, demb,
@@ -619,7 +771,9 @@ def bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
     _require(dnk, "dnk", torch.float32, (G, N, HD))
     dev = nq.device
     route = _bwd_route(cdt, _route)
-    w_t = None if route == 1 else w_ke.t().contiguous()
+    n_slices, width = d_slices(D)
+    w_t = None if route == 1 else _sliced_transpose(w_ke, width)
+    proj = _proj_scratch(route, n_slices, G, E, HD, dev)
     dekb = torch.empty((G, E, HD), device=dev, dtype=cdt)
     dw = torch.empty((D, HD), device=dev, dtype=torch.float32)
     db = torch.empty((HD,), device=dev, dtype=torch.float32)
@@ -632,8 +786,9 @@ def bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
         dalpha.data_ptr(), scale.data_ptr(), d_denom.data_ptr(),
         src.data_ptr(), dst.data_ptr(), mask.data_ptr(), dekb.data_ptr(),
         demb.data_ptr(), dnq.data_ptr(), dnk.data_ptr(), dw_part.data_ptr(),
-        db_part.data_ptr(), dw.data_ptr(), db.data_ptr(), G, N, E, D, HD,
-        heads, n_split, _dtype_code(nq), route, warps, n_blocks, _stream())
+        db_part.data_ptr(), dw.data_ptr(), db.data_ptr(),
+        None if proj is None else proj.data_ptr(), G, N, E, D, HD, heads,
+        n_split, width, _dtype_code(nq), route, warps, n_blocks, _stream())
     _build.check(err, "gat_bwd_pass2")
     _build.count_launch("gat_bwd_pass2", route)
     return demb, dnq, dnk, dw, db
@@ -708,12 +863,35 @@ def _contiguous(*ts):
 
 
 def kernel_widths(D: int, HD: int, heads: int) -> tuple[int, int]:
-    """(D, HD) the op runs its kernels at: D rounded up to a multiple of 8,
-    each head's HD / heads features to at least 4 and so that the heads
-    together make a multiple of 8."""
+    """(D, HD) the op runs its kernels at: D rounded up to a multiple of 8
+    (above 256, of 8 times the fewest slices of at most 256 rows, so that
+    `d_slices` cuts it evenly into that many), each head's HD / heads
+    features to at least 4 and so that the heads
+    together make a multiple of 8; where that is more than 8 heads or 256
+    columns, which run in head groups (`head_groups`), each head's features
+    to a multiple of 8, so that any group of whole heads is. Raises for a
+    head of more than 256 features, which neither rule splits."""
     step = 8 // math.gcd(8, heads)
     dph = -(-max(HD // heads, 4) // step) * step
-    return -(-D // 8) * 8, heads * dph
+    if heads > MAX_HEADS or heads * dph > MAX_COLS:
+        dph = -(-(HD // heads) // 8) * 8
+        if dph > MAX_COLS:
+            raise ValueError(
+                f"a head of {HD // heads} features: the GAT kernels take "
+                f"heads of at most {MAX_COLS} features (gnn_dim up to "
+                f"{MAX_COLS} a head)")
+    unit = 8 * max(1, -(-D // MAX_COLS))
+    return -(-D // unit) * unit, heads * dph
+
+
+def pad_heads(t: torch.Tensor, heads: int, HDk: int) -> torch.Tensor:
+    """(..., HD) head-major -> (..., HDk): zero features at the end of each
+    head's columns."""
+    HD = t.shape[-1]
+    if HDk == HD:
+        return t
+    t = t.reshape(*t.shape[:-1], heads, HD // heads)
+    return F.pad(t, (0, (HDk - HD) // heads)).reshape(*t.shape[:-2], HDk)
 
 
 def pad_widths(nq, nk, nm, edge_emb, w_ke, b_ke, w_me, b_me, skb, smb,
@@ -725,8 +903,7 @@ def pad_widths(nq, nk, nm, edge_emb, w_ke, b_ke, w_me, b_me, skb, smb,
     Dk, HDk = kernel_widths(D, HD, heads)
 
     def cols(t):
-        t = t.reshape(*t.shape[:-1], heads, HD // heads)
-        return F.pad(t, (0, (HDk - HD) // heads)).reshape(*t.shape[:-2], HDk)
+        return pad_heads(t, heads, HDk)
 
     def rows(w):
         return F.pad(w, (0, 0, 0, Dk - D))

@@ -62,8 +62,14 @@ No gradient flows through gmax. Every kernel has a plain torch version here
 with the same arithmetic and the same rounding points. A wrapper takes the
 plain version for CPU tensors only; for CUDA tensors it launches its kernel
 or raises. Any E works (the TPU op's edge padding is a tile matter of that
-machine). The kernels take HD a multiple of 8 up to 256 and at most 8 heads
-dividing HD; the plain versions take any.
+machine). A launch takes HD a multiple of 8 up to 256 and at most 8 heads
+dividing HD; the wrappers take any width the JAX op takes, on every device:
+each head's features are padded with zeros as the projected op pads them
+(`gat_kernels.kernel_widths`; a zero feature adds nothing to a score, a
+message or a gradient) and the results cut back, and more than 8 heads or
+256 columns run as groups of whole heads (`gat_kernels.head_groups`), one
+launch a group, every quantity being per head. A single head of more than
+256 features is refused.
 """
 
 from __future__ import annotations
@@ -83,8 +89,14 @@ from qagnn_tpu_torch.ops.gat_kernels import (
     _require,
     _scatter_nodes,
     _stream,
+    by_head_groups,
+    cut_heads,
+    head_cols,
+    head_groups,
     head_sum,
     heads_to_hd,
+    kernel_widths,
+    pad_heads,
 )
 
 _SIGNATURES = {
@@ -114,6 +126,21 @@ def _require_graph(src, dst, mask, G, E) -> None:
     _require(src, "src", torch.int32, (G, E))
     _require(dst, "dst", torch.int32, (G, E))
     _require(mask, "mask", torch.bool, (G, E))
+
+
+def _padded(HD: int, heads: int) -> int:
+    """The columns the launches take for HD: each head padded as the
+    projected op pads it."""
+    return kernel_widths(HD, HD, heads)[1]
+
+
+def _cut_into(acc, padded, heads):
+    """`acc` (G, N, HD), added to in place as `padded` (G, N, HDk): the
+    padded accumulator's columns cut back into it (nothing where the two
+    are one tensor)."""
+    if padded is not acc:
+        acc.copy_(cut_heads(padded, acc.shape[-1], heads))
+    return acc
 
 
 def _pick_route(kernel, fits, route, prefer=True, **shapes):
@@ -201,8 +228,20 @@ def edge_scores_plain(nq, nk, ekb, src, dst, mask, heads):
 
 def edge_scores(nq, nk, ekb, src, dst, mask, heads, _route=None):
     """Scores (G, H, E) f32, 0 at masked slots, and the max over masked
-    edges (G, H) f32 (NEG for a graph with no masked edge). `_route` names a
-    route (`_scores_route`), to time it beside the other."""
+    edges (G, H) f32 (NEG for a graph with no masked edge); a launch a head
+    group, each head padded to `_padded`. `_route` names a route
+    (`_scores_route`), to time it beside the other."""
+    HDk = _padded(nq.shape[-1], heads)
+    nq, nk, ekb = (pad_heads(t, heads, HDk) for t in (nq, nk, ekb))
+
+    def run(h0, h1):
+        cols = lambda t: head_cols(t, h0, h1, heads)  # noqa: E731
+        return _edge_scores(cols(nq), cols(nk), cols(ekb), src, dst, mask,
+                            h1 - h0, _route)
+    return by_head_groups(HDk, heads, run, (1, 1))
+
+
+def _edge_scores(nq, nk, ekb, src, dst, mask, heads, _route):
     if not nq.is_cuda:
         return edge_scores_plain(nq, nk, ekb, src, dst, mask, heads)
     G, N, HD = nq.shape
@@ -264,8 +303,20 @@ def edge_denoms_plain(scores, gmax, src, mask, n_nodes):
 def edge_denoms(scores, gmax, src, mask, n_nodes, _route=None):
     """e_edge = exp(min(s - gmax, 0)) over masked edges and 0 elsewhere
     (G, H, E), its per-source sums (G, N, H) and the out-degree (G, N), all
-    f32. `_route` names a route (`_denoms_route`), to time it beside the
-    other."""
+    f32; a launch a group of at most 8 heads (the degree is the same in
+    every group). `_route` names a route (`_denoms_route`), to time it
+    beside the other."""
+    H = scores.shape[1]
+
+    def run(h0, h1):
+        return _edge_denoms(scores[:, h0:h1].contiguous(),
+                            gmax[:, h0:h1].contiguous(), src, mask, n_nodes,
+                            _route)
+    # one column a head: groups of at most 8 heads
+    return by_head_groups(H, H, run, (1, 2, None))
+
+
+def _edge_denoms(scores, gmax, src, mask, n_nodes, _route):
     if not scores.is_cuda:
         return edge_denoms_plain(scores, gmax, src, mask, n_nodes)
     G, H, E = scores.shape
@@ -304,8 +355,27 @@ def aggregate(nm, emb, e_edge, scale, src, dst, mask, out, heads,
               _route=None):
     """Adds alpha * msg of every masked edge, rounded to the compute dtype,
     at its dst into `out` (G, N, HD) f32, IN PLACE (the caller seeds it with
-    the self-loop term), and returns it. `_route` names a route
-    (`_aggr_route`), to time it beside the other."""
+    the self-loop term), and returns it; a launch a head group, each head
+    padded to `_padded`. `_route` names a route (`_aggr_route`), to time it
+    beside the other."""
+    HD = nm.shape[-1]
+    HDk = _padded(HD, heads)
+    groups = head_groups(HDk, heads)
+    if HDk == HD and len(groups) == 1:
+        return _aggregate(nm, emb, e_edge, scale, src, dst, mask, out, heads,
+                          _route)
+    nm, emb, acc = (pad_heads(t, heads, HDk) for t in (nm, emb, out))
+    for h0, h1 in groups:
+        cols = lambda t: head_cols(t, h0, h1, heads)  # noqa: E731
+        c = slice(h0 * (HDk // heads), h1 * (HDk // heads))
+        acc[..., c] = _aggregate(
+            cols(nm), cols(emb), e_edge[:, h0:h1].contiguous(),
+            scale[..., h0:h1].contiguous(), src, dst, mask, cols(acc),
+            h1 - h0, _route)
+    return _cut_into(out, acc, heads)
+
+
+def _aggregate(nm, emb, e_edge, scale, src, dst, mask, out, heads, _route):
     if not nm.is_cuda:
         return aggregate_plain(nm, emb, e_edge, scale, src, dst, mask, out,
                                heads)
@@ -386,8 +456,34 @@ def bwd1(gout, nm, emb, e_edge, scale, src, dst, mask, dnm, dscale, heads,
     self-loop cotangents and are added to IN PLACE.
 
     Returns (demb (G, E, HD) in emb's dtype, zeros at masked slots, d_alpha
-    (G, H, E) f32, 0 at masked slots, dnm, dscale). `_route` names a route
-    (`_bwd1_route`), to time it beside the other."""
+    (G, H, E) f32, 0 at masked slots, dnm, dscale); a launch a head group,
+    each head padded to `_padded`. `_route` names a route (`_bwd1_route`),
+    to time it beside the other."""
+    HD = nm.shape[-1]
+    HDk = _padded(HD, heads)
+    groups = head_groups(HDk, heads)
+    if HDk == HD and len(groups) == 1:
+        return _bwd1(gout, nm, emb, e_edge, scale, src, dst, mask, dnm,
+                     dscale, heads, _route)
+    gout, nm, emb, acc = (pad_heads(t, heads, HDk)
+                          for t in (gout, nm, emb, dnm))
+    parts = []
+    for h0, h1 in groups:
+        cols = lambda t: head_cols(t, h0, h1, heads)  # noqa: E731
+        hs = lambda t: t[..., h0:h1].contiguous()     # noqa: E731
+        c = slice(h0 * (HDk // heads), h1 * (HDk // heads))
+        demb, dalpha, acc[..., c], dscale[..., h0:h1] = _bwd1(
+            cols(gout), cols(nm), cols(emb), e_edge[:, h0:h1].contiguous(),
+            hs(scale), src, dst, mask, cols(acc), hs(dscale), h1 - h0,
+            _route)
+        parts.append((demb, dalpha))
+    demb = cut_heads(torch.cat([p[0] for p in parts], -1), HD, heads)
+    return (demb.contiguous(), torch.cat([p[1] for p in parts], 1),
+            _cut_into(dnm, acc, heads), dscale)
+
+
+def _bwd1(gout, nm, emb, e_edge, scale, src, dst, mask, dnm, dscale, heads,
+          _route):
     if not nm.is_cuda:
         return bwd1_plain(gout, nm, emb, e_edge, scale, src, dst, mask, dnm,
                           dscale, heads)
@@ -484,8 +580,33 @@ def bwd2(nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst, mask, dnq,
     self-loop cotangents and are added to IN PLACE.
 
     Returns (dekb (G, E, HD) in ekb's dtype, zeros at masked slots, dnq,
-    dnk). `_route` names a route (`_bwd2_route`), to time it beside the
-    other."""
+    dnk); a launch a head group, each head padded to `_padded`. `_route`
+    names a route (`_bwd2_route`), to time it beside the other."""
+    HD = nq.shape[-1]
+    HDk = _padded(HD, heads)
+    groups = head_groups(HDk, heads)
+    if HDk == HD and len(groups) == 1:
+        return _bwd2(nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst,
+                     mask, dnq, dnk, heads, _route)
+    nq, nk, ekb, acc_q, acc_k = (pad_heads(t, heads, HDk)
+                                 for t in (nq, nk, ekb, dnq, dnk))
+    parts = []
+    for h0, h1 in groups:
+        cols = lambda t: head_cols(t, h0, h1, heads)  # noqa: E731
+        hs = lambda t: t[..., h0:h1].contiguous()     # noqa: E731
+        c = slice(h0 * (HDk // heads), h1 * (HDk // heads))
+        dekb, acc_q[..., c], acc_k[..., c] = _bwd2(
+            cols(nq), cols(nk), cols(ekb), e_edge[:, h0:h1].contiguous(),
+            dalpha[:, h0:h1].contiguous(), hs(scale), hs(d_denom), src, dst,
+            mask, cols(acc_q), cols(acc_k), h1 - h0, _route)
+        parts.append(dekb)
+    dekb = cut_heads(torch.cat(parts, -1), HD, heads)
+    return (dekb.contiguous(), _cut_into(dnq, acc_q, heads),
+            _cut_into(dnk, acc_k, heads))
+
+
+def _bwd2(nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst, mask, dnq,
+          dnk, heads, _route):
     if not nq.is_cuda:
         return bwd2_plain(nq, nk, ekb, e_edge, dalpha, scale, d_denom, src,
                           dst, mask, dnq, dnk, heads)

@@ -55,7 +55,7 @@ from qagnn_tpu_torch.utils.initialization import init_weights
 SENT_VEC_TOL = 2e-3    # the device's encoder against f32 on the CPU
 
 REFERENCE_DEV_ACC = {"csqa": 0.7707, "obqa": 0.686, "medqa_usmle": 0.38}
-SYNTHETIC_RELATIONS = 10
+SYNTHETIC_RELATIONS = 7
 
 
 def parse_args(argv=None):
@@ -103,11 +103,11 @@ def build_cfg(args, root, encoder_load, tmp) -> TrainConfig:
 
 def synthetic_cfg(droot, emb_path, enc_dir, save_dir) -> TrainConfig:
     """The JAX tool's synthetic run configuration (:86-103) over a dataset
-    at `droot` and a checkpoint at `enc_dir`, with num_relation 10, the
-    relation ids the synthetic graphs hold (3 relations and the 2 context
-    ones, each with its inverse). The JAX tool's 7 leaves ids 8 and 9 out
-    of the one-hot edge features, which jax.nn.one_hot maps to zero rows
-    and the port refuses."""
+    at `droot` and a checkpoint at `enc_dir`, num_relation 7 included. The
+    synthetic graphs hold relation ids 0-9 (3 relations and the 2 context
+    ones, each with its inverse), so ids 8 and 9 lie past the 8 relation
+    features: both packages give them no relation feature (a zero row of
+    jax.nn.one_hot; the port's kernels and scatter branch alike)."""
     cfg = TrainConfig(dataset="csqa", encoder="bert-base-uncased",
                       encoder_load=enc_dir, inhouse=False,
                       batch_size=4, mini_batch_size=4, eval_batch_size=4,

@@ -11,7 +11,10 @@ on the CPU.
     on the same first batch, from the JAX variables carried across by
     utils/convert.py, within rtol 2e-4, and so do its logits (rtol 2e-4 of
     the largest: at random weights the loss sits near ln 2 whatever the
-    logits are).
+    logits are);
+  * that comparison runs at the JAX tool's num_relation=7 on graphs whose
+    first batch holds relation ids 8 and 9, past the 8 relation features,
+    which both packages give no relation feature.
 """
 
 import json
@@ -33,6 +36,7 @@ from qagnn_tpu.utils import config as jax_config
 from qagnn_tpu.utils.initialization import init_variables
 from tools.dress_rehearsal import torch_sent_vecs
 
+from qagnn_tpu_torch import cli
 from qagnn_tpu_torch.data.synthetic import (
     write_synthetic_dataset,
     write_tiny_bert_checkpoint,
@@ -118,3 +122,15 @@ def test_step0_matches_hf_and_the_jax_rehearsal(synthetic):
                            cfg.encoder_layer)
     diff = np.abs(arrays["sent_vecs"] - want)
     assert float((diff / np.maximum(np.abs(want), 1.0)).max()) < 2e-3
+
+
+def test_rehearsal_runs_the_jax_tools_relation_count(synthetic):
+    """num_relation is the JAX tool's 7 (tools/dress_rehearsal.py:103), and
+    the batch the step-0 comparison takes holds live edges of relation ids
+    at or above its 8 relation features."""
+    cfg, _ = synthetic
+    assert cfg.num_relation == dress_rehearsal.SYNTHETIC_RELATIONS == 7
+    dataset, *_ = cli.build_model_and_data(cfg, "cpu")
+    _, batch = next(dataset.train())
+    live = batch.graph.edge_type[batch.graph.edge_mask]
+    assert int(live.max()) >= cfg.num_relation + 1

@@ -18,7 +18,8 @@ Python the card's two routes share with the CPU: which route a dtype and
 width take, what is refused, and how many rows of partial sums the
 backward's scratch holds.
 
-The moments kernel counts (relation, head type, tail type) triples and
+The moments kernel counts (relation, head type, tail type) triples, with
+one more relation for the slots whose relation id is out of range, and
 expands the counts into (hist, M, n): a numpy mirror of that arithmetic is
 held against the Pallas moments kernel exactly, for the CSQA / OBQA and
 MedQA relations and for 7 node types, with the kernel's block count and
@@ -112,29 +113,34 @@ def test_edge_feature_moments_match_pallas(E):
 
 def _triple_counts(g, n_rel, n_ntype):
     """C[r, a, b]: the masked slots of each (relation, head type, tail
-    type) triple, what the moments kernel's blocks count."""
+    type) triple, what the moments kernel's blocks count; relation n_rel
+    is the bucket of slots whose relation id lies outside [0, n_rel)."""
     head = np.take_along_axis(g["ntype"], g["src"], 1)
     tail = np.take_along_axis(g["ntype"], g["dst"], 1)
-    key = (g["etype"] * n_ntype + head) * n_ntype + tail
-    return np.bincount(key[g["mask"]], minlength=n_rel * n_ntype ** 2) \
-        .reshape(n_rel, n_ntype, n_ntype)
+    rel = np.where((g["etype"] >= 0) & (g["etype"] < n_rel), g["etype"],
+                   n_rel)
+    key = (rel * n_ntype + head) * n_ntype + tail
+    return np.bincount(key[g["mask"]],
+                       minlength=(n_rel + 1) * n_ntype ** 2) \
+        .reshape(n_rel + 1, n_ntype, n_ntype)
 
 
 def _expand_triple_counts(C, n_rel, n_ntype):
     """hist, M, n from the triple counts as the moments kernel's last block
     expands them (csrc/edge_moments.cu): the three two-way tables RA = sum
-    over tail types, RB = sum over head types, AB = sum over relations; the
+    over tail types, RB = sum over head types (both for the n_rel
+    relations), AB = sum over relations and the no-relation bucket; the
     histogram from them; M's diagonal blocks diag(hist), its off-diagonal
-    blocks the tables; n the sum over relations of the histogram."""
+    blocks the tables; n the sum of AB."""
     nt, F = n_ntype, n_rel + 2 * n_ntype
-    RA, RB, AB = C.sum(2), C.sum(1), C.sum(0)
+    RA, RB, AB = C[:n_rel].sum(2), C[:n_rel].sum(1), C.sum(0)
     hist = np.concatenate([RA.sum(1), AB.sum(1), AB.sum(0)])
     M = np.diag(hist)
     rel, head, tail = slice(0, n_rel), slice(n_rel, n_rel + nt), \
         slice(n_rel + nt, F)
     M[rel, head], M[rel, tail], M[head, tail] = RA, RB, AB
     M[head, rel], M[tail, rel], M[tail, head] = RA.T, RB.T, AB.T
-    return hist, M, hist[:n_rel].sum()
+    return hist, M, AB.sum()
 
 
 @pytest.mark.parametrize("n_rel, n_ntype, E", [
@@ -175,7 +181,7 @@ def test_moments_shared_memory_takes_every_width_the_old_kernel_took():
     """The counting kernel that the triple counts replaced took F + F^2 + 1
     int32 counters in 48 KB of shared memory (F <= 110); every (n_rel,
     n_ntype) with such an F fits the triple counts and tables in a block."""
-    assert ek._moments_smem(39, 4) == 4 * (624 + 2 * 156 + 16)
+    assert ek._moments_smem(39, 4) == 4 * (640 + 2 * 156 + 16)
     for n_ntype in range(1, 55):
         for n_rel in range(1, 111 - 2 * n_ntype):
             assert ek._moments_smem(n_rel, n_ntype) <= ek.MOMENTS_MAX_SMEM

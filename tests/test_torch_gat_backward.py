@@ -289,15 +289,18 @@ def test_no_gradient_flows_through_the_max():
 
 
 @pytest.mark.parametrize("D,HD,heads", [(200, 200, 4), (24, 40, 4),
-                                         (256, 256, 8), (8, 8, 2)])
+                                         (256, 256, 8), (8, 8, 2),
+                                         (264, 200, 4), (512, 256, 2)])
 def test_backward_kernels_accept_widths(D, HD, heads):
+    """Any D a multiple of 8: past 256 the kernels run W's rows in
+    slices."""
     gat_kernels._check_bwd_widths(D, HD, heads)
 
 
 @pytest.mark.parametrize("D,HD,heads,why", [
     (200, 264, 4, "HD over 256"),
     (12, 40, 4, "D not a multiple of 8"),
-    (264, 200, 4, "D over 256"),
+    (260, 200, 4, "D over 256 not a multiple of 8"),
     (72, 72, 9, "nine heads"),
     (16, 16, 8, "heads of two features"),
     (24, 40, 3, "heads that do not divide HD"),
