@@ -144,19 +144,29 @@ Run from the repository root on a machine with one CUDA card. It
      tenth of the live slots, both routes, against their plain versions
      (which give such a slot no relation feature, as the JAX package's
      one-hot does); rows 1-5 through `relational_gat_attention_nodes` at
-     (HD 100, 4 heads: heads padded) and (HD 320, 10 heads: two head
-     groups), forward and backward against the scatter backend, each row
-     launched once a head group; rows 6-12 through QAGNNMessagePassing in
-     train mode at gnn_dim 512 (two head groups a pass, two slices of W's
-     rows in the backward passes) against the scatter path, output and
-     every parameter gradient, with the launches and routes; backward
-     passes 1 and 2 alone at D = HD = 512 on both routes against their
-     plain versions, and the times of rows 6-9 and 11-12 there beside
-     their bounds; and `python -m qagnn_tpu_torch.cli --gnn_dim 512` for
-     two train steps. The `overfit` phase also logs, per GAT layer of the
+     (HD 100, 4 heads: heads padded), (HD 320, 10 heads: two head groups),
+     (HD 300, 1 head) and (HD 1040, 2 heads), the last two a head wider
+     than a launch run in column slices, forward and backward against the
+     scatter backend, each row launched once a head group or slice, every
+     split launch against its plain version, with their times; passes A
+     and C at D = 200 with one head of 304 features on both routes; rows
+     6-12 through QAGNNMessagePassing in train mode at gnn_dim 512 (two
+     head groups a pass, two slices of W's rows in the backward passes)
+     and 1040 (four heads of 264 features, two column slices each, every
+     launch against its plain version) against the scatter path, output
+     and every parameter gradient, with the launches and routes; the
+     passes alone at both widths on both routes against their plain
+     versions, and the times of rows 6-9 and 11-12 there beside their
+     bounds, by call and by launch; and `python -m qagnn_tpu_torch.cli
+     --gnn_dim 512` and `--gnn_dim 1040`, side by side, for two train
+     steps each. The `overfit` phase also logs, per GAT layer of the
      trained model, the largest gap between a graph's max score and a
      source's, and the denominators under DENOM_EPS (ROADMAP C7);
- 16. prints one JSON line of per-kernel numbers, the card's name and power
+ 16. stops every process it started that is still running (the forkserver
+     of the preprocess phase's pools, multiprocessing's resource tracker,
+     and any process a child left behind: the script takes its orphans as
+     a subreaper), naming each one it had to stop;
+ 17. prints one JSON line of per-kernel numbers, the card's name and power
      limit, and as its last line {"ok": true, "device": {...}}.
 
 `--only kernels,grads,op,serve,detail,train,cli,overfit,encoders,mesh,
@@ -181,6 +191,7 @@ import argparse
 import collections
 import contextlib
 import copy
+import ctypes
 import dataclasses
 import gc
 import hashlib
@@ -188,13 +199,18 @@ import io
 import json
 import math
 import multiprocessing
+import multiprocessing.forkserver
+import multiprocessing.resource_tracker
+import os
 import pathlib
 import pickle
 import re
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from unittest import mock
@@ -300,6 +316,102 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0]
+
+
+PR_SET_CHILD_SUBREAPER = 36   # linux/prctl.h
+
+
+def take_orphans() -> None:
+    """Make this process the subreaper of its descendants: a process whose
+    parent exits (a rank's, a pool's, a tool's child) is handed to this
+    one, not to init, so `stop_children` still finds it."""
+    with contextlib.suppress(OSError, AttributeError):
+        ctypes.CDLL(None, use_errno=True).prctl(
+            PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0)
+
+
+def _children_of(pids: set[int]) -> set[int]:
+    """The live processes whose parent is in `pids`, read from /proc."""
+    out = set()
+    for entry in pathlib.Path("/proc").iterdir():
+        if not entry.name.isdigit():
+            continue
+        try:
+            stat = (entry / "stat").read_text()
+        except OSError:
+            continue
+        # pid (comm) state ppid ...: comm may hold spaces and parentheses
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        if int(ppid) in pids and state != "Z":
+            out.add(int(entry.name))
+    return out
+
+
+def _descendants() -> set[int]:
+    found, front = set(), {os.getpid()}
+    while front:
+        front = _children_of(front) - found
+        found |= front
+    return found
+
+
+def _cmdline(pid: int) -> str:
+    try:
+        raw = pathlib.Path(f"/proc/{pid}/cmdline").read_bytes()
+    except OSError:
+        return "?"
+    return raw.replace(b"\0", b" ").decode(errors="replace").strip()[:160]
+
+
+def _reap() -> None:
+    """Collect the exit status of every child that has ended."""
+    with contextlib.suppress(ChildProcessError):
+        while os.waitpid(-1, os.WNOHANG)[0]:
+            pass
+
+
+def _stop_helpers() -> None:
+    """Close the pipes that keep multiprocessing's forkserver and resource
+    tracker alive and wait for both to exit (each a no-op when it never
+    started)."""
+    with contextlib.suppress(Exception):
+        multiprocessing.forkserver._forkserver._stop()
+    with contextlib.suppress(Exception):
+        multiprocessing.resource_tracker._resource_tracker._stop()
+
+
+def stop_children(grace_s: float = 10.0) -> list[str]:
+    """Stop every process this one started that is still running, and wait
+    for each: the forkserver and the resource tracker, which multiprocessing
+    keeps until the interpreter exits, by their own shutdown; whatever is
+    left after `grace_s` seconds of that by SIGTERM, then SIGKILL. Returns
+    "pid: command line" of each process that was running."""
+    # multiprocessing objects already dropped release their semaphores
+    # before the tracker that holds their names stops
+    gc.collect()
+    named = [f"{pid}: {_cmdline(pid)}" for pid in sorted(_descendants())]
+    if not named:
+        return named
+    # the helpers' own shutdown waits on their exit without a time limit:
+    # it runs beside the deadline, and the signals below end that wait
+    helpers = threading.Thread(target=_stop_helpers, daemon=True)
+    helpers.start()
+    helpers.join(grace_s)
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        left = sorted(_descendants())
+        for pid in left:
+            with contextlib.suppress(ProcessLookupError, PermissionError):
+                os.kill(pid, sig)
+        deadline = time.monotonic() + grace_s
+        while left and time.monotonic() < deadline:
+            time.sleep(0.1)
+            _reap()
+            left = sorted(_descendants())
+        if not left:
+            break
+    helpers.join(grace_s)
+    _reap()
+    return named
 
 
 class WordTokenizer:
@@ -540,7 +652,10 @@ def gat_fwd_case(reports, gen, dev, D, HD, heads, src, dst, mask, dt, tag,
     emb = torch.relu(r(G, n_edges, D)).to(dt)
     w_ke, w_me = r(D, HD) * 0.05, r(D, HD) * 0.05
     b_ke, b_me = r(HD) * 0.1, r(HD) * 0.1
-    routes = (0, 1) if gk._fwd_route(dt, D, HD, heads, None) else (0,)
+    # the routes its launches take (a head group or a column slice each)
+    h0, h1, c0, c1 = gk.launches(HD, heads)[0]
+    routes = (0, 1) if gk._fwd_route(dt, D, c1 - c0, h1 - h0, None) \
+        else (0,)
 
     a_args = (nq, nk, emb, w_ke, b_ke, src, dst, mask, heads)
     scores_p, m_edge_p = gk.pass_a_scores_plain(*a_args)
@@ -765,12 +880,13 @@ def phase_edge_hidden_widths(gen, dev, reports):
                                      dt, tag, False)
 
 
-def profile_kernels(what, fn, iters=20, attempts=2):
+def profile_kernels(what, fn, iters=20, attempts=2, keep=None):
     """Device time by kernel name over `iters` calls of fn, from
     torch.profiler's CUDA activity: rows of (device us, launches, name), or
     None (and says so) where it records none. A window of short kernels
     at times comes back with no device activity, so an empty one is taken
-    again, `attempts` times in all."""
+    again, `attempts` times in all. `keep`: which kernel names to list
+    (all by default)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -789,7 +905,8 @@ def profile_kernels(what, fn, iters=20, attempts=2):
             log(f"  torch.profiler, {what}: failed on this machine: {exc!r}")
             return None
         rows = sorted(((device_us(e), e.count, e.key) for e in events
-                       if device_us(e) > 0), reverse=True)
+                       if device_us(e) > 0
+                       and (keep is None or keep(e.key))), reverse=True)
         if rows:
             break
     if not rows:
@@ -4755,13 +4872,19 @@ def phase_tools(dev, card) -> None:
 
 # ---------------------------------------------------------------------------
 # the widths phase: relation ids past n_rel, the unprojected op at widths
-# one launch does not take, and the GNN at gnn_dim 512
+# one launch does not take, and the GNN at gnn_dim 512 and 1040
 # ---------------------------------------------------------------------------
 
 WIDE_D, WIDE_K = 512, 5        # gnn_dim 512: 4 heads of 128, k = 5
-WIDE_UNPROJ = ((100, 4), (320, 10))     # (HD, heads) of the unprojected op
+# gnn_dim 1040: 4 heads of 260 features, padded to 264, each run as two
+# column slices (128 + 136) in rows 6-9
+WIDER_D = 1040
+# (HD, heads) of the unprojected op; the last two have a head wider than a
+# launch (304 after padding: two slices; 520: three)
+WIDE_UNPROJ = ((100, 4), (320, 10), (300, 1), (1040, 2))
 OUT_OF_RANGE = 0.1             # live slots given relation ids n_rel, n_rel+1
-# the GNN at gnn_dim 512 on the kernel path against the scatter path, same
+# the GNN at gnn_dim 512 and 1040 on the kernel path against the scatter
+# path, same
 # weights and inputs, train mode, dropout 0, each in its dtype: the output
 # as GNN_TOL holds it; in f32 every parameter gradient within STEP_TOL's
 # named-gradient tolerance of the model's largest (sums of other orders,
@@ -4774,6 +4897,179 @@ OUT_OF_RANGE = 0.1             # live slots given relation ids n_rel, n_rel+1
 WIDE_GRAD_TOL = STEP_TOL["grad"]
 WIDE_BF16_DRIFT = 2.0
 WIDE_CLI_QUESTIONS = 8         # two train steps of 4 questions
+
+
+# the single-launch functions of rows 1 and 3-9 (the denominators run one
+# launch a head group, unsplit): (module, name, its plain version, the
+# arguments the plain version takes, the arguments a launch adds to in
+# place, tolerance by dtype)
+LAUNCH_ROWS = (
+    (gk, "_pass_a_scores", gk.pass_a_scores_plain, 9, (), lambda dt: TOL["gat"]),
+    (gk, "_pass_c", gk.pass_c_plain, 12, (10,), lambda dt: TOL["gat_c"][dt]),
+    (gk, "_bwd_pass1", gk.bwd_pass1_plain, 15, (12, 13),
+     lambda dt: TOL["bwd"][dt]),
+    (gk, "_bwd_pass2", gk.bwd_pass2_plain, 17, (13, 14, 15),
+     lambda dt: TOL["bwd"][dt]),
+    (uk, "_edge_scores", uk.edge_scores_plain, 7, (),
+     lambda dt: TOL["unproj"][dt]),
+    (uk, "_aggregate", uk.aggregate_plain, 9, (7,),
+     lambda dt: TOL["unproj"][dt]),
+    (uk, "_bwd1", uk.bwd1_plain, 11, (8, 9), lambda dt: TOL["unproj"][dt]),
+    (uk, "_bwd2", uk.bwd2_plain, 13, (10, 11), lambda dt: TOL["unproj"][dt]))
+
+
+def plain_launches():
+    """A context in which every launch of rows 1 and 3-9 runs its plain
+    version instead, partial mode included: the wrappers' loops over head
+    groups and column slices stay, so a wrapper's result on the plain
+    versions takes the kernels' chain of bf16 roundings (backward pass 1's
+    carry from launch to launch)."""
+    stack = contextlib.ExitStack()
+    for mod, name, plain, n_args, _, _ in LAUNCH_ROWS:
+        stack.enter_context(mock.patch.object(
+            mod, name, lambda *a, plain=plain, n=n_args, **part:
+            plain(*a[:n], **part)))
+    return stack
+
+
+def launch_gap(got, want) -> float:
+    """max|got - want| / max|want| over the finite entries of want; a max
+    left at NEG (a graph with no live slot, or a split head's slices before
+    the last) must be NEG in both, and a non-finite got is inf."""
+    got, want = got.float(), want.float()
+    unset = want <= gk.NEG / 2
+    if bool((got[unset] != want[unset]).any()) \
+            or not bool(torch.isfinite(got).all()):
+        return float("inf")
+    got, want = got[~unset], want[~unset]
+    if not want.numel():
+        return 0.0
+    return ((got - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+class LaunchCheck:
+    """Holds every launch of rows 1 and 3-9 made inside it against its plain
+    version on the same inputs (what a launch adds to in place copied for
+    the plain version first; a split head's partial mode included): the
+    largest gap (`launch_gap`) over each entry point's launches and outputs,
+    a failure above the row's tolerance. These launches count as the path's
+    own; the plain versions launch nothing."""
+
+    def __init__(self, what, dt):
+        self.what, self.dt = what, dt
+        self.gaps, self.calls = {}, collections.Counter()
+        self.stack = contextlib.ExitStack()
+
+    def __enter__(self):
+        for mod, name, plain, n_args, in_place, tol in LAUNCH_ROWS:
+            self.stack.enter_context(mock.patch.object(
+                mod, name, self.wrap(name, getattr(mod, name), plain, n_args,
+                                     in_place, tol(self.dt))))
+        return self
+
+    def __exit__(self, *exc):
+        self.stack.close()
+
+    def wrap(self, name, fn, plain, n_args, in_place, tol):
+        def call(*a, **part):
+            copy_ = lambda x: x.clone() if torch.is_tensor(x) else x  # noqa
+            pa = [copy_(x) if i in in_place else x
+                  for i, x in enumerate(a[:n_args])]
+            pk = {k: copy_(v) for k, v in part.items()}
+            want = plain(*pa, **pk)
+            got = fn(*a, **part)
+            pair = zip(got, want) if isinstance(got, tuple) \
+                else [(got, want)]
+            gap = max(launch_gap(g, w) for g, w in pair)
+            self.calls[name] += 1
+            old = self.gaps.get(name, (0.0, tol))[0]
+            self.gaps[name] = (max(old, gap), tol)
+            return got
+        return call
+
+    def report(self):
+        for name, (gap, tol) in sorted(self.gaps.items()):
+            ok = gap <= tol
+            log(f"  each launch vs its plain version, {name} {self.what}: "
+                f"{self.calls[name]} launches, largest max|d| / max|want| "
+                f"{gap:.3e}  tol {tol:.1e}  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                FAILURES.append(f"widths: {name} launch vs plain, "
+                                f"{self.what}")
+
+
+def unproj_row_times(vals, gout, src, dst, mask, heads, tag, card):
+    """Rows 1-5 alone on the op's inputs, as gat_unprojected_forward and
+    _backward run them: each wrapper's device time a call (all its
+    launches), its plain version's on the whole width, and the bound of
+    the call's work, counted as the kernel phase counts it."""
+    nq, nk, nm, ekb, emb, skb, smb = vals
+    HD = nq.shape[-1]
+    live = mask.float().mean().item()
+    s, m_edge = uk.edge_scores(nq, nk, ekb, src, dst, mask, heads)
+    self_scores = gk.head_sum(nq.float() * (nk + skb).float(), heads)
+    gmax = torch.maximum(m_edge, self_scores.amax(1))
+    e_self = torch.exp(self_scores - gmax[:, None, :])
+    e_edge, denom, deg = uk.edge_denoms(s, gmax, src, mask, N)
+    denom_raw = denom + e_self
+    scale = (deg[..., None] + 1.0) / torch.clamp_min(denom_raw, gk.DENOM_EPS)
+    out = torch.zeros((G, N, HD), device=nq.device)
+    g = gout.float()
+    dnm0, ds0 = torch.zeros_like(out), torch.zeros_like(scale)
+    demb, dalpha, _, dscale = uk.bwd1(gout, nm, emb, e_edge, scale, src, dst,
+                                      mask, dnm0.clone(), ds0.clone(), heads)
+    d_denom = (-(scale / torch.clamp_min(denom_raw, gk.DENOM_EPS)) * dscale
+               * (denom_raw > gk.DENOM_EPS).float()).contiguous()
+    a1 = (nq, nk, ekb, src, dst, mask, heads)
+    a2 = (s, gmax, src, mask, N)
+    a3 = (nm, emb, e_edge, scale, src, dst, mask, out, heads)
+    a4 = (gout, nm, emb, e_edge, scale, src, dst, mask, dnm0, ds0, heads)
+    a5 = (nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst, mask,
+          dnm0, dnm0.clone(), heads)
+    n = G * E * HD
+    for name, fn, plain, args, n_bytes, flops in (
+            ("gat_unproj_scores", uk.edge_scores, uk.edge_scores_plain, a1,
+             live * nbytes(ekb, src, dst) + nbytes(nq, nk, mask, s, m_edge),
+             3.0 * live * n),
+            ("gat_unproj_denoms", uk.edge_denoms, uk.edge_denoms_plain, a2,
+             live * nbytes(s, src) + nbytes(gmax, mask, e_edge, denom, deg),
+             2.0 * live * G * E * heads),
+            ("gat_unproj_aggr", uk.aggregate, uk.aggregate_plain, a3,
+             live * nbytes(emb, e_edge, src, dst) + nbytes(nm, scale, mask)
+             + 2 * nbytes(out), 4.0 * live * n),
+            ("gat_unproj_bwd1", uk.bwd1, uk.bwd1_plain, a4,
+             live * nbytes(emb, e_edge, src, dst)
+             + nbytes(gout, nm, scale, mask, demb, dalpha)
+             + 2 * nbytes(dnm0, ds0), 6.0 * live * n),
+            ("gat_unproj_bwd2", uk.bwd2, uk.bwd2_plain, a5,
+             live * nbytes(ekb, e_edge, dalpha, src, dst)
+             + nbytes(nq, nk, scale, d_denom, mask, demb)
+             + 4 * nbytes(dnm0), 7.0 * live * n)):
+        # the accumulators are added to again: the values do not matter
+        _build.reset_launch_counts()
+        fn(*args)
+        launches = _build.LAUNCHES[name]
+        ms = device_ms(lambda: fn(*args), iters=5, warmup=1)
+        plain_ms = device_ms(lambda: plain(*args), iters=5, warmup=1)
+        bound_ms, by = bound(n_bytes, flops, torch.float32)
+        log(f"  time {name} {tag}: {launches} launches, kernels {ms:.4f} ms "
+            f"a call  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
+            f"({by})  [{card}]")
+
+
+def widths_split_forward(gen, dev):
+    """Passes A and C at D = 200 with one head of 304 features (two column
+    slices of 152), on both routes in bf16 (the tensor-core kernels' partial
+    mode) and route 0 in f32, against the unsliced plain versions and each
+    launch against its plain version (`LaunchCheck`)."""
+    src, dst, mask = graph_inputs(gen, dev, E)
+    for dt in (torch.bfloat16, torch.float32):
+        tag = f"D=200 HD=304 heads=1 {dt}"
+        with LaunchCheck(tag, dt) as check:
+            gat_fwd_case(None, gen, dev, 200, 304, 1, src, dst, mask, dt, tag,
+                         False)
+        check.report()
 
 
 def widths_relation_ids(gen, dev):
@@ -4812,16 +5108,27 @@ def widths_relation_ids(gen, dev):
                                  False)
 
 
+def op_launches(HD, heads) -> dict:
+    """Launches of rows 1-5 in one forward + backward of the unprojected op:
+    one a head group or a column slice of a wide head (`gk.launches`), the
+    denominators one a group of at most 8 heads."""
+    n = len(gk.launches(uk._padded(HD, heads), heads))
+    return {k: len(gk.head_groups(heads, heads))
+            if k == "gat_unproj_denoms" else n for k in UNPROJ_KERNELS}
+
+
 def widths_unprojected(gen, dev, card):
     """Rows 1-5 through `relational_gat_attention_nodes` (no backend
     named), forward and backward, at widths one launch does not take, in
     both dtypes, against the scatter backend in f32 as the op phase holds
-    them; each row launched once a head group."""
+    them; each row launched once a head group or a column slice of a wide
+    head, every launch held against its plain version (`LaunchCheck`); at
+    a wide head each row's time in bf16 (`unproj_row_times`)."""
     for HD, heads in WIDE_UNPROJ:
         dph = HD // heads
         src, dst, mask = graph_inputs(gen, dev, E)
         split = lambda t: t.reshape(*t.shape[:-1], heads, dph)  # noqa: E731
-        groups = len(gk.head_groups(uk._padded(HD, heads), heads))
+        launches = op_launches(HD, heads)
 
         def op(backend):
             return lambda *t: relational_gat_attention_nodes(
@@ -4836,12 +5143,21 @@ def widths_unprojected(gen, dev, card):
             _build.reset_launch_counts()
             out, got = value_and_grads(op(None), vals, gout)
             torch.cuda.synchronize()
-            counts = dict(_build.LAUNCHES)
-            ok = counts == {k: groups for k in UNPROJ_KERNELS}
-            log(f"  launches, {tag}: {counts} ({groups} head groups a "
-                f"row)  {'ok' if ok else 'FAIL'}")
+            counts, routes = dict(_build.LAUNCHES), dict(_build.ROUTES)
+            ok = counts == launches
+            log(f"  launches, {tag}: {counts} (want {launches}; routes "
+                + ", ".join(f"{k} {r_}: {c}" for (k, r_), c in
+                            sorted(routes.items()))
+                + f")  {'ok' if ok else 'FAIL'}")
             if not ok:
                 FAILURES.append(f"widths: launches of the op, {tag}")
+            if uk._padded(HD, heads) // heads > gk.MAX_COLS:
+                with LaunchCheck(tag, dt) as check:
+                    value_and_grads(op(None), vals, gout)
+                check.report()
+                if dt == torch.bfloat16:
+                    unproj_row_times(vals, gout, src, dst, mask, heads, tag,
+                                     card)
             out_w, want = value_and_grads(op("scatter"),
                                           [v.float() for v in vals], gout)
             compare(f"op out cuda vs scatter(f32), {tag}", out, out_w,
@@ -4853,36 +5169,48 @@ def widths_unprojected(gen, dev, card):
             ms = device_ms(lambda: forward_backward(op(None), leaves, gout),
                            iters=5, warmup=1)
             log(f"  time {tag}: forward + backward {ms:.4f} ms  [{card}]")
+            if dt == torch.bfloat16 and uk._padded(HD, heads) // heads \
+                    > gk.MAX_COLS:
+                # each row's launches alone (the wrappers' copies and pads
+                # are torch's kernels)
+                profile_kernels(f"op forward + backward {tag}",
+                                lambda: forward_backward(op(None), leaves,
+                                                         gout), iters=5,
+                                keep=lambda key: re.match(
+                                    r"(void )?\(anonymous namespace\)::",
+                                    key))
 
 
-def gnn_run(dev, backend, dt, cot):
+def gnn_run(dev, backend, dt, cot, width, check=None):
     """One train-mode forward + backward of QAGNNMessagePassing at gnn_dim
-    512 (k = 5, 4 heads, 38 relations, dropout 0) on one path in one
-    dtype, weights and inputs from fixed seeds: (output in f32, parameter
-    gradients in f32, launches)."""
+    `width` (k = 5, 4 heads, 38 relations, dropout 0) on one path in one
+    dtype, weights and inputs from fixed seeds, inside `check` (a
+    LaunchCheck) where given: (output in f32, parameter gradients in f32,
+    launches)."""
     n_etype = 38
     with torch.device(dev):
-        mp = QAGNNMessagePassing(WIDE_K, N_NTYPE, n_etype, WIDE_D,
+        mp = QAGNNMessagePassing(WIDE_K, N_NTYPE, n_etype, width,
                                  dropout=0.0, head_count=HEADS,
                                  backend=backend, dtype=dt)
     init_weights(mp, torch.Generator(device=dev).manual_seed(SEED), 0.02)
     g_in = torch.Generator(device=dev).manual_seed(SEED + 1)
     src, dst, mask = graph_inputs(g_in, dev, E)
-    H = torch.randn((G, N, WIDE_D), generator=g_in, device=dev) \
+    H = torch.randn((G, N, width), generator=g_in, device=dev) \
         .requires_grad_()
     args = (torch.randint(0, N_NTYPE, (G, N), generator=g_in, device=dev),
             torch.rand((G, N), generator=g_in, device=dev), src, dst,
             torch.randint(0, n_etype + 1, (G, E), generator=g_in,
                           device=dev, dtype=torch.int32), mask)
     _build.reset_launch_counts()
-    out = mp.train()(H, *args)
-    (out.float() * cot).sum().backward()
+    with check or contextlib.nullcontext():
+        out = mp.train()(H, *args)
+        (out.float() * cot).sum().backward()
     torch.cuda.synchronize()
     grads = {n: p.grad.float() for n, p in mp.named_parameters()
              if p.grad is not None}
     if not bool(torch.isfinite(out).all()) or not all(
             bool(torch.isfinite(g).all()) for g in grads.values()):
-        FAILURES.append(f"widths: non-finite values at gnn_dim {WIDE_D}, "
+        FAILURES.append(f"widths: non-finite values at gnn_dim {width}, "
                         f"{backend} {dt}")
     return out.detach().float(), grads, dict(_build.LAUNCHES)
 
@@ -4898,32 +5226,44 @@ def grad_gap(got, want) -> tuple[float, str]:
                for n, g in got.items())
 
 
-def widths_gnn(gen, dev, card):
+def widths_gnn(gen, dev, card, width):
     """Rows 6-12 in a train-mode forward + backward of QAGNNMessagePassing
-    at gnn_dim 512 (k = 5, 4 heads of 128 features, two head groups of 256
-    columns a pass; D = 512, two slices of W's rows in backward passes 1
-    and 2), on the kernel path against the scatter path, in both dtypes:
-    the output, every parameter gradient (bf16: its drift from the f32
-    oracle beside the scatter path's), each entry point's launches and
-    routes."""
-    groups = len(gk.head_groups(WIDE_D, HEADS))
-    grouped = ("gat_pass_a_scores", "gat_pass_c", "gat_bwd_pass1",
-               "gat_bwd_pass2")
-    launches = {n: c * (groups if n in grouped else 1)
-                for n, c in step_launches(WIDE_K).items()}
-    cot = torch.randn((G, N, WIDE_D), generator=gen, device=dev)
-    _, oracle, _ = gnn_run(dev, "scatter", torch.float32, cot)
+    at gnn_dim `width` (k = 5, 4 heads; at 512 two head groups of 256
+    columns a pass and two slices of W's rows in backward passes 1 and 2;
+    at 1040 four heads of 264 padded features, each two column slices, and
+    five slices of W's rows), on the kernel path against the scatter path,
+    in both dtypes: the output, every parameter gradient (bf16: its drift
+    from the f32 oracle beside the scatter path's), each entry point's
+    launches and routes; past 512 every launch of rows 6-9 against its
+    plain version (`LaunchCheck`)."""
+    HDk = gk.kernel_widths(width, width, HEADS)[1]
+    F = 39 + 2 * N_NTYPE             # gnn_run's 38 relations, the self loop
+    cot = torch.randn((G, N, width), generator=gen, device=dev)
+    _, oracle, _ = gnn_run(dev, "scatter", torch.float32, cot, width)
     for dt in (torch.bfloat16, torch.float32):
         name = "bf16" if dt == torch.bfloat16 else "f32"
-        out, grads, counts = gnn_run(dev, "cuda", dt, cot)
+        # rows 6-9 a launch a head group or column slice; rows 11 and 12 a
+        # launch a slice of D's columns on route 0 (all of D at 512)
+        per = dict.fromkeys(("gat_pass_a_scores", "gat_pass_c",
+                             "gat_bwd_pass1", "gat_bwd_pass2"),
+                            len(gk.launches(HDk, HEADS)))
+        per.update(edge_hidden=len(ek.fwd_col_slices(width, dt)),
+                   edge_hidden_bwd=len(ek.bwd_col_slices(F, width)))
+        launches = {n: c * per.get(n, 1)
+                    for n, c in step_launches(WIDE_K).items()}
+        check = LaunchCheck(f"gnn_dim {width} {name}", dt) \
+            if width > WIDE_D else None
+        out, grads, counts = gnn_run(dev, "cuda", dt, cot, width, check)
         routes = dict(_build.ROUTES)
-        want, want_grads, none = gnn_run(dev, "scatter", dt, cot)
+        if check is not None:
+            check.report()
+        want, want_grads, none = gnn_run(dev, "scatter", dt, cot, width)
         ok = counts == launches and not none
-        log(f"  launches, one train forward + backward at gnn_dim {WIDE_D}, "
+        log(f"  launches, one train forward + backward at gnn_dim {width}, "
             f"{name}: {counts} (want {launches}; scatter {none})  "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            FAILURES.append(f"widths: launches at gnn_dim {WIDE_D}, {name}")
+            FAILURES.append(f"widths: launches at gnn_dim {width}, {name}")
         off = [k for k, want_r in (
             ("gat_pass_a_scores", 0), ("gat_pass_c", 0),
             ("gat_bwd_pass1", int(dt == torch.bfloat16)),
@@ -4934,8 +5274,8 @@ def widths_gnn(gen, dev, card):
                                      sorted(routes.items()))
             + f"  {'ok' if not off else 'FAIL'}")
         if off:
-            FAILURES.append(f"widths: routes at gnn_dim {WIDE_D}, {name}")
-        compare(f"GNN out at gnn_dim {WIDE_D}, kernel vs scatter, {name}",
+            FAILURES.append(f"widths: routes at gnn_dim {width}, {name}")
+        compare(f"GNN out at gnn_dim {width}, kernel vs scatter, {name}",
                 out, want, GNN_TOL[dt])
         gap, worst = grad_gap(grads, want_grads if dt == torch.float32
                               else oracle)
@@ -4948,22 +5288,28 @@ def widths_gnn(gen, dev, card):
                     f"{WIDE_BF16_DRIFT:g} x the bf16 scatter path's "
                     f"{base:.3e} ({base_worst})")
         ok = gap <= tol
-        log(f"  GNN parameter gradients at gnn_dim {WIDE_D}, kernel path "
+        log(f"  GNN parameter gradients at gnn_dim {width}, kernel path "
             f"{name}: largest max|d| / max|grad| {gap:.3e} ({worst}) "
             f"{what}  {'ok' if ok else 'FAIL'}")
         if not ok:
-            FAILURES.append(f"widths: gradients at gnn_dim {WIDE_D}, {name}")
+            FAILURES.append(f"widths: gradients at gnn_dim {width}, {name}")
 
 
-def widths_passes(gen, dev, card):
-    """Rows 6-9 alone at D = HD = 512, 4 heads: passes A and C (route 0,
-    W too wide for route 1's tile) and backward passes 1 and 2 on both
-    routes in bf16 (route 0 in f32) against their plain versions, masked
-    slots exactly; then each call's device time with its bound, and the
-    device time of each kernel launch it makes (torch.profiler)."""
+def widths_passes(gen, dev, card, D, HD):
+    """Rows 6-9 alone at D x HD (the kernels' widths), 4 heads: passes A and
+    C (route 0, W too wide for route 1's tile) and backward passes 1 and 2
+    on both routes in bf16 (route 0 in f32) against their plain versions,
+    masked slots exactly; then each call's device time with its bound, and
+    the device time of each kernel launch it makes (torch.profiler), rows
+    11 and 12 at this D too. The backward passes' plain version is the
+    unsliced one at D = 512 (two head groups: one bf16 carry rounding more
+    on the kernels' side, ROADMAP's known difference (a)); with more
+    launches a pass it is the wrappers' own loop over the plain versions
+    (`plain_launches`), which takes the same carry roundings."""
     src, dst, mask = graph_inputs(gen, dev, E)
     live = mask.float().mean().item()
-    D = HD = WIDE_D
+    n_launches = len(gk.launches(HD, HEADS))
+    sliced = plain_launches if n_launches > 2 else contextlib.nullcontext
     for dt in (torch.float32, torch.bfloat16):
         gat_fwd_case(None, gen, dev, D, HD, HEADS, src, dst, mask, dt,
                      f"D={D} HD={HD} {dt}", False)
@@ -4972,8 +5318,11 @@ def widths_passes(gen, dev, card):
         p1 = (t["gout"], t["nm"], t["emb"], t["w_me"], t["b_me"],
               t["scores"], t["gmax"], t["scale"], src, dst, mask,
               t["carry"])
-        want1 = gk.bwd_pass1_plain(*p1, t["dnm0"].clone(),
-                                   t["dscale0"].clone(), HEADS)
+        plain1 = gk.bwd_pass1_plain if n_launches <= 2 else gk.bwd_pass1
+        plain2 = gk.bwd_pass2_plain if n_launches <= 2 else gk.bwd_pass2
+        with sliced():
+            want1 = plain1(*p1, t["dnm0"].clone(), t["dscale0"].clone(),
+                           HEADS)
         scale, denom_raw = t["scale"], t["denom_raw"]
         d_denom = (-(scale / torch.clamp_min(denom_raw, gk.DENOM_EPS))
                    * want1[3] * (denom_raw > gk.DENOM_EPS).float())
@@ -4982,8 +5331,9 @@ def widths_passes(gen, dev, card):
               mask)
         acc2 = (torch.randn((G, N, HD), generator=gen, device=dev),
                 torch.randn((G, N, HD), generator=gen, device=dev))
-        want2 = gk.bwd_pass2_plain(*p2, want1[0].clone(),
-                                   *(x.clone() for x in acc2), HEADS)
+        with sliced():
+            want2 = plain2(*p2, want1[0].clone(),
+                           *(x.clone() for x in acc2), HEADS)
         for route in ((0, 1) if dt == torch.bfloat16 else (0,)):
             tag = f"D={D} HD={HD} {dt} route {route}"
             _build.reset_launch_counts()
@@ -5004,10 +5354,11 @@ def widths_passes(gen, dev, card):
                 FAILURES.append(f"gat_bwd_pass2 masked slots {tag}")
             counts = {k: (_build.LAUNCHES[k], _build.ROUTES[k, route])
                       for k in ("gat_bwd_pass1", "gat_bwd_pass2")}
-            if any(c != (2, 2) for c in counts.values()):
+            if any(c != (n_launches,) * 2 for c in counts.values()):
                 FAILURES.append(f"widths: launches of the passes, {tag}: "
                                 f"{counts}")
-            log(f"  launches and routes, {tag}: {counts} (two head groups)")
+            log(f"  launches and routes, {tag}: {counts} ({n_launches} "
+                "head groups or column slices)")
         # times of a call (two head groups) beside the bound of its work,
         # counted as the main path's measures count it
         s1 = (t["dnm0"].clone(), t["dscale0"].clone())
@@ -5031,10 +5382,10 @@ def widths_passes(gen, dev, card):
                 device_ms(plain, iters=5, warmup=1)
             bound_ms, by = bound(n_bytes, flops, dt)
             log(f"  time {name} D={D} HD={HD} {dt}: kernels {ms:.4f} ms a "
-                f"call (two head groups)  plain {plain_ms:.4f} ms  bound "
-                f"{bound_ms:.4f} ms ({by})  [{card}]")
+                f"call ({n_launches} launches)  plain {plain_ms:.4f} ms  "
+                f"bound {bound_ms:.4f} ms ({by})  [{card}]")
             profile_kernels(f"{name} D={D} HD={HD} {dt}", fn, iters=5)
-    # the forward passes and rows 11-12 at D = 512 on the bf16 main path
+    # the forward passes and rows 11-12 at this D on the bf16 main path
     dt = torch.bfloat16
     r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
     nq = (r(G, N, HD) / (HD // HEADS) ** 0.5).to(dt)
@@ -5077,51 +5428,64 @@ def widths_passes(gen, dev, card):
         plain_ms = device_ms(plain, iters=5, warmup=1)
         bound_ms, by = bound(n_bytes, flops, dt if "gat" in name
                              else torch.float32)
-        log(f"  time {name} D={D} {dt}: kernels {ms:.4f} ms a call  plain "
-            f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({by})  [{card}]")
+        log(f"  time {name} D={D} HD={HD} {dt}: kernels {ms:.4f} ms a call  "
+            f"plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({by})  "
+            f"[{card}]")
+        profile_kernels(f"{name} D={D} HD={HD} {dt}", fn, iters=5)
 
 
-def widths_cli(card):
+def widths_cli(card, widths):
     """`python -m qagnn_tpu_torch.cli` training two steps of a synthetic
-    set at --gnn_dim 512 on the card: exit 0."""
+    set at each --gnn_dim of `widths` on the card, the processes side by
+    side, each on its own copy of the set: exit 0."""
     from qagnn_tpu_torch.data.synthetic import (
         write_synthetic_dataset,
         write_tiny_bert_checkpoint,
     )
     with tempfile.TemporaryDirectory(prefix="qagnn_wide_cli_") as tmp:
-        emb_path = write_synthetic_dataset(f"{tmp}/data",
-                                           n_questions=WIDE_CLI_QUESTIONS)
         enc_dir = write_tiny_bert_checkpoint(f"{tmp}/bert")
-        splits = [f"--{split}_{kind}={tmp}/data/{sub}/{split}.{ext}"
-                  for split in ("train", "dev", "test")
-                  for kind, sub, ext in (
-                      ("statements", "statement", "statement.jsonl"),
-                      ("adj", "graph", "graph.adj.pk"))]
-        out = run_tool(
-            ["qagnn_tpu_torch.cli", "--mode", "train", "--dataset", "csqa",
-             "--encoder", "bert-base-uncased", "--encoder_load", enc_dir,
-             "--inhouse", "false", "--batch_size", "4",
-             "--mini_batch_size", "4", "--eval_batch_size", "4",
-             "--n_epochs", "1", "--max_seq_len", "24", "--max_node_num",
-             "8", "--num_relation", "7", "--gnn_dim", str(WIDE_D),
-             "--ent_emb_paths", emb_path, "--save_dir", f"{tmp}/out",
-             *splits], f"python -m qagnn_tpu_torch.cli --gnn_dim {WIDE_D}")
-        if out is not None:
-            for line in out.splitlines():
-                if line.startswith("|"):
-                    log("    " + line)
+        started = []
+        for width in widths:
+            root = f"{tmp}/{width}"
+            emb_path = write_synthetic_dataset(
+                f"{root}/data", n_questions=WIDE_CLI_QUESTIONS)
+            splits = [f"--{split}_{kind}={root}/data/{sub}/{split}.{ext}"
+                      for split in ("train", "dev", "test")
+                      for kind, sub, ext in (
+                          ("statements", "statement", "statement.jsonl"),
+                          ("adj", "graph", "graph.adj.pk"))]
+            started.append((width, start_tool(
+                ["qagnn_tpu_torch.cli", "--mode", "train", "--dataset",
+                 "csqa", "--encoder", "bert-base-uncased", "--encoder_load",
+                 enc_dir, "--inhouse", "false", "--batch_size", "4",
+                 "--mini_batch_size", "4", "--eval_batch_size", "4",
+                 "--n_epochs", "1", "--max_seq_len", "24", "--max_node_num",
+                 "8", "--num_relation", "7", "--gnn_dim", str(width),
+                 "--ent_emb_paths", emb_path, "--save_dir", f"{root}/out",
+                 *splits])))
+        for width, proc in started:
+            out = finish_tool(
+                proc, f"python -m qagnn_tpu_torch.cli --gnn_dim {width}")
+            if out is not None:
+                for line in out.splitlines():
+                    if line.startswith("|"):
+                        log("    " + line)
 
 
 def phase_widths(gen, dev, card) -> None:
-    """C9-C11 on the card: relation ids past n_rel through rows 10-12, the
-    unprojected op at widths one launch does not take, the GNN and its
-    backward passes at gnn_dim 512, and the CLI there."""
+    """C9-C12 on the card: relation ids past n_rel through rows 10-12, the
+    unprojected op at widths one launch does not take (a head wider than a
+    launch among them), the GNN and its passes at gnn_dim 512 and 1040, and
+    the CLI at both."""
     t0 = time.perf_counter()
     widths_relation_ids(gen, dev)
     widths_unprojected(gen, dev, card)
-    widths_gnn(gen, dev, card)
-    widths_passes(gen, dev, card)
-    widths_cli(card)
+    widths_split_forward(gen, dev)
+    for width in (WIDE_D, WIDER_D):
+        widths_gnn(gen, dev, card, width)
+        widths_passes(gen, dev, card,
+                      *gk.kernel_widths(width, width, HEADS))
+    widths_cli(card, (WIDE_D, WIDER_D))
     log(f"  the widths phase took {time.perf_counter() - t0:.1f} s ({card})")
 
 
@@ -5297,10 +5661,14 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         log("\n[the widths: relation ids past n_rel through rows 10-12, rows "
-            "1-5 at HD 100 and 320, rows 6-12 at gnn_dim 512 and the CLI "
+            "1-5 at HD 100, 320, 300 (one head) and 1040 (two heads), rows "
+            "6-12 at gnn_dim 512 and 1040 and the CLI "
             "there]")
         phase_widths(new_gen(21), dev, card)
 
+    left = stop_children()
+    log(f"\n[processes] still running at the end: {len(left)}, each "
+        "stopped" + "".join(f"\n  {line}" for line in left))
     if FAILURES:
         log("\nFAILED: " + "; ".join(FAILURES))
         return 1
@@ -5321,4 +5689,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    take_orphans()
+    try:
+        code = main()
+    finally:
+        stop_children()
+    sys.exit(code)

@@ -13,7 +13,11 @@
 //   dtype: msg = nm[src] + emb W_me + b_me; d_msg = alpha * g[dst];
 //   d_alpha = <msg, g[dst]> per head; dnm[src] += d_msg;
 //   dscale[src] += d_alpha * e; demb = d_msg W_me^T (+ carry);
-//   dW_me = emb^T d_msg; db_me = sum d_msg.
+//   dW_me = emb^T d_msg; db_me = sum d_msg. A head wider than 256 features
+//   runs as column slices, one launch each (`part`, gat_common.cuh): each
+//   slice adds its f32 d_alpha to the slices' before it, only the last adds
+//   the whole d_alpha * e into dscale (rounded once, as on the TPU), and
+//   demb chains from slice to slice as the carry does between head groups.
 // Pass 2 (score side): d_s = (d_alpha * scale[src] + d_denom[src]) * e;
 //   dekb = d_s * nq[src]; dnq[src] += d_s * (nk[dst] + emb W_ke + b_ke);
 //   dnk[dst] += dekb; demb += dekb W_ke^T; dW_ke = emb^T dekb;
@@ -126,7 +130,7 @@ bwd1_edge_kernel(const T* __restrict__ gout, const T* __restrict__ nm,
                  const uint8_t* __restrict__ mask, T* __restrict__ dmsg,
                  float* __restrict__ dalpha, float* __restrict__ dnm,
                  float* __restrict__ dscale, float* __restrict__ db_part,
-                 int E, int N, int D, int HD, int H) {
+                 int E, int N, int D, int HD, int H, int part) {
   __shared__ __align__(16) float s_emb[KC][TEP];
   __shared__ float s_alpha[TE][MAX_H];
   __shared__ float s_e[TE][MAX_H];
@@ -219,8 +223,10 @@ bwd1_edge_kernel(const T* __restrict__ gout, const T* __restrict__ nm,
           else if (h0 + 1 == h)
             v += s_red[((run * ntx + t) * 2 + 1) * RED_ROW + el];
         }
-      atomicAdd(&dscale[(g * N + src[g * E + e]) * H + h],
-                round_to<T>(v * s_e[el][h]));
+      if (part & PART_ADD) v += dalpha[(g * H + h) * E + e];
+      if (!(part & PART_OPEN))
+        atomicAdd(&dscale[(g * N + src[g * E + e]) * H + h],
+                  round_to<T>(v * s_e[el][h]));
     }
     dalpha[(g * H + h) * E + e] = v;
   }
@@ -492,7 +498,11 @@ void finish_pass(const T* emb, const T* cot, const float* wt, const T* add,
 // db_part is (n_blocks, HD); with more than one slice proj (G, E, HD) f32
 // is scratch (null otherwise). Either way the node-side outputs (dalpha,
 // dnm, dscale; dnq, dnk in pass 2) and db are written by one pass over the
-// edges only, and demb a slice of columns at a time, with no atomics.
+// edges only, and demb a slice of columns at a time, with no atomics. part
+// (PART_ADD | PART_OPEN, gat_common.cuh; 0 for whole heads): a column slice
+// of a head wider than 256 features, given its columns of gout, nm, w_me
+// (and w_me_t) and b_me, which adds its d_alpha to the slices' before it in
+// dalpha; only the last adds the whole d_alpha * e into dscale.
 extern "C" int gat_bwd_pass1(
     const void* gout, const void* nm, const void* emb, const void* w_me,
     const void* w_me_t, const void* b_me, const void* scores,
@@ -500,9 +510,10 @@ extern "C" int gat_bwd_pass1(
     const void* mask, const void* carry, void* dmsg, void* demb, void* dalpha,
     void* dnm, void* dscale, void* dw_part, void* db_part, void* dw, void* db,
     void* proj, int G, int N, int E, int D, int HD, int H, int n_split,
-    int d_slice, int dtype, int route, int warps, int n_blocks,
+    int d_slice, int dtype, int route, int warps, int n_blocks, int part,
     void* stream) {
-  if (!shapes_ok(D, d_slice, HD, H) || n_split <= 0 || !aligned16(gout) ||
+  if (!shapes_ok(D, d_slice, HD, H) || n_split <= 0 || part < 0 ||
+      part > 3 || !aligned16(gout) ||
       !aligned16(nm) || !aligned16(emb) || !aligned16(w_me) ||
       !aligned16(w_me_t) || !aligned16(carry) || !aligned16(dmsg) ||
       !aligned16(demb) || !aligned16(dnm) || !aligned16(dw_part) ||
@@ -533,6 +544,7 @@ extern "C" int gat_bwd_pass1(
     a.db_part = (float*)db_part;
     a.proj = (float*)proj;
     a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H; a.DS = d_slice;
+    a.part = part;
     return launch_pass_tc<1>(a, (float*)dw_part, (float*)dw, (float*)db,
                              n_split, warps, n_blocks, (cudaStream_t)stream);
   }
@@ -546,7 +558,7 @@ extern "C" int gat_bwd_pass1(
         (const float*)b_me, (const float*)scores, (const float*)gmax,
         (const float*)scale, (const int32_t*)src, (const int32_t*)dst,
         (const uint8_t*)mask, (T*)dmsg, (float*)dalpha, (float*)dnm,
-        (float*)dscale, (float*)db_part, E, N, D, HD, H);
+        (float*)dscale, (float*)db_part, E, N, D, HD, H, part);
     finish_pass<T>((const T*)emb, (const T*)dmsg, (const float*)w_me_t,
                    (const T*)carry, (T*)demb, (float*)dw_part,
                    (float*)db_part, (float*)dw, (float*)db, G, E, D, d_slice,
@@ -558,7 +570,7 @@ extern "C" int gat_bwd_pass1(
         (const float*)b_me, (const float*)scores, (const float*)gmax,
         (const float*)scale, (const int32_t*)src, (const int32_t*)dst,
         (const uint8_t*)mask, (T*)dmsg, (float*)dalpha, (float*)dnm,
-        (float*)dscale, (float*)db_part, E, N, D, HD, H);
+        (float*)dscale, (float*)db_part, E, N, D, HD, H, part);
     finish_pass<T>((const T*)emb, (const T*)dmsg, (const float*)w_me_t,
                    (const T*)carry, (T*)demb, (float*)dw_part,
                    (float*)db_part, (float*)dw, (float*)db, G, E, D, d_slice,

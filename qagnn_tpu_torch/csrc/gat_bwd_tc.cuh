@@ -97,6 +97,7 @@ struct TcArgs {
   int DS;                     // rows of a slice of W, dividing D
   int d0, first, last;        // this launch's slice: its first row, and
                               // whether it is the first / last slice
+  int part;                   // pass 1: PART_ADD | PART_OPEN (gat_common.cuh)
 };
 
 __device__ __forceinline__ float tc_edge_exp(const TcArgs& a, long long g,
@@ -353,9 +354,10 @@ edge_pass_tc_kernel(const TcArgs a) {
       for (int idx = lane; idx < TC_ROWS * H; idx += 32) {
         const int h = idx / TC_ROWS, el = idx % TC_ROWS, e = e0 + el;
         if (e >= E) continue;
-        const float v = s_da[h][el];
+        float v = s_da[h][el];
+        if (a.part & PART_ADD) v += a.dalpha_out[(g * H + h) * E + e];
         a.dalpha_out[(g * H + h) * E + e] = v;
-        if (s_src[el] >= 0)
+        if (s_src[el] >= 0 && !(a.part & PART_OPEN))
           atomicAdd(&a.dscale[(g * N + s_src[el]) * H + h],
                     round_to<bf16>(v * s_e[el][h]));
       }

@@ -26,6 +26,16 @@ constexpr int MAX_HD = 256;     // HD / 8 column threads, at most 32
 constexpr int MAX_H = 8;
 constexpr float NEG = -1e30f;
 
+// The partial mode of the launches that sum over a head's columns (the
+// scores, d_alpha): a head wider than one launch's 256 columns runs as
+// column slices, one launch each, in order on one stream. `part` 0 is a
+// whole head; PART_ADD adds this slice's f32 sums to those the slices
+// before it left in the output; PART_OPEN (every slice but the last) leaves
+// out what needs the whole sum: the per-graph max over the scores, the
+// dscale term d_alpha * e.
+constexpr int PART_ADD = 1;
+constexpr int PART_OPEN = 2;
+
 template <typename T> __device__ __forceinline__ float round_to(float x);
 template <> __device__ __forceinline__ float round_to<float>(float x) { return x; }
 template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {

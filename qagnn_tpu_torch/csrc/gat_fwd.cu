@@ -11,7 +11,11 @@
 // Pass A (scores): per edge, ekb = emb[e] W_ke + b_ke, then per head
 //   s = <nq[src], nk[dst] + ekb>, stored as scores (G, H, E) f32 (0 at a
 //   masked slot, which nothing reads), and the max over masked edges per
-//   (graph, head) by an atomic max on the float.
+//   (graph, head) by an atomic max on the float. A head wider than 256
+//   features runs as column slices, one launch each (`part`,
+//   gat_common.cuh): a slice projects its own columns of W_ke, adds its
+//   f32 head sums to the scores the slices before it wrote, and only the
+//   last takes the max, over the whole sums.
 // Pass A (denominators), once the torch glue has folded the self-loop scores
 //   into gmax: denom[g, src, h] += exp(min(s - gmax, 0)) and
 //   deg[g, src] += 1 over masked edges, by atomicAdd. The TPU kernel keeps a
@@ -79,7 +83,7 @@ pass_a_scores_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
                      const int32_t* __restrict__ dst,
                      const uint8_t* __restrict__ mask,
                      float* __restrict__ scores, float* __restrict__ m_edge,
-                     int E, int N, int D, int HD, int H) {
+                     int E, int N, int D, int HD, int H, int part) {
   __shared__ __align__(16) float s_emb[KC][TEP];
   __shared__ int s_head0[2][MAX_HD / 8];
   __shared__ float s_max[MAX_H];
@@ -143,8 +147,10 @@ pass_a_scores_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
         else if (h0 + 1 == h)
           v += s_red[((run * ntx + t) * 2 + 1) * RED_ROW + el];
       }
+    if (part & PART_ADD) v += scores[(g * H + h) * E + e];
     scores[(g * H + h) * E + e] = v;
-    if (mask[g * E + e]) atomic_max_float(&s_max[h], v);
+    if (!(part & PART_OPEN) && mask[g * E + e])
+      atomic_max_float(&s_max[h], v);
   }
   __syncthreads();
   if (tid < H && s_max[tid] > NEG)
@@ -250,7 +256,11 @@ bool route_ok(int route, int dtype, int D, int HD, int H) {
 // HD % 8 == 0, HD <= 256, H <= 8 and 16-byte aligned arrays. route 0 runs a
 // (64-edge tile, graph) grid and reads neither warps nor n_blocks; route 1
 // runs n_blocks persistent blocks of `warps` warps (see route_ok). Every
-// slot's score is written, 0 where the slot is masked.
+// slot's score is written, 0 where the slot is masked. part (PART_ADD |
+// PART_OPEN, gat_common.cuh; 0 for whole heads): a column slice of a head
+// wider than 256 features, given its columns of nq, nk, w_ke and b_ke,
+// which adds to the scores the slices before it wrote; all but the last
+// leave m_edge as it is.
 extern "C" int gat_pass_a_scores(const void* nq, const void* nk,
                                  const void* emb, const void* w_ke,
                                  const void* b_ke, const void* src,
@@ -258,8 +268,9 @@ extern "C" int gat_pass_a_scores(const void* nq, const void* nk,
                                  void* scores, void* m_edge, int G, int N,
                                  int E, int D, int HD, int H, int dtype,
                                  int route, int warps, int n_blocks,
-                                 void* stream) {
+                                 int part, void* stream) {
   if (!shapes_ok(D, HD, H) || !route_ok(route, dtype, D, HD, H) ||
+      part < 0 || part > 3 ||
       !aligned16(nq) || !aligned16(nk) || !aligned16(emb) ||
       !aligned16(w_ke))
     return (int)cudaErrorInvalidValue;
@@ -278,6 +289,7 @@ extern "C" int gat_pass_a_scores(const void* nq, const void* nk,
     a.scores_out = (float*)scores;
     a.m_edge = (float*)m_edge;
     a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H;
+    a.part = part;
     return launch_fwd_tc<1>(a, warps, n_blocks, s);
   }
   const dim3 grid((E + TE - 1) / TE, G);
@@ -289,13 +301,13 @@ extern "C" int gat_pass_a_scores(const void* nq, const void* nk,
         (const __nv_bfloat16*)nq, (const __nv_bfloat16*)nk,
         (const __nv_bfloat16*)emb, (const float*)w_ke, (const float*)b_ke,
         (const int32_t*)src, (const int32_t*)dst, (const uint8_t*)mask,
-        (float*)scores, (float*)m_edge, E, N, D, HD, H);
+        (float*)scores, (float*)m_edge, E, N, D, HD, H, part);
   else
     pass_a_scores_kernel<float><<<grid, threads, smem, s>>>(
         (const float*)nq, (const float*)nk, (const float*)emb,
         (const float*)w_ke, (const float*)b_ke, (const int32_t*)src,
         (const int32_t*)dst, (const uint8_t*)mask, (float*)scores,
-        (float*)m_edge, E, N, D, HD, H);
+        (float*)m_edge, E, N, D, HD, H, part);
   return (int)cudaGetLastError();
 }
 

@@ -51,6 +51,7 @@ struct TcFwdArgs {
   float* m_edge;              // pass A
   float* out;                 // pass C
   int G, N, E, D, HD, H;
+  int part;                   // pass A: PART_ADD | PART_OPEN (gat_common.cuh)
 };
 
 // PASS 1: pass A (scores), PASS 3: pass C (aggregation)
@@ -110,7 +111,7 @@ fwd_pass_tc_kernel(const TcFwdArgs a) {
       for (int o = 8; o > 0; o >>= 1)
         m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
       const int h = 2 * k + (lane >> 4);
-      if ((lane & 15) == 0 && h < H && m > NEG)
+      if ((lane & 15) == 0 && h < H && m > NEG && !(a.part & PART_OPEN))
         atomic_max_float(&a.m_edge[run_g * H + h], m);
       run_max[k] = NEG;
     }
@@ -257,7 +258,8 @@ fwd_pass_tc_kernel(const TcFwdArgs a) {
       for (int k = 0; k < MAX_H / 2; ++k) {
         const int h = 2 * k + (lane >> 4), el = lane & 15, e = e0 + el;
         if (h < H && e < E) {
-          const float v = s_sc[h][el];
+          float v = s_sc[h][el];
+          if (a.part & PART_ADD) v += a.scores_out[(g * H + h) * E + e];
           a.scores_out[(g * H + h) * E + e] = v;
           if (s_src[el] >= 0) run_max[k] = fmaxf(run_max[k], v);
         }

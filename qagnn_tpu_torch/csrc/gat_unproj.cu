@@ -37,6 +37,11 @@
 //   dnq[src] += round(d_s * (nk[dst] + ekb[e])); dnk[dst] += round(dekb).
 // The node accumulators dnm, dscale, dnq, dnk arrive seeded with the
 // self-loop cotangents.
+// scores and bwd1 sum over a head's columns; a head wider than a launch's
+// 256 columns runs as column slices (`part`, gat_common.cuh): each slice
+// adds its f32 sums to those the slices before it wrote in the same output,
+// and only the last takes the max over the whole scores or adds the whole
+// d_alpha * e into dscale. aggr and bwd2 work per column already.
 //
 // The TPU kernels gather and scatter by one-hot products and sum heads by a
 // selector product because the MXU is what that machine has; here a gather is
@@ -96,7 +101,8 @@ scores_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
               const T* __restrict__ ekb, const int32_t* __restrict__ src,
               const int32_t* __restrict__ dst,
               const uint8_t* __restrict__ mask, float* __restrict__ scores,
-              float* __restrict__ m_edge, int E, int N, int HD, int H) {
+              float* __restrict__ m_edge, int E, int N, int HD, int H,
+              int part) {
   __shared__ float s_sc[MAX_H][UE];
   __shared__ float s_max[MAX_H];
   const long long g = blockIdx.y;
@@ -133,9 +139,11 @@ scores_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
   for (int idx = tid; idx < H * UE; idx += UTHREADS) {
     const int h = idx / UE, el = idx % UE, e = e0 + el;
     if (e >= E) continue;
-    const float v = s_sc[h][el];
+    float v = s_sc[h][el];
+    if (part & PART_ADD) v += scores[(g * H + h) * E + e];
     scores[(g * H + h) * E + e] = v;
-    if (mask[g * E + e]) atomic_max_float(&s_max[h], v);
+    if (!(part & PART_OPEN) && mask[g * E + e])
+      atomic_max_float(&s_max[h], v);
   }
   __syncthreads();
   if (tid < H && s_max[tid] > NEG)
@@ -219,7 +227,7 @@ bwd1_kernel(const T* __restrict__ gout, const T* __restrict__ nm,
             const int32_t* __restrict__ dst, const uint8_t* __restrict__ mask,
             T* __restrict__ demb, float* __restrict__ dalpha,
             float* __restrict__ dscale, float* __restrict__ dnm, int E, int N,
-            int HD, int H) {
+            int HD, int H, int part) {
   __shared__ float s_e[UE][MAX_H];
   __shared__ float s_alpha[UE][MAX_H];
   __shared__ float s_da[MAX_H][UE];
@@ -285,9 +293,10 @@ bwd1_kernel(const T* __restrict__ gout, const T* __restrict__ nm,
   for (int idx = tid; idx < H * UE; idx += UTHREADS) {
     const int h = idx / UE, el = idx % UE, e = e0 + el;
     if (e >= E) continue;
-    const float v = s_da[h][el];
+    float v = s_da[h][el];
+    if (part & PART_ADD) v += dalpha[(g * H + h) * E + e];
     dalpha[(g * H + h) * E + e] = v;
-    if (mask[g * E + e])
+    if (!(part & PART_OPEN) && mask[g * E + e])
       atomicAdd(&dscale[(g * N + src[g * E + e]) * H + h], v * s_e[el][h]);
   }
 }
@@ -951,7 +960,9 @@ aggr_graph_kernel(const T* __restrict__ nm, const T* __restrict__ emb,
   if (held && on) store_sum8(out_g + n * HD, seed, acc);
 }
 
-template <typename T>
+// SPLIT: a column slice of a wide head (`part`); a whole head's launch is
+// compiled without the partial mode, which sits in its per-slot loop
+template <typename T, bool SPLIT>
 __global__ void __launch_bounds__(RT, 2)
 bwd1_graph_kernel(const T* __restrict__ gout, const T* __restrict__ nm,
                   const T* __restrict__ emb, const float* __restrict__ e_edge,
@@ -961,7 +972,7 @@ bwd1_graph_kernel(const T* __restrict__ gout, const T* __restrict__ nm,
                   const uint8_t* __restrict__ mask, T* __restrict__ demb,
                   float* __restrict__ dalpha, float* __restrict__ dscale,
                   float* __restrict__ dnm, int E, int N, int HD, int H,
-                  int parts) {
+                  int part, int parts) {
   constexpr int RD = ring_depth(sizeof(T));
   extern __shared__ __align__(16) unsigned char smem[];
   const long long g = blockIdx.y;
@@ -1056,10 +1067,11 @@ bwd1_graph_kernel(const T* __restrict__ gout, const T* __restrict__ nm,
       store_row8<T, true>(demb_g + (long long)e * HD, dm);
     }
     issue(v + RD);                       // into the stage just read
-    const float da = hs.total(pA, pB, lane);  // head lane / 4's
+    float da = hs.total(pA, pB, lane);  // head lane / 4's
     if (head_lane) {
+      if (SPLIT && (part & PART_ADD)) da += da_g[e];
       da_g[e] = da;
-      acc_ds += da * ee;
+      if (!SPLIT || !(part & PART_OPEN)) acc_ds += da * ee;
     }
   }
   cp_async_wait<0>();
@@ -1134,7 +1146,7 @@ scores_range_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
                     const int32_t* __restrict__ dst,
                     const uint8_t* __restrict__ mask,
                     float* __restrict__ scores, float* __restrict__ m_edge,
-                    int E, int N, int HD, int H) {
+                    int E, int N, int HD, int H, int part) {
   constexpr int AHEAD = scores_ahead(sizeof(T));
   constexpr int NV = 8 * sizeof(T) / 16;  // 16-byte words of 8 values
   constexpr int K = SR / RT;             // slots a thread stages
@@ -1242,15 +1254,23 @@ scores_range_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
       }
     }
   }
-  if (head_lane && va < vb) atomic_max_float(&s_max[my_h], mx);
+  if (head_lane && va < vb && part == 0) atomic_max_float(&s_max[my_h], mx);
   __syncthreads();
 
-  // the range's scores as runs of consecutive slots, head by head
+  // the range's scores as runs of consecutive slots, head by head; a
+  // column slice adds the slices' sums before it, and the last takes the
+  // max over the whole sums (part is the same for the whole grid)
   for (int i = tid; i < H * ne; i += RT) {
     const int h = i / ne, el = i % ne;
-    scores[(g * H + h) * E + e0 + el] = s_sc[h * SR + el];
+    float v = s_sc[h * SR + el];
+    if (part != 0) {
+      if (part & PART_ADD) v += scores[(g * H + h) * E + e0 + el];
+      if (!(part & PART_OPEN) && g_mask[el]) atomic_max_float(&s_max[h], v);
+    }
+    scores[(g * H + h) * E + e0 + el] = v;
   }
-  if (tid < H && s_max[tid] > NEG)
+  if (part != 0) __syncthreads();
+  if (!(part & PART_OPEN) && tid < H && s_max[tid] > NEG)
     atomic_max_float(&m_edge[g * H + tid], s_max[tid]);
 }
 
@@ -1476,16 +1496,18 @@ dim3 edge_grid(int G, int E) { return dim3((E + UE - 1) / UE, G); }
 
 // m_edge (G, H) arrives filled with -1e30. route 0: a block per 32 slots, a
 // warp per edge; route 1: a block per range of SR slots of a graph, which
-// takes heads of at least 8 features.
+// takes heads of at least 8 features. part (PART_ADD | PART_OPEN, 0 for a
+// whole head): a column slice of a wider head, which adds to the scores
+// the slices before it wrote; all but the last leave m_edge as it is.
 extern "C" int gat_unproj_scores(const void* nq, const void* nk,
                                  const void* ekb, const void* src,
                                  const void* dst, const void* mask,
                                  void* scores, void* m_edge, int G, int N,
                                  int E, int HD, int H, int dtype, int route,
-                                 void* stream) {
+                                 int part, void* stream) {
   if (!shapes_ok(HD, H) || !aligned16(nq) || !aligned16(nk) ||
       !aligned16(ekb) || (route != 0 && route != 1) ||
-      (route == 1 && HD / H < 8))
+      (route == 1 && HD / H < 8) || part < 0 || part > 3)
     return (int)cudaErrorInvalidValue;
   if ((long long)G * E == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
@@ -1496,13 +1518,13 @@ extern "C" int gat_unproj_scores(const void* nq, const void* nk,
       scores_range_kernel<T><<<grid, RT, scores_smem(H), s>>>(
           (const T*)nq, (const T*)nk, (const T*)ekb, (const int32_t*)src,
           (const int32_t*)dst, (const uint8_t*)mask, (float*)scores,
-          (float*)m_edge, E, N, HD, H);
+          (float*)m_edge, E, N, HD, H, part);
     } else {
       typedef float T;
       scores_range_kernel<T><<<grid, RT, scores_smem(H), s>>>(
           (const T*)nq, (const T*)nk, (const T*)ekb, (const int32_t*)src,
           (const int32_t*)dst, (const uint8_t*)mask, (float*)scores,
-          (float*)m_edge, E, N, HD, H);
+          (float*)m_edge, E, N, HD, H, part);
     }
     return (int)cudaGetLastError();
   }
@@ -1511,13 +1533,13 @@ extern "C" int gat_unproj_scores(const void* nq, const void* nk,
     scores_kernel<T><<<edge_grid(G, E), UTHREADS, 0, s>>>(
         (const T*)nq, (const T*)nk, (const T*)ekb, (const int32_t*)src,
         (const int32_t*)dst, (const uint8_t*)mask, (float*)scores,
-        (float*)m_edge, E, N, HD, H);
+        (float*)m_edge, E, N, HD, H, part);
   } else {
     typedef float T;
     scores_kernel<T><<<edge_grid(G, E), UTHREADS, 0, s>>>(
         (const T*)nq, (const T*)nk, (const T*)ekb, (const int32_t*)src,
         (const int32_t*)dst, (const uint8_t*)mask, (float*)scores,
-        (float*)m_edge, E, N, HD, H);
+        (float*)m_edge, E, N, HD, H, part);
   }
   return (int)cudaGetLastError();
 }
@@ -1613,17 +1635,19 @@ extern "C" int gat_unproj_aggr(const void* nm, const void* emb,
 // and dnm (G, N, HD) f32 arrive seeded and are added to in place. route 0:
 // the warp-per-edge kernel; route 1: a block per (graph, part of its slots
 // sorted by source), which takes what route 1 of gat_unproj_aggr takes,
-// with sorted_smem's rows = 3.
+// with sorted_smem's rows = 3. part as in gat_unproj_scores: a column slice
+// adds its d_alpha to the slices' before it, and only the last adds the
+// whole d_alpha * e into dscale.
 extern "C" int gat_unproj_bwd1(const void* gout, const void* nm,
                                const void* emb, const void* e_edge,
                                const void* scale, const void* src,
                                const void* dst, const void* mask, void* demb,
                                void* dalpha, void* dscale, void* dnm, int G,
                                int N, int E, int HD, int H, int dtype,
-                               int route, void* stream) {
+                               int route, int part, void* stream) {
   if (!shapes_ok(HD, H) || !aligned16(gout) || !aligned16(nm) ||
       !aligned16(emb) || !aligned16(demb) || !aligned16(dnm) ||
-      (route != 0 && route != 1) ||
+      (route != 0 && route != 1) || part < 0 || part > 3 ||
       (route == 1 && !sorted_ok(N, E, HD, H, dtype == 1 ? 2 : 4, 3)))
     return (int)cudaErrorInvalidValue;
   if ((long long)G * E == 0) return (int)cudaGetLastError();
@@ -1632,20 +1656,23 @@ extern "C" int gat_unproj_bwd1(const void* gout, const void* nm,
     if (dtype == 1) {
       typedef __nv_bfloat16 T;
       return (int)launch_sorted(
-          bwd1_graph_kernel<T>, G, sorted_smem(N, E, HD, 2, 3), E, s,
+          part ? bwd1_graph_kernel<T, true> : bwd1_graph_kernel<T, false>, G,
+          sorted_smem(N, E, HD, 2, 3), E, s,
           (const T*)gout, (const T*)nm,
           (const T*)emb, (const float*)e_edge, (const float*)scale,
           (const int32_t*)src, (const int32_t*)dst, (const uint8_t*)mask,
           (T*)demb, (float*)dalpha, (float*)dscale, (float*)dnm, E, N, HD,
-          H);
+          H, part);
     }
     typedef float T;
     return (int)launch_sorted(
-        bwd1_graph_kernel<T>, G, sorted_smem(N, E, HD, 4, 3), E, s,
+        part ? bwd1_graph_kernel<T, true> : bwd1_graph_kernel<T, false>, G,
+        sorted_smem(N, E, HD, 4, 3), E, s,
         (const T*)gout, (const T*)nm,
         (const T*)emb, (const float*)e_edge, (const float*)scale,
         (const int32_t*)src, (const int32_t*)dst, (const uint8_t*)mask,
-        (T*)demb, (float*)dalpha, (float*)dscale, (float*)dnm, E, N, HD, H);
+        (T*)demb, (float*)dalpha, (float*)dscale, (float*)dnm, E, N, HD, H,
+        part);
   }
   if (dtype == 1) {
     typedef __nv_bfloat16 T;
@@ -1653,14 +1680,14 @@ extern "C" int gat_unproj_bwd1(const void* gout, const void* nm,
         (const T*)gout, (const T*)nm, (const T*)emb, (const float*)e_edge,
         (const float*)scale, (const int32_t*)src, (const int32_t*)dst,
         (const uint8_t*)mask, (T*)demb, (float*)dalpha, (float*)dscale,
-        (float*)dnm, E, N, HD, H);
+        (float*)dnm, E, N, HD, H, part);
   } else {
     typedef float T;
     bwd1_kernel<T><<<edge_grid(G, E), UTHREADS, 0, s>>>(
         (const T*)gout, (const T*)nm, (const T*)emb, (const float*)e_edge,
         (const float*)scale, (const int32_t*)src, (const int32_t*)dst,
         (const uint8_t*)mask, (T*)demb, (float*)dalpha, (float*)dscale,
-        (float*)dnm, E, N, HD, H);
+        (float*)dnm, E, N, HD, H, part);
   }
   return (int)cudaGetLastError();
 }

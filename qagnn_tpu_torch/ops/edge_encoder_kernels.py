@@ -23,7 +23,11 @@ it into their edge projections) and
 (csrc/edge_hidden_tc.cuh): persistent blocks hold W0 and a table of the
 type rows' sums in shared memory; the backward streams dh through them and
 forms dW0 as a one-hot product on tensor cores. Route 0, float32 and other
-widths: the CUDA-core kernels of csrc/edge_hidden.cu.
+widths: the CUDA-core kernels of csrc/edge_hidden.cu, whose launches take at
+most 1024 column vectors (the forward) or 1024 columns and an F x D f32 dW0
+in 200 KiB of shared memory (the backward): past that the wrappers run D's
+columns in slices (`fwd_col_slices`, `bwd_col_slices`), one launch each,
+every quantity of both passes being per column.
 
 Every kernel has a plain torch version here with the same arithmetic. A
 wrapper takes the plain version for CPU tensors only; for CUDA tensors it
@@ -47,6 +51,9 @@ _MOMENTS_SIGNATURES = {"edge_moments_launch": [_P] * 7 + [_I] * 5 + [_P]}
 # (less room for its static flag)
 MOMENTS_MAX_SMEM = 227 * 1024 - 64
 BWD_BLOCKS = 512     # blocks (and rows of partials) of the hidden backward
+# route 0 of the hidden backward: a thread a column and the F x D f32 dW0 in
+# a block's shared memory (csrc/edge_hidden.cu launch_bwd)
+BWD_MAX_THREADS, BWD_MAX_SMEM = 1024, 200 * 1024
 # what route 1 takes (csrc/edge_hidden_tc.cuh: EH_MAX_D, EH_MAX_F, EH_MAX_U)
 # and the slots of its tiles (EH_TILE)
 TC_MAX_D, TC_MAX_F, TC_MAX_U = 256, 64, 8192
@@ -226,10 +233,36 @@ def edge_hidden_backward_plain(edge_type, src, dst, node_type, w0, b0, a, b,
             d_pre.sum((0, 1)))
 
 
+def fwd_col_slices(D: int, dtype) -> list[tuple[int, int]]:
+    """[(c0, c1)] of route 0's forward launches over D columns: every output
+    column is its own, and a block's row of threads takes a vector of 8
+    columns in bf16, 4 in f32 (1 where D is not a multiple of it), at most
+    1024 vectors; one launch where D fits, else the fewest slices, all but
+    the last of the widest width that fits."""
+    vec = 8 if dtype == torch.bfloat16 else 4
+    width = 1024 * (vec if D % vec == 0 else 1)
+    return [(c, min(c + width, D)) for c in range(0, D, width)]
+
+
 def edge_hidden_forward(edge_type, src, dst, node_type, w0, b0, a, b, n_rel,
                         n_ntype, out_dtype, _route=None):
-    """`edge_hidden` without the autograd graph. `_route` names a route
-    (`_hidden_route`) to time it beside the other."""
+    """`edge_hidden` without the autograd graph; on route 0 a launch a slice
+    of D's columns (`fwd_col_slices`), on every device. `_route` names a
+    route (`_hidden_route`) to time it beside the other."""
+    D = w0.shape[1]
+    route = _hidden_route(out_dtype, D, n_rel, n_ntype, _route)
+    spans = fwd_col_slices(D, out_dtype) if route == 0 else [(0, D)]
+    if len(spans) == 1:
+        return _edge_hidden_forward(edge_type, src, dst, node_type, w0, b0,
+                                    a, b, n_rel, n_ntype, out_dtype, route)
+    return torch.cat([_edge_hidden_forward(
+        edge_type, src, dst, node_type, w0[:, c0:c1].contiguous(),
+        *(v[c0:c1].contiguous() for v in (b0, a, b)), n_rel, n_ntype,
+        out_dtype, route) for c0, c1 in spans], -1)
+
+
+def _edge_hidden_forward(edge_type, src, dst, node_type, w0, b0, a, b, n_rel,
+                         n_ntype, out_dtype, route):
     if not edge_type.is_cuda:
         return edge_hidden_plain(edge_type, src, dst, node_type, w0, b0, a, b,
                                  n_rel, n_ntype, out_dtype)
@@ -247,7 +280,6 @@ def edge_hidden_forward(edge_type, src, dst, node_type, w0, b0, a, b, n_rel,
     _require(w0, "w0", torch.float32, (F, D))
     for t, name in ((b0, "b0"), (a, "a"), (b, "b")):
         _require(t, name, torch.float32, (D,))
-    route = _hidden_route(out_dtype, D, n_rel, n_ntype, _route)
     out = torch.empty((G, E, D), device=edge_type.device, dtype=out_dtype)
     _check_aligned(route, w0, b0, a, b, out)
     err = _build.load("edge_hidden", _SIGNATURES).edge_hidden_launch(
@@ -261,11 +293,44 @@ def edge_hidden_forward(edge_type, src, dst, node_type, w0, b0, a, b, n_rel,
     return out
 
 
+def bwd_col_slices(F: int, D: int) -> list[tuple[int, int]]:
+    """[(c0, c1)] of route 0's backward launches over D columns: every
+    quantity of the backward is per column, and a launch takes at most 1024
+    columns and F x width f32 of dW0 in 200 KiB of shared memory; one launch
+    where D fits, else the fewest slices, all but the last of the widest
+    width, a multiple of 8, that fits."""
+    width = min(BWD_MAX_THREADS, BWD_MAX_SMEM // (4 * F))
+    if D <= width:
+        return [(0, D)]
+    width -= width % 8
+    if width == 0:
+        raise ValueError(f"the edge_hidden backward kernel takes F <= "
+                         f"{BWD_MAX_SMEM // 32} rows of W0; got F={F}")
+    return [(c, min(c + width, D)) for c in range(0, D, width)]
+
+
 def edge_hidden_backward(edge_type, src, dst, node_type, w0, b0, a, b, dh,
                          n_rel, n_ntype, _route=None):
     """Gradients of `edge_hidden` in (w0, b0, a, b), f32, from the output
-    cotangent dh (G, E, D) in the forward's output dtype. `_route` as in
-    `edge_hidden_forward`."""
+    cotangent dh (G, E, D) in the forward's output dtype; on route 0 a
+    launch a slice of D's columns (`bwd_col_slices`), on every device.
+    `_route` as in `edge_hidden_forward`."""
+    F, D = w0.shape
+    route = _hidden_route(dh.dtype, D, n_rel, n_ntype, _route)
+    spans = bwd_col_slices(F, D) if route == 0 else [(0, D)]
+    if len(spans) == 1:
+        return _edge_hidden_backward(edge_type, src, dst, node_type, w0, b0,
+                                     a, b, dh, n_rel, n_ntype, route)
+    parts = [_edge_hidden_backward(
+        edge_type, src, dst, node_type, w0[:, c0:c1].contiguous(),
+        *(v[c0:c1].contiguous() for v in (b0, a, b)),
+        dh[..., c0:c1].contiguous(), n_rel, n_ntype, route)
+        for c0, c1 in spans]
+    return tuple(torch.cat(p, -1) for p in zip(*parts))
+
+
+def _edge_hidden_backward(edge_type, src, dst, node_type, w0, b0, a, b, dh,
+                          n_rel, n_ntype, route):
     if not dh.is_cuda:
         return edge_hidden_backward_plain(edge_type, src, dst, node_type, w0,
                                           b0, a, b, dh, n_rel, n_ntype)
@@ -277,10 +342,6 @@ def edge_hidden_backward(edge_type, src, dst, node_type, w0, b0, a, b, dh,
     if dh.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"edge_hidden takes a float32 or bfloat16 cotangent, "
                         f"not {dh.dtype}")
-    route = _hidden_route(dh.dtype, D, n_rel, n_ntype, _route)
-    if route == 0 and (D > 1024 or F * D * 4 > 200 * 1024):
-        raise ValueError(f"the edge_hidden backward kernel takes D <= 1024 "
-                         f"and F * D <= 51200; got F={F}, D={D}")
     for t, name in ((edge_type, "edge_type"), (src, "src"), (dst, "dst")):
         _require(t, name, torch.int32, (G, E))
     _require(node_type, "node_type", torch.int32, (G, N))

@@ -58,10 +58,11 @@ kernel or raises.
 Unlike the TPU op the edge embedding is (G, E, D), not transposed, and no
 edge padding is needed: any E works. A launch takes D and HD that are
 multiples of 8, HD <= 256 and at most 8 heads (the backward also heads of at
-least 4 features); the plain versions take any. The backward kernels take
-any such D: beyond 256 they run W's rows in slices (`d_slices`), each slice
-writing its own columns of d_edge_emb and its own rows of dW, the node-side
-outputs written by one slice alone. The op (`gat_projected`,
+least 4 features); the plain versions take any width, and the launches'
+partial mode. The backward kernels take any such D: beyond 256 they run W's
+rows in slices (`d_slices`), each slice writing its own columns of
+d_edge_emb and its own rows of dW, the node-side outputs written by one
+slice alone. The op (`gat_projected`,
 `gat_projected_chained`) pads other widths with zeros to ones the kernels
 take (`kernel_widths`: D to a multiple of 8, each head's features to at
 least 4 and to a multiple of 8 over the heads; to a multiple of 8 a head
@@ -71,8 +72,15 @@ product, so the padding changes no value. Each pass wrapper runs more than 8
 heads, or more than 256 columns, as groups of whole heads (`head_groups`),
 one launch a group, on every device: every quantity of the op is per head,
 and the backward's d_edge_emb sums over the groups inside the kernels (pass
-1's carry, pass 2's in-place add). The one width left is a single head of
-more than 256 features, which `kernel_widths` refuses.
+1's carry, pass 2's in-place add). A single head of more than 256 features
+is a group of its own, run as column slices of at most 256 (`col_slices`,
+`launches`), one launch a slice, in order: pass C and backward pass 2 work
+per column given the head's scores, scale and d_alpha, while pass A's
+scores and backward pass 1's d_alpha sum over the head's columns, so each
+slice's launch adds its f32 sums to those the slices before it left
+(`partial`, the kernels' PART_ADD), and only the last takes the per-graph
+max or adds d_alpha * e into dscale (PART_OPEN on the others): the one
+non-linear step sees the whole sum, and no bf16 rounding is added.
 
 The unprojected op (`pallas_relational_gat`: precomputed per-edge biases, no
 projection in the kernels) is the sibling module `gat_unproj_kernels`, which
@@ -98,14 +106,14 @@ _I = ctypes.c_int
 
 
 _SIGNATURES = {
-    "gat_pass_a_scores": [_P] * 10 + [_I] * 10 + [_P],
+    "gat_pass_a_scores": [_P] * 10 + [_I] * 11 + [_P],
     "gat_pass_a_denoms": [_P] * 6 + [_I] * 4 + [_P],
     "gat_pass_c": [_P] * 11 + [_I] * 10 + [_P],
 }
 
 
 _BWD_SIGNATURES = {
-    "gat_bwd_pass1": [_P] * 23 + [_I] * 12 + [_P],
+    "gat_bwd_pass1": [_P] * 23 + [_I] * 13 + [_P],
     "gat_bwd_pass2": [_P] * 23 + [_I] * 12 + [_P],
 }
 DW_SPLITS = 128      # edge ranges (rows of partials) of the dW products
@@ -164,24 +172,77 @@ def head_groups(HD: int, heads: int) -> list[tuple[int, int]]:
     """[(first head, end head)] of the launches that run `heads` heads of
     HD / heads features: one group where a launch takes them all, else as
     few groups of whole heads as hold at most 8 heads and 256 columns each,
-    their sizes differing by one at most. Every quantity of the op is per
-    head, so running the groups apart changes no value."""
+    their sizes differing by one at most; a head of more than 256 features
+    a group of its own, run in column slices (`col_slices`). Every quantity
+    of the op is per head, so running the groups apart changes no value."""
     dph = HD // heads
     if heads <= MAX_HEADS and HD <= MAX_COLS:
         return [(0, heads)]
-    per = min(MAX_HEADS, MAX_COLS // dph)
-    if per == 0:
-        raise ValueError(f"a head of {dph} features is wider than the "
-                         f"{MAX_COLS} columns a GAT kernel takes")
+    per = max(1, min(MAX_HEADS, MAX_COLS // dph))
     n = -(-heads // per)
     bounds = [heads * i // n for i in range(n + 1)]
     return list(zip(bounds[:-1], bounds[1:]))
 
 
-def head_cols(t: torch.Tensor, h0: int, h1: int, heads: int) -> torch.Tensor:
-    """The columns of heads [h0, h1) of a (..., HD) head-major tensor."""
-    dph = t.shape[-1] // heads
-    return t[..., h0 * dph:h1 * dph].contiguous()
+def col_slices(dph: int) -> list[tuple[int, int]]:
+    """[(first column, end column)] of the launches that run one head of
+    dph features: [(0, dph)] up to 256, else the fewest slices of at most
+    256 columns, each a multiple of 8 (dph must be one), their widths
+    differing by 8 at most."""
+    if dph <= MAX_COLS:
+        return [(0, dph)]
+    if dph % 8:
+        raise ValueError(f"a head of {dph} features runs in column slices "
+                         "only at a multiple of 8 (`kernel_widths` pads it)")
+    n, units = -(-dph // MAX_COLS), dph // 8
+    bounds = [8 * (units * i // n) for i in range(n + 1)]
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def group_cols(HD: int, heads: int, h0: int, h1: int) -> list[tuple[int, int]]:
+    """[(c0, c1)] of the launches of head group [h0, h1) in a (..., HD)
+    head-major row: the group's columns in one launch, or a head of more
+    than 256 features (a group of its own) in column slices. The slices of
+    one head run in order: rows 1, 4, 6 and 8 sum over a head's columns,
+    each slice adding to the sums of the slices before it (`partial`)."""
+    dph = HD // heads
+    return [(h0 * dph + a, h0 * dph + b) for a, b in col_slices(dph)] \
+        if dph > MAX_COLS else [(h0 * dph, h1 * dph)]
+
+
+def launches(HD: int, heads: int) -> list[tuple[int, int, int, int]]:
+    """[(h0, h1, c0, c1)]: every launch of a pass over HD head-major
+    columns, its heads and its columns (`head_groups`, `group_cols`)."""
+    return [(h0, h1, c0, c1) for h0, h1 in head_groups(HD, heads)
+            for c0, c1 in group_cols(HD, heads, h0, h1)]
+
+
+def cols(t: torch.Tensor, c0: int, c1: int) -> torch.Tensor:
+    """Columns [c0, c1) of a (..., HD) tensor, contiguous."""
+    return t[..., c0:c1].contiguous()
+
+
+def heads_of(t: torch.Tensor, h0: int, h1: int) -> torch.Tensor:
+    """Heads [h0, h1) of a (..., H) per-head tensor, contiguous."""
+    return t[..., h0:h1].contiguous()
+
+
+# rows 1, 4, 6 and 8 over a column slice of a head wider than a launch
+# (csrc/gat_common.cuh): add the slice's sums to those already in the
+# output; more slices follow, so leave out what needs the whole sum (the
+# max over the scores, the dscale term)
+PART_ADD, PART_OPEN = 1, 2
+
+
+def partial(acc, i: int, n: int) -> dict:
+    """The keywords of launch i of the n that run one head group: none for
+    a group in one launch; else the head sums of the slices before it
+    (`acc`, None for the first slice) and whether it is the last."""
+    return {} if n == 1 else {"acc": acc, "last": i == n - 1}
+
+
+def _part(acc, last: bool) -> int:
+    return (0 if acc is None else PART_ADD) | (0 if last else PART_OPEN)
 
 
 def _stream() -> int:
@@ -215,15 +276,28 @@ def _edge_projection_plain(edge_emb, w, b, cdt):
 # pass A, scores
 # --------------------------------------------------------------------------
 
-def pass_a_scores_plain(nq, nk, edge_emb, w_ke, b_ke, src, dst, mask, heads):
+def scores_and_max(scores, mask, acc=None, last=True):
+    """Masked scores (G, H, E) f32 and their max over masked edges (G, H):
+    with `acc` (the sums of a split head's slices before), the scores added
+    to it in place; with `last` false the max left at NEG, as a launch of
+    rows 1 and 6 leaves it before a split head's last slice."""
+    live = mask[:, None, :]
+    scores = torch.where(live, scores, 0.0)
+    if acc is not None:
+        scores = acc.add_(scores)
+    m_edge = torch.where(live, scores, NEG).amax(-1)
+    if not last:
+        m_edge = torch.full_like(m_edge, NEG)
+    return scores.contiguous(), torch.clamp_min(m_edge, NEG)
+
+
+def pass_a_scores_plain(nq, nk, edge_emb, w_ke, b_ke, src, dst, mask, heads,
+                        acc=None, last=True):
     ekb = _edge_projection_plain(edge_emb, w_ke, b_ke, nq.dtype)
     eq = _gather_nodes(nq, src).float()
     ek = _gather_nodes(nk, dst).float() + ekb
-    live = mask[:, None, :]
-    scores = torch.where(live, head_sum(eq * ek, heads).transpose(1, 2),
-                         0.0).contiguous()                           # (G,H,E)
-    m_edge = torch.where(live, scores, NEG).amax(-1)                  # (G,H)
-    return scores, torch.clamp_min(m_edge, NEG)
+    return scores_and_max(head_sum(eq * ek, heads).transpose(1, 2), mask,
+                          acc, last)
 
 
 def by_head_groups(HD, heads, run, cat_dims):
@@ -237,24 +311,38 @@ def by_head_groups(HD, heads, run, cat_dims):
                  for parts, d in zip(zip(*outs), cat_dims))
 
 
+def split_scores(launch, HD, heads, row_args):
+    """The scores (G, H, E) and their max (G, H) of rows 1 and 6 over every
+    launch: launch(h0, h1, [column slices of row_args], **partial) for each
+    head group and each of its column slices in order, a split head's
+    slices summing into one scores array."""
+    def run(h0, h1):
+        spans, acc = group_cols(HD, heads, h0, h1), None
+        for i, (c0, c1) in enumerate(spans):
+            acc, m_edge = launch(h0, h1, [cols(t, c0, c1) for t in row_args],
+                                 **partial(acc, i, len(spans)))
+        return acc, m_edge
+    return by_head_groups(HD, heads, run, (1, 1))
+
+
 def pass_a_scores(nq, nk, edge_emb, w_ke, b_ke, src, dst, mask, heads,
                   _route=None):
     """Scores (G, H, E) f32, 0 at masked slots, and the max over masked
     edges (G, H) f32 (NEG for a graph with no masked edge); a launch a head
-    group. `_route` names a route (`_fwd_route`) to time it beside the
-    other."""
-    def run(h0, h1):
-        cols = lambda t: head_cols(t, h0, h1, heads)  # noqa: E731
-        return _pass_a_scores(cols(nq), cols(nk), edge_emb, cols(w_ke),
-                              cols(b_ke), src, dst, mask, h1 - h0, _route)
-    return by_head_groups(nq.shape[-1], heads, run, (1, 1))
+    group, or a column slice of a head wider than 256 features. `_route`
+    names a route (`_fwd_route`) to time it beside the other."""
+    def launch(h0, h1, t, **part):
+        q, k, w, b = t
+        return _pass_a_scores(q, k, edge_emb, w, b, src, dst, mask, h1 - h0,
+                              _route, **part)
+    return split_scores(launch, nq.shape[-1], heads, (nq, nk, w_ke, b_ke))
 
 
 def _pass_a_scores(nq, nk, edge_emb, w_ke, b_ke, src, dst, mask, heads,
-                   _route):
+                   _route, acc=None, last=True):
     if not nq.is_cuda:
         return pass_a_scores_plain(nq, nk, edge_emb, w_ke, b_ke, src, dst,
-                                   mask, heads)
+                                   mask, heads, acc, last)
     G, N, HD = nq.shape
     E, D = edge_emb.shape[1], edge_emb.shape[2]
     cdt = nq.dtype
@@ -269,17 +357,26 @@ def _pass_a_scores(nq, nk, edge_emb, w_ke, b_ke, src, dst, mask, heads,
     _require(mask, "mask", torch.bool, (G, E))
     route = _fwd_route(cdt, D, HD, heads, _route)
     warps, n_blocks = _fwd_launch_plan(route, G, E, D, HD, nq.device)
-    scores = torch.empty((G, heads, E), device=nq.device, dtype=torch.float32)
+    scores = _scores_out(acc, G, heads, E, nq.device)
     m_edge = torch.full((G, heads), NEG, device=nq.device,
                         dtype=torch.float32)
     err = _lib().gat_pass_a_scores(
         nq.data_ptr(), nk.data_ptr(), edge_emb.data_ptr(), w_ke.data_ptr(),
         b_ke.data_ptr(), src.data_ptr(), dst.data_ptr(), mask.data_ptr(),
         scores.data_ptr(), m_edge.data_ptr(), G, N, E, D, HD, heads,
-        _dtype_code(nq), route, warps, n_blocks, _stream())
+        _dtype_code(nq), route, warps, n_blocks, _part(acc, last), _stream())
     _build.check(err, "gat_pass_a_scores")
     _build.count_launch("gat_pass_a_scores", route)
     return scores, m_edge
+
+
+def _scores_out(acc, G, H, E, device):
+    """The (G, H, E) f32 array a launch of rows 1 and 6 writes its scores
+    (or row 8 its d_alpha) into: `acc`, to which it adds, or a new one."""
+    if acc is None:
+        return torch.empty((G, H, E), device=device, dtype=torch.float32)
+    _require(acc, "acc", torch.float32, (G, H, E))
+    return acc
 
 
 # --------------------------------------------------------------------------
@@ -349,21 +446,19 @@ def pass_c(nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst, mask,
            out, heads, _route=None):
     """Adds alpha * msg of every masked edge at its dst into `out`
     (G, N, HD) f32, IN PLACE (the caller seeds it with the self-loop term;
-    no second (G, N, HD) buffer), and returns it; a launch a head group,
-    each on its own columns of `out`. `_route` as in `pass_a_scores`."""
-    HD = nm.shape[-1]
-    groups = head_groups(HD, heads)
-    if len(groups) == 1:
+    no second (G, N, HD) buffer), and returns it; a launch a head group or
+    a column slice of a head wider than 256 features (`launches`), each on
+    its own columns of `out`. `_route` as in `pass_a_scores`."""
+    plan = launches(nm.shape[-1], heads)
+    if len(plan) == 1:
         return _pass_c(nm, edge_emb, w_me, b_me, scores, gmax, scale, src,
                        dst, mask, out, heads, _route)
-    dph = HD // heads
-    for h0, h1 in groups:
-        cols = lambda t: head_cols(t, h0, h1, heads)  # noqa: E731
-        hs = lambda t: t[..., h0:h1].contiguous()     # noqa: E731
-        out[..., h0 * dph:h1 * dph] = _pass_c(
-            cols(nm), edge_emb, cols(w_me), cols(b_me),
-            scores[:, h0:h1].contiguous(), hs(gmax), hs(scale), src, dst,
-            mask, cols(out), h1 - h0, _route)
+    for h0, h1, c0, c1 in plan:
+        out[..., c0:c1] = _pass_c(
+            cols(nm, c0, c1), edge_emb, cols(w_me, c0, c1),
+            cols(b_me, c0, c1), scores[:, h0:h1].contiguous(),
+            heads_of(gmax, h0, h1), heads_of(scale, h0, h1), src, dst, mask,
+            cols(out, c0, c1), h1 - h0, _route)
     return out
 
 
@@ -457,7 +552,8 @@ def _weight_grads(edge_emb, cot_c, cot):
 
 
 def bwd_pass1_plain(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src,
-                    dst, mask, carry, dnm, dscale, heads):
+                    dst, mask, carry, dnm, dscale, heads, acc=None,
+                    last=True):
     cdt = nm.dtype
     HD = nm.shape[-1]
     msg = _gather_nodes(nm, src).float() \
@@ -470,12 +566,20 @@ def bwd_pass1_plain(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src,
     demb = d_msg_c.float() @ w_me.to(cdt).float().t()
     if carry is not None:
         demb = demb + carry.float()
-    dalpha = torch.where(mask[..., None], head_sum(msg * g_dst, heads), 0.0)
+    dalpha = split_dalpha(head_sum(msg * g_dst, heads), mask, acc)
     dw, db = _weight_grads(edge_emb, d_msg_c, d_msg)
     _scatter_nodes(dnm, src, d_msg_c.float())
-    _scatter_nodes(dscale, src, _round(dalpha * e, cdt))
-    return (demb.to(edge_emb.dtype), dalpha.transpose(1, 2).contiguous(),
-            dnm, dscale, dw, db)
+    if last:
+        _scatter_nodes(dscale, src,
+                       _round(dalpha.transpose(1, 2) * e, cdt))
+    return demb.to(edge_emb.dtype), dalpha, dnm, dscale, dw, db
+
+
+def split_dalpha(dalpha, mask, acc=None):
+    """d_alpha (G, E, H), 0 at masked slots, as (G, H, E) f32: with `acc`
+    (the sums of a split head's slices before), added to it in place."""
+    dalpha = torch.where(mask[..., None], dalpha, 0.0).transpose(1, 2)
+    return dalpha.contiguous() if acc is None else acc.add_(dalpha)
 
 
 def _bwd_route(cdt, route):
@@ -611,35 +715,42 @@ def bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
 
     Returns (demb (G, E, D) in the embedding's dtype, d_alpha (G, H, E) f32
     (0 at masked slots), dnm, dscale, dW_me (D, HD) f32, db_me (HD,) f32).
-    A launch a head group: each group's demb is the next group's carry, so
-    the groups' edge cotangents are summed inside the kernels.
+    A launch a head group, or a column slice of a head wider than 256
+    features: each launch's demb is the next one's carry, so the edge
+    cotangents are summed inside the kernels, and a split head's slices sum
+    its d_alpha in order, the last adding d_alpha * e into dscale.
     """
     HD = nm.shape[-1]
-    groups = head_groups(HD, heads)
-    if len(groups) == 1:
+    if len(launches(HD, heads)) == 1:
         return _bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax,
                           scale, src, dst, mask, carry, dnm, dscale, heads,
                           _route)
-    dph, demb, parts = HD // heads, carry, []
-    for h0, h1 in groups:
-        cols = lambda t: head_cols(t, h0, h1, heads)  # noqa: E731
-        hs = lambda t: t[..., h0:h1].contiguous()     # noqa: E731
-        c = slice(h0 * dph, h1 * dph)
-        demb, dalpha, dnm[..., c], dscale[..., h0:h1], dw, db = _bwd_pass1(
-            cols(gout), cols(nm), edge_emb, cols(w_me), cols(b_me),
-            scores[:, h0:h1].contiguous(), hs(gmax), hs(scale), src, dst,
-            mask, demb, cols(dnm), hs(dscale), h1 - h0, _route)
-        parts.append((dalpha, dw, db))
-    dalpha, dw, db = (torch.cat(p, d) for p, d in zip(zip(*parts), (1, 1, 0)))
-    return demb, dalpha, dnm, dscale, dw, db
+    demb, dalphas, dws, dbs = carry, [], [], []
+    for h0, h1 in head_groups(HD, heads):
+        spans, dalpha = group_cols(HD, heads, h0, h1), None
+        node = (scores[:, h0:h1].contiguous(), heads_of(gmax, h0, h1),
+                heads_of(scale, h0, h1), src, dst, mask)
+        ds = heads_of(dscale, h0, h1)
+        for i, (c0, c1) in enumerate(spans):
+            demb, dalpha, dnm[..., c0:c1], ds, dw, db = _bwd_pass1(
+                cols(gout, c0, c1), cols(nm, c0, c1), edge_emb,
+                cols(w_me, c0, c1), cols(b_me, c0, c1), *node, demb,
+                cols(dnm, c0, c1), ds, h1 - h0, _route,
+                **partial(dalpha, i, len(spans)))
+            dws.append(dw)
+            dbs.append(db)
+        dscale[..., h0:h1] = ds
+        dalphas.append(dalpha)
+    return (demb, torch.cat(dalphas, 1), dnm, dscale, torch.cat(dws, 1),
+            torch.cat(dbs, 0))
 
 
 def _bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
-               mask, carry, dnm, dscale, heads, _route):
+               mask, carry, dnm, dscale, heads, _route, acc=None, last=True):
     if not nm.is_cuda:
         return bwd_pass1_plain(gout, nm, edge_emb, w_me, b_me, scores, gmax,
                                scale, src, dst, mask, carry, dnm, dscale,
-                               heads)
+                               heads, acc, last)
     G, N, HD = nm.shape
     E, D = edge_emb.shape[1], edge_emb.shape[2]
     cdt = nm.dtype
@@ -667,7 +778,7 @@ def _bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
     proj = _proj_scratch(route, n_slices, G, E, HD, dev)
     dmsg = torch.empty((G, E, HD), device=dev, dtype=cdt)
     demb = torch.empty((G, E, D), device=dev, dtype=cdt)
-    dalpha = torch.empty((G, heads, E), device=dev, dtype=torch.float32)
+    dalpha = _scores_out(acc, G, heads, E, dev)
     dw = torch.empty((D, HD), device=dev, dtype=torch.float32)
     db = torch.empty((HD,), device=dev, dtype=torch.float32)
     n_split, warps, n_blocks, dw_part, db_part = _split_scratch(
@@ -682,7 +793,8 @@ def _bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
         dscale.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
         dw.data_ptr(), db.data_ptr(),
         None if proj is None else proj.data_ptr(), G, N, E, D, HD, heads,
-        n_split, width, _dtype_code(nm), route, warps, n_blocks, _stream())
+        n_split, width, _dtype_code(nm), route, warps, n_blocks,
+        _part(acc, last), _stream())
     _build.check(err, "gat_bwd_pass1")
     _build.count_launch("gat_bwd_pass1", route)
     return demb, dalpha, dnm, dscale, dw, db
@@ -721,26 +833,24 @@ def bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
     arrive seeded with the self-loop cotangents.
 
     Returns (demb, dnq, dnk, dW_ke (D, HD) f32, db_ke (HD,) f32). A launch
-    a head group, each adding its edge cotangent into demb."""
-    HD = nq.shape[-1]
-    groups = head_groups(HD, heads)
-    if len(groups) == 1:
+    a head group or a column slice of a head wider than 256 features
+    (`launches`), each adding its edge cotangent into demb."""
+    plan = launches(nq.shape[-1], heads)
+    if len(plan) == 1:
         return _bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha,
                           scale, d_denom, src, dst, mask, demb, dnq, dnk,
                           heads, _route)
-    dph, parts = HD // heads, []
-    for h0, h1 in groups:
-        cols = lambda t: head_cols(t, h0, h1, heads)  # noqa: E731
-        hs = lambda t: t[..., h0:h1].contiguous()     # noqa: E731
-        c = slice(h0 * dph, h1 * dph)
-        demb, dnq[..., c], dnk[..., c], dw, db = _bwd_pass2(
-            cols(nq), cols(nk), edge_emb, cols(w_ke), cols(b_ke),
-            scores[:, h0:h1].contiguous(), hs(gmax),
-            dalpha[:, h0:h1].contiguous(), hs(scale), hs(d_denom), src, dst,
-            mask, demb, cols(dnq), cols(dnk), h1 - h0, _route)
-        parts.append((dw, db))
-    dw, db = (torch.cat(p, d) for p, d in zip(zip(*parts), (1, 0)))
-    return demb, dnq, dnk, dw, db
+    dws, dbs = [], []
+    for h0, h1, c0, c1 in plan:
+        demb, dnq[..., c0:c1], dnk[..., c0:c1], dw, db = _bwd_pass2(
+            cols(nq, c0, c1), cols(nk, c0, c1), edge_emb, cols(w_ke, c0, c1),
+            cols(b_ke, c0, c1), scores[:, h0:h1].contiguous(),
+            heads_of(gmax, h0, h1), dalpha[:, h0:h1].contiguous(),
+            heads_of(scale, h0, h1), heads_of(d_denom, h0, h1), src, dst,
+            mask, demb, cols(dnq, c0, c1), cols(dnk, c0, c1), h1 - h0, _route)
+        dws.append(dw)
+        dbs.append(db)
+    return demb, dnq, dnk, torch.cat(dws, 1), torch.cat(dbs, 0)
 
 
 def _bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
@@ -869,17 +979,12 @@ def kernel_widths(D: int, HD: int, heads: int) -> tuple[int, int]:
     features to at least 4 and so that the heads
     together make a multiple of 8; where that is more than 8 heads or 256
     columns, which run in head groups (`head_groups`), each head's features
-    to a multiple of 8, so that any group of whole heads is. Raises for a
-    head of more than 256 features, which neither rule splits."""
+    to a multiple of 8, so that any group of whole heads is, and a head of
+    more than 256 features runs in column slices (`col_slices`)."""
     step = 8 // math.gcd(8, heads)
     dph = -(-max(HD // heads, 4) // step) * step
     if heads > MAX_HEADS or heads * dph > MAX_COLS:
         dph = -(-(HD // heads) // 8) * 8
-        if dph > MAX_COLS:
-            raise ValueError(
-                f"a head of {HD // heads} features: the GAT kernels take "
-                f"heads of at most {MAX_COLS} features (gnn_dim up to "
-                f"{MAX_COLS} a head)")
     unit = 8 * max(1, -(-D // MAX_COLS))
     return -(-D // unit) * unit, heads * dph
 

@@ -69,7 +69,11 @@ each head's features are padded with zeros as the projected op pads them
 message or a gradient) and the results cut back, and more than 8 heads or
 256 columns run as groups of whole heads (`gat_kernels.head_groups`), one
 launch a group, every quantity being per head. A single head of more than
-256 features is refused.
+256 features runs as column slices (`gat_kernels.launches`), one launch a
+slice: `aggregate` and `bwd2` work per column, and `edge_scores` and
+`bwd1`, which sum over the head's columns, add each slice's f32 sums to the
+slices' before it, the last alone taking the max or adding d_alpha * e into
+dscale (`gat_kernels.partial`).
 """
 
 from __future__ import annotations
@@ -86,24 +90,33 @@ from qagnn_tpu_torch.ops.gat_kernels import (
     _contiguous,
     _dtype_code,
     _gather_nodes,
+    _part,
     _require,
     _scatter_nodes,
+    _scores_out,
     _stream,
     by_head_groups,
+    cols,
     cut_heads,
-    head_cols,
+    group_cols,
     head_groups,
     head_sum,
+    heads_of,
     heads_to_hd,
     kernel_widths,
+    launches,
     pad_heads,
+    partial,
+    scores_and_max,
+    split_dalpha,
+    split_scores,
 )
 
 _SIGNATURES = {
-    "gat_unproj_scores": [_P] * 8 + [_I] * 7 + [_P],
+    "gat_unproj_scores": [_P] * 8 + [_I] * 8 + [_P],
     "gat_unproj_denoms": [_P] * 7 + [_I] * 5 + [_P],
     "gat_unproj_aggr": [_P] * 8 + [_I] * 7 + [_P],
-    "gat_unproj_bwd1": [_P] * 12 + [_I] * 7 + [_P],
+    "gat_unproj_bwd1": [_P] * 12 + [_I] * 8 + [_P],
     "gat_unproj_bwd2": [_P] * 13 + [_I] * 8 + [_P],
 }
 # route 1 of bwd2 (csrc/gat_unproj.cu, bwd2_graph_kernel): the shared memory
@@ -217,33 +230,33 @@ def _scores_route(dtype, N, E, HD, heads, route=None):
                        E=E, HD=HD, heads=heads)
 
 
-def edge_scores_plain(nq, nk, ekb, src, dst, mask, heads):
+def edge_scores_plain(nq, nk, ekb, src, dst, mask, heads, acc=None,
+                      last=True):
     eq = _gather_nodes(nq, src).float()
     ek = _gather_nodes(nk, dst).float() + ekb.float()
-    s = head_sum(eq * ek, heads).transpose(1, 2)                    # (G,H,E)
-    live = mask[:, None, :]
-    m_edge = torch.where(live, s, NEG).amax(-1)
-    return torch.where(live, s, 0.0).contiguous(), m_edge
+    return scores_and_max(head_sum(eq * ek, heads).transpose(1, 2), mask,
+                          acc, last)
 
 
 def edge_scores(nq, nk, ekb, src, dst, mask, heads, _route=None):
     """Scores (G, H, E) f32, 0 at masked slots, and the max over masked
     edges (G, H) f32 (NEG for a graph with no masked edge); a launch a head
-    group, each head padded to `_padded`. `_route` names a route
-    (`_scores_route`), to time it beside the other."""
+    group or a column slice of a head wider than 256 features, each head
+    padded to `_padded`. `_route` names a route (`_scores_route`), to time
+    it beside the other."""
     HDk = _padded(nq.shape[-1], heads)
-    nq, nk, ekb = (pad_heads(t, heads, HDk) for t in (nq, nk, ekb))
 
-    def run(h0, h1):
-        cols = lambda t: head_cols(t, h0, h1, heads)  # noqa: E731
-        return _edge_scores(cols(nq), cols(nk), cols(ekb), src, dst, mask,
-                            h1 - h0, _route)
-    return by_head_groups(HDk, heads, run, (1, 1))
+    def launch(h0, h1, t, **part):
+        return _edge_scores(*t, src, dst, mask, h1 - h0, _route, **part)
+    return split_scores(launch, HDk, heads,
+                        [pad_heads(t, heads, HDk) for t in (nq, nk, ekb)])
 
 
-def _edge_scores(nq, nk, ekb, src, dst, mask, heads, _route):
+def _edge_scores(nq, nk, ekb, src, dst, mask, heads, _route, acc=None,
+                 last=True):
     if not nq.is_cuda:
-        return edge_scores_plain(nq, nk, ekb, src, dst, mask, heads)
+        return edge_scores_plain(nq, nk, ekb, src, dst, mask, heads, acc,
+                                 last)
     G, N, HD = nq.shape
     E = ekb.shape[1]
     cdt = nq.dtype
@@ -253,13 +266,14 @@ def _edge_scores(nq, nk, ekb, src, dst, mask, heads, _route):
     _require(ekb, "ekb", cdt, (G, E, HD))
     _require_graph(src, dst, mask, G, E)
     route = _scores_route(cdt, N, E, HD, heads, _route)
-    out = torch.empty((G, heads, E), device=nq.device, dtype=torch.float32)
+    out = _scores_out(acc, G, heads, E, nq.device)
     m_edge = torch.full((G, heads), NEG, device=nq.device,
                         dtype=torch.float32)
     err = _lib().gat_unproj_scores(
         nq.data_ptr(), nk.data_ptr(), ekb.data_ptr(), src.data_ptr(),
         dst.data_ptr(), mask.data_ptr(), out.data_ptr(), m_edge.data_ptr(),
-        G, N, E, HD, heads, _dtype_code(nq), route, _stream())
+        G, N, E, HD, heads, _dtype_code(nq), route, _part(acc, last),
+        _stream())
     _build.check(err, "gat_unproj_scores")
     _build.count_launch("gat_unproj_scores", route)
     return out, m_edge
@@ -355,23 +369,21 @@ def aggregate(nm, emb, e_edge, scale, src, dst, mask, out, heads,
               _route=None):
     """Adds alpha * msg of every masked edge, rounded to the compute dtype,
     at its dst into `out` (G, N, HD) f32, IN PLACE (the caller seeds it with
-    the self-loop term), and returns it; a launch a head group, each head
-    padded to `_padded`. `_route` names a route (`_aggr_route`), to time it
-    beside the other."""
+    the self-loop term), and returns it; a launch a head group or a column
+    slice of a head wider than 256 features, each head padded to `_padded`.
+    `_route` names a route (`_aggr_route`), to time it beside the other."""
     HD = nm.shape[-1]
     HDk = _padded(HD, heads)
-    groups = head_groups(HDk, heads)
-    if HDk == HD and len(groups) == 1:
+    plan = launches(HDk, heads)
+    if HDk == HD and len(plan) == 1:
         return _aggregate(nm, emb, e_edge, scale, src, dst, mask, out, heads,
                           _route)
     nm, emb, acc = (pad_heads(t, heads, HDk) for t in (nm, emb, out))
-    for h0, h1 in groups:
-        cols = lambda t: head_cols(t, h0, h1, heads)  # noqa: E731
-        c = slice(h0 * (HDk // heads), h1 * (HDk // heads))
-        acc[..., c] = _aggregate(
-            cols(nm), cols(emb), e_edge[:, h0:h1].contiguous(),
-            scale[..., h0:h1].contiguous(), src, dst, mask, cols(acc),
-            h1 - h0, _route)
+    for h0, h1, c0, c1 in plan:
+        acc[..., c0:c1] = _aggregate(
+            cols(nm, c0, c1), cols(emb, c0, c1),
+            e_edge[:, h0:h1].contiguous(), heads_of(scale, h0, h1), src, dst,
+            mask, cols(acc, c0, c1), h1 - h0, _route)
     return _cut_into(out, acc, heads)
 
 
@@ -434,7 +446,7 @@ def gat_unprojected_forward(nq, nk, nm, ekb, emb, skb, smb, src, dst, mask,
 # --------------------------------------------------------------------------
 
 def bwd1_plain(gout, nm, emb, e_edge, scale, src, dst, mask, dnm, dscale,
-               heads):
+               heads, acc=None, last=True):
     cdt, HD = nm.dtype, nm.shape[-1]
     live = mask[..., None]
     msg = _gather_nodes(nm, src).float() + emb.float()
@@ -442,11 +454,11 @@ def bwd1_plain(gout, nm, emb, e_edge, scale, src, dst, mask, dnm, dscale,
     e = torch.where(live, e_edge.transpose(1, 2), 0.0)              # (G,E,H)
     alpha = e * _gather_nodes(scale, src)
     d_msg = torch.where(live, heads_to_hd(alpha, HD) * g_dst, 0.0).to(cdt)
-    dalpha = torch.where(live, head_sum(msg * g_dst, heads), 0.0)
+    dalpha = split_dalpha(head_sum(msg * g_dst, heads), mask, acc)
     _scatter_nodes(dnm, src, d_msg.float())
-    _scatter_nodes(dscale, src, dalpha * e)
-    return (d_msg.to(emb.dtype), dalpha.transpose(1, 2).contiguous(), dnm,
-            dscale)
+    if last:
+        _scatter_nodes(dscale, src, dalpha.transpose(1, 2) * e)
+    return d_msg.to(emb.dtype), dalpha, dnm, dscale
 
 
 def bwd1(gout, nm, emb, e_edge, scale, src, dst, mask, dnm, dscale, heads,
@@ -456,37 +468,42 @@ def bwd1(gout, nm, emb, e_edge, scale, src, dst, mask, dnm, dscale, heads,
     self-loop cotangents and are added to IN PLACE.
 
     Returns (demb (G, E, HD) in emb's dtype, zeros at masked slots, d_alpha
-    (G, H, E) f32, 0 at masked slots, dnm, dscale); a launch a head group,
-    each head padded to `_padded`. `_route` names a route (`_bwd1_route`),
+    (G, H, E) f32, 0 at masked slots, dnm, dscale); a launch a head group or
+    a column slice of a head wider than 256 features, each head padded to
+    `_padded`; a split head's slices sum its d_alpha in order, the last
+    adding d_alpha * e into dscale. `_route` names a route (`_bwd1_route`),
     to time it beside the other."""
     HD = nm.shape[-1]
     HDk = _padded(HD, heads)
-    groups = head_groups(HDk, heads)
-    if HDk == HD and len(groups) == 1:
+    if HDk == HD and len(launches(HDk, heads)) == 1:
         return _bwd1(gout, nm, emb, e_edge, scale, src, dst, mask, dnm,
                      dscale, heads, _route)
     gout, nm, emb, acc = (pad_heads(t, heads, HDk)
                           for t in (gout, nm, emb, dnm))
-    parts = []
-    for h0, h1 in groups:
-        cols = lambda t: head_cols(t, h0, h1, heads)  # noqa: E731
-        hs = lambda t: t[..., h0:h1].contiguous()     # noqa: E731
-        c = slice(h0 * (HDk // heads), h1 * (HDk // heads))
-        demb, dalpha, acc[..., c], dscale[..., h0:h1] = _bwd1(
-            cols(gout), cols(nm), cols(emb), e_edge[:, h0:h1].contiguous(),
-            hs(scale), src, dst, mask, cols(acc), hs(dscale), h1 - h0,
-            _route)
-        parts.append((demb, dalpha))
-    demb = cut_heads(torch.cat([p[0] for p in parts], -1), HD, heads)
-    return (demb.contiguous(), torch.cat([p[1] for p in parts], 1),
+    dembs, dalphas = [], []
+    for h0, h1 in head_groups(HDk, heads):
+        spans, dalpha = group_cols(HDk, heads, h0, h1), None
+        node = (e_edge[:, h0:h1].contiguous(), heads_of(scale, h0, h1), src,
+                dst, mask)
+        ds = heads_of(dscale, h0, h1)
+        for i, (c0, c1) in enumerate(spans):
+            demb, dalpha, acc[..., c0:c1], ds = _bwd1(
+                cols(gout, c0, c1), cols(nm, c0, c1), cols(emb, c0, c1),
+                *node, cols(acc, c0, c1), ds, h1 - h0, _route,
+                **partial(dalpha, i, len(spans)))
+            dembs.append(demb)
+        dscale[..., h0:h1] = ds
+        dalphas.append(dalpha)
+    demb = cut_heads(torch.cat(dembs, -1), HD, heads)
+    return (demb.contiguous(), torch.cat(dalphas, 1),
             _cut_into(dnm, acc, heads), dscale)
 
 
 def _bwd1(gout, nm, emb, e_edge, scale, src, dst, mask, dnm, dscale, heads,
-          _route):
+          _route, acc=None, last=True):
     if not nm.is_cuda:
         return bwd1_plain(gout, nm, emb, e_edge, scale, src, dst, mask, dnm,
-                          dscale, heads)
+                          dscale, heads, acc, last)
     G, N, HD = nm.shape
     E = emb.shape[1]
     cdt = nm.dtype
@@ -501,13 +518,13 @@ def _bwd1(gout, nm, emb, e_edge, scale, src, dst, mask, dnm, dscale, heads,
     _require(dscale, "dscale", torch.float32, (G, N, heads))
     route = _bwd1_route(cdt, N, E, HD, heads, _route)
     demb = torch.empty_like(emb)
-    dalpha = torch.empty_like(e_edge)
+    dalpha = _scores_out(acc, G, heads, E, nm.device)
     err = _lib().gat_unproj_bwd1(
         gout.data_ptr(), nm.data_ptr(), emb.data_ptr(), e_edge.data_ptr(),
         scale.data_ptr(), src.data_ptr(), dst.data_ptr(), mask.data_ptr(),
         demb.data_ptr(), dalpha.data_ptr(), dscale.data_ptr(),
         dnm.data_ptr(), G, N, E, HD, heads, _dtype_code(nm), route,
-        _stream())
+        _part(acc, last), _stream())
     _build.check(err, "gat_unproj_bwd1")
     _build.count_launch("gat_unproj_bwd1", route)
     return demb, dalpha, dnm, dscale
@@ -580,25 +597,24 @@ def bwd2(nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst, mask, dnq,
     self-loop cotangents and are added to IN PLACE.
 
     Returns (dekb (G, E, HD) in ekb's dtype, zeros at masked slots, dnq,
-    dnk); a launch a head group, each head padded to `_padded`. `_route`
-    names a route (`_bwd2_route`), to time it beside the other."""
+    dnk); a launch a head group or a column slice of a head wider than 256
+    features, each head padded to `_padded`. `_route` names a route
+    (`_bwd2_route`), to time it beside the other."""
     HD = nq.shape[-1]
     HDk = _padded(HD, heads)
-    groups = head_groups(HDk, heads)
-    if HDk == HD and len(groups) == 1:
+    plan = launches(HDk, heads)
+    if HDk == HD and len(plan) == 1:
         return _bwd2(nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst,
                      mask, dnq, dnk, heads, _route)
     nq, nk, ekb, acc_q, acc_k = (pad_heads(t, heads, HDk)
                                  for t in (nq, nk, ekb, dnq, dnk))
     parts = []
-    for h0, h1 in groups:
-        cols = lambda t: head_cols(t, h0, h1, heads)  # noqa: E731
-        hs = lambda t: t[..., h0:h1].contiguous()     # noqa: E731
-        c = slice(h0 * (HDk // heads), h1 * (HDk // heads))
-        dekb, acc_q[..., c], acc_k[..., c] = _bwd2(
-            cols(nq), cols(nk), cols(ekb), e_edge[:, h0:h1].contiguous(),
-            dalpha[:, h0:h1].contiguous(), hs(scale), hs(d_denom), src, dst,
-            mask, cols(acc_q), cols(acc_k), h1 - h0, _route)
+    for h0, h1, c0, c1 in plan:
+        dekb, acc_q[..., c0:c1], acc_k[..., c0:c1] = _bwd2(
+            cols(nq, c0, c1), cols(nk, c0, c1), cols(ekb, c0, c1),
+            e_edge[:, h0:h1].contiguous(), dalpha[:, h0:h1].contiguous(),
+            heads_of(scale, h0, h1), heads_of(d_denom, h0, h1), src, dst,
+            mask, cols(acc_q, c0, c1), cols(acc_k, c0, c1), h1 - h0, _route)
         parts.append(dekb)
     dekb = cut_heads(torch.cat(parts, -1), HD, heads)
     return (dekb.contiguous(), _cut_into(dnq, acc_q, heads),

@@ -89,7 +89,7 @@ class Spy:
                                                           getattr(mod, name)))
 
     def _wrap(self, name, fn):
-        def spy(*args):
+        def spy(*args, **partial):
             self.calls[name] = self.calls.get(name, 0) + 1
             heads = args[-2]                  # (..., heads, _route)
             HD = args[0].shape[-1]            # the first argument's columns
@@ -101,7 +101,7 @@ class Spy:
                 check(args[self.EMB_ARG[name]].shape[-1], HD, heads)
             else:
                 gk._check_widths(HD, HD, heads)
-            return fn(*args)
+            return fn(*args, **partial)
         return spy
 
 
@@ -334,10 +334,16 @@ def test_head_groups(HD, heads, groups):
 
 
 def test_a_head_wider_than_a_launch_is_refused():
+    """One launch refuses a head of more than 256 columns; the op's plan
+    pads such a head to a multiple of 8 and runs it as column slices, each
+    a launch that takes it (tests/test_torch_wide_head.py runs them)."""
     with pytest.raises(ValueError, match="256"):
-        gk.kernel_widths(300, 300, 1)
-    with pytest.raises(ValueError, match="256"):
-        gk.head_groups(264, 1)
+        gk._check_widths(304, 304, 1)
+    assert gk.kernel_widths(300, 300, 1) == (304, 304)
+    assert gk.head_groups(264, 1) == [(0, 1)]
+    assert gk.launches(304, 1) == [(0, 1, 0, 152), (0, 1, 152, 304)]
+    for _, _, c0, c1 in gk.launches(304, 1):
+        gk._check_bwd_widths(304, c1 - c0, 1)
 
 
 @pytest.mark.parametrize("D, HD, heads, want", [
