@@ -13,10 +13,15 @@ Run from the repository root on a machine with one CUDA card. It
      masked, and a ragged-E case, in float32 and bfloat16 (backward pass 1
      with and without a carry), and times both with CUDA events; the GAT
      forward passes A and C and the two backward passes also at other widths
-     (D=24, HD=40, which need padding; 96 x 128; 256 x 256), on both of
-     their routes in bf16, with their masked slots held exactly, their
+     (D=24, HD=40, which need padding; 96 x 128; 256 x 256; the forward
+     also at 264 x 200, 520 x 64 with 8 heads and 1040 x 136 with one head,
+     where W's rows stream through shared memory), on both of their routes
+     in bf16, with their masked slots held exactly, their
      tensor-core kernels (bf16) timed in turns with the CUDA-core ones on the
      same inputs, and torch.profiler's device time by kernel name; the
+     streaming kernel of the forward passes also at 200 x 200 and 256 x 256,
+     against the plain versions and timed in turns with the resident
+     kernel that route 1 runs there; the
      edge encoder's hidden pass and its backward on both of their routes in
      bf16 (also at D=24 x F=16 and D=256 x F=64, and at D=100 where only
      the CUDA-core route runs), route 1 timed in turns with route 0; the
@@ -154,14 +159,17 @@ Run from the repository root on a machine with one CUDA card. It
      head groups a pass, two slices of W's rows in the backward passes)
      and 1040 (four heads of 264 features, two column slices each, every
      launch against its plain version) against the scatter path, output
-     and every parameter gradient, with the launches and routes; the
-     passes alone at both widths on both routes against their plain
-     versions, and the times of rows 6-9 and 11-12 there beside their
-     bounds, by call and by launch; and `python -m qagnn_tpu_torch.cli
-     --gnn_dim 512` and `--gnn_dim 1040`, side by side, for two train
-     steps each. The `overfit` phase also logs, per GAT layer of the
-     trained model, the largest gap between a graph's max score and a
-     source's, and the denominators under DENOM_EPS (ROADMAP C7);
+     and every parameter gradient, with the launches and routes (every bf16
+     launch of rows 6-9 on tensor cores), and in f32 the gradients' spread
+     from run to run, logged (ROADMAP C14); the passes alone at both widths
+     on both routes against their plain versions, and the times of rows
+     6-9 and 11-12 there beside their bounds, by call and by launch, rows
+     6 and 7 in turns with their CUDA-core route on the same inputs; and
+     `python -m qagnn_tpu_torch.cli --gnn_dim 512` and `--gnn_dim 1040`,
+     side by side, for two train steps each. The `overfit` phase also logs,
+     per GAT layer of the trained model, the largest gap between a graph's
+     max score and a source's, and the denominators under DENOM_EPS
+     (ROADMAP C7);
  16. stops every process it started that is still running (the forkserver
      of the preprocess phase's pools, multiprocessing's resource tracker,
      and any process a child left behind: the script takes its orphans as
@@ -560,14 +568,16 @@ def measure(reports, name, err, kernel, plain, n_bytes, flops, dtype,
                          bound_ms=bound_ms, bound_by=by, library_ms=None)
 
 
-def faster_than_previous(name, kernel, previous, previous_is):
+def faster_than_previous(name, kernel, previous, previous_is, iters=20,
+                         warmup=3):
     """Time a kernel in turns with its earlier version on the same inputs
-    (kernel, previous, previous, kernel); a failure unless both of the
-    kernel's times lie below both of the earlier version's. Returns the
-    kernel's mean time."""
-    ms = device_ms(kernel)
-    prev = (device_ms(previous), device_ms(previous))
-    again = device_ms(kernel)
+    (kernel, previous, previous, kernel; medians of `iters` calls after
+    `warmup`); a failure unless both of the kernel's times lie below both of
+    the earlier version's. Returns the kernel's mean time."""
+    timed = lambda fn: device_ms(fn, iters, warmup)  # noqa: E731
+    ms = timed(kernel)
+    prev = (timed(previous), timed(previous))
+    again = timed(kernel)
     faster = max(ms, again) < min(prev)
     log(f"  time {name:<18} kernel {ms:.4f} and {again:.4f} ms  "
         f"previous_ms {sum(prev) / 2:.4f} ({prev[0]:.4f} and {prev[1]:.4f}:"
@@ -735,17 +745,82 @@ def gat_fwd_case(reports, gen, dev, D, HD, heads, src, dst, mask, dt, tag,
         FAILURES.append(f"non-finite output of empty graph {tag}")
 
 
+# (D, HD, heads) of the forward phase: the backward phase's widths, then
+# three past D = 256, where route 1 streams W's rows in chunks of 64 (a
+# tail of 8 rows; 64 columns of 8 heads; a column slice of 136, 9 pairs)
+FWD_WIDTHS = ((200, 200, HEADS), (24, 40, 4), (96, 128, 8), (256, 256, 8),
+              (264, 200, 4), (520, 64, 8), (1040, 136, 1))
+
+
 def phase_gat(gen, dev, reports):
     """float32 runs the CUDA-core kernels; bfloat16 both routes, the
-    tensor-core one on the main path. Widths as the backward phase's."""
-    for D, HD, heads in ((200, 200, HEADS), (24, 40, 4), (96, 128, 8),
-                         (256, 256, 8)):
+    tensor-core one on the main path. Widths: FWD_WIDTHS."""
+    for D, HD, heads in FWD_WIDTHS:
         for n_edges in (E, E - 3):
             src, dst, mask = graph_inputs(gen, dev, n_edges)
             for dt in (torch.float32, torch.bfloat16):
                 main = D == 200 and n_edges == E and dt == torch.bfloat16
                 gat_fwd_case(reports, gen, dev, D, HD, heads, src, dst, mask,
                              dt, f"D={D} HD={HD} E={n_edges} {dt}", main)
+
+
+# (D, HD, heads) at which the streaming kernel of passes A and C is timed
+# beside the resident one that route 1 keeps at D <= 256: the preset's
+# widths and the widest tile that holds W whole
+STREAM_NARROW = ((200, 200, HEADS), (256, 256, 8))
+
+
+def phase_gat_streamed(gen, dev, card):
+    """Why route 1 of passes A and C holds W whole at D <= 256: there, on
+    the streaming kernel (its plan and the bf16 W that the wrappers hand it
+    past 256, by `gk._fwd_streams` patched), each pass against its plain
+    version, then timed in turns with the resident kernel on the same
+    inputs (resident, streamed, streamed, resident; medians of 20 calls,
+    the streamed call's rounding of W to bf16 included)."""
+    streamed = lambda: mock.patch.object(  # noqa: E731
+        gk, "_fwd_streams", lambda D: True)
+    for D, HD, heads in STREAM_NARROW:
+        src, dst, mask = graph_inputs(gen, dev, E)
+        r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa
+        nq = (r(G, N, HD) / (HD // heads) ** 0.5).to(torch.bfloat16)
+        nk, nm = ((r(G, N, HD) * 0.5).to(torch.bfloat16) for _ in range(2))
+        emb = torch.relu(r(G, E, D)).to(torch.bfloat16)
+        w, b_ = r(D, HD) * 0.05, r(HD) * 0.1
+        a_args = (nq, nk, emb, w, b_, src, dst, mask, heads)
+        scores_p, gmax = gk.pass_a_scores_plain(*a_args)
+        tag = f"D={D} HD={HD} streamed"
+        _build.reset_launch_counts()
+        with streamed():
+            scores, m_edge = gk.pass_a_scores(*a_args)
+        compare(f"gat_pass_a_scores scores {tag}", scores, scores_p,
+                TOL["gat"])
+        has_edge = mask.any(1)
+        compare(f"gat_pass_a_scores max {tag}", m_edge[has_edge],
+                gmax[has_edge], TOL["gat"])
+        scale = torch.rand((G, N, heads), generator=gen, device=dev)
+        c_args = (nm, emb, w, b_, scores_p, gmax, scale, src, dst, mask)
+        out0 = torch.zeros((G, N, HD), device=dev)
+        with streamed():
+            out = gk.pass_c(*c_args, out0.clone(), heads)
+        compare(f"gat_pass_c out {tag}", out,
+                gk.pass_c_plain(*c_args, out0.clone(), heads),
+                TOL["gat_c"][torch.bfloat16])
+        routes = {k: _build.ROUTES[k, 1]
+                  for k in ("gat_pass_a_scores", "gat_pass_c")}
+        if routes != {"gat_pass_a_scores": 1, "gat_pass_c": 1}:
+            FAILURES.append(f"streamed passes {tag}: routes {routes}")
+        for name, fn in (
+                ("gat_pass_a_scores", lambda: gk.pass_a_scores(*a_args)),
+                ("gat_pass_c", lambda: gk.pass_c(*c_args, out0, heads))):
+            def on_stream(fn=fn):
+                with streamed():
+                    fn()
+            ms = [device_ms(fn), device_ms(on_stream), device_ms(on_stream),
+                  device_ms(fn)]
+            log(f"  time {name} D={D} HD={HD} bf16: resident {ms[0]:.4f} "
+                f"and {ms[3]:.4f} ms  streamed {ms[1]:.4f} and {ms[2]:.4f} "
+                f"ms (streamed / resident "
+                f"{(ms[1] + ms[2]) / (ms[0] + ms[3]):.3f})  [{card}]")
 
 
 def encoder_ints(gen, dev, n_edges, n_rel):
@@ -5265,7 +5340,8 @@ def widths_gnn(gen, dev, card, width):
         if not ok:
             FAILURES.append(f"widths: launches at gnn_dim {width}, {name}")
         off = [k for k, want_r in (
-            ("gat_pass_a_scores", 0), ("gat_pass_c", 0),
+            ("gat_pass_a_scores", int(dt == torch.bfloat16)),
+            ("gat_pass_c", int(dt == torch.bfloat16)),
             ("gat_bwd_pass1", int(dt == torch.bfloat16)),
             ("gat_bwd_pass2", int(dt == torch.bfloat16)),
             ("edge_hidden", 0), ("edge_hidden_bwd", 0))
@@ -5293,15 +5369,55 @@ def widths_gnn(gen, dev, card, width):
             f"{what}  {'ok' if ok else 'FAIL'}")
         if not ok:
             FAILURES.append(f"widths: gradients at gnn_dim {width}, {name}")
+        if dt == torch.float32:
+            grad_spread(dev, cot, width, grads, want_grads)
+
+
+def grad_spread(dev, cot, width, kernel, scatter):
+    """ROADMAP C14's witness, logged and not held to a limit: the f32
+    gradients' spread from run to run on the same inputs, which the check
+    above reads as one draw. Two more runs of each path beside the checked
+    ones, and two of the scatter path with torch's deterministic algorithms
+    (warn_only: the ops without one are named); every pair's gap as
+    `grad_gap` reads it."""
+    def runs(backend, n=2):
+        return [gnn_run(dev, backend, torch.float32, cot, width)[1]
+                for _ in range(n)]
+
+    def gaps(xs, ys=None):
+        pairs = [(a, b) for i, a in enumerate(xs) for b in xs[i + 1:]] \
+            if ys is None else [(a, b) for a in xs for b in ys]
+        return ", ".join(f"{grad_gap(a, b)[0]:.3e}" for a, b in pairs)
+
+    kernel, scatter = [kernel] + runs("cuda"), [scatter] + runs("scatter")
+    was = torch.are_deterministic_algorithms_enabled()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            fixed = runs("scatter")
+        finally:
+            torch.use_deterministic_algorithms(was)
+    loose = sorted({str(w.message).split(" does not have")[0][:80]
+                    for w in caught if "deterministic" in str(w.message)})
+    log(f"  f32 gradient spread at gnn_dim {width} (C14; largest max|d| / "
+        f"max|grad|, each pair of runs): kernel path against itself "
+        f"{gaps(kernel)}; scatter path against itself {gaps(scatter)}; "
+        f"deterministic scatter against itself {gaps(fixed)}; kernel path "
+        f"against it {gaps(kernel, fixed[:1])}; scatter path against it "
+        f"{gaps(scatter, fixed[:1])}; kernel against scatter "
+        f"{gaps(kernel, scatter)}; ops without a deterministic algorithm: "
+        f"{loose or 'none'}")
 
 
 def widths_passes(gen, dev, card, D, HD):
     """Rows 6-9 alone at D x HD (the kernels' widths), 4 heads: passes A and
-    C (route 0, W too wide for route 1's tile) and backward passes 1 and 2
-    on both routes in bf16 (route 0 in f32) against their plain versions,
-    masked slots exactly; then each call's device time with its bound, and
-    the device time of each kernel launch it makes (torch.profiler), rows
-    11 and 12 at this D too. The backward passes' plain version is the
+    C and backward passes 1 and 2 on both routes in bf16 (route 0 in f32)
+    against their plain versions, masked slots exactly; then each call's
+    device time with its bound (rows 6 and 7 in turns with their CUDA-core
+    route on the same inputs, which must be slower), and the device time of
+    each kernel launch it makes (torch.profiler), rows 11 and 12 at this D
+    too. The backward passes' plain version is the
     unsliced one at D = 512 (two head groups: one bf16 carry rounding more
     on the kernels' side, ROADMAP's known difference (a)); with more
     launches a pass it is the wrappers' own loop over the plain versions
@@ -5403,28 +5519,37 @@ def widths_passes(gen, dev, card, D, HD):
     w0, b0, ea, eb = r(F, D) * 0.2, r(D) * 0.5, r(D) * 0.5, r(D) * 0.5
     h_args = (etype, esrc, edst, ntype, w0, b0, ea, eb, n_rel, N_NTYPE)
     dh = r(G, E, D).to(dt)
-    for name, fn, plain, n_bytes, flops in (
+    for name, fn, previous, plain, n_bytes, flops in (
             ("gat_pass_a_scores", lambda: gk.pass_a_scores(*a_args),
+             lambda: gk.pass_a_scores(*a_args, _route=0),
              lambda: gk.pass_a_scores_plain(*a_args),
              live * nbytes(emb, src, dst)
              + nbytes(nq, nk, w, b_, mask, scores, gmax),
              2.0 * live * G * E * (D * HD + HD)),
             ("gat_pass_c", lambda: gk.pass_c(*c_args, out, HEADS),
+             lambda: gk.pass_c(*c_args, out, HEADS, _route=0),
              lambda: gk.pass_c_plain(*c_args, out, HEADS),
              live * nbytes(emb, scores, src, dst)
              + nbytes(nm, w, b_, gmax, scale, mask) + 2 * nbytes(out),
              2.0 * live * G * E * (D * HD + 2 * HD)),
             ("edge_hidden", lambda: ek.edge_hidden_forward(*h_args, dt),
-             lambda: ek.edge_hidden_plain(*h_args, dt),
+             None, lambda: ek.edge_hidden_plain(*h_args, dt),
              nbytes(etype, esrc, edst, ntype, w0, b0, ea, eb) + G * E * D * 2,
              6.0 * G * E * D),
             ("edge_hidden_bwd",
              lambda: ek.edge_hidden_backward(*h_args[:8], dh, n_rel, N_NTYPE),
+             None,
              lambda: ek.edge_hidden_backward_plain(*h_args[:8], dh, n_rel,
                                                    N_NTYPE),
              nbytes(etype, esrc, edst, ntype, w0, b0, ea, eb, dh)
              + (F + 3) * D * 4, 16.0 * dh.numel())):
-        ms = device_ms(fn, iters=5, warmup=1)
+        if previous is None:
+            ms = device_ms(fn, iters=5, warmup=1)
+        else:
+            ms = faster_than_previous(
+                f"{name} D={D} HD={HD}", fn, previous,
+                "the CUDA-core kernels on the same bf16 inputs", iters=5,
+                warmup=1)
         plain_ms = device_ms(plain, iters=5, warmup=1)
         bound_ms, by = bound(n_bytes, flops, dt if "gat" in name
                              else torch.float32)
@@ -5563,6 +5688,8 @@ def main() -> int:
     if only & {"kernels", "fwd"}:
         log("\n[kernels 6 and 7: GAT pass A (two launches) and pass C]")
         phase_gat(new_gen(17), dev, reports)
+        log("\n[kernels 6 and 7: the streaming kernel at D <= 256]")
+        phase_gat_streamed(new_gen(24), dev, card)
     if only & {"kernels", "enc", "moments"}:
         log("\n[kernel 10: edge_moments]")
         phase_edge_moments(gen, new_gen(19), dev, reports)

@@ -37,12 +37,14 @@
 // behind each entry point, chosen in Python by dtype and widths alone:
 //
 // bfloat16, the main path: tensor cores (gat_fwd_tc.cuh, on the pieces it
-// shares with the backward in gat_tc_common.cuh and mma_tile.cuh). Every
-// operand of the projection is a bf16 value already (emb, W rounded to the
-// compute dtype as on the TPU), so `mma.sync` with f32 accumulators computes
-// the TPU kernel's sums. One launch a pass: persistent blocks with W resident
-// in shared memory, each warp on 16 edge slots at a time, the row-wise
-// epilogue after an f32 stage.
+// shares with the backward in gat_tc_common.cuh and mma_tile.cuh), at any D
+// and heads of at least 4 features. Every operand of the projection is a
+// bf16 value already (emb, W rounded to the compute dtype as on the TPU), so
+// `mma.sync` with f32 accumulators computes the TPU kernel's sums. One launch
+// a pass: persistent blocks, each warp on 16 edge slots at a time, the
+// row-wise epilogue after an f32 stage; W resident in shared memory at
+// D <= 256, past that streamed through it in chunks of 64 of its rows, the
+// block's warps in lockstep (W rounded to bf16 by the caller: `w16`).
 //
 // On the H100 (NVIDIA H100 80GB HBM3, 700 W limit; the shapes above, 25% of
 // slots masked; medians of 20 launches by CUDA events): the tensor-core
@@ -56,6 +58,12 @@
 // pass C lost 1%. Pass A keeps its head sums' values in local memory (a
 // 64-128 byte stack frame, as backward pass 1 does); a `selp` select in
 // `warp_sums` did not remove it and gained nothing.
+//
+// Past D = 256 (W streamed) a call at gnn_dim 512 (two launches of 256
+// columns) takes 1.04 and 1.09 ms for passes A and C, at gnn_dim 1040 (eight
+// launches of 128 or 136 columns) 3.92 and 3.81 ms, against 4.9 and 27.5 ms
+// on the CUDA-core kernels on the same inputs and bounds, by operations, of
+// 0.103 and 0.430 ms (same card and shapes, medians of 5 calls).
 //
 // float32 (and bfloat16 when asked for, to time the two side by side): the
 // CUDA-core kernels below, in full f32 (TF32 would change the values). The
@@ -244,10 +252,9 @@ bool shapes_ok(int D, int HD, int H) {
 }
 
 // route 0: the CUDA-core kernels, either dtype; route 1: tensor cores,
-// bfloat16 with D <= 256 and heads of at least 4 features
-bool route_ok(int route, int dtype, int D, int HD, int H) {
-  return route == 0 ||
-         (route == 1 && dtype == 1 && D <= MAX_HD && HD / H >= 4);
+// bfloat16 with heads of at least 4 features (any D)
+bool route_ok(int route, int dtype, int HD, int H) {
+  return route == 0 || (route == 1 && dtype == 1 && HD / H >= 4);
 }
 
 }  // namespace
@@ -255,21 +262,24 @@ bool route_ok(int route, int dtype, int D, int HD, int H) {
 // dtype: 0 = float32 node/edge inputs, 1 = bfloat16. Takes D % 8 == 0,
 // HD % 8 == 0, HD <= 256, H <= 8 and 16-byte aligned arrays. route 0 runs a
 // (64-edge tile, graph) grid and reads neither warps nor n_blocks; route 1
-// runs n_blocks persistent blocks of `warps` warps (see route_ok). Every
-// slot's score is written, 0 where the slot is masked. part (PART_ADD |
-// PART_OPEN, gat_common.cuh; 0 for whole heads): a column slice of a head
-// wider than 256 features, given its columns of nq, nk, w_ke and b_ke,
-// which adds to the scores the slices before it wrote; all but the last
-// leave m_edge as it is.
+// runs n_blocks persistent blocks of `warps` warps (see route_ok): given
+// w16, W rounded to bf16 (D, HD), it streams W's rows from there instead of
+// loading w_ke whole, which takes D <= 256 (the wrapper gives w16 past
+// D = 256, null elsewhere). Every slot's score is written, 0 where the slot
+// is masked. part (PART_ADD | PART_OPEN, gat_common.cuh; 0 for whole
+// heads): a column slice of a head wider than 256 features, given its
+// columns of nq, nk, w_ke and b_ke, which adds to the scores the slices
+// before it wrote; all but the last leave m_edge as it is.
 extern "C" int gat_pass_a_scores(const void* nq, const void* nk,
                                  const void* emb, const void* w_ke,
-                                 const void* b_ke, const void* src,
-                                 const void* dst, const void* mask,
+                                 const void* w16, const void* b_ke,
+                                 const void* src, const void* dst,
+                                 const void* mask,
                                  void* scores, void* m_edge, int G, int N,
                                  int E, int D, int HD, int H, int dtype,
                                  int route, int warps, int n_blocks,
                                  int part, void* stream) {
-  if (!shapes_ok(D, HD, H) || !route_ok(route, dtype, D, HD, H) ||
+  if (!shapes_ok(D, HD, H) || !route_ok(route, dtype, HD, H) ||
       part < 0 || part > 3 ||
       !aligned16(nq) || !aligned16(nk) || !aligned16(emb) ||
       !aligned16(w_ke))
@@ -290,6 +300,7 @@ extern "C" int gat_pass_a_scores(const void* nq, const void* nk,
     a.m_edge = (float*)m_edge;
     a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H;
     a.part = part;
+    a.w16 = (const bf16*)w16;
     return launch_fwd_tc<1>(a, warps, n_blocks, s);
   }
   const dim3 grid((E + TE - 1) / TE, G);
@@ -325,16 +336,17 @@ extern "C" int gat_pass_a_denoms(const void* scores, const void* gmax,
   return (int)cudaGetLastError();
 }
 
-// route, warps and n_blocks as in gat_pass_a_scores. out is the f32
+// route, warps, n_blocks and w16 as in gat_pass_a_scores. out is the f32
 // accumulator, added to in place.
 extern "C" int gat_pass_c(const void* nm, const void* emb, const void* w_me,
-                          const void* b_me, const void* scores,
-                          const void* gmax, const void* scale,
+                          const void* w16, const void* b_me,
+                          const void* scores, const void* gmax,
+                          const void* scale,
                           const void* src, const void* dst, const void* mask,
                           void* out, int G, int N, int E, int D, int HD,
                           int H, int dtype, int route, int warps,
                           int n_blocks, void* stream) {
-  if (!shapes_ok(D, HD, H) || !route_ok(route, dtype, D, HD, H) ||
+  if (!shapes_ok(D, HD, H) || !route_ok(route, dtype, HD, H) ||
       !aligned16(nm) || !aligned16(emb) || !aligned16(w_me) ||
       !aligned16(out))
     return (int)cudaErrorInvalidValue;
@@ -354,6 +366,7 @@ extern "C" int gat_pass_c(const void* nm, const void* emb, const void* w_me,
     a.mask = (const uint8_t*)mask;
     a.out = (float*)out;
     a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H;
+    a.w16 = (const bf16*)w16;
     return launch_fwd_tc<3>(a, warps, n_blocks, s);
   }
   const dim3 grid((E + TE - 1) / TE, G);

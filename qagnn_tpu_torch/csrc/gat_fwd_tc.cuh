@@ -4,11 +4,12 @@
 // design and its times, are at the head of gat_fwd.cu; the f32 route there
 // stays on CUDA cores.
 //
-// `fwd_pass_tc_kernel<PASS, PAIRS>`, one launch: persistent blocks, one per
-// SM. A block loads W (w_ke or w_me) once, rounded to bf16 and zero-padded,
-// into shared memory. Each warp then works alone on one contiguous range of
-// units of 16 consecutive edge slots (so its graph changes rarely), with a
-// private stage in shared memory and only warp barriers:
+// `fwd_pass_tc_kernel<PASS, PAIRS, STREAM>`, one launch: persistent blocks,
+// one per SM. At D <= 256 (STREAM false) a block loads W (w_ke or w_me) once,
+// rounded to bf16 and zero-padded, into shared memory. Each warp then works
+// alone on one contiguous range of units of 16 consecutive edge slots (so
+// its graph changes rarely), with a private stage in shared memory and only
+// warp barriers:
 //   a. the unit's nodes, fetched during the unit before, and the next unit's
 //      fetched now; the live rows of emb -> stage (cp.async), zeros in masked
 //      rows and in the depth padding; pass C also the unit's alpha per
@@ -26,6 +27,34 @@
 //      16-byte atomicAdd.
 // Masked slots skip their gathers: pass A writes 0 as their score (nothing
 // reads it), pass C adds nothing for them.
+//
+// At D > 256 (STREAM true) W does not fit beside the warps' stages. The
+// wrapper hands it rounded to bf16 (w16; the launch streams exactly when it
+// is given), and the block streams its rows
+// through a shared ring of TC_STAGES chunks of TC_KC rows by cp.async, its
+// tile's columns sized from HD alone (`TcStreamShape`). The warps take
+// their units in lockstep, one unit each a round, as many rounds as the
+// longest range: in step b each round walks D in chunks, one block barrier
+// a chunk, the next chunk's W rows (the whole block) and emb columns (each
+// warp its unit's) in flight during this one's product, the f32
+// accumulators kept in registers across the chunks; the warp's emb chunks
+// ride in its stage, under the f32 rows of step c. Steps a, c and d are as
+// above; a warp whose range has ended still loads its share of W and meets
+// the barriers. W's rows are read from L2 once a round a block, so the
+// more slots a round, the fewer bytes: up to 144 columns a block runs 12
+// warps (`tc_stream_warps`), wider tiles 8.
+//
+// On the H100 (NVIDIA H100 80GB HBM3, 700 W; G=64, N=200, E=4096, 25% of
+// slots masked; torch.profiler's time a launch): 481 and 488 us a launch of
+// passes A and C at D x HD = 512 x 256, 479 and 448 at 1040 x 136, against
+// 2,400 and 3,421 us on the CUDA-core kernels. Variants timed while it was
+// designed: each of the epilogue, the products and W's loads, taken out
+// alone, shortened a launch by a large share, so the lockstep runs the
+// products, held back by W's bytes from L2, and then the epilogue, each in
+// turn. Chunks of 32 rows (two or three stages), two blocks of 4 warps an
+// SM (each block streams W itself) and issuing the next round's first W
+// chunk during the epilogue all lost; at 128-136 columns 12 warps beat 8
+// and 10, and 14 or 16 (128 registers, spills) lost.
 #pragma once
 #include "gat_tc_common.cuh"
 
@@ -52,20 +81,32 @@ struct TcFwdArgs {
   float* out;                 // pass C
   int G, N, E, D, HD, H;
   int part;                   // pass A: PART_ADD | PART_OPEN (gat_common.cuh)
+  const bf16* w16;            // STREAM: W rounded to bf16, (D, HD)
 };
 
-// PASS 1: pass A (scores), PASS 3: pass C (aggregation)
-template <int PASS, int PAIRS>
-__global__ void __launch_bounds__(32 * TC_MAX_WARPS, 1)
+template <bool STREAM, int PAIRS>
+struct FwdShape {
+  typedef TcShape<PAIRS, TC_FWD_SMALL_FLOATS> type;
+};
+template <int PAIRS>
+struct FwdShape<true, PAIRS> {
+  typedef TcStreamShape<PAIRS, TC_FWD_SMALL_FLOATS> type;
+};
+
+// PASS 1: pass A (scores), PASS 3: pass C (aggregation); STREAM: W's rows
+// streamed in chunks (a.w16 given)
+template <int PASS, int PAIRS, bool STREAM>
+__global__ void __launch_bounds__(
+    32 * (STREAM ? tc_stream_warps(PAIRS) : TC_MAX_WARPS), 1)
 fwd_pass_tc_kernel(const TcFwdArgs a) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  typedef TcShape<PAIRS, TC_FWD_SMALL_FLOATS> S;
+  typedef typename FwdShape<STREAM, PAIRS>::type S;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
   const int E = a.E, N = a.N, D = a.D, HD = a.HD, H = a.H;
-  bf16* sW = reinterpret_cast<bf16*>(tc_smem);
+  bf16* sW = reinterpret_cast<bf16*>(tc_smem);     // W, or its ring (STREAM)
   unsigned char* mine = tc_smem + S::w_bytes + warp * S::warp_bytes;
-  bf16* s_emb = reinterpret_cast<bf16*>(mine);
+  bf16* s_emb = reinterpret_cast<bf16*>(mine);     // STREAM: the emb ring
   float* s_rows = reinterpret_cast<float*>(mine);
   const int Dp = round_up16(D);
   float* s_small = reinterpret_cast<float*>(mine + S::stage_bytes);
@@ -74,7 +115,10 @@ fwd_pass_tc_kernel(const TcFwdArgs a) {
   int* s_src = reinterpret_cast<int*>(s_small + TC_ROWS * MAX_H);
   int* s_dst = s_src + TC_ROWS;
 
-  tc_load_w<S>(sW, a.w, D, HD);
+  if constexpr (STREAM)
+    tc_zero_ring<S>(sW);
+  else
+    tc_load_w<S>(sW, a.w, D, HD);
   __syncthreads();
 
   const int c0 = 8 * lane, dph = HD / H;
@@ -95,6 +139,10 @@ fwd_pass_tc_kernel(const TcFwdArgs a) {
   const long long wid = (long long)blockIdx.x * nwarps + warp;
   const long long u_begin = n_units * wid / all_warps;
   const long long u_end = n_units * (wid + 1) / all_warps;
+  // STREAM: the rounds of the lockstep, the longest range's units
+  const long long u_stop =
+      STREAM ? u_begin + (n_units + all_warps - 1) / all_warps : u_end;
+  int ring = 0;                   // STREAM: the ring's stage of chunk 0
 
   // pass A: the lane's running max over live slots of heads 2 k + lane / 16
   // (the heads whose scores it writes) in graph run_g
@@ -120,49 +168,52 @@ fwd_pass_tc_kernel(const TcFwdArgs a) {
   int next_src, next_dst;         // the nodes of the unit after this one
   tc_unit_nodes(a.mask, a.src, a.dst, E, u_begin, u_end, units_per_graph,
                 lane, next_src, next_dst);
-  for (long long u = u_begin; u < u_end; ++u) {
+  for (long long u = u_begin; u < u_stop; ++u) {
+    const bool has_unit = !STREAM || u < u_end;  // uniform over the warp
     const long long g = u / units_per_graph;
     const int e0 = (int)(u % units_per_graph) * TC_ROWS;
-    if (PASS == 1 && g != run_g) {            // uniform over the warp
+    if (PASS == 1 && has_unit && g != run_g) {   // uniform over the warp
       fold_max();
       run_g = g;
     }
 
     // a. the unit's nodes and the next one's; the live emb rows, a lane on
-    // one 16-byte chunk of every row
-    if (lane < TC_ROWS) {
-      s_src[lane] = next_src;
-      s_dst[lane] = next_dst;
-    }
-    tc_unit_nodes(a.mask, a.src, a.dst, E, u + 1, u_end, units_per_graph,
-                  lane, next_src, next_dst);
-    __syncwarp();
-    if (c0 < Dp) {
-#pragma unroll 4
-      for (int r = 0; r < TC_ROWS; ++r) {
-        bf16* to = s_emb + r * S::ld16 + c0;
-        if (s_src[r] >= 0 && c0 < D)
-          cp_async16(to, a.emb + ((g * E + e0 + r) * D + c0));
-        else
-          *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
+    // one 16-byte chunk of every row (STREAM: chunk by chunk in step b)
+    if (has_unit) {
+      if (lane < TC_ROWS) {
+        s_src[lane] = next_src;
+        s_dst[lane] = next_dst;
       }
-    }
-    cp_async_commit();
-    if (PASS == 3) {
-      // alpha = round(e * round(scale[src])), 0 for dead slots: the TPU
-      // kernel packs the scale into the compute-dtype node plane and rounds
-      // alpha before its broadcast
-      for (int idx = lane; idx < TC_ROWS * H; idx += 32) {
-        const int h = idx / TC_ROWS, el = idx % TC_ROWS, e = e0 + el;
-        const int s_node = s_src[el];
-        float al = 0.0f;
-        if (s_node >= 0) {
-          const float x = a.scores[(g * H + h) * E + e] - a.gmax[g * H + h];
-          al = round_to<bf16>(
-              expf(fminf(x, 0.0f)) *
-              round_to<bf16>(a.scale[(g * N + s_node) * H + h]));
+      tc_unit_nodes(a.mask, a.src, a.dst, E, u + 1, u_end, units_per_graph,
+                    lane, next_src, next_dst);
+      __syncwarp();
+      if (!STREAM && c0 < Dp) {
+#pragma unroll 4
+        for (int r = 0; r < TC_ROWS; ++r) {
+          bf16* to = s_emb + r * S::ld16 + c0;
+          if (s_src[r] >= 0 && c0 < D)
+            cp_async16(to, a.emb + ((g * E + e0 + r) * D + c0));
+          else
+            *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
         }
-        s_alpha[el][h] = al;
+      }
+      if (!STREAM) cp_async_commit();
+      if (PASS == 3) {
+        // alpha = round(e * round(scale[src])), 0 for dead slots: the TPU
+        // kernel packs the scale into the compute-dtype node plane and rounds
+        // alpha before its broadcast
+        for (int idx = lane; idx < TC_ROWS * H; idx += 32) {
+          const int h = idx / TC_ROWS, el = idx % TC_ROWS, e = e0 + el;
+          const int s_node = s_src[el];
+          float al = 0.0f;
+          if (s_node >= 0) {
+            const float x = a.scores[(g * H + h) * E + e] - a.gmax[g * H + h];
+            al = round_to<bf16>(
+                expf(fminf(x, 0.0f)) *
+                round_to<bf16>(a.scale[(g * N + s_node) * H + h]));
+          }
+          s_alpha[el][h] = al;
+        }
       }
     }
     // the first group's node rows, in flight during the product
@@ -182,13 +233,50 @@ fwd_pass_tc_kernel(const TcFwdArgs a) {
         }
       }
     };
-    gather(0, next_s, next_d);
-    cp_async_wait<0>();
-    __syncwarp();
+    if (has_unit) gather(0, next_s, next_d);
 
     // b. the projection emb W
-    zero_acc(acc);
-    warp_rows_product<true>(s_emb, S::ld16, sW, S::ld16, Dp / 16, acc);
+    if constexpr (STREAM) {
+      // W's rows and the emb columns in chunks: chunk k in stage
+      // (ring + k) % TC_STAGES, the next TC_STAGES - 1 in flight
+      zero_acc(acc);
+      const int n_chunks = (D + TC_KC - 1) / TC_KC;
+      const bf16* rows = a.emb + (g * E + e0) * D;
+      auto load_chunk = [&](int k) {
+        const int st = (ring + k) % TC_STAGES;
+        tc_load_w_chunk<S>(sW + st * S::w_chunk, a.w16, k * TC_KC, D, HD);
+        if (has_unit)
+          tc_load_emb_chunk<S>(s_emb + st * S::emb_chunk, rows, k * TC_KC,
+                               D, s_src, lane);
+      };
+#pragma unroll
+      for (int k = 0; k < TC_STAGES - 1; ++k) {
+        if (k < n_chunks) load_chunk(k);
+        cp_async_commit();
+      }
+#pragma unroll 1
+      for (int k = 0; k < n_chunks; ++k) {
+        // chunk k landed for every thread, and every warp is done with
+        // chunk k - 1, whose stage the load below refills
+        cp_async_wait<TC_STAGES - 2>();
+        __syncthreads();
+        if (k + TC_STAGES - 1 < n_chunks) load_chunk(k + TC_STAGES - 1);
+        cp_async_commit();
+        if (has_unit) {
+          const int st = (ring + k) % TC_STAGES;
+          const int ksteps = min(TC_KC, Dp - k * TC_KC) / 16;
+          warp_rows_product<true>(s_emb + st * S::emb_chunk, S::ldk,
+                                  sW + st * S::w_chunk, S::ld16, ksteps, acc);
+        }
+      }
+      ring = (ring + n_chunks) % TC_STAGES;
+      if (!has_unit) continue;                 // uniform over the warp
+    } else {
+      cp_async_wait<0>();
+      __syncwarp();
+      zero_acc(acc);
+      warp_rows_product<true>(s_emb, S::ld16, sW, S::ld16, Dp / 16, acc);
+    }
     __syncwarp();
     // c. accumulators -> f32 rows over the consumed emb rows
     tc_stage_acc(acc, s_rows, S::ld32, lane);
@@ -270,31 +358,48 @@ fwd_pass_tc_kernel(const TcFwdArgs a) {
   if (PASS == 1 && u_begin < u_end) fold_max();
 }
 
-template <int PASS, int PAIRS>
-cudaError_t launch_fwd_tc_pairs(const TcFwdArgs& a, int warps, int n_blocks,
-                                cudaStream_t s) {
-  typedef TcShape<PAIRS, TC_FWD_SMALL_FLOATS> S;
+template <int PASS, int PAIRS, bool STREAM>
+int launch_fwd_shape(const TcFwdArgs& a, int warps, int n_blocks,
+                     cudaStream_t s) {
+  typedef typename FwdShape<STREAM, PAIRS>::type S;
   const size_t smem = (size_t)S::w_bytes + (size_t)warps * S::warp_bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_pass_tc_kernel<PASS, PAIRS>,
+      fwd_pass_tc_kernel<PASS, PAIRS, STREAM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  fwd_pass_tc_kernel<PASS, PAIRS><<<n_blocks, 32 * warps, smem, s>>>(a);
-  return cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fwd_pass_tc_kernel<PASS, PAIRS, STREAM>
+      <<<n_blocks, 32 * warps, smem, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // The pass's one launch on the tensor-core route; `warps` and `n_blocks` are
-// the caller's plan.
+// the caller's plan. W streamed in chunks of its rows when the caller hands
+// it in bf16 (a.w16; the wrapper does so past D = 256), else resident, which
+// takes D <= 256.
 template <int PASS>
 int launch_fwd_tc(const TcFwdArgs& a, int warps, int n_blocks,
                   cudaStream_t s) {
-  if (warps < 1 || warps > TC_MAX_WARPS || n_blocks < 1)
+  const bool stream = a.w16 != nullptr;
+  const int max_warps =
+      stream ? tc_stream_warps(tc_stream_pairs(a.HD)) : TC_MAX_WARPS;
+  if (warps < 1 || warps > max_warps || n_blocks < 1 ||
+      (!stream && a.D > MAX_HD))
     return (int)cudaErrorInvalidValue;
+  if (stream) {
+    if (!aligned16(a.w16)) return (int)cudaErrorInvalidValue;
+    switch (tc_stream_pairs(a.HD)) {
+      case 4: return launch_fwd_shape<PASS, 4, true>(a, warps, n_blocks, s);
+      case 8: return launch_fwd_shape<PASS, 8, true>(a, warps, n_blocks, s);
+      case 9: return launch_fwd_shape<PASS, 9, true>(a, warps, n_blocks, s);
+      case 13: return launch_fwd_shape<PASS, 13, true>(a, warps, n_blocks, s);
+      default: return launch_fwd_shape<PASS, 16, true>(a, warps, n_blocks, s);
+    }
+  }
   switch (tc_pairs(a.D, a.HD)) {
-    case 4: return (int)launch_fwd_tc_pairs<PASS, 4>(a, warps, n_blocks, s);
-    case 8: return (int)launch_fwd_tc_pairs<PASS, 8>(a, warps, n_blocks, s);
-    case 13: return (int)launch_fwd_tc_pairs<PASS, 13>(a, warps, n_blocks, s);
-    default: return (int)launch_fwd_tc_pairs<PASS, 16>(a, warps, n_blocks, s);
+    case 4: return launch_fwd_shape<PASS, 4, false>(a, warps, n_blocks, s);
+    case 8: return launch_fwd_shape<PASS, 8, false>(a, warps, n_blocks, s);
+    case 13: return launch_fwd_shape<PASS, 13, false>(a, warps, n_blocks, s);
+    default: return launch_fwd_shape<PASS, 16, false>(a, warps, n_blocks, s);
   }
 }
 

@@ -1,11 +1,13 @@
 // Device code shared by the bfloat16 tensor-core routes of the projected GAT
 // op: the forward passes A and C (gat_fwd_tc.cuh) and the backward passes 1
-// and 2 (gat_bwd_tc.cuh). All of them run persistent blocks that load W once,
-// rounded to bf16 and zero-padded, into shared memory; each warp then works
-// alone on units of TC_ROWS consecutive edge slots of one graph: the unit's
-// emb rows -> its stage (cp.async), emb W on tensor cores (mma_tile.cuh), the
-// f32 accumulators -> the stage as rows, and a row-wise epilogue in which a
-// lane owns 8 adjacent columns.
+// and 2 (gat_bwd_tc.cuh). All of them run persistent blocks in which each
+// warp works on units of TC_ROWS consecutive edge slots of one graph: the
+// unit's emb rows -> its stage (cp.async), emb W on tensor cores
+// (mma_tile.cuh), the f32 accumulators -> the stage as rows, and a row-wise
+// epilogue in which a lane owns 8 adjacent columns. W sits in shared memory,
+// rounded to bf16 and zero-padded: whole (`TcShape`, loaded once), or, in
+// the forward at D > 256, as a ring of chunks of its rows that the block's
+// warps stream through in lockstep (`TcStreamShape`).
 #pragma once
 #include "gat_common.cuh"
 #include "mma_tile.cuh"
@@ -41,6 +43,87 @@ struct TcShape {
   static constexpr int stage_bytes = TC_ROWS * ld32 * 4;
   static constexpr int warp_bytes = stage_bytes + SMALL_FLOATS * 4;
 };
+
+// The forward's streaming variant (D > 256): W's rows, rounded to bf16 in
+// device memory, pass through a ring of TC_STAGES chunks of TC_KC rows, and
+// each warp's emb rows through a ring of chunks of TC_KC columns. Its tile's
+// columns follow from HD alone (for a column slice of 136: 9 pairs, 144).
+constexpr int TC_KC = 64;
+constexpr int TC_STAGES = 2;
+
+inline int tc_stream_pairs(int HD) {
+  return HD <= 64 ? 4 : HD <= 128 ? 8 : HD <= 144 ? 9 : HD <= 208 ? 13 : 16;
+}
+
+// Warps a block of the streaming variant may run. Up to 144 columns its
+// accumulators take at most 72 registers a lane, and the kernel fits in 168
+// with no spill, so 12 warps fill the register file: 192 slots a round
+// share each pass over W. Wider tiles need about 250 registers: 8 warps.
+__host__ __device__ constexpr int tc_stream_warps(int pairs) {
+  return pairs <= 9 ? 12 : TC_MAX_WARPS;
+}
+
+// Shared memory of the streaming variant: the ring of W chunks (TC_KC rows
+// of pitch ld16), then per warp a stage and SMALL_FLOATS floats of small
+// tables. The stage holds the warp's ring of emb chunks (16 rows of TC_KC,
+// pitch ldk) during the product and the f32 projection rows (pitch ld32)
+// over them after it.
+template <int PAIRS, int SMALL_FLOATS>
+struct TcStreamShape : TcShape<PAIRS, SMALL_FLOATS> {
+  typedef TcShape<PAIRS, SMALL_FLOATS> Whole;
+  static constexpr int ldk = TC_KC + 8;
+  static constexpr int w_chunk = TC_KC * Whole::ld16;  // elements
+  static constexpr int emb_chunk = TC_ROWS * ldk;      // elements
+  static constexpr int w_bytes = TC_STAGES * w_chunk * 2;
+  static constexpr int ring_bytes = TC_STAGES * emb_chunk * 2;
+  static constexpr int stage_bytes = Whole::stage_bytes > ring_bytes
+                                         ? Whole::stage_bytes
+                                         : ring_bytes;
+  static constexpr int warp_bytes = stage_bytes + SMALL_FLOATS * 4;
+};
+
+// zeros over the whole ring of W chunks: the columns past HD are never
+// loaded. The whole block takes part; the caller synchronises.
+template <typename S>
+__device__ __forceinline__ void tc_zero_ring(bf16* ring) {
+  for (int idx = threadIdx.x; idx < S::w_bytes / 16; idx += blockDim.x)
+    reinterpret_cast<uint4*>(ring)[idx] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Rows d0 .. d0 + TC_KC of W (D, HD) bf16 -> a chunk of the ring by
+// cp.async, zeros in the rows past D. The whole block takes part.
+template <typename S>
+__device__ __forceinline__ void tc_load_w_chunk(bf16* to, const bf16* w16,
+                                                int d0, int D, int HD) {
+  const int per_row = HD >> 3;
+  for (int p = threadIdx.x; p < TC_KC * per_row; p += blockDim.x) {
+    const int i = p / per_row, c = (p - i * per_row) * 8;
+    bf16* at = to + i * S::ld16 + c;
+    if (d0 + i < D)
+      cp_async16(at, w16 + ((long long)(d0 + i) * HD + c));
+    else
+      *reinterpret_cast<uint4*>(at) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Columns d0 .. d0 + TC_KC of the unit's 16 emb rows (`rows`: its first,
+// pitch D) -> the warp's chunk by cp.async; zeros in masked rows (s_src < 0)
+// and in the columns past D.
+template <typename S>
+__device__ __forceinline__ void tc_load_emb_chunk(bf16* to, const bf16* rows,
+                                                  int d0, int D,
+                                                  const int* s_src, int lane) {
+  constexpr int per_row = TC_KC / 8;
+#pragma unroll
+  for (int p = lane; p < TC_ROWS * per_row; p += 32) {
+    const int r = p / per_row, c = (p % per_row) * 8;
+    bf16* at = to + r * S::ldk + c;
+    if (s_src[r] >= 0 && d0 + c < D)
+      cp_async16(at, rows + ((long long)r * D + d0 + c));
+    else
+      *reinterpret_cast<uint4*>(at) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
 
 // W (D, HD) f32 -> sW, rounded to bf16; zeros wherever a product reaches
 // past D or HD. The whole block takes part; the caller synchronises.

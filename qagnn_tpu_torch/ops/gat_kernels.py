@@ -18,10 +18,12 @@ Counterpart of `pallas_relational_gat_projected[_chained]`
     over masked edges, alpha = exp(min(s - gmax, 0)) * scale[src].
 
 Pass A's scores and pass C have two routes behind one entry point each,
-chosen by dtype and widths alone (`_fwd_route`): bfloat16 at D, HD <= 256
-with heads of at least 4 features runs the projection on tensor cores
-(csrc/gat_fwd_tc.cuh: persistent blocks with W resident in shared memory),
-anything else stays on CUDA cores, float32 in full f32.
+chosen by dtype and widths alone (`_fwd_route`): bfloat16 with heads of at
+least 4 features runs the projection on tensor cores at any D
+(csrc/gat_fwd_tc.cuh: persistent blocks with W resident in shared memory
+at D <= 256; past that W, rounded to bf16 here (`_streamed_w`), streams
+through shared memory in chunks of its rows), anything else stays on CUDA
+cores, float32 in full f32.
 
 The backward (`gat_projected`, `gat_projected_chained`: autograd Functions)
 recomputes e = exp(min(s - gmax, 0)) from the saved scores and runs
@@ -106,9 +108,9 @@ _I = ctypes.c_int
 
 
 _SIGNATURES = {
-    "gat_pass_a_scores": [_P] * 10 + [_I] * 11 + [_P],
+    "gat_pass_a_scores": [_P] * 11 + [_I] * 11 + [_P],
     "gat_pass_a_denoms": [_P] * 6 + [_I] * 4 + [_P],
-    "gat_pass_c": [_P] * 11 + [_I] * 10 + [_P],
+    "gat_pass_c": [_P] * 12 + [_I] * 10 + [_P],
 }
 
 
@@ -121,6 +123,12 @@ DW_SPLITS = 128      # edge ranges (rows of partials) of the dW products
 TC_UNIT = 16                 # edges a warp works on at a time
 TC_MAX_WARPS = 8
 TC_SMEM_LIMIT = 232_448      # dynamic shared memory a block may ask for
+# the forward past D = 256 (csrc/gat_tc_common.cuh `TcStreamShape`): W's
+# rows a chunk, chunks in the ring, and the tile's widths in columns with
+# the warps a block of each may run (`tc_stream_pairs`, `tc_stream_warps`;
+# tests/test_torch_gat_ops.py holds the two copies together)
+TC_KC, TC_STAGES = 64, 2
+STREAM_TILES = ((64, 12), (128, 12), (144, 12), (208, 8), (256, 8))
 
 
 def _lib():
@@ -357,12 +365,14 @@ def _pass_a_scores(nq, nk, edge_emb, w_ke, b_ke, src, dst, mask, heads,
     _require(mask, "mask", torch.bool, (G, E))
     route = _fwd_route(cdt, D, HD, heads, _route)
     warps, n_blocks = _fwd_launch_plan(route, G, E, D, HD, nq.device)
+    w16 = _streamed_w(route, w_ke)
     scores = _scores_out(acc, G, heads, E, nq.device)
     m_edge = torch.full((G, heads), NEG, device=nq.device,
                         dtype=torch.float32)
     err = _lib().gat_pass_a_scores(
         nq.data_ptr(), nk.data_ptr(), edge_emb.data_ptr(), w_ke.data_ptr(),
-        b_ke.data_ptr(), src.data_ptr(), dst.data_ptr(), mask.data_ptr(),
+        None if w16 is None else w16.data_ptr(), b_ke.data_ptr(),
+        src.data_ptr(), dst.data_ptr(), mask.data_ptr(),
         scores.data_ptr(), m_edge.data_ptr(), G, N, E, D, HD, heads,
         _dtype_code(nq), route, warps, n_blocks, _part(acc, last), _stream())
     _build.check(err, "gat_pass_a_scores")
@@ -484,8 +494,10 @@ def _pass_c(nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst, mask,
     _require(out, "out", torch.float32, (G, N, HD))
     route = _fwd_route(cdt, D, HD, heads, _route)
     warps, n_blocks = _fwd_launch_plan(route, G, E, D, HD, nm.device)
+    w16 = _streamed_w(route, w_me)
     err = _lib().gat_pass_c(
-        nm.data_ptr(), edge_emb.data_ptr(), w_me.data_ptr(), b_me.data_ptr(),
+        nm.data_ptr(), edge_emb.data_ptr(), w_me.data_ptr(),
+        None if w16 is None else w16.data_ptr(), b_me.data_ptr(),
         scores.data_ptr(), gmax.data_ptr(), scale.data_ptr(), src.data_ptr(),
         dst.data_ptr(), mask.data_ptr(), out.data_ptr(), G, N, E, D, HD,
         heads, _dtype_code(nm), route, warps, n_blocks, _stream())
@@ -596,11 +608,11 @@ def _bwd_route(cdt, route):
 
 def _fwd_route(cdt, D, HD, heads, route):
     """Route of the forward passes A (scores) and C: 0 CUDA cores, 1 tensor
-    cores, for bfloat16 where their widths hold (D and HD <= 256, heads of at
-    least 4 features). Dtype and widths alone decide; `route` names one, 0
-    for bfloat16 to time the CUDA-core kernels beside the tensor-core ones."""
-    fits = cdt == torch.bfloat16 and D <= 256 and HD <= 256 \
-        and HD // heads >= 4
+    cores, for bfloat16 where their widths hold (any D, HD <= 256, heads of
+    at least 4 features). Dtype and widths alone decide; `route` names one,
+    0 for bfloat16 to time the CUDA-core kernels beside the tensor-core
+    ones."""
+    fits = cdt == torch.bfloat16 and HD <= MAX_COLS and HD // heads >= 4
     if route is None:
         return 1 if fits else 0
     if route not in (0, 1) or (route == 1 and not fits):
@@ -627,17 +639,41 @@ def _tc_smem_bytes(D, HD, warps):
     return _tc_smem(D, HD, warps, 3 * TC_UNIT * 8 + 2 * TC_UNIT)
 
 
+def _fwd_streams(D):
+    """Whether route 1 of the forward streams W's rows through shared
+    memory (D > 256) or holds W there whole. The one place that decides:
+    the kernel streams exactly when the wrapper hands it W in bf16."""
+    return D > MAX_COLS
+
+
+def _stream_tile(HD):
+    """(columns, most warps a block) of the streaming kernel's tile for a
+    launch of HD columns: the first of STREAM_TILES to hold HD."""
+    return next(t for t in STREAM_TILES if HD <= t[0])
+
+
 def _fwd_smem_bytes(D, HD, warps):
     """The forward kernel's (scores or alpha and the nodes beside each
-    stage; no cotangent tile)."""
-    return _tc_smem(D, HD, warps, TC_UNIT * 8 + 2 * TC_UNIT)
+    stage; no cotangent tile). Streaming (`TcStreamShape`), W passes through
+    a ring of TC_STAGES chunks of TC_KC rows of the tile's width, and each
+    warp's stage holds its ring of emb chunks (16 rows of TC_KC) and then
+    its f32 rows."""
+    small = TC_UNIT * 8 + 2 * TC_UNIT
+    if not _fwd_streams(D):
+        return _tc_smem(D, HD, warps, small)
+    width = _stream_tile(HD)[0]
+    ring = TC_STAGES * TC_KC * (width + 8) * 2
+    stage = max(TC_UNIT * (width + 4) * 4,
+                TC_STAGES * TC_UNIT * (TC_KC + 8) * 2)
+    return ring + warps * (stage + small * 4)
 
 
-def _persistent_plan(smem_bytes, G, E, D, HD, n_sm, what):
+def _persistent_plan(smem_bytes, G, E, D, HD, n_sm, what,
+                     max_warps=TC_MAX_WARPS):
     """(warps per block, blocks): as many warps as shared memory holds
-    beside W, one persistent block per SM, no more blocks than units
-    of work for their warps."""
-    warps = max((w for w in range(1, TC_MAX_WARPS + 1)
+    beside W, up to `max_warps`, one persistent block per SM, no more
+    blocks than units of work for their warps."""
+    warps = max((w for w in range(1, max_warps + 1)
                  if smem_bytes(D, HD, w) <= TC_SMEM_LIMIT), default=0)
     if warps == 0:
         raise ValueError(f"{what}: D={D}, HD={HD} leave no shared memory for "
@@ -652,10 +688,26 @@ def _tc_plan(G, E, D, HD, n_sm):
                             "GAT backward")
 
 
+def _fwd_max_warps(D, HD):
+    """Warps a block of the forward tensor-core kernel may run: the
+    streaming tile's (`tc_stream_warps`), else TC_MAX_WARPS."""
+    return _stream_tile(HD)[1] if _fwd_streams(D) else TC_MAX_WARPS
+
+
 def _fwd_tc_plan(G, E, D, HD, n_sm):
-    """The forward tensor-core kernel's plan (passes A and C alike)."""
+    """The forward tensor-core kernel's plan (passes A and C alike), W
+    whole or streamed."""
     return _persistent_plan(_fwd_smem_bytes, G, E, D, HD, n_sm,
-                            "GAT forward")
+                            "GAT forward", _fwd_max_warps(D, HD))
+
+
+def _streamed_w(route, w):
+    """W (D, HD) rounded to bf16 where route 1 streams its rows from device
+    memory through shared memory once a round of units (half the bytes of
+    f32 rows, no rounding in the ring); None elsewhere: route 0 and the
+    resident kernel round W as they load it."""
+    return w.to(torch.bfloat16) if route == 1 and _fwd_streams(w.shape[0]) \
+        else None
 
 
 def _fwd_launch_plan(route, G, E, D, HD, device):

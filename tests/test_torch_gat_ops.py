@@ -6,12 +6,16 @@ intermediates included, in f32 (also at widths the tensor-core kernels must
 pad) and bf16; pass C alone against `_proj_pass_c`; the port's scatter
 oracle against the JAX scatter backend. Then the forward kernels' route
 choice and the shared memory of their tensor-core plan, which are Python
-that a CPU run reaches.
+that a CPU run reaches, with the plan's table of streaming tiles read
+against the one the CUDA source compiles.
 
 Tolerance in f32 rtol/atol 2e-4, as tests/test_pallas_gat.py uses for the
 projected kernel (f32 sums in another order). The bf16 tolerances stand
 beside their checks.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -255,22 +259,28 @@ def test_wrappers_take_plain_version_only_on_cpu():
     (torch.bfloat16, 200, 200, 4, None, 1),
     (torch.bfloat16, 24, 40, 4, None, 1),
     (torch.bfloat16, 256, 256, 8, None, 1),
-    (torch.bfloat16, 264, 200, 4, None, 0),
+    (torch.bfloat16, 264, 200, 4, None, 1),
+    (torch.bfloat16, 512, 256, 2, None, 1),
+    (torch.bfloat16, 1040, 136, 1, None, 1),
+    (torch.bfloat16, 1040, 128, 1, None, 1),
+    (torch.float32, 512, 256, 2, None, 0),
+    (torch.bfloat16, 512, 256, 2, 0, 0),
     (torch.bfloat16, 16, 16, 8, None, 0),
     (torch.bfloat16, 200, 200, 4, 0, 0),
     (torch.bfloat16, 200, 200, 4, 1, 1),
     (torch.float32, 200, 200, 4, 0, 0)])
 def test_forward_route_follows_dtype_and_widths(dtype, D, HD, heads, route,
                                                 want):
-    """Tensor cores for bf16 where D, HD <= 256 and heads of at least 4
-    features; CUDA cores otherwise, or when route 0 is named."""
+    """Tensor cores for bf16 at any D where HD <= 256 and heads have at
+    least 4 features (past D = 256 W's rows stream through shared memory);
+    CUDA cores otherwise, or when route 0 is named."""
     assert gat_kernels._fwd_route(dtype, D, HD, heads, route) == want
 
 
 @pytest.mark.parametrize("dtype,D,HD,heads,route", [
     (torch.float32, 200, 200, 4, 1),
     (torch.bfloat16, 200, 200, 4, 2),
-    (torch.bfloat16, 264, 200, 4, 1),
+    (torch.bfloat16, 512, 16, 8, 1),
     (torch.bfloat16, 16, 16, 8, 1)])
 def test_forward_route_refuses(dtype, D, HD, heads, route):
     """No tensor-core route for float32 (TF32 would change the values), past
@@ -281,23 +291,117 @@ def test_forward_route_refuses(dtype, D, HD, heads, route):
 
 # G, E, D, HD, SMs -> warps per block, blocks, shared memory of a block:
 # W (WIDTH x (WIDTH + 8) bf16) + warps x (16 f32 rows of WIDTH + 4 and 160
-# floats of tables), WIDTH the first of 64, 128, 208, 256 to hold D and HD
+# floats of tables), WIDTH the first of 64, 128, 208, 256 to hold D and HD;
+# past D = 256 a ring of 2 chunks of 64 of W's rows (64 x (WIDTH + 8) bf16
+# each) + warps x (the larger of the f32 rows and 2 emb chunks of 16 x 72
+# bf16, and the tables), WIDTH the first of 64, 128, 144, 208, 256 to hold
+# HD alone, and up to 12 warps at a WIDTH of at most 144
 FWD_PLANS = {
     "200x200": ((64, 4096, 200, 200, 132), (8, 132, 89856 + 8 * 14208)),
     "24x40": ((2, 16, 24, 40, 132), (8, 1, 9216 + 8 * 4992)),
     "96x128": ((64, 4093, 96, 128, 132), (8, 132, 34816 + 8 * 9088)),
     "256x256": ((64, 4096, 256, 256, 132), (5, 132, 135168 + 5 * 17280)),
+    "512x256": ((64, 4096, 512, 256, 132), (8, 132, 67584 + 8 * 17280)),
+    "1040x136": ((64, 4096, 1040, 136, 132), (12, 132, 38912 + 12 * 10112)),
+    "1040x128": ((64, 4096, 1040, 128, 132), (12, 132, 34816 + 12 * 9088)),
+    "520x64": ((64, 4093, 520, 64, 132), (12, 132, 18432 + 12 * 5248)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(FWD_PLANS))
 def test_forward_tensor_core_plan(case):
-    """As many warps a block as shared memory holds beside W (no cotangent
-    tile: one stage a warp), one persistent block per SM at most."""
+    """As many warps a block as shared memory holds beside W or its ring of
+    chunks (no cotangent tile: one stage a warp), up to the kernel's most,
+    one persistent block per SM at most."""
     (G, E, D, HD, n_sm), (warps, n_blocks, smem) = FWD_PLANS[case]
     assert gat_kernels._fwd_tc_plan(G, E, D, HD, n_sm) == (warps, n_blocks)
     assert gat_kernels._fwd_smem_bytes(D, HD, warps) == smem
     assert smem <= gat_kernels.TC_SMEM_LIMIT
-    if warps < gat_kernels.TC_MAX_WARPS:
+    if warps < gat_kernels._fwd_max_warps(D, HD):
         assert gat_kernels._fwd_smem_bytes(D, HD, warps + 1) \
             > gat_kernels.TC_SMEM_LIMIT
+
+
+@pytest.mark.parametrize("width,n_launches,warps",
+                         [(512, 2, 8), (1040, 8, 12)])
+def test_wide_forward_launches_take_tensor_cores(width, n_launches, warps):
+    """Every bf16 launch of passes A and C that the op makes at gnn_dim 512
+    (two head groups of 256 columns: 8 warps a block) and 1040 (four heads
+    of 264 features, two column slices of 128 and 136 each: 12 warps) takes
+    route 1, W's rows streamed at D > 256; f32 stays on route 0."""
+    heads = 4
+    D, HD = gat_kernels.kernel_widths(width, width, heads)
+    plan = gat_kernels.launches(HD, heads)
+    assert D == width and len(plan) == n_launches
+    for h0, h1, c0, c1 in plan:
+        assert gat_kernels._fwd_route(torch.bfloat16, D, c1 - c0, h1 - h0,
+                                      None) == 1
+        assert gat_kernels._fwd_route(torch.float32, D, c1 - c0, h1 - h0,
+                                      None) == 0
+        assert gat_kernels._fwd_tc_plan(64, 4096, D, c1 - c0, 132) \
+            == (warps, 132)
+
+
+@pytest.mark.parametrize("route,D,want", [
+    (1, 512, torch.bfloat16), (1, 256, None), (0, 512, None)])
+def test_streamed_w_is_rounded_only_past_256(route, D, want):
+    """Route 1 past D = 256 reads W rounded to bf16 from device memory;
+    route 0 and the resident kernel round it themselves."""
+    w = torch.randn(D, 64)
+    got = gat_kernels._streamed_w(route, w)
+    if want is None:
+        assert got is None
+    else:
+        assert got.dtype == want and torch.equal(got, w.to(want))
+
+
+# the streaming tile's decisions as csrc/gat_tc_common.cuh compiles them
+TC_COMMON = (Path(__file__).resolve().parents[1] / "qagnn_tpu_torch" / "csrc"
+             / "gat_tc_common.cuh").read_text()
+
+
+def _cuda_function_body(name):
+    return re.search(name + r"\([^)]*\)\s*\{(.*?)\n\}", TC_COMMON,
+                     re.S).group(1)
+
+
+def _cuda_stream_tile(HD):
+    """(columns, warps) of the tile the kernel instantiates for HD:
+    `tc_stream_pairs`' ladder of widths, `tc_stream_warps`' limit."""
+    body = _cuda_function_body("tc_stream_pairs")
+    rungs = [(int(a), int(b)) for a, b in
+             re.findall(r"HD <= (\d+) \? (\d+)", body)]
+    last = int(re.search(r": (\d+);", body).group(1))
+    pairs = next((p for top, p in rungs if HD <= top), last)
+    body = _cuda_function_body("tc_stream_warps")
+    most, many, few = re.search(r"pairs <= (\d+) \? (\d+) : (\w+);",
+                                body).groups()
+    few = int(re.search(rf"constexpr int {few} = (\d+);", TC_COMMON)
+              .group(1)) if not few.isdigit() else int(few)
+    return 16 * pairs, int(many) if pairs <= int(most) else few
+
+
+@pytest.mark.parametrize("HD", [8, 64, 72, 128, 136, 144, 152, 208, 216,
+                                256])
+def test_stream_tiles_match_the_kernel(HD):
+    """The plan's table of streaming tiles (STREAM_TILES: columns and the
+    warps a block of each may run) is the one the kernel compiles
+    (`tc_stream_pairs`, `tc_stream_warps`), and so are TC_KC and
+    TC_STAGES, which size its shared memory."""
+    assert gat_kernels._stream_tile(HD) == _cuda_stream_tile(HD)
+    for name in ("TC_KC", "TC_STAGES", "TC_MAX_WARPS"):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", TC_COMMON)
+                   .group(1)) == getattr(gat_kernels, name)
+
+
+@pytest.mark.parametrize("D,HD,warps", [(200, 200, 8), (256, 256, 8)])
+def test_streamed_plan_fits_at_narrow_d(monkeypatch, D, HD, warps):
+    """The streaming kernel also plans at D <= 256, where it is timed beside
+    the resident one on the card: its ring leaves room for the tile's
+    warps, and the wrapper then hands it W in bf16."""
+    monkeypatch.setattr(gat_kernels, "_fwd_streams", lambda D: True)
+    assert gat_kernels._fwd_tc_plan(64, 4096, D, HD, 132) == (warps, 132)
+    assert gat_kernels._fwd_smem_bytes(D, HD, warps) \
+        <= gat_kernels.TC_SMEM_LIMIT
+    assert gat_kernels._streamed_w(1, torch.zeros(D, HD)).dtype \
+        == torch.bfloat16
