@@ -156,15 +156,20 @@ Run from the repository root on a machine with one CUDA card. It
      split launch against its plain version, with their times; passes A
      and C at D = 200 with one head of 304 features on both routes; rows
      6-12 through QAGNNMessagePassing in train mode at gnn_dim 512 (two
-     head groups a pass, two slices of W's rows in the backward passes)
-     and 1040 (four heads of 264 features, two column slices each, every
-     launch against its plain version) against the scatter path, output
-     and every parameter gradient, with the launches and routes (every bf16
-     launch of rows 6-9 on tensor cores), and in f32 the gradients' spread
-     from run to run, logged (ROADMAP C14); the passes alone at both widths
-     on both routes against their plain versions, and the times of rows
-     6-9 and 11-12 there beside their bounds, by call and by launch, rows
-     6 and 7 in turns with their CUDA-core route on the same inputs; and
+     head groups a pass) and 1040 (four heads of 264 features, two column
+     slices each, every launch against its plain version) against the
+     scatter path, the output, and every parameter gradient against one
+     reference, the scatter path in float64 under deterministic algorithms
+     (f32: each of nine draws of the kernel path under 2e-3, their mean
+     under twice the mean of nine f32 scatter draws, ROADMAP C14), with the
+     launches and routes (every bf16 launch of rows 6-9 on tensor cores,
+     backward passes 1 and 2 streaming W's rows past D = 256); the passes
+     alone at both widths on both routes against their plain versions, at
+     E and E - 3, every route-1 launch of rows 8 and 9 held against its
+     plain version, and the times of rows 6-9 and 11-12 there beside their
+     bounds, by call and by launch (one edge kernel a column launch of rows
+     8 and 9), rows 6 and 7 in turns with their CUDA-core route on the
+     same inputs; and
      `python -m qagnn_tpu_torch.cli --gnn_dim 512` and `--gnn_dim 1040`,
      side by side, for two train steps each. The `overfit` phase also logs,
      per GAT layer of the trained model, the largest gap between a graph's
@@ -879,8 +884,16 @@ def phase_edge_moments(gen, more_gen, dev, reports):
             floor = device_ms(lambda: torch.cuda._sleep(0))
             log(f"  launch floor: an empty kernel (torch.cuda._sleep(0)) "
                 f"{floor:.4f} ms by the same device_ms")
-            rows = profile_kernels("edge_moments",
-                                   lambda: ek.edge_feature_moments(*args))
+            for attempt in (1, 2):
+                # the profiler drops an event now and then: a window that
+                # holds fewer of the one kernel's launches is taken again
+                rows = profile_kernels("edge_moments",
+                                       lambda: ek.edge_feature_moments(*args))
+                if attempt == 2 or rows is None or len(rows) != 1 \
+                        or rows[0][1] >= 20:
+                    break
+                log("  fewer launches in the window than calls: traced "
+                    "again")
             if rows is None:
                 FAILURES.append("edge_moments: the profiler listed no "
                                 "kernel of one call, so its one launch "
@@ -1110,9 +1123,12 @@ def phase_gat_bwd(gen, odd_gen, dev, reports):
     # widths off the main shape. 24 x 40, 4 heads: both depths need padding
     # to 16 (to 32 and 48) and heads of 10 split the 8-column groups; 96 x
     # 128 and 256 x 256, 8 heads: the other widths the tensor-core kernels
-    # are compiled for, the last with fewer warps a block
+    # are compiled for, the last with fewer warps a block; 264 x 200 and
+    # 520 x 64, 8 heads: W's rows streamed (a chunk of 8 rows at the end;
+    # the 208- and the 128-column tile, the latter for 64 columns)
     src, dst, mask = graph_inputs(odd_gen, dev, E - 3)
-    for D, HD, heads in ((24, 40, 4), (96, 128, 8), (256, 256, 8)):
+    for D, HD, heads in ((24, 40, 4), (96, 128, 8), (256, 256, 8),
+                         (264, 200, 4), (520, 64, 8)):
         for dt in (torch.float32, torch.bfloat16):
             t = gat_bwd_inputs(odd_gen, dev, D, HD, heads, src, dst, mask, dt)
             gat_bwd_case(reports, t, src, dst, mask, heads, dt,
@@ -4738,10 +4754,15 @@ def trace_rows(what: str, make_trace):
     return path, None
 
 
-def check_trace(what: str, rows, calls, card) -> None:
+def check_trace(what: str, rows, calls, card, retake=False) -> bool:
     """Log the trace's device ops and fail unless its counts of the
     kernels of rows 6-12 are those that `calls` ((entry point, route) ->
-    calls) launch."""
+    calls) launch. With `retake`, a trace that holds fewer launches of some
+    kernels than were made and more of none is not a failure but False,
+    for the caller to trace again: the profiler drops an event now and then
+    (on an H100 a trace once held two of three edge_moments_kernel
+    launches), while a name the map gets wrong reads the same in every
+    trace."""
     from qagnn_tpu_torch.tools import trace_summary as ts
 
     want = ts.expected_kernels(calls)
@@ -4761,8 +4782,12 @@ def check_trace(what: str, rows, calls, card) -> None:
     log(f"    rows 6-12 by __global__ name, trace / launched: " + ", ".join(
         f"{k} {got.get(k, 0)}/{n}" for k, n in sorted(want.items()))
         + (f"  MISMATCH {bad}" if bad else "  ok"))
+    if bad and retake and all(g < n for g, n in bad.values()):
+        log("    fewer launches in the trace than were made: traced again")
+        return False
     if bad:
         FAILURES.append(f"tools: {what}: kernel counts {bad}")
+    return True
 
 
 def tools_profile_step(card) -> None:
@@ -4784,22 +4809,26 @@ def tools_profile_step(card) -> None:
                 f"{time.perf_counter() - t0:.1f} s")
             return results[-1]["trace"]
 
-        path, rows = trace_rows("profile_step", make_trace)
-        if rows is None:
-            return
-        result = results[-1]
         k = profile_step.Shapes().k
         want = {n: c * profile_step.TRACED_STEPS
                 for n, c in step_launches(k).items()}
-        if result["launches"] != want:
-            FAILURES.append(f"tools: profile_step launches "
-                            f"{result['launches']}")
-        log(f"  launches over the {profile_step.TRACED_STEPS} traced steps "
-            f"{result['launches']}; routes {result['routes']}; trace "
-            f"{pathlib.Path(path).stat().st_size / 2 ** 20:.1f} MiB")
-        check_trace("profile_step's trace", rows,
-                    ts.entry_calls(result["launches"], result["routes"]),
-                    card)
+        for attempt in (1, 2):
+            path, rows = trace_rows("profile_step", make_trace)
+            if rows is None:
+                return
+            result = results[-1]
+            if result["launches"] != want:
+                FAILURES.append(f"tools: profile_step launches "
+                                f"{result['launches']}")
+            log(f"  launches over the {profile_step.TRACED_STEPS} traced "
+                f"steps {result['launches']}; routes {result['routes']}; "
+                f"trace {pathlib.Path(path).stat().st_size / 2 ** 20:.1f} "
+                "MiB")
+            if check_trace("profile_step's trace", rows,
+                           ts.entry_calls(result["launches"],
+                                          result["routes"]),
+                           card, retake=attempt == 1):
+                break
 
 
 def start_tool(argv) -> tuple:
@@ -4915,15 +4944,18 @@ def tools_cli_trace(card) -> None:
                 "python -m qagnn_tpu_torch.cli with --profile_dir"))
             return prof
 
-        path, rows = trace_rows("the CLI's --profile_dir trace", make_trace)
-        if rows is None or runs[-1] is None:
-            return
-        for line in runs[-1].splitlines():
-            if "profiler trace" in line or "| epoch" in line:
-                log("    " + line)
-        check_trace(f"the CLI's trace of {TOOLS_CLI_TRACED} train steps at "
-                    f"gnn_dim {D} (kernels at {Dk} x {HDk})", rows, calls,
-                    card)
+        for attempt in (1, 2):
+            path, rows = trace_rows("the CLI's --profile_dir trace",
+                                    make_trace)
+            if rows is None or runs[-1] is None:
+                return
+            for line in runs[-1].splitlines():
+                if "profiler trace" in line or "| epoch" in line:
+                    log("    " + line)
+            if check_trace(f"the CLI's trace of {TOOLS_CLI_TRACED} train "
+                           f"steps at gnn_dim {D} (kernels at {Dk} x {HDk})",
+                           rows, calls, card, retake=attempt == 1):
+                break
 
 
 def phase_tools(dev, card) -> None:
@@ -4961,16 +4993,28 @@ OUT_OF_RANGE = 0.1             # live slots given relation ids n_rel, n_rel+1
 # the GNN at gnn_dim 512 and 1040 on the kernel path against the scatter
 # path, same
 # weights and inputs, train mode, dropout 0, each in its dtype: the output
-# as GNN_TOL holds it; in f32 every parameter gradient within STEP_TOL's
-# named-gradient tolerance of the model's largest (sums of other orders,
-# the edge rows' closed-form moments, k layers and two BatchNorms). In bf16
-# both paths' gradients drift from the f32 oracle by several percent of the
+# as GNN_TOL holds it; every parameter gradient against one reference that
+# holds still, the scatter path in f64 (`reference_grads`). In f32 each
+# draw of the kernel path within STEP_TOL's named-gradient tolerance of the
+# model's largest (sums of other orders, the edge rows' closed-form
+# moments, k layers and two BatchNorms), and the mean of its
+# WIDE_GRAD_DRAWS draws within twice the mean of as many draws of the f32
+# scatter path (`grad_spread`). In bf16
+# both paths' gradients drift from the reference by several percent of the
 # largest (the edge encoder's W0 collects every layer's edge cotangent: 4-14%
 # on the CPU with the kernels' plain versions, at gnn_dim 200 and 512, the
 # kernel path's drift 0.5-1.3 times the scatter path's), so the kernel
 # path's bf16 drift is held to twice the scatter path's in the same run
 WIDE_GRAD_TOL = STEP_TOL["grad"]
 WIDE_BF16_DRIFT = 2.0
+# draws of each f32 path in `grad_spread`. Each path's gap from the f64
+# reference spreads by a factor of 7 from run to run on an H100 at gnn_dim
+# 1040 (scatter 1.6e-4 to 1.1e-3, kernel 2.8e-4 to 1.2e-3, means 6.8e-4 and
+# 8.2e-4): resampling 51 draws of each, the mean of nine against twice the
+# mean of nine fails a correct tree about once in 800 runs (the median of
+# three against twice the median of three: once in 15) and still fails a
+# kernel path 2.5 times the scatter path's in 94 runs of 100
+WIDE_GRAD_DRAWS = 9
 WIDE_CLI_QUESTIONS = 8         # two train steps of 4 questions
 
 
@@ -5259,9 +5303,10 @@ def widths_unprojected(gen, dev, card):
 def gnn_run(dev, backend, dt, cot, width, check=None):
     """One train-mode forward + backward of QAGNNMessagePassing at gnn_dim
     `width` (k = 5, 4 heads, 38 relations, dropout 0) on one path in one
-    dtype, weights and inputs from fixed seeds, inside `check` (a
-    LaunchCheck) where given: (output in f32, parameter gradients in f32,
-    launches)."""
+    compute dtype (f64 on the scatter path: the reference), weights and
+    inputs from fixed seeds (H in f32 whatever the dtype, so that the score
+    basis is the same), inside `check` (a LaunchCheck) where given:
+    (output in f32, parameter gradients in f32, launches)."""
     n_etype = 38
     with torch.device(dev):
         mp = QAGNNMessagePassing(WIDE_K, N_NTYPE, n_etype, width,
@@ -5301,20 +5346,45 @@ def grad_gap(got, want) -> tuple[float, str]:
                for n, g in got.items())
 
 
+def reference_grads(dev, cot, width):
+    """The f64 reference of the widths phase's gradient checks (ROADMAP
+    C14): the scatter path of `gnn_run` built in float64 (BatchNorm's batch
+    moments too), the same weights, inputs and cotangent, under torch's
+    deterministic algorithms (warn_only: the ops without one are named);
+    its parameter gradients, and a checksum that shows it holds still from
+    run to run."""
+    was = torch.are_deterministic_algorithms_enabled()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            _, ref, _ = gnn_run(dev, "scatter", torch.float64, cot, width)
+        finally:
+            torch.use_deterministic_algorithms(was)
+    loose = sorted({str(w.message).split(" does not have")[0][:80]
+                    for w in caught if "deterministic" in str(w.message)})
+    checksum = sum(float(g.double().abs().sum()) for g in ref.values())
+    log(f"  f64 reference at gnn_dim {width}: the scatter path in float64, "
+        f"deterministic; sum of |grad| over every parameter {checksum!r}; "
+        f"ops without a deterministic algorithm: {loose or 'none'}")
+    return ref
+
+
 def widths_gnn(gen, dev, card, width):
     """Rows 6-12 in a train-mode forward + backward of QAGNNMessagePassing
     at gnn_dim `width` (k = 5, 4 heads; at 512 two head groups of 256
-    columns a pass and two slices of W's rows in backward passes 1 and 2;
-    at 1040 four heads of 264 padded features, each two column slices, and
-    five slices of W's rows), on the kernel path against the scatter path,
-    in both dtypes: the output, every parameter gradient (bf16: its drift
-    from the f32 oracle beside the scatter path's), each entry point's
-    launches and routes; past 512 every launch of rows 6-9 against its
-    plain version (`LaunchCheck`)."""
+    columns a pass; at 1040 four heads of 264 padded features, each two
+    column slices; past D = 256 backward passes 1 and 2 stream W's rows),
+    on the kernel path against the scatter path, in both dtypes: the
+    output, every parameter gradient against the f64 reference
+    (`reference_grads`; bf16: the kernel path's drift beside the bf16
+    scatter path's; f32: `grad_spread`), each entry point's launches and
+    routes; past 512 every launch of rows 6-9 against its plain version
+    (`LaunchCheck`)."""
     HDk = gk.kernel_widths(width, width, HEADS)[1]
     F = 39 + 2 * N_NTYPE             # gnn_run's 38 relations, the self loop
     cot = torch.randn((G, N, width), generator=gen, device=dev)
-    _, oracle, _ = gnn_run(dev, "scatter", torch.float32, cot, width)
+    ref = reference_grads(dev, cot, width)
     for dt in (torch.bfloat16, torch.float32):
         name = "bf16" if dt == torch.bfloat16 else "f32"
         # rows 6-9 a launch a head group or column slice; rows 11 and 12 a
@@ -5353,154 +5423,202 @@ def widths_gnn(gen, dev, card, width):
             FAILURES.append(f"widths: routes at gnn_dim {width}, {name}")
         compare(f"GNN out at gnn_dim {width}, kernel vs scatter, {name}",
                 out, want, GNN_TOL[dt])
-        gap, worst = grad_gap(grads, want_grads if dt == torch.float32
-                              else oracle)
         if dt == torch.float32:
-            tol, what = WIDE_GRAD_TOL, f"vs scatter, tol {WIDE_GRAD_TOL:.1e}"
-        else:
-            base, base_worst = grad_gap(want_grads, oracle)
-            tol = WIDE_BF16_DRIFT * base
-            what = (f"vs the f32 scatter oracle, tol {tol:.3e} = "
-                    f"{WIDE_BF16_DRIFT:g} x the bf16 scatter path's "
-                    f"{base:.3e} ({base_worst})")
+            grad_spread(dev, cot, width, grads, want_grads, ref)
+            continue
+        gap, worst = grad_gap(grads, ref)
+        base, base_worst = grad_gap(want_grads, ref)
+        tol = WIDE_BF16_DRIFT * base
         ok = gap <= tol
         log(f"  GNN parameter gradients at gnn_dim {width}, kernel path "
-            f"{name}: largest max|d| / max|grad| {gap:.3e} ({worst}) "
-            f"{what}  {'ok' if ok else 'FAIL'}")
+            f"{name}: largest max|d| / max|grad| {gap:.3e} ({worst}) vs the "
+            f"f64 reference, tol {tol:.3e} = {WIDE_BF16_DRIFT:g} x the bf16 "
+            f"scatter path's {base:.3e} ({base_worst})  "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             FAILURES.append(f"widths: gradients at gnn_dim {width}, {name}")
-        if dt == torch.float32:
-            grad_spread(dev, cot, width, grads, want_grads)
 
 
-def grad_spread(dev, cot, width, kernel, scatter):
-    """ROADMAP C14's witness, logged and not held to a limit: the f32
-    gradients' spread from run to run on the same inputs, which the check
-    above reads as one draw. Two more runs of each path beside the checked
-    ones, and two of the scatter path with torch's deterministic algorithms
-    (warn_only: the ops without one are named); every pair's gap as
-    `grad_gap` reads it."""
-    def runs(backend, n=2):
+def grad_spread(dev, cot, width, kernel, scatter, ref):
+    """The f32 gradient check (ROADMAP C14): the checked run of each path
+    and WIDE_GRAD_DRAWS - 1 more on the same inputs, each draw's gap from
+    the f64 reference as `grad_gap` reads it, with the parameter that sets
+    it. Every kernel-path draw must lie within WIDE_GRAD_TOL of the
+    reference, and the mean of the kernel path's gaps within WIDE_BF16_DRIFT
+    times the mean of the f32 scatter path's: both paths' gaps spread from
+    run to run (their sums take the atomics' order), so each side is
+    estimated from all of its draws, and no few lucky draws of either path
+    decide. Each path's spread against itself is logged beside."""
+    def runs(backend, n=WIDE_GRAD_DRAWS - 1):
         return [gnn_run(dev, backend, torch.float32, cot, width)[1]
                 for _ in range(n)]
 
-    def gaps(xs, ys=None):
-        pairs = [(a, b) for i, a in enumerate(xs) for b in xs[i + 1:]] \
-            if ys is None else [(a, b) for a in xs for b in ys]
-        return ", ".join(f"{grad_gap(a, b)[0]:.3e}" for a, b in pairs)
+    def spread(xs):
+        gaps = [grad_gap(a, b)[0]
+                for i, a in enumerate(xs) for b in xs[i + 1:]]
+        return f"{min(gaps):.3e} to {max(gaps):.3e}"
 
     kernel, scatter = [kernel] + runs("cuda"), [scatter] + runs("scatter")
-    was = torch.are_deterministic_algorithms_enabled()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            fixed = runs("scatter")
-        finally:
-            torch.use_deterministic_algorithms(was)
-    loose = sorted({str(w.message).split(" does not have")[0][:80]
-                    for w in caught if "deterministic" in str(w.message)})
-    log(f"  f32 gradient spread at gnn_dim {width} (C14; largest max|d| / "
-        f"max|grad|, each pair of runs): kernel path against itself "
-        f"{gaps(kernel)}; scatter path against itself {gaps(scatter)}; "
-        f"deterministic scatter against itself {gaps(fixed)}; kernel path "
-        f"against it {gaps(kernel, fixed[:1])}; scatter path against it "
-        f"{gaps(scatter, fixed[:1])}; kernel against scatter "
-        f"{gaps(kernel, scatter)}; ops without a deterministic algorithm: "
-        f"{loose or 'none'}")
+    k_gaps = [grad_gap(x, ref) for x in kernel]
+    s_gaps = [grad_gap(x, ref) for x in scatter]
+    k_mean = statistics.fmean(g for g, _ in k_gaps)
+    s_mean = statistics.fmean(g for g, _ in s_gaps)
+    ok_abs = all(g <= WIDE_GRAD_TOL for g, _ in k_gaps)
+    ok_rel = k_mean <= WIDE_BF16_DRIFT * s_mean
+    fmt = lambda gaps: ", ".join(f"{g:.3e} ({n})" for g, n in gaps)  # noqa
+    log(f"  GNN parameter gradients at gnn_dim {width}, f32, largest max|d| "
+        f"/ max|grad| of each draw vs the f64 reference: kernel path "
+        f"{fmt(k_gaps)}; scatter path {fmt(s_gaps)}; every kernel draw "
+        f"under {WIDE_GRAD_TOL:.1e}  {'ok' if ok_abs else 'FAIL'}; kernel "
+        f"mean {k_mean:.3e} under {WIDE_BF16_DRIFT:g} x the scatter "
+        f"mean {s_mean:.3e} = {WIDE_BF16_DRIFT * s_mean:.3e}  "
+        f"{'ok' if ok_rel else 'FAIL'}")
+    log(f"  f32 gradient spread at gnn_dim {width} (pairs of draws): "
+        f"kernel path against itself {spread(kernel)}; scatter path against "
+        f"itself {spread(scatter)}")
+    if not (ok_abs and ok_rel):
+        FAILURES.append(f"widths: f32 gradients at gnn_dim {width} vs the "
+                        "f64 reference")
+
+
+def bwd_launches_by_kernel(rows, iters, n_launches, what):
+    """Route 1 of a backward pass from torch.profiler's rows of `iters`
+    calls: the edge kernel and the dW kernel once a column launch (past
+    D = 256 the edge kernel streams W's rows in that one launch), and each
+    one's us a launch. More launches than column launches fail, and so
+    does a kernel the profiler recorded no launch of while it recorded
+    others; between the two are events the profiler did not record, and
+    are logged."""
+    from qagnn_tpu_torch.tools.trace_summary import kernel_base
+    if rows is None:
+        log(f"  {what}: launches by kernel not read (no profiler rows)")
+        return
+    n, us = collections.Counter(), collections.Counter()
+    for t, count, key in rows:
+        n[kernel_base(key)] += count
+        us[kernel_base(key)] += t
+    for k in ("edge_pass_tc_kernel", "dw_tc_kernel"):
+        calls = n[k] / iters
+        ok = 0 < calls <= n_launches
+        log(f"  {what}: {k} {calls:g} launches a call for {n_launches} "
+            f"column launches, {us[k] / max(n[k], 1):.1f} us a launch  "
+            f"{'ok' if ok else 'FAIL'}"
+            + ("" if calls == n_launches or not ok
+               else " (the profiler recorded fewer)"))
+        if not ok:
+            FAILURES.append(f"widths: {k} launches, {what}")
 
 
 def widths_passes(gen, dev, card, D, HD):
     """Rows 6-9 alone at D x HD (the kernels' widths), 4 heads: passes A and
     C and backward passes 1 and 2 on both routes in bf16 (route 0 in f32)
-    against their plain versions, masked slots exactly; then each call's
-    device time with its bound (rows 6 and 7 in turns with their CUDA-core
-    route on the same inputs, which must be slower), and the device time of
-    each kernel launch it makes (torch.profiler), rows 11 and 12 at this D
-    too. The backward passes' plain version is the
+    against their plain versions, masked slots exactly, at E and E - 3, every
+    route-1 launch of the backward passes against its plain version
+    (`LaunchCheck`: past D = 256 the streaming edge kernel, a split head's
+    partial mode included); then each call's device time with its bound
+    (rows 6 and 7 in turns with their CUDA-core route on the same inputs,
+    which must be slower), and the device time of each kernel launch it
+    makes (torch.profiler: one edge kernel a column launch of rows 8 and 9),
+    rows 11 and 12 at this D too. The backward passes' plain version is the
     unsliced one at D = 512 (two head groups: one bf16 carry rounding more
     on the kernels' side, ROADMAP's known difference (a)); with more
     launches a pass it is the wrappers' own loop over the plain versions
     (`plain_launches`), which takes the same carry roundings."""
-    src, dst, mask = graph_inputs(gen, dev, E)
-    live = mask.float().mean().item()
     n_launches = len(gk.launches(HD, HEADS))
     sliced = plain_launches if n_launches > 2 else contextlib.nullcontext
-    for dt in (torch.float32, torch.bfloat16):
-        gat_fwd_case(None, gen, dev, D, HD, HEADS, src, dst, mask, dt,
-                     f"D={D} HD={HD} {dt}", False)
-        t = gat_bwd_inputs(gen, dev, D, HD, HEADS, src, dst, mask, dt)
-        dead = ~mask
-        p1 = (t["gout"], t["nm"], t["emb"], t["w_me"], t["b_me"],
-              t["scores"], t["gmax"], t["scale"], src, dst, mask,
-              t["carry"])
-        plain1 = gk.bwd_pass1_plain if n_launches <= 2 else gk.bwd_pass1
-        plain2 = gk.bwd_pass2_plain if n_launches <= 2 else gk.bwd_pass2
-        with sliced():
-            want1 = plain1(*p1, t["dnm0"].clone(), t["dscale0"].clone(),
-                           HEADS)
-        scale, denom_raw = t["scale"], t["denom_raw"]
-        d_denom = (-(scale / torch.clamp_min(denom_raw, gk.DENOM_EPS))
-                   * want1[3] * (denom_raw > gk.DENOM_EPS).float())
-        p2 = (t["nq"], t["nk"], t["emb"], t["w_ke"], t["b_ke"], t["scores"],
-              t["gmax"], want1[1], scale, d_denom.contiguous(), src, dst,
-              mask)
-        acc2 = (torch.randn((G, N, HD), generator=gen, device=dev),
-                torch.randn((G, N, HD), generator=gen, device=dev))
-        with sliced():
-            want2 = plain2(*p2, want1[0].clone(),
-                           *(x.clone() for x in acc2), HEADS)
-        for route in ((0, 1) if dt == torch.bfloat16 else (0,)):
-            tag = f"D={D} HD={HD} {dt} route {route}"
-            _build.reset_launch_counts()
-            got = gk.bwd_pass1(*p1, t["dnm0"].clone(), t["dscale0"].clone(),
-                               HEADS, _route=route)
-            for name, g, w in zip(("demb", "d_alpha", "dnm", "dscale",
-                                   "dW_me", "db_me"), got, want1):
-                compare(f"gat_bwd_pass1 {name} {tag}", g, w, TOL["bwd"][dt])
-            if bool((got[0][dead] != t["carry"][dead]).any()):
-                FAILURES.append(f"gat_bwd_pass1 masked slots {tag}")
-            got = gk.bwd_pass2(*p2, want1[0].clone(),
-                               *(x.clone() for x in acc2), HEADS,
-                               _route=route)
-            for name, g, w in zip(("demb", "dnq", "dnk", "dW_ke", "db_ke"),
-                                  got, want2):
-                compare(f"gat_bwd_pass2 {name} {tag}", g, w, TOL["bwd"][dt])
-            if bool((got[0][dead] != want1[0][dead]).any()):
-                FAILURES.append(f"gat_bwd_pass2 masked slots {tag}")
-            counts = {k: (_build.LAUNCHES[k], _build.ROUTES[k, route])
-                      for k in ("gat_bwd_pass1", "gat_bwd_pass2")}
-            if any(c != (n_launches,) * 2 for c in counts.values()):
-                FAILURES.append(f"widths: launches of the passes, {tag}: "
-                                f"{counts}")
-            log(f"  launches and routes, {tag}: {counts} ({n_launches} "
-                "head groups or column slices)")
-        # times of a call (two head groups) beside the bound of its work,
-        # counted as the main path's measures count it
-        s1 = (t["dnm0"].clone(), t["dscale0"].clone())
-        s2 = (want1[0].clone(), *(x.clone() for x in acc2))
-        flops = 3 * 2.0 * live * G * E * D * HD
-        for name, fn, plain, n_bytes in (
-                ("gat_bwd_pass1", lambda: gk.bwd_pass1(*p1, *s1, HEADS),
-                 lambda: gk.bwd_pass1_plain(*p1, *s1, HEADS),
-                 live * nbytes(t["emb"], t["scores"], src, dst)
-                 + nbytes(t["gout"], t["nm"], t["w_me"], t["b_me"],
-                          t["gmax"], scale, mask, t["carry"], want1[0],
-                          want1[1], want1[4], want1[5])
-                 + 2 * nbytes(want1[2], want1[3])),
-                ("gat_bwd_pass2", lambda: gk.bwd_pass2(*p2, *s2, HEADS),
-                 lambda: gk.bwd_pass2_plain(*p2, *s2, HEADS),
-                 live * nbytes(t["emb"], t["scores"], want1[1], src, dst)
-                 + nbytes(t["nq"], t["nk"], t["w_ke"], t["b_ke"], t["gmax"],
-                          scale, d_denom, mask, want2[3], want2[4])
-                 + 2 * nbytes(want2[0], want2[1], want2[2]))):
-            ms, plain_ms = device_ms(fn, iters=5, warmup=1), \
-                device_ms(plain, iters=5, warmup=1)
-            bound_ms, by = bound(n_bytes, flops, dt)
-            log(f"  time {name} D={D} HD={HD} {dt}: kernels {ms:.4f} ms a "
-                f"call ({n_launches} launches)  plain {plain_ms:.4f} ms  "
-                f"bound {bound_ms:.4f} ms ({by})  [{card}]")
-            profile_kernels(f"{name} D={D} HD={HD} {dt}", fn, iters=5)
+    for n_edges in (E - 3, E):
+        src, dst, mask = graph_inputs(gen, dev, n_edges)
+        live = mask.float().mean().item()
+        for dt in (torch.float32, torch.bfloat16):
+            if n_edges == E:
+                gat_fwd_case(None, gen, dev, D, HD, HEADS, src, dst, mask,
+                             dt, f"D={D} HD={HD} {dt}", False)
+            t = gat_bwd_inputs(gen, dev, D, HD, HEADS, src, dst, mask, dt)
+            dead = ~mask
+            p1 = (t["gout"], t["nm"], t["emb"], t["w_me"], t["b_me"],
+                  t["scores"], t["gmax"], t["scale"], src, dst, mask,
+                  t["carry"])
+            plain1 = gk.bwd_pass1_plain if n_launches <= 2 else gk.bwd_pass1
+            plain2 = gk.bwd_pass2_plain if n_launches <= 2 else gk.bwd_pass2
+            with sliced():
+                want1 = plain1(*p1, t["dnm0"].clone(), t["dscale0"].clone(),
+                               HEADS)
+            scale, denom_raw = t["scale"], t["denom_raw"]
+            d_denom = (-(scale / torch.clamp_min(denom_raw, gk.DENOM_EPS))
+                       * want1[3] * (denom_raw > gk.DENOM_EPS).float())
+            p2 = (t["nq"], t["nk"], t["emb"], t["w_ke"], t["b_ke"],
+                  t["scores"], t["gmax"], want1[1], scale,
+                  d_denom.contiguous(), src, dst, mask)
+            acc2 = (torch.randn((G, N, HD), generator=gen, device=dev),
+                    torch.randn((G, N, HD), generator=gen, device=dev))
+            with sliced():
+                want2 = plain2(*p2, want1[0].clone(),
+                               *(x.clone() for x in acc2), HEADS)
+            for route in ((0, 1) if dt == torch.bfloat16 else (0,)):
+                tag = f"D={D} HD={HD} E={n_edges} {dt} route {route}"
+                _build.reset_launch_counts()
+                check = LaunchCheck(tag, dt) if route == 1 else None
+                with check or contextlib.nullcontext():
+                    got1 = gk.bwd_pass1(*p1, t["dnm0"].clone(),
+                                        t["dscale0"].clone(), HEADS,
+                                        _route=route)
+                    got2 = gk.bwd_pass2(*p2, want1[0].clone(),
+                                        *(x.clone() for x in acc2), HEADS,
+                                        _route=route)
+                if check is not None:
+                    check.report()
+                for name, g, w in zip(("demb", "d_alpha", "dnm", "dscale",
+                                       "dW_me", "db_me"), got1, want1):
+                    compare(f"gat_bwd_pass1 {name} {tag}", g, w,
+                            TOL["bwd"][dt])
+                if bool((got1[0][dead] != t["carry"][dead]).any()):
+                    FAILURES.append(f"gat_bwd_pass1 masked slots {tag}")
+                for name, g, w in zip(("demb", "dnq", "dnk", "dW_ke",
+                                       "db_ke"), got2, want2):
+                    compare(f"gat_bwd_pass2 {name} {tag}", g, w,
+                            TOL["bwd"][dt])
+                if bool((got2[0][dead] != want1[0][dead]).any()):
+                    FAILURES.append(f"gat_bwd_pass2 masked slots {tag}")
+                counts = {k: (_build.LAUNCHES[k], _build.ROUTES[k, route])
+                          for k in ("gat_bwd_pass1", "gat_bwd_pass2")}
+                if any(c != (n_launches,) * 2 for c in counts.values()):
+                    FAILURES.append(f"widths: launches of the passes, {tag}: "
+                                    f"{counts}")
+                log(f"  launches and routes, {tag}: {counts} ({n_launches} "
+                    "head groups or column slices)")
+            if n_edges != E:
+                continue
+            # times of a call (its head groups or column slices) beside the
+            # bound of its work, counted as the main path's measures count it
+            s1 = (t["dnm0"].clone(), t["dscale0"].clone())
+            s2 = (want1[0].clone(), *(x.clone() for x in acc2))
+            flops = 3 * 2.0 * live * G * E * D * HD
+            for name, fn, plain, n_bytes in (
+                    ("gat_bwd_pass1", lambda: gk.bwd_pass1(*p1, *s1, HEADS),
+                     lambda: gk.bwd_pass1_plain(*p1, *s1, HEADS),
+                     live * nbytes(t["emb"], t["scores"], src, dst)
+                     + nbytes(t["gout"], t["nm"], t["w_me"], t["b_me"],
+                              t["gmax"], scale, mask, t["carry"], want1[0],
+                              want1[1], want1[4], want1[5])
+                     + 2 * nbytes(want1[2], want1[3])),
+                    ("gat_bwd_pass2", lambda: gk.bwd_pass2(*p2, *s2, HEADS),
+                     lambda: gk.bwd_pass2_plain(*p2, *s2, HEADS),
+                     live * nbytes(t["emb"], t["scores"], want1[1], src, dst)
+                     + nbytes(t["nq"], t["nk"], t["w_ke"], t["b_ke"],
+                              t["gmax"], scale, d_denom, mask, want2[3],
+                              want2[4])
+                     + 2 * nbytes(want2[0], want2[1], want2[2]))):
+                ms, plain_ms = device_ms(fn, iters=5, warmup=1), \
+                    device_ms(plain, iters=5, warmup=1)
+                bound_ms, by = bound(n_bytes, flops, dt)
+                log(f"  time {name} D={D} HD={HD} {dt}: kernels {ms:.4f} ms "
+                    f"a call ({n_launches} launches)  plain {plain_ms:.4f} ms"
+                    f"  bound {bound_ms:.4f} ms ({by})  [{card}]")
+                rows = profile_kernels(f"{name} D={D} HD={HD} {dt}", fn,
+                                       iters=5)
+                if dt == torch.bfloat16:
+                    bwd_launches_by_kernel(rows, 5, n_launches,
+                                           f"{name} D={D} HD={HD} {dt}")
     # the forward passes and rows 11-12 at this D on the bf16 main path
     dt = torch.bfloat16
     r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731

@@ -49,6 +49,10 @@
 // cotangent tile still in shared memory; the cotangent goes to device memory
 // once, for a tensor-core dW launch split over edge ranges; two reductions of
 // the dW and db partials. No transposed copy of W, no atomics on dW or db.
+// Past D = 256 the edge launch streams W's rows through shared memory twice a
+// round of units, once for each product against W (gat_bwd_tc.cuh), so a
+// column launch is one edge launch at any D, with no f32 projection in
+// device memory.
 //
 // float32: the CUDA-core kernels of this file, in full f32 (TF32 would not
 // hold the 1e-4 the f32 path is kept to). Four launches as well:
@@ -80,7 +84,12 @@
 // (104 f32 accumulators a lane) hold a block to 8 warps that each run their
 // stages in turn. Two warps on each unit (16 warps a block, the column
 // tiles split between them) gained 7% on pass 1 and 1% on pass 2 and were
-// not kept.
+// not kept. At gnn_dim 512 (2 column launches of 256, D = 512) a call of
+// pass 1 / 2 takes 2.83-2.85 / 2.90-2.91 ms, at 1040 (8 launches of 128 /
+// 136 columns) 13.76-13.84 / 13.66-13.67 ms, against 4.11-4.12 / 3.62-3.63
+// and 22.37-22.39 / 22.03 ms for the sliced design it replaced, in turns on
+// one card; dW takes 0.31 ms a launch at 512 x 256 and 0.51-0.52 ms at
+// 1040 x 136.
 #include "gat_common.cuh"
 #include "gat_bwd_tc.cuh"
 #include "reduce_partials.cuh"
@@ -492,13 +501,14 @@ void finish_pass(const T* emb, const T* cot, const float* wt, const T* add,
 // edge kernel takes any D, the demb and dW launches a slice of W's rows a
 // block (a grid dimension); w_t is w transposed in slices, (D / d_slice,
 // HD, d_slice); db_part (G * ceil(E / 64), HD) is scratch; warps, n_blocks
-// and proj are not read. route 1, the tensor-core kernels (bfloat16 only):
-// w_t is not read; the edge kernel runs n_blocks blocks of `warps` warps
-// once a slice of W's rows, the slice resident in shared memory, and
-// db_part is (n_blocks, HD); with more than one slice proj (G, E, HD) f32
-// is scratch (null otherwise). Either way the node-side outputs (dalpha,
-// dnm, dscale; dnq, dnk in pass 2) and db are written by one pass over the
-// edges only, and demb a slice of columns at a time, with no atomics. part
+// and w16 are not read. route 1, the tensor-core kernels (bfloat16 only):
+// w_t is not read; the edge kernel runs once, n_blocks blocks of `warps`
+// warps, with W resident in shared memory (D = d_slice <= 256) or, given
+// w16 (W rounded to bf16, (D, HD); null otherwise), its rows streamed
+// through shared memory at any D; the dW launch takes W's rows in slices
+// of d_slice (a grid dimension); db_part is (n_blocks, HD). Either way the
+// node-side outputs (dalpha, dnm, dscale; dnq, dnk in pass 2) and db are
+// written by one pass over the edges only, and demb with no atomics. part
 // (PART_ADD | PART_OPEN, gat_common.cuh; 0 for whole heads): a column slice
 // of a head wider than 256 features, given its columns of gout, nm, w_me
 // (and w_me_t) and b_me, which adds its d_alpha to the slices' before it in
@@ -509,7 +519,7 @@ extern "C" int gat_bwd_pass1(
     const void* gmax, const void* scale, const void* src, const void* dst,
     const void* mask, const void* carry, void* dmsg, void* demb, void* dalpha,
     void* dnm, void* dscale, void* dw_part, void* db_part, void* dw, void* db,
-    void* proj, int G, int N, int E, int D, int HD, int H, int n_split,
+    const void* w16, int G, int N, int E, int D, int HD, int H, int n_split,
     int d_slice, int dtype, int route, int warps, int n_blocks, int part,
     void* stream) {
   if (!shapes_ok(D, d_slice, HD, H) || n_split <= 0 || part < 0 ||
@@ -517,8 +527,6 @@ extern "C" int gat_bwd_pass1(
       !aligned16(nm) || !aligned16(emb) || !aligned16(w_me) ||
       !aligned16(w_me_t) || !aligned16(carry) || !aligned16(dmsg) ||
       !aligned16(demb) || !aligned16(dnm) || !aligned16(dw_part) ||
-      !aligned16(proj) ||
-      (route == 1 && d_slice < D && proj == nullptr) ||
       (route != 0 && (route != 1 || dtype != 1)))
     return (int)cudaErrorInvalidValue;
   if ((long long)G * E == 0) return (int)cudaGetLastError();
@@ -542,9 +550,9 @@ extern "C" int gat_bwd_pass1(
     a.acc_src = (float*)dnm;
     a.dscale = (float*)dscale;
     a.db_part = (float*)db_part;
-    a.proj = (float*)proj;
     a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H; a.DS = d_slice;
     a.part = part;
+    a.w16 = (const bf16*)w16;
     return launch_pass_tc<1>(a, (float*)dw_part, (float*)dw, (float*)db,
                              n_split, warps, n_blocks, (cudaStream_t)stream);
   }
@@ -580,23 +588,21 @@ extern "C" int gat_bwd_pass1(
 }
 
 // demb holds pass 1's result and is updated in place. dekb, dw_part and
-// db_part are scratch, and route, warps and n_blocks mean what they do in
-// pass 1.
+// db_part are scratch, and route, warps, n_blocks and w16 mean what they do
+// in pass 1.
 extern "C" int gat_bwd_pass2(
     const void* nq, const void* nk, const void* emb, const void* w_ke,
     const void* w_ke_t, const void* b_ke, const void* scores,
     const void* gmax, const void* dalpha, const void* scale,
     const void* d_denom, const void* src, const void* dst, const void* mask,
     void* dekb, void* demb, void* dnq, void* dnk, void* dw_part,
-    void* db_part, void* dw, void* db, void* proj, int G, int N, int E, int D,
-    int HD, int H, int n_split, int d_slice, int dtype, int route, int warps,
-    int n_blocks, void* stream) {
+    void* db_part, void* dw, void* db, const void* w16, int G, int N, int E,
+    int D, int HD, int H, int n_split, int d_slice, int dtype, int route,
+    int warps, int n_blocks, void* stream) {
   if (!shapes_ok(D, d_slice, HD, H) || n_split <= 0 || !aligned16(nq) ||
       !aligned16(nk) || !aligned16(emb) || !aligned16(w_ke) ||
       !aligned16(w_ke_t) || !aligned16(dekb) || !aligned16(demb) ||
       !aligned16(dnq) || !aligned16(dnk) || !aligned16(dw_part) ||
-      !aligned16(proj) ||
-      (route == 1 && d_slice < D && proj == nullptr) ||
       (route != 0 && (route != 1 || dtype != 1)))
     return (int)cudaErrorInvalidValue;
   if ((long long)G * E == 0) return (int)cudaGetLastError();
@@ -621,8 +627,8 @@ extern "C" int gat_bwd_pass2(
     a.acc_src = (float*)dnq;
     a.acc_dst = (float*)dnk;
     a.db_part = (float*)db_part;
-    a.proj = (float*)proj;
     a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H; a.DS = d_slice;
+    a.w16 = (const bf16*)w16;
     return launch_pass_tc<2>(a, (float*)dw_part, (float*)dw, (float*)db,
                              n_split, warps, n_blocks, (cudaStream_t)stream);
   }

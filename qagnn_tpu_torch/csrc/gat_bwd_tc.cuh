@@ -3,12 +3,12 @@
 // the passes compute, and the source note with the design and its times, are
 // at the head of gat_bwd.cu; the f32 route there stays on CUDA cores.
 //
-// Launch 1, `edge_pass_tc_kernel<PASS, PAIRS>`: persistent blocks, one per
-// SM. A block loads W once, rounded to bf16 and zero-padded, into shared
-// memory ([D][HD], used as it lies for emb W and read as [column][depth] for
-// cot W^T: no transposed copy). Its warps then work alone, each on units of
-// 16 consecutive edges of one graph, with a private stage in shared memory
-// and only warp barriers:
+// Launch 1, `edge_pass_tc_kernel<PASS, PAIRS, STREAM>`: persistent blocks,
+// one per SM. At D <= 256 (STREAM false) a block loads W once, rounded to
+// bf16 and zero-padded, into shared memory ([D][HD], used as it lies for emb
+// W and read as [column][depth] for cot W^T: no transposed copy). Its warps
+// then work alone, each on units of 16 consecutive edges of one graph, with
+// a private stage in shared memory and only warp barriers:
 //   a. the unit's emb rows -> stage (cp.async), depth zero-padded; the
 //      unit's nodes were fetched during the unit before;
 //   b. product 1: emb W in f32 accumulators (a row's columns lie in one quad);
@@ -26,23 +26,50 @@
 //      (+ carry, or + pass 1's demb in place), 16 bytes a lane, all of a
 //      lane's loads before its stores.
 // Each lane keeps the bias gradient of its 8 columns over all its units (f32
-// values before rounding); a block writes one partial row at its end.
-//
-// Past D = 256 rows W no longer fits (a 512 x 256 tile is 264 KB): the
-// edge kernel runs once for each slice of DS <= 256 of W's rows, in order,
-// with that slice resident. Product 1's depth is then the slice: a launch
-// adds the projection summed over the slices before it (f32, `proj`, (G, E,
-// HD)) into its stage and hands the sum on to the next, and only the last
-// launch, which holds the whole projection, runs the epilogue's node-side
-// work (the scatters, d_alpha, dscale, the cotangent's copy for dW and the
-// bias partials). Every launch forms the cotangent rows, which do not
-// depend on the projection, for product 2 against its slice: demb's
-// columns of that slice, written once, with no atomics between slices. The
-// dW launch takes the slices as a grid dimension. The
+// values before rounding); a block writes one partial row at its end. The
 // tile counts of both products are compile-time (PAIRS): with a run-time
 // count every pair of tiles sat behind a branch, the loads of a pair's B
 // fragments could not move ahead of the pair before it, and the products
-// took twice as long.
+// took twice as long. Steps a and d are one device function each
+// (tc_bwd_unit_weights, tc_bwd_epilogue), which the streaming kernel below
+// calls too.
+//
+// Past D = 256 W no longer fits beside the stages (a 512 x 256 tile is 264
+// KB). STREAM true: the wrapper hands W rounded to bf16 (w16; the launch
+// streams exactly when it is given), and the block streams its rows twice a
+// round through the forward's shared ring of TC_STAGES chunks of TC_KC rows
+// (TcStreamShape, gat_tc_common.cuh), the tile's columns sized from HD
+// alone, 128 at least. The warps take one unit each a round, in lockstep, a
+// warp with no unit left still loading its share of W and meeting the
+// barriers:
+//   a. the unit's nodes and per-(edge, head) weights, as above;
+//   b. product 1 walks D in chunks, one block barrier a chunk, the next
+//      chunk's W rows (the whole block) and emb columns (each warp its
+//      unit's, masked rows zeros) in flight during this one's product, the
+//      f32 accumulators in registers across the chunks: the (G, E, HD) f32
+//      projection never goes to device memory;
+//   c., d. as above, once, on the whole projection;
+//   e. product 2 walks W's chunks again, in reverse: chunk c's 64 rows are
+//      demb's columns 64 c .. 64 c + 63, staged as f32 rows beside the
+//      cotangent tile in the stage's rows and written 16 bytes a lane (+
+//      carry, or + pass 1's demb in place, those loaded a chunk ahead).
+//      The walk starts on the two chunks product 1 left in the ring and
+//      ends on chunks 1 and 0, where the next round's product 1 starts:
+//      2 n - 4 chunk loads a round for n chunks, not 2 n.
+// The dW launch takes W's rows in slices of DS <= 256 (a grid dimension).
+// Bound: a call's three products at the tensor-core peak (1.29 ms at
+// gnn_dim 1040, 8 column launches; 0.31 ms at 512, 2); in bytes a launch
+// reads the live slots' emb rows and demb (or the carry) once and writes
+// demb once, about 1.5 GB (0.45 ms) at 1040 x 136. On the H100 (NVIDIA
+// H100 80GB HBM3, 700 W; G=64, N=200, E=4096, 25% of slots masked;
+// torch.profiler's time a launch) an edge launch takes 0.98-1.01 ms at 512
+// x 256 and 1.08-1.12 ms at 1040 x 136 / 128, where the sliced design this
+// replaced ran 5 launches of 0.42-0.44 ms a column launch with the f32
+// projection's round trips through device memory. Variants timed while it was designed: writing demb from
+// the accumulators, 4 bytes a lane, cost the largest single share, which
+// staging the rows to write 16 bytes a lane took back in part; then the
+// epilogue; each product and W's stream from L2 a smaller one; 8 warps a
+// block at 136 columns lost to 12.
 //
 // Launch 2, `dw_tc_kernel`: dW = emb^T cot over all G * E slots, the slots
 // being the depth: a block takes one range of slots and every row of dW for
@@ -62,11 +89,35 @@
 namespace {
 
 // The per-warp tables of the edge kernel beside its stage (floats). The
-// stage holds in turn the emb rows (bf16, pitch TcShape::ld16), the f32
-// projection rows (pitch TcShape::ld32 floats), the bf16 cotangent rows in
-// place (pitch 2 * ld32 elements: 64 PAIRS + 16 bytes, an odd multiple of 16)
-// and the f32 rows of cot W^T.
+// stage holds in turn the emb rows (bf16, pitch TcShape::ld16; streaming:
+// the ring of emb chunks), the f32 projection rows (pitch TcShape::ld32
+// floats), the bf16 cotangent rows in place (pitch 2 * ld32 elements: 64
+// PAIRS + 16 bytes, an odd multiple of 16) and the f32 rows of cot W^T.
 constexpr int TC_SMALL_FLOATS = 3 * TC_ROWS * MAX_H + 2 * TC_ROWS;
+
+template <bool STREAM, int PAIRS>
+struct BwdShape {
+  typedef TcShape<PAIRS, TC_SMALL_FLOATS> type;
+};
+template <int PAIRS>
+struct BwdShape<true, PAIRS> {
+  typedef TcStreamShape<PAIRS, TC_SMALL_FLOATS> type;
+};
+
+// The streaming edge kernel's tile for a launch of HD columns: the
+// forward's (tc_stream_pairs), but never narrower than 128 columns, so that
+// a row of the stage holds product 2's f32 output of a chunk (TC_KC floats)
+// beside the row's cotangent (HD bf16).
+inline int tc_bwd_stream_pairs(int HD) {
+  const int pairs = tc_stream_pairs(HD);
+  return pairs < 8 ? 8 : pairs;
+}
+
+// Warps a block of the streaming edge kernel may run, by its tile's pairs:
+// 12 up to 144 columns (168 registers a lane, no spill), 8 past that.
+__host__ __device__ constexpr int tc_bwd_stream_warps(int pairs) {
+  return pairs <= 9 ? 12 : TC_MAX_WARPS;
+}
 
 struct TcArgs {
   // pass 1: rows_src = nm, rows_dst = gout; pass 2: rows_src = nq,
@@ -92,12 +143,28 @@ struct TcArgs {
   float* acc_dst;             // pass 2: dnk
   float* dscale;              // pass 1
   float* db_part;             // (gridDim.x, HD)
-  float* proj;                // (G, E, HD) f32 scratch, with slices of W
   int G, N, E, D, HD, H;
-  int DS;                     // rows of a slice of W, dividing D
-  int d0, first, last;        // this launch's slice: its first row, and
-                              // whether it is the first / last slice
+  int DS;                     // rows of a slice of W in dW, dividing D
   int part;                   // pass 1: PART_ADD | PART_OPEN (gat_common.cuh)
+  const bf16* w16;            // W rounded to bf16, (D, HD): W streamed
+};
+
+// A warp's small tables beside its stage: per (edge, head) the weight of
+// the cotangent (pass 1: alpha, pass 2: d_s) and pass 1's exp, per (head,
+// edge) pass 1's d_alpha, and the unit's nodes.
+struct TcBwdTables {
+  float (*wt)[MAX_H];
+  float (*e)[MAX_H];
+  float (*da)[TC_ROWS];
+  int* src;
+  int* dst;
+  __device__ __forceinline__ explicit TcBwdTables(float* small)
+      : wt(reinterpret_cast<float (*)[MAX_H]>(small)),
+        e(reinterpret_cast<float (*)[MAX_H]>(small + TC_ROWS * MAX_H)),
+        da(reinterpret_cast<float (*)[TC_ROWS]>(small +
+                                                2 * TC_ROWS * MAX_H)),
+        src(reinterpret_cast<int*>(small + 3 * TC_ROWS * MAX_H)),
+        dst(src + TC_ROWS) {}
 };
 
 __device__ __forceinline__ float tc_edge_exp(const TcArgs& a, long long g,
@@ -106,36 +173,200 @@ __device__ __forceinline__ float tc_edge_exp(const TcArgs& a, long long g,
                     0.0f));
 }
 
-template <int PASS, int PAIRS>
-__global__ void __launch_bounds__(32 * TC_MAX_WARPS, 1)
+// Step a of a unit: its nodes (fetched during the unit before) into the
+// tables, the next unit's fetched, and the per-(edge, head) weights, 0 for
+// dead slots, rounded where the TPU rounds (gat_bwd.cu's head note).
+template <int PASS>
+__device__ __forceinline__ void tc_bwd_unit_weights(
+    const TcArgs& a, const TcBwdTables& t, long long g, int e0, long long u,
+    long long stride, long long n_units, int units_per_graph, int lane,
+    int& next_src, int& next_dst) {
+  if (lane < TC_ROWS) {
+    t.src[lane] = next_src;
+    t.dst[lane] = next_dst;
+  }
+  tc_unit_nodes(a.mask, a.src, a.dst, a.E, u + stride, n_units,
+                units_per_graph, lane, next_src, next_dst);
+  __syncwarp();
+  const int H = a.H, E = a.E;
+  for (int idx = lane; idx < TC_ROWS * H; idx += 32) {
+    const int h = idx / TC_ROWS, el = idx % TC_ROWS, e = e0 + el;
+    const int s_node = t.src[el];
+    float ee = 0.0f, wt = 0.0f;
+    if (s_node >= 0) {
+      const long long node = (g * a.N + s_node) * H + h;
+      ee = tc_edge_exp(a, g, h, e);
+      if (PASS == 1)
+        wt = round_to<bf16>(ee * round_to<bf16>(a.scale[node]));
+      else
+        wt = round_to<bf16>((a.dalpha_in[(g * H + h) * E + e] *
+                                 round_to<bf16>(a.scale[node]) +
+                             round_to<bf16>(a.d_denom[node])) * ee);
+    }
+    t.wt[el][h] = wt;
+    if (PASS == 1) t.e[el][h] = ee;
+  }
+}
+
+// Step d of a unit, the row-wise epilogue on the f32 projection rows
+// (pitch LD32 floats), TC_GROUP rows at a time, the next group's node rows
+// in flight: the cotangent with the C1 rounding points, the node scatters,
+// the bias gradient kept in `dbsum`, pass 1's per-head sums, d_alpha and
+// dscale, and the cotangent's one trip to device memory. A group's bf16
+// cotangent rows go over its f32 rows (pitch 2 LD32 elements) once every
+// lane has read its floats of them (zeros in the depth padding and in dead
+// rows), for product 2.
+template <int PASS, int LD32>
+__device__ __forceinline__ void tc_bwd_epilogue(
+    const TcArgs& a, const TcBwdTables& t, float* s_rows, long long g, int e0,
+    int lane, const int (&head)[8], const float (&bias)[8],
+    float (&dbsum)[8]) {
+  const int E = a.E, N = a.N, HD = a.HD, H = a.H;
+  const int c0 = 8 * lane, HDp = round_up16(HD);
+  const bool active = c0 < HD;
+  bf16* s_cot = reinterpret_cast<bf16*>(s_rows);
+  uint4 cur_s[TC_GROUP], cur_d[TC_GROUP], next_s[TC_GROUP], next_d[TC_GROUP];
+  auto gather = [&](int r0, uint4 (&to_s)[TC_GROUP],
+                    uint4 (&to_d)[TC_GROUP]) {
+#pragma unroll
+    for (int i = 0; i < TC_GROUP; ++i) {
+      if (active && t.src[r0 + i] >= 0) {
+        to_s[i] = *reinterpret_cast<const uint4*>(
+            a.rows_src + (g * N + t.src[r0 + i]) * HD + c0);
+        to_d[i] = *reinterpret_cast<const uint4*>(
+            a.rows_dst + (g * N + t.dst[r0 + i]) * HD + c0);
+      } else {
+        to_s[i] = to_d[i] = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  };
+  gather(0, next_s, next_d);
+#pragma unroll 1
+  for (int r0 = 0; r0 < TC_ROWS; r0 += TC_GROUP) {
+#pragma unroll
+    for (int i = 0; i < TC_GROUP; ++i) {
+      cur_s[i] = next_s[i];
+      cur_d[i] = next_d[i];
+    }
+    if (r0 + TC_GROUP < TC_ROWS) gather(r0 + TC_GROUP, next_s, next_d);
+    uint4 packed[TC_GROUP];
+    float p[TC_GROUP][8];    // pass 1: msg * g[dst] (unused in pass 2)
+#pragma unroll
+    for (int i = 0; i < TC_GROUP; ++i) {
+      const int r = r0 + i;
+      const int s_node = t.src[r], d_node = t.dst[r];
+      float cot[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) cot[j] = 0.0f;
+      if (PASS == 1) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) p[i][j] = 0.0f;
+      }
+      if (s_node >= 0 && active) {
+        const long long s_row = (g * N + s_node) * HD + c0;
+        const long long d_row = (g * N + d_node) * HD + c0;
+        float vs[8], vd[8], proj[8];
+        unpack_bf16x8(cur_s[i], vs);
+        unpack_bf16x8(cur_d[i], vd);
+        const float4 p0 =
+            *reinterpret_cast<const float4*>(s_rows + r * LD32 + c0);
+        const float4 p1 =
+            *reinterpret_cast<const float4*>(s_rows + r * LD32 + c0 + 4);
+        proj[0] = p0.x; proj[1] = p0.y; proj[2] = p0.z; proj[3] = p0.w;
+        proj[4] = p1.x; proj[5] = p1.y; proj[6] = p1.z; proj[7] = p1.w;
+        if (PASS == 1) {
+          // vs = nm[src], vd = g[dst]
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            p[i][j] = (vs[j] + proj[j] + bias[j]) * vd[j];
+            const float d = t.wt[r][head[j]] * vd[j];
+            dbsum[j] += d;
+            cot[j] = round_to<bf16>(d);
+          }
+          atomicAdd(reinterpret_cast<float4*>(a.acc_src + s_row),
+                    make_float4(cot[0], cot[1], cot[2], cot[3]));
+          atomicAdd(reinterpret_cast<float4*>(a.acc_src + s_row + 4),
+                    make_float4(cot[4], cot[5], cot[6], cot[7]));
+        } else {
+          // vs = nq[src], vd = nk[dst]
+          float dq[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float ds = t.wt[r][head[j]];
+            const float d = ds * vs[j];
+            dbsum[j] += d;
+            cot[j] = round_to<bf16>(d);
+            dq[j] = round_to<bf16>(ds * (vd[j] + proj[j] + bias[j]));
+          }
+          atomicAdd(reinterpret_cast<float4*>(a.acc_src + s_row),
+                    make_float4(dq[0], dq[1], dq[2], dq[3]));
+          atomicAdd(reinterpret_cast<float4*>(a.acc_src + s_row + 4),
+                    make_float4(dq[4], dq[5], dq[6], dq[7]));
+          atomicAdd(reinterpret_cast<float4*>(a.acc_dst + d_row),
+                    make_float4(cot[0], cot[1], cot[2], cot[3]));
+          atomicAdd(reinterpret_cast<float4*>(a.acc_dst + d_row + 4),
+                    make_float4(cot[4], cot[5], cot[6], cot[7]));
+        }
+      }
+      packed[i] = pack_bf16x8(cot);
+      // the cotangent's one trip to device memory, for the dW launch
+      if (active && e0 + r < E)
+        *reinterpret_cast<uint4*>(a.cot + (g * E + e0 + r) * HD + c0) =
+            packed[i];
+    }
+    if (PASS == 1) {
+      if (H <= 4)
+        tc_group_head_sums<4>(p, head, H, r0, lane, t.da);
+      else
+        tc_group_head_sums<8>(p, head, H, r0, lane, t.da);
+    }
+    __syncwarp();
+    if (c0 < HDp) {
+#pragma unroll
+      for (int i = 0; i < TC_GROUP; ++i)
+        *reinterpret_cast<uint4*>(s_cot + (r0 + i) * 2 * LD32 + c0) =
+            packed[i];
+    }
+  }
+  __syncwarp();
+  if (PASS == 1) {
+    for (int idx = lane; idx < TC_ROWS * H; idx += 32) {
+      const int h = idx / TC_ROWS, el = idx % TC_ROWS, e = e0 + el;
+      if (e >= E) continue;
+      float v = t.da[h][el];
+      if (a.part & PART_ADD) v += a.dalpha_out[(g * H + h) * E + e];
+      a.dalpha_out[(g * H + h) * E + e] = v;
+      if (t.src[el] >= 0 && !(a.part & PART_OPEN))
+        atomicAdd(&a.dscale[(g * N + t.src[el]) * H + h],
+                  round_to<bf16>(v * t.e[el][h]));
+    }
+  }
+}
+
+template <int PASS, int PAIRS, bool STREAM>
+__global__ void __launch_bounds__(
+    32 * (STREAM ? tc_bwd_stream_warps(PAIRS) : TC_MAX_WARPS), 1)
 edge_pass_tc_kernel(const TcArgs a) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  typedef TcShape<PAIRS, TC_SMALL_FLOATS> S;
+  typedef typename BwdShape<STREAM, PAIRS>::type S;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
-  const int E = a.E, N = a.N, D = a.D, HD = a.HD, H = a.H, DS = a.DS;
-  const int d0 = a.d0;
-  const bool last = a.last;
-  bf16* sW = reinterpret_cast<bf16*>(tc_smem);
+  const int E = a.E, D = a.D, HD = a.HD, H = a.H;
+  bf16* sW = reinterpret_cast<bf16*>(tc_smem);     // W, or the ring of chunks
   unsigned char* mine = tc_smem + S::w_bytes + warp * S::warp_bytes;
-  bf16* s_emb = reinterpret_cast<bf16*>(mine);
+  bf16* s_emb = reinterpret_cast<bf16*>(mine);     // emb rows, or their ring
   float* s_rows = reinterpret_cast<float*>(mine);
   bf16* s_cot = reinterpret_cast<bf16*>(mine);
   constexpr int ldc = 2 * S::ld32;
-  const int Dp = round_up16(DS), HDp = round_up16(HD);
-  float* s_small = reinterpret_cast<float*>(mine + S::stage_bytes);
-  // pass 1: alpha, pass 2: d_s, per (edge, head)
-  float (*s_wt)[MAX_H] = reinterpret_cast<float (*)[MAX_H]>(s_small);
-  float (*s_e)[MAX_H] =
-      reinterpret_cast<float (*)[MAX_H]>(s_small + TC_ROWS * MAX_H);
-  float (*s_da)[TC_ROWS] =
-      reinterpret_cast<float (*)[TC_ROWS]>(s_small + 2 * TC_ROWS * MAX_H);
-  int* s_src = reinterpret_cast<int*>(s_small + 3 * TC_ROWS * MAX_H);
-  int* s_dst = s_src + TC_ROWS;
+  const int Dp = round_up16(D), HDp = round_up16(HD);
+  const TcBwdTables t(reinterpret_cast<float*>(mine + S::stage_bytes));
 
-  // the slice's rows of W, rounded to bf16; zeros wherever either product
-  // reaches past DS or HD
-  tc_load_w<S>(sW, a.w + (long long)d0 * HD, DS, HD);
+  // W rounded to bf16, zeros wherever either product reaches past D or HD;
+  // streaming: zeros over the ring, whose columns past HD are never loaded
+  if constexpr (STREAM)
+    tc_zero_ring<S>(sW);
+  else
+    tc_load_w<S>(sW, a.w, D, HD);
   __syncthreads();
 
   const int c0 = 8 * lane, dph = HD / H;
@@ -153,260 +384,217 @@ edge_pass_tc_kernel(const TcArgs a) {
   const int units_per_graph = (E + TC_ROWS - 1) / TC_ROWS;
   const long long n_units = (long long)a.G * units_per_graph;
   const long long stride = (long long)gridDim.x * nwarps;
-  long long u = (long long)blockIdx.x * nwarps + warp;
+  const long long wid = (long long)blockIdx.x * nwarps + warp;
   int next_src, next_dst;         // the nodes of the unit after this one
-  tc_unit_nodes(a.mask, a.src, a.dst, E, u, n_units, units_per_graph, lane,
+  tc_unit_nodes(a.mask, a.src, a.dst, E, wid, n_units, units_per_graph, lane,
                 next_src, next_dst);
-  for (; u < n_units; u += stride) {
-    const long long g = u / units_per_graph;
-    const int e0 = (int)(u % units_per_graph) * TC_ROWS;
-
-    // a. the unit's emb rows, a lane on one 16-byte chunk of every row;
-    // zeros past E and in the depth padding
-    if (c0 < Dp) {
-#pragma unroll 4
-      for (int r = 0; r < TC_ROWS; ++r) {
-        bf16* to = s_emb + r * S::ld16 + c0;
-        if (e0 + r < E && c0 < DS)
-          cp_async16(to, a.emb + ((g * E + e0 + r) * D + d0 + c0));
-        else
-          *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-    cp_async_commit();
-    // the unit's nodes, fetched during the unit before, and the next one's
-    if (lane < TC_ROWS) {
-      s_src[lane] = next_src;
-      s_dst[lane] = next_dst;
-    }
-    tc_unit_nodes(a.mask, a.src, a.dst, E, u + stride, n_units,
-                  units_per_graph, lane, next_src, next_dst);
-    __syncwarp();
-    // per-(edge, head) weights, 0 for dead slots
-    for (int idx = lane; idx < TC_ROWS * H; idx += 32) {
-      const int h = idx / TC_ROWS, el = idx % TC_ROWS, e = e0 + el;
-      const int s_node = s_src[el];
-      float ee = 0.0f, wt = 0.0f;
-      if (s_node >= 0) {
-        const long long node = (g * N + s_node) * H + h;
-        ee = tc_edge_exp(a, g, h, e);
-        // rounded where the TPU rounds (gat_bwd.cu's head note)
-        if (PASS == 1)
-          wt = round_to<bf16>(ee * round_to<bf16>(a.scale[node]));
-        else
-          wt = round_to<bf16>((a.dalpha_in[(g * H + h) * E + e] *
-                                   round_to<bf16>(a.scale[node]) +
-                               round_to<bf16>(a.d_denom[node])) * ee);
-      }
-      s_wt[el][h] = wt;
-      if (PASS == 1) s_e[el][h] = ee;
-    }
-    cp_async_wait<0>();
-    __syncwarp();
-
-    // b. product 1: the projection emb W over the slice
-    zero_acc(acc);
-    warp_rows_product<true>(s_emb, S::ld16, sW, S::ld16, Dp / 16, acc);
-    __syncwarp();
-    // c. accumulators -> f32 rows over the consumed emb rows; with slices
-    // of W, plus the earlier slices' sum, and on to the next slice
-    tc_stage_acc(acc, s_rows, S::ld32, lane);
-    __syncwarp();
-    if (!(a.first && last) && active) {
-#pragma unroll 4
-      for (int r = 0; r < TC_ROWS; ++r) {
-        if (e0 + r >= E) break;
-        float4* row = reinterpret_cast<float4*>(s_rows + r * S::ld32 + c0);
-        float4* keep = reinterpret_cast<float4*>(a.proj +
-                                                 (g * E + e0 + r) * HD + c0);
-        float4 v0 = row[0], v1 = row[1];
-        if (!a.first) {
-          const float4 k0 = keep[0], k1 = keep[1];
-          v0.x += k0.x; v0.y += k0.y; v0.z += k0.z; v0.w += k0.w;
-          v1.x += k1.x; v1.y += k1.y; v1.z += k1.z; v1.w += k1.w;
-          row[0] = v0;
-          row[1] = v1;
-        }
-        if (!last) {
-          keep[0] = v0;
-          keep[1] = v1;
-        }
-      }
-    }
-    __syncwarp();
-
-    // d. the row-wise epilogue, TC_GROUP rows at a time: the next group's
-    // node rows are in flight while a group is worked on, and a group's
-    // bf16 cotangent rows go over its f32 rows once every lane has read
-    // its floats of them (zeros in the depth padding and in dead rows).
-    // Before the last slice of W only the cotangent rows are formed.
-    uint4 cur_s[TC_GROUP], cur_d[TC_GROUP], next_s[TC_GROUP],
-        next_d[TC_GROUP];
-    auto gather = [&](int r0, uint4 (&to_s)[TC_GROUP],
-                      uint4 (&to_d)[TC_GROUP]) {
-#pragma unroll
-      for (int i = 0; i < TC_GROUP; ++i) {
-        if (active && s_src[r0 + i] >= 0) {
-          to_s[i] = *reinterpret_cast<const uint4*>(
-              a.rows_src + (g * N + s_src[r0 + i]) * HD + c0);
-          to_d[i] = *reinterpret_cast<const uint4*>(
-              a.rows_dst + (g * N + s_dst[r0 + i]) * HD + c0);
-        } else {
-          to_s[i] = to_d[i] = make_uint4(0u, 0u, 0u, 0u);
-        }
-      }
-    };
-    gather(0, next_s, next_d);
+  if constexpr (STREAM) {
+    // W's rows streamed (the head note, "Past D = 256"): unit u = wid + r *
+    // (all warps) in round r; every warp runs every round, with or without
+    // a unit
+    static_assert(TC_STAGES == 2, "the reverse walk of product 2 reuses "
+                  "the two chunks in the ring");
+    static_assert(S::WIDTH * 2 + TC_KC * 4 <= S::ld32 * 4,
+                  "product 2's f32 output rows fit beside the cotangent tile");
+    const long long rounds = (n_units + stride - 1) / stride;
+    const int n_chunks = (D + TC_KC - 1) / TC_KC;
 #pragma unroll 1
-    for (int r0 = 0; r0 < TC_ROWS; r0 += TC_GROUP) {
-#pragma unroll
-      for (int i = 0; i < TC_GROUP; ++i) {
-        cur_s[i] = next_s[i];
-        cur_d[i] = next_d[i];
-      }
-      if (r0 + TC_GROUP < TC_ROWS) gather(r0 + TC_GROUP, next_s, next_d);
-      uint4 packed[TC_GROUP];
-      float p[TC_GROUP][8];    // pass 1: msg * g[dst] (unused in pass 2)
-#pragma unroll
-      for (int i = 0; i < TC_GROUP; ++i) {
-        const int r = r0 + i;
-        const int s_node = s_src[r], d_node = s_dst[r];
-        float cot[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) cot[j] = 0.0f;
-        if (PASS == 1) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) p[i][j] = 0.0f;
+    for (long long rd = 0; rd < rounds; ++rd) {
+      const long long u = wid + rd * stride;
+      const bool has_unit = u < n_units;          // uniform over the warp
+      const long long g = u / units_per_graph;
+      const int e0 = (int)(u % units_per_graph) * TC_ROWS;
+
+      // a. (its emb rows arrive chunk by chunk in step b)
+      if (has_unit)
+        tc_bwd_unit_weights<PASS>(a, t, g, e0, u, stride, n_units,
+                                  units_per_graph, lane, next_src, next_dst);
+
+      // b. product 1, emb W over all of D: chunk k of W's rows and of the
+      // unit's emb columns in stage k % 2. After the first round chunks 0
+      // and 1 are still in the ring, where product 2 ended.
+      zero_acc(acc);
+      const bf16* rows = a.emb + (g * E + e0) * D;
+      auto load_chunk = [&](int k) {
+        const int st = k % TC_STAGES;
+        if (rd == 0 || k >= TC_STAGES)
+          tc_load_w_chunk<S>(sW + st * S::w_chunk, a.w16, k * TC_KC, D, HD);
+        if (has_unit)
+          tc_load_emb_chunk<S>(s_emb + st * S::emb_chunk, rows, k * TC_KC,
+                               D, t.src, lane);
+      };
+      load_chunk(0);
+      cp_async_commit();
+#pragma unroll 1
+      for (int k = 0; k < n_chunks; ++k) {
+        // chunk k landed for every thread, and every warp is done with
+        // chunk k - 1, whose stage the load below refills
+        cp_async_wait<0>();
+        __syncthreads();
+        if (k + 1 < n_chunks) load_chunk(k + 1);
+        cp_async_commit();
+        if (has_unit) {
+          const int st = k % TC_STAGES;
+          const int ksteps = min(TC_KC, Dp - k * TC_KC) / 16;
+          warp_rows_product<true>(s_emb + st * S::emb_chunk, S::ldk,
+                                  sW + st * S::w_chunk, S::ld16, ksteps, acc);
         }
-        if (s_node >= 0) {                     // uniform over the warp
-          if (active) {
-            const long long s_row = (g * N + s_node) * HD + c0;
-            const long long d_row = (g * N + d_node) * HD + c0;
-            float vs[8], vd[8], proj[8];
-            unpack_bf16x8(cur_s[i], vs);
-            unpack_bf16x8(cur_d[i], vd);
+      }
+
+      if (has_unit) {
+        // c. accumulators -> f32 rows over the emb ring; d. the epilogue
+        __syncwarp();
+        tc_stage_acc(acc, s_rows, S::ld32, lane);
+        __syncwarp();
+        tc_bwd_epilogue<PASS, S::ld32>(a, t, s_rows, g, e0, lane, head, bias,
+                                       dbsum);
+      }
+
+      // e. product 2, cot W^T, W's chunks in reverse: chunk c's rows are
+      // demb's columns c TC_KC ..; the first two are the ones product 1
+      // left in the ring, and the walk ends on chunks 1 and 0, where the
+      // next round's product 1 starts. A chunk's f32 output goes to the
+      // stage beside the cotangent tile (columns WIDTH .. of each row),
+      // then demb = output (+ add) 16 bytes a lane; the chunk's `add`
+      // values (demb itself in pass 2: other columns than the stores before
+      // them) are loaded during the chunk before
+      float* s_out = s_rows + S::WIDTH / 2;
+      uint4 kept[TC_KC / 16], next_kept[TC_KC / 16];
+      auto load_kept = [&](int c) {
+#pragma unroll
+        for (int i = 0; i < TC_KC / 16; ++i) {
+          const int p = lane + 32 * i, r = p / 8;
+          const int col = c * TC_KC + p % 8 * 8;
+          next_kept[i] = make_uint4(0u, 0u, 0u, 0u);
+          if (a.add != nullptr && col < D && e0 + r < E)
+            next_kept[i] = *reinterpret_cast<const uint4*>(
+                a.add + (g * E + e0 + r) * D + col);
+        }
+      };
+      if (has_unit) load_kept(n_chunks - 1);
+#pragma unroll 1
+      for (int q = 0; q < n_chunks; ++q) {
+        const int c = n_chunks - 1 - q;
+        if (q > 0) {
+          // chunk c landed for every thread, and every warp is done with
+          // chunk c + 1, whose stage chunk c - 1 refills
+          cp_async_wait<0>();
+          __syncthreads();
+          if (c > 0)
+            tc_load_w_chunk<S>(sW + ((c - 1) % TC_STAGES) * S::w_chunk,
+                               a.w16, (c - 1) * TC_KC, D, HD);
+          cp_async_commit();
+        }
+        if (!has_unit) continue;                 // uniform over the warp
+#pragma unroll
+        for (int i = 0; i < TC_KC / 16; ++i) kept[i] = next_kept[i];
+        if (c > 0) load_kept(c - 1);
+        float out[TC_KC / 8][4];
+        zero_acc(out);
+        warp_rows_product<false>(s_cot, ldc,
+                                 sW + (c % TC_STAGES) * S::w_chunk, S::ld16,
+                                 HDp / 16, out);
+        tc_stage_acc(out, s_out, S::ld32, lane);
+        __syncwarp();
+        // 16 rows of TC_KC columns: lane l on row l / 8 + 4 i, 8 columns
+#pragma unroll
+        for (int i = 0; i < TC_KC / 16; ++i) {
+          const int p = lane + 32 * i, r = p / 8, cc = p % 8 * 8;
+          if (c * TC_KC + cc >= D || e0 + r >= E) continue;
+          const float4 p0 =
+              *reinterpret_cast<const float4*>(s_out + r * S::ld32 + cc);
+          const float4 p1 =
+              *reinterpret_cast<const float4*>(s_out + r * S::ld32 + cc + 4);
+          float v[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+          float k[8];
+          unpack_bf16x8(kept[i], k);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[j] += k[j];
+          *reinterpret_cast<uint4*>(a.demb + (g * E + e0 + r) * D +
+                                    c * TC_KC + cc) = pack_bf16x8(v);
+        }
+        __syncwarp();   // every lane has read the chunk's staged rows
+      }
+      __syncwarp();     // the stage is free for the next unit's emb chunks
+    }
+  } else {
+    // W resident: each warp on its own units, warp barriers only
+    for (long long u = wid; u < n_units; u += stride) {
+      const long long g = u / units_per_graph;
+      const int e0 = (int)(u % units_per_graph) * TC_ROWS;
+
+      // a. the unit's emb rows, a lane on one 16-byte chunk of every row;
+      // zeros past E and in the depth padding; meanwhile its weights
+      if (c0 < Dp) {
+#pragma unroll 4
+        for (int r = 0; r < TC_ROWS; ++r) {
+          bf16* to = s_emb + r * S::ld16 + c0;
+          if (e0 + r < E && c0 < D)
+            cp_async16(to, a.emb + ((g * E + e0 + r) * D + c0));
+          else
+            *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+      cp_async_commit();
+      tc_bwd_unit_weights<PASS>(a, t, g, e0, u, stride, n_units,
+                                units_per_graph, lane, next_src, next_dst);
+      cp_async_wait<0>();
+      __syncwarp();
+
+      // b. product 1: the projection emb W; c. accumulators -> f32 rows
+      // over the consumed emb rows; d. the epilogue
+      zero_acc(acc);
+      warp_rows_product<true>(s_emb, S::ld16, sW, S::ld16, Dp / 16, acc);
+      __syncwarp();
+      tc_stage_acc(acc, s_rows, S::ld32, lane);
+      __syncwarp();
+      tc_bwd_epilogue<PASS, S::ld32>(a, t, s_rows, g, e0, lane, head, bias,
+                                     dbsum);
+
+      // e. product 2: cot W^T -> f32 rows over the consumed cotangent rows,
+      // then demb = product (+ add) row by row, 16 bytes a lane. All of a
+      // lane's loads of `add` come before its stores: `add` may be demb.
+      zero_acc(acc);
+      warp_rows_product<false>(s_cot, ldc, sW, S::ld16, HDp / 16, acc);
+      __syncwarp();
+      tc_stage_acc(acc, s_rows, S::ld32, lane);
+      __syncwarp();
+      if (c0 < D) {
+        bf16* out = a.demb + (g * E + e0) * D + c0;
+        const bf16* add =
+            a.add == nullptr ? nullptr : a.add + (g * E + e0) * D + c0;
+        uint4 carried[TC_ROWS];
+        if (add != nullptr) {
+#pragma unroll
+          for (int r = 0; r < TC_ROWS; ++r)
+            if (e0 + r < E)
+              carried[r] =
+                  *reinterpret_cast<const uint4*>(add + (long long)r * D);
+        }
+#pragma unroll
+        for (int r = 0; r < TC_ROWS; ++r) {
+          if (e0 + r < E) {
             const float4 p0 =
                 *reinterpret_cast<const float4*>(s_rows + r * S::ld32 + c0);
-            const float4 p1 =
-                *reinterpret_cast<const float4*>(s_rows + r * S::ld32 + c0 + 4);
-            proj[0] = p0.x; proj[1] = p0.y; proj[2] = p0.z; proj[3] = p0.w;
-            proj[4] = p1.x; proj[5] = p1.y; proj[6] = p1.z; proj[7] = p1.w;
-            if (PASS == 1) {
-              // vs = nm[src], vd = g[dst]
+            const float4 p1 = *reinterpret_cast<const float4*>(
+                s_rows + r * S::ld32 + c0 + 4);
+            float v[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+            if (add != nullptr) {
+              float c[8];
+              unpack_bf16x8(carried[r], c);
 #pragma unroll
-              for (int j = 0; j < 8; ++j) {
-                p[i][j] = (vs[j] + proj[j] + bias[j]) * vd[j];
-                const float d = s_wt[r][head[j]] * vd[j];
-                dbsum[j] += d;
-                cot[j] = round_to<bf16>(d);
-              }
-              if (last) {
-                atomicAdd(reinterpret_cast<float4*>(a.acc_src + s_row),
-                          make_float4(cot[0], cot[1], cot[2], cot[3]));
-                atomicAdd(reinterpret_cast<float4*>(a.acc_src + s_row + 4),
-                          make_float4(cot[4], cot[5], cot[6], cot[7]));
-              }
-            } else {
-              // vs = nq[src], vd = nk[dst]
-              float dq[8];
-#pragma unroll
-              for (int j = 0; j < 8; ++j) {
-                const float ds = s_wt[r][head[j]];
-                const float d = ds * vs[j];
-                dbsum[j] += d;
-                cot[j] = round_to<bf16>(d);
-                dq[j] = round_to<bf16>(ds * (vd[j] + proj[j] + bias[j]));
-              }
-              if (last) {
-                atomicAdd(reinterpret_cast<float4*>(a.acc_src + s_row),
-                          make_float4(dq[0], dq[1], dq[2], dq[3]));
-                atomicAdd(reinterpret_cast<float4*>(a.acc_src + s_row + 4),
-                          make_float4(dq[4], dq[5], dq[6], dq[7]));
-                atomicAdd(reinterpret_cast<float4*>(a.acc_dst + d_row),
-                          make_float4(cot[0], cot[1], cot[2], cot[3]));
-                atomicAdd(reinterpret_cast<float4*>(a.acc_dst + d_row + 4),
-                          make_float4(cot[4], cot[5], cot[6], cot[7]));
-              }
+              for (int j = 0; j < 8; ++j) v[j] += c[j];
             }
+            *reinterpret_cast<uint4*>(out + (long long)r * D) = pack_bf16x8(v);
           }
         }
-        packed[i] = pack_bf16x8(cot);
-        // the cotangent's one trip to device memory, for the dW launch
-        if (last && active && e0 + r < E)
-          *reinterpret_cast<uint4*>(a.cot + (g * E + e0 + r) * HD + c0) =
-              packed[i];
       }
-      if (PASS == 1 && last) {
-        if (H <= 4)
-          tc_group_head_sums<4>(p, head, H, r0, lane, s_da);
-        else
-          tc_group_head_sums<8>(p, head, H, r0, lane, s_da);
-      }
-      __syncwarp();
-      if (c0 < HDp) {
-#pragma unroll
-        for (int i = 0; i < TC_GROUP; ++i)
-          *reinterpret_cast<uint4*>(s_cot + (r0 + i) * ldc + c0) = packed[i];
-      }
+      __syncwarp();     // the stage is free for the next unit's emb rows
     }
-    __syncwarp();
-    if (PASS == 1 && last) {
-      for (int idx = lane; idx < TC_ROWS * H; idx += 32) {
-        const int h = idx / TC_ROWS, el = idx % TC_ROWS, e = e0 + el;
-        if (e >= E) continue;
-        float v = s_da[h][el];
-        if (a.part & PART_ADD) v += a.dalpha_out[(g * H + h) * E + e];
-        a.dalpha_out[(g * H + h) * E + e] = v;
-        if (s_src[el] >= 0 && !(a.part & PART_OPEN))
-          atomicAdd(&a.dscale[(g * N + s_src[el]) * H + h],
-                    round_to<bf16>(v * s_e[el][h]));
-      }
-    }
-
-    // e. product 2: cot W^T -> f32 rows over the consumed cotangent rows,
-    // then demb = product (+ add) row by row, 16 bytes a lane, in the
-    // slice's columns. All of a lane's loads of `add` come before its
-    // stores: `add` may be demb.
-    zero_acc(acc);
-    warp_rows_product<false>(s_cot, ldc, sW, S::ld16, HDp / 16, acc);
-    __syncwarp();
-    tc_stage_acc(acc, s_rows, S::ld32, lane);
-    __syncwarp();
-    if (c0 < DS) {
-      bf16* out = a.demb + (g * E + e0) * D + d0 + c0;
-      const bf16* add = a.add == nullptr ? nullptr
-                                         : a.add + (g * E + e0) * D + d0 + c0;
-      uint4 carried[TC_ROWS];
-      if (add != nullptr) {
-#pragma unroll
-        for (int r = 0; r < TC_ROWS; ++r)
-          if (e0 + r < E)
-            carried[r] = *reinterpret_cast<const uint4*>(add + (long long)r * D);
-      }
-#pragma unroll
-      for (int r = 0; r < TC_ROWS; ++r) {
-        if (e0 + r < E) {
-          const float4 p0 =
-              *reinterpret_cast<const float4*>(s_rows + r * S::ld32 + c0);
-          const float4 p1 =
-              *reinterpret_cast<const float4*>(s_rows + r * S::ld32 + c0 + 4);
-          float v[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-          if (add != nullptr) {
-            float c[8];
-            unpack_bf16x8(carried[r], c);
-#pragma unroll
-            for (int j = 0; j < 8; ++j) v[j] += c[j];
-          }
-          *reinterpret_cast<uint4*>(out + (long long)r * D) = pack_bf16x8(v);
-        }
-      }
-    }
-    __syncwarp();     // the stage is free for the next unit's emb rows
   }
 
-  // the block's partial bias gradient, through the warps' stages (the last
-  // slice's launch; the flag is the same for the whole grid)
-  if (!last) return;
+  // the block's partial bias gradient, through the warps' stages (no copy
+  // is in flight: the last wait came before the last product)
   if (active) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) s_rows[c0 + j] = dbsum[j];
@@ -542,16 +730,17 @@ dw_tc_kernel(const bf16* __restrict__ emb, const bf16* __restrict__ cot,
   }
 }
 
-template <int PASS, int PAIRS>
+template <int PASS, int PAIRS, bool STREAM>
 cudaError_t launch_edge_tc(const TcArgs& a, int warps, int n_blocks,
                            cudaStream_t s) {
-  typedef TcShape<PAIRS, TC_SMALL_FLOATS> S;
+  typedef typename BwdShape<STREAM, PAIRS>::type S;
   const size_t smem = (size_t)S::w_bytes + (size_t)warps * S::warp_bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      edge_pass_tc_kernel<PASS, PAIRS>,
+      edge_pass_tc_kernel<PASS, PAIRS, STREAM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  edge_pass_tc_kernel<PASS, PAIRS><<<n_blocks, 32 * warps, smem, s>>>(a);
+  edge_pass_tc_kernel<PASS, PAIRS, STREAM>
+      <<<n_blocks, 32 * warps, smem, s>>>(a);
   return cudaSuccess;
 }
 
@@ -580,26 +769,51 @@ cudaError_t launch_dw_rows(const TcArgs& a, float* dw_part, int n_split,
                     : launch_dw_tc<NP, 8>(a, dw_part, n_split, ntb, s);
 }
 
-// The launches of a pass on the tensor-core route: the edge kernel once a
-// slice of W's rows (D / DS of them, in order), dW and the two reductions.
+// The launches of a pass on the tensor-core route: the edge kernel once,
+// W's rows streamed when the caller hands W in bf16 (a.w16; the wrapper
+// does so past D = 256), else resident, which takes D <= 256 (one slice:
+// DS = D); then dW over slices of DS of W's rows and the two reductions.
 // `warps` and `n_blocks` are the caller's (the partial arrays are sized
 // from them).
 template <int PASS>
 int launch_pass_tc(TcArgs a, float* dw_part, float* dw, float* db,
                    int n_split, int warps, int n_blocks, cudaStream_t s) {
-  if (warps < 1 || warps > TC_MAX_WARPS || n_blocks < 1)
+  const bool stream = a.w16 != nullptr;
+  const int max_warps =
+      stream ? tc_bwd_stream_warps(tc_bwd_stream_pairs(a.HD)) : TC_MAX_WARPS;
+  if (warps < 1 || warps > max_warps || n_blocks < 1 ||
+      (stream ? !aligned16(a.w16) : a.DS != a.D))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
-  const int n_slices = a.D / a.DS;
-  for (int z = 0; z < n_slices && err == cudaSuccess; ++z) {
-    a.d0 = z * a.DS;
-    a.first = z == 0;
-    a.last = z == n_slices - 1;
-    switch (tc_pairs(a.DS, a.HD)) {
-      case 4: err = launch_edge_tc<PASS, 4>(a, warps, n_blocks, s); break;
-      case 8: err = launch_edge_tc<PASS, 8>(a, warps, n_blocks, s); break;
-      case 13: err = launch_edge_tc<PASS, 13>(a, warps, n_blocks, s); break;
-      default: err = launch_edge_tc<PASS, 16>(a, warps, n_blocks, s); break;
+  if (stream) {
+    switch (tc_bwd_stream_pairs(a.HD)) {
+      case 8:
+        err = launch_edge_tc<PASS, 8, true>(a, warps, n_blocks, s);
+        break;
+      case 9:
+        err = launch_edge_tc<PASS, 9, true>(a, warps, n_blocks, s);
+        break;
+      case 13:
+        err = launch_edge_tc<PASS, 13, true>(a, warps, n_blocks, s);
+        break;
+      default:
+        err = launch_edge_tc<PASS, 16, true>(a, warps, n_blocks, s);
+        break;
+    }
+  } else {
+    switch (tc_pairs(a.D, a.HD)) {
+      case 4:
+        err = launch_edge_tc<PASS, 4, false>(a, warps, n_blocks, s);
+        break;
+      case 8:
+        err = launch_edge_tc<PASS, 8, false>(a, warps, n_blocks, s);
+        break;
+      case 13:
+        err = launch_edge_tc<PASS, 13, false>(a, warps, n_blocks, s);
+        break;
+      default:
+        err = launch_edge_tc<PASS, 16, false>(a, warps, n_blocks, s);
+        break;
     }
   }
   if (err != cudaSuccess) return (int)err;

@@ -5,9 +5,10 @@
 // unit's emb rows -> its stage (cp.async), emb W on tensor cores
 // (mma_tile.cuh), the f32 accumulators -> the stage as rows, and a row-wise
 // epilogue in which a lane owns 8 adjacent columns. W sits in shared memory,
-// rounded to bf16 and zero-padded: whole (`TcShape`, loaded once), or, in
-// the forward at D > 256, as a ring of chunks of its rows that the block's
-// warps stream through in lockstep (`TcStreamShape`).
+// rounded to bf16 and zero-padded: whole (`TcShape`, loaded once), or, at
+// D > 256, as a ring of chunks of its rows that the block's warps stream
+// through in lockstep (`TcStreamShape`; the backward streams it twice a
+// round, for emb W and for cot W^T).
 #pragma once
 #include "gat_common.cuh"
 #include "mma_tile.cuh"
@@ -44,7 +45,7 @@ struct TcShape {
   static constexpr int warp_bytes = stage_bytes + SMALL_FLOATS * 4;
 };
 
-// The forward's streaming variant (D > 256): W's rows, rounded to bf16 in
+// The streaming variant (D > 256): W's rows, rounded to bf16 in
 // device memory, pass through a ring of TC_STAGES chunks of TC_KC rows, and
 // each warp's emb rows through a ring of chunks of TC_KC columns. Its tile's
 // columns follow from HD alone (for a column slice of 136: 9 pairs, 144).

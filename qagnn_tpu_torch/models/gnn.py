@@ -17,7 +17,9 @@ compute the same function:
 
 The default backend follows the device: "cuda" for CUDA tensors, "scatter"
 otherwise. On CPU tensors the fused branch runs the kernels' plain versions.
-Parameters and BatchNorm statistics stay f32; `dtype` is the compute dtype.
+Parameters and BatchNorm's running statistics stay f32; `dtype` is the
+compute dtype. float64 runs the scatter branch in f64 end to end, BatchNorm's
+batch moments included: a reference for the f32 paths' gradients.
 
 With a `mesh` (qagnn_tpu_torch.parallel.mesh; qagnn_tpu/models/gnn.py
 :140-151, 292-296, 353-364, 501-521) the edge arrays are this rank's edge

@@ -35,6 +35,13 @@ class MomentPart(NamedTuple):
     n: torch.Tensor
 
 
+def _moment_dtype(array_parts) -> torch.dtype:
+    """The batch moments' dtype: float64 where any part's rows are float64,
+    else float32 (bfloat16 rows too)."""
+    return torch.float64 if any(xi.dtype == torch.float64
+                                for xi, _ in array_parts) else torch.float32
+
+
 class MaskedBatchNorm(nn.Module):
     def __init__(self, features: int, momentum: float = 0.1,
                  eps: float = 1e-5, num_updates: int = 1, mesh=None):
@@ -51,19 +58,19 @@ class MaskedBatchNorm(nn.Module):
 
     def _batch_stats(self, array_parts, moment_parts):
         from qagnn_tpu_torch.parallel.mesh import sum_over
-        f32 = torch.float32
+        mdt = _moment_dtype(array_parts)
         dev = self.mean.device
-        n = torch.zeros((), dtype=f32, device=dev)
-        s1 = torch.zeros(self.features, dtype=f32, device=dev)
+        n = torch.zeros((), dtype=mdt, device=dev)
+        s1 = torch.zeros(self.features, dtype=mdt, device=dev)
         for xi, wi in array_parts:
-            x32 = xi.float()
+            xm = xi.to(mdt)
             if wi is None:
-                n = n + x32.shape[0]
-                s1 = s1 + x32.sum(0)
+                n = n + xm.shape[0]
+                s1 = s1 + xm.sum(0)
             else:
-                w = wi.float()
+                w = wi.to(mdt)
                 n = n + w.sum()
-                s1 = s1 + (x32 * w[:, None]).sum(0)
+                s1 = s1 + (xm * w[:, None]).sum(0)
         if self.group is not None:
             ns1 = sum_over(torch.cat([n.reshape(1), s1]), self.group)
             n, s1 = ns1[0], ns1[1:]
@@ -72,14 +79,14 @@ class MaskedBatchNorm(nn.Module):
             s1 = s1 + mp.s1
         n = torch.clamp_min(n, 1.0)
         mean = s1 / n
-        s2 = torch.zeros(self.features, dtype=f32, device=dev)
+        s2 = torch.zeros(self.features, dtype=mdt, device=dev)
         for xi, wi in array_parts:
             # one-pass E[x^2] - mean^2 when pre-reduced moments take part,
             # else the two-pass centred form
-            d2 = torch.square(xi.float()) if moment_parts \
-                else torch.square(xi.float() - mean)
+            d2 = torch.square(xi.to(mdt)) if moment_parts \
+                else torch.square(xi.to(mdt) - mean)
             s2 = s2 + (d2.sum(0) if wi is None
-                       else (d2 * wi.float()[:, None]).sum(0))
+                       else (d2 * wi.to(mdt)[:, None]).sum(0))
         s2 = sum_over(s2, self.group)
         if moment_parts:
             for mp in moment_parts:
@@ -94,8 +101,13 @@ class MaskedBatchNorm(nn.Module):
         part is (x_i, weight_i) or a MomentPart (whose output is None).
         Weights only mask statistics; every row is normalized.
 
-        return_affine: also return the folded f32 affine
-        (a, b) = (scale * inv, bias - mean * scale * inv)."""
+        return_affine: also return the folded affine
+        (a, b) = (scale * inv, bias - mean * scale * inv), f32 (f64 beside
+        f64 rows in train mode).
+
+        float64 rows (a reference computed in f64) keep f64 throughout: the
+        batch moments, the normalisation and its affine; the running
+        statistics stay f32 buffers."""
         multi = isinstance(x, (tuple, list)) and not isinstance(x, MomentPart)
         parts = list(x) if multi else [(x, weight)]
         moment_parts = [p for p in parts if isinstance(p, MomentPart)]
@@ -113,7 +125,7 @@ class MaskedBatchNorm(nn.Module):
         inv = torch.rsqrt(var + self.eps)
 
         def norm(xi):
-            if xi.dtype == torch.float32:
+            if xi.dtype in (torch.float32, torch.float64):
                 return (xi - mean) * inv * self.scale + self.bias
             # low-precision rows: one per-feature scale/shift folded and
             # applied in the row dtype (qagnn_tpu/models/norm.py:164-166)

@@ -39,8 +39,10 @@ recomputes e = exp(min(s - gmax, 0)) from the saved scores and runs
 
 Both backward passes have two routes behind one entry point, chosen by the
 dtype alone: bfloat16 runs the three products of a pass on tensor cores
-(csrc/gat_bwd_tc.cuh: persistent blocks with W resident in shared memory),
-float32 stays on CUDA cores in full f32.
+(csrc/gat_bwd_tc.cuh: persistent blocks with W resident in shared memory at
+D <= 256; past that one launch streams W, rounded to bf16 here
+(`_streamed_w`), through shared memory in chunks of its rows, twice a
+round), float32 stays on CUDA cores in full f32.
 
 No gradient flows through gmax. The chained form also returns the edge
 embedding: threaded through the k layers, each layer's backward receives the
@@ -61,10 +63,10 @@ Unlike the TPU op the edge embedding is (G, E, D), not transposed, and no
 edge padding is needed: any E works. A launch takes D and HD that are
 multiples of 8, HD <= 256 and at most 8 heads (the backward also heads of at
 least 4 features); the plain versions take any width, and the launches'
-partial mode. The backward kernels take any such D: beyond 256 they run W's
-rows in slices (`d_slices`), each slice writing its own columns of
-d_edge_emb and its own rows of dW, the node-side outputs written by one
-slice alone. The op (`gat_projected`,
+partial mode. The backward kernels take any such D: beyond 256 the
+CUDA-core kernels' demb and dW launches and the tensor-core dW launch run
+W's rows in slices (`d_slices`), each slice writing its own columns of
+d_edge_emb or its own rows of dW. The op (`gat_projected`,
 `gat_projected_chained`) pads other widths with zeros to ones the kernels
 take (`kernel_widths`: D to a multiple of 8, each head's features to at
 least 4 and to a multiple of 8 over the heads; to a multiple of 8 a head
@@ -129,6 +131,11 @@ TC_SMEM_LIMIT = 232_448      # dynamic shared memory a block may ask for
 # tests/test_torch_gat_ops.py holds the two copies together)
 TC_KC, TC_STAGES = 64, 2
 STREAM_TILES = ((64, 12), (128, 12), (144, 12), (208, 8), (256, 8))
+# the backward past D = 256 on the same ring: its tiles' widths, never
+# under 128, and warps (csrc/gat_bwd_tc.cuh `tc_bwd_stream_pairs`,
+# `tc_bwd_stream_warps`; tests/test_torch_bwd_streamed.py holds the two
+# copies together)
+BWD_STREAM_TILES = ((128, 12), (144, 12), (208, 8), (256, 8))
 
 
 def _lib():
@@ -168,9 +175,10 @@ def _check_bwd_widths(D: int, HD: int, heads: int) -> None:
 
 
 def d_slices(D: int) -> tuple[int, int]:
-    """(slices, width) of W's rows in the backward kernels: D in equal
-    slices of at most 256 rows, each a multiple of 8 (the fewest such; one
-    slice up to D = 256). D must be a multiple of 8."""
+    """(slices, width) of W's rows in the backward's demb (route 0) and dW
+    launches: D in equal slices of at most 256 rows, each a multiple of 8
+    (the fewest such; one slice up to D = 256). D must be a multiple of
+    8."""
     n = next(n for n in range(-(-D // MAX_COLS), D // 8 + 1)
              if D % n == 0 and (D // n) % 8 == 0)
     return n, D // n
@@ -365,7 +373,7 @@ def _pass_a_scores(nq, nk, edge_emb, w_ke, b_ke, src, dst, mask, heads,
     _require(mask, "mask", torch.bool, (G, E))
     route = _fwd_route(cdt, D, HD, heads, _route)
     warps, n_blocks = _fwd_launch_plan(route, G, E, D, HD, nq.device)
-    w16 = _streamed_w(route, w_ke)
+    w16 = _streamed_w(route, w_ke, _fwd_streams)
     scores = _scores_out(acc, G, heads, E, nq.device)
     m_edge = torch.full((G, heads), NEG, device=nq.device,
                         dtype=torch.float32)
@@ -494,7 +502,7 @@ def _pass_c(nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst, mask,
     _require(out, "out", torch.float32, (G, N, HD))
     route = _fwd_route(cdt, D, HD, heads, _route)
     warps, n_blocks = _fwd_launch_plan(route, G, E, D, HD, nm.device)
-    w16 = _streamed_w(route, w_me)
+    w16 = _streamed_w(route, w_me, _fwd_streams)
     err = _lib().gat_pass_c(
         nm.data_ptr(), edge_emb.data_ptr(), w_me.data_ptr(),
         None if w16 is None else w16.data_ptr(), b_me.data_ptr(),
@@ -624,19 +632,48 @@ def _fwd_route(cdt, D, HD, heads, route):
 def _tc_smem(D, HD, warps, small_floats):
     """Dynamic shared memory of a tensor-core edge kernel (`TcShape` in
     csrc/gat_tc_common.cuh), which is compiled for widths of 64, 128, 208
-    and 256 columns: W in bf16 at the first of these that holds D (the
-    backward's slice of W's rows) and HD, then per warp a stage (16 f32
-    rows of that width) and its small tables of `small_floats` floats."""
+    and 256 columns: W in bf16 at the first of these that holds D and HD,
+    then per warp a stage (16 f32 rows of that width) and its small tables
+    of `small_floats` floats."""
     width = next(w for w in (64, 128, 208, 256) if max(D, HD) <= w)
     w_tile = width * (width + 8) * 2
     stage = TC_UNIT * (width + 4) * 4
     return w_tile + warps * (stage + small_floats * 4)
 
 
+def _stream_smem(width, warps, small_floats):
+    """Dynamic shared memory of a streaming edge kernel (`TcStreamShape`)
+    whose tile is `width` columns: W passes through a ring of TC_STAGES
+    chunks of TC_KC rows, and each warp's stage holds its ring of emb chunks
+    (16 rows of TC_KC) and then its f32 rows, beside its small tables."""
+    ring = TC_STAGES * TC_KC * (width + 8) * 2
+    stage = max(TC_UNIT * (width + 4) * 4,
+                TC_STAGES * TC_UNIT * (TC_KC + 8) * 2)
+    return ring + warps * (stage + small_floats * 4)
+
+
+def _bwd_streams(D):
+    """Whether route 1 of the backward passes streams W's rows through
+    shared memory (D > 256) or holds W there whole. The one place that
+    decides: the kernel streams exactly when the wrapper hands it W in
+    bf16."""
+    return D > MAX_COLS
+
+
+def _bwd_stream_tile(HD):
+    """(columns, most warps a block) of the backward streaming kernel's
+    tile for a launch of HD columns: the first of BWD_STREAM_TILES to hold
+    HD."""
+    return next(t for t in BWD_STREAM_TILES if HD <= t[0])
+
+
 def _tc_smem_bytes(D, HD, warps):
     """The backward edge kernel's (alpha or d_s, e, d_alpha and the nodes
-    beside each stage)."""
-    return _tc_smem(D, HD, warps, 3 * TC_UNIT * 8 + 2 * TC_UNIT)
+    beside each stage; the bf16 cotangent rows go over the f32 rows)."""
+    small = 3 * TC_UNIT * 8 + 2 * TC_UNIT
+    if not _bwd_streams(D):
+        return _tc_smem(D, HD, warps, small)
+    return _stream_smem(_bwd_stream_tile(HD)[0], warps, small)
 
 
 def _fwd_streams(D):
@@ -654,18 +691,11 @@ def _stream_tile(HD):
 
 def _fwd_smem_bytes(D, HD, warps):
     """The forward kernel's (scores or alpha and the nodes beside each
-    stage; no cotangent tile). Streaming (`TcStreamShape`), W passes through
-    a ring of TC_STAGES chunks of TC_KC rows of the tile's width, and each
-    warp's stage holds its ring of emb chunks (16 rows of TC_KC) and then
-    its f32 rows."""
+    stage; no cotangent tile), W whole or streamed (`_stream_smem`)."""
     small = TC_UNIT * 8 + 2 * TC_UNIT
     if not _fwd_streams(D):
         return _tc_smem(D, HD, warps, small)
-    width = _stream_tile(HD)[0]
-    ring = TC_STAGES * TC_KC * (width + 8) * 2
-    stage = max(TC_UNIT * (width + 4) * 4,
-                TC_STAGES * TC_UNIT * (TC_KC + 8) * 2)
-    return ring + warps * (stage + small * 4)
+    return _stream_smem(_stream_tile(HD)[0], warps, small)
 
 
 def _persistent_plan(smem_bytes, G, E, D, HD, n_sm, what,
@@ -683,9 +713,10 @@ def _persistent_plan(smem_bytes, G, E, D, HD, n_sm, what,
 
 
 def _tc_plan(G, E, D, HD, n_sm):
-    """The backward tensor-core edge kernel's plan."""
+    """The backward tensor-core edge kernel's plan, W whole or streamed."""
+    max_warps = _bwd_stream_tile(HD)[1] if _bwd_streams(D) else TC_MAX_WARPS
     return _persistent_plan(_tc_smem_bytes, G, E, D, HD, n_sm,
-                            "GAT backward")
+                            "GAT backward", max_warps)
 
 
 def _fwd_max_warps(D, HD):
@@ -701,12 +732,13 @@ def _fwd_tc_plan(G, E, D, HD, n_sm):
                             "GAT forward", _fwd_max_warps(D, HD))
 
 
-def _streamed_w(route, w):
+def _streamed_w(route, w, streams):
     """W (D, HD) rounded to bf16 where route 1 streams its rows from device
     memory through shared memory once a round of units (half the bytes of
     f32 rows, no rounding in the ring); None elsewhere: route 0 and the
-    resident kernel round W as they load it."""
-    return w.to(torch.bfloat16) if route == 1 and _fwd_streams(w.shape[0]) \
+    resident kernel round W as they load it. `streams`: the direction's
+    decision by D (`_fwd_streams` or `_bwd_streams`)."""
+    return w.to(torch.bfloat16) if route == 1 and streams(w.shape[0]) \
         else None
 
 
@@ -723,10 +755,10 @@ def _split_scratch(G, E, D, HD, device, route=0, n_sm=1):
     partial sums of dW over n_split edge ranges and of db, one row per block
     of the edge kernel: (64-edge tile, graph) blocks on CUDA cores (warps
     and n_blocks are 0: that grid follows from the shapes), n_blocks
-    persistent blocks on tensor cores, where dW is split once per SM and a
-    block holds one slice of W's rows (`d_slices`)."""
+    persistent blocks on tensor cores (`_tc_plan`: W whole, or its rows
+    streamed past D = 256), where dW is split once per SM."""
     if route == 1:
-        warps, n_blocks = _tc_plan(G, E, d_slices(D)[1], HD, n_sm)
+        warps, n_blocks = _tc_plan(G, E, D, HD, n_sm)
         n_split, db_rows = max(1, min(n_sm, -(-G * E // 32))), n_blocks
     else:
         warps = n_blocks = 0
@@ -747,15 +779,6 @@ def _sliced_transpose(w, width):
     slice at a time (W^T itself where one slice holds D)."""
     D, HD = w.shape
     return w.t().reshape(HD, D // width, width).transpose(0, 1).contiguous()
-
-
-def _proj_scratch(route, n_slices, G, E, HD, device):
-    """Route 1 at more than one slice of W's rows: the edge projection
-    summed over the slices so far, (G, E, HD) f32, handed from each slice's
-    launch to the next; None otherwise."""
-    if route == 1 and n_slices > 1:
-        return torch.empty((G, E, HD), device=device, dtype=torch.float32)
-    return None
 
 
 def bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
@@ -824,10 +847,11 @@ def _bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
     _require(dscale, "dscale", torch.float32, (G, N, heads))
     dev = nm.device
     route = _bwd_route(cdt, _route)
-    n_slices, width = d_slices(D)
-    # the tensor-core kernels read W_me both ways from one shared tile
+    width = d_slices(D)[1]
+    # the tensor-core kernels read W_me both ways from one shared tile or
+    # ring of its rows
     w_t = None if route == 1 else _sliced_transpose(w_me, width)
-    proj = _proj_scratch(route, n_slices, G, E, HD, dev)
+    w16 = _streamed_w(route, w_me, _bwd_streams)
     dmsg = torch.empty((G, E, HD), device=dev, dtype=cdt)
     demb = torch.empty((G, E, D), device=dev, dtype=cdt)
     dalpha = _scores_out(acc, G, heads, E, dev)
@@ -844,7 +868,7 @@ def _bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
         demb.data_ptr(), dalpha.data_ptr(), dnm.data_ptr(),
         dscale.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
         dw.data_ptr(), db.data_ptr(),
-        None if proj is None else proj.data_ptr(), G, N, E, D, HD, heads,
+        None if w16 is None else w16.data_ptr(), G, N, E, D, HD, heads,
         n_split, width, _dtype_code(nm), route, warps, n_blocks,
         _part(acc, last), _stream())
     _build.check(err, "gat_bwd_pass1")
@@ -933,9 +957,9 @@ def _bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
     _require(dnk, "dnk", torch.float32, (G, N, HD))
     dev = nq.device
     route = _bwd_route(cdt, _route)
-    n_slices, width = d_slices(D)
+    width = d_slices(D)[1]
     w_t = None if route == 1 else _sliced_transpose(w_ke, width)
-    proj = _proj_scratch(route, n_slices, G, E, HD, dev)
+    w16 = _streamed_w(route, w_ke, _bwd_streams)
     dekb = torch.empty((G, E, HD), device=dev, dtype=cdt)
     dw = torch.empty((D, HD), device=dev, dtype=torch.float32)
     db = torch.empty((HD,), device=dev, dtype=torch.float32)
@@ -949,7 +973,7 @@ def _bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
         src.data_ptr(), dst.data_ptr(), mask.data_ptr(), dekb.data_ptr(),
         demb.data_ptr(), dnq.data_ptr(), dnk.data_ptr(), dw_part.data_ptr(),
         db_part.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        None if proj is None else proj.data_ptr(), G, N, E, D, HD, heads,
+        None if w16 is None else w16.data_ptr(), G, N, E, D, HD, heads,
         n_split, width, _dtype_code(nq), route, warps, n_blocks, _stream())
     _build.check(err, "gat_bwd_pass2")
     _build.count_launch("gat_bwd_pass2", route)

@@ -35,7 +35,9 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # (entry point, route) -> {__global__ kernel: launches a call}; route None
 # for the entry points with one route (csrc/gat_fwd.cu, gat_fwd_tc.cuh,
 # gat_bwd.cu, gat_bwd_tc.cuh, edge_moments.cu, edge_hidden.cu,
-# edge_hidden_tc.cuh)
+# edge_hidden_tc.cuh). Route 1 of backward passes 1 and 2 launches its edge
+# kernel once a call at every D: W resident in shared memory up to 256 rows,
+# streamed through it past that (`edge_pass_tc_kernel<PASS, PAIRS, STREAM>`)
 _BWD_TC = {"edge_pass_tc_kernel": 1, "dw_tc_kernel": 1,
            "reduce_partials_kernel": 2}
 PORT_KERNELS: dict[tuple[str, int | None], dict[str, int]] = {

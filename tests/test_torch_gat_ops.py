@@ -348,7 +348,7 @@ def test_streamed_w_is_rounded_only_past_256(route, D, want):
     """Route 1 past D = 256 reads W rounded to bf16 from device memory;
     route 0 and the resident kernel round it themselves."""
     w = torch.randn(D, 64)
-    got = gat_kernels._streamed_w(route, w)
+    got = gat_kernels._streamed_w(route, w, gat_kernels._fwd_streams)
     if want is None:
         assert got is None
     else:
@@ -403,5 +403,6 @@ def test_streamed_plan_fits_at_narrow_d(monkeypatch, D, HD, warps):
     assert gat_kernels._fwd_tc_plan(64, 4096, D, HD, 132) == (warps, 132)
     assert gat_kernels._fwd_smem_bytes(D, HD, warps) \
         <= gat_kernels.TC_SMEM_LIMIT
-    assert gat_kernels._streamed_w(1, torch.zeros(D, HD)).dtype \
+    assert gat_kernels._streamed_w(1, torch.zeros(D, HD),
+                                   gat_kernels._fwd_streams).dtype \
         == torch.bfloat16

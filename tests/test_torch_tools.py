@@ -331,6 +331,33 @@ def test_expected_kernels_of_a_train_step():
         "edge_hidden_bwd_tc_kernel": 1}
 
 
+def test_expected_kernels_of_a_train_step_at_gnn_dim_512():
+    """At gnn_dim 512 (4 heads: two head groups of 256 columns a pass,
+    D = 512 past the 256 rows W holds in shared memory) a bf16 train step
+    at k=5 calls each GAT entry point twice a layer, and route 1 of
+    backward passes 1 and 2 streams W's rows in one edge launch a call:
+    one edge kernel and one dW kernel a call, as at gnn_dim 200."""
+    from qagnn_tpu_torch.ops import gat_kernels as gk
+
+    D, HD = gk.kernel_widths(512, 512, 4)
+    per = len(gk.launches(HD, 4))
+    assert (D, per) == (512, 2) and gk._bwd_streams(D)
+    launches = {"gat_pass_a_scores": 5 * per, "gat_pass_a_denoms": 5 * per,
+                "gat_pass_c": 5 * per, "gat_bwd_pass1": 5 * per,
+                "gat_bwd_pass2": 5 * per, "edge_moments": 1,
+                "edge_hidden": 1, "edge_hidden_bwd": 1}
+    routes = {(k, 0 if k.startswith("edge_hidden") else 1): n
+              for k, n in launches.items()
+              if k not in ("gat_pass_a_denoms", "edge_moments")}
+    want = ts.expected_kernels(ts.entry_calls(launches, routes))
+    assert want["edge_pass_tc_kernel"] == 2 * 5 * per == 20
+    assert want["dw_tc_kernel"] == want["edge_pass_tc_kernel"]
+    assert want["fwd_pass_tc_kernel"] == 20
+    assert want["reduce_partials_kernel"] == 2 * 20 + 1
+    assert want["edge_hidden_kernel"] == 1
+    assert want["edge_hidden_bwd_kernel"] == 1
+
+
 def test_kernel_map_names_the_csrc_kernels():
     text = "\n".join(p.read_text() for p in
                      (ROOT / "qagnn_tpu_torch" / "csrc").glob("*.cu*"))

@@ -369,24 +369,25 @@ def test_d_slices(D, slices):
     assert n * width == D and width % 8 == 0 and width <= 256
 
 
-@pytest.mark.parametrize("route, want", [(1, (5, 132, 132)),
+@pytest.mark.parametrize("route, want", [(1, (8, 132, 132)),
                                          (0, (0, 0, 128))])
 def test_backward_scratch_at_d_512(route, want):
-    """At D = 512 the tensor-core plan is that of one slice of 256 rows
-    (five warps beside the 256 x 256 tile); the partial sums of dW keep
-    every row of W."""
+    """At D = 512 the tensor-core plan is the streaming kernel's (eight
+    warps beside the ring of W's chunks at 256 columns), handed W in bf16;
+    the partial sums of dW keep every row of W."""
     warps, n_blocks, n_split = want
     got = gk._split_scratch(64, 4096, 512, 256, "cpu", route=route,
                             n_sm=132)
     assert got[:3] == (n_split, warps, n_blocks)
     assert got[3].shape == (n_split, 512, 256)
     if route == 1:
-        assert got[1:3] == gk._tc_plan(64, 4096, 256, 256, 132)
-        assert gk._tc_smem_bytes(256, 256, warps) <= gk.TC_SMEM_LIMIT
-        assert gk._proj_scratch(1, 2, 64, 4096, 256, "cpu").shape \
-            == (64, 4096, 256)
-    assert gk._proj_scratch(route, 1, 64, 4096, 256, "cpu") is None
-    assert gk._proj_scratch(0, 2, 64, 4096, 256, "cpu") is None
+        assert got[1:3] == gk._tc_plan(64, 4096, 512, 256, 132)
+        assert gk._tc_smem_bytes(512, 256, warps) <= gk.TC_SMEM_LIMIT
+        assert gk._streamed_w(1, torch.zeros(512, 256),
+                              gk._bwd_streams).dtype == torch.bfloat16
+    assert gk._streamed_w(route, torch.zeros(256, 256),
+                          gk._bwd_streams) is None
+    assert gk._streamed_w(0, torch.zeros(512, 256), gk._bwd_streams) is None
 
 
 def test_sliced_transpose_is_slice_major():
