@@ -1,0 +1,112 @@
+"""Time variants of the GAT backward kernels side by side on one card.
+
+    python3 bwd_variants.py D HD tag=DIR [tag=DIR ...] [--dtype bfloat16]
+
+Each DIR is a copy of qagnn_tpu_torch/csrc (the sources themselves for
+"qagnn_tpu_torch/csrc"), edited by hand. The script builds every copy's
+`gat_bwd` library at once, one nvcc a copy, then, one process a copy, runs
+backward passes 1 and 2 (route 1, the wrappers of
+qagnn_tpu_torch/ops/gat_kernels.py) at G=64, N=200, E=4096, D x HD with 4
+heads, on chip_smoke.py's inputs: each call's largest gap from its plain
+version (max|d| / max|want| over its outputs), its device time (median of 10
+calls by CUDA events) and torch.profiler's time by kernel. Build logs go to
+chiprun_out/bwd_variants_build_<tag>.log. It runs only on a CUDA card and
+imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+
+
+def _use(csrc: str):
+    from qagnn_tpu_torch.ops import _build
+    _build.CSRC = pathlib.Path(csrc).resolve()
+    return _build
+
+
+def build(csrc: str) -> None:
+    _use(csrc).build_all(["gat_bwd"], verbose=True)
+
+
+def run(csrc: str, D: int, HD: int, tag: str, dtype: str) -> None:
+    import torch
+    _use(csrc)
+    import chip_smoke as cs
+    from qagnn_tpu_torch.ops import gat_kernels as gk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, dt, heads = torch.device("cuda"), getattr(torch, dtype), cs.HEADS
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    src, dst, mask = cs.graph_inputs(gen, dev, cs.E)
+    t = cs.gat_bwd_inputs(gen, dev, D, HD, heads, src, dst, mask, dt)
+
+    def gap(got, want):
+        return max(float((g.float() - w.float()).abs().max()
+                         / w.float().abs().max()) for g, w in zip(got, want))
+
+    p1 = (t["gout"], t["nm"], t["emb"], t["w_me"], t["b_me"], t["scores"],
+          t["gmax"], t["scale"], src, dst, mask, t["carry"])
+    acc1 = (t["dnm0"], t["dscale0"])
+    want1 = gk.bwd_pass1_plain(*p1, *(x.clone() for x in acc1), heads)
+    d_denom = torch.randn(t["scale"].shape, generator=gen, device=dev) * 0.1
+    p2 = (t["nq"], t["nk"], t["emb"], t["w_ke"], t["b_ke"], t["scores"],
+          t["gmax"], want1[1], t["scale"], d_denom, src, dst, mask)
+    acc2 = (want1[0], torch.randn(t["dnm0"].shape, generator=gen, device=dev),
+            torch.randn(t["dnm0"].shape, generator=gen, device=dev))
+    for name, fn, plain, p, acc in (
+            ("pass1", gk.bwd_pass1, gk.bwd_pass1_plain, p1, acc1),
+            ("pass2", gk.bwd_pass2, gk.bwd_pass2_plain, p2, acc2)):
+        got = fn(*p, *(x.clone() for x in acc), heads)
+        err = gap(got, plain(*p, *(x.clone() for x in acc), heads))
+        kept = tuple(x.clone() for x in acc)
+        ms = cs.device_ms(lambda: fn(*p, *kept, heads), iters=10)
+        print(f"{tag} D={D} HD={HD} {dtype} {name} {ms:.4f} ms  gap "
+              f"{err:.2e}  [{cs.card_line()}]", flush=True)
+        cs.profile_kernels(f"{tag} {name}", lambda: fn(*p, *kept, heads),
+                           iters=5)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("D", type=int)
+    ap.add_argument("HD", type=int)
+    ap.add_argument("variants", nargs="+", help="tag=DIR")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"))
+    ap.add_argument("--build", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--run", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.build:
+        build(args.variants[0])
+        return 0
+    if args.run:
+        tag, csrc = args.variants[0].split("=", 1)
+        run(csrc, args.D, args.HD, tag, args.dtype)
+        return 0
+    pairs = [v.split("=", 1) for v in args.variants]
+    logs = ROOT / "chiprun_out"
+    logs.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    procs = [(tag, subprocess.Popen(
+        [sys.executable, __file__, "0", "0", csrc, "--build"],
+        stdout=open(logs / f"bwd_variants_build_{tag}.log", "w"),
+        stderr=subprocess.STDOUT)) for tag, csrc in pairs]
+    failed = [tag for tag, p in procs if p.wait() != 0]
+    print(f"built {len(procs)} copies in {time.perf_counter() - t0:.1f} s"
+          + (f"; failed: {failed}" if failed else ""), flush=True)
+    for tag, csrc in pairs:
+        if tag not in failed:
+            subprocess.run([sys.executable, __file__, str(args.D),
+                            str(args.HD), f"{tag}={csrc}", "--run",
+                            "--dtype", args.dtype], check=False)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -18,7 +18,10 @@ Run from the repository root on a machine with one CUDA card. It
      where W's rows stream through shared memory), on both of their routes
      in bf16, with their masked slots held exactly, their
      tensor-core kernels (bf16) timed in turns with the CUDA-core ones on the
-     same inputs, and torch.profiler's device time by kernel name; the
+     same inputs, and torch.profiler's device time by kernel name (the
+     backward passes run on tensor cores in f32 too, split-TF32 products,
+     timed at the main shapes in turns with their CUDA-core kernels on the
+     same f32 inputs, their bound at a third of the tf32 rate); the
      streaming kernel of the forward passes also at 200 x 200 and 256 x 256,
      against the plain versions and timed in turns with the resident
      kernel that route 1 runs there; the
@@ -163,13 +166,14 @@ Run from the repository root on a machine with one CUDA card. It
      (f32: each of nine draws of the kernel path under 2e-3, their mean
      under twice the mean of nine f32 scatter draws, ROADMAP C14), with the
      launches and routes (every bf16 launch of rows 6-9 on tensor cores,
-     backward passes 1 and 2 streaming W's rows past D = 256); the passes
-     alone at both widths on both routes against their plain versions, at
-     E and E - 3, every route-1 launch of rows 8 and 9 held against its
-     plain version, and the times of rows 6-9 and 11-12 there beside their
-     bounds, by call and by launch (one edge kernel a column launch of rows
-     8 and 9), rows 6 and 7 in turns with their CUDA-core route on the
-     same inputs; and
+     backward passes 1 and 2 streaming W's rows past D = 256, and on tensor
+     cores in f32 too); the passes alone at both widths on both routes
+     against their plain versions, at E and E - 3, every route-1 launch of
+     rows 8 and 9 held against its plain version in both dtypes, and the
+     times of rows 6-9 and 11-12 there beside their bounds, by call and by
+     launch (one edge kernel a column launch of rows 8 and 9), rows 6 and 7
+     in bf16 and rows 8 and 9 in f32 in turns with their CUDA-core route on
+     the same inputs; and
      `python -m qagnn_tpu_torch.cli --gnn_dim 512` and `--gnn_dim 1040`,
      side by side, for two train steps each. The `overfit` phase also logs,
      per GAT layer of the trained model, the largest gap between a graph's
@@ -267,6 +271,11 @@ N_CONCEPT, CONCEPT_IN = 799_273, 1024        # ConceptNet entity table
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the f32 route of backward passes 1 and 2 (rows 8 and 9) runs on the tf32
+# tensor cores (495e12 dense), each f32 product as three tf32 products of
+# split operands (hi hi + hi lo + lo hi): f32-accurate operations at a
+# third of the tf32 rate, the least time of that work
+SPLIT_TF32_FLOPS = 495e12 / 3
 
 # kernel vs plain: max|got - want| <= TOL * max|want|. The GAT passes sum in
 # f32 in another order (and with atomics); edge_hidden's bf16 output may
@@ -546,27 +555,37 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(n_bytes: float, flops: float, dtype) -> tuple[float, str]:
+def bound(n_bytes: float, flops: float, dtype,
+          peak: float | None = None) -> tuple[float, str]:
+    """The least time of the work in ms, bytes at HBM_BYTES_PER_S or
+    operations at `peak` (PEAK_FLOPS[dtype] unless given), the larger."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bwd_peak(dt) -> float:
+    """The operations' peak of backward passes 1 and 2 (route 1) in dt:
+    bf16 products on tensor cores, or split-TF32 ones in f32."""
+    return SPLIT_TF32_FLOPS if dt == torch.float32 else PEAK_FLOPS[dt]
 
 
 def measure(reports, name, err, kernel, plain, n_bytes, flops, dtype,
             previous=None,
-            previous_is="the CUDA-core kernels on the same bf16 inputs"):
+            previous_is="the CUDA-core kernels on the same bf16 inputs",
+            peak=None):
     """Time a kernel and its plain version at the main path's inputs and
-    file them, with the bound, under `name`. No PyTorch call computes any
-    of these functions whole, so library_ms is None. `previous`: the
-    kernel's earlier version on the same inputs (`previous_is` says which),
-    timed in turns with it (kernel, previous, previous, kernel) and printed
-    as previous_ms."""
+    file them, with the bound (operations at `peak`, `bound`), under
+    `name`. No PyTorch call computes any of these functions whole, so
+    library_ms is None. `previous`: the kernel's earlier version on the
+    same inputs (`previous_is` says which), timed in turns with it (kernel,
+    previous, previous, kernel) and printed as previous_ms."""
     if previous is None:
         ms = device_ms(kernel)
     else:
         ms = faster_than_previous(name, kernel, previous, previous_is)
     plain_ms = device_ms(plain)
-    bound_ms, by = bound(n_bytes, flops, dtype)
+    bound_ms, by = bound(n_bytes, flops, dtype, peak)
     log(f"  time {name:<18} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
         f"bound {bound_ms:.4f} ms ({by})")
     reports[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -1035,8 +1054,14 @@ def gat_bwd_inputs(gen, dev, D, HD, heads, src, dst, mask, dt):
 
 def gat_bwd_case(reports, t, src, dst, mask, heads, dt, tag, main):
     """Both backward passes against their plain versions on the inputs t;
-    at the main shapes also their times, beside the CUDA-core kernels'."""
+    at the main shapes also their times, in turns with the CUDA-core
+    kernels' (route 0) on the same inputs, which must be slower, beside the
+    plain versions' and the bound (operations at `bwd_peak`): filed in
+    `reports` in bf16, the main path's dtype, and logged in f32."""
     HD, D = t["nm"].shape[-1], t["emb"].shape[-1]
+    sink, suffix = (reports, "") if dt == torch.bfloat16 \
+        else (collections.defaultdict(dict), " f32")
+    previous_is = f"the CUDA-core kernels on the same {dt} inputs"
     n_edges = src.shape[1]
     live = mask.float().mean().item()
     dead = ~mask
@@ -1062,7 +1087,7 @@ def gat_bwd_case(reports, t, src, dst, mask, heads, dt, tag, main):
         # demb whole (a masked slot passes its carry through); the
         # node accumulators read and written. Three products.
         scratch = (t["dnm0"].clone(), t["dscale0"].clone())
-        measure(reports, "gat_bwd_pass1", max(errs),
+        measure(sink, "gat_bwd_pass1" + suffix, max(errs),
                 lambda: gk.bwd_pass1(*p1, *scratch, heads),
                 lambda: gk.bwd_pass1_plain(*p1, *scratch, heads),
                 live * nbytes(t["emb"], t["scores"], src, dst)
@@ -1071,8 +1096,9 @@ def gat_bwd_case(reports, t, src, dst, mask, heads, dt, tag, main):
                          got[5])
                 + 2 * nbytes(got[2], got[3]),
                 3 * 2.0 * live * G * n_edges * D * HD, dt,
-                previous=lambda: gk.bwd_pass1(*p1, *scratch, heads, _route=0))
-        profile_kernels("gat_bwd_pass1",
+                previous=lambda: gk.bwd_pass1(*p1, *scratch, heads, _route=0),
+                previous_is=previous_is, peak=bwd_peak(dt))
+        profile_kernels("gat_bwd_pass1" + suffix,
                         lambda: gk.bwd_pass1(*p1, *scratch, heads))
 
     demb1, dalpha, _, dscale = want[:4]
@@ -1097,7 +1123,7 @@ def gat_bwd_case(reports, t, src, dst, mask, heads, dt, tag, main):
         FAILURES.append(f"gat_bwd_pass2 masked slots {tag}")
     if main:
         scratch = (demb1.clone(), dnq0.clone(), dnk0.clone())
-        measure(reports, "gat_bwd_pass2", max(errs),
+        measure(sink, "gat_bwd_pass2" + suffix, max(errs),
                 lambda: gk.bwd_pass2(*p2, *scratch, heads),
                 lambda: gk.bwd_pass2_plain(*p2, *scratch, heads),
                 live * nbytes(t["emb"], t["scores"], dalpha, src, dst)
@@ -1105,27 +1131,31 @@ def gat_bwd_case(reports, t, src, dst, mask, heads, dt, tag, main):
                          scale, d_denom, mask, got[3], got[4])
                 + 2 * nbytes(got[0], got[1], got[2]),
                 3 * 2.0 * live * G * n_edges * D * HD, dt,
-                previous=lambda: gk.bwd_pass2(*p2, *scratch, heads, _route=0))
-        profile_kernels("gat_bwd_pass2",
+                previous=lambda: gk.bwd_pass2(*p2, *scratch, heads, _route=0),
+                previous_is=previous_is, peak=bwd_peak(dt))
+        profile_kernels("gat_bwd_pass2" + suffix,
                         lambda: gk.bwd_pass2(*p2, *scratch, heads))
 
 
 def phase_gat_bwd(gen, odd_gen, dev, reports):
-    """float32 runs the CUDA-core kernels, bfloat16 the tensor-core ones."""
+    """Both dtypes on the tensor-core route, bf16 products in bfloat16 and
+    split-TF32 ones in float32, timed at the main shapes in turns with the
+    CUDA-core kernels."""
     D = HD = 200
     for n_edges in (E, E - 3):
         src, dst, mask = graph_inputs(gen, dev, n_edges)
         for dt in (torch.float32, torch.bfloat16):
             t = gat_bwd_inputs(gen, dev, D, HD, HEADS, src, dst, mask, dt)
             gat_bwd_case(reports, t, src, dst, mask, HEADS, dt,
-                         f"E={n_edges} {dt}",
-                         main=n_edges == E and dt == torch.bfloat16)
+                         f"E={n_edges} {dt}", main=n_edges == E)
     # widths off the main shape. 24 x 40, 4 heads: both depths need padding
     # to 16 (to 32 and 48) and heads of 10 split the 8-column groups; 96 x
     # 128 and 256 x 256, 8 heads: the other widths the tensor-core kernels
     # are compiled for, the last with fewer warps a block; 264 x 200 and
     # 520 x 64, 8 heads: W's rows streamed (a chunk of 8 rows at the end;
-    # the 208- and the 128-column tile, the latter for 64 columns)
+    # the 208- and the 128-column tile, the latter for 64 columns). In f32,
+    # which streams at every D: the 64-, 128-, 208- and 256-column tiles,
+    # chunks of 32 rows (one of 24 rows at D = 24)
     src, dst, mask = graph_inputs(odd_gen, dev, E - 3)
     for D, HD, heads in ((24, 40, 4), (96, 128, 8), (256, 256, 8),
                          (264, 200, 4), (520, 64, 8)):
@@ -1968,14 +1998,23 @@ ROUTED = ("gat_pass_a_scores", "gat_pass_c", "gat_bwd_pass1", "gat_bwd_pass2",
           "edge_hidden", "edge_hidden_bwd")
 
 
-def check_routes(route: int, what: str) -> None:
+# the routes of a step with an f32 GNN: backward passes 1 and 2 on tensor
+# cores (split TF32), the forward passes and the edge encoder on CUDA cores
+F32_ROUTES = {"gat_pass_a_scores": 0, "gat_pass_c": 0, "gat_bwd_pass1": 1,
+              "gat_bwd_pass2": 1, "edge_hidden": 0, "edge_hidden_bwd": 0}
+
+
+def check_routes(route, what: str) -> None:
     """Every launch counted since the last reset of the entry points that
-    have two routes took `route` (1, tensor cores, for bf16; 0 for f32)."""
+    have two routes took its route: `route` for all of them (an int: 1,
+    tensor cores, for bf16), or by entry point (a dict: F32_ROUTES)."""
+    want = route if isinstance(route, dict) else dict.fromkeys(ROUTED, route)
     launched = [n for n in ROUTED if _build.LAUNCHES[n]]
-    ok = all(_build.ROUTES[n, route] == _build.LAUNCHES[n] for n in launched)
+    ok = all(_build.ROUTES[n, want[n]] == _build.LAUNCHES[n]
+             for n in launched)
     log(f"  routes, {what}: " + ", ".join(
-        f"{n} {_build.ROUTES[n, route]} of {_build.LAUNCHES[n]}"
-        for n in launched) + f" on route {route}  {'ok' if ok else 'FAIL'}")
+        f"{n} {_build.ROUTES[n, want[n]]} of {_build.LAUNCHES[n]} on route "
+        f"{want[n]}" for n in launched) + f"  {'ok' if ok else 'FAIL'}")
     if not ok:
         FAILURES.append(f"routes, {what}: {dict(_build.ROUTES)}")
 
@@ -2212,7 +2251,7 @@ def phase_train(dev, reports, card, cfg, model, enc_cfg, gen):
         torch.cuda.synchronize()
         if backend == "cuda":
             check_launches(dict(_build.LAUNCHES), 1, 1, cfg.k, "f32 step")
-            check_routes(0, "f32 step")
+            check_routes(F32_ROUTES, "f32 step")
         elif _build.LAUNCHES:
             FAILURES.append("the scatter path launched kernels")
         seen[backend] = (loss, opt.last_grad_norm,
@@ -5412,8 +5451,7 @@ def widths_gnn(gen, dev, card, width):
         off = [k for k, want_r in (
             ("gat_pass_a_scores", int(dt == torch.bfloat16)),
             ("gat_pass_c", int(dt == torch.bfloat16)),
-            ("gat_bwd_pass1", int(dt == torch.bfloat16)),
-            ("gat_bwd_pass2", int(dt == torch.bfloat16)),
+            ("gat_bwd_pass1", 1), ("gat_bwd_pass2", 1),
             ("edge_hidden", 0), ("edge_hidden_bwd", 0))
             if routes.get((k, 1 - want_r))]
         log("  routes, " + ", ".join(f"{k} {r}: {c}" for (k, r), c in
@@ -5511,16 +5549,17 @@ def bwd_launches_by_kernel(rows, iters, n_launches, what):
 
 def widths_passes(gen, dev, card, D, HD):
     """Rows 6-9 alone at D x HD (the kernels' widths), 4 heads: passes A and
-    C and backward passes 1 and 2 on both routes in bf16 (route 0 in f32)
-    against their plain versions, masked slots exactly, at E and E - 3, every
-    route-1 launch of the backward passes against its plain version
-    (`LaunchCheck`: past D = 256 the streaming edge kernel, a split head's
-    partial mode included); then each call's device time with its bound
-    (rows 6 and 7 in turns with their CUDA-core route on the same inputs,
-    which must be slower), and the device time of each kernel launch it
-    makes (torch.profiler: one edge kernel a column launch of rows 8 and 9),
-    rows 11 and 12 at this D too. The backward passes' plain version is the
-    unsliced one at D = 512 (two head groups: one bf16 carry rounding more
+    C on both routes in bf16 (route 0 in f32) and backward passes 1 and 2
+    on both routes in both dtypes against their plain versions, masked
+    slots exactly, at E and E - 3, every route-1 launch of the backward
+    passes against its plain version (`LaunchCheck`: the streaming edge
+    kernel, a split head's partial mode included); then each call's device
+    time with its bound (rows 6 and 7 in bf16 and rows 8 and 9 in f32 in
+    turns with their CUDA-core route on the same inputs, which must be
+    slower; rows 8 and 9's operations at `bwd_peak`), and the device time
+    of each kernel launch it makes (torch.profiler: one edge kernel a
+    column launch of rows 8 and 9), rows 11 and 12 at this D too. The
+    backward passes' plain version is the unsliced one at D = 512 (two head groups: one bf16 carry rounding more
     on the kernels' side, ROADMAP's known difference (a)); with more
     launches a pass it is the wrappers' own loop over the plain versions
     (`plain_launches`), which takes the same carry roundings."""
@@ -5554,7 +5593,7 @@ def widths_passes(gen, dev, card, D, HD):
             with sliced():
                 want2 = plain2(*p2, want1[0].clone(),
                                *(x.clone() for x in acc2), HEADS)
-            for route in ((0, 1) if dt == torch.bfloat16 else (0,)):
+            for route in (0, 1):
                 tag = f"D={D} HD={HD} E={n_edges} {dt} route {route}"
                 _build.reset_launch_counts()
                 check = LaunchCheck(tag, dt) if route == 1 else None
@@ -5593,8 +5632,9 @@ def widths_passes(gen, dev, card, D, HD):
             s1 = (t["dnm0"].clone(), t["dscale0"].clone())
             s2 = (want1[0].clone(), *(x.clone() for x in acc2))
             flops = 3 * 2.0 * live * G * E * D * HD
-            for name, fn, plain, n_bytes in (
+            for name, fn, route0, plain, n_bytes in (
                     ("gat_bwd_pass1", lambda: gk.bwd_pass1(*p1, *s1, HEADS),
+                     lambda: gk.bwd_pass1(*p1, *s1, HEADS, _route=0),
                      lambda: gk.bwd_pass1_plain(*p1, *s1, HEADS),
                      live * nbytes(t["emb"], t["scores"], src, dst)
                      + nbytes(t["gout"], t["nm"], t["w_me"], t["b_me"],
@@ -5602,23 +5642,30 @@ def widths_passes(gen, dev, card, D, HD):
                               want1[1], want1[4], want1[5])
                      + 2 * nbytes(want1[2], want1[3])),
                     ("gat_bwd_pass2", lambda: gk.bwd_pass2(*p2, *s2, HEADS),
+                     lambda: gk.bwd_pass2(*p2, *s2, HEADS, _route=0),
                      lambda: gk.bwd_pass2_plain(*p2, *s2, HEADS),
                      live * nbytes(t["emb"], t["scores"], want1[1], src, dst)
                      + nbytes(t["nq"], t["nk"], t["w_ke"], t["b_ke"],
                               t["gmax"], scale, d_denom, mask, want2[3],
                               want2[4])
                      + 2 * nbytes(want2[0], want2[1], want2[2]))):
-                ms, plain_ms = device_ms(fn, iters=5, warmup=1), \
-                    device_ms(plain, iters=5, warmup=1)
-                bound_ms, by = bound(n_bytes, flops, dt)
+                if dt == torch.float32:
+                    ms = faster_than_previous(
+                        f"{name} D={D} HD={HD} f32", fn, route0,
+                        "the CUDA-core kernels on the same f32 inputs",
+                        iters=5, warmup=1)
+                else:
+                    ms = device_ms(fn, iters=5, warmup=1)
+                plain_ms = device_ms(plain, iters=5, warmup=1)
+                bound_ms, by = bound(n_bytes, flops, dt, bwd_peak(dt))
                 log(f"  time {name} D={D} HD={HD} {dt}: kernels {ms:.4f} ms "
                     f"a call ({n_launches} launches)  plain {plain_ms:.4f} ms"
-                    f"  bound {bound_ms:.4f} ms ({by})  [{card}]")
+                    f" ({'above' if plain_ms > ms else 'NOT above'} the "
+                    f"kernels)  bound {bound_ms:.4f} ms ({by})  [{card}]")
                 rows = profile_kernels(f"{name} D={D} HD={HD} {dt}", fn,
                                        iters=5)
-                if dt == torch.bfloat16:
-                    bwd_launches_by_kernel(rows, 5, n_launches,
-                                           f"{name} D={D} HD={HD} {dt}")
+                bwd_launches_by_kernel(rows, 5, n_launches,
+                                       f"{name} D={D} HD={HD} {dt}")
     # the forward passes and rows 11-12 at this D on the bf16 main path
     dt = torch.bfloat16
     r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731

@@ -38,7 +38,8 @@
 // grid and the three products of a pass (emb W, cot W^T, emb^T cot, 2 G E D
 // HD operations each: 21 GFLOP at G=64, E=4096, D=HD=200) run on the MXU.
 // Blocks run in parallel here, and there are two routes behind each entry
-// point, chosen by the dtype alone.
+// point: the tensor-core route (1) in both dtypes, and the CUDA-core kernels
+// of this file (route 0) when the caller names them.
 //
 // bfloat16, the main path: tensor cores (gat_bwd_tc.cuh, mma_tile.cuh). Every
 // operand is a bf16 value already (emb, W rounded to the compute dtype, the
@@ -54,8 +55,29 @@
 // column launch is one edge launch at any D, with no f32 projection in
 // device memory.
 //
-// float32: the CUDA-core kernels of this file, in full f32 (TF32 would not
-// hold the 1e-4 the f32 path is kept to). Four launches as well:
+// float32: the same four launches on the tf32 tensor cores, each product
+// split (mma_tile.cuh): hi = tf32(x) and lo = x - hi for every operand, then
+// a_lo b_hi + a_hi b_lo + a_hi b_hi in f32 accumulators, three m16n8k8 tf32
+// products a step. What is left out, a_lo b_lo and lo's own truncation, is
+// at most about 2^-20 of |a| |b| a product: the passes hold their plain
+// versions within 1.7e-5 of the largest value on the card (sums of another
+// order), inside the 1e-4 the f32 path is kept to. W's f32 rows would leave
+// room for three warps beside them at D = HD = 200, so the edge launch
+// streams them at every D, from W itself (no rounding), through a ring of
+// 32-row chunks (TcStream32Shape). Its bound is the tf32 rate, 495 TFLOP/s
+// for a third as many f32-accurate operations; what holds it back on the
+// card is the split's integer work beside each `mma.sync` (no wgmma here)
+// and the warps' lockstep through the ring: the epilogue and the streams of
+// every warp of a block fall in the same stretch, with no product beside
+// them. On the H100 (NVIDIA H100 80GB HBM3, 700 W limit; shapes as below,
+// f32; chip_smoke.py, the CUDA-core route timed in turns on the same
+// inputs) a call of pass 1 / 2 takes 1.79 / 1.73 ms at D = HD = 200
+// (route 0 3.49 / 3.31 ms, the plain version 3.95 / 3.85; bound 0.28 ms),
+// 8.6 / 8.6 ms at gnn_dim 512 (16.3 / 15.9; 12.8 / 13.0; 1.84) and 41.1 /
+// 40.7 ms at 1040 (87.8 / 83.2; 48.2 / 48.7; 7.75).
+//
+// route 0, the CUDA-core kernels of this file, in full f32 (or bf16). Four
+// launches as well:
 //   1. the edge kernel: the per-edge projection (register-tiled, as the
 //      forward), the per-edge cotangents, the node scatters by 16-byte
 //      atomicAdd, d_msg / dekb written once to a scratch array in the compute
@@ -65,8 +87,8 @@
 //   3. dW partials: emb^T scratch split over the edges, each block a range of
 //      edges and 40 output columns, every partial written once;
 //   4. one reduction of the dW and db partials.
-// They also run bfloat16 when asked to (route 0), which is how the two routes
-// are timed side by side.
+// They run when the wrappers are asked for route 0, which is how the two
+// routes are timed side by side.
 //
 // On the H100 (NVIDIA H100 80GB HBM3, 700 W limit; G=64, N=200, E=4096,
 // D=HD=200, 4 heads, bf16, 25% of slots masked; medians of 20 launches by
@@ -491,6 +513,80 @@ void finish_pass(const T* emb, const T* cot, const float* wt, const T* add,
       db_part, db, (int)(grid.x * grid.y), HD);
 }
 
+// route 1 of pass 1 in T (gat_bwd_tc.cuh's arguments from the entry
+// point's; pass 2 below likewise)
+template <typename T>
+int pass1_tc(const void* gout, const void* nm, const void* emb,
+             const void* w_me, const void* b_me, const void* scores,
+             const void* gmax, const void* scale, const void* src,
+             const void* dst, const void* mask, const void* carry,
+             void* dmsg, void* demb, void* dalpha, void* dnm, void* dscale,
+             void* dw_part, void* db_part, void* dw, void* db,
+             const void* w_stream, int G, int N, int E, int D, int HD, int H,
+             int n_split, int d_slice, int warps, int n_blocks, int part,
+             void* stream) {
+  TcArgs<T> a = {};
+  a.rows_src = (const T*)nm;
+  a.rows_dst = (const T*)gout;
+  a.emb = (const T*)emb;
+  a.w = (const float*)w_me;
+  a.bias = (const float*)b_me;
+  a.scores = (const float*)scores;
+  a.gmax = (const float*)gmax;
+  a.scale = (const float*)scale;
+  a.src = (const int32_t*)src;
+  a.dst = (const int32_t*)dst;
+  a.mask = (const uint8_t*)mask;
+  a.add = (const T*)carry;
+  a.cot = (T*)dmsg;
+  a.demb = (T*)demb;
+  a.dalpha_out = (float*)dalpha;
+  a.acc_src = (float*)dnm;
+  a.dscale = (float*)dscale;
+  a.db_part = (float*)db_part;
+  a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H; a.DS = d_slice;
+  a.part = part;
+  a.ws = (const T*)w_stream;
+  return launch_pass_tc<1>(a, (float*)dw_part, (float*)dw, (float*)db,
+                           n_split, warps, n_blocks, (cudaStream_t)stream);
+}
+
+template <typename T>
+int pass2_tc(const void* nq, const void* nk, const void* emb,
+             const void* w_ke, const void* b_ke, const void* scores,
+             const void* gmax, const void* dalpha, const void* scale,
+             const void* d_denom, const void* src, const void* dst,
+             const void* mask, void* dekb, void* demb, void* dnq, void* dnk,
+             void* dw_part, void* db_part, void* dw, void* db,
+             const void* w_stream, int G, int N, int E, int D, int HD, int H,
+             int n_split, int d_slice, int warps, int n_blocks,
+             void* stream) {
+  TcArgs<T> a = {};
+  a.rows_src = (const T*)nq;
+  a.rows_dst = (const T*)nk;
+  a.emb = (const T*)emb;
+  a.w = (const float*)w_ke;
+  a.bias = (const float*)b_ke;
+  a.scores = (const float*)scores;
+  a.gmax = (const float*)gmax;
+  a.scale = (const float*)scale;
+  a.dalpha_in = (const float*)dalpha;
+  a.d_denom = (const float*)d_denom;
+  a.src = (const int32_t*)src;
+  a.dst = (const int32_t*)dst;
+  a.mask = (const uint8_t*)mask;
+  a.add = (const T*)demb;
+  a.cot = (T*)dekb;
+  a.demb = (T*)demb;
+  a.acc_src = (float*)dnq;
+  a.acc_dst = (float*)dnk;
+  a.db_part = (float*)db_part;
+  a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H; a.DS = d_slice;
+  a.ws = (const T*)w_stream;
+  return launch_pass_tc<2>(a, (float*)dw_part, (float*)dw, (float*)db,
+                           n_split, warps, n_blocks, (cudaStream_t)stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32 node/edge arrays, 1 = bfloat16. Takes D a multiple of
@@ -501,12 +597,14 @@ void finish_pass(const T* emb, const T* cot, const float* wt, const T* add,
 // edge kernel takes any D, the demb and dW launches a slice of W's rows a
 // block (a grid dimension); w_t is w transposed in slices, (D / d_slice,
 // HD, d_slice); db_part (G * ceil(E / 64), HD) is scratch; warps, n_blocks
-// and w16 are not read. route 1, the tensor-core kernels (bfloat16 only):
-// w_t is not read; the edge kernel runs once, n_blocks blocks of `warps`
-// warps, with W resident in shared memory (D = d_slice <= 256) or, given
-// w16 (W rounded to bf16, (D, HD); null otherwise), its rows streamed
-// through shared memory at any D; the dW launch takes W's rows in slices
-// of d_slice (a grid dimension); db_part is (n_blocks, HD). Either way the
+// and w_stream are not read. route 1, the tensor-core kernels (either
+// dtype): w_t is not read; the edge kernel runs once, n_blocks blocks of
+// `warps` warps, in bf16 with W resident in shared memory (D = d_slice <=
+// 256) or, given w_stream (W rounded to bf16, (D, HD); null otherwise), its
+// rows streamed through shared memory at any D; in f32 always streamed,
+// from w_stream (W itself, f32, which must be given); the dW launch takes
+// W's rows in slices of d_slice (a grid dimension); db_part is (n_blocks,
+// HD). Either way the
 // node-side outputs (dalpha, dnm, dscale; dnq, dnk in pass 2) and db are
 // written by one pass over the edges only, and demb with no atomics. part
 // (PART_ADD | PART_OPEN, gat_common.cuh; 0 for whole heads): a column slice
@@ -519,43 +617,29 @@ extern "C" int gat_bwd_pass1(
     const void* gmax, const void* scale, const void* src, const void* dst,
     const void* mask, const void* carry, void* dmsg, void* demb, void* dalpha,
     void* dnm, void* dscale, void* dw_part, void* db_part, void* dw, void* db,
-    const void* w16, int G, int N, int E, int D, int HD, int H, int n_split,
-    int d_slice, int dtype, int route, int warps, int n_blocks, int part,
-    void* stream) {
+    const void* w_stream, int G, int N, int E, int D, int HD, int H,
+    int n_split, int d_slice, int dtype, int route, int warps, int n_blocks,
+    int part, void* stream) {
   if (!shapes_ok(D, d_slice, HD, H) || n_split <= 0 || part < 0 ||
       part > 3 || !aligned16(gout) ||
       !aligned16(nm) || !aligned16(emb) || !aligned16(w_me) ||
       !aligned16(w_me_t) || !aligned16(carry) || !aligned16(dmsg) ||
       !aligned16(demb) || !aligned16(dnm) || !aligned16(dw_part) ||
-      (route != 0 && (route != 1 || dtype != 1)))
+      (route != 0 && route != 1) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if ((long long)G * E == 0) return (int)cudaGetLastError();
-  if (route == 1) {
-    TcArgs a = {};
-    a.rows_src = (const bf16*)nm;
-    a.rows_dst = (const bf16*)gout;
-    a.emb = (const bf16*)emb;
-    a.w = (const float*)w_me;
-    a.bias = (const float*)b_me;
-    a.scores = (const float*)scores;
-    a.gmax = (const float*)gmax;
-    a.scale = (const float*)scale;
-    a.src = (const int32_t*)src;
-    a.dst = (const int32_t*)dst;
-    a.mask = (const uint8_t*)mask;
-    a.add = (const bf16*)carry;
-    a.cot = (bf16*)dmsg;
-    a.demb = (bf16*)demb;
-    a.dalpha_out = (float*)dalpha;
-    a.acc_src = (float*)dnm;
-    a.dscale = (float*)dscale;
-    a.db_part = (float*)db_part;
-    a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H; a.DS = d_slice;
-    a.part = part;
-    a.w16 = (const bf16*)w16;
-    return launch_pass_tc<1>(a, (float*)dw_part, (float*)dw, (float*)db,
-                             n_split, warps, n_blocks, (cudaStream_t)stream);
-  }
+  if (route == 1)
+    return dtype == 1
+               ? pass1_tc<bf16>(gout, nm, emb, w_me, b_me, scores, gmax,
+                                scale, src, dst, mask, carry, dmsg, demb,
+                                dalpha, dnm, dscale, dw_part, db_part, dw, db,
+                                w_stream, G, N, E, D, HD, H, n_split,
+                                d_slice, warps, n_blocks, part, stream)
+               : pass1_tc<float>(gout, nm, emb, w_me, b_me, scores, gmax,
+                                 scale, src, dst, mask, carry, dmsg, demb,
+                                 dalpha, dnm, dscale, dw_part, db_part, dw,
+                                 db, w_stream, G, N, E, D, HD, H, n_split,
+                                 d_slice, warps, n_blocks, part, stream);
   const dim3 grid((E + TE - 1) / TE, G);
   const int threads = HD / 8 * TY;
   cudaStream_t s = (cudaStream_t)stream;
@@ -588,50 +672,36 @@ extern "C" int gat_bwd_pass1(
 }
 
 // demb holds pass 1's result and is updated in place. dekb, dw_part and
-// db_part are scratch, and route, warps, n_blocks and w16 mean what they do
-// in pass 1.
+// db_part are scratch, and route, warps, n_blocks and w_stream mean what
+// they do in pass 1.
 extern "C" int gat_bwd_pass2(
     const void* nq, const void* nk, const void* emb, const void* w_ke,
     const void* w_ke_t, const void* b_ke, const void* scores,
     const void* gmax, const void* dalpha, const void* scale,
     const void* d_denom, const void* src, const void* dst, const void* mask,
     void* dekb, void* demb, void* dnq, void* dnk, void* dw_part,
-    void* db_part, void* dw, void* db, const void* w16, int G, int N, int E,
-    int D, int HD, int H, int n_split, int d_slice, int dtype, int route,
-    int warps, int n_blocks, void* stream) {
+    void* db_part, void* dw, void* db, const void* w_stream, int G, int N,
+    int E, int D, int HD, int H, int n_split, int d_slice, int dtype,
+    int route, int warps, int n_blocks, void* stream) {
   if (!shapes_ok(D, d_slice, HD, H) || n_split <= 0 || !aligned16(nq) ||
       !aligned16(nk) || !aligned16(emb) || !aligned16(w_ke) ||
       !aligned16(w_ke_t) || !aligned16(dekb) || !aligned16(demb) ||
       !aligned16(dnq) || !aligned16(dnk) || !aligned16(dw_part) ||
-      (route != 0 && (route != 1 || dtype != 1)))
+      (route != 0 && route != 1) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if ((long long)G * E == 0) return (int)cudaGetLastError();
-  if (route == 1) {
-    TcArgs a = {};
-    a.rows_src = (const bf16*)nq;
-    a.rows_dst = (const bf16*)nk;
-    a.emb = (const bf16*)emb;
-    a.w = (const float*)w_ke;
-    a.bias = (const float*)b_ke;
-    a.scores = (const float*)scores;
-    a.gmax = (const float*)gmax;
-    a.scale = (const float*)scale;
-    a.dalpha_in = (const float*)dalpha;
-    a.d_denom = (const float*)d_denom;
-    a.src = (const int32_t*)src;
-    a.dst = (const int32_t*)dst;
-    a.mask = (const uint8_t*)mask;
-    a.add = (const bf16*)demb;
-    a.cot = (bf16*)dekb;
-    a.demb = (bf16*)demb;
-    a.acc_src = (float*)dnq;
-    a.acc_dst = (float*)dnk;
-    a.db_part = (float*)db_part;
-    a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H; a.DS = d_slice;
-    a.w16 = (const bf16*)w16;
-    return launch_pass_tc<2>(a, (float*)dw_part, (float*)dw, (float*)db,
-                             n_split, warps, n_blocks, (cudaStream_t)stream);
-  }
+  if (route == 1)
+    return dtype == 1
+               ? pass2_tc<bf16>(nq, nk, emb, w_ke, b_ke, scores, gmax, dalpha,
+                                scale, d_denom, src, dst, mask, dekb, demb,
+                                dnq, dnk, dw_part, db_part, dw, db, w_stream,
+                                G, N, E, D, HD, H, n_split, d_slice, warps,
+                                n_blocks, stream)
+               : pass2_tc<float>(nq, nk, emb, w_ke, b_ke, scores, gmax,
+                                 dalpha, scale, d_denom, src, dst, mask, dekb,
+                                 demb, dnq, dnk, dw_part, db_part, dw, db,
+                                 w_stream, G, N, E, D, HD, H, n_split,
+                                 d_slice, warps, n_blocks, stream);
   const dim3 grid((E + TE - 1) / TE, G);
   const int threads = HD / 8 * TY;
   const size_t smem = sizeof(float) * KC * HD;

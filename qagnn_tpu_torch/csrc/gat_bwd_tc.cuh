@@ -1,7 +1,9 @@
-// The bfloat16 route of the projected GAT op's backward passes 1 and 2: the
-// three per-edge products of each pass on tensor cores (mma_tile.cuh). What
-// the passes compute, and the source note with the design and its times, are
-// at the head of gat_bwd.cu; the f32 route there stays on CUDA cores.
+// The tensor-core route of the projected GAT op's backward passes 1 and 2:
+// the three per-edge products of each pass on tensor cores (mma_tile.cuh),
+// bf16 products in bfloat16, split-TF32 products (three tf32 products a
+// step, f32-accurate) in float32. What the passes compute, and the source
+// note with the design and its times, are at the head of gat_bwd.cu; route
+// 0, the CUDA-core kernels, is there too.
 //
 // Launch 1, `edge_pass_tc_kernel<PASS, PAIRS, STREAM>`: persistent blocks,
 // one per SM. At D <= 256 (STREAM false) a block loads W once, rounded to
@@ -35,7 +37,7 @@
 // calls too.
 //
 // Past D = 256 W no longer fits beside the stages (a 512 x 256 tile is 264
-// KB). STREAM true: the wrapper hands W rounded to bf16 (w16; the launch
+// KB). STREAM true: the wrapper hands W rounded to bf16 (ws; the launch
 // streams exactly when it is given), and the block streams its rows twice a
 // round through the forward's shared ring of TC_STAGES chunks of TC_KC rows
 // (TcStreamShape, gat_tc_common.cuh), the tile's columns sized from HD
@@ -79,6 +81,25 @@
 // f32 partial once. Launches 3 and 4 add up the dW and db partials
 // (reduce_partials.cuh): no atomics on dW or db.
 //
+// float32 (T = float, the last template argument of both kernels): the
+// streaming edge kernel at every D (W's f32 rows whole would take 170 KB of
+// shared memory at D = HD = 200, room for three warps) on the f32 ring of
+// TcStream32Shape: chunks of 32 rows, tiles sized from HD alone
+// (tc_stream_pairs, 64 columns up), 8 warps a block; every product the
+// split-TF32 one of mma_tile.cuh, W's tile in w32_col's layout; the emb
+// chunks, the projection and cotangent rows and the cotangent scratch in
+// f32, the rounding points the identity. Product 2's output goes from the
+// accumulators to demb (+ add, read at the same places before the
+// product), a quad's 32 bytes a row: the f32 cotangent fills its rows of
+// the stage. The dW launch runs the split product too, on slices of 32
+// slots (the bytes of bf16's 64), with column blocks of 10 tiles beside
+// bf16's ladder (dw_pairs). The variants timed while it was designed
+// (bwd_variants.py; PERF.md PR 20): the edge launch's time at D = HD = 200
+// is about half its two products, a quarter its epilogue and a quarter the
+// ring's streams and demb's read-modify-write, which the warps' lockstep
+// keeps from overlapping; 64-row chunks at 144 and 208 columns gained too
+// little to keep.
+//
 // The parts that the forward's tensor-core route shares (the W loader, the
 // unit's nodes, the accumulator stage, the head sums) are in
 // gat_tc_common.cuh.
@@ -95,13 +116,17 @@ namespace {
 // PAIRS + 16 bytes, an odd multiple of 16) and the f32 rows of cot W^T.
 constexpr int TC_SMALL_FLOATS = 3 * TC_ROWS * MAX_H + 2 * TC_ROWS;
 
-template <bool STREAM, int PAIRS>
+template <typename T, bool STREAM, int PAIRS>
 struct BwdShape {
   typedef TcShape<PAIRS, TC_SMALL_FLOATS> type;
 };
 template <int PAIRS>
-struct BwdShape<true, PAIRS> {
+struct BwdShape<bf16, true, PAIRS> {
   typedef TcStreamShape<PAIRS, TC_SMALL_FLOATS> type;
+};
+template <int PAIRS>
+struct BwdShape<float, true, PAIRS> {
+  typedef TcStream32Shape<PAIRS, TC_SMALL_FLOATS> type;
 };
 
 // The streaming edge kernel's tile for a launch of HD columns: the
@@ -119,12 +144,21 @@ __host__ __device__ constexpr int tc_bwd_stream_warps(int pairs) {
   return pairs <= 9 ? 12 : TC_MAX_WARPS;
 }
 
+// Warps a block of the edge kernel may run: the f32 kernel TC_MAX_WARPS at
+// every tile (its split products take more registers a lane)
+__host__ __device__ constexpr int tc_bwd_max_warps(bool f32, bool stream,
+                                                   int pairs) {
+  return f32 || !stream ? TC_MAX_WARPS : tc_bwd_stream_warps(pairs);
+}
+
+// T: the node and edge arrays' type, bf16 or float
+template <typename T>
 struct TcArgs {
   // pass 1: rows_src = nm, rows_dst = gout; pass 2: rows_src = nq,
   // rows_dst = nk
-  const bf16* rows_src;
-  const bf16* rows_dst;
-  const bf16* emb;
+  const T* rows_src;
+  const T* rows_dst;
+  const T* emb;
   const float* w;
   const float* bias;
   const float* scores;
@@ -135,9 +169,9 @@ struct TcArgs {
   const int32_t* src;
   const int32_t* dst;
   const uint8_t* mask;
-  const bf16* add;            // carry (may be null) or demb itself
-  bf16* cot;                  // (G, E, HD) scratch for the dW launch
-  bf16* demb;
+  const T* add;               // carry (may be null) or demb itself
+  T* cot;                     // (G, E, HD) scratch for the dW launch
+  T* demb;
   float* dalpha_out;          // pass 1
   float* acc_src;             // pass 1: dnm; pass 2: dnq
   float* acc_dst;             // pass 2: dnk
@@ -146,7 +180,9 @@ struct TcArgs {
   int G, N, E, D, HD, H;
   int DS;                     // rows of a slice of W in dW, dividing D
   int part;                   // pass 1: PART_ADD | PART_OPEN (gat_common.cuh)
-  const bf16* w16;            // W rounded to bf16, (D, HD): W streamed
+  // W (D, HD) as the kernel streams it, or null (bf16: W resident): W
+  // rounded to bf16 in bf16, W itself in f32
+  const T* ws;
 };
 
 // A warp's small tables beside its stage: per (edge, head) the weight of
@@ -167,7 +203,8 @@ struct TcBwdTables {
         dst(src + TC_ROWS) {}
 };
 
-__device__ __forceinline__ float tc_edge_exp(const TcArgs& a, long long g,
+template <typename T>
+__device__ __forceinline__ float tc_edge_exp(const TcArgs<T>& a, long long g,
                                              int h, int e) {
   return expf(fminf(a.scores[(g * a.H + h) * a.E + e] - a.gmax[g * a.H + h],
                     0.0f));
@@ -176,9 +213,9 @@ __device__ __forceinline__ float tc_edge_exp(const TcArgs& a, long long g,
 // Step a of a unit: its nodes (fetched during the unit before) into the
 // tables, the next unit's fetched, and the per-(edge, head) weights, 0 for
 // dead slots, rounded where the TPU rounds (gat_bwd.cu's head note).
-template <int PASS>
+template <typename T, int PASS>
 __device__ __forceinline__ void tc_bwd_unit_weights(
-    const TcArgs& a, const TcBwdTables& t, long long g, int e0, long long u,
+    const TcArgs<T>& a, const TcBwdTables& t, long long g, int e0, long long u,
     long long stride, long long n_units, int units_per_graph, int lane,
     int& next_src, int& next_dst) {
   if (lane < TC_ROWS) {
@@ -197,11 +234,11 @@ __device__ __forceinline__ void tc_bwd_unit_weights(
       const long long node = (g * a.N + s_node) * H + h;
       ee = tc_edge_exp(a, g, h, e);
       if (PASS == 1)
-        wt = round_to<bf16>(ee * round_to<bf16>(a.scale[node]));
+        wt = round_to<T>(ee * round_to<T>(a.scale[node]));
       else
-        wt = round_to<bf16>((a.dalpha_in[(g * H + h) * E + e] *
-                                 round_to<bf16>(a.scale[node]) +
-                             round_to<bf16>(a.d_denom[node])) * ee);
+        wt = round_to<T>((a.dalpha_in[(g * H + h) * E + e] *
+                              round_to<T>(a.scale[node]) +
+                          round_to<T>(a.d_denom[node])) * ee);
     }
     t.wt[el][h] = wt;
     if (PASS == 1) t.e[el][h] = ee;
@@ -215,28 +252,29 @@ __device__ __forceinline__ void tc_bwd_unit_weights(
 // dscale, and the cotangent's one trip to device memory. A group's bf16
 // cotangent rows go over its f32 rows (pitch 2 LD32 elements) once every
 // lane has read its floats of them (zeros in the depth padding and in dead
-// rows), for product 2.
-template <int PASS, int LD32>
+// rows), for product 2. In f32 (T = float) the cotangent rows take the
+// whole f32 rows (pitch LD32 floats), in place the same way.
+template <typename T, int PASS, int LD32>
 __device__ __forceinline__ void tc_bwd_epilogue(
-    const TcArgs& a, const TcBwdTables& t, float* s_rows, long long g, int e0,
-    int lane, const int (&head)[8], const float (&bias)[8],
+    const TcArgs<T>& a, const TcBwdTables& t, float* s_rows, long long g,
+    int e0, int lane, const int (&head)[8], const float (&bias)[8],
     float (&dbsum)[8]) {
   const int E = a.E, N = a.N, HD = a.HD, H = a.H;
   const int c0 = 8 * lane, HDp = round_up16(HD);
   const bool active = c0 < HD;
-  bf16* s_cot = reinterpret_cast<bf16*>(s_rows);
-  uint4 cur_s[TC_GROUP], cur_d[TC_GROUP], next_s[TC_GROUP], next_d[TC_GROUP];
-  auto gather = [&](int r0, uint4 (&to_s)[TC_GROUP],
-                    uint4 (&to_d)[TC_GROUP]) {
+  T* s_cot = reinterpret_cast<T*>(s_rows);
+  constexpr int ldc = LD32 * 4 / (int)sizeof(T);   // its pitch in T
+  Vec8<T> cur_s[TC_GROUP], cur_d[TC_GROUP], next_s[TC_GROUP],
+      next_d[TC_GROUP];
+  auto gather = [&](int r0, Vec8<T> (&to_s)[TC_GROUP],
+                    Vec8<T> (&to_d)[TC_GROUP]) {
 #pragma unroll
     for (int i = 0; i < TC_GROUP; ++i) {
       if (active && t.src[r0 + i] >= 0) {
-        to_s[i] = *reinterpret_cast<const uint4*>(
-            a.rows_src + (g * N + t.src[r0 + i]) * HD + c0);
-        to_d[i] = *reinterpret_cast<const uint4*>(
-            a.rows_dst + (g * N + t.dst[r0 + i]) * HD + c0);
+        to_s[i] = load8(a.rows_src + (g * N + t.src[r0 + i]) * HD + c0);
+        to_d[i] = load8(a.rows_dst + (g * N + t.dst[r0 + i]) * HD + c0);
       } else {
-        to_s[i] = to_d[i] = make_uint4(0u, 0u, 0u, 0u);
+        to_s[i] = to_d[i] = zero8<T>();
       }
     }
   };
@@ -249,7 +287,7 @@ __device__ __forceinline__ void tc_bwd_epilogue(
       cur_d[i] = next_d[i];
     }
     if (r0 + TC_GROUP < TC_ROWS) gather(r0 + TC_GROUP, next_s, next_d);
-    uint4 packed[TC_GROUP];
+    Vec8<T> packed[TC_GROUP];
     float p[TC_GROUP][8];    // pass 1: msg * g[dst] (unused in pass 2)
 #pragma unroll
     for (int i = 0; i < TC_GROUP; ++i) {
@@ -266,8 +304,8 @@ __device__ __forceinline__ void tc_bwd_epilogue(
         const long long s_row = (g * N + s_node) * HD + c0;
         const long long d_row = (g * N + d_node) * HD + c0;
         float vs[8], vd[8], proj[8];
-        unpack_bf16x8(cur_s[i], vs);
-        unpack_bf16x8(cur_d[i], vd);
+        unpack8(cur_s[i], vs);
+        unpack8(cur_d[i], vd);
         const float4 p0 =
             *reinterpret_cast<const float4*>(s_rows + r * LD32 + c0);
         const float4 p1 =
@@ -281,7 +319,7 @@ __device__ __forceinline__ void tc_bwd_epilogue(
             p[i][j] = (vs[j] + proj[j] + bias[j]) * vd[j];
             const float d = t.wt[r][head[j]] * vd[j];
             dbsum[j] += d;
-            cot[j] = round_to<bf16>(d);
+            cot[j] = round_to<T>(d);
           }
           atomicAdd(reinterpret_cast<float4*>(a.acc_src + s_row),
                     make_float4(cot[0], cot[1], cot[2], cot[3]));
@@ -295,8 +333,8 @@ __device__ __forceinline__ void tc_bwd_epilogue(
             const float ds = t.wt[r][head[j]];
             const float d = ds * vs[j];
             dbsum[j] += d;
-            cot[j] = round_to<bf16>(d);
-            dq[j] = round_to<bf16>(ds * (vd[j] + proj[j] + bias[j]));
+            cot[j] = round_to<T>(d);
+            dq[j] = round_to<T>(ds * (vd[j] + proj[j] + bias[j]));
           }
           atomicAdd(reinterpret_cast<float4*>(a.acc_src + s_row),
                     make_float4(dq[0], dq[1], dq[2], dq[3]));
@@ -308,11 +346,10 @@ __device__ __forceinline__ void tc_bwd_epilogue(
                     make_float4(cot[4], cot[5], cot[6], cot[7]));
         }
       }
-      packed[i] = pack_bf16x8(cot);
+      packed[i] = pack8<T>(cot);
       // the cotangent's one trip to device memory, for the dW launch
       if (active && e0 + r < E)
-        *reinterpret_cast<uint4*>(a.cot + (g * E + e0 + r) * HD + c0) =
-            packed[i];
+        store8(a.cot + (g * E + e0 + r) * HD + c0, packed[i]);
     }
     if (PASS == 1) {
       if (H <= 4)
@@ -324,8 +361,7 @@ __device__ __forceinline__ void tc_bwd_epilogue(
     if (c0 < HDp) {
 #pragma unroll
       for (int i = 0; i < TC_GROUP; ++i)
-        *reinterpret_cast<uint4*>(s_cot + (r0 + i) * 2 * LD32 + c0) =
-            packed[i];
+        store8(s_cot + (r0 + i) * ldc + c0, packed[i]);
     }
   }
   __syncwarp();
@@ -338,26 +374,28 @@ __device__ __forceinline__ void tc_bwd_epilogue(
       a.dalpha_out[(g * H + h) * E + e] = v;
       if (t.src[el] >= 0 && !(a.part & PART_OPEN))
         atomicAdd(&a.dscale[(g * N + t.src[el]) * H + h],
-                  round_to<bf16>(v * t.e[el][h]));
+                  round_to<T>(v * t.e[el][h]));
     }
   }
 }
 
-template <int PASS, int PAIRS, bool STREAM>
+// T: bf16 (W resident or streamed) or float (streamed, split-TF32
+// products; the head note's "float32")
+template <int PASS, int PAIRS, bool STREAM, typename T>
 __global__ void __launch_bounds__(
-    32 * (STREAM ? tc_bwd_stream_warps(PAIRS) : TC_MAX_WARPS), 1)
-edge_pass_tc_kernel(const TcArgs a) {
+    32 * tc_bwd_max_warps(sizeof(T) == 4, STREAM, PAIRS), 1)
+edge_pass_tc_kernel(const TcArgs<T> a) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  typedef typename BwdShape<STREAM, PAIRS>::type S;
+  typedef typename BwdShape<T, STREAM, PAIRS>::type S;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
   const int E = a.E, D = a.D, HD = a.HD, H = a.H;
-  bf16* sW = reinterpret_cast<bf16*>(tc_smem);     // W, or the ring of chunks
+  T* sW = reinterpret_cast<T*>(tc_smem);           // W, or the ring of chunks
   unsigned char* mine = tc_smem + S::w_bytes + warp * S::warp_bytes;
-  bf16* s_emb = reinterpret_cast<bf16*>(mine);     // emb rows, or their ring
+  T* s_emb = reinterpret_cast<T*>(mine);           // emb rows, or their ring
   float* s_rows = reinterpret_cast<float*>(mine);
-  bf16* s_cot = reinterpret_cast<bf16*>(mine);
-  constexpr int ldc = 2 * S::ld32;
+  T* s_cot = reinterpret_cast<T*>(mine);
+  constexpr int ldc = S::ld32 * 4 / (int)sizeof(T);
   const int Dp = round_up16(D), HDp = round_up16(HD);
   const TcBwdTables t(reinterpret_cast<float*>(mine + S::stage_bytes));
 
@@ -394,10 +432,8 @@ edge_pass_tc_kernel(const TcArgs a) {
     // a unit
     static_assert(TC_STAGES == 2, "the reverse walk of product 2 reuses "
                   "the two chunks in the ring");
-    static_assert(S::WIDTH * 2 + TC_KC * 4 <= S::ld32 * 4,
-                  "product 2's f32 output rows fit beside the cotangent tile");
     const long long rounds = (n_units + stride - 1) / stride;
-    const int n_chunks = (D + TC_KC - 1) / TC_KC;
+    const int n_chunks = (D + S::KC - 1) / S::KC;
 #pragma unroll 1
     for (long long rd = 0; rd < rounds; ++rd) {
       const long long u = wid + rd * stride;
@@ -407,20 +443,21 @@ edge_pass_tc_kernel(const TcArgs a) {
 
       // a. (its emb rows arrive chunk by chunk in step b)
       if (has_unit)
-        tc_bwd_unit_weights<PASS>(a, t, g, e0, u, stride, n_units,
-                                  units_per_graph, lane, next_src, next_dst);
+        tc_bwd_unit_weights<T, PASS>(a, t, g, e0, u, stride, n_units,
+                                     units_per_graph, lane, next_src,
+                                     next_dst);
 
       // b. product 1, emb W over all of D: chunk k of W's rows and of the
       // unit's emb columns in stage k % 2. After the first round chunks 0
       // and 1 are still in the ring, where product 2 ended.
       zero_acc(acc);
-      const bf16* rows = a.emb + (g * E + e0) * D;
+      const T* rows = a.emb + (g * E + e0) * D;
       auto load_chunk = [&](int k) {
         const int st = k % TC_STAGES;
         if (rd == 0 || k >= TC_STAGES)
-          tc_load_w_chunk<S>(sW + st * S::w_chunk, a.w16, k * TC_KC, D, HD);
+          tc_load_w_chunk<S>(sW + st * S::w_chunk, a.ws, k * S::KC, D, HD);
         if (has_unit)
-          tc_load_emb_chunk<S>(s_emb + st * S::emb_chunk, rows, k * TC_KC,
+          tc_load_emb_chunk<S>(s_emb + st * S::emb_chunk, rows, k * S::KC,
                                D, t.src, lane);
       };
       load_chunk(0);
@@ -435,9 +472,9 @@ edge_pass_tc_kernel(const TcArgs a) {
         cp_async_commit();
         if (has_unit) {
           const int st = k % TC_STAGES;
-          const int ksteps = min(TC_KC, Dp - k * TC_KC) / 16;
+          const int ksteps = min(S::KC, Dp - k * S::KC) / 16;
           warp_rows_product<true>(s_emb + st * S::emb_chunk, S::ldk,
-                                  sW + st * S::w_chunk, S::ld16, ksteps, acc);
+                                  sW + st * S::w_chunk, S::ldw, ksteps, acc);
         }
       }
 
@@ -446,74 +483,123 @@ edge_pass_tc_kernel(const TcArgs a) {
         __syncwarp();
         tc_stage_acc(acc, s_rows, S::ld32, lane);
         __syncwarp();
-        tc_bwd_epilogue<PASS, S::ld32>(a, t, s_rows, g, e0, lane, head, bias,
-                                       dbsum);
+        tc_bwd_epilogue<T, PASS, S::ld32>(a, t, s_rows, g, e0, lane, head,
+                                          bias, dbsum);
       }
 
       // e. product 2, cot W^T, W's chunks in reverse: chunk c's rows are
-      // demb's columns c TC_KC ..; the first two are the ones product 1
-      // left in the ring, and the walk ends on chunks 1 and 0, where the
-      // next round's product 1 starts. A chunk's f32 output goes to the
-      // stage beside the cotangent tile (columns WIDTH .. of each row),
-      // then demb = output (+ add) 16 bytes a lane; the chunk's `add`
-      // values (demb itself in pass 2: other columns than the stores before
-      // them) are loaded during the chunk before
-      float* s_out = s_rows + S::WIDTH / 2;
-      uint4 kept[TC_KC / 16], next_kept[TC_KC / 16];
-      auto load_kept = [&](int c) {
-#pragma unroll
-        for (int i = 0; i < TC_KC / 16; ++i) {
-          const int p = lane + 32 * i, r = p / 8;
-          const int col = c * TC_KC + p % 8 * 8;
-          next_kept[i] = make_uint4(0u, 0u, 0u, 0u);
-          if (a.add != nullptr && col < D && e0 + r < E)
-            next_kept[i] = *reinterpret_cast<const uint4*>(
-                a.add + (g * E + e0 + r) * D + col);
-        }
-      };
-      if (has_unit) load_kept(n_chunks - 1);
-#pragma unroll 1
-      for (int q = 0; q < n_chunks; ++q) {
+      // demb's columns c KC ..; the first two are the ones product 1 left
+      // in the ring, and the walk ends on chunks 1 and 0, where the next
+      // round's product 1 starts. `next_w(q)` comes before step q: chunk
+      // n - 1 - q landed for every thread, and every warp is done with the
+      // chunk before it, whose stage the chunk after it refills
+      auto next_w = [&](int q) {
         const int c = n_chunks - 1 - q;
-        if (q > 0) {
-          // chunk c landed for every thread, and every warp is done with
-          // chunk c + 1, whose stage chunk c - 1 refills
-          cp_async_wait<0>();
-          __syncthreads();
-          if (c > 0)
-            tc_load_w_chunk<S>(sW + ((c - 1) % TC_STAGES) * S::w_chunk,
-                               a.w16, (c - 1) * TC_KC, D, HD);
-          cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        if (c > 0)
+          tc_load_w_chunk<S>(sW + ((c - 1) % TC_STAGES) * S::w_chunk, a.ws,
+                             (c - 1) * S::KC, D, HD);
+        cp_async_commit();
+      };
+      if constexpr (sizeof(T) == 2) {
+        // bf16: a chunk's f32 output goes to the stage beside the cotangent
+        // tile (columns WIDTH .. of each row), then demb = output (+ add) 16
+        // bytes a lane; the chunk's `add` values (demb itself in pass 2:
+        // other columns than the stores before them) are loaded during the
+        // chunk before
+        static_assert(S::WIDTH * 2 + TC_KC * 4 <= S::ld32 * 4,
+                      "product 2's f32 output rows fit beside the cotangent "
+                      "tile");
+        float* s_out = s_rows + S::WIDTH / 2;
+        uint4 kept[TC_KC / 16], next_kept[TC_KC / 16];
+        auto load_kept = [&](int c) {
+#pragma unroll
+          for (int i = 0; i < TC_KC / 16; ++i) {
+            const int p = lane + 32 * i, r = p / 8;
+            const int col = c * TC_KC + p % 8 * 8;
+            next_kept[i] = make_uint4(0u, 0u, 0u, 0u);
+            if (a.add != nullptr && col < D && e0 + r < E)
+              next_kept[i] = *reinterpret_cast<const uint4*>(
+                  a.add + (g * E + e0 + r) * D + col);
+          }
+        };
+        if (has_unit) load_kept(n_chunks - 1);
+#pragma unroll 1
+        for (int q = 0; q < n_chunks; ++q) {
+          const int c = n_chunks - 1 - q;
+          if (q > 0) next_w(q);
+          if (!has_unit) continue;                 // uniform over the warp
+#pragma unroll
+          for (int i = 0; i < TC_KC / 16; ++i) kept[i] = next_kept[i];
+          if (c > 0) load_kept(c - 1);
+          float out[TC_KC / 8][4];
+          zero_acc(out);
+          warp_rows_product<false>(s_cot, ldc,
+                                   sW + (c % TC_STAGES) * S::w_chunk, S::ld16,
+                                   HDp / 16, out);
+          tc_stage_acc(out, s_out, S::ld32, lane);
+          __syncwarp();
+          // 16 rows of TC_KC columns: lane l on row l / 8 + 4 i, 8 columns
+#pragma unroll
+          for (int i = 0; i < TC_KC / 16; ++i) {
+            const int p = lane + 32 * i, r = p / 8, cc = p % 8 * 8;
+            if (c * TC_KC + cc >= D || e0 + r >= E) continue;
+            const float4 p0 =
+                *reinterpret_cast<const float4*>(s_out + r * S::ld32 + cc);
+            const float4 p1 =
+                *reinterpret_cast<const float4*>(s_out + r * S::ld32 + cc + 4);
+            float v[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+            float k[8];
+            unpack_bf16x8(kept[i], k);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) v[j] += k[j];
+            *reinterpret_cast<uint4*>(a.demb + (g * E + e0 + r) * D +
+                                      c * TC_KC + cc) = pack_bf16x8(v);
+          }
+          __syncwarp();   // every lane has read the chunk's staged rows
         }
-        if (!has_unit) continue;                 // uniform over the warp
+      } else {
+        // f32: the cotangent fills its rows of the stage, so a chunk's
+        // output goes from the accumulators to demb, a quad's 32 bytes a
+        // row (lane l on rows l / 4 and l / 4 + 8, columns 2 (l % 4) and
+        // the next of each 8), + add read at the same places before the
+        // product: all of a lane's loads come before its stores
+        constexpr int NO = S::KC / 8;
+        const int rq = lane >> 2, cq = 2 * (lane & 3);
+#pragma unroll 1
+        for (int q = 0; q < n_chunks; ++q) {
+          const int c = n_chunks - 1 - q;
+          if (q > 0) next_w(q);
+          if (!has_unit) continue;               // uniform over the warp
+          float2 kept[NO][2];
 #pragma unroll
-        for (int i = 0; i < TC_KC / 16; ++i) kept[i] = next_kept[i];
-        if (c > 0) load_kept(c - 1);
-        float out[TC_KC / 8][4];
-        zero_acc(out);
-        warp_rows_product<false>(s_cot, ldc,
-                                 sW + (c % TC_STAGES) * S::w_chunk, S::ld16,
-                                 HDp / 16, out);
-        tc_stage_acc(out, s_out, S::ld32, lane);
-        __syncwarp();
-        // 16 rows of TC_KC columns: lane l on row l / 8 + 4 i, 8 columns
+          for (int j = 0; j < NO; ++j)
 #pragma unroll
-        for (int i = 0; i < TC_KC / 16; ++i) {
-          const int p = lane + 32 * i, r = p / 8, cc = p % 8 * 8;
-          if (c * TC_KC + cc >= D || e0 + r >= E) continue;
-          const float4 p0 =
-              *reinterpret_cast<const float4*>(s_out + r * S::ld32 + cc);
-          const float4 p1 =
-              *reinterpret_cast<const float4*>(s_out + r * S::ld32 + cc + 4);
-          float v[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-          float k[8];
-          unpack_bf16x8(kept[i], k);
+            for (int h = 0; h < 2; ++h) {
+              const int r = rq + 8 * h, col = c * S::KC + 8 * j + cq;
+              kept[j][h] = make_float2(0.0f, 0.0f);
+              if (a.add != nullptr && col < D && e0 + r < E)
+                kept[j][h] = *reinterpret_cast<const float2*>(
+                    a.add + (g * E + e0 + r) * D + col);
+            }
+          float out[NO][4];
+          zero_acc(out);
+          warp_rows_product<false>(s_cot, ldc,
+                                   sW + (c % TC_STAGES) * S::w_chunk, S::ldw,
+                                   HDp / 16, out);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) v[j] += k[j];
-          *reinterpret_cast<uint4*>(a.demb + (g * E + e0 + r) * D +
-                                    c * TC_KC + cc) = pack_bf16x8(v);
+          for (int j = 0; j < NO; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = rq + 8 * h, col = c * S::KC + 8 * j + cq;
+              if (col < D && e0 + r < E)
+                *reinterpret_cast<float2*>(a.demb + (g * E + e0 + r) * D +
+                                           col) =
+                    make_float2(out[j][2 * h] + kept[j][h].x,
+                                out[j][2 * h + 1] + kept[j][h].y);
+            }
         }
-        __syncwarp();   // every lane has read the chunk's staged rows
       }
       __syncwarp();     // the stage is free for the next unit's emb chunks
     }
@@ -536,8 +622,9 @@ edge_pass_tc_kernel(const TcArgs a) {
         }
       }
       cp_async_commit();
-      tc_bwd_unit_weights<PASS>(a, t, g, e0, u, stride, n_units,
-                                units_per_graph, lane, next_src, next_dst);
+      tc_bwd_unit_weights<T, PASS>(a, t, g, e0, u, stride, n_units,
+                                   units_per_graph, lane, next_src,
+                                   next_dst);
       cp_async_wait<0>();
       __syncwarp();
 
@@ -548,8 +635,8 @@ edge_pass_tc_kernel(const TcArgs a) {
       __syncwarp();
       tc_stage_acc(acc, s_rows, S::ld32, lane);
       __syncwarp();
-      tc_bwd_epilogue<PASS, S::ld32>(a, t, s_rows, g, e0, lane, head, bias,
-                                     dbsum);
+      tc_bwd_epilogue<T, PASS, S::ld32>(a, t, s_rows, g, e0, lane, head,
+                                        bias, dbsum);
 
       // e. product 2: cot W^T -> f32 rows over the consumed cotangent rows,
       // then demb = product (+ add) row by row, 16 bytes a lane. All of a
@@ -560,8 +647,8 @@ edge_pass_tc_kernel(const TcArgs a) {
       tc_stage_acc(acc, s_rows, S::ld32, lane);
       __syncwarp();
       if (c0 < D) {
-        bf16* out = a.demb + (g * E + e0) * D + c0;
-        const bf16* add =
+        T* out = a.demb + (g * E + e0) * D + c0;
+        const T* add =
             a.add == nullptr ? nullptr : a.add + (g * E + e0) * D + c0;
         uint4 carried[TC_ROWS];
         if (add != nullptr) {
@@ -610,8 +697,19 @@ edge_pass_tc_kernel(const TcArgs a) {
 }
 
 constexpr int DWT_K = 64;          // slots of one staged slice
-constexpr int DWT_STAGES = 4;
+constexpr int DWT_K32 = 32;        // in f32: the same bytes a slice
+constexpr int DWT_STAGES = 4;      // slices in the ring
 constexpr int DWT_MAX_NT = 16;     // 8-column tiles of a block
+
+// slots of one staged slice of T, and slices in the ring
+template <typename T>
+__host__ __device__ constexpr int dwt_k() {
+  return sizeof(T) == 2 ? DWT_K : DWT_K32;
+}
+template <typename T>
+__host__ __device__ constexpr int dwt_stages() {
+  return DWT_STAGES;
+}
 
 // n-tiles of one column block: the HD / 8 tiles spread evenly over the
 // fewest blocks of at most DWT_MAX_NT
@@ -620,9 +718,15 @@ inline int dw_block_tiles(int HD) {
   return (nt + blocks - 1) / blocks;
 }
 
-// the kernel is compiled for these counts of tile pairs per column block
-inline int dw_pairs(int ntb) {
-  return ntb <= 4 ? 2 : ntb <= 8 ? 4 : ntb <= 14 ? 7 : 8;
+// the kernel is compiled for these counts of tile pairs per column block;
+// f32 also for 5, so that a 136-column launch's blocks of 9 tiles run 10
+// and not 14 (PERF.md PR 20)
+inline int dw_pairs(int ntb, bool f32) {
+  return ntb <= 4    ? 2
+         : ntb <= 8  ? 4
+         : f32 && ntb <= 10 ? 5
+         : ntb <= 14 ? 7
+                     : 8;
 }
 
 // part[s, d, c] = sum over the slots r of range s of emb[r, d] * cot[r, c]:
@@ -631,49 +735,77 @@ inline int dw_pairs(int ntb) {
 // slice (WARPS = 8 for DS <= 128, else 16: sixteen warps on one tile each
 // hide more latency than eight on two, 139 against 168 us at D = HD = 200)
 // times all 2 NP column tiles of its block, of which the last ones may lie
-// past the block's columns and are not stored.
-template <int NP, int WARPS>
+// past the block's columns and are not stored. In f32 (T = float) the
+// product is the split-TF32 one (mma_tile.cuh): emb^T's fragment read with
+// 32-bit loads from the slice as it lies ([slot][d], pitch 8 or 24 floats
+// modulo 32, so that rows t and columns g of a fragment fall into distinct
+// banks), and cot's likewise.
+template <int NP, int WARPS, typename T>
 __global__ void __launch_bounds__(32 * WARPS, 1)
-dw_tc_kernel(const bf16* __restrict__ emb, const bf16* __restrict__ cot,
+dw_tc_kernel(const T* __restrict__ emb, const T* __restrict__ cot,
              float* __restrict__ part, long long R, long long chunk, int D,
              int DS, int HD, int ntb) {
   extern __shared__ __align__(16) unsigned char dw_smem[];
+  constexpr int K = dwt_k<T>(), STAGES = dwt_stages<T>();
   constexpr int NT = 2 * NP, ldb = 16 * NP + 8;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int d0 = blockIdx.z * DS;
   const int lda = tile_pitch(DS);
-  const int a_bytes = DWT_K * lda * 2, stage_bytes = a_bytes + DWT_K * ldb * 2;
+  const int a_bytes = K * lda * (int)sizeof(T);
+  const int stage_bytes = a_bytes + K * ldb * (int)sizeof(T);
   const int col0 = blockIdx.x * ntb * 8;
   const int nt = min(ntb, (HD - col0) / 8);
   const long long r_begin = blockIdx.y * chunk;
   const long long r_end = r_begin + chunk < R ? r_begin + chunk : R;
   const int n_slices =
-      r_begin < r_end ? (int)((r_end - r_begin + DWT_K - 1) / DWT_K) : 0;
+      r_begin < r_end ? (int)((r_end - r_begin + K - 1) / K) : 0;
   const bool has_tile = warp < (DS + 15) / 16;    // the warp's row tile of dW
 
   auto load_slice = [&](int slice) {
-    unsigned char* stage = dw_smem + (slice % DWT_STAGES) * stage_bytes;
-    bf16* sA = reinterpret_cast<bf16*>(stage);
-    bf16* sB = reinterpret_cast<bf16*>(stage + a_bytes);
-    const long long r0 = r_begin + (long long)slice * DWT_K;
-    // a warp on every WARPS-th slot, a lane on one 16-byte chunk of its row
-    // (DS / 8 <= 32 chunks of emb, nt <= 16 of cot)
+    unsigned char* stage = dw_smem + (slice % STAGES) * stage_bytes;
+    T* sA = reinterpret_cast<T*>(stage);
+    T* sB = reinterpret_cast<T*>(stage + a_bytes);
+    const long long r0 = r_begin + (long long)slice * K;
+    if constexpr (sizeof(T) == 2) {
+      // a warp on every WARPS-th slot, a lane on one 16-byte chunk of its
+      // row (DS / 8 <= 32 chunks of emb, nt <= 16 of cot)
 #pragma unroll
-    for (int r = warp; r < DWT_K; r += WARPS) {
-      const bool in = r0 + r < r_end;
-      if (8 * lane < DS) {
-        bf16* to = sA + r * lda + 8 * lane;
-        if (in)
-          cp_async16(to, emb + (r0 + r) * D + d0 + 8 * lane);
-        else
-          *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
+      for (int r = warp; r < K; r += WARPS) {
+        const bool in = r0 + r < r_end;
+        if (8 * lane < DS) {
+          T* to = sA + r * lda + 8 * lane;
+          if (in)
+            cp_async16(to, emb + (r0 + r) * D + d0 + 8 * lane);
+          else
+            *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
+        }
+        if (lane < nt) {
+          T* to = sB + r * ldb + 8 * lane;
+          if (in)
+            cp_async16(to, cot + (r0 + r) * HD + col0 + 8 * lane);
+          else
+            *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
+        }
       }
-      if (lane < nt) {
-        bf16* to = sB + r * ldb + 8 * lane;
-        if (in)
-          cp_async16(to, cot + (r0 + r) * HD + col0 + 8 * lane);
-        else
-          *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      // f32: DS / 4 <= 64 chunks of emb a row, 2 nt <= 32 of cot
+#pragma unroll
+      for (int r = warp; r < K; r += WARPS) {
+        const bool in = r0 + r < r_end;
+        for (int p = lane; 4 * p < DS; p += 32) {
+          T* to = sA + r * lda + 4 * p;
+          if (in)
+            cp_async16(to, emb + (r0 + r) * D + d0 + 4 * p);
+          else
+            *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
+        }
+        if (lane < 2 * nt) {
+          T* to = sB + r * ldb + 4 * lane;
+          if (in)
+            cp_async16(to, cot + (r0 + r) * HD + col0 + 4 * lane);
+          else
+            *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
+        }
       }
     }
   };
@@ -683,31 +815,53 @@ dw_tc_kernel(const bf16* __restrict__ emb, const bf16* __restrict__ cot,
 
   // one commit per slot of the ring, loaded or not, keeps the group count
   // the same for every thread
-  for (int s = 0; s < DWT_STAGES - 1; ++s) {
+  for (int s = 0; s < STAGES - 1; ++s) {
     if (s < n_slices) load_slice(s);
     cp_async_commit();
   }
   for (int s = 0; s < n_slices; ++s) {
-    cp_async_wait<DWT_STAGES - 2>();
+    cp_async_wait<STAGES - 2>();
     __syncthreads();       // slice s has landed; slice s - 1 is consumed
-    if (s + DWT_STAGES - 1 < n_slices) load_slice(s + DWT_STAGES - 1);
+    if (s + STAGES - 1 < n_slices) load_slice(s + STAGES - 1);
     cp_async_commit();
-    const unsigned char* stage = dw_smem + (s % DWT_STAGES) * stage_bytes;
-    const bf16* sA = reinterpret_cast<const bf16*>(stage);
-    const bf16* sB = reinterpret_cast<const bf16*>(stage + a_bytes);
+    const unsigned char* stage = dw_smem + (s % STAGES) * stage_bytes;
+    const T* sA = reinterpret_cast<const T*>(stage);
+    const T* sB = reinterpret_cast<const T*>(stage + a_bytes);
     if (!has_tile) continue;
+    if constexpr (sizeof(T) == 2) {
 #pragma unroll
-    for (int ks = 0; ks < DWT_K / 16; ++ks) {
-      uint32_t af[4];
-      ldmatrix_x4_trans(
-          af, a_frag_ptr_trans(sA + ks * 16 * lda + warp * 16, lda, lane));
-      const bf16* b_ptr = b_frag_ptr_trans(sB + ks * 16 * ldb, ldb, lane);
+      for (int ks = 0; ks < K / 16; ++ks) {
+        uint32_t af[4];
+        ldmatrix_x4_trans(
+            af, a_frag_ptr_trans(sA + ks * 16 * lda + warp * 16, lda, lane));
+        const bf16* b_ptr = b_frag_ptr_trans(sB + ks * 16 * ldb, ldb, lane);
 #pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, b_ptr + j * 8);
-        mma_bf16_16x8x16(acc[j], af, b[0], b[1]);
-        mma_bf16_16x8x16(acc[j + 1], af, b[2], b[3]);
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, b_ptr + j * 8);
+          mma_bf16_16x8x16(acc[j], af, b[0], b[1]);
+          mma_bf16_16x8x16(acc[j + 1], af, b[2], b[3]);
+        }
+      }
+    } else {
+      // A = emb^T: a0..a3 at (row g, g + 8 of the warp's tile; depth t,
+      // t + 4); B = cot: b0, b1 at (depth t, t + 4; column g)
+      const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+      for (int k8 = 0; k8 < K / 8; ++k8) {
+        const float* pa = sA + (k8 * 8 + t) * lda + warp * 16 + g;
+        uint32_t a_hi[4], a_lo[4];
+        split_tf32(pa[0], a_hi[0], a_lo[0]);
+        split_tf32(pa[8], a_hi[1], a_lo[1]);
+        split_tf32(pa[4 * lda], a_hi[2], a_lo[2]);
+        split_tf32(pa[4 * lda + 8], a_hi[3], a_lo[3]);
+        const float* pb = sB + (k8 * 8 + t) * ldb + g;
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          const float b[2][2] = {{pb[8 * j], pb[4 * ldb + 8 * j]},
+                                 {pb[8 * j + 8], pb[4 * ldb + 8 * j + 8]}};
+          mma_split_tf32(acc + j, a_hi, a_lo, b);
+        }
       }
     }
   }
@@ -730,62 +884,79 @@ dw_tc_kernel(const bf16* __restrict__ emb, const bf16* __restrict__ cot,
   }
 }
 
-template <int PASS, int PAIRS, bool STREAM>
-cudaError_t launch_edge_tc(const TcArgs& a, int warps, int n_blocks,
+template <int PASS, int PAIRS, bool STREAM, typename T>
+cudaError_t launch_edge_tc(const TcArgs<T>& a, int warps, int n_blocks,
                            cudaStream_t s) {
-  typedef typename BwdShape<STREAM, PAIRS>::type S;
+  typedef typename BwdShape<T, STREAM, PAIRS>::type S;
   const size_t smem = (size_t)S::w_bytes + (size_t)warps * S::warp_bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      edge_pass_tc_kernel<PASS, PAIRS, STREAM>,
+      edge_pass_tc_kernel<PASS, PAIRS, STREAM, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  edge_pass_tc_kernel<PASS, PAIRS, STREAM>
+  edge_pass_tc_kernel<PASS, PAIRS, STREAM, T>
       <<<n_blocks, 32 * warps, smem, s>>>(a);
   return cudaSuccess;
 }
 
-template <int NP, int WARPS>
-cudaError_t launch_dw_tc(const TcArgs& a, float* dw_part, int n_split,
+// The f32 edge launch: the streaming kernel at the tile of HD's columns
+// (tc_stream_pairs)
+template <int PASS>
+cudaError_t launch_edge_f32(const TcArgs<float>& a, int warps, int n_blocks,
+                            cudaStream_t s) {
+  switch (tc_stream_pairs(a.HD)) {
+    case 4: return launch_edge_tc<PASS, 4, true>(a, warps, n_blocks, s);
+    case 8: return launch_edge_tc<PASS, 8, true>(a, warps, n_blocks, s);
+    case 9: return launch_edge_tc<PASS, 9, true>(a, warps, n_blocks, s);
+    case 13: return launch_edge_tc<PASS, 13, true>(a, warps, n_blocks, s);
+    default: return launch_edge_tc<PASS, 16, true>(a, warps, n_blocks, s);
+  }
+}
+
+template <int NP, int WARPS, typename T>
+cudaError_t launch_dw_tc(const TcArgs<T>& a, float* dw_part, int n_split,
                          int ntb, cudaStream_t s) {
-  const size_t smem = (size_t)DWT_STAGES * DWT_K *
-                      (tile_pitch(a.DS) + 16 * NP + 8) * 2;
+  const size_t smem = (size_t)dwt_stages<T>() * dwt_k<T>() *
+                      (tile_pitch(a.DS) + 16 * NP + 8) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
-      dw_tc_kernel<NP, WARPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dw_tc_kernel<NP, WARPS, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const long long R = (long long)a.G * a.E;
   long long chunk = (R + n_split - 1) / n_split;
-  chunk = (chunk + DWT_K - 1) / DWT_K * DWT_K;
-  dw_tc_kernel<NP, WARPS>
+  chunk = (chunk + dwt_k<T>() - 1) / dwt_k<T>() * dwt_k<T>();
+  dw_tc_kernel<NP, WARPS, T>
       <<<dim3((a.HD / 8 + ntb - 1) / ntb, n_split, a.D / a.DS), 32 * WARPS,
          smem, s>>>(a.emb, a.cot, dw_part, R, chunk, a.D, a.DS, a.HD, ntb);
   return cudaSuccess;
 }
 
-template <int NP>
-cudaError_t launch_dw_rows(const TcArgs& a, float* dw_part, int n_split,
+template <int NP, typename T>
+cudaError_t launch_dw_rows(const TcArgs<T>& a, float* dw_part, int n_split,
                            int ntb, cudaStream_t s) {
   return a.DS > 128 ? launch_dw_tc<NP, 16>(a, dw_part, n_split, ntb, s)
                     : launch_dw_tc<NP, 8>(a, dw_part, n_split, ntb, s);
 }
 
 // The launches of a pass on the tensor-core route: the edge kernel once,
-// W's rows streamed when the caller hands W in bf16 (a.w16; the wrapper
-// does so past D = 256), else resident, which takes D <= 256 (one slice:
-// DS = D); then dW over slices of DS of W's rows and the two reductions.
-// `warps` and `n_blocks` are the caller's (the partial arrays are sized
-// from them).
-template <int PASS>
-int launch_pass_tc(TcArgs a, float* dw_part, float* dw, float* db,
+// W's rows streamed when the caller hands W to stream (a.ws: bf16 rounded,
+// which the wrapper does past D = 256; f32 W itself, always in f32), else
+// resident, which takes D <= 256 (one slice: DS = D); then dW over slices
+// of DS of W's rows and the two reductions. `warps` and `n_blocks` are the
+// caller's (the partial arrays are sized from them).
+template <int PASS, typename T>
+int launch_pass_tc(TcArgs<T> a, float* dw_part, float* dw, float* db,
                    int n_split, int warps, int n_blocks, cudaStream_t s) {
-  const bool stream = a.w16 != nullptr;
+  constexpr bool f32 = sizeof(T) == 4;
+  const bool stream = a.ws != nullptr;
   const int max_warps =
-      stream ? tc_bwd_stream_warps(tc_bwd_stream_pairs(a.HD)) : TC_MAX_WARPS;
+      tc_bwd_max_warps(f32, stream, tc_bwd_stream_pairs(a.HD));
   if (warps < 1 || warps > max_warps || n_blocks < 1 ||
-      (stream ? !aligned16(a.w16) : a.DS != a.D))
+      (stream ? !aligned16(a.ws) : f32 || a.DS != a.D))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
-  if (stream) {
+  if constexpr (f32) {
+    err = launch_edge_f32<PASS>(a, warps, n_blocks, s);
+  } else if (stream) {
     switch (tc_bwd_stream_pairs(a.HD)) {
       case 8:
         err = launch_edge_tc<PASS, 8, true>(a, warps, n_blocks, s);
@@ -818,9 +989,12 @@ int launch_pass_tc(TcArgs a, float* dw_part, float* dw, float* db,
   }
   if (err != cudaSuccess) return (int)err;
   const int D = a.D, HD = a.HD, ntb = dw_block_tiles(HD);
-  switch (dw_pairs(ntb)) {
+  switch (dw_pairs(ntb, f32)) {
     case 2: err = launch_dw_rows<2>(a, dw_part, n_split, ntb, s); break;
     case 4: err = launch_dw_rows<4>(a, dw_part, n_split, ntb, s); break;
+    case 5:
+      if constexpr (f32) err = launch_dw_rows<5>(a, dw_part, n_split, ntb, s);
+      break;
     case 7: err = launch_dw_rows<7>(a, dw_part, n_split, ntb, s); break;
     default: err = launch_dw_rows<8>(a, dw_part, n_split, ntb, s); break;
   }

@@ -1,14 +1,16 @@
-// Device code shared by the bfloat16 tensor-core routes of the projected GAT
-// op: the forward passes A and C (gat_fwd_tc.cuh) and the backward passes 1
-// and 2 (gat_bwd_tc.cuh). All of them run persistent blocks in which each
-// warp works on units of TC_ROWS consecutive edge slots of one graph: the
-// unit's emb rows -> its stage (cp.async), emb W on tensor cores
-// (mma_tile.cuh), the f32 accumulators -> the stage as rows, and a row-wise
-// epilogue in which a lane owns 8 adjacent columns. W sits in shared memory,
-// rounded to bf16 and zero-padded: whole (`TcShape`, loaded once), or, at
-// D > 256, as a ring of chunks of its rows that the block's warps stream
-// through in lockstep (`TcStreamShape`; the backward streams it twice a
-// round, for emb W and for cot W^T).
+// Device code shared by the tensor-core routes of the projected GAT op: the
+// forward passes A and C in bfloat16 (gat_fwd_tc.cuh) and the backward
+// passes 1 and 2 in bfloat16 and float32 (gat_bwd_tc.cuh). All of them run
+// persistent blocks in which each warp works on units of TC_ROWS
+// consecutive edge slots of one graph: the unit's emb rows -> its stage
+// (cp.async), emb W on tensor cores (mma_tile.cuh), the f32 accumulators ->
+// the stage as rows, and a row-wise epilogue in which a lane owns 8 adjacent
+// columns. In bf16 W sits in shared memory, rounded to bf16 and zero-padded:
+// whole (`TcShape`, loaded once), or, at D > 256, as a ring of chunks of its
+// rows that the block's warps stream through in lockstep (`TcStreamShape`;
+// the backward streams it twice a round, for emb W and for cot W^T). The
+// backward's f32 route streams W's f32 rows through the same ring at every
+// D (`TcStream32Shape`), for split-TF32 products.
 #pragma once
 #include "gat_common.cuh"
 #include "mma_tile.cuh"
@@ -39,6 +41,7 @@ struct TcShape {
   static constexpr int NT = 2 * PAIRS;          // 8-column tiles
   static constexpr int WIDTH = 16 * PAIRS;
   static constexpr int ld16 = WIDTH + 8;        // pitch of W and of emb rows
+  static constexpr int ldw = ld16;              // pitch of W's rows
   static constexpr int ld32 = WIDTH + 4;        // pitch of the f32 rows
   static constexpr int w_bytes = WIDTH * ld16 * 2;
   static constexpr int stage_bytes = TC_ROWS * ld32 * 4;
@@ -72,6 +75,7 @@ __host__ __device__ constexpr int tc_stream_warps(int pairs) {
 template <int PAIRS, int SMALL_FLOATS>
 struct TcStreamShape : TcShape<PAIRS, SMALL_FLOATS> {
   typedef TcShape<PAIRS, SMALL_FLOATS> Whole;
+  static constexpr int KC = TC_KC;                     // W's rows a chunk
   static constexpr int ldk = TC_KC + 8;
   static constexpr int w_chunk = TC_KC * Whole::ld16;  // elements
   static constexpr int emb_chunk = TC_ROWS * ldk;      // elements
@@ -83,10 +87,39 @@ struct TcStreamShape : TcShape<PAIRS, SMALL_FLOATS> {
   static constexpr int warp_bytes = stage_bytes + SMALL_FLOATS * 4;
 };
 
+// The f32 streaming variant, the backward's split-TF32 route at every D:
+// the ring holds TC_STAGES chunks of TC_KC32 rows of W in f32 (pitch ldw =
+// WIDTH + 8 floats, 8 or 24 modulo 32, w32_col's layout), each warp's ring
+// of emb chunks TC_KC32 f32 columns (pitch ldk, 4 modulo 32), and the stage
+// then the f32 projection rows and, in place, the f32 cotangent rows (pitch
+// ld32 = WIDTH + 4). Half the bf16 chunk's rows keep 8 warps beside the ring
+// at 256 columns (214,016 bytes of 232,448). The tiles are the forward
+// streaming kernel's (tc_stream_pairs): product 2's output leaves from the
+// accumulators, so no tile needs room beside the cotangent.
+constexpr int TC_KC32 = 32;
+
+template <int PAIRS, int SMALL_FLOATS>
+struct TcStream32Shape {
+  static constexpr int NT = 2 * PAIRS;
+  static constexpr int WIDTH = 16 * PAIRS;
+  static constexpr int KC = TC_KC32;
+  static constexpr int ldw = WIDTH + 8;
+  static constexpr int ld32 = WIDTH + 4;
+  static constexpr int ldk = TC_KC32 + 4;
+  static constexpr int w_chunk = TC_KC32 * ldw;        // floats
+  static constexpr int emb_chunk = TC_ROWS * ldk;      // floats
+  static constexpr int w_bytes = TC_STAGES * w_chunk * 4;
+  static constexpr int ring_bytes = TC_STAGES * emb_chunk * 4;
+  static constexpr int rows_bytes = TC_ROWS * ld32 * 4;
+  static constexpr int stage_bytes =
+      rows_bytes > ring_bytes ? rows_bytes : ring_bytes;
+  static constexpr int warp_bytes = stage_bytes + SMALL_FLOATS * 4;
+};
+
 // zeros over the whole ring of W chunks: the columns past HD are never
 // loaded. The whole block takes part; the caller synchronises.
-template <typename S>
-__device__ __forceinline__ void tc_zero_ring(bf16* ring) {
+template <typename S, typename T>
+__device__ __forceinline__ void tc_zero_ring(T* ring) {
   for (int idx = threadIdx.x; idx < S::w_bytes / 16; idx += blockDim.x)
     reinterpret_cast<uint4*>(ring)[idx] = make_uint4(0u, 0u, 0u, 0u);
 }
@@ -124,6 +157,111 @@ __device__ __forceinline__ void tc_load_emb_chunk(bf16* to, const bf16* rows,
     else
       *reinterpret_cast<uint4*>(at) = make_uint4(0u, 0u, 0u, 0u);
   }
+}
+
+// Rows d0 .. d0 + S::KC of W (D, HD) f32 -> a chunk of the f32 ring by
+// cp.async, in w32_col's layout (a 16-byte piece stays whole: the swizzle
+// flips bit 2 of its first column), zeros in the rows past D. The whole
+// block takes part.
+template <typename S>
+__device__ __forceinline__ void tc_load_w_chunk(float* to, const float* w,
+                                                int d0, int D, int HD) {
+  const int per_row = HD >> 2;
+  for (int p = threadIdx.x; p < S::KC * per_row; p += blockDim.x) {
+    const int i = p / per_row, c = (p - i * per_row) * 4;
+    float* at = to + i * S::ldw + w32_col(i, c);
+    if (d0 + i < D)
+      cp_async16(at, w + ((long long)(d0 + i) * HD + c));
+    else
+      *reinterpret_cast<uint4*>(at) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Columns d0 .. d0 + S::KC of the unit's 16 f32 emb rows -> the warp's
+// chunk, as the bf16 loader above.
+template <typename S>
+__device__ __forceinline__ void tc_load_emb_chunk(float* to,
+                                                  const float* rows, int d0,
+                                                  int D, const int* s_src,
+                                                  int lane) {
+  constexpr int per_row = S::KC / 4;
+#pragma unroll
+  for (int p = lane; p < TC_ROWS * per_row; p += 32) {
+    const int r = p / per_row, c = (p % per_row) * 4;
+    float* at = to + r * S::ldk + c;
+    if (s_src[r] >= 0 && d0 + c < D)
+      cp_async16(at, rows + ((long long)r * D + d0 + c));
+    else
+      *reinterpret_cast<uint4*>(at) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// 8 consecutive values of a row of T (bf16 or f32): one 16-byte word or two
+template <typename T>
+struct Vec8 {
+  uint4 q[sizeof(T) / 2];
+};
+
+template <typename T>
+__device__ __forceinline__ Vec8<T> load8(const T* p) {
+  Vec8<T> v;
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 2); ++i)
+    v.q[i] = reinterpret_cast<const uint4*>(p)[i];
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ void store8(T* p, const Vec8<T>& v) {
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 2); ++i)
+    reinterpret_cast<uint4*>(p)[i] = v.q[i];
+}
+
+template <typename T>
+__device__ __forceinline__ Vec8<T> zero8() {
+  Vec8<T> v;
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 2); ++i)
+    v.q[i] = make_uint4(0u, 0u, 0u, 0u);
+  return v;
+}
+
+__device__ __forceinline__ void unpack8(const Vec8<bf16>& v, float* f) {
+  unpack_bf16x8(v.q[0], f);
+}
+
+__device__ __forceinline__ void unpack8(const Vec8<float>& v, float* f) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    f[4 * i] = __uint_as_float(v.q[i].x);
+    f[4 * i + 1] = __uint_as_float(v.q[i].y);
+    f[4 * i + 2] = __uint_as_float(v.q[i].z);
+    f[4 * i + 3] = __uint_as_float(v.q[i].w);
+  }
+}
+
+// 8 f32 values as T (bf16: round to nearest even)
+template <typename T>
+__device__ __forceinline__ Vec8<T> pack8(const float* f);
+
+template <>
+__device__ __forceinline__ Vec8<bf16> pack8<bf16>(const float* f) {
+  Vec8<bf16> v;
+  v.q[0] = pack_bf16x8(f);
+  return v;
+}
+
+template <>
+__device__ __forceinline__ Vec8<float> pack8<float>(const float* f) {
+  Vec8<float> v;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    v.q[i] = make_uint4(__float_as_uint(f[4 * i]),
+                        __float_as_uint(f[4 * i + 1]),
+                        __float_as_uint(f[4 * i + 2]),
+                        __float_as_uint(f[4 * i + 3]));
+  return v;
 }
 
 // W (D, HD) f32 -> sW, rounded to bf16; zeros wherever a product reaches

@@ -120,6 +120,129 @@ __device__ __forceinline__ void warp_rows_product(
   }
 }
 
+// --- split TF32: f32 operands on the tf32 tensor cores ----------------------
+//
+// A tf32 product keeps 10 bits of each operand's mantissa (about 2^-11
+// relative). Split each f32 operand x into hi = tf32(x) and lo = x - hi
+// (split_tf32); then a b = a_lo b_hi + a_hi b_lo + a_hi b_hi up to a_lo b_lo
+// and lo's own rounding, about 2^-20 relative per product at worst, each
+// term accumulated in f32. The small terms go first, so that they are
+// not lost under the large one. `mma.sync.aligned.m16n8k8` with tf32 inputs
+// takes A 16 x 8 in four registers (rows g and g + 8, depth t and t + 4; g =
+// lane / 4, t = lane % 4), B 8 x 8 in two (depth t and t + 4, column g) and
+// gives the accumulator layout of the bf16 product above.
+
+// hi = x rounded to tf32 (10 mantissa bits, to nearest, ties away: what
+// cvt.rna.tf32.f32 gives, which sm_90a has no instruction for; ptxas
+// writes it as four, a compare, an add, a select and a mask, which made the
+// split the larger part of the products' time on an H100, PERF.md PR 20),
+// and lo = x - hi, exact in f32, which the tensor core reads as tf32 by
+// dropping its 13 low bits (lo's error then at most 2^-10 of lo, 2^-21 of
+// x).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a b: a 16 x 8 (row), b 8 x 8 (col), tf32 in, f32 accumulate; not
+// volatile, so that the compiler may schedule it among the others
+__device__ __forceinline__ void mma_tf32_16x8x8(float (&c)[4],
+                                                const uint32_t (&a)[4],
+                                                uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[i] += a b[i] in f32 from the split operands for two tiles (b[i]: tile
+// i's two B registers): the two small terms, then hi hi, each over both
+// tiles before the next, so that the products into one accumulator do not
+// follow each other
+__device__ __forceinline__ void mma_split_tf32(float (*c)[4],
+                                               const uint32_t (&a_hi)[4],
+                                               const uint32_t (&a_lo)[4],
+                                               const float (&b)[2][2]) {
+  constexpr int N = 2;
+  uint32_t b_hi[N][2], b_lo[N][2];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    split_tf32(b[i][0], b_hi[i][0], b_lo[i][0]);
+    split_tf32(b[i][1], b_hi[i][1], b_lo[i][1]);
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    mma_tf32_16x8x8(c[i], a_lo, b_hi[i][0], b_hi[i][1]);
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    mma_tf32_16x8x8(c[i], a_hi, b_lo[i][0], b_lo[i][1]);
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    mma_tf32_16x8x8(c[i], a_hi, b_hi[i][0], b_hi[i][1]);
+}
+
+// The column at which an f32 tile of W's rows keeps (row d, column c): bit
+// 2 of c flipped in rows with bit 2 set. With a pitch of 8 or 24 floats
+// modulo 32 the 32-bit loads of a [depth][column] read (rows t and t + 4,
+// columns g) and the ldmatrix phases of a [column][depth] read (eight rows
+// of 16 bytes) then both fall into distinct banks.
+__device__ __forceinline__ int w32_col(int d, int c) { return c ^ (d & 4); }
+
+// The split-TF32 form of warp_rows_product: acc[j] += A B[:, 8j : 8j + 8]
+// for all NT tiles in f32 (error about 2^-21 of the terms' sizes), ksteps
+// steps of 16 as above (two of 8 each). A: the warp's 16 rows, [row][depth]
+// f32 at sA (pitch lda, lda % 32 in {4, 12, 20, 28}: an odd multiple of 16
+// bytes modulo 128, so that ldmatrix, which moves the f32 words as pairs of
+// 16-bit ones, reads each phase from eight bank groups); its fragment is
+// split once and serves every tile. B: an f32 tile of W's rows (w32_col's
+// layout, pitch ldb % 32 in {8, 24}), read as [depth][column] where
+// B_DEPTH_MAJOR (32-bit loads) and as [column][depth] otherwise (ldmatrix,
+// two tiles a load).
+template <bool B_DEPTH_MAJOR, int NT>
+__device__ __forceinline__ void warp_rows_product(
+    const float* sA, int lda, const float* sB, int ldb, int ksteps,
+    float (&acc)[NT][4]) {
+  static_assert(NT % 2 == 0, "B is read two tiles at a time");
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* a_ptr =
+      sA + ((lane & 7) + ((lane >> 3) & 1) * 8) * lda + (lane >> 4) * 4;
+  // depth-major: rows t (no swizzle) and t + 4 (swizzled) of column g;
+  // column-major: the ldmatrix row of this lane, swizzled by its row
+  const float* b0_ptr = sB + t * ldb + g;
+  const float* b1_ptr = sB + (t + 4) * ldb + (g ^ 4);
+  const float* bt_ptr = sB + ((lane & 7) + (lane >> 4) * 8) * ldb +
+                        ((((lane >> 3) & 1) * 4) ^ (lane & 4));
+#pragma unroll 1
+  for (int k8 = 0; k8 < 2 * ksteps; ++k8) {
+    uint32_t a[4], a_hi[4], a_lo[4];
+    ldmatrix_x4(a, a_ptr + k8 * 8);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(a[i]), a_hi[i],
+                                           a_lo[i]);
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      float b[2][2];
+      if (B_DEPTH_MAJOR) {
+        const int at = k8 * 8 * ldb + j * 8;
+        b[0][0] = b0_ptr[at];
+        b[0][1] = b1_ptr[at];
+        b[1][0] = b0_ptr[at + 8];
+        b[1][1] = b1_ptr[at + 8];
+      } else {
+        uint32_t r[4];
+        ldmatrix_x4(r, bt_ptr + (j * 8) * ldb + k8 * 8);
+        b[0][0] = __uint_as_float(r[0]);
+        b[0][1] = __uint_as_float(r[1]);
+        b[1][0] = __uint_as_float(r[2]);
+        b[1][1] = __uint_as_float(r[3]);
+      }
+      mma_split_tf32(acc + j, a_hi, a_lo, b);
+    }
+  }
+}
+
 // 16-byte asynchronous copy, global to shared (both 16-byte aligned)
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"

@@ -37,12 +37,16 @@ recomputes e = exp(min(s - gmax, 0)) from the saved scores and runs
     -> dekb = d_s * nq[src], demb += dekb W_ke^T, dW_ke, db_ke,
     dnq[src] += d_s * key, dnk[dst] += dekb.
 
-Both backward passes have two routes behind one entry point, chosen by the
-dtype alone: bfloat16 runs the three products of a pass on tensor cores
-(csrc/gat_bwd_tc.cuh: persistent blocks with W resident in shared memory at
-D <= 256; past that one launch streams W, rounded to bf16 here
-(`_streamed_w`), through shared memory in chunks of its rows, twice a
-round), float32 stays on CUDA cores in full f32.
+Both backward passes run the three products of a pass on tensor cores in
+either dtype (csrc/gat_bwd_tc.cuh, `_bwd_route`; route 0, the CUDA-core
+kernels, only when named). bfloat16: persistent blocks with W resident in
+shared memory at D <= 256; past that one launch streams W, rounded to bf16
+here (`_streamed_w`), through shared memory in chunks of its rows, twice a
+round. float32: the same streaming kernel at every D, handed W itself in
+f32, each product as three tf32 products of split operands (hi = tf32(x),
+lo = x - hi; a_lo b_hi + a_hi b_lo + a_hi b_hi in f32), about 2^-20
+relative a product at worst against the 1e-4 the f32 passes are held to on
+the card.
 
 No gradient flows through gmax. The chained form also returns the edge
 embedding: threaded through the k layers, each layer's backward receives the
@@ -136,6 +140,11 @@ STREAM_TILES = ((64, 12), (128, 12), (144, 12), (208, 8), (256, 8))
 # `tc_bwd_stream_warps`; tests/test_torch_bwd_streamed.py holds the two
 # copies together)
 BWD_STREAM_TILES = ((128, 12), (144, 12), (208, 8), (256, 8))
+# the backward's f32 route, streamed at every D (`TcStream32Shape`): W's f32
+# rows a chunk, and the tiles (the forward's widths) with their warps
+# (tests/test_torch_bwd_f32_route.py holds them to csrc)
+TC_KC32 = 32
+BWD32_STREAM_TILES = ((64, 8), (128, 8), (144, 8), (208, 8), (256, 8))
 
 
 def _lib():
@@ -603,12 +612,19 @@ def split_dalpha(dalpha, mask, acc=None):
 
 
 def _bwd_route(cdt, route):
-    """0: CUDA cores, 1: tensor cores. The dtype alone decides; `route`
-    names the CUDA-core kernels for bfloat16 (to time them beside the
-    tensor-core ones)."""
+    """0: CUDA cores, 1: tensor cores, the route in both dtypes: bf16
+    products in bfloat16, split-TF32 products in float32 (hi = tf32(x), lo
+    = x - hi, then lo hi + hi lo + hi hi: about 2^-20 of |a| |b| a product
+    at worst, within 1.7e-5 of the plain versions on the card against the
+    1e-4 they are held to; bound by the tf32 rate, 495 TFLOP/s for a third
+    as many f32-accurate operations). On an NVIDIA H100 80GB HBM3 (700 W)
+    an f32 call of pass 1 / 2 takes 1.79 / 1.73 ms at D = HD = 200 against
+    route 0's 3.49 / 3.31, 41.1 / 40.7 ms at gnn_dim 1040 against 87.8 /
+    83.2 (PERF.md). `route` 0 names the CUDA-core kernels in either dtype,
+    to time them beside the tensor-core ones."""
     if route is None:
-        return 1 if cdt == torch.bfloat16 else 0
-    if route not in (0, 1) or (route == 1 and cdt != torch.bfloat16):
+        return 1
+    if route not in (0, 1):
         raise ValueError(f"no route {route} of the GAT backward kernels for "
                          f"{cdt}")
     return route
@@ -652,25 +668,40 @@ def _stream_smem(width, warps, small_floats):
     return ring + warps * (stage + small_floats * 4)
 
 
-def _bwd_streams(D):
+def _bwd_streams(D, cdt=torch.bfloat16):
     """Whether route 1 of the backward passes streams W's rows through
-    shared memory (D > 256) or holds W there whole. The one place that
-    decides: the kernel streams exactly when the wrapper hands it W in
-    bf16."""
-    return D > MAX_COLS
+    shared memory or holds W there whole: bf16 past D = 256, f32 at every
+    D (W's f32 rows whole would leave room for three warps at D = HD =
+    200). The one place that decides: the kernel streams exactly when the
+    wrapper hands it W to stream (`_streamed_w`)."""
+    return cdt == torch.float32 or D > MAX_COLS
 
 
-def _bwd_stream_tile(HD):
+def _bwd_stream_tile(HD, cdt=torch.bfloat16):
     """(columns, most warps a block) of the backward streaming kernel's
-    tile for a launch of HD columns: the first of BWD_STREAM_TILES to hold
-    HD."""
-    return next(t for t in BWD_STREAM_TILES if HD <= t[0])
+    tile for a launch of HD columns: the first of BWD_STREAM_TILES (f32:
+    BWD32_STREAM_TILES) to hold HD."""
+    tiles = BWD32_STREAM_TILES if cdt == torch.float32 else BWD_STREAM_TILES
+    return next(t for t in tiles if HD <= t[0])
 
 
-def _tc_smem_bytes(D, HD, warps):
+def _stream32_smem(width, warps, small_floats):
+    """Dynamic shared memory of the f32 streaming edge kernel
+    (`TcStream32Shape`): a ring of TC_STAGES chunks of TC_KC32 f32 rows of
+    W, then per warp a stage that holds its ring of f32 emb chunks and then
+    its f32 rows, beside its small tables."""
+    ring = TC_STAGES * TC_KC32 * (width + 8) * 4
+    stage = max(TC_UNIT * (width + 4) * 4,
+                TC_STAGES * TC_UNIT * (TC_KC32 + 4) * 4)
+    return ring + warps * (stage + small_floats * 4)
+
+
+def _tc_smem_bytes(D, HD, warps, cdt=torch.bfloat16):
     """The backward edge kernel's (alpha or d_s, e, d_alpha and the nodes
-    beside each stage; the bf16 cotangent rows go over the f32 rows)."""
+    beside each stage; the cotangent rows go over the f32 rows)."""
     small = 3 * TC_UNIT * 8 + 2 * TC_UNIT
+    if cdt == torch.float32:
+        return _stream32_smem(_bwd_stream_tile(HD, cdt)[0], warps, small)
     if not _bwd_streams(D):
         return _tc_smem(D, HD, warps, small)
     return _stream_smem(_bwd_stream_tile(HD)[0], warps, small)
@@ -712,11 +743,14 @@ def _persistent_plan(smem_bytes, G, E, D, HD, n_sm, what,
     return warps, max(1, min(n_sm, -(-units // warps)))
 
 
-def _tc_plan(G, E, D, HD, n_sm):
-    """The backward tensor-core edge kernel's plan, W whole or streamed."""
-    max_warps = _bwd_stream_tile(HD)[1] if _bwd_streams(D) else TC_MAX_WARPS
-    return _persistent_plan(_tc_smem_bytes, G, E, D, HD, n_sm,
-                            "GAT backward", max_warps)
+def _tc_plan(G, E, D, HD, n_sm, cdt=torch.bfloat16):
+    """The backward tensor-core edge kernel's plan in `cdt`, W whole or
+    streamed."""
+    max_warps = _bwd_stream_tile(HD, cdt)[1] if _bwd_streams(D, cdt) \
+        else TC_MAX_WARPS
+    return _persistent_plan(
+        lambda D_, HD_, w: _tc_smem_bytes(D_, HD_, w, cdt), G, E, D, HD,
+        n_sm, "GAT backward", max_warps)
 
 
 def _fwd_max_warps(D, HD):
@@ -732,14 +766,19 @@ def _fwd_tc_plan(G, E, D, HD, n_sm):
                             "GAT forward", _fwd_max_warps(D, HD))
 
 
-def _streamed_w(route, w, streams):
-    """W (D, HD) rounded to bf16 where route 1 streams its rows from device
-    memory through shared memory once a round of units (half the bytes of
-    f32 rows, no rounding in the ring); None elsewhere: route 0 and the
-    resident kernel round W as they load it. `streams`: the direction's
-    decision by D (`_fwd_streams` or `_bwd_streams`)."""
-    return w.to(torch.bfloat16) if route == 1 and streams(w.shape[0]) \
-        else None
+def _streamed_w(route, w, streams, cdt=torch.bfloat16):
+    """W (D, HD) as route 1 streams its rows from device memory through
+    shared memory once a round of units: in bf16 rounded to bf16 (half the
+    bytes of f32 rows, no rounding in the ring) where `streams(D)` (the
+    direction's decision: `_fwd_streams` or `_bwd_streams`); in f32 (the
+    backward's split-TF32 route, which streams at every D) W itself,
+    unrounded. None elsewhere: route 0 and the resident kernel round W as
+    they load it."""
+    if route != 1:
+        return None
+    if cdt == torch.float32:
+        return w
+    return w.to(torch.bfloat16) if streams(w.shape[0]) else None
 
 
 def _fwd_launch_plan(route, G, E, D, HD, device):
@@ -750,15 +789,16 @@ def _fwd_launch_plan(route, G, E, D, HD, device):
     return _fwd_tc_plan(G, E, D, HD, _sm_count(device))
 
 
-def _split_scratch(G, E, D, HD, device, route=0, n_sm=1):
+def _split_scratch(G, E, D, HD, device, route=0, n_sm=1,
+                   cdt=torch.bfloat16):
     """(n_split, warps, n_blocks, dw_part (n_split, D, HD), db_part): the
     partial sums of dW over n_split edge ranges and of db, one row per block
     of the edge kernel: (64-edge tile, graph) blocks on CUDA cores (warps
     and n_blocks are 0: that grid follows from the shapes), n_blocks
-    persistent blocks on tensor cores (`_tc_plan`: W whole, or its rows
-    streamed past D = 256), where dW is split once per SM."""
+    persistent blocks on tensor cores (`_tc_plan` in `cdt`: W whole, or its
+    rows streamed), where dW is split once per SM."""
     if route == 1:
-        warps, n_blocks = _tc_plan(G, E, D, HD, n_sm)
+        warps, n_blocks = _tc_plan(G, E, D, HD, n_sm, cdt)
         n_split, db_rows = max(1, min(n_sm, -(-G * E // 32))), n_blocks
     else:
         warps = n_blocks = 0
@@ -851,14 +891,14 @@ def _bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
     # the tensor-core kernels read W_me both ways from one shared tile or
     # ring of its rows
     w_t = None if route == 1 else _sliced_transpose(w_me, width)
-    w16 = _streamed_w(route, w_me, _bwd_streams)
+    ws = _streamed_w(route, w_me, _bwd_streams, cdt)
     dmsg = torch.empty((G, E, HD), device=dev, dtype=cdt)
     demb = torch.empty((G, E, D), device=dev, dtype=cdt)
     dalpha = _scores_out(acc, G, heads, E, dev)
     dw = torch.empty((D, HD), device=dev, dtype=torch.float32)
     db = torch.empty((HD,), device=dev, dtype=torch.float32)
     n_split, warps, n_blocks, dw_part, db_part = _split_scratch(
-        G, E, D, HD, dev, route, _sm_count(dev))
+        G, E, D, HD, dev, route, _sm_count(dev), cdt)
     err = _bwd_lib().gat_bwd_pass1(
         gout.data_ptr(), nm.data_ptr(), edge_emb.data_ptr(), w_me.data_ptr(),
         None if w_t is None else w_t.data_ptr(), b_me.data_ptr(),
@@ -868,7 +908,7 @@ def _bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
         demb.data_ptr(), dalpha.data_ptr(), dnm.data_ptr(),
         dscale.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
         dw.data_ptr(), db.data_ptr(),
-        None if w16 is None else w16.data_ptr(), G, N, E, D, HD, heads,
+        None if ws is None else ws.data_ptr(), G, N, E, D, HD, heads,
         n_split, width, _dtype_code(nm), route, warps, n_blocks,
         _part(acc, last), _stream())
     _build.check(err, "gat_bwd_pass1")
@@ -959,12 +999,12 @@ def _bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
     route = _bwd_route(cdt, _route)
     width = d_slices(D)[1]
     w_t = None if route == 1 else _sliced_transpose(w_ke, width)
-    w16 = _streamed_w(route, w_ke, _bwd_streams)
+    ws = _streamed_w(route, w_ke, _bwd_streams, cdt)
     dekb = torch.empty((G, E, HD), device=dev, dtype=cdt)
     dw = torch.empty((D, HD), device=dev, dtype=torch.float32)
     db = torch.empty((HD,), device=dev, dtype=torch.float32)
     n_split, warps, n_blocks, dw_part, db_part = _split_scratch(
-        G, E, D, HD, dev, route, _sm_count(dev))
+        G, E, D, HD, dev, route, _sm_count(dev), cdt)
     err = _bwd_lib().gat_bwd_pass2(
         nq.data_ptr(), nk.data_ptr(), edge_emb.data_ptr(), w_ke.data_ptr(),
         None if w_t is None else w_t.data_ptr(), b_ke.data_ptr(),
@@ -973,7 +1013,7 @@ def _bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
         src.data_ptr(), dst.data_ptr(), mask.data_ptr(), dekb.data_ptr(),
         demb.data_ptr(), dnq.data_ptr(), dnk.data_ptr(), dw_part.data_ptr(),
         db_part.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        None if w16 is None else w16.data_ptr(), G, N, E, D, HD, heads,
+        None if ws is None else ws.data_ptr(), G, N, E, D, HD, heads,
         n_split, width, _dtype_code(nq), route, warps, n_blocks, _stream())
     _build.check(err, "gat_bwd_pass2")
     _build.count_launch("gat_bwd_pass2", route)

@@ -4,7 +4,14 @@ Counterpart of profile_step.py. It trains `QAGNNMessagePassing` at the
 bench shapes (G=64 graphs, N=200 nodes, E=4096 edge slots, D=200, k=5, 38
 relations, dropout 0.2, bf16) for one warm step, then three traced steps
 under torch.profiler (CPU and CUDA activity), and writes the Chrome trace
-into --trace-dir. Each step is loss = sum(out * out), then backward, then
+into --trace-dir. On the card the trace opens with a lead-in, one small
+kernel and LEAD_IN_S of idle time, ahead of the traced steps: on an H100 a
+trace that opened with them held two of the three `edge_moments_kernel`
+launches, the traced steps' first kernel of ours, in three of the six
+traces of chip_smoke.py's tools phase on record, all late in a long
+process. Whether the profiler drops a session's first records or places
+its first kernels before the session's start, the lead-in takes the loss.
+Each step is loss = sum(out * out), then backward, then
 p -= 1e-5 * grad for every parameter and H += 1e-4 * dH, the BatchNorm
 running statistics updated by the train-mode forward.
 
@@ -24,6 +31,7 @@ import argparse
 import collections
 import os
 import sys
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -46,6 +54,7 @@ class Shapes(NamedTuple):
 
 N_NTYPE, N_ETYPE = 4, 38
 TRACED_STEPS = 3
+LEAD_IN_S = 0.05
 TRACE_FILE = "profile_step.json"
 
 
@@ -109,6 +118,10 @@ def profile(trace_dir: str = "/tmp/qagnn_prof", backend: str = "cuda",
     launches = collections.Counter(_build.LAUNCHES)
     routes = collections.Counter(_build.ROUTES)
     with torch.profiler.profile(activities=activities) as prof:
+        if dev.type == "cuda":
+            torch.zeros(1, device=dev)
+            torch.cuda.synchronize()
+            time.sleep(LEAD_IN_S)
         for _ in range(TRACED_STEPS):
             H, loss = step(H)
         if dev.type == "cuda":

@@ -176,15 +176,23 @@ DEMB_SPLIT_TOL = 2 ** -7
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_wide_backward_passes_match_pallas(case, dtype):
     shape, heads = CASES[case]
+    assert gk._bwd_streams(shape[5])
+    split = passes_match_pallas(shape, heads, dtype)
+    assert split == case.endswith("split_head")
+
+
+def passes_match_pallas(shape, heads, dtype):
+    """Both backward passes through their wrappers at `shape` ((seed, G, N,
+    E, HD, D, mask kind) of `_inputs`), with a carry, against the JAX
+    package's passes in interpret mode; the tolerances of this file's head
+    note. Returns whether a head runs in column launches."""
     a = _inputs(*shape)
     HD = a["nq"].shape[-1]
     # the query as the op takes it, W_q x / sqrt(features a head): unscaled,
     # a 264-feature head scores at +-90, where f32 sums in another order
     # alone move dnq by 8e-5 of its largest
     a["nq"] = (a["nq"] / np.sqrt(HD // heads)).astype(np.float32)
-    assert gk._bwd_streams(a["edge_emb"].shape[-1])
     split = len(gk.launches(HD, heads)) > 1
-    assert split == case.endswith("split_head")
     cdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
     j = {k: jnp.asarray(v) for k, v in a.items()}
     for k in CDT_NAMES:
@@ -240,6 +248,7 @@ def test_wide_backward_passes_match_pallas(case, dtype):
                           want2):
         _close(x, y, demb_tol if name == "demb" else PASS_TOL,
                f"pass 2 {name}")
+    return split
 
 
 # --------------------------------------------------------------------------

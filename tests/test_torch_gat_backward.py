@@ -311,17 +311,19 @@ def test_backward_kernels_refuse_widths(D, HD, heads, why):
 
 
 @pytest.mark.parametrize("dtype,route,want", [
-    (torch.float32, None, 0), (torch.bfloat16, None, 1),
-    (torch.bfloat16, 0, 0), (torch.bfloat16, 1, 1), (torch.float32, 0, 0)])
+    (torch.float32, None, 1), (torch.bfloat16, None, 1),
+    (torch.bfloat16, 0, 0), (torch.bfloat16, 1, 1), (torch.float32, 0, 0),
+    (torch.float32, 1, 1)])
 def test_backward_route_follows_the_dtype(dtype, route, want):
+    """Tensor cores in both dtypes (split-TF32 products in float32); route
+    0, the CUDA-core kernels, when named."""
     assert gat_kernels._bwd_route(dtype, route) == want
 
 
-@pytest.mark.parametrize("dtype,route", [(torch.float32, 1),
+@pytest.mark.parametrize("dtype,route", [(torch.float32, 2),
                                          (torch.bfloat16, 2)])
 def test_backward_route_refuses(dtype, route):
-    """No tensor-core kernels for float32 (TF32 would not be exact), and no
-    third route."""
+    """No third route in either dtype."""
     with pytest.raises(ValueError):
         gat_kernels._bwd_route(dtype, route)
 
