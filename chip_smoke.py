@@ -16,12 +16,12 @@ Run from the repository root on a machine with one CUDA card. It
      (D=24, HD=40, which need padding; 96 x 128; 256 x 256; the forward
      also at 264 x 200, 520 x 64 with 8 heads and 1040 x 136 with one head,
      where W's rows stream through shared memory), on both of their routes
-     in bf16, with their masked slots held exactly, their
-     tensor-core kernels (bf16) timed in turns with the CUDA-core ones on the
-     same inputs, and torch.profiler's device time by kernel name (the
-     backward passes run on tensor cores in f32 too, split-TF32 products,
-     timed at the main shapes in turns with their CUDA-core kernels on the
-     same f32 inputs, their bound at a third of the tf32 rate); the
+     in both dtypes, with their masked slots held exactly, their
+     tensor-core kernels timed in turns with the CUDA-core ones on the
+     same inputs, and torch.profiler's device time by kernel name (all four
+     passes run on tensor cores in f32 too, split-TF32 products, timed at
+     the main shapes in turns with their CUDA-core kernels on the same f32
+     inputs, their bound at a third of the tf32 rate); the
      streaming kernel of the forward passes also at 200 x 200 and 256 x 256,
      against the plain versions and timed in turns with the resident
      kernel that route 1 runs there; the
@@ -165,15 +165,15 @@ Run from the repository root on a machine with one CUDA card. It
      reference, the scatter path in float64 under deterministic algorithms
      (f32: each of nine draws of the kernel path under 2e-3, their mean
      under twice the mean of nine f32 scatter draws, ROADMAP C14), with the
-     launches and routes (every bf16 launch of rows 6-9 on tensor cores,
-     backward passes 1 and 2 streaming W's rows past D = 256, and on tensor
-     cores in f32 too); the passes alone at both widths on both routes
-     against their plain versions, at E and E - 3, every route-1 launch of
-     rows 8 and 9 held against its plain version in both dtypes, and the
-     times of rows 6-9 and 11-12 there beside their bounds, by call and by
-     launch (one edge kernel a column launch of rows 8 and 9), rows 6 and 7
-     in bf16 and rows 8 and 9 in f32 in turns with their CUDA-core route on
-     the same inputs; and
+     launches and routes (every launch of rows 6-9 on tensor cores in both
+     dtypes, backward passes 1 and 2 streaming W's rows past D = 256); the
+     passes alone at both widths on both routes against their plain
+     versions, at E and E - 3, every launch of rows 6-9 held against its
+     plain version in both dtypes, and the times of rows 6-9 and 11-12
+     there beside their bounds, by call and by launch (one edge kernel a
+     column launch of rows 8 and 9), rows 6 and 7 in both dtypes and rows 8
+     and 9 in f32 in turns with their CUDA-core route on the same inputs;
+     and
      `python -m qagnn_tpu_torch.cli --gnn_dim 512` and `--gnn_dim 1040`,
      side by side, for two train steps each. The `overfit` phase also logs,
      per GAT layer of the trained model, the largest gap between a graph's
@@ -564,22 +564,24 @@ def bound(n_bytes: float, flops: float, dtype,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bwd_peak(dt) -> float:
-    """The operations' peak of backward passes 1 and 2 (route 1) in dt:
-    bf16 products on tensor cores, or split-TF32 ones in f32."""
+def tc_peak(dt) -> float:
+    """The operations' peak of the projected op's passes A, C, 1 and 2 on
+    route 1 in dt: bf16 products on tensor cores, or split-TF32 ones in
+    f32."""
     return SPLIT_TF32_FLOPS if dt == torch.float32 else PEAK_FLOPS[dt]
 
 
 def measure(reports, name, err, kernel, plain, n_bytes, flops, dtype,
             previous=None,
             previous_is="the CUDA-core kernels on the same bf16 inputs",
-            peak=None):
+            peak=None, card=None):
     """Time a kernel and its plain version at the main path's inputs and
     file them, with the bound (operations at `peak`, `bound`), under
     `name`. No PyTorch call computes any of these functions whole, so
     library_ms is None. `previous`: the kernel's earlier version on the
     same inputs (`previous_is` says which), timed in turns with it (kernel,
-    previous, previous, kernel) and printed as previous_ms."""
+    previous, previous, kernel) and printed as previous_ms. `card`: the
+    card's line, printed beside the times."""
     if previous is None:
         ms = device_ms(kernel)
     else:
@@ -587,7 +589,7 @@ def measure(reports, name, err, kernel, plain, n_bytes, flops, dtype,
     plain_ms = device_ms(plain)
     bound_ms, by = bound(n_bytes, flops, dtype, peak)
     log(f"  time {name:<18} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-        f"bound {bound_ms:.4f} ms ({by})")
+        f"bound {bound_ms:.4f} ms ({by})" + (f"  [{card}]" if card else ""))
     reports[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=by, library_ms=None)
 
@@ -671,12 +673,18 @@ def phase_edge_hidden(gen, dev, reports):
 
 
 def gat_fwd_case(reports, gen, dev, D, HD, heads, src, dst, mask, dt, tag,
-                 main):
+                 main, card=None):
     """Passes A and C on every route their widths take in this dtype
     against their plain versions, masked slots' scores and the empty
     graph's max exactly, and the whole forward; at the main shapes also
-    their times, the tensor-core route's beside the CUDA-core kernels' on
-    the same inputs."""
+    their times beside the plain versions' and the bound (operations at
+    `tc_peak`), the tensor-core route's in turns with the CUDA-core
+    kernels' (route 0) on the same inputs, which must be slower: filed in
+    `reports` in bf16, the main path's dtype, and logged in f32 with the
+    card's line."""
+    sink, suffix = (reports, "") if dt == torch.bfloat16 \
+        else (collections.defaultdict(dict), " f32")
+    previous_is = f"the CUDA-core kernels on the same {dt} inputs"
     n_edges = src.shape[1]
     live = mask.float().mean().item()
     has_edge = mask.any(1)
@@ -707,14 +715,15 @@ def gat_fwd_case(reports, gen, dev, D, HD, heads, src, dst, mask, dt, tag,
     if main:
         # live slots' emb rows and indices (a masked slot scores 0 and
         # needs nothing); the scores whole; projection and logits
-        measure(reports, "gat_pass_a_scores", err,
+        measure(sink, "gat_pass_a_scores" + suffix, err,
                 lambda: gk.pass_a_scores(*a_args),
                 lambda: gk.pass_a_scores_plain(*a_args),
                 live * nbytes(emb, src, dst)
                 + nbytes(nq, nk, w_ke, b_ke, mask, scores, m_edge),
                 2.0 * live * G * n_edges * (D * HD + HD), dt,
-                previous=lambda: gk.pass_a_scores(*a_args, _route=0))
-        profile_kernels("gat_pass_a_scores",
+                previous=lambda: gk.pass_a_scores(*a_args, _route=0),
+                previous_is=previous_is, peak=tc_peak(dt), card=card)
+        profile_kernels("gat_pass_a_scores" + suffix,
                         lambda: gk.pass_a_scores(*a_args))
 
     # the op's glue, as gat_projected_forward runs it
@@ -727,7 +736,7 @@ def gat_fwd_case(reports, gen, dev, D, HD, heads, src, dst, mask, dt, tag,
     err = compare(f"gat_pass_a_denoms denom {tag}", denom, denom_p,
                   TOL["gat"])
     compare(f"gat_pass_a_denoms deg {tag}", deg, deg_p, 0.0)
-    if main:
+    if main and dt == torch.bfloat16:
         # data-dependent: only the live edges' slots are read
         measure(reports, "gat_pass_a_denoms", err,
                 lambda: gk.pass_a_denoms(*d_args),
@@ -748,7 +757,7 @@ def gat_fwd_case(reports, gen, dev, D, HD, heads, src, dst, mask, dt, tag,
     if main:
         # live edges only; the accumulator is read and written
         scratch = seed.clone()
-        measure(reports, "gat_pass_c", err,
+        measure(sink, "gat_pass_c" + suffix, err,
                 lambda: gk.pass_c(*c_args, scratch, heads),
                 lambda: gk.pass_c_plain(*c_args, scratch, heads),
                 live * nbytes(emb, scores_p, src, dst)
@@ -756,8 +765,9 @@ def gat_fwd_case(reports, gen, dev, D, HD, heads, src, dst, mask, dt, tag,
                 + 2 * nbytes(out),
                 2.0 * live * G * n_edges * (D * HD + 2 * HD), dt,
                 previous=lambda: gk.pass_c(*c_args, scratch, heads,
-                                           _route=0))
-        profile_kernels("gat_pass_c",
+                                           _route=0),
+                previous_is=previous_is, peak=tc_peak(dt), card=card)
+        profile_kernels("gat_pass_c" + suffix,
                         lambda: gk.pass_c(*c_args, scratch, heads))
 
     # the whole op on the kernel path against the plain chain above
@@ -776,16 +786,19 @@ FWD_WIDTHS = ((200, 200, HEADS), (24, 40, 4), (96, 128, 8), (256, 256, 8),
               (264, 200, 4), (520, 64, 8), (1040, 136, 1))
 
 
-def phase_gat(gen, dev, reports):
-    """float32 runs the CUDA-core kernels; bfloat16 both routes, the
-    tensor-core one on the main path. Widths: FWD_WIDTHS."""
+def phase_gat(gen, dev, reports, card):
+    """Both routes in both dtypes wherever the widths take route 1 (bf16
+    products on tensor cores, split-TF32 ones in f32), timed at the main
+    shapes in both dtypes, the tensor-core route on the main path. Widths:
+    FWD_WIDTHS."""
     for D, HD, heads in FWD_WIDTHS:
         for n_edges in (E, E - 3):
             src, dst, mask = graph_inputs(gen, dev, n_edges)
             for dt in (torch.float32, torch.bfloat16):
-                main = D == 200 and n_edges == E and dt == torch.bfloat16
+                main = D == 200 and n_edges == E
                 gat_fwd_case(reports, gen, dev, D, HD, heads, src, dst, mask,
-                             dt, f"D={D} HD={HD} E={n_edges} {dt}", main)
+                             dt, f"D={D} HD={HD} E={n_edges} {dt}", main,
+                             card)
 
 
 # (D, HD, heads) at which the streaming kernel of passes A and C is timed
@@ -1056,7 +1069,7 @@ def gat_bwd_case(reports, t, src, dst, mask, heads, dt, tag, main):
     """Both backward passes against their plain versions on the inputs t;
     at the main shapes also their times, in turns with the CUDA-core
     kernels' (route 0) on the same inputs, which must be slower, beside the
-    plain versions' and the bound (operations at `bwd_peak`): filed in
+    plain versions' and the bound (operations at `tc_peak`): filed in
     `reports` in bf16, the main path's dtype, and logged in f32."""
     HD, D = t["nm"].shape[-1], t["emb"].shape[-1]
     sink, suffix = (reports, "") if dt == torch.bfloat16 \
@@ -1097,7 +1110,7 @@ def gat_bwd_case(reports, t, src, dst, mask, heads, dt, tag, main):
                 + 2 * nbytes(got[2], got[3]),
                 3 * 2.0 * live * G * n_edges * D * HD, dt,
                 previous=lambda: gk.bwd_pass1(*p1, *scratch, heads, _route=0),
-                previous_is=previous_is, peak=bwd_peak(dt))
+                previous_is=previous_is, peak=tc_peak(dt))
         profile_kernels("gat_bwd_pass1" + suffix,
                         lambda: gk.bwd_pass1(*p1, *scratch, heads))
 
@@ -1132,7 +1145,7 @@ def gat_bwd_case(reports, t, src, dst, mask, heads, dt, tag, main):
                 + 2 * nbytes(got[0], got[1], got[2]),
                 3 * 2.0 * live * G * n_edges * D * HD, dt,
                 previous=lambda: gk.bwd_pass2(*p2, *scratch, heads, _route=0),
-                previous_is=previous_is, peak=bwd_peak(dt))
+                previous_is=previous_is, peak=tc_peak(dt))
         profile_kernels("gat_bwd_pass2" + suffix,
                         lambda: gk.bwd_pass2(*p2, *scratch, heads))
 
@@ -1998,9 +2011,10 @@ ROUTED = ("gat_pass_a_scores", "gat_pass_c", "gat_bwd_pass1", "gat_bwd_pass2",
           "edge_hidden", "edge_hidden_bwd")
 
 
-# the routes of a step with an f32 GNN: backward passes 1 and 2 on tensor
-# cores (split TF32), the forward passes and the edge encoder on CUDA cores
-F32_ROUTES = {"gat_pass_a_scores": 0, "gat_pass_c": 0, "gat_bwd_pass1": 1,
+# the routes of a step with an f32 GNN: the forward passes A and C and
+# backward passes 1 and 2 on tensor cores (split TF32), the edge encoder on
+# CUDA cores
+F32_ROUTES = {"gat_pass_a_scores": 1, "gat_pass_c": 1, "gat_bwd_pass1": 1,
               "gat_bwd_pass2": 1, "edge_hidden": 0, "edge_hidden_bwd": 0}
 
 
@@ -5449,8 +5463,7 @@ def widths_gnn(gen, dev, card, width):
         if not ok:
             FAILURES.append(f"widths: launches at gnn_dim {width}, {name}")
         off = [k for k, want_r in (
-            ("gat_pass_a_scores", int(dt == torch.bfloat16)),
-            ("gat_pass_c", int(dt == torch.bfloat16)),
+            ("gat_pass_a_scores", 1), ("gat_pass_c", 1),
             ("gat_bwd_pass1", 1), ("gat_bwd_pass2", 1),
             ("edge_hidden", 0), ("edge_hidden_bwd", 0))
             if routes.get((k, 1 - want_r))]
@@ -5549,18 +5562,18 @@ def bwd_launches_by_kernel(rows, iters, n_launches, what):
 
 def widths_passes(gen, dev, card, D, HD):
     """Rows 6-9 alone at D x HD (the kernels' widths), 4 heads: passes A and
-    C on both routes in bf16 (route 0 in f32) and backward passes 1 and 2
-    on both routes in both dtypes against their plain versions, masked
-    slots exactly, at E and E - 3, every route-1 launch of the backward
-    passes against its plain version (`LaunchCheck`: the streaming edge
-    kernel, a split head's partial mode included); then each call's device
-    time with its bound (rows 6 and 7 in bf16 and rows 8 and 9 in f32 in
+    C and backward passes 1 and 2 on both routes in both dtypes against
+    their plain versions, masked slots exactly, at E and E - 3, every
+    launch of the four against its plain version (`LaunchCheck`: the
+    streaming kernels, a split head's partial mode included); then each
+    call's device time with its bound (operations at `tc_peak`; rows 6
+    and 7 in both dtypes (`widths_fwd_times`) and rows 8 and 9 in f32 in
     turns with their CUDA-core route on the same inputs, which must be
-    slower; rows 8 and 9's operations at `bwd_peak`), and the device time
-    of each kernel launch it makes (torch.profiler: one edge kernel a
-    column launch of rows 8 and 9), rows 11 and 12 at this D too. The
-    backward passes' plain version is the unsliced one at D = 512 (two head groups: one bf16 carry rounding more
-    on the kernels' side, ROADMAP's known difference (a)); with more
+    slower), and the device time of each kernel launch it makes
+    (torch.profiler: one edge kernel a column launch of rows 8 and 9),
+    rows 11 and 12 at this D too. The backward passes' plain version is
+    the unsliced one at D = 512 (two head groups: one bf16 carry rounding
+    more on the kernels' side, ROADMAP's known difference (a)); with more
     launches a pass it is the wrappers' own loop over the plain versions
     (`plain_launches`), which takes the same carry roundings."""
     n_launches = len(gk.launches(HD, HEADS))
@@ -5569,9 +5582,11 @@ def widths_passes(gen, dev, card, D, HD):
         src, dst, mask = graph_inputs(gen, dev, n_edges)
         live = mask.float().mean().item()
         for dt in (torch.float32, torch.bfloat16):
-            if n_edges == E:
+            ftag = f"D={D} HD={HD} E={n_edges} {dt}"
+            with LaunchCheck(f"{ftag}, forward", dt) as check:
                 gat_fwd_case(None, gen, dev, D, HD, HEADS, src, dst, mask,
-                             dt, f"D={D} HD={HD} {dt}", False)
+                             dt, ftag, False)
+            check.report()
             t = gat_bwd_inputs(gen, dev, D, HD, HEADS, src, dst, mask, dt)
             dead = ~mask
             p1 = (t["gout"], t["nm"], t["emb"], t["w_me"], t["b_me"],
@@ -5657,7 +5672,7 @@ def widths_passes(gen, dev, card, D, HD):
                 else:
                     ms = device_ms(fn, iters=5, warmup=1)
                 plain_ms = device_ms(plain, iters=5, warmup=1)
-                bound_ms, by = bound(n_bytes, flops, dt, bwd_peak(dt))
+                bound_ms, by = bound(n_bytes, flops, dt, tc_peak(dt))
                 log(f"  time {name} D={D} HD={HD} {dt}: kernels {ms:.4f} ms "
                     f"a call ({n_launches} launches)  plain {plain_ms:.4f} ms"
                     f" ({'above' if plain_ms > ms else 'NOT above'} the "
@@ -5666,9 +5681,46 @@ def widths_passes(gen, dev, card, D, HD):
                                        iters=5)
                 bwd_launches_by_kernel(rows, 5, n_launches,
                                        f"{name} D={D} HD={HD} {dt}")
-    # the forward passes and rows 11-12 at this D on the bf16 main path
+    # the forward passes at this D in both dtypes, rows 11-12 on the bf16
+    # main path
+    for dt in (torch.float32, torch.bfloat16):
+        widths_fwd_times(gen, dev, card, D, HD, src, dst, mask, dt)
     dt = torch.bfloat16
     r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    n_rel = 39
+    etype, esrc, edst, ntype, _ = encoder_ints(gen, dev, E, n_rel)
+    F = n_rel + 2 * N_NTYPE
+    w0, b0, ea, eb = r(F, D) * 0.2, r(D) * 0.5, r(D) * 0.5, r(D) * 0.5
+    h_args = (etype, esrc, edst, ntype, w0, b0, ea, eb, n_rel, N_NTYPE)
+    dh = r(G, E, D).to(dt)
+    for name, fn, plain, n_bytes, flops in (
+            ("edge_hidden", lambda: ek.edge_hidden_forward(*h_args, dt),
+             lambda: ek.edge_hidden_plain(*h_args, dt),
+             nbytes(etype, esrc, edst, ntype, w0, b0, ea, eb) + G * E * D * 2,
+             6.0 * G * E * D),
+            ("edge_hidden_bwd",
+             lambda: ek.edge_hidden_backward(*h_args[:8], dh, n_rel, N_NTYPE),
+             lambda: ek.edge_hidden_backward_plain(*h_args[:8], dh, n_rel,
+                                                   N_NTYPE),
+             nbytes(etype, esrc, edst, ntype, w0, b0, ea, eb, dh)
+             + (F + 3) * D * 4, 16.0 * dh.numel())):
+        ms = device_ms(fn, iters=5, warmup=1)
+        plain_ms = device_ms(plain, iters=5, warmup=1)
+        bound_ms, by = bound(n_bytes, flops, torch.float32)
+        log(f"  time {name} D={D} HD={HD} {dt}: kernels {ms:.4f} ms a call  "
+            f"plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({by})  "
+            f"[{card}]")
+        profile_kernels(f"{name} D={D} HD={HD} {dt}", fn, iters=5)
+
+
+def widths_fwd_times(gen, dev, card, D, HD, src, dst, mask, dt):
+    """A call of passes A and C (their head groups or column slices) at
+    D x HD in dt, 4 heads: its device time, in turns with the CUDA-core
+    kernels (route 0) on the same inputs (route 1 must be the faster),
+    beside the plain version's time with TF32 off and the bound (operations
+    at `tc_peak`), and each launch's device time (torch.profiler)."""
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    live = mask.float().mean().item()
     nq = (r(G, N, HD) / (HD // HEADS) ** 0.5).to(dt)
     nk, nm = (r(G, N, HD) * 0.5).to(dt), (r(G, N, HD) * 0.5).to(dt)
     emb = torch.relu(r(G, E, D)).to(dt)
@@ -5678,12 +5730,7 @@ def widths_passes(gen, dev, card, D, HD):
     scale = torch.rand((G, N, HEADS), generator=gen, device=dev)
     c_args = (nm, emb, w, b_, scores, gmax, scale, src, dst, mask)
     out = torch.zeros((G, N, HD), device=dev)
-    n_rel = 39
-    etype, esrc, edst, ntype, _ = encoder_ints(gen, dev, E, n_rel)
-    F = n_rel + 2 * N_NTYPE
-    w0, b0, ea, eb = r(F, D) * 0.2, r(D) * 0.5, r(D) * 0.5, r(D) * 0.5
-    h_args = (etype, esrc, edst, ntype, w0, b0, ea, eb, n_rel, N_NTYPE)
-    dh = r(G, E, D).to(dt)
+    n_launches = len(gk.launches(HD, HEADS))
     for name, fn, previous, plain, n_bytes, flops in (
             ("gat_pass_a_scores", lambda: gk.pass_a_scores(*a_args),
              lambda: gk.pass_a_scores(*a_args, _route=0),
@@ -5696,31 +5743,16 @@ def widths_passes(gen, dev, card, D, HD):
              lambda: gk.pass_c_plain(*c_args, out, HEADS),
              live * nbytes(emb, scores, src, dst)
              + nbytes(nm, w, b_, gmax, scale, mask) + 2 * nbytes(out),
-             2.0 * live * G * E * (D * HD + 2 * HD)),
-            ("edge_hidden", lambda: ek.edge_hidden_forward(*h_args, dt),
-             None, lambda: ek.edge_hidden_plain(*h_args, dt),
-             nbytes(etype, esrc, edst, ntype, w0, b0, ea, eb) + G * E * D * 2,
-             6.0 * G * E * D),
-            ("edge_hidden_bwd",
-             lambda: ek.edge_hidden_backward(*h_args[:8], dh, n_rel, N_NTYPE),
-             None,
-             lambda: ek.edge_hidden_backward_plain(*h_args[:8], dh, n_rel,
-                                                   N_NTYPE),
-             nbytes(etype, esrc, edst, ntype, w0, b0, ea, eb, dh)
-             + (F + 3) * D * 4, 16.0 * dh.numel())):
-        if previous is None:
-            ms = device_ms(fn, iters=5, warmup=1)
-        else:
-            ms = faster_than_previous(
-                f"{name} D={D} HD={HD}", fn, previous,
-                "the CUDA-core kernels on the same bf16 inputs", iters=5,
-                warmup=1)
+             2.0 * live * G * E * (D * HD + 2 * HD))):
+        ms = faster_than_previous(
+            f"{name} D={D} HD={HD} {dt}", fn, previous,
+            f"the CUDA-core kernels on the same {dt} inputs", iters=5,
+            warmup=1)
         plain_ms = device_ms(plain, iters=5, warmup=1)
-        bound_ms, by = bound(n_bytes, flops, dt if "gat" in name
-                             else torch.float32)
-        log(f"  time {name} D={D} HD={HD} {dt}: kernels {ms:.4f} ms a call  "
-            f"plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({by})  "
-            f"[{card}]")
+        bound_ms, by = bound(n_bytes, flops, dt, tc_peak(dt))
+        log(f"  time {name} D={D} HD={HD} {dt}: kernels {ms:.4f} ms a call "
+            f"({n_launches} launches)  plain {plain_ms:.4f} ms  bound "
+            f"{bound_ms:.4f} ms ({by})  [{card}]")
         profile_kernels(f"{name} D={D} HD={HD} {dt}", fn, iters=5)
 
 
@@ -5852,7 +5884,7 @@ def main() -> int:
         phase_edge_hidden(gen, dev, reports)
     if only & {"kernels", "fwd"}:
         log("\n[kernels 6 and 7: GAT pass A (two launches) and pass C]")
-        phase_gat(new_gen(17), dev, reports)
+        phase_gat(new_gen(17), dev, reports, card)
         log("\n[kernels 6 and 7: the streaming kernel at D <= 256]")
         phase_gat_streamed(new_gen(24), dev, card)
     if only & {"kernels", "enc", "moments"}:

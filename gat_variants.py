@@ -1,16 +1,20 @@
-"""Time variants of the GAT backward kernels side by side on one card.
+"""Time variants of the projected GAT op's kernels side by side on one card.
 
-    python3 bwd_variants.py D HD tag=DIR [tag=DIR ...] [--dtype bfloat16]
+    python3 gat_variants.py D HD tag=DIR [tag=DIR ...] [--dtype bfloat16]
+        [--passes fwd]
 
 Each DIR is a copy of qagnn_tpu_torch/csrc (the sources themselves for
 "qagnn_tpu_torch/csrc"), edited by hand. The script builds every copy's
-`gat_bwd` library at once, one nvcc a copy, then, one process a copy, runs
-backward passes 1 and 2 (route 1, the wrappers of
-qagnn_tpu_torch/ops/gat_kernels.py) at G=64, N=200, E=4096, D x HD with 4
-heads, on chip_smoke.py's inputs: each call's largest gap from its plain
-version (max|d| / max|want| over its outputs), its device time (median of 10
-calls by CUDA events) and torch.profiler's time by kernel. Build logs go to
-chiprun_out/bwd_variants_build_<tag>.log. It runs only on a CUDA card and
+library at once (`gat_bwd`, or `gat_fwd` with `--passes fwd`), one nvcc a
+copy, then, one process a copy, runs backward passes 1 and 2, or forward
+passes A and C, on route 1 (the wrappers of
+qagnn_tpu_torch/ops/gat_kernels.py, head groups and column launches
+included) at G=64, N=200, E=4096, D x HD with 4 heads, on chip_smoke.py's
+inputs: each call's largest gap from its plain version (max|d| / max|want|
+over its outputs), its device time (median of 10 calls by CUDA events),
+the time of route 0 on the same inputs for the forward passes, and
+torch.profiler's time by kernel. Build logs go to
+chiprun_out/gat_variants_build_<tag>.log. It runs only on a CUDA card and
 imports nothing of JAX.
 """
 
@@ -31,8 +35,49 @@ def _use(csrc: str):
     return _build
 
 
-def build(csrc: str) -> None:
-    _use(csrc).build_all(["gat_bwd"], verbose=True)
+def build(csrc: str, passes: str) -> None:
+    _use(csrc).build_all(["gat_fwd" if passes == "fwd" else "gat_bwd"],
+                         verbose=True)
+
+
+def gap(got, want):
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    return max(float((g.float() - w.float()).abs().max()
+                     / w.float().abs().max()) for g, w in pairs)
+
+
+def run_fwd(csrc: str, D: int, HD: int, tag: str, dtype: str) -> None:
+    import torch
+    _use(csrc)
+    import chip_smoke as cs
+    from qagnn_tpu_torch.ops import gat_kernels as gk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, dt, heads = torch.device("cuda"), getattr(torch, dtype), cs.HEADS
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    src, dst, mask = cs.graph_inputs(gen, dev, cs.E)
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    nq = (r(cs.G, cs.N, HD) / (HD // heads) ** 0.5).to(dt)
+    nk, nm = ((r(cs.G, cs.N, HD) * 0.5).to(dt) for _ in range(2))
+    emb = torch.relu(r(cs.G, cs.E, D)).to(dt)
+    w, b = r(D, HD) * 0.05, r(HD) * 0.1
+    a_args = (nq, nk, emb, w, b, src, dst, mask, heads)
+    scores, gmax = gk.pass_a_scores_plain(*a_args)
+    scale = torch.rand((cs.G, cs.N, heads), generator=gen, device=dev)
+    c_args = (nm, emb, w, b, scores, gmax, scale, src, dst, mask)
+    out = torch.zeros((cs.G, cs.N, HD), device=dev)
+    scratch = out.clone()        # pass C adds into it when timed
+    for name, fn, plain in (
+            ("pass_a", lambda **k: gk.pass_a_scores(*a_args, **k),
+             lambda: gk.pass_a_scores_plain(*a_args)),
+            ("pass_c", lambda **k: gk.pass_c(*c_args, scratch, heads, **k),
+             lambda: gk.pass_c_plain(*c_args, out.clone(), heads))):
+        err = gap(gk.pass_c(*c_args, out.clone(), heads)
+                  if name == "pass_c" else fn(), plain())
+        ms = cs.device_ms(fn, iters=10)
+        ms0 = cs.device_ms(lambda: fn(_route=0), iters=10)
+        print(f"{tag} D={D} HD={HD} {dtype} {name} {ms:.4f} ms (route 0 "
+              f"{ms0:.4f})  gap {err:.2e}  [{cs.card_line()}]", flush=True)
+        cs.profile_kernels(f"{tag} {name}", fn, iters=5)
 
 
 def run(csrc: str, D: int, HD: int, tag: str, dtype: str) -> None:
@@ -45,10 +90,6 @@ def run(csrc: str, D: int, HD: int, tag: str, dtype: str) -> None:
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     src, dst, mask = cs.graph_inputs(gen, dev, cs.E)
     t = cs.gat_bwd_inputs(gen, dev, D, HD, heads, src, dst, mask, dt)
-
-    def gap(got, want):
-        return max(float((g.float() - w.float()).abs().max()
-                         / w.float().abs().max()) for g, w in zip(got, want))
 
     p1 = (t["gout"], t["nm"], t["emb"], t["w_me"], t["b_me"], t["scores"],
           t["gmax"], t["scale"], src, dst, mask, t["carry"])
@@ -79,23 +120,26 @@ def main() -> int:
     ap.add_argument("variants", nargs="+", help="tag=DIR")
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "bfloat16"))
+    ap.add_argument("--passes", default="bwd", choices=("bwd", "fwd"))
     ap.add_argument("--build", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--run", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.build:
-        build(args.variants[0])
+        build(args.variants[0], args.passes)
         return 0
     if args.run:
         tag, csrc = args.variants[0].split("=", 1)
-        run(csrc, args.D, args.HD, tag, args.dtype)
+        (run_fwd if args.passes == "fwd" else run)(csrc, args.D, args.HD,
+                                                   tag, args.dtype)
         return 0
     pairs = [v.split("=", 1) for v in args.variants]
     logs = ROOT / "chiprun_out"
     logs.mkdir(exist_ok=True)
     t0 = time.perf_counter()
     procs = [(tag, subprocess.Popen(
-        [sys.executable, __file__, "0", "0", csrc, "--build"],
-        stdout=open(logs / f"bwd_variants_build_{tag}.log", "w"),
+        [sys.executable, __file__, "0", "0", csrc, "--build", "--passes",
+         args.passes],
+        stdout=open(logs / f"gat_variants_build_{tag}.log", "w"),
         stderr=subprocess.STDOUT)) for tag, csrc in pairs]
     failed = [tag for tag, p in procs if p.wait() != 0]
     print(f"built {len(procs)} copies in {time.perf_counter() - t0:.1f} s"
@@ -104,7 +148,8 @@ def main() -> int:
         if tag not in failed:
             subprocess.run([sys.executable, __file__, str(args.D),
                             str(args.HD), f"{tag}={csrc}", "--run",
-                            "--dtype", args.dtype], check=False)
+                            "--dtype", args.dtype, "--passes", args.passes],
+                           check=False)
     return 1 if failed else 0
 
 

@@ -93,8 +93,12 @@
 // product), a quad's 32 bytes a row: the f32 cotangent fills its rows of
 // the stage. The dW launch runs the split product too, on slices of 32
 // slots (the bytes of bf16's 64), with column blocks of 10 tiles beside
-// bf16's ladder (dw_pairs). The variants timed while it was designed
-// (bwd_variants.py; PERF.md PR 20): the edge launch's time at D = HD = 200
+// bf16's ladder (dw_pairs). Both launches' split products sum each 16 of
+// depth in a fresh accumulator (mma_split_tf32): the tensor core's
+// truncating sum had put the passes 1.3e-5 of max|want| from their plain
+// versions at the preset, 7e-7 since, for 6-15% more time a call (PERF.md
+// PR 21). The variants timed while it was designed (gat_variants.py, then
+// bwd_variants.py; PERF.md PR 20): the edge launch's time at D = HD = 200
 // is about half its two products, a quarter its epilogue and a quarter the
 // ring's streams and demb's read-modify-write, which the warps' lockstep
 // keeps from overlapping; 64-row chunks at 144 and 208 columns gained too
@@ -848,18 +852,28 @@ dw_tc_kernel(const T* __restrict__ emb, const T* __restrict__ cot,
       // t + 4); B = cot: b0, b1 at (depth t, t + 4; column g)
       const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-      for (int k8 = 0; k8 < K / 8; ++k8) {
-        const float* pa = sA + (k8 * 8 + t) * lda + warp * 16 + g;
-        uint32_t a_hi[4], a_lo[4];
-        split_tf32(pa[0], a_hi[0], a_lo[0]);
-        split_tf32(pa[8], a_hi[1], a_lo[1]);
-        split_tf32(pa[4 * lda], a_hi[2], a_lo[2]);
-        split_tf32(pa[4 * lda + 8], a_hi[3], a_lo[3]);
-        const float* pb = sB + (k8 * 8 + t) * ldb + g;
+      for (int k16 = 0; k16 < K / 16; ++k16) {
+        uint32_t a_hi[2][4], a_lo[2][4];
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const float* pa =
+              sA + ((2 * k16 + s) * 8 + t) * lda + warp * 16 + g;
+          split_tf32(pa[0], a_hi[s][0], a_lo[s][0]);
+          split_tf32(pa[8], a_hi[s][1], a_lo[s][1]);
+          split_tf32(pa[4 * lda], a_hi[s][2], a_lo[s][2]);
+          split_tf32(pa[4 * lda + 8], a_hi[s][3], a_lo[s][3]);
+        }
 #pragma unroll
         for (int j = 0; j < NT; j += 2) {
-          const float b[2][2] = {{pb[8 * j], pb[4 * ldb + 8 * j]},
-                                 {pb[8 * j + 8], pb[4 * ldb + 8 * j + 8]}};
+          float b[2][2][2];
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            const float* pb = sB + ((2 * k16 + s) * 8 + t) * ldb + g;
+            b[s][0][0] = pb[8 * j];
+            b[s][0][1] = pb[4 * ldb + 8 * j];
+            b[s][1][0] = pb[8 * j + 8];
+            b[s][1][1] = pb[4 * ldb + 8 * j + 8];
+          }
           mma_split_tf32(acc + j, a_hi, a_lo, b);
         }
       }

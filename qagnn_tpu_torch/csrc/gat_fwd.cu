@@ -34,17 +34,18 @@
 // Bound on the H100 (G=64, N=200, E=4096, D=HD=200, bf16): the per-edge
 // projection is 2*G*E*D*HD = 21 GFLOP per pass, against roughly 100-130 MB
 // of traffic, so with tensor cores the passes are bound by bytes. Two routes
-// behind each entry point, chosen in Python by dtype and widths alone:
+// behind each entry point, chosen in Python by widths alone:
 //
-// bfloat16, the main path: tensor cores (gat_fwd_tc.cuh, on the pieces it
-// shares with the backward in gat_tc_common.cuh and mma_tile.cuh), at any D
-// and heads of at least 4 features. Every operand of the projection is a
-// bf16 value already (emb, W rounded to the compute dtype as on the TPU), so
-// `mma.sync` with f32 accumulators computes the TPU kernel's sums. One launch
-// a pass: persistent blocks, each warp on 16 edge slots at a time, the
-// row-wise epilogue after an f32 stage; W resident in shared memory at
-// D <= 256, past that streamed through it in chunks of 64 of its rows, the
-// block's warps in lockstep (W rounded to bf16 by the caller: `w16`).
+// Route 1, tensor cores (gat_fwd_tc.cuh, on the pieces it shares with the
+// backward in gat_tc_common.cuh and mma_tile.cuh), at any D and heads of at
+// least 4 features, in either dtype. bfloat16, the main path: every operand
+// of the projection is a bf16 value already (emb, W rounded to the compute
+// dtype as on the TPU), so `mma.sync` with f32 accumulators computes the
+// TPU kernel's sums. One launch a pass: persistent blocks, each warp on 16
+// edge slots at a time, the row-wise epilogue after an f32 stage; W
+// resident in shared memory at D <= 256, past that streamed through it in
+// chunks of 64 of its rows, the block's warps in lockstep (W rounded to
+// bf16 by the caller: `ws`).
 //
 // On the H100 (NVIDIA H100 80GB HBM3, 700 W limit; the shapes above, 25% of
 // slots masked; medians of 20 launches by CUDA events): the tensor-core
@@ -65,18 +66,31 @@
 // on the CUDA-core kernels on the same inputs and bounds, by operations, of
 // 0.103 and 0.430 ms (same card and shapes, medians of 5 calls).
 //
-// float32 (and bfloat16 when asked for, to time the two side by side): the
-// CUDA-core kernels below, in full f32 (TF32 would change the values). The
-// projection is a register-tiled product: a block takes 64 edges and every
-// output column; K is staged in slices of 32, the edge embedding k-major and
-// the weight (rounded to the compute dtype) row-major in shared memory; each
-// thread keeps 8 edges x 8 columns in registers and reads them with four
-// 16-byte shared loads per 64 FMAs (19-20 TFLOP/s, about 1.05 ms a pass at
-// the shapes above). Its columns are two runs of four, 4*tx and HD/2 + 4*tx,
-// so a quarter-warp's 16-byte loads hit distinct banks. The per-head sums
-// of the scores are partials per run, added up per (edge, head) from shared
-// memory without atomics (shared float atomics on one address from many
-// lanes serialise).
+// float32 on route 1: W itself streamed at every D through an f32 ring of
+// 32-row chunks, the product as split-TF32 `mma.sync` (three tf32 products
+// of split operands into a fresh accumulator every 16 of depth, added by
+// FADD; mma_tile.cuh), f32 node rows. Bound by the split products'
+// operations (495 TFLOP/s of tf32 / 3). Same card and shapes, TF32 off for
+// the plain versions: 0.661 / 0.641 ms a launch of pass A / C at the
+// preset against 0.92 / 0.85 on the CUDA-core kernels and 1.79 / 1.70 for
+// the plain versions, bound 0.095 ms; a call at gnn_dim 512 3.70 / 3.74 ms
+// (CUDA cores 4.10 / 4.01, plain 5.29 / 5.40, bound 0.62), at 1040 13.74 /
+// 13.73 (19.3 / 19.2, plain 18.2 / 18.6, bound 2.58). Every launch within
+// 6.3e-7 of max|want| of its plain version (PERF.md PR 21).
+//
+// Route 0 (heads of fewer than 4 features, or named by the wrapper's
+// `_route=0` to time it beside route 1): the CUDA-core kernels below, in
+// either dtype, in full f32 arithmetic. The projection is a register-tiled
+// product: a block takes 64 edges and every output column; K is staged in
+// slices of 32, the edge embedding k-major and the weight (rounded to the
+// compute dtype) row-major in shared memory; each thread keeps 8 edges x 8
+// columns in registers and reads them with four 16-byte shared loads per
+// 64 FMAs (19-20 TFLOP/s, about 1.05 ms a pass at the shapes above on bf16
+// inputs, 0.85-0.92 on f32). Its columns are two runs of four, 4*tx and
+// HD/2 + 4*tx, so a quarter-warp's 16-byte loads hit distinct banks. The
+// per-head sums of the scores are partials per run, added up per (edge,
+// head) from shared memory without atomics (shared float atomics on one
+// address from many lanes serialise).
 #include "gat_common.cuh"
 #include "gat_fwd_tc.cuh"
 
@@ -251,10 +265,33 @@ bool shapes_ok(int D, int HD, int H) {
          H > 0 && H <= MAX_H && HD % H == 0;
 }
 
-// route 0: the CUDA-core kernels, either dtype; route 1: tensor cores,
-// bfloat16 with heads of at least 4 features (any D)
+// route 0: the CUDA-core kernels; route 1: tensor cores, heads of at least
+// 4 features (any D); either dtype on both
 bool route_ok(int route, int dtype, int HD, int H) {
-  return route == 0 || (route == 1 && dtype == 1 && HD / H >= 4);
+  return (dtype == 0 || dtype == 1) &&
+         (route == 0 || (route == 1 && HD / H >= 4));
+}
+
+// The arguments both passes' tensor-core launches take, the node and edge
+// arrays and W to stream as T (bf16 or float)
+template <typename T>
+TcFwdArgs<T> fwd_args(const void* rows_src, const void* rows_dst,
+                      const void* emb, const void* w, const void* ws,
+                      const void* bias, const void* src, const void* dst,
+                      const void* mask, int G, int N, int E, int D, int HD,
+                      int H) {
+  TcFwdArgs<T> a = {};
+  a.rows_src = (const T*)rows_src;
+  a.rows_dst = (const T*)rows_dst;
+  a.emb = (const T*)emb;
+  a.ws = (const T*)ws;
+  a.w = (const float*)w;
+  a.bias = (const float*)bias;
+  a.src = (const int32_t*)src;
+  a.dst = (const int32_t*)dst;
+  a.mask = (const uint8_t*)mask;
+  a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H;
+  return a;
 }
 
 }  // namespace
@@ -263,16 +300,18 @@ bool route_ok(int route, int dtype, int HD, int H) {
 // HD % 8 == 0, HD <= 256, H <= 8 and 16-byte aligned arrays. route 0 runs a
 // (64-edge tile, graph) grid and reads neither warps nor n_blocks; route 1
 // runs n_blocks persistent blocks of `warps` warps (see route_ok): given
-// w16, W rounded to bf16 (D, HD), it streams W's rows from there instead of
-// loading w_ke whole, which takes D <= 256 (the wrapper gives w16 past
-// D = 256, null elsewhere). Every slot's score is written, 0 where the slot
-// is masked. part (PART_ADD | PART_OPEN, gat_common.cuh; 0 for whole
-// heads): a column slice of a head wider than 256 features, given its
-// columns of nq, nk, w_ke and b_ke, which adds to the scores the slices
-// before it wrote; all but the last leave m_edge as it is.
+// ws, W (D, HD) as the kernel streams it, it streams W's rows from there
+// instead of loading w_ke whole, which takes bf16 at D <= 256 (the wrapper
+// gives ws rounded to bf16 past D = 256 in bf16, null at D <= 256, and
+// w_ke itself in f32, which streams at every D). Every slot's score is
+// written, 0 where the slot is masked. part (PART_ADD | PART_OPEN,
+// gat_common.cuh; 0 for whole heads): a column slice of a head wider than
+// 256 features, given its columns of nq, nk, w_ke and b_ke, which adds to
+// the scores the slices before it wrote; all but the last leave m_edge as
+// it is.
 extern "C" int gat_pass_a_scores(const void* nq, const void* nk,
                                  const void* emb, const void* w_ke,
-                                 const void* w16, const void* b_ke,
+                                 const void* ws, const void* b_ke,
                                  const void* src, const void* dst,
                                  const void* mask,
                                  void* scores, void* m_edge, int G, int N,
@@ -287,21 +326,15 @@ extern "C" int gat_pass_a_scores(const void* nq, const void* nk,
   if ((long long)G * E == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   if (route == 1) {
-    TcFwdArgs a = {};
-    a.rows_src = (const bf16*)nq;
-    a.rows_dst = (const bf16*)nk;
-    a.emb = (const bf16*)emb;
-    a.w = (const float*)w_ke;
-    a.bias = (const float*)b_ke;
-    a.src = (const int32_t*)src;
-    a.dst = (const int32_t*)dst;
-    a.mask = (const uint8_t*)mask;
-    a.scores_out = (float*)scores;
-    a.m_edge = (float*)m_edge;
-    a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H;
-    a.part = part;
-    a.w16 = (const bf16*)w16;
-    return launch_fwd_tc<1>(a, warps, n_blocks, s);
+    auto launch = [&](auto type) {
+      TcFwdArgs<decltype(type)> a = fwd_args<decltype(type)>(
+          nq, nk, emb, w_ke, ws, b_ke, src, dst, mask, G, N, E, D, HD, H);
+      a.scores_out = (float*)scores;
+      a.m_edge = (float*)m_edge;
+      a.part = part;
+      return launch_fwd_tc<1>(a, warps, n_blocks, s);
+    };
+    return dtype == 1 ? launch(bf16()) : launch(0.0f);
   }
   const dim3 grid((E + TE - 1) / TE, G);
   const int threads = HD / 8 * TY;
@@ -336,10 +369,10 @@ extern "C" int gat_pass_a_denoms(const void* scores, const void* gmax,
   return (int)cudaGetLastError();
 }
 
-// route, warps, n_blocks and w16 as in gat_pass_a_scores. out is the f32
+// route, warps, n_blocks and ws as in gat_pass_a_scores. out is the f32
 // accumulator, added to in place.
 extern "C" int gat_pass_c(const void* nm, const void* emb, const void* w_me,
-                          const void* w16, const void* b_me,
+                          const void* ws, const void* b_me,
                           const void* scores, const void* gmax,
                           const void* scale,
                           const void* src, const void* dst, const void* mask,
@@ -353,21 +386,17 @@ extern "C" int gat_pass_c(const void* nm, const void* emb, const void* w_me,
   if ((long long)G * E == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   if (route == 1) {
-    TcFwdArgs a = {};
-    a.rows_src = (const bf16*)nm;
-    a.emb = (const bf16*)emb;
-    a.w = (const float*)w_me;
-    a.bias = (const float*)b_me;
-    a.scores = (const float*)scores;
-    a.gmax = (const float*)gmax;
-    a.scale = (const float*)scale;
-    a.src = (const int32_t*)src;
-    a.dst = (const int32_t*)dst;
-    a.mask = (const uint8_t*)mask;
-    a.out = (float*)out;
-    a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H;
-    a.w16 = (const bf16*)w16;
-    return launch_fwd_tc<3>(a, warps, n_blocks, s);
+    auto launch = [&](auto type) {
+      TcFwdArgs<decltype(type)> a = fwd_args<decltype(type)>(
+          nm, nullptr, emb, w_me, ws, b_me, src, dst, mask, G, N, E, D, HD,
+          H);
+      a.scores = (const float*)scores;
+      a.gmax = (const float*)gmax;
+      a.scale = (const float*)scale;
+      a.out = (float*)out;
+      return launch_fwd_tc<3>(a, warps, n_blocks, s);
+    };
+    return dtype == 1 ? launch(bf16()) : launch(0.0f);
   }
   const dim3 grid((E + TE - 1) / TE, G);
   const int threads = HD / 8 * TY;

@@ -1,6 +1,6 @@
 // Device code shared by the tensor-core routes of the projected GAT op: the
-// forward passes A and C in bfloat16 (gat_fwd_tc.cuh) and the backward
-// passes 1 and 2 in bfloat16 and float32 (gat_bwd_tc.cuh). All of them run
+// forward passes A and C (gat_fwd_tc.cuh) and the backward passes 1 and 2
+// (gat_bwd_tc.cuh), each in bfloat16 and float32. All of them run
 // persistent blocks in which each warp works on units of TC_ROWS
 // consecutive edge slots of one graph: the unit's emb rows -> its stage
 // (cp.async), emb W on tensor cores (mma_tile.cuh), the f32 accumulators ->
@@ -9,8 +9,8 @@
 // whole (`TcShape`, loaded once), or, at D > 256, as a ring of chunks of its
 // rows that the block's warps stream through in lockstep (`TcStreamShape`;
 // the backward streams it twice a round, for emb W and for cot W^T). The
-// backward's f32 route streams W's f32 rows through the same ring at every
-// D (`TcStream32Shape`), for split-TF32 products.
+// f32 routes of both directions stream W's f32 rows through the same ring
+// at every D (`TcStream32Shape`), for split-TF32 products.
 #pragma once
 #include "gat_common.cuh"
 #include "mma_tile.cuh"
@@ -87,15 +87,17 @@ struct TcStreamShape : TcShape<PAIRS, SMALL_FLOATS> {
   static constexpr int warp_bytes = stage_bytes + SMALL_FLOATS * 4;
 };
 
-// The f32 streaming variant, the backward's split-TF32 route at every D:
-// the ring holds TC_STAGES chunks of TC_KC32 rows of W in f32 (pitch ldw =
-// WIDTH + 8 floats, 8 or 24 modulo 32, w32_col's layout), each warp's ring
-// of emb chunks TC_KC32 f32 columns (pitch ldk, 4 modulo 32), and the stage
-// then the f32 projection rows and, in place, the f32 cotangent rows (pitch
-// ld32 = WIDTH + 4). Half the bf16 chunk's rows keep 8 warps beside the ring
-// at 256 columns (214,016 bytes of 232,448). The tiles are the forward
-// streaming kernel's (tc_stream_pairs): product 2's output leaves from the
-// accumulators, so no tile needs room beside the cotangent.
+// The f32 streaming variant, the split-TF32 route of both directions at
+// every D: the ring holds TC_STAGES chunks of TC_KC32 rows of W in f32
+// (pitch ldw = WIDTH + 8 floats, 8 or 24 modulo 32, w32_col's layout), each
+// warp's ring of emb chunks TC_KC32 f32 columns (pitch ldk, 4 modulo 32),
+// and the stage then the f32 projection rows and, in the backward, in
+// place, the f32 cotangent rows (pitch ld32 = WIDTH + 4). Half the bf16
+// chunk's rows keep 8 warps beside the ring at 256 columns (the backward's
+// 214,016 bytes of 232,448, the forward's 205,824). The tiles are the bf16
+// forward streaming kernel's (tc_stream_pairs): the backward's product 2
+// leaves from the accumulators, so no tile needs room beside the
+// cotangent.
 constexpr int TC_KC32 = 32;
 
 template <int PAIRS, int SMALL_FLOATS>

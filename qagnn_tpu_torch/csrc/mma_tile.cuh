@@ -157,30 +157,47 @@ __device__ __forceinline__ void mma_tf32_16x8x8(float (&c)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// c[i] += a b[i] in f32 from the split operands for two tiles (b[i]: tile
-// i's two B registers): the two small terms, then hi hi, each over both
-// tiles before the next, so that the products into one accumulator do not
-// follow each other
+// c[i] += a b[i] over 16 of depth, two steps of 8 (operands of step s:
+// a_hi[s], a_lo[s], b[s][i], tile i's two B values), in f32 from the split
+// operands for two tiles: in each step the two small terms, then hi hi,
+// each over both tiles before the next, so that the products into one
+// accumulator do not follow each other. The products go into a fresh
+// accumulator t, added to c by FADD: the tensor core's own f32 sum
+// truncates (rounds toward zero), and c taken through every product of the
+// depth drifted toward zero by about 2^-25 of |c| a product, a bias that
+// grew with the depth: at D = 1040 on an H100 the f32 passes lay up to
+// 7.7e-6 (forward) and 1.4e-5 (backward) of max|want| from their plain
+// versions, and the GNN's f32 gradients 3.1e-3 of the largest from an f64
+// reference (PERF.md PR 21). t truncates only within its 16 of depth, and
+// c is rounded to nearest.
 __device__ __forceinline__ void mma_split_tf32(float (*c)[4],
-                                               const uint32_t (&a_hi)[4],
-                                               const uint32_t (&a_lo)[4],
-                                               const float (&b)[2][2]) {
+                                               const uint32_t (&a_hi)[2][4],
+                                               const uint32_t (&a_lo)[2][4],
+                                               const float (&b)[2][2][2]) {
   constexpr int N = 2;
-  uint32_t b_hi[N][2], b_lo[N][2];
+  float t[N][4] = {};
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    split_tf32(b[i][0], b_hi[i][0], b_lo[i][0]);
-    split_tf32(b[i][1], b_hi[i][1], b_lo[i][1]);
+  for (int s = 0; s < 2; ++s) {
+    uint32_t b_hi[N][2], b_lo[N][2];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      split_tf32(b[s][i][0], b_hi[i][0], b_lo[i][0]);
+      split_tf32(b[s][i][1], b_hi[i][1], b_lo[i][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      mma_tf32_16x8x8(t[i], a_lo[s], b_hi[i][0], b_hi[i][1]);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      mma_tf32_16x8x8(t[i], a_hi[s], b_lo[i][0], b_lo[i][1]);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      mma_tf32_16x8x8(t[i], a_hi[s], b_hi[i][0], b_hi[i][1]);
   }
 #pragma unroll
   for (int i = 0; i < N; ++i)
-    mma_tf32_16x8x8(c[i], a_lo, b_hi[i][0], b_hi[i][1]);
 #pragma unroll
-  for (int i = 0; i < N; ++i)
-    mma_tf32_16x8x8(c[i], a_hi, b_lo[i][0], b_lo[i][1]);
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    mma_tf32_16x8x8(c[i], a_hi, b_hi[i][0], b_hi[i][1]);
+    for (int r = 0; r < 4; ++r) c[i][r] += t[i][r];
 }
 
 // The column at which an f32 tile of W's rows keeps (row d, column c): bit
@@ -215,28 +232,36 @@ __device__ __forceinline__ void warp_rows_product(
   const float* bt_ptr = sB + ((lane & 7) + (lane >> 4) * 8) * ldb +
                         ((((lane >> 3) & 1) * 4) ^ (lane & 4));
 #pragma unroll 1
-  for (int k8 = 0; k8 < 2 * ksteps; ++k8) {
-    uint32_t a[4], a_hi[4], a_lo[4];
-    ldmatrix_x4(a, a_ptr + k8 * 8);
+  for (int ks = 0; ks < ksteps; ++ks) {
+    uint32_t a_hi[2][4], a_lo[2][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(a[i]), a_hi[i],
-                                           a_lo[i]);
+    for (int s = 0; s < 2; ++s) {
+      uint32_t a[4];
+      ldmatrix_x4(a, a_ptr + (2 * ks + s) * 8);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        split_tf32(__uint_as_float(a[i]), a_hi[s][i], a_lo[s][i]);
+    }
 #pragma unroll
     for (int j = 0; j < NT; j += 2) {
-      float b[2][2];
-      if (B_DEPTH_MAJOR) {
-        const int at = k8 * 8 * ldb + j * 8;
-        b[0][0] = b0_ptr[at];
-        b[0][1] = b1_ptr[at];
-        b[1][0] = b0_ptr[at + 8];
-        b[1][1] = b1_ptr[at + 8];
-      } else {
-        uint32_t r[4];
-        ldmatrix_x4(r, bt_ptr + (j * 8) * ldb + k8 * 8);
-        b[0][0] = __uint_as_float(r[0]);
-        b[0][1] = __uint_as_float(r[1]);
-        b[1][0] = __uint_as_float(r[2]);
-        b[1][1] = __uint_as_float(r[3]);
+      float b[2][2][2];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int k8 = 2 * ks + s;
+        if (B_DEPTH_MAJOR) {
+          const int at = k8 * 8 * ldb + j * 8;
+          b[s][0][0] = b0_ptr[at];
+          b[s][0][1] = b1_ptr[at];
+          b[s][1][0] = b0_ptr[at + 8];
+          b[s][1][1] = b1_ptr[at + 8];
+        } else {
+          uint32_t r[4];
+          ldmatrix_x4(r, bt_ptr + (j * 8) * ldb + k8 * 8);
+          b[s][0][0] = __uint_as_float(r[0]);
+          b[s][0][1] = __uint_as_float(r[1]);
+          b[s][1][0] = __uint_as_float(r[2]);
+          b[s][1][1] = __uint_as_float(r[3]);
+        }
       }
       mma_split_tf32(acc + j, a_hi, a_lo, b);
     }

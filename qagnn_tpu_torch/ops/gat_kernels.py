@@ -18,12 +18,14 @@ Counterpart of `pallas_relational_gat_projected[_chained]`
     over masked edges, alpha = exp(min(s - gmax, 0)) * scale[src].
 
 Pass A's scores and pass C have two routes behind one entry point each,
-chosen by dtype and widths alone (`_fwd_route`): bfloat16 with heads of at
-least 4 features runs the projection on tensor cores at any D
-(csrc/gat_fwd_tc.cuh: persistent blocks with W resident in shared memory
-at D <= 256; past that W, rounded to bf16 here (`_streamed_w`), streams
-through shared memory in chunks of its rows), anything else stays on CUDA
-cores, float32 in full f32.
+chosen by widths alone (`_fwd_route`): heads of at least 4 features run the
+projection on tensor cores at any D in either dtype (csrc/gat_fwd_tc.cuh),
+anything else stays on CUDA cores (route 0, also when named). bfloat16:
+persistent blocks with W resident in shared memory at D <= 256; past that
+W, rounded to bf16 here (`_streamed_w`), streams through shared memory in
+chunks of its rows. float32: the same streaming kernel at every D, handed W
+itself in f32, the product as split-TF32 products as in the backward
+below.
 
 The backward (`gat_projected`, `gat_projected_chained`: autograd Functions)
 recomputes e = exp(min(s - gmax, 0)) from the saved scores and runs
@@ -44,9 +46,9 @@ shared memory at D <= 256; past that one launch streams W, rounded to bf16
 here (`_streamed_w`), through shared memory in chunks of its rows, twice a
 round. float32: the same streaming kernel at every D, handed W itself in
 f32, each product as three tf32 products of split operands (hi = tf32(x),
-lo = x - hi; a_lo b_hi + a_hi b_lo + a_hi b_hi in f32), about 2^-20
-relative a product at worst against the 1e-4 the f32 passes are held to on
-the card.
+lo = x - hi; a_lo b_hi + a_hi b_lo + a_hi b_hi in f32, summed 16 of depth
+at a time in a fresh accumulator), about 2^-20 relative a product at
+worst against the 1e-4 the f32 passes are held to on the card.
 
 No gradient flows through gmax. The chained form also returns the edge
 embedding: threaded through the k layers, each layer's backward receives the
@@ -140,11 +142,12 @@ STREAM_TILES = ((64, 12), (128, 12), (144, 12), (208, 8), (256, 8))
 # `tc_bwd_stream_warps`; tests/test_torch_bwd_streamed.py holds the two
 # copies together)
 BWD_STREAM_TILES = ((128, 12), (144, 12), (208, 8), (256, 8))
-# the backward's f32 route, streamed at every D (`TcStream32Shape`): W's f32
-# rows a chunk, and the tiles (the forward's widths) with their warps
-# (tests/test_torch_bwd_f32_route.py holds them to csrc)
+# the f32 route of both directions, streamed at every D (`TcStream32Shape`):
+# W's f32 rows a chunk, and the tiles (the bf16 forward's widths) with their
+# warps (tests/test_torch_bwd_f32_route.py and
+# tests/test_torch_fwd_f32_route.py hold them to csrc)
 TC_KC32 = 32
-BWD32_STREAM_TILES = ((64, 8), (128, 8), (144, 8), (208, 8), (256, 8))
+STREAM32_TILES = ((64, 8), (128, 8), (144, 8), (208, 8), (256, 8))
 
 
 def _lib():
@@ -381,14 +384,14 @@ def _pass_a_scores(nq, nk, edge_emb, w_ke, b_ke, src, dst, mask, heads,
     _require(dst, "dst", torch.int32, (G, E))
     _require(mask, "mask", torch.bool, (G, E))
     route = _fwd_route(cdt, D, HD, heads, _route)
-    warps, n_blocks = _fwd_launch_plan(route, G, E, D, HD, nq.device)
-    w16 = _streamed_w(route, w_ke, _fwd_streams)
+    warps, n_blocks = _fwd_launch_plan(route, G, E, D, HD, nq.device, cdt)
+    ws = _streamed_w(route, w_ke, _fwd_streams, cdt)
     scores = _scores_out(acc, G, heads, E, nq.device)
     m_edge = torch.full((G, heads), NEG, device=nq.device,
                         dtype=torch.float32)
     err = _lib().gat_pass_a_scores(
         nq.data_ptr(), nk.data_ptr(), edge_emb.data_ptr(), w_ke.data_ptr(),
-        None if w16 is None else w16.data_ptr(), b_ke.data_ptr(),
+        None if ws is None else ws.data_ptr(), b_ke.data_ptr(),
         src.data_ptr(), dst.data_ptr(), mask.data_ptr(),
         scores.data_ptr(), m_edge.data_ptr(), G, N, E, D, HD, heads,
         _dtype_code(nq), route, warps, n_blocks, _part(acc, last), _stream())
@@ -510,11 +513,11 @@ def _pass_c(nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst, mask,
     _require(mask, "mask", torch.bool, (G, E))
     _require(out, "out", torch.float32, (G, N, HD))
     route = _fwd_route(cdt, D, HD, heads, _route)
-    warps, n_blocks = _fwd_launch_plan(route, G, E, D, HD, nm.device)
-    w16 = _streamed_w(route, w_me, _fwd_streams)
+    warps, n_blocks = _fwd_launch_plan(route, G, E, D, HD, nm.device, cdt)
+    ws = _streamed_w(route, w_me, _fwd_streams, cdt)
     err = _lib().gat_pass_c(
         nm.data_ptr(), edge_emb.data_ptr(), w_me.data_ptr(),
-        None if w16 is None else w16.data_ptr(), b_me.data_ptr(),
+        None if ws is None else ws.data_ptr(), b_me.data_ptr(),
         scores.data_ptr(), gmax.data_ptr(), scale.data_ptr(), src.data_ptr(),
         dst.data_ptr(), mask.data_ptr(), out.data_ptr(), G, N, E, D, HD,
         heads, _dtype_code(nm), route, warps, n_blocks, _stream())
@@ -614,14 +617,15 @@ def split_dalpha(dalpha, mask, acc=None):
 def _bwd_route(cdt, route):
     """0: CUDA cores, 1: tensor cores, the route in both dtypes: bf16
     products in bfloat16, split-TF32 products in float32 (hi = tf32(x), lo
-    = x - hi, then lo hi + hi lo + hi hi: about 2^-20 of |a| |b| a product
-    at worst, within 1.7e-5 of the plain versions on the card against the
-    1e-4 they are held to; bound by the tf32 rate, 495 TFLOP/s for a third
-    as many f32-accurate operations). On an NVIDIA H100 80GB HBM3 (700 W)
-    an f32 call of pass 1 / 2 takes 1.79 / 1.73 ms at D = HD = 200 against
-    route 0's 3.49 / 3.31, 41.1 / 40.7 ms at gnn_dim 1040 against 87.8 /
-    83.2 (PERF.md). `route` 0 names the CUDA-core kernels in either dtype,
-    to time them beside the tensor-core ones."""
+    = x - hi, then lo hi + hi lo + hi hi, summed 16 of depth at a time in a
+    fresh accumulator: about 2^-20 of |a| |b| a product at worst, within
+    6.2e-6 of the plain versions on the card against the 1e-4 they are held
+    to; bound by the tf32 rate, 495 TFLOP/s for a third as many
+    f32-accurate operations). On an NVIDIA H100 80GB HBM3 (700 W) an f32
+    call of pass 1 / 2 takes 2.00 / 1.93 ms at D = HD = 200 against route
+    0's 3.49 / 3.31, 43.0-43.5 / 43.2-43.3 ms at gnn_dim 1040 against 88.2
+    / 83.3 (PERF.md PR 21). `route` 0 names the CUDA-core kernels in either
+    dtype, to time them beside the tensor-core ones."""
     if route is None:
         return 1
     if route not in (0, 1):
@@ -632,11 +636,17 @@ def _bwd_route(cdt, route):
 
 def _fwd_route(cdt, D, HD, heads, route):
     """Route of the forward passes A (scores) and C: 0 CUDA cores, 1 tensor
-    cores, for bfloat16 where their widths hold (any D, HD <= 256, heads of
-    at least 4 features). Dtype and widths alone decide; `route` names one,
-    0 for bfloat16 to time the CUDA-core kernels beside the tensor-core
-    ones."""
-    fits = cdt == torch.bfloat16 and HD <= MAX_COLS and HD // heads >= 4
+    cores where their widths hold (any D, HD <= 256, heads of at least 4
+    features), in either dtype: bf16 products in bfloat16, split-TF32
+    products in float32 (as `_bwd_route` says; within 6.3e-7 of the plain
+    versions on the card, where one tf32 product would miss the 1e-4 they
+    are held to). On an NVIDIA H100 80GB HBM3 (700 W) an f32 launch of
+    pass A / C takes 0.66 / 0.64 ms at D = HD = 200 against route 0's 0.92
+    / 0.85, a call 3.70 / 3.74 ms at gnn_dim 512 against 4.10 / 4.01 and
+    13.7 ms at 1040 against 19.3 / 19.2 (PERF.md PR 21). Widths alone
+    decide; `route` names one, 0 to time the CUDA-core kernels beside the
+    tensor-core ones."""
+    fits = HD <= MAX_COLS and HD // heads >= 4
     if route is None:
         return 1 if fits else 0
     if route not in (0, 1) or (route == 1 and not fits):
@@ -680,8 +690,8 @@ def _bwd_streams(D, cdt=torch.bfloat16):
 def _bwd_stream_tile(HD, cdt=torch.bfloat16):
     """(columns, most warps a block) of the backward streaming kernel's
     tile for a launch of HD columns: the first of BWD_STREAM_TILES (f32:
-    BWD32_STREAM_TILES) to hold HD."""
-    tiles = BWD32_STREAM_TILES if cdt == torch.float32 else BWD_STREAM_TILES
+    STREAM32_TILES) to hold HD."""
+    tiles = STREAM32_TILES if cdt == torch.float32 else BWD_STREAM_TILES
     return next(t for t in tiles if HD <= t[0])
 
 
@@ -707,23 +717,30 @@ def _tc_smem_bytes(D, HD, warps, cdt=torch.bfloat16):
     return _stream_smem(_bwd_stream_tile(HD)[0], warps, small)
 
 
-def _fwd_streams(D):
+def _fwd_streams(D, cdt=torch.bfloat16):
     """Whether route 1 of the forward streams W's rows through shared
-    memory (D > 256) or holds W there whole. The one place that decides:
-    the kernel streams exactly when the wrapper hands it W in bf16."""
-    return D > MAX_COLS
+    memory or holds W there whole: bf16 past D = 256, f32 at every D (W's
+    f32 rows whole would leave room for three warps at D = HD = 200). The
+    one place that decides: the kernel streams exactly when the wrapper
+    hands it W to stream (`_streamed_w`)."""
+    return cdt == torch.float32 or D > MAX_COLS
 
 
-def _stream_tile(HD):
+def _stream_tile(HD, cdt=torch.bfloat16):
     """(columns, most warps a block) of the streaming kernel's tile for a
-    launch of HD columns: the first of STREAM_TILES to hold HD."""
-    return next(t for t in STREAM_TILES if HD <= t[0])
+    launch of HD columns: the first of STREAM_TILES (f32: STREAM32_TILES)
+    to hold HD."""
+    tiles = STREAM32_TILES if cdt == torch.float32 else STREAM_TILES
+    return next(t for t in tiles if HD <= t[0])
 
 
-def _fwd_smem_bytes(D, HD, warps):
+def _fwd_smem_bytes(D, HD, warps, cdt=torch.bfloat16):
     """The forward kernel's (scores or alpha and the nodes beside each
-    stage; no cotangent tile), W whole or streamed (`_stream_smem`)."""
+    stage; no cotangent tile), W whole or streamed (`_stream_smem`; f32:
+    `_stream32_smem`)."""
     small = TC_UNIT * 8 + 2 * TC_UNIT
+    if cdt == torch.float32:
+        return _stream32_smem(_stream_tile(HD, cdt)[0], warps, small)
     if not _fwd_streams(D):
         return _tc_smem(D, HD, warps, small)
     return _stream_smem(_stream_tile(HD)[0], warps, small)
@@ -753,17 +770,21 @@ def _tc_plan(G, E, D, HD, n_sm, cdt=torch.bfloat16):
         n_sm, "GAT backward", max_warps)
 
 
-def _fwd_max_warps(D, HD):
+def _fwd_max_warps(D, HD, cdt=torch.bfloat16):
     """Warps a block of the forward tensor-core kernel may run: the
-    streaming tile's (`tc_stream_warps`), else TC_MAX_WARPS."""
+    streaming tile's (`tc_fwd_max_warps`: by tile in bf16, TC_MAX_WARPS in
+    f32), else TC_MAX_WARPS."""
+    if cdt == torch.float32:
+        return _stream_tile(HD, cdt)[1]
     return _stream_tile(HD)[1] if _fwd_streams(D) else TC_MAX_WARPS
 
 
-def _fwd_tc_plan(G, E, D, HD, n_sm):
-    """The forward tensor-core kernel's plan (passes A and C alike), W
-    whole or streamed."""
-    return _persistent_plan(_fwd_smem_bytes, G, E, D, HD, n_sm,
-                            "GAT forward", _fwd_max_warps(D, HD))
+def _fwd_tc_plan(G, E, D, HD, n_sm, cdt=torch.bfloat16):
+    """The forward tensor-core kernel's plan in `cdt` (passes A and C
+    alike), W whole or streamed."""
+    return _persistent_plan(
+        lambda D_, HD_, w: _fwd_smem_bytes(D_, HD_, w, cdt), G, E, D, HD,
+        n_sm, "GAT forward", _fwd_max_warps(D, HD, cdt))
 
 
 def _streamed_w(route, w, streams, cdt=torch.bfloat16):
@@ -771,9 +792,9 @@ def _streamed_w(route, w, streams, cdt=torch.bfloat16):
     shared memory once a round of units: in bf16 rounded to bf16 (half the
     bytes of f32 rows, no rounding in the ring) where `streams(D)` (the
     direction's decision: `_fwd_streams` or `_bwd_streams`); in f32 (the
-    backward's split-TF32 route, which streams at every D) W itself,
-    unrounded. None elsewhere: route 0 and the resident kernel round W as
-    they load it."""
+    split-TF32 routes of both directions, which stream at every D) W
+    itself, unrounded. None elsewhere: route 0 and the resident kernel
+    round W as they load it."""
     if route != 1:
         return None
     if cdt == torch.float32:
@@ -781,12 +802,13 @@ def _streamed_w(route, w, streams, cdt=torch.bfloat16):
     return w.to(torch.bfloat16) if streams(w.shape[0]) else None
 
 
-def _fwd_launch_plan(route, G, E, D, HD, device):
+def _fwd_launch_plan(route, G, E, D, HD, device, cdt):
     """(warps, n_blocks) for the forward kernels' C entry points: the
-    tensor-core plan on route 1; route 0's grid follows from the shapes."""
+    tensor-core plan in `cdt` on route 1; route 0's grid follows from the
+    shapes."""
     if route == 0:
         return 0, 0
-    return _fwd_tc_plan(G, E, D, HD, _sm_count(device))
+    return _fwd_tc_plan(G, E, D, HD, _sm_count(device), cdt)
 
 
 def _split_scratch(G, E, D, HD, device, route=0, n_sm=1,

@@ -93,20 +93,20 @@ def _body(text, name):
 
 
 def test_f32_tiles_match_the_kernel():
-    """BWD32_STREAM_TILES is what the kernel compiles: the forward
+    """STREAM32_TILES is what the kernel compiles: the forward
     streaming kernel's ladder of widths (`tc_stream_pairs`), one case of
     `launch_edge_f32` each, TC_MAX_WARPS a block for f32
     (`tc_bwd_max_warps`), and TC_KC32 rows a chunk."""
     body = _body(TC_COMMON, "tc_stream_pairs")
     pairs = [int(p) for p in re.findall(r"\? (\d+)", body)] \
         + [int(re.search(r": (\d+);", body).group(1))]
-    assert [w for w, _ in gk.BWD32_STREAM_TILES] == [16 * p for p in pairs]
+    assert [w for w, _ in gk.STREAM32_TILES] == [16 * p for p in pairs]
     cases = re.findall(r"launch_edge_tc<PASS, (\d+), true>",
                        _body(BWD_TC, "cudaError_t launch_edge_f32"))
     assert sorted(int(p) for p in cases) == pairs
     assert re.search(r"return f32 \|\| !stream \? TC_MAX_WARPS",
                      _body(BWD_TC, "constexpr int tc_bwd_max_warps"))
-    assert {w for _, w in gk.BWD32_STREAM_TILES} == {gk.TC_MAX_WARPS}
+    assert {w for _, w in gk.STREAM32_TILES} == {gk.TC_MAX_WARPS}
     assert int(re.search(r"constexpr int TC_KC32 = (\d+);", TC_COMMON)
                .group(1)) == gk.TC_KC32
     for HD in range(8, 257, 8):

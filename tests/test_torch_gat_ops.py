@@ -255,7 +255,7 @@ def test_wrappers_take_plain_version_only_on_cpu():
 
 
 @pytest.mark.parametrize("dtype,D,HD,heads,route,want", [
-    (torch.float32, 200, 200, 4, None, 0),
+    (torch.float32, 200, 200, 4, None, 1),
     (torch.bfloat16, 200, 200, 4, None, 1),
     (torch.bfloat16, 24, 40, 4, None, 1),
     (torch.bfloat16, 256, 256, 8, None, 1),
@@ -263,7 +263,7 @@ def test_wrappers_take_plain_version_only_on_cpu():
     (torch.bfloat16, 512, 256, 2, None, 1),
     (torch.bfloat16, 1040, 136, 1, None, 1),
     (torch.bfloat16, 1040, 128, 1, None, 1),
-    (torch.float32, 512, 256, 2, None, 0),
+    (torch.float32, 512, 256, 2, None, 1),
     (torch.bfloat16, 512, 256, 2, 0, 0),
     (torch.bfloat16, 16, 16, 8, None, 0),
     (torch.bfloat16, 200, 200, 4, 0, 0),
@@ -271,20 +271,21 @@ def test_wrappers_take_plain_version_only_on_cpu():
     (torch.float32, 200, 200, 4, 0, 0)])
 def test_forward_route_follows_dtype_and_widths(dtype, D, HD, heads, route,
                                                 want):
-    """Tensor cores for bf16 at any D where HD <= 256 and heads have at
-    least 4 features (past D = 256 W's rows stream through shared memory);
+    """Tensor cores in either dtype at any D where HD <= 256 and heads have
+    at least 4 features (bf16 products, W's rows streamed through shared
+    memory past D = 256; split-TF32 products in f32, streamed at every D);
     CUDA cores otherwise, or when route 0 is named."""
     assert gat_kernels._fwd_route(dtype, D, HD, heads, route) == want
 
 
 @pytest.mark.parametrize("dtype,D,HD,heads,route", [
-    (torch.float32, 200, 200, 4, 1),
+    (torch.float32, 200, 16, 8, 1),
     (torch.bfloat16, 200, 200, 4, 2),
     (torch.bfloat16, 512, 16, 8, 1),
     (torch.bfloat16, 16, 16, 8, 1)])
 def test_forward_route_refuses(dtype, D, HD, heads, route):
-    """No tensor-core route for float32 (TF32 would change the values), past
-    its widths or for heads of fewer than 4 features, and no third route."""
+    """No tensor-core route past its widths or for heads of fewer than 4
+    features, in either dtype, and no third route."""
     with pytest.raises(ValueError):
         gat_kernels._fwd_route(dtype, D, HD, heads, route)
 
@@ -328,7 +329,8 @@ def test_wide_forward_launches_take_tensor_cores(width, n_launches, warps):
     """Every bf16 launch of passes A and C that the op makes at gnn_dim 512
     (two head groups of 256 columns: 8 warps a block) and 1040 (four heads
     of 264 features, two column slices of 128 and 136 each: 12 warps) takes
-    route 1, W's rows streamed at D > 256; f32 stays on route 0."""
+    route 1, W's rows streamed at D > 256; so does every f32 launch, on the
+    f32 streaming kernel's 8 warps."""
     heads = 4
     D, HD = gat_kernels.kernel_widths(width, width, heads)
     plan = gat_kernels.launches(HD, heads)
@@ -337,22 +339,28 @@ def test_wide_forward_launches_take_tensor_cores(width, n_launches, warps):
         assert gat_kernels._fwd_route(torch.bfloat16, D, c1 - c0, h1 - h0,
                                       None) == 1
         assert gat_kernels._fwd_route(torch.float32, D, c1 - c0, h1 - h0,
-                                      None) == 0
+                                      None) == 1
         assert gat_kernels._fwd_tc_plan(64, 4096, D, c1 - c0, 132) \
             == (warps, 132)
+        assert gat_kernels._fwd_tc_plan(64, 4096, D, c1 - c0, 132,
+                                        torch.float32) == (8, 132)
 
 
 @pytest.mark.parametrize("route,D,want", [
     (1, 512, torch.bfloat16), (1, 256, None), (0, 512, None)])
 def test_streamed_w_is_rounded_only_past_256(route, D, want):
     """Route 1 past D = 256 reads W rounded to bf16 from device memory;
-    route 0 and the resident kernel round it themselves."""
+    route 0 and the resident kernel round it themselves. In f32 route 1
+    streams at every D and is handed W itself, never rounded."""
     w = torch.randn(D, 64)
     got = gat_kernels._streamed_w(route, w, gat_kernels._fwd_streams)
     if want is None:
         assert got is None
     else:
         assert got.dtype == want and torch.equal(got, w.to(want))
+    f32 = gat_kernels._streamed_w(route, w, gat_kernels._fwd_streams,
+                                  torch.float32)
+    assert (f32 is w) if route == 1 else (f32 is None)
 
 
 # the streaming tile's decisions as csrc/gat_tc_common.cuh compiles them
