@@ -26,8 +26,10 @@ Run from the repository root on a machine with one CUDA card. It
      against the plain versions and timed in turns with the resident
      kernel that route 1 runs there; the
      edge encoder's hidden pass and its backward on both of their routes in
-     bf16 (also at D=24 x F=16 and D=256 x F=64, and at D=100 where only
-     the CUDA-core route runs), route 1 timed in turns with route 0; the
+     both dtypes (also at D=24 x F=16, D=256 x F=64, the CLI's default
+     D=100, odd D=37 and D=512 and 1040, where route 1 runs D's columns as
+     slices), route 1 timed in turns with route 0 at the main shapes in
+     both dtypes and at D=100; the
      feature moments exactly, also for the MedQA relations, 7 node types and
      unaligned arrays, beside an empty kernel's time, with the CUDA kernels
      of one call listed (one launch); the unprojected op's five kernels
@@ -171,14 +173,17 @@ Run from the repository root on a machine with one CUDA card. It
      versions, at E and E - 3, every launch of rows 6-9 held against its
      plain version in both dtypes, and the times of rows 6-9 and 11-12
      there beside their bounds, by call and by launch (one edge kernel a
-     column launch of rows 8 and 9), rows 6 and 7 in both dtypes and rows 8
-     and 9 in f32 in turns with their CUDA-core route on the same inputs;
-     and
-     `python -m qagnn_tpu_torch.cli --gnn_dim 512` and `--gnn_dim 1040`,
-     side by side, for two train steps each. The `overfit` phase also logs,
-     per GAT layer of the trained model, the largest gap between a graph's
-     max score and a source's, and the denominators under DENOM_EPS
-     (ROADMAP C7);
+     column launch of rows 8 and 9), rows 6 and 7 and 11 and 12 in both
+     dtypes and rows 8 and 9 in f32 in turns with their CUDA-core route on
+     the same inputs; rows 11 and 12 with relation ids past n_rel at D =
+     200 and 100; `python -m qagnn_tpu_torch.cli --gnn_dim 512` and
+     `--gnn_dim 1040`, side by side, for two train steps each, and beside
+     them `cli.main` at the default gnn_dim and at --gnn_dtype float32,
+     rows 11 and 12 on route 1 alone; and the copies `pad_widths` makes of
+     the edge embedding a layer at D = 100 -> 104. The `overfit` phase
+     also logs, per GAT layer of the trained model, the largest gap between
+     a graph's max score and a source's, and the denominators under
+     DENOM_EPS (ROADMAP C7);
  16. stops every process it started that is still running (the forkserver
      of the preprocess phase's pools, multiprocessing's resource tracker,
      and any process a child left behind: the script takes its orphans as
@@ -628,32 +633,50 @@ def graph_inputs(gen, dev, n_edges):
 
 def hidden_routes(dt, D, n_rel, n_ntype):
     """The routes of edge_hidden and its backward at this dtype and width:
-    both in bf16 where route 1 takes the width, else route 0."""
+    both where route 1 takes the width (F <= 64), else route 0."""
     return (0, 1) if ek._hidden_route(dt, D, n_rel, n_ntype) else (0,)
 
 
-def edge_hidden_case(reports, args, dt, tag, main):
+def hidden_times(name, tag, kernel, route0, plain, n_bytes, flops, card,
+                 iters=20):
+    """Route 1 of row 11 or 12 in turns with route 0 on the same inputs
+    (route 1 must be the faster), beside its plain version and the bound
+    (bytes, or f32 operations on CUDA cores)."""
+    ms = faster_than_previous(f"{name} {tag}", kernel, route0,
+                              "route 0 on the same inputs", iters=iters,
+                              warmup=2)
+    plain_ms = device_ms(plain, iters, 2)
+    bound_ms, by = bound(n_bytes, flops, torch.float32)
+    log(f"  time {name} {tag}: route 1 {ms:.4f} ms a call  plain "
+        f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({by})  [{card}]")
+
+
+def edge_hidden_case(reports, args, dt, tag, main, card=None):
     """edge_hidden on each route against its plain version; at the main
-    shapes also its time, route 1's beside route 0's on the same inputs."""
+    shapes in bf16 also its time, route 1's beside route 0's on the same
+    inputs, filed in `reports`; in f32, and wherever `card` is given, its
+    times logged."""
     want = ek.edge_hidden_plain(*args, dt)
     for route in hidden_routes(dt, args[4].shape[1], *args[8:10]):
         got = ek.edge_hidden_forward(*args, dt, _route=route)
         err = compare(f"edge_hidden {tag} route {route}", got, want,
                       TOL["edge_hidden"][dt])
-    if main:
-        # three row sums, bias, affine, relu per output element
-        etype, src, dst, ntype, w0, b0, a, b = args[:8]
-        measure(reports, "edge_hidden", err,
-                lambda: ek.edge_hidden_forward(*args, dt),
-                lambda: ek.edge_hidden_plain(*args, dt),
-                nbytes(etype, src, dst, ntype, w0, b0, a, b, got),
-                6.0 * got.numel(), torch.float32,
-                previous=lambda: ek.edge_hidden_forward(*args, dt, _route=0))
-        profile_kernels("edge_hidden",
-                        lambda: ek.edge_hidden_forward(*args, dt))
+    # three row sums, bias, affine, relu per output element
+    etype, src, dst, ntype, w0, b0, a, b = args[:8]
+    n_bytes = nbytes(etype, src, dst, ntype, w0, b0, a, b, got)
+    kernel = lambda: ek.edge_hidden_forward(*args, dt)  # noqa: E731
+    route0 = lambda: ek.edge_hidden_forward(*args, dt, _route=0)  # noqa
+    plain = lambda: ek.edge_hidden_plain(*args, dt)  # noqa: E731
+    if main and dt == torch.bfloat16:
+        measure(reports, "edge_hidden", err, kernel, plain, n_bytes,
+                6.0 * got.numel(), torch.float32, previous=route0)
+        profile_kernels("edge_hidden", kernel)
+    elif card is not None:
+        hidden_times("edge_hidden", tag, kernel, route0, plain, n_bytes,
+                     6.0 * got.numel(), card)
 
 
-def phase_edge_hidden(gen, dev, reports):
+def phase_edge_hidden(gen, dev, reports, card):
     n_rel = 39                             # 38 relations + the self loop
     F = n_rel + 2 * N_NTYPE
     D = 200
@@ -669,7 +692,7 @@ def phase_edge_hidden(gen, dev, reports):
         args = (etype, src, dst, ntype, w0, b0, a, b, n_rel, N_NTYPE)
         for dt in (torch.float32, torch.bfloat16):
             edge_hidden_case(reports, args, dt, f"E={n_edges} {dt}",
-                             n_edges == E and dt == torch.bfloat16)
+                             n_edges == E, card if n_edges == E else None)
 
 
 def gat_fwd_case(reports, gen, dev, D, HD, heads, src, dst, mask, dt, tag,
@@ -939,9 +962,9 @@ def phase_edge_moments(gen, more_gen, dev, reports):
                     " alone, one launch (no memset, no conversion)  ok")
 
 
-def edge_hidden_bwd_case(reports, args, dt, tag, main):
-    """The backward on each route against its plain version; at the main
-    shapes also its time, route 1's beside route 0's on the same inputs."""
+def edge_hidden_bwd_case(reports, args, dt, tag, main, card=None):
+    """The backward on each route against its plain version; times as in
+    `edge_hidden_case`."""
     names = ("dW0", "db0", "da", "db")
     want = ek.edge_hidden_backward_plain(*args)
     for route in hidden_routes(dt, args[4].shape[1], *args[9:11]):
@@ -949,21 +972,23 @@ def edge_hidden_bwd_case(reports, args, dt, tag, main):
         errs = [compare(f"edge_hidden_bwd {name} {tag} route {route}", g, w,
                         TOL["bwd"][dt])
                 for name, g, w in zip(names, got, want)]
-    if main:
-        # per element: three row sums, the affine, the relu mask, four
-        # products and six accumulations
-        etype, src, dst, ntype, w0, b0, a, b, dh = args[:9]
-        measure(reports, "edge_hidden_bwd", max(errs),
-                lambda: ek.edge_hidden_backward(*args),
-                lambda: ek.edge_hidden_backward_plain(*args),
-                nbytes(etype, src, dst, ntype, w0, b0, a, b, dh, *got),
-                16.0 * dh.numel(), torch.float32,
-                previous=lambda: ek.edge_hidden_backward(*args, _route=0))
-        profile_kernels("edge_hidden_bwd",
-                        lambda: ek.edge_hidden_backward(*args))
+    # per element: three row sums, the affine, the relu mask, four
+    # products and six accumulations
+    etype, src, dst, ntype, w0, b0, a, b, dh = args[:9]
+    n_bytes = nbytes(etype, src, dst, ntype, w0, b0, a, b, dh, *got)
+    kernel = lambda: ek.edge_hidden_backward(*args)  # noqa: E731
+    route0 = lambda: ek.edge_hidden_backward(*args, _route=0)  # noqa: E731
+    plain = lambda: ek.edge_hidden_backward_plain(*args)  # noqa: E731
+    if main and dt == torch.bfloat16:
+        measure(reports, "edge_hidden_bwd", max(errs), kernel, plain,
+                n_bytes, 16.0 * dh.numel(), torch.float32, previous=route0)
+        profile_kernels("edge_hidden_bwd", kernel)
+    elif card is not None:
+        hidden_times("edge_hidden_bwd", tag, kernel, route0, plain, n_bytes,
+                     16.0 * dh.numel(), card)
 
 
-def phase_edge_hidden_bwd(gen, dev, reports):
+def phase_edge_hidden_bwd(gen, dev, reports, card):
     n_rel = 39
     F, D = n_rel + 2 * N_NTYPE, 200
     w0 = torch.randn((F, D), generator=gen, device=dev) * 0.2
@@ -976,14 +1001,20 @@ def phase_edge_hidden_bwd(gen, dev, reports):
                 .to(dt)
             args = (etype, src, dst, ntype, w0, b0, a, b, dh, n_rel, N_NTYPE)
             edge_hidden_bwd_case(reports, args, dt, f"E={n_edges} {dt}",
-                                 n_edges == E and dt == torch.bfloat16)
+                                 n_edges == E,
+                                 card if n_edges == E else None)
 
 
-def phase_edge_hidden_widths(gen, dev, reports):
-    """Both edge-encoder hidden kernels off the main width: D=24 x F=16
-    (route 1's product pads D to 32), D=256 x F=64 (the widest route 1
-    takes) and D=100 x F=47 (the default gnn_dim: route 0 alone)."""
-    for D, n_rel in ((24, 8), (256, 56), (100, 39)):
+def phase_edge_hidden_widths(gen, dev, reports, card):
+    """Both edge-encoder hidden kernels off the main width, on both routes
+    in both dtypes: D=24 x F=16 (route 1's product pads D to 32), D=256 x
+    F=64 (one backward slice of 16 warps), D=100 x F=47 (the default
+    gnn_dim, rows of 200 bytes in bf16: 8-byte pieces; timed), D=37 (odd:
+    a bf16 row on a 2-byte boundary) and D=512 and 1040 (backward slices of
+    256 and 208 columns; the forward's bf16 1040 and f32 tables in two or
+    three slices), at E and E - 3."""
+    for D, n_rel in ((24, 8), (256, 56), (100, 39), (37, 39), (512, 39),
+                     (1040, 39)):
         F = n_rel + 2 * N_NTYPE
         w0 = torch.randn((F, D), generator=gen, device=dev) * 0.2
         b0, a, b = (torch.randn(D, generator=gen, device=dev) * 0.5
@@ -993,11 +1024,12 @@ def phase_edge_hidden_widths(gen, dev, reports):
             for dt in (torch.float32, torch.bfloat16):
                 tag = f"D={D} F={F} E={n_edges} {dt}"
                 args = (etype, src, dst, ntype, w0, b0, a, b, n_rel, N_NTYPE)
-                edge_hidden_case(reports, args, dt, tag, False)
+                timed = card if D == 100 and n_edges == E else None
+                edge_hidden_case(reports, args, dt, tag, False, timed)
                 dh = torch.randn((G, n_edges, D), generator=gen,
                                  device=dev).to(dt)
                 edge_hidden_bwd_case(reports, args[:8] + (dh,) + args[8:],
-                                     dt, tag, False)
+                                     dt, tag, False, timed)
 
 
 def profile_kernels(what, fn, iters=20, attempts=2, keep=None):
@@ -2012,10 +2044,10 @@ ROUTED = ("gat_pass_a_scores", "gat_pass_c", "gat_bwd_pass1", "gat_bwd_pass2",
 
 
 # the routes of a step with an f32 GNN: the forward passes A and C and
-# backward passes 1 and 2 on tensor cores (split TF32), the edge encoder on
-# CUDA cores
+# backward passes 1 and 2 on tensor cores (split TF32), the edge encoder's
+# route 1 (its backward's one-hot product on tf32)
 F32_ROUTES = {"gat_pass_a_scores": 1, "gat_pass_c": 1, "gat_bwd_pass1": 1,
-              "gat_bwd_pass2": 1, "edge_hidden": 0, "edge_hidden_bwd": 0}
+              "gat_bwd_pass2": 1, "edge_hidden": 1, "edge_hidden_bwd": 1}
 
 
 def check_routes(route, what: str) -> None:
@@ -4843,44 +4875,55 @@ def check_trace(what: str, rows, calls, card, retake=False) -> bool:
     return True
 
 
-def tools_profile_step(card) -> None:
-    """profile_step at its full shapes with the kernels, its trace read by
-    trace_summary: rows 6-12's __global__ kernels as often as the traced
-    steps launched them (LAUNCHES over the window)."""
-    from qagnn_tpu_torch.tools import profile_step, trace_summary as ts
+def step_calls(D, k, dt, n_rel, n_steps) -> dict:
+    """(entry point, route) -> calls of rows 6-12 in `n_steps` train steps of
+    QAGNNMessagePassing at gnn_dim D, k layers, 4 heads, n_rel relations
+    with the self loop, on the routes the wrappers' rules give these
+    widths."""
+    Dk, HDk = gk.kernel_widths(D, D, HEADS)
+    routes = {"gat_pass_a_scores": gk._fwd_route(dt, Dk, HDk, HEADS, None),
+              "gat_pass_c": gk._fwd_route(dt, Dk, HDk, HEADS, None),
+              "gat_bwd_pass1": gk._bwd_route(dt, None),
+              "gat_bwd_pass2": gk._bwd_route(dt, None),
+              "edge_hidden": ek._hidden_route(dt, D, n_rel, N_NTYPE),
+              "edge_hidden_bwd": ek._hidden_route(dt, D, n_rel, N_NTYPE)}
+    return {(name, routes.get(name)): n * n_steps
+            for name, n in step_launches(k).items()}
 
+
+def tools_profile_step(card) -> None:
+    """`python -m qagnn_tpu_torch.tools.profile_step` at its full shapes
+    with the kernels, run as its users run it, in a process of its own (in
+    this long process the profiler at times dropped one of the traced
+    steps' edge_moments_kernel records, ROADMAP C15), its trace read by
+    trace_summary: rows 6-12's __global__ kernels as often as the traced
+    steps launch them on the routes the wrappers' rules give."""
+    from qagnn_tpu_torch.tools import profile_step
+
+    shapes = profile_step.Shapes()
+    calls = step_calls(shapes.D, shapes.k, torch.bfloat16,
+                       profile_step.N_ETYPE + 1, profile_step.TRACED_STEPS)
     with tempfile.TemporaryDirectory(prefix="qagnn_prof_") as tmp:
-        results = []
+        runs = []
 
         def make_trace():
-            printed = io.StringIO()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(printed):
-                results.append(profile_step.profile(
-                    f"{tmp}/{len(results)}", "cuda", DEVICE))
-            log(f"  profile_step.profile: {printed.getvalue().split()} in "
-                f"{time.perf_counter() - t0:.1f} s")
-            return results[-1]["trace"]
+            out = f"{tmp}/{len(runs)}"
+            runs.append(run_tool(["qagnn_tpu_torch.tools.profile_step",
+                                  "--trace-dir", out],
+                                 "python -m qagnn_tpu_torch.tools."
+                                 "profile_step"))
+            if runs[-1] is not None:
+                log(f"  profile_step printed: {runs[-1].split()}")
+            return out
 
-        k = profile_step.Shapes().k
-        want = {n: c * profile_step.TRACED_STEPS
-                for n, c in step_launches(k).items()}
         for attempt in (1, 2):
             path, rows = trace_rows("profile_step", make_trace)
-            if rows is None:
+            if rows is None or runs[-1] is None:
                 return
-            result = results[-1]
-            if result["launches"] != want:
-                FAILURES.append(f"tools: profile_step launches "
-                                f"{result['launches']}")
-            log(f"  launches over the {profile_step.TRACED_STEPS} traced "
-                f"steps {result['launches']}; routes {result['routes']}; "
-                f"trace {pathlib.Path(path).stat().st_size / 2 ** 20:.1f} "
-                "MiB")
-            if check_trace("profile_step's trace", rows,
-                           ts.entry_calls(result["launches"],
-                                          result["routes"]),
-                           card, retake=attempt == 1):
+            log(f"  trace {pathlib.Path(path).stat().st_size / 2 ** 20:.1f} "
+                f"MiB of {profile_step.TRACED_STEPS} traced steps")
+            if check_trace("profile_step's trace", rows, calls, card,
+                           retake=attempt == 1):
                 break
 
 
@@ -4955,22 +4998,14 @@ def tools_cli_trace(card) -> None:
         write_synthetic_dataset,
         write_tiny_bert_checkpoint,
     )
-    from qagnn_tpu_torch.tools import trace_summary as ts
     from qagnn_tpu_torch.tools.dress_rehearsal import SYNTHETIC_RELATIONS
     from qagnn_tpu_torch.utils.config import TrainConfig
 
     base = TrainConfig()
-    D, k, dt = base.gnn_dim, base.k, torch.bfloat16
-    n_rel = SYNTHETIC_RELATIONS + 1
+    D, k = base.gnn_dim, base.k
     Dk, HDk = gk.kernel_widths(D, D, HEADS)
-    routes = {"gat_pass_a_scores": gk._fwd_route(dt, Dk, HDk, HEADS, None),
-              "gat_pass_c": gk._fwd_route(dt, Dk, HDk, HEADS, None),
-              "gat_bwd_pass1": gk._bwd_route(dt, None),
-              "gat_bwd_pass2": gk._bwd_route(dt, None),
-              "edge_hidden": ek._hidden_route(dt, D, n_rel, N_NTYPE),
-              "edge_hidden_bwd": ek._hidden_route(dt, D, n_rel, N_NTYPE)}
-    calls = {(name, routes.get(name)): n * TOOLS_CLI_TRACED
-             for name, n in step_launches(k).items()}
+    calls = step_calls(D, k, torch.bfloat16, SYNTHETIC_RELATIONS + 1,
+                       TOOLS_CLI_TRACED)
     with tempfile.TemporaryDirectory(prefix="qagnn_cli_prof_") as tmp:
         emb_path = write_synthetic_dataset(f"{tmp}/data",
                                            n_questions=TOOLS_CLI_QUESTIONS)
@@ -5248,36 +5283,42 @@ def widths_relation_ids(gen, dev):
     """Rows 10-12 at the OBQA preset's F = 47 (39 relations with the self
     loop, 4 node types) and D = 200, a tenth of the live slots given ids
     n_rel and n_rel + 1: the moments exactly, the hidden pass and its
-    backward on both routes in bf16 (route 0 in f32) at the tolerances
-    of their own phases, against their plain versions, which give such a
-    slot no relation feature."""
-    n_rel, D = 39, 200
+    backward on both routes in both dtypes at the tolerances of their own
+    phases, against their plain versions, which give such a slot no
+    relation feature; then rows 11 and 12 so at the default gnn_dim 100,
+    from a generator of their own."""
+    n_rel = 39
     F = n_rel + 2 * N_NTYPE
-    w0 = torch.randn((F, D), generator=gen, device=dev) * 0.2
-    b0, a, b = (torch.randn(D, generator=gen, device=dev) * 0.5
-                for _ in range(3))
-    for n_edges in (E, E - 3):
-        etype, src, dst, ntype, mask = encoder_ints(gen, dev, n_edges, n_rel)
-        wild = mask & (torch.rand(mask.shape, generator=gen, device=dev)
-                       < OUT_OF_RANGE)
-        etype = torch.where(wild, n_rel + (torch.rand(
-            mask.shape, generator=gen, device=dev) < 0.5).int(), etype)
-        log(f"  E={n_edges}: {int(wild.sum())} of {int(mask.sum())} live "
-            f"slots with ids {n_rel} or {n_rel + 1}")
-        ints = (etype, src, dst, ntype, mask, n_rel, N_NTYPE)
-        got = ek.edge_feature_moments(*ints)
-        want = ek.edge_feature_moments_plain(*ints)
-        for name, g, w in zip(("hist", "M", "n"), got, want):
-            compare(f"edge_moments {name} ids past n_rel E={n_edges}", g, w,
-                    0.0)
-        args = (etype, src, dst, ntype, w0, b0, a, b, n_rel, N_NTYPE)
-        for dt in (torch.float32, torch.bfloat16):
-            tag = f"ids past n_rel E={n_edges} {dt}"
-            edge_hidden_case(None, args, dt, tag, False)
-            dh = torch.randn((G, n_edges, D), generator=gen, device=dev) \
-                .to(dt)
-            edge_hidden_bwd_case(None, args[:8] + (dh,) + args[8:], dt, tag,
-                                 False)
+    for D, gen_ in ((200, gen), (100, torch.Generator(device=dev)
+                                 .manual_seed(SEED + 50))):
+        w0 = torch.randn((F, D), generator=gen_, device=dev) * 0.2
+        b0, a, b = (torch.randn(D, generator=gen_, device=dev) * 0.5
+                    for _ in range(3))
+        for n_edges in (E, E - 3):
+            etype, src, dst, ntype, mask = encoder_ints(gen_, dev, n_edges,
+                                                        n_rel)
+            wild = mask & (torch.rand(mask.shape, generator=gen_, device=dev)
+                           < OUT_OF_RANGE)
+            etype = torch.where(wild, n_rel + (torch.rand(
+                mask.shape, generator=gen_, device=dev) < 0.5).int(), etype)
+            log(f"  D={D} E={n_edges}: {int(wild.sum())} of "
+                f"{int(mask.sum())} live slots with ids {n_rel} or "
+                f"{n_rel + 1}")
+            ints = (etype, src, dst, ntype, mask, n_rel, N_NTYPE)
+            if D == 200:
+                got = ek.edge_feature_moments(*ints)
+                want = ek.edge_feature_moments_plain(*ints)
+                for name, g, w in zip(("hist", "M", "n"), got, want):
+                    compare(f"edge_moments {name} ids past n_rel "
+                            f"E={n_edges}", g, w, 0.0)
+            args = (etype, src, dst, ntype, w0, b0, a, b, n_rel, N_NTYPE)
+            for dt in (torch.float32, torch.bfloat16):
+                tag = f"ids past n_rel D={D} E={n_edges} {dt}"
+                edge_hidden_case(None, args, dt, tag, False)
+                dh = torch.randn((G, n_edges, D), generator=gen_,
+                                 device=dev).to(dt)
+                edge_hidden_bwd_case(None, args[:8] + (dh,) + args[8:], dt,
+                                     tag, False)
 
 
 def op_launches(HD, heads) -> dict:
@@ -5435,18 +5476,15 @@ def widths_gnn(gen, dev, card, width):
     routes; past 512 every launch of rows 6-9 against its plain version
     (`LaunchCheck`)."""
     HDk = gk.kernel_widths(width, width, HEADS)[1]
-    F = 39 + 2 * N_NTYPE             # gnn_run's 38 relations, the self loop
     cot = torch.randn((G, N, width), generator=gen, device=dev)
     ref = reference_grads(dev, cot, width)
     for dt in (torch.bfloat16, torch.float32):
         name = "bf16" if dt == torch.bfloat16 else "f32"
-        # rows 6-9 a launch a head group or column slice; rows 11 and 12 a
-        # launch a slice of D's columns on route 0 (all of D at 512)
+        # rows 6-9 a launch a head group or column slice; rows 11 and 12 one
+        # call over all of D's column slices
         per = dict.fromkeys(("gat_pass_a_scores", "gat_pass_c",
                              "gat_bwd_pass1", "gat_bwd_pass2"),
                             len(gk.launches(HDk, HEADS)))
-        per.update(edge_hidden=len(ek.fwd_col_slices(width, dt)),
-                   edge_hidden_bwd=len(ek.bwd_col_slices(F, width)))
         launches = {n: c * per.get(n, 1)
                     for n, c in step_launches(WIDE_K).items()}
         check = LaunchCheck(f"gnn_dim {width} {name}", dt) \
@@ -5462,11 +5500,7 @@ def widths_gnn(gen, dev, card, width):
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             FAILURES.append(f"widths: launches at gnn_dim {width}, {name}")
-        off = [k for k, want_r in (
-            ("gat_pass_a_scores", 1), ("gat_pass_c", 1),
-            ("gat_bwd_pass1", 1), ("gat_bwd_pass2", 1),
-            ("edge_hidden", 0), ("edge_hidden_bwd", 0))
-            if routes.get((k, 1 - want_r))]
+        off = [k for k in ROUTED if routes.get((k, 0))]
         log("  routes, " + ", ".join(f"{k} {r}: {c}" for (k, r), c in
                                      sorted(routes.items()))
             + f"  {'ok' if not off else 'FAIL'}")
@@ -5681,36 +5715,37 @@ def widths_passes(gen, dev, card, D, HD):
                                        iters=5)
                 bwd_launches_by_kernel(rows, 5, n_launches,
                                        f"{name} D={D} HD={HD} {dt}")
-    # the forward passes at this D in both dtypes, rows 11-12 on the bf16
-    # main path
+    # the forward passes at this D in both dtypes, and rows 11-12 (route 1
+    # in turns with route 0)
     for dt in (torch.float32, torch.bfloat16):
         widths_fwd_times(gen, dev, card, D, HD, src, dst, mask, dt)
-    dt = torch.bfloat16
     r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
     n_rel = 39
     etype, esrc, edst, ntype, _ = encoder_ints(gen, dev, E, n_rel)
     F = n_rel + 2 * N_NTYPE
     w0, b0, ea, eb = r(F, D) * 0.2, r(D) * 0.5, r(D) * 0.5, r(D) * 0.5
     h_args = (etype, esrc, edst, ntype, w0, b0, ea, eb, n_rel, N_NTYPE)
-    dh = r(G, E, D).to(dt)
-    for name, fn, plain, n_bytes, flops in (
-            ("edge_hidden", lambda: ek.edge_hidden_forward(*h_args, dt),
-             lambda: ek.edge_hidden_plain(*h_args, dt),
-             nbytes(etype, esrc, edst, ntype, w0, b0, ea, eb) + G * E * D * 2,
-             6.0 * G * E * D),
-            ("edge_hidden_bwd",
-             lambda: ek.edge_hidden_backward(*h_args[:8], dh, n_rel, N_NTYPE),
-             lambda: ek.edge_hidden_backward_plain(*h_args[:8], dh, n_rel,
-                                                   N_NTYPE),
-             nbytes(etype, esrc, edst, ntype, w0, b0, ea, eb, dh)
-             + (F + 3) * D * 4, 16.0 * dh.numel())):
-        ms = device_ms(fn, iters=5, warmup=1)
-        plain_ms = device_ms(plain, iters=5, warmup=1)
-        bound_ms, by = bound(n_bytes, flops, torch.float32)
-        log(f"  time {name} D={D} HD={HD} {dt}: kernels {ms:.4f} ms a call  "
-            f"plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({by})  "
-            f"[{card}]")
-        profile_kernels(f"{name} D={D} HD={HD} {dt}", fn, iters=5)
+    ints = nbytes(etype, esrc, edst, ntype, w0, b0, ea, eb)
+    dh0 = r(G, E, D)
+    for dt in (torch.bfloat16, torch.float32):
+        dh = dh0.to(dt)
+        tag = f"D={D} HD={HD} {dt}"
+        for name, fn, route0, plain, n_bytes, flops in (
+                ("edge_hidden", lambda: ek.edge_hidden_forward(*h_args, dt),
+                 lambda: ek.edge_hidden_forward(*h_args, dt, _route=0),
+                 lambda: ek.edge_hidden_plain(*h_args, dt),
+                 ints + nbytes(dh), 6.0 * G * E * D),
+                ("edge_hidden_bwd",
+                 lambda: ek.edge_hidden_backward(*h_args[:8], dh, n_rel,
+                                                 N_NTYPE),
+                 lambda: ek.edge_hidden_backward(*h_args[:8], dh, n_rel,
+                                                 N_NTYPE, _route=0),
+                 lambda: ek.edge_hidden_backward_plain(*h_args[:8], dh,
+                                                       n_rel, N_NTYPE),
+                 ints + nbytes(dh) + (F + 3) * D * 4, 16.0 * dh.numel())):
+            hidden_times(name, tag, fn, route0, plain, n_bytes, flops, card,
+                         iters=5)
+            profile_kernels(f"{name} {tag}", fn, iters=5)
 
 
 def widths_fwd_times(gen, dev, card, D, HD, src, dst, mask, dt):
@@ -5759,16 +5794,19 @@ def widths_fwd_times(gen, dev, card, D, HD, src, dst, mask, dt):
 def widths_cli(card, widths):
     """`python -m qagnn_tpu_torch.cli` training two steps of a synthetic
     set at each --gnn_dim of `widths` on the card, the processes side by
-    side, each on its own copy of the set: exit 0."""
+    side, each on its own copy of the set: exit 0. Meanwhile `cli.main` in
+    this process on the same set at the default gnn_dim (no --gnn_dim) and
+    at --gnn_dtype float32 --gnn_dim 200 (the preset's width): rows 11 and
+    12 launched on route 1 alone (`_build.ROUTES`)."""
+    from qagnn_tpu_torch import cli
     from qagnn_tpu_torch.data.synthetic import (
         write_synthetic_dataset,
         write_tiny_bert_checkpoint,
     )
     with tempfile.TemporaryDirectory(prefix="qagnn_wide_cli_") as tmp:
         enc_dir = write_tiny_bert_checkpoint(f"{tmp}/bert")
-        started = []
-        for width in widths:
-            root = f"{tmp}/{width}"
+
+        def argv(root, *extra):
             emb_path = write_synthetic_dataset(
                 f"{root}/data", n_questions=WIDE_CLI_QUESTIONS)
             splits = [f"--{split}_{kind}={root}/data/{sub}/{split}.{ext}"
@@ -5776,15 +5814,36 @@ def widths_cli(card, widths):
                       for kind, sub, ext in (
                           ("statements", "statement", "statement.jsonl"),
                           ("adj", "graph", "graph.adj.pk"))]
-            started.append((width, start_tool(
-                ["qagnn_tpu_torch.cli", "--mode", "train", "--dataset",
-                 "csqa", "--encoder", "bert-base-uncased", "--encoder_load",
-                 enc_dir, "--inhouse", "false", "--batch_size", "4",
-                 "--mini_batch_size", "4", "--eval_batch_size", "4",
-                 "--n_epochs", "1", "--max_seq_len", "24", "--max_node_num",
-                 "8", "--num_relation", "7", "--gnn_dim", str(width),
-                 "--ent_emb_paths", emb_path, "--save_dir", f"{root}/out",
-                 *splits])))
+            return ["--mode", "train", "--dataset", "csqa", "--encoder",
+                    "bert-base-uncased", "--encoder_load", enc_dir,
+                    "--inhouse", "false", "--batch_size", "4",
+                    "--mini_batch_size", "4", "--eval_batch_size", "4",
+                    "--n_epochs", "1", "--max_seq_len", "24",
+                    "--max_node_num", "8", "--num_relation", "7", *extra,
+                    "--ent_emb_paths", emb_path, "--save_dir",
+                    f"{root}/out", *splits]
+
+        started = [(width, start_tool(["qagnn_tpu_torch.cli", *argv(
+            f"{tmp}/{width}", "--gnn_dim", str(width))]))
+            for width in widths]
+        for name, extra in (("the default gnn_dim", ()),
+                            ("--gnn_dtype float32 --gnn_dim 200",
+                             ("--gnn_dtype", "float32", "--gnn_dim", "200"))):
+            printed = io.StringIO()
+            _build.reset_launch_counts()
+            with contextlib.redirect_stdout(printed):
+                cli.main(argv(f"{tmp}/{len(extra)}", *extra))
+            for line in printed.getvalue().splitlines():
+                if line.startswith("|"):
+                    log("    " + line)
+            counts = {k: (_build.LAUNCHES[k], _build.ROUTES[k, 1])
+                      for k in ("edge_hidden", "edge_hidden_bwd")}
+            ok = all(n > 0 and n == r1 for n, r1 in counts.values())
+            log(f"  cli.main at {name}: rows 11 and 12 launches, on route 1:"
+                f" {counts}  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                FAILURES.append(f"widths: rows 11-12 off route 1, CLI at "
+                                f"{name}: {counts}")
         for width, proc in started:
             out = finish_tool(
                 proc, f"python -m qagnn_tpu_torch.cli --gnn_dim {width}")
@@ -5792,6 +5851,27 @@ def widths_cli(card, widths):
                 for line in out.splitlines():
                     if line.startswith("|"):
                         log("    " + line)
+
+
+def widths_pad_copies(dev, card):
+    """The copies `gk.pad_widths` makes of the edge embedding a layer at the
+    default gnn_dim (D = 100, the kernels' 104; G=64, E=4096), timed alone:
+    the forward's F.pad of the layer's input, the previous layer's returned
+    slice of its padded embedding, and their backward through autograd
+    (the slice's zero fill and copy, the pad's narrowing)."""
+    import torch.nn.functional as nnf
+    D, Dk = 100, gk.kernel_widths(100, 100, HEADS)[0]
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.randn((G, E, Dk), device=dev, dtype=dt,
+                        requires_grad=True)
+        g = torch.randn((G, E, Dk), device=dev, dtype=dt)
+        fwd = device_ms(lambda: nnf.pad(x[..., :D], (0, Dk - D)))
+        bwd = device_ms(lambda: torch.autograd.grad(
+            nnf.pad(x[..., :D], (0, Dk - D)), x, g))
+        log(f"  pad_widths' copies of the edge embedding, D={D} -> {Dk}, "
+            f"{dt}: forward {fwd:.4f} ms a layer, forward + backward "
+            f"{bwd:.4f} ms a layer, {WIDE_K} layers {WIDE_K * bwd:.4f} ms "
+            f"a step  [{card}]")
 
 
 def phase_widths(gen, dev, card) -> None:
@@ -5808,6 +5888,7 @@ def phase_widths(gen, dev, card) -> None:
         widths_passes(gen, dev, card,
                       *gk.kernel_widths(width, width, HEADS))
     widths_cli(card, (WIDE_D, WIDER_D))
+    widths_pad_copies(dev, card)
     log(f"  the widths phase took {time.perf_counter() - t0:.1f} s ({card})")
 
 
@@ -5881,7 +5962,7 @@ def main() -> int:
     gen = new_gen(0)
     if only & {"kernels", "enc"}:
         log("\n[kernel 11: edge_hidden]")
-        phase_edge_hidden(gen, dev, reports)
+        phase_edge_hidden(gen, dev, reports, card)
     if only & {"kernels", "fwd"}:
         log("\n[kernels 6 and 7: GAT pass A (two launches) and pass C]")
         phase_gat(new_gen(17), dev, reports, card)
@@ -5892,9 +5973,9 @@ def main() -> int:
         phase_edge_moments(gen, new_gen(19), dev, reports)
     if only & {"kernels", "enc"}:
         log("\n[kernel 12: edge_hidden_bwd]")
-        phase_edge_hidden_bwd(gen, dev, reports)
+        phase_edge_hidden_bwd(gen, dev, reports, card)
         log("\n[kernels 11 and 12 at other widths]")
-        phase_edge_hidden_widths(new_gen(18), dev, reports)
+        phase_edge_hidden_widths(new_gen(18), dev, reports, card)
     if only & {"kernels", "bwd"}:
         log("\n[kernels 8 and 9: GAT backward pass 1 and pass 2]")
         phase_gat_bwd(gen, new_gen(16), dev, reports)

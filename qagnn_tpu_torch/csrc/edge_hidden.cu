@@ -26,10 +26,11 @@
 // a 32-byte lane stride, eight L1 wavefronts each, and ran at a tenth of the
 // bytes bound.) The layout is the port's (G, E, D), not the TPU's (G, D, E).
 //
-// Two routes behind each entry point: route 1, bf16 at the widths tc_fits
-// names (every preset), runs the kernels of edge_hidden_tc.cuh; route 0 the
-// kernels below, for f32 (the TPU contracts f32 d_x0 there, which bf16 tensor
-// cores would round) and any other width.
+// Two routes behind each entry point: route 1, bf16 and f32 at every width
+// with F <= 64 (tc_fits), runs the kernels of edge_hidden_tc.cuh; route 0 the
+// kernels below, for F > 64 and to be timed beside route 1. Both run D's
+// columns as slices of `width` columns (the wrapper's plan), each reading and
+// writing its columns in place at the rows' stride D.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,8 +74,10 @@ __device__ __forceinline__ void load_vec(const float* __restrict__ p,
   }
 }
 
-// blockDim = (D / VEC, rows): thread x owns columns [x*VEC, x*VEC + VEC) of
-// every edge its row visits, so b0, a and b are loaded once per thread.
+// blockDim = (cols / VEC, rows): thread x owns columns [x*VEC, x*VEC + VEC)
+// of every edge its row visits, so b0, a and b are loaded once per thread.
+// w0, b0, a, b and out point at the slice's first column; rows of w0 and
+// out are D apart.
 template <typename T, int VEC>
 __global__ void edge_hidden_kernel(const int32_t* __restrict__ etype,
                                    const int32_t* __restrict__ src,
@@ -126,11 +129,11 @@ __global__ void edge_hidden_kernel(const int32_t* __restrict__ etype,
 
 template <typename T, int VEC>
 int launch(const void* etype, const void* src, const void* dst,
-           const void* ntype, const void* w0, const void* b0, const void* a,
-           const void* b, void* out, int G, int E, int N, int D, int n_rel,
-           int n_ntype, cudaStream_t stream) {
+           const void* ntype, const float* w0, const float* b0,
+           const float* a, const float* b, T* out, int G, int E, int N, int D,
+           int cols, int n_rel, int n_ntype, cudaStream_t stream) {
   const long long n_edges = (long long)G * E;
-  const int chunks = D / VEC;
+  const int chunks = cols / VEC;
   if (chunks > 1024) return (int)cudaErrorInvalidValue;
   if (n_edges == 0) return (int)cudaSuccess;
   const int rows = chunks >= 256 ? 1 : 256 / chunks;
@@ -145,9 +148,26 @@ int launch(const void* etype, const void* src, const void* dst,
   const unsigned blocks = (unsigned)(want < wave ? want : wave);
   edge_hidden_kernel<T, VEC><<<blocks, dim3(chunks, rows), 0, stream>>>(
       (const int32_t*)etype, (const int32_t*)src, (const int32_t*)dst,
-      (const int32_t*)ntype, (const float*)w0, (const float*)b0,
-      (const float*)a, (const float*)b, (T*)out, n_edges, E, N, D, n_rel,
+      (const int32_t*)ntype, w0, b0, a, b, out, n_edges, E, N, D, n_rel,
       n_ntype);
+  return (int)cudaSuccess;
+}
+
+// route 0, forward: a launch a slice of `width` columns (a multiple of VEC)
+template <typename T, int VEC>
+int launch_slices(const void* etype, const void* src, const void* dst,
+                  const void* ntype, const void* w0, const void* b0,
+                  const void* a, const void* b, void* out, int G, int E,
+                  int N, int D, int width, int n_rel, int n_ntype,
+                  cudaStream_t stream) {
+  if (width % VEC != 0) return (int)cudaErrorInvalidValue;
+  for (int c0 = 0; c0 < D; c0 += width) {
+    const int err = launch<T, VEC>(
+        etype, src, dst, ntype, (const float*)w0 + c0, (const float*)b0 + c0,
+        (const float*)a + c0, (const float*)b + c0, (T*)out + c0, G, E, N, D,
+        min(width, D - c0), n_rel, n_ntype, stream);
+    if (err != 0) return err;
+  }
   return (int)cudaSuccess;
 }
 
@@ -166,7 +186,9 @@ int launch(const void* etype, const void* src, const void* dst,
 // da, db, db0 stay in registers. Each block writes its partials once and
 // reduce_partials_kernel adds them up, so the result does not depend on the
 // order in which blocks ran. Bound on the H100: bytes, the (G, E, D) dh read
-// once (105 MB in bf16, 32 us).
+// once (105 MB in bf16, 32 us). A launch takes a slice of `cols` columns: w0,
+// b0, a, b, dh and part point at its first one, and rows of w0, dh and each
+// block's partials are D apart.
 constexpr int BWD_TILE = 128;      // slots whose feature rows are staged at once
 
 template <typename T>
@@ -176,15 +198,15 @@ __global__ void edge_hidden_bwd_kernel(
     const float* __restrict__ w0, const float* __restrict__ b0,
     const float* __restrict__ a, const float* __restrict__ b,
     const T* __restrict__ dh, float* __restrict__ part, long long n_edges,
-    long long chunk, int E, int N, int D, int F, int n_rel, int n_ntype) {
-  extern __shared__ float s_dw0[];                 // (F, D)
+    long long chunk, int E, int N, int D, int cols, int F, int n_rel,
+    int n_ntype) {
+  extern __shared__ float s_dw0[];                 // (F, cols)
   __shared__ int s_rows[3][BWD_TILE];
-  const int row_len = (F + 3) * D;                 // a block's partials
-  for (int i = threadIdx.x; i < F * D; i += blockDim.x) s_dw0[i] = 0.0f;
+  for (int i = threadIdx.x; i < F * cols; i += blockDim.x) s_dw0[i] = 0.0f;
   const long long begin = blockIdx.x * chunk;
   const long long end = begin + chunk < n_edges ? begin + chunk : n_edges;
   const int c = threadIdx.x;
-  const bool live = c < D;
+  const bool live = c < cols;
   const float b0c = live ? b0[c] : 0.0f, ac = live ? a[c] : 0.0f,
               bc = live ? b[c] : 0.0f;
   float da = 0.0f, db = 0.0f, db0 = 0.0f;
@@ -215,29 +237,31 @@ __global__ void edge_hidden_bwd_kernel(
       const float d_x0 = d_pre * ac;
       db0 += d_x0;
       const float dxc = round_to<T>(d_x0);
-      if (r0 >= 0) s_dw0[r0 * D + c] += dxc;
-      s_dw0[r1 * D + c] += dxc;
-      s_dw0[r2 * D + c] += dxc;
+      if (r0 >= 0) s_dw0[r0 * cols + c] += dxc;
+      s_dw0[r1 * cols + c] += dxc;
+      s_dw0[r2 * cols + c] += dxc;
     }
   }
   __syncthreads();                 // a block with no slots still zeroed s_dw0
   if (!live) return;
-  float* row = part + (long long)blockIdx.x * row_len;
-  for (int f = 0; f < F; ++f) row[f * D + c] = s_dw0[f * D + c];
-  row[F * D + c] = db0;
-  row[(F + 1) * D + c] = da;
-  row[(F + 2) * D + c] = db;
+  float* row = part + (long long)blockIdx.x * (F + 3) * D;
+  for (int f = 0; f < F; ++f) row[(long long)f * D + c] = s_dw0[f * cols + c];
+  row[(long long)F * D + c] = db0;
+  row[(long long)(F + 1) * D + c] = da;
+  row[(long long)(F + 2) * D + c] = db;
 }
 
+// route 0, backward: a launch a slice of `width` columns, then the sum of
+// the partials of all of D
 template <typename T>
 int launch_bwd(const void* etype, const void* src, const void* dst,
                const void* ntype, const void* w0, const void* b0,
                const void* a, const void* b, const void* dh, void* part,
                void* out, int G, int E, int N, int D, int F, int n_rel,
-               int n_ntype, int n_blocks, cudaStream_t stream) {
+               int n_ntype, int n_blocks, int width, cudaStream_t stream) {
   const long long n_edges = (long long)G * E;
-  const size_t smem = sizeof(float) * F * D;
-  if (n_blocks <= 0 || D > 1024 || smem > 200 * 1024)
+  const size_t smem = sizeof(float) * F * width;
+  if (n_blocks <= 0 || width > 1024 || smem > 200 * 1024)
     return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -246,63 +270,73 @@ int launch_bwd(const void* etype, const void* src, const void* dst,
     if (err != cudaSuccess) return (int)err;
   }
   const long long chunk = (n_edges + n_blocks - 1) / n_blocks;
-  const int threads = (D + 31) / 32 * 32;
-  edge_hidden_bwd_kernel<T><<<n_blocks, threads, smem, stream>>>(
-      (const int32_t*)etype, (const int32_t*)src, (const int32_t*)dst,
-      (const int32_t*)ntype, (const float*)w0, (const float*)b0,
-      (const float*)a, (const float*)b, (const T*)dh, (float*)part, n_edges,
-      chunk, E, N, D, F, n_rel, n_ntype);
+  for (int c0 = 0; c0 < D; c0 += width) {
+    const int cols = min(width, D - c0);
+    edge_hidden_bwd_kernel<T><<<n_blocks, (cols + 31) / 32 * 32,
+                                sizeof(float) * F * cols, stream>>>(
+        (const int32_t*)etype, (const int32_t*)src, (const int32_t*)dst,
+        (const int32_t*)ntype, (const float*)w0 + c0, (const float*)b0 + c0,
+        (const float*)a + c0, (const float*)b + c0, (const T*)dh + c0,
+        (float*)part + c0, n_edges, chunk, E, N, D, cols, F, n_rel, n_ntype);
+  }
   const int n = (F + 3) * D;
   reduce_partials_kernel<<<(n + 31) / 32, dim3(32, 8), 0, stream>>>(
       (const float*)part, (float*)out, n_blocks, n);
   return (int)cudaSuccess;
 }
 
-// route 1, forward: one wave of resident blocks, a warp for every tile at
-// most
+// route 1, forward: one wave of resident blocks over the slices of `width`
+// columns, a warp for every tile of a slice at most
+template <typename T, int PIECE, bool WINDOWS>
 int launch_tc(const void* etype, const void* src, const void* dst,
               const void* ntype, const void* w0, const void* b0, const void* a,
               const void* b, void* out, int G, int E, int N, int D, int F,
-              int n_rel, int n_ntype, cudaStream_t stream) {
+              int n_rel, int n_ntype, int width, cudaStream_t stream) {
   const long long n_edges = (long long)G * E;
   if (n_edges == 0) return (int)cudaSuccess;
-  const int smem = eh_w0_bytes(F, D) + eh_u_bytes(D, n_ntype);
+  const int smem = eh_tables_bytes<T>(F, eh_round8(width), n_ntype);
+  if (smem > EH_FWD_SMEM) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        edge_hidden_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        edge_hidden_tc_kernel<T, PIECE, WINDOWS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, edge_hidden_tc_kernel,
-                                                EHF_THREADS, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, edge_hidden_tc_kernel<T, PIECE, WINDOWS>, EHF_THREADS, smem);
+  const int n_slices = (D + width - 1) / width;
   const long long wave =
-      (long long)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+      (long long)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1) / n_slices;
   const int warps = EHF_THREADS / 32;
   const long long want = ((n_edges + EH_TILE - 1) / EH_TILE + warps - 1) / warps;
-  const unsigned blocks = (unsigned)(want < wave ? want : wave);
-  edge_hidden_tc_kernel<<<blocks, EHF_THREADS, smem, stream>>>(
+  const unsigned blocks =
+      (unsigned)(want < wave ? want : wave > 0 ? wave : 1);
+  edge_hidden_tc_kernel<T, PIECE, WINDOWS>
+      <<<dim3(blocks, n_slices), EHF_THREADS, smem, stream>>>(
       (const int32_t*)etype, (const int32_t*)src, (const int32_t*)dst,
       (const int32_t*)ntype, (const float*)w0, (const float*)b0,
-      (const float*)a, (const float*)b, (bf16*)out, n_edges, E, N, D, F, n_rel,
-      n_ntype);
+      (const float*)a, (const float*)b, (T*)out, n_edges, E, N, D, F, n_rel,
+      n_ntype, width);
   return (int)cudaSuccess;
 }
 
-// route 1, backward: the packed rows and masks, n_blocks persistent blocks,
-// then the partials' sum
-template <int NT>
+// route 1, backward: the packed rows and masks once, n_blocks persistent
+// blocks for each slice of `width` columns, then the partials' sum
+template <typename T, int NT, int PIECE>
 int launch_bwd_tc(const void* etype, const void* src, const void* dst,
                   const void* ntype, const void* w0, const void* b0,
                   const void* a, const void* b, const void* dh, void* part,
                   void* rows, void* out, int G, int E, int N, int D, int F,
-                  int n_rel, int n_ntype, int n_blocks, cudaStream_t stream) {
-  const int smem = ehb_smem_bytes(F, D, n_ntype);
+                  int n_rel, int n_ntype, int n_blocks, int width,
+                  cudaStream_t stream) {
+  const int smem = ehb_smem_bytes<T>(F, width, n_ntype);
+  if (smem > EH_SMEM) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        edge_hidden_bwd_tc_kernel<NT>,
+        edge_hidden_bwd_tc_kernel<T, NT, PIECE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
@@ -313,44 +347,77 @@ int launch_bwd_tc(const void* etype, const void* src, const void* dst,
       (const int32_t*)etype, (const int32_t*)src, (const int32_t*)dst,
       (const int32_t*)ntype, (int*)rows, masks, n_edges, n_pad, E, N, n_rel,
       n_ntype);
-  edge_hidden_bwd_tc_kernel<NT><<<n_blocks, (D + 15) / 16 * 32, smem,
-                                  stream>>>(
+  edge_hidden_bwd_tc_kernel<T, NT, PIECE>
+      <<<dim3(n_blocks, (D + width - 1) / width), (width + 15) / 16 * 32, smem,
+         stream>>>(
       (const int*)rows, masks, (const float*)w0, (const float*)b0,
-      (const float*)a, (const float*)b, (const bf16*)dh, (float*)part,
-      n_edges, D, F, n_rel, n_ntype);
+      (const float*)a, (const float*)b, (const T*)dh, (float*)part, n_edges,
+      D, F, n_rel, n_ntype, width);
   const int n = (F + 3) * D;
   reduce_partials_kernel<<<(n + 31) / 32, dim3(32, 8), 0, stream>>>(
       (const float*)part, (float*)out, n_blocks, n);
   return (int)cudaSuccess;
 }
 
-// what route 1 takes: bf16, D % 8 == 0, D <= 256, F <= 64, a type table of
-// at most EH_MAX_U floats, 16-byte rows
-bool tc_fits(int dtype, int D, int n_rel, int n_ntype, uintptr_t ptrs) {
-  return dtype == 1 && D % 8 == 0 && D > 0 && D <= EH_MAX_D &&
-         n_rel + 2 * n_ntype <= EH_MAX_F && n_ntype * n_ntype * D <= EH_MAX_U &&
-         ptrs % 16 == 0;
+template <int P> struct Piece { static constexpr int value = P; };
+
+// f(Piece<eh_piece(D, sizeof(T))>()): the template of the rows' piece size
+template <typename T, typename Fn>
+int by_piece(int D, Fn f) {
+  switch (eh_piece(D, (int)sizeof(T))) {
+    case 16: return f(Piece<16>());
+    case 8: return f(Piece<8>());
+    case 4: return f(Piece<4>());
+    default:
+      if constexpr (sizeof(T) == 2) return f(Piece<2>());
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// what route 1 takes: bf16 or f32, F <= 64, 16-byte aligned w0, b0, a, b
+// and h / dh, slices of a multiple of 8 columns (16 in the backward, at most
+// EH_BWD_COLS) or one slice of all of D
+bool tc_fits(int dtype, int D, int F, int width, int mult, uintptr_t ptrs) {
+  return (dtype == 0 || dtype == 1) && D > 0 && F <= EH_MAX_F &&
+         width > 0 && (width % mult == 0 || width >= D) && ptrs % 16 == 0;
 }
 
 }  // namespace
 
 // dtype: 0 = float32 output, 1 = bfloat16 output. route: 0 = the CUDA-core
-// kernel, 1 = edge_hidden_tc_kernel (see tc_fits).
+// kernel, 1 = edge_hidden_tc_kernel (see tc_fits). width: the columns of a
+// slice of D (every slice but the last): on route 0 at most 1024 vectors, a
+// multiple of the vector; on route 1 a multiple of 8 whose tables fit.
 extern "C" int edge_hidden_launch(const void* etype, const void* src,
                                   const void* dst, const void* ntype,
                                   const void* w0, const void* b0,
                                   const void* a, const void* b, void* out,
                                   int G, int E, int N, int D, int n_rel,
                                   int n_ntype, int dtype, int route,
-                                  void* stream) {
+                                  int width, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const uintptr_t ptrs = (uintptr_t)w0 | (uintptr_t)b0 | (uintptr_t)a |
                          (uintptr_t)b | (uintptr_t)out;
+  const int F = n_rel + 2 * n_ntype;
+  if (width <= 0) return (int)cudaErrorInvalidValue;
   if (route == 1) {
-    if (!tc_fits(dtype, D, n_rel, n_ntype, ptrs))
+    if (!tc_fits(dtype, D, F, width, 8, ptrs))
       return (int)cudaErrorInvalidValue;
-    const int err = launch_tc(etype, src, dst, ntype, w0, b0, a, b, out, G, E,
-                              N, D, n_rel + 2 * n_ntype, n_rel, n_ntype, s);
+    // more than 32 chunks of 16 bytes to a row of the widest slice
+    const bool windows = width * (dtype == 1 ? 2 : 4) > 32 * 16;
+    auto go = [&](auto t, auto piece) {
+      constexpr int P = decltype(piece)::value;
+      auto launch = [&](auto launcher) {
+        return launcher(etype, src, dst, ntype, w0, b0, a, b, out, G, E, N, D,
+                        F, n_rel, n_ntype, width, s);
+      };
+      return windows ? launch(launch_tc<decltype(t), P, true>)
+                     : launch(launch_tc<decltype(t), P, false>);
+    };
+    const int err =
+        dtype == 1
+            ? by_piece<bf16>(D, [&](auto piece) { return go(bf16(), piece); })
+            : by_piece<float>(D, [&](auto piece) { return go(0.0f, piece); });
     return err != 0 ? err : (int)cudaGetLastError();
   }
   if (route != 0) return (int)cudaErrorInvalidValue;
@@ -359,24 +426,30 @@ extern "C" int edge_hidden_launch(const void* etype, const void* src,
   int err;
   if (dtype == 1)
     err = aligned && D % 8 == 0
-              ? launch<__nv_bfloat16, 8>(etype, src, dst, ntype, w0, b0, a, b,
-                                         out, G, E, N, D, n_rel, n_ntype, s)
-              : launch<__nv_bfloat16, 1>(etype, src, dst, ntype, w0, b0, a, b,
-                                         out, G, E, N, D, n_rel, n_ntype, s);
+              ? launch_slices<__nv_bfloat16, 8>(etype, src, dst, ntype, w0,
+                                                b0, a, b, out, G, E, N, D,
+                                                width, n_rel, n_ntype, s)
+              : launch_slices<__nv_bfloat16, 1>(etype, src, dst, ntype, w0,
+                                                b0, a, b, out, G, E, N, D,
+                                                width, n_rel, n_ntype, s);
   else
     err = aligned && D % 4 == 0
-              ? launch<float, 4>(etype, src, dst, ntype, w0, b0, a, b, out, G,
-                                 E, N, D, n_rel, n_ntype, s)
-              : launch<float, 1>(etype, src, dst, ntype, w0, b0, a, b, out, G,
-                                 E, N, D, n_rel, n_ntype, s);
+              ? launch_slices<float, 4>(etype, src, dst, ntype, w0, b0, a, b,
+                                        out, G, E, N, D, width, n_rel,
+                                        n_ntype, s)
+              : launch_slices<float, 1>(etype, src, dst, ntype, w0, b0, a, b,
+                                        out, G, E, N, D, width, n_rel,
+                                        n_ntype, s);
   return err != 0 ? err : (int)cudaGetLastError();
 }
 
 // dh: (G, E, D) in the forward's output dtype (dtype as above). part is
 // scratch, (n_blocks, F + 3, D) f32; out (F + 3, D) f32 receives dW0 (F, D),
-// then db0, da, db. route as above; on route 1 n_blocks is the number of
-// persistent blocks (one an SM at most) and rows scratch of 3 int32 for each
-// of G * E slots rounded up to a multiple of 16 (unused on route 0).
+// then db0, da, db. route and width as above (on route 0 at most 1024
+// columns and an F x width f32 dW0 in 200 KiB; on route 1 a multiple of 16,
+// at most EH_BWD_COLS); on route 1 n_blocks is the number of persistent
+// blocks of a slice and rows scratch of 3 int32 for each of G * E slots
+// rounded up to a multiple of 16 (unused on route 0).
 extern "C" int edge_hidden_bwd_launch(const void* etype, const void* src,
                                       const void* dst, const void* ntype,
                                       const void* w0, const void* b0,
@@ -385,33 +458,44 @@ extern "C" int edge_hidden_bwd_launch(const void* etype, const void* src,
                                       void* out,
                                       int G, int E, int N, int D, int F,
                                       int n_rel, int n_ntype, int n_blocks,
-                                      int dtype, int route, void* stream) {
+                                      int dtype, int route, int width,
+                                      void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if ((long long)G * E == 0 || F != n_rel + 2 * n_ntype || n_blocks <= 0)
+  if ((long long)G * E == 0 || F != n_rel + 2 * n_ntype || n_blocks <= 0 ||
+      width <= 0)
     return (int)cudaErrorInvalidValue;
   int err;
   if (route == 1) {
     const uintptr_t ptrs = (uintptr_t)w0 | (uintptr_t)b0 | (uintptr_t)a |
                            (uintptr_t)b | (uintptr_t)dh | (uintptr_t)rows;
-    if (!tc_fits(dtype, D, n_rel, n_ntype, ptrs))
+    if (!tc_fits(dtype, D, F, width, 16, ptrs) || width > EH_BWD_COLS)
       return (int)cudaErrorInvalidValue;
     const int nt = (F + 15) / 16 * 2;          // 8-column tiles, even
-    auto go = [&](auto launcher) {
-      return launcher(etype, src, dst, ntype, w0, b0, a, b, dh, part, rows,
-                      out, G, E, N, D, F, n_rel, n_ntype, n_blocks, s);
+    auto go = [&](auto t, auto piece) {
+      using T = decltype(t);
+      constexpr int P = decltype(piece)::value;
+      auto launch = [&](auto launcher) {
+        return launcher(etype, src, dst, ntype, w0, b0, a, b, dh, part, rows,
+                        out, G, E, N, D, F, n_rel, n_ntype, n_blocks, width,
+                        s);
+      };
+      return nt <= 2   ? launch(launch_bwd_tc<T, 2, P>)
+             : nt <= 4 ? launch(launch_bwd_tc<T, 4, P>)
+             : nt <= 6 ? launch(launch_bwd_tc<T, 6, P>)
+                       : launch(launch_bwd_tc<T, 8, P>);
     };
-    err = nt <= 2   ? go(launch_bwd_tc<2>)
-          : nt <= 4 ? go(launch_bwd_tc<4>)
-          : nt <= 6 ? go(launch_bwd_tc<6>)
-                    : go(launch_bwd_tc<8>);
+    err = dtype == 1
+              ? by_piece<bf16>(D, [&](auto piece) { return go(bf16(), piece); })
+              : by_piece<float>(D,
+                                [&](auto piece) { return go(0.0f, piece); });
   } else if (route == 0) {
     err = dtype == 1
               ? launch_bwd<__nv_bfloat16>(etype, src, dst, ntype, w0, b0, a,
                                           b, dh, part, out, G, E, N, D, F,
-                                          n_rel, n_ntype, n_blocks, s)
+                                          n_rel, n_ntype, n_blocks, width, s)
               : launch_bwd<float>(etype, src, dst, ntype, w0, b0, a, b, dh,
                                   part, out, G, E, N, D, F, n_rel, n_ntype,
-                                  n_blocks, s);
+                                  n_blocks, width, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

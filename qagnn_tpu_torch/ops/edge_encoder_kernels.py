@@ -19,15 +19,19 @@ it into their edge projections) and
     backward is the second kernel of csrc/edge_hidden.cu.
 
 `edge_hidden` and its backward have two routes behind one entry point each
-(`_hidden_route`). Route 1, bfloat16 at the widths every preset has
+(`_hidden_route`). Route 1, bfloat16 and float32 at every width with F <= 64
 (csrc/edge_hidden_tc.cuh): persistent blocks hold W0 and a table of the
 type rows' sums in shared memory; the backward streams dh through them and
-forms dW0 as a one-hot product on tensor cores. Route 0, float32 and other
-widths: the CUDA-core kernels of csrc/edge_hidden.cu, whose launches take at
-most 1024 column vectors (the forward) or 1024 columns and an F x D f32 dW0
-in 200 KiB of shared memory (the backward): past that the wrappers run D's
-columns in slices (`fwd_col_slices`, `bwd_col_slices`), one launch each,
-every quantity of both passes being per column.
+forms dW0 as a one-hot product on tensor cores (bf16, or tf32 with d_x0
+split in two). Route 0, F > 64 and named to be timed beside route 1: the
+CUDA-core kernels of csrc/edge_hidden.cu. Every quantity of both passes is
+per column, so each route runs D's columns as slices whose width the wrapper
+plans (`fwd_slices`, `bwd_slices`), all in one call that reads and writes
+every slice's columns in place at the rows' stride D: route 0 a launch a
+slice (at most 1024 column vectors forward, 1024 columns and an F x width
+f32 dW0 in 200 KiB backward), route 1 one launch over all slices (the
+forward's tables in half an SM's shared memory, the backward's 256 columns
+of 16 warps and their rings in all of it).
 
 Every kernel has a plain torch version here with the same arithmetic. A
 wrapper takes the plain version for CPU tensors only; for CUDA tensors it
@@ -37,6 +41,7 @@ launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -44,8 +49,8 @@ from qagnn_tpu_torch.ops import _build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"edge_hidden_launch": [_P] * 9 + [_I] * 8 + [_P],
-               "edge_hidden_bwd_launch": [_P] * 12 + [_I] * 10 + [_P]}
+_SIGNATURES = {"edge_hidden_launch": [_P] * 9 + [_I] * 9 + [_P],
+               "edge_hidden_bwd_launch": [_P] * 12 + [_I] * 11 + [_P]}
 _MOMENTS_SIGNATURES = {"edge_moments_launch": [_P] * 7 + [_I] * 5 + [_P]}
 # the dynamic shared memory a block of csrc/edge_moments.cu may opt into
 # (less room for its static flag)
@@ -54,10 +59,15 @@ BWD_BLOCKS = 512     # blocks (and rows of partials) of the hidden backward
 # route 0 of the hidden backward: a thread a column and the F x D f32 dW0 in
 # a block's shared memory (csrc/edge_hidden.cu launch_bwd)
 BWD_MAX_THREADS, BWD_MAX_SMEM = 1024, 200 * 1024
-# what route 1 takes (csrc/edge_hidden_tc.cuh: EH_MAX_D, EH_MAX_F, EH_MAX_U)
-# and the slots of its tiles (EH_TILE)
-TC_MAX_D, TC_MAX_F, TC_MAX_U = 256, 64, 8192
-TC_TILE = 16
+# what route 1 takes and how it is laid out (csrc/edge_hidden_tc.cuh: EH_MAX_F
+# rows of W0, EH_TILE slots a tile; shared memory of a block EH_SMEM, of the
+# forward's tables EH_FWD_SMEM; EH_BWD_COLS columns of a backward slice; the
+# backward ring's stages and cell bytes and the d_x0 tile's pitch, Ehb<T>)
+TC_MAX_F, TC_TILE = 64, 16
+TC_SMEM = 232448
+TC_FWD_SMEM = TC_SMEM // 2
+TC_BWD_COLS = 256
+TC_RING = {torch.bfloat16: (8, 32, 24), torch.float32: (4, 48, 24)}
 
 
 _require = _build.require
@@ -160,14 +170,72 @@ def edge_feature_moments(edge_type, src, dst, node_type, mask, n_rel,
 # the hidden pass and its backward
 # --------------------------------------------------------------------------
 
+def _round(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _tc_tables_bytes(F, width, n_ntype, dtype) -> int:
+    """Shared memory of route 1's tables for a slice of `width` columns,
+    padded to 8: W0 in the compute dtype with a zero row after it (in
+    16-byte units), then the n_ntype^2 rows of U in f32."""
+    wp = _round(width, 8)
+    size = 2 if dtype == torch.bfloat16 else 4
+    return _round((F + 1) * wp * size, 16) + n_ntype ** 2 * wp * 4
+
+
+def _tc_bwd_smem(F, width, n_ntype, dtype) -> int:
+    """Shared memory of route 1's backward block for a slice of `width`
+    columns: the tables, then for each of its 16-column warps a ring of
+    stages x 32 cells and a 16-slot tile of d_x0."""
+    stages, cell, pitch = TC_RING[dtype]
+    size = 2 if dtype == torch.bfloat16 else 4
+    warp = stages * 32 * cell + TC_TILE * pitch * size
+    return _tc_tables_bytes(F, width, n_ntype, dtype) \
+        + -(-width // 16) * warp
+
+
+def _spans(D: int, width: int) -> list[tuple[int, int]]:
+    return [(c, min(c + width, D)) for c in range(0, D, width)]
+
+
+def _fewest_slices(D, unit, first, fits):
+    """The slices of the fewest, from `first` on, whose width (all of D for
+    one slice, else ceil(D / n) rounded up to `unit`) `fits`."""
+    for n in range(first, D + 1):
+        width = D if n == 1 else _round(-(-D // n), unit)
+        if fits(width):
+            return _spans(D, width)
+    raise ValueError(f"no slice of D={D} fits")
+
+
+def tc_fwd_slices(D, F, n_ntype, dtype) -> list[tuple[int, int]]:
+    """[(c0, c1)] of route 1's forward over D columns: all of D where W0
+    and U at D fit in half an SM's shared memory (two blocks of 8 warps an
+    SM), else the fewest slices of a multiple of 8 columns that do; the
+    kernel's warps walk a row of a slice 512 bytes (256 columns in bf16,
+    128 in f32) at a time."""
+    return _fewest_slices(D, 8, 1, lambda w: _tc_tables_bytes(
+        F, w, n_ntype, dtype) <= TC_FWD_SMEM)
+
+
+def tc_bwd_slices(D, F, n_ntype, dtype) -> list[tuple[int, int]]:
+    """[(c0, c1)] of route 1's backward over D columns: the fewest slices
+    of at most 256 columns (a warp each 16), a multiple of 16 where there
+    are several, whose block fits in an SM's shared memory."""
+    return _fewest_slices(D, 16, -(-D // TC_BWD_COLS), lambda w: w
+                          <= TC_BWD_COLS and _tc_bwd_smem(
+                              F, w, n_ntype, dtype) <= TC_SMEM)
+
+
 def _hidden_route(dtype, D, n_rel, n_ntype, route=None):
     """Route of `edge_hidden` and its backward: 1 (csrc/edge_hidden_tc.cuh)
-    for bfloat16 at D % 8 == 0, D <= 256, F = n_rel + 2 n_ntype <= 64 and
-    n_ntype^2 * D <= 8192 (the type table in shared memory); else 0, the
-    CUDA-core kernels. Dtype and widths alone decide; `route` names one, 0 for
-    bfloat16 to time the CUDA-core kernels beside route 1."""
-    fits = dtype == torch.bfloat16 and D % 8 == 0 and 0 < D <= TC_MAX_D \
-        and n_rel + 2 * n_ntype <= TC_MAX_F and n_ntype ** 2 * D <= TC_MAX_U
+    for bfloat16 and float32 at every D >= 1 where F = n_rel + 2 n_ntype <=
+    64 (a slot's one-hot row is a 64-bit mask; every F <= 64 leaves room
+    for a slice's tables); else 0, the CUDA-core kernels. Dtype and widths
+    alone decide; `route` names one, 0 to time the CUDA-core kernels beside
+    route 1."""
+    fits = dtype in (torch.bfloat16, torch.float32) and D >= 1 \
+        and n_rel + 2 * n_ntype <= TC_MAX_F
     if route is None:
         return 1 if fits else 0
     if route not in (0, 1) or (route == 1 and not fits):
@@ -176,20 +244,53 @@ def _hidden_route(dtype, D, n_rel, n_ntype, route=None):
     return route
 
 
+def fwd_slices(route, D, F, n_ntype, dtype) -> list[tuple[int, int]]:
+    """The column slices of a forward call on `route`."""
+    return tc_fwd_slices(D, F, n_ntype, dtype) if route == 1 \
+        else fwd_col_slices(D, dtype)
+
+
+def bwd_slices(route, D, F, n_ntype, dtype) -> list[tuple[int, int]]:
+    """The column slices of a backward call on `route`."""
+    return tc_bwd_slices(D, F, n_ntype, dtype) if route == 1 \
+        else bwd_col_slices(F, D)
+
+
 def _bwd_rows_scratch(route, n_edges):
     """int32 scratch of the backward's route 1: every slot's packed feature
-    rows and 64-bit one-hot mask, 3 int32 a slot, over whole tiles."""
+    rows and 64-bit one-hot mask, 3 int32 a slot, over whole tiles, packed
+    once for all the call's column slices."""
     return 3 * -(-n_edges // TC_TILE) * TC_TILE if route == 1 else 0
 
 
-def _bwd_blocks(route, n_edges, n_sm):
+def _bwd_blocks(route, n_edges, n_sm, n_slices=1):
     """Blocks of the backward kernel, each of which writes one (F + 3, D)
-    row of partial sums: on route 0 up to BWD_BLOCKS blocks of at least 64
-    slots; on route 1 one persistent block an SM at most, with a tile of
+    row of partial sums (each slice its columns): on route 0 up to
+    BWD_BLOCKS blocks of at least 64 slots; on route 1 persistent blocks,
+    one an SM at most over all `n_slices` slices (one wave), with a tile of
     16 slots at least."""
     if route == 1:
-        return max(1, min(n_sm, -(-n_edges // TC_TILE)))
+        return max(1, min(n_sm // n_slices, -(-n_edges // TC_TILE)))
     return max(1, min(BWD_BLOCKS, -(-n_edges // 64)))
+
+
+class BwdPlan(NamedTuple):
+    """What one backward call launches: its column slices (the kernel reads
+    each slice's columns of dh in place, at dh's row stride D), its blocks
+    (a row of partial sums each), the int32 scratch of route 1's packed rows
+    (one pass of edge_rows_kernel for all the slices) and the partial sums'
+    shape."""
+    slices: list
+    n_blocks: int
+    rows: int
+    part: tuple
+
+
+def bwd_plan(route, n_edges, D, F, n_ntype, dtype, n_sm) -> BwdPlan:
+    slices = bwd_slices(route, D, F, n_ntype, dtype)
+    n_blocks = _bwd_blocks(route, n_edges, n_sm, len(slices))
+    return BwdPlan(slices, n_blocks, _bwd_rows_scratch(route, n_edges),
+                   (n_blocks, F + 3, D))
 
 
 def _check_aligned(route, *ts):
@@ -240,35 +341,21 @@ def fwd_col_slices(D: int, dtype) -> list[tuple[int, int]]:
     1024 vectors; one launch where D fits, else the fewest slices, all but
     the last of the widest width that fits."""
     vec = 8 if dtype == torch.bfloat16 else 4
-    width = 1024 * (vec if D % vec == 0 else 1)
-    return [(c, min(c + width, D)) for c in range(0, D, width)]
+    return _spans(D, 1024 * (vec if D % vec == 0 else 1))
 
 
 def edge_hidden_forward(edge_type, src, dst, node_type, w0, b0, a, b, n_rel,
                         n_ntype, out_dtype, _route=None):
-    """`edge_hidden` without the autograd graph; on route 0 a launch a slice
-    of D's columns (`fwd_col_slices`), on every device. `_route` names a
-    route (`_hidden_route`) to time it beside the other."""
-    D = w0.shape[1]
+    """`edge_hidden` without the autograd graph: one call over D's column
+    slices (`fwd_slices`). `_route` names a route (`_hidden_route`) to time
+    it beside the other."""
+    F, D = w0.shape
     route = _hidden_route(out_dtype, D, n_rel, n_ntype, _route)
-    spans = fwd_col_slices(D, out_dtype) if route == 0 else [(0, D)]
-    if len(spans) == 1:
-        return _edge_hidden_forward(edge_type, src, dst, node_type, w0, b0,
-                                    a, b, n_rel, n_ntype, out_dtype, route)
-    return torch.cat([_edge_hidden_forward(
-        edge_type, src, dst, node_type, w0[:, c0:c1].contiguous(),
-        *(v[c0:c1].contiguous() for v in (b0, a, b)), n_rel, n_ntype,
-        out_dtype, route) for c0, c1 in spans], -1)
-
-
-def _edge_hidden_forward(edge_type, src, dst, node_type, w0, b0, a, b, n_rel,
-                         n_ntype, out_dtype, route):
     if not edge_type.is_cuda:
         return edge_hidden_plain(edge_type, src, dst, node_type, w0, b0, a, b,
                                  n_rel, n_ntype, out_dtype)
     G, E = edge_type.shape
     N = node_type.shape[1]
-    F, D = w0.shape
     if F != n_rel + 2 * n_ntype:
         raise ValueError(f"w0 has {F} rows, expected {n_rel + 2 * n_ntype}")
     if out_dtype not in (torch.float32, torch.bfloat16):
@@ -282,11 +369,12 @@ def _edge_hidden_forward(edge_type, src, dst, node_type, w0, b0, a, b, n_rel,
         _require(t, name, torch.float32, (D,))
     out = torch.empty((G, E, D), device=edge_type.device, dtype=out_dtype)
     _check_aligned(route, w0, b0, a, b, out)
+    (c0, c1), *_ = fwd_slices(route, D, F, n_ntype, out_dtype)
     err = _build.load("edge_hidden", _SIGNATURES).edge_hidden_launch(
         edge_type.data_ptr(), src.data_ptr(), dst.data_ptr(),
         node_type.data_ptr(), w0.data_ptr(), b0.data_ptr(), a.data_ptr(),
         b.data_ptr(), out.data_ptr(), G, E, N, D, n_rel, n_ntype,
-        1 if out_dtype == torch.bfloat16 else 0, route,
+        1 if out_dtype == torch.bfloat16 else 0, route, c1 - c0,
         torch.cuda.current_stream().cuda_stream)
     _build.check(err, "edge_hidden")
     _build.count_launch("edge_hidden", route)
@@ -306,37 +394,22 @@ def bwd_col_slices(F: int, D: int) -> list[tuple[int, int]]:
     if width == 0:
         raise ValueError(f"the edge_hidden backward kernel takes F <= "
                          f"{BWD_MAX_SMEM // 32} rows of W0; got F={F}")
-    return [(c, min(c + width, D)) for c in range(0, D, width)]
+    return _spans(D, width)
 
 
 def edge_hidden_backward(edge_type, src, dst, node_type, w0, b0, a, b, dh,
                          n_rel, n_ntype, _route=None):
     """Gradients of `edge_hidden` in (w0, b0, a, b), f32, from the output
-    cotangent dh (G, E, D) in the forward's output dtype; on route 0 a
-    launch a slice of D's columns (`bwd_col_slices`), on every device.
+    cotangent dh (G, E, D) in the forward's output dtype: one call over D's
+    column slices (`bwd_slices`), each reading its columns of dh in place.
     `_route` as in `edge_hidden_forward`."""
     F, D = w0.shape
     route = _hidden_route(dh.dtype, D, n_rel, n_ntype, _route)
-    spans = bwd_col_slices(F, D) if route == 0 else [(0, D)]
-    if len(spans) == 1:
-        return _edge_hidden_backward(edge_type, src, dst, node_type, w0, b0,
-                                     a, b, dh, n_rel, n_ntype, route)
-    parts = [_edge_hidden_backward(
-        edge_type, src, dst, node_type, w0[:, c0:c1].contiguous(),
-        *(v[c0:c1].contiguous() for v in (b0, a, b)),
-        dh[..., c0:c1].contiguous(), n_rel, n_ntype, route)
-        for c0, c1 in spans]
-    return tuple(torch.cat(p, -1) for p in zip(*parts))
-
-
-def _edge_hidden_backward(edge_type, src, dst, node_type, w0, b0, a, b, dh,
-                          n_rel, n_ntype, route):
     if not dh.is_cuda:
         return edge_hidden_backward_plain(edge_type, src, dst, node_type, w0,
                                           b0, a, b, dh, n_rel, n_ntype)
     G, E = edge_type.shape
     N = node_type.shape[1]
-    F, D = w0.shape
     if F != n_rel + 2 * n_ntype:
         raise ValueError(f"w0 has {F} rows, expected {n_rel + 2 * n_ntype}")
     if dh.dtype not in (torch.float32, torch.bfloat16):
@@ -350,20 +423,20 @@ def _edge_hidden_backward(edge_type, src, dst, node_type, w0, b0, a, b, dh,
         _require(t, name, torch.float32, (D,))
     _require(dh, "dh", dh.dtype, (G, E, D))
     _check_aligned(route, w0, b0, a, b, dh)
-    n_blocks = _bwd_blocks(route, G * E, torch.cuda.get_device_properties(
-        dh.device).multi_processor_count)
-    part = torch.empty((n_blocks, F + 3, D), device=dh.device,
-                       dtype=torch.float32)
-    rows = torch.empty(_bwd_rows_scratch(route, G * E), device=dh.device,
-                       dtype=torch.int32)
+    plan = bwd_plan(route, G * E, D, F, n_ntype, dh.dtype,
+                    torch.cuda.get_device_properties(
+                        dh.device).multi_processor_count)
+    part = torch.empty(plan.part, device=dh.device, dtype=torch.float32)
+    rows = torch.empty(plan.rows, device=dh.device, dtype=torch.int32)
     out = torch.empty((F + 3, D), device=dh.device, dtype=torch.float32)
     err = _build.load("edge_hidden", _SIGNATURES).edge_hidden_bwd_launch(
         edge_type.data_ptr(), src.data_ptr(), dst.data_ptr(),
         node_type.data_ptr(), w0.data_ptr(), b0.data_ptr(), a.data_ptr(),
         b.data_ptr(), dh.data_ptr(), part.data_ptr(),
         rows.data_ptr() if route == 1 else None, out.data_ptr(), G, E,
-        N, D, F, n_rel, n_ntype, n_blocks,
+        N, D, F, n_rel, n_ntype, plan.n_blocks,
         1 if dh.dtype == torch.bfloat16 else 0, route,
+        plan.slices[0][1] - plan.slices[0][0],
         torch.cuda.current_stream().cuda_stream)
     _build.check(err, "edge_hidden_bwd")
     _build.count_launch("edge_hidden_bwd", route)

@@ -37,7 +37,10 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # gat_bwd.cu, gat_bwd_tc.cuh, edge_moments.cu, edge_hidden.cu,
 # edge_hidden_tc.cuh). Route 1 of backward passes 1 and 2 launches its edge
 # kernel once a call at every D: W resident in shared memory up to 256 rows,
-# streamed through it past that (`edge_pass_tc_kernel<PASS, PAIRS, STREAM>`)
+# streamed through it past that (`edge_pass_tc_kernel<PASS, PAIRS, STREAM>`).
+# Route 1 of rows 11 and 12 runs all of D's column slices in one launch of
+# each kernel (`edge_hidden_tc_kernel<T, PIECE, WINDOWS>`,
+# `edge_hidden_bwd_tc_kernel<T, NT, PIECE>`) in both dtypes.
 _BWD_TC = {"edge_pass_tc_kernel": 1, "dw_tc_kernel": 1,
            "reduce_partials_kernel": 2}
 PORT_KERNELS: dict[tuple[str, int | None], dict[str, int]] = {

@@ -9,7 +9,8 @@
     dropout 0 (flax's Dropout and the port's `dropout` patched to the
     identity: the pooler's and the tiny encoder's rates are not flags), f32,
     2 microbatches, a frozen epoch then an unfrozen one, from the JAX run's
-    initial variables carried across by utils/convert.py. The per-step
+    initial variables carried across by utils/convert.py, at gnn_dim 8
+    and at 12 (not a multiple of 8). The per-step
     losses agree within rtol 2e-4 (tests/test_torch_train_step.py's
     tolerance), the per-epoch dev and test accuracies are equal, and so are
     the best-dev checkpoints' parameters and BatchNorm statistics within
@@ -165,11 +166,23 @@ def _no_dropout(monkeypatch):
 
 def test_train_matches_the_jax_cli(tmp_path, tokenizer, monkeypatch,
                                       _no_dropout):
+    _train_parity(tmp_path, tokenizer, monkeypatch)
+
+
+def test_train_matches_the_jax_cli_at_gnn_dim_12(tmp_path, tokenizer,
+                                                   monkeypatch, _no_dropout):
+    """A gnn_dim that is not a multiple of 8 (the CLI's default 100 is
+    not either): on the CPU the edge encoder's plain versions run, and the
+    projected op pads 12 to the kernels' 16 and cuts back, as on the card."""
+    _train_parity(tmp_path, tokenizer, monkeypatch, gnn_dim=12)
+
+
+def _train_parity(tmp_path, tokenizer, monkeypatch, **extra):
     root = str(tmp_path / "data")
     emb_path = write_synthetic_dataset(root, n_questions=8)
     kw = dict(n_epochs=2, unfreeze_epoch=1, gnn_dtype="float32", k=2,
               decoder_lr=3e-3, encoder_lr=1e-3, max_epochs_before_stop=10,
-              save_model=True)
+              save_model=True, **extra)
 
     # the JAX CLI, its initial variables kept
     seen = {}

@@ -15,8 +15,11 @@ before it enters dW0): h within one bf16 ulp (2^-7 relative; the f32 sums
 before the rounding agree to a few f32 ulps), the gradients within 1e-6 of
 their largest value (f32 sums of the same terms in another order). Then the
 Python the card's two routes share with the CPU: which route a dtype and
-width take, what is refused, and how many rows of partial sums the
-backward's scratch holds.
+width take (route 1 for both dtypes at every D with F <= 64), what is
+refused, the column slices each route-1 kernel runs (held against the CUDA
+source's shared-memory layout) and the backward's scratch and partial
+sums. The plain versions, forward and gradients, at D = 37 and 100 in both
+dtypes against the Pallas kernels too.
 
 The moments kernel counts (relation, head type, tail type) triples, with
 one more relation for the slots whose relation id is out of range, and
@@ -263,16 +266,20 @@ def test_edge_hidden_bf16_gradients_match_pallas(E):
         assert err <= 1e-6 * np.abs(y).max(), (name, err, np.abs(y).max())
 
 
+WIDTHS = (37, 100, 200, 256, 300, 512, 1040)
+DTYPES = (torch.bfloat16, torch.float32)
+
+
 @pytest.mark.parametrize("dtype, D, n_rel, n_ntype, route", [
-    (torch.bfloat16, 200, 39, 4, 1),      # CSQA / OBQA: F = 47
+    *((dt, D, 39, 4, 1) for dt in DTYPES for D in WIDTHS),  # OBQA: F = 47
     (torch.bfloat16, 200, 35, 4, 1),      # MedQA: F = 43
-    (torch.bfloat16, 256, 56, 4, 1),      # the widest route 1 takes
-    (torch.bfloat16, 24, 8, 4, 1),        # padded to 32 columns
-    (torch.float32, 200, 39, 4, 0),       # f32: the CUDA-core kernels
-    (torch.bfloat16, 100, 39, 4, 0),      # the default gnn_dim: D % 8 != 0
-    (torch.bfloat16, 264, 39, 4, 0),
-    (torch.bfloat16, 200, 57, 4, 0),      # F = 65
-    (torch.bfloat16, 200, 33, 7, 0),      # a type table of 9800 floats
+    (torch.bfloat16, 256, 56, 4, 1),      # F = 64, the widest mask
+    (torch.bfloat16, 24, 8, 4, 1),
+    (torch.float32, 1, 1, 1, 1),
+    (torch.bfloat16, 200, 33, 7, 1),      # a type table of 9800 floats
+    (torch.float32, 200, 2, 31, 1),       # 961 type pairs: narrow slices
+    (torch.bfloat16, 200, 57, 4, 0),      # F = 65: past the 64-bit mask
+    (torch.float32, 1040, 57, 4, 0),
 ])
 def test_hidden_route_by_dtype_and_width(dtype, D, n_rel, n_ntype, route):
     assert ek._hidden_route(dtype, D, n_rel, n_ntype) == route
@@ -280,14 +287,112 @@ def test_hidden_route_by_dtype_and_width(dtype, D, n_rel, n_ntype, route):
 
 
 @pytest.mark.parametrize("dtype, D, n_rel, n_ntype, route", [
-    (torch.float32, 200, 39, 4, 1),
-    (torch.bfloat16, 100, 39, 4, 1),
     (torch.bfloat16, 200, 57, 4, 1),
+    (torch.float32, 100, 57, 4, 1),
+    (torch.float16, 200, 39, 4, 1),
     (torch.bfloat16, 200, 39, 4, 2),
 ])
 def test_hidden_route_refuses(dtype, D, n_rel, n_ntype, route):
     with pytest.raises(ValueError, match="no route"):
         ek._hidden_route(dtype, D, n_rel, n_ntype, route)
+
+
+@pytest.mark.parametrize("dtype, D, F, n_ntype, slices", [
+    # one slice of all of D where W0 and U fit in half an SM
+    (torch.bfloat16, 100, 47, 4, [(0, 100)]),
+    (torch.bfloat16, 200, 47, 4, [(0, 200)]),
+    (torch.float32, 200, 47, 4, [(0, 200)]),
+    (torch.bfloat16, 37, 47, 4, [(0, 37)]),
+    (torch.bfloat16, 512, 47, 4, [(0, 512)]),
+    # past it the fewest slices of a multiple of 8 columns
+    (torch.bfloat16, 1040, 47, 4, [(0, 520), (520, 1040)]),
+    (torch.float32, 512, 47, 4, [(0, 256), (256, 512)]),
+    (torch.float32, 1040, 47, 4, [(0, 352), (352, 704), (704, 1040)]),
+    (torch.float32, 200, 64, 31, [(c, min(c + 24, 200))
+                                  for c in range(0, 200, 24)]),
+])
+def test_hidden_forward_slices(dtype, D, F, n_ntype, slices):
+    got = ek.tc_fwd_slices(D, F, n_ntype, dtype)
+    assert got == slices == ek.fwd_slices(1, D, F, n_ntype, dtype)
+    width = got[0][1]
+    assert len(got) == 1 or width % 8 == 0
+    assert ek._tc_tables_bytes(F, width, n_ntype, dtype) <= ek.TC_FWD_SMEM
+    if len(got) > 1:       # one slice fewer would not fit
+        n = len(got) - 1
+        wider = D if n == 1 else (-(-D // n) + 7) // 8 * 8
+        assert ek._tc_tables_bytes(F, wider, n_ntype, dtype) > ek.TC_FWD_SMEM
+
+
+@pytest.mark.parametrize("dtype, D, F, n_ntype, slices", [
+    (torch.bfloat16, 100, 47, 4, [(0, 100)]),
+    (torch.float32, 200, 47, 4, [(0, 200)]),
+    (torch.bfloat16, 256, 64, 4, [(0, 256)]),
+    (torch.float32, 256, 64, 4, [(0, 256)]),
+    (torch.bfloat16, 300, 47, 4, [(0, 160), (160, 300)]),
+    (torch.bfloat16, 512, 47, 4, [(0, 256), (256, 512)]),
+    (torch.bfloat16, 1040, 47, 4, [(c, c + 208) for c in range(0, 1040,
+                                                               208)]),
+    (torch.float32, 1040, 47, 4, [(c, c + 208) for c in range(0, 1040,
+                                                              208)]),
+    # a type table of 961 rows: slices of 48 columns fit
+    (torch.bfloat16, 200, 64, 31, [(c, min(c + 48, 200))
+                                   for c in range(0, 200, 48)]),
+])
+def test_hidden_backward_slices(dtype, D, F, n_ntype, slices):
+    """At most 256 columns a slice (16 warps of 16), a multiple of 16
+    where there are several, and the block in an SM's shared memory."""
+    got = ek.tc_bwd_slices(D, F, n_ntype, dtype)
+    assert got == slices == ek.bwd_slices(1, D, F, n_ntype, dtype)
+    width = got[0][1]
+    assert width <= ek.TC_BWD_COLS and (len(got) == 1 or width % 16 == 0)
+    assert ek._tc_bwd_smem(F, width, n_ntype, dtype) <= ek.TC_SMEM
+
+
+def test_hidden_route_0_slices_are_unchanged():
+    assert ek.fwd_slices(0, 1025, 47, 4, torch.float32) == \
+        ek.fwd_col_slices(1025, torch.float32) == [(0, 1024), (1024, 1025)]
+    assert ek.bwd_slices(0, 1040, 47, 4, torch.bfloat16) == \
+        ek.bwd_col_slices(47, 1040)
+
+
+@pytest.mark.parametrize("route, D, dtype, n_slices, n_blocks", [
+    (1, 200, torch.bfloat16, 1, 132),
+    (1, 1040, torch.bfloat16, 5, 26),      # one wave of 130 blocks
+    (1, 512, torch.float32, 2, 66),
+    (0, 1040, torch.bfloat16, 2, ek.BWD_BLOCKS),
+])
+def test_hidden_backward_plan(route, D, dtype, n_slices, n_blocks):
+    """One call: every slice's blocks write their columns of one (n_blocks,
+    F + 3, D) array of partial sums (the rows D apart, the pitch of dh the
+    kernel reads in place), and route 1 packs the slots' rows once for all
+    the slices."""
+    n_edges = 64 * 4093
+    plan = ek.bwd_plan(route, n_edges, D, 47, 4, dtype, 132)
+    assert len(plan.slices) == n_slices and plan.n_blocks == n_blocks
+    assert plan.part == (n_blocks, 50, D)
+    assert plan.slices[0][0] == 0 and plan.slices[-1][1] == D
+    assert all(a[1] == b[0] for a, b in zip(plan.slices, plan.slices[1:]))
+    assert plan.rows == ek._bwd_rows_scratch(route, n_edges) == \
+        (3 * -(-n_edges // 16) * 16 if route == 1 else 0)
+
+
+def test_hidden_smem_matches_the_kernel():
+    """The Python plans' shared-memory sizes are the CUDA source's: the
+    limits, the ring's stages, cells and tile pitch of each dtype."""
+    import re
+    from pathlib import Path
+    src = (Path(ek.__file__).parent.parent / "csrc" /
+           "edge_hidden_tc.cuh").read_text()
+    for name, value in (("EH_MAX_F", ek.TC_MAX_F), ("EH_TILE", ek.TC_TILE),
+                        ("EH_SMEM", ek.TC_SMEM),
+                        ("EH_BWD_COLS", ek.TC_BWD_COLS)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert re.search(r"EH_FWD_SMEM = EH_SMEM / 2;", src)
+    for ctype, dt in (("bf16", torch.bfloat16), ("float", torch.float32)):
+        stages, cell, pitch = ek.TC_RING[dt]
+        assert re.search(rf"struct Ehb<{ctype}> {{\s*static constexpr int "
+                         rf"STAGES = {stages}, CELL = {cell}, XLD = {pitch};",
+                         src), ctype
 
 
 @pytest.mark.parametrize("route, n_edges, scratch", [
@@ -319,6 +424,77 @@ def test_hidden_route_1_refuses_unaligned_rows():
 def test_hidden_backward_partial_rows(route, n_edges, n_sm, rows):
     """One (F + 3, D) row of partial sums for every block."""
     assert ek._bwd_blocks(route, n_edges, n_sm) == rows
+
+
+def _wide(seed, D, E):
+    """A graph and the encoder's weights at width D, F = 16."""
+    g = _graph(seed, E=E)
+    rng = np.random.default_rng(seed + 1)
+    w0 = rng.standard_normal((F, D)).astype(np.float32)
+    b0, a, b = (rng.standard_normal(D).astype(np.float32) for _ in range(3))
+    return g, (w0, b0, a, b)
+
+
+@pytest.mark.parametrize("E", [24, 21])
+@pytest.mark.parametrize("D", [37, 100])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_edge_hidden_widths_match_pallas(dtype, D, E):
+    """The plain version at widths route 1 takes since it takes every D
+    (odd, and the CLI's default 100) against the Pallas kernel in interpret
+    mode, at E and E - 3: f32 at rtol / atol 2e-5, bf16 within one ulp
+    (2^-7 relative), the preset cases' tolerances."""
+    g, p = _wide(20 + D, D, E)
+    ints = ("etype", "src", "dst", "ntype")
+    tdt, jdt = ((torch.float32, jnp.float32) if dtype == "f32"
+                else (torch.bfloat16, jnp.bfloat16))
+    got = edge_hidden(*[_t(g[k]) for k in ints], *map(_t, p), N_REL, N_NTYPE,
+                      tdt)
+    want = jax_edge_hidden(*[jnp.asarray(g[k]) for k in ints],
+                           *map(jnp.asarray, p), N_REL, N_NTYPE, jdt, True)
+    want = np.swapaxes(np.asarray(want.astype(jnp.float32)), 1, 2)[:, :E]
+    assert got.dtype == tdt and got.shape == want.shape
+    if dtype == "f32":
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
+                                   atol=0)
+
+
+@pytest.mark.parametrize("E", [24, 21])
+@pytest.mark.parametrize("D", [37, 100])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_edge_hidden_widths_gradients_match_pallas(dtype, D, E):
+    """Gradients in W0, b0, a, b of the plain version against jax.grad
+    through the Pallas kernels in interpret mode at D = 37 and 100, E and
+    E - 3: f32 at rtol 2e-5 with a floor of 2e-5 of the largest value, bf16
+    within 1e-6 of it (the cotangent in bf16), as at the preset."""
+    g, p = _wide(40 + D, D, E)
+    rng = np.random.default_rng(D + E)
+    cot = rng.standard_normal(g["src"].shape + (D,)).astype(np.float32)
+    ints = ("etype", "src", "dst", "ntype")
+    tdt, jdt = ((torch.float32, jnp.float32) if dtype == "f32"
+                else (torch.bfloat16, jnp.bfloat16))
+    if dtype == "bf16":
+        cot = _bf16(cot)
+
+    def jax_loss(w0, b0, a, b):
+        h = jax_edge_hidden(*[jnp.asarray(g[k]) for k in ints], w0, b0, a, b,
+                            N_REL, N_NTYPE, jdt, True)           # (G, D, E')
+        return jnp.sum(h[:, :, :E].astype(jnp.float32)
+                       * jnp.swapaxes(jnp.asarray(cot), 1, 2))
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2, 3))(*map(jnp.asarray, p))
+    params = [_t(x).requires_grad_() for x in p]
+    h = edge_hidden(*[_t(g[k]) for k in ints], *params, N_REL, N_NTYPE, tdt)
+    (h.float() * _t(cot)).sum().backward()
+    for name, x, y in zip(("dW0", "db0", "da", "db"), params, want):
+        y = np.asarray(y)
+        if dtype == "f32":
+            np.testing.assert_allclose(x.grad.numpy(), y, rtol=2e-5,
+                                       atol=2e-5 * np.abs(y).max())
+        else:
+            err = np.abs(x.grad.numpy() - y).max()
+            assert err <= 1e-6 * np.abs(y).max(), (name, err)
 
 
 def test_analytic_moments_match_jax():
