@@ -158,7 +158,9 @@ Run from the repository root on a machine with one CUDA card. It
      (HD 300, 1 head) and (HD 1040, 2 heads), the last two a head wider
      than a launch run in column slices, forward and backward against the
      scatter backend, each row launched once a head group or slice, every
-     split launch against its plain version, with their times; passes A
+     split launch against its plain version, with their times (a call's
+     beside its launches' alone: the launches read and write column views
+     in place); passes A
      and C at D = 200 with one head of 304 features on both routes; rows
      6-12 through QAGNNMessagePassing in train mode at gnn_dim 512 (two
      head groups a pass) and 1040 (four heads of 264 features, two column
@@ -179,8 +181,10 @@ Run from the repository root on a machine with one CUDA card. It
      200 and 100; `python -m qagnn_tpu_torch.cli --gnn_dim 512` and
      `--gnn_dim 1040`, side by side, for two train steps each, and beside
      them `cli.main` at the default gnn_dim and at --gnn_dtype float32,
-     rows 11 and 12 on route 1 alone; and the copies `pad_widths` makes of
-     the edge embedding a layer at D = 100 -> 104. The `overfit` phase
+     rows 11 and 12 on route 1 alone; and the fused GNN at gnn_dim 100
+     (the kernels' 104, which the edge encoder emits and the layers carry)
+     and 200 in both dtypes, its served forward and train step timed and
+     no edge-sized pad or copy in a step (torch.profiler). The `overfit` phase
      also logs, per GAT layer of the trained model, the largest gap between
      a graph's max score and a source's, and the denominators under
      DENOM_EPS (ROADMAP C7);
@@ -199,7 +203,9 @@ passes A and C,
 for the two GAT backward passes, for the edge encoder's three kernels (rows
 10-12), for its feature moments (row 10) and for the unprojected op's five
 kernels (rows 1-5) alone; `scores` runs rows 1 and 2 alone at the main
-shapes, which no other phase repeats);
+shapes, which no other phase repeats; `inplace`, of the widths phase
+alone, the fused GNN at gnn_dim 100 and 200 and rows 1-5's call times
+beside their launches' at HD 300 and 1040);
 with no arguments everything runs. `--csrc DIR` builds the kernels from a
 copy of the sources in DIR.
 
@@ -1032,13 +1038,13 @@ def phase_edge_hidden_widths(gen, dev, reports, card):
                                      dt, tag, False, timed)
 
 
-def profile_kernels(what, fn, iters=20, attempts=2, keep=None):
+def profile_kernels(what, fn, iters=20, attempts=2, keep=None, show=8):
     """Device time by kernel name over `iters` calls of fn, from
     torch.profiler's CUDA activity: rows of (device us, launches, name), or
     None (and says so) where it records none. A window of short kernels
     at times comes back with no device activity, so an empty one is taken
     again, `attempts` times in all. `keep`: which kernel names to list
-    (all by default)."""
+    (all by default); `show`: how many rows to print."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1065,9 +1071,10 @@ def profile_kernels(what, fn, iters=20, attempts=2, keep=None):
         log(f"  torch.profiler, {what}: key_averages() shows no device time "
             "on this machine; times come from CUDA events")
         return None
-    log(f"  torch.profiler, {what}: device time per call by kernel, "
-        f"{iters} calls")
-    for us, count, key in rows[:8]:
+    if show:
+        log(f"  torch.profiler, {what}: device time per call by kernel, "
+            f"{iters} calls")
+    for us, count, key in rows[:show]:
         log(f"    {us / iters:10.1f} us  {count / iters:4.1f} launches  "
             f"{key[:100]}")
     return rows
@@ -5206,11 +5213,20 @@ class LaunchCheck:
                                 f"{self.what}")
 
 
+def csrc_kernel(key) -> bool:
+    """Whether a profiler key names a kernel of qagnn_tpu_torch/csrc (an
+    anonymous namespace's `__global__`), not one of torch's."""
+    return re.match(r"(void )?\(anonymous namespace\)::", key) is not None
+
+
 def unproj_row_times(vals, gout, src, dst, mask, heads, tag, card):
     """Rows 1-5 alone on the op's inputs, as gat_unprojected_forward and
     _backward run them: each wrapper's device time a call (all its
-    launches), its plain version's on the whole width, and the bound of
-    the call's work, counted as the kernel phase counts it."""
+    launches, and whatever it does around them), beside its launches'
+    device time alone (torch.profiler, the csrc kernels of the call: what
+    the call would take with nothing copied around them) and their ratio;
+    its plain version's on the whole width, and the bound of the call's
+    work, counted as the kernel phase counts it."""
     nq, nk, nm, ekb, emb, skb, smb = vals
     HD = nq.shape[-1]
     live = mask.float().mean().item()
@@ -5258,11 +5274,17 @@ def unproj_row_times(vals, gout, src, dst, mask, heads, tag, card):
         fn(*args)
         launches = _build.LAUNCHES[name]
         ms = device_ms(lambda: fn(*args), iters=5, warmup=1)
+        rows = profile_kernels(f"{name} {tag}", lambda: fn(*args), iters=5,
+                               keep=csrc_kernel, show=0)
+        alone = "not measured" if rows is None else \
+            f"{sum(us for us, _, _ in rows) / 5e3:.4f} ms"
+        ratio = "" if rows is None else \
+            f" (call / launches {ms / (sum(r[0] for r in rows) / 5e3):.2f})"
         plain_ms = device_ms(lambda: plain(*args), iters=5, warmup=1)
         bound_ms, by = bound(n_bytes, flops, torch.float32)
         log(f"  time {name} {tag}: {launches} launches, kernels {ms:.4f} ms "
-            f"a call  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
-            f"({by})  [{card}]")
+            f"a call, its launches alone {alone}{ratio}  plain "
+            f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({by})  [{card}]")
 
 
 def widths_split_forward(gen, dev):
@@ -5330,6 +5352,15 @@ def op_launches(HD, heads) -> dict:
             if k == "gat_unproj_denoms" else n for k in UNPROJ_KERNELS}
 
 
+def wide_unproj_inputs(gen, dev, HD, heads, dt):
+    """The unprojected op's seven inputs (the query scaled by 1/sqrt of a
+    head's features) and an output cotangent at (HD, heads), in dt."""
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    nq = (r(G, N, HD) / (HD // heads) ** 0.5).to(dt)
+    rest = [(r(G, n, HD) * 0.5).to(dt) for n in (N, N, E, E, N, N)]
+    return [nq, *rest], r(G, N, HD).to(dt)
+
+
 def widths_unprojected(gen, dev, card):
     """Rows 1-5 through `relational_gat_attention_nodes` (no backend
     named), forward and backward, at widths one launch does not take, in
@@ -5347,12 +5378,9 @@ def widths_unprojected(gen, dev, card):
             return lambda *t: relational_gat_attention_nodes(
                 *(split(x) for x in t), src, dst, mask, backend=backend)
 
-        r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa
         for dt in (torch.bfloat16, torch.float32):
             tag = f"HD={HD} heads={heads} {dt}"
-            nq = (r(G, N, HD) / dph ** 0.5).to(dt)
-            rest = [(r(G, n, HD) * 0.5).to(dt) for n in (N, N, E, E, N, N)]
-            vals, gout = [nq, *rest], r(G, N, HD).to(dt)
+            vals, gout = wide_unproj_inputs(gen, dev, HD, heads, dt)
             _build.reset_launch_counts()
             out, got = value_and_grads(op(None), vals, gout)
             torch.cuda.synchronize()
@@ -5853,25 +5881,186 @@ def widths_cli(card, widths):
                         log("    " + line)
 
 
-def widths_pad_copies(dev, card):
-    """The copies `gk.pad_widths` makes of the edge embedding a layer at the
-    default gnn_dim (D = 100, the kernels' 104; G=64, E=4096), timed alone:
-    the forward's F.pad of the layer's input, the previous layer's returned
-    slice of its padded embedding, and their backward through autograd
-    (the slice's zero fill and copy, the pad's narrowing)."""
-    import torch.nn.functional as nnf
-    D, Dk = 100, gk.kernel_widths(100, 100, HEADS)[0]
-    for dt in (torch.bfloat16, torch.float32):
-        x = torch.randn((G, E, Dk), device=dev, dtype=dt,
-                        requires_grad=True)
-        g = torch.randn((G, E, Dk), device=dev, dtype=dt)
-        fwd = device_ms(lambda: nnf.pad(x[..., :D], (0, Dk - D)))
-        bwd = device_ms(lambda: torch.autograd.grad(
-            nnf.pad(x[..., :D], (0, Dk - D)), x, g))
-        log(f"  pad_widths' copies of the edge embedding, D={D} -> {Dk}, "
-            f"{dt}: forward {fwd:.4f} ms a layer, forward + backward "
-            f"{bwd:.4f} ms a layer, {WIDE_K} layers {WIDE_K * bwd:.4f} ms "
-            f"a step  [{card}]")
+# the fused GNN whose edge-sized operands stay in place (`widths_inplace`):
+# the CLI's default gnn_dim 100 (the kernels' 104, which the edge encoder
+# emits and the k layers carry) and the OBQA preset's 200, which needs no
+# pad; the profiler's op names of a move of an array that computes nothing
+INPLACE_D = (100, 200)
+EDGE_MOVES = ("aten::constant_pad_nd", "aten::slice_backward", "aten::copy_",
+              "aten::clone", "aten::_to_copy", "aten::cat", "aten::stack",
+              "aten::new_zeros", "aten::zeros_like")
+
+
+def edge_moves(fn, n_edges) -> list | None:
+    """The ops of one call of fn that move an edge-sized array, (G, E, c)
+    with c >= 8, without computing anything (EDGE_MOVES; an op inside
+    another such op counts once, as the outer one), from torch.profiler's
+    record of the call's ops and their input shapes: (name, shapes, device
+    us) each; None where the profiler fails on this machine."""
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+    except Exception as exc:
+        log(f"  torch.profiler: failed on this machine: {exc!r}")
+        return None
+    if not any(e.name.startswith("aten::") for e in events):
+        log("  torch.profiler: no op recorded; the count would be empty")
+        return None
+
+    def edge_sized(shapes):
+        return any(isinstance(s, (list, tuple)) and len(s) == 3
+                   and tuple(s[:2]) == (G, n_edges) and s[2] >= 8
+                   for s in shapes or ())
+    device_us = lambda e: getattr(e, "device_time_total", None) \
+        or getattr(e, "cuda_time_total", 0)  # noqa: E731
+    return [(e.name, e.input_shapes, device_us(e)) for e in events
+            if e.name in EDGE_MOVES and edge_sized(e.input_shapes)
+            and (e.cpu_parent is None
+                 or e.cpu_parent.name not in EDGE_MOVES)]
+
+
+def device_busy_ms(fn, iters=5, attempts=2) -> float | None:
+    """The device's busy time in one call of fn: the summed durations of
+    the device's own activities (kernels, copies, fills) over `iters`
+    calls in torch.profiler's record, each counted once (a CPU op's
+    device_time_total counts its kernels again at every level of nesting),
+    over iters; None where the profiler records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(attempts):
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            spans = [e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+        except Exception as exc:  # a measurement: the checks do not need it
+            log(f"  torch.profiler: failed on this machine: {exc!r}")
+            return None
+        if spans:
+            return sum(spans) / iters / 1e3
+    return None
+
+
+def step_times(fn, iters=5, spin=400_000_000):
+    """(wall, queued, busy) ms of one call of fn, medians of `iters`: the
+    host clock around a synchronised call (what a caller waits, the host's
+    launches included); CUDA events around a call queued behind a spin
+    kernel long enough that the host's launches run ahead of the device
+    (what the call takes where the device is the bottleneck, as behind the
+    encoder in a train step); and `device_busy_ms`."""
+    fn()
+    torch.cuda.synchronize()
+    walls, queued = [], []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        queued.append(start.elapsed_time(end))
+    return (statistics.median(walls), statistics.median(queued),
+            device_busy_ms(fn))
+
+
+def widths_inplace(gen, dev, card, widths=INPLACE_D):
+    """QAGNNMessagePassing on the fused path (k = 5, 4 heads, 38 relations,
+    dropout 0; G=64, N=200, E=4096) at each of `widths` in both dtypes:
+    the served forward (eval mode, no autograd) and a train step's forward
+    + backward, each as wall, queued and device-busy time (`step_times`:
+    alone at these shapes the host's launches take longer than the
+    device's work, so the wall time hides the device's); and
+    torch.profiler's count of the ops of a train step that move an
+    edge-sized array without computing (`edge_moves`), which must be none:
+    the edge encoder emits the embedding at the kernels' width and every
+    layer reads it in place."""
+    n_etype = 38
+    for width in widths:
+        Dk = gk.kernel_widths(width, width, HEADS)[0]
+        for dt in (torch.bfloat16, torch.float32):
+            with torch.device(dev):
+                mp = QAGNNMessagePassing(WIDE_K, N_NTYPE, n_etype, width,
+                                         dropout=0.0, head_count=HEADS,
+                                         dtype=dt)
+            init_weights(mp, torch.Generator(device=dev).manual_seed(SEED),
+                         0.02)
+            src, dst, mask = graph_inputs(gen, dev, E)
+            H = torch.randn((G, N, width), generator=gen, device=dev)
+            args = (H, torch.randint(0, N_NTYPE, (G, N), generator=gen,
+                                     device=dev),
+                    torch.rand((G, N), generator=gen, device=dev), src, dst,
+                    torch.randint(0, n_etype + 1, (G, E), generator=gen,
+                                  device=dev, dtype=torch.int32), mask)
+            cot = torch.randn((G, N, width), generator=gen, device=dev)
+
+            def serve():
+                with torch.no_grad():
+                    return mp.eval()(*args)
+
+            def step():
+                out = mp.train()(*args)
+                (out.float() * cot).sum().backward()
+
+            _build.reset_launch_counts()
+            step()
+            fused = _build.LAUNCHES["gat_bwd_pass1"] == WIDE_K \
+                and _build.LAUNCHES["edge_hidden"] == 1
+            tag = f"gnn_dim {width} (kernels' {Dk}) {dt}"
+            times = [step_times(fn) for fn in (serve, step)]
+            moves = edge_moves(step, E)
+            log(f"  time fused GNN, {tag}: "
+                + ", ".join(f"{what} {w:.4f} ms wall, {q:.4f} ms queued, "
+                            + ("busy not measured" if b is None
+                               else f"{b:.4f} ms busy")
+                            for what, (w, q, b) in zip(
+                                ("served forward", "train forward + "
+                                 "backward"), times))
+                + f"  [{card}]")
+            if moves is None or moves or not fused:
+                FAILURES.append(f"widths: fused GNN at {tag}: "
+                                + ("the profiler saw no ops" if moves is None
+                                   else f"edge-sized moves {moves}"
+                                   if moves else "not on the kernels"))
+            log(f"  edge-sized pads and copies in a train step, {tag}: "
+                f"{'not measured' if moves is None else len(moves)}"
+                + "".join(f"\n    {n} {sh} {us:.1f} us"
+                          for n, sh, us in moves or ())
+                + f"  {'ok' if moves == [] and fused else 'FAIL'}")
+
+
+def inplace_unproj_times(gen, dev, card):
+    """Rows 1-5's call times beside their launches' (`unproj_row_times`)
+    and the op's forward + backward, bf16, at the two widths with a head
+    wider than a launch, and at HD 1024 (2 heads of 512: two slices of 256
+    a head, every slice's rows starting on a 32-byte sector, where two of
+    HD 1040's three a head start 16 bytes off one)."""
+    for HD, heads in WIDE_UNPROJ[2:] + ((1024, 2),):
+        src, dst, mask = graph_inputs(gen, dev, E)
+        vals, gout = wide_unproj_inputs(gen, dev, HD, heads, torch.bfloat16)
+        tag = f"HD={HD} heads={heads} {torch.bfloat16}"
+        unproj_row_times(vals, gout, src, dst, mask, heads, tag, card)
+        split = lambda t: t.reshape(*t.shape[:-1], heads,  # noqa: E731
+                                    HD // heads)
+        leaves = [v.detach().clone().requires_grad_() for v in vals]
+        ms = device_ms(lambda: forward_backward(
+            lambda *t: relational_gat_attention_nodes(
+                *(split(x) for x in t), src, dst, mask), leaves, gout),
+            iters=5, warmup=1)
+        log(f"  time the op, {tag}: forward + backward {ms:.4f} ms  "
+            f"[{card}]")
 
 
 def phase_widths(gen, dev, card) -> None:
@@ -5888,7 +6077,7 @@ def phase_widths(gen, dev, card) -> None:
         widths_passes(gen, dev, card,
                       *gk.kernel_widths(width, width, HEADS))
     widths_cli(card, (WIDE_D, WIDER_D))
-    widths_pad_copies(dev, card)
+    widths_inplace(gen, dev, card, INPLACE_D[:1])
     log(f"  the widths phase took {time.perf_counter() - t0:.1f} s ({card})")
 
 
@@ -5896,6 +6085,8 @@ PHASES = ("kernels", "grads", "op", "serve", "detail", "train", "cli",
           "overfit", "encoders", "mesh", "preprocess", "tools", "widths")
 # parts of the kernel phase that can be asked for alone
 KERNEL_PARTS = ("fwd", "bwd", "enc", "moments", "unproj", "scores")
+# parts of the widths phase that can be asked for alone
+WIDTHS_PARTS = ("inplace",)
 
 
 def main() -> int:
@@ -5908,9 +6099,10 @@ def main() -> int:
                          "sources beside the committed ones)")
     args = ap.parse_args()
     only = set(args.only.split(","))
-    if not only <= set(PHASES) | set(KERNEL_PARTS):
+    if not only <= set(PHASES) | set(KERNEL_PARTS) | set(WIDTHS_PARTS):
         ap.error(f"unknown phase in {sorted(only)}; the phases are {PHASES} "
-                 f"and, of the kernel phase alone, {KERNEL_PARTS}")
+                 f"and, of the kernel phase alone, {KERNEL_PARTS}, of the "
+                 f"widths phase, {WIDTHS_PARTS}")
     if args.csrc is not None:
         _build.CSRC = pathlib.Path(args.csrc).resolve()
     if not torch.cuda.is_available():
@@ -6070,6 +6262,11 @@ def main() -> int:
             "6-12 at gnn_dim 512 and 1040 and the CLI "
             "there]")
         phase_widths(new_gen(21), dev, card)
+    if "inplace" in only:
+        log("\n[the widths, in place: the fused GNN at gnn_dim 100 and 200, "
+            "rows 1-5 at HD 300 and 1040]")
+        widths_inplace(new_gen(25), dev, card)
+        inplace_unproj_times(new_gen(26), dev, card)
 
     left = stop_children()
     log(f"\n[processes] still running at the end: {len(left)}, each "

@@ -102,7 +102,7 @@ scores_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
               const int32_t* __restrict__ dst,
               const uint8_t* __restrict__ mask, float* __restrict__ scores,
               float* __restrict__ m_edge, int E, int N, int HD, int H,
-              int part) {
+              int lq, int lk, int lb, int part) {
   __shared__ float s_sc[MAX_H][UE];
   __shared__ float s_max[MAX_H];
   const long long g = blockIdx.y;
@@ -125,9 +125,9 @@ scores_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
       for (int j = 0; j < 8; ++j) p[j] = 0.0f;
       if (c0 < HD) {
         float q[8], k[8], b[8];
-        load_row<T, 8>(nq + (g * N + src[g * E + e]) * HD + c0, q);
-        load_row<T, 8>(nk + (g * N + dst[g * E + e]) * HD + c0, k);
-        load_row<T, 8>(ekb + (g * E + e) * HD + c0, b);
+        load_row<T, 8>(nq + (g * N + src[g * E + e]) * lq + c0, q);
+        load_row<T, 8>(nk + (g * N + dst[g * E + e]) * lk + c0, k);
+        load_row<T, 8>(ekb + (g * E + e) * lb + c0, b);
 #pragma unroll
         for (int j = 0; j < 8; ++j) p[j] = q[j] * (k[j] + b[j]);
       }
@@ -181,7 +181,7 @@ aggr_kernel(const T* __restrict__ nm, const T* __restrict__ emb,
             const float* __restrict__ e_edge, const float* __restrict__ scale,
             const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
             const uint8_t* __restrict__ mask, float* __restrict__ out, int E,
-            int N, int HD, int H) {
+            int N, int HD, int H, int lm, int lb, int lo) {
   __shared__ float s_alpha[UE][MAX_H];
   const long long g = blockIdx.y;
   const int e0 = blockIdx.x * UE;
@@ -206,12 +206,12 @@ aggr_kernel(const T* __restrict__ nm, const T* __restrict__ emb,
     const int e = e0 + el;
     if (e >= E || !mask[g * E + e]) continue;
     float m[8], b[8], v[8];
-    load_row<T, 8>(nm + (g * N + src[g * E + e]) * HD + c0, m);
-    load_row<T, 8>(emb + (g * E + e) * HD + c0, b);
+    load_row<T, 8>(nm + (g * N + src[g * E + e]) * lm + c0, m);
+    load_row<T, 8>(emb + (g * E + e) * lb + c0, b);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       v[j] = round_to<T>(s_alpha[el][head[j]] * (m[j] + b[j]));
-    float* row = out + (g * N + dst[g * E + e]) * HD + c0;
+    float* row = out + (g * N + dst[g * E + e]) * lo + c0;
     atomicAdd(reinterpret_cast<float4*>(row),
               make_float4(v[0], v[1], v[2], v[3]));
     atomicAdd(reinterpret_cast<float4*>(row + 4),
@@ -227,7 +227,8 @@ bwd1_kernel(const T* __restrict__ gout, const T* __restrict__ nm,
             const int32_t* __restrict__ dst, const uint8_t* __restrict__ mask,
             T* __restrict__ demb, float* __restrict__ dalpha,
             float* __restrict__ dscale, float* __restrict__ dnm, int E, int N,
-            int HD, int H, int part) {
+            int HD, int H, int lg, int lm, int lb, int ld, int ldn,
+            int part) {
   __shared__ float s_e[UE][MAX_H];
   __shared__ float s_alpha[UE][MAX_H];
   __shared__ float s_da[MAX_H][UE];
@@ -265,25 +266,26 @@ bwd1_kernel(const T* __restrict__ gout, const T* __restrict__ nm,
 #pragma unroll
       for (int j = 0; j < 8; ++j) p[j] = 0.0f;
       if (c0 < HD) {
-        const long long s_row = (g * N + src[g * E + e]) * HD + c0;
+        const long long s_node = g * N + src[g * E + e];
+        float* dnm_row = dnm + s_node * ldn + c0;
         float m[8], b[8], gd[8];
-        load_row<T, 8>(nm + s_row, m);
-        load_row<T, 8>(emb + (g * E + e) * HD + c0, b);
-        load_row<T, 8>(gout + (g * N + dst[g * E + e]) * HD + c0, gd);
+        load_row<T, 8>(nm + s_node * lm + c0, m);
+        load_row<T, 8>(emb + (g * E + e) * lb + c0, b);
+        load_row<T, 8>(gout + (g * N + dst[g * E + e]) * lg + c0, gd);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           p[j] = (m[j] + b[j]) * gd[j];
           dm[j] = round_to<T>(s_alpha[el][head[j]] * gd[j]);
         }
-        atomicAdd(reinterpret_cast<float4*>(dnm + s_row),
+        atomicAdd(reinterpret_cast<float4*>(dnm_row),
                   make_float4(dm[0], dm[1], dm[2], dm[3]));
-        atomicAdd(reinterpret_cast<float4*>(dnm + s_row + 4),
+        atomicAdd(reinterpret_cast<float4*>(dnm_row + 4),
                   make_float4(dm[4], dm[5], dm[6], dm[7]));
       }
       warp_head_sums(p, head, H, sums);
     }
     if (c0 < HD) {
-      T* row = demb + (g * E + e) * HD + c0;
+      T* row = demb + (g * E + e) * ld + c0;
       store_row4<T>(row, dm);
       store_row4<T>(row + 4, dm + 4);
     }
@@ -310,7 +312,8 @@ bwd2_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
             const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
             const uint8_t* __restrict__ mask, T* __restrict__ dekb,
             float* __restrict__ dnq, float* __restrict__ dnk, int E, int N,
-            int HD, int H) {
+            int HD, int H, int lq, int lk, int lb, int lde, int ldq,
+            int ldk) {
   __shared__ float s_ds[UE][MAX_H];
   const long long g = blockIdx.y;
   const int e0 = blockIdx.x * UE;
@@ -340,28 +343,30 @@ bwd2_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
 #pragma unroll
     for (int j = 0; j < 8; ++j) dk[j] = 0.0f;
     if (mask[g * E + e]) {
-      const long long s_row = (g * N + src[g * E + e]) * HD + c0;
-      const long long d_row = (g * N + dst[g * E + e]) * HD + c0;
+      const long long s_node = g * N + src[g * E + e];
+      const long long d_node = g * N + dst[g * E + e];
+      float* dq_row = dnq + s_node * ldq + c0;
+      float* dk_row = dnk + d_node * ldk + c0;
       float q[8], k[8], b[8], dq[8];
-      load_row<T, 8>(nq + s_row, q);
-      load_row<T, 8>(nk + d_row, k);
-      load_row<T, 8>(ekb + (g * E + e) * HD + c0, b);
+      load_row<T, 8>(nq + s_node * lq + c0, q);
+      load_row<T, 8>(nk + d_node * lk + c0, k);
+      load_row<T, 8>(ekb + (g * E + e) * lb + c0, b);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float ds = s_ds[el][head[j]];
         dk[j] = round_to<T>(ds * q[j]);
         dq[j] = round_to<T>(ds * (k[j] + b[j]));
       }
-      atomicAdd(reinterpret_cast<float4*>(dnq + s_row),
+      atomicAdd(reinterpret_cast<float4*>(dq_row),
                 make_float4(dq[0], dq[1], dq[2], dq[3]));
-      atomicAdd(reinterpret_cast<float4*>(dnq + s_row + 4),
+      atomicAdd(reinterpret_cast<float4*>(dq_row + 4),
                 make_float4(dq[4], dq[5], dq[6], dq[7]));
-      atomicAdd(reinterpret_cast<float4*>(dnk + d_row),
+      atomicAdd(reinterpret_cast<float4*>(dk_row),
                 make_float4(dk[0], dk[1], dk[2], dk[3]));
-      atomicAdd(reinterpret_cast<float4*>(dnk + d_row + 4),
+      atomicAdd(reinterpret_cast<float4*>(dk_row + 4),
                 make_float4(dk[4], dk[5], dk[6], dk[7]));
     }
-    T* row = dekb + (g * E + e) * HD + c0;
+    T* row = dekb + (g * E + e) * lde + c0;
     store_row4<T>(row, dk);
     store_row4<T>(row + 4, dk + 4);
   }
@@ -480,14 +485,14 @@ template <typename T, int NV>
 __device__ __forceinline__ void fetch_slots(const uint16_t* perm, int v,
                                             int vend,
                                             const T* __restrict__ ekb_g,
-                                            int HD, int col, int (&ev)[BU],
+                                            int ld, int col, int (&ev)[BU],
                                             uint4 (&raw)[BU][NV]) {
 #pragma unroll
   for (int u = 0; u < BU; ++u) {
     ev[u] = v + u < vend ? perm[v + u] : -1;
     if (ev[u] >= 0) {
       const uint4* p =
-          reinterpret_cast<const uint4*>(ekb_g + (long long)ev[u] * HD + col);
+          reinterpret_cast<const uint4*>(ekb_g + (long long)ev[u] * ld + col);
 #pragma unroll
       for (int j = 0; j < NV; ++j) raw[u][j] = p[j];
     }
@@ -505,7 +510,8 @@ bwd2_graph_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
                   const int32_t* __restrict__ dst,
                   const uint8_t* __restrict__ mask, T* __restrict__ dekb,
                   float* __restrict__ dnq, float* __restrict__ dnk, int E,
-                  int N, int HD, int H, int CW) {
+                  int N, int HD, int H, int lq, int lk, int lb, int lde,
+                  int ldq, int ldk, int CW) {
   constexpr int NV = 8 * sizeof(T) / 16;  // 16-byte words of 8 values
   extern __shared__ __align__(16) unsigned char smem[];
   const long long g = blockIdx.y;
@@ -528,12 +534,12 @@ bwd2_graph_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
   const int32_t* g_src = src + g * E;
   const int32_t* g_dst = dst + g * E;
   const uint8_t* g_mask = mask + g * E;
-  T* dekb_g = dekb + g * E * HD;
+  T* dekb_g = dekb + g * E * lde;
 
   // stage the slice by cp.async, which lands while the slots are counted
   // and sorted below; the heads' terms by plain loads; zero the counts
-  stage_slice<T, BT>(s_nq, nq + g * N * HD, N, HD, c0, cw);
-  stage_slice<T, BT>(s_nk, nk + g * N * HD, N, HD, c0, cw);
+  stage_slice<T, BT>(s_nq, nq + g * N * lq, N, lq, c0, cw);
+  stage_slice<T, BT>(s_nk, nk + g * N * lk, N, lk, c0, cw);
   cp_async_commit();
 #pragma unroll 4
   for (int i = tid; i < N * hs; i += BT) {
@@ -601,23 +607,23 @@ bwd2_graph_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
     float4 seed[2];                      // node n's dnq row, read ahead
     int ev[BU];
     uint4 raw[BU][NV];
-    if (a < b) fetch_slots<T, NV>(perm_s, a, b, ekb + g * E * HD, HD, col, ev,
+    if (a < b) fetch_slots<T, NV>(perm_s, a, b, ekb + g * E * lb, lb, col, ev,
                                   raw);
     for (int v = a; v < b; v += BU) {
       int ev_n[BU];
       uint4 raw_n[BU][NV];
-      fetch_slots<T, NV>(perm_s, v + BU, b, ekb + g * E * HD, HD, col, ev_n,
+      fetch_slots<T, NV>(perm_s, v + BU, b, ekb + g * E * lb, lb, col, ev_n,
                          raw_n);
 #pragma unroll
       for (int u = 0; u < BU; ++u) {
         if (ev[u] < 0) break;
         const int vv = v + u;
         if (vv >= end) {
-          if (held) store_sum8(dnq + (g * N + n) * HD + col, seed, acc);
+          if (held) store_sum8(dnq + (g * N + n) * ldq + col, seed, acc);
           while (off_s[n + 1] <= vv) ++n;  // the node that holds vv
           end = off_s[n + 1];
           load_row<T, 8>(s_nq + n * cw + 8 * ch, q);
-          load_seed8(dnq + (g * N + n) * HD + col, seed);
+          load_seed8(dnq + (g * N + n) * ldq + col, seed);
 #pragma unroll
           for (int k = 0; k < 8; ++k) acc[k] = 0.0f;
           held = true;
@@ -638,7 +644,7 @@ bwd2_graph_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
         for (int j = 0; j < NV; ++j) raw[u][j] = raw_n[u][j];
       }
     }
-    if (held) store_sum8(dnq + (g * N + n) * HD + col, seed, acc);
+    if (held) store_sum8(dnq + (g * N + n) * ldq + col, seed, acc);
   };
 
   // pass 2, slots by destination, a group's whole nodes as one run: dnk
@@ -653,10 +659,10 @@ bwd2_graph_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
     float4 seed[2];                      // node n's dnk row, read ahead
     for (int v = a; v < b; ++v) {
       if (v >= end) {
-        if (held) store_sum8(dnk + (g * N + n) * HD + col, seed, acc);
+        if (held) store_sum8(dnk + (g * N + n) * ldk + col, seed, acc);
         while (off_d[n + 1] <= v) ++n;
         end = off_d[n + 1];
-        load_seed8(dnk + (g * N + n) * HD + col, seed);
+        load_seed8(dnk + (g * N + n) * ldk + col, seed);
 #pragma unroll
         for (int k = 0; k < 8; ++k) acc[k] = 0.0f;
         held = true;
@@ -669,7 +675,7 @@ bwd2_graph_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
       for (int k = 0; k < 8; ++k)
         acc[k] += round_to<T>((k < kb ? dsA : dsB) * q[k]);
     }
-    if (held) store_sum8(dnk + (g * N + n) * HD + col, seed, acc);
+    if (held) store_sum8(dnk + (g * N + n) * ldk + col, seed, acc);
   };
 
   // pass 3, slots in order: dekb = round(d_s * nq[src]), zeros where
@@ -693,7 +699,7 @@ bwd2_graph_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
           for (int k = 0; k < 8; ++k)
             dk[k] = round_to<T>((k < kb ? dsA : dsB) * q[k]);
         }
-        store_row8<T>(dekb_g + (long long)e * HD + col, dk);
+        store_row8<T>(dekb_g + (long long)e * lde + col, dk);
       }
     }
   };
@@ -888,7 +894,8 @@ aggr_graph_kernel(const T* __restrict__ nm, const T* __restrict__ emb,
                   const int32_t* __restrict__ src,
                   const int32_t* __restrict__ dst,
                   const uint8_t* __restrict__ mask, float* __restrict__ out,
-                  int E, int N, int HD, int H, int parts) {
+                  int E, int N, int HD, int H, int lm, int lb, int lo,
+                  int parts) {
   constexpr int RD = ring_depth(sizeof(T));
   extern __shared__ __align__(16) unsigned char smem[];
   const long long g = blockIdx.y;
@@ -899,11 +906,11 @@ aggr_graph_kernel(const T* __restrict__ nm, const T* __restrict__ emb,
   const int c0 = 8 * lane, my_h = lane / 4;
   const bool on = c0 < HD, head_lane = (lane & 3) == 0 && my_h < H;
   const LaneHeads lh(c0, HD / H, H);
-  const T* nm_g = nm + g * N * HD + c0;
-  const T* emb_g = emb + g * E * HD + c0;
+  const T* nm_g = nm + g * N * lm + c0;
+  const T* emb_g = emb + g * E * lb + c0;
   const float* e_g = e_edge + (g * H + my_h) * E;
   const float* sc_g = scale + g * N * H + my_h;
-  float* out_g = out + g * N * HD + c0;
+  float* out_g = out + g * N * lo + c0;
 
   // slot v's nm[src] and emb rows and its head's (e_edge, scale) into
   // stage v % RD; one commit group a slot for every lane
@@ -913,8 +920,8 @@ aggr_graph_kernel(const T* __restrict__ nm, const T* __restrict__ emb,
       const int s = slot_node<0>(r.s_sd[e]);
       T* rows = reinterpret_cast<T*>(r.ring + (v % RD) * r.stage);
       if (on) {
-        cp_async_row8<T>(rows + c0, nm_g + s * HD);
-        cp_async_row8<T>(rows + HD + c0, emb_g + (long long)e * HD);
+        cp_async_row8<T>(rows + c0, nm_g + s * lm);
+        cp_async_row8<T>(rows + HD + c0, emb_g + (long long)e * lb);
       }
       if (head_lane) {
         float* vals = reinterpret_cast<float*>(rows + 2 * HD);
@@ -932,10 +939,10 @@ aggr_graph_kernel(const T* __restrict__ nm, const T* __restrict__ emb,
   float4 seed[2];                        // node n's out row, read ahead
   for (int v = r.va; v < r.vb; ++v) {
     if (v >= end) {
-      if (held && on) store_sum8(out_g + n * HD, seed, acc);
+      if (held && on) store_sum8(out_g + n * lo, seed, acc);
       while (r.off[n + 1] <= v) ++n;     // the node that holds v
       end = r.off[n + 1];
-      if (on) load_seed8(out_g + n * HD, seed);
+      if (on) load_seed8(out_g + n * lo, seed);
 #pragma unroll
       for (int k = 0; k < 8; ++k) acc[k] = 0.0f;
       held = true;
@@ -957,7 +964,7 @@ aggr_graph_kernel(const T* __restrict__ nm, const T* __restrict__ emb,
     issue(v + RD);                       // into the stage just read
   }
   cp_async_wait<0>();
-  if (held && on) store_sum8(out_g + n * HD, seed, acc);
+  if (held && on) store_sum8(out_g + n * lo, seed, acc);
 }
 
 // SPLIT: a column slice of a wide head (`part`); a whole head's launch is
@@ -972,7 +979,8 @@ bwd1_graph_kernel(const T* __restrict__ gout, const T* __restrict__ nm,
                   const uint8_t* __restrict__ mask, T* __restrict__ demb,
                   float* __restrict__ dalpha, float* __restrict__ dscale,
                   float* __restrict__ dnm, int E, int N, int HD, int H,
-                  int part, int parts) {
+                  int lg, int lm, int lb, int ld, int ldn, int part,
+                  int parts) {
   constexpr int RD = ring_depth(sizeof(T));
   extern __shared__ __align__(16) unsigned char smem[];
   const long long g = blockIdx.y;
@@ -984,15 +992,15 @@ bwd1_graph_kernel(const T* __restrict__ gout, const T* __restrict__ nm,
   const bool on = c0 < HD, head_lane = (lane & 3) == 0 && my_h < H;
   const LaneHeads lh(c0, HD / H, H);
   const HeadScan hs(c0, HD / H, my_h, HD);
-  const T* gout_g = gout + g * N * HD + c0;
-  const T* nm_g = nm + g * N * HD + c0;
-  const T* emb_g = emb + g * E * HD + c0;
-  T* demb_g = demb + g * E * HD + c0;
+  const T* gout_g = gout + g * N * lg + c0;
+  const T* nm_g = nm + g * N * lm + c0;
+  const T* emb_g = emb + g * E * lb + c0;
+  T* demb_g = demb + g * E * ld + c0;
   const float* e_g = e_edge + (g * H + my_h) * E;
   const float* sc_g = scale + g * N * H + my_h;
   float* da_g = dalpha + (g * H + my_h) * E;
   float* ds_g = dscale + g * N * H + my_h;
-  float* dnm_g = dnm + g * N * HD + c0;
+  float* dnm_g = dnm + g * N * ldn + c0;
 
   // slot v's g[dst] and emb rows, with a node's first slot also the
   // node's nm row and its head's scale, and its head's e_edge into stage
@@ -1005,9 +1013,9 @@ bwd1_graph_kernel(const T* __restrict__ gout, const T* __restrict__ nm,
       const bool first = r.off[s] == v;
       T* rows = reinterpret_cast<T*>(r.ring + (v % RD) * r.stage);
       if (on) {
-        cp_async_row8<T>(rows + c0, gout_g + slot_node<1>(sd) * HD);
-        cp_async_row8<T>(rows + HD + c0, emb_g + (long long)e * HD);
-        if (first) cp_async_row8<T>(rows + 2 * HD + c0, nm_g + s * HD);
+        cp_async_row8<T>(rows + c0, gout_g + slot_node<1>(sd) * lg);
+        cp_async_row8<T>(rows + HD + c0, emb_g + (long long)e * lb);
+        if (first) cp_async_row8<T>(rows + 2 * HD + c0, nm_g + s * lm);
       }
       if (head_lane) {
         float* vals = reinterpret_cast<float*>(rows + 3 * HD);
@@ -1029,14 +1037,14 @@ bwd1_graph_kernel(const T* __restrict__ gout, const T* __restrict__ nm,
     const float* vals = reinterpret_cast<const float*>(rows + 3 * HD);
     if (v >= end) {
       if (held) {
-        if (on) store_sum8(dnm_g + n * HD, seed, acc);
+        if (on) store_sum8(dnm_g + n * ldn, seed, acc);
         if (head_lane) ds_g[n * H] = seed_ds + acc_ds;
       }
       while (r.off[n + 1] <= v) ++n;     // the node that holds v
       end = r.off[n + 1];
       if (on) {
         load_row<T, 8>(rows + 2 * HD + c0, m);
-        load_seed8(dnm_g + n * HD, seed);
+        load_seed8(dnm_g + n * ldn, seed);
       }
       if (head_lane) {
         sc = vals[MAX_H + my_h];
@@ -1064,7 +1072,7 @@ bwd1_graph_kernel(const T* __restrict__ gout, const T* __restrict__ nm,
         const float p = (m[j] + b[j]) * gd[j];
         if (j < lh.kb) pA += p; else pB += p;
       }
-      store_row8<T, true>(demb_g + (long long)e * HD, dm);
+      store_row8<T, true>(demb_g + (long long)e * ld, dm);
     }
     issue(v + RD);                       // into the stage just read
     float da = hs.total(pA, pB, lane);  // head lane / 4's
@@ -1076,7 +1084,7 @@ bwd1_graph_kernel(const T* __restrict__ gout, const T* __restrict__ nm,
   }
   cp_async_wait<0>();
   if (held) {
-    if (on) store_sum8(dnm_g + n * HD, seed, acc);
+    if (on) store_sum8(dnm_g + n * ldn, seed, acc);
     if (head_lane) ds_g[n * H] = seed_ds + acc_ds;
   }
 
@@ -1088,7 +1096,7 @@ bwd1_graph_kernel(const T* __restrict__ gout, const T* __restrict__ nm,
   for (int e = (int)((long long)E * blockIdx.x / parts) + warp; e < z1;
        e += RW) {
     if (r.s_sd[e] != DEAD) continue;     // uniform over the warp
-    if (on) store_row8<T, true>(demb_g + (long long)e * HD, zero);
+    if (on) store_row8<T, true>(demb_g + (long long)e * ld, zero);
     if (head_lane) da_g[e] = 0.0f;
   }
 }
@@ -1146,7 +1154,8 @@ scores_range_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
                     const int32_t* __restrict__ dst,
                     const uint8_t* __restrict__ mask,
                     float* __restrict__ scores, float* __restrict__ m_edge,
-                    int E, int N, int HD, int H, int part) {
+                    int E, int N, int HD, int H, int lq, int lk, int lb,
+                    int part) {
   constexpr int AHEAD = scores_ahead(sizeof(T));
   constexpr int NV = 8 * sizeof(T) / 16;  // 16-byte words of 8 values
   constexpr int K = SR / RT;             // slots a thread stages
@@ -1203,20 +1212,20 @@ scores_range_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
   const bool on = c0 < HD, head_lane = (lane & 3) == 0 && my_h < H;
   const LaneHeads lh(c0, HD / H, H);
   const HeadScan hs(c0, HD / H, my_h, HD);
-  const T* nq_g = nq + g * N * HD + c0;
-  const T* nk_g = nk + g * N * HD + c0;
-  const T* ekb_g = ekb + (g * E + e0) * HD + c0;
+  const T* nq_g = nq + g * N * lq + c0;
+  const T* nk_g = nk + g * N * lk + c0;
+  const T* ekb_g = ekb + (g * E + e0) * lb + c0;
 
   // listed slot v's three rows, the lane's 16-byte words of each
   uint4 rows[AHEAD][3][NV];
   auto fetch = [&](int v, uint4 (&r)[3][NV]) {
     if (v < vb && on) {
       const uint4* q = reinterpret_cast<const uint4*>(
-          nq_g + (long long)s_src[v] * HD);
+          nq_g + (long long)s_src[v] * lq);
       const uint4* k = reinterpret_cast<const uint4*>(
-          nk_g + (long long)s_dst[v] * HD);
+          nk_g + (long long)s_dst[v] * lk);
       const uint4* b = reinterpret_cast<const uint4*>(
-          ekb_g + (long long)s_el[v] * HD);
+          ekb_g + (long long)s_el[v] * lb);
 #pragma unroll
       for (int j = 0; j < NV; ++j) {
         r[0][j] = __ldg(q + j);
@@ -1489,10 +1498,22 @@ bool shapes_ok(int HD, int H) {
 
 dim3 edge_grid(int G, int E) { return dim3((E + UE - 1) / UE, G); }
 
+// a launch's (G, E, .) or (G, N, .) array of values of elem bytes: rows of
+// HD values ld apart (the row stride in elements: HD for an array of its
+// own, more for a view of some of a wider array's columns), each row's
+// first value 16-byte aligned, as the kernels' 16-byte row pieces need
+bool rows_ok(const void* p, int ld, int HD, int elem) {
+  return aligned16(p) && ld >= HD && (long long)ld * elem % 16 == 0;
+}
+
 }  // namespace
 
 // dtype: 0 = float32 node and edge arrays, 1 = bfloat16. All take
 // HD % 8 == 0, HD <= 256, H <= 8 dividing HD, and 16-byte aligned arrays.
+// Every (G, E, .) and (G, N, .) array of rows 1, 3, 4 and 5 comes with its
+// row stride in elements (`l..`, after H): the array itself (HD) or a view
+// of HD of a wider array's columns, read and written in place (a split
+// head's column launches, a head group's launch); each must pass rows_ok.
 
 // m_edge (G, H) arrives filled with -1e30. route 0: a block per 32 slots, a
 // warp per edge; route 1: a block per range of SR slots of a graph, which
@@ -1503,10 +1524,13 @@ extern "C" int gat_unproj_scores(const void* nq, const void* nk,
                                  const void* ekb, const void* src,
                                  const void* dst, const void* mask,
                                  void* scores, void* m_edge, int G, int N,
-                                 int E, int HD, int H, int dtype, int route,
-                                 int part, void* stream) {
-  if (!shapes_ok(HD, H) || !aligned16(nq) || !aligned16(nk) ||
-      !aligned16(ekb) || (route != 0 && route != 1) ||
+                                 int E, int HD, int H, int lq, int lk,
+                                 int lb, int dtype, int route, int part,
+                                 void* stream) {
+  const int el = dtype == 1 ? 2 : 4;
+  if (!shapes_ok(HD, H) || !rows_ok(nq, lq, HD, el) ||
+      !rows_ok(nk, lk, HD, el) || !rows_ok(ekb, lb, HD, el) ||
+      (route != 0 && route != 1) ||
       (route == 1 && HD / H < 8) || part < 0 || part > 3)
     return (int)cudaErrorInvalidValue;
   if ((long long)G * E == 0) return (int)cudaGetLastError();
@@ -1518,13 +1542,13 @@ extern "C" int gat_unproj_scores(const void* nq, const void* nk,
       scores_range_kernel<T><<<grid, RT, scores_smem(H), s>>>(
           (const T*)nq, (const T*)nk, (const T*)ekb, (const int32_t*)src,
           (const int32_t*)dst, (const uint8_t*)mask, (float*)scores,
-          (float*)m_edge, E, N, HD, H, part);
+          (float*)m_edge, E, N, HD, H, lq, lk, lb, part);
     } else {
       typedef float T;
       scores_range_kernel<T><<<grid, RT, scores_smem(H), s>>>(
           (const T*)nq, (const T*)nk, (const T*)ekb, (const int32_t*)src,
           (const int32_t*)dst, (const uint8_t*)mask, (float*)scores,
-          (float*)m_edge, E, N, HD, H, part);
+          (float*)m_edge, E, N, HD, H, lq, lk, lb, part);
     }
     return (int)cudaGetLastError();
   }
@@ -1533,13 +1557,13 @@ extern "C" int gat_unproj_scores(const void* nq, const void* nk,
     scores_kernel<T><<<edge_grid(G, E), UTHREADS, 0, s>>>(
         (const T*)nq, (const T*)nk, (const T*)ekb, (const int32_t*)src,
         (const int32_t*)dst, (const uint8_t*)mask, (float*)scores,
-        (float*)m_edge, E, N, HD, H, part);
+        (float*)m_edge, E, N, HD, H, lq, lk, lb, part);
   } else {
     typedef float T;
     scores_kernel<T><<<edge_grid(G, E), UTHREADS, 0, s>>>(
         (const T*)nq, (const T*)nk, (const T*)ekb, (const int32_t*)src,
         (const int32_t*)dst, (const uint8_t*)mask, (float*)scores,
-        (float*)m_edge, E, N, HD, H, part);
+        (float*)m_edge, E, N, HD, H, lq, lk, lb, part);
   }
   return (int)cudaGetLastError();
 }
@@ -1590,10 +1614,12 @@ extern "C" int gat_unproj_aggr(const void* nm, const void* emb,
                                const void* e_edge, const void* scale,
                                const void* src, const void* dst,
                                const void* mask, void* out, int G, int N,
-                               int E, int HD, int H, int dtype, int route,
-                               void* stream) {
-  if (!shapes_ok(HD, H) || !aligned16(nm) || !aligned16(emb) ||
-      !aligned16(out) || (route != 0 && route != 1) ||
+                               int E, int HD, int H, int lm, int lb, int lo,
+                               int dtype, int route, void* stream) {
+  const int el = dtype == 1 ? 2 : 4;
+  if (!shapes_ok(HD, H) || !rows_ok(nm, lm, HD, el) ||
+      !rows_ok(emb, lb, HD, el) || !rows_ok(out, lo, HD, 4) ||
+      (route != 0 && route != 1) ||
       (route == 1 && !sorted_ok(N, E, HD, H, dtype == 1 ? 2 : 4, 2)))
     return (int)cudaErrorInvalidValue;
   if ((long long)G * E == 0) return (int)cudaGetLastError();
@@ -1606,27 +1632,28 @@ extern "C" int gat_unproj_aggr(const void* nm, const void* emb,
           (const T*)nm, (const T*)emb,
           (const float*)e_edge, (const float*)scale, (const int32_t*)src,
           (const int32_t*)dst, (const uint8_t*)mask, (float*)out, E, N, HD,
-          H);
+          H, lm, lb, lo);
     }
     typedef float T;
     return (int)launch_sorted(
         aggr_graph_kernel<T>, G, sorted_smem(N, E, HD, 4, 2), E, s,
         (const T*)nm, (const T*)emb,
         (const float*)e_edge, (const float*)scale, (const int32_t*)src,
-        (const int32_t*)dst, (const uint8_t*)mask, (float*)out, E, N, HD, H);
+        (const int32_t*)dst, (const uint8_t*)mask, (float*)out, E, N, HD, H,
+        lm, lb, lo);
   }
   if (dtype == 1) {
     typedef __nv_bfloat16 T;
     aggr_kernel<T><<<edge_grid(G, E), UTHREADS, 0, s>>>(
         (const T*)nm, (const T*)emb, (const float*)e_edge,
         (const float*)scale, (const int32_t*)src, (const int32_t*)dst,
-        (const uint8_t*)mask, (float*)out, E, N, HD, H);
+        (const uint8_t*)mask, (float*)out, E, N, HD, H, lm, lb, lo);
   } else {
     typedef float T;
     aggr_kernel<T><<<edge_grid(G, E), UTHREADS, 0, s>>>(
         (const T*)nm, (const T*)emb, (const float*)e_edge,
         (const float*)scale, (const int32_t*)src, (const int32_t*)dst,
-        (const uint8_t*)mask, (float*)out, E, N, HD, H);
+        (const uint8_t*)mask, (float*)out, E, N, HD, H, lm, lb, lo);
   }
   return (int)cudaGetLastError();
 }
@@ -1643,10 +1670,13 @@ extern "C" int gat_unproj_bwd1(const void* gout, const void* nm,
                                const void* scale, const void* src,
                                const void* dst, const void* mask, void* demb,
                                void* dalpha, void* dscale, void* dnm, int G,
-                               int N, int E, int HD, int H, int dtype,
-                               int route, int part, void* stream) {
-  if (!shapes_ok(HD, H) || !aligned16(gout) || !aligned16(nm) ||
-      !aligned16(emb) || !aligned16(demb) || !aligned16(dnm) ||
+                               int N, int E, int HD, int H, int lg, int lm,
+                               int lb, int ld, int ldn, int dtype, int route,
+                               int part, void* stream) {
+  const int el = dtype == 1 ? 2 : 4;
+  if (!shapes_ok(HD, H) || !rows_ok(gout, lg, HD, el) ||
+      !rows_ok(nm, lm, HD, el) || !rows_ok(emb, lb, HD, el) ||
+      !rows_ok(demb, ld, HD, el) || !rows_ok(dnm, ldn, HD, 4) ||
       (route != 0 && route != 1) || part < 0 || part > 3 ||
       (route == 1 && !sorted_ok(N, E, HD, H, dtype == 1 ? 2 : 4, 3)))
     return (int)cudaErrorInvalidValue;
@@ -1662,7 +1692,7 @@ extern "C" int gat_unproj_bwd1(const void* gout, const void* nm,
           (const T*)emb, (const float*)e_edge, (const float*)scale,
           (const int32_t*)src, (const int32_t*)dst, (const uint8_t*)mask,
           (T*)demb, (float*)dalpha, (float*)dscale, (float*)dnm, E, N, HD,
-          H, part);
+          H, lg, lm, lb, ld, ldn, part);
     }
     typedef float T;
     return (int)launch_sorted(
@@ -1672,7 +1702,7 @@ extern "C" int gat_unproj_bwd1(const void* gout, const void* nm,
         (const T*)emb, (const float*)e_edge, (const float*)scale,
         (const int32_t*)src, (const int32_t*)dst, (const uint8_t*)mask,
         (T*)demb, (float*)dalpha, (float*)dscale, (float*)dnm, E, N, HD, H,
-        part);
+        lg, lm, lb, ld, ldn, part);
   }
   if (dtype == 1) {
     typedef __nv_bfloat16 T;
@@ -1680,14 +1710,14 @@ extern "C" int gat_unproj_bwd1(const void* gout, const void* nm,
         (const T*)gout, (const T*)nm, (const T*)emb, (const float*)e_edge,
         (const float*)scale, (const int32_t*)src, (const int32_t*)dst,
         (const uint8_t*)mask, (T*)demb, (float*)dalpha, (float*)dscale,
-        (float*)dnm, E, N, HD, H, part);
+        (float*)dnm, E, N, HD, H, lg, lm, lb, ld, ldn, part);
   } else {
     typedef float T;
     bwd1_kernel<T><<<edge_grid(G, E), UTHREADS, 0, s>>>(
         (const T*)gout, (const T*)nm, (const T*)emb, (const float*)e_edge,
         (const float*)scale, (const int32_t*)src, (const int32_t*)dst,
         (const uint8_t*)mask, (T*)demb, (float*)dalpha, (float*)dscale,
-        (float*)dnm, E, N, HD, H, part);
+        (float*)dnm, E, N, HD, H, lg, lm, lb, ld, ldn, part);
   }
   return (int)cudaGetLastError();
 }
@@ -1702,11 +1732,14 @@ extern "C" int gat_unproj_bwd2(const void* nq, const void* nk,
                                const void* d_denom, const void* src,
                                const void* dst, const void* mask, void* dekb,
                                void* dnq, void* dnk, int G, int N, int E,
-                               int HD, int H, int dtype, int route, int cw,
-                               void* stream) {
-  if (!shapes_ok(HD, H) || !aligned16(nq) || !aligned16(nk) ||
-      !aligned16(ekb) || !aligned16(dekb) || !aligned16(dnq) ||
-      !aligned16(dnk) || (route != 0 && route != 1))
+                               int HD, int H, int lq, int lk, int lb,
+                               int lde, int ldq, int ldk, int dtype,
+                               int route, int cw, void* stream) {
+  const int el = dtype == 1 ? 2 : 4;
+  if (!shapes_ok(HD, H) || !rows_ok(nq, lq, HD, el) ||
+      !rows_ok(nk, lk, HD, el) || !rows_ok(ekb, lb, HD, el) ||
+      !rows_ok(dekb, lde, HD, el) || !rows_ok(dnq, ldq, HD, 4) ||
+      !rows_ok(dnk, ldk, HD, 4) || (route != 0 && route != 1))
     return (int)cudaErrorInvalidValue;
   if ((long long)G * E == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
@@ -1728,7 +1761,8 @@ extern "C" int gat_unproj_bwd2(const void* nq, const void* nk,
           (const T*)nq, (const T*)nk, (const T*)ekb, (const float*)e_edge,
           (const float*)dalpha, (const float*)scale, (const float*)d_denom,
           (const int32_t*)src, (const int32_t*)dst, (const uint8_t*)mask,
-          (T*)dekb, (float*)dnq, (float*)dnk, E, N, HD, H, cw);
+          (T*)dekb, (float*)dnq, (float*)dnk, E, N, HD, H, lq, lk, lb, lde,
+          ldq, ldk, cw);
     } else {
       typedef float T;
       const cudaError_t err = set_smem(bwd2_graph_kernel<T>, smem);
@@ -1737,7 +1771,8 @@ extern "C" int gat_unproj_bwd2(const void* nq, const void* nk,
           (const T*)nq, (const T*)nk, (const T*)ekb, (const float*)e_edge,
           (const float*)dalpha, (const float*)scale, (const float*)d_denom,
           (const int32_t*)src, (const int32_t*)dst, (const uint8_t*)mask,
-          (T*)dekb, (float*)dnq, (float*)dnk, E, N, HD, H, cw);
+          (T*)dekb, (float*)dnq, (float*)dnk, E, N, HD, H, lq, lk, lb, lde,
+          ldq, ldk, cw);
     }
     return (int)cudaGetLastError();
   }
@@ -1747,14 +1782,16 @@ extern "C" int gat_unproj_bwd2(const void* nq, const void* nk,
         (const T*)nq, (const T*)nk, (const T*)ekb, (const float*)e_edge,
         (const float*)dalpha, (const float*)scale, (const float*)d_denom,
         (const int32_t*)src, (const int32_t*)dst, (const uint8_t*)mask,
-        (T*)dekb, (float*)dnq, (float*)dnk, E, N, HD, H);
+        (T*)dekb, (float*)dnq, (float*)dnk, E, N, HD, H, lq, lk, lb, lde,
+        ldq, ldk);
   } else {
     typedef float T;
     bwd2_kernel<T><<<edge_grid(G, E), UTHREADS, 0, s>>>(
         (const T*)nq, (const T*)nk, (const T*)ekb, (const float*)e_edge,
         (const float*)dalpha, (const float*)scale, (const float*)d_denom,
         (const int32_t*)src, (const int32_t*)dst, (const uint8_t*)mask,
-        (T*)dekb, (float*)dnq, (float*)dnk, E, N, HD, H);
+        (T*)dekb, (float*)dnq, (float*)dnk, E, N, HD, H, lq, lk, lb, lde,
+        ldq, ldk);
   }
   return (int)cudaGetLastError();
 }

@@ -51,7 +51,7 @@ from qagnn_tpu_torch.ops.gat_attention import (
     relational_gat_attention_nodes,
     resolve_backend,
 )
-from qagnn_tpu_torch.ops.gat_kernels import gat_projected_chained
+from qagnn_tpu_torch.ops.gat_kernels import gat_projected_chained, kernel_d
 from qagnn_tpu_torch.parallel.edge_shard_kernels import (
     edge_feature_moments_sharded,
     edge_hidden_sharded,
@@ -85,7 +85,10 @@ class EdgeEncoder(nn.Module):
         linear_1 is left to the caller. In train mode the masked edge rows
         enter the batch statistic through their closed-form moments (the
         feature-moments kernel; differentiable in W0, b0 by autograd).
-        Returns ((h_edge (G, E, D), h_self), (W1, b1))."""
+        Returns ((h_edge (G, E, Dk), h_self), (W1, b1)): h_edge at the GAT
+        kernels' width Dk = `kernel_d(D)`, zeros past D, which the layers
+        carry as it is (no pad or slice of an edge-sized array); the
+        parameters, the BatchNorm and its statistics keep width D."""
         cdt, mesh = self.dtype, self.mesh
         if edge_ints is not None:
             etype, esrc, edst, ntype, emask = edge_ints
@@ -100,8 +103,15 @@ class EdgeEncoder(nn.Module):
                 parts.insert(0, MomentPart(s1, s2, n_e))
             res, (a, b) = self.bn(parts, return_affine=True)
             h_self = torch.relu(res[-1])
-            args = (etype, esrc, edst, ntype, w0, b0, a, b, n_rel, n_ntype,
-                    cdt)
+            # zero columns up to the kernels' width: h = relu(0 x + 0) = 0
+            # there, and the pads' backward drops their gradients
+            Dk = kernel_d(w0.shape[1])
+
+            def wide(t):
+                return t if t.shape[-1] == Dk \
+                    else F.pad(t, (0, Dk - t.shape[-1]))
+            args = (etype, esrc, edst, ntype, wide(w0), wide(b0), wide(a),
+                    wide(b), n_rel, n_ntype, cdt)
             h_edge = edge_hidden(*args) if mesh is None \
                 else edge_hidden_sharded(*args, mesh)
             return (h_edge, h_self), (self.linear_1.kernel,
@@ -153,14 +163,15 @@ class GATConvE(nn.Module):
 
     def forward(self, x, edge_src, edge_dst, edge_mask, edge_emb, self_emb, *,
                 fused: bool, emb_proj=None, return_alpha: bool = False):
-        """x: (G, N, 2D) or the pair (X, node_extra); edge_emb: (G, E, D);
-        self_emb: (G, N, D). fused: run the GAT kernels, with emb_proj =
-        (W1, b1) of the edge encoder's linear_1 when edge_emb/self_emb are
-        its PRE-linear_1 hidden states; the result is then the pair
-        (out, edge_emb passed through the op) and the caller hands that
-        embedding to the next layer. With a mesh the fused op is the
-        edge-partitioned one, and the pair's embedding is edge_emb itself
-        (no chaining)."""
+        """x: (G, N, 2D) or the pair (X, node_extra); edge_emb: (G, E, D),
+        or on the fused path the encoder's (G, E, Dk) at the kernels'
+        width; self_emb: (G, N, D). fused: run the GAT kernels, with
+        emb_proj = (W1, b1) of the edge encoder's linear_1 when
+        edge_emb/self_emb are its PRE-linear_1 hidden states; the result is
+        then the pair (out, edge_emb passed through the op, unchanged) and
+        the caller hands that embedding to the next layer. With a mesh the
+        fused op is the edge-partitioned one, and the pair's embedding is
+        edge_emb itself (no chaining)."""
         d, h, cdt = self.emb_dim, self.head_count, self.dtype
         dph = d // h
         G, N = (x[0] if isinstance(x, tuple) else x).shape[:2]

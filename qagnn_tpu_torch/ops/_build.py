@@ -11,7 +11,9 @@ Every C entry point takes its pointers and the CUDA stream as `void*` and
 returns `cudaGetLastError()` after its launches; `check` raises when that is
 not 0. Launches are counted per kernel in `LAUNCHES` (only where a kernel
 is launched, never on the plain path), and for an entry point with more than
-one route also per (kernel, route) in `ROUTES`.
+one route also per (kernel, route) in `ROUTES`. A kernel takes contiguous
+tensors (`require`), or, where its entry point takes row strides, views of
+a wider array's columns (`require_rows`).
 """
 
 from __future__ import annotations
@@ -122,6 +124,27 @@ def require(t, name: str, dtype, shape) -> None:
             f"{name}: need a contiguous CUDA {dtype} tensor of shape "
             f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+
+
+def require_rows(t, name: str, dtype, shape) -> int:
+    """Raise unless `t` is a CUDA tensor of this dtype and (G, rows, cols)
+    shape whose rows a kernel can read and write in place: the tensor
+    itself or a view of some of a wider array's columns (unit column
+    stride, graphs `rows` rows apart, each row 16-byte aligned). Returns
+    the row stride in elements, which the kernel takes beside the pointer.
+    A view that does not pass is refused, never copied."""
+    G, rows, cols = shape
+    ld = t.stride(-2) if t.dim() == 3 else 0
+    ok = t.is_cuda and t.dtype == dtype and tuple(t.shape) == tuple(shape) \
+        and (cols <= 1 or t.stride(-1) == 1) and ld >= cols \
+        and (G <= 1 or t.stride(0) == rows * ld) \
+        and t.data_ptr() % 16 == 0 and ld * t.element_size() % 16 == 0
+    if not ok:
+        raise ValueError(
+            f"{name}: need a CUDA {dtype} tensor of shape {tuple(shape)} "
+            f"with 16-byte aligned rows (itself or a column view), got "
+            f"{t.dtype} {tuple(t.shape)} strides {t.stride()} on {t.device}")
+    return ld
 
 
 def check(err: int, kernel: str) -> None:

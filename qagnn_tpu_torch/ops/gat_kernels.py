@@ -250,6 +250,14 @@ def cols(t: torch.Tensor, c0: int, c1: int) -> torch.Tensor:
     return t[..., c0:c1].contiguous()
 
 
+def col_view(t: torch.Tensor, c0: int, c1: int) -> torch.Tensor:
+    """Columns [c0, c1) of a (..., HD) tensor as a view, read and written
+    in place by the entry points that take row strides (rows 1, 3, 4 and
+    5): c0 is a multiple of 8 (`col_slices`, whole heads of a padded
+    width), so each view's rows stay 16-byte aligned."""
+    return t[..., c0:c1]
+
+
 def heads_of(t: torch.Tensor, h0: int, h1: int) -> torch.Tensor:
     """Heads [h0, h1) of a (..., H) per-head tensor, contiguous."""
     return t[..., h0:h1].contiguous()
@@ -339,15 +347,16 @@ def by_head_groups(HD, heads, run, cat_dims):
                  for parts, d in zip(zip(*outs), cat_dims))
 
 
-def split_scores(launch, HD, heads, row_args):
+def split_scores(launch, HD, heads, row_args, take=cols):
     """The scores (G, H, E) and their max (G, H) of rows 1 and 6 over every
     launch: launch(h0, h1, [column slices of row_args], **partial) for each
     head group and each of its column slices in order, a split head's
-    slices summing into one scores array."""
+    slices summing into one scores array. `take` cuts a slice: a
+    contiguous copy (`cols`, row 6) or a view (`col_view`, row 1)."""
     def run(h0, h1):
         spans, acc = group_cols(HD, heads, h0, h1), None
         for i, (c0, c1) in enumerate(spans):
-            acc, m_edge = launch(h0, h1, [cols(t, c0, c1) for t in row_args],
+            acc, m_edge = launch(h0, h1, [take(t, c0, c1) for t in row_args],
                                  **partial(acc, i, len(spans)))
         return acc, m_edge
     return by_head_groups(HD, heads, run, (1, 1))
@@ -1110,12 +1119,21 @@ def _contiguous(*ts):
     return tuple(t.contiguous() for t in ts)
 
 
+def kernel_d(D: int) -> int:
+    """The edge embedding's width at the kernels, `kernel_widths`' D: D
+    rounded up to a multiple of 8 (above 256, of 8 times the fewest slices
+    of at most 256 rows, so that `d_slices` cuts it evenly into that
+    many)."""
+    unit = 8 * max(1, -(-D // MAX_COLS))
+    return -(-D // unit) * unit
+
+
 def kernel_widths(D: int, HD: int, heads: int) -> tuple[int, int]:
     """(D, HD) the op runs its kernels at: D rounded up to a multiple of 8
     (above 256, of 8 times the fewest slices of at most 256 rows, so that
-    `d_slices` cuts it evenly into that many), each head's HD / heads
-    features to at least 4 and so that the heads
-    together make a multiple of 8; where that is more than 8 heads or 256
+    `d_slices` cuts it evenly into that many; `kernel_d`), each head's HD /
+    heads features to at least 4 and so that the heads together make a
+    multiple of 8; where that is more than 8 heads or 256
     columns, which run in head groups (`head_groups`), each head's features
     to a multiple of 8, so that any group of whole heads is, and a head of
     more than 256 features runs in column slices (`col_slices`)."""
@@ -1123,8 +1141,7 @@ def kernel_widths(D: int, HD: int, heads: int) -> tuple[int, int]:
     dph = -(-max(HD // heads, 4) // step) * step
     if heads > MAX_HEADS or heads * dph > MAX_COLS:
         dph = -(-(HD // heads) // 8) * 8
-    unit = 8 * max(1, -(-D // MAX_COLS))
-    return -(-D // unit) * unit, heads * dph
+    return kernel_d(D), heads * dph
 
 
 def pad_heads(t: torch.Tensor, heads: int, HDk: int) -> torch.Tensor:
@@ -1137,23 +1154,38 @@ def pad_heads(t: torch.Tensor, heads: int, HDk: int) -> torch.Tensor:
     return F.pad(t, (0, (HDk - HD) // heads)).reshape(*t.shape[:-2], HDk)
 
 
+def emb_width(edge_emb, w_ke) -> tuple[int, int]:
+    """(D, Dk): the op's D, the weights' rows, and the width the kernels
+    take (`kernel_d`). The edge embedding comes at either: at D it is
+    padded, at Dk (the fused GNN's, `EdgeEncoder` emitting zeros past D)
+    it is taken as it is."""
+    D = w_ke.shape[0]
+    Dk = kernel_d(D)
+    if edge_emb.shape[-1] not in (D, Dk):
+        raise ValueError(f"edge_emb has {edge_emb.shape[-1]} features; the "
+                         f"weights take D={D} (or the kernels' {Dk})")
+    return D, Dk
+
+
 def pad_widths(nq, nk, nm, edge_emb, w_ke, b_ke, w_me, b_me, skb, smb,
                heads):
     """The op's ten differentiable inputs with zero features appended up to
-    `kernel_widths`: D at the end of edge_emb and of the weights' rows, each
-    head's features at the end of that head's columns."""
-    D, HD = edge_emb.shape[-1], nq.shape[-1]
-    Dk, HDk = kernel_widths(D, HD, heads)
+    `kernel_widths`: D at the end of the weights' rows and of edge_emb
+    (unless it comes at that width, `emb_width`), each head's features at
+    the end of that head's columns."""
+    D, Dk = emb_width(edge_emb, w_ke)
+    HDk = kernel_widths(D, nq.shape[-1], heads)[1]
 
     def cols(t):
         return pad_heads(t, heads, HDk)
 
     def rows(w):
-        return F.pad(w, (0, 0, 0, Dk - D))
+        return w if Dk == D else F.pad(w, (0, 0, 0, Dk - D))
 
-    return (cols(nq), cols(nk), cols(nm), F.pad(edge_emb, (0, Dk - D)),
-            cols(rows(w_ke)), cols(b_ke), cols(rows(w_me)), cols(b_me),
-            cols(skb), cols(smb))
+    emb = edge_emb if edge_emb.shape[-1] == Dk \
+        else F.pad(edge_emb, (0, Dk - D))
+    return (cols(nq), cols(nk), cols(nm), emb, cols(rows(w_ke)), cols(b_ke),
+            cols(rows(w_me)), cols(b_me), cols(skb), cols(smb))
 
 
 def cut_heads(out: torch.Tensor, HD: int, heads: int) -> torch.Tensor:
@@ -1168,16 +1200,20 @@ def gat_projected_chained(nq, nk, nm, edge_emb, w_ke, b_ke, w_me, b_me, skb,
     `gat_projected_forward`). Returns (out (G, N, HD) f32, edge_emb): hand
     the returned embedding to the next layer, so that the edge embedding's
     cotangent accumulates through the layers' backward kernels. Widths the
-    kernels do not take are padded (`pad_widths`) and the results cut back;
-    the returned embedding is then a slice of the padded one."""
+    kernels do not take are padded (`pad_widths`) and the results cut back.
+    An embedding that comes at the kernels' width (`emb_width`) is taken
+    and returned as it is, so k layers chain it with no copy; one at D is
+    padded, and the returned embedding is then a slice of the padded one."""
     args = (nq, nk, nm, edge_emb, w_ke, b_ke, w_me, b_me, skb, smb)
-    D, HD = edge_emb.shape[-1], nq.shape[-1]
+    D, Dk = emb_width(edge_emb, w_ke)
+    HD = nq.shape[-1]
     if kernel_widths(D, HD, heads) == (D, HD):
         return _GatProjected.apply(*_contiguous(*args), src, dst, mask,
                                    heads)
     out, emb = _GatProjected.apply(
         *_contiguous(*pad_widths(*args, heads)), src, dst, mask, heads)
-    return cut_heads(out, HD, heads), emb[..., :D]
+    return cut_heads(out, HD, heads), \
+        emb if edge_emb.shape[-1] == Dk else emb[..., :D]
 
 
 def gat_projected(nq, nk, nm, edge_emb, w_ke, b_ke, w_me, b_me, skb, smb,

@@ -73,7 +73,11 @@ launch a group, every quantity being per head. A single head of more than
 slice: `aggregate` and `bwd2` work per column, and `edge_scores` and
 `bwd1`, which sum over the head's columns, add each slice's f32 sums to the
 slices' before it, the last alone taking the max or adding d_alpha * e into
-dscale (`gat_kernels.partial`).
+dscale (`gat_kernels.partial`). The C entry points of these four take a row
+stride for each (G, E, .) and (G, N, .) array, so the launches of a head
+group or a split head read and write column views of the call's (padded)
+arrays in place (`gat_kernels.col_view`, `_build.require_rows`): nothing
+is copied or concatenated between them.
 """
 
 from __future__ import annotations
@@ -96,7 +100,7 @@ from qagnn_tpu_torch.ops.gat_kernels import (
     _scores_out,
     _stream,
     by_head_groups,
-    cols,
+    col_view,
     cut_heads,
     group_cols,
     head_groups,
@@ -113,11 +117,11 @@ from qagnn_tpu_torch.ops.gat_kernels import (
 )
 
 _SIGNATURES = {
-    "gat_unproj_scores": [_P] * 8 + [_I] * 8 + [_P],
+    "gat_unproj_scores": [_P] * 8 + [_I] * 11 + [_P],
     "gat_unproj_denoms": [_P] * 7 + [_I] * 5 + [_P],
-    "gat_unproj_aggr": [_P] * 8 + [_I] * 7 + [_P],
-    "gat_unproj_bwd1": [_P] * 12 + [_I] * 8 + [_P],
-    "gat_unproj_bwd2": [_P] * 13 + [_I] * 8 + [_P],
+    "gat_unproj_aggr": [_P] * 8 + [_I] * 10 + [_P],
+    "gat_unproj_bwd1": [_P] * 12 + [_I] * 13 + [_P],
+    "gat_unproj_bwd2": [_P] * 13 + [_I] * 14 + [_P],
 }
 # route 1 of bwd2 (csrc/gat_unproj.cu, bwd2_graph_kernel): the shared memory
 # a block may have so that two fit on an SM, and the most it may opt into
@@ -133,6 +137,9 @@ SORTED_WARPS, AGGR_ROWS, BWD1_ROWS = 8, 2, 3
 
 def _lib():
     return _build.load("gat_unproj", _SIGNATURES)
+
+
+_rows = _build.require_rows
 
 
 def _require_graph(src, dst, mask, G, E) -> None:
@@ -249,7 +256,8 @@ def edge_scores(nq, nk, ekb, src, dst, mask, heads, _route=None):
     def launch(h0, h1, t, **part):
         return _edge_scores(*t, src, dst, mask, h1 - h0, _route, **part)
     return split_scores(launch, HDk, heads,
-                        [pad_heads(t, heads, HDk) for t in (nq, nk, ekb)])
+                        [pad_heads(t, heads, HDk) for t in (nq, nk, ekb)],
+                        col_view)
 
 
 def _edge_scores(nq, nk, ekb, src, dst, mask, heads, _route, acc=None,
@@ -261,9 +269,8 @@ def _edge_scores(nq, nk, ekb, src, dst, mask, heads, _route, acc=None,
     E = ekb.shape[1]
     cdt = nq.dtype
     _check_widths(HD, HD, heads)
-    _require(nq, "nq", cdt, (G, N, HD))
-    _require(nk, "nk", cdt, (G, N, HD))
-    _require(ekb, "ekb", cdt, (G, E, HD))
+    lds = (_rows(nq, "nq", cdt, (G, N, HD)), _rows(nk, "nk", cdt, (G, N, HD)),
+           _rows(ekb, "ekb", cdt, (G, E, HD)))
     _require_graph(src, dst, mask, G, E)
     route = _scores_route(cdt, N, E, HD, heads, _route)
     out = _scores_out(acc, G, heads, E, nq.device)
@@ -272,7 +279,7 @@ def _edge_scores(nq, nk, ekb, src, dst, mask, heads, _route, acc=None,
     err = _lib().gat_unproj_scores(
         nq.data_ptr(), nk.data_ptr(), ekb.data_ptr(), src.data_ptr(),
         dst.data_ptr(), mask.data_ptr(), out.data_ptr(), m_edge.data_ptr(),
-        G, N, E, HD, heads, _dtype_code(nq), route, _part(acc, last),
+        G, N, E, HD, heads, *lds, _dtype_code(nq), route, _part(acc, last),
         _stream())
     _build.check(err, "gat_unproj_scores")
     _build.count_launch("gat_unproj_scores", route)
@@ -379,11 +386,12 @@ def aggregate(nm, emb, e_edge, scale, src, dst, mask, out, heads,
         return _aggregate(nm, emb, e_edge, scale, src, dst, mask, out, heads,
                           _route)
     nm, emb, acc = (pad_heads(t, heads, HDk) for t in (nm, emb, out))
-    for h0, h1, c0, c1 in plan:
-        acc[..., c0:c1] = _aggregate(
-            cols(nm, c0, c1), cols(emb, c0, c1),
-            e_edge[:, h0:h1].contiguous(), heads_of(scale, h0, h1), src, dst,
-            mask, cols(acc, c0, c1), h1 - h0, _route)
+    for h0, h1 in head_groups(HDk, heads):
+        node = (e_edge[:, h0:h1].contiguous(), heads_of(scale, h0, h1), src,
+                dst, mask)
+        for c0, c1 in group_cols(HDk, heads, h0, h1):
+            _aggregate(col_view(nm, c0, c1), col_view(emb, c0, c1), *node,
+                       col_view(acc, c0, c1), h1 - h0, _route)
     return _cut_into(out, acc, heads)
 
 
@@ -395,17 +403,17 @@ def _aggregate(nm, emb, e_edge, scale, src, dst, mask, out, heads, _route):
     E = emb.shape[1]
     cdt = nm.dtype
     _check_widths(HD, HD, heads)
-    _require(nm, "nm", cdt, (G, N, HD))
-    _require(emb, "emb", cdt, (G, E, HD))
+    lds = (_rows(nm, "nm", cdt, (G, N, HD)),
+           _rows(emb, "emb", cdt, (G, E, HD)),
+           _rows(out, "out", torch.float32, (G, N, HD)))
     _require(e_edge, "e_edge", torch.float32, (G, heads, E))
     _require(scale, "scale", torch.float32, (G, N, heads))
     _require_graph(src, dst, mask, G, E)
-    _require(out, "out", torch.float32, (G, N, HD))
     route = _aggr_route(cdt, N, E, HD, heads, _route)
     err = _lib().gat_unproj_aggr(
         nm.data_ptr(), emb.data_ptr(), e_edge.data_ptr(), scale.data_ptr(),
         src.data_ptr(), dst.data_ptr(), mask.data_ptr(), out.data_ptr(), G,
-        N, E, HD, heads, _dtype_code(nm), route, _stream())
+        N, E, HD, heads, *lds, _dtype_code(nm), route, _stream())
     _build.check(err, "gat_unproj_aggr")
     _build.count_launch("gat_unproj_aggr", route)
     return out
@@ -446,7 +454,7 @@ def gat_unprojected_forward(nq, nk, nm, ekb, emb, skb, smb, src, dst, mask,
 # --------------------------------------------------------------------------
 
 def bwd1_plain(gout, nm, emb, e_edge, scale, src, dst, mask, dnm, dscale,
-               heads, acc=None, last=True):
+               heads, acc=None, last=True, demb=None):
     cdt, HD = nm.dtype, nm.shape[-1]
     live = mask[..., None]
     msg = _gather_nodes(nm, src).float() + emb.float()
@@ -458,7 +466,13 @@ def bwd1_plain(gout, nm, emb, e_edge, scale, src, dst, mask, dnm, dscale,
     _scatter_nodes(dnm, src, d_msg.float())
     if last:
         _scatter_nodes(dscale, src, dalpha.transpose(1, 2) * e)
-    return d_msg.to(emb.dtype), dalpha, dnm, dscale
+    return _written(demb, d_msg.to(emb.dtype)), dalpha, dnm, dscale
+
+
+def _written(out, value):
+    """`value`, or written into `out` (a column view of the call's output,
+    `demb=` / `dekb=` of a launch) where one is given."""
+    return value if out is None else out.copy_(value)
 
 
 def bwd1(gout, nm, emb, e_edge, scale, src, dst, mask, dnm, dscale, heads,
@@ -470,9 +484,11 @@ def bwd1(gout, nm, emb, e_edge, scale, src, dst, mask, dnm, dscale, heads,
     Returns (demb (G, E, HD) in emb's dtype, zeros at masked slots, d_alpha
     (G, H, E) f32, 0 at masked slots, dnm, dscale); a launch a head group or
     a column slice of a head wider than 256 features, each head padded to
-    `_padded`; a split head's slices sum its d_alpha in order, the last
-    adding d_alpha * e into dscale. `_route` names a route (`_bwd1_route`),
-    to time it beside the other."""
+    `_padded`, each launch reading its columns of the (padded) inputs and
+    writing its columns of one demb in place (`col_view`); a split head's
+    slices sum its d_alpha in order, the last adding d_alpha * e into
+    dscale. `_route` names a route (`_bwd1_route`), to time it beside the
+    other."""
     HD = nm.shape[-1]
     HDk = _padded(HD, heads)
     if HDk == HD and len(launches(HDk, heads)) == 1:
@@ -480,50 +496,56 @@ def bwd1(gout, nm, emb, e_edge, scale, src, dst, mask, dnm, dscale, heads,
                      dscale, heads, _route)
     gout, nm, emb, acc = (pad_heads(t, heads, HDk)
                           for t in (gout, nm, emb, dnm))
-    dembs, dalphas = [], []
+    demb = torch.empty_like(emb)
+    dalphas = []
     for h0, h1 in head_groups(HDk, heads):
         spans, dalpha = group_cols(HDk, heads, h0, h1), None
         node = (e_edge[:, h0:h1].contiguous(), heads_of(scale, h0, h1), src,
                 dst, mask)
         ds = heads_of(dscale, h0, h1)
         for i, (c0, c1) in enumerate(spans):
-            demb, dalpha, acc[..., c0:c1], ds = _bwd1(
-                cols(gout, c0, c1), cols(nm, c0, c1), cols(emb, c0, c1),
-                *node, cols(acc, c0, c1), ds, h1 - h0, _route,
-                **partial(dalpha, i, len(spans)))
-            dembs.append(demb)
+            _, dalpha, _, ds = _bwd1(
+                *(col_view(t, c0, c1) for t in (gout, nm, emb)), *node,
+                col_view(acc, c0, c1), ds, h1 - h0, _route,
+                **partial(dalpha, i, len(spans)),
+                demb=col_view(demb, c0, c1))
         dscale[..., h0:h1] = ds
         dalphas.append(dalpha)
-    demb = cut_heads(torch.cat(dembs, -1), HD, heads)
-    return (demb.contiguous(), torch.cat(dalphas, 1),
-            _cut_into(dnm, acc, heads), dscale)
+    if HDk != HD:
+        demb = cut_heads(demb, HD, heads).contiguous()
+    return (demb, torch.cat(dalphas, 1), _cut_into(dnm, acc, heads),
+            dscale)
 
 
 def _bwd1(gout, nm, emb, e_edge, scale, src, dst, mask, dnm, dscale, heads,
-          _route, acc=None, last=True):
+          _route, acc=None, last=True, demb=None):
+    """One launch; `demb` (G, E, HD), where given, the view of the call's
+    output that it writes, else a new array."""
     if not nm.is_cuda:
         return bwd1_plain(gout, nm, emb, e_edge, scale, src, dst, mask, dnm,
-                          dscale, heads, acc, last)
+                          dscale, heads, acc, last, demb)
     G, N, HD = nm.shape
     E = emb.shape[1]
     cdt = nm.dtype
     _check_widths(HD, HD, heads)
-    _require(gout, "gout", cdt, (G, N, HD))
-    _require(nm, "nm", cdt, (G, N, HD))
-    _require(emb, "emb", cdt, (G, E, HD))
+    if demb is None:
+        demb = torch.empty((G, E, HD), device=nm.device, dtype=cdt)
+    lds = (_rows(gout, "gout", cdt, (G, N, HD)),
+           _rows(nm, "nm", cdt, (G, N, HD)),
+           _rows(emb, "emb", cdt, (G, E, HD)),
+           _rows(demb, "demb", cdt, (G, E, HD)),
+           _rows(dnm, "dnm", torch.float32, (G, N, HD)))
     _require(e_edge, "e_edge", torch.float32, (G, heads, E))
     _require(scale, "scale", torch.float32, (G, N, heads))
     _require_graph(src, dst, mask, G, E)
-    _require(dnm, "dnm", torch.float32, (G, N, HD))
     _require(dscale, "dscale", torch.float32, (G, N, heads))
     route = _bwd1_route(cdt, N, E, HD, heads, _route)
-    demb = torch.empty_like(emb)
     dalpha = _scores_out(acc, G, heads, E, nm.device)
     err = _lib().gat_unproj_bwd1(
         gout.data_ptr(), nm.data_ptr(), emb.data_ptr(), e_edge.data_ptr(),
         scale.data_ptr(), src.data_ptr(), dst.data_ptr(), mask.data_ptr(),
         demb.data_ptr(), dalpha.data_ptr(), dscale.data_ptr(),
-        dnm.data_ptr(), G, N, E, HD, heads, _dtype_code(nm), route,
+        dnm.data_ptr(), G, N, E, HD, heads, *lds, _dtype_code(nm), route,
         _part(acc, last), _stream())
     _build.check(err, "gat_unproj_bwd1")
     _build.count_launch("gat_unproj_bwd1", route)
@@ -535,7 +557,7 @@ def _bwd1(gout, nm, emb, e_edge, scale, src, dst, mask, dnm, dscale, heads,
 # --------------------------------------------------------------------------
 
 def bwd2_plain(nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst, mask,
-               dnq, dnk, heads):
+               dnq, dnk, heads, dekb=None):
     cdt, HD = nq.dtype, nq.shape[-1]
     live = mask[..., None]
     q_src = _gather_nodes(nq, src).float()
@@ -543,10 +565,10 @@ def bwd2_plain(nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst, mask,
     d_s = (dalpha.transpose(1, 2) * _gather_nodes(scale, src)
            + _gather_nodes(d_denom, src)) * e_edge.transpose(1, 2)
     ds_hd = heads_to_hd(torch.where(live, d_s, 0.0), HD)
-    dekb = (ds_hd * q_src).to(cdt)
+    d_key = (ds_hd * q_src).to(cdt)
     _scatter_nodes(dnq, src, (ds_hd * key).to(cdt).float())
-    _scatter_nodes(dnk, dst, dekb.float())
-    return dekb.to(ekb.dtype), dnq, dnk
+    _scatter_nodes(dnk, dst, d_key.float())
+    return _written(dekb, d_key.to(ekb.dtype)), dnq, dnk
 
 
 def _bwd2_smem(N, E, HD, heads, cw, elem):
@@ -598,57 +620,62 @@ def bwd2(nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst, mask, dnq,
 
     Returns (dekb (G, E, HD) in ekb's dtype, zeros at masked slots, dnq,
     dnk); a launch a head group or a column slice of a head wider than 256
-    features, each head padded to `_padded`. `_route` names a route
+    features, each head padded to `_padded`, each launch reading and
+    writing its columns in place as `bwd1`'s do. `_route` names a route
     (`_bwd2_route`), to time it beside the other."""
     HD = nq.shape[-1]
     HDk = _padded(HD, heads)
-    plan = launches(HDk, heads)
-    if HDk == HD and len(plan) == 1:
+    if HDk == HD and len(launches(HDk, heads)) == 1:
         return _bwd2(nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst,
                      mask, dnq, dnk, heads, _route)
     nq, nk, ekb, acc_q, acc_k = (pad_heads(t, heads, HDk)
                                  for t in (nq, nk, ekb, dnq, dnk))
-    parts = []
-    for h0, h1, c0, c1 in plan:
-        dekb, acc_q[..., c0:c1], acc_k[..., c0:c1] = _bwd2(
-            cols(nq, c0, c1), cols(nk, c0, c1), cols(ekb, c0, c1),
-            e_edge[:, h0:h1].contiguous(), dalpha[:, h0:h1].contiguous(),
-            heads_of(scale, h0, h1), heads_of(d_denom, h0, h1), src, dst,
-            mask, cols(acc_q, c0, c1), cols(acc_k, c0, c1), h1 - h0, _route)
-        parts.append(dekb)
-    dekb = cut_heads(torch.cat(parts, -1), HD, heads)
-    return (dekb.contiguous(), _cut_into(dnq, acc_q, heads),
+    dekb = torch.empty_like(ekb)
+    for h0, h1 in head_groups(HDk, heads):
+        node = (e_edge[:, h0:h1].contiguous(), dalpha[:, h0:h1].contiguous(),
+                heads_of(scale, h0, h1), heads_of(d_denom, h0, h1), src, dst,
+                mask)
+        for c0, c1 in group_cols(HDk, heads, h0, h1):
+            _bwd2(*(col_view(t, c0, c1) for t in (nq, nk, ekb)), *node,
+                  col_view(acc_q, c0, c1), col_view(acc_k, c0, c1), h1 - h0,
+                  _route, dekb=col_view(dekb, c0, c1))
+    if HDk != HD:
+        dekb = cut_heads(dekb, HD, heads).contiguous()
+    return (dekb, _cut_into(dnq, acc_q, heads),
             _cut_into(dnk, acc_k, heads))
 
 
 def _bwd2(nq, nk, ekb, e_edge, dalpha, scale, d_denom, src, dst, mask, dnq,
-          dnk, heads, _route):
+          dnk, heads, _route, dekb=None):
+    """One launch; `dekb` (G, E, HD), where given, the view of the call's
+    output that it writes, else a new array."""
     if not nq.is_cuda:
         return bwd2_plain(nq, nk, ekb, e_edge, dalpha, scale, d_denom, src,
-                          dst, mask, dnq, dnk, heads)
+                          dst, mask, dnq, dnk, heads, dekb)
     G, N, HD = nq.shape
     E = ekb.shape[1]
     cdt = nq.dtype
     _check_widths(HD, HD, heads)
-    _require(nq, "nq", cdt, (G, N, HD))
-    _require(nk, "nk", cdt, (G, N, HD))
-    _require(ekb, "ekb", cdt, (G, E, HD))
+    if dekb is None:
+        dekb = torch.empty((G, E, HD), device=nq.device, dtype=cdt)
+    lds = (_rows(nq, "nq", cdt, (G, N, HD)), _rows(nk, "nk", cdt, (G, N, HD)),
+           _rows(ekb, "ekb", cdt, (G, E, HD)),
+           _rows(dekb, "dekb", cdt, (G, E, HD)),
+           _rows(dnq, "dnq", torch.float32, (G, N, HD)),
+           _rows(dnk, "dnk", torch.float32, (G, N, HD)))
     _require(e_edge, "e_edge", torch.float32, (G, heads, E))
     _require(dalpha, "dalpha", torch.float32, (G, heads, E))
     _require(scale, "scale", torch.float32, (G, N, heads))
     _require(d_denom, "d_denom", torch.float32, (G, N, heads))
     _require_graph(src, dst, mask, G, E)
-    _require(dnq, "dnq", torch.float32, (G, N, HD))
-    _require(dnk, "dnk", torch.float32, (G, N, HD))
     route = _bwd2_route(cdt, N, E, HD, heads, _route)
     cw = _bwd2_width(cdt, N, E, HD, heads) if route == 1 else 0
-    dekb = torch.empty_like(ekb)
     err = _lib().gat_unproj_bwd2(
         nq.data_ptr(), nk.data_ptr(), ekb.data_ptr(), e_edge.data_ptr(),
         dalpha.data_ptr(), scale.data_ptr(), d_denom.data_ptr(),
         src.data_ptr(), dst.data_ptr(), mask.data_ptr(), dekb.data_ptr(),
-        dnq.data_ptr(), dnk.data_ptr(), G, N, E, HD, heads, _dtype_code(nq),
-        route, cw, _stream())
+        dnq.data_ptr(), dnk.data_ptr(), G, N, E, HD, heads, *lds,
+        _dtype_code(nq), route, cw, _stream())
     _build.check(err, "gat_unproj_bwd2")
     _build.count_launch("gat_unproj_bwd2", route)
     return dekb, dnq, dnk

@@ -181,9 +181,10 @@ def gat_projected_sharded(nq, nk, nm, edge_emb, w_ke, b_ke, w_me, b_me, skb,
     rank's E_l = E / n_model slots; node arrays and parameters whole and
     the same on every rank of the model group. Returns (G, N, HD) f32, the
     same on every rank of the group. Widths the kernels do not take are
-    padded as `gat_projected` pads them."""
+    padded as `gat_projected` pads them; an edge embedding at the kernels'
+    width (`edge_hidden_sharded`'s on the fused GNN) is taken as it is."""
     args = (nq, nk, nm, edge_emb, w_ke, b_ke, w_me, b_me, skb, smb)
-    D, HD = edge_emb.shape[-1], nq.shape[-1]
+    D, HD = gk.emb_width(edge_emb, w_ke)[0], nq.shape[-1]
     if gk.kernel_widths(D, HD, heads) == (D, HD):
         return _GatProjectedSharded.apply(*gk._contiguous(*args), src, dst,
                                           mask, heads, mesh.model_group)
@@ -234,9 +235,10 @@ class _EdgeHiddenSharded(torch.autograd.Function):
 
 def edge_hidden_sharded(edge_type, src, dst, node_type, w0, b0, a, b, n_rel,
                         n_ntype, out_dtype, mesh: Mesh):
-    """Rows 11-12 on this rank's slots: h (G, E_l, D) of its slots, with no
-    collective in the forward; the backward sums the four parameter
-    gradients over the model group."""
+    """Rows 11-12 on this rank's slots: h (G, E_l, D) of its slots (D the
+    width of w0 and b0, a and b: the fused GNN hands them padded to the
+    kernels' width), with no collective in the forward; the backward sums
+    the four parameter gradients over the model group."""
     return _EdgeHiddenSharded.apply(edge_type, src, dst, node_type, w0, b0,
                                     a, b, n_rel, n_ntype, out_dtype,
                                     mesh.model_group)
