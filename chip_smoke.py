@@ -526,6 +526,25 @@ def compare(what: str, got, want, tol: float, scale=None) -> float:
     return err
 
 
+def bf16_steps(what: str, got, want) -> None:
+    """Every element of got within one bf16 step of want's: |got - want| <=
+    2^-7 |want| + 1e-6 max|want| (a rounding that sees an f32 sum one bit
+    away lands one bf16 step away; the second term allows for the order of
+    the f32 sums before it). A failure names the share of elements
+    further."""
+    got, want = got.float(), want.float()
+    top = want.abs().max().item() if want.numel() else 0.0
+    gap = (got - want).abs()
+    far = gap > 2 ** -7 * want.abs() + 1e-6 * top
+    n_far = int(far.sum().item())
+    ok = n_far == 0 and bool(torch.isfinite(got).all())
+    log(f"  {what:<44} elements beyond one bf16 step {n_far} of "
+        f"{want.numel()}, differing {(gap > 0).float().mean().item():.2e}  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"{what}: one bf16 step")
+
+
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Median device time of fn() over `iters` launches, by CUDA events.
     A spin kernel ahead of the timed launches keeps the host's launch
@@ -1215,6 +1234,81 @@ def phase_gat_bwd(gen, odd_gen, dev, reports):
             t = gat_bwd_inputs(odd_gen, dev, D, HD, heads, src, dst, mask, dt)
             gat_bwd_case(reports, t, src, dst, mask, heads, dt,
                          f"D={D} HD={HD} E={E - 3} {dt}", main=False)
+
+
+def phase_gat_bwd_demb(gen, dev, reports, card):
+    """Rows 8 and 9's demb product alone (`bwd_demb`, ROADMAP C17), the one
+    launch a backward pass of several column launches ends on: at the
+    kernels' widths of gnn_dim 512 and 1040, in both dtypes, on both
+    routes, with no add, an add and in place (pass 2's), at E and E - 3,
+    against its plain version (compare at TOL["bwd"]; bf16 also within one
+    bf16 step in every element), a zero cotangent row (a masked slot)
+    giving add (or 0) exactly, one launch a call on the route asked for.
+    Then at gnn_dim 1040 in bf16 its time in turns with route 0 (which
+    must be slower), its plain version's, cuBLAS's addmm of the same
+    function (library_ms) and the bound, filed in `reports`, and its
+    device time by kernel; the same times in f32, logged."""
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    for width in (WIDE_D, WIDER_D):
+        D, HD = gk.kernel_widths(width, width, HEADS)
+        for n_edges in (E - 3, E):
+            mask = graph_inputs(gen, dev, n_edges)[2]
+            dead = ~mask
+            for dt in (torch.float32, torch.bfloat16):
+                cot = (r(G, n_edges, HD) * mask[..., None]).to(dt)
+                w = r(D, HD) * 0.05
+                add = (r(G, n_edges, D) * 0.1).to(dt)
+                errs = []
+                for route in (0, 1):
+                    tag = f"D={D} HD={HD} E={n_edges} {dt} route {route}"
+                    for what, a, in_place in (("no add", None, False),
+                                              ("add", add, False),
+                                              ("in place", add, True)):
+                        want = gk.bwd_demb_plain(cot, w, a)
+                        out = a.clone() if in_place else None
+                        _build.reset_launch_counts()
+                        got = gk.bwd_demb(cot, w, a if out is None else out,
+                                          out, _route=route)
+                        counts = (_build.LAUNCHES["gat_bwd_demb"],
+                                  _build.ROUTES["gat_bwd_demb", route])
+                        if counts != (1, 1) or (in_place and got is not out):
+                            FAILURES.append(f"gat_bwd_demb launches {tag} "
+                                            f"{what}: {counts}")
+                        name = f"gat_bwd_demb {what} {tag}"
+                        errs.append(compare(name, got, want, TOL["bwd"][dt]))
+                        if dt == torch.bfloat16:
+                            bf16_steps(name, got, want)
+                        passed = 0.0 if a is None else a[dead]
+                        if bool((got[dead] != passed).any()):
+                            FAILURES.append(f"gat_bwd_demb masked slots "
+                                            f"{tag} {what}")
+                if width != WIDER_D or n_edges != E:
+                    continue
+                sink = reports if dt == torch.bfloat16 \
+                    else collections.defaultdict(dict)
+                name = "gat_bwd_demb" + ("" if dt == torch.bfloat16
+                                         else " f32")
+                out = torch.empty_like(add)
+                wr = w.to(dt)
+                live = mask.float().mean().item()
+                measure(sink, name, max(errs),
+                        lambda: gk.bwd_demb(cot, w, add, out),
+                        lambda: gk.bwd_demb_plain(cot, w, add),
+                        nbytes(cot, add, out, wr),
+                        2.0 * live * G * n_edges * HD * D, dt,
+                        previous=lambda: gk.bwd_demb(cot, w, add, out,
+                                                     _route=0),
+                        previous_is=f"the CUDA-core demb kernel on the same "
+                                    f"{dt} inputs",
+                        peak=tc_peak(dt), card=card)
+                lib_ms = device_ms(lambda: torch.addmm(
+                    add.view(-1, D), cot.view(-1, HD), wr.t()))
+                sink[name]["library_ms"] = lib_ms
+                log(f"  time {name} D={D} HD={HD}: library (torch.addmm, "
+                    f"{dt}) {lib_ms:.4f} ms  [{card}]")
+                profile_kernels(f"{name} D={D} HD={HD}",
+                                lambda: gk.bwd_demb(cot, w, add, out),
+                                iters=5)
 
 
 def unproj_inputs(gen, dev, n_edges, dt):
@@ -2047,14 +2141,15 @@ def set_dropout(model, cfg, enc_cfg, on: bool) -> None:
 
 
 ROUTED = ("gat_pass_a_scores", "gat_pass_c", "gat_bwd_pass1", "gat_bwd_pass2",
-          "edge_hidden", "edge_hidden_bwd")
+          "gat_bwd_demb", "edge_hidden", "edge_hidden_bwd")
 
 
 # the routes of a step with an f32 GNN: the forward passes A and C and
 # backward passes 1 and 2 on tensor cores (split TF32), the edge encoder's
 # route 1 (its backward's one-hot product on tf32)
 F32_ROUTES = {"gat_pass_a_scores": 1, "gat_pass_c": 1, "gat_bwd_pass1": 1,
-              "gat_bwd_pass2": 1, "edge_hidden": 1, "edge_hidden_bwd": 1}
+              "gat_bwd_pass2": 1, "gat_bwd_demb": 1, "edge_hidden": 1,
+              "edge_hidden_bwd": 1}
 
 
 def check_routes(route, what: str) -> None:
@@ -5114,7 +5209,8 @@ WIDE_CLI_QUESTIONS = 8         # two train steps of 4 questions
 
 
 # the single-launch functions of rows 1 and 3-9 (the denominators run one
-# launch a head group, unsplit): (module, name, its plain version, the
+# launch a head group, unsplit), and the one demb product of a pass of rows
+# 8 and 9 of several launches: (module, name, its plain version, the
 # arguments the plain version takes, the arguments a launch adds to in
 # place, tolerance by dtype)
 LAUNCH_ROWS = (
@@ -5124,26 +5220,13 @@ LAUNCH_ROWS = (
      lambda dt: TOL["bwd"][dt]),
     (gk, "_bwd_pass2", gk.bwd_pass2_plain, 17, (13, 14, 15),
      lambda dt: TOL["bwd"][dt]),
+    (gk, "bwd_demb", gk.bwd_demb_plain, 3, (2,), lambda dt: TOL["bwd"][dt]),
     (uk, "_edge_scores", uk.edge_scores_plain, 7, (),
      lambda dt: TOL["unproj"][dt]),
     (uk, "_aggregate", uk.aggregate_plain, 9, (7,),
      lambda dt: TOL["unproj"][dt]),
     (uk, "_bwd1", uk.bwd1_plain, 11, (8, 9), lambda dt: TOL["unproj"][dt]),
     (uk, "_bwd2", uk.bwd2_plain, 13, (10, 11), lambda dt: TOL["unproj"][dt]))
-
-
-def plain_launches():
-    """A context in which every launch of rows 1 and 3-9 runs its plain
-    version instead, partial mode included: the wrappers' loops over head
-    groups and column slices stay, so a wrapper's result on the plain
-    versions takes the kernels' chain of bf16 roundings (backward pass 1's
-    carry from launch to launch)."""
-    stack = contextlib.ExitStack()
-    for mod, name, plain, n_args, _, _ in LAUNCH_ROWS:
-        stack.enter_context(mock.patch.object(
-            mod, name, lambda *a, plain=plain, n=n_args, **part:
-            plain(*a[:n], **part)))
-    return stack
 
 
 def launch_gap(got, want) -> float:
@@ -5163,8 +5246,8 @@ def launch_gap(got, want) -> float:
 
 
 class LaunchCheck:
-    """Holds every launch of rows 1 and 3-9 made inside it against its plain
-    version on the same inputs (what a launch adds to in place copied for
+    """Holds every launch of rows 1 and 3-9 (and rows 8 and 9's demb
+    product) made inside it against its plain version on the same inputs (what a launch adds to in place copied for
     the plain version first; a split head's partial mode included): the
     largest gap (`launch_gap`) over each entry point's launches and outputs,
     a failure above the row's tolerance. These launches count as the path's
@@ -5492,7 +5575,7 @@ def reference_grads(dev, cot, width):
     return ref
 
 
-def widths_gnn(gen, dev, card, width):
+def widths_gnn(gen, dev, card, width, reports=None):
     """Rows 6-12 in a train-mode forward + backward of QAGNNMessagePassing
     at gnn_dim `width` (k = 5, 4 heads; at 512 two head groups of 256
     columns a pass; at 1040 four heads of 264 padded features, each two
@@ -5509,16 +5592,23 @@ def widths_gnn(gen, dev, card, width):
     for dt in (torch.bfloat16, torch.float32):
         name = "bf16" if dt == torch.bfloat16 else "f32"
         # rows 6-9 a launch a head group or column slice; rows 11 and 12 one
-        # call over all of D's column slices
+        # call over all of D's column slices; a backward pass of several
+        # launches one demb product
+        n_launches = len(gk.launches(HDk, HEADS))
         per = dict.fromkeys(("gat_pass_a_scores", "gat_pass_c",
-                             "gat_bwd_pass1", "gat_bwd_pass2"),
-                            len(gk.launches(HDk, HEADS)))
+                             "gat_bwd_pass1", "gat_bwd_pass2"), n_launches)
         launches = {n: c * per.get(n, 1)
                     for n, c in step_launches(WIDE_K).items()}
+        if n_launches > 1:
+            launches["gat_bwd_demb"] = 2 * WIDE_K
         check = LaunchCheck(f"gnn_dim {width} {name}", dt) \
             if width > WIDE_D else None
         out, grads, counts = gnn_run(dev, "cuda", dt, cot, width, check)
         routes = dict(_build.ROUTES)
+        if width == WIDE_D and dt == torch.bfloat16 and reports is not None:
+            # the demb kernel's path: the GNN past one launch a pass
+            reports["gat_bwd_demb"]["launches"] = counts.get("gat_bwd_demb",
+                                                             0)
         if check is not None:
             check.report()
         want, want_grads, none = gnn_run(dev, "scatter", dt, cot, width)
@@ -5597,8 +5687,9 @@ def grad_spread(dev, cot, width, kernel, scatter, ref):
 def bwd_launches_by_kernel(rows, iters, n_launches, what):
     """Route 1 of a backward pass from torch.profiler's rows of `iters`
     calls: the edge kernel and the dW kernel once a column launch (past
-    D = 256 the edge kernel streams W's rows in that one launch), and each
-    one's us a launch. More launches than column launches fail, and so
+    D = 256 the edge kernel streams W's rows in that one launch), the demb
+    kernel once a call of more than one column launch (never in a call of
+    one), and each one's us a launch. More launches than these fail, and so
     does a kernel the profiler recorded no launch of while it recorded
     others; between the two are events the profiler did not record, and
     are logged."""
@@ -5610,13 +5701,15 @@ def bwd_launches_by_kernel(rows, iters, n_launches, what):
     for t, count, key in rows:
         n[kernel_base(key)] += count
         us[kernel_base(key)] += t
-    for k in ("edge_pass_tc_kernel", "dw_tc_kernel"):
+    for k, per_call in (("edge_pass_tc_kernel", n_launches),
+                        ("dw_tc_kernel", n_launches),
+                        ("demb_tc_kernel", int(n_launches > 1))):
         calls = n[k] / iters
-        ok = 0 < calls <= n_launches
+        ok = 0 < calls <= per_call if per_call else calls == 0
         log(f"  {what}: {k} {calls:g} launches a call for {n_launches} "
             f"column launches, {us[k] / max(n[k], 1):.1f} us a launch  "
             f"{'ok' if ok else 'FAIL'}"
-            + ("" if calls == n_launches or not ok
+            + ("" if calls == per_call or not ok
                else " (the profiler recorded fewer)"))
         if not ok:
             FAILURES.append(f"widths: {k} launches, {what}")
@@ -5634,12 +5727,10 @@ def widths_passes(gen, dev, card, D, HD):
     slower), and the device time of each kernel launch it makes
     (torch.profiler: one edge kernel a column launch of rows 8 and 9),
     rows 11 and 12 at this D too. The backward passes' plain version is
-    the unsliced one at D = 512 (two head groups: one bf16 carry rounding
-    more on the kernels' side, ROADMAP's known difference (a)); with more
-    launches a pass it is the wrappers' own loop over the plain versions
-    (`plain_launches`), which takes the same carry roundings."""
+    the unsliced one at every width: a pass of several launches rounds
+    demb once, in its one demb product (ROADMAP C17), so in bf16 every
+    element of demb lies within one bf16 step of it (`bf16_steps`)."""
     n_launches = len(gk.launches(HD, HEADS))
-    sliced = plain_launches if n_launches > 2 else contextlib.nullcontext
     for n_edges in (E - 3, E):
         src, dst, mask = graph_inputs(gen, dev, n_edges)
         live = mask.float().mean().item()
@@ -5654,11 +5745,8 @@ def widths_passes(gen, dev, card, D, HD):
             p1 = (t["gout"], t["nm"], t["emb"], t["w_me"], t["b_me"],
                   t["scores"], t["gmax"], t["scale"], src, dst, mask,
                   t["carry"])
-            plain1 = gk.bwd_pass1_plain if n_launches <= 2 else gk.bwd_pass1
-            plain2 = gk.bwd_pass2_plain if n_launches <= 2 else gk.bwd_pass2
-            with sliced():
-                want1 = plain1(*p1, t["dnm0"].clone(), t["dscale0"].clone(),
-                               HEADS)
+            want1 = gk.bwd_pass1_plain(*p1, t["dnm0"].clone(),
+                                       t["dscale0"].clone(), HEADS)
             scale, denom_raw = t["scale"], t["denom_raw"]
             d_denom = (-(scale / torch.clamp_min(denom_raw, gk.DENOM_EPS))
                        * want1[3] * (denom_raw > gk.DENOM_EPS).float())
@@ -5667,9 +5755,8 @@ def widths_passes(gen, dev, card, D, HD):
                   d_denom.contiguous(), src, dst, mask)
             acc2 = (torch.randn((G, N, HD), generator=gen, device=dev),
                     torch.randn((G, N, HD), generator=gen, device=dev))
-            with sliced():
-                want2 = plain2(*p2, want1[0].clone(),
-                               *(x.clone() for x in acc2), HEADS)
+            want2 = gk.bwd_pass2_plain(*p2, want1[0].clone(),
+                                       *(x.clone() for x in acc2), HEADS)
             for route in (0, 1):
                 tag = f"D={D} HD={HD} E={n_edges} {dt} route {route}"
                 _build.reset_launch_counts()
@@ -5695,9 +5782,18 @@ def widths_passes(gen, dev, card, D, HD):
                             TOL["bwd"][dt])
                 if bool((got2[0][dead] != want1[0][dead]).any()):
                     FAILURES.append(f"gat_bwd_pass2 masked slots {tag}")
+                if dt == torch.bfloat16:
+                    bf16_steps(f"gat_bwd_pass1 demb {tag}", got1[0], want1[0])
+                    bf16_steps(f"gat_bwd_pass2 demb {tag}", got2[0], want2[0])
+                # a pass of several launches: one demb product each
+                demb_calls = 2 if n_launches > 1 else 0
                 counts = {k: (_build.LAUNCHES[k], _build.ROUTES[k, route])
-                          for k in ("gat_bwd_pass1", "gat_bwd_pass2")}
-                if any(c != (n_launches,) * 2 for c in counts.values()):
+                          for k in ("gat_bwd_pass1", "gat_bwd_pass2",
+                                    "gat_bwd_demb")}
+                want_counts = {"gat_bwd_pass1": (n_launches,) * 2,
+                               "gat_bwd_pass2": (n_launches,) * 2,
+                               "gat_bwd_demb": (demb_calls,) * 2}
+                if counts != want_counts:
                     FAILURES.append(f"widths: launches of the passes, {tag}: "
                                     f"{counts}")
                 log(f"  launches and routes, {tag}: {counts} ({n_launches} "
@@ -6063,7 +6159,7 @@ def inplace_unproj_times(gen, dev, card):
             f"[{card}]")
 
 
-def phase_widths(gen, dev, card) -> None:
+def phase_widths(gen, dev, card, reports) -> None:
     """C9-C12 on the card: relation ids past n_rel through rows 10-12, the
     unprojected op at widths one launch does not take (a head wider than a
     launch among them), the GNN and its passes at gnn_dim 512 and 1040, and
@@ -6073,7 +6169,7 @@ def phase_widths(gen, dev, card) -> None:
     widths_unprojected(gen, dev, card)
     widths_split_forward(gen, dev)
     for width in (WIDE_D, WIDER_D):
-        widths_gnn(gen, dev, card, width)
+        widths_gnn(gen, dev, card, width, reports)
         widths_passes(gen, dev, card,
                       *gk.kernel_widths(width, width, HEADS))
     widths_cli(card, (WIDE_D, WIDER_D))
@@ -6086,7 +6182,7 @@ PHASES = ("kernels", "grads", "op", "serve", "detail", "train", "cli",
 # parts of the kernel phase that can be asked for alone
 KERNEL_PARTS = ("fwd", "bwd", "enc", "moments", "unproj", "scores")
 # parts of the widths phase that can be asked for alone
-WIDTHS_PARTS = ("inplace",)
+WIDTHS_PARTS = ("inplace", "passes")
 
 
 def main() -> int:
@@ -6142,6 +6238,8 @@ def main() -> int:
         "edge_hidden_bwd": entry("edge_hidden.cu", f"{enc}:179"),
         "gat_bwd_pass1": entry("gat_bwd.cu", f"{gat}:765"),
         "gat_bwd_pass2": entry("gat_bwd.cu", f"{gat}:849"),
+        # the demb product of both passes, one launch a pass of several
+        "gat_bwd_demb": entry("gat_bwd.cu", f"{gat}:765"),
         "gat_unproj_scores": entry("gat_unproj.cu", f"{gat}:331"),
         "gat_unproj_denoms": entry("gat_unproj.cu", f"{gat}:346"),
         "gat_unproj_aggr": entry("gat_unproj.cu", f"{gat}:373"),
@@ -6171,6 +6269,9 @@ def main() -> int:
     if only & {"kernels", "bwd"}:
         log("\n[kernels 8 and 9: GAT backward pass 1 and pass 2]")
         phase_gat_bwd(gen, new_gen(16), dev, reports)
+        log("\n[kernels 8 and 9: the demb product of a pass of several "
+            "launches]")
+        phase_gat_bwd_demb(new_gen(27), dev, reports, card)
     if only & {"kernels", "unproj"}:
         log("\n[kernels 1 to 5: the unprojected GAT op, forward and backward]")
         phase_gat_unproj(new_gen(12), dev, reports)
@@ -6261,7 +6362,12 @@ def main() -> int:
             "1-5 at HD 100, 320, 300 (one head) and 1040 (two heads), rows "
             "6-12 at gnn_dim 512 and 1040 and the CLI "
             "there]")
-        phase_widths(new_gen(21), dev, card)
+        phase_widths(new_gen(21), dev, card, reports)
+    if "passes" in only:
+        log("\n[the widths, rows 6-9 alone at gnn_dim 512 and 1040]")
+        for width in (WIDE_D, WIDER_D):
+            widths_passes(new_gen(21), dev, card,
+                          *gk.kernel_widths(width, width, HEADS))
     if "inplace" in only:
         log("\n[the widths, in place: the fused GNN at gnn_dim 100 and 200, "
             "rows 1-5 at HD 300 and 1040]")

@@ -1,13 +1,14 @@
 """Time variants of the projected GAT op's kernels side by side on one card.
 
     python3 gat_variants.py D HD tag=DIR [tag=DIR ...] [--dtype bfloat16]
-        [--passes fwd]
+        [--passes fwd|demb]
 
 Each DIR is a copy of qagnn_tpu_torch/csrc (the sources themselves for
 "qagnn_tpu_torch/csrc"), edited by hand. The script builds every copy's
 library at once (`gat_bwd`, or `gat_fwd` with `--passes fwd`), one nvcc a
-copy, then, one process a copy, runs backward passes 1 and 2, or forward
-passes A and C, on route 1 (the wrappers of
+copy, then, one process a copy, runs backward passes 1 and 2, forward
+passes A and C, or (`--passes demb`) the backward passes' demb product
+alone (`bwd_demb`, with an add), on route 1 (the wrappers of
 qagnn_tpu_torch/ops/gat_kernels.py, head groups and column launches
 included) at G=64, N=200, E=4096, D x HD with 4 heads, on chip_smoke.py's
 inputs: each call's largest gap from its plain version (max|d| / max|want|
@@ -80,6 +81,27 @@ def run_fwd(csrc: str, D: int, HD: int, tag: str, dtype: str) -> None:
         cs.profile_kernels(f"{tag} {name}", fn, iters=5)
 
 
+def run_demb(csrc: str, D: int, HD: int, tag: str, dtype: str) -> None:
+    import torch
+    _use(csrc)
+    import chip_smoke as cs
+    from qagnn_tpu_torch.ops import gat_kernels as gk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    mask = cs.graph_inputs(gen, dev, cs.E)[2]
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    cot = (r(cs.G, cs.E, HD) * mask[..., None]).to(dt)
+    w, add = r(D, HD) * 0.05, (r(cs.G, cs.E, D) * 0.1).to(dt)
+    out = torch.empty_like(add)
+    err = gap(gk.bwd_demb(cot, w, add, out), gk.bwd_demb_plain(cot, w, add))
+    ms = cs.device_ms(lambda: gk.bwd_demb(cot, w, add, out), iters=10)
+    print(f"{tag} D={D} HD={HD} {dtype} demb {ms:.4f} ms  gap {err:.2e}  "
+          f"[{cs.card_line()}]", flush=True)
+    cs.profile_kernels(f"{tag} demb", lambda: gk.bwd_demb(cot, w, add, out),
+                       iters=5)
+
+
 def run(csrc: str, D: int, HD: int, tag: str, dtype: str) -> None:
     import torch
     _use(csrc)
@@ -120,7 +142,7 @@ def main() -> int:
     ap.add_argument("variants", nargs="+", help="tag=DIR")
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "bfloat16"))
-    ap.add_argument("--passes", default="bwd", choices=("bwd", "fwd"))
+    ap.add_argument("--passes", default="bwd", choices=("bwd", "fwd", "demb"))
     ap.add_argument("--build", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--run", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -129,8 +151,8 @@ def main() -> int:
         return 0
     if args.run:
         tag, csrc = args.variants[0].split("=", 1)
-        (run_fwd if args.passes == "fwd" else run)(csrc, args.D, args.HD,
-                                                   tag, args.dtype)
+        {"fwd": run_fwd, "demb": run_demb}.get(args.passes, run)(
+            csrc, args.D, args.HD, tag, args.dtype)
         return 0
     pairs = [v.split("=", 1) for v in args.variants]
     logs = ROOT / "chiprun_out"

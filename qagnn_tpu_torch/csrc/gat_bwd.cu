@@ -16,12 +16,19 @@
 //   dW_me = emb^T d_msg; db_me = sum d_msg. A head wider than 256 features
 //   runs as column slices, one launch each (`part`, gat_common.cuh): each
 //   slice adds its f32 d_alpha to the slices' before it, only the last adds
-//   the whole d_alpha * e into dscale (rounded once, as on the TPU), and
-//   demb chains from slice to slice as the carry does between head groups.
+//   the whole d_alpha * e into dscale (rounded once, as on the TPU).
+//   A pass of more than one launch (head groups, column slices) makes no
+//   demb product in its launches (demb null): each writes its d_msg rows
+//   into its columns of one (G, E, HD) array (rows ld_cot apart), and one
+//   more launch, gat_bwd_demb below, forms demb = d_msg W_me^T + carry over
+//   all HD columns in f32 and rounds it once, as the TPU's one launch over
+//   all columns does (ROADMAP C17; each launch's bf16 demb had been the
+//   next one's carry, one rounding a launch).
 // Pass 2 (score side): d_s = (d_alpha * scale[src] + d_denom[src]) * e;
 //   dekb = d_s * nq[src]; dnq[src] += d_s * (nk[dst] + emb W_ke + b_ke);
 //   dnk[dst] += dekb; demb += dekb W_ke^T; dW_ke = emb^T dekb;
-//   db_ke = sum dekb.
+//   db_ke = sum dekb. Of several launches, likewise: gat_bwd_demb adds
+//   dekb W_ke^T over all columns into pass 1's demb in place.
 // d_msg, dekb and the dnq term are rounded to the compute dtype before the
 // products and scatters, the bias gradients sum the f32 values, and demb is
 // stored in the embedding's dtype after each pass, as on the TPU. So are the
@@ -161,7 +168,7 @@ bwd1_edge_kernel(const T* __restrict__ gout, const T* __restrict__ nm,
                  const uint8_t* __restrict__ mask, T* __restrict__ dmsg,
                  float* __restrict__ dalpha, float* __restrict__ dnm,
                  float* __restrict__ dscale, float* __restrict__ db_part,
-                 int E, int N, int D, int HD, int H, int part) {
+                 int E, int N, int D, int HD, int H, int part, int ldc) {
   __shared__ __align__(16) float s_emb[KC][TEP];
   __shared__ float s_alpha[TE][MAX_H];
   __shared__ float s_e[TE][MAX_H];
@@ -231,7 +238,7 @@ bwd1_edge_kernel(const T* __restrict__ gout, const T* __restrict__ nm,
         atomicAdd(reinterpret_cast<float4*>(dnm + s_row + HD / 2 + 4 * tx),
                   make_float4(dm[4], dm[5], dm[6], dm[7]));
       }
-      T* row = dmsg + (g * E + e) * HD;
+      T* row = dmsg + (g * E + e) * ldc;
       store_row4<T>(row + 4 * tx, dm);
       store_row4<T>(row + HD / 2 + 4 * tx, dm + 4);
     }
@@ -281,7 +288,7 @@ bwd2_edge_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
                  const uint8_t* __restrict__ mask, T* __restrict__ dekb,
                  float* __restrict__ dnq, float* __restrict__ dnk,
                  float* __restrict__ db_part, int E, int N, int D, int HD,
-                 int H) {
+                 int H, int ldc) {
   __shared__ __align__(16) float s_emb[KC][TEP];
   __shared__ float s_ds[TE][MAX_H];
   extern __shared__ __align__(16) float s_w[];   // then s_part
@@ -297,10 +304,9 @@ bwd2_edge_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
     float ds = 0.0f;
     if (e < E && mask[g * E + e]) {
       const long long node = (g * N + src[g * E + e]) * H + h;
-      ds = round_to<T>(
-          (dalpha[(g * H + h) * E + e] * round_to<T>(scale[node]) +
-           round_to<T>(d_denom[node])) *
-          edge_exp(scores, gmax, g, h, e, E, H));
+      ds = round_to<T>(score_cotangent(
+          dalpha[(g * H + h) * E + e], round_to<T>(scale[node]),
+          round_to<T>(d_denom[node]), edge_exp(scores, gmax, g, h, e, E, H)));
     }
     s_ds[el][h] = ds;
   }
@@ -348,7 +354,7 @@ bwd2_edge_kernel(const T* __restrict__ nq, const T* __restrict__ nk,
       atomicAdd(reinterpret_cast<float4*>(dnk + d_row + HD / 2 + 4 * tx),
                 make_float4(dk[4], dk[5], dk[6], dk[7]));
     }
-    T* row = dekb + (g * E + e) * HD;
+    T* row = dekb + (g * E + e) * ldc;
     store_row4<T>(row + 4 * tx, dk);
     store_row4<T>(row + HD / 2 + 4 * tx, dk + 4);
   }
@@ -394,8 +400,8 @@ demb_kernel(const T* __restrict__ a, const float* __restrict__ wt,
 }
 
 // part[s, d, c] = sum over the rows r of range s of a[r, d] * b[r, c]:
-// a (R, D) the edge embedding, b (R, HD) the scratch cotangent, both over
-// all graphs' edges. A block takes the DS rows d of slice blockIdx.z,
+// a (R, D) the edge embedding, b (R, HD) the cotangent rows (ldb apart),
+// both over all graphs' edges. A block takes the DS rows d of slice blockIdx.z,
 // DW_COLS columns and one range of rows; a thread keeps 8 x 8 of the output
 // in registers. The rows are the depth of this product, so both operands
 // are staged as they lie.
@@ -403,7 +409,7 @@ template <typename T>
 __global__ void __launch_bounds__(MAX_HD / 8 * DW_TX)
 dw_partial_kernel(const T* __restrict__ a, const T* __restrict__ b,
                   float* __restrict__ part, long long R, long long chunk,
-                  int D, int DS, int HD) {
+                  int D, int DS, int HD, int ldb) {
   __shared__ __align__(16) float s_a[KC][MAX_HD];
   __shared__ __align__(16) float s_b[KC][DW_COLS];
   const int tid = threadIdx.x, nthreads = blockDim.x;
@@ -437,7 +443,7 @@ dw_partial_kernel(const T* __restrict__ a, const T* __restrict__ b,
       const int r = idx / DW_TX, cc = (idx % DW_TX) * 8;
       float v[8];
       if (r0 + r < r_end && c0 + cc < HD) {
-        load_row<T, 8>(b + (r0 + r) * HD + c0 + cc, v);
+        load_row<T, 8>(b + (r0 + r) * ldb + c0 + cc, v);
       } else {
 #pragma unroll
         for (int j = 0; j < 8; ++j) v[j] = 0.0f;
@@ -488,25 +494,36 @@ size_t edge_smem(int HD) {
   return sizeof(float) * n;
 }
 
-// launches 2-4 of a pass: demb and the dW partials, each with a grid
-// dimension over the D / DS slices of W's rows (slice z writes columns
-// [z DS, z DS + DS) of demb and those rows of the partials), then the two
-// reductions. wt: W^T in slices, (D / DS, HD, DS).
+// demb = cot W^T (+ the same columns of add) on CUDA cores: a (64-slot
+// tile, graph, slice of D / DS) block each; cot (G, E, HD) with rows HD
+// apart, wt: W^T in slices, (D / DS, HD, DS).
+template <typename T>
+void demb_launch(const T* cot, const float* wt, const T* add, T* demb,
+                 int G, int E, int D, int DS, int HD, cudaStream_t s) {
+  demb_kernel<T><<<dim3((E + TE - 1) / TE, G, D / DS), DS / 8 * TY,
+                   sizeof(float) * KC * DS, s>>>(cot, wt, add, demb, E, HD,
+                                                 DS, D);
+}
+
+// launches 2-4 of a pass: demb (none where demb is null: the pass leaves
+// it to gat_bwd_demb) and the dW partials, each with a grid dimension over
+// the D / DS slices of W's rows (slice z writes columns [z DS, z DS + DS)
+// of demb and those rows of the partials), then the two reductions. wt:
+// W^T in slices, (D / DS, HD, DS); cot's rows ldc apart.
 template <typename T>
 void finish_pass(const T* emb, const T* cot, const float* wt, const T* add,
                  T* demb, float* dw_part, float* db_part, float* dw,
-                 float* db, int G, int E, int D, int DS, int HD, int n_split,
-                 cudaStream_t s) {
+                 float* db, int G, int E, int D, int DS, int HD, int ldc,
+                 int n_split, cudaStream_t s) {
   const dim3 grid((E + TE - 1) / TE, G);
-  demb_kernel<T><<<dim3(grid.x, grid.y, D / DS), DS / 8 * TY,
-                   sizeof(float) * KC * DS, s>>>(cot, wt, add, demb, E, HD,
-                                                 DS, D);
+  if (demb != nullptr)
+    demb_launch<T>(cot, wt, add, demb, G, E, D, DS, HD, s);
   const long long R = (long long)G * E;
   long long chunk = (R + n_split - 1) / n_split;
   chunk = (chunk + KC - 1) / KC * KC;
   dw_partial_kernel<T>
       <<<dim3((HD + DW_COLS - 1) / DW_COLS, n_split, D / DS), DS / 8 * DW_TX,
-         0, s>>>(emb, cot, dw_part, R, chunk, D, DS, HD);
+         0, s>>>(emb, cot, dw_part, R, chunk, D, DS, HD, ldc);
   reduce_partials_kernel<<<(D * HD + 31) / 32, dim3(32, 8), 0, s>>>(
       dw_part, dw, n_split, D * HD);
   reduce_partials_kernel<<<(HD + 31) / 32, dim3(32, 8), 0, s>>>(
@@ -524,7 +541,7 @@ int pass1_tc(const void* gout, const void* nm, const void* emb,
              void* dw_part, void* db_part, void* dw, void* db,
              const void* w_stream, int G, int N, int E, int D, int HD, int H,
              int n_split, int d_slice, int warps, int n_blocks, int part,
-             void* stream) {
+             int ld_cot, void* stream) {
   TcArgs<T> a = {};
   a.rows_src = (const T*)nm;
   a.rows_dst = (const T*)gout;
@@ -546,6 +563,7 @@ int pass1_tc(const void* gout, const void* nm, const void* emb,
   a.db_part = (float*)db_part;
   a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H; a.DS = d_slice;
   a.part = part;
+  a.ldc = ld_cot;
   a.ws = (const T*)w_stream;
   return launch_pass_tc<1>(a, (float*)dw_part, (float*)dw, (float*)db,
                            n_split, warps, n_blocks, (cudaStream_t)stream);
@@ -559,7 +577,7 @@ int pass2_tc(const void* nq, const void* nk, const void* emb,
              const void* mask, void* dekb, void* demb, void* dnq, void* dnk,
              void* dw_part, void* db_part, void* dw, void* db,
              const void* w_stream, int G, int N, int E, int D, int HD, int H,
-             int n_split, int d_slice, int warps, int n_blocks,
+             int n_split, int d_slice, int warps, int n_blocks, int ld_cot,
              void* stream) {
   TcArgs<T> a = {};
   a.rows_src = (const T*)nq;
@@ -582,6 +600,7 @@ int pass2_tc(const void* nq, const void* nk, const void* emb,
   a.acc_dst = (float*)dnk;
   a.db_part = (float*)db_part;
   a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H; a.DS = d_slice;
+  a.ldc = ld_cot;
   a.ws = (const T*)w_stream;
   return launch_pass_tc<2>(a, (float*)dw_part, (float*)dw, (float*)db,
                            n_split, warps, n_blocks, (cudaStream_t)stream);
@@ -592,8 +611,11 @@ int pass2_tc(const void* nq, const void* nk, const void* emb,
 // dtype: 0 = float32 node/edge arrays, 1 = bfloat16. Takes D a multiple of
 // 8, in slices of d_slice rows (a multiple of 8 up to 256 that divides D),
 // HD a multiple of 8 up to 256, H <= 8 heads of at least 4 features, 16-byte
-// aligned arrays. carry may be null. dmsg (G, E, HD) and dw_part (n_split,
-// D, HD) are scratch. route 0, the CUDA-core kernels (either dtype): the
+// aligned arrays. carry may be null. dmsg (G, E, HD), its rows ld_cot
+// elements apart (HD, or a wider array's columns: a multiple of 8), gets the
+// cotangent rows d_msg; dw_part (n_split, D, HD) is scratch. demb null: no
+// demb product (carry is not read), which a pass of several column launches
+// leaves to one gat_bwd_demb over all of their dmsg columns. route 0, the CUDA-core kernels (either dtype): the
 // edge kernel takes any D, the demb and dW launches a slice of W's rows a
 // block (a grid dimension); w_t is w transposed in slices, (D / d_slice,
 // HD, d_slice); db_part (G * ceil(E / 64), HD) is scratch; warps, n_blocks
@@ -619,9 +641,9 @@ extern "C" int gat_bwd_pass1(
     void* dnm, void* dscale, void* dw_part, void* db_part, void* dw, void* db,
     const void* w_stream, int G, int N, int E, int D, int HD, int H,
     int n_split, int d_slice, int dtype, int route, int warps, int n_blocks,
-    int part, void* stream) {
+    int part, int ld_cot, void* stream) {
   if (!shapes_ok(D, d_slice, HD, H) || n_split <= 0 || part < 0 ||
-      part > 3 || !aligned16(gout) ||
+      part > 3 || ld_cot < HD || ld_cot % 8 != 0 || !aligned16(gout) ||
       !aligned16(nm) || !aligned16(emb) || !aligned16(w_me) ||
       !aligned16(w_me_t) || !aligned16(carry) || !aligned16(dmsg) ||
       !aligned16(demb) || !aligned16(dnm) || !aligned16(dw_part) ||
@@ -634,12 +656,14 @@ extern "C" int gat_bwd_pass1(
                                 scale, src, dst, mask, carry, dmsg, demb,
                                 dalpha, dnm, dscale, dw_part, db_part, dw, db,
                                 w_stream, G, N, E, D, HD, H, n_split,
-                                d_slice, warps, n_blocks, part, stream)
+                                d_slice, warps, n_blocks, part, ld_cot,
+                                stream)
                : pass1_tc<float>(gout, nm, emb, w_me, b_me, scores, gmax,
                                  scale, src, dst, mask, carry, dmsg, demb,
                                  dalpha, dnm, dscale, dw_part, db_part, dw,
                                  db, w_stream, G, N, E, D, HD, H, n_split,
-                                 d_slice, warps, n_blocks, part, stream);
+                                 d_slice, warps, n_blocks, part, ld_cot,
+                                 stream);
   const dim3 grid((E + TE - 1) / TE, G);
   const int threads = HD / 8 * TY;
   cudaStream_t s = (cudaStream_t)stream;
@@ -650,11 +674,11 @@ extern "C" int gat_bwd_pass1(
         (const float*)b_me, (const float*)scores, (const float*)gmax,
         (const float*)scale, (const int32_t*)src, (const int32_t*)dst,
         (const uint8_t*)mask, (T*)dmsg, (float*)dalpha, (float*)dnm,
-        (float*)dscale, (float*)db_part, E, N, D, HD, H, part);
+        (float*)dscale, (float*)db_part, E, N, D, HD, H, part, ld_cot);
     finish_pass<T>((const T*)emb, (const T*)dmsg, (const float*)w_me_t,
                    (const T*)carry, (T*)demb, (float*)dw_part,
                    (float*)db_part, (float*)dw, (float*)db, G, E, D, d_slice,
-                   HD, n_split, s);
+                   HD, ld_cot, n_split, s);
   } else {
     typedef float T;
     bwd1_edge_kernel<T><<<grid, threads, edge_smem(HD), s>>>(
@@ -662,18 +686,19 @@ extern "C" int gat_bwd_pass1(
         (const float*)b_me, (const float*)scores, (const float*)gmax,
         (const float*)scale, (const int32_t*)src, (const int32_t*)dst,
         (const uint8_t*)mask, (T*)dmsg, (float*)dalpha, (float*)dnm,
-        (float*)dscale, (float*)db_part, E, N, D, HD, H, part);
+        (float*)dscale, (float*)db_part, E, N, D, HD, H, part, ld_cot);
     finish_pass<T>((const T*)emb, (const T*)dmsg, (const float*)w_me_t,
                    (const T*)carry, (T*)demb, (float*)dw_part,
                    (float*)db_part, (float*)dw, (float*)db, G, E, D, d_slice,
-                   HD, n_split, s);
+                   HD, ld_cot, n_split, s);
   }
   return (int)cudaGetLastError();
 }
 
-// demb holds pass 1's result and is updated in place. dekb, dw_part and
-// db_part are scratch, and route, warps, n_blocks and w_stream mean what
-// they do in pass 1.
+// demb holds pass 1's result and is updated in place, or is null (no demb
+// product, as in pass 1). dekb gets the cotangent rows (rows ld_cot apart),
+// dw_part and db_part are scratch, and route, warps, n_blocks and w_stream
+// mean what they do in pass 1.
 extern "C" int gat_bwd_pass2(
     const void* nq, const void* nk, const void* emb, const void* w_ke,
     const void* w_ke_t, const void* b_ke, const void* scores,
@@ -682,8 +707,9 @@ extern "C" int gat_bwd_pass2(
     void* dekb, void* demb, void* dnq, void* dnk, void* dw_part,
     void* db_part, void* dw, void* db, const void* w_stream, int G, int N,
     int E, int D, int HD, int H, int n_split, int d_slice, int dtype,
-    int route, int warps, int n_blocks, void* stream) {
-  if (!shapes_ok(D, d_slice, HD, H) || n_split <= 0 || !aligned16(nq) ||
+    int route, int warps, int n_blocks, int ld_cot, void* stream) {
+  if (!shapes_ok(D, d_slice, HD, H) || n_split <= 0 || ld_cot < HD ||
+      ld_cot % 8 != 0 || !aligned16(nq) ||
       !aligned16(nk) || !aligned16(emb) || !aligned16(w_ke) ||
       !aligned16(w_ke_t) || !aligned16(dekb) || !aligned16(demb) ||
       !aligned16(dnq) || !aligned16(dnk) || !aligned16(dw_part) ||
@@ -696,12 +722,12 @@ extern "C" int gat_bwd_pass2(
                                 scale, d_denom, src, dst, mask, dekb, demb,
                                 dnq, dnk, dw_part, db_part, dw, db, w_stream,
                                 G, N, E, D, HD, H, n_split, d_slice, warps,
-                                n_blocks, stream)
+                                n_blocks, ld_cot, stream)
                : pass2_tc<float>(nq, nk, emb, w_ke, b_ke, scores, gmax,
                                  dalpha, scale, d_denom, src, dst, mask, dekb,
                                  demb, dnq, dnk, dw_part, db_part, dw, db,
                                  w_stream, G, N, E, D, HD, H, n_split,
-                                 d_slice, warps, n_blocks, stream);
+                                 d_slice, warps, n_blocks, ld_cot, stream);
   const dim3 grid((E + TE - 1) / TE, G);
   const int threads = HD / 8 * TY;
   const size_t smem = sizeof(float) * KC * HD;
@@ -713,11 +739,12 @@ extern "C" int gat_bwd_pass2(
         (const float*)b_ke, (const float*)scores, (const float*)gmax,
         (const float*)dalpha, (const float*)scale, (const float*)d_denom,
         (const int32_t*)src, (const int32_t*)dst, (const uint8_t*)mask,
-        (T*)dekb, (float*)dnq, (float*)dnk, (float*)db_part, E, N, D, HD, H);
+        (T*)dekb, (float*)dnq, (float*)dnk, (float*)db_part, E, N, D, HD, H,
+        ld_cot);
     finish_pass<T>((const T*)emb, (const T*)dekb, (const float*)w_ke_t,
                    (const T*)demb, (T*)demb, (float*)dw_part,
                    (float*)db_part, (float*)dw, (float*)db, G, E, D, d_slice,
-                   HD, n_split, s);
+                   HD, ld_cot, n_split, s);
   } else {
     typedef float T;
     bwd2_edge_kernel<T><<<grid, threads, smem, s>>>(
@@ -725,11 +752,54 @@ extern "C" int gat_bwd_pass2(
         (const float*)b_ke, (const float*)scores, (const float*)gmax,
         (const float*)dalpha, (const float*)scale, (const float*)d_denom,
         (const int32_t*)src, (const int32_t*)dst, (const uint8_t*)mask,
-        (T*)dekb, (float*)dnq, (float*)dnk, (float*)db_part, E, N, D, HD, H);
+        (T*)dekb, (float*)dnq, (float*)dnk, (float*)db_part, E, N, D, HD, H,
+        ld_cot);
     finish_pass<T>((const T*)emb, (const T*)dekb, (const float*)w_ke_t,
                    (const T*)demb, (T*)demb, (float*)dw_part,
                    (float*)db_part, (float*)dw, (float*)db, G, E, D, d_slice,
-                   HD, n_split, s);
+                   HD, ld_cot, n_split, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+// demb = cot W^T (+ add), rounded to the dtype once: the demb product of a
+// backward pass whose column launches ran with demb null, over all HD
+// columns of their cotangent rows (ROADMAP C17). cot (G, E, HD) contiguous,
+// add (G, E, D) or null, demb (G, E, D); add may be demb (pass 2, in
+// place). D and HD multiples of 8 (any size), 16-byte aligned arrays.
+// route 1, tensor cores (gat_bwd_tc.cuh `demb_tc_kernel`): w (D, HD) is W
+// rounded to bf16 in bf16, W itself in f32; w_t is not read. route 0, CUDA
+// cores (`demb_kernel`, W rounded as it loads it): w_t is W^T in slices of
+// d_slice of its rows, (D / d_slice, HD, d_slice); w is not read.
+extern "C" int gat_bwd_demb(const void* cot, const void* w, const void* w_t,
+                            const void* add, void* demb, int G, int E, int D,
+                            int HD, int d_slice, int dtype, int route,
+                            void* stream) {
+  if (D <= 0 || D % 8 != 0 || HD <= 0 || HD % 8 != 0 || G < 0 || E < 0 ||
+      !aligned16(cot) || !aligned16(w) || !aligned16(w_t) ||
+      !aligned16(add) || !aligned16(demb) || (dtype != 0 && dtype != 1) ||
+      (route == 1 ? w == nullptr
+                  : route != 0 || w_t == nullptr || d_slice <= 0 ||
+                        d_slice % 8 != 0 || d_slice > MAX_HD ||
+                        D % d_slice != 0))
+    return (int)cudaErrorInvalidValue;
+  if ((long long)G * E == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long M = (long long)G * E;
+  if (dtype == 1) {
+    typedef __nv_bfloat16 T;
+    if (route == 1)
+      return launch_demb_tc<T>((const T*)cot, (const T*)w, (const T*)add,
+                               (T*)demb, M, D, HD, s);
+    demb_launch<T>((const T*)cot, (const float*)w_t, (const T*)add,
+                   (T*)demb, G, E, D, d_slice, HD, s);
+  } else {
+    typedef float T;
+    if (route == 1)
+      return launch_demb_tc<T>((const T*)cot, (const T*)w, (const T*)add,
+                               (T*)demb, M, D, HD, s);
+    demb_launch<T>((const T*)cot, (const float*)w_t, (const T*)add,
+                   (T*)demb, G, E, D, d_slice, HD, s);
   }
   return (int)cudaGetLastError();
 }

@@ -42,6 +42,17 @@ template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
+// backward pass 2's d_s = (d_alpha scale + d_denom) e, before its rounding
+// to the compute dtype, with the product and the sum each rounded to f32 as
+// the plain version and the TPU kernel compute them: contracted into an FMA
+// it lay one f32 bit away in a few slots, where d_s then rounded to the
+// other bf16 value (found on an H100 by holding a pass of several launches
+// to one bf16 step of the plain version, ROADMAP C17)
+__device__ __forceinline__ float score_cotangent(float dalpha, float scale,
+                                                 float d_denom, float e) {
+  return __fmul_rn(__fadd_rn(__fmul_rn(dalpha, scale), d_denom), e);
+}
+
 // n = 4 or 8 consecutive values of T at p (16-byte aligned for 8 bf16 or
 // 4 f32, 8-byte aligned for 4 bf16), as f32
 template <typename T, int n>

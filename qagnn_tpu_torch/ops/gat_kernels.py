@@ -81,8 +81,12 @@ results back; a zero feature adds nothing to a score, a message or a
 product, so the padding changes no value. Each pass wrapper runs more than 8
 heads, or more than 256 columns, as groups of whole heads (`head_groups`),
 one launch a group, on every device: every quantity of the op is per head,
-and the backward's d_edge_emb sums over the groups inside the kernels (pass
-1's carry, pass 2's in-place add). A single head of more than 256 features
+and in a backward pass of more than one launch each launch writes its edge
+cotangent rows into its columns of one (G, E, HD) array, of which one more
+launch (`bwd_demb`, csrc/gat_bwd_tc.cuh `demb_tc_kernel`) takes d_edge_emb
+= cot W^T + carry (pass 1) or + pass 1's result (pass 2) over all HD
+columns, rounded once a pass as the TPU's one launch rounds it (ROADMAP
+C17). A single head of more than 256 features
 is a group of its own, run as column slices of at most 256 (`col_slices`,
 `launches`), one launch a slice, in order: pass C and backward pass 2 work
 per column given the head's scores, scale and d_alpha, while pass A's
@@ -123,8 +127,9 @@ _SIGNATURES = {
 
 
 _BWD_SIGNATURES = {
-    "gat_bwd_pass1": [_P] * 23 + [_I] * 13 + [_P],
-    "gat_bwd_pass2": [_P] * 23 + [_I] * 12 + [_P],
+    "gat_bwd_pass1": [_P] * 23 + [_I] * 14 + [_P],
+    "gat_bwd_pass2": [_P] * 23 + [_I] * 13 + [_P],
+    "gat_bwd_demb": [_P] * 5 + [_I] * 7 + [_P],
 }
 DW_SPLITS = 128      # edge ranges (rows of partials) of the dW products
 # the tensor-core routes (csrc/gat_fwd_tc.cuh, csrc/gat_bwd_tc.cuh)
@@ -594,7 +599,10 @@ def _weight_grads(edge_emb, cot_c, cot):
 
 def bwd_pass1_plain(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src,
                     dst, mask, carry, dnm, dscale, heads, acc=None,
-                    last=True):
+                    last=True, cot=None):
+    """With `cot` (a (G, E, HD) array or view), the launch of a pass of
+    several (`bwd_pass1`): d_msg goes there and stands in demb's place in
+    the result, and the demb product is left to `bwd_demb`."""
     cdt = nm.dtype
     HD = nm.shape[-1]
     msg = _gather_nodes(nm, src).float() \
@@ -604,16 +612,26 @@ def bwd_pass1_plain(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src,
     alpha = _round(e * _gather_nodes(_round(scale, cdt), src), cdt)
     d_msg = heads_to_hd(alpha, HD) * g_dst
     d_msg_c = d_msg.to(cdt)
-    demb = d_msg_c.float() @ w_me.to(cdt).float().t()
-    if carry is not None:
-        demb = demb + carry.float()
+    if cot is None:
+        demb = bwd_demb_plain(d_msg_c, w_me, carry, edge_emb.dtype)
+    else:
+        demb = cot.copy_(d_msg_c)
     dalpha = split_dalpha(head_sum(msg * g_dst, heads), mask, acc)
     dw, db = _weight_grads(edge_emb, d_msg_c, d_msg)
     _scatter_nodes(dnm, src, d_msg_c.float())
     if last:
         _scatter_nodes(dscale, src,
                        _round(dalpha.transpose(1, 2) * e, cdt))
-    return demb.to(edge_emb.dtype), dalpha, dnm, dscale, dw, db
+    return demb, dalpha, dnm, dscale, dw, db
+
+
+def bwd_demb_plain(cot, w, add=None, dtype=None):
+    """demb = cot W^T (+ add) in f32 with W rounded to cot's dtype,
+    rounded once to `dtype` (cot's by default)."""
+    demb = cot.float() @ w.to(cot.dtype).float().t()
+    if add is not None:
+        demb = demb + add.float()
+    return demb.to(dtype or cot.dtype)
 
 
 def split_dalpha(dalpha, mask, acc=None):
@@ -862,41 +880,57 @@ def bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
     Returns (demb (G, E, D) in the embedding's dtype, d_alpha (G, H, E) f32
     (0 at masked slots), dnm, dscale, dW_me (D, HD) f32, db_me (HD,) f32).
     A launch a head group, or a column slice of a head wider than 256
-    features: each launch's demb is the next one's carry, so the edge
-    cotangents are summed inside the kernels, and a split head's slices sum
-    its d_alpha in order, the last adding d_alpha * e into dscale.
+    features: a split head's slices sum its d_alpha in order, the last
+    adding d_alpha * e into dscale. A pass of more than one launch leaves
+    demb to one product over all HD columns: each launch writes its
+    cotangent rows into its columns of one (G, E, HD) array, and
+    `bwd_demb` sums d_msg W_me^T + carry in f32 and rounds it once, as the
+    TPU's one launch over all columns does.
     """
     HD = nm.shape[-1]
     if len(launches(HD, heads)) == 1:
         return _bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax,
                           scale, src, dst, mask, carry, dnm, dscale, heads,
                           _route)
-    demb, dalphas, dws, dbs = carry, [], [], []
+    cot = _cot_rows(src, HD, nm)
+    dalphas, dws, dbs = [], [], []
     for h0, h1 in head_groups(HD, heads):
         spans, dalpha = group_cols(HD, heads, h0, h1), None
         node = (scores[:, h0:h1].contiguous(), heads_of(gmax, h0, h1),
                 heads_of(scale, h0, h1), src, dst, mask)
         ds = heads_of(dscale, h0, h1)
         for i, (c0, c1) in enumerate(spans):
-            demb, dalpha, dnm[..., c0:c1], ds, dw, db = _bwd_pass1(
+            _, dalpha, dnm[..., c0:c1], ds, dw, db = _bwd_pass1(
                 cols(gout, c0, c1), cols(nm, c0, c1), edge_emb,
-                cols(w_me, c0, c1), cols(b_me, c0, c1), *node, demb,
+                cols(w_me, c0, c1), cols(b_me, c0, c1), *node, None,
                 cols(dnm, c0, c1), ds, h1 - h0, _route,
-                **partial(dalpha, i, len(spans)))
+                cot=col_view(cot, c0, c1), **partial(dalpha, i, len(spans)))
             dws.append(dw)
             dbs.append(db)
         dscale[..., h0:h1] = ds
         dalphas.append(dalpha)
+    demb = bwd_demb(cot, w_me, carry, None, _route)
     return (demb, torch.cat(dalphas, 1), dnm, dscale, torch.cat(dws, 1),
             torch.cat(dbs, 0))
 
 
+def _cot_rows(src, HD, like):
+    """The (G, E, HD) array, in `like`'s dtype and on its device, into whose
+    columns the launches of a pass of several write their cotangent rows
+    for `bwd_demb`."""
+    return torch.empty((*src.shape, HD), device=like.device, dtype=like.dtype)
+
+
 def _bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
-               mask, carry, dnm, dscale, heads, _route, acc=None, last=True):
+               mask, carry, dnm, dscale, heads, _route, acc=None, last=True,
+               cot=None):
+    """One launch of pass 1. With `cot` (the launch's columns of a pass's
+    cotangent rows, `_cot_rows`; carry None) it writes d_msg there, makes no
+    demb product, and returns `cot` in demb's place."""
     if not nm.is_cuda:
         return bwd_pass1_plain(gout, nm, edge_emb, w_me, b_me, scores, gmax,
                                scale, src, dst, mask, carry, dnm, dscale,
-                               heads, acc, last)
+                               heads, acc, last, cot)
     G, N, HD = nm.shape
     E, D = edge_emb.shape[1], edge_emb.shape[2]
     cdt = nm.dtype
@@ -917,14 +951,21 @@ def _bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
     _require(dnm, "dnm", torch.float32, (G, N, HD))
     _require(dscale, "dscale", torch.float32, (G, N, heads))
     dev = nm.device
+    if cot is None:
+        dmsg, ld = torch.empty((G, E, HD), device=dev, dtype=cdt), HD
+        demb = torch.empty((G, E, D), device=dev, dtype=cdt)
+    elif carry is not None:
+        raise ValueError("a launch that leaves demb to bwd_demb takes no "
+                         "carry")
+    else:
+        dmsg, demb = cot, None
+        ld = _build.require_rows(cot, "cot", cdt, (G, E, HD))
     route = _bwd_route(cdt, _route)
     width = d_slices(D)[1]
     # the tensor-core kernels read W_me both ways from one shared tile or
     # ring of its rows
     w_t = None if route == 1 else _sliced_transpose(w_me, width)
     ws = _streamed_w(route, w_me, _bwd_streams, cdt)
-    dmsg = torch.empty((G, E, HD), device=dev, dtype=cdt)
-    demb = torch.empty((G, E, D), device=dev, dtype=cdt)
     dalpha = _scores_out(acc, G, heads, E, dev)
     dw = torch.empty((D, HD), device=dev, dtype=torch.float32)
     db = torch.empty((HD,), device=dev, dtype=torch.float32)
@@ -936,15 +977,16 @@ def _bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
         scores.data_ptr(), gmax.data_ptr(),
         scale.data_ptr(), src.data_ptr(), dst.data_ptr(), mask.data_ptr(),
         None if carry is None else carry.data_ptr(), dmsg.data_ptr(),
-        demb.data_ptr(), dalpha.data_ptr(), dnm.data_ptr(),
+        None if demb is None else demb.data_ptr(), dalpha.data_ptr(),
+        dnm.data_ptr(),
         dscale.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
         dw.data_ptr(), db.data_ptr(),
         None if ws is None else ws.data_ptr(), G, N, E, D, HD, heads,
         n_split, width, _dtype_code(nm), route, warps, n_blocks,
-        _part(acc, last), _stream())
+        _part(acc, last), ld, _stream())
     _build.check(err, "gat_bwd_pass1")
     _build.count_launch("gat_bwd_pass1", route)
-    return demb, dalpha, dnm, dscale, dw, db
+    return dmsg if demb is None else demb, dalpha, dnm, dscale, dw, db
 
 
 # --------------------------------------------------------------------------
@@ -952,7 +994,10 @@ def _bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
 # --------------------------------------------------------------------------
 
 def bwd_pass2_plain(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
-                    d_denom, src, dst, mask, demb, dnq, dnk, heads):
+                    d_denom, src, dst, mask, demb, dnq, dnk, heads, cot=None):
+    """With `cot`, as in `bwd_pass1_plain`: dekb goes there and stands in
+    demb's place in the result, and demb (which may be None) is left to
+    `bwd_demb`."""
     cdt = nq.dtype
     HD = nq.shape[-1]
     key = _gather_nodes(nk, dst).float() \
@@ -965,8 +1010,10 @@ def bwd_pass2_plain(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
     ds_hd = heads_to_hd(d_s, HD)
     dekb = ds_hd * q_src
     dekb_c = dekb.to(cdt)
-    demb = (demb.float() + dekb_c.float() @ w_ke.to(cdt).float().t()) \
-        .to(demb.dtype)
+    if cot is None:
+        demb = bwd_demb_plain(dekb_c, w_ke, demb, demb.dtype)
+    else:
+        demb = cot.copy_(dekb_c)
     dw, db = _weight_grads(edge_emb, dekb_c, dekb)
     _scatter_nodes(dnq, src, (ds_hd * key).to(cdt).float())
     _scatter_nodes(dnk, dst, dekb_c.float())
@@ -981,31 +1028,38 @@ def bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
 
     Returns (demb, dnq, dnk, dW_ke (D, HD) f32, db_ke (HD,) f32). A launch
     a head group or a column slice of a head wider than 256 features
-    (`launches`), each adding its edge cotangent into demb."""
+    (`launches`); a pass of more than one leaves demb += dekb W_ke^T to one
+    product over all HD columns (`bwd_demb`, rounded once, as in
+    `bwd_pass1`)."""
     plan = launches(nq.shape[-1], heads)
     if len(plan) == 1:
         return _bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha,
                           scale, d_denom, src, dst, mask, demb, dnq, dnk,
                           heads, _route)
+    cot = _cot_rows(src, nq.shape[-1], nq)
     dws, dbs = [], []
     for h0, h1, c0, c1 in plan:
-        demb, dnq[..., c0:c1], dnk[..., c0:c1], dw, db = _bwd_pass2(
+        _, dnq[..., c0:c1], dnk[..., c0:c1], dw, db = _bwd_pass2(
             cols(nq, c0, c1), cols(nk, c0, c1), edge_emb, cols(w_ke, c0, c1),
             cols(b_ke, c0, c1), scores[:, h0:h1].contiguous(),
             heads_of(gmax, h0, h1), dalpha[:, h0:h1].contiguous(),
             heads_of(scale, h0, h1), heads_of(d_denom, h0, h1), src, dst,
-            mask, demb, cols(dnq, c0, c1), cols(dnk, c0, c1), h1 - h0, _route)
+            mask, None, cols(dnq, c0, c1), cols(dnk, c0, c1), h1 - h0, _route,
+            cot=col_view(cot, c0, c1))
         dws.append(dw)
         dbs.append(db)
+    demb = bwd_demb(cot, w_ke, demb, demb, _route)
     return demb, dnq, dnk, torch.cat(dws, 1), torch.cat(dbs, 0)
 
 
 def _bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
-               d_denom, src, dst, mask, demb, dnq, dnk, heads, _route):
+               d_denom, src, dst, mask, demb, dnq, dnk, heads, _route,
+               cot=None):
+    """One launch of pass 2; with `cot` as `_bwd_pass1` (demb not read)."""
     if not nq.is_cuda:
         return bwd_pass2_plain(nq, nk, edge_emb, w_ke, b_ke, scores, gmax,
                                dalpha, scale, d_denom, src, dst, mask, demb,
-                               dnq, dnk, heads)
+                               dnq, dnk, heads, cot)
     G, N, HD = nq.shape
     E, D = edge_emb.shape[1], edge_emb.shape[2]
     cdt = nq.dtype
@@ -1023,15 +1077,20 @@ def _bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
     _require(src, "src", torch.int32, (G, E))
     _require(dst, "dst", torch.int32, (G, E))
     _require(mask, "mask", torch.bool, (G, E))
-    _require(demb, "demb", cdt, (G, E, D))
+    if cot is None:
+        _require(demb, "demb", cdt, (G, E, D))
     _require(dnq, "dnq", torch.float32, (G, N, HD))
     _require(dnk, "dnk", torch.float32, (G, N, HD))
     dev = nq.device
+    if cot is None:
+        dekb, ld = torch.empty((G, E, HD), device=dev, dtype=cdt), HD
+    else:
+        dekb, demb = cot, None
+        ld = _build.require_rows(cot, "cot", cdt, (G, E, HD))
     route = _bwd_route(cdt, _route)
     width = d_slices(D)[1]
     w_t = None if route == 1 else _sliced_transpose(w_ke, width)
     ws = _streamed_w(route, w_ke, _bwd_streams, cdt)
-    dekb = torch.empty((G, E, HD), device=dev, dtype=cdt)
     dw = torch.empty((D, HD), device=dev, dtype=torch.float32)
     db = torch.empty((HD,), device=dev, dtype=torch.float32)
     n_split, warps, n_blocks, dw_part, db_part = _split_scratch(
@@ -1042,13 +1101,56 @@ def _bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
         scores.data_ptr(), gmax.data_ptr(),
         dalpha.data_ptr(), scale.data_ptr(), d_denom.data_ptr(),
         src.data_ptr(), dst.data_ptr(), mask.data_ptr(), dekb.data_ptr(),
-        demb.data_ptr(), dnq.data_ptr(), dnk.data_ptr(), dw_part.data_ptr(),
+        None if demb is None else demb.data_ptr(), dnq.data_ptr(),
+        dnk.data_ptr(), dw_part.data_ptr(),
         db_part.data_ptr(), dw.data_ptr(), db.data_ptr(),
         None if ws is None else ws.data_ptr(), G, N, E, D, HD, heads,
-        n_split, width, _dtype_code(nq), route, warps, n_blocks, _stream())
+        n_split, width, _dtype_code(nq), route, warps, n_blocks, ld,
+        _stream())
     _build.check(err, "gat_bwd_pass2")
     _build.count_launch("gat_bwd_pass2", route)
-    return demb, dnq, dnk, dw, db
+    return dekb if demb is None else demb, dnq, dnk, dw, db
+
+
+def bwd_demb(cot, w, add, out=None, _route=None):
+    """The demb product of a backward pass of more than one launch (rows 8
+    and 9, C17): demb = cot W^T (+ add) over all HD columns, summed in f32
+    and rounded to cot's dtype once, as `_bwd1_proj_kernel` and
+    `_bwd2_proj_kernel` round demb once a pass. cot (G, E, HD): every
+    launch's cotangent rows (`_cot_rows`; zeros at masked slots, so demb
+    there is add, or 0); w (D, HD) f32, rounded to cot's dtype as the
+    kernels round it; add (G, E, D) in cot's dtype or None: pass 1's carry
+    or pass 2's demb. `out`: where the kernel writes demb (add itself for
+    pass 2's in-place add; a new array if None). One launch
+    (csrc/gat_bwd.cu `gat_bwd_demb`): route 1 on tensor cores,
+    `demb_tc_kernel` (bf16 products in bf16, split-TF32 ones in f32), route
+    0 on CUDA cores (`demb_kernel`) when named, as the passes' `_route`."""
+    if not cot.is_cuda:
+        return bwd_demb_plain(cot, w, add)
+    G, E, HD = cot.shape
+    D = w.shape[0]
+    cdt = cot.dtype
+    _require(cot, "cot", cdt, (G, E, HD))
+    _require(w, "w", torch.float32, (D, HD))
+    if add is not None:
+        _require(add, "add", cdt, (G, E, D))
+    if out is None:
+        out = cot.new_empty((G, E, D))
+    else:
+        _require(out, "out", cdt, (G, E, D))
+    route = _bwd_route(cdt, _route)
+    width = d_slices(D)[1]
+    w_t = None if route == 1 else _sliced_transpose(w, width)
+    # W as route 1 reads it: rounded to bf16 in bf16, itself in f32
+    wr = _streamed_w(route, w, lambda _: True, cdt)
+    err = _bwd_lib().gat_bwd_demb(
+        cot.data_ptr(), None if wr is None else wr.data_ptr(),
+        None if w_t is None else w_t.data_ptr(),
+        None if add is None else add.data_ptr(), out.data_ptr(), G, E, D, HD,
+        width, _dtype_code(cot), route, _stream())
+    _build.check(err, "gat_bwd_demb")
+    _build.count_launch("gat_bwd_demb", route)
+    return out
 
 
 # --------------------------------------------------------------------------

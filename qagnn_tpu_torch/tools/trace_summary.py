@@ -38,6 +38,9 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # edge_hidden_tc.cuh). Route 1 of backward passes 1 and 2 launches its edge
 # kernel once a call at every D: W resident in shared memory up to 256 rows,
 # streamed through it past that (`edge_pass_tc_kernel<PASS, PAIRS, STREAM>`).
+# A pass of more than one column launch ends on one `gat_bwd_demb` call,
+# the demb product over all of its columns (its column launches then make
+# none: on route 0 no `demb_kernel` of their own).
 # Route 1 of rows 11 and 12 runs all of D's column slices in one launch of
 # each kernel (`edge_hidden_tc_kernel<T, PIECE, WINDOWS>`,
 # `edge_hidden_bwd_tc_kernel<T, NT, PIECE>`) in both dtypes.
@@ -57,6 +60,8 @@ PORT_KERNELS: dict[tuple[str, int | None], dict[str, int]] = {
     ("gat_bwd_pass2", 0): {"bwd2_edge_kernel": 1, "demb_kernel": 1,
                            "dw_partial_kernel": 1,
                            "reduce_partials_kernel": 2},
+    ("gat_bwd_demb", 1): {"demb_tc_kernel": 1},
+    ("gat_bwd_demb", 0): {"demb_kernel": 1},
     ("edge_moments", None): {"edge_moments_kernel": 1},
     ("edge_hidden", 1): {"edge_hidden_tc_kernel": 1},
     ("edge_hidden", 0): {"edge_hidden_kernel": 1},

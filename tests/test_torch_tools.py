@@ -337,7 +337,8 @@ def test_expected_kernels_of_a_train_step_at_gnn_dim_512():
     D = 512 past the 256 rows W holds in shared memory) a bf16 train step
     at k=5 calls each GAT entry point twice a layer, and route 1 of
     backward passes 1 and 2 streams W's rows in one edge launch a call:
-    one edge kernel and one dW kernel a call, as at gnn_dim 200. The edge
+    one edge kernel and one dW kernel a call, as at gnn_dim 200; each pass
+    of two launches ends on one demb product (`gat_bwd_demb`). The edge
     encoder's rows 11 and 12 take route 1 there too, all of D's column
     slices in one launch of each kernel a call."""
     from qagnn_tpu_torch.ops import gat_kernels as gk
@@ -347,13 +348,14 @@ def test_expected_kernels_of_a_train_step_at_gnn_dim_512():
     assert (D, per) == (512, 2) and gk._bwd_streams(D)
     launches = {"gat_pass_a_scores": 5 * per, "gat_pass_a_denoms": 5 * per,
                 "gat_pass_c": 5 * per, "gat_bwd_pass1": 5 * per,
-                "gat_bwd_pass2": 5 * per, "edge_moments": 1,
-                "edge_hidden": 1, "edge_hidden_bwd": 1}
+                "gat_bwd_pass2": 5 * per, "gat_bwd_demb": 2 * 5,
+                "edge_moments": 1, "edge_hidden": 1, "edge_hidden_bwd": 1}
     routes = {(k, 1): n for k, n in launches.items()
               if k not in ("gat_pass_a_denoms", "edge_moments")}
     want = ts.expected_kernels(ts.entry_calls(launches, routes))
     assert want["edge_pass_tc_kernel"] == 2 * 5 * per == 20
     assert want["dw_tc_kernel"] == want["edge_pass_tc_kernel"]
+    assert want["demb_tc_kernel"] == 10 and "demb_kernel" not in want
     assert want["fwd_pass_tc_kernel"] == 20
     assert want["reduce_partials_kernel"] == 2 * 20 + 1
     assert ek._hidden_route(torch.bfloat16, D, 39, 4) == 1
@@ -372,7 +374,8 @@ def test_kernel_map_names_the_csrc_kernels():
     entries = {e for e, _ in ts.PORT_KERNELS}
     assert entries == {"gat_pass_a_scores", "gat_pass_a_denoms",
                        "gat_pass_c", "gat_bwd_pass1", "gat_bwd_pass2",
-                       "edge_moments", "edge_hidden", "edge_hidden_bwd"}
+                       "gat_bwd_demb", "edge_moments", "edge_hidden",
+                       "edge_hidden_bwd"}
     for name in ("fwd_pass_tc_kernel<0, 13>(x)", "void edge_rows_kernel(x)",
                  "void a::b::dw_tc_kernel<2, 16>(Args)",
                  "void edge_hidden_tc_kernel<float, 16, true>(x)",

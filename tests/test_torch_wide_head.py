@@ -224,8 +224,7 @@ SPLIT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
 def _close(got, want, dt, what):
     """|got - want| within SPLIT_TOL of max|want|: in f32 only the order of
     the f32 sums differs; in bf16 a rounding that sees an f32 sum one bit
-    away may land one bf16 step away, and backward pass 1's demb takes one
-    more bf16 rounding a slice (its carry)."""
+    away may land one bf16 step away."""
     got, want = got.float(), want.float()
     err = (got - want).abs().max().item()
     top = want.abs().max().item()
