@@ -1236,21 +1236,40 @@ def phase_gat_bwd(gen, odd_gen, dev, reports):
                          f"D={D} HD={HD} E={E - 3} {dt}", main=False)
 
 
+def sass_counts(name, ops=("HGMMA", "UTMALDG", "UTMASTG")):
+    """How often each of these instructions stands in the SASS of
+    csrc/<name>.cu's built library (cuobjdump -sass, beside nvcc)."""
+    tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(_build._target(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
+
+
+# the demb product's widths beyond gnn_dim 512 and 1040 (4 heads): the
+# kernels' (D, HD) of a pass of 16 heads at gnn_dim 100 and 200, which
+# runs in head groups and so ends on one demb launch
+DEMB_TAILS = ((104, 128), (200, 256))
+
+
 def phase_gat_bwd_demb(gen, dev, reports, card):
     """Rows 8 and 9's demb product alone (`bwd_demb`, ROADMAP C17), the one
     launch a backward pass of several column launches ends on: at the
-    kernels' widths of gnn_dim 512 and 1040, in both dtypes, on both
+    kernels' widths of gnn_dim 512 and 1040 and at DEMB_TAILS (the tails
+    of route 1's column tiles: `gk.demb_plan`), in both dtypes, on both
     routes, with no add, an add and in place (pass 2's), at E and E - 3,
     against its plain version (compare at TOL["bwd"]; bf16 also within one
     bf16 step in every element), a zero cotangent row (a masked slot)
     giving add (or 0) exactly, one launch a call on the route asked for.
-    Then at gnn_dim 1040 in bf16 its time in turns with route 0 (which
-    must be slower), its plain version's, cuBLAS's addmm of the same
-    function (library_ms) and the bound, filed in `reports`, and its
-    device time by kernel; the same times in f32, logged."""
+    Then at gnn_dim 512 and 1040 in both dtypes its time in turns with
+    route 0 (which must be slower), its plain version's, cuBLAS's addmm of
+    the same function (library_ms) and the bound, each logged with its tile
+    plan; bf16 at 1040 filed in `reports`; the device time by kernel. And
+    the count of wgmma (HGMMA) and TMA (UTMALDG, UTMASTG) instructions in
+    the library's SASS: route 1 runs on them, or the phase fails."""
     r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
-    for width in (WIDE_D, WIDER_D):
-        D, HD = gk.kernel_widths(width, width, HEADS)
+    wide = [gk.kernel_widths(width, width, HEADS)
+            for width in (WIDE_D, WIDER_D)]
+    for D, HD in wide + list(DEMB_TAILS):
         for n_edges in (E - 3, E):
             mask = graph_inputs(gen, dev, n_edges)[2]
             dead = ~mask
@@ -1282,12 +1301,18 @@ def phase_gat_bwd_demb(gen, dev, reports, card):
                         if bool((got[dead] != passed).any()):
                             FAILURES.append(f"gat_bwd_demb masked slots "
                                             f"{tag} {what}")
-                if width != WIDER_D or n_edges != E:
+                if (D, HD) not in wide or n_edges != E:
                     continue
-                sink = reports if dt == torch.bfloat16 \
+                at_1040 = (D, HD) == wide[1]
+                sink = reports if dt == torch.bfloat16 and at_1040 \
                     else collections.defaultdict(dict)
                 name = "gat_bwd_demb" + ("" if dt == torch.bfloat16
                                          else " f32")
+                plan = gk.demb_plan(D, HD, dt)
+                log(f"  gat_bwd_demb D={D} HD={HD} {dt}: tiles of "
+                    f"{plan.bm} x {plan.bn}, {plan.n_tiles} over D, "
+                    f"{plan.k_tiles} slices of {plan.bk} through a ring of "
+                    f"{plan.stages}, {plan.smem} bytes of shared memory")
                 out = torch.empty_like(add)
                 wr = w.to(dt)
                 live = mask.float().mean().item()
@@ -1309,6 +1334,33 @@ def phase_gat_bwd_demb(gen, dev, reports, card):
                 profile_kernels(f"{name} D={D} HD={HD}",
                                 lambda: gk.bwd_demb(cot, w, add, out),
                                 iters=5)
+    counts = sass_counts("gat_demb")
+    log("  csrc/gat_demb.cu's SASS: " + ", ".join(
+        f"{op} {n}" for op, n in counts.items()))
+    if not counts["HGMMA"] or not counts["UTMALDG"]:
+        FAILURES.append("gat_bwd_demb: route 1's SASS has no wgmma or no "
+                        f"TMA load: {counts}")
+
+
+def phase_dw_yardstick(gen, dev, card):
+    """The yardstick of rows 8 and 9's dW launch (`dw_tc_kernel`), a
+    measurement only: torch.mm of the same product, emb^T cot over the G E
+    slots in the pass's dtype, at the preset's widths and at gnn_dim 512
+    and 1040, over all of HD and over one launch's columns (a pass of
+    several launches runs one dW launch each); the kernel's own times are
+    the profiler's lines of the `bwd` and `widths` phases."""
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    for width in (200, WIDE_D, WIDER_D):
+        D, HD = gk.kernel_widths(width, width, HEADS)
+        c0, c1 = gk.launches(HD, HEADS)[0][2:]
+        for dt in (torch.bfloat16, torch.float32):
+            emb, cot = r(G * E, D).to(dt), r(G * E, HD).to(dt)
+            whole = device_ms(lambda: torch.mm(emb.t(), cot))
+            one = device_ms(lambda: torch.mm(emb.t(), cot[:, c0:c1]))
+            log(f"  time dW yardstick D={D} HD={HD} {dt}: torch.mm "
+                f"{whole:.4f} ms over all of HD, {one:.4f} ms over a "
+                f"launch's {c1 - c0} columns  [{card}]")
+            del emb, cot
 
 
 def unproj_inputs(gen, dev, n_edges, dt):
@@ -6239,7 +6291,7 @@ def main() -> int:
         "gat_bwd_pass1": entry("gat_bwd.cu", f"{gat}:765"),
         "gat_bwd_pass2": entry("gat_bwd.cu", f"{gat}:849"),
         # the demb product of both passes, one launch a pass of several
-        "gat_bwd_demb": entry("gat_bwd.cu", f"{gat}:765"),
+        "gat_bwd_demb": entry("gat_demb.cu", f"{gat}:828"),
         "gat_unproj_scores": entry("gat_unproj.cu", f"{gat}:331"),
         "gat_unproj_denoms": entry("gat_unproj.cu", f"{gat}:346"),
         "gat_unproj_aggr": entry("gat_unproj.cu", f"{gat}:373"),
@@ -6272,6 +6324,8 @@ def main() -> int:
         log("\n[kernels 8 and 9: the demb product of a pass of several "
             "launches]")
         phase_gat_bwd_demb(new_gen(27), dev, reports, card)
+        log("\n[kernels 8 and 9: the dW launch's yardstick, torch.mm]")
+        phase_dw_yardstick(new_gen(28), dev, card)
     if only & {"kernels", "unproj"}:
         log("\n[kernels 1 to 5: the unprojected GAT op, forward and backward]")
         phase_gat_unproj(new_gen(12), dev, reports)

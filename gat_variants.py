@@ -1,14 +1,17 @@
 """Time variants of the projected GAT op's kernels side by side on one card.
 
     python3 gat_variants.py D HD tag=DIR [tag=DIR ...] [--dtype bfloat16]
-        [--passes fwd|demb]
+        [--passes fwd|demb] [--widths]
 
 Each DIR is a copy of qagnn_tpu_torch/csrc (the sources themselves for
 "qagnn_tpu_torch/csrc"), edited by hand. The script builds every copy's
-library at once (`gat_bwd`, or `gat_fwd` with `--passes fwd`), one nvcc a
+library at once (`gat_bwd`, `gat_fwd` with `--passes fwd`, `gat_demb`
+with `--passes demb`), one nvcc a
 copy, then, one process a copy, runs backward passes 1 and 2, forward
 passes A and C, or (`--passes demb`) the backward passes' demb product
-alone (`bwd_demb`, with an add), on route 1 (the wrappers of
+alone (`bwd_demb`, with an add; `--widths`: at every column tile width
+`demb_tc_kernel` is built at that fits, `gk.demb_plan`'s choice marked),
+on route 1 (the wrappers of
 qagnn_tpu_torch/ops/gat_kernels.py, head groups and column launches
 included) at G=64, N=200, E=4096, D x HD with 4 heads, on chip_smoke.py's
 inputs: each call's largest gap from its plain version (max|d| / max|want|
@@ -37,8 +40,8 @@ def _use(csrc: str):
 
 
 def build(csrc: str, passes: str) -> None:
-    _use(csrc).build_all(["gat_fwd" if passes == "fwd" else "gat_bwd"],
-                         verbose=True)
+    _use(csrc).build_all([{"fwd": "gat_fwd", "demb": "gat_demb"}
+                          .get(passes, "gat_bwd")], verbose=True)
 
 
 def gap(got, want):
@@ -81,7 +84,8 @@ def run_fwd(csrc: str, D: int, HD: int, tag: str, dtype: str) -> None:
         cs.profile_kernels(f"{tag} {name}", fn, iters=5)
 
 
-def run_demb(csrc: str, D: int, HD: int, tag: str, dtype: str) -> None:
+def run_demb(csrc: str, D: int, HD: int, tag: str, dtype: str,
+             widths: bool = False) -> None:
     import torch
     _use(csrc)
     import chip_smoke as cs
@@ -94,10 +98,19 @@ def run_demb(csrc: str, D: int, HD: int, tag: str, dtype: str) -> None:
     cot = (r(cs.G, cs.E, HD) * mask[..., None]).to(dt)
     w, add = r(D, HD) * 0.05, (r(cs.G, cs.E, D) * 0.1).to(dt)
     out = torch.empty_like(add)
-    err = gap(gk.bwd_demb(cot, w, add, out), gk.bwd_demb_plain(cot, w, add))
-    ms = cs.device_ms(lambda: gk.bwd_demb(cot, w, add, out), iters=10)
-    print(f"{tag} D={D} HD={HD} {dtype} demb {ms:.4f} ms  gap {err:.2e}  "
-          f"[{cs.card_line()}]", flush=True)
+    chosen = gk.demb_plan(D, HD, dt)
+    plans = [gk.demb_plan(D, HD, dt, bn=bn) for bn in gk.DEMB_WIDTHS[dt]] \
+        if widths else [chosen]
+    for p in plans:
+        if p.smem > gk.TC_SMEM_LIMIT:
+            continue
+        call = lambda: gk.bwd_demb(cot, w, add, out, _plan=p)  # noqa: E731
+        err = gap(call(), gk.bwd_demb_plain(cot, w, add))
+        ms = cs.device_ms(call, iters=10)
+        print(f"{tag} D={D} HD={HD} {dtype} demb {ms:.4f} ms  gap {err:.2e}"
+              f"  tiles {p.bm} x {p.bn} ({p.n_tiles} over D), ring "
+              f"{p.stages}{'  (the plan)' if p == chosen else ''}  "
+              f"[{cs.card_line()}]", flush=True)
     cs.profile_kernels(f"{tag} demb", lambda: gk.bwd_demb(cot, w, add, out),
                        iters=5)
 
@@ -143,6 +156,8 @@ def main() -> int:
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "bfloat16"))
     ap.add_argument("--passes", default="bwd", choices=("bwd", "fwd", "demb"))
+    ap.add_argument("--widths", action="store_true",
+                    help="demb: time every column tile width that fits")
     ap.add_argument("--build", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--run", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -151,8 +166,11 @@ def main() -> int:
         return 0
     if args.run:
         tag, csrc = args.variants[0].split("=", 1)
-        {"fwd": run_fwd, "demb": run_demb}.get(args.passes, run)(
-            csrc, args.D, args.HD, tag, args.dtype)
+        if args.passes == "demb":
+            run_demb(csrc, args.D, args.HD, tag, args.dtype, args.widths)
+        else:
+            {"fwd": run_fwd}.get(args.passes, run)(csrc, args.D, args.HD,
+                                                   tag, args.dtype)
         return 0
     pairs = [v.split("=", 1) for v in args.variants]
     logs = ROOT / "chiprun_out"
@@ -170,7 +188,8 @@ def main() -> int:
         if tag not in failed:
             subprocess.run([sys.executable, __file__, str(args.D),
                             str(args.HD), f"{tag}={csrc}", "--run",
-                            "--dtype", args.dtype, "--passes", args.passes],
+                            "--dtype", args.dtype, "--passes", args.passes]
+                           + (["--widths"] if args.widths else []),
                            check=False)
     return 1 if failed else 0
 

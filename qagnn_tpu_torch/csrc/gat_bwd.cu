@@ -20,14 +20,15 @@
 //   A pass of more than one launch (head groups, column slices) makes no
 //   demb product in its launches (demb null): each writes its d_msg rows
 //   into its columns of one (G, E, HD) array (rows ld_cot apart), and one
-//   more launch, gat_bwd_demb below, forms demb = d_msg W_me^T + carry over
-//   all HD columns in f32 and rounds it once, as the TPU's one launch over
-//   all columns does (ROADMAP C17; each launch's bf16 demb had been the
-//   next one's carry, one rounding a launch).
+//   more launch forms demb = d_msg W_me^T + carry over all HD columns in
+//   f32 and rounds it once, as the TPU's one launch over all columns does
+//   (ROADMAP C17; each launch's bf16 demb had been the next one's carry,
+//   one rounding a launch): route 1 gat_demb.cu `gat_demb_tc` (wgmma fed
+//   by TMA), route 0 gat_bwd_demb below.
 // Pass 2 (score side): d_s = (d_alpha * scale[src] + d_denom[src]) * e;
 //   dekb = d_s * nq[src]; dnq[src] += d_s * (nk[dst] + emb W_ke + b_ke);
 //   dnk[dst] += dekb; demb += dekb W_ke^T; dW_ke = emb^T dekb;
-//   db_ke = sum dekb. Of several launches, likewise: gat_bwd_demb adds
+//   db_ke = sum dekb. Of several launches, likewise: the demb launch adds
 //   dekb W_ke^T over all columns into pass 1's demb in place.
 // d_msg, dekb and the dnq term are rounded to the compute dtype before the
 // products and scatters, the bias gradients sum the f32 values, and demb is
@@ -506,7 +507,7 @@ void demb_launch(const T* cot, const float* wt, const T* add, T* demb,
 }
 
 // launches 2-4 of a pass: demb (none where demb is null: the pass leaves
-// it to gat_bwd_demb) and the dW partials, each with a grid dimension over
+// it to its one demb launch) and the dW partials, each with a grid dimension over
 // the D / DS slices of W's rows (slice z writes columns [z DS, z DS + DS)
 // of demb and those rows of the partials), then the two reductions. wt:
 // W^T in slices, (D / DS, HD, DS); cot's rows ldc apart.
@@ -615,7 +616,9 @@ int pass2_tc(const void* nq, const void* nk, const void* emb,
 // elements apart (HD, or a wider array's columns: a multiple of 8), gets the
 // cotangent rows d_msg; dw_part (n_split, D, HD) is scratch. demb null: no
 // demb product (carry is not read), which a pass of several column launches
-// leaves to one gat_bwd_demb over all of their dmsg columns. route 0, the CUDA-core kernels (either dtype): the
+// leaves to one demb launch over all of their dmsg columns (gat_demb.cu
+// `gat_demb_tc`, or gat_bwd_demb on route 0). route 0, the CUDA-core
+// kernels (either dtype): the
 // edge kernel takes any D, the demb and dW launches a slice of W's rows a
 // block (a grid dimension); w_t is w transposed in slices, (D / d_slice,
 // HD, d_slice); db_part (G * ceil(E / 64), HD) is scratch; warps, n_blocks
@@ -764,40 +767,29 @@ extern "C" int gat_bwd_pass2(
 
 // demb = cot W^T (+ add), rounded to the dtype once: the demb product of a
 // backward pass whose column launches ran with demb null, over all HD
-// columns of their cotangent rows (ROADMAP C17). cot (G, E, HD) contiguous,
-// add (G, E, D) or null, demb (G, E, D); add may be demb (pass 2, in
-// place). D and HD multiples of 8 (any size), 16-byte aligned arrays.
-// route 1, tensor cores (gat_bwd_tc.cuh `demb_tc_kernel`): w (D, HD) is W
-// rounded to bf16 in bf16, W itself in f32; w_t is not read. route 0, CUDA
-// cores (`demb_kernel`, W rounded as it loads it): w_t is W^T in slices of
-// d_slice of its rows, (D / d_slice, HD, d_slice); w is not read.
-extern "C" int gat_bwd_demb(const void* cot, const void* w, const void* w_t,
+// columns of their cotangent rows (ROADMAP C17), on CUDA cores
+// (`demb_kernel`, W rounded as it loads it): route 0 of `bwd_demb`, whose
+// route 1 is csrc/gat_demb.cu `gat_demb_tc`. cot (G, E, HD) contiguous, add
+// (G, E, D) or null, demb (G, E, D); add may be demb (pass 2, in place).
+// w_t is W^T in slices of d_slice of its rows, (D / d_slice, HD, d_slice).
+// D and HD multiples of 8 (any size), 16-byte aligned arrays.
+extern "C" int gat_bwd_demb(const void* cot, const void* w_t,
                             const void* add, void* demb, int G, int E, int D,
-                            int HD, int d_slice, int dtype, int route,
-                            void* stream) {
+                            int HD, int d_slice, int dtype, void* stream) {
   if (D <= 0 || D % 8 != 0 || HD <= 0 || HD % 8 != 0 || G < 0 || E < 0 ||
-      !aligned16(cot) || !aligned16(w) || !aligned16(w_t) ||
-      !aligned16(add) || !aligned16(demb) || (dtype != 0 && dtype != 1) ||
-      (route == 1 ? w == nullptr
-                  : route != 0 || w_t == nullptr || d_slice <= 0 ||
-                        d_slice % 8 != 0 || d_slice > MAX_HD ||
-                        D % d_slice != 0))
+      !aligned16(cot) || !aligned16(w_t) || !aligned16(add) ||
+      !aligned16(demb) || (dtype != 0 && dtype != 1) || w_t == nullptr ||
+      d_slice <= 0 || d_slice % 8 != 0 || d_slice > MAX_HD ||
+      D % d_slice != 0)
     return (int)cudaErrorInvalidValue;
   if ((long long)G * E == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  const long long M = (long long)G * E;
   if (dtype == 1) {
     typedef __nv_bfloat16 T;
-    if (route == 1)
-      return launch_demb_tc<T>((const T*)cot, (const T*)w, (const T*)add,
-                               (T*)demb, M, D, HD, s);
     demb_launch<T>((const T*)cot, (const float*)w_t, (const T*)add,
                    (T*)demb, G, E, D, d_slice, HD, s);
   } else {
     typedef float T;
-    if (route == 1)
-      return launch_demb_tc<T>((const T*)cot, (const T*)w, (const T*)add,
-                               (T*)demb, M, D, HD, s);
     demb_launch<T>((const T*)cot, (const float*)w_t, (const T*)add,
                    (T*)demb, G, E, D, d_slice, HD, s);
   }

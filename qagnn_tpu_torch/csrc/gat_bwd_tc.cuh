@@ -175,7 +175,7 @@ struct TcArgs {
   const uint8_t* mask;
   const T* add;               // carry (may be null) or demb itself
   T* cot;                     // (G, E, HD) rows for the dW launch
-  T* demb;                    // null: no product 2 (`demb_tc_kernel`'s)
+  T* demb;                    // null: no product 2 (gat_demb.cu's)
   float* dalpha_out;          // pass 1
   float* acc_src;             // pass 1: dnm; pass 2: dnq
   float* acc_dst;             // pass 2: dnk
@@ -402,7 +402,7 @@ edge_pass_tc_kernel(const TcArgs<T> a) {
   T* s_cot = reinterpret_cast<T*>(mine);
   constexpr int ldc = S::ld32 * 4 / (int)sizeof(T);
   const int Dp = round_up16(D), HDp = round_up16(HD);
-  // product 2 is this launch's, or the pass leaves it to demb_tc_kernel
+  // product 2 is this launch's, or the pass leaves it to gat_demb.cu
   const bool demb_on = a.demb != nullptr;
   const TcBwdTables t(reinterpret_cast<float*>(mine + S::stage_bytes));
 
@@ -1032,299 +1032,6 @@ int launch_pass_tc(TcArgs<T> a, float* dw_part, float* dw, float* db,
       dw_part, dw, n_split, D * HD);
   reduce_partials_kernel<<<(HD + 31) / 32, dim3(32, 8), 0, s>>>(
       a.db_part, db, n_blocks, HD);
-  return (int)cudaGetLastError();
-}
-
-// Launch 5 of a pass that runs in more than one column launch,
-// `demb_tc_kernel<T>`: demb = cot W^T (+ add) over all of HD, the product
-// the column launches leave out (their edge kernels run with demb null), so
-// that demb is rounded to T once a pass, as the TPU's one pass over all
-// columns rounds it (ROADMAP C17). cot (M, HD) holds every column launch's
-// cotangent rows (M = G E slots; zeros at masked slots, so demb there is
-// add, or 0), W (D, HD) is rounded to bf16 by the wrapper in bf16 and W
-// itself in f32, add (M, D) is the carry, pass 1's demb (pass 2: add is
-// demb, each element read by the thread that writes it, before it does),
-// or null. A block takes a tile of BM slots x BN of demb's columns (1-D
-// grid, the column tiles of one slot tile in a row, so that its cot rows
-// are read from L2 by the others), streams the depth HD through a cp.async
-// ring of BK-deep slices of both operands (each [row][depth], W's rows as
-// they lie: the product with W's transpose), and each of its 8 warps keeps
-// an MI x 16 by NJ x 8 share of the tile in registers. bf16: `mma.sync`
-// m16n8k16 on 64 x 64 a warp (so that a fragment loaded from shared memory
-// feeds 4 or 8 products), each product, 16 of depth, into a fresh
-// accumulator that FADD adds to the tile's (ROADMAP C16: the tensor core's
-// own sum truncates), slices 64 deep in a ring of 3; the result staged
-// through shared memory half a warp's rows at a time and written 16 bytes a
-// lane. Variants timed on an H100 at D = 1040, HD = 1056 (gat_variants.py
-// --passes demb; PERF.md §6): 128 x 128 tiles of 64 x 32 a warp 4.35
-// ms, 256 x 128 of 64 x 64 with 32-deep slices 3.46-3.95 (its loads and
-// stores alone 1.82, its products alone 3.05), this 3.23, this without
-// the fresh accumulator 2.55; cuBLAS's addmm of the same function 1.18.
-// f32: mma_split_tf32 (fresh a 16 of depth) on 32 x 64 a warp, W's tile in
-// w32_col's layout, written from the accumulators, a quad's 32 bytes a row
-// (13.0 ms there, cuBLAS's f32 addmm 13.2).
-constexpr int DEMB_WARPS = 8;
-
-template <typename T>
-struct DembTile;
-template <>
-struct DembTile<bf16> {
-  // warps 4 x 2 on 256 slots x 128 columns; pitches an odd multiple of 16
-  // bytes (mma_tile.cuh)
-  static constexpr int BM = 256, BN = 128, BK = 64, STAGES = 3;
-  static constexpr int WN = 2, MI = 4, NJ = 8;
-  static constexpr int lda = BK + 8, ldb = BK + 8;
-};
-template <>
-struct DembTile<float> {
-  // warps 4 x 2 on 128 x 128; lda % 32 = 4 and ldb % 32 = 8, as the split
-  // product's loads want them
-  static constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3;
-  static constexpr int WN = 2, MI = 2, NJ = 8;
-  static constexpr int lda = BK + 4, ldb = BK + 8;
-};
-
-template <typename T>
-__host__ __device__ constexpr int demb_stage_elems() {
-  return DembTile<T>::BM * DembTile<T>::lda +
-         DembTile<T>::BN * DembTile<T>::ldb;
-}
-
-template <typename T>
-__host__ __device__ constexpr size_t demb_smem_bytes() {
-  return (size_t)DembTile<T>::STAGES * demb_stage_elems<T>() * sizeof(T);
-}
-
-// acc += the warp's share of one staged slice: A its MI x 16 slots
-// [slot][depth] at sA, B its NJ x 8 columns [column][depth] at sB, a step
-// of 16 of depth at a time: the step's fragments, then each product into a
-// fresh accumulator that FADD adds to the tile's, the step's products side
-// by side (no product waits on the one before).
-__device__ __forceinline__ void demb_slice_product(
-    const bf16* sA, const bf16* sB,
-    float (&acc)[DembTile<bf16>::MI][DembTile<bf16>::NJ][4]) {
-  typedef DembTile<bf16> S;
-  constexpr int KS = S::BK / 16;
-  const int lane = threadIdx.x & 31;
-  const bf16* a_ptr = a_frag_ptr(sA, S::lda, lane);
-  const bf16* b_ptr = b_frag_ptr(sB, S::ldb, lane);
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    uint32_t af[S::MI][4], bf[S::NJ / 2][4];
-#pragma unroll
-    for (int i = 0; i < S::MI; ++i)
-      ldmatrix_x4(af[i], a_ptr + i * 16 * S::lda + ks * 16);
-#pragma unroll
-    for (int jp = 0; jp < S::NJ / 2; ++jp)
-      ldmatrix_x4(bf[jp], b_ptr + jp * 16 * S::ldb + ks * 16);
-#pragma unroll
-    for (int i = 0; i < S::MI; ++i)
-#pragma unroll
-      for (int j = 0; j < S::NJ; ++j) {
-        float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_bf16_16x8x16(t, af[i], bf[j / 2][(j & 1) * 2],
-                         bf[j / 2][(j & 1) * 2 + 1]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[i][j][r] += t[r];
-      }
-  }
-}
-
-__device__ __forceinline__ void demb_slice_product(
-    const float* sA, const float* sB,
-    float (&acc)[DembTile<float>::MI][DembTile<float>::NJ][4]) {
-  typedef DembTile<float> S;
-  const int lane = threadIdx.x & 31;
-  // A's ldmatrix rows as in warp_rows_product; B's [column][depth] read,
-  // swizzled by its row (w32_col; the warp's rows start at a multiple of 8)
-  const float* a_ptr =
-      sA + ((lane & 7) + ((lane >> 3) & 1) * 8) * S::lda + (lane >> 4) * 4;
-  const float* bt_ptr = sB + ((lane & 7) + (lane >> 4) * 8) * S::ldb +
-                        ((((lane >> 3) & 1) * 4) ^ (lane & 4));
-#pragma unroll
-  for (int ks = 0; ks < S::BK / 16; ++ks) {
-    uint32_t a_hi[S::MI][2][4], a_lo[S::MI][2][4];
-#pragma unroll
-    for (int i = 0; i < S::MI; ++i)
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        uint32_t a[4];
-        ldmatrix_x4(a, a_ptr + i * 16 * S::lda + (2 * ks + s) * 8);
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          split_tf32(__uint_as_float(a[q]), a_hi[i][s][q], a_lo[i][s][q]);
-      }
-#pragma unroll
-    for (int j = 0; j < S::NJ; j += 2) {
-      float b[2][2][2];
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        uint32_t r[4];
-        ldmatrix_x4(r, bt_ptr + (j * 8) * S::ldb + (2 * ks + s) * 8);
-        b[s][0][0] = __uint_as_float(r[0]);
-        b[s][0][1] = __uint_as_float(r[1]);
-        b[s][1][0] = __uint_as_float(r[2]);
-        b[s][1][1] = __uint_as_float(r[3]);
-      }
-#pragma unroll
-      for (int i = 0; i < S::MI; ++i)
-        mma_split_tf32(acc[i] + j, a_hi[i], a_lo[i], b);
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(32 * DEMB_WARPS, 1)
-demb_tc_kernel(const T* __restrict__ cot, const T* __restrict__ w,
-               const T* add, T* demb, long long M, int D, int HD) {
-  extern __shared__ __align__(16) unsigned char demb_smem[];
-  typedef DembTile<T> S;
-  constexpr int EL = 16 / (int)sizeof(T);     // elements a 16-byte piece
-  constexpr int PIECES = S::BK / EL;          // pieces a row of a slice
-  static_assert((S::BM / (S::MI * 16)) * S::WN == DEMB_WARPS &&
-                    S::WN * S::NJ * 8 == S::BN,
-                "the warps cover the block's tile");
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / S::WN, wn = warp % S::WN;
-  const int n_tiles = (D + S::BN - 1) / S::BN;
-  const long long m0 = (long long)(blockIdx.x / n_tiles) * S::BM;
-  const int n0 = (int)(blockIdx.x % n_tiles) * S::BN;
-  const int n_k = (HD + S::BK - 1) / S::BK;
-  T* ring = reinterpret_cast<T*>(demb_smem);
-
-  // slice kt of both operands into stage kt % STAGES; zeros past M, D and
-  // HD (HD is a multiple of 8: a piece is in or out whole)
-  auto load_slice = [&](int kt) {
-    T* sA = ring + (kt % S::STAGES) * demb_stage_elems<T>();
-    T* sB = sA + S::BM * S::lda;
-    const int k0 = kt * S::BK;
-#pragma unroll
-    for (int p = tid; p < S::BM * PIECES; p += 32 * DEMB_WARPS) {
-      const int r = p / PIECES, kk = p % PIECES * EL;
-      T* to = sA + r * S::lda + kk;
-      if (m0 + r < M && k0 + kk < HD)
-        cp_async16(to, cot + (m0 + r) * HD + k0 + kk);
-      else
-        *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int p = tid; p < S::BN * PIECES; p += 32 * DEMB_WARPS) {
-      const int r = p / PIECES, kk = p % PIECES * EL;
-      T* to = sB + r * S::ldb + (sizeof(T) == 4 ? w32_col(r, kk) : kk);
-      if (n0 + r < D && k0 + kk < HD)
-        cp_async16(to, w + (long long)(n0 + r) * HD + k0 + kk);
-      else
-        *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  };
-
-  float acc[S::MI][S::NJ][4] = {};
-  // one commit per slot of the ring, loaded or not, keeps the group count
-  // the same for every thread
-  for (int s = 0; s < S::STAGES - 1; ++s) {
-    if (s < n_k) load_slice(s);
-    cp_async_commit();
-  }
-#pragma unroll 1
-  for (int kt = 0; kt < n_k; ++kt) {
-    cp_async_wait<S::STAGES - 2>();
-    __syncthreads();       // slice kt has landed; slice kt - 1 is consumed
-    if (kt + S::STAGES - 1 < n_k) load_slice(kt + S::STAGES - 1);
-    cp_async_commit();
-    const T* sA = ring + (kt % S::STAGES) * demb_stage_elems<T>();
-    demb_slice_product(sA + wm * S::MI * 16 * S::lda,
-                       sA + S::BM * S::lda + wn * S::NJ * 8 * S::ldb, acc);
-  }
-  cp_async_wait<0>();
-
-  const int g = lane >> 2, tq = lane & 3;
-  const long long row0 = m0 + wm * S::MI * 16;
-  const int col0 = n0 + wn * S::NJ * 8;
-  if constexpr (sizeof(T) == 2) {
-    // half the warp's rows at a time through its share of the ring (every
-    // warp is done with the ring after the barrier), then 8 columns a
-    // lane: all of its loads of `add` before its stores
-    constexpr int HALF = S::MI / 2;                 // row tiles a half
-    constexpr int LDO = S::NJ * 8 + 4;
-    constexpr int PER_LANE = HALF * 16 * S::NJ / 32;
-    static_assert(DEMB_WARPS * HALF * 16 * LDO * 4 <= demb_smem_bytes<T>(),
-                  "the staged rows fit in the ring");
-    __syncthreads();
-    float* st = reinterpret_cast<float*>(demb_smem) + warp * HALF * 16 * LDO;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-#pragma unroll
-      for (int i = 0; i < HALF; ++i)
-#pragma unroll
-        for (int j = 0; j < S::NJ; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            *reinterpret_cast<float2*>(st + (i * 16 + g + 8 * h) * LDO +
-                                       j * 8 + 2 * tq) =
-                make_float2(acc[half * HALF + i][j][2 * h],
-                            acc[half * HALF + i][j][2 * h + 1]);
-      __syncwarp();
-      const long long rows = row0 + half * HALF * 16;
-      uint4 kept[PER_LANE];
-#pragma unroll
-      for (int it = 0; it < PER_LANE; ++it) {
-        const int p = lane + 32 * it, r = p / S::NJ, c = p % S::NJ * 8;
-        const long long m = rows + r;
-        kept[it] = make_uint4(0u, 0u, 0u, 0u);
-        if (add != nullptr && m < M && col0 + c < D)
-          kept[it] = *reinterpret_cast<const uint4*>(add + m * D + col0 + c);
-      }
-#pragma unroll
-      for (int it = 0; it < PER_LANE; ++it) {
-        const int p = lane + 32 * it, r = p / S::NJ, c = p % S::NJ * 8;
-        const long long m = rows + r;
-        if (m >= M || col0 + c >= D) continue;
-        const float4 p0 = *reinterpret_cast<const float4*>(st + r * LDO + c);
-        const float4 p1 =
-            *reinterpret_cast<const float4*>(st + r * LDO + c + 4);
-        float v[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-        float k[8];
-        unpack_bf16x8(kept[it], k);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] += k[j];
-        *reinterpret_cast<uint4*>(demb + m * D + col0 + c) = pack_bf16x8(v);
-      }
-      __syncwarp();      // every lane has read the half before it is reused
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < S::MI; ++i)
-#pragma unroll
-      for (int j = 0; j < S::NJ; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const long long m = row0 + i * 16 + g + 8 * h;
-          const int n = col0 + j * 8 + 2 * tq;
-          if (m >= M || n >= D) continue;
-          float2 v = make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-          if (add != nullptr) {
-            const float2 k = *reinterpret_cast<const float2*>(add + m * D + n);
-            v.x += k.x;
-            v.y += k.y;
-          }
-          *reinterpret_cast<float2*>(demb + m * D + n) = v;
-        }
-  }
-}
-
-template <typename T>
-int launch_demb_tc(const T* cot, const T* w, const T* add, T* demb,
-                   long long M, int D, int HD, cudaStream_t s) {
-  typedef DembTile<T> S;
-  const size_t smem = demb_smem_bytes<T>();
-  const long long blocks = (M + S::BM - 1) / S::BM * ((D + S::BN - 1) / S::BN);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      demb_tc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  demb_tc_kernel<T><<<(unsigned)blocks, 32 * DEMB_WARPS, smem, s>>>(
-      cot, w, add, demb, M, D, HD);
   return (int)cudaGetLastError();
 }
 

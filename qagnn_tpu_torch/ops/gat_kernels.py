@@ -83,7 +83,7 @@ heads, or more than 256 columns, as groups of whole heads (`head_groups`),
 one launch a group, on every device: every quantity of the op is per head,
 and in a backward pass of more than one launch each launch writes its edge
 cotangent rows into its columns of one (G, E, HD) array, of which one more
-launch (`bwd_demb`, csrc/gat_bwd_tc.cuh `demb_tc_kernel`) takes d_edge_emb
+launch (`bwd_demb`, csrc/gat_demb.cu `demb_tc_kernel`) takes d_edge_emb
 = cot W^T + carry (pass 1) or + pass 1's result (pass 2) over all HD
 columns, rounded once a pass as the TPU's one launch rounds it (ROADMAP
 C17). A single head of more than 256 features
@@ -106,6 +106,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -129,7 +130,10 @@ _SIGNATURES = {
 _BWD_SIGNATURES = {
     "gat_bwd_pass1": [_P] * 23 + [_I] * 14 + [_P],
     "gat_bwd_pass2": [_P] * 23 + [_I] * 13 + [_P],
-    "gat_bwd_demb": [_P] * 5 + [_I] * 7 + [_P],
+    "gat_bwd_demb": [_P] * 4 + [_I] * 6 + [_P],
+}
+_DEMB_SIGNATURES = {
+    "gat_demb_tc": [_P] * 5 + [ctypes.c_longlong] + [_I] * 6 + [_P],
 }
 DW_SPLITS = 128      # edge ranges (rows of partials) of the dW products
 # the tensor-core routes (csrc/gat_fwd_tc.cuh, csrc/gat_bwd_tc.cuh)
@@ -153,6 +157,27 @@ BWD_STREAM_TILES = ((128, 12), (144, 12), (208, 8), (256, 8))
 # tests/test_torch_fwd_f32_route.py hold them to csrc)
 TC_KC32 = 32
 STREAM32_TILES = ((64, 8), (128, 8), (144, 8), (208, 8), (256, 8))
+# rows 8 and 9's demb product on Hopper (csrc/gat_demb.cu `demb_tc_kernel`):
+# the column tile widths each dtype's kernel is built at, a tile's slots
+# (two consumer warpgroups of 2 x 64 rows in bf16, 64 in f32), W's tiles a
+# slice (f32: hi and lo), the slices' depth in bytes (the 128-byte
+# swizzle), the ring's most slots and the shared memory a block may ask for
+# (tests/test_torch_demb_plan.py holds them to csrc)
+DEMB_WIDTHS = {torch.bfloat16: (40, 72, 104, 136, 176, 200),
+               torch.float32: (40, 72, 104, 136)}
+DEMB_ROWS = {torch.bfloat16: 256, torch.float32: 128}
+DEMB_B_TILES = {torch.bfloat16: 1, torch.float32: 2}
+DEMB_SLICE = 128
+DEMB_ALIGN = 1024
+DEMB_MAX_STAGES = 8
+# a plan's cost: its columns computed times the larger of 1 and this weight
+# times the tile's operand elements a product, (BM + B_TILES BN) / (BM BN),
+# which the L2 must bring the tile: in bf16 about the tensor cores' rate
+# over the L2's (989 TFLOP/s against roughly 6 TB/s), so that wider tiles
+# win where they waste few columns; in f32 less, the split-TF32 products
+# bounding it (PERF.md: on an H100 the bf16 kernel ran fastest at 176 of
+# 1040 and 512 columns, the f32 one at 104)
+DEMB_L2_WEIGHT = {torch.bfloat16: 165.0, torch.float32: 40.0}
 
 
 def _lib():
@@ -161,6 +186,10 @@ def _lib():
 
 def _bwd_lib():
     return _build.load("gat_bwd", _BWD_SIGNATURES)
+
+
+def _demb_lib():
+    return _build.load("gat_demb", _DEMB_SIGNATURES)
 
 
 def _dtype_code(t: torch.Tensor) -> int:
@@ -1112,7 +1141,75 @@ def _bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
     return dekb if demb is None else demb, dnq, dnk, dw, db
 
 
-def bwd_demb(cot, w, add, out=None, _route=None):
+class DembPlan(NamedTuple):
+    """How `demb_tc_kernel` runs demb = cot W^T (+ add) at (D, HD): tiles of
+    `bm` slots x `bn` of demb's columns, `n_tiles` of them over D (the last
+    cut at D by the stores), the depth HD in `k_tiles` slices of `bk`
+    through a ring of `stages` slots, `smem` bytes of shared memory. Its
+    TMA boxes, (inner elements, rows, in the 128-byte swizzle): `operand_box`
+    cot's (bm rows) and W's (bn rows) slices, `out_box` add's and demb's,
+    a 64-row block of a consumer warpgroup's rows at a time."""
+    bn: int
+    n_tiles: int
+    bm: int
+    bk: int
+    k_tiles: int
+    stages: int
+    smem: int
+    operand_box: tuple
+    out_box: tuple
+
+
+def demb_smem_bytes(cdt, bn: int, stages: int) -> int:
+    """csrc/gat_demb.cu `demb_smem_bytes`: the alignment slack, the ring
+    (each slot a slice of cot's bm rows and of W's bn rows, hi and lo in
+    f32), both consumers' staging of a 64-row block in cdt, the
+    barriers."""
+    bm, es = DEMB_ROWS[cdt], torch.finfo(cdt).bits // 8
+    stage = (bm + DEMB_B_TILES[cdt] * bn) * DEMB_SLICE
+    return DEMB_ALIGN + stages * stage + 2 * 64 * bn * es \
+        + (2 * stages + 4) * 8
+
+
+def demb_plan(D: int, HD: int, cdt, bn: int | None = None) -> DembPlan:
+    """The tile plan of `bwd_demb`'s route 1 at (D, HD) in cdt: of the
+    widths the kernel is built at (DEMB_WIDTHS), the one whose column tiles
+    cover D at the least cost, the columns they compute (a ragged last tile
+    computes columns it drops) weighed by their L2 traffic
+    (DEMB_L2_WEIGHT), a larger width on a tie; then the most ring slots
+    that fit beside the staging, at most DEMB_MAX_STAGES. bf16: 1040 -> 6
+    tiles of 176, 512 -> 3 of 176, 200 -> 200, 104 -> 104; f32 at 1040
+    10 of 104. `bn` names a width instead, to time it (the C entry refuses
+    a width the kernel is not built at)."""
+    if D <= 0 or D % 8 or HD <= 0 or HD % 8:
+        raise ValueError(f"demb takes D and HD multiples of 8, got {D}, {HD}")
+    bm, nb = DEMB_ROWS[cdt], DEMB_B_TILES[cdt]
+
+    def cost(w):
+        n = -(-D // w)
+        return n * w * max(1.0, DEMB_L2_WEIGHT[cdt] * (bm + nb * w)
+                            / (bm * w)), -w
+
+    if bn is None:
+        bn = min(DEMB_WIDTHS[cdt], key=cost)
+    stages = max((s for s in range(2, DEMB_MAX_STAGES + 1)
+                  if demb_smem_bytes(cdt, bn, s) <= TC_SMEM_LIMIT), default=2)
+    bk = DEMB_SLICE // (torch.finfo(cdt).bits // 8)
+    return DembPlan(bn, -(-D // bn), bm, bk, -(-HD // bk), stages,
+                    demb_smem_bytes(cdt, bn, stages), (bk, bn, True),
+                    (bn, 64, False))
+
+
+def _tf32_split(w):
+    """W's tf32 hi (x rounded to tf32 to nearest, ties away: bits + 0x1000,
+    the low 13 cleared) and lo = W - hi, exact: csrc/mma_tile.cuh
+    `split_tf32` bit for bit, once a call, what `demb_tc_kernel` reads as
+    its two B operands in f32."""
+    hi = ((w.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return hi, w - hi
+
+
+def bwd_demb(cot, w, add, out=None, _route=None, _plan=None):
     """The demb product of a backward pass of more than one launch (rows 8
     and 9, C17): demb = cot W^T (+ add) over all HD columns, summed in f32
     and rounded to cot's dtype once, as `_bwd1_proj_kernel` and
@@ -1121,10 +1218,12 @@ def bwd_demb(cot, w, add, out=None, _route=None):
     there is add, or 0); w (D, HD) f32, rounded to cot's dtype as the
     kernels round it; add (G, E, D) in cot's dtype or None: pass 1's carry
     or pass 2's demb. `out`: where the kernel writes demb (add itself for
-    pass 2's in-place add; a new array if None). One launch
-    (csrc/gat_bwd.cu `gat_bwd_demb`): route 1 on tensor cores,
-    `demb_tc_kernel` (bf16 products in bf16, split-TF32 ones in f32), route
-    0 on CUDA cores (`demb_kernel`) when named, as the passes' `_route`."""
+    pass 2's in-place add; a new array if None). One launch: route 1,
+    csrc/gat_demb.cu `gat_demb_tc` (`demb_tc_kernel`: wgmma from a TMA-fed
+    ring, bf16 products in bf16, split-TF32 ones in f32, W split once a
+    call by `_tf32_split`; its tiles `demb_plan`, or `_plan`), route 0 on
+    CUDA cores, csrc/gat_bwd.cu `gat_bwd_demb` (`demb_kernel`), when named,
+    as the passes' `_route`."""
     if not cot.is_cuda:
         return bwd_demb_plain(cot, w, add)
     G, E, HD = cot.shape
@@ -1139,15 +1238,24 @@ def bwd_demb(cot, w, add, out=None, _route=None):
     else:
         _require(out, "out", cdt, (G, E, D))
     route = _bwd_route(cdt, _route)
-    width = d_slices(D)[1]
-    w_t = None if route == 1 else _sliced_transpose(w, width)
-    # W as route 1 reads it: rounded to bf16 in bf16, itself in f32
-    wr = _streamed_w(route, w, lambda _: True, cdt)
-    err = _bwd_lib().gat_bwd_demb(
-        cot.data_ptr(), None if wr is None else wr.data_ptr(),
-        None if w_t is None else w_t.data_ptr(),
-        None if add is None else add.data_ptr(), out.data_ptr(), G, E, D, HD,
-        width, _dtype_code(cot), route, _stream())
+    add_ptr = None if add is None else add.data_ptr()
+    if route == 1:
+        plan = _plan or demb_plan(D, HD, cdt)
+        if cdt == torch.float32:
+            wb, w_lo = _tf32_split(w)
+        else:
+            wb, w_lo = w.to(torch.bfloat16), None
+        err = _demb_lib().gat_demb_tc(
+            cot.data_ptr(), wb.data_ptr(),
+            None if w_lo is None else w_lo.data_ptr(), add_ptr,
+            out.data_ptr(), G * E, D, HD, plan.bn, plan.stages,
+            _sm_count(cot.device), _dtype_code(cot), _stream())
+    else:
+        width = d_slices(D)[1]
+        w_t = _sliced_transpose(w, width)
+        err = _bwd_lib().gat_bwd_demb(
+            cot.data_ptr(), w_t.data_ptr(), add_ptr, out.data_ptr(), G, E,
+            D, HD, width, _dtype_code(cot), _stream())
     _build.check(err, "gat_bwd_demb")
     _build.count_launch("gat_bwd_demb", route)
     return out

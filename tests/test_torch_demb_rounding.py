@@ -3,7 +3,7 @@
 A pass whose columns run as more than one launch (`gk.launches`: more than
 8 heads, more than 256 columns, or a head wider than 256 features) writes
 each launch's cotangent rows into its columns of one (G, E, HD) array, and
-one more launch (`bwd_demb`, csrc/gat_bwd_tc.cuh `demb_tc_kernel`) forms
+one more launch (`bwd_demb`, csrc/gat_demb.cu `demb_tc_kernel`) forms
 demb = cot W^T + add over all HD columns in f32 and rounds it once, as
 `_bwd1_proj_kernel` / `_bwd2_proj_kernel` do in their one pass over all
 columns (ROADMAP C17; before, each launch's bf16 demb was the next one's
@@ -296,9 +296,13 @@ def test_single_launch_pass_is_unchanged(monkeypatch, width, dt):
 
 # the positions among the C entry points' arguments: pass 1's carry, dmsg
 # and demb, pass 2's dekb and demb, and the cotangent rows' stride (the last
-# int of either pass); gat_bwd_demb's cot, w, w_t, add, demb and route
+# int of either pass); the demb launch's cot, W (route 1: W rounded to
+# bf16 and W's tf32 lo, None in bf16; route 0: W^T in slices), add and
+# demb, and route 1's tile width and ring slots
 P1_CARRY, P1_COT, P1_DEMB, P2_COT, P2_DEMB, LD_COT = 12, 13, 14, 14, 15, -2
-DM_COT, DM_W, DM_WT, DM_ADD, DM_OUT, DM_ROUTE = 0, 1, 2, 3, 4, 11
+DM_COT, DM_W = 0, 1
+DM_ADD, DM_OUT = {1: 3, 0: 2}, {1: 4, 0: 3}
+DM_W_LO, DM_BN, DM_STAGES = 2, 8, 9
 
 
 @pytest.mark.parametrize("route", [1, 0])
@@ -316,11 +320,13 @@ def test_wrappers_run_one_demb_launch_a_pass(monkeypatch, D, HD, heads,
                     .as_subclass(_OnCard))
         return cots[-1]
     monkeypatch.setattr(gk, "_bwd_lib", lambda: lib)
+    monkeypatch.setattr(gk, "_demb_lib", lambda: lib)
     monkeypatch.setattr(gk, "_sm_count", lambda dev: 132)
     monkeypatch.setattr(gk, "_stream", lambda: 0)
     monkeypatch.setattr(gk, "_cot_rows", cot_rows)
     acc = lambda *s: _card(torch.zeros(s))  # noqa: E731
     plan = gk.launches(HD, heads)
+    entry = "gat_demb_tc" if route == 1 else "gat_bwd_demb"
     try:
         demb = gk.bwd_pass1(*_pass1_args(t, True), acc(G, N, HD),
                             acc(G, N, heads), heads, _route=route)[0]
@@ -337,8 +343,8 @@ def test_wrappers_run_one_demb_launch_a_pass(monkeypatch, D, HD, heads,
                        ("gat_bwd_pass2", route): n,
                        ("gat_bwd_demb", route): 2})
     names = [name for name, _ in lib.calls]
-    assert names == ["gat_bwd_pass1"] * n + ["gat_bwd_demb"] \
-        + ["gat_bwd_pass2"] * n + ["gat_bwd_demb"]
+    assert names == ["gat_bwd_pass1"] * n + [entry] \
+        + ["gat_bwd_pass2"] * n + [entry]
     for k, (cot, first) in enumerate(((cots[0], 0), (cots[1], n + 1))):
         launches = lib.calls[first:first + n]
         demb_call = lib.calls[first + n][1]
@@ -352,13 +358,16 @@ def test_wrappers_run_one_demb_launch_a_pass(monkeypatch, D, HD, heads,
             assert args[at_cot] == cot.data_ptr() + 2 * c0
             assert args[LD_COT] == HD
         assert demb_call[DM_COT] == cot.data_ptr()
-        assert demb_call[DM_ROUTE] == route
-        assert (demb_call[DM_W] is None) == (route == 0)
-        assert (demb_call[DM_WT] is None) == (route == 1)
+        assert demb_call[DM_W] is not None
+        if route == 1:
+            want = gk.demb_plan(D, HD, BF16)
+            assert demb_call[DM_W_LO] is None
+            assert demb_call[DM_BN:DM_STAGES + 1] == (want.bn, want.stages)
+        add_at, out_at = DM_ADD[route], DM_OUT[route]
         if k == 0:
-            assert demb_call[DM_ADD] == t["carry"].data_ptr()
-            assert demb_call[DM_OUT] == demb.data_ptr()
+            assert demb_call[add_at] == t["carry"].data_ptr()
+            assert demb_call[out_at] == demb.data_ptr()
         else:
             # pass 2 adds into pass 1's demb in place
-            assert demb_call[DM_ADD] == demb_call[DM_OUT] == demb.data_ptr()
+            assert demb_call[add_at] == demb_call[out_at] == demb.data_ptr()
             assert demb2 is demb

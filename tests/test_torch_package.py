@@ -26,7 +26,7 @@ SOURCES = sorted((ROOT / "qagnn_tpu_torch").rglob("*.py")) \
 
 
 CSRC = sorted((ROOT / "qagnn_tpu_torch" / "csrc").glob("*.cu*"))
-ALLOWED_INCLUDES = {"cuda_runtime.h", "cuda_bf16.h", "stdint.h"}
+ALLOWED_INCLUDES = {"cuda.h", "cuda_runtime.h", "cuda_bf16.h", "stdint.h"}
 
 
 NATIVE = sorted((ROOT / "qagnn_tpu_torch" / "native").glob("*.cc"))
