@@ -1342,25 +1342,129 @@ def phase_gat_bwd_demb(gen, dev, reports, card):
                         f"TMA load: {counts}")
 
 
-def phase_dw_yardstick(gen, dev, card):
-    """The yardstick of rows 8 and 9's dW launch (`dw_tc_kernel`), a
-    measurement only: torch.mm of the same product, emb^T cot over the G E
-    slots in the pass's dtype, at the preset's widths and at gnn_dim 512
-    and 1040, over all of HD and over one launch's columns (a pass of
-    several launches runs one dW launch each); the kernel's own times are
-    the profiler's lines of the `bwd` and `widths` phases."""
+# rows 8 and 9's dW launch: the preset's widths, the demb tails' and the
+# kernels' widths of gnn_dim 512 and 1040 (4 heads), (D, HD)
+DW_WIDTHS = ((200, 200), (104, 104), (104, 128), (200, 256), (512, 512),
+             (1040, 1056))
+
+
+def dw_bias(got, ref) -> tuple[float, float]:
+    """dW's signed bias against its f64 value `ref`, as shares of sum
+    |ref|: toward zero (sum sign(ref) (got - ref), the drift of a
+    truncating sum) and plain (sum (got - ref))."""
+    d = got.double() - ref
+    top = ref.abs().sum().item()
+    return ((d * ref.sign()).sum().item() / top, d.sum().item() / top)
+
+
+def phase_gat_bwd_dw(gen, dev, reports, card):
+    """Rows 8 and 9's weight gradient (`bwd_dw`), the one launch a route-1
+    backward pass makes it in: route 1 (csrc/gat_dw.cu, wgmma fed by TMA)
+    against its plain version at DW_WIDTHS, E and E - 3, in both dtypes
+    (compare at TOL["bwd"]), one launch a call on the route asked for;
+    zero cotangent rows (masked slots) add exactly nothing: the result is
+    bit for bit the same with emb's rows there replaced. Then at the
+    preset, gnn_dim 512 and 1040 in both dtypes: route 1's time in turns
+    with route 0 (the mma.sync kernel the passes ran before, over all HD
+    columns: previous_ms), which must be slower, torch.mm of emb^T cot
+    over all HD (library_ms),
+    the plain version and the bound (operations at `tc_peak` over the live
+    slots, or the operands' bytes), with the plan; the preset in bf16 filed
+    in `reports`; dW's signed f64 bias at 1040 on both routes, route 1's no
+    larger than route 0's (C16); the device time by kernel. And the count
+    of wgmma (HGMMA), TMA (UTMALDG) and local-memory (LDL, STL)
+    instructions in the library's SASS: route 1 runs on the first two and
+    spills nothing, or the phase fails."""
     r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
-    for width in (200, WIDE_D, WIDER_D):
-        D, HD = gk.kernel_widths(width, width, HEADS)
-        c0, c1 = gk.launches(HD, HEADS)[0][2:]
-        for dt in (torch.bfloat16, torch.float32):
-            emb, cot = r(G * E, D).to(dt), r(G * E, HD).to(dt)
-            whole = device_ms(lambda: torch.mm(emb.t(), cot))
-            one = device_ms(lambda: torch.mm(emb.t(), cot[:, c0:c1]))
-            log(f"  time dW yardstick D={D} HD={HD} {dt}: torch.mm "
-                f"{whole:.4f} ms over all of HD, {one:.4f} ms over a "
-                f"launch's {c1 - c0} columns  [{card}]")
-            del emb, cot
+    timed = {(200, 200), gk.kernel_widths(WIDE_D, WIDE_D, HEADS),
+             gk.kernel_widths(WIDER_D, WIDER_D, HEADS)}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for D, HD in DW_WIDTHS:
+        for n_edges in (E - 3, E):
+            mask = graph_inputs(gen, dev, n_edges)[2]
+            dead = ~mask
+            for dt in (torch.float32, torch.bfloat16):
+                emb = torch.relu(r(G, n_edges, D)).to(dt)
+                cot = (r(G, n_edges, HD) * mask[..., None]).to(dt)
+                want = gk.bwd_dw_plain(emb, cot)
+                other = emb.clone()
+                other[dead] = (r(int(dead.sum()), D) * 50).to(dt)
+                errs = {}
+                for route in (0, 1):
+                    tag = f"D={D} HD={HD} E={n_edges} {dt} route {route}"
+                    _build.reset_launch_counts()
+                    got = gk.bwd_dw(emb, cot, _route=route)
+                    counts = (_build.LAUNCHES["gat_bwd_dw"],
+                              _build.ROUTES["gat_bwd_dw", route])
+                    if counts != (1, 1):
+                        FAILURES.append(f"gat_bwd_dw launches {tag}: "
+                                        f"{counts}")
+                    errs[route] = compare(f"gat_bwd_dw {tag}", got, want,
+                                          TOL["bwd"][dt])
+                    if not torch.equal(gk.bwd_dw(other, cot, _route=route),
+                                       got):
+                        FAILURES.append(f"gat_bwd_dw masked slots {tag}")
+                if (D, HD) not in timed or n_edges != E:
+                    continue
+                plan = gk.dw_plan(D, HD, G * n_edges, dt, n_sm)
+                log(f"  gat_bwd_dw D={D} HD={HD} {dt}: tiles of {plan.bm} x "
+                    f"{plan.bn}, {plan.n_tiles} of them, {plan.n_ranges} "
+                    f"ranges of {plan.chunk} slots in slices of "
+                    f"{plan.bk}, a ring of "
+                    f"{plan.stages}, {plan.smem} bytes of shared memory, "
+                    f"{plan.blocks} blocks, partials "
+                    f"{plan.partial_bytes / 2 ** 20:.1f} MiB")
+                if (D, HD) == (WIDER_D, gk.kernel_widths(
+                        WIDER_D, WIDER_D, HEADS)[1]):
+                    e2, c2 = emb.reshape(-1, D), cot.reshape(-1, HD)
+                    ref = e2.double().t() @ c2.double()
+                    toward = {}
+                    for route in (1, 0):
+                        toward[route], plain = dw_bias(
+                            gk.bwd_dw(emb, cot, _route=route), ref)
+                        log(f"  gat_bwd_dw D={D} HD={HD} {dt} route {route}:"
+                            f" signed f64 bias of sum |dW|, toward zero "
+                            f"{toward[route]:+.3e}, plain {plain:+.3e}")
+                    if abs(toward[1]) > abs(toward[0]):
+                        FAILURES.append(
+                            f"gat_bwd_dw D={D} HD={HD} {dt}: route 1's bias "
+                            f"toward zero {toward[1]:+.3e} exceeds route 0's "
+                            f"{toward[0]:+.3e} (C16)")
+                    del e2, c2, ref
+                live = mask.float().mean().item()
+                name = f"gat_bwd_dw D={D} HD={HD} {dt}"
+                ms = faster_than_previous(
+                    name, lambda: gk.bwd_dw(emb, cot),
+                    lambda: gk.bwd_dw(emb, cot, _route=0),
+                    "the mma.sync kernel over all HD columns on the same "
+                    "inputs")
+                plain_ms = device_ms(lambda: gk.bwd_dw_plain(emb, cot))
+                e2, c2 = emb.view(-1, D), cot.view(-1, HD)
+                lib_ms = device_ms(lambda: torch.mm(e2.t(), c2))
+                bound_ms, by = bound(nbytes(emb, cot) + 4 * D * HD,
+                                     2.0 * live * G * n_edges * D * HD, dt,
+                                     tc_peak(dt))
+                log(f"  time {name}: kernel {ms:.4f} ms  library (torch.mm) "
+                    f"{lib_ms:.4f} ms ({'at or below' if ms <= lib_ms else 'ABOVE'}"
+                    f" it)  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
+                    f"({by})  [{card}]")
+                if (D, HD) == (200, 200) and dt == torch.bfloat16:
+                    reports["gat_bwd_dw"].update(
+                        max_abs_err=errs[1], ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+                profile_kernels(f"gat_bwd_dw D={D} HD={HD} {dt}",
+                                lambda: gk.bwd_dw(emb, cot), iters=5)
+                del e2, c2
+            del emb, cot, other
+    counts = sass_counts("gat_dw", ops=("HGMMA", "UTMALDG", "LDL", "STL"))
+    log("  csrc/gat_dw.cu's SASS: " + ", ".join(
+        f"{op} {n}" for op, n in counts.items()))
+    if not counts["HGMMA"] or not counts["UTMALDG"]:
+        FAILURES.append("gat_bwd_dw: route 1's SASS has no wgmma or no "
+                        f"TMA load: {counts}")
+    if counts["LDL"] or counts["STL"]:
+        FAILURES.append("gat_bwd_dw: route 1's SASS reads or writes local "
+                        f"memory (spilled registers): {counts}")
 
 
 def unproj_inputs(gen, dev, n_edges, dt):
@@ -2193,15 +2297,15 @@ def set_dropout(model, cfg, enc_cfg, on: bool) -> None:
 
 
 ROUTED = ("gat_pass_a_scores", "gat_pass_c", "gat_bwd_pass1", "gat_bwd_pass2",
-          "gat_bwd_demb", "edge_hidden", "edge_hidden_bwd")
+          "gat_bwd_demb", "gat_bwd_dw", "edge_hidden", "edge_hidden_bwd")
 
 
 # the routes of a step with an f32 GNN: the forward passes A and C and
 # backward passes 1 and 2 on tensor cores (split TF32), the edge encoder's
 # route 1 (its backward's one-hot product on tf32)
 F32_ROUTES = {"gat_pass_a_scores": 1, "gat_pass_c": 1, "gat_bwd_pass1": 1,
-              "gat_bwd_pass2": 1, "gat_bwd_demb": 1, "edge_hidden": 1,
-              "edge_hidden_bwd": 1}
+              "gat_bwd_pass2": 1, "gat_bwd_demb": 1, "gat_bwd_dw": 1,
+              "edge_hidden": 1, "edge_hidden_bwd": 1}
 
 
 def check_routes(route, what: str) -> None:
@@ -2221,10 +2325,11 @@ def check_routes(route, what: str) -> None:
 
 def step_launches(k) -> dict:
     """Launches of each kernel in one forward + backward of the model on
-    the kernel path (k GAT layers)."""
+    the kernel path (k GAT layers): each backward pass also one dW
+    launch."""
     return {"edge_moments": 1, "edge_hidden": 1, "gat_pass_a_scores": k,
             "gat_pass_a_denoms": k, "gat_pass_c": k, "gat_bwd_pass1": k,
-            "gat_bwd_pass2": k, "edge_hidden_bwd": 1}
+            "gat_bwd_pass2": k, "gat_bwd_dw": 2 * k, "edge_hidden_bwd": 1}
 
 
 def check_launches(counts, n_steps, microbatches, k, what) -> None:
@@ -2498,7 +2603,7 @@ def phase_train(dev, reports, card, cfg, model, enc_cfg, gen):
     check_launches(counts, n_steps, 1, cfg.k, "bf16 steps")
     check_routes(1, "bf16 steps")
     for name in ("edge_moments", "edge_hidden_bwd", "gat_bwd_pass1",
-                 "gat_bwd_pass2"):
+                 "gat_bwd_pass2", "gat_bwd_dw"):
         reports[name]["launches"] = counts.get(name, 0)
     log("  losses on the fixed batch, fixed dropout masks: "
         + ", ".join(f"{x:.5f}" for x in losses))
@@ -5039,6 +5144,7 @@ def step_calls(D, k, dt, n_rel, n_steps) -> dict:
               "gat_pass_c": gk._fwd_route(dt, Dk, HDk, HEADS, None),
               "gat_bwd_pass1": gk._bwd_route(dt, None),
               "gat_bwd_pass2": gk._bwd_route(dt, None),
+              "gat_bwd_dw": gk._bwd_route(dt, None),
               "edge_hidden": ek._hidden_route(dt, D, n_rel, N_NTYPE),
               "edge_hidden_bwd": ek._hidden_route(dt, D, n_rel, N_NTYPE)}
     return {(name, routes.get(name)): n * n_steps
@@ -5261,8 +5367,9 @@ WIDE_CLI_QUESTIONS = 8         # two train steps of 4 questions
 
 
 # the single-launch functions of rows 1 and 3-9 (the denominators run one
-# launch a head group, unsplit), and the one demb product of a pass of rows
-# 8 and 9 of several launches: (module, name, its plain version, the
+# launch a head group, unsplit), the one demb product of a pass of rows 8
+# and 9 of several launches and the one dW product of every pass of rows 8
+# and 9: (module, name, its plain version, the
 # arguments the plain version takes, the arguments a launch adds to in
 # place, tolerance by dtype)
 LAUNCH_ROWS = (
@@ -5273,6 +5380,7 @@ LAUNCH_ROWS = (
     (gk, "_bwd_pass2", gk.bwd_pass2_plain, 17, (13, 14, 15),
      lambda dt: TOL["bwd"][dt]),
     (gk, "bwd_demb", gk.bwd_demb_plain, 3, (2,), lambda dt: TOL["bwd"][dt]),
+    (gk, "bwd_dw", gk.bwd_dw_plain, 2, (), lambda dt: TOL["bwd"][dt]),
     (uk, "_edge_scores", uk.edge_scores_plain, 7, (),
      lambda dt: TOL["unproj"][dt]),
     (uk, "_aggregate", uk.aggregate_plain, 9, (7,),
@@ -5298,8 +5406,8 @@ def launch_gap(got, want) -> float:
 
 
 class LaunchCheck:
-    """Holds every launch of rows 1 and 3-9 (and rows 8 and 9's demb
-    product) made inside it against its plain version on the same inputs (what a launch adds to in place copied for
+    """Holds every launch of rows 1 and 3-9 (and rows 8 and 9's demb and
+    dW products) made inside it against its plain version on the same inputs (what a launch adds to in place copied for
     the plain version first; a split head's partial mode included): the
     largest gap (`launch_gap`) over each entry point's launches and outputs,
     a failure above the row's tolerance. These launches count as the path's
@@ -5328,9 +5436,13 @@ class LaunchCheck:
             pk = {k: copy_(v) for k, v in part.items()}
             want = plain(*pa, **pk)
             got = fn(*a, **part)
-            pair = zip(got, want) if isinstance(got, tuple) \
+            pair = list(zip(got, want)) if isinstance(got, tuple) \
                 else [(got, want)]
-            gap = max(launch_gap(g, w) for g, w in pair)
+            # a launch of a pass of several leaves its dW to `bwd_dw`
+            # (None on both sides)
+            gap = max(float("inf") if (g is None) != (w is None)
+                      else 0.0 if g is None else launch_gap(g, w)
+                      for g, w in pair)
             self.calls[name] += 1
             old = self.gaps.get(name, (0.0, tol))[0]
             self.gaps[name] = (max(old, gap), tol)
@@ -5738,10 +5850,12 @@ def grad_spread(dev, cot, width, kernel, scatter, ref):
 
 def bwd_launches_by_kernel(rows, iters, n_launches, what):
     """Route 1 of a backward pass from torch.profiler's rows of `iters`
-    calls: the edge kernel and the dW kernel once a column launch (past
-    D = 256 the edge kernel streams W's rows in that one launch), the demb
-    kernel once a call of more than one column launch (never in a call of
-    one), and each one's us a launch. More launches than these fail, and so
+    calls: the edge kernel once a column launch (past D = 256 it streams
+    W's rows in that one launch), the demb kernel once a call of more than
+    one column launch (never in a call of one), the dW kernel
+    (`dw_wgmma_kernel`) once a call and the mma.sync dW kernel
+    (`dw_tc_kernel`) never, and each one's us a launch. More launches than
+    these fail, and so
     does a kernel the profiler recorded no launch of while it recorded
     others; between the two are events the profiler did not record, and
     are logged."""
@@ -5754,7 +5868,7 @@ def bwd_launches_by_kernel(rows, iters, n_launches, what):
         n[kernel_base(key)] += count
         us[kernel_base(key)] += t
     for k, per_call in (("edge_pass_tc_kernel", n_launches),
-                        ("dw_tc_kernel", n_launches),
+                        ("dw_wgmma_kernel", 1), ("dw_tc_kernel", 0),
                         ("demb_tc_kernel", int(n_launches > 1))):
         calls = n[k] / iters
         ok = 0 < calls <= per_call if per_call else calls == 0
@@ -5837,14 +5951,16 @@ def widths_passes(gen, dev, card, D, HD):
                 if dt == torch.bfloat16:
                     bf16_steps(f"gat_bwd_pass1 demb {tag}", got1[0], want1[0])
                     bf16_steps(f"gat_bwd_pass2 demb {tag}", got2[0], want2[0])
-                # a pass of several launches: one demb product each
+                # a pass of several launches: one demb product each; on
+                # route 1 every pass one dW product
                 demb_calls = 2 if n_launches > 1 else 0
                 counts = {k: (_build.LAUNCHES[k], _build.ROUTES[k, route])
                           for k in ("gat_bwd_pass1", "gat_bwd_pass2",
-                                    "gat_bwd_demb")}
+                                    "gat_bwd_demb", "gat_bwd_dw")}
                 want_counts = {"gat_bwd_pass1": (n_launches,) * 2,
                                "gat_bwd_pass2": (n_launches,) * 2,
-                               "gat_bwd_demb": (demb_calls,) * 2}
+                               "gat_bwd_demb": (demb_calls,) * 2,
+                               "gat_bwd_dw": (2 * route,) * 2}
                 if counts != want_counts:
                     FAILURES.append(f"widths: launches of the passes, {tag}: "
                                     f"{counts}")
@@ -6292,6 +6408,8 @@ def main() -> int:
         "gat_bwd_pass2": entry("gat_bwd.cu", f"{gat}:849"),
         # the demb product of both passes, one launch a pass of several
         "gat_bwd_demb": entry("gat_demb.cu", f"{gat}:828"),
+        # the dW product of both passes, one launch a pass
+        "gat_bwd_dw": entry("gat_dw.cu", f"{gat}:835"),
         "gat_unproj_scores": entry("gat_unproj.cu", f"{gat}:331"),
         "gat_unproj_denoms": entry("gat_unproj.cu", f"{gat}:346"),
         "gat_unproj_aggr": entry("gat_unproj.cu", f"{gat}:373"),
@@ -6324,8 +6442,9 @@ def main() -> int:
         log("\n[kernels 8 and 9: the demb product of a pass of several "
             "launches]")
         phase_gat_bwd_demb(new_gen(27), dev, reports, card)
-        log("\n[kernels 8 and 9: the dW launch's yardstick, torch.mm]")
-        phase_dw_yardstick(new_gen(28), dev, card)
+        log("\n[kernels 8 and 9: the dW product of every pass, one "
+            "launch]")
+        phase_gat_bwd_dw(new_gen(28), dev, reports, card)
     if only & {"kernels", "unproj"}:
         log("\n[kernels 1 to 5: the unprojected GAT op, forward and backward]")
         phase_gat_unproj(new_gen(12), dev, reports)

@@ -1,17 +1,21 @@
 """Time variants of the projected GAT op's kernels side by side on one card.
 
     python3 gat_variants.py D HD tag=DIR [tag=DIR ...] [--dtype bfloat16]
-        [--passes fwd|demb] [--widths]
+        [--passes fwd|demb|dw] [--widths]
 
 Each DIR is a copy of qagnn_tpu_torch/csrc (the sources themselves for
 "qagnn_tpu_torch/csrc"), edited by hand. The script builds every copy's
 library at once (`gat_bwd`, `gat_fwd` with `--passes fwd`, `gat_demb`
-with `--passes demb`), one nvcc a
-copy, then, one process a copy, runs backward passes 1 and 2, forward
-passes A and C, or (`--passes demb`) the backward passes' demb product
-alone (`bwd_demb`, with an add; `--widths`: at every column tile width
-`demb_tc_kernel` is built at that fits, `gk.demb_plan`'s choice marked),
-on route 1 (the wrappers of
+with `--passes demb`, `gat_dw` and `gat_bwd` with `--passes dw`), one
+nvcc a copy, then, one process a copy, runs backward passes 1 and 2,
+forward passes A and C, (`--passes demb`) the backward passes' demb
+product alone (`bwd_demb`, with an add; `--widths`: at every column tile
+width `demb_tc_kernel` is built at that fits, `gk.demb_plan`'s choice
+marked), or (`--passes dw`) their dW product alone (`bwd_dw` over all HD
+columns of E = 4096 slots a graph, beside torch.mm of the same product and
+route 0, the mma.sync kernel; `--widths`: every tile `dw_wgmma_kernel` is
+built at, each at the plan's count of slot ranges and at half and twice
+it, `gk.dw_plan`'s choice marked), on route 1 (the wrappers of
 qagnn_tpu_torch/ops/gat_kernels.py, head groups and column launches
 included) at G=64, N=200, E=4096, D x HD with 4 heads, on chip_smoke.py's
 inputs: each call's largest gap from its plain version (max|d| / max|want|
@@ -40,8 +44,9 @@ def _use(csrc: str):
 
 
 def build(csrc: str, passes: str) -> None:
-    _use(csrc).build_all([{"fwd": "gat_fwd", "demb": "gat_demb"}
-                          .get(passes, "gat_bwd")], verbose=True)
+    _use(csrc).build_all({"fwd": ["gat_fwd"], "demb": ["gat_demb"],
+                          "dw": ["gat_dw", "gat_bwd"]}
+                         .get(passes, ["gat_bwd"]), verbose=True)
 
 
 def gap(got, want):
@@ -115,6 +120,47 @@ def run_demb(csrc: str, D: int, HD: int, tag: str, dtype: str,
                        iters=5)
 
 
+def run_dw(csrc: str, D: int, HD: int, tag: str, dtype: str,
+           widths: bool = False) -> None:
+    import torch
+    _use(csrc)
+    import chip_smoke as cs
+    from qagnn_tpu_torch.ops import gat_kernels as gk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    mask = cs.graph_inputs(gen, dev, cs.E)[2]
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    emb = torch.relu(r(cs.G, cs.E, D)).to(dt)
+    cot = (r(cs.G, cs.E, HD) * mask[..., None]).to(dt)
+    want = gk.bwd_dw_plain(emb, cot)
+    e2, c2 = emb.view(-1, D), cot.view(-1, HD)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    R = cs.G * cs.E
+    mm_ms = cs.device_ms(lambda: torch.mm(e2.t(), c2), iters=10)
+    r0_ms = cs.device_ms(lambda: gk.bwd_dw(emb, cot, _route=0), iters=10)
+    print(f"{tag} D={D} HD={HD} {dtype} dw torch.mm {mm_ms:.4f} ms, route 0 "
+          f"{r0_ms:.4f} ms  [{cs.card_line()}]", flush=True)
+    chosen = gk.dw_plan(D, HD, R, dt, n_sm)
+    plans = [chosen]
+    if widths:
+        for bm, bn in gk.DW_TILES[dt]:
+            base = gk.dw_plan(D, HD, R, dt, n_sm, bm=bm, bn=bn)
+            plans += [gk.dw_plan(D, HD, R, dt, n_sm, bm=bm, bn=bn,
+                                 n_ranges=max(1, int(base.n_ranges * f)))
+                      for f in (0.5, 1, 2)]
+    for p in dict.fromkeys(plans):
+        call = lambda: gk.bwd_dw(emb, cot, _plan=p)  # noqa: E731
+        err = gap(call(), want)
+        ms = cs.device_ms(call, iters=10)
+        print(f"{tag} D={D} HD={HD} {dtype} dw {ms:.4f} ms  gap {err:.2e}  "
+              f"tiles {p.bm} x {p.bn} ({p.n_tiles}), {p.n_ranges} ranges of "
+              f"{p.chunk} slots, ring {p.stages}"
+              f"{'  (the plan)' if p == chosen else ''}  "
+              f"[{cs.card_line()}]", flush=True)
+    cs.profile_kernels(f"{tag} dw", lambda: gk.bwd_dw(emb, cot), iters=5)
+
+
 def run(csrc: str, D: int, HD: int, tag: str, dtype: str) -> None:
     import torch
     _use(csrc)
@@ -155,9 +201,11 @@ def main() -> int:
     ap.add_argument("variants", nargs="+", help="tag=DIR")
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "bfloat16"))
-    ap.add_argument("--passes", default="bwd", choices=("bwd", "fwd", "demb"))
+    ap.add_argument("--passes", default="bwd",
+                    choices=("bwd", "fwd", "demb", "dw"))
     ap.add_argument("--widths", action="store_true",
-                    help="demb: time every column tile width that fits")
+                    help="demb: time every column tile width that fits; dw: "
+                         "every tile, at three counts of slot ranges")
     ap.add_argument("--build", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--run", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -168,6 +216,8 @@ def main() -> int:
         tag, csrc = args.variants[0].split("=", 1)
         if args.passes == "demb":
             run_demb(csrc, args.D, args.HD, tag, args.dtype, args.widths)
+        elif args.passes == "dw":
+            run_dw(csrc, args.D, args.HD, tag, args.dtype, args.widths)
         else:
             {"fwd": run_fwd}.get(args.passes, run)(csrc, args.D, args.HD,
                                                    tag, args.dtype)

@@ -539,10 +539,9 @@ int pass1_tc(const void* gout, const void* nm, const void* emb,
              const void* gmax, const void* scale, const void* src,
              const void* dst, const void* mask, const void* carry,
              void* dmsg, void* demb, void* dalpha, void* dnm, void* dscale,
-             void* dw_part, void* db_part, void* dw, void* db,
-             const void* w_stream, int G, int N, int E, int D, int HD, int H,
-             int n_split, int d_slice, int warps, int n_blocks, int part,
-             int ld_cot, void* stream) {
+             void* db_part, void* db, const void* w_stream, int G, int N,
+             int E, int D, int HD, int H, int d_slice, int warps,
+             int n_blocks, int part, int ld_cot, void* stream) {
   TcArgs<T> a = {};
   a.rows_src = (const T*)nm;
   a.rows_dst = (const T*)gout;
@@ -566,8 +565,8 @@ int pass1_tc(const void* gout, const void* nm, const void* emb,
   a.part = part;
   a.ldc = ld_cot;
   a.ws = (const T*)w_stream;
-  return launch_pass_tc<1>(a, (float*)dw_part, (float*)dw, (float*)db,
-                           n_split, warps, n_blocks, (cudaStream_t)stream);
+  return launch_pass_tc<1>(a, (float*)db, warps, n_blocks,
+                           (cudaStream_t)stream);
 }
 
 template <typename T>
@@ -576,10 +575,9 @@ int pass2_tc(const void* nq, const void* nk, const void* emb,
              const void* gmax, const void* dalpha, const void* scale,
              const void* d_denom, const void* src, const void* dst,
              const void* mask, void* dekb, void* demb, void* dnq, void* dnk,
-             void* dw_part, void* db_part, void* dw, void* db,
-             const void* w_stream, int G, int N, int E, int D, int HD, int H,
-             int n_split, int d_slice, int warps, int n_blocks, int ld_cot,
-             void* stream) {
+             void* db_part, void* db, const void* w_stream, int G, int N,
+             int E, int D, int HD, int H, int d_slice, int warps,
+             int n_blocks, int ld_cot, void* stream) {
   TcArgs<T> a = {};
   a.rows_src = (const T*)nq;
   a.rows_dst = (const T*)nk;
@@ -603,8 +601,8 @@ int pass2_tc(const void* nq, const void* nk, const void* emb,
   a.G = G; a.N = N; a.E = E; a.D = D; a.HD = HD; a.H = H; a.DS = d_slice;
   a.ldc = ld_cot;
   a.ws = (const T*)w_stream;
-  return launch_pass_tc<2>(a, (float*)dw_part, (float*)dw, (float*)db,
-                           n_split, warps, n_blocks, (cudaStream_t)stream);
+  return launch_pass_tc<2>(a, (float*)db, warps, n_blocks,
+                           (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -614,7 +612,10 @@ int pass2_tc(const void* nq, const void* nk, const void* emb,
 // HD a multiple of 8 up to 256, H <= 8 heads of at least 4 features, 16-byte
 // aligned arrays. carry may be null. dmsg (G, E, HD), its rows ld_cot
 // elements apart (HD, or a wider array's columns: a multiple of 8), gets the
-// cotangent rows d_msg; dw_part (n_split, D, HD) is scratch. demb null: no
+// cotangent rows d_msg; dw_part (n_split, D, HD) is scratch on route 0 and
+// must be null on route 1, which makes no dW (dw and n_split are not read;
+// the wrapper's one `gat_dw_tc` launch a pass, csrc/gat_dw.cu, makes it
+// from d_msg). demb null: no
 // demb product (carry is not read), which a pass of several column launches
 // leaves to one demb launch over all of their dmsg columns (gat_demb.cu
 // `gat_demb_tc`, or gat_bwd_demb on route 0). route 0, the CUDA-core
@@ -627,9 +628,8 @@ int pass2_tc(const void* nq, const void* nk, const void* emb,
 // `warps` warps, in bf16 with W resident in shared memory (D = d_slice <=
 // 256) or, given w_stream (W rounded to bf16, (D, HD); null otherwise), its
 // rows streamed through shared memory at any D; in f32 always streamed,
-// from w_stream (W itself, f32, which must be given); the dW launch takes
-// W's rows in slices of d_slice (a grid dimension); db_part is (n_blocks,
-// HD). Either way the
+// from w_stream (W itself, f32, which must be given); db_part is
+// (n_blocks, HD). Either way the
 // node-side outputs (dalpha, dnm, dscale; dnq, dnk in pass 2) and db are
 // written by one pass over the edges only, and demb with no atomics. part
 // (PART_ADD | PART_OPEN, gat_common.cuh; 0 for whole heads): a column slice
@@ -645,7 +645,9 @@ extern "C" int gat_bwd_pass1(
     const void* w_stream, int G, int N, int E, int D, int HD, int H,
     int n_split, int d_slice, int dtype, int route, int warps, int n_blocks,
     int part, int ld_cot, void* stream) {
-  if (!shapes_ok(D, d_slice, HD, H) || n_split <= 0 || part < 0 ||
+  if (!shapes_ok(D, d_slice, HD, H) ||
+      (route == 0 ? dw_part == nullptr || n_split <= 0 : dw_part != nullptr) ||
+      part < 0 ||
       part > 3 || ld_cot < HD || ld_cot % 8 != 0 || !aligned16(gout) ||
       !aligned16(nm) || !aligned16(emb) || !aligned16(w_me) ||
       !aligned16(w_me_t) || !aligned16(carry) || !aligned16(dmsg) ||
@@ -657,16 +659,14 @@ extern "C" int gat_bwd_pass1(
     return dtype == 1
                ? pass1_tc<bf16>(gout, nm, emb, w_me, b_me, scores, gmax,
                                 scale, src, dst, mask, carry, dmsg, demb,
-                                dalpha, dnm, dscale, dw_part, db_part, dw, db,
-                                w_stream, G, N, E, D, HD, H, n_split,
-                                d_slice, warps, n_blocks, part, ld_cot,
-                                stream)
+                                dalpha, dnm, dscale, db_part, db, w_stream,
+                                G, N, E, D, HD, H, d_slice, warps, n_blocks,
+                                part, ld_cot, stream)
                : pass1_tc<float>(gout, nm, emb, w_me, b_me, scores, gmax,
                                  scale, src, dst, mask, carry, dmsg, demb,
-                                 dalpha, dnm, dscale, dw_part, db_part, dw,
-                                 db, w_stream, G, N, E, D, HD, H, n_split,
-                                 d_slice, warps, n_blocks, part, ld_cot,
-                                 stream);
+                                 dalpha, dnm, dscale, db_part, db, w_stream,
+                                 G, N, E, D, HD, H, d_slice, warps, n_blocks,
+                                 part, ld_cot, stream);
   const dim3 grid((E + TE - 1) / TE, G);
   const int threads = HD / 8 * TY;
   cudaStream_t s = (cudaStream_t)stream;
@@ -700,8 +700,8 @@ extern "C" int gat_bwd_pass1(
 
 // demb holds pass 1's result and is updated in place, or is null (no demb
 // product, as in pass 1). dekb gets the cotangent rows (rows ld_cot apart),
-// dw_part and db_part are scratch, and route, warps, n_blocks and w_stream
-// mean what they do in pass 1.
+// and dw_part, db_part, route, warps, n_blocks and w_stream mean what they
+// do in pass 1.
 extern "C" int gat_bwd_pass2(
     const void* nq, const void* nk, const void* emb, const void* w_ke,
     const void* w_ke_t, const void* b_ke, const void* scores,
@@ -711,7 +711,9 @@ extern "C" int gat_bwd_pass2(
     void* db_part, void* dw, void* db, const void* w_stream, int G, int N,
     int E, int D, int HD, int H, int n_split, int d_slice, int dtype,
     int route, int warps, int n_blocks, int ld_cot, void* stream) {
-  if (!shapes_ok(D, d_slice, HD, H) || n_split <= 0 || ld_cot < HD ||
+  if (!shapes_ok(D, d_slice, HD, H) ||
+      (route == 0 ? dw_part == nullptr || n_split <= 0 : dw_part != nullptr) ||
+      ld_cot < HD ||
       ld_cot % 8 != 0 || !aligned16(nq) ||
       !aligned16(nk) || !aligned16(emb) || !aligned16(w_ke) ||
       !aligned16(w_ke_t) || !aligned16(dekb) || !aligned16(demb) ||
@@ -723,14 +725,14 @@ extern "C" int gat_bwd_pass2(
     return dtype == 1
                ? pass2_tc<bf16>(nq, nk, emb, w_ke, b_ke, scores, gmax, dalpha,
                                 scale, d_denom, src, dst, mask, dekb, demb,
-                                dnq, dnk, dw_part, db_part, dw, db, w_stream,
-                                G, N, E, D, HD, H, n_split, d_slice, warps,
-                                n_blocks, ld_cot, stream)
+                                dnq, dnk, db_part, db, w_stream, G, N, E, D,
+                                HD, H, d_slice, warps, n_blocks, ld_cot,
+                                stream)
                : pass2_tc<float>(nq, nk, emb, w_ke, b_ke, scores, gmax,
                                  dalpha, scale, d_denom, src, dst, mask, dekb,
-                                 demb, dnq, dnk, dw_part, db_part, dw, db,
-                                 w_stream, G, N, E, D, HD, H, n_split,
-                                 d_slice, warps, n_blocks, ld_cot, stream);
+                                 demb, dnq, dnk, db_part, db, w_stream, G, N,
+                                 E, D, HD, H, d_slice, warps, n_blocks,
+                                 ld_cot, stream);
   const dim3 grid((E + TE - 1) / TE, G);
   const int threads = HD / 8 * TY;
   const size_t smem = sizeof(float) * KC * HD;
@@ -794,4 +796,38 @@ extern "C" int gat_bwd_demb(const void* cot, const void* w_t,
                    (T*)demb, G, E, D, d_slice, HD, s);
   }
   return (int)cudaGetLastError();
+}
+
+// dW = emb^T cot over all G E slots, f32: `dw_tc_kernel` (mma.sync from a
+// cp.async ring, gat_bwd_tc.cuh) over all HD columns in n_split slot
+// ranges and W's rows in slices of d_slice, then the sum of the partials:
+// route 0 of `bwd_dw`, whose route 1 is csrc/gat_dw.cu `gat_dw_tc`. emb
+// (G, E, D), cot (G, E, HD) contiguous, dw_part (n_split, D, HD) scratch,
+// dw (D, HD). D a multiple of d_slice (a multiple of 8 up to 256), HD a
+// multiple of 8 (any size), 16-byte aligned arrays.
+extern "C" int gat_bwd_dw(const void* emb, const void* cot, void* dw_part,
+                          void* dw, int G, int E, int D, int HD, int d_slice,
+                          int n_split, int dtype, void* stream) {
+  if (D <= 0 || D % 8 != 0 || HD <= 0 || HD % 8 != 0 || G < 0 || E < 0 ||
+      d_slice <= 0 || d_slice % 8 != 0 || d_slice > MAX_HD ||
+      D % d_slice != 0 || n_split <= 0 || emb == nullptr || cot == nullptr ||
+      dw_part == nullptr || dw == nullptr || !aligned16(emb) ||
+      !aligned16(cot) || !aligned16(dw_part) || !aligned16(dw) ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if ((long long)G * E == 0)
+    return (int)cudaMemsetAsync(dw, 0, (size_t)D * HD * sizeof(float), s);
+  if (dtype == 1) {
+    TcArgs<bf16> a = {};
+    a.emb = (const bf16*)emb;
+    a.cot = (bf16*)cot;
+    a.G = G; a.E = E; a.D = D; a.HD = HD; a.DS = d_slice; a.ldc = HD;
+    return (int)launch_dw_tc(a, (float*)dw_part, (float*)dw, n_split, s);
+  }
+  TcArgs<float> a = {};
+  a.emb = (const float*)emb;
+  a.cot = (float*)cot;
+  a.G = G; a.E = E; a.D = D; a.HD = HD; a.DS = d_slice; a.ldc = HD;
+  return (int)launch_dw_tc(a, (float*)dw_part, (float*)dw, n_split, s);
 }

@@ -58,7 +58,8 @@
 //      The walk starts on the two chunks product 1 left in the ring and
 //      ends on chunks 1 and 0, where the next round's product 1 starts:
 //      2 n - 4 chunk loads a round for n chunks, not 2 n.
-// The dW launch takes W's rows in slices of DS <= 256 (a grid dimension).
+// `dw_tc_kernel` (below) takes W's rows in slices of DS <= 256 (a grid
+// dimension).
 // Bound: a call's three products at the tensor-core peak (1.29 ms at
 // gnn_dim 1040, 8 column launches; 0.31 ms at 512, 2); in bytes a launch
 // reads the live slots' emb rows and demb (or the carry) once and writes
@@ -73,13 +74,17 @@
 // epilogue; each product and W's stream from L2 a smaller one; 8 warps a
 // block at 136 columns lost to 12.
 //
-// Launch 2, `dw_tc_kernel`: dW = emb^T cot over all G * E slots, the slots
-// being the depth: a block takes one range of slots and every row of dW for
-// up to 128 of its columns (HD = 200: two blocks of 104 and 96 columns, which
-// run side by side, so emb comes from device memory once), stages slices of 64
-// slots of both operands through a four-deep cp.async ring, and writes its
-// f32 partial once. Launches 3 and 4 add up the dW and db partials
-// (reduce_partials.cuh): no atomics on dW or db.
+// Launch 2 adds up the db partials (reduce_partials.cuh): no atomics on
+// db. A pass on this route makes no dW: one `gat_dw_tc` launch a pass
+// (csrc/gat_dw.cu, wgmma fed by TMA) makes it over all of its columns.
+//
+// `dw_tc_kernel`, route 0 of that launch (`gat_bwd_dw`), the yardstick it
+// is timed against: dW = emb^T cot over all G * E slots, the slots being
+// the depth: a block takes one range of slots and every row of dW for up
+// to 128 of its columns (HD = 200: two blocks of 104 and 96 columns, which
+// run side by side, so emb comes from device memory once), stages slices
+// of 64 slots of both operands through a four-deep cp.async ring, and
+// writes its f32 partial once; a reduction adds the partials up.
 //
 // float32 (T = float, the last template argument of both kernels): the
 // streaming edge kernel at every D (W's f32 rows whole would take 170 KB of
@@ -966,15 +971,42 @@ cudaError_t launch_dw_rows(const TcArgs<T>& a, float* dw_part, int n_split,
                     : launch_dw_tc<NP, 8>(a, dw_part, n_split, ntb, s);
 }
 
+// dW = emb^T cot over all G E slots in n_split slot ranges, then their
+// partials added up: `dw_tc_kernel` over slices of a.DS of W's rows, cot's
+// rows a.ldc apart, at any HD (blocks of columns, `dw_block_tiles`):
+// route 0 of `gat_bwd_dw` (gat_bwd.cu), kept to time csrc/gat_dw.cu's
+// kernel against.
+template <typename T>
+cudaError_t launch_dw_tc(const TcArgs<T>& a, float* dw_part, float* dw,
+                         int n_split, cudaStream_t s) {
+  constexpr bool f32 = sizeof(T) == 4;
+  const int ntb = dw_block_tiles(a.HD);
+  cudaError_t err = cudaSuccess;
+  switch (dw_pairs(ntb, f32)) {
+    case 2: err = launch_dw_rows<2>(a, dw_part, n_split, ntb, s); break;
+    case 4: err = launch_dw_rows<4>(a, dw_part, n_split, ntb, s); break;
+    case 5:
+      if constexpr (f32) err = launch_dw_rows<5>(a, dw_part, n_split, ntb, s);
+      break;
+    case 7: err = launch_dw_rows<7>(a, dw_part, n_split, ntb, s); break;
+    default: err = launch_dw_rows<8>(a, dw_part, n_split, ntb, s); break;
+  }
+  if (err != cudaSuccess) return err;
+  reduce_partials_kernel<<<(a.D * a.HD + 31) / 32, dim3(32, 8), 0, s>>>(
+      dw_part, dw, n_split, a.D * a.HD);
+  return cudaGetLastError();
+}
+
 // The launches of a pass on the tensor-core route: the edge kernel once,
 // W's rows streamed when the caller hands W to stream (a.ws: bf16 rounded,
 // which the wrapper does past D = 256; f32 W itself, always in f32), else
-// resident, which takes D <= 256 (one slice: DS = D); then dW over slices
-// of DS of W's rows and the two reductions. `warps` and `n_blocks` are the
-// caller's (the partial arrays are sized from them).
+// resident, which takes D <= 256 (one slice: DS = D); then db's
+// reduction. dW is the caller's one launch a pass (`gat_dw_tc`,
+// csrc/gat_dw.cu). `warps` and `n_blocks` are the caller's (db's partial
+// array is sized from them).
 template <int PASS, typename T>
-int launch_pass_tc(TcArgs<T> a, float* dw_part, float* dw, float* db,
-                   int n_split, int warps, int n_blocks, cudaStream_t s) {
+int launch_pass_tc(TcArgs<T> a, float* db, int warps, int n_blocks,
+                   cudaStream_t s) {
   constexpr bool f32 = sizeof(T) == 4;
   const bool stream = a.ws != nullptr;
   const int max_warps =
@@ -1017,21 +1049,8 @@ int launch_pass_tc(TcArgs<T> a, float* dw_part, float* dw, float* db,
     }
   }
   if (err != cudaSuccess) return (int)err;
-  const int D = a.D, HD = a.HD, ntb = dw_block_tiles(HD);
-  switch (dw_pairs(ntb, f32)) {
-    case 2: err = launch_dw_rows<2>(a, dw_part, n_split, ntb, s); break;
-    case 4: err = launch_dw_rows<4>(a, dw_part, n_split, ntb, s); break;
-    case 5:
-      if constexpr (f32) err = launch_dw_rows<5>(a, dw_part, n_split, ntb, s);
-      break;
-    case 7: err = launch_dw_rows<7>(a, dw_part, n_split, ntb, s); break;
-    default: err = launch_dw_rows<8>(a, dw_part, n_split, ntb, s); break;
-  }
-  if (err != cudaSuccess) return (int)err;
-  reduce_partials_kernel<<<(D * HD + 31) / 32, dim3(32, 8), 0, s>>>(
-      dw_part, dw, n_split, D * HD);
-  reduce_partials_kernel<<<(HD + 31) / 32, dim3(32, 8), 0, s>>>(
-      a.db_part, db, n_blocks, HD);
+  reduce_partials_kernel<<<(a.HD + 31) / 32, dim3(32, 8), 0, s>>>(
+      a.db_part, db, n_blocks, a.HD);
   return (int)cudaGetLastError();
 }
 

@@ -69,9 +69,19 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def _ignored_setmaxnreg(out: str) -> bool:
+    """Whether ptxas said it ignored a `setmaxnreg` (C7508: it could not
+    tell the registers a warp holds there). A warpgroup whose `dec` was
+    dropped keeps its registers, and the `inc` of the others then waits
+    for them forever: a hang at the first launch, so the build fails."""
+    return any("ptxas" in line and "setmaxnreg" in line.lower()
+               for line in out.splitlines())
+
+
 def build_all(names: list[str] | None = None, verbose: bool = False) -> float:
     """Compile every missing library, one nvcc per source, all started
-    together. Returns the wall seconds spent. Raises on a failed build."""
+    together. Returns the wall seconds spent. Raises on a failed build,
+    and on one where ptxas ignored a `setmaxnreg`."""
     names = sources() if names is None else names
     todo = [n for n in names if not _target(n).exists()]
     t0 = time.perf_counter()
@@ -89,8 +99,9 @@ def build_all(names: list[str] | None = None, verbose: bool = False) -> float:
     failed = []
     for n, tmp, p in procs:
         out, _ = p.communicate()
-        if p.returncode != 0:
+        if p.returncode != 0 or _ignored_setmaxnreg(out):
             failed.append(f"{n}.cu:\n{out}")
+            tmp.unlink(missing_ok=True)
             continue
         if verbose and out:
             print(out, flush=True)

@@ -70,9 +70,11 @@ edge padding is needed: any E works. A launch takes D and HD that are
 multiples of 8, HD <= 256 and at most 8 heads (the backward also heads of at
 least 4 features); the plain versions take any width, and the launches'
 partial mode. The backward kernels take any such D: beyond 256 the
-CUDA-core kernels' demb and dW launches and the tensor-core dW launch run
-W's rows in slices (`d_slices`), each slice writing its own columns of
-d_edge_emb or its own rows of dW. The op (`gat_projected`,
+CUDA-core kernels' demb and dW launches run W's rows in slices
+(`d_slices`), each slice writing its own columns of d_edge_emb or its own
+rows of dW. On the tensor cores every backward pass makes its dW in one
+more launch over all of its columns (`bwd_dw`, csrc/gat_dw.cu
+`dw_wgmma_kernel`: wgmma fed by TMA, any D and HD). The op (`gat_projected`,
 `gat_projected_chained`) pads other widths with zeros to ones the kernels
 take (`kernel_widths`: D to a multiple of 8, each head's features to at
 least 4 and to a multiple of 8 over the heads; to a multiple of 8 a head
@@ -105,6 +107,7 @@ and scatters, the width and dtype checks).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -131,9 +134,13 @@ _BWD_SIGNATURES = {
     "gat_bwd_pass1": [_P] * 23 + [_I] * 14 + [_P],
     "gat_bwd_pass2": [_P] * 23 + [_I] * 13 + [_P],
     "gat_bwd_demb": [_P] * 4 + [_I] * 6 + [_P],
+    "gat_bwd_dw": [_P] * 4 + [_I] * 7 + [_P],
 }
 _DEMB_SIGNATURES = {
     "gat_demb_tc": [_P] * 5 + [ctypes.c_longlong] + [_I] * 6 + [_P],
+}
+_DW_SIGNATURES = {
+    "gat_dw_tc": [_P] * 4 + [ctypes.c_longlong] + [_I] * 9 + [_P],
 }
 DW_SPLITS = 128      # edge ranges (rows of partials) of the dW products
 # the tensor-core routes (csrc/gat_fwd_tc.cuh, csrc/gat_bwd_tc.cuh)
@@ -178,6 +185,32 @@ DEMB_MAX_STAGES = 8
 # bounding it (PERF.md: on an H100 the bf16 kernel ran fastest at 176 of
 # 1040 and 512 columns, the f32 one at 104)
 DEMB_L2_WEIGHT = {torch.bfloat16: 165.0, torch.float32: 40.0}
+# rows 8 and 9's dW product on Hopper (csrc/gat_dw.cu `dw_wgmma_kernel`):
+# the tiles (rows of dW, columns) each dtype's kernel is built at (bf16:
+# two consumer warpgroups of 64 or 128 rows; f32: of 64), the slots a
+# slice (BK), a column block's bytes (a TMA box's row, the 128-byte
+# swizzle), the ring's most slots (tests/test_torch_dw_plan.py holds them
+# to csrc)
+DW_TILES = {torch.bfloat16: ((256, 64), (128, 128), (128, 192)),
+            torch.float32: ((128, 64), (128, 96), (128, 128))}
+DW_SLICE = {torch.bfloat16: 64, torch.float32: 32}
+DW_BLOCK = 128
+DW_ALIGN = 1024
+DW_MAX_STAGES = 8
+# the slot ranges' f32 partials at most this share of the operands' bytes
+DW_PARTIAL_SHARE = 0.1
+# the plan's model of a launch (an H100: the tensor cores' peak in the
+# dtype, split TF32 at a third of tf32's, and what the L2 hands the SMs,
+# 5.0 TB/s as the bf16 kernel drew it at gnn_dim 1040)
+DW_PEAK = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
+DW_L2_BYTES_PER_S = 5.0e12
+DW_HBM_BYTES_PER_S = 3.35e12
+# whether an item's L2 bytes add to its products' time: in bf16 they did
+# on the H100 (the preset ran faster at 128 x 128 than at 128 x 192, which
+# computes 50% more padded columns, for the same bytes); in f32 the split
+# products hid them (at gnn_dim 1040 128 x 96 over 4 ranges ran 5.7-6.0
+# ms, 128 x 128 over 13 6.3-6.5)
+DW_L2_COSTS = {torch.bfloat16: True, torch.float32: False}
 
 
 def _lib():
@@ -190,6 +223,10 @@ def _bwd_lib():
 
 def _demb_lib():
     return _build.load("gat_demb", _DEMB_SIGNATURES)
+
+
+def _dw_lib():
+    return _build.load("gat_dw", _DW_SIGNATURES)
 
 
 def _dtype_code(t: torch.Tensor) -> int:
@@ -619,11 +656,16 @@ def _scatter_nodes(acc, idx, vals):
         1, idx.long()[..., None].expand(G, E, vals.shape[-1]), vals)
 
 
+def bwd_dw_plain(edge_emb, cot):
+    """dW = emb^T cot over all G E slots, in f32: edge_emb (G, E, D), cot
+    (G, E, HD), both in the pass's dtype."""
+    D, HD = edge_emb.shape[-1], cot.shape[-1]
+    return edge_emb.float().reshape(-1, D).t() @ cot.float().reshape(-1, HD)
+
+
 def _weight_grads(edge_emb, cot_c, cot):
     """(emb^T cot_c over all edges (D, HD), column sums of cot (HD,))."""
-    D, HD = edge_emb.shape[-1], cot.shape[-1]
-    dw = edge_emb.float().reshape(-1, D).t() @ cot_c.float().reshape(-1, HD)
-    return dw, cot.sum((0, 1))
+    return bwd_dw_plain(edge_emb, cot_c), cot.sum((0, 1))
 
 
 def bwd_pass1_plain(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src,
@@ -631,7 +673,8 @@ def bwd_pass1_plain(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src,
                     last=True, cot=None):
     """With `cot` (a (G, E, HD) array or view), the launch of a pass of
     several (`bwd_pass1`): d_msg goes there and stands in demb's place in
-    the result, and the demb product is left to `bwd_demb`."""
+    the result, and the demb and dW products are left to `bwd_demb` and
+    `bwd_dw` (dW is None)."""
     cdt = nm.dtype
     HD = nm.shape[-1]
     msg = _gather_nodes(nm, src).float() \
@@ -647,6 +690,8 @@ def bwd_pass1_plain(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src,
         demb = cot.copy_(d_msg_c)
     dalpha = split_dalpha(head_sum(msg * g_dst, heads), mask, acc)
     dw, db = _weight_grads(edge_emb, d_msg_c, d_msg)
+    if cot is not None:
+        dw = None
     _scatter_nodes(dnm, src, d_msg_c.float())
     if last:
         _scatter_nodes(dscale, src,
@@ -869,22 +914,23 @@ def _fwd_launch_plan(route, G, E, D, HD, device, cdt):
 
 def _split_scratch(G, E, D, HD, device, route=0, n_sm=1,
                    cdt=torch.bfloat16):
-    """(n_split, warps, n_blocks, dw_part (n_split, D, HD), db_part): the
-    partial sums of dW over n_split edge ranges and of db, one row per block
-    of the edge kernel: (64-edge tile, graph) blocks on CUDA cores (warps
-    and n_blocks are 0: that grid follows from the shapes), n_blocks
-    persistent blocks on tensor cores (`_tc_plan` in `cdt`: W whole, or its
-    rows streamed), where dW is split once per SM."""
+    """(n_split, warps, n_blocks, dw_part, db_part): the partial sums of db,
+    one row per block of the edge kernel, and on CUDA cores of dW over
+    n_split edge ranges, dw_part (n_split, D, HD): (64-edge tile, graph)
+    blocks on CUDA cores (warps and n_blocks are 0: that grid follows from
+    the shapes), n_blocks persistent blocks on tensor cores (`_tc_plan` in
+    `cdt`: W whole, or its rows streamed), whose pass makes no dW (n_split
+    0, dw_part None: one `bwd_dw` launch a pass makes it)."""
     if route == 1:
         warps, n_blocks = _tc_plan(G, E, D, HD, n_sm, cdt)
-        n_split, db_rows = max(1, min(n_sm, -(-G * E // 32))), n_blocks
-    else:
-        warps = n_blocks = 0
-        n_split = max(1, min(DW_SPLITS, -(-G * E // 32)))
-        db_rows = G * -(-E // 64)
-    return (n_split, warps, n_blocks,
+        return (0, warps, n_blocks, None,
+                torch.empty((n_blocks, HD), device=device,
+                            dtype=torch.float32))
+    n_split = max(1, min(DW_SPLITS, -(-G * E // 32)))
+    return (n_split, 0, 0,
             torch.empty((n_split, D, HD), device=device, dtype=torch.float32),
-            torch.empty((db_rows, HD), device=device, dtype=torch.float32))
+            torch.empty((G * -(-E // 64), HD), device=device,
+                        dtype=torch.float32))
 
 
 def _sm_count(device) -> int:
@@ -939,8 +985,16 @@ def bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
         dscale[..., h0:h1] = ds
         dalphas.append(dalpha)
     demb = bwd_demb(cot, w_me, carry, None, _route)
-    return (demb, torch.cat(dalphas, 1), dnm, dscale, torch.cat(dws, 1),
-            torch.cat(dbs, 0))
+    return (demb, torch.cat(dalphas, 1), dnm, dscale,
+            _pass_dw(edge_emb, cot, dws), torch.cat(dbs, 0))
+
+
+def _pass_dw(edge_emb, cot, dws):
+    """dW of a pass of several launches: route 0's launches each make their
+    columns' (the CUDA-core kernels); route 1's and the plain versions
+    leave it (None) to one `bwd_dw` product over all columns of the pass's
+    cotangent rows."""
+    return bwd_dw(edge_emb, cot) if dws[0] is None else torch.cat(dws, 1)
 
 
 def _cot_rows(src, HD, like):
@@ -955,7 +1009,9 @@ def _bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
                cot=None):
     """One launch of pass 1. With `cot` (the launch's columns of a pass's
     cotangent rows, `_cot_rows`; carry None) it writes d_msg there, makes no
-    demb product, and returns `cot` in demb's place."""
+    demb product, and returns `cot` in demb's place. On route 1 the edge
+    launch makes no dW: one `bwd_dw` launch takes it from d_msg, or, with
+    `cot`, is left to the caller (dW None)."""
     if not nm.is_cuda:
         return bwd_pass1_plain(gout, nm, edge_emb, w_me, b_me, scores, gmax,
                                scale, src, dst, mask, carry, dnm, dscale,
@@ -981,7 +1037,7 @@ def _bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
     _require(dscale, "dscale", torch.float32, (G, N, heads))
     dev = nm.device
     if cot is None:
-        dmsg, ld = torch.empty((G, E, HD), device=dev, dtype=cdt), HD
+        dmsg, ld = nm.new_empty((G, E, HD)), HD
         demb = torch.empty((G, E, D), device=dev, dtype=cdt)
     elif carry is not None:
         raise ValueError("a launch that leaves demb to bwd_demb takes no "
@@ -996,7 +1052,8 @@ def _bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
     w_t = None if route == 1 else _sliced_transpose(w_me, width)
     ws = _streamed_w(route, w_me, _bwd_streams, cdt)
     dalpha = _scores_out(acc, G, heads, E, dev)
-    dw = torch.empty((D, HD), device=dev, dtype=torch.float32)
+    dw = None if route == 1 else \
+        torch.empty((D, HD), device=dev, dtype=torch.float32)
     db = torch.empty((HD,), device=dev, dtype=torch.float32)
     n_split, warps, n_blocks, dw_part, db_part = _split_scratch(
         G, E, D, HD, dev, route, _sm_count(dev), cdt)
@@ -1007,14 +1064,16 @@ def _bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
         scale.data_ptr(), src.data_ptr(), dst.data_ptr(), mask.data_ptr(),
         None if carry is None else carry.data_ptr(), dmsg.data_ptr(),
         None if demb is None else demb.data_ptr(), dalpha.data_ptr(),
-        dnm.data_ptr(),
-        dscale.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
-        dw.data_ptr(), db.data_ptr(),
+        dnm.data_ptr(), dscale.data_ptr(),
+        None if dw_part is None else dw_part.data_ptr(), db_part.data_ptr(),
+        None if dw is None else dw.data_ptr(), db.data_ptr(),
         None if ws is None else ws.data_ptr(), G, N, E, D, HD, heads,
         n_split, width, _dtype_code(nm), route, warps, n_blocks,
         _part(acc, last), ld, _stream())
     _build.check(err, "gat_bwd_pass1")
     _build.count_launch("gat_bwd_pass1", route)
+    if route == 1 and cot is None:
+        dw = bwd_dw(edge_emb, dmsg)
     return dmsg if demb is None else demb, dalpha, dnm, dscale, dw, db
 
 
@@ -1025,8 +1084,8 @@ def _bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
 def bwd_pass2_plain(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
                     d_denom, src, dst, mask, demb, dnq, dnk, heads, cot=None):
     """With `cot`, as in `bwd_pass1_plain`: dekb goes there and stands in
-    demb's place in the result, and demb (which may be None) is left to
-    `bwd_demb`."""
+    demb's place in the result, demb (which may be None) is left to
+    `bwd_demb` and dW to `bwd_dw` (None)."""
     cdt = nq.dtype
     HD = nq.shape[-1]
     key = _gather_nodes(nk, dst).float() \
@@ -1044,6 +1103,8 @@ def bwd_pass2_plain(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
     else:
         demb = cot.copy_(dekb_c)
     dw, db = _weight_grads(edge_emb, dekb_c, dekb)
+    if cot is not None:
+        dw = None
     _scatter_nodes(dnq, src, (ds_hd * key).to(cdt).float())
     _scatter_nodes(dnk, dst, dekb_c.float())
     return demb, dnq, dnk, dw, db
@@ -1078,13 +1139,14 @@ def bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
         dws.append(dw)
         dbs.append(db)
     demb = bwd_demb(cot, w_ke, demb, demb, _route)
-    return demb, dnq, dnk, torch.cat(dws, 1), torch.cat(dbs, 0)
+    return demb, dnq, dnk, _pass_dw(edge_emb, cot, dws), torch.cat(dbs, 0)
 
 
 def _bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
                d_denom, src, dst, mask, demb, dnq, dnk, heads, _route,
                cot=None):
-    """One launch of pass 2; with `cot` as `_bwd_pass1` (demb not read)."""
+    """One launch of pass 2; with `cot` as `_bwd_pass1` (demb not read),
+    and dW as there."""
     if not nq.is_cuda:
         return bwd_pass2_plain(nq, nk, edge_emb, w_ke, b_ke, scores, gmax,
                                dalpha, scale, d_denom, src, dst, mask, demb,
@@ -1112,7 +1174,7 @@ def _bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
     _require(dnk, "dnk", torch.float32, (G, N, HD))
     dev = nq.device
     if cot is None:
-        dekb, ld = torch.empty((G, E, HD), device=dev, dtype=cdt), HD
+        dekb, ld = nq.new_empty((G, E, HD)), HD
     else:
         dekb, demb = cot, None
         ld = _build.require_rows(cot, "cot", cdt, (G, E, HD))
@@ -1120,7 +1182,8 @@ def _bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
     width = d_slices(D)[1]
     w_t = None if route == 1 else _sliced_transpose(w_ke, width)
     ws = _streamed_w(route, w_ke, _bwd_streams, cdt)
-    dw = torch.empty((D, HD), device=dev, dtype=torch.float32)
+    dw = None if route == 1 else \
+        torch.empty((D, HD), device=dev, dtype=torch.float32)
     db = torch.empty((HD,), device=dev, dtype=torch.float32)
     n_split, warps, n_blocks, dw_part, db_part = _split_scratch(
         G, E, D, HD, dev, route, _sm_count(dev), cdt)
@@ -1131,13 +1194,15 @@ def _bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
         dalpha.data_ptr(), scale.data_ptr(), d_denom.data_ptr(),
         src.data_ptr(), dst.data_ptr(), mask.data_ptr(), dekb.data_ptr(),
         None if demb is None else demb.data_ptr(), dnq.data_ptr(),
-        dnk.data_ptr(), dw_part.data_ptr(),
-        db_part.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        None if ws is None else ws.data_ptr(), G, N, E, D, HD, heads,
-        n_split, width, _dtype_code(nq), route, warps, n_blocks, ld,
-        _stream())
+        dnk.data_ptr(), None if dw_part is None else dw_part.data_ptr(),
+        db_part.data_ptr(), None if dw is None else dw.data_ptr(),
+        db.data_ptr(), None if ws is None else ws.data_ptr(), G, N, E, D,
+        HD, heads, n_split, width, _dtype_code(nq), route, warps, n_blocks,
+        ld, _stream())
     _build.check(err, "gat_bwd_pass2")
     _build.count_launch("gat_bwd_pass2", route)
+    if route == 1 and cot is None:
+        dw = bwd_dw(edge_emb, dekb)
     return dekb if demb is None else demb, dnq, dnk, dw, db
 
 
@@ -1259,6 +1324,151 @@ def bwd_demb(cot, w, add, out=None, _route=None, _plan=None):
     _build.check(err, "gat_bwd_demb")
     _build.count_launch("gat_bwd_demb", route)
     return out
+
+
+class DwPlan(NamedTuple):
+    """How `dw_wgmma_kernel` runs dW = emb^T cot at (D, HD) over R slots:
+    tiles of `bm` rows of dW x `bn` columns, `n_tiles` of them; the slots in
+    `n_ranges` ranges of `chunk` (slices of `bk` slots), each range's f32
+    partial, `partial_bytes` in all; a ring of `stages` slots in `smem` bytes of shared memory; `blocks`
+    persistent blocks walking the n_tiles x n_ranges items. `box`: emb's
+    and cot's TMA boxes (inner elements, slots, in the 128-byte swizzle),
+    a column block of a slice."""
+    bm: int
+    bn: int
+    n_tiles: int
+    bk: int
+    chunk: int
+    n_ranges: int
+    stages: int
+    smem: int
+    blocks: int
+    partial_bytes: int
+    box: tuple
+
+
+def dw_smem_bytes(cdt, bm: int, bn: int, stages: int) -> int:
+    """csrc/gat_dw.cu `dw_smem_bytes`: the alignment slack, the ring (each
+    slot a slice of bk slots of emb's bm columns and of cot's bn, and in
+    f32 cot's slice transposed as its tf32 hi and lo tiles, bn rows of
+    128 bytes each), three barriers a slot."""
+    es = torch.finfo(cdt).bits // 8
+    stage = (bm + bn) * DW_SLICE[cdt] * es \
+        + (2 * bn * DW_BLOCK if cdt == torch.float32 else 0)
+    return DW_ALIGN + stages * stage + 3 * stages * 8
+
+
+def dw_ranges(R: int, bk: int, n: int) -> tuple[int, int]:
+    """(chunk, ranges): R slots in about n ranges of `chunk` slots, a
+    multiple of bk, every range holding a slot (one range for R = 0)."""
+    chunk = -(-max(1, -(-R // n)) // bk) * bk
+    return chunk, max(1, -(-R // chunk))
+
+
+@functools.lru_cache(maxsize=256)
+def dw_plan(D: int, HD: int, R: int, cdt, n_sm: int, bm: int | None = None,
+            bn: int | None = None, n_ranges: int | None = None) -> DwPlan:
+    """The plan of `bwd_dw`'s route 1 at (D, HD) over R slots in cdt on
+    n_sm SMs: of the tiles the kernel is built at (DW_TILES; `bm`, `bn`
+    name one) and the slot ranges (`n_ranges` names a count; else up to
+    as many as keep the partials within DW_PARTIAL_SHARE of the operands'
+    bytes, and a slice a range), the one with the least modelled time: the
+    waves of (tile, range) items over n_sm persistent blocks, an item's
+    time its products at DW_PEAK (padded tiles included) plus, where they
+    cost (DW_L2_COSTS), its operands' bytes (those inside D and HD) at
+    DW_L2_BYTES_PER_S a card; plus the partials written and read back at
+    DW_HBM_BYTES_PER_S;
+    on a tie the fewer ranges, then the larger tile. The most ring slots
+    that fit."""
+    if D <= 0 or D % 8 or HD <= 0 or HD % 8 or R < 0 or n_sm < 1:
+        raise ValueError(f"dW takes D and HD multiples of 8, R >= 0 slots "
+                         f"and n_sm >= 1; got {D}, {HD}, {R}, {n_sm}")
+    es, bk = torch.finfo(cdt).bits // 8, DW_SLICE[cdt]
+    tiles = [(m, n) for m, n in DW_TILES[cdt]
+             if bm in (None, m) and bn in (None, n)]
+    if not tiles:
+        raise ValueError(f"dW is built at no tile {bm} x {bn} in {cdt}")
+    cap = max(1, int(DW_PARTIAL_SHARE * R * (D + HD) * es) // (4 * D * HD))
+    most = max(1, -(-R // bk))
+    counts = range(1, min(cap, most) + 1) if n_ranges is None \
+        else (n_ranges,)
+    best = None
+    for tbm, tbn in tiles:
+        rows, cols = -(-D // tbm), -(-HD // tbn)
+        # operand elements a slot over all tiles, inside D and HD
+        loaded = cols * D + rows * HD
+        for r in counts:
+            chunk, nr = dw_ranges(R, bk, r)
+            items = rows * cols * nr
+            t_ops = chunk * tbm * tbn * 2.0 * n_sm / DW_PEAK[cdt]
+            t_l2 = chunk * loaded / (rows * cols) * es * n_sm \
+                / DW_L2_BYTES_PER_S
+            part = 4 * nr * D * HD
+            t_item = t_ops + (t_l2 if DW_L2_COSTS[cdt] else 0.0)
+            t = -(-items // n_sm) * t_item + 2 * part / DW_HBM_BYTES_PER_S
+            key = (t, nr, -tbm * tbn)
+            if best is None or key < best[0]:
+                best = (key, tbm, tbn, rows * cols, chunk, nr, part)
+    _, tbm, tbn, n_tiles, chunk, nr, part = best
+    stages = max((s for s in range(2, DW_MAX_STAGES + 1)
+                  if dw_smem_bytes(cdt, tbm, tbn, s) <= TC_SMEM_LIMIT),
+                 default=2)
+    return DwPlan(tbm, tbn, n_tiles, bk, chunk, nr, stages,
+                  dw_smem_bytes(cdt, tbm, tbn, stages),
+                  min(n_sm, n_tiles * nr), part,
+                  (DW_BLOCK // es, bk, True))
+
+
+def _dw_splits(G: int, E: int, n_sm: int) -> int:
+    """The slot ranges of route 0 of `bwd_dw` (`dw_tc_kernel`): one an SM,
+    at least 32 slots each, as the passes' own dW launch split them."""
+    return max(1, min(n_sm, -(-G * E // 32)))
+
+
+def bwd_dw(edge_emb, cot, _route=None, _plan=None):
+    """Rows 8 and 9's weight gradient, one launch a backward pass: dW =
+    emb^T cot over all G E slots, in f32, as `_bwd1_proj_kernel` and
+    `_bwd2_proj_kernel` sum dwme / dwke over their grid. edge_emb (G, E, D)
+    and cot (G, E, HD) in the pass's dtype: the pass's cotangent rows (its
+    d_msg or dekb, or every launch's, `_cot_rows`; zeros at masked slots,
+    which add nothing). Returns dW (D, HD) f32. One launch: route 1,
+    csrc/gat_dw.cu `gat_dw_tc` (`dw_wgmma_kernel`: wgmma from a TMA-fed
+    ring, bf16 products in bf16, split-TF32 ones in f32; its plan
+    `dw_plan`, or `_plan`), then the sum of its ranges' partials; route 0,
+    csrc/gat_bwd.cu `gat_bwd_dw` (`dw_tc_kernel`, the mma.sync kernel the
+    passes launched before, over all HD columns), when named, to time route
+    1 against."""
+    if not cot.is_cuda:
+        return bwd_dw_plain(edge_emb, cot)
+    G, E, HD = cot.shape
+    D = edge_emb.shape[-1]
+    cdt = cot.dtype
+    _require(edge_emb, "edge_emb", cdt, (G, E, D))
+    _require(cot, "cot", cdt, (G, E, HD))
+    if D % 8 or HD % 8:
+        raise ValueError(f"dW takes D and HD multiples of 8, got {D}, {HD}")
+    route = _bwd_route(cdt, _route)
+    dev = cot.device
+    dw = torch.empty((D, HD), device=dev, dtype=torch.float32)
+    if route == 1:
+        plan = _plan or dw_plan(D, HD, G * E, cdt, _sm_count(dev))
+        part = torch.empty((plan.n_ranges, D, HD), device=dev,
+                           dtype=torch.float32)
+        err = _dw_lib().gat_dw_tc(
+            edge_emb.data_ptr(), cot.data_ptr(), part.data_ptr(),
+            dw.data_ptr(), G * E, D, HD, plan.bm, plan.bn, plan.chunk,
+            plan.n_ranges, plan.stages, plan.blocks,
+            _dtype_code(cot), _stream())
+    else:
+        n_split = _dw_splits(G, E, _sm_count(dev))
+        part = torch.empty((n_split, D, HD), device=dev, dtype=torch.float32)
+        err = _bwd_lib().gat_bwd_dw(
+            edge_emb.data_ptr(), cot.data_ptr(), part.data_ptr(),
+            dw.data_ptr(), G, E, D, HD, d_slices(D)[1], n_split,
+            _dtype_code(cot), _stream())
+    _build.check(err, "gat_bwd_dw")
+    _build.count_launch("gat_bwd_dw", route)
+    return dw
 
 
 # --------------------------------------------------------------------------

@@ -15,7 +15,7 @@ file, and exits 1.
 The port's kernels launch through ctypes, so a trace names them by their
 `__global__` functions in csrc/, not by the entry points that
 `ops/_build.LAUNCHES` counts; one entry point can run several, and
-`reduce_partials_kernel` serves three. `PORT_KERNELS` maps each entry point
+`reduce_partials_kernel` serves four. `PORT_KERNELS` maps each entry point
 of rows 6-12, by route, to the `__global__` kernels one call launches, and
 `expected_kernels` turns launch counts into the counts a trace must show.
 """
@@ -40,12 +40,14 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # streamed through it past that (`edge_pass_tc_kernel<PASS, PAIRS, STREAM>`).
 # A pass of more than one column launch ends on one `gat_bwd_demb` call,
 # the demb product over all of its columns (its column launches then make
-# none: on route 0 no `demb_kernel` of their own).
+# none: on route 0 no `demb_kernel` of their own). Every pass on route 1
+# makes its dW in one `gat_bwd_dw` call over all of its columns
+# (`dw_wgmma_kernel` and the sum of its slot ranges' partials; its edge
+# launches then make no dW), route 0 in each column launch.
 # Route 1 of rows 11 and 12 runs all of D's column slices in one launch of
 # each kernel (`edge_hidden_tc_kernel<T, PIECE, WINDOWS>`,
 # `edge_hidden_bwd_tc_kernel<T, NT, PIECE>`) in both dtypes.
-_BWD_TC = {"edge_pass_tc_kernel": 1, "dw_tc_kernel": 1,
-           "reduce_partials_kernel": 2}
+_BWD_TC = {"edge_pass_tc_kernel": 1, "reduce_partials_kernel": 1}
 PORT_KERNELS: dict[tuple[str, int | None], dict[str, int]] = {
     ("gat_pass_a_scores", 1): {"fwd_pass_tc_kernel": 1},
     ("gat_pass_a_scores", 0): {"pass_a_scores_kernel": 1},
@@ -62,6 +64,8 @@ PORT_KERNELS: dict[tuple[str, int | None], dict[str, int]] = {
                            "reduce_partials_kernel": 2},
     ("gat_bwd_demb", 1): {"demb_tc_kernel": 1},
     ("gat_bwd_demb", 0): {"demb_kernel": 1},
+    ("gat_bwd_dw", 1): {"dw_wgmma_kernel": 1, "reduce_partials_kernel": 1},
+    ("gat_bwd_dw", 0): {"dw_tc_kernel": 1, "reduce_partials_kernel": 1},
     ("edge_moments", None): {"edge_moments_kernel": 1},
     ("edge_hidden", 1): {"edge_hidden_tc_kernel": 1},
     ("edge_hidden", 0): {"edge_hidden_kernel": 1},

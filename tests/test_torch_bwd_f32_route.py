@@ -77,8 +77,8 @@ def test_f32_plan_fits_with_eight_warps(D, HD, E):
     assert warps == 8 and n_blocks == 132
     assert gk._tc_smem_bytes(D, HD, warps, F32) <= gk.TC_SMEM_LIMIT
     got = gk._split_scratch(64, E, D, HD, "cpu", route=1, n_sm=132, cdt=F32)
-    assert got[:3] == (132, 8, 132)
-    assert got[3].shape == (132, D, HD) and got[4].shape == (132, HD)
+    assert got[:3] == (0, 8, 132)
+    assert got[3] is None and got[4].shape == (132, HD)
 
 
 def test_f32_plan_at_the_widest_tile():
@@ -174,6 +174,7 @@ def test_wrappers_hand_the_kernels_w_unrounded_in_f32(monkeypatch, cdt, D):
         handed.append(streamed_w(*a, **k))
         return handed[-1]
     monkeypatch.setattr(gk, "_bwd_lib", lambda: lib)
+    monkeypatch.setattr(gk, "_dw_lib", lambda: lib)
     monkeypatch.setattr(gk, "_sm_count", lambda dev: 132)
     monkeypatch.setattr(gk, "_stream", lambda: 0)
     monkeypatch.setattr(gk, "_streamed_w", spy)
@@ -198,9 +199,9 @@ def test_wrappers_hand_the_kernels_w_unrounded_in_f32(monkeypatch, cdt, D):
                      heads)
     finally:
         _build.reset_launch_counts()
-    assert [name for name, _ in lib.calls] == ["gat_bwd_pass1",
-                                               "gat_bwd_pass2"]
-    for (_, args), w, ws in zip(lib.calls, (w_me, w_ke), handed):
+    assert [name for name, _ in lib.calls] == ["gat_bwd_pass1", "gat_dw_tc",
+                                               "gat_bwd_pass2", "gat_dw_tc"]
+    for (_, args), w, ws in zip(lib.calls[::2], (w_me, w_ke), handed):
         assert args[DTYPE_AT] == gk._dtype_code(nodes[0])
         assert args[ROUTE_AT] == 1
         assert (args[WARPS_AT], args[BLOCKS_AT]) == \

@@ -321,6 +321,7 @@ def test_wrappers_run_one_demb_launch_a_pass(monkeypatch, D, HD, heads,
         return cots[-1]
     monkeypatch.setattr(gk, "_bwd_lib", lambda: lib)
     monkeypatch.setattr(gk, "_demb_lib", lambda: lib)
+    monkeypatch.setattr(gk, "_dw_lib", lambda: lib)
     monkeypatch.setattr(gk, "_sm_count", lambda dev: 132)
     monkeypatch.setattr(gk, "_stream", lambda: 0)
     monkeypatch.setattr(gk, "_cot_rows", cot_rows)
@@ -337,15 +338,21 @@ def test_wrappers_run_one_demb_launch_a_pass(monkeypatch, D, HD, heads,
     finally:
         _build.reset_launch_counts()
     n = len(plan)
+    # route 1: each pass then one dW launch over all of its columns (its
+    # column launches make none); route 0's column launches make their own
+    dw = {"gat_bwd_dw": 2} if route == 1 else {}
     assert counts == ({"gat_bwd_pass1": n, "gat_bwd_pass2": n,
-                       "gat_bwd_demb": 2},
+                       "gat_bwd_demb": 2} | dw,
                       {("gat_bwd_pass1", route): n,
                        ("gat_bwd_pass2", route): n,
-                       ("gat_bwd_demb", route): 2})
+                       ("gat_bwd_demb", route): 2}
+                      | {(k, route): v for k, v in dw.items()})
     names = [name for name, _ in lib.calls]
-    assert names == ["gat_bwd_pass1"] * n + [entry] \
-        + ["gat_bwd_pass2"] * n + [entry]
-    for k, (cot, first) in enumerate(((cots[0], 0), (cots[1], n + 1))):
+    tail = [entry] + (["gat_dw_tc"] if route == 1 else [])
+    assert names == ["gat_bwd_pass1"] * n + tail \
+        + ["gat_bwd_pass2"] * n + tail
+    for k, (cot, first) in enumerate(((cots[0], 0),
+                                      (cots[1], n + len(tail)))):
         launches = lib.calls[first:first + n]
         demb_call = lib.calls[first + n][1]
         at_cot, at_demb = (P1_COT, P1_DEMB) if k == 0 else (P2_COT, P2_DEMB)
@@ -371,3 +378,8 @@ def test_wrappers_run_one_demb_launch_a_pass(monkeypatch, D, HD, heads,
             # pass 2 adds into pass 1's demb in place
             assert demb_call[add_at] == demb_call[out_at] == demb.data_ptr()
             assert demb2 is demb
+        if route == 1:
+            # dW over the same cotangent rows, after the demb launch
+            dw_call = lib.calls[first + n + 1][1]
+            assert dw_call[0] == t["emb"].data_ptr()
+            assert dw_call[1] == cot.data_ptr() and dw_call[4] == G * E

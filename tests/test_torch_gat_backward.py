@@ -328,7 +328,8 @@ def test_backward_route_refuses(dtype, route):
         gat_kernels._bwd_route(dtype, route)
 
 
-# G, E, D, HD, SMs -> warps per block, blocks, dW splits on tensor cores
+# G, E, D, HD, SMs -> warps per block, blocks, and the slot ranges of
+# route 0 of the dW launch (`bwd_dw`: `dw_tc_kernel`, once a range an SM)
 TC_PLANS = {
     "main": ((64, 4096, 200, 200, 132), (8, 132, 132)),
     "widest": ((64, 4096, 256, 256, 132), (5, 132, 132)),
@@ -340,12 +341,13 @@ TC_PLANS = {
 
 @pytest.mark.parametrize("case", sorted(TC_PLANS))
 def test_split_scratch_sizes_on_tensor_cores(case):
-    """One db partial per persistent block, one dW partial per split, and a
+    """One db partial per persistent block, no dW partial (one `bwd_dw`
+    launch a pass makes dW; its route 0 one partial per slot range), and a
     block's shared memory within what the card grants."""
     (G, E, D, HD, n_sm), (warps, n_blocks, n_split) = TC_PLANS[case]
     got = gat_kernels._split_scratch(G, E, D, HD, "cpu", route=1, n_sm=n_sm)
-    assert got[:3] == (n_split, warps, n_blocks)
-    assert got[3].shape == (n_split, D, HD) and got[3].dtype == torch.float32
+    assert got[:3] == (0, warps, n_blocks) and got[3] is None
+    assert gat_kernels._dw_splits(G, E, n_sm) == n_split
     assert got[4].shape == (n_blocks, HD) and got[4].dtype == torch.float32
     assert gat_kernels._tc_smem_bytes(D, HD, warps) \
         <= gat_kernels.TC_SMEM_LIMIT

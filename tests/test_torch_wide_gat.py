@@ -369,17 +369,21 @@ def test_d_slices(D, slices):
     assert n * width == D and width % 8 == 0 and width <= 256
 
 
-@pytest.mark.parametrize("route, want", [(1, (8, 132, 132)),
+@pytest.mark.parametrize("route, want", [(1, (8, 132, 0)),
                                          (0, (0, 0, 128))])
 def test_backward_scratch_at_d_512(route, want):
     """At D = 512 the tensor-core plan is the streaming kernel's (eight
-    warps beside the ring of W's chunks at 256 columns), handed W in bf16;
-    the partial sums of dW keep every row of W."""
+    warps beside the ring of W's chunks at 256 columns), handed W in bf16,
+    and makes no dW (one `bwd_dw` launch a pass does); on CUDA cores the
+    partial sums of dW keep every row of W."""
     warps, n_blocks, n_split = want
     got = gk._split_scratch(64, 4096, 512, 256, "cpu", route=route,
                             n_sm=132)
     assert got[:3] == (n_split, warps, n_blocks)
-    assert got[3].shape == (n_split, 512, 256)
+    if route == 1:
+        assert got[3] is None
+    else:
+        assert got[3].shape == (n_split, 512, 256)
     if route == 1:
         assert got[1:3] == gk._tc_plan(64, 4096, 512, 256, 132)
         assert gk._tc_smem_bytes(512, 256, warps) <= gk.TC_SMEM_LIMIT
