@@ -16,7 +16,9 @@ Run from the repository root on a machine with one CUDA card. It
      (D=24, HD=40, which need padding; 96 x 128; 256 x 256; the forward
      also at 264 x 200, 520 x 64 with 8 heads and 1040 x 136 with one head,
      where W's rows stream through shared memory), on both of their routes
-     in both dtypes, with their masked slots held exactly, their
+     in both dtypes (the backward passes in bf16 also on route 2, the
+     wgmma edge kernel, logged in turns with route 1 at the main shapes),
+     with their masked slots held exactly, their
      tensor-core kernels timed in turns with the CUDA-core ones on the
      same inputs, and torch.profiler's device time by kernel name (all four
      passes run on tensor cores in f32 too, split-TF32 products, timed at
@@ -177,7 +179,9 @@ Run from the repository root on a machine with one CUDA card. It
      there beside their bounds, by call and by launch (one edge kernel a
      column launch of rows 8 and 9), rows 6 and 7 and 11 and 12 in both
      dtypes and rows 8 and 9 in f32 in turns with their CUDA-core route on
-     the same inputs; rows 11 and 12 with relation ids past n_rel at D =
+     the same inputs, rows 8 and 9 in bf16 in turns with the mma.sync edge
+     kernel (route 1) that route 2's wgmma kernel replaced there; rows 11
+     and 12 with relation ids past n_rel at D =
      200 and 100; `python -m qagnn_tpu_torch.cli --gnn_dim 512` and
      `--gnn_dim 1040`, side by side, for two train steps each, and beside
      them `cli.main` at the default gnn_dim and at --gnn_dtype float32,
@@ -625,11 +629,12 @@ def measure(reports, name, err, kernel, plain, n_bytes, flops, dtype,
 
 
 def faster_than_previous(name, kernel, previous, previous_is, iters=20,
-                         warmup=3):
+                         warmup=3, held=True):
     """Time a kernel in turns with its earlier version on the same inputs
     (kernel, previous, previous, kernel; medians of `iters` calls after
     `warmup`); a failure unless both of the kernel's times lie below both of
-    the earlier version's. Returns the kernel's mean time."""
+    the earlier version's, where `held` (else the two are only logged side
+    by side). Returns the kernel's mean time."""
     timed = lambda fn: device_ms(fn, iters, warmup)  # noqa: E731
     ms = timed(kernel)
     prev = (timed(previous), timed(previous))
@@ -637,8 +642,9 @@ def faster_than_previous(name, kernel, previous, previous_is, iters=20,
     faster = max(ms, again) < min(prev)
     log(f"  time {name:<18} kernel {ms:.4f} and {again:.4f} ms  "
         f"previous_ms {sum(prev) / 2:.4f} ({prev[0]:.4f} and {prev[1]:.4f}:"
-        f" {previous_is})  {'faster' if faster else 'NOT FASTER'}")
-    if not faster:
+        f" {previous_is})  {'faster' if faster else 'NOT FASTER'}"
+        + ("" if held else " (logged, not held)"))
+    if held and not faster:
         FAILURES.append(f"{name}: the kernel on the main path is not "
                         "faster than its previous version")
     return (ms + again) / 2
@@ -1124,35 +1130,50 @@ def gat_bwd_inputs(gen, dev, D, HD, heads, src, dst, mask, dt):
 
 
 def gat_bwd_case(reports, t, src, dst, mask, heads, dt, tag, main):
-    """Both backward passes against their plain versions on the inputs t;
-    at the main shapes also their times, in turns with the CUDA-core
-    kernels' (route 0) on the same inputs, which must be slower, beside the
-    plain versions' and the bound (operations at `tc_peak`): filed in
-    `reports` in bf16, the main path's dtype, and logged in f32."""
+    """Both backward passes against their plain versions on the inputs t,
+    on the rule's route (`_edge_route`) and, in bf16, on route 2 (the
+    wgmma edge kernel) named, which the rule leaves to a pass of several
+    launches; at the main shapes also their times, in turns with the
+    CUDA-core kernels (route 0) on the same inputs, which must be slower,
+    beside the plain versions' and the bound (operations at `tc_peak`);
+    in bf16 the rule's route in turns with route 2 too, logged beside each
+    other and not held (a few per cent apart at the preset); and the
+    device time by kernel of the routes: filed in `reports` in bf16, the
+    main path's dtype, and logged in f32."""
     HD, D = t["nm"].shape[-1], t["emb"].shape[-1]
     sink, suffix = (reports, "") if dt == torch.bfloat16 \
         else (collections.defaultdict(dict), " f32")
+    rule = gk._edge_route(dt, None, D, True)
+    # route 2 named where the rule takes another but route 2 runs the
+    # launch (bf16 up to D = 256)
+    alt = 2 if dt == torch.bfloat16 and rule != 2 \
+        and D <= gk.EDGE_MAX_D else None
+    checked = (None,) if alt is None else (None, alt)
     previous_is = f"the CUDA-core kernels on the same {dt} inputs"
+    alt_is = f"the wgmma edge kernel (route {alt}) on the same {dt} inputs"
     n_edges = src.shape[1]
     live = mask.float().mean().item()
     dead = ~mask
     for carry in (None, t["carry"]):
-        ctag = f"{tag} {'no carry' if carry is None else 'carry'}"
         p1 = (t["gout"], t["nm"], t["emb"], t["w_me"], t["b_me"], t["scores"],
               t["gmax"], t["scale"], src, dst, mask, carry)
-        got = gk.bwd_pass1(*p1, t["dnm0"].clone(), t["dscale0"].clone(),
-                           heads)
         want = gk.bwd_pass1_plain(*p1, t["dnm0"].clone(),
                                   t["dscale0"].clone(), heads)
-        names = ("demb", "d_alpha", "dnm", "dscale", "dW_me", "db_me")
-        errs = [compare(f"gat_bwd_pass1 {name} {ctag}", g, w, TOL["bwd"][dt])
-                for name, g, w in zip(names, got, want)]
-        # masked slots (one graph has nothing else): demb is the carry or 0
-        # and d_alpha 0, exactly
-        passed = 0.0 if carry is None else carry[dead]
-        if bool((got[0][dead] != passed).any()) \
-                or bool((got[1].transpose(1, 2)[dead] != 0).any()):
-            FAILURES.append(f"gat_bwd_pass1 masked slots {ctag}")
+        for route in checked[::-1]:
+            ctag = f"{tag} {'no carry' if carry is None else 'carry'}" + (
+                "" if route is None else f" route {route}")
+            got = gk.bwd_pass1(*p1, t["dnm0"].clone(), t["dscale0"].clone(),
+                               heads, _route=route)
+            names = ("demb", "d_alpha", "dnm", "dscale", "dW_me", "db_me")
+            errs = [compare(f"gat_bwd_pass1 {name} {ctag}", g, w,
+                            TOL["bwd"][dt])
+                    for name, g, w in zip(names, got, want)]
+            # masked slots (one graph has nothing else): demb is the carry
+            # or 0 and d_alpha 0, exactly
+            passed = 0.0 if carry is None else carry[dead]
+            if bool((got[0][dead] != passed).any()) \
+                    or bool((got[1].transpose(1, 2)[dead] != 0).any()):
+                FAILURES.append(f"gat_bwd_pass1 masked slots {ctag}")
     if main:
         # live edges' rows of emb, scores and indices; the carry and
         # demb whole (a masked slot passes its carry through); the
@@ -1167,10 +1188,20 @@ def gat_bwd_case(reports, t, src, dst, mask, heads, dt, tag, main):
                          got[5])
                 + 2 * nbytes(got[2], got[3]),
                 3 * 2.0 * live * G * n_edges * D * HD, dt,
-                previous=lambda: gk.bwd_pass1(*p1, *scratch, heads, _route=0),
+                previous=lambda: gk.bwd_pass1(*p1, *scratch, heads,
+                                              _route=0),
                 previous_is=previous_is, peak=tc_peak(dt))
         profile_kernels("gat_bwd_pass1" + suffix,
                         lambda: gk.bwd_pass1(*p1, *scratch, heads))
+        if alt:
+            alt1 = lambda: gk.bwd_pass1(*p1, *scratch, heads,  # noqa: E731
+                                        _route=alt)
+            faster_than_previous(
+                f"gat_bwd_pass1 route {rule} vs {alt}",
+                lambda: gk.bwd_pass1(*p1, *scratch, heads), alt1, alt_is,
+                held=False)
+            profile_kernels(f"gat_bwd_pass1 route {alt}" + suffix, alt1,
+                            show=3)
 
     demb1, dalpha, _, dscale = want[:4]
     scale, denom_raw = t["scale"], t["denom_raw"]
@@ -1183,15 +1214,18 @@ def gat_bwd_case(reports, t, src, dst, mask, heads, dt, tag, main):
     dnk0 = ds_self * t["nq"].float()
     p2 = (t["nq"], t["nk"], t["emb"], t["w_ke"], t["b_ke"], t["scores"],
           t["gmax"], dalpha, scale, d_denom, src, dst, mask)
-    got = gk.bwd_pass2(*p2, demb1.clone(), dnq0.clone(), dnk0.clone(), heads)
     want = gk.bwd_pass2_plain(*p2, demb1.clone(), dnq0.clone(), dnk0.clone(),
                               heads)
-    names = ("demb", "dnq", "dnk", "dW_ke", "db_ke")
-    errs = [compare(f"gat_bwd_pass2 {name} {tag}", g, w, TOL["bwd"][dt])
-            for name, g, w in zip(names, got, want)]
-    # a masked slot's demb is pass 1's, exactly
-    if bool((got[0][dead] != demb1[dead]).any()):
-        FAILURES.append(f"gat_bwd_pass2 masked slots {tag}")
+    for route in checked[::-1]:
+        rtag = tag + ("" if route is None else f" route {route}")
+        got = gk.bwd_pass2(*p2, demb1.clone(), dnq0.clone(), dnk0.clone(),
+                           heads, _route=route)
+        names = ("demb", "dnq", "dnk", "dW_ke", "db_ke")
+        errs = [compare(f"gat_bwd_pass2 {name} {rtag}", g, w, TOL["bwd"][dt])
+                for name, g, w in zip(names, got, want)]
+        # a masked slot's demb is pass 1's, exactly
+        if bool((got[0][dead] != demb1[dead]).any()):
+            FAILURES.append(f"gat_bwd_pass2 masked slots {rtag}")
     if main:
         scratch = (demb1.clone(), dnq0.clone(), dnk0.clone())
         measure(sink, "gat_bwd_pass2" + suffix, max(errs),
@@ -1202,16 +1236,33 @@ def gat_bwd_case(reports, t, src, dst, mask, heads, dt, tag, main):
                          scale, d_denom, mask, got[3], got[4])
                 + 2 * nbytes(got[0], got[1], got[2]),
                 3 * 2.0 * live * G * n_edges * D * HD, dt,
-                previous=lambda: gk.bwd_pass2(*p2, *scratch, heads, _route=0),
+                previous=lambda: gk.bwd_pass2(*p2, *scratch, heads,
+                                              _route=0),
                 previous_is=previous_is, peak=tc_peak(dt))
         profile_kernels("gat_bwd_pass2" + suffix,
                         lambda: gk.bwd_pass2(*p2, *scratch, heads))
+        if alt:
+            alt2 = lambda: gk.bwd_pass2(*p2, *scratch, heads,  # noqa: E731
+                                        _route=alt)
+            faster_than_previous(
+                f"gat_bwd_pass2 route {rule} vs {alt}",
+                lambda: gk.bwd_pass2(*p2, *scratch, heads), alt2, alt_is,
+                held=False)
+            profile_kernels(f"gat_bwd_pass2 route {alt}" + suffix, alt2,
+                            show=3)
 
 
 def phase_gat_bwd(gen, odd_gen, dev, reports):
-    """Both dtypes on the tensor-core route, bf16 products in bfloat16 and
-    split-TF32 ones in float32, timed at the main shapes in turns with the
-    CUDA-core kernels."""
+    """Both dtypes on their tensor-core routes, bf16 on the route the rule
+    gives a pass of one launch (`_edge_route`: route 1, the mma.sync edge
+    kernel) and on route 2 named (the wgmma edge kernel of
+    csrc/gat_edge.cu), split-TF32 products in float32, against their plain
+    versions at every width; timed at the main shapes in turns with the
+    CUDA-core kernels, which must be slower, and in bf16 route 1 in turns
+    with route 2, logged (`gat_bwd_case`).
+    And the count of wgmma (HGMMA), TMA (UTMALDG) and local-memory (LDL,
+    STL) instructions in csrc/gat_edge.cu's SASS: route 2 runs on the
+    first two and spills nothing, or the phase fails."""
     D = HD = 200
     for n_edges in (E, E - 3):
         src, dst, mask = graph_inputs(gen, dev, n_edges)
@@ -1234,6 +1285,15 @@ def phase_gat_bwd(gen, odd_gen, dev, reports):
             t = gat_bwd_inputs(odd_gen, dev, D, HD, heads, src, dst, mask, dt)
             gat_bwd_case(reports, t, src, dst, mask, heads, dt,
                          f"D={D} HD={HD} E={E - 3} {dt}", main=False)
+    counts = sass_counts("gat_edge", ops=("HGMMA", "UTMALDG", "LDL", "STL"))
+    log("  csrc/gat_edge.cu's SASS: " + ", ".join(
+        f"{op} {n}" for op, n in counts.items()))
+    if not counts["HGMMA"] or not counts["UTMALDG"]:
+        FAILURES.append("gat_bwd_pass1/2: route 2's SASS has no wgmma or no "
+                        f"TMA load: {counts}")
+    if counts["LDL"] or counts["STL"]:
+        FAILURES.append("gat_bwd_pass1/2: route 2's SASS reads or writes "
+                        f"local memory (spilled registers): {counts}")
 
 
 def sass_counts(name, ops=("HGMMA", "UTMALDG", "UTMASTG")):
@@ -2133,7 +2193,7 @@ def phase_slice(dev, reports, card, cfg, model, enc_cfg, gen):
     extra = set(counts) - set(per_forward)
     if extra:
         FAILURES.append(f"unexpected kernels launched: {sorted(extra)}")
-    check_routes(1, f"{len(order)} served forwards, bf16 GNN")
+    check_routes(BF16_ROUTES, f"{len(order)} served forwards, bf16 GNN")
 
     for b, out in logits.items():
         if out.shape != (B, C) or not bool(torch.isfinite(out).all()):
@@ -2300,6 +2360,17 @@ ROUTED = ("gat_pass_a_scores", "gat_pass_c", "gat_bwd_pass1", "gat_bwd_pass2",
           "gat_bwd_demb", "gat_bwd_dw", "edge_hidden", "edge_hidden_bwd")
 
 
+# the route each routed entry point takes in a bf16 run at the preset:
+# tensor cores (route 1), and for backward passes 1 and 2 the route the rule
+# gives a pass of one launch at D = 200 (`_edge_route`: route 2, the wgmma
+# edge kernel fed by TMA, csrc/gat_edge.cu, where it was the faster)
+BF16_ROUTES = dict.fromkeys(ROUTED, 1) | dict.fromkeys(
+    ("gat_bwd_pass1", "gat_bwd_pass2"),
+    gk._edge_route(torch.bfloat16, None, 200, True))
+# the source of backward passes 1 and 2's edge launch on each route
+EDGE_SOURCE = {1: "gat_bwd.cu", 2: "gat_edge.cu"}
+
+
 # the routes of a step with an f32 GNN: the forward passes A and C and
 # backward passes 1 and 2 on tensor cores (split TF32), the edge encoder's
 # route 1 (its backward's one-hot product on tf32)
@@ -2310,8 +2381,8 @@ F32_ROUTES = {"gat_pass_a_scores": 1, "gat_pass_c": 1, "gat_bwd_pass1": 1,
 
 def check_routes(route, what: str) -> None:
     """Every launch counted since the last reset of the entry points that
-    have two routes took its route: `route` for all of them (an int: 1,
-    tensor cores, for bf16), or by entry point (a dict: F32_ROUTES)."""
+    have more than one route took its route: `route` for all of them (an
+    int), or by entry point (a dict: BF16_ROUTES, F32_ROUTES)."""
     want = route if isinstance(route, dict) else dict.fromkeys(ROUTED, route)
     launched = [n for n in ROUTED if _build.LAUNCHES[n]]
     ok = all(_build.ROUTES[n, want[n]] == _build.LAUNCHES[n]
@@ -2601,7 +2672,7 @@ def phase_train(dev, reports, card, cfg, model, enc_cfg, gen):
     spans.close()
     counts = dict(_build.LAUNCHES)
     check_launches(counts, n_steps, 1, cfg.k, "bf16 steps")
-    check_routes(1, "bf16 steps")
+    check_routes(BF16_ROUTES, "bf16 steps")
     for name in ("edge_moments", "edge_hidden_bwd", "gat_bwd_pass1",
                  "gat_bwd_pass2", "gat_bwd_dw"):
         reports[name]["launches"] = counts.get(name, 0)
@@ -2641,7 +2712,7 @@ def phase_train(dev, reports, card, cfg, model, enc_cfg, gen):
         times.append(time.perf_counter() - t)
     spans.close()
     check_launches(dict(_build.LAUNCHES), 3, 1, cfg.k, "frozen encoder")
-    check_routes(1, "frozen encoder")
+    check_routes(BF16_ROUTES, "frozen encoder")
     same = all(torch.equal(params[n], v) for n, v in enc_params.items()) \
         and all(torch.equal(opt.state[k], v) for k, v in enc_state.items())
     moved = not torch.equal(params["decoder.svec2nvec.weight"], dec_before)
@@ -2663,7 +2734,7 @@ def phase_train(dev, reports, card, cfg, model, enc_cfg, gen):
     loss = step2(batch, generator=generator)["loss"]
     torch.cuda.synchronize()
     check_launches(dict(_build.LAUNCHES), 1, 2, cfg.k, "two microbatches")
-    check_routes(1, "two microbatches")
+    check_routes(BF16_ROUTES, "two microbatches")
     log(f"  two microbatches: loss {loss.item():.5f}")
     if not torch.isfinite(loss):
         FAILURES.append("two-microbatch step")
@@ -3066,7 +3137,8 @@ def gather_parts(split, idx) -> dict:
 def check_cli_launches(probe, run, k) -> None:
     """Each call of a step launched its kernels the expected number of
     times (rows 6-12 per train step; rows 6, 7 and 11 per eval batch; none
-    per detail batch), every routed entry point on route 1 (bf16)."""
+    per detail batch), every routed entry point on its bf16 route
+    (BF16_ROUTES)."""
     per_step = step_launches(k)
     want = {"train": per_step,
             "eval": {n: per_step[n] for n in EVAL_LAUNCHES}, "detail": {}}
@@ -3078,11 +3150,12 @@ def check_cli_launches(probe, run, k) -> None:
         bad = [dict(c["launches"]) for c in calls
                if dict(c["launches"]) != expected]
         off = [dict(c["routes"]) for c in calls
-               if any(r != 1 for _, r in c["routes"])]
+               if any(r != BF16_ROUTES.get(n, 1) for n, r in c["routes"])]
         ok = not bad and not off
         log(f"  launches per {kind} call, {run}: {len(calls)} calls, each "
             + (", ".join(f"{n} {v}" for n, v in expected.items()) or "none")
-            + f", routed entry points on route 1  {'ok' if ok else 'FAIL'}")
+            + f", routed entry points on their bf16 routes  "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             FAILURES.append(f"cli launches, {run} {kind}: {bad[:1]} {off[:1]}")
 
@@ -3188,12 +3261,13 @@ def report_cli(probe, printed, cfg, result, detail, resumed, counts, routes,
     n_steps = CLI_EPOCHS * (CLI_QUESTIONS["train"] // B)
     n_evals = len([c for c in probe.calls if c["run"] == "train"
                    and c["kind"] == "eval"])
-    # the whole train run: every kernel of the path, on route 1
+    # the whole train run: every kernel of the path, on its bf16 route
     per_step = step_launches(k)
     want = {n: v * n_steps + (v * n_evals if n in EVAL_LAUNCHES else 0)
             for n, v in per_step.items()}
     ok = counts == want and len(train_steps) == n_steps and all(
-        routes.get((n, 1), 0) == counts[n] for n in ROUTED if n in counts)
+        routes.get((n, BF16_ROUTES[n]), 0) == counts[n]
+        for n in ROUTED if n in counts)
     log(f"  launches over cli.train ({n_steps} steps, {n_evals} eval "
         f"batches): " + ", ".join(f"{n} {counts.get(n, 0)}" for n in want)
         + f"  {'ok' if ok else 'FAIL'}")
@@ -3682,7 +3756,7 @@ def serve_family(family, dev, card, cfg, model, batches, n_forwards) -> None:
         + f" (per forward: 1, k, k, k)  {'ok' if ok else 'FAIL'}")
     if not ok:
         FAILURES.append(f"{family} serve launches: {counts}")
-    check_routes(1, f"{family} served forwards, bf16 GNN")
+    check_routes(BF16_ROUTES, f"{family} served forwards, bf16 GNN")
     if logits.shape != (B, C) or not bool(torch.isfinite(logits).all()):
         FAILURES.append(f"{family} logits: {tuple(logits.shape)}")
     gnn.backend = "scatter"
@@ -3731,7 +3805,7 @@ def train_family(family, dev, card, cfg, model, batch, n_trained,
                 times.append(time.perf_counter() - t)
         check_launches(dict(_build.LAUNCHES), n, 1, cfg.k,
                        f"{family}, encoder {what}")
-        check_routes(1, f"{family} steps, encoder {what}")
+        check_routes(BF16_ROUTES, f"{family} steps, encoder {what}")
         moved = not torch.equal(enc_param, before)
         ok = all(math.isfinite(x) for x in losses) and moved == trainable \
             and (not trainable or losses[-1] < losses[0])
@@ -5142,8 +5216,10 @@ def step_calls(D, k, dt, n_rel, n_steps) -> dict:
     Dk, HDk = gk.kernel_widths(D, D, HEADS)
     routes = {"gat_pass_a_scores": gk._fwd_route(dt, Dk, HDk, HEADS, None),
               "gat_pass_c": gk._fwd_route(dt, Dk, HDk, HEADS, None),
-              "gat_bwd_pass1": gk._bwd_route(dt, None),
-              "gat_bwd_pass2": gk._bwd_route(dt, None),
+              "gat_bwd_pass1": gk._edge_route(
+                  dt, None, Dk, len(gk.launches(HDk, HEADS)) == 1),
+              "gat_bwd_pass2": gk._edge_route(
+                  dt, None, Dk, len(gk.launches(HDk, HEADS)) == 1),
               "gat_bwd_dw": gk._bwd_route(dt, None),
               "edge_hidden": ek._hidden_route(dt, D, n_rel, N_NTYPE),
               "edge_hidden_bwd": ek._hidden_route(dt, D, n_rel, N_NTYPE)}
@@ -5848,10 +5924,12 @@ def grad_spread(dev, cot, width, kernel, scatter, ref):
                         "f64 reference")
 
 
-def bwd_launches_by_kernel(rows, iters, n_launches, what):
-    """Route 1 of a backward pass from torch.profiler's rows of `iters`
-    calls: the edge kernel once a column launch (past D = 256 it streams
-    W's rows in that one launch), the demb kernel once a call of more than
+def bwd_launches_by_kernel(rows, iters, n_launches, what, dt):
+    """A backward pass on its default route from torch.profiler's rows of
+    `iters` calls: the edge kernel once a column launch (past D = 256 it
+    streams W's rows in that one launch; bf16 the wgmma kernel,
+    `edge_wgmma_kernel`, and never the mma.sync one, `edge_pass_tc_kernel`;
+    f32 the other way round), the demb kernel once a call of more than
     one column launch (never in a call of one), the dW kernel
     (`dw_wgmma_kernel`) once a call and the mma.sync dW kernel
     (`dw_tc_kernel`) never, and each one's us a launch. More launches than
@@ -5867,7 +5945,9 @@ def bwd_launches_by_kernel(rows, iters, n_launches, what):
     for t, count, key in rows:
         n[kernel_base(key)] += count
         us[kernel_base(key)] += t
-    for k, per_call in (("edge_pass_tc_kernel", n_launches),
+    wgmma = dt == torch.bfloat16
+    for k, per_call in (("edge_wgmma_kernel", n_launches if wgmma else 0),
+                        ("edge_pass_tc_kernel", 0 if wgmma else n_launches),
                         ("dw_wgmma_kernel", 1), ("dw_tc_kernel", 0),
                         ("demb_tc_kernel", int(n_launches > 1))):
         calls = n[k] / iters
@@ -5883,15 +5963,17 @@ def bwd_launches_by_kernel(rows, iters, n_launches, what):
 
 def widths_passes(gen, dev, card, D, HD):
     """Rows 6-9 alone at D x HD (the kernels' widths), 4 heads: passes A and
-    C and backward passes 1 and 2 on both routes in both dtypes against
-    their plain versions, masked slots exactly, at E and E - 3, every
-    launch of the four against its plain version (`LaunchCheck`: the
-    streaming kernels, a split head's partial mode included); then each
-    call's device time with its bound (operations at `tc_peak`; rows 6
-    and 7 in both dtypes (`widths_fwd_times`) and rows 8 and 9 in f32 in
-    turns with their CUDA-core route on the same inputs, which must be
-    slower), and the device time of each kernel launch it makes
-    (torch.profiler: one edge kernel a column launch of rows 8 and 9),
+    C and backward passes 1 and 2 on every route in both dtypes (bf16 rows
+    8 and 9 on route 2, the wgmma edge kernel, too) against their plain
+    versions, masked slots exactly, at E and E - 3, every launch of the
+    four against its plain version (`LaunchCheck`: the streaming kernels,
+    a split head's partial mode included); then each call's device time
+    with its bound (operations at `tc_peak`; rows 6 and 7 in both dtypes
+    (`widths_fwd_times`), rows 8 and 9 in turns with the route they
+    replaced on the same inputs, which must be slower: f32 the CUDA-core
+    kernels, bf16 the mma.sync edge kernel), and the device time of each
+    kernel launch it makes (torch.profiler: one edge kernel a column
+    launch of rows 8 and 9, in bf16 also the mma.sync one's),
     rows 11 and 12 at this D too. The backward passes' plain version is
     the unsliced one at every width: a pass of several launches rounds
     demb once, in its one demb product (ROADMAP C17), so in bf16 every
@@ -5923,10 +6005,12 @@ def widths_passes(gen, dev, card, D, HD):
                     torch.randn((G, N, HD), generator=gen, device=dev))
             want2 = gk.bwd_pass2_plain(*p2, want1[0].clone(),
                                        *(x.clone() for x in acc2), HEADS)
-            for route in (0, 1):
+            # bf16: route 2 (the wgmma edge kernel, the default) and route
+            # 1 (the mma.sync one) named
+            for route in (0, 1, 2) if dt == torch.bfloat16 else (0, 1):
                 tag = f"D={D} HD={HD} E={n_edges} {dt} route {route}"
                 _build.reset_launch_counts()
-                check = LaunchCheck(tag, dt) if route == 1 else None
+                check = LaunchCheck(tag, dt) if route else None
                 with check or contextlib.nullcontext():
                     got1 = gk.bwd_pass1(*p1, t["dnm0"].clone(),
                                         t["dscale0"].clone(), HEADS,
@@ -5952,15 +6036,18 @@ def widths_passes(gen, dev, card, D, HD):
                     bf16_steps(f"gat_bwd_pass1 demb {tag}", got1[0], want1[0])
                     bf16_steps(f"gat_bwd_pass2 demb {tag}", got2[0], want2[0])
                 # a pass of several launches: one demb product each; on
-                # route 1 every pass one dW product
+                # routes 1 and 2 every pass one dW product (their route 1)
                 demb_calls = 2 if n_launches > 1 else 0
-                counts = {k: (_build.LAUNCHES[k], _build.ROUTES[k, route])
+                of = {"gat_bwd_demb": min(route, 1),
+                      "gat_bwd_dw": min(route, 1)}
+                counts = {k: (_build.LAUNCHES[k],
+                              _build.ROUTES[k, of.get(k, route)])
                           for k in ("gat_bwd_pass1", "gat_bwd_pass2",
                                     "gat_bwd_demb", "gat_bwd_dw")}
                 want_counts = {"gat_bwd_pass1": (n_launches,) * 2,
                                "gat_bwd_pass2": (n_launches,) * 2,
                                "gat_bwd_demb": (demb_calls,) * 2,
-                               "gat_bwd_dw": (2 * route,) * 2}
+                               "gat_bwd_dw": (2 * min(route, 1),) * 2}
                 if counts != want_counts:
                     FAILURES.append(f"widths: launches of the passes, {tag}: "
                                     f"{counts}")
@@ -5973,9 +6060,12 @@ def widths_passes(gen, dev, card, D, HD):
             s1 = (t["dnm0"].clone(), t["dscale0"].clone())
             s2 = (want1[0].clone(), *(x.clone() for x in acc2))
             flops = 3 * 2.0 * live * G * E * D * HD
+            # bf16 in turns with the mma.sync edge kernel (route 1), f32
+            # with the CUDA-core kernels (route 0)
+            before = 1 if dt == torch.bfloat16 else 0
             for name, fn, route0, plain, n_bytes in (
                     ("gat_bwd_pass1", lambda: gk.bwd_pass1(*p1, *s1, HEADS),
-                     lambda: gk.bwd_pass1(*p1, *s1, HEADS, _route=0),
+                     lambda: gk.bwd_pass1(*p1, *s1, HEADS, _route=before),
                      lambda: gk.bwd_pass1_plain(*p1, *s1, HEADS),
                      live * nbytes(t["emb"], t["scores"], src, dst)
                      + nbytes(t["gout"], t["nm"], t["w_me"], t["b_me"],
@@ -5983,20 +6073,18 @@ def widths_passes(gen, dev, card, D, HD):
                               want1[1], want1[4], want1[5])
                      + 2 * nbytes(want1[2], want1[3])),
                     ("gat_bwd_pass2", lambda: gk.bwd_pass2(*p2, *s2, HEADS),
-                     lambda: gk.bwd_pass2(*p2, *s2, HEADS, _route=0),
+                     lambda: gk.bwd_pass2(*p2, *s2, HEADS, _route=before),
                      lambda: gk.bwd_pass2_plain(*p2, *s2, HEADS),
                      live * nbytes(t["emb"], t["scores"], want1[1], src, dst)
                      + nbytes(t["nq"], t["nk"], t["w_ke"], t["b_ke"],
                               t["gmax"], scale, d_denom, mask, want2[3],
                               want2[4])
                      + 2 * nbytes(want2[0], want2[1], want2[2]))):
-                if dt == torch.float32:
-                    ms = faster_than_previous(
-                        f"{name} D={D} HD={HD} f32", fn, route0,
-                        "the CUDA-core kernels on the same f32 inputs",
-                        iters=5, warmup=1)
-                else:
-                    ms = device_ms(fn, iters=5, warmup=1)
+                ms = faster_than_previous(
+                    f"{name} D={D} HD={HD} {dt}", fn, route0,
+                    ("the mma.sync edge kernel (route 1)" if before else
+                     "the CUDA-core kernels") + f" on the same {dt} inputs",
+                    iters=5, warmup=1)
                 plain_ms = device_ms(plain, iters=5, warmup=1)
                 bound_ms, by = bound(n_bytes, flops, dt, tc_peak(dt))
                 log(f"  time {name} D={D} HD={HD} {dt}: kernels {ms:.4f} ms "
@@ -6006,7 +6094,10 @@ def widths_passes(gen, dev, card, D, HD):
                 rows = profile_kernels(f"{name} D={D} HD={HD} {dt}", fn,
                                        iters=5)
                 bwd_launches_by_kernel(rows, 5, n_launches,
-                                       f"{name} D={D} HD={HD} {dt}")
+                                       f"{name} D={D} HD={HD} {dt}", dt)
+                if before:
+                    profile_kernels(f"{name} D={D} HD={HD} {dt} route 1",
+                                    route0, iters=5, show=2)
     # the forward passes at this D in both dtypes, and rows 11-12 (route 1
     # in turns with route 0)
     for dt in (torch.float32, torch.bfloat16):
@@ -6354,6 +6445,7 @@ WIDTHS_PARTS = ("inplace", "passes")
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated phases to run (default: all)")
@@ -6404,8 +6496,12 @@ def main() -> int:
         "gat_pass_c": entry("gat_fwd.cu", f"{gat}:716"),
         "edge_moments": entry("edge_moments.cu", f"{enc}:93"),
         "edge_hidden_bwd": entry("edge_hidden.cu", f"{enc}:179"),
-        "gat_bwd_pass1": entry("gat_bwd.cu", f"{gat}:765"),
-        "gat_bwd_pass2": entry("gat_bwd.cu", f"{gat}:849"),
+        # the main path's edge launch of both passes: the source of the
+        # route the rule gives the preset's bf16 pass (BF16_ROUTES)
+        "gat_bwd_pass1": entry(EDGE_SOURCE[BF16_ROUTES["gat_bwd_pass1"]],
+                               f"{gat}:765"),
+        "gat_bwd_pass2": entry(EDGE_SOURCE[BF16_ROUTES["gat_bwd_pass2"]],
+                               f"{gat}:849"),
         # the demb product of both passes, one launch a pass of several
         "gat_bwd_demb": entry("gat_demb.cu", f"{gat}:828"),
         # the dW product of both passes, one launch a pass
@@ -6550,6 +6646,8 @@ def main() -> int:
     left = stop_children()
     log(f"\n[processes] still running at the end: {len(left)}, each "
         "stopped" + "".join(f"\n  {line}" for line in left))
+    log(f"  the whole script took {time.perf_counter() - t_start:.1f} s "
+        f"({card})")
     if FAILURES:
         log("\nFAILED: " + "; ".join(FAILURES))
         return 1

@@ -1,5 +1,6 @@
 // Hopper's own path, shared by the kernels built on it (gat_demb.cu,
-// gat_dw.cu): mbarriers, TMA loads and stores through 2-D tensor maps,
+// gat_dw.cu, gat_edge.cu): mbarriers, TMA loads and stores through 2-D
+// tensor maps (and loads through 3-D ones),
 // wgmma's fences and waits, the 128-byte-swizzle descriptors, the tf32
 // split, and the host's encoding of a tensor map through the entry point
 // the runtime hands out (no -lcuda; <cuda.h> for the types only).
@@ -57,6 +58,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
       "l"((uint64_t)map), "r"(x), "r"(y), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// box (x, y, z) of a 3-D map -> shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int x, int y, int z,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"((uint64_t)map), "r"(x), "r"(y), "r"(z), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -191,6 +203,30 @@ int encode(CUtensorMap* map, const void* ptr, long long rows, int cols,
       2, const_cast<void*>(ptr), dims, strides, box, unit,
       CU_TENSOR_MAP_INTERLEAVE_NONE,
       swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
+}
+
+// a map of a row-major (depth, rows, cols) array of T in boxes of box_cols
+// x box_rows x 1, zero-filled past each dimension's edge (a box that runs
+// past `rows` reads none of the next depth's rows), in the 128-byte swizzle
+template <typename T>
+int encode_3d(CUtensorMap* map, const void* ptr, long long depth,
+              long long rows, int cols, int box_cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)depth};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * sizeof(T),
+                                 (cuuint64_t)rows * cols * sizeof(T)};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(
+      map,
+      sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      3, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
 }

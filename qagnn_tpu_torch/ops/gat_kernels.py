@@ -40,15 +40,20 @@ recomputes e = exp(min(s - gmax, 0)) from the saved scores and runs
     dnq[src] += d_s * key, dnk[dst] += dekb.
 
 Both backward passes run the three products of a pass on tensor cores in
-either dtype (csrc/gat_bwd_tc.cuh, `_bwd_route`; route 0, the CUDA-core
-kernels, only when named). bfloat16: persistent blocks with W resident in
-shared memory at D <= 256; past that one launch streams W, rounded to bf16
-here (`_streamed_w`), through shared memory in chunks of its rows, twice a
-round. float32: the same streaming kernel at every D, handed W itself in
-f32, each product as three tf32 products of split operands (hi = tf32(x),
-lo = x - hi; a_lo b_hi + a_hi b_lo + a_hi b_hi in f32, summed 16 of depth
-at a time in a fresh accumulator), about 2^-20 relative a product at
-worst against the 1e-4 the f32 passes are held to on the card.
+either dtype (`_edge_route`; route 0, the CUDA-core kernels, only when
+named). bfloat16, route 2: the edge launch of a pass of several launches
+on Hopper's own path (csrc/gat_edge.cu `edge_wgmma_kernel`: wgmma fed by
+TMA through an mbarrier ring, a producer warpgroup, two consumer
+warpgroups of 64 slots each, W rounded to bf16 here (`_streamed_w`) and
+resident in shared memory at D <= 256, its rows streamed past that, where
+a launch makes no demb product; `edge_plan`). Route 1, the `mma.sync`
+kernels (csrc/gat_bwd_tc.cuh): bf16's pass of one launch, with its demb
+product, where route 2 was slower on the card, and float32 at every D:
+the streaming kernel handed W itself in f32, each product as three tf32
+products of split operands (hi = tf32(x), lo = x - hi; a_lo b_hi + a_hi
+b_lo + a_hi b_hi in f32, summed 16 of depth at a time in a fresh
+accumulator), about 2^-20 relative a product at worst against the 1e-4 the
+f32 passes are held to on the card.
 
 No gradient flows through gmax. The chained form also returns the edge
 embedding: threaded through the k layers, each layer's backward receives the
@@ -142,6 +147,9 @@ _DEMB_SIGNATURES = {
 _DW_SIGNATURES = {
     "gat_dw_tc": [_P] * 4 + [ctypes.c_longlong] + [_I] * 9 + [_P],
 }
+_EDGE_SIGNATURES = {
+    "gat_edge_tc": [_P] * 22 + [_I] * 15 + [_P],
+}
 DW_SPLITS = 128      # edge ranges (rows of partials) of the dW products
 # the tensor-core routes (csrc/gat_fwd_tc.cuh, csrc/gat_bwd_tc.cuh)
 TC_UNIT = 16                 # edges a warp works on at a time
@@ -211,6 +219,22 @@ DW_HBM_BYTES_PER_S = 3.35e12
 # products hid them (at gnn_dim 1040 128 x 96 over 4 ranges ran 5.7-6.0
 # ms, 128 x 128 over 13 6.3-6.5)
 DW_L2_COSTS = {torch.bfloat16: True, torch.float32: False}
+# rows 8 and 9's bf16 edge launch on Hopper, route 2 (csrc/gat_edge.cu
+# `edge_wgmma_kernel`): a consumer warpgroup's tile of slots and a block's
+# pair of them, a TMA box's bf16 columns (128 bytes, the swizzle's span) and
+# bytes at 64 rows, the widest D with W resident (past it W's rows stream
+# through the ring, and the kernel makes no product 2), the ring's most
+# slots, the most per-pair tables in flight and the bytes of one, a
+# consumer warp's staging (16 rows of EDGE_LDS floats), and the swizzle's
+# alignment (tests/test_torch_edge_plan.py holds them to csrc)
+EDGE_ROWS, EDGE_PAIR = 64, 128
+EDGE_BOX, EDGE_BOX_BYTES = 64, 64 * 128
+EDGE_MAX_D = 256
+EDGE_MAX_STAGES = 4
+EDGE_MAX_TABLES, EDGE_TABLE_BYTES = 2, 4 * (2 * 128 + 2 * 128 * 9)
+EDGE_LDS = 40
+EDGE_WARP_STAGE = 16 * EDGE_LDS * 4
+EDGE_ALIGN = 1024
 
 
 def _lib():
@@ -227,6 +251,10 @@ def _demb_lib():
 
 def _dw_lib():
     return _build.load("gat_dw", _DW_SIGNATURES)
+
+
+def _edge_lib():
+    return _build.load("gat_edge", _EDGE_SIGNATURES)
 
 
 def _dtype_code(t: torch.Tensor) -> int:
@@ -735,6 +763,32 @@ def _bwd_route(cdt, route):
     return route
 
 
+def _edge_route(cdt, route, D, demb_on):
+    """Route of a backward pass's edge launch: 0 the CUDA-core kernels, 1
+    the `mma.sync` tensor-core kernel (`edge_pass_tc_kernel`,
+    csrc/gat_bwd_tc.cuh), 2 the wgmma kernel fed by TMA (`edge_wgmma_kernel`,
+    csrc/gat_edge.cu). Route 2 runs bf16 launches at every D without product
+    2 (a launch of a pass of several) and with it up to D = 256 (W
+    resident); one launch of a pass past D = 256, which streams W's rows for
+    product 2 too, takes route 1, as float32 does everywhere. By default
+    bf16 takes route 2 for a launch without product 2 and route 1 for one
+    with it, where route 1 ran a call 3-9% faster in turns at the preset on
+    an H100 (PERF.md §6). `route` names one: 0 or 1 in either dtype (as
+    `_bwd_route`), 2 where it runs the launch, to time the routes side by
+    side."""
+    wgmma = cdt == torch.bfloat16 and (D <= EDGE_MAX_D or not demb_on)
+    if route is None:
+        return 2 if wgmma and not demb_on else 1
+    if route == 2:
+        if not wgmma:
+            raise ValueError(f"route 2 of the GAT backward's edge launch "
+                             f"takes bf16 with D <= {EDGE_MAX_D} or no demb "
+                             f"product; got {cdt}, D={D}, demb "
+                             f"{'on' if demb_on else 'off'}")
+        return 2
+    return _bwd_route(cdt, route)
+
+
 def _fwd_route(cdt, D, HD, heads, route):
     """Route of the forward passes A (scores) and C: 0 CUDA cores, 1 tensor
     cores where their widths hold (any D, HD <= 256, heads of at least 4
@@ -895,7 +949,11 @@ def _streamed_w(route, w, streams, cdt=torch.bfloat16):
     direction's decision: `_fwd_streams` or `_bwd_streams`); in f32 (the
     split-TF32 routes of both directions, which stream at every D) W
     itself, unrounded. None elsewhere: route 0 and the resident kernel
-    round W as they load it."""
+    round W as they load it. Route 2 of the backward's edge launch
+    (`_edge_route`) reads W by TMA at every D, resident or streamed: W
+    rounded to bf16."""
+    if route == 2:
+        return w.to(torch.bfloat16)
     if route != 1:
         return None
     if cdt == torch.float32:
@@ -933,8 +991,82 @@ def _split_scratch(G, E, D, HD, device, route=0, n_sm=1,
                         dtype=torch.float32))
 
 
+def _ptr(t):
+    """A tensor's device address for a C entry point, or None."""
+    return None if t is None else t.data_ptr()
+
+
 def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+class EdgePlan(NamedTuple):
+    """How `edge_wgmma_kernel` runs a bf16 edge launch at (D, HD): product
+    1's width in `nb` blocks of 64 columns, W's rows streamed through the
+    ring (`stream`, D > 256) or resident, the heads summed at `hp` (4 or
+    8), a ring of `stages` slots and `tables` per-pair tables in flight in
+    `smem` bytes of shared memory, `pairs` pairs of 64-slot tiles walked by
+    `blocks` persistent blocks. Its TMA boxes (inner elements, rows, in the
+    128-byte swizzle): `w_box` W's, a 64-column block of all of its rows or
+    of 64, `emb_box` emb's (64 columns of 64 slots of one graph, a 3-D
+    map)."""
+    nb: int
+    stream: bool
+    hp: int
+    stages: int
+    tables: int
+    smem: int
+    pairs: int
+    blocks: int
+    w_box: tuple
+    emb_box: tuple
+
+
+def edge_smem_bytes(D: int, HD: int, stream: bool, stages: int,
+                    tables: int) -> int:
+    """csrc/gat_edge.cu `edge_smem_bytes`: the alignment slack, W whole
+    (its 64-column blocks of D rows rounded up to 16; none when streamed),
+    the ring (a slot both tiles' emb, all of D, or 64 of its columns and 64
+    of W's rows beside them), the per-pair tables, the eight consumer warps'
+    staging, each column's bias and head, the barriers."""
+    nb, dp = -(-HD // 64), -(-D // 16) * 16
+    w = 0 if stream else nb * dp * 128
+    stage = (2 + nb) * EDGE_BOX_BYTES if stream \
+        else 2 * -(-D // 64) * EDGE_BOX_BYTES
+    return EDGE_ALIGN + w + stages * stage + tables * EDGE_TABLE_BYTES \
+        + 8 * EDGE_WARP_STAGE + MAX_COLS * 5 + (2 * stages + 2 * tables + 1) * 8
+
+
+@functools.lru_cache(maxsize=256)
+def edge_plan(G: int, E: int, D: int, HD: int, heads: int,
+              n_sm: int) -> EdgePlan:
+    """The plan of route 2's edge launch (`_edge_route`) for G graphs of E
+    slots at (D, HD) with `heads` heads on n_sm SMs: W resident up to D =
+    256, streamed past it; two per-pair tables in flight where a ring slot
+    fits beside them, else one (D = HD = 256); then the most ring slots
+    that fit, at most EDGE_MAX_STAGES; a block an SM, no more blocks than
+    pairs of tiles."""
+    if D <= 0 or D % 8 or HD <= 0 or HD % 8 or HD > MAX_COLS \
+            or not 0 < heads <= MAX_HEADS or n_sm < 1:
+        raise ValueError(f"the edge launch takes D and HD multiples of 8, HD "
+                         f"<= {MAX_COLS}, 1-{MAX_HEADS} heads; got D={D}, "
+                         f"HD={HD}, heads={heads}")
+    stream = D > EDGE_MAX_D
+    fits = lambda s, t: edge_smem_bytes(D, HD, stream, s, t) \
+        <= TC_SMEM_LIMIT  # noqa: E731
+    tables = next((t for t in range(EDGE_MAX_TABLES, 0, -1) if fits(1, t)),
+                  0)
+    stages = max((s for s in range(1, EDGE_MAX_STAGES + 1)
+                  if fits(s, tables)), default=0) if tables else 0
+    if not stages:
+        raise ValueError(f"the edge launch at D={D}, HD={HD} leaves no "
+                         "shared memory for a ring slot")
+    pairs = G * -(-E // EDGE_PAIR)
+    return EdgePlan(-(-HD // 64), stream, 4 if heads <= 4 else 8, stages,
+                    tables, edge_smem_bytes(D, HD, stream, stages, tables),
+                    pairs, max(1, min(n_sm, pairs)),
+                    (EDGE_BOX, EDGE_BOX if stream else -(-D // 16) * 16, True),
+                    (EDGE_BOX, EDGE_ROWS, True))
 
 
 def _sliced_transpose(w, width):
@@ -984,9 +1116,16 @@ def bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
             dbs.append(db)
         dscale[..., h0:h1] = ds
         dalphas.append(dalpha)
-    demb = bwd_demb(cot, w_me, carry, None, _route)
+    demb = bwd_demb(cot, w_me, carry, None, _demb_route(_route))
     return (demb, torch.cat(dalphas, 1), dnm, dscale,
             _pass_dw(edge_emb, cot, dws), torch.cat(dbs, 0))
+
+
+def _demb_route(route):
+    """The demb launch's route for a pass run on `route` (`_edge_route`):
+    its own default (wgmma, `bwd_demb`'s route 1) for both tensor-core
+    routes of the edge launch, route 0 with the CUDA-core kernels."""
+    return None if route == 2 else route
 
 
 def _pass_dw(edge_emb, cot, dws):
@@ -1009,9 +1148,9 @@ def _bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
                cot=None):
     """One launch of pass 1. With `cot` (the launch's columns of a pass's
     cotangent rows, `_cot_rows`; carry None) it writes d_msg there, makes no
-    demb product, and returns `cot` in demb's place. On route 1 the edge
-    launch makes no dW: one `bwd_dw` launch takes it from d_msg, or, with
-    `cot`, is left to the caller (dW None)."""
+    demb product, and returns `cot` in demb's place. On routes 1 and 2
+    (`_edge_route`) the edge launch makes no dW: one `bwd_dw` launch takes
+    it from d_msg, or, with `cot`, is left to the caller (dW None)."""
     if not nm.is_cuda:
         return bwd_pass1_plain(gout, nm, edge_emb, w_me, b_me, scores, gmax,
                                scale, src, dst, mask, carry, dnm, dscale,
@@ -1045,34 +1184,45 @@ def _bwd_pass1(gout, nm, edge_emb, w_me, b_me, scores, gmax, scale, src, dst,
     else:
         dmsg, demb = cot, None
         ld = _build.require_rows(cot, "cot", cdt, (G, E, HD))
-    route = _bwd_route(cdt, _route)
+    route = _edge_route(cdt, _route, D, demb is not None)
     width = d_slices(D)[1]
     # the tensor-core kernels read W_me both ways from one shared tile or
     # ring of its rows
-    w_t = None if route == 1 else _sliced_transpose(w_me, width)
+    w_t = None if route else _sliced_transpose(w_me, width)
     ws = _streamed_w(route, w_me, _bwd_streams, cdt)
     dalpha = _scores_out(acc, G, heads, E, dev)
-    dw = None if route == 1 else \
+    dw = None if route else \
         torch.empty((D, HD), device=dev, dtype=torch.float32)
     db = torch.empty((HD,), device=dev, dtype=torch.float32)
-    n_split, warps, n_blocks, dw_part, db_part = _split_scratch(
-        G, E, D, HD, dev, route, _sm_count(dev), cdt)
-    err = _bwd_lib().gat_bwd_pass1(
-        gout.data_ptr(), nm.data_ptr(), edge_emb.data_ptr(), w_me.data_ptr(),
-        None if w_t is None else w_t.data_ptr(), b_me.data_ptr(),
-        scores.data_ptr(), gmax.data_ptr(),
-        scale.data_ptr(), src.data_ptr(), dst.data_ptr(), mask.data_ptr(),
-        None if carry is None else carry.data_ptr(), dmsg.data_ptr(),
-        None if demb is None else demb.data_ptr(), dalpha.data_ptr(),
-        dnm.data_ptr(), dscale.data_ptr(),
-        None if dw_part is None else dw_part.data_ptr(), db_part.data_ptr(),
-        None if dw is None else dw.data_ptr(), db.data_ptr(),
-        None if ws is None else ws.data_ptr(), G, N, E, D, HD, heads,
-        n_split, width, _dtype_code(nm), route, warps, n_blocks,
-        _part(acc, last), ld, _stream())
+    if route == 2:
+        plan = edge_plan(G, E, D, HD, heads, _sm_count(dev))
+        db_part = torch.empty((plan.blocks, HD), device=dev,
+                              dtype=torch.float32)
+        err = _edge_lib().gat_edge_tc(
+            nm.data_ptr(), gout.data_ptr(), edge_emb.data_ptr(),
+            ws.data_ptr(), b_me.data_ptr(), scores.data_ptr(),
+            gmax.data_ptr(), scale.data_ptr(), None, None, src.data_ptr(),
+            dst.data_ptr(), mask.data_ptr(), _ptr(carry), dmsg.data_ptr(),
+            _ptr(demb), dalpha.data_ptr(), dnm.data_ptr(), None,
+            dscale.data_ptr(), db_part.data_ptr(), db.data_ptr(), 1, G, N,
+            E, D, HD, heads, _part(acc, last), ld, plan.nb,
+            int(plan.stream), plan.hp, plan.stages, plan.tables, plan.blocks,
+            _stream())
+    else:
+        n_split, warps, n_blocks, dw_part, db_part = _split_scratch(
+            G, E, D, HD, dev, route, _sm_count(dev), cdt)
+        err = _bwd_lib().gat_bwd_pass1(
+            gout.data_ptr(), nm.data_ptr(), edge_emb.data_ptr(),
+            w_me.data_ptr(), _ptr(w_t), b_me.data_ptr(), scores.data_ptr(),
+            gmax.data_ptr(), scale.data_ptr(), src.data_ptr(),
+            dst.data_ptr(), mask.data_ptr(), _ptr(carry), dmsg.data_ptr(),
+            _ptr(demb), dalpha.data_ptr(), dnm.data_ptr(), dscale.data_ptr(),
+            _ptr(dw_part), db_part.data_ptr(), _ptr(dw), db.data_ptr(),
+            _ptr(ws), G, N, E, D, HD, heads, n_split, width, _dtype_code(nm),
+            route, warps, n_blocks, _part(acc, last), ld, _stream())
     _build.check(err, "gat_bwd_pass1")
     _build.count_launch("gat_bwd_pass1", route)
-    if route == 1 and cot is None:
+    if route and cot is None:
         dw = bwd_dw(edge_emb, dmsg)
     return dmsg if demb is None else demb, dalpha, dnm, dscale, dw, db
 
@@ -1138,7 +1288,7 @@ def bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
             cot=col_view(cot, c0, c1))
         dws.append(dw)
         dbs.append(db)
-    demb = bwd_demb(cot, w_ke, demb, demb, _route)
+    demb = bwd_demb(cot, w_ke, demb, demb, _demb_route(_route))
     return demb, dnq, dnk, _pass_dw(edge_emb, cot, dws), torch.cat(dbs, 0)
 
 
@@ -1178,30 +1328,42 @@ def _bwd_pass2(nq, nk, edge_emb, w_ke, b_ke, scores, gmax, dalpha, scale,
     else:
         dekb, demb = cot, None
         ld = _build.require_rows(cot, "cot", cdt, (G, E, HD))
-    route = _bwd_route(cdt, _route)
+    route = _edge_route(cdt, _route, D, demb is not None)
     width = d_slices(D)[1]
-    w_t = None if route == 1 else _sliced_transpose(w_ke, width)
+    w_t = None if route else _sliced_transpose(w_ke, width)
     ws = _streamed_w(route, w_ke, _bwd_streams, cdt)
-    dw = None if route == 1 else \
+    dw = None if route else \
         torch.empty((D, HD), device=dev, dtype=torch.float32)
     db = torch.empty((HD,), device=dev, dtype=torch.float32)
-    n_split, warps, n_blocks, dw_part, db_part = _split_scratch(
-        G, E, D, HD, dev, route, _sm_count(dev), cdt)
-    err = _bwd_lib().gat_bwd_pass2(
-        nq.data_ptr(), nk.data_ptr(), edge_emb.data_ptr(), w_ke.data_ptr(),
-        None if w_t is None else w_t.data_ptr(), b_ke.data_ptr(),
-        scores.data_ptr(), gmax.data_ptr(),
-        dalpha.data_ptr(), scale.data_ptr(), d_denom.data_ptr(),
-        src.data_ptr(), dst.data_ptr(), mask.data_ptr(), dekb.data_ptr(),
-        None if demb is None else demb.data_ptr(), dnq.data_ptr(),
-        dnk.data_ptr(), None if dw_part is None else dw_part.data_ptr(),
-        db_part.data_ptr(), None if dw is None else dw.data_ptr(),
-        db.data_ptr(), None if ws is None else ws.data_ptr(), G, N, E, D,
-        HD, heads, n_split, width, _dtype_code(nq), route, warps, n_blocks,
-        ld, _stream())
+    if route == 2:
+        plan = edge_plan(G, E, D, HD, heads, _sm_count(dev))
+        db_part = torch.empty((plan.blocks, HD), device=dev,
+                              dtype=torch.float32)
+        err = _edge_lib().gat_edge_tc(
+            nq.data_ptr(), nk.data_ptr(), edge_emb.data_ptr(),
+            ws.data_ptr(), b_ke.data_ptr(), scores.data_ptr(),
+            gmax.data_ptr(), scale.data_ptr(), dalpha.data_ptr(),
+            d_denom.data_ptr(), src.data_ptr(), dst.data_ptr(),
+            mask.data_ptr(), _ptr(demb), dekb.data_ptr(), _ptr(demb), None,
+            dnq.data_ptr(), dnk.data_ptr(), None, db_part.data_ptr(),
+            db.data_ptr(), 2, G, N, E, D, HD, heads, 0, ld, plan.nb,
+            int(plan.stream), plan.hp, plan.stages, plan.tables, plan.blocks,
+            _stream())
+    else:
+        n_split, warps, n_blocks, dw_part, db_part = _split_scratch(
+            G, E, D, HD, dev, route, _sm_count(dev), cdt)
+        err = _bwd_lib().gat_bwd_pass2(
+            nq.data_ptr(), nk.data_ptr(), edge_emb.data_ptr(),
+            w_ke.data_ptr(), _ptr(w_t), b_ke.data_ptr(), scores.data_ptr(),
+            gmax.data_ptr(), dalpha.data_ptr(), scale.data_ptr(),
+            d_denom.data_ptr(), src.data_ptr(), dst.data_ptr(),
+            mask.data_ptr(), dekb.data_ptr(), _ptr(demb), dnq.data_ptr(),
+            dnk.data_ptr(), _ptr(dw_part), db_part.data_ptr(), _ptr(dw),
+            db.data_ptr(), _ptr(ws), G, N, E, D, HD, heads, n_split, width,
+            _dtype_code(nq), route, warps, n_blocks, ld, _stream())
     _build.check(err, "gat_bwd_pass2")
     _build.count_launch("gat_bwd_pass2", route)
-    if route == 1 and cot is None:
+    if route and cot is None:
         dw = bwd_dw(edge_emb, dekb)
     return dekb if demb is None else demb, dnq, dnk, dw, db
 

@@ -35,9 +35,11 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # (entry point, route) -> {__global__ kernel: launches a call}; route None
 # for the entry points with one route (csrc/gat_fwd.cu, gat_fwd_tc.cuh,
 # gat_bwd.cu, gat_bwd_tc.cuh, edge_moments.cu, edge_hidden.cu,
-# edge_hidden_tc.cuh). Route 1 of backward passes 1 and 2 launches its edge
-# kernel once a call at every D: W resident in shared memory up to 256 rows,
-# streamed through it past that (`edge_pass_tc_kernel<PASS, PAIRS, STREAM>`).
+# edge_hidden_tc.cuh). Backward passes 1 and 2 launch their edge kernel
+# once a call at every D: route 2 (bf16, csrc/gat_edge.cu) the wgmma kernel
+# fed by TMA (`edge_wgmma_kernel<PASS, NB, STREAM, HP>`), route 1 the
+# `mma.sync` one, W resident in shared memory up to 256 rows, streamed
+# through it past that (`edge_pass_tc_kernel<PASS, PAIRS, STREAM>`).
 # A pass of more than one column launch ends on one `gat_bwd_demb` call,
 # the demb product over all of its columns (its column launches then make
 # none: on route 0 no `demb_kernel` of their own). Every pass on route 1
@@ -48,16 +50,19 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # each kernel (`edge_hidden_tc_kernel<T, PIECE, WINDOWS>`,
 # `edge_hidden_bwd_tc_kernel<T, NT, PIECE>`) in both dtypes.
 _BWD_TC = {"edge_pass_tc_kernel": 1, "reduce_partials_kernel": 1}
+_BWD_WGMMA = {"edge_wgmma_kernel": 1, "reduce_partials_kernel": 1}
 PORT_KERNELS: dict[tuple[str, int | None], dict[str, int]] = {
     ("gat_pass_a_scores", 1): {"fwd_pass_tc_kernel": 1},
     ("gat_pass_a_scores", 0): {"pass_a_scores_kernel": 1},
     ("gat_pass_a_denoms", None): {"pass_a_denoms_kernel": 1},
     ("gat_pass_c", 1): {"fwd_pass_tc_kernel": 1},
     ("gat_pass_c", 0): {"pass_c_kernel": 1},
+    ("gat_bwd_pass1", 2): _BWD_WGMMA,
     ("gat_bwd_pass1", 1): _BWD_TC,
     ("gat_bwd_pass1", 0): {"bwd1_edge_kernel": 1, "demb_kernel": 1,
                            "dw_partial_kernel": 1,
                            "reduce_partials_kernel": 2},
+    ("gat_bwd_pass2", 2): _BWD_WGMMA,
     ("gat_bwd_pass2", 1): _BWD_TC,
     ("gat_bwd_pass2", 0): {"bwd2_edge_kernel": 1, "demb_kernel": 1,
                            "dw_partial_kernel": 1,

@@ -155,8 +155,11 @@ def _card(t):
 
 
 # the positions of w_me / w_ke, the streamed W, the dtype code, the route,
-# warps and blocks among the C entry points' arguments
+# warps and blocks among the C entry points' arguments; route 2's
+# (csrc/gat_edge.cu `gat_edge_tc`): W rounded to bf16, and its plan (nb,
+# stream, hp, stages, tables, blocks)
 W_AT, WS_AT, DTYPE_AT, ROUTE_AT, WARPS_AT, BLOCKS_AT = 3, 22, 31, 32, 33, 34
+EDGE_W_AT, EDGE_PLAN_AT = 3, slice(31, 37)
 
 
 @pytest.mark.parametrize("cdt,D", [(F32, 200), (F32, 512),
@@ -175,6 +178,7 @@ def test_wrappers_hand_the_kernels_w_unrounded_in_f32(monkeypatch, cdt, D):
         return handed[-1]
     monkeypatch.setattr(gk, "_bwd_lib", lambda: lib)
     monkeypatch.setattr(gk, "_dw_lib", lambda: lib)
+    monkeypatch.setattr(gk, "_edge_lib", lambda: lib)
     monkeypatch.setattr(gk, "_sm_count", lambda dev: 132)
     monkeypatch.setattr(gk, "_stream", lambda: 0)
     monkeypatch.setattr(gk, "_streamed_w", spy)
@@ -199,9 +203,23 @@ def test_wrappers_hand_the_kernels_w_unrounded_in_f32(monkeypatch, cdt, D):
                      heads)
     finally:
         _build.reset_launch_counts()
-    assert [name for name, _ in lib.calls] == ["gat_bwd_pass1", "gat_dw_tc",
-                                               "gat_bwd_pass2", "gat_dw_tc"]
+    # bf16 up to D = 256: the route the rule gives a launch with product 2
+    # (route 2: the wgmma edge kernel, csrc/gat_edge.cu)
+    edge = gk._edge_route(cdt, None, D, True) == 2
+    passes = ["gat_edge_tc"] * 2 if edge else ["gat_bwd_pass1",
+                                               "gat_bwd_pass2"]
+    assert [name for name, _ in lib.calls] == [passes[0], "gat_dw_tc",
+                                               passes[1], "gat_dw_tc"]
     for (_, args), w, ws in zip(lib.calls[::2], (w_me, w_ke), handed):
+        if edge:
+            # W rounded to bf16 once a call, and the launch's plan
+            assert ws.dtype == torch.bfloat16
+            assert torch.equal(ws, w.to(torch.bfloat16))
+            assert args[EDGE_W_AT] == ws.data_ptr() != w.data_ptr()
+            p = gk.edge_plan(G, E, D, HD, heads, 132)
+            assert args[EDGE_PLAN_AT] == (p.nb, int(p.stream), p.hp,
+                                          p.stages, p.tables, p.blocks)
+            continue
         assert args[DTYPE_AT] == gk._dtype_code(nodes[0])
         assert args[ROUTE_AT] == 1
         assert (args[WARPS_AT], args[BLOCKS_AT]) == \

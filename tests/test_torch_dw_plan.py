@@ -252,11 +252,13 @@ def test_route_0_hands_the_mma_sync_kernel_all_columns(monkeypatch):
 
 
 def test_wrappers_make_dw_once_a_pass_from_its_cotangent_rows(monkeypatch):
-    """Route 1: a pass of one launch hands `bwd_dw` the d_msg / dekb rows
-    its edge launch wrote, and its edge launch no dW partial; a pass of
-    several hands it the one (G, E, HD) array of every launch's rows."""
+    """The tensor-core routes: a pass of one launch hands `bwd_dw` the
+    d_msg / dekb rows its edge launch wrote (bf16: route 2, the wgmma edge
+    kernel, whose entry point takes no dW at all), a pass of several the
+    one (G, E, HD) array of every launch's rows."""
     lib = _Lib()
     monkeypatch.setattr(gk, "_bwd_lib", lambda: lib)
+    monkeypatch.setattr(gk, "_edge_lib", lambda: lib)
     monkeypatch.setattr(gk, "_dw_lib", lambda: lib)
     monkeypatch.setattr(gk, "_demb_lib", lambda: lib)
     monkeypatch.setattr(gk, "_sm_count", lambda dev: 132)
@@ -282,16 +284,24 @@ def test_wrappers_make_dw_once_a_pass_from_its_cotangent_rows(monkeypatch):
         finally:
             _build.reset_launch_counts()
         names = [name for name, _ in lib.calls]
-        assert names == ["gat_bwd_pass1"] * n \
+        edge = gk._edge_route(BF16, None, D, n == 1) == 2
+        assert names == ["gat_edge_tc" if edge else "gat_bwd_pass1"] * n \
             + (["gat_demb_tc"] if n > 1 else []) + ["gat_dw_tc"]
         assert counts["gat_bwd_dw"] == 1
         dw_args = lib.calls[-1][1]
-        # the pass's edge launches: no dW partial, no dW (pointers 18, 20)
+        # the pass's edge launches make no dW: route 2's entry point takes
+        # none among its arguments, route 1's no dW partial, no dW
+        # (pointers 18, 20)
         for _, args in lib.calls[:n]:
-            assert args[18] is None and args[20] is None
+            if edge:
+                assert args[22] == 1
+                assert len(args) == len(gk._EDGE_SIGNATURES["gat_edge_tc"])
+            else:
+                assert args[18] is None and args[20] is None
         assert dw_args[0] == emb.data_ptr()
         if n == 1:
-            assert dw_args[1] == lib.calls[0][1][13]       # its dmsg
+            # its dmsg
+            assert dw_args[1] == lib.calls[0][1][14 if edge else 13]
         else:
             assert dw_args[1] == lib.calls[n][1][0]        # demb's cot
         assert dw_args[4:7] == (G * E, D, HD)

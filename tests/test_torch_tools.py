@@ -312,19 +312,37 @@ def test_trace_summary_of_a_hand_written_trace(tmp_path, capsys):
                                       "Memcpy": 1, "Memset": 1}
 
 
+def _bf16_routes(launches, D, several):
+    """The routes a bf16 train step at width D takes: backward passes 1 and
+    2 the rule's (`_edge_route`: route 2, the wgmma edge kernel, for a pass
+    of `several` launches, route 1, the mma.sync one, for a pass of one
+    with its demb product), route 1 for the other routed entry points."""
+    from qagnn_tpu_torch.ops import gat_kernels as gk
+
+    edge = gk._edge_route(torch.bfloat16, None, D, not several)
+    route = {"gat_bwd_pass1": edge, "gat_bwd_pass2": edge}
+
+    return {(k, route.get(k, 1)): n for k, n in launches.items()
+            if k not in ("gat_pass_a_denoms", "edge_moments")}
+
+
 def test_expected_kernels_of_a_train_step():
     """One train step at k=5 on the bf16 routes: what rows 6-12 launch,
-    by __global__ name. Each backward pass makes its dW in one
-    `gat_bwd_dw` call (`dw_wgmma_kernel` and its partials' reduction)."""
+    by __global__ name. Backward passes 1 and 2, a pass of one launch at
+    D = 200, run their edge launch on route 1 (`edge_pass_tc_kernel`, the
+    mma.sync kernel, which makes the demb product too), and each makes its
+    dW in one `gat_bwd_dw` call (`dw_wgmma_kernel` and its partials'
+    reduction)."""
     launches = {"gat_pass_a_scores": 5, "gat_pass_a_denoms": 5,
                 "gat_pass_c": 5, "gat_bwd_pass1": 5, "gat_bwd_pass2": 5,
                 "gat_bwd_dw": 10, "edge_moments": 1, "edge_hidden": 1,
                 "edge_hidden_bwd": 1, "gat_unproj_scores": 1}
-    routes = {(k, 1): n for k, n in launches.items()
-              if k not in ("gat_pass_a_denoms", "edge_moments")}
-    calls = ts.entry_calls(launches, routes)
+    from qagnn_tpu_torch.ops import gat_kernels as gk
+
+    calls = ts.entry_calls(launches, _bf16_routes(launches, 200, False))
     assert ("gat_unproj_scores", 1) not in calls
     assert calls[("gat_pass_a_denoms", None)] == 5
+    assert gk._edge_route(torch.bfloat16, None, 200, True) == 1
     assert ts.expected_kernels(calls) == {
         "fwd_pass_tc_kernel": 10, "pass_a_denoms_kernel": 5,
         "edge_pass_tc_kernel": 10, "dw_wgmma_kernel": 10,
@@ -336,8 +354,9 @@ def test_expected_kernels_of_a_train_step():
 def test_expected_kernels_of_a_train_step_at_gnn_dim_512():
     """At gnn_dim 512 (4 heads: two head groups of 256 columns a pass,
     D = 512 past the 256 rows W holds in shared memory) a bf16 train step
-    at k=5 calls each GAT entry point twice a layer, and route 1 of
-    backward passes 1 and 2 streams W's rows in one edge launch a call:
+    at k=5 calls each GAT entry point twice a layer, and route 2 of
+    backward passes 1 and 2 streams W's rows in one edge launch a call
+    (`edge_wgmma_kernel`, no demb product in a launch of a pass of several):
     one edge kernel a call, as at gnn_dim 200; each pass of two launches
     ends on one demb product (`gat_bwd_demb`) and, as every pass, one dW
     product over all of its columns (`gat_bwd_dw`), not one a call. The edge
@@ -348,16 +367,17 @@ def test_expected_kernels_of_a_train_step_at_gnn_dim_512():
     D, HD = gk.kernel_widths(512, 512, 4)
     per = len(gk.launches(HD, 4))
     assert (D, per) == (512, 2) and gk._bwd_streams(D)
+    assert gk._edge_route(torch.bfloat16, None, D, False) == 2
     launches = {"gat_pass_a_scores": 5 * per, "gat_pass_a_denoms": 5 * per,
                 "gat_pass_c": 5 * per, "gat_bwd_pass1": 5 * per,
                 "gat_bwd_pass2": 5 * per, "gat_bwd_demb": 2 * 5,
                 "gat_bwd_dw": 2 * 5, "edge_moments": 1, "edge_hidden": 1,
                 "edge_hidden_bwd": 1}
-    routes = {(k, 1): n for k, n in launches.items()
-              if k not in ("gat_pass_a_denoms", "edge_moments")}
-    want = ts.expected_kernels(ts.entry_calls(launches, routes))
-    assert want["edge_pass_tc_kernel"] == 2 * 5 * per == 20
-    assert want["dw_wgmma_kernel"] == want["edge_pass_tc_kernel"] // per
+    want = ts.expected_kernels(ts.entry_calls(
+        launches, _bf16_routes(launches, D, True)))
+    assert want["edge_wgmma_kernel"] == 2 * 5 * per == 20
+    assert "edge_pass_tc_kernel" not in want
+    assert want["dw_wgmma_kernel"] == want["edge_wgmma_kernel"] // per
     assert "dw_tc_kernel" not in want
     assert want["demb_tc_kernel"] == 10 and "demb_kernel" not in want
     assert want["fwd_pass_tc_kernel"] == 20
@@ -383,6 +403,7 @@ def test_kernel_map_names_the_csrc_kernels():
     for name in ("fwd_pass_tc_kernel<0, 13>(x)", "void edge_rows_kernel(x)",
                  "void a::b::dw_tc_kernel<2, 16>(Args)",
                  "void a::dw_wgmma_kernel<__nv_bfloat16, 2, 192>(x)",
+                 "void a::edge_wgmma_kernel<1, 4, false, 4>(x)",
                  "void edge_hidden_tc_kernel<float, 16, true>(x)",
                  "void a::edge_hidden_bwd_tc_kernel<__nv_bfloat16, 6, 8>(x)"):
         assert ts.kernel_base(name) in names
